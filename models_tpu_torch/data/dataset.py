@@ -1,0 +1,117 @@
+"""Dataset: a schema-carrying table held as a dict of numpy columns.
+
+The JAX package keeps an arrow table (``models_tpu/data/dataset.py``); the port
+needs no parquet IO, so a column is a numpy array and a list column is stored
+the way ``table_to_numpy`` hands it to the loader: ``<name>__values`` (every
+row's values, concatenated) and ``<name>__offsets`` (row starts, length n+1).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..schema import ColumnSchema, Schema
+
+VALUES, OFFSETS = "__values", "__offsets"
+
+
+def _is_ragged(col) -> bool:
+    return (
+        isinstance(col, (list, np.ndarray))
+        and len(col) > 0
+        and (getattr(col, "dtype", None) == object or isinstance(col, list))
+        and isinstance(col[0], (list, np.ndarray))
+    )
+
+
+def _encode(data: Dict[str, object]) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for name, col in data.items():
+        if _is_ragged(col):
+            rows = [np.asarray(r) for r in col]
+            out[name + OFFSETS] = np.concatenate(
+                [[0], np.cumsum([len(r) for r in rows])]
+            ).astype(np.int64)
+            values = np.concatenate(rows)
+            if values.dtype == object:  # equal-length rows made a 2-D object array
+                values = np.asarray(values.tolist())
+            out[name + VALUES] = values
+        else:
+            out[name] = np.asarray(col)
+    return out
+
+
+def take_rows(cols: Dict[str, np.ndarray], idx: np.ndarray) -> Dict[str, np.ndarray]:
+    """Rows ``idx`` of encoded columns, ragged list columns included."""
+    out: Dict[str, np.ndarray] = {}
+    for name, col in cols.items():
+        if name.endswith(VALUES):
+            continue
+        if name.endswith(OFFSETS):
+            base = name[: -len(OFFSETS)]
+            lengths = np.diff(col)[idx]
+            new_offs = np.zeros(len(idx) + 1, dtype=np.int64)
+            np.cumsum(lengths, out=new_offs[1:])
+            shift = np.repeat(col[:-1][idx] - new_offs[:-1], lengths)
+            out[base + VALUES] = cols[base + VALUES][np.arange(new_offs[-1]) + shift]
+            out[name] = new_offs
+        else:
+            out[name] = col[idx]
+    return out
+
+
+class Dataset:
+    """An in-memory table of numpy columns plus its :class:`Schema`."""
+
+    def __init__(self, data: Dict[str, object], schema: Optional[Schema] = None):
+        if isinstance(data, Dataset):
+            schema = schema or data.schema
+            data = data._cols
+        self._cols = _encode(data)
+        if schema is None:
+            schema = Schema([ColumnSchema(n) for n in self.column_names])
+        self.schema = schema
+
+    @property
+    def column_names(self) -> List[str]:
+        names = []
+        for n in self._cols:
+            if n.endswith(VALUES):
+                continue
+            names.append(n[: -len(OFFSETS)] if n.endswith(OFFSETS) else n)
+        return names
+
+    @property
+    def num_rows(self) -> int:
+        for name, col in self._cols.items():
+            if name.endswith(OFFSETS):
+                return len(col) - 1
+            if not name.endswith(VALUES):
+                return len(col)
+        return 0
+
+    def __len__(self) -> int:
+        return self.num_rows
+
+    def to_numpy_dict(self) -> Dict[str, np.ndarray]:
+        """Every column; a list column as its ``__values``/``__offsets`` pair."""
+        return dict(self._cols)
+
+    def _from_cols(self, cols: Dict[str, np.ndarray]) -> "Dataset":
+        ds = Dataset.__new__(Dataset)
+        ds._cols, ds.schema = cols, self.schema
+        return ds
+
+    def take(self, n: int) -> "Dataset":
+        return self._from_cols(take_rows(self._cols, np.arange(min(n, self.num_rows))))
+
+    def unique_by(self, column: str) -> "Dataset":
+        """Deduplicate rows by a column, keeping each value's FIRST row, in
+        first-occurrence order (the catalog's item features depend on it)."""
+        _, first_idx = np.unique(self._cols[column], return_index=True)
+        return self._from_cols(take_rows(self._cols, np.sort(first_idx)))
+
+    def __repr__(self):
+        return f"Dataset(rows={self.num_rows}, cols={len(self.schema)})"

@@ -1,0 +1,138 @@
+"""Synthetic datasets from the known schemas.
+
+Copies the ``e-commerce`` and ``movielens-25m`` schemas and the numpy draws of
+``models_tpu/data/synthetic.py``, so that one seed gives the same rows in both
+packages.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+
+from ..schema import (
+    ColumnSchema,
+    Domain,
+    Schema,
+    Tags,
+    create_categorical_column as cat,
+    create_continuous_column as cont,
+)
+from .dataset import Dataset
+
+
+def _binary_target(name: str, domain_max: int = 1) -> ColumnSchema:
+    return ColumnSchema(
+        name,
+        tags=(Tags.BINARY_CLASSIFICATION, Tags.TARGET),
+        dtype="int32",
+        int_domain=Domain(0, domain_max, is_categorical=False),
+    )
+
+
+def _regression_target(name: str) -> ColumnSchema:
+    return ColumnSchema(name, tags=(Tags.REGRESSION, Tags.TARGET), dtype="float32")
+
+
+def _ecommerce_schema() -> Schema:
+    user_cats = {
+        "user_categories": 300, "user_shops": 500, "user_brands": 250,
+        "user_intentions": 50, "user_profile": 20, "user_group": 14,
+        "user_gender": 3, "user_age": 8, "user_consumption_1": 4,
+        "user_consumption_2": 4, "user_is_occupied": 3, "user_geography": 5,
+    }
+    item_cats = {"item_category": 100, "item_shop": 500, "item_intention": 25, "item_brand": 250}
+    cols: List[ColumnSchema] = []
+    for name, card in user_cats.items():
+        cols.append(cat(name, card, tags=Tags.USER))
+    cols.append(cat("user_id", 1000, tags=(Tags.USER, Tags.USER_ID)))
+    for name, card in item_cats.items():
+        cols.append(cat(name, card, tags=Tags.ITEM))
+    cols.append(cat("item_id", 1000, tags=(Tags.ITEM, Tags.ITEM_ID)))
+    cols.append(cat("position", 4, tags=Tags.CONTEXT))
+    for name, card in (
+        ("user_item_categories", 300), ("user_item_shops", 500),
+        ("user_item_brands", 250), ("user_item_intentions", 25),
+    ):
+        cols.append(cat(name, card, tags=("user_item",)))
+    cols.append(_binary_target("click"))
+    cols.append(_binary_target("conversion", domain_max=0))
+    return Schema(cols)
+
+
+def _movielens_25m_schema() -> Schema:
+    return Schema(
+        [
+            cat("movieId", 56680, tags=(Tags.ITEM, Tags.ITEM_ID)),
+            cat("userId", 162541, tags=(Tags.USER, Tags.USER_ID)),
+            cat("genres", 20, tags=Tags.ITEM, is_list=True, max_seq_length=10),
+            cont("TE_movieId_rating", tags=Tags.ITEM),
+            cont("userId_count", tags=Tags.USER),
+            ColumnSchema("title", dtype="bytes"),
+            _binary_target("rating_binary"),
+            _regression_target("rating"),
+        ]
+    )
+
+
+KNOWN_DATASETS: Dict[str, Callable[[], Schema]] = {
+    "e-commerce": _ecommerce_schema,
+    "movielens-25m": _movielens_25m_schema,
+}
+
+
+def known_schema(name: str) -> Schema:
+    if name not in KNOWN_DATASETS:
+        raise ValueError(f"Unknown dataset {name!r}. Known: {sorted(KNOWN_DATASETS)}")
+    return KNOWN_DATASETS[name]()
+
+
+def generate_data(
+    input: Union[str, Schema],
+    num_rows: int = 100,
+    seed: int = 42,
+    min_session_length: Optional[int] = None,
+    max_session_length: Optional[int] = None,
+) -> Dataset:
+    """A random dataset honouring the schema's domains."""
+    schema = known_schema(input) if isinstance(input, str) else input
+    rng = np.random.default_rng(seed)
+    data = {
+        col.name: _sample_column(col, num_rows, rng, min_session_length, max_session_length)
+        for col in schema
+    }
+    return Dataset(data, schema=schema)
+
+
+def _sample_column(col, num_rows, rng, min_len, max_len):
+    if col.is_list:
+        length = max_len or col.max_seq_length or 4
+        low = min_len if min_len is not None else max(1, length // 2)
+        lengths = rng.integers(low, length + 1, size=num_rows)
+        rows = [_sample_values(col, int(n), rng) for n in lengths]
+        return np.array([np.asarray(r) for r in rows], dtype=object)
+    return _sample_values(col, num_rows, rng)
+
+
+def _sample_values(col: ColumnSchema, n: int, rng: np.random.Generator) -> np.ndarray:
+    if col.dtype == "bytes":
+        ids = rng.integers(0, max(n, 10), size=n)
+        return np.array([f"{col.name}_{i}" for i in ids])
+    if col.int_domain is not None and col.int_domain.is_categorical:
+        card = col.cardinality
+        # mild popularity skew; id 0 reserved
+        lo = max(col.int_domain.min, 1) if card > 2 else col.int_domain.min
+        probs = 1.0 / np.arange(lo + 1, card + 1) ** 0.75
+        probs /= probs.sum()
+        return rng.choice(np.arange(lo, card), size=n, p=probs).astype(np.int32)
+    if col.has_tag(Tags.BINARY_CLASSIFICATION) or (col.is_target and col.dtype.startswith("int")):
+        return rng.integers(0, 2, size=n).astype(np.int32)
+    if col.dtype.startswith("int"):
+        hi = col.int_domain.max + 1 if col.int_domain else 100
+        return rng.integers(0, hi, size=n).astype(np.int32)
+    if col.float_domain:
+        lo = col.float_domain[0] or 0.0
+        hi = col.float_domain[1] or 1.0
+        return rng.uniform(lo, hi, size=n).astype(np.float32)
+    return rng.normal(size=n).astype(np.float32)

@@ -1,0 +1,35 @@
+"""InputBlockV2: schema -> (categorical | continuous) branches, concatenated
+(``models_tpu/inputs/base.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..core.aggregation import ConcatFeatures
+from ..core.combinators import ParallelBlock
+from ..schema import Schema, Tags
+from .continuous import Continuous
+from .embedding import Embeddings
+
+
+def InputBlockV2(schema: Schema, dim: Optional[int] = None, seed: int = 0,
+                 device=None) -> ParallelBlock:
+    """Build the input layer from the schema; TARGET columns are excluded.
+    The branches' outputs are concatenated into one (B, out_features) tensor."""
+    schema = schema.excluding_by_tag(Tags.TARGET)
+    branches = {}
+    cat_schema = schema.categorical
+    if len(cat_schema):
+        branches["categorical"] = Embeddings(cat_schema, dim=dim, seed=seed, device=device)
+    cont_schema = schema.continuous.excluding_by_tag(Tags.EMBEDDING)
+    if len(cont_schema):
+        branches["continuous"] = Continuous(cont_schema)
+    if not branches:
+        raise ValueError("Schema produced no input branches")
+    block = ParallelBlock(
+        branches, aggregation=ConcatFeatures(), block_name="input_block", schema=schema
+    )
+    # every categorical column gives its table's dim, every continuous one 1
+    tables = branches["categorical"].branches.values() if len(cat_schema) else ()
+    block.out_features = len(cont_schema) + sum(t.dim * len(t.features) for t in tables)
+    return block

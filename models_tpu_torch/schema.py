@@ -1,0 +1,243 @@
+"""Schema: tagged column descriptions that drive model construction.
+
+A copy of the serving subset of ``models_tpu/schema.py`` (the port imports
+nothing of the JAX package). A ``Schema`` is an ordered collection of
+``ColumnSchema`` objects, each carrying semantic ``Tags``, dtype, list-ness and,
+for categorical columns, an integer domain with a known cardinality.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from enum import Enum
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
+
+
+class Tags(str, Enum):
+    """Semantic column tags (the values of merlin-core ``Tags``)."""
+
+    USER = "user"
+    ITEM = "item"
+    SESSION = "session"
+    CONTEXT = "context"
+
+    USER_ID = "user_id"
+    ITEM_ID = "item_id"
+    SESSION_ID = "session_id"
+
+    CATEGORICAL = "categorical"
+    CONTINUOUS = "continuous"
+    LIST = "list"
+    SEQUENCE = "sequence"
+    TEXT = "text"
+    EMBEDDING = "embedding"
+    TOKENIZED = "tokenized"
+    TIME = "time"
+
+    TARGET = "target"
+    BINARY_CLASSIFICATION = "binary_classification"
+    MULTI_CLASS_CLASSIFICATION = "multi_class_classification"
+    REGRESSION = "regression"
+
+    def __str__(self) -> str:
+        return self.value
+
+
+TagLike = Union[str, Tags]
+
+
+def _norm_tag(tag: TagLike) -> str:
+    return tag.value if isinstance(tag, Tags) else str(tag)
+
+
+def _norm_tags(tags: Union[TagLike, Iterable[TagLike], None]) -> Tuple[str, ...]:
+    if tags is None:
+        return ()
+    if isinstance(tags, (str, Tags)):
+        return (_norm_tag(tags),)
+    return tuple(_norm_tag(t) for t in tags)
+
+
+@dataclass(frozen=True)
+class Domain:
+    """Integer domain of a column. ``max`` is inclusive, so the cardinality of a
+    categorical column is ``max + 1``."""
+
+    min: int = 0
+    max: int = 0
+    name: Optional[str] = None
+    is_categorical: bool = True
+
+    @property
+    def cardinality(self) -> int:
+        return int(self.max) + 1
+
+
+@dataclass(frozen=True)
+class ColumnSchema:
+    name: str
+    tags: Tuple[str, ...] = ()
+    dtype: str = "float32"
+    is_list: bool = False
+    is_ragged: bool = False
+    int_domain: Optional[Domain] = None
+    float_domain: Optional[Tuple[float, float]] = None
+    # (min_count, max_count) for list columns; max_count is the pad length
+    value_count: Optional[Tuple[int, int]] = None
+    properties: Dict[str, object] = field(default_factory=dict)
+
+    def __post_init__(self):
+        object.__setattr__(self, "tags", _norm_tags(self.tags))
+
+    def has_tag(self, tag: TagLike) -> bool:
+        return _norm_tag(tag) in self.tags
+
+    @property
+    def is_categorical(self) -> bool:
+        return self.has_tag(Tags.CATEGORICAL)
+
+    @property
+    def is_continuous(self) -> bool:
+        return self.has_tag(Tags.CONTINUOUS)
+
+    @property
+    def is_target(self) -> bool:
+        return self.has_tag(Tags.TARGET)
+
+    @property
+    def cardinality(self) -> Optional[int]:
+        return self.int_domain.cardinality if self.int_domain else None
+
+    @property
+    def domain_name(self) -> str:
+        """Shared-embedding key: columns with the same int-domain name share a table."""
+        if self.int_domain and self.int_domain.name:
+            return self.int_domain.name
+        return self.name
+
+    @property
+    def max_seq_length(self) -> int:
+        """Pad length of a list column (0 for scalars)."""
+        if not self.is_list:
+            return 0
+        if self.value_count:
+            return int(self.value_count[1])
+        return int(self.properties.get("max_seq_length", 0))
+
+
+class Schema:
+    """Ordered, name-keyed collection of ``ColumnSchema``."""
+
+    def __init__(self, columns: Union[Iterable[ColumnSchema], Iterable[str], None] = None):
+        cols: List[ColumnSchema] = []
+        for c in columns or ():
+            cols.append(ColumnSchema(c) if isinstance(c, str) else c)
+        self._by_name: Dict[str, ColumnSchema] = {c.name: c for c in cols}
+
+    def __iter__(self) -> Iterator[ColumnSchema]:
+        return iter(self._by_name.values())
+
+    def __len__(self) -> int:
+        return len(self._by_name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._by_name
+
+    def __getitem__(self, name: str) -> ColumnSchema:
+        return self._by_name[name]
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Schema) and self._by_name == other._by_name
+
+    def __repr__(self) -> str:
+        return "Schema([" + ", ".join(f"{c.name}{list(c.tags)}" for c in self) + "])"
+
+    @property
+    def column_names(self) -> List[str]:
+        return list(self._by_name)
+
+    @property
+    def first(self) -> ColumnSchema:
+        return next(iter(self._by_name.values()))
+
+    def select_by_tag(self, tags: Union[TagLike, Iterable[TagLike]]) -> "Schema":
+        want = set(_norm_tags(tags))
+        return Schema([c for c in self if want & set(c.tags)])
+
+    def excluding_by_tag(self, tags: Union[TagLike, Iterable[TagLike]]) -> "Schema":
+        drop = set(_norm_tags(tags))
+        return Schema([c for c in self if not (drop & set(c.tags))])
+
+    @property
+    def categorical(self) -> "Schema":
+        return self.select_by_tag(Tags.CATEGORICAL).excluding_by_tag(Tags.TARGET)
+
+    @property
+    def continuous(self) -> "Schema":
+        return self.select_by_tag(Tags.CONTINUOUS).excluding_by_tag(Tags.TARGET)
+
+    @property
+    def targets(self) -> "Schema":
+        return self.select_by_tag(Tags.TARGET)
+
+    @property
+    def item_id_column(self) -> ColumnSchema:
+        sel = self.select_by_tag(Tags.ITEM_ID)
+        if not len(sel):
+            raise ValueError("Schema has no column tagged item_id")
+        return sel.first
+
+
+def infer_embedding_dim(
+    col: ColumnSchema, multiplier: float = 2.0, ensure_multiple_of_8: bool = True
+) -> int:
+    """``multiplier * cardinality**0.25``, rounded up to a multiple of 8."""
+    card = col.cardinality
+    if card is None:
+        raise ValueError(f"Column {col.name} has no int domain; cannot infer embedding dim")
+    dim = int(math.ceil(multiplier * card ** 0.25))
+    if ensure_multiple_of_8:
+        dim = int(math.ceil(dim / 8) * 8)
+    return max(dim, 8)
+
+
+def create_categorical_column(
+    name: str,
+    num_items: int,
+    tags: Union[TagLike, Iterable[TagLike], None] = None,
+    is_list: bool = False,
+    max_seq_length: int = 0,
+    domain_name: Optional[str] = None,
+) -> ColumnSchema:
+    tags = _norm_tags(tags) + (Tags.CATEGORICAL.value,)
+    return ColumnSchema(
+        name=name,
+        tags=tuple(dict.fromkeys(tags)),
+        dtype="int32",
+        is_list=is_list,
+        is_ragged=is_list,
+        int_domain=Domain(min=0, max=num_items, name=domain_name or name),
+        value_count=(0, max_seq_length) if is_list else None,
+    )
+
+
+def create_continuous_column(
+    name: str,
+    tags: Union[TagLike, Iterable[TagLike], None] = None,
+    is_list: bool = False,
+    max_seq_length: int = 0,
+    min_value: Optional[float] = None,
+    max_value: Optional[float] = None,
+) -> ColumnSchema:
+    tags = _norm_tags(tags) + (Tags.CONTINUOUS.value,)
+    fd = (min_value, max_value) if min_value is not None or max_value is not None else None
+    return ColumnSchema(
+        name=name,
+        tags=tuple(dict.fromkeys(tags)),
+        dtype="float32",
+        is_list=is_list,
+        is_ragged=is_list,
+        float_domain=fd,
+        value_count=(0, max_seq_length) if is_list else None,
+    )
