@@ -6,17 +6,18 @@
 2. builds the port's CUDA kernels from ``models_tpu_torch/csrc`` (nvcc, sm_90a);
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, fp32 and bf16, with padding and planted
-   ties;
+   ties, and the streaming kernel also at k=256 and k=512 and with few query
+   rows over a 1M-row catalog (more than 32 catalog splits per row);
 4. serves the two-tower model end to end at the bench's full width
    (movielens-25m schema, query_tower=(256, 128), embedding_dim=128, seeded
    random weights) over the whole 56,680-item catalog, fp32 and bf16
-   indexes: a 256-row request (binned route), a 4096-row request (the
-   streaming kernel) and one binned top-k with the rescore kernel, each held
-   against the plain route; the launch counts of this phase show which
-   kernels it ran;
+   indexes: a 256-row request (the binned route, phase B in the rescore
+   kernel) and a 4096-row request (the streaming kernel), each held against
+   the plain route; the launch counts of this phase show which kernels it ran;
 5. prints one JSON line with each kernel's launches, error against its plain
    version, its time, the plain version's, the least time the card could take
    and one PyTorch call's, then the card line and ``{"ok": true, ...}`` last.
+   Request times are host-clock medians with their range, [median, min, max].
 
 Any failed check raises, and the script exits non-zero. It imports nothing of
 JAX or of the JAX package.
@@ -66,15 +67,18 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def host_ms(fn, reps: int = 5) -> float:
-    """Mean wall time of ``fn`` ending in a synchronise (a whole request)."""
+def host_ms(fn, reps: int = 21) -> list:
+    """Wall times of ``reps`` calls of ``fn``, each ending in a synchronise (a
+    whole request): [median, min, max] in ms."""
     fn()
     torch.cuda.synchronize()
-    t = time.perf_counter()
+    times = []
     for _ in range(reps):
+        t = time.perf_counter()
         fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t) * 1e3 / reps
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return [float(np.median(times)), min(times), max(times)]
 
 
 def tol_for(ref) -> float:
@@ -119,16 +123,22 @@ def phase_kernels(dev, gen):
     from models_tpu_torch.ops import topk as T
 
     errs = {"streaming_topk": 0.0, "binned_rescore": 0.0}
-    for B, C, n_valid in ((4096, 56_704, CATALOG), (2048, 1_000_000, None)):
+    # (B, C, n_valid, k): the two serving sizes; a long list (k=256, several
+    # 32-entry chunks shifted per insert) and the largest the kernel holds;
+    # few rows over 1M candidates, so that each row merges over 32 splits
+    cases = ((4096, 56_704, CATALOG, K), (2048, 1_000_000, None, K),
+             (64, 1_000_000, 999_937, 256), (16, 56_704, CATALOG, 512),
+             (8, 1_000_000, None, K))
+    for B, C, n_valid, k in cases:
         q = torch.randn(B, 128, device=dev, generator=gen)
         c = torch.randn(C, 128, device=dev, generator=gen)
         for dup in (C // 3, C // 2, (n_valid or C) - 1):  # planted ties
             c[dup] = c[7]
         for dtype in (torch.float32, torch.bfloat16):
             cd = c.to(dtype)
-            got = T.streaming_topk(q, cd, K, n_valid=n_valid)
-            want = T.streaming_topk_plain(q, cd, K, n_valid=n_valid)
-            err = check_topk(f"streaming_topk B={B} C={C} n_valid={n_valid} {dtype}",
+            got = T.streaming_topk(q, cd, k, n_valid=n_valid)
+            want = T.streaming_topk_plain(q, cd, k, n_valid=n_valid)
+            err = check_topk(f"streaming_topk B={B} C={C} n_valid={n_valid} k={k} {dtype}",
                              got, want, positions=True)
             errs["streaming_topk"] = max(errs["streaming_topk"], err)
             # a planted duplicate ranks: query with row 7 itself
@@ -163,9 +173,8 @@ def build_model(dev):
 
 
 def phase_serving(dev, model, catalog, queries):
-    """The main path: index, then serve requests of 256 and 4096 rows."""
-    from models_tpu_torch.core.types import to_device_batch
-    from models_tpu_torch.data import Loader
+    """The main path: index, then serve requests of 256 rows (the binned
+    route, phase B in the rescore kernel) and 4096 rows (the streaming kernel)."""
     from models_tpu_torch.ops import topk as T
 
     results, timing = {}, {}
@@ -181,24 +190,17 @@ def phase_serving(dev, model, catalog, queries):
         require(bf.candidates.shape == (56_704, 128) and bf.n_valid == CATALOG,
                 f"index shape {tuple(bf.candidates.shape)}, n_valid {bf.n_valid}")
         for B in (256, 4096):
-            before = T.streaming_topk.launches
+            before = T.streaming_topk.launches, T.binned_rescore.launches
             out = enc.predict(q_ds[B], batch_size=B, device=dev)
-            ran_k6 = T.streaming_topk.launches > before
+            ran_k6 = T.streaming_topk.launches > before[0]
+            ran_k5 = T.binned_rescore.launches > before[1]
             require(ran_k6 == (B == 4096), f"B={B}: streaming kernel ran: {ran_k6}")
+            require(ran_k5 == (B == 256), f"B={B}: rescore kernel ran: {ran_k5}")
             require(out["scores"].shape == (B, K) and out["ids"].shape == (B, K),
                     f"predict shapes {out['scores'].shape}")
             require(np.isfinite(out["scores"]).all(), "non-finite scores")
             require(((out["ids"] >= 0) & (out["ids"] < CATALOG)).all(), "ids out of range")
             results[(tag, B)] = (enc, out)
-        # K5 on the binned route, as a caller asks for it
-        x, _ = next(iter(Loader(q_ds[256], 256)))
-        with torch.no_grad():
-            qv = model.query_encoder(to_device_batch(x, dev))
-        before = T.binned_rescore.launches
-        got = T.binned_topk(qv, bf.candidates, K, ids=bf.ids, n_valid=bf.n_valid,
-                            pallas_rescore=True, device=dev)
-        require(T.binned_rescore.launches > before, "binned_topk(pallas_rescore) ran no kernel")
-        results[(tag, "rescore")] = (qv, got)
     return results, timing
 
 
@@ -211,16 +213,11 @@ def check_serving(dev, model, queries, results):
     from models_tpu_torch.data import Loader
     from models_tpu_torch.ops import topk as T
 
-    for (tag, B), value in results.items():
-        if B == "rescore":
-            qv, got = value
-            bf_enc = results[(tag, 256)][0]
-        else:
-            bf_enc, out = value
-            x, _ = next(iter(Loader(queries.take(B), B)))
-            with torch.no_grad():
-                qv = model.query_encoder(to_device_batch(x, dev))
-            got = (torch.as_tensor(out["scores"]), torch.as_tensor(out["ids"]))
+    for (tag, B), (bf_enc, out) in results.items():
+        x, _ = next(iter(Loader(queries.take(B), B)))
+        with torch.no_grad():
+            qv = model.query_encoder(to_device_batch(x, dev))
+        got = (torch.as_tensor(out["scores"]), torch.as_tensor(out["ids"]))
         bf = bf_enc.blocks[-1].topk_layer
         want = T.streaming_topk_plain(qv, bf.candidates, K, ids=bf.ids, n_valid=bf.n_valid)
         check_topk(f"serve {tag} B={B} vs plain", got, want)
@@ -300,13 +297,20 @@ def phase_measure(dev, model, queries, results, launches, errs):
         idx = T.select_bins(q256, full, K, n_valid=n)
         B, kb = idx.shape
         c3 = full.view(-1, bs, D)
+        got = T.binned_rescore(q256, full, idx, bs)
+        want = T.binned_rescore_plain(q256, full, idx, bs)
+        torch.cuda.synchronize()
+        err = T.max_abs_err(got, want)
+        require(err <= tol_for(want), f"binned_rescore {tag} at the serving bins: max|d| {err}")
+        print(f"  binned_rescore {tag} at the serving bins B={B} kb={kb}: max|d| {err:.3g}",
+              flush=True)
         ms = cuda_ms(lambda: T.binned_rescore(q256, full, idx, bs))
         plain = cuda_ms(lambda: T.binned_rescore_plain(q256, full, idx, bs))
         lib = cuda_ms(lambda: torch.einsum("bd,bksd->bks", q256, c3[idx.long()].float()))
         n_bins = int(torch.unique(idx).numel())  # each selected bin read once
         k5 = _row("binned_rescore", "models_tpu_torch/csrc/binned_rescore.cu",
                   "models_tpu/ops/topk.py:208", launches["binned_rescore"],
-                  errs["binned_rescore"], ms, plain, lib, 2 * B * kb * bs * D,
+                  max(errs["binned_rescore"], err), ms, plain, lib, 2 * B * kb * bs * D,
                   n_bins * bs * D * item + B * D * 4 + B * kb * 4 + B * kb * bs * 4)
         print(f"  {tag}: phase A selects kb={kb} bins per row, {n_bins} distinct", flush=True)
         if tag == "fp32":

@@ -5,8 +5,8 @@ Routes, picked by :func:`topk_route` as the JAX ``topk_scores`` picks them:
 - ``direct``: one product and one selection, for a catalog of at most one tile;
 - ``binned``: the two-phase exact top-k. Phase A scores every candidate and
   keeps each 64-row bin's max (a plain product, as the JAX package leaves it
-  to XLA); phase B rescores only the rows of the best ``k + margin`` bins,
-  through :func:`binned_rescore` when asked (the kernel replacing K5);
+  to XLA); phase B rescores only the rows of the best ``k + margin`` bins
+  through :func:`binned_rescore` (the kernel replacing K5);
 - ``streaming``: the CUDA kernel :func:`streaming_topk` (replacing K6), for
   query batches whose binned pool would be too large, when the tensors lie on
   the card;
@@ -287,7 +287,7 @@ def select_bins(q: torch.Tensor, full: torch.Tensor, k: int, bin_size: int = _BI
     return bin_idx.to(torch.int32).contiguous()
 
 
-def _binned(q, c, k, ids, bin_size, bin_margin, n_valid, pallas_rescore):
+def _binned(q, c, k, ids, bin_size, bin_margin, n_valid):
     _check_k(k)
     B, D = q.shape
     C = c.shape[0]
@@ -306,10 +306,7 @@ def _binned(q, c, k, ids, bin_size, bin_margin, n_valid, pallas_rescore):
     bin_idx = select_bins(q, full, k, bin_size, bin_margin, n_valid)
 
     # phase B: rescore the rows of the selected bins only
-    if pallas_rescore:
-        pool = binned_rescore(q, full, bin_idx, bin_size)
-    else:
-        pool = binned_rescore_plain(q, full, bin_idx, bin_size)
+    pool = binned_rescore(q, full, bin_idx, bin_size)
     cols = (bin_idx.long()[:, :, None] * bin_size
             + torch.arange(bin_size, device=q.device)[None, None, :]).reshape(B, -1)
     if mask_pad:
@@ -333,7 +330,6 @@ def binned_topk(
     bin_size: int = _BINNED_BIN_SIZE,
     bin_margin: int = _BINNED_MARGIN,
     n_valid: Optional[int] = None,
-    pallas_rescore: bool = False,
     device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact two-phase top-k (see the JAX docstring for the proof).
@@ -342,11 +338,11 @@ def binned_topk(
     and at most k-1 bins have one, so the k best bins by max hold them all.
     The proof needs both phases to score alike; phase A (a cuBLAS product) and
     phase B may round differently in the last bit, which the ``bin_margin``
-    extra bins absorb. ``n_valid`` masks rows padded at index build.
-    ``pallas_rescore`` (the JAX option's name) sends phase B through the
-    :func:`binned_rescore` kernel wrapper instead of its plain version."""
+    extra bins absorb. ``n_valid`` masks rows padded at index build. Phase B
+    is :func:`binned_rescore`; the JAX option ``pallas_rescore``, which picks
+    between two phase-B paths on the TPU, has no counterpart."""
     q, c, ids = _prepare(queries, candidates, ids, device)
-    return _binned(q, c, k, ids, bin_size, bin_margin, n_valid, pallas_rescore)
+    return _binned(q, c, k, ids, bin_size, bin_margin, n_valid)
 
 
 def topk_route(B: int, C: int, D: int, k: int, tile: int = 4096,
@@ -396,7 +392,7 @@ def topk_scores(
         s, pos = _top(scores, k)
         return s, _map_ids(pos, ids)
     if route == "binned":
-        return _binned(q, c, k, ids, _BINNED_BIN_SIZE, _BINNED_MARGIN, n_valid, False)
+        return _binned(q, c, k, ids, _BINNED_BIN_SIZE, _BINNED_MARGIN, n_valid)
     if padded:  # the streaming routes score every row: drop the padding
         c = c[:n_valid]
         ids = ids[:n_valid] if ids is not None else None
