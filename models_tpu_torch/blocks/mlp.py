@@ -37,8 +37,8 @@ class Dense(Block):
         weight = torch.empty(self.units, in_features, device=device)
         gen = torch.Generator(weight.device).manual_seed(seed + in_features)
         nn.init.xavier_uniform_(weight, generator=gen)
-        self.weight = nn.Parameter(weight, requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(self.units, device=device), requires_grad=False)
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(torch.zeros(self.units, device=device))
 
     def forward(self, inputs, **kwargs):
         out = F.linear(inputs, self.weight, self.bias)

@@ -32,10 +32,14 @@ TensorDict = Dict[str, TensorLike]
 
 
 class Prediction(NamedTuple):
-    """Output of a model head (the fields the serving path reads)."""
+    """Output of a model head. A head that computes its own loss (the fused
+    contrastive loss) sets ``precomputed_loss``, with its weights folded in."""
 
     outputs: Any
     targets: Any = None
+    sample_weight: Any = None
+    precomputed_loss: Any = None
+    negative_candidate_ids: Any = None
 
 
 class TopKPrediction(NamedTuple):
@@ -46,22 +50,33 @@ class TopKPrediction(NamedTuple):
 
 
 class ModelContext(dict):
-    """Shared context threaded through a forward pass (raw features, flags)."""
+    """Shared context threaded through a forward pass: the raw ``features``,
+    the batch's ``targets``, the global ``step`` and flags such as
+    ``need_logits`` (False when nothing downstream reads a head's logits)."""
 
     @property
     def features(self) -> TensorDict:
         return self.get("features", {})
 
 
+def _to_device(val, device):
+    if isinstance(val, SequenceFeature):
+        return SequenceFeature(
+            torch.as_tensor(np.asarray(val.values), device=device),
+            torch.as_tensor(np.asarray(val.mask), device=device),
+        )
+    return torch.as_tensor(np.asarray(val), device=device)
+
+
 def to_device_batch(host_batch: Dict[str, Any], device) -> TensorDict:
     """numpy host batch -> tensors on ``device`` (SequenceFeature kept)."""
-    out: TensorDict = {}
-    for name, val in host_batch.items():
-        if isinstance(val, SequenceFeature):
-            out[name] = SequenceFeature(
-                torch.as_tensor(np.asarray(val.values), device=device),
-                torch.as_tensor(np.asarray(val.mask), device=device),
-            )
-        else:
-            out[name] = torch.as_tensor(np.asarray(val), device=device)
-    return out
+    return {name: _to_device(val, device) for name, val in host_batch.items()}
+
+
+def to_device_targets(targets, device):
+    """The loader's targets (None, one array, or a dict of them) on ``device``."""
+    if targets is None:
+        return None
+    if isinstance(targets, dict):
+        return to_device_batch(targets, device)
+    return _to_device(targets, device)

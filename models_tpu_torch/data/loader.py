@@ -14,7 +14,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from ..core.types import SequenceFeature
-from .dataset import OFFSETS, VALUES, Dataset
+from .dataset import OFFSETS, VALUES, Dataset, take_rows
 
 ROW_VALID_KEY = "__row_valid__"
 
@@ -33,13 +33,20 @@ def pad_ragged(values: np.ndarray, offsets: np.ndarray, max_len: int):
 
 
 class Loader:
-    """Iterates ``(features, targets)`` batches over a dataset, in row order."""
+    """Iterates ``(features, targets)`` batches over a dataset, in row order,
+    or with ``shuffle`` in one permutation per pass, drawn from
+    ``seed + epoch * 9973`` (the JAX loader's epoch seed; the pass counter
+    starts at 1)."""
 
-    def __init__(self, dataset: Dataset, batch_size: int, drop_last: bool = False):
+    def __init__(self, dataset: Dataset, batch_size: int, drop_last: bool = False,
+                 shuffle: bool = False, seed: int = 0):
         self.dataset = dataset
         self.schema = dataset.schema
         self.batch_size = int(batch_size)
         self.drop_last = drop_last
+        self.shuffle = shuffle
+        self.seed = int(seed)
+        self._epoch = 0
         self._target_cols = [c.name for c in self.schema.targets]
         # bytes columns (movielens `title`) stay in the schema but are no input
         self._feature_cols = [
@@ -77,8 +84,12 @@ class Loader:
         return feats, (targets if len(targets) else None)
 
     def __iter__(self) -> Iterator[Tuple[Dict[str, Any], Optional[Any]]]:
+        self._epoch += 1
         cols = self.dataset.to_numpy_dict()
         n = self.dataset.num_rows
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch * 9973)
+            cols = take_rows(cols, rng.permutation(n))
         full = n // self.batch_size
         for step in range(full):
             lo = step * self.batch_size

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.aggregation import SEQUENCE_COMBINERS
@@ -51,20 +52,25 @@ class EmbeddingTable(Block):
         gen = torch.Generator(table.device).manual_seed(seed)
         # truncated normal at 2 sigma, sigma 0.05 (the JAX initializer)
         nn.init.trunc_normal_(table, std=0.05, a=-0.1, b=0.1, generator=gen)
-        self.table = nn.Parameter(table, requires_grad=False)
+        # trained densely: the lookup's backward gives a (rows, D) gradient,
+        # as the JAX package's dense optimizer sees it
+        self.table = nn.Parameter(table)
 
     @property
     def embeddings(self) -> torch.Tensor:
         return self.table[: self.input_dim]
 
     def _call_single(self, value):
+        # F.embedding, not table[ids]: its backward sums repeated ids by
+        # sorting them, where the indexing backward serialises each repeated
+        # row (genres: 21 rows take every list entry of a batch)
         if isinstance(value, SequenceFeature):
-            emb = self.table[value.values.long()]  # (B, L, D)
+            emb = F.embedding(value.values.long(), self.table)  # (B, L, D)
             seq = SequenceFeature(emb, value.mask)
             if self.sequence_combiner is None:
                 return seq
             return SEQUENCE_COMBINERS[self.sequence_combiner](seq)
-        return self.table[value.long()]
+        return F.embedding(value.long(), self.table)
 
     def forward(self, inputs, **kwargs):
         if isinstance(inputs, dict):

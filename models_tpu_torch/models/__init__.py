@@ -1,4 +1,4 @@
-from .base import Model
+from .base import History, Model
 from .retrieval import RetrievalModelV2, TwoTowerModel
 
-__all__ = ["Model", "RetrievalModelV2", "TwoTowerModel"]
+__all__ = ["History", "Model", "RetrievalModelV2", "TwoTowerModel"]

@@ -1,33 +1,49 @@
-"""The two-tower retrieval model, serving subset
-(``models_tpu/models/retrieval.py``)."""
+"""The two-tower retrieval model (``models_tpu/models/retrieval.py``):
+serving, and training through its contrastive head."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
 import torch
+from torch import nn
 
 from ..blocks.mlp import MLPBlock
 from ..core.block import Block
-from ..core.combinators import SequentialBlock
+from ..core.combinators import ParallelBlock, SequentialBlock
 from ..core.device import resolve_device
 from ..core.encoder import Encoder, TopKEncoder
 from ..data.dataset import Dataset
 from ..inputs.base import InputBlockV2
+from ..outputs.contrastive import ContrastiveOutput
 from ..schema import Schema, Tags
+from .base import Model
 
 
-class RetrievalModelV2(Block):
-    """A query tower and a candidate tower. ``item_id_name`` names the column
-    whose values become the index's ids."""
+class RetrievalModelV2(Model):
+    """A query tower and a candidate tower, run side by side into a
+    :class:`ContrastiveOutput`. ``item_id_name`` names the column whose values
+    become the index's ids."""
 
-    def __init__(self, query: Block, candidate: Block, item_id_name: Optional[str],
+    def __init__(self, query: Block, candidate: Block, output: ContrastiveOutput,
                  schema: Optional[Schema] = None):
-        super().__init__(schema=schema, block_name="two_tower")
-        # the attribute names give the JAX package's parameter paths
+        # Model.__init__ would register ``blocks`` first; the towers come
+        # first, so that ``named_parameters()`` (which names a shared module
+        # by its first registration) gives the JAX package's paths
+        Block.__init__(self, schema=schema, block_name="two_tower")
         self._query = query
         self._candidate = candidate
-        self.item_id_name = item_id_name
+        self.blocks = nn.ModuleList(
+            [ParallelBlock({"query": query, "candidate": candidate}), output])
+        self._compiled = False
+
+    @property
+    def item_id_name(self) -> Optional[str]:
+        return self.contrastive_output.item_id_name
+
+    @property
+    def contrastive_output(self) -> ContrastiveOutput:
+        return self.blocks[-1]
 
     @property
     def query_encoder(self) -> Block:
@@ -69,13 +85,15 @@ def TwoTowerModel(
     schema: Schema,
     query_tower: Sequence[int] = (128, 64),
     embedding_dim: Optional[int] = None,
+    negative_samplers: Union[str, Sequence] = "in-batch",
+    logits_temperature: float = 1.0,
     seed: int = 0,
     device=None,
 ) -> RetrievalModelV2:
     """USER columns feed the query tower, ITEM columns the candidate tower;
     each is an input block and an MLP of ``query_tower`` widths whose last
-    layer is linear. Weights are drawn from ``seed`` on ``device`` (default
-    the card)."""
+    layer is linear. The head trains on in-batch negatives. Weights are drawn
+    from ``seed`` on ``device`` (default the card)."""
     dev = resolve_device(device)
     user_schema = schema.select_by_tag(Tags.USER)
     item_schema = schema.select_by_tag(Tags.ITEM)
@@ -92,4 +110,6 @@ def TwoTowerModel(
 
     query = build_tower(query_tower, user_schema, seed)
     candidate = build_tower(query_tower, item_schema, seed + 100)
-    return RetrievalModelV2(query, candidate, schema.item_id_column.name, schema=schema)
+    output = ContrastiveOutput(schema.item_id_column, negative_samplers=negative_samplers,
+                               logits_temperature=logits_temperature)
+    return RetrievalModelV2(query, candidate, output, schema=schema)

@@ -19,7 +19,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "models_tpu_torch"
-SOURCES = ("streaming_topk", "binned_rescore")
+SOURCES = ("streaming_topk", "binned_rescore", "flash_ce")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -29,6 +29,28 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
 
 
+def test_importing_the_kernels_builds_nothing_and_loads_no_triton():
+    code = (
+        "import subprocess, sys\n"
+        "started = []\n"
+        "popen = subprocess.Popen.__init__\n"
+        "def spy(self, *a, **k):\n"
+        "    started.append(a)\n"
+        "    popen(self, *a, **k)\n"
+        "subprocess.Popen.__init__ = spy\n"
+        "import models_tpu_torch.ops.flash_ce, models_tpu_torch.ops.contrastive\n"
+        "from models_tpu_torch.ops import kernels\n"
+        "print(len(started), len(kernels._libs))\n"
+        "print('\\n'.join(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120).stdout.split("\n")
+    assert out[0] == "0 0"  # no process started (no nvcc), no library loaded
+    loaded = {name.split(".")[0] for name in out[1:]}
+    assert "models_tpu_torch" in loaded
+    assert not loaded & (set(FORBIDDEN) | {"triton"}), sorted(loaded & set(FORBIDDEN))
+
+
 def _model():
     ds = mt.generate_data("e-commerce", num_rows=40, seed=0)
     return ds, mt.TwoTowerModel(ds.schema, query_tower=(8, 4), device="cpu")
@@ -45,6 +67,8 @@ ENTRY_POINTS = {
     "to_top_k_encoder": lambda: _model()[1].to_top_k_encoder(_model()[0], k=3),
     "candidate_embeddings": lambda: _model()[1].candidate_embeddings(_model()[0]),
     "predict": lambda: _encoder()[1].predict(_encoder()[0], batch_size=16),
+    "fit": lambda: _model()[1].compile(optimizer="adagrad", metrics=[]).fit(
+        _model()[0], batch_size=16),
     "BruteForce.index": lambda: mt.BruteForce(k=3).index(C),
     "topk_scores": lambda: ttopk.topk_scores(Q, C, 3),
     "binned_topk": lambda: ttopk.binned_topk(Q, C, 3),
