@@ -12,7 +12,11 @@
    per row); the flash-CE kernels (forward K1, backward K2 and K3) at
    Q = N = 8192, D = 128 with downscoring, planted duplicate ids and MIN_FLOAT
    biases, at Q=1000, N=3001, T=0.7 with zero weights and no ids, and at
-   D = 64 and 256;
+   D = 64 and 256; the row scatters (K7 add, K8 write) bit for bit, fp32 and
+   bf16 tables, on the userId table at the path's batch (deduplicated skewed
+   ids, stale duplicates and out-of-range ids on invalid positions), 81,920
+   ids over 24 rows, D = 64, 200 and 130, misaligned rows, N = 1 and no valid
+   position;
 4. serves the two-tower model end to end at the bench's full width
    (movielens-25m schema, query_tower=(256, 128), embedding_dim=128, seeded
    random weights) over the whole 56,680-item catalog, fp32 and bf16
@@ -32,10 +36,23 @@
    it with CUDA events into host batch and copy, tower forward, loss forward,
    backward and optimizer step, and traces four steps with torch.profiler
    (the device's busy share, the largest kernels' time per step);
-8. prints one JSON line with each kernel's launches (on its own path's run),
-   error against its plain version, its time, the plain version's, the least
-   time the card could take and a PyTorch yardstick's, then the card line and
-   ``{"ok": true, ...}`` last. Host-clock times are [median, min, max].
+8. checks row-sparse training (``embedding_optimizer="adagrad"``) with fp32
+   and with bf16 tables: three steps at batch 1024 on the card and on a CPU
+   copy, both rounding with the CPU generator's noise;
+9. trains row-sparsely at full width, the slice's path: 16 steps of 8192 rows
+   with fp32 tables (K7 six times a step: acc and table of userId, movieId and
+   genres) and with bf16 tables (K7 three times, K8 three times), K1-K3 once a
+   step, finite losses, rows no batch looked up unchanged, the trained models
+   serving 256 rows;
+10. times those steps as in 7, with a row-sparse update part, the bench's
+   op-level steps (sparse adagrad on a 4M x 128 fp32 table, dense adagrad on
+   the same as its yardstick, sparse adagrad on a 16M x 128 bf16 table), and
+   K7 and K8 on the 4M-row table;
+11. prints one JSON line with each kernel's launches (on its own path's run;
+   K7 and K8: both row-sparse runs), error against its plain version, its
+   time, the plain version's, the least time the card could take and a
+   PyTorch yardstick's, then the card line and ``{"ok": true, ...}`` last.
+   Host-clock times are [median, min, max].
 
 Tolerances. Top-k scores: 2e-6 of the largest |score| (fp32 sums of 128
 products in another order). Flash-CE: (m, s) and the loss within 1e-5 of
@@ -46,7 +63,11 @@ tile. Training: loss within 1e-5, every parameter's gradient within 2e-5 of
 the model's largest |gradient| (the unfused path rounds a log-softmax over
 8193 columns, and sums the embedding gradients in another order); after
 three steps on the card and on the CPU, losses within 1e-5 and parameters
-within 1e-5 absolute.
+within 1e-5 absolute. Row scatters: bit for bit (one fp32 add or one copy per
+element). Row-sparse steps, card vs CPU: as training, slots included; a bf16
+table element may be one bf16 ulp off where the two sides' fp32 sums differ
+in the last bits and the noise falls between them (at most 1e-3 of the
+elements written).
 
 Any failed check raises, and the script exits non-zero. It imports nothing of
 JAX or of the JAX package.
@@ -78,6 +99,9 @@ TRAIN_BATCH = 8192
 SEED = 0
 CATALOG = 56_680  # movieIds 0..56679
 K = 10
+USER_ROWS = 162_544  # the userId table, padded to a multiple of 8
+# the bench's op-level embedding-optimizer tables (bench.py:40)
+OP_ROWS_FP32, OP_ROWS_BF16 = 4_000_000, 16_000_000
 
 
 def gpu_line() -> str:
@@ -99,6 +123,37 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 50, warmup: int = 5, cold: bool = False) -> float:
+    """Device time of one call of ``fn``: the summed durations of the kernels
+    and copies ``reps`` calls put on the card (torch.profiler), over ``reps``.
+    For calls of a few microseconds, where back-to-back events would time
+    the host's launches instead. ``cold``: before each call, rewrite a
+    128 MB buffer (its kernel is left out of the sum), so that the call finds
+    its rows in device memory and not in the 50 MB L2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.ones(32 << 20, device="cuda") if cold else None
+
+    def call():
+        if cold:
+            flush.mul_(1.0)  # a MulFunctor kernel: none of the timed calls runs one
+        fn()
+
+    for _ in range(warmup):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+               and not (cold and "MulFunctor" in e.name))
+    require(busy > 0, "the profiler saw no device time")
+    return busy / reps / 1e3
 
 
 def host_ms(fn, reps: int = 21) -> list:
@@ -540,8 +595,10 @@ def phase_train(dev, model, catalog, queries):
 def train_times(dev, model, data):
     """The train step on the host clock (each step ends in a synchronise), and
     its parts on CUDA events: host batch and copy, tower forward, loss forward
-    (K1), backward (K2, K3, the towers, the embedding gradients), optimizer
-    step. Event times are device time between marks, launch gaps included."""
+    (K1), backward (K2, K3, the towers, the embedding gradients), dense
+    optimizer step, row-sparse update (dedup, gathers, K7, K8; none without an
+    embedding optimizer). Event times are device time between marks, launch
+    gaps included."""
     from models_tpu_torch.core.types import ModelContext, to_device_batch, to_device_targets
     from models_tpu_torch.data import Loader
 
@@ -557,7 +614,7 @@ def train_times(dev, model, data):
 
     out["step_ms"] = host_ms(step, reps=12)
     out["examples_per_sec"] = TRAIN_BATCH / out["step_ms"][0] * 1e3
-    names = ("batch_copy", "towers", "loss_forward", "backward", "optimizer")
+    names = ("batch_copy", "towers", "loss_forward", "backward", "optimizer", "sparse_update")
     sums = dict.fromkeys(names, 0.0)
     reps = 8
     for x, y in batches[:reps]:
@@ -566,6 +623,8 @@ def train_times(dev, model, data):
         xb, yb = to_device_batch(x, dev), to_device_targets(y, dev)
         ev[1].record()
         ctx = ModelContext(features=xb, targets=yb, step=model._step, need_logits=False)
+        if model._sparse_tables:
+            ctx["sparse_lookups"] = []
         towers = model.blocks[0](xb, training=True, context=ctx, targets=yb)
         ev[2].record()
         pred = model.blocks[1](towers, training=True, context=ctx, targets=yb)
@@ -576,6 +635,9 @@ def train_times(dev, model, data):
         ev[4].record()
         model._optimizer.step()
         ev[5].record()
+        if model._sparse_tables:
+            model._apply_sparse(ctx["sparse_lookups"])
+        ev[6].record()
         torch.cuda.synchronize()
         for i, name in enumerate(names):
             sums[name] += ev[i].elapsed_time(ev[i + 1])
@@ -670,6 +732,324 @@ def measure_flash_ce(dev, model, data, launches, errs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# row-sparse and bf16-at-rest embedding training
+# ---------------------------------------------------------------------------
+
+
+def raw_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+
+
+def skewed_ids(n: int, card: int, seed: int) -> np.ndarray:
+    """Ids with the data generator's popularity skew (id 0 reserved)."""
+    p = 1.0 / np.arange(2, card + 1) ** 0.75
+    return np.random.default_rng(seed).choice(np.arange(1, card), size=n,
+                                              p=p / p.sum()).astype(np.int32)
+
+
+def scatter_case(dev, gen, R, D, N, dtype, ids, valid=None):
+    """Kernel against plain version, both scatters, on copies of one table:
+    the results must be equal bit for bit. ``ids`` None: a deduplicated
+    skewed batch, its stale duplicates then marked invalid and their ids
+    moved out of range, so that the kernel must skip them unread."""
+    from models_tpu_torch.ops import scatter as S
+
+    if ids is None:
+        raw = torch.as_tensor(skewed_ids(N, R - 3, SEED + N + D), device=dev)
+        ids, _, valid = S.dedup_rows(raw, torch.zeros(N, 1, device=dev))
+        ids = torch.where(valid | (torch.arange(N, device=dev) % 2 == 0), ids,
+                          torch.where(torch.arange(N, device=dev) % 4 == 1, 999_999, -7))
+        ids = ids.to(torch.int32).contiguous()
+    table = torch.randn(R, D, device=dev, generator=gen).to(dtype)
+    upd = torch.randn(N, D, device=dev, generator=gen)
+    rows = torch.randn(N, D, device=dev, generator=gen).to(dtype)
+    for name, fn, plain, arg in (("add", S.row_scatter_add, S.row_scatter_add_plain, upd),
+                                 ("write", S.row_scatter_write, S.row_scatter_write_plain, rows)):
+        got, want = fn(table.clone(), ids, arg, valid), plain(table.clone(), ids, arg, valid)
+        torch.cuda.synchronize()
+        require(torch.equal(raw_bits(got), raw_bits(want)),
+                f"row_scatter_{name} R={R} D={D} N={N} {dtype}: differs from the plain version "
+                f"(max|d| {max_err(got.float(), want.float())})")
+    n_valid = N if valid is None else int(valid.sum())
+    return n_valid
+
+
+def phase_row_scatter(dev, gen, errs):
+    """K7 and K8 against their plain versions, bit for bit: the userId table
+    at the path's batch (a deduplicated skewed batch with stale duplicates
+    and out-of-range ids on invalid positions), genres-like (81,920 ids over
+    24 rows), D = 64 and 200, D = 130 and misaligned rows (the scalar path),
+    fp32 and bf16 tables, N = 1 and no valid position."""
+    from models_tpu_torch.ops import scatter as S
+
+    cases = [(USER_ROWS, 128, 8192), (24, 128, 81_920), (4096, 64, 2048), (4096, 200, 2048),
+             (4096, 130, 2048)]
+    for R, D, N in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            n_valid = scatter_case(dev, gen, R, D, N, dtype, None)
+            print(f"  row scatters R={R} D={D} N={N} {dtype}: {n_valid} valid, bit-equal",
+                  flush=True)
+    one = torch.tensor([5], dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        scatter_case(dev, gen, 64, 128, 1, dtype, one)
+        scatter_case(dev, gen, 64, 128, 1, dtype, one, torch.zeros(1, dtype=torch.bool,
+                                                                   device=dev))
+        ids = torch.randperm(4096, device=dev, generator=gen)[:512].to(torch.int32)
+        scatter_case(dev, gen, 4096, 128, 512, dtype, ids, torch.zeros(512, dtype=torch.bool,
+                                                                       device=dev))
+    # rows one element off 16-byte alignment take the scalar path
+    table = torch.randn(4096, 128, device=dev, generator=gen)
+    buf = torch.randn(512 * 128 + 1, device=dev, generator=gen)
+    upd = buf[1:].view(512, 128)
+    ids = torch.randperm(4096, device=dev, generator=gen)[:512].to(torch.int32)
+    got = S.row_scatter_add(table.clone(), ids, upd)
+    want = S.row_scatter_add_plain(table.clone(), ids, upd)
+    torch.cuda.synchronize()
+    require(torch.equal(raw_bits(got), raw_bits(want)), "row_scatter_add, misaligned updates")
+    print("  row scatters N=1, no valid position, misaligned rows: bit-equal", flush=True)
+    errs["row_scatter_add"] = errs["row_scatter_write"] = 0.0
+
+
+def sparse_launches():
+    from models_tpu_torch.ops import scatter as S
+
+    return {**flash_launches(), "row_scatter_add": S.row_scatter_add.launches,
+            "row_scatter_write": S.row_scatter_write.launches}
+
+
+def zero_launches():
+    from models_tpu_torch.ops import flash_ce as F
+    from models_tpu_torch.ops import scatter as S
+
+    for fn in (F.lse_forward, F.grad_query, F.grad_neg, S.row_scatter_add, S.row_scatter_write):
+        fn.launches = 0
+
+
+def cpu_noise(shape, salt, step, device):
+    """The rounding noise of the CPU's generator, wherever the table lies."""
+    from models_tpu_torch.blocks.optimizer import draw_noise
+
+    return draw_noise(shape, salt, step, "cpu").to(device)
+
+
+def compile_sparse(model):
+    model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[],
+                  embedding_optimizer="adagrad")
+    return model
+
+
+def seen_ids(data, batch) -> dict:
+    """Every id each column's lookups see in ``fit`` over ``data`` (padding
+    included), as numpy."""
+    from models_tpu_torch.data import Loader
+
+    seen = {}
+    for x, _ in Loader(data, batch, drop_last=True):
+        for name in ("userId", "movieId", "genres"):
+            v = getattr(x[name], "values", x[name])
+            seen.setdefault(name, []).append(np.ravel(v))
+    return {k: np.unique(np.concatenate(v)) for k, v in seen.items()}
+
+
+def phase_sparse_checks(dev, models):
+    """Three row-sparse adagrad steps at batch 1024 on the card and on a CPU
+    copy, both rounding bf16 tables with the CPU generator's noise. Losses
+    within 1e-5; dense parameters, fp32 tables and the acc slots within
+    PARAM_ATOL; a bf16 table element may differ by one bf16 ulp where the
+    two sides' fp32 sums differ in the last bits and the noise falls
+    between them (at most 1e-3 of the elements the steps wrote)."""
+    import copy
+
+    import models_tpu_torch as mt
+
+    small = mt.generate_data("movielens-25m", num_rows=1024, seed=SEED + 5)
+    written = seen_ids(small, 1024)
+    for tag, model in models.items():
+        on_card, on_cpu = copy.deepcopy(model), copy.deepcopy(model).to("cpu")
+        hist = {}
+        for side, m, d in (("card", on_card, dev), ("cpu", on_cpu, "cpu")):
+            compile_sparse(m)._emb_opt.noise = cpu_noise
+            hist[side] = m.fit(small, epochs=3, batch_size=1024, shuffle=False,
+                               device=d).history["loss"]
+        np.testing.assert_allclose(hist["card"], hist["cpu"], rtol=FCE_TOL)
+        cpu = {**dict(on_cpu.named_parameters()), **dict(on_cpu.named_buffers())}
+        worst, flips, n_written = 0.0, 0, 0
+        for name, t in list(on_card.named_parameters()) + list(on_card.named_buffers()):
+            got, want = t.detach().cpu(), cpu[name].detach()
+            if got.dtype == torch.bfloat16:
+                d = (got.float() - want.float()).abs()
+                # one bf16 ulp is at most 2**-7 of the larger neighbour
+                ulp = torch.maximum(got.float().abs(), want.float().abs()) * 2.0 ** -7
+                require(bool((d <= ulp).all()), f"{tag}: {name} off by more than one bf16 ulp")
+                flips += int((d > 0).sum())
+                n_written += len(written[name.split(".")[-2]]) * got.shape[1]
+            else:
+                worst = max(worst, max_err(got, want))
+        require(worst <= PARAM_ATOL, f"{tag}: card and CPU differ by {worst:.3g}")
+        require(flips <= 1e-3 * max(n_written, 1), f"{tag}: {flips} bf16 rounding flips")
+        print(f"  3 sparse adagrad steps at batch 1024, {tag} tables, card vs CPU: losses "
+              f"{hist['card']} vs {hist['cpu']}; fp32 parameters and slots max|d| {worst:.3g}"
+              + (f"; bf16 elements one ulp apart {flips} of {n_written} written"
+                 if n_written else ""), flush=True)
+
+
+def phase_sparse_train(dev, models, catalog, queries):
+    """The slice's path at full width: fit 16 steps of 8192 rows with
+    ``embedding_optimizer="adagrad"``, fp32 tables and bf16 tables. Each step
+    must launch K1-K3 once, K7 six times with fp32 tables (acc and table of
+    userId, movieId and genres) or three times with K8 three times with bf16
+    tables; losses finite; rows no batch looked up unchanged; the trained
+    model serves 256 rows."""
+    import models_tpu_torch as mt
+
+    data = mt.generate_data("movielens-25m", num_rows=8 * TRAIN_BATCH, seed=SEED + 3)
+    steps = 2 * data.num_rows // TRAIN_BATCH
+    seen = seen_ids(data, TRAIN_BATCH)
+    launches, out = {}, {}
+    for tag, model in models.items():
+        compile_sparse(model)
+        tables = {t.block_name: t for t in model._embedding_tables()}
+        before = {n: t.table.detach().clone() for n, t in tables.items()}
+        zero_launches()
+        t = time.perf_counter()
+        hist = model.fit(data, epochs=2, batch_size=TRAIN_BATCH, shuffle=False, device=dev)
+        torch.cuda.synchronize()
+        launches[tag] = n = sparse_launches()
+        print(f"  fit {steps} sparse steps, {tag} tables, in {time.perf_counter() - t:.2f} s: "
+              f"loss {hist.history['loss']}, launches {n}", flush=True)
+        k7, k8 = (6, 0) if tag == "fp32" else (3, 3)
+        want = {"lse_forward": steps, "grad_query": steps, "grad_neg": steps,
+                "row_scatter_add": k7 * steps, "row_scatter_write": k8 * steps}
+        require(n == want, f"{tag} tables: launches {n}, want {want}")
+        require(all(np.isfinite(hist.history["loss"])), f"{tag} tables: non-finite loss")
+        for name, table in tables.items():
+            require(table.table.dtype == (torch.float32 if tag == "fp32" else torch.bfloat16),
+                    f"{name} changed dtype")
+            keep = np.setdiff1d(np.arange(table.table.shape[0]), seen[name])
+            keep = torch.as_tensor(keep, device=dev)
+            require(torch.equal(raw_bits(table.table.detach()[keep]), raw_bits(before[name][keep])),
+                    f"{tag}: rows of {name} that no batch looked up changed")
+            require(not torch.equal(table.table.detach(), before[name]), f"{name} never moved")
+        enc = model.to_top_k_encoder(catalog, k=K, batch_size=1024, device=dev)
+        res = enc.predict(queries.take(256), batch_size=256, device=dev)
+        require(res["scores"].shape == (256, K) and np.isfinite(res["scores"]).all(),
+                f"{tag}: the trained model serves non-finite scores")
+        out[f"sparse_{tag}_fit_loss"] = hist.history["loss"]
+        out[f"sparse_{tag}_fit_examples_per_sec"] = hist.history["examples_per_sec"]
+    print("  rows outside the batches unchanged; the trained models serve 256 rows", flush=True)
+    return data, launches, out
+
+
+def opt_step_times(dev, gen):
+    """The bench's op-level embedding-optimizer steps (``bench.py:837-875``)
+    through the port's optimizer, B = 8192 uniform ids per step (new ones
+    each step), D = 128: row-sparse adagrad on a 4M-row fp32 table (dedup,
+    gathers, two K7), the dense adagrad step on the same table as its
+    yardstick (a full (R, D) gradient, accumulator and update, plain torch),
+    and row-sparse adagrad on a 16M-row bf16 table (K7 on acc, stochastic
+    rounding, K8). Per step: device time (``device_ms``) and wall time of
+    back-to-back steps (CUDA events, which the host's launch rate sets when
+    the device work is small)."""
+    import torch.nn.functional as Fn
+
+    from models_tpu_torch.blocks.optimizer import SparseEmbeddingOptimizer
+    from models_tpu_torch.inputs.embedding import EmbeddingTable
+    from models_tpu_torch.schema import create_categorical_column
+
+    B, D = 8192, 128
+    out = {}
+    for tag, R, dtype in (("sparse_adagrad_4M_fp32", OP_ROWS_FP32, torch.float32),
+                          ("sparse_adagrad_16M_bf16", OP_ROWS_BF16, torch.bfloat16)):
+        table = EmbeddingTable(D, create_categorical_column("item", R - 1), dtype=dtype,
+                               seed=SEED, device=dev)
+        opt = SparseEmbeddingOptimizer("adagrad", 0.05)
+        opt.init_slots(table)
+        ids = [torch.randint(0, R, (B,), device=dev, generator=gen, dtype=torch.int32)
+               for _ in range(128)]
+        g = torch.full((B, D), 1e-6, device=dev)
+        steps = iter(range(10 ** 6))
+
+        def step():
+            t = next(steps)
+            opt.apply(table, ids[t % len(ids)], g, t)
+
+        out[f"{tag}_device_ms"] = device_ms(step, reps=50)
+        out[f"{tag}_wall_ms"] = cuda_ms(step, reps=50, warmup=3)
+        del table, opt
+        torch.cuda.empty_cache()
+    R = OP_ROWS_FP32
+    w = torch.full((R, D), 1e-12, device=dev, requires_grad=True)
+    acc = torch.full((R, D), 0.1, device=dev)
+    ids = [torch.randint(0, R, (B,), device=dev, generator=gen) for _ in range(5)]
+    steps = iter(range(10 ** 6))
+
+    def dense_step():
+        w.grad = None
+        (Fn.embedding(ids[next(steps) % len(ids)], w).sum() * 1e-6).backward()
+        with torch.no_grad():
+            acc.addcmul_(w.grad, w.grad)
+            w.sub_(0.05 * w.grad / (acc.sqrt() + 1e-8))
+
+    out["dense_adagrad_4M_fp32_device_ms"] = device_ms(dense_step, reps=5, warmup=2)
+    out["dense_adagrad_4M_fp32_wall_ms"] = cuda_ms(dense_step, reps=5, warmup=1)
+    del w, acc
+    torch.cuda.empty_cache()
+    return out
+
+
+def measure_row_scatter(dev, gen, launches, errs):
+    """K7 and K8 timed at the op-level step's shape (a 4M x 128 table, a
+    deduplicated batch of 8192 ids) and at the model's (the userId table,
+    162,544 x 128), beside the plain versions and ``index_add_`` /
+    ``index_copy_`` on the valid ids compacted beforehand. K7 on an fp32
+    table, K8 on a bf16 one, as the path runs them. Times are device time
+    per call from the profiler with the L2 flushed before each call
+    (``device_ms(cold=True)``), as the bound assumes; the times with the rows
+    left in L2 by the call before, and the back-to-back event time of the
+    wrappers (the host's launch rate), are printed beside."""
+    from models_tpu_torch.ops import scatter as S
+
+    B, D = 8192, 128
+    rows, extra = [], {}
+    for R in (OP_ROWS_FP32, USER_ROWS):
+        raw = torch.randint(0, R, (B,), device=dev, generator=gen, dtype=torch.int32)
+        ids, _, valid = S.dedup_rows(raw, torch.zeros(B, 1, device=dev))
+        ids_v = ids[valid].long()
+        n = int(valid.sum())
+        upd = torch.randn(B, D, device=dev, generator=gen)
+        for name, line, dtype, fn, plain, lib, nbytes in (
+                ("row_scatter_add", 372, torch.float32, S.row_scatter_add,
+                 S.row_scatter_add_plain, lambda t, a, a_v: t.index_add_(0, ids_v, a_v),
+                 3 * n * D * 4 + B * 5),
+                ("row_scatter_write", 243, torch.bfloat16, S.row_scatter_write,
+                 S.row_scatter_write_plain, lambda t, a, a_v: t.index_copy_(0, ids_v, a_v),
+                 2 * n * D * 2 + B * 5)):
+            table = torch.randn(R, D, device=dev, generator=gen).to(dtype)
+            arg = upd if name == "row_scatter_add" else upd.to(dtype)
+            arg_v = arg[valid]
+            def kernel():
+                return fn(table, ids, arg, valid)
+
+            ms = device_ms(kernel, cold=True)
+            plain_ms = device_ms(lambda: plain(table, ids, arg, valid), reps=10, cold=True)
+            lib_ms = device_ms(lambda: lib(table, arg, arg_v), cold=True)
+            row = _row(name, "models_tpu_torch/csrc/row_scatter.cu",
+                       f"models_tpu/ops/scatter.py:{line}", launches[name], errs[name], ms,
+                       plain_ms, lib_ms, 0, nbytes)
+            extra[f"{name}_R{R}"] = {
+                **{k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                "l2_warm_ms": device_ms(kernel),
+                "library_l2_warm_ms": device_ms(lambda: lib(table, arg, arg_v)),
+                "back_to_back_ms": cuda_ms(kernel, reps=50)}
+            if R == OP_ROWS_FP32:
+                rows.append(row)
+            del table
+        print(f"  R={R}: {n} of {B} ids valid", flush=True)
+    print("row scatters " + json.dumps(extra), flush=True)
+    return rows
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -695,6 +1075,7 @@ def main() -> int:
     errs = phase_kernels(dev, gen)
     errs.update(lse_forward=0.0, grad_query=0.0, grad_neg=0.0)
     phase_flash_ce(dev, gen, errs)
+    phase_row_scatter(dev, gen, errs)
 
     print("phase 2: serving", flush=True)
     model, catalog, queries = build_model(dev)
@@ -734,6 +1115,29 @@ def main() -> int:
     train.update(train_profile(dev, tmodel, data))
     print("training " + json.dumps(train), flush=True)
     rows += measure_flash_ce(dev, tmodel, data, train_launches, errs)
+
+    print("phase 7: row-sparse training against the CPU", flush=True)
+    import models_tpu_torch as mt
+
+    sparse_models = {tag: mt.TwoTowerModel(catalog.schema, query_tower=(256, 128),
+                                           embedding_dim=128, table_dtype=dtype, seed=SEED,
+                                           device=dev)
+                     for tag, dtype in (("fp32", None), ("bf16", torch.bfloat16))}
+    phase_sparse_checks(dev, sparse_models)
+
+    print("phase 8: row-sparse training at full width", flush=True)
+    data, sparse_runs, sparse = phase_sparse_train(dev, sparse_models, catalog, queries)
+
+    print("phase 9: row-sparse training times", flush=True)
+    for tag, model in sparse_models.items():
+        for key, value in {**train_times(dev, model, data),
+                           **train_profile(dev, model, data)}.items():
+            sparse[f"sparse_{tag}_{key}"] = value
+    sparse.update(opt_step_times(dev, gen))
+    print("sparse training " + json.dumps(sparse), flush=True)
+    row_launches = {name: sum(run[name] for run in sparse_runs.values())
+                    for name in ("row_scatter_add", "row_scatter_write")}
+    rows += measure_row_scatter(dev, gen, row_launches, errs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

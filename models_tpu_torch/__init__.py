@@ -6,11 +6,15 @@ unless the caller passes ``device="cpu"``; without a card they raise.
 
 The two-tower retrieval model is ported: build it from a schema, train it
 (``compile(optimizer, metrics=[])``, ``fit``) with the sampled-softmax loss on
-in-batch negatives, encode the catalog with the candidate tower, index it,
-and serve top-k. The CUDA kernels (``csrc/``: the flash-CE forward and
-backward, streaming top-k, bin rescoring) are built with ``nvcc`` at first use.
+in-batch negatives, its embedding tables optionally row-sparsely
+(``compile(embedding_optimizer=...)``) and bf16 at rest
+(``TwoTowerModel(table_dtype=torch.bfloat16)``), encode the catalog with the
+candidate tower, index it, and serve top-k. The CUDA kernels (``csrc/``: the
+flash-CE forward and backward, streaming top-k, bin rescoring, the row
+scatter-add and scatter-write) are built with ``nvcc`` at first use.
 """
 
+from .blocks.optimizer import LazyAdam, SparseEmbeddingOptimizer
 from .convert import load_jax_params
 from .core import Encoder, SequenceFeature, TopKEncoder, TopKPrediction, resolve_device
 from .data import Dataset, Loader, generate_data
@@ -20,8 +24,9 @@ from .schema import ColumnSchema, Schema, Tags
 
 __all__ = [
     "BruteForce", "ColumnSchema", "ContrastiveOutput", "Dataset", "Encoder", "History",
-    "Loader", "Model",
-    "RetrievalModelV2", "Schema", "SequenceFeature", "Tags", "TopKEncoder",
+    "LazyAdam", "Loader", "Model",
+    "RetrievalModelV2", "Schema", "SequenceFeature", "SparseEmbeddingOptimizer", "Tags",
+    "TopKEncoder",
     "TopKOutput", "TopKPrediction", "TwoTowerModel", "generate_data",
     "load_jax_params", "resolve_device",
 ]

@@ -1,20 +1,34 @@
-"""The dense optimizers ``compile()`` names (``optax`` in the JAX package).
+"""Optimizers (``models_tpu/blocks/optimizer.py`` and the ``optax`` names
+``compile()`` takes).
 
-``adagrad`` follows optax's formula (``scale_by_rss``): the accumulator starts
-at 0.1, ``acc += g * g`` and ``update = -lr * g * rsqrt(acc + 1e-7)``.
-``torch.optim.Adagrad`` differs: its accumulator starts at 0 and its eps sits
-outside the square root. ``sgd`` and ``adam`` (eps 1e-8) are torch's, whose
-formulas are optax's. The row-sparse embedding optimizer and the other names
+The dense optimizers: ``adagrad`` follows optax's formula (``scale_by_rss``):
+the accumulator starts at 0.1, ``acc += g * g`` and
+``update = -lr * g * rsqrt(acc + 1e-7)``. ``torch.optim.Adagrad`` differs: its
+accumulator starts at 0 and its eps sits outside the square root. ``sgd`` and
+``adam`` (eps 1e-8) are torch's, whose formulas are optax's. The other names
 are not ported yet (ROADMAP.md queue 1).
+
+The row-sparse embedding optimizer (:class:`SparseEmbeddingOptimizer`,
+``compile(embedding_optimizer=...)``) updates only the rows a batch looked
+up, and their slots, through the row scatters of ``ops/scatter.py`` (K7, K8).
+Its adagrad is not the dense one: ``acc`` starts at 0.1, the new row of
+``acc`` is read before the scatter, and the update is
+``-lr * g / (sqrt(acc_new) + 1e-8)``. bf16 tables take their new rows by
+stochastic rounding, from noise seeded by (table, step).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+import zlib
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..inputs.embedding import SparseSlots
+from ..ops.scatter import dedup_rows, row_scatter_add, row_scatter_write, stochastic_round
+
 _NOT_PORTED = ("adamw", "rmsprop", "lamb", "adafactor")
+SPARSE_KINDS = ("sgd", "adagrad", "adam")
 
 
 class Adagrad(torch.optim.Optimizer):
@@ -66,3 +80,119 @@ def make_optimizer(name: str, params: Iterable[torch.Tensor],
     if name == "sgd":
         return torch.optim.SGD(params, lr=lr)
     return torch.optim.Adam(params, lr=lr, eps=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# the row-sparse embedding optimizer
+# ---------------------------------------------------------------------------
+
+
+def _table_salt(table) -> int:
+    """A table's stochastic-rounding salt: the crc32 of its name, the same in
+    every process."""
+    name = getattr(table, "block_name", None) or "table"
+    return zlib.crc32(str(name).encode()) & 0x7FFFFFFF
+
+
+def draw_noise(shape, salt: int, step: int, device) -> torch.Tensor:
+    """Stochastic-rounding noise for one table update: int32 in [0, 2**16)
+    from a ``torch.Generator`` on ``device`` seeded by (salt, step), so that a
+    replay rounds alike. CPU and CUDA generators give different bits."""
+    gen = torch.Generator(device).manual_seed((salt << 32) | int(step))
+    return torch.randint(0, 1 << 16, tuple(shape), generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+def _commit_rows(tbl, sids, delta, valid, step, salt, noise):
+    """Add per-row deltas to a table: an fp32 table in place by the row
+    scatter-add (K7); a bf16 table takes ``old + delta`` in fp32, rounded
+    stochastically (``noise`` draws the bits), through the row scatter-write
+    (K8)."""
+    if tbl.dtype == torch.float32:
+        return row_scatter_add(tbl, sids, delta, valid)
+    new = tbl.index_select(0, sids).float() + delta
+    rows = stochastic_round(new, noise(new.shape, salt, step, new.device))
+    return row_scatter_write(tbl, sids, rows, valid)
+
+
+class SparseEmbeddingOptimizer:
+    """Updates embedding tables from (ids, row gradients) pairs.
+
+    ``kind``: ``"sgd"``, ``"adagrad"`` or ``"adam"`` (LazyAdam: the slots
+    move only at touched rows; bias correction takes the global step).
+    ``learning_rate`` is a float or a function of the step. ``noise`` draws
+    the stochastic-rounding bits of bf16 tables (:func:`draw_noise`); a caller
+    that compares two devices gives both the same."""
+
+    def __init__(self, kind: str = "adagrad",
+                 learning_rate: Union[float, Callable[[int], float]] = 0.05,
+                 beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
+                 initial_accumulator_value: float = 0.1):
+        if kind not in SPARSE_KINDS:
+            raise ValueError(f"Unknown sparse optimizer {kind!r}; ported: sgd, adagrad, adam "
+                             "(also as lazy_adam, sparse_adagrad, ...)")
+        self.kind = kind
+        self.learning_rate = learning_rate
+        self.beta1, self.beta2, self.eps = beta1, beta2, eps
+        self.init_acc = initial_accumulator_value
+        self.noise = draw_noise
+
+    def slot_names(self) -> Tuple[str, ...]:
+        return {"adagrad": ("acc",), "adam": ("m", "v")}.get(self.kind, ())
+
+    def init_slots(self, table) -> None:
+        """Give ``table`` fresh float32 slots of its shape."""
+        like = dict(size=table.table.shape, dtype=torch.float32, device=table.table.device)
+        if self.kind == "adagrad":
+            slots = {"acc": torch.full(fill_value=self.init_acc, **like)}
+        else:
+            slots = {name: torch.zeros(**like) for name in self.slot_names()}
+        table.sparse_slots = SparseSlots(slots)
+
+    @torch.no_grad()
+    def apply(self, table, ids: torch.Tensor, grads: torch.Tensor, step: int) -> None:
+        """Update ``table`` and its slots at the looked-up rows. ``ids``
+        (...,) of any integer type, ``grads`` (..., D): each lookup's row
+        gradient. Equal ids are summed first, so each row takes one update
+        from its summed gradient, as a dense gradient would give it."""
+        flat_ids = ids.reshape(-1).to(torch.int32)
+        flat_g = grads.reshape(-1, grads.shape[-1]).float()
+        sids, gsum, valid = dedup_rows(flat_ids, flat_g)
+        lr = self.learning_rate(step) if callable(self.learning_rate) else self.learning_rate
+        salt = _table_salt(table)
+
+        def commit(delta):
+            _commit_rows(table.table, sids, delta, valid, step, salt, self.noise)
+
+        if self.kind == "sgd":
+            return commit(-lr * gsum)
+        if self.kind == "adagrad":
+            acc = table.sparse_slots["acc"]
+            g2 = gsum * gsum
+            acc_new_rows = acc.index_select(0, sids) + g2
+            row_scatter_add(acc, sids, g2, valid)
+            return commit(-lr * gsum / (torch.sqrt(acc_new_rows) + self.eps))
+        m, v = table.sparse_slots["m"], table.sparse_slots["v"]
+        b1, b2 = self.beta1, self.beta2
+        m_old, v_old = m.index_select(0, sids), v.index_select(0, sids)
+        m_new = b1 * m_old + (1 - b1) * gsum
+        v_new = b2 * v_old + (1 - b2) * gsum * gsum
+        row_scatter_add(m, sids, m_new - m_old, valid)
+        row_scatter_add(v, sids, v_new - v_old, valid)
+        t = max(float(step) + 1.0, 1.0)
+        mhat = m_new / (1 - b1 ** t)
+        vhat = v_new / (1 - b2 ** t)
+        return commit(-lr * mhat / (torch.sqrt(vhat) + self.eps))
+
+
+def LazyAdam(learning_rate: float = 0.001, beta1: float = 0.9, beta2: float = 0.999,
+             eps: float = 1e-8) -> SparseEmbeddingOptimizer:
+    """Sparse Adam that updates only the looked-up rows."""
+    return SparseEmbeddingOptimizer("adam", learning_rate, beta1, beta2, eps)
+
+
+def split_embeddings_on_size(tables: Sequence, threshold: int) -> Tuple[List, List]:
+    """(large, small): the tables with more rows than ``threshold``, and the rest."""
+    large = [t for t in tables if t.input_dim > threshold]
+    small = [t for t in tables if t.input_dim <= threshold]
+    return large, small

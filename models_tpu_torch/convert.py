@@ -1,41 +1,83 @@
-"""Carry a JAX model's parameters over to its port.
+"""Carry a JAX model's parameters, and its row-sparse optimizer slots, over to
+its port.
 
 The caller flattens the JAX side: ``{"/".join(path): numpy array}`` over
-``nnx.state(model, nnx.Param)``. The port's module tree mirrors the JAX
-attribute names, so a key maps to the parameter of the same dotted path,
-except that a Dense ``kernel`` (in, out) becomes the port's ``weight``
-(out, in). Embedding tables are copied whole, padding rows included. The
-top-k index is not carried: the port rebuilds it from its own candidate tower.
+``nnx.state(model, nnx.Param)`` for the parameters, and over the
+``sparse_slots`` entries of ``nnx.state(model, nnx.Variable)`` for the slots.
+The port's module tree mirrors the JAX attribute names, so a key maps to the
+parameter of the same dotted path, except that a Dense ``kernel`` (in, out)
+becomes the port's ``weight`` (out, in). What is carried:
+
+- every parameter, in its own dtype: a bf16 embedding table stays bf16, bit
+  for bit (the array's dtype must be the port parameter's);
+- embedding tables whole, padding rows included;
+- the slots (``.../<table>/sparse_slots/<acc|m|v>``, float32) onto the
+  table's ``sparse_slots`` buffers, which ``fit`` then keeps when they are
+  the ones its embedding optimizer needs.
+
+The top-k index is not carried: the port rebuilds it from its own candidate
+tower. Neither is the dense optimizer's state.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from .inputs.embedding import EmbeddingTable, SparseSlots
 
-def load_jax_params(module: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
-    """Copy ``flat`` into ``module``'s parameters. Raises on a key that names
-    no parameter, on a shape mismatch, and on any parameter left unset."""
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    # numpy has no bfloat16 of its own (the JAX side's is ml_dtypes'): carry its bits
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def load_jax_params(module: nn.Module, flat: Dict[str, np.ndarray],
+                    slots: Optional[Dict[str, np.ndarray]] = None) -> nn.Module:
+    """Copy ``flat`` into ``module``'s parameters and ``slots`` onto its
+    tables. Raises on a key that names no parameter or table, on a shape or
+    dtype mismatch, and on any parameter left unset."""
     params = dict(module.named_parameters())
     unset = set(params)
     for key, value in flat.items():
         parts = key.split("/")
-        arr = np.asarray(value, dtype=np.float32)  # bf16 arrays widen exactly
+        arr = np.asarray(value)
         if parts[-1] == "kernel":
             parts, arr = parts[:-1] + ["weight"], arr.T
         name = ".".join(parts)
         if name not in params:
             raise KeyError(f"JAX parameter {key!r} has no counterpart {name!r} in the port")
-        p = params[name]
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f"{key!r}: JAX shape {arr.shape} != port shape {tuple(p.shape)}")
+        p, t = params[name], _tensor(arr)
+        if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
+            raise ValueError(f"{key!r}: JAX {tuple(t.shape)} {t.dtype} != port "
+                             f"{tuple(p.shape)} {p.dtype}")
         with torch.no_grad():
-            p.copy_(torch.tensor(arr, dtype=p.dtype))
+            p.copy_(t)
         unset.discard(name)
     if unset:
         raise ValueError(f"port parameters left unset: {sorted(unset)}")
+
+    by_table: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, value in (slots or {}).items():
+        parts = key.split("/")
+        if len(parts) < 3 or parts[-2] != "sparse_slots":
+            raise KeyError(f"{key!r} is no .../sparse_slots/<name> entry")
+        by_table.setdefault(".".join(parts[:-2]), {})[parts[-1]] = _tensor(np.asarray(value))
+    for path, values in by_table.items():
+        table = module.get_submodule(path)
+        if not isinstance(table, EmbeddingTable):
+            raise KeyError(f"{path!r} is no embedding table in the port")
+        shape = tuple(table.table.shape)
+        for name, t in values.items():
+            if tuple(t.shape) != shape or t.dtype != torch.float32:
+                raise ValueError(f"slot {path}/{name}: {tuple(t.shape)} {t.dtype}, the table "
+                                 f"wants {shape} float32")
+        table.sparse_slots = SparseSlots(
+            {n: t.to(table.table.device) for n, t in values.items()})
     return module

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from ..core.aggregation import ConcatFeatures
 from ..core.combinators import ParallelBlock
 from ..schema import Schema, Tags
@@ -12,15 +14,18 @@ from .continuous import Continuous
 from .embedding import Embeddings
 
 
-def InputBlockV2(schema: Schema, dim: Optional[int] = None, seed: int = 0,
+def InputBlockV2(schema: Schema, dim: Optional[int] = None,
+                 param_dtype: Optional[torch.dtype] = None, seed: int = 0,
                  device=None) -> ParallelBlock:
     """Build the input layer from the schema; TARGET columns are excluded.
-    The branches' outputs are concatenated into one (B, out_features) tensor."""
+    The branches' outputs are concatenated into one (B, out_features) tensor.
+    ``param_dtype`` is the embedding tables' dtype at rest (see ``Embeddings``)."""
     schema = schema.excluding_by_tag(Tags.TARGET)
     branches = {}
     cat_schema = schema.categorical
     if len(cat_schema):
-        branches["categorical"] = Embeddings(cat_schema, dim=dim, seed=seed, device=device)
+        branches["categorical"] = Embeddings(cat_schema, dim=dim, param_dtype=param_dtype,
+                                             seed=seed, device=device)
     cont_schema = schema.continuous.excluding_by_tag(Tags.EMBEDDING)
     if len(cont_schema):
         branches["continuous"] = Continuous(cont_schema)

@@ -2,7 +2,16 @@
 (``models_tpu/inputs/embedding.py``, the plain single-device lookup).
 
 Columns sharing an int-domain name share one table. A list column not tagged
-``SEQUENCE`` is mean-pooled over its mask (multi-hot).
+``SEQUENCE`` is mean-pooled over its mask (multi-hot). Tables are float32 or,
+at rest, bfloat16; lookups of a bf16 table are cast up to float32.
+
+A table routed to the row-sparse optimizer (``sparse_routed``, set by
+``Model.fit``) looks up from the detached table, in training, into float32
+rows that are a leaf of the autograd graph: after the backward their
+``.grad`` is the gradient of the gathered rows, whatever the table's dtype.
+Each such lookup is recorded as ``(table, ids, rows)`` in the context's
+``sparse_lookups``; a sequence column is recorded before its combiner, with
+the padded (B, L) ids, as the JAX package taps it.
 """
 
 from __future__ import annotations
@@ -20,6 +29,23 @@ from ..core.types import SequenceFeature
 from ..schema import ColumnSchema, Schema, Tags, infer_embedding_dim
 
 
+class SparseSlots(nn.Module):
+    """The row-sparse optimizer's per-row state of one table (``acc``, or
+    ``m`` and ``v``; none for sgd), float32 buffers of the table's shape.
+    They move and copy with the model and outlive ``fit`` and ``compile``."""
+
+    def __init__(self, slots: Dict[str, torch.Tensor]):
+        super().__init__()
+        for name, value in slots.items():
+            self.register_buffer(name, value)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._buffers[name]
+
+    def keys(self):
+        return list(self._buffers)
+
+
 class EmbeddingTable(Block):
     """One table, serving one or more columns of its domain.
 
@@ -33,6 +59,7 @@ class EmbeddingTable(Block):
         dim: int,
         col_schema: Union[ColumnSchema, Sequence[ColumnSchema]],
         sequence_combiner: Optional[str] = None,
+        dtype: torch.dtype = torch.float32,
         seed: int = 0,
         device=None,
     ):
@@ -48,45 +75,62 @@ class EmbeddingTable(Block):
             raise ValueError("Features sharing an embedding table must share its domain")
         self.input_dim = int(card)
         self.padded_rows = -(-self.input_dim // 8) * 8
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"embedding tables are float32 or bfloat16, not {dtype}")
         table = torch.empty(self.padded_rows, self.dim, device=device)
         gen = torch.Generator(table.device).manual_seed(seed)
         # truncated normal at 2 sigma, sigma 0.05 (the JAX initializer)
         nn.init.trunc_normal_(table, std=0.05, a=-0.1, b=0.1, generator=gen)
-        # trained densely: the lookup's backward gives a (rows, D) gradient,
+        # trained densely, the lookup's backward gives a (rows, D) gradient,
         # as the JAX package's dense optimizer sees it
-        self.table = nn.Parameter(table)
+        self.table = nn.Parameter(table.to(dtype))
+        self.sparse_routed = False
+        # the row-sparse optimizer's per-row state, created by its init_slots
+        self.sparse_slots: Optional[SparseSlots] = None
 
     @property
     def embeddings(self) -> torch.Tensor:
         return self.table[: self.input_dim]
 
-    def _call_single(self, value):
+    def _lookup(self, ids, context):
+        lookups = context.get("sparse_lookups") if context is not None else None
+        if lookups is not None and self.sparse_routed:
+            rows = F.embedding(ids.long(), self.table.detach()).float().requires_grad_()
+            lookups.append((self, ids, rows))
+            return rows
         # F.embedding, not table[ids]: its backward sums repeated ids by
         # sorting them, where the indexing backward serialises each repeated
         # row (genres: 21 rows take every list entry of a batch)
+        return F.embedding(ids.long(), self.table).float()
+
+    def _call_single(self, value, context):
         if isinstance(value, SequenceFeature):
-            emb = F.embedding(value.values.long(), self.table)  # (B, L, D)
+            emb = self._lookup(value.values, context)  # (B, L, D)
             seq = SequenceFeature(emb, value.mask)
             if self.sequence_combiner is None:
                 return seq
             return SEQUENCE_COMBINERS[self.sequence_combiner](seq)
-        return F.embedding(value.long(), self.table)
+        return self._lookup(value, context)
 
-    def forward(self, inputs, **kwargs):
+    def forward(self, inputs, context=None, **kwargs):
         if isinstance(inputs, dict):
-            return {n: self._call_single(inputs[n]) for n in self.features if n in inputs}
-        return self._call_single(inputs)
+            return {n: self._call_single(inputs[n], context) for n in self.features if n in inputs}
+        return self._call_single(inputs, context)
 
     def extra_repr(self) -> str:
         return f"{self.input_dim}x{self.dim}, features={self.features}"
 
 
 def Embeddings(
-    schema: Schema, dim: Optional[int] = None, seed: int = 0, device=None
+    schema: Schema, dim: Optional[int] = None, param_dtype: Optional[torch.dtype] = None,
+    seed: int = 0, device=None
 ) -> ParallelBlock:
     """One :class:`EmbeddingTable` per categorical domain, ``dim`` wide (or
     inferred from each domain's cardinality). ``SEQUENCE`` list columns stay
-    3-D; other list columns are mean-pooled over their mask."""
+    3-D; other list columns are mean-pooled over their mask.
+    ``param_dtype=torch.bfloat16`` stores the tables bf16 at rest; they then
+    train only through a row-sparse ``embedding_optimizer`` (stochastic-
+    rounding writes)."""
     cat = schema.categorical
     if not len(cat):
         raise ValueError("Schema has no categorical columns")
@@ -105,6 +149,6 @@ def Embeddings(
         tables[domain] = EmbeddingTable(
             dim if dim is not None else infer_embedding_dim(cols[0]), cols,
             sequence_combiner=next(iter(combiners)) if len(combiners) == 1 else None,
-            seed=seed + i, device=device,
+            dtype=param_dtype or torch.float32, seed=seed + i, device=device,
         )
     return ParallelBlock(tables, block_name="embeddings", schema=cat)

@@ -4,28 +4,33 @@ two-tower model serves and trains with).
 
 Training steps run eagerly, one batch at a time: the forward with
 ``need_logits`` False (no metric reads the logits, so the contrastive head
-takes its fused loss), the backward, and one optimizer step. Not ported yet
-(ROADMAP.md queue 1): training metrics and ``evaluate``,
-``steps_per_execution``, device-resident epochs, meshes, callbacks, the
-row-sparse embedding optimizer and frozen blocks.
+takes its fused loss), the backward, one dense optimizer step, and, with
+``compile(embedding_optimizer=...)``, one row-sparse update of each routed
+table per lookup (``blocks/optimizer.py``). Not ported yet (ROADMAP.md
+queue 1): training metrics and ``evaluate``, ``steps_per_execution``,
+device-resident epochs, meshes, callbacks, ``MultiOptimizer``, the sharded
+sparse update and frozen blocks.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..blocks.optimizer import check_optimizer, make_optimizer
+from ..blocks.optimizer import (SparseEmbeddingOptimizer, check_optimizer, make_optimizer,
+                                split_embeddings_on_size)
 from ..core.block import Block
 from ..core.device import check_module_device
 from ..core.types import (ModelContext, Prediction, TopKPrediction, to_device_batch,
                           to_device_targets)
 from ..data.dataset import Dataset
 from ..data.loader import ROW_VALID_KEY, Loader
+from ..inputs.embedding import EmbeddingTable
 from ..losses import categorical_crossentropy, get_loss, sparse_categorical_crossentropy
 from ..outputs.base import ModelOutput
 
@@ -117,12 +122,21 @@ class Model(Block):
     # training
     # ------------------------------------------------------------------
     def compile(self, optimizer: str = "adam", loss=None, metrics=None,
-                learning_rate: Optional[float] = None, train_metrics_steps: int = 1) -> "Model":
+                learning_rate: Optional[float] = None, train_metrics_steps: int = 1,
+                embedding_optimizer: Union[None, str, SparseEmbeddingOptimizer] = None,
+                sparse_threshold: Optional[int] = None) -> "Model":
         """Choose the optimizer, the loss (a name, a callable, or a dict by
         head name or target; None takes each head's default) and the metrics.
         ``metrics=None`` means the top-k training metrics, which are not ported
-        yet: pass ``metrics=[]``. Optimizer slots and the step count live until
-        the next ``compile()``."""
+        yet: pass ``metrics=[]``. The dense optimizer's slots and the step
+        count live until the next ``compile()``.
+
+        ``embedding_optimizer`` (a :class:`SparseEmbeddingOptimizer`, or its
+        kind: ``"sgd"``, ``"adagrad"``, ``"adam"``, also as ``"lazy_adam"`` or
+        ``"sparse_adagrad"``, at ``learning_rate``, default 0.05) trains the
+        embedding tables row-sparsely; the dense optimizer takes the rest. With
+        ``sparse_threshold``, only tables of more than that many rows, and
+        every bf16 table, go to it. Its slots live on the tables."""
         if metrics is None:
             raise NotImplementedError(
                 "compile(metrics=None) asks for the top-k training metrics, which are not "
@@ -133,6 +147,16 @@ class Model(Block):
         if train_metrics_steps < 1:
             raise ValueError(f"train_metrics_steps must be >= 1, got {train_metrics_steps}")
         check_optimizer(optimizer)
+        if isinstance(embedding_optimizer, str):
+            kind = embedding_optimizer.replace("lazy_", "").replace("sparse_", "")
+            embedding_optimizer = SparseEmbeddingOptimizer(
+                kind, learning_rate=0.05 if learning_rate is None else learning_rate)
+        elif not isinstance(embedding_optimizer, (SparseEmbeddingOptimizer, type(None))):
+            raise TypeError("embedding_optimizer must be a SparseEmbeddingOptimizer or its "
+                            f"kind, not {type(embedding_optimizer).__name__}")
+        self._emb_opt = embedding_optimizer
+        self._sparse_threshold = sparse_threshold
+        self._sparse_tables: List[EmbeddingTable] = []
         self._optimizer_name = optimizer
         self._learning_rate = learning_rate
         self._loss_spec = loss
@@ -183,15 +207,71 @@ class Model(Block):
         logs["loss"] = total
         return total, logs
 
+    # ------------------------------------------------------------------
+    # row-sparse embedding training
+    # ------------------------------------------------------------------
+    def _embedding_tables(self) -> List[EmbeddingTable]:
+        return [m for m in self.modules() if isinstance(m, EmbeddingTable)]
+
+    def _setup_sparse_embeddings(self) -> List[EmbeddingTable]:
+        """Route the tables and return the row-sparse ones, with slots (kept
+        when they already have the optimizer's). Without an embedding
+        optimizer none; without a threshold all; with one, the tables of more
+        rows than it and every bf16 table (stochastic rounding exists only on
+        the scatter path)."""
+        tables = self._embedding_tables()
+        lowp = [t for t in tables if t.table.dtype != torch.float32]
+        if self._emb_opt is None:
+            if lowp:
+                raise ValueError(
+                    f"Low-precision embedding tables ({[t.block_name for t in lowp]}) train "
+                    "via stochastic-rounding scatter updates: compile() with a sparse "
+                    'embedding_optimizer (e.g. embedding_optimizer="adagrad"); the dense '
+                    "optimizer would round to nearest in bf16 and silently drop small updates")
+            routed = []
+        elif not tables:
+            raise ValueError("embedding_optimizer was set but the model has no embedding tables")
+        elif self._sparse_threshold is None:
+            routed = tables
+        else:
+            large, _ = split_embeddings_on_size(tables, self._sparse_threshold)
+            routed = [t for t in tables if t in large or t in lowp]
+            if not routed:
+                warnings.warn(f"sparse_threshold={self._sparse_threshold} routed every "
+                              "embedding table to the dense optimizer: drop "
+                              "embedding_optimizer or lower the threshold", stacklevel=3)
+        for t in tables:
+            t.sparse_routed = t in routed
+            slots = t.sparse_slots
+            if t.sparse_routed and (slots is None or sorted(slots.keys())
+                                    != sorted(self._emb_opt.slot_names())):
+                self._emb_opt.init_slots(t)
+        return routed
+
+    def _apply_sparse(self, lookups) -> None:
+        """One row-sparse update per lookup: table by table, each in the order
+        of its lookups in the forward (the JAX package's order). A table that
+        serves two columns takes two updates."""
+        for table in self._sparse_tables:
+            for t, ids, rows in lookups:
+                if t is table:
+                    grad = rows.grad if rows.grad is not None else torch.zeros_like(rows)
+                    self._emb_opt.apply(table, ids, grad, self._step)
+
     def train_step(self, x: Dict[str, torch.Tensor], y, loss_fns) -> Dict[str, torch.Tensor]:
         """One step on a batch already on the model's device: forward, backward,
-        optimizer step. Returns the step's logs, detached, on the device."""
+        dense optimizer step, row-sparse updates. Returns the step's logs,
+        detached, on the device."""
         context = ModelContext(features=x, targets=y, step=self._step, need_logits=False)
+        if self._sparse_tables:
+            context["sparse_lookups"] = []
         preds = self(x, targets=y, training=True, context=context)
         total, logs = self._compute_losses(self._as_pred_dict(preds), x, loss_fns)
         self._optimizer.zero_grad(set_to_none=True)
         total.backward()
         self._optimizer.step()
+        if self._sparse_tables:
+            self._apply_sparse(context["sparse_lookups"])
         self._step += 1
         return {k: v.detach() for k, v in logs.items()}
 
@@ -207,8 +287,11 @@ class Model(Block):
             data, batch_size or 1024, drop_last=True, shuffle=shuffle)
         loss_fns = self._resolve_task_losses()
         if self._optimizer is None:
+            self._sparse_tables = self._setup_sparse_embeddings()
+            routed = {id(t.table) for t in self._sparse_tables}
             self._optimizer = make_optimizer(
-                self._optimizer_name, [p for p in self.parameters() if p.requires_grad],
+                self._optimizer_name,
+                [p for p in self.parameters() if p.requires_grad and id(p) not in routed],
                 self._learning_rate)
         history = History()
         for _ in range(epochs):

@@ -87,13 +87,16 @@ def TwoTowerModel(
     embedding_dim: Optional[int] = None,
     negative_samplers: Union[str, Sequence] = "in-batch",
     logits_temperature: float = 1.0,
+    table_dtype: Optional[torch.dtype] = None,
     seed: int = 0,
     device=None,
 ) -> RetrievalModelV2:
     """USER columns feed the query tower, ITEM columns the candidate tower;
     each is an input block and an MLP of ``query_tower`` widths whose last
     layer is linear. The head trains on in-batch negatives. Weights are drawn
-    from ``seed`` on ``device`` (default the card)."""
+    from ``seed`` on ``device`` (default the card). ``table_dtype=
+    torch.bfloat16`` stores the embedding tables bf16 at rest: train them with
+    ``compile(embedding_optimizer=...)``."""
     dev = resolve_device(device)
     user_schema = schema.select_by_tag(Tags.USER)
     item_schema = schema.select_by_tag(Tags.ITEM)
@@ -101,7 +104,8 @@ def TwoTowerModel(
         raise ValueError("TwoTowerModel needs USER- and ITEM-tagged columns")
 
     def build_tower(dims, tower_schema, tower_seed):
-        inputs = InputBlockV2(tower_schema, dim=embedding_dim, seed=tower_seed, device=dev)
+        inputs = InputBlockV2(tower_schema, dim=embedding_dim, param_dtype=table_dtype,
+                              seed=tower_seed, device=dev)
         mlp = MLPBlock(inputs.out_features, tuple(dims), no_activation_last_layer=True,
                        seed=tower_seed, device=dev)
         block = SequentialBlock([inputs, mlp])
