@@ -594,12 +594,13 @@ def phase_train(dev, model, catalog, queries):
 
 def train_times(dev, model, data):
     """The train step on the host clock (each step ends in a synchronise), and
-    its parts on CUDA events: host batch and copy, tower forward, loss forward
+    its parts on CUDA events recorded at ``train_step``'s marks and at the end
+    of the towers' forward: host batch and copy, tower forward, loss forward
     (K1), backward (K2, K3, the towers, the embedding gradients), dense
     optimizer step, row-sparse update (dedup, gathers, K7, K8; none without an
     embedding optimizer). Event times are device time between marks, launch
     gaps included."""
-    from models_tpu_torch.core.types import ModelContext, to_device_batch, to_device_targets
+    from models_tpu_torch.core.types import to_device_batch, to_device_targets
     from models_tpu_torch.data import Loader
 
     loss_fns = model._resolve_task_losses()
@@ -616,31 +617,27 @@ def train_times(dev, model, data):
     out["examples_per_sec"] = TRAIN_BATCH / out["step_ms"][0] * 1e3
     names = ("batch_copy", "towers", "loss_forward", "backward", "optimizer", "sparse_update")
     sums = dict.fromkeys(names, 0.0)
+    ev = {}
+
+    def mark(name):
+        ev[name] = torch.cuda.Event(enable_timing=True)
+        ev[name].record()
+
+    hook = model.blocks[0].register_forward_hook(lambda *_: mark("towers"))
     reps = 8
-    for x, y in batches[:reps]:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        ev[0].record()
-        xb, yb = to_device_batch(x, dev), to_device_targets(y, dev)
-        ev[1].record()
-        ctx = ModelContext(features=xb, targets=yb, step=model._step, need_logits=False)
-        if model._sparse_tables:
-            ctx["sparse_lookups"] = []
-        towers = model.blocks[0](xb, training=True, context=ctx, targets=yb)
-        ev[2].record()
-        pred = model.blocks[1](towers, training=True, context=ctx, targets=yb)
-        total, _ = model._compute_losses(model._as_pred_dict(pred), xb, loss_fns)
-        ev[3].record()
-        model._optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        ev[4].record()
-        model._optimizer.step()
-        ev[5].record()
-        if model._sparse_tables:
-            model._apply_sparse(ctx["sparse_lookups"])
-        ev[6].record()
-        torch.cuda.synchronize()
-        for i, name in enumerate(names):
-            sums[name] += ev[i].elapsed_time(ev[i + 1])
+    try:
+        for x, y in batches[:reps]:
+            ev.clear()
+            mark("start")
+            xb, yb = to_device_batch(x, dev), to_device_targets(y, dev)
+            mark("batch_copy")
+            model.train_step(xb, yb, loss_fns, mark=mark)
+            torch.cuda.synchronize()
+            require(sorted(ev) == sorted(names + ("start",)), f"train step marks {sorted(ev)}")
+            for prev, name in zip(("start",) + names, names):
+                sums[name] += ev[prev].elapsed_time(ev[name])
+    finally:
+        hook.remove()
     out.update({f"{name}_ms": v / reps for name, v in sums.items()})
     return out
 
@@ -748,11 +745,12 @@ def skewed_ids(n: int, card: int, seed: int) -> np.ndarray:
                                               p=p / p.sum()).astype(np.int32)
 
 
-def scatter_case(dev, gen, R, D, N, dtype, ids, valid=None):
+def scatter_case(dev, gen, R, D, N, dtype, ids, valid=None, errs=None):
     """Kernel against plain version, both scatters, on copies of one table:
-    the results must be equal bit for bit. ``ids`` None: a deduplicated
-    skewed batch, its stale duplicates then marked invalid and their ids
-    moved out of range, so that the kernel must skip them unread."""
+    the results must be equal bit for bit; ``errs`` keeps each kernel's
+    largest |difference|. ``ids`` None: a deduplicated skewed batch, its
+    stale duplicates then marked invalid and their ids moved out of range,
+    so that the kernel must skip them unread."""
     from models_tpu_torch.ops import scatter as S
 
     if ids is None:
@@ -767,10 +765,11 @@ def scatter_case(dev, gen, R, D, N, dtype, ids, valid=None):
     for name, fn, plain, arg in (("add", S.row_scatter_add, S.row_scatter_add_plain, upd),
                                  ("write", S.row_scatter_write, S.row_scatter_write_plain, rows)):
         got, want = fn(table.clone(), ids, arg, valid), plain(table.clone(), ids, arg, valid)
-        torch.cuda.synchronize()
+        err = max_err(got.float(), want.float())
+        errs[f"row_scatter_{name}"] = max(errs[f"row_scatter_{name}"], err)
         require(torch.equal(raw_bits(got), raw_bits(want)),
                 f"row_scatter_{name} R={R} D={D} N={N} {dtype}: differs from the plain version "
-                f"(max|d| {max_err(got.float(), want.float())})")
+                f"(max|d| {err})")
     n_valid = N if valid is None else int(valid.sum())
     return n_valid
 
@@ -783,21 +782,21 @@ def phase_row_scatter(dev, gen, errs):
     fp32 and bf16 tables, N = 1 and no valid position."""
     from models_tpu_torch.ops import scatter as S
 
+    errs["row_scatter_add"] = errs["row_scatter_write"] = 0.0
     cases = [(USER_ROWS, 128, 8192), (24, 128, 81_920), (4096, 64, 2048), (4096, 200, 2048),
              (4096, 130, 2048)]
     for R, D, N in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            n_valid = scatter_case(dev, gen, R, D, N, dtype, None)
+            n_valid = scatter_case(dev, gen, R, D, N, dtype, None, errs=errs)
             print(f"  row scatters R={R} D={D} N={N} {dtype}: {n_valid} valid, bit-equal",
                   flush=True)
     one = torch.tensor([5], dtype=torch.int32, device=dev)
     for dtype in (torch.float32, torch.bfloat16):
-        scatter_case(dev, gen, 64, 128, 1, dtype, one)
-        scatter_case(dev, gen, 64, 128, 1, dtype, one, torch.zeros(1, dtype=torch.bool,
-                                                                   device=dev))
+        none = torch.zeros(512, dtype=torch.bool, device=dev)
+        scatter_case(dev, gen, 64, 128, 1, dtype, one, errs=errs)
+        scatter_case(dev, gen, 64, 128, 1, dtype, one, none[:1], errs=errs)
         ids = torch.randperm(4096, device=dev, generator=gen)[:512].to(torch.int32)
-        scatter_case(dev, gen, 4096, 128, 512, dtype, ids, torch.zeros(512, dtype=torch.bool,
-                                                                       device=dev))
+        scatter_case(dev, gen, 4096, 128, 512, dtype, ids, none, errs=errs)
     # rows one element off 16-byte alignment take the scalar path
     table = torch.randn(4096, 128, device=dev, generator=gen)
     buf = torch.randn(512 * 128 + 1, device=dev, generator=gen)
@@ -805,10 +804,9 @@ def phase_row_scatter(dev, gen, errs):
     ids = torch.randperm(4096, device=dev, generator=gen)[:512].to(torch.int32)
     got = S.row_scatter_add(table.clone(), ids, upd)
     want = S.row_scatter_add_plain(table.clone(), ids, upd)
-    torch.cuda.synchronize()
+    errs["row_scatter_add"] = max(errs["row_scatter_add"], max_err(got, want))
     require(torch.equal(raw_bits(got), raw_bits(want)), "row_scatter_add, misaligned updates")
     print("  row scatters N=1, no valid position, misaligned rows: bit-equal", flush=True)
-    errs["row_scatter_add"] = errs["row_scatter_write"] = 0.0
 
 
 def sparse_launches():

@@ -179,9 +179,14 @@ class SparseEmbeddingOptimizer:
         v_new = b2 * v_old + (1 - b2) * gsum * gsum
         row_scatter_add(m, sids, m_new - m_old, valid)
         row_scatter_add(v, sids, v_new - v_old, valid)
-        t = max(float(step) + 1.0, 1.0)
-        mhat = m_new / (1 - b1 ** t)
-        vhat = v_new / (1 - b2 ** t)
+        # the bias corrections in float32, as the JAX package computes them:
+        # 1 - 0.999**t cancels, and float64 would differ from it by up to 2e-5
+        f32 = dict(dtype=torch.float32)
+        t = torch.tensor(max(float(step) + 1.0, 1.0), **f32)
+        c1 = float(1 - torch.tensor(b1, **f32) ** t)
+        c2 = float(1 - torch.tensor(b2, **f32) ** t)
+        mhat = m_new / c1
+        vhat = v_new / c2
         return commit(-lr * mhat / (torch.sqrt(vhat) + self.eps))
 
 

@@ -258,20 +258,29 @@ class Model(Block):
                     grad = rows.grad if rows.grad is not None else torch.zeros_like(rows)
                     self._emb_opt.apply(table, ids, grad, self._step)
 
-    def train_step(self, x: Dict[str, torch.Tensor], y, loss_fns) -> Dict[str, torch.Tensor]:
+    def train_step(self, x: Dict[str, torch.Tensor], y, loss_fns,
+                   mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         """One step on a batch already on the model's device: forward, backward,
         dense optimizer step, row-sparse updates. Returns the step's logs,
-        detached, on the device."""
+        detached, on the device. ``mark``, where given, is called with the
+        name of each part as its work is queued (``loss_forward``,
+        ``backward``, ``optimizer``, ``sparse_update``), so that a caller can
+        time the parts."""
+        mark = mark or (lambda name: None)
         context = ModelContext(features=x, targets=y, step=self._step, need_logits=False)
         if self._sparse_tables:
             context["sparse_lookups"] = []
         preds = self(x, targets=y, training=True, context=context)
         total, logs = self._compute_losses(self._as_pred_dict(preds), x, loss_fns)
+        mark("loss_forward")
         self._optimizer.zero_grad(set_to_none=True)
         total.backward()
+        mark("backward")
         self._optimizer.step()
+        mark("optimizer")
         if self._sparse_tables:
             self._apply_sparse(context["sparse_lookups"])
+        mark("sparse_update")
         self._step += 1
         return {k: v.detach() for k, v in logs.items()}
 

@@ -12,11 +12,18 @@ compounded over 8 steps), and within atol 1e-5 (2e-4 of the learning rate)
 for LazyAdam, whose step ``lr * m / (sqrt(v) + 1e-8)`` turns the rounding of
 a gradient of the order of eps into a visible move. The dense optimizer is
 adagrad or sgd: dense Adam would normalise the last candidate bias's
-gradient, which is zero but for rounding. The bf16 tables draw their
-rounding noise from torch generators, not JAX's, so they are held to the
-port's own fp32 trajectory (rtol 2e-2, as the JAX package holds its own).
+gradient, which is zero but for rounding.
+
+bf16 tables are carried over as bf16 and round with JAX's own noise: the
+port's ``SparseEmbeddingOptimizer.noise`` is set to the bits
+``jax.random.bits(fold_in(key(salt), step), shape, uint32)`` that the JAX
+package draws. The bf16 tables are then held bit-equal to JAX's: at these
+sizes the fp32 rows they round from agree exactly. The port's bf16
+trajectory also tracks its own fp32 one (rtol 2e-2, as the JAX package holds
+its own).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,11 +68,30 @@ def port_state(model):
     return out
 
 
+def jax_noise(shape, salt, step, device):
+    """The stochastic-rounding bits the JAX package draws for (salt, step)."""
+    key = jax.random.fold_in(jax.random.key(salt), jnp.asarray(step, jnp.uint32))
+    bits = np.asarray(jax.random.bits(key, tuple(shape), jnp.uint32)).view(np.int32)
+    return torch.from_numpy(bits.copy()).to(device)
+
+
+def assert_bf16_equal(got: torch.Tensor, want, err_msg=""):
+    """Two bf16 tables, bit for bit."""
+    want = np.asarray(want)
+    assert got.dtype == torch.bfloat16 and want.dtype.name == "bfloat16", err_msg
+    np.testing.assert_array_equal(got.detach().contiguous().view(torch.int16).numpy(),
+                                  want.view(np.int16), err_msg=err_msg)
+
+
 def assert_state_close(tm, jm, atol=1e-6):
     want = {**jax_flat(jm), **jax_slots(jm)}
     got = port_state(tm)
     assert sorted(got) == sorted(want)
+    params = dict(tm.named_parameters())
     for key, value in want.items():
+        if np.asarray(value).dtype.name == "bfloat16":
+            assert_bf16_equal(params[key.replace("/", ".")], value, err_msg=key)
+            continue
         np.testing.assert_allclose(got[key], np.asarray(value, np.float32), rtol=1e-4,
                                    atol=atol, err_msg=key)
 
@@ -90,7 +116,7 @@ def shared_domain_data(num_rows=300, seed=13):
     return out
 
 
-def build_pair(name, seed=13, **kw):
+def build_pair(name, seed=13, tkw=None, **kw):
     if name == "shared-domain":
         jds, tds = shared_domain_data(seed=seed)
     else:
@@ -99,30 +125,38 @@ def build_pair(name, seed=13, **kw):
     jm = JTwoTowerModel(jds.schema, **kw)
     jm.compile()
     jm.build(JLoader(jds, 64))
-    tm = mt.TwoTowerModel(tds.schema, device="cpu", **kw)
+    tm = mt.TwoTowerModel(tds.schema, device="cpu", **{**kw, **(tkw or {})})
     mt.load_jax_params(tm, jax_flat(jm))
     return jds, tds, jm, tm
 
 
 SMALL = dict(query_tower=(16, 8), embedding_dim=8)
 CASES = {
-    "movielens-adagrad": ("movielens-25m", "adagrad", None, "adagrad"),
-    "e-commerce-sgd": ("e-commerce", "sgd", None, "adagrad"),
+    "movielens-adagrad": ("movielens-25m", "adagrad", None, "adagrad", None),
+    "e-commerce-sgd": ("e-commerce", "sgd", None, "adagrad", None),
     # padded genres ids touch row 0 with zero gradients: LazyAdam moves there
-    "movielens-lazy_adam": ("movielens-25m", "lazy_adam", None, "adagrad"),
+    "movielens-lazy_adam": ("movielens-25m", "lazy_adam", None, "adagrad", None),
     # genres (21 rows) stays on the dense optimizer, the ids tables go sparse
-    "movielens-threshold": ("movielens-25m", "adagrad", 100, "adagrad"),
-    "shared-domain-adagrad": ("shared-domain", "sparse_adagrad", None, "adagrad"),
+    "movielens-threshold": ("movielens-25m", "adagrad", 100, "adagrad", None),
+    "shared-domain-adagrad": ("shared-domain", "sparse_adagrad", None, "adagrad", None),
+    # bf16 tables: old + delta in fp32, stochastic rounding, the row write
+    "movielens-adagrad-bf16": ("movielens-25m", "adagrad", None, "adagrad", "bfloat16"),
+    "e-commerce-sgd-bf16": ("e-commerce", "sgd", None, "adagrad", "bfloat16"),
+    # a bf16 table (genres) goes sparse below the threshold too
+    "movielens-threshold-bf16": ("movielens-25m", "adagrad", 100, "adagrad", "bfloat16"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_sparse_fit_trajectory_matches_jax(case):
-    name, emb, thr, dense = CASES[case]
-    jds, tds, jm, tm = build_pair(name, **SMALL)
+    name, emb, thr, dense, dtype = CASES[case]
+    kw = dict(SMALL, table_dtype=getattr(jnp, dtype)) if dtype else SMALL
+    jds, tds, jm, tm = build_pair(name, tkw=dict(table_dtype=getattr(torch, dtype))
+                                  if dtype else {}, **kw)
     for m in (jm, tm):
         m.compile(optimizer=dense, learning_rate=0.05, metrics=[], embedding_optimizer=emb,
                   sparse_threshold=thr)
+    tm._emb_opt.noise = jax_noise
     jh = jm.fit(jds, epochs=2, batch_size=64, shuffle=False, verbose=0)
     th = tm.fit(tds, epochs=2, batch_size=64, shuffle=False, device="cpu")
     assert sorted(th.history) == sorted(jh.history)
@@ -130,18 +164,24 @@ def test_sparse_fit_trajectory_matches_jax(case):
     assert th.history["loss"][1] < th.history["loss"][0]
     assert_state_close(tm, jm, atol=1e-5 if emb == "lazy_adam" else 1e-6)
     routed = {t.block_name for t in tm._sparse_tables}
-    assert routed == ({"userId", "movieId"} if thr else
+    assert routed == ({"userId", "movieId"} | ({"genres"} if dtype else set()) if thr else
                       {t.block_name for t in tm._embedding_tables()})
+    assert all(t.table.dtype == getattr(torch, dtype or "float32")
+               for t in tm._embedding_tables())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["sgd", "adagrad", "adam"])
-def test_sparse_optimizer_apply_matches_jax(kind):
-    """Three updates of one table from duplicated ids, the second with a
-    step-dependent learning rate; the step also drives Adam's correction."""
+def test_sparse_optimizer_apply_matches_jax(kind, dtype):
+    """Three updates of one table from duplicated ids, at steps 4 to 6 (the
+    step drives Adam's correction and a bf16 table's rounding noise)."""
     rng = np.random.default_rng(9)
-    jt, tt = JTable(128, jcat("item", 63), seed=2), EmbeddingTable(128, tcat("item", 63))
+    jt = JTable(128, jcat("item", 63), seed=2, dtype=getattr(jnp, dtype))
+    tt = EmbeddingTable(128, tcat("item", 63), dtype=getattr(torch, dtype))
     mt.load_jax_params(tt, {"table": np.asarray(jt.table[...])})
+    assert tt.table.dtype == getattr(torch, dtype)
     jopt, topt = JSparse(kind, learning_rate=0.1), SparseEmbeddingOptimizer(kind, 0.1)
+    topt.noise = jax_noise
     jopt.init_slots(jt)
     topt.init_slots(tt)
     for step in range(3):
@@ -149,8 +189,11 @@ def test_sparse_optimizer_apply_matches_jax(kind):
         grads = rng.standard_normal((5, 7, 128)).astype(np.float32)
         jopt.apply(jt, jnp.asarray(ids), jnp.asarray(grads), jnp.asarray(step + 4))
         topt.apply(tt, torch.tensor(ids), torch.tensor(grads), step + 4)
-    np.testing.assert_allclose(tt.table.detach().numpy(), np.asarray(jt.table[...]),
-                               rtol=1e-5, atol=1e-6)
+    if dtype == "bfloat16":
+        assert_bf16_equal(tt.table, jt.table[...])
+    else:
+        np.testing.assert_allclose(tt.table.detach().numpy(), np.asarray(jt.table[...]),
+                                   rtol=1e-5, atol=1e-6)
     assert sorted(tt.sparse_slots.keys()) == sorted(jt.sparse_slots)
     for name in jt.sparse_slots:
         np.testing.assert_allclose(tt.sparse_slots[name].numpy(),
