@@ -16,39 +16,57 @@
    bf16 tables, on the userId table at the path's batch (deduplicated skewed
    ids, stale duplicates and out-of-range ids on invalid positions), 81,920
    ids over 24 rows, D = 64, 200 and 130, misaligned rows, N = 1 and no valid
-   position;
+   position; the row gather (K9) bit for bit, fp32, bf16 and fp16 tables of
+   R % 8 != 0 rows, duplicates, ids at both ends, clamped ids, B = 1, D = 7,
+   a misaligned table, and 8192 ids into the bench's 4M x 128 fp32 and
+   16M x 128 bf16 tables; the int8 forms: K5 (int8 x int8 -> int32) equal,
+   also at D = 130 and on a misaligned catalog, K6 with int8 rows and per-row
+   scales within the fp32 tolerance, with planted ties;
 4. serves the two-tower model end to end at the bench's full width
    (movielens-25m schema, query_tower=(256, 128), embedding_dim=128, seeded
    random weights) over the whole 56,680-item catalog, fp32 and bf16
    indexes: a 256-row request (the binned route, phase B in the rescore
    kernel) and a 4096-row request (the streaming kernel), each held against
-   the plain route; the launch counts of this phase show which kernels it ran;
-5. checks the training step at the same width: the fused loss (K1-K3) against
+   the plain route; then the int8 index: built on the card equal bit for bit
+   to a CPU build, 256 rows by the binned route with ids and scores equal to
+   the CPU route's, 4096 rows through K6 int8 against the plain route; the
+   launch counts of each run show which kernels it ran;
+5. times the requests (fp32, bf16, int8; host clock), their parts, the index
+   builds and the top-k layer on the bench's 1M x 128 catalog at B = 256;
+6. checks the training step at the same width: the fused loss (K1-K3) against
    the unfused head (materialised logits, cuBLAS fp32, autograd) at batch
    8192, loss and every parameter's gradient; and three adagrad steps at
    batch 1024 against a CPU copy of the model (the plain versions);
-6. trains at full width, the training path: ``compile("adagrad",
+7. trains at full width, the training path: ``compile("adagrad",
    learning_rate=0.05, metrics=[])`` and ``fit`` over 65,536 generated rows
    in batches of 8192 for two epochs (16 steps), requiring each of K1, K2
    and K3 to launch once per step and every loss to be finite, then serves
    the trained model (256 rows, fp32 index);
-7. times the train step (host clock, median and range, examples/s), splits
+8. times the train step (host clock, median and range, examples/s), splits
    it with CUDA events into host batch and copy, tower forward, loss forward,
    backward and optimizer step, and traces four steps with torch.profiler
    (the device's busy share, the largest kernels' time per step);
-8. checks row-sparse training (``embedding_optimizer="adagrad"``) with fp32
+9. checks row-sparse training (``embedding_optimizer="adagrad"``) with fp32
    and with bf16 tables: three steps at batch 1024 on the card and on a CPU
    copy, both rounding with the CPU generator's noise;
-9. trains row-sparsely at full width, the slice's path: 16 steps of 8192 rows
-   with fp32 tables (K7 six times a step: acc and table of userId, movieId and
-   genres) and with bf16 tables (K7 three times, K8 three times), K1-K3 once a
-   step, finite losses, rows no batch looked up unchanged, the trained models
+10. trains row-sparsely at full width: 16 steps of 8192 rows with fp32 tables
+   (K7 six times a step: acc and table of userId, movieId and genres) and
+   with bf16 tables (K7 three times, K8 three times), K1-K3 once a step,
+   finite losses, rows no batch looked up unchanged, the trained models
    serving 256 rows;
-10. times those steps as in 7, with a row-sparse update part, the bench's
+11. times those steps as in 8, with a row-sparse update part, the bench's
    op-level steps (sparse adagrad on a 4M x 128 fp32 table, dense adagrad on
    the same as its yardstick, sparse adagrad on a 16M x 128 bf16 table), and
-   K7 and K8 on the 4M-row table;
-11. prints one JSON line with each kernel's launches (on its own path's run;
+   K7, K8 (bf16) and K8's fp32 instance on the 4M-row table;
+12. runs the row gather through its entry point (8192 ids into the 4M x 128
+   fp32 and 16M x 128 bf16 tables, four calls each) and times it;
+13. evaluates, the README's flow at full width: ``compile(metrics=None,
+   train_metrics_steps=4)`` and ``fit`` for 8 steps of 8192 rows (K1-K3
+   must launch on exactly the 6 steps without metrics), in-batch
+   ``evaluate`` at batch 8192 and ``evaluate(item_corpus=...)`` with fp32,
+   bf16 and int8 indexes (K6, 2048 queries) against a CPU copy, and times
+   both (examples/s);
+14. prints one JSON line with each kernel's launches (on its own path's run;
    K7 and K8: both row-sparse runs), error against its plain version, its
    time, the plain version's, the least time the card could take and a
    PyTorch yardstick's, then the card line and ``{"ok": true, ...}`` last.
@@ -68,6 +86,10 @@ element). Row-sparse steps, card vs CPU: as training, slots included; a bf16
 table element may be one bf16 ulp off where the two sides' fp32 sums differ
 in the last bits and the noise falls between them (at most 1e-3 of the
 elements written).
+
+Row gather: bit for bit (a copy). int8: the binned route's ids and scores
+bit-equal card vs CPU (integer dots); K6 int8 within the top-k tolerance.
+Evaluation, card vs CPU: loss within 1e-5, metrics within METRIC_ATOL.
 
 Any failed check raises, and the script exits non-zero. It imports nothing of
 JAX or of the JAX package.
@@ -104,6 +126,14 @@ USER_ROWS = 162_544  # the userId table, padded to a multiple of 8
 OP_ROWS_FP32, OP_ROWS_BF16 = 4_000_000, 16_000_000
 
 
+T0 = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """A progress line with the seconds since the script started."""
+    print(f"[{time.perf_counter() - T0:.1f} s] {what}", flush=True)
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -126,10 +156,10 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def device_ms(fn, reps: int = 50, warmup: int = 5, cold: bool = False) -> float:
-    """Device time of one call of ``fn``: the summed durations of the kernels
-    and copies ``reps`` calls put on the card (torch.profiler), over ``reps``.
-    For calls of a few microseconds, where back-to-back events would time
-    the host's launches instead. ``cold``: before each call, rewrite a
+    """Device time of one call of ``fn``: the kernels and copies ``reps``
+    calls put on the card (torch.profiler), each at its mean duration, as
+    many times as one call launches it. For calls of a few microseconds,
+    where back-to-back events would time the host's launches instead. ``cold``: before each call, rewrite a
     128 MB buffer (its kernel is left out of the sum), so that the call finds
     its rows in device memory and not in the 50 MB L2."""
     from torch.autograd import DeviceType
@@ -145,15 +175,31 @@ def device_ms(fn, reps: int = 50, warmup: int = 5, cold: bool = False) -> float:
     for _ in range(warmup):
         call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-               and not (cold and "MulFunctor" in e.name))
-    require(busy > 0, "the profiler saw no device time")
-    return busy / reps / 1e3
+    # the profiler loses device events now and then (on an H100 under
+    # torch 2.11: a trace with none, and traces short of 1-24 of 50 calls'
+    # events), so a call's time is each kernel's mean duration times the
+    # number of times a call launches it (its count over `reps`, rounded); a
+    # trace that saw nothing is taken again, at most twice
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False) \
+                    and not (cold and "MulFunctor" in e.name):
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        lost = sum(abs(n - round(n / reps) * reps) for n, _ in by_name.values())
+        per_call_us = sum(us / n * round(n / reps) for n, us in by_name.values())
+        if per_call_us > 0:
+            if lost:
+                print(f"  device_ms: {lost} device events missing or extra over {reps} calls",
+                      flush=True)
+            return per_call_us / 1e3
+        print(f"  device_ms: trace {attempt + 1} saw no device time", flush=True)
+    raise AssertionError("the profiler saw no device time in three traces")
 
 
 def host_ms(fn, reps: int = 21) -> list:
@@ -1048,6 +1094,413 @@ def measure_row_scatter(dev, gen, launches, errs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the row gather (K9), and the int8 forms of K5 and K6
+# ---------------------------------------------------------------------------
+
+
+def gather_case(name, table, ids, errs):
+    """K9 against its plain version: equal bit for bit."""
+    from models_tpu_torch.ops import embedding_lookup as E
+
+    got, want = E.row_gather(table, ids), E.row_gather_plain(table, ids)
+    torch.cuda.synchronize()
+    require(got.dtype == table.dtype and got.shape == want.shape, f"row_gather {name}: "
+            f"{got.dtype} {tuple(got.shape)}")
+    err = max_err(got.float(), want.float())
+    errs["row_gather"] = max(errs["row_gather"], err)
+    require(torch.equal(raw_bits(got), raw_bits(want)),
+            f"row_gather {name}: differs from the plain version (max|d| {err})")
+    print(f"  row_gather {name}: bit-equal", flush=True)
+
+
+def phase_gather(dev, gen, errs):
+    """K9 against its plain version, bit for bit: fp32, bf16 and fp16 tables
+    of R % 8 != 0 rows, duplicates, ids at both ends, B = 1 and B not a
+    multiple of 256, ids out of range (clamped), D = 7 (the scalar path), a
+    table one element off 16-byte alignment; and at the bench's op-level
+    sizes, 8192 ids into 4M x 128 fp32 and 16M x 128 bf16 tables."""
+    errs["row_gather"] = 0.0
+    R = 1003
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        table = torch.randn(R, 128, device=dev, generator=gen).to(dtype)
+        ids = torch.randint(0, R, (1000,), device=dev, generator=gen, dtype=torch.int32)
+        ids[:6] = torch.tensor([0, R - 1, 5, 5, 5, R - 1], dtype=torch.int32)
+        ids[500:503] = torch.tensor([-3, R, R + 77], dtype=torch.int32)  # clamped
+        gather_case(f"R={R} D=128 B=1000 {dtype}", table, ids, errs)
+        gather_case(f"R={R} D=128 B=1 {dtype}", table, ids[1:2].contiguous(), errs)
+        narrow = torch.randn(R, 7, device=dev, generator=gen).to(dtype)
+        gather_case(f"R={R} D=7 {dtype}", narrow, ids, errs)
+        buf = torch.randn(R * 128 + 1, device=dev, generator=gen).to(dtype)
+        gather_case(f"R={R} D=128 misaligned {dtype}", buf[1:].view(R, 128), ids, errs)
+    for R, dtype in ((OP_ROWS_FP32, torch.float32), (OP_ROWS_BF16, torch.bfloat16)):
+        table = torch.empty(R, 128, device=dev, dtype=dtype).normal_(generator=gen)
+        ids = torch.randint(0, R, (8192,), device=dev, generator=gen, dtype=torch.int32)
+        ids[:2] = torch.tensor([0, R - 1], dtype=torch.int32)
+        gather_case(f"R={R} D=128 B=8192 {dtype}", table, ids, errs)
+        del table
+    torch.cuda.empty_cache()
+
+
+def quantized_catalog(dev, gen, C, D=128, per_bin=True):
+    """Random int8 rows and positive fp32 scales, one per 64-row bin."""
+    c8 = torch.randint(-127, 128, (C, D), device=dev, generator=gen, dtype=torch.int8)
+    n_scales = -(-C // 64) if per_bin else C
+    scale = torch.rand(n_scales, device=dev, generator=gen) * 0.03 + 0.002
+    if per_bin:
+        scale = scale.repeat_interleave(64)[:C].contiguous()
+    return c8, scale
+
+
+def phase_int8_kernels(dev, gen, errs):
+    """The int8 forms: K5 (int8 x int8 -> int32) bit-equal to its plain
+    version at the serving bins, at D = 130 (no whole 4-byte words) and on a
+    misaligned catalog; K6 with int8 rows and per-row scales within the fp32
+    tolerance, with planted ties, at the serving sizes and over 1M rows."""
+    from models_tpu_torch.ops import topk as T
+
+    errs["binned_rescore_int8"] = errs["streaming_topk_int8"] = 0.0
+    for D, offset in ((128, 0), (130, 0), (128, 1)):
+        q8 = torch.randint(-127, 128, (256, D), device=dev, generator=gen, dtype=torch.int8)
+        buf = torch.randint(-127, 128, (886 * 64 * D + offset,), device=dev, generator=gen,
+                            dtype=torch.int8)
+        c8 = buf[offset:].view(886 * 64, D)
+        idx = torch.randint(0, 886, (256, 12), device=dev, generator=gen, dtype=torch.int32)
+        got = T.binned_rescore(q8, c8, idx, 64)
+        want = T.binned_rescore_plain(q8, c8, idx, 64)
+        torch.cuda.synchronize()
+        require(got.dtype == torch.int32 and torch.equal(got, want),
+                f"binned_rescore int8 D={D} offset={offset}: differs from the plain version")
+        print(f"  binned_rescore int8 B=256 kb=12 bs=64 D={D} offset={offset}: equal",
+              flush=True)
+    for B, C, n_valid, k in ((4096, 56_704, CATALOG, K), (16, 56_704, CATALOG, 512),
+                             (8, 1_000_000, None, K)):
+        q = torch.randn(B, 128, device=dev, generator=gen)
+        c8, scale = quantized_catalog(dev, gen, C, per_bin=False)
+        scale[7] = 1.0  # row 7 and its copies outscore every row against row 7
+        for dup in (C // 3, C // 2, (n_valid or C) - 1):  # planted ties
+            c8[dup], scale[dup] = c8[7], scale[7]
+        got = T.streaming_topk(q, c8, k, n_valid=n_valid, scale=scale)
+        want = T.streaming_topk_plain(q, c8, k, n_valid=n_valid, scale=scale)
+        err = check_topk(f"streaming_topk int8 B={B} C={C} n_valid={n_valid} k={k}", got, want,
+                         positions=True)
+        errs["streaming_topk_int8"] = max(errs["streaming_topk_int8"], err)
+        s, pos = T.streaming_topk(c8[7:8].float().contiguous(), c8, 4, n_valid=n_valid,
+                                  scale=scale)
+        require(pos[0, :4].tolist() == sorted(pos[0, :4].tolist()) and pos[0, 0].item() == 7,
+                f"int8 planted ties resolved as {pos.tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# the int8 index, evaluation
+# ---------------------------------------------------------------------------
+
+
+def phase_serving_int8(dev, model, catalog, queries):
+    """The int8 index of the catalog, built on the card and on the CPU from
+    the same embeddings, equal bit for bit; 256 rows by the binned route (K5
+    int8) on the card and the CPU from the same query embeddings, ids equal
+    and scores bit-equal; 4096 rows through K6 int8, held against the plain
+    route. Returns the encoder, the launch counts and the index build time."""
+    from models_tpu_torch.core.types import to_device_batch
+    from models_tpu_torch.data import Loader
+    from models_tpu_torch.ops import topk as T
+    from models_tpu_torch.outputs.topk import BruteForce
+
+    T.streaming_topk.launches = T.binned_rescore.launches = 0
+    t = time.perf_counter()
+    enc = model.to_top_k_encoder(catalog, k=K, batch_size=1024, candidate_dtype=torch.int8,
+                                 device=dev)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t) * 1e3
+    bf = enc.blocks[-1].topk_layer
+    require(bf.candidates.dtype == torch.int8 and bf.candidates.shape == (56_704, 128)
+            and bf.n_valid == CATALOG and bf.scales_per_bin, "int8 index layout")
+    for B in (256, 4096):
+        before = T.streaming_topk.launches, T.binned_rescore.launches
+        out = enc.predict(queries.take(B), batch_size=B, device=dev)
+        ran = T.streaming_topk.launches > before[0], T.binned_rescore.launches > before[1]
+        require(ran == (B == 4096, B == 256), f"int8 B={B}: K6, K5 ran {ran}")
+        require(out["scores"].shape == (B, K) and np.isfinite(out["scores"]).all()
+                and ((out["ids"] >= 0) & (out["ids"] < CATALOG)).all(), f"int8 B={B} output")
+    torch.cuda.synchronize()
+    launches = {"streaming_topk_int8": T.streaming_topk.launches,
+                "binned_rescore_int8": T.binned_rescore.launches}
+    print(f"  int8 index built in {build_ms:.1f} ms, launches {launches}", flush=True)
+
+    emb = model.candidate_embeddings(catalog, batch_size=1024, device=dev)
+    on_card = BruteForce(K).index(emb.to_numpy_dict()["embedding"],
+                                  emb.to_numpy_dict()["id"], dtype=torch.int8, device=dev)
+    on_cpu = BruteForce(K).index(emb.to_numpy_dict()["embedding"],
+                                 emb.to_numpy_dict()["id"], dtype=torch.int8, device="cpu")
+    for name in ("candidates", "ids", "scales"):
+        a, b = getattr(on_card, name).cpu(), getattr(on_cpu, name)
+        require(torch.equal(raw_bits(a) if a.is_floating_point() else a,
+                            raw_bits(b) if b.is_floating_point() else b),
+                f"int8 index: {name} built on the card differs from the CPU build")
+    require(torch.equal(bf.candidates.cpu(), on_cpu.candidates), "encoder's int8 index")
+    x, _ = next(iter(Loader(queries, 4096)))
+    with torch.no_grad():
+        q4096 = model.query_encoder(to_device_batch(x, dev)).contiguous()
+    q256 = q4096[:256]
+    s, i = on_card(q256)
+    cs, ci = on_cpu(q256.cpu())
+    torch.cuda.synchronize()
+    require(torch.equal(i.cpu(), ci), "int8 binned route: ids differ from the CPU route's")
+    require(torch.equal(raw_bits(s.cpu()), raw_bits(cs)),
+            "int8 binned route: scores differ from the CPU route's")
+    print("  int8 index: card build equals the CPU build bit for bit; 256 rows, binned "
+          "route, ids and scores equal to the CPU route's", flush=True)
+    want = T.streaming_topk_plain(q4096, bf.candidates, K, ids=bf.ids, n_valid=bf.n_valid,
+                                  scale=bf.scales)
+    check_topk("serve int8 B=4096 vs plain", bf(q4096), want)
+    return enc, launches, build_ms, q4096
+
+
+def evaluate_model(dev, catalog):
+    """A full-width two-tower compiled with the default metrics, every 4th
+    step feeding them."""
+    import models_tpu_torch as mt
+
+    model = mt.TwoTowerModel(catalog.schema, query_tower=(256, 128), embedding_dim=128,
+                             seed=SEED + 7, device=dev)
+    model.compile(optimizer="adagrad", learning_rate=0.05, train_metrics_steps=4)
+    return model
+
+
+def phase_evaluate(dev, catalog):
+    """The README's flow at full width: ``fit`` 8 steps of 8192 rows with the
+    default top-k metrics on every 4th step (K1 must launch on exactly the
+    other 6), in-batch ``evaluate`` at batch 8192 against a CPU copy (loss
+    within FCE_TOL, metrics within METRIC_ATOL), then ``evaluate(item_corpus=
+    ...)`` over the 56,680-item catalog with fp32, bf16 and int8 indexes,
+    2048 queries a batch (K6 on the card, the plain route on the CPU copy),
+    metrics within METRIC_ATOL."""
+    import copy
+
+    import models_tpu_torch as mt
+    from models_tpu_torch.ops import flash_ce as F
+    from models_tpu_torch.ops import topk as T
+
+    model = evaluate_model(dev, catalog)
+    data = mt.generate_data("movielens-25m", num_rows=8 * TRAIN_BATCH, seed=SEED + 8)
+    zero_launches()
+    hist = model.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False, device=dev)
+    torch.cuda.synchronize()
+    launches = flash_launches()
+    print(f"  fit 8 steps with metrics every 4th: {hist.history}, launches {launches}",
+          flush=True)
+    require(all(n == 6 for n in launches.values()),
+            f"K1-K3 launched {launches}, want 6 (the steps without metrics)")
+    require(all(np.isfinite(v).all() for v in hist.history.values()), "non-finite history")
+    require(0.0 <= hist.history["recall_at_10"][0] <= 1.0, "recall out of range")
+
+    small = mt.generate_data("movielens-25m", num_rows=TRAIN_BATCH, seed=SEED + 9)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    got = model.evaluate(small, batch_size=TRAIN_BATCH, device=dev)
+    want = cpu_model.evaluate(small, batch_size=TRAIN_BATCH, device="cpu")
+    compare_eval("in-batch evaluate, batch 8192", got, want, TRAIN_BATCH)
+
+    # 2048 queries (K6's side of the route), each labelled with an item the
+    # card ranks in its fp32 top 10, at rank r % 10: the metrics then move
+    # with every rank the two sides place differently
+    q_rows = small.take(2048)
+    top = model.to_top_k_encoder(catalog, k=K, device=dev).predict(q_rows, batch_size=2048,
+                                                                   device=dev)
+    cols = q_rows.to_numpy_dict()
+    cols["movieId"] = top["ids"][np.arange(2048), np.arange(2048) % K].astype(np.int32)
+    q_rows = mt.Dataset(cols, schema=q_rows.schema)
+    corpus_launches = {}
+    for tag, dtype in (("fp32", None), ("bf16", torch.bfloat16), ("int8", torch.int8)):
+        before = T.streaming_topk.launches
+        if dtype is None:  # the entry point; it builds the fp32 index itself
+            got = model.evaluate(q_rows, batch_size=2048, item_corpus=catalog, k=K, device=dev)
+            torch.cuda.synchronize()
+            corpus_launches[tag] = T.streaming_topk.launches - before
+            want = cpu_model.evaluate(q_rows, batch_size=2048, item_corpus=catalog, k=K,
+                                      device="cpu")
+        else:
+            card_enc = model.to_top_k_encoder(catalog, k=K, candidate_dtype=dtype, device=dev)
+            got = card_enc.evaluate(q_rows, batch_size=2048, device=dev)
+            torch.cuda.synchronize()
+            corpus_launches[tag] = T.streaming_topk.launches - before
+            # the CPU copy serves the card's index: an element of a bf16 index
+            # encoded on each side may round one bf16 ulp apart (and move an
+            # int8 row to another bin); the int8 build itself was held bit
+            # for bit against the CPU's above
+            cpu_enc = cpu_model.to_top_k_encoder(catalog, k=K, candidate_dtype=dtype,
+                                                 device="cpu")
+            src, dst = card_enc.blocks[-1].topk_layer, cpu_enc.blocks[-1].topk_layer
+            for name in ("candidates", "ids", "scales"):
+                value = getattr(src, name)
+                setattr(dst, name, None if value is None else value.cpu())
+            want = cpu_enc.evaluate(q_rows, batch_size=2048, device="cpu")
+        require(corpus_launches[tag] == 1,
+                f"corpus evaluate {tag}: K6 ran {corpus_launches[tag]} times")
+        compare_eval(f"corpus evaluate, {tag} index, 2048 queries", got, want, 2048)
+    return model, data, small, {**launches, "streaming_topk_corpus": corpus_launches}
+
+
+# metrics, card vs CPU: the scores differ in the last bits, so a row whose
+# relevant item is near-tied with a neighbour may rank it one place apart;
+# one such flip at the top moves a mean by at most 0.5 / rows. Allowed: two
+# flips in the in-batch evaluation (8192 rows), four in the corpus's (2048)
+METRIC_ATOL = {8192: 1.25e-4, 2048: 1e-3}
+
+
+def compare_eval(name, got, want, rows):
+    require(list(got) == list(want), f"{name}: keys {list(got)} vs {list(want)}")
+    loss_err = abs(got["loss"] - want["loss"]) / max(abs(want["loss"]), 1e-30)
+    require(loss_err <= FCE_TOL, f"{name}: loss {got['loss']} vs CPU {want['loss']}")
+    worst = max(abs(got[k] - want[k]) for k in got if k != "loss")
+    require(worst <= METRIC_ATOL[rows], f"{name}: metrics {got} vs CPU {want}")
+    print(f"  {name}: card {got}; vs CPU: loss rel {loss_err:.3g}, metrics max|d| {worst:.3g}",
+          flush=True)
+
+
+def evaluate_times(dev, model, data, catalog):
+    """examples/s of in-batch ``evaluate`` (65,536 rows, batch 8192) and of
+    corpus ``evaluate`` (16,384 queries in batches of 4096; fp32 index, index
+    build included, as the method builds it), host clock."""
+    out = {}
+    t = time.perf_counter()
+    model.evaluate(data, batch_size=TRAIN_BATCH, device=dev)
+    torch.cuda.synchronize()
+    out["evaluate_in_batch_examples_per_sec"] = data.num_rows / (time.perf_counter() - t)
+    q_rows = data.take(4 * 4096)
+    for tag, dtype in (("fp32", None), ("int8", torch.int8)):
+        t = time.perf_counter()
+        enc = model.to_top_k_encoder(catalog, k=K, candidate_dtype=dtype, device=dev)
+        enc.evaluate(q_rows, batch_size=4096, device=dev)
+        torch.cuda.synchronize()
+        out[f"evaluate_corpus_{tag}_examples_per_sec"] = q_rows.num_rows / (
+            time.perf_counter() - t)
+    return out
+
+
+def topk_1m_times(dev, gen):
+    """The top-k layer on the bench's 1M x 128 catalog (``bench.py:730-815``),
+    B = 256, k = 10, fp32, bf16 and int8 indexes: CUDA events, back to back."""
+    from models_tpu_torch.outputs.topk import BruteForce
+
+    cand = torch.randn(1_000_000, 128, device=dev, generator=gen)
+    q = torch.randn(256, 128, device=dev, generator=gen)
+    out = {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.int8)):
+        bf = BruteForce(K).index(cand, dtype=dtype, device=dev)
+        out[f"topk_1M_{tag}_B256_ms"] = cuda_ms(lambda: bf(q))
+        del bf
+    del cand
+    torch.cuda.empty_cache()
+    return out
+
+
+def measure_gather(dev, gen, launches, errs):
+    """K9 on the bench's op-level tables (8192 uniform ids into 4M x 128 fp32
+    and 16M x 128 bf16): profiler device time per call with the L2 flushed,
+    as the bound assumes, beside the plain version and ``index_select``.
+    Bound: 2*n*D*itemsize + 4*n bytes. Returns the fp32 row and the bf16
+    times."""
+    from models_tpu_torch.ops import embedding_lookup as E
+
+    B, D = 8192, 128
+    rows, extra = [], {}
+    for R, dtype in ((OP_ROWS_FP32, torch.float32), (OP_ROWS_BF16, torch.bfloat16)):
+        table = torch.empty(R, D, device=dev, dtype=dtype).normal_(generator=gen)
+        ids = torch.randint(0, R, (B,), device=dev, generator=gen, dtype=torch.int32)
+        ids_l = ids.long()
+        item = table.element_size()
+        ms = device_ms(lambda: E.row_gather(table, ids), cold=True)
+        plain = device_ms(lambda: E.row_gather_plain(table, ids), cold=True)
+        lib = device_ms(lambda: torch.index_select(table, 0, ids_l), cold=True)
+        row = _row("row_gather", "models_tpu_torch/csrc/row_gather.cu",
+                   "models_tpu/ops/embedding_lookup.py:38", launches, errs["row_gather"], ms,
+                   plain, lib, 0, 2 * B * D * item + 4 * B)
+        extra[f"row_gather_R{R}_{'fp32' if item == 4 else 'bf16'}"] = {
+            **{k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "l2_warm_ms": device_ms(lambda: E.row_gather(table, ids)),
+            "back_to_back_ms": cuda_ms(lambda: E.row_gather(table, ids), reps=50)}
+        if dtype == torch.float32:
+            rows.append(row)
+        del table
+    torch.cuda.empty_cache()
+    print("row gather " + json.dumps(extra), flush=True)
+    return rows
+
+
+def measure_scatter_write_fp32(dev, gen, errs):
+    """K8a, the fp32 instance of the row scatter-write (no training path here
+    writes fp32 rows: launches 0), timed as K8b is: a deduplicated batch of
+    8192 ids into a 4M x 128 fp32 table, L2 flushed, beside the plain version
+    and ``index_copy_``. Bound: 2*n_valid*D*4 + 5*N bytes."""
+    from models_tpu_torch.ops import scatter as S
+
+    B, D, R = 8192, 128, OP_ROWS_FP32
+    raw = torch.randint(0, R, (B,), device=dev, generator=gen, dtype=torch.int32)
+    ids, _, valid = S.dedup_rows(raw, torch.zeros(B, 1, device=dev))
+    ids_v = ids[valid].long()
+    n = int(valid.sum())
+    table = torch.randn(R, D, device=dev, generator=gen)
+    rows = torch.randn(B, D, device=dev, generator=gen)
+    got = S.row_scatter_write(table.clone(), ids, rows, valid)
+    want = S.row_scatter_write_plain(table.clone(), ids, rows, valid)
+    require(torch.equal(raw_bits(got), raw_bits(want)), "row_scatter_write fp32 4M: differs")
+    err = max(errs["row_scatter_write"], max_err(got, want))
+    del got, want
+    rows_v = rows[valid]
+    ms = device_ms(lambda: S.row_scatter_write(table, ids, rows, valid), cold=True)
+    plain = device_ms(lambda: S.row_scatter_write_plain(table, ids, rows, valid), reps=10,
+                      cold=True)
+    lib = device_ms(lambda: table.index_copy_(0, ids_v, rows_v), cold=True)
+    row = _row("row_scatter_write_fp32", "models_tpu_torch/csrc/row_scatter.cu",
+               "models_tpu/ops/scatter.py:243", 0, err, ms, plain, lib, 0,
+               2 * n * D * 4 + B * 5)
+    del table
+    torch.cuda.empty_cache()
+    return row
+
+
+def measure_int8(dev, enc, q4096, launches, errs):
+    """K5 and K6 int8 timed on the inputs the int8 serving path gives them:
+    the int8 index of the catalog, the 256-row request's quantized queries and
+    the bins phase A selects (K5), the 4096-row request's fp32 queries with
+    the per-row scales (K6). Back-to-back CUDA events, as K5 and K6 are timed
+    above; yardsticks: the gather and an fp32 einsum of the widened int8
+    values (exact), and ``torch.topk`` of the scaled product."""
+    from models_tpu_torch.ops import topk as T
+
+    bf = enc.blocks[-1].topk_layer
+    n, D = bf.n_valid, bf.candidates.shape[1]
+    cand, ids, scale = bf.candidates[:n], bf.ids[:n], bf.scales[:n].contiguous()
+    B = q4096.shape[0]
+    ms = cuda_ms(lambda: T.streaming_topk(q4096, cand, K, ids=ids, scale=scale))
+    plain = cuda_ms(lambda: T.streaming_topk_plain(q4096, cand, K, ids=ids, scale=scale),
+                    reps=3)
+    lib = cuda_ms(lambda: torch.topk((q4096 @ cand.float().T) * scale[None, :], K))
+    k6 = _row("streaming_topk_int8", "models_tpu_torch/csrc/streaming_topk.cu",
+              "models_tpu/ops/topk.py:102", launches["streaming_topk_int8"],
+              errs["streaming_topk_int8"], ms, plain, lib, 2 * B * n * D,
+              B * D * 4 + n * D + n * 8 + B * K * 8)
+    q8, _ = T.quantize_queries(q4096[:256].contiguous())
+    full, bs = bf.candidates, 64
+    idx = T.select_bins(q8, full, K, n_valid=n, col_scale=bf.scales, col_scale_per_bin=True)
+    B, kb = idx.shape
+    c3 = full.view(-1, bs, D)
+    got, want = T.binned_rescore(q8, full, idx, bs), T.binned_rescore_plain(q8, full, idx, bs)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "binned_rescore int8 at the serving bins: differs")
+    ms = cuda_ms(lambda: T.binned_rescore(q8, full, idx, bs))
+    plain = cuda_ms(lambda: T.binned_rescore_plain(q8, full, idx, bs))
+    lib = cuda_ms(lambda: torch.einsum("bd,bksd->bks", q8.float(), c3[idx.long()].float()))
+    n_bins = int(torch.unique(idx).numel())
+    k5 = _row("binned_rescore_int8", "models_tpu_torch/csrc/binned_rescore.cu",
+              "models_tpu/ops/topk.py:208", launches["binned_rescore_int8"],
+              errs["binned_rescore_int8"], ms, plain, lib, 2 * B * kb * bs * D,
+              n_bins * bs * D + B * D + B * kb * 4 + B * kb * bs * 4)
+    print(f"  int8: phase A selects kb={kb} bins per row, {n_bins} distinct", flush=True)
+    return [k6, k5]
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -1069,13 +1522,15 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}: {regs}", flush=True)
 
-    print("phase 1: kernels against their plain versions", flush=True)
+    stamp("phase 1: kernels against their plain versions")
     errs = phase_kernels(dev, gen)
     errs.update(lse_forward=0.0, grad_query=0.0, grad_neg=0.0)
     phase_flash_ce(dev, gen, errs)
     phase_row_scatter(dev, gen, errs)
+    phase_gather(dev, gen, errs)
+    phase_int8_kernels(dev, gen, errs)
 
-    print("phase 2: serving", flush=True)
+    stamp("phase 2: serving")
     model, catalog, queries = build_model(dev)
     T.streaming_topk.launches = 0
     T.binned_rescore.launches = 0
@@ -1088,33 +1543,44 @@ def main() -> int:
     for name, n in launches.items():
         require(n > 0, f"the serving path never launched {name}")
     check_serving(dev, model, queries, results)
+    enc8, int8_launches, timing["index_int8_ms"], q4096 = phase_serving_int8(
+        dev, model, catalog, queries)
+    for name, n in int8_launches.items():
+        require(n > 0, f"the int8 serving path never launched {name}")
 
-    print("phase 3: times", flush=True)
+    stamp("phase 3: times")
     for tag in ("fp32", "bf16"):
         for B in (256, 4096):
             enc = results[(tag, B)][0]
             ds = queries.take(B)
             timing[f"predict_{tag}_B{B}_ms"] = host_ms(
                 lambda: enc.predict(ds, batch_size=B, device=dev))
+    for B in (256, 4096):
+        ds = queries.take(B)
+        timing[f"predict_int8_B{B}_ms"] = host_ms(
+            lambda: enc8.predict(ds, batch_size=B, device=dev))
     timing.update(serving_breakdown(dev, model, queries, results))
+    timing.update(topk_1m_times(dev, gen))
     print("serving " + json.dumps(timing), flush=True)
     rows, bf16 = phase_measure(dev, model, queries, results, launches, errs)
     print("bf16 index " + json.dumps(bf16), flush=True)
+    int8_rows = measure_int8(dev, enc8, q4096, int8_launches, errs)
+    del enc8
 
-    print("phase 4: the training step against the unfused head and the CPU", flush=True)
+    stamp("phase 4: the training step against the unfused head and the CPU")
     tmodel = model  # the serving phases are done: train the same seeded model
     phase_train_checks(dev, tmodel)
 
-    print("phase 5: training at full width", flush=True)
+    stamp("phase 5: training at full width")
     data, train_launches, train = phase_train(dev, tmodel, catalog, queries)
 
-    print("phase 6: training times", flush=True)
+    stamp("phase 6: training times")
     train.update(train_times(dev, tmodel, data))
     train.update(train_profile(dev, tmodel, data))
     print("training " + json.dumps(train), flush=True)
     rows += measure_flash_ce(dev, tmodel, data, train_launches, errs)
 
-    print("phase 7: row-sparse training against the CPU", flush=True)
+    stamp("phase 7: row-sparse training against the CPU")
     import models_tpu_torch as mt
 
     sparse_models = {tag: mt.TwoTowerModel(catalog.schema, query_tower=(256, 128),
@@ -1123,10 +1589,10 @@ def main() -> int:
                      for tag, dtype in (("fp32", None), ("bf16", torch.bfloat16))}
     phase_sparse_checks(dev, sparse_models)
 
-    print("phase 8: row-sparse training at full width", flush=True)
+    stamp("phase 8: row-sparse training at full width")
     data, sparse_runs, sparse = phase_sparse_train(dev, sparse_models, catalog, queries)
 
-    print("phase 9: row-sparse training times", flush=True)
+    stamp("phase 9: row-sparse training times")
     for tag, model in sparse_models.items():
         for key, value in {**train_times(dev, model, data),
                            **train_profile(dev, model, data)}.items():
@@ -1136,6 +1602,32 @@ def main() -> int:
     row_launches = {name: sum(run[name] for run in sparse_runs.values())
                     for name in ("row_scatter_add", "row_scatter_write")}
     rows += measure_row_scatter(dev, gen, row_launches, errs)
+    rows.append(measure_scatter_write_fp32(dev, gen, errs))
+
+    stamp("phase 10: the row gather through its entry point")
+    from models_tpu_torch.ops import embedding_lookup as E
+
+    tables = [(torch.empty(R, 128, device=dev, dtype=dt).normal_(generator=gen),
+               torch.randint(0, R, (8192,), device=dev, generator=gen, dtype=torch.int32))
+              for R, dt in ((OP_ROWS_FP32, torch.float32), (OP_ROWS_BF16, torch.bfloat16))]
+    E.row_gather.launches = 0
+    for table, ids in tables:
+        for _ in range(4):
+            out = E.row_gather(table, ids)
+            require(out.shape == (8192, 128) and out.dtype == table.dtype, "row_gather output")
+    torch.cuda.synchronize()
+    gather_launches = E.row_gather.launches
+    require(gather_launches == 8, f"row_gather launched {gather_launches} times, want 8")
+    del tables, out
+    torch.cuda.empty_cache()
+    rows += measure_gather(dev, gen, gather_launches, errs)
+
+    stamp("phase 11: evaluation (fit with metrics, in-batch and corpus evaluate)")
+    emodel, edata, _, eval_launches = phase_evaluate(dev, catalog)
+    print(f"  launches {eval_launches}", flush=True)
+    etimes = evaluate_times(dev, emodel, edata, catalog)
+    print("evaluation " + json.dumps(etimes), flush=True)
+    rows += int8_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

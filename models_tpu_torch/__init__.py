@@ -5,28 +5,31 @@ of it, nor JAX. Entry points run on the card (``device="cuda"``, the default)
 unless the caller passes ``device="cpu"``; without a card they raise.
 
 The two-tower retrieval model is ported: build it from a schema, train it
-(``compile(optimizer, metrics=[])``, ``fit``) with the sampled-softmax loss on
-in-batch negatives, its embedding tables optionally row-sparsely
-(``compile(embedding_optimizer=...)``) and bf16 at rest
-(``TwoTowerModel(table_dtype=torch.bfloat16)``), encode the catalog with the
-candidate tower, index it, and serve top-k. The CUDA kernels (``csrc/``: the
-flash-CE forward and backward, streaming top-k, bin rescoring, the row
-scatter-add and scatter-write) are built with ``nvcc`` at first use.
+(``compile(optimizer)``, ``fit``, with the top-k metrics and
+``validation_data``) with the sampled-softmax loss on in-batch negatives, its
+embedding tables optionally row-sparsely (``compile(embedding_optimizer=...)``)
+and bf16 at rest (``TwoTowerModel(table_dtype=torch.bfloat16)``), evaluate it
+in-batch or against the item corpus (``evaluate``), encode the catalog with
+the candidate tower, index it fp32, bf16 or int8, and serve top-k. The CUDA
+kernels (``csrc/``: the flash-CE forward and backward, streaming top-k, bin
+rescoring, the row scatter-add and scatter-write, the row gather) are built
+with ``nvcc`` at first use.
 """
 
 from .blocks.optimizer import LazyAdam, SparseEmbeddingOptimizer
 from .convert import load_jax_params
 from .core import Encoder, SequenceFeature, TopKEncoder, TopKPrediction, resolve_device
 from .data import Dataset, Loader, generate_data
+from .metrics import Metric, TopKMetricsAggregator
 from .models import History, Model, RetrievalModelV2, TwoTowerModel
 from .outputs import BruteForce, ContrastiveOutput, TopKOutput
 from .schema import ColumnSchema, Schema, Tags
 
 __all__ = [
     "BruteForce", "ColumnSchema", "ContrastiveOutput", "Dataset", "Encoder", "History",
-    "LazyAdam", "Loader", "Model",
+    "LazyAdam", "Loader", "Metric", "Model",
     "RetrievalModelV2", "Schema", "SequenceFeature", "SparseEmbeddingOptimizer", "Tags",
     "TopKEncoder",
-    "TopKOutput", "TopKPrediction", "TwoTowerModel", "generate_data",
+    "TopKMetricsAggregator", "TopKOutput", "TopKPrediction", "TwoTowerModel", "generate_data",
     "load_jax_params", "resolve_device",
 ]

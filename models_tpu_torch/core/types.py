@@ -33,13 +33,16 @@ TensorDict = Dict[str, TensorLike]
 
 class Prediction(NamedTuple):
     """Output of a model head. A head that computes its own loss (the fused
-    contrastive loss) sets ``precomputed_loss``, with its weights folded in."""
+    contrastive loss) sets ``precomputed_loss``, with its weights folded in.
+    ``label_relevant_counts`` (B,) is the number of relevant items per row
+    where the targets were cut to the top k (the top-k head's evaluation)."""
 
     outputs: Any
     targets: Any = None
     sample_weight: Any = None
     precomputed_loss: Any = None
     negative_candidate_ids: Any = None
+    label_relevant_counts: Any = None
 
 
 class TopKPrediction(NamedTuple):
@@ -52,7 +55,8 @@ class TopKPrediction(NamedTuple):
 class ModelContext(dict):
     """Shared context threaded through a forward pass: the raw ``features``,
     the batch's ``targets``, the global ``step`` and flags such as
-    ``need_logits`` (False when nothing downstream reads a head's logits)."""
+    ``need_logits`` (False when nothing downstream reads a head's logits) and
+    ``testing`` (set by ``evaluate``: heads take their evaluation branch)."""
 
     @property
     def features(self) -> TensorDict:

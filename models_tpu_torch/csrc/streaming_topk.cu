@@ -2,9 +2,12 @@
 //
 // Replaces the TPU kernel models_tpu/ops/topk.py::pallas_topk (K6).
 //
-//   score(b, c) = sum_d q[b, d] * cand[c, d]
+//   score(b, c) = (sum_d q[b, d] * cand[c, d]) * scale[c]
 //
-// in fp32 FMAs, d = 0 .. D-1 in order. bf16 rows are widened to fp32 exactly.
+// in fp32 FMAs, d = 0 .. D-1 in order, then one fp32 multiply by the row's
+// scale where one is given (the int8 index's per-row dequantization, as the
+// JAX package's blockwise route applies its col_scale). bf16 and int8 rows
+// are widened to fp32 exactly; the queries stay fp32.
 // No TF32 and no tensor cores: every candidate row is scored by the same
 // sequence of operations, so equal rows give bitwise-equal scores. Rows at or
 // past c_real never rank. Each query row keeps the k best by (score
@@ -26,10 +29,10 @@
 //     lists by k rounds of a warp-wide arg-max and maps positions to ids.
 //
 // Bound on an H100 SXM: 2*B*C*D fp32 operations at 67 TFLOP/s (fp32 outside
-// the tensor cores). The catalog stream, C*D*itemsize bytes at 3.35 TB/s, is
-// far smaller at serving batch sizes. This first version issues 8 shared
-// loads for every 16 FMAs, so shared-memory bandwidth, not the FMA rate,
-// limits it.
+// the tensor cores). The catalog stream, C*D*itemsize bytes (plus 4*C of
+// scales) at 3.35 TB/s, is far smaller at serving batch sizes. This first
+// version issues 8 shared loads for every 16 FMAs, so shared-memory
+// bandwidth, not the FMA rate, limits it.
 
 #include <cfloat>
 #include <cmath>
@@ -56,6 +59,7 @@ static_assert(TC == RC * 32, "a warp spans a tile's candidates");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 // (s, p) ranks before (t, r)
 __device__ __forceinline__ bool ranks_before(float s, int p, float t, int r) {
@@ -90,7 +94,7 @@ __device__ void list_insert(float* L, int* P, int k, float s, int c, int lane) {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 topk_partial(const float* __restrict__ q, const T* __restrict__ cand,
-             float* __restrict__ part_s, int* __restrict__ part_p,
+             const float* __restrict__ scale, float* __restrict__ part_s, int* __restrict__ part_p,
              int B, int D, int c_real, int k, int chunk, int splits) {
   extern __shared__ float smem[];
   float* qs = smem;                     // [QB][DK]
@@ -141,10 +145,18 @@ topk_partial(const float* __restrict__ q, const T* __restrict__ cand,
           for (int j = 0; j < RC; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
       }
     }
+    float scl[RC];
+#pragma unroll
+    for (int j = 0; j < RC; ++j) {
+      const int c = c0 + lane + 32 * j;
+      scl[j] = (scale != nullptr && c < c_end) ? scale[c] : 1.f;
+    }
 #pragma unroll
     for (int i = 0; i < RQ; ++i)
 #pragma unroll
-      for (int j = 0; j < RC; ++j) ss[(warp * RQ + i) * TC + lane + 32 * j] = acc[i][j];
+      for (int j = 0; j < RC; ++j)
+        ss[(warp * RQ + i) * TC + lane + 32 * j] =
+            scale != nullptr ? acc[i][j] * scl[j] : acc[i][j];
     __syncthreads();
 
     // selection: warp w owns rows w*RQ .. w*RQ + RQ-1 of the block
@@ -220,7 +232,8 @@ topk_merge(const float* __restrict__ part_s, const int* __restrict__ part_p,
 }
 
 template <typename T>
-cudaError_t launch_partial(const float* q, const void* cand, float* part_s, int* part_p,
+cudaError_t launch_partial(const float* q, const void* cand, const float* scale,
+                           float* part_s, int* part_p,
                            int B, int D, int c_real, int k, int chunk, int splits,
                            cudaStream_t stream) {
   const size_t smem = (size_t)(QB * DK + TC * (DK + 1) + QB * TC) * sizeof(float) +
@@ -230,7 +243,7 @@ cudaError_t launch_partial(const float* q, const void* cand, float* part_s, int*
   if (err != cudaSuccess) return err;
   const dim3 grid((B + QB - 1) / QB, splits);
   topk_partial<T><<<grid, THREADS, smem, stream>>>(
-      q, static_cast<const T*>(cand), part_s, part_p, B, D, c_real, k, chunk, splits);
+      q, static_cast<const T*>(cand), scale, part_s, part_p, B, D, c_real, k, chunk, splits);
   return cudaGetLastError();
 }
 
@@ -243,19 +256,30 @@ extern "C" const char* kernel_error_string(int err) {
 extern "C" int streaming_topk_kmax() { return KMAX; }
 extern "C" int streaming_topk_splits_max() { return SPLITS_MAX; }
 
-// q (B, D) f32; cand (C, D) f32 or bf16 (cand_bf16 != 0); ids (C,) int32 or
-// null (positions are returned); part_s/part_p (B, splits, k) scratch;
-// out_s/out_i (B, k). Split s covers rows [s*chunk, min((s+1)*chunk, c_real)).
-// Returns cudaGetLastError() after the launches.
-extern "C" int streaming_topk(const float* q, const void* cand, int cand_bf16, const int* ids,
+// q (B, D) f32; cand (C, D) f32, bf16 or int8 (cand_dtype 0, 1, 2); scale
+// (C,) f32 or null; ids (C,) int32 or null (positions are returned);
+// part_s/part_p (B, splits, k) scratch; out_s/out_i (B, k). Split s covers
+// rows [s*chunk, min((s+1)*chunk, c_real)). Returns cudaGetLastError() after
+// the launches.
+extern "C" int streaming_topk(const float* q, const void* cand, int cand_dtype,
+                              const float* scale, const int* ids,
                               float* part_s, int* part_p, float* out_s, int* out_i,
                               int B, int D, int c_real, int k, int chunk, int splits,
                               cudaStream_t stream) {
   if (B < 1 || D < 1 || k < 1 || k > KMAX || splits < 1 || splits > SPLITS_MAX || chunk < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cand_bf16
-      ? launch_partial<__nv_bfloat16>(q, cand, part_s, part_p, B, D, c_real, k, chunk, splits, stream)
-      : launch_partial<float>(q, cand, part_s, part_p, B, D, c_real, k, chunk, splits, stream);
+  cudaError_t err;
+  if (cand_dtype == 0)
+    err = launch_partial<float>(q, cand, scale, part_s, part_p, B, D, c_real, k, chunk, splits,
+                                stream);
+  else if (cand_dtype == 1)
+    err = launch_partial<__nv_bfloat16>(q, cand, scale, part_s, part_p, B, D, c_real, k, chunk,
+                                        splits, stream);
+  else if (cand_dtype == 2)
+    err = launch_partial<int8_t>(q, cand, scale, part_s, part_p, B, D, c_real, k, chunk, splits,
+                                 stream);
+  else
+    return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   topk_merge<<<(B + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, 0, stream>>>(
       part_s, part_p, ids, out_s, out_i, B, k, splits);

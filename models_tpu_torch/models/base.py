@@ -1,15 +1,18 @@
 """Model: a sequential container ending in a head, with ``predict``,
-``compile`` and ``fit`` (the subset of ``models_tpu/models/base.py`` that the
-two-tower model serves and trains with).
+``compile``, ``fit`` and ``evaluate`` (the subset of
+``models_tpu/models/base.py`` that the two-tower model serves, trains and
+evaluates with).
 
-Training steps run eagerly, one batch at a time: the forward with
-``need_logits`` False (no metric reads the logits, so the contrastive head
-takes its fused loss), the backward, one dense optimizer step, and, with
-``compile(embedding_optimizer=...)``, one row-sparse update of each routed
-table per lookup (``blocks/optimizer.py``). Not ported yet (ROADMAP.md
-queue 1): training metrics and ``evaluate``, ``steps_per_execution``,
-device-resident epochs, meshes, callbacks, ``MultiOptimizer``, the sharded
-sparse update and frozen blocks.
+Training steps run eagerly, one batch at a time: the forward, the backward,
+one dense optimizer step, and, with ``compile(embedding_optimizer=...)``, one
+row-sparse update of each routed table per lookup (``blocks/optimizer.py``).
+A step that feeds the metrics (every ``train_metrics_steps``-th) runs the
+forward with ``need_logits`` True, so that the contrastive head returns its
+logits; the others with False, so that it takes its fused loss. Metric states
+stay on the device; each epoch (and each ``evaluate``) copies its losses and
+metric results to the host once. Not ported yet (ROADMAP.md queue 1):
+``steps_per_execution``, device-resident epochs, meshes, callbacks,
+``MultiOptimizer``, the sharded sparse update and frozen blocks.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from ..data.dataset import Dataset
 from ..data.loader import ROW_VALID_KEY, Loader
 from ..inputs.embedding import EmbeddingTable
 from ..losses import categorical_crossentropy, get_loss, sparse_categorical_crossentropy
+from ..metrics.base import Metric
+from ..metrics.topk import TopKMetric, TopKMetricsAggregator
 from ..outputs.base import ModelOutput
 
 
@@ -53,6 +58,15 @@ def _merge_row_valid(sw, row_valid):
     if sw is None:
         return rv
     return sw * rv.reshape(rv.shape + (1,) * (sw.ndim - 1))
+
+
+def _fetch(values: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Scalars to the host in one copy."""
+    if not values:
+        return {}
+    names = sorted(values)
+    host = torch.stack([values[n].detach().reshape(()).to(torch.float32) for n in names]).cpu()
+    return {n: float(v) for n, v in zip(names, host)}
 
 
 class History:
@@ -126,10 +140,12 @@ class Model(Block):
                 embedding_optimizer: Union[None, str, SparseEmbeddingOptimizer] = None,
                 sparse_threshold: Optional[int] = None) -> "Model":
         """Choose the optimizer, the loss (a name, a callable, or a dict by
-        head name or target; None takes each head's default) and the metrics.
-        ``metrics=None`` means the top-k training metrics, which are not ported
-        yet: pass ``metrics=[]``. The dense optimizer's slots and the step
-        count live until the next ``compile()``.
+        head name or target; None takes each head's default) and the metrics
+        (None takes each head's default, the top-k metrics @10 for the
+        retrieval heads; a name, a :class:`Metric`, a list of them, or a dict
+        by head name or target; ``[]`` none). Training updates the metrics on
+        every ``train_metrics_steps``-th step. The dense optimizer's slots and
+        the step count live until the next ``compile()``.
 
         ``embedding_optimizer`` (a :class:`SparseEmbeddingOptimizer`, or its
         kind: ``"sgd"``, ``"adagrad"``, ``"adam"``, also as ``"lazy_adam"`` or
@@ -137,13 +153,6 @@ class Model(Block):
         embedding tables row-sparsely; the dense optimizer takes the rest. With
         ``sparse_threshold``, only tables of more than that many rows, and
         every bf16 table, go to it. Its slots live on the tables."""
-        if metrics is None:
-            raise NotImplementedError(
-                "compile(metrics=None) asks for the top-k training metrics, which are not "
-                "ported yet (ROADMAP.md queue 1): pass metrics=[]")
-        if len(metrics):
-            raise NotImplementedError("training metrics are not ported yet "
-                                      "(ROADMAP.md queue 1): pass metrics=[]")
         if train_metrics_steps < 1:
             raise ValueError(f"train_metrics_steps must be >= 1, got {train_metrics_steps}")
         check_optimizer(optimizer)
@@ -160,6 +169,7 @@ class Model(Block):
         self._optimizer_name = optimizer
         self._learning_rate = learning_rate
         self._loss_spec = loss
+        self._metrics_spec = metrics
         self.train_metrics_steps = train_metrics_steps
         self._optimizer = None
         self._step = 0
@@ -176,6 +186,61 @@ class Model(Block):
                 out[head.block_name] = get_loss(spec)
             elif head.default_loss is not None:
                 out[head.block_name] = get_loss(head.default_loss)
+        return out
+
+    def _resolve_task_metrics(self) -> Dict[str, List[Metric]]:
+        out: Dict[str, List[Metric]] = {}
+        for head in self.heads():
+            spec = self._metrics_spec
+            if isinstance(spec, dict):
+                spec = spec.get(head.block_name) or spec.get(head.target)
+            if spec is None:
+                out[head.block_name] = head.default_metrics()
+            else:
+                if not isinstance(spec, (list, tuple)):
+                    spec = [spec]
+                out[head.block_name] = [Metric.parse(m) for m in spec]
+        return out
+
+    @staticmethod
+    def _init_metric_states(task_metrics, device) -> Dict[str, list]:
+        return {name: [m.init_state(device) for m in ms] for name, ms in task_metrics.items()}
+
+    @torch.no_grad()
+    def _update_metrics(self, states, pred_dict, x, task_metrics) -> None:
+        """Each head's metrics over the batch's valid rows; ``states`` is
+        updated in place. Integer targets become one-hot relevance."""
+        row_valid = x.get(ROW_VALID_KEY)
+        for name, ms in task_metrics.items():
+            pred = pred_dict.get(name)
+            if pred is None or pred.targets is None:
+                continue
+            outputs, t = pred.outputs.detach(), pred.targets
+            sw = _merge_row_valid(pred.sample_weight, row_valid)
+            for i, m in enumerate(ms):
+                if isinstance(m, (TopKMetric, TopKMetricsAggregator)):
+                    if t.ndim == outputs.ndim - 1:
+                        t = torch.nn.functional.one_hot(t.long(), outputs.shape[-1])
+                    states[name][i] = m.update(states[name][i], outputs, t, sample_weight=sw,
+                                               label_relevant_counts=pred.label_relevant_counts)
+                else:
+                    states[name][i] = m.update(states[name][i], outputs, t, sample_weight=sw)
+
+    @staticmethod
+    def _metric_results(states, task_metrics) -> Dict[str, torch.Tensor]:
+        """Every metric's result, on the device; with several heads a key is
+        prefixed with its head's name."""
+        multi = len(task_metrics) > 1
+        out: Dict[str, torch.Tensor] = {}
+        for name, ms in task_metrics.items():
+            for m, st in zip(ms, states[name]):
+                res = m.result(st)
+                mname = getattr(m, "reported_name", m.name)
+                if isinstance(res, dict):
+                    for k, v in res.items():
+                        out[f"{name}/{k}" if multi else k] = v
+                else:
+                    out[f"{name}/{mname}" if multi and "/" not in mname else mname] = res
         return out
 
     def _as_pred_dict(self, preds) -> Dict[str, Prediction]:
@@ -259,19 +324,26 @@ class Model(Block):
                     self._emb_opt.apply(table, ids, grad, self._step)
 
     def train_step(self, x: Dict[str, torch.Tensor], y, loss_fns,
-                   mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
+                   mark: Optional[Callable[[str], None]] = None,
+                   task_metrics=None, metric_states=None) -> Dict[str, torch.Tensor]:
         """One step on a batch already on the model's device: forward, backward,
         dense optimizer step, row-sparse updates. Returns the step's logs,
-        detached, on the device. ``mark``, where given, is called with the
-        name of each part as its work is queued (``loss_forward``,
-        ``backward``, ``optimizer``, ``sparse_update``), so that a caller can
-        time the parts."""
+        detached, on the device. With ``metric_states`` the step feeds the
+        metrics: the heads return their logits (``need_logits``) and the
+        states of ``task_metrics`` are updated in place. ``mark``, where
+        given, is called with the name of each part as its work is queued
+        (``loss_forward``, ``backward``, ``optimizer``, ``sparse_update``), so
+        that a caller can time the parts."""
         mark = mark or (lambda name: None)
-        context = ModelContext(features=x, targets=y, step=self._step, need_logits=False)
+        with_metrics = metric_states is not None
+        context = ModelContext(features=x, targets=y, step=self._step, need_logits=with_metrics)
         if self._sparse_tables:
             context["sparse_lookups"] = []
         preds = self(x, targets=y, training=True, context=context)
-        total, logs = self._compute_losses(self._as_pred_dict(preds), x, loss_fns)
+        pred_dict = self._as_pred_dict(preds)
+        total, logs = self._compute_losses(pred_dict, x, loss_fns)
+        if with_metrics:
+            self._update_metrics(metric_states, pred_dict, x, task_metrics)
         mark("loss_forward")
         self._optimizer.zero_grad(set_to_none=True)
         total.backward()
@@ -285,16 +357,23 @@ class Model(Block):
         return {k: v.detach() for k, v in logs.items()}
 
     def fit(self, data: Union[Dataset, Loader], epochs: int = 1,
-            batch_size: Optional[int] = None, shuffle: bool = True, device=None) -> History:
+            batch_size: Optional[int] = None, shuffle: bool = True,
+            validation_data: Union[None, Dataset, Loader] = None, validation_freq: int = 1,
+            device=None) -> History:
         """Train for ``epochs`` passes over ``data`` in full batches (the
         loader drops the last partial one). ``history[name]`` holds each
-        epoch's mean step log, plus ``examples_per_sec`` (host clock)."""
+        epoch's mean step log, the metrics over its metric steps, plus
+        ``examples_per_sec`` (host clock); with ``validation_data``, every
+        ``validation_freq``-th epoch adds :meth:`evaluate`'s results under
+        ``val_<name>``."""
         if not self._compiled:
             self.compile()
         dev = check_module_device(self, device)
         loader = data if isinstance(data, Loader) else Loader(
             data, batch_size or 1024, drop_last=True, shuffle=shuffle)
         loss_fns = self._resolve_task_losses()
+        task_metrics = self._resolve_task_metrics()
+        has_metrics = any(task_metrics.values())
         if self._optimizer is None:
             self._sparse_tables = self._setup_sparse_embeddings()
             routed = {id(t.table) for t in self._sparse_tables}
@@ -303,21 +382,60 @@ class Model(Block):
                 [p for p in self.parameters() if p.requires_grad and id(p) not in routed],
                 self._learning_rate)
         history = History()
-        for _ in range(epochs):
+        for epoch in range(epochs):
             t0 = time.perf_counter()
+            states = self._init_metric_states(task_metrics, dev)
             step_logs: Dict[str, List[torch.Tensor]] = {}
             n_examples = 0
             for x, y in loader:
+                metric_step = has_metrics and self._step % self.train_metrics_steps == 0
                 logs = self.train_step(to_device_batch(x, dev), to_device_targets(y, dev),
-                                       loss_fns)
+                                       loss_fns, task_metrics=task_metrics,
+                                       metric_states=states if metric_step else None)
                 for k, v in logs.items():
                     step_logs.setdefault(k, []).append(v)
                 n_examples += loader.batch_size
-            names = sorted(step_logs)
-            means = (torch.stack([torch.stack(step_logs[k]).mean() for k in names]).cpu()
-                     if names else [])  # one copy to the host per epoch
-            epoch_logs = dict(zip(names, (float(v) for v in means)))
+            values = {k: torch.stack(v).mean() for k, v in step_logs.items()}
+            values.update(self._metric_results(states, task_metrics))
+            epoch_logs = _fetch(values)  # one copy to the host per epoch
             epoch_logs["examples_per_sec"] = n_examples / max(time.perf_counter() - t0, 1e-9)
+            if validation_data is not None and (epoch + 1) % validation_freq == 0:
+                val = self.evaluate(validation_data, batch_size=batch_size or loader.batch_size,
+                                    device=dev)
+                epoch_logs.update({f"val_{k}": v for k, v in val.items()})
             history.append(epoch_logs)
         self.history = history
         return history
+
+    @torch.no_grad()
+    def evaluate(self, data: Union[Dataset, Loader], batch_size: Optional[int] = None,
+                 steps: Optional[int] = None, device=None) -> Dict[str, float]:
+        """The loss and the metrics over ``data`` (every row, the last batch
+        padded and its padding masked; at most ``steps`` batches): the heads
+        take their evaluation branch (``testing``), the contrastive head
+        scoring each batch's in-batch negatives, the top-k head the catalog.
+        ``loss`` is the mean of the batches' losses. One copy to the host."""
+        if not self._compiled:
+            self.compile()
+        dev = check_module_device(self, device)
+        loader = data if isinstance(data, Loader) else Loader(data, batch_size or 1024)
+        loss_fns = self._resolve_task_losses()
+        task_metrics = self._resolve_task_metrics()
+        states = self._init_metric_states(task_metrics, dev)
+        loss_total = torch.zeros((), device=dev)
+        n_batches = 0
+        for step, (x, y) in enumerate(loader):
+            if steps is not None and step >= steps:
+                break
+            xb, yb = to_device_batch(x, dev), to_device_targets(y, dev)
+            context = ModelContext(features=xb, targets=yb, testing=True, need_logits=True)
+            preds = self(xb, targets=yb, training=False, context=context)
+            pred_dict = self._as_pred_dict(preds)
+            total, _ = self._compute_losses(pred_dict, xb, loss_fns)
+            self._update_metrics(states, pred_dict, xb, task_metrics)
+            loss_total = loss_total + total
+            n_batches += 1
+        values = {"loss": loss_total / max(n_batches, 1)}
+        values.update(self._metric_results(states, task_metrics))
+        results = _fetch(values)
+        return {"loss": results.pop("loss"), **results}

@@ -73,12 +73,25 @@ class RetrievalModelV2(Model):
 
     def to_top_k_encoder(self, candidates: Dataset, k: int = 10, batch_size: int = 1024,
                          candidate_dtype: Optional[torch.dtype] = None, device=None):
-        """A servable brute-force top-k model over the encoded ``candidates``;
-        ``candidate_dtype=torch.bfloat16`` stores the index half-width."""
+        """A servable and evaluable brute-force top-k model over the encoded
+        ``candidates``; ``candidate_dtype=torch.bfloat16`` stores the index
+        half-width, ``torch.int8`` bin-quantized (a quarter)."""
         cand_ds = self.candidate_embeddings(candidates, batch_size=batch_size, device=device)
         return TopKEncoder(self._query, candidates=cand_ds, k=k,
                            item_id_name=self.item_id_name,
                            candidate_dtype=candidate_dtype, device=device)
+
+    def evaluate(self, data, batch_size: Optional[int] = None, item_corpus=None, k: int = 10,
+                 steps: Optional[int] = None, device=None):
+        """In-batch evaluation (:meth:`Model.evaluate`), or, with
+        ``item_corpus`` (a Dataset of items), each query scored against the
+        whole corpus: a brute-force fp32 index of the candidate tower's
+        embeddings, then the top-k metrics of its ``k`` best."""
+        if item_corpus is None:
+            return super().evaluate(data, batch_size=batch_size, steps=steps, device=device)
+        corpus = None if item_corpus is True else item_corpus
+        topk = self.to_top_k_encoder(corpus, k=k, device=device)
+        return topk.evaluate(data, batch_size=batch_size, steps=steps, device=device)
 
 
 def TwoTowerModel(

@@ -17,6 +17,15 @@ Every selection ranks by (score descending, position ascending), the order of
 promotes an f32 x bf16 product to f32. A padded row scores ``NEG_INF``, the
 float32 minimum, not ``-inf``.
 
+int8 catalogs (the bin-quantized index, ``outputs/topk.py``) come with
+``col_scale``, one fp32 dequantization scale per row, and each route keeps
+the JAX package's own scoring: the binned route quantizes the queries per row
+to int8 and scores in exact int32 (phase A a cuBLASLt int8 product,
+``torch._int_mm``; phase B :func:`binned_rescore`'s int8 form), scaling each
+bin's max or each pooled score by its row's scale and the final (B, k) by the
+query's; the direct, streaming and blockwise routes score fp32 queries
+against the int8 rows widened to fp32, times the row's scale.
+
 A kernel wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 """
@@ -33,6 +42,13 @@ from ..core.device import resolve_device
 from . import kernels
 
 NEG_INF = torch.finfo(torch.float32).min
+CAND_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# torch._int_mm on CUDA (cuBLASLt) checks "self.size(0) needs to be greater
+# than 16", "self.size(1) ... a multiple of 8" and "mat2.size(1) ... a
+# multiple of 8" (read from the installed libtorch_cuda); a batch of 16 rows
+# or fewer is zero-padded to this many
+_INT_MM_MIN_ROWS = 32
 _BINNED_BIN_SIZE = 64
 _BINNED_MARGIN = 2
 _BINNED_POOL_BYTES = 512 * 2**20
@@ -47,8 +63,51 @@ def _top(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return s[:, :k], idx[:, :k]
 
 
-def _scores(queries: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
-    return queries @ candidates.to(torch.float32).T
+def _scores(queries: torch.Tensor, candidates: torch.Tensor,
+            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """fp32 ``queries @ candidates.T`` (int8 and bf16 rows widened to fp32),
+    times each row's ``scale`` where given."""
+    s = queries @ candidates.to(torch.float32).T
+    return s if scale is None else s * scale[None, :]
+
+
+def _int_scores(q8: torch.Tensor, c8: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``q8 @ c8.T`` for int8 operands (B, D) and (C, D): the
+    cuBLASLt int8 product, the catalog read as int8 where it lies (a
+    transposed view, no copy), a batch of 16 rows or fewer zero-padded to
+    ``_INT_MM_MIN_ROWS``."""
+    B, D = q8.shape
+    if D % 8 or c8.shape[0] % 8:
+        raise ValueError(f"the int8 product needs D and C multiples of 8, got D={D}, "
+                         f"C={c8.shape[0]}")
+    if B <= 16:
+        q8 = torch.cat([q8, q8.new_zeros(_INT_MM_MIN_ROWS - B, D)])
+    return torch._int_mm(q8, c8.T)[:B]
+
+
+def _small_int_scores(q8: torch.Tensor, c8: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``q8 @ c8.T`` for a few rows of any shape (the binned
+    route's tail and catalogs of fewer than k+1 bins): a float64 product of
+    the integers, exact at any width the int32 result holds."""
+    return (q8.double() @ c8.double().T).to(torch.int32)
+
+
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The symmetric 127-level scale of values whose largest |value| is
+    ``amax``: ``where(amax > 0, amax, 1) / 127`` in fp32, the quotient
+    rounded once. The divisor is a tensor beside ``amax``: CUDA multiplies by
+    the reciprocal of a host scalar, which lands one ulp off the quotient
+    the CPU and the JAX package compute."""
+    a = torch.where(amax > 0, amax, 1.0)
+    return a / torch.full_like(a, 127.0)
+
+
+def quantize_queries(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization of fp32 queries, as the JAX binned
+    route does: the row's :func:`int8_scale`, then round half to even and
+    clip to +-127. Returns (int8 (B, D), scale (B,) f32)."""
+    scale = int8_scale(q.abs().amax(dim=1))
+    return torch.clamp(torch.round(q / scale[:, None]), -127, 127).to(torch.int8), scale
 
 
 def _map_ids(pos: torch.Tensor, ids: Optional[torch.Tensor]) -> torch.Tensor:
@@ -75,6 +134,7 @@ def streaming_topk_plain(
     ids: Optional[torch.Tensor] = None,
     n_valid: Optional[int] = None,
     tile: int = 4096,
+    scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`streaming_topk`: score a tile, merge it into the
     running (B, k) list with a stable sort. The list starts as k entries
@@ -86,7 +146,7 @@ def streaming_topk_plain(
     best_p = torch.full((B, k), -1, dtype=torch.int64, device=queries.device)
     for t0 in range(0, c_real, tile):
         t1 = min(t0 + tile, c_real)
-        s = _scores(queries, candidates[t0:t1])
+        s = _scores(queries, candidates[t0:t1], None if scale is None else scale[t0:t1])
         pos = torch.arange(t0, t1, device=queries.device).expand(B, -1)
         new_s, order = _top(torch.cat([best_s, s], dim=1), k)
         best_p = torch.gather(torch.cat([best_p, pos], dim=1), 1, order)
@@ -98,7 +158,7 @@ def _streaming_lib():
     lib = kernels.load("streaming_topk")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.streaming_topk.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.streaming_topk.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.streaming_topk.restype = i
         lib.streaming_topk_kmax.restype = i
         lib.streaming_topk_splits_max.restype = i
@@ -106,12 +166,13 @@ def _streaming_lib():
     return lib
 
 
-def _check_operands(queries, candidates, ids=None):
-    if queries.dtype != torch.float32 or queries.ndim != 2 or not queries.is_contiguous():
-        raise ValueError("queries must be a contiguous (B, D) float32 tensor")
-    if candidates.dtype not in (torch.float32, torch.bfloat16) or candidates.ndim != 2 \
+def _check_operands(queries, candidates, ids=None, scale=None, query_dtype=torch.float32):
+    if queries.dtype != query_dtype or queries.ndim != 2 or not queries.is_contiguous():
+        raise ValueError(f"queries must be a contiguous (B, D) {query_dtype} tensor")
+    if candidates.dtype not in CAND_DTYPES or candidates.ndim != 2 \
             or not candidates.is_contiguous():
-        raise ValueError("candidates must be a contiguous (C, D) float32 or bfloat16 tensor")
+        raise ValueError("candidates must be a contiguous (C, D) float32, bfloat16 or int8 "
+                         "tensor")
     if candidates.shape[1] != queries.shape[1]:
         raise ValueError(f"width mismatch: queries D={queries.shape[1]}, "
                          f"candidates D={candidates.shape[1]}")
@@ -120,6 +181,9 @@ def _check_operands(queries, candidates, ids=None):
     if ids is not None and (ids.dtype != torch.int32 or ids.shape != candidates.shape[:1]
                             or not ids.is_contiguous() or ids.device != queries.device):
         raise ValueError("ids must be a contiguous (C,) int32 tensor beside the candidates")
+    if scale is not None and (scale.dtype != torch.float32 or scale.shape != candidates.shape[:1]
+                              or not scale.is_contiguous() or scale.device != queries.device):
+        raise ValueError("scale must be a contiguous (C,) float32 tensor beside the candidates")
 
 
 def streaming_topk(
@@ -128,20 +192,24 @@ def streaming_topk(
     k: int,
     ids: Optional[torch.Tensor] = None,
     n_valid: Optional[int] = None,
+    scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over the whole catalog in one pass that never holds the
     (B, C) scores: (B, k) f32 scores and (B, k) int32 ids (positions when
-    ``ids`` is None; -1 where fewer than k rows are valid).
+    ``ids`` is None; -1 where fewer than k rows are valid). Candidates are
+    float32, bfloat16 or int8; ``scale`` (C,) f32, where given, multiplies
+    each row's fp32 score (the int8 index's dequantization).
 
     CUDA tensors go to the kernel of ``csrc/streaming_topk.cu``; CPU tensors to
     :func:`streaming_topk_plain`."""
     _check_k(k)
-    _check_operands(queries, candidates, ids)
+    _check_operands(queries, candidates, ids, scale)
     c_real = candidates.shape[0] if n_valid is None else int(n_valid)
     if not 0 <= c_real <= candidates.shape[0]:
         raise ValueError(f"n_valid={n_valid} outside [0, {candidates.shape[0]}]")
     if queries.device.type == "cpu":
-        return streaming_topk_plain(queries, candidates, k, ids=ids, n_valid=c_real)
+        return streaming_topk_plain(queries, candidates, k, ids=ids, n_valid=c_real,
+                                    scale=scale)
     if queries.device.type != "cuda":
         raise ValueError(f"streaming_topk runs on CUDA or the CPU, not {queries.device}")
     lib = _streaming_lib()
@@ -163,7 +231,8 @@ def streaming_topk(
     part_s = torch.empty((B, splits, k), dtype=torch.float32, device=queries.device)
     part_p = torch.empty((B, splits, k), dtype=torch.int32, device=queries.device)
     rc = lib.streaming_topk(
-        queries.data_ptr(), candidates.data_ptr(), int(candidates.dtype == torch.bfloat16),
+        queries.data_ptr(), candidates.data_ptr(), _DTYPE_CODE[candidates.dtype],
+        scale.data_ptr() if scale is not None else None,
         ids.data_ptr() if ids is not None else None,
         part_s.data_ptr(), part_p.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
         B, D, c_real, k, chunk, splits,
@@ -186,11 +255,15 @@ def binned_rescore_plain(
     queries: torch.Tensor, candidates: torch.Tensor, bin_idx: torch.Tensor, bin_size: int
 ) -> torch.Tensor:
     """Plain version of :func:`binned_rescore`: gather the selected bins, then
-    one einsum. (B, kb*bin_size) f32."""
+    one einsum in fp32, or, for int8 operands, products and a sum in int64
+    (CUDA has no integer einsum). (B, kb*bin_size) f32 or int32."""
     B, D = queries.shape
     c3 = candidates.view(-1, bin_size, D)
-    gathered = c3[bin_idx.long()].to(torch.float32)  # (B, kb, bs, D)
-    return torch.einsum("bd,bksd->bks", queries, gathered).reshape(B, -1)
+    gathered = c3[bin_idx.long()]  # (B, kb, bs, D)
+    if candidates.dtype == torch.int8:
+        dots = (gathered.long() * queries.long()[:, None, None, :]).sum(dim=-1)
+        return dots.to(torch.int32).reshape(B, -1)
+    return torch.einsum("bd,bksd->bks", queries, gathered.to(torch.float32)).reshape(B, -1)
 
 
 def _rescore_lib():
@@ -209,10 +282,13 @@ def binned_rescore(
     """Dot each query row with every row of its selected bins: queries (B, D)
     f32, candidates (L*bin_size, D) f32 or bf16, bin_idx (B, kb) int32 in
     [0, L) -> (B, kb*bin_size) f32, bin j's rows at columns j*bin_size...
+    For int8 candidates the queries are int8 too and the result is the exact
+    int32 dot (the int8 index's phase B).
 
     CUDA tensors go to the kernel of ``csrc/binned_rescore.cu``; CPU tensors to
     :func:`binned_rescore_plain`."""
-    _check_operands(queries, candidates)
+    is_int = candidates.dtype == torch.int8
+    _check_operands(queries, candidates, query_dtype=torch.int8 if is_int else torch.float32)
     if candidates.shape[0] % bin_size:
         raise ValueError(f"candidates rows {candidates.shape[0]} not a multiple of {bin_size}")
     if bin_idx.dtype != torch.int32 or bin_idx.ndim != 2 or not bin_idx.is_contiguous() \
@@ -224,12 +300,13 @@ def binned_rescore(
         raise ValueError(f"binned_rescore runs on CUDA or the CPU, not {queries.device}")
     B, D = queries.shape
     kb = bin_idx.shape[1]
-    out = torch.empty((B, kb * bin_size), dtype=torch.float32, device=queries.device)
+    out = torch.empty((B, kb * bin_size), dtype=torch.int32 if is_int else torch.float32,
+                      device=queries.device)
     if B == 0 or kb == 0:
         return out
     lib = _rescore_lib()
     rc = lib.binned_rescore(
-        queries.data_ptr(), candidates.data_ptr(), int(candidates.dtype == torch.bfloat16),
+        queries.data_ptr(), candidates.data_ptr(), _DTYPE_CODE[candidates.dtype],
         bin_idx.data_ptr(), out.data_ptr(), B, D, kb, bin_size,
         candidates.shape[0] // bin_size,
         torch.cuda.current_stream(queries.device).cuda_stream,
@@ -247,79 +324,134 @@ binned_rescore.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _prepare(queries, candidates, ids, device):
+def _prepare(queries, candidates, ids, device, col_scale=None):
     dev = resolve_device(device)
     q = torch.as_tensor(queries, device=dev).to(torch.float32).contiguous()
     c = torch.as_tensor(candidates, device=dev)
-    if c.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"candidates must be float32 or bfloat16, not {c.dtype} "
-                         "(the int8 index is not ported yet)")
+    if c.dtype not in CAND_DTYPES:
+        raise ValueError(f"candidates must be float32, bfloat16 or int8, not {c.dtype}")
     c = c.contiguous()
     if ids is not None:
         ids = torch.as_tensor(ids, device=dev).to(torch.int32).contiguous()
-    return q, c, ids
+    if col_scale is not None:
+        col_scale = torch.as_tensor(col_scale, device=dev).to(torch.float32).contiguous()
+    return q, c, ids, col_scale
 
 
-def _blockwise(q, c, k, ids, tile):
+def _blockwise(q, c, k, ids, tile, col_scale=None):
     _check_k(k)
-    return streaming_topk_plain(q, c, k, ids=ids, tile=tile)
+    return streaming_topk_plain(q, c, k, ids=ids, tile=tile, scale=col_scale)
 
 
-def blockwise_topk(queries, candidates, k: int, ids=None, tile: int = 4096, device=None):
+def blockwise_topk(queries, candidates, k: int, ids=None, tile: int = 4096, col_scale=None,
+                   device=None):
     """Exact top-k, tile by tile, without the (B, C) score matrix: the plain
-    PyTorch route. Returns (scores (B, k) f32, ids (B, k) int32)."""
-    q, c, ids = _prepare(queries, candidates, ids, device)
-    return _blockwise(q, c, k, ids, tile)
+    PyTorch route. ``col_scale`` (C,) f32 multiplies each row's score (the
+    int8 index). Returns (scores (B, k) f32, ids (B, k) int32)."""
+    q, c, ids, col_scale = _prepare(queries, candidates, ids, device, col_scale)
+    return _blockwise(q, c, k, ids, tile, col_scale)
+
+
+def _bin_scales(col_scale: torch.Tensor, L: int, bin_size: int) -> torch.Tensor:
+    """(L,) the scale of each full bin, read from its first row."""
+    return col_scale[: L * bin_size].view(L, bin_size)[:, 0]
 
 
 def select_bins(q: torch.Tensor, full: torch.Tensor, k: int, bin_size: int = _BINNED_BIN_SIZE,
-                bin_margin: int = _BINNED_MARGIN, n_valid: Optional[int] = None) -> torch.Tensor:
+                bin_margin: int = _BINNED_MARGIN, n_valid: Optional[int] = None,
+                col_scale: Optional[torch.Tensor] = None,
+                col_scale_per_bin: bool = False) -> torch.Tensor:
     """Phase A of the binned top-k over the full bins ``full`` (L*bin_size, D):
     score every row, keep each bin's max, and return the (B, kb) int32 indices
     of the best ``kb = k + margin`` bins (one more when padding may inflate
-    the last bin's max)."""
+    the last bin's max). For an int8 catalog ``q`` is the int8 queries and
+    the product exact int32; a per-bin scale multiplies the (B, L) bin maxima,
+    a per-row scale every score before the max."""
     B = q.shape[0]
     L = full.shape[0] // bin_size
-    bin_max = _scores(q, full).view(B, L, bin_size).amax(dim=2)
+    if full.dtype == torch.int8:
+        raw = _int_scores(q, full)
+    else:
+        raw = _scores(q, full)
+    raw = raw.view(B, L, bin_size)
+    if col_scale is not None and col_scale_per_bin:
+        bin_max = raw.amax(dim=2).to(torch.float32) * _bin_scales(col_scale, L, bin_size)[None]
+    else:
+        s = raw.to(torch.float32)
+        if col_scale is not None:
+            s = s * col_scale[: L * bin_size].view(1, L, bin_size)
+        bin_max = s.amax(dim=2)
     mask_pad = n_valid is not None and n_valid < L * bin_size
     kb = min(k + bin_margin + (1 if mask_pad else 0), L)
     _, bin_idx = _top(bin_max, kb)
     return bin_idx.to(torch.int32).contiguous()
 
 
-def _binned(q, c, k, ids, bin_size, bin_margin, n_valid):
+def _dequant(raw: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    s = raw.to(torch.float32)
+    return s if scale is None else s * scale
+
+
+def _binned(q, c, k, ids, bin_size, bin_margin, n_valid, col_scale=None,
+            col_scale_per_bin=False):
     _check_k(k)
     B, D = q.shape
     C = c.shape[0]
     L = C // bin_size  # full bins
     r = C - L * bin_size  # tail rows
+    is_int = c.dtype == torch.int8
+    q_scale = None
+    if is_int:
+        # the dots become int8 x int8 -> int32; the query's positive scale
+        # commutes with every per-row max and top-k, so it scales only the
+        # final (B, k)
+        q, q_scale = quantize_queries(q)
+        if col_scale is None:
+            col_scale = torch.ones(C, dtype=torch.float32, device=q.device)
+            col_scale_per_bin = True  # constant scales are bin-constant
+
+    def product(rows):
+        return _small_int_scores(q, rows) if is_int else _scores(q, rows)
+
+    def final(s):
+        return s if q_scale is None else s * q_scale[:, None]
+
     if L <= k:
-        scores = _scores(q, c)
+        scores = _dequant(product(c), None if col_scale is None else col_scale[None, :])
         if n_valid is not None and n_valid < C:
             col = torch.arange(C, device=q.device)[None, :]
             scores = torch.where(col < n_valid, scores, NEG_INF)
         s, pos = _top(scores, min(k, C))
-        return s, _map_ids(pos, ids)
+        return final(s), _map_ids(pos, ids)
 
     full = c[: L * bin_size]
     mask_pad = n_valid is not None and n_valid < L * bin_size
-    bin_idx = select_bins(q, full, k, bin_size, bin_margin, n_valid)
+    bin_idx = select_bins(q, full, k, bin_size, bin_margin, n_valid, col_scale,
+                          col_scale_per_bin)
+    kb = bin_idx.shape[1]
 
     # phase B: rescore the rows of the selected bins only
-    pool = binned_rescore(q, full, bin_idx, bin_size)
+    csel = None
+    if col_scale is not None and col_scale_per_bin:
+        csel = _bin_scales(col_scale, L, bin_size)[bin_idx.long()][:, :, None]
+        csel = csel.expand(B, kb, bin_size).reshape(B, -1)
+    elif col_scale is not None:
+        csel = col_scale[: L * bin_size].view(L, bin_size)[bin_idx.long()].reshape(B, -1)
+    pool = _dequant(binned_rescore(q, full, bin_idx, bin_size), csel)
     cols = (bin_idx.long()[:, :, None] * bin_size
             + torch.arange(bin_size, device=q.device)[None, None, :]).reshape(B, -1)
     if mask_pad:
         pool = torch.where(cols < n_valid, pool, NEG_INF)
     if r:
-        s_tail = _scores(q, c[L * bin_size:])
+        s_tail = _dequant(product(c[L * bin_size:]),
+                          None if col_scale is None else col_scale[None, L * bin_size:])
         tail_cols = torch.arange(L * bin_size, C, device=q.device)[None, :]
         if n_valid is not None and n_valid < C:
             s_tail = torch.where(tail_cols < n_valid, s_tail, NEG_INF)
         pool = torch.cat([pool, s_tail], dim=1)
         cols = torch.cat([cols, tail_cols.expand(B, -1)], dim=1)
     top_s, top_p = _top(pool, k)
-    return top_s, _map_ids(torch.gather(cols, 1, top_p), ids)
+    return final(top_s), _map_ids(torch.gather(cols, 1, top_p), ids)
 
 
 def binned_topk(
@@ -330,6 +462,8 @@ def binned_topk(
     bin_size: int = _BINNED_BIN_SIZE,
     bin_margin: int = _BINNED_MARGIN,
     n_valid: Optional[int] = None,
+    col_scale=None,
+    col_scale_per_bin: bool = False,
     device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact two-phase top-k (see the JAX docstring for the proof).
@@ -340,16 +474,26 @@ def binned_topk(
     phase B may round differently in the last bit, which the ``bin_margin``
     extra bins absorb. ``n_valid`` masks rows padded at index build. Phase B
     is :func:`binned_rescore`; the JAX option ``pallas_rescore``, which picks
-    between two phase-B paths on the TPU, has no counterpart."""
-    q, c, ids = _prepare(queries, candidates, ids, device)
-    return _binned(q, c, k, ids, bin_size, bin_margin, n_valid)
+    between two phase-B paths on the TPU, has no counterpart.
+
+    ``col_scale`` (C,) f32: each row's dequantization scale (the int8 index).
+    For an int8 catalog the queries are quantized per row and both phases
+    score in exact int32, so they agree bit for bit and the result is the
+    JAX package's, ids and scores. ``col_scale_per_bin`` asserts the scale
+    is constant within each bin (the bin-quantized index): the bin max is
+    then taken in int32 and scaled once per bin."""
+    q, c, ids, col_scale = _prepare(queries, candidates, ids, device, col_scale)
+    return _binned(q, c, k, ids, bin_size, bin_margin, n_valid, col_scale, col_scale_per_bin)
 
 
 def topk_route(B: int, C: int, D: int, k: int, tile: int = 4096,
                method: str = "auto", on_cuda: bool = False) -> str:
     """The route :func:`topk_scores` takes: the JAX dispatch, with "on the
     TPU" read as "the tensors lie on the card". ``method``: 'auto', or one of
-    'binned' | 'streaming' | 'blockwise' to force it."""
+    'binned' | 'streaming' | 'blockwise' to force it. The JAX package sends
+    a scaled (int8) catalog to its blockwise scan even on the TPU; the
+    streaming kernel computes that scan's function, scales included, so the
+    card takes it for every catalog dtype."""
     if method not in ("auto", "binned", "streaming", "blockwise"):
         raise ValueError(f"unknown method {method!r}")
     if method == "auto" and C <= tile:
@@ -371,12 +515,16 @@ def topk_scores(
     tile: int = 4096,
     method: str = "auto",
     n_valid: Optional[int] = None,
+    col_scale=None,
+    col_scale_per_bin: bool = False,
     device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of ``queries @ candidates.T`` by the route of :func:`topk_route`.
     ``n_valid``: real row count when ``candidates`` was padded at index build.
-    Returns (scores (B, k) f32, ids (B, k) int32)."""
-    q, c, ids = _prepare(queries, candidates, ids, device)
+    ``col_scale`` / ``col_scale_per_bin``: the int8 index's dequantization
+    scales (see :func:`binned_topk`). Returns (scores (B, k) f32, ids (B, k)
+    int32)."""
+    q, c, ids, col_scale = _prepare(queries, candidates, ids, device, col_scale)
     _check_k(k)
     B, D = q.shape
     C = c.shape[0]
@@ -385,20 +533,22 @@ def topk_scores(
     if route == "direct":
         if k > C:
             raise ValueError(f"k={k} exceeds the {C} candidates")
-        scores = _scores(q, c)
+        scores = _scores(q, c, col_scale)
         if padded:
             scores = torch.where(torch.arange(C, device=q.device)[None, :] < n_valid,
                                  scores, NEG_INF)
         s, pos = _top(scores, k)
         return s, _map_ids(pos, ids)
     if route == "binned":
-        return _binned(q, c, k, ids, _BINNED_BIN_SIZE, _BINNED_MARGIN, n_valid)
+        return _binned(q, c, k, ids, _BINNED_BIN_SIZE, _BINNED_MARGIN, n_valid, col_scale,
+                       col_scale_per_bin)
     if padded:  # the streaming routes score every row: drop the padding
         c = c[:n_valid]
         ids = ids[:n_valid] if ids is not None else None
+        col_scale = col_scale[:n_valid] if col_scale is not None else None
     if route == "streaming":
-        return streaming_topk(q, c, k, ids=ids)
-    return _blockwise(q, c, k, ids, tile)
+        return streaming_topk(q, c, k, ids=ids, scale=col_scale)
+    return _blockwise(q, c, k, ids, tile, col_scale)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:

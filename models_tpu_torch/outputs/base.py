@@ -38,6 +38,9 @@ class ModelOutput(Block):
             LogitsTemperatureScaler(logits_temperature) if logits_temperature != 1.0 else None
         )
 
+    def default_metrics(self) -> list:
+        return []
+
     def bind_target(self, targets):
         if targets is None:
             return None

@@ -10,10 +10,12 @@
 
 Three branches. Training with ``need_logits`` False (no metric reads the
 logits) takes the fused loss, :func:`~models_tpu_torch.ops.contrastive.sampled_softmax_loss`,
-which never holds the (B, 1+N) logits. Otherwise the head returns those
-logits with a one-hot target on column 0, for the model's loss. Without
-targets it scores each row's own pair (inference). Weight tying with an
-embedding table and post blocks are not ported yet.
+which never holds the (B, 1+N) logits. Otherwise (training steps that feed
+metrics, and evaluation: targets given, or the engine's ``testing`` flag)
+the head returns those logits with a one-hot target on column 0, for the
+model's loss and the top-k metrics. Without either it scores each row's own
+pair (inference). Weight tying with an embedding table and post blocks are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ class ContrastiveOutput(ModelOutput):
         logits_temperature: float = 1.0,
         fused_loss: Union[str, bool] = "auto",
         post=None,
+        default_metrics_top_ks: Sequence[int] = (10,),
     ):
         if isinstance(to_call, ColumnSchema):
             target = target or to_call.name
@@ -67,6 +70,12 @@ class ContrastiveOutput(ModelOutput):
         self.logq_sampling_correction = logq_sampling_correction
         # "auto" or True: the fused loss on training steps that need no logits
         self.fused_loss = fused_loss
+        self.top_ks = tuple(default_metrics_top_ks)
+
+    def default_metrics(self):
+        from ..metrics.topk import TopKMetricsAggregator
+
+        return [TopKMetricsAggregator.default(k) for k in self.top_ks]
 
     @property
     def item_id_name(self) -> Optional[str]:
@@ -138,7 +147,8 @@ class ContrastiveOutput(ModelOutput):
 
     def forward(self, inputs, *, training=False, context=None, targets=None, **kwargs):
         step = context.get("step") if context is not None else None
-        if training or targets is not None:
+        testing = context is not None and context.get("testing", False)
+        if training or targets is not None or testing:
             query, positive = self._query_and_positive(inputs, context, targets)
             if positive.id is not None:
                 sampler = self.samplers[0]

@@ -1,17 +1,22 @@
-"""Top-k retrieval layers (``models_tpu/outputs/topk.py``, fp32 and bf16
-indexes on one device)."""
+"""Top-k retrieval layers (``models_tpu/outputs/topk.py``): fp32, bf16 and
+bin-quantized int8 indexes on one device, and the top-k head with its
+evaluation branch. The mesh-sharded index waits for the distribution slice
+(ROADMAP.md queue 1)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.block import Block
 from ..core.device import resolve_device
-from ..core.types import TopKPrediction
-from ..ops.topk import _BINNED_BIN_SIZE, topk_scores
+from ..core.types import Prediction, TopKPrediction
+from ..ops.topk import _BINNED_BIN_SIZE, int8_scale, topk_scores
+from .base import ModelOutput
+
+INDEX_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 
 class BruteForce(Block):
@@ -26,25 +31,49 @@ class BruteForce(Block):
         super().__init__()
         self.k = int(k)
         self.n_valid: Optional[int] = None
+        self.scales_per_bin = False
         self.register_buffer("candidates", None)
         self.register_buffer("ids", None)
+        self.register_buffer("scales", None)
 
     def index(self, candidates, ids=None, dtype: torch.dtype = torch.float32,
               device=None) -> "BruteForce":
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"index dtype must be float32 or bfloat16, not {dtype} "
-                             "(the int8 index is not ported yet)")
+        """Store ``candidates`` (n, D) with their ``ids`` (default 0..n-1) as
+        ``dtype``: float32, bfloat16, or int8, bin-quantized as the JAX
+        package quantizes it. The int8 index sorts the rows by their largest
+        |element| (a stable sort, so equal rows keep their order), carries
+        the ids along, zero-pads to whole bins, and stores one scale per
+        64-row bin, ``max|row| / 127`` over the bin (1/127 for an all-zero
+        bin), with each row ``round(row / scale)`` clipped to +-127. Neighbours
+        in the sort have similar norms, so a bin's scale fits each of its
+        rows within a few percent; ``scales`` keeps the scale of every row
+        and ``scales_per_bin`` says it is constant within each bin."""
+        if dtype not in INDEX_DTYPES:
+            raise ValueError(f"index dtype must be float32, bfloat16 or int8, not {dtype}")
         dev = resolve_device(device)
         cand = torch.as_tensor(candidates, device=dev).to(torch.float32)
         n = cand.shape[0]
         ids = (torch.arange(n, dtype=torch.int32, device=dev) if ids is None
                else torch.as_tensor(ids, device=dev).to(torch.int32))
         pad = (-n) % _BINNED_BIN_SIZE
+        scales = None
+        if dtype == torch.int8:
+            amax = cand.abs().amax(dim=1)
+            order = torch.argsort(amax, stable=True)
+            cand, ids, amax = cand[order], ids[order], amax[order]
+            if pad:
+                amax = torch.cat([amax, amax.new_zeros(pad)])
+            bin_scale = int8_scale(amax.view(-1, _BINNED_BIN_SIZE).amax(dim=1))
+            scales = bin_scale.repeat_interleave(_BINNED_BIN_SIZE)
         if pad:
             cand = torch.cat([cand, cand.new_zeros(pad, cand.shape[1])])
             ids = torch.cat([ids, ids.new_full((pad,), -1)])
+        if scales is not None:
+            cand = torch.clamp(torch.round(cand / scales[:, None]), -127, 127)
         self.candidates = cand.to(dtype).contiguous()
         self.ids = ids.contiguous()
+        self.scales = scales
+        self.scales_per_bin = scales is not None
         self.n_valid = int(n)
         return self
 
@@ -62,25 +91,66 @@ class BruteForce(Block):
             raise ValueError("BruteForce index is empty; call index() first")
         scores, ids = topk_scores(
             queries, self.candidates, k or self.k, ids=self.ids, n_valid=self.n_valid,
+            col_scale=self.scales, col_scale_per_bin=self.scales_per_bin,
             device=self.candidates.device,
         )
         return TopKPrediction(scores, ids)
 
+    def score_all(self, queries) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The full (B, n) score matrix and the ids of its columns, padding
+        dropped: fp32 queries against the rows widened to fp32, times each
+        row's scale (int8)."""
+        cand, ids, scales = self.candidates, self.ids, self.scales
+        if self.n_valid is not None and self.n_valid < cand.shape[0]:
+            cand, ids = cand[: self.n_valid], ids[: self.n_valid]
+            scales = scales[: self.n_valid] if scales is not None else None
+        scores = torch.as_tensor(queries, device=cand.device).to(torch.float32) \
+            @ cand.to(torch.float32).T
+        if scales is not None:
+            scores = scores * scales[None, :]
+        return scores, ids
 
-class TopKOutput(Block):
-    """Head wrapping a :class:`BruteForce` layer: a serving request in, a
-    :class:`TopKPrediction` out (the inference branch of the JAX head)."""
+
+class TopKOutput(ModelOutput):
+    """Head wrapping a :class:`BruteForce` layer. A serving request gives a
+    :class:`TopKPrediction`. With targets, or under the engine's ``testing``
+    flag, the head evaluates: the relevance of each returned id (is it the
+    row's true item?) with ``label_relevant_counts`` 1 per row, for the top-k
+    metrics."""
+
+    default_loss = None  # retrieval evaluation has no trainable loss
 
     def __init__(self, k: int = 10, candidates=None, item_id_name: Optional[str] = None,
-                 candidate_dtype: Optional[torch.dtype] = None, device=None):
-        super().__init__(block_name="topk_output")
+                 default_metrics_top_ks=(10,), candidate_dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__(target=item_id_name)
+        self.block_name = "topk_output"
         self.k = int(k)
         self.item_id_name = item_id_name
+        self.top_ks = tuple(default_metrics_top_ks)
         self.topk_layer = BruteForce(k=k)
         dtype = torch.float32 if candidate_dtype is None else candidate_dtype
         if candidates is not None:
             self.topk_layer.index_from_dataset(candidates, dtype=dtype, device=device)
 
-    def forward(self, inputs, **kwargs) -> TopKPrediction:
+    def default_metrics(self):
+        from ..metrics.topk import TopKMetricsAggregator
+
+        return [TopKMetricsAggregator.default(min(k, self.k)) for k in self.top_ks]
+
+    def forward(self, inputs, *, context=None, targets=None, **kwargs):
         queries = inputs["query"] if isinstance(inputs, dict) else inputs
-        return self.topk_layer(queries, k=self.k)
+        topk = self.topk_layer(queries, k=self.k)
+        testing = bool(context.get("testing", False)) if context is not None else False
+        true_ids = None
+        if targets is not None and not isinstance(targets, dict):
+            true_ids = targets
+        elif isinstance(targets, dict) and self.item_id_name in targets:
+            true_ids = targets[self.item_id_name]
+        elif testing and context is not None and self.item_id_name is not None:
+            true_ids = context.features.get(self.item_id_name)
+        if true_ids is None:
+            return topk  # a serving request
+        rel = (topk.identifiers == true_ids.reshape(-1, 1)).to(torch.float32)
+        return Prediction(outputs=topk.scores, targets=rel,
+                          label_relevant_counts=torch.ones(rel.shape[0], device=rel.device))

@@ -19,6 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pyarrow", "models_tpu")
 def test_import_loads_no_jax_and_nothing_of_the_jax_package():
     code = (
         "import sys, models_tpu_torch, models_tpu_torch.ops.topk\n"
+        "import models_tpu_torch.ops.embedding_lookup, models_tpu_torch.metrics\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -39,6 +40,7 @@ def test_importing_the_kernels_builds_nothing_and_loads_no_triton():
         "    popen(self, *a, **k)\n"
         "subprocess.Popen.__init__ = spy\n"
         "import models_tpu_torch.ops.flash_ce, models_tpu_torch.ops.contrastive\n"
+        "import models_tpu_torch.ops.embedding_lookup\n"
         "from models_tpu_torch.ops import kernels\n"
         "print(len(started), len(kernels._libs))\n"
         "print('\\n'.join(sorted(sys.modules)))\n"

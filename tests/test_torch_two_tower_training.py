@@ -100,17 +100,28 @@ def _small():
 
 
 def test_compile_refuses_what_is_not_ported():
-    _, model = _small()
-    with pytest.raises(NotImplementedError, match="metrics=\\[\\]"):
-        model.compile(optimizer="adagrad")  # metrics=None: the top-k training metrics
-    with pytest.raises(NotImplementedError, match="metrics=\\[\\]"):
-        model.compile(metrics=["recall_at_10"])
+    from models_tpu_torch.metrics.topk import RecallAt, TopKMetricsAggregator
+
+    ds, model = _small()
+    head = model.contrastive_output.block_name
+    model.compile(optimizer="adagrad")  # metrics=None: the head's top-k metrics @10
+    (agg,) = model._resolve_task_metrics()[head]
+    assert isinstance(agg, TopKMetricsAggregator) and agg.max_k == 10
+    assert agg.names == ["recall_at_10", "mrr_at_10", "ndcg_at_10", "map_at_10",
+                         "precision_at_10"]
+    model.compile(metrics=["recall_at"])
+    (m,) = model._resolve_task_metrics()[head]
+    assert isinstance(m, RecallAt) and m.k == 10
+    model.compile(metrics=["recall_at_10"])  # as in the JAX package: no such name
+    with pytest.raises(KeyError, match="recall_at_10"):
+        model._resolve_task_metrics()
     with pytest.raises(NotImplementedError, match="not ported"):
         model.compile(optimizer="lamb", metrics=[])
     with pytest.raises(ValueError, match="Unknown optimizer"):
         model.compile(optimizer="nope", metrics=[])
-    with pytest.raises(NotImplementedError):
-        model.fit(_small()[0], batch_size=32, device="cpu")  # never compiled
+    # never compiled: fit compiles with the defaults (adam, the top-k metrics)
+    hist = _small()[1].fit(ds, batch_size=32, device="cpu")
+    assert np.isfinite(hist.history["loss"]).all() and "recall_at_10" in hist.history
 
 
 def test_slots_persist_across_fits_until_compile():
