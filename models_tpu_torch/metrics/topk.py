@@ -15,6 +15,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..ops.topk import stable_topk
 from ..registry import metric_registry
 from .base import Metric
 
@@ -63,26 +64,25 @@ def extract_topk(
     shuffle_ties: bool = True,
     seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sort once: the top-k scores (B, k), the targets' relevance at those
+    """Select once: the top-k scores (B, k), the targets' relevance at those
     positions (B, k) f32, and the positions (B, k) int64. ``k`` is clamped to
     the number of columns.
 
-    The selection ranks by (score descending, position ascending), a stable
-    sort, as ``lax.top_k``. With ``shuffle_ties`` the columns are first
-    permuted (see :func:`_column_permutation`), so that equal scores rank in
-    a random order and metrics on constant scores are unbiased. The tie
+    The selection ranks by (score descending, position ascending), as
+    ``lax.top_k`` (:func:`~models_tpu_torch.ops.topk.stable_topk`). With
+    ``shuffle_ties`` the columns are first permuted (see
+    :func:`_column_permutation`), so that equal scores rank in a random order
+    and metrics on constant scores are unbiased. The tie
     order is random here as in the JAX package, but not the same order:
     results agree with JAX's exactly where no two scores of a row tie."""
-    k = min(k, scores.shape[-1])
     if shuffle_ties:
         perm = _column_permutation(scores, targets, seed)
-        s, pidx = torch.sort(scores[:, perm], dim=-1, descending=True, stable=True)
-        idx = perm[pidx[:, :k]]
+        s, pidx = stable_topk(scores[:, perm], k)
+        idx = perm[pidx]
     else:
-        s, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-        idx = idx[:, :k]
+        s, idx = stable_topk(scores, k)
     rel = torch.gather(targets.to(torch.float32), -1, idx)
-    return s[:, :k], rel, idx
+    return s, rel, idx
 
 
 def _ranks(k: int, device) -> torch.Tensor:

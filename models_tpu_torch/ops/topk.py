@@ -47,7 +47,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # torch._int_mm on CUDA (cuBLASLt) checks "self.size(0) needs to be greater
 # than 16", "self.size(1) ... a multiple of 8" and "mat2.size(1) ... a
 # multiple of 8" (read from the installed libtorch_cuda); a batch of 16 rows
-# or fewer is zero-padded to this many
+# or fewer is zero-padded to this many, C and D to multiples of 8
 _INT_MM_MIN_ROWS = 32
 _BINNED_BIN_SIZE = 64
 _BINNED_MARGIN = 2
@@ -57,8 +57,19 @@ _BINNED_POOL_BYTES = 512 * 2**20
 _QB, _TC = 32, 128
 
 
-def _top(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """k best per row by (score desc, position asc): a stable descending sort."""
+def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k best of each row by (score desc, position asc): the first k of a
+    stable descending sort, as ``lax.top_k`` ranks. On the CPU, where a full
+    sort costs many times a selection, ``torch.topk`` answers wherever it is
+    unambiguous: no two of the k scores equal and no other score equal to
+    the k-th (its order among equal scores is unspecified). Otherwise, and
+    on the card (the check would wait for the device), the sort."""
+    k = min(k, scores.shape[1])
+    if scores.device.type == "cpu":
+        s, idx = torch.topk(scores, k, dim=1)
+        if not bool((s[:, 1:] == s[:, :-1]).any()) \
+                and bool(((scores >= s[:, -1:]).sum(dim=1) == k).all()):
+            return s, idx
     s, idx = torch.sort(scores, dim=1, descending=True, stable=True)
     return s[:, :k], idx[:, :k]
 
@@ -74,22 +85,19 @@ def _scores(queries: torch.Tensor, candidates: torch.Tensor,
 def _int_scores(q8: torch.Tensor, c8: torch.Tensor) -> torch.Tensor:
     """Exact int32 ``q8 @ c8.T`` for int8 operands (B, D) and (C, D): the
     cuBLASLt int8 product, the catalog read as int8 where it lies (a
-    transposed view, no copy), a batch of 16 rows or fewer zero-padded to
-    ``_INT_MM_MIN_ROWS``."""
+    transposed view, no copy). Zeros, which leave every dot as it is, pad
+    what its checks refuse: a batch of 16 rows or fewer to
+    ``_INT_MM_MIN_ROWS``, C and D to multiples of 8 (a D that is not one
+    costs a padded copy of the rows per call)."""
     B, D = q8.shape
-    if D % 8 or c8.shape[0] % 8:
-        raise ValueError(f"the int8 product needs D and C multiples of 8, got D={D}, "
-                         f"C={c8.shape[0]}")
-    if B <= 16:
-        q8 = torch.cat([q8, q8.new_zeros(_INT_MM_MIN_ROWS - B, D)])
-    return torch._int_mm(q8, c8.T)[:B]
-
-
-def _small_int_scores(q8: torch.Tensor, c8: torch.Tensor) -> torch.Tensor:
-    """Exact int32 ``q8 @ c8.T`` for a few rows of any shape (the binned
-    route's tail and catalogs of fewer than k+1 bins): a float64 product of
-    the integers, exact at any width the int32 result holds."""
-    return (q8.double() @ c8.double().T).to(torch.int32)
+    C = c8.shape[0]
+    pad_d, pad_c = -D % 8, -C % 8
+    if pad_d or pad_c:
+        c8 = torch.nn.functional.pad(c8, (0, pad_d, 0, pad_c))
+    pad_b = _INT_MM_MIN_ROWS - B if B <= 16 else 0
+    if pad_d or pad_b:
+        q8 = torch.nn.functional.pad(q8, (0, pad_d, 0, pad_b))
+    return torch._int_mm(q8, c8.T)[:B, :C]
 
 
 def int8_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -148,7 +156,7 @@ def streaming_topk_plain(
         t1 = min(t0 + tile, c_real)
         s = _scores(queries, candidates[t0:t1], None if scale is None else scale[t0:t1])
         pos = torch.arange(t0, t1, device=queries.device).expand(B, -1)
-        new_s, order = _top(torch.cat([best_s, s], dim=1), k)
+        new_s, order = stable_topk(torch.cat([best_s, s], dim=1), k)
         best_p = torch.gather(torch.cat([best_p, pos], dim=1), 1, order)
         best_s = new_s
     return best_s, _map_ids(best_p, ids)
@@ -383,7 +391,7 @@ def select_bins(q: torch.Tensor, full: torch.Tensor, k: int, bin_size: int = _BI
         bin_max = s.amax(dim=2)
     mask_pad = n_valid is not None and n_valid < L * bin_size
     kb = min(k + bin_margin + (1 if mask_pad else 0), L)
-    _, bin_idx = _top(bin_max, kb)
+    _, bin_idx = stable_topk(bin_max, kb)
     return bin_idx.to(torch.int32).contiguous()
 
 
@@ -411,7 +419,7 @@ def _binned(q, c, k, ids, bin_size, bin_margin, n_valid, col_scale=None,
             col_scale_per_bin = True  # constant scales are bin-constant
 
     def product(rows):
-        return _small_int_scores(q, rows) if is_int else _scores(q, rows)
+        return _int_scores(q, rows) if is_int else _scores(q, rows)
 
     def final(s):
         return s if q_scale is None else s * q_scale[:, None]
@@ -421,7 +429,7 @@ def _binned(q, c, k, ids, bin_size, bin_margin, n_valid, col_scale=None,
         if n_valid is not None and n_valid < C:
             col = torch.arange(C, device=q.device)[None, :]
             scores = torch.where(col < n_valid, scores, NEG_INF)
-        s, pos = _top(scores, min(k, C))
+        s, pos = stable_topk(scores, k)
         return final(s), _map_ids(pos, ids)
 
     full = c[: L * bin_size]
@@ -450,7 +458,7 @@ def _binned(q, c, k, ids, bin_size, bin_margin, n_valid, col_scale=None,
             s_tail = torch.where(tail_cols < n_valid, s_tail, NEG_INF)
         pool = torch.cat([pool, s_tail], dim=1)
         cols = torch.cat([cols, tail_cols.expand(B, -1)], dim=1)
-    top_s, top_p = _top(pool, k)
+    top_s, top_p = stable_topk(pool, k)
     return final(top_s), _map_ids(torch.gather(cols, 1, top_p), ids)
 
 
@@ -537,7 +545,7 @@ def topk_scores(
         if padded:
             scores = torch.where(torch.arange(C, device=q.device)[None, :] < n_valid,
                                  scores, NEG_INF)
-        s, pos = _top(scores, k)
+        s, pos = stable_topk(scores, k)
         return s, _map_ids(pos, ids)
     if route == "binned":
         return _binned(q, c, k, ids, _BINNED_BIN_SIZE, _BINNED_MARGIN, n_valid, col_scale,

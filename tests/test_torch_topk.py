@@ -204,3 +204,30 @@ def test_ids_agree_allows_only_near_ties():
     assert ttopk.ids_agree(s, [[1, 2, 3, 4]], s, [[1, 3, 2, 4]], 1e-5)
     assert not ttopk.ids_agree(s, [[1, 2, 3, 4]], s, [[2, 1, 3, 4]], 1e-5)
     assert not ttopk.ids_agree(s, [[1, 2, 3, 4]], s + 1e-3, [[1, 2, 3, 4]], 1e-5)
+
+
+@pytest.mark.parametrize("k", [1, 10, 300, 400])
+@pytest.mark.parametrize("ties", [False, True])
+def test_stable_topk_ranks_as_lax_top_k(ties, k):
+    """The CPU's selection (torch.topk where it is unambiguous, else the
+    stable sort) ranks by (score desc, position asc), as lax.top_k does;
+    with ties also over -0.0 and +0.0 (equal scores) and NEG_INF padding,
+    against a stable sort. k past the width gives every column."""
+    rng = np.random.default_rng(11)
+    if ties:
+        x = (rng.integers(-3, 4, size=(64, 300)) * 0.5).astype(np.float32)
+    else:
+        x = rng.standard_normal((64, 300)).astype(np.float32)
+    s, i = ttopk.stable_topk(torch.from_numpy(x), k)
+    js, ji = jax.lax.top_k(jnp.asarray(x), min(k, 300))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(s.numpy().view(np.uint32), np.asarray(js).view(np.uint32))
+    if ties:
+        y = torch.from_numpy(x)
+        y[y == 0] = -0.0
+        y[:, ::7] = 0.0
+        y[:, 5] = ttopk.NEG_INF
+        ws, wi = torch.sort(y, dim=1, descending=True, stable=True)
+        s, i = ttopk.stable_topk(y, k)
+        assert torch.equal(i, wi[:, :k])
+        assert torch.equal(s.view(torch.int32), ws[:, :k].view(torch.int32))

@@ -56,14 +56,15 @@ def test_int8_index_equals_jax_bit_for_bit(n):
     assert tbf.scales_per_bin and jbf.scales_per_bin
 
 
+@pytest.mark.parametrize("D", [32, 20])
 @pytest.mark.parametrize("B", [1, 24])
 @pytest.mark.parametrize("n", [64 * 80, 64 * 80 - 37])
-def test_int8_index_serves_as_jax(n, B):
+def test_int8_index_serves_as_jax(n, B, D):
     """The layer's call: past one 4096-row tile the binned route, ids equal
     and scores bit-equal (both packages run eagerly here; under ``jax.jit``
     XLA may divide the query scale by 127 as a product with the reciprocal,
-    one ulp off)."""
-    q, c, ids = _catalog(2, n, 32)
+    one ulp off). D = 20 is no multiple of 8: the int8 product pads it."""
+    q, c, ids = _catalog(2, n, D)
     jbf, tbf = _index_pair(c, ids)
     js, ji = jbf(jnp.asarray(q[:B]), k=10)
     tp = tbf(torch.from_numpy(q[:B]), k=10)
@@ -102,10 +103,13 @@ BINNED = {
 }
 
 
+@pytest.mark.parametrize("D", [32, 13])
 @pytest.mark.parametrize("case", sorted(BINNED))
-def test_binned_int8_equals_jax_bit_for_bit(case):
+def test_binned_int8_equals_jax_bit_for_bit(case, D):
+    """Every case at D = 32 and at D = 13, which the int8 product pads to a
+    multiple of 8 with zeros."""
     C, n_valid, per_bin, scaled = BINNED[case]
-    q, c8, ids, scale = _quantized(3, C, 32, per_bin)
+    q, c8, ids, scale = _quantized(3, C, D, per_bin)
     k = 10
     js, ji = jtopk.binned_topk(jnp.asarray(q), jnp.asarray(c8), k, ids=jnp.asarray(ids),
                                n_valid=n_valid, col_scale=jnp.asarray(scale) if scaled else None,
