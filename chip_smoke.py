@@ -4,18 +4,21 @@
 
 1. requires CUDA and prints the card's name and power limit;
 2. builds the port's CUDA kernels from ``models_tpu_torch/csrc`` (nvcc, sm_90a,
-   one process per source, all at once) and prints their ptxas registers;
+   one process per source, all at once) and prints their ptxas registers
+   (flash_ce's per kernel, with spills and shared memory);
 3. holds each kernel against its plain PyTorch version on the card: the top-k
    kernels at the shapes the serving path gives them, fp32 and bf16, with
    padding and planted ties, the streaming kernel also at k=256 and k=512
    and with few query rows over a 1M-row catalog (more than 32 catalog splits
    per row); the flash-CE kernels (forward K1, backward K2 and K3) at
    Q = N = 8192, D = 128 with downscoring, planted duplicate ids and MIN_FLOAT
-   biases, at Q=1000, N=3001, T=0.7 with zero weights and no ids, and at
-   D = 64 and 256; the row scatters (K7 add, K8 write) bit for bit, fp32 and
-   bf16 tables, on the userId table at the path's batch (deduplicated skewed
-   ids, stale duplicates and out-of-range ids on invalid positions), 81,920
-   ids over 24 rows, D = 64, 200 and 130, misaligned rows, N = 1 and no valid
+   biases (K2 and K3 twice, equal bit for bit), at Q=1000, N=3001, T=0.7
+   with zero weights and no ids, at D = 64, 100 and 256, at Q = 8191,
+   N = 8193 and at N = 40 (fewer negatives than K3 has chunks); the row
+   scatters (K7 add, K8 write) bit for bit, fp32 and bf16 tables, on the
+   userId table at the path's batch (deduplicated skewed ids, stale
+   duplicates and out-of-range ids on invalid positions), 81,920 ids over
+   24 rows, D = 64, 200 and 130, misaligned rows, N = 1 and no valid
    position; the row gather (K9) bit for bit, fp32, bf16 and fp16 tables of
    R % 8 != 0 rows, duplicates, ids at both ends, clamped ids, B = 1, D = 7,
    a misaligned table, and 8192 ids into the bench's 4M x 128 fp32 and
@@ -69,16 +72,20 @@
 14. prints one JSON line with each kernel's launches (on its own path's run;
    K7 and K8: both row-sparse runs), error against its plain version, its
    time, the plain version's, the least time the card could take and a
-   PyTorch yardstick's, then the card line and ``{"ok": true, ...}`` last.
+   PyTorch yardstick's (the bound at the peak of the arithmetic each kernel
+   runs: fp32, 3xTF32 for K2 and K3, or HBM3 bytes, named in
+   ``bound_peak``), then the card line and ``{"ok": true, ...}`` last.
    Host-clock times are [median, min, max].
 
 Tolerances. Top-k scores: 2e-6 of the largest |score| (fp32 sums of 128
 products in another order). Flash-CE: (m, s) and the loss within 1e-5 of
-their largest value, gradients within 2e-5 of the largest |gradient|: the
-kernels sum each dot in d order and merge the exponentials over 16 lanes and
-the negative splits, where the plain versions sum with cuBLAS and tile by
-tile. Training: loss within 1e-5, every parameter's gradient within 2e-5 of
-the model's largest |gradient| (the unfused path rounds a log-softmax over
+their largest value, gradients within 2e-5 of the largest |gradient|: K1
+sums each dot in d order and merges the exponentials over 16 lanes and the
+negative splits, K2 and K3 compute their products as 3xTF32 on the tensor
+cores (about 2^-21 relative per product) and sum the chunks in order, where
+the plain versions sum with cuBLAS (TF32 off) and tile by tile. Training:
+loss within 1e-5, every parameter's gradient within 2e-5 of the model's
+largest |gradient| (the unfused path rounds a log-softmax over
 8193 columns, and sums the embedding gradients in another order); after
 three steps on the card and on the CPU, losses within 1e-5 and parameters
 within 1e-5 absolute. Row scatters: bit for bit (one fp32 add or one copy per
@@ -109,8 +116,12 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, TF32 on
+# the tensor cores, HBM3. K2/K3 run 3xTF32: three TF32 products per product
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32 = (PEAK_TF32_FLOPS / 3, "3xTF32")
+PEAK_FP32 = (PEAK_FP32_FLOPS, "fp32")
 PEAK_BYTES_PER_S = 3.35e12
 REL_TOL = 2e-6  # fp32 sums of 128 products taken in another order
 FCE_TOL = 1e-5  # flash-CE (m, s) and loss, of their largest |value|
@@ -394,14 +405,17 @@ def serving_breakdown(dev, model, queries, results):
     return out
 
 
-def _row(name, source, replaces, launches, err, ms, plain, lib, flops, nbytes):
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+def _row(name, source, replaces, launches, err, ms, plain, lib, flops, nbytes, peak=PEAK_FP32):
+    """A kernel's entry of the kernels line. ``peak``: the rate of the
+    arithmetic the kernel runs, (FLOP/s, its name), named in ``bound_peak``."""
+    ops_ms = flops / peak[0] * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
         "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": lib,
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_peak": peak[1] if ops_ms >= bytes_ms else "HBM3", "library_ms": lib,
     }
 
 
@@ -505,8 +519,9 @@ def fce_case(dev, gen, Q, N, D, T, ids, bias_min, zero_w):
     return q, pos_logit, neg, pid, nid, bias, w
 
 
-def check_fce(name, dev, args, T, errs):
-    """K1, K2 and K3 against their plain versions on the same inputs."""
+def check_fce(name, dev, args, T, errs, repeat=False):
+    """K1, K2 and K3 against their plain versions on the same inputs;
+    ``repeat``: K2 and K3 again, to the same bits (the chunk merge is ordered)."""
     from models_tpu_torch.ops import contrastive as C
     from models_tpu_torch.ops import flash_ce as F
 
@@ -529,6 +544,12 @@ def check_fce(name, dev, args, T, errs):
         err = rel_err(got, want)
         require(err <= tol, f"flash-CE {name}: {what} off by {err:.3g} of its size (tol {tol})")
     require(not dq[gw == 0].any(), f"flash-CE {name}: zero-weight rows have a gradient")
+    if repeat:
+        again = (F.grad_query(q, neg, lse, gw, pid, nid, bias, T, ds),
+                 F.grad_neg(q, neg, lse, gw, pid, nid, bias, T, ds))
+        torch.cuda.synchronize()
+        require(all(torch.equal(raw_bits(a), raw_bits(b)) for a, b in zip((dq, dn), again)),
+                f"flash-CE {name}: K2 / K3 differ from one call to the next")
     errs["lse_forward"] = max(errs["lse_forward"], max_err(m, pm), max_err(s, ps))
     errs["grad_query"] = max(errs["grad_query"], max_err(dq, pdq))
     errs["grad_neg"] = max(errs["grad_neg"], max_err(dn, pdn))
@@ -538,14 +559,20 @@ def check_fce(name, dev, args, T, errs):
 
 
 def phase_flash_ce(dev, gen, errs):
-    """K1-K3 against their plain versions at the training path's shapes, at a
-    ragged shape and at the widths the design holds."""
+    """K1-K3 against their plain versions at the training path's shapes (K2
+    and K3 twice, bit-equal), at ragged shapes (against every tile and chunk;
+    fewer negatives than K3 has chunks), at a width that is no multiple of 8
+    and at the widths the design holds."""
     cases = (("Q=N=8192 D=128 downscore bias", 8192, 8192, 128, 1.0, True, True, False),
              ("Q=1000 N=3001 D=64 T=0.7 zero weights", 1000, 3001, 64, 0.7, False, False, True),
              ("Q=N=2048 D=64 downscore bias", 2048, 2048, 64, 1.0, True, True, False),
-             ("Q=N=2048 D=256 T=0.7 downscore", 2048, 2048, 256, 0.7, True, False, True))
+             ("Q=N=2048 D=256 T=0.7 downscore", 2048, 2048, 256, 0.7, True, False, True),
+             ("Q=N=2048 D=100 downscore bias", 2048, 2048, 100, 1.0, True, True, True),
+             ("Q=8191 N=8193 D=128 T=0.7 downscore bias", 8191, 8193, 128, 0.7, True, True, True),
+             ("Q=8192 N=40 D=128 downscore bias", 8192, 40, 128, 1.0, True, True, True))
     for name, Q, N, D, T, ids, bias_min, zero_w in cases:
-        check_fce(name, dev, fce_case(dev, gen, Q, N, D, T, ids, bias_min, zero_w), T, errs)
+        check_fce(name, dev, fce_case(dev, gen, Q, N, D, T, ids, bias_min, zero_w), T, errs,
+                  repeat=Q == N == 8192)
 
 
 def head_grads(model, xb, yb, fused):
@@ -767,19 +794,22 @@ def measure_flash_ce(dev, model, data, launches, errs):
     args = (q, neg, lse, gw, pid, nid, bias, T, True)
     vec = 4 * (2 * Q + 2 * N)  # pid, nid, bias and one per-row f32 input
     rows = []
-    for name, line, fn, plain, lib, flops, nbytes in (
+    # K1 in fp32 FMAs; K2 and K3 as 3xTF32 on the tensor cores
+    for name, line, fn, plain, lib, flops, nbytes, peak in (
             ("lse_forward", 76, lambda: F.lse_forward(q, pos_logit, neg, pid, nid, bias, T, True),
              lambda: F.lse_forward_plain(q, pos_logit, neg, pid, nid, bias, T, True),
              lambda: torch.logsumexp(torch.cat([pos_logit[:, None], logits()], 1), 1),
-             2 * Q * N * D, (Q + N) * D * 4 + vec + 2 * Q * 4),
+             2 * Q * N * D, (Q + N) * D * 4 + vec + 2 * Q * 4, PEAK_FP32),
             ("grad_query", 134, lambda: F.grad_query(*args), lambda: F.grad_query_plain(*args),
-             lambda: coef() @ neg, 4 * Q * N * D, (Q + N) * D * 4 + vec + 4 * Q + Q * D * 4),
+             lambda: coef() @ neg, 4 * Q * N * D, (Q + N) * D * 4 + vec + 4 * Q + Q * D * 4,
+             PEAK_3XTF32),
             ("grad_neg", 184, lambda: F.grad_neg(*args), lambda: F.grad_neg_plain(*args),
-             lambda: coef().T @ q, 4 * Q * N * D, (Q + N) * D * 4 + vec + 4 * Q + N * D * 4)):
+             lambda: coef().T @ q, 4 * Q * N * D, (Q + N) * D * 4 + vec + 4 * Q + N * D * 4,
+             PEAK_3XTF32)):
         rows.append(_row(name, "models_tpu_torch/csrc/flash_ce.cu",
                          f"models_tpu/ops/flash_ce.py:{line}", launches[name], errs[name],
                          cuda_ms(fn), cuda_ms(plain, reps=3), cuda_ms(lib, reps=3), flops,
-                         nbytes))
+                         nbytes, peak))
     return rows
 
 
@@ -1551,6 +1581,14 @@ def main() -> int:
     for name, log in kernels.build_logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}: {regs}", flush=True)
+    # flash_ce in full: each kernel's registers, static shared memory and spills
+    for ln in kernels.build_logs.get("flash_ce", "").splitlines():
+        if "entry function" in ln or "Used" in ln or "spill" in ln:
+            print(f"    flash_ce ptxas: {ln.split(':', 1)[-1].strip()}", flush=True)
+    from models_tpu_torch.ops import flash_ce as F
+
+    print("    flash_ce grad_rows dynamic shared memory (bytes) at D = 64, 128, 256: "
+          f"{[F._lib().flash_ce_grad_smem(d) for d in (64, 128, 256)]}", flush=True)
 
     stamp("phase 1: kernels against their plain versions")
     errs = phase_kernels(dev, gen)

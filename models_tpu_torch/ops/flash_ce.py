@@ -13,7 +13,9 @@ with ``MIN_FLOAT`` in place of the sum before the division where
 None of them writes the (Q, N) logits. CUDA tensors go to the kernels of
 ``csrc/flash_ce.cu``; CPU tensors to the plain versions, which walk the
 negatives tile by tile in the order of the JAX scan (``ops/contrastive.py``).
-Inputs are float32: bf16 operands wait for the mixed-precision slice.
+On the card K2 and K3 compute both products on the tensor cores as 3xTF32
+(near fp32's error), K1 in fp32 FMAs. Inputs are float32: bf16 operands wait
+for the mixed-precision slice.
 """
 
 from __future__ import annotations
@@ -96,8 +98,12 @@ def _lib():
         lib.flash_ce_lse_splits.restype = i
         lib.flash_ce_lse_forward.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, f, i, i, p]
         lib.flash_ce_lse_forward.restype = i
+        lib.flash_ce_grad_splits.argtypes = [i, i, i, i]
+        lib.flash_ce_grad_splits.restype = i
+        lib.flash_ce_grad_smem.argtypes = [i]
+        lib.flash_ce_grad_smem.restype = i
         for fn in (lib.flash_ce_grad_query, lib.flash_ce_grad_neg):
-            fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i, p]
+            fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i, i, p]
             fn.restype = i
         lib._typed = True
     return lib
@@ -182,10 +188,17 @@ def _grad(entry, counter, out, query, neg_emb, lse, gw, pos_id, neg_id, bias, te
     if Q == 0 or N == 0:
         return out.zero_()
     lib = _lib()
+    # the kernel cuts the streamed side into chunks that fill the card; each
+    # chunk's partial sum goes to scratch, summed in chunk order
+    splits = lib.flash_ce_grad_splits(Q, N, D, int(entry == "flash_ce_grad_query"))
+    if splits < 0:
+        kernels.check(lib, -splits, "flash_ce_grad_splits")
+    part = None if splits == 1 else torch.empty((splits, *out.shape), dtype=torch.float32,
+                                                device=out.device)
     rc = getattr(lib, entry)(
         query.data_ptr(), neg_emb.data_ptr(), lse.data_ptr(), gw.data_ptr(), _ptr(pos_id),
-        _ptr(neg_id), _ptr(bias), out.data_ptr(), Q, N, D, float(temperature),
-        int(bool(downscore)), _stream(query),
+        _ptr(neg_id), _ptr(bias), _ptr(part), out.data_ptr(), Q, N, D, float(temperature),
+        int(bool(downscore)), splits, _stream(query),
     )
     kernels.check(lib, rc, entry)
     counter.launches += 1
