@@ -5,12 +5,16 @@
 1. requires CUDA and prints the card's name and power limit;
 2. builds the port's CUDA kernels from ``models_tpu_torch/csrc`` (nvcc, sm_90a,
    one process per source, all at once) and prints their ptxas registers
-   (flash_ce's per kernel, with spills and shared memory);
+   (flash_ce's and streaming_topk's per kernel, with spills and shared
+   memory), checks that ``flash_ce.DMAX`` is the kernels' width limit, and
+   prints how K6 launches at the path's shapes (warps, ring stages, lists);
 3. holds each kernel against its plain PyTorch version on the card: the top-k
    kernels at the shapes the serving path gives them, fp32 and bf16, with
-   padding and planted ties, the streaming kernel also at k=256 and k=512
-   and with few query rows over a 1M-row catalog (more than 32 catalog splits
-   per row); the flash-CE kernels (forward K1, backward K2 and K3) at
+   padding and planted ties, the streaming kernel also at k=256 and k=512,
+   with few query rows over a 1M-row catalog (many catalog splits per row),
+   at k=5000 (its lists in global memory), and at D = 130, D = 300 and on
+   rows off 16-byte alignment (its element-wise copies), fp32, bf16 and
+   int8; the flash-CE kernels (forward K1, backward K2 and K3) at
    Q = N = 8192, D = 128 with downscoring, planted duplicate ids and MIN_FLOAT
    biases (K2 and K3 twice, equal bit for bit), at Q=1000, N=3001, T=0.7
    with zero weights and no ids, at D = 64, 100 and 256, at Q = 8191,
@@ -33,13 +37,18 @@
    the plain route; then the int8 index: built on the card equal bit for bit
    to a CPU build, 256 rows by the binned route with ids and scores equal to
    the CPU route's, 4096 rows through K6 int8 against the plain route; the
-   launch counts of each run show which kernels it ran;
+   launch counts of each run show which kernels it ran; then
+   ``topk_scores`` at B = 256 and k = 600 over the catalog (K6, fp32 and int8
+   indexes) against the CPU route;
 5. times the requests (fp32, bf16, int8; host clock), their parts, the index
    builds and the top-k layer on the bench's 1M x 128 catalog at B = 256;
 6. checks the training step at the same width: the fused loss (K1-K3) against
    the unfused head (materialised logits, cuBLAS fp32, autograd) at batch
-   8192, loss and every parameter's gradient; and three adagrad steps at
-   batch 1024 against a CPU copy of the model (the plain versions);
+   8192, loss and every parameter's gradient; three adagrad steps at batch
+   1024 against a CPU copy of the model (the plain versions); and towers
+   wider than the flash-CE kernels hold (``query_tower=(512, 320)``): three
+   adagrad steps at batch 8192 through the unfused head against a CPU copy,
+   with no launch of K1-K3;
 7. trains at full width, the training path: ``compile("adagrad",
    learning_rate=0.05, metrics=[])`` and ``fit`` over 65,536 generated rows
    in batches of 8192 for two epochs (16 steps), requiring each of K1, K2
@@ -73,17 +82,20 @@
    K7 and K8: both row-sparse runs), error against its plain version, its
    time, the plain version's, the least time the card could take and a
    PyTorch yardstick's (the bound at the peak of the arithmetic each kernel
-   runs: fp32, 3xTF32 for K2 and K3, or HBM3 bytes, named in
-   ``bound_peak``), then the card line and ``{"ok": true, ...}`` last.
-   Host-clock times are [median, min, max].
+   runs: 3xTF32 for K1-K3 and K6 on fp32 rows, 2xTF32 for K6 on bf16 and
+   int8 rows, or HBM3 bytes, named in ``bound_peak``; K1 and K6 also with
+   the L2 flushed, ``ms_cold``), then the card line and ``{"ok": true,
+   ...}`` last. Host-clock times are [median, min, max].
 
-Tolerances. Top-k scores: 2e-6 of the largest |score| (fp32 sums of 128
-products in another order). Flash-CE: (m, s) and the loss within 1e-5 of
-their largest value, gradients within 2e-5 of the largest |gradient|: K1
-sums each dot in d order and merges the exponentials over 16 lanes and the
-negative splits, K2 and K3 compute their products as 3xTF32 on the tensor
-cores (about 2^-21 relative per product) and sum the chunks in order, where
-the plain versions sum with cuBLAS (TF32 off) and tile by tile. Training:
+Tolerances. Top-k scores: 2e-6 of the largest |score| (K6 sums 128
+products as 3xTF32 or 2xTF32, about 2^-21 relative each, in another order
+than the plain version's cuBLAS fp32). Flash-CE: (m, s) and the loss within
+1e-5 of their largest value, gradients within 2e-5 of the largest
+|gradient|: K1-K3 compute their products as 3xTF32 on the tensor cores
+(about 2^-21 relative per product), K1 merges the exponentials over the
+four lanes of a quad and the negative splits, K2 and K3 sum the chunks in
+order, where the plain versions sum with cuBLAS (TF32 off) and tile by
+tile. Training:
 loss within 1e-5, every parameter's gradient within 2e-5 of the model's
 largest |gradient| (the unfused path rounds a log-softmax over
 8193 columns, and sums the embedding gradients in another order); after
@@ -117,10 +129,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, TF32 on
-# the tensor cores, HBM3. K2/K3 run 3xTF32: three TF32 products per product
+# the tensor cores, HBM3. K1-K3 and K6 on fp32 rows run 3xTF32 (three TF32
+# products per product), K6 on bf16 and int8 rows 2xTF32 (two)
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32 = (PEAK_TF32_FLOPS / 3, "3xTF32")
+PEAK_2XTF32 = (PEAK_TF32_FLOPS / 2, "2xTF32")
 PEAK_FP32 = (PEAK_FP32_FLOPS, "fp32")
 PEAK_BYTES_PER_S = 3.35e12
 REL_TOL = 2e-6  # fp32 sums of 128 products taken in another order
@@ -274,13 +288,14 @@ def phase_kernels(dev, gen):
     """Each kernel against its plain version at the serving shapes."""
     from models_tpu_torch.ops import topk as T
 
-    errs = {"streaming_topk": 0.0, "binned_rescore": 0.0}
-    # (B, C, n_valid, k): the two serving sizes; a long list (k=256, several
-    # 32-entry chunks shifted per insert) and the largest the kernel holds;
-    # few rows over 1M candidates, so that each row merges over 32 splits
+    errs = {"streaming_topk": 0.0, "binned_rescore": 0.0, "streaming_topk_int8": 0.0}
+    # (B, C, n_valid, k): the two serving sizes; long lists in shared memory
+    # (k = 256 and 512: merged, not inserted one by one), a list past what
+    # shared memory holds (k = 5000, in global memory); few rows over 1M
+    # candidates, so that each row merges over many splits
     cases = ((4096, 56_704, CATALOG, K), (2048, 1_000_000, None, K),
              (64, 1_000_000, 999_937, 256), (16, 56_704, CATALOG, 512),
-             (8, 1_000_000, None, K))
+             (8, 1_000_000, None, K), (8, 65_536, None, 5000))
     for B, C, n_valid, k in cases:
         q = torch.randn(B, 128, device=dev, generator=gen)
         c = torch.randn(C, 128, device=dev, generator=gen)
@@ -297,6 +312,24 @@ def phase_kernels(dev, gen):
             s, pos = T.streaming_topk(c[7:8].float().contiguous(), cd, 4, n_valid=n_valid)
             require(pos[0, :4].tolist() == sorted(pos[0, :4].tolist())
                     and pos[0, 0].item() == 7, f"planted ties resolved as {pos.tolist()}")
+    # K6's other copy paths: a width off the 16-byte copies (D = 130, plain
+    # loads), widths past one 256-deep stage (D = 300, the query rows streamed
+    # with the tiles), rows one element off 16-byte alignment; every row type
+    for D, off, k in ((130, 0, K), (300, 0, 40), (128, 1, K)):
+        q = torch.randn(100, D, device=dev, generator=gen)
+        buf = torch.randn(5000 * D + off, device=dev, generator=gen)
+        buf8 = torch.randint(-127, 128, (5000 * D + off,), device=dev, generator=gen,
+                             dtype=torch.int8)
+        scale = torch.rand(5000, device=dev, generator=gen) * 0.03 + 0.002
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            src = buf8 if dtype == torch.int8 else buf.to(dtype)
+            cd, sc = src[off:].view(5000, D), scale if dtype == torch.int8 else None
+            got = T.streaming_topk(q, cd, k, n_valid=4999, scale=sc)
+            want = T.streaming_topk_plain(q, cd, k, n_valid=4999, scale=sc)
+            err = check_topk(f"streaming_topk B=100 C=5000 D={D} offset={off} k={k} {dtype}",
+                             got, want, positions=True)
+            tag = "streaming_topk_int8" if dtype == torch.int8 else "streaming_topk"
+            errs[tag] = max(errs[tag], err)
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.randn(256, 128, device=dev, generator=gen)
         c = torch.randn(886 * 64, 128, device=dev, generator=gen).to(dtype)
@@ -384,6 +417,38 @@ def check_serving(dev, model, queries, results):
     print("  serve fp32 B=16 card vs CPU: agree", flush=True)
 
 
+def phase_large_k(dev, model, queries, index_fp32, index_int8):
+    """Top-k past the 512 entries a row's list held before: ``topk_scores``
+    over the catalog at B = 256 and k = 600, which the route sends to K6 on
+    the card (the binned pool would pass 512 MB), with the fp32 and the int8
+    index, against the CPU route (blockwise, the plain version) on the same
+    query embeddings and index. Returns K6's launches."""
+    from models_tpu_torch.core.types import to_device_batch
+    from models_tpu_torch.data import Loader
+    from models_tpu_torch.ops import topk as T
+
+    x, _ = next(iter(Loader(queries.take(256), 256)))
+    with torch.no_grad():
+        q = model.query_encoder(to_device_batch(x, dev)).contiguous()
+    launches = 0
+    for tag, bf in (("fp32", index_fp32), ("int8", index_int8)):
+        C, D = bf.candidates.shape
+        require(T.topk_route(256, C, D, 600, on_cuda=True) == "streaming",
+                "B=256 k=600 does not route to K6")
+        args = dict(n_valid=bf.n_valid, col_scale_per_bin=bf.scales_per_bin)
+        before = T.streaming_topk.launches
+        got = T.topk_scores(q, bf.candidates, 600, ids=bf.ids, col_scale=bf.scales,
+                            device=dev, **args)
+        torch.cuda.synchronize()
+        launches += T.streaming_topk.launches - before
+        require(T.streaming_topk.launches == before + 1, f"k=600 {tag}: K6 did not run once")
+        cpu = [None if a is None else a.cpu() for a in (bf.candidates, bf.ids, bf.scales)]
+        want = T.topk_scores(q.cpu(), cpu[0], 600, ids=cpu[1], col_scale=cpu[2], device="cpu",
+                             **args)
+        check_topk(f"topk_scores {tag} index B=256 k=600, card (K6) vs CPU", got, want)
+    return launches
+
+
 def serving_breakdown(dev, model, queries, results):
     """Where a request's time goes: host batch assembly and copy to the card
     (host clock), the query tower and the top-k layer (device time)."""
@@ -405,18 +470,24 @@ def serving_breakdown(dev, model, queries, results):
     return out
 
 
-def _row(name, source, replaces, launches, err, ms, plain, lib, flops, nbytes, peak=PEAK_FP32):
+def _row(name, source, replaces, launches, err, ms, plain, lib, flops, nbytes, peak=PEAK_FP32,
+         ms_cold=None):
     """A kernel's entry of the kernels line. ``peak``: the rate of the
-    arithmetic the kernel runs, (FLOP/s, its name), named in ``bound_peak``."""
+    arithmetic the kernel runs, (FLOP/s, its name), named in ``bound_peak``.
+    ``ms_cold``: the kernel's device time with the L2 flushed before each
+    call, where it was taken beside the back-to-back time ``ms``."""
     ops_ms = flops / peak[0] * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    return {
+    row = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "bound_peak": peak[1] if ops_ms >= bytes_ms else "HBM3", "library_ms": lib,
     }
+    if ms_cold is not None:
+        row["ms_cold"] = ms_cold
+    return row
 
 
 def phase_measure(dev, model, queries, results, launches, errs):
@@ -441,12 +512,14 @@ def phase_measure(dev, model, queries, results, launches, errs):
         cand, ids = bf.candidates[:n], bf.ids[:n]  # the streaming route drops the padding
         B = q4096.shape[0]
         ms = cuda_ms(lambda: T.streaming_topk(q4096, cand, K, ids=ids))
+        cold = device_ms(lambda: T.streaming_topk(q4096, cand, K, ids=ids), cold=True)
         plain = cuda_ms(lambda: T.streaming_topk_plain(q4096, cand, K, ids=ids), reps=3)
         lib = cuda_ms(lambda: torch.topk(q4096 @ cand.float().T, K))
         k6 = _row("streaming_topk", "models_tpu_torch/csrc/streaming_topk.cu",
                   "models_tpu/ops/topk.py:102", launches["streaming_topk"],
                   errs["streaming_topk"], ms, plain, lib, 2 * B * n * D,
-                  B * D * 4 + n * D * item + n * 4 + B * K * 8)
+                  B * D * 4 + n * D * item + n * 4 + B * K * 8,
+                  PEAK_3XTF32 if tag == "fp32" else PEAK_2XTF32, ms_cold=cold)
         full = bf.candidates  # 886 full bins, the padding in the last
         bs = 64
         idx = T.select_bins(q256, full, K, n_valid=n)
@@ -637,6 +710,46 @@ def phase_train_checks(dev, model):
           f"{hist['cpu']}; parameters max|d| {worst:.3g}", flush=True)
 
 
+def phase_wide_towers(dev, catalog):
+    """Towers wider than the flash-CE kernels hold (D = 320 > DMAX): the head
+    takes the unfused logits where ``flash_ce.fits`` refuses, as the JAX
+    package's ``_use_flash`` routes shapes outside its kernel. Three adagrad
+    steps at batch 8192, ``metrics=[]``, on the card and on a CPU copy:
+    losses within FCE_TOL, parameters within PARAM_ATOL, and no launch of
+    K1-K3."""
+    import copy
+
+    import models_tpu_torch as mt
+    from models_tpu_torch.ops import flash_ce as F
+
+    require(not F.fits(320, dev) and F.fits(320, "cpu") and F.fits(128, dev),
+            "flash_ce.fits: want D = 320 refused on the card only, D = 128 taken")
+    model = mt.TwoTowerModel(catalog.schema, query_tower=(512, 320), embedding_dim=128,
+                             seed=SEED + 10, device=dev)
+    data = mt.generate_data("movielens-25m", num_rows=TRAIN_BATCH, seed=SEED + 11)
+    on_cpu = copy.deepcopy(model).to("cpu")
+    hist = {}
+    for tag, m, d in (("card", model, dev), ("cpu", on_cpu, "cpu")):
+        zero_launches()
+        m.compile(optimizer="adagrad", learning_rate=0.05, metrics=[])
+        hist[tag] = m.fit(data, epochs=3, batch_size=TRAIN_BATCH, shuffle=False,
+                          device=d).history["loss"]
+        if tag == "card":
+            torch.cuda.synchronize()
+            launches = flash_launches()
+            require(not any(launches.values()), f"D = 320 launched the flash-CE kernels: "
+                    f"{launches}")
+    require(all(np.isfinite(hist["card"])), "wide towers: non-finite loss")
+    np.testing.assert_allclose(hist["card"], hist["cpu"], rtol=FCE_TOL)
+    cpu_params = dict(on_cpu.named_parameters())
+    worst = max(max_err(p.detach().cpu(), cpu_params[n].detach())
+                for n, p in model.named_parameters())
+    require(worst <= PARAM_ATOL, f"wide towers: card and CPU parameters differ by {worst:.3g}")
+    print(f"  query_tower=(512, 320), 3 adagrad steps at batch {TRAIN_BATCH}, card vs CPU: "
+          f"losses {hist['card']} vs {hist['cpu']}; parameters max|d| {worst:.3g}; K1-K3 "
+          "launched 0 times", flush=True)
+
+
 def flash_launches():
     from models_tpu_torch.ops import flash_ce as F
 
@@ -794,12 +907,12 @@ def measure_flash_ce(dev, model, data, launches, errs):
     args = (q, neg, lse, gw, pid, nid, bias, T, True)
     vec = 4 * (2 * Q + 2 * N)  # pid, nid, bias and one per-row f32 input
     rows = []
-    # K1 in fp32 FMAs; K2 and K3 as 3xTF32 on the tensor cores
+    # all three as 3xTF32 on the tensor cores
     for name, line, fn, plain, lib, flops, nbytes, peak in (
             ("lse_forward", 76, lambda: F.lse_forward(q, pos_logit, neg, pid, nid, bias, T, True),
              lambda: F.lse_forward_plain(q, pos_logit, neg, pid, nid, bias, T, True),
              lambda: torch.logsumexp(torch.cat([pos_logit[:, None], logits()], 1), 1),
-             2 * Q * N * D, (Q + N) * D * 4 + vec + 2 * Q * 4, PEAK_FP32),
+             2 * Q * N * D, (Q + N) * D * 4 + vec + 2 * Q * 4, PEAK_3XTF32),
             ("grad_query", 134, lambda: F.grad_query(*args), lambda: F.grad_query_plain(*args),
              lambda: coef() @ neg, 4 * Q * N * D, (Q + N) * D * 4 + vec + 4 * Q + Q * D * 4,
              PEAK_3XTF32),
@@ -809,7 +922,8 @@ def measure_flash_ce(dev, model, data, launches, errs):
         rows.append(_row(name, "models_tpu_torch/csrc/flash_ce.cu",
                          f"models_tpu/ops/flash_ce.py:{line}", launches[name], errs[name],
                          cuda_ms(fn), cuda_ms(plain, reps=3), cuda_ms(lib, reps=3), flops,
-                         nbytes, peak))
+                         nbytes, peak,
+                         ms_cold=device_ms(fn, cold=True) if name == "lse_forward" else None))
     return rows
 
 
@@ -1199,7 +1313,7 @@ def phase_int8_kernels(dev, gen, errs):
     rows past the last bin), card and CPU equal bit for bit."""
     from models_tpu_torch.ops import topk as T
 
-    errs["binned_rescore_int8"] = errs["streaming_topk_int8"] = 0.0
+    errs["binned_rescore_int8"] = 0.0  # K6 int8's errors began in phase_kernels
     for D, offset in ((128, 0), (130, 0), (128, 1)):
         q8 = torch.randint(-127, 128, (256, D), device=dev, generator=gen, dtype=torch.int8)
         buf = torch.randint(-127, 128, (886 * 64 * D + offset,), device=dev, generator=gen,
@@ -1534,13 +1648,14 @@ def measure_int8(dev, enc, q4096, launches, errs):
     cand, ids, scale = bf.candidates[:n], bf.ids[:n], bf.scales[:n].contiguous()
     B = q4096.shape[0]
     ms = cuda_ms(lambda: T.streaming_topk(q4096, cand, K, ids=ids, scale=scale))
+    cold = device_ms(lambda: T.streaming_topk(q4096, cand, K, ids=ids, scale=scale), cold=True)
     plain = cuda_ms(lambda: T.streaming_topk_plain(q4096, cand, K, ids=ids, scale=scale),
                     reps=3)
     lib = cuda_ms(lambda: torch.topk((q4096 @ cand.float().T) * scale[None, :], K))
     k6 = _row("streaming_topk_int8", "models_tpu_torch/csrc/streaming_topk.cu",
               "models_tpu/ops/topk.py:102", launches["streaming_topk_int8"],
               errs["streaming_topk_int8"], ms, plain, lib, 2 * B * n * D,
-              B * D * 4 + n * D + n * 8 + B * K * 8)
+              B * D * 4 + n * D + n * 8 + B * K * 8, PEAK_2XTF32, ms_cold=cold)
     q8, _ = T.quantize_queries(q4096[:256].contiguous())
     full, bs = bf.candidates, 64
     idx = T.select_bins(q8, full, K, n_valid=n, col_scale=bf.scales, col_scale_per_bin=True)
@@ -1581,14 +1696,23 @@ def main() -> int:
     for name, log in kernels.build_logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}: {regs}", flush=True)
-    # flash_ce in full: each kernel's registers, static shared memory and spills
-    for ln in kernels.build_logs.get("flash_ce", "").splitlines():
-        if "entry function" in ln or "Used" in ln or "spill" in ln:
-            print(f"    flash_ce ptxas: {ln.split(':', 1)[-1].strip()}", flush=True)
+    # the tensor-core kernels in full: each kernel's registers, static shared
+    # memory and spills
+    for name in ("flash_ce", "streaming_topk"):
+        for ln in kernels.build_logs.get(name, "").splitlines():
+            if "entry function" in ln or "Used" in ln or "spill" in ln:
+                print(f"    {name} ptxas: {ln.split(':', 1)[-1].strip()}", flush=True)
     from models_tpu_torch.ops import flash_ce as F
 
-    print("    flash_ce grad_rows dynamic shared memory (bytes) at D = 64, 128, 256: "
-          f"{[F._lib().flash_ce_grad_smem(d) for d in (64, 128, 256)]}", flush=True)
+    require(F.DMAX == F._lib().flash_ce_dmax(),
+            f"flash_ce.DMAX {F.DMAX} is not the kernels' {F._lib().flash_ce_dmax()}")
+    print("    flash_ce grad_rows and lse_partial dynamic shared memory (bytes) at D = 64, 128, "
+          f"256: {[F._lib().flash_ce_grad_smem(d) for d in (64, 128, 256)]}", flush=True)
+    for dtype, B, k in ((torch.float32, 4096, K), (torch.bfloat16, 4096, K),
+                        (torch.int8, 4096, K), (torch.float32, 256, 600),
+                        (torch.float32, 8, 5000)):
+        print(f"    streaming_topk launch at B={B} C={CATALOG} D=128 k={k} {dtype}: "
+              f"{T.streaming_plan(dtype, B, 128, CATALOG, k)}", flush=True)
 
     stamp("phase 1: kernels against their plain versions")
     errs = phase_kernels(dev, gen)
@@ -1615,6 +1739,11 @@ def main() -> int:
         dev, model, catalog, queries)
     for name, n in int8_launches.items():
         require(n > 0, f"the int8 serving path never launched {name}")
+    stamp("phase 2b: top-k at k = 600 (K6), fp32 and int8 indexes, card vs CPU")
+    large_k_launches = phase_large_k(dev, model, queries,
+                                     results[("fp32", 256)][0].blocks[-1].topk_layer,
+                                     enc8.blocks[-1].topk_layer)
+    print(f"  K6 launched {large_k_launches} times at k = 600", flush=True)
 
     stamp("phase 3: times")
     for tag in ("fp32", "bf16"):
@@ -1638,6 +1767,8 @@ def main() -> int:
     stamp("phase 4: the training step against the unfused head and the CPU")
     tmodel = model  # the serving phases are done: train the same seeded model
     phase_train_checks(dev, tmodel)
+    stamp("phase 4b: towers wider than the flash-CE kernels (D = 320), card vs CPU")
+    phase_wide_towers(dev, catalog)
 
     stamp("phase 5: training at full width")
     data, train_launches, train = phase_train(dev, tmodel, catalog, queries)

@@ -20,13 +20,17 @@
 // Design. The TPU grid walked the negatives in order and carried (m, s), or
 // the dq / dneg block, in VMEM from one grid step to the next. Blocks on
 // Hopper run in parallel and carry nothing.
-//   K1: block (row tile, split) scores BR query rows against its split of the
-//     negatives, BC rows at a time, in fp32 FMAs over d in order. Each thread
-//     keeps an online (max, sum) for its 4 rows over the columns it scores;
-//     at the end the 16 threads sharing a row merge theirs with shuffles and
-//     write one partial per (split, row). lse_merge folds the partials and
-//     the positive logit. Splits are sized so that the grid fills the card
-//     once. Its tiles are loaded without double buffering.
+//   K1: lse_partial, on the tensor cores: grad_rows' first half. A block of
+//     4 warps owns GBR = 64 query rows (16 a warp) and streams its split of
+//     the negatives in tiles through the same cp.async ring. The logits come
+//     from the same 3xTF32 product with the same 32-column partial sums
+//     (logit_products), so K1 computes bit for bit the logits K2 / K3
+//     recompute, and the forward's lse and the backward's exp(x - lse) see
+//     one x. Each lane keeps an online (max, sum) for the two rows its C
+//     fragment holds; a quad shuffle merges them at the end and one partial
+//     per (split, row) goes out. lse_merge folds the partials and the
+//     positive logit. Splits are sized from the occupancy the card reports,
+//     so that the grid fills the card once.
 //   K2 / K3: one kernel, grad_rows, on the tensor cores. A block owns GBR = 64
 //     rows (queries for K2, negatives for K3) and streams one chunk of the
 //     other side in tiles of 64 rows (32 at D > 128).
@@ -74,167 +78,195 @@
 //       result is the same bits from run to run.
 //
 // Bound on an H100 SXM at Q = N = 8192, D = 128: operations. K1 does
-// 2*Q*N*D = 17.2 GFLOP (0.256 ms at 67 TFLOP/s, fp32 outside the tensor
-// cores). K2 and K3 do 4*Q*N*D = 34.4 GFLOP each (the recompute and the
-// product); as 3xTF32 that is 103 GFLOP on the TF32 tensor cores, 0.208 ms
-// at 495 TFLOP/s (0.513 ms as fp32 on the CUDA cores, the earlier design's
-// bound). Their operands are 4 MB; Q*N exponentials add little. What held
-// the fp32 design (1.59 ms) back, and what this one does about it: the CUDA
-// cores' 67 TFLOP/s ceiling (the tensor cores at 3xTF32); one block of 8
-// warps per SM on 128 of 132 SMs (two blocks of 4 warps on every SM, through
-// the chunks); synchronous 4-byte tile loads and three barriers a tile
-// (cp.async into two stages, one barrier, coefficients kept in registers).
+// 2*Q*N*D = 17.2 GFLOP, as 3xTF32 51.5 GFLOP on the TF32 tensor cores: 0.104
+// ms at 495 TFLOP/s (0.256 ms as fp32 on the CUDA cores, the earlier
+// design's bound). K2 and K3 do 4*Q*N*D = 34.4 GFLOP each (the recompute and
+// the product); as 3xTF32 that is 103 GFLOP, 0.208 ms (0.513 ms as fp32).
+// Their operands are 4 MB; Q*N exponentials add little. What held the fp32
+// designs back (K1 0.713 ms, K2 / K3 1.59), and what these do about it: the
+// CUDA cores' 67 TFLOP/s ceiling (the tensor cores at 3xTF32); one block of
+// 8 warps per SM on 128 of 132 SMs (two blocks of 4 warps on every SM,
+// through the splits); synchronous 4-byte tile loads with no double
+// buffering and two or three barriers a tile (cp.async into two stages, one
+// barrier, coefficients kept in registers).
 
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
-constexpr int BR = 64;         // rows a block owns
-constexpr int BC = 64;         // rows of one streamed tile
-constexpr int THREADS = 256;   // 16 x 16 threads: ty = tid / 16, tx = tid % 16
-constexpr int PAD = 4;         // floats after each shared row: conflict-free float4 reads
 constexpr int DMAX = 256;
 constexpr int SPLITS_MAX = 1024;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float MIN_FLOAT = -0x1.47851ep+9f;  // float16.min / 100 = -655.04, as float32
 constexpr float EMPTY = -FLT_MAX;             // the max over no logit
 
-static_assert(THREADS == 256 && BR == 64 && BC == 64, "thread (ty, tx) holds rows ty + 16a, columns tx + 16b");
+constexpr int GBR = 64;        // own rows a block holds: 4 warps x 16
+constexpr int GTHREADS = 128;
+constexpr int GPAD = 4;        // row stride DP + 4 = 4 mod 32 banks
+
+// streamed rows per tile: at DP = 256 the 16 x DP accumulator takes 128
+// registers a lane, so the logit tile shrinks to 16 x 32
+template <int DP>
+__host__ __device__ constexpr int grad_bc() { return DP == 256 ? 32 : 64; }
+
+// one stage: the tile [BC][DP + GPAD], then BC floats each of the streamed
+// rows' first and second float input and their ids
+template <int DP>
+__host__ __device__ constexpr int grad_stage() { return grad_bc<DP>() * (DP + GPAD) + 3 * grad_bc<DP>(); }
 
 template <int DP>
-constexpr size_t lse_smem() { return (size_t)(BR + BC) * (DP + PAD) * sizeof(float); }
-
-// rows [r0, r0 + 64) of a (rows, D) matrix into shared memory as [64][DP + PAD];
-// rows at or past `rows` and columns at or past D are zero
-template <int DP>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          int r0, int rows, int D) {
-  for (int i = threadIdx.x; i < 64 * DP; i += THREADS) {
-    const int r = i / DP, d = i % DP;
-    float v = 0.f;
-    if (r0 + r < rows && d < D) v = src[(size_t)(r0 + r) * D + d];
-    dst[r * (DP + PAD) + d] = v;
-  }
+constexpr size_t grad_smem() {
+  return ((size_t)GBR * (DP + GPAD) + 2 * (size_t)grad_stage<DP>()) * sizeof(float);
 }
 
-// acc[a][b] = dot(A row ty + 16a, B row tx + 16b), fp32 FMAs over d in order
-template <int DP>
-__device__ __forceinline__ void dot_tile(const float* As, const float* Bs, int ty, int tx,
-                                         float acc[4][4]) {
+// The warp's 16 x BCT logit products, own rows (16 * warp ..) of os against
+// the tile ss, both [rows][DP + GPAD] in shared memory: s[j] covers tile rows
+// 8j .. 8j + 7 in the C fragment's layout. 3xTF32; each 32 columns of d are
+// summed from 0 and join s by an fp32 add. Columns past D are zeros: no
+// branch inside the products, so that loads and independent mma chains
+// interleave. K1 and K2 / K3 both take their logits from here, so that the
+// forward's lse and the backward's exp(x - lse) see the same x.
+template <int DP, int NJ>
+__device__ __forceinline__ void logit_products(const float* os, const float* ss, int warp,
+                                               int lane, float s[NJ][4]) {
+  constexpr int LD = DP + GPAD;
+  // ldmatrix rows: lane 8i + r reads row r of matrix i; A: rows + 8 (i & 1),
+  // columns + 4 (i >> 1); B (a pair of j): rows + 8 (i >> 1), columns + 4 (i & 1)
+  const float* a_ldm = os + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 4 * (lane >> 4);
+  const float* b_ldm = ss + (8 * (lane >> 4) + (lane & 7)) * LD + 4 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int k0 = 0; k0 < DP; k0 += 32) {
+    float part[NJ][4];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < DP; d += 4) {
-    float4 av[4], bv[4];
+    for (int j = 0; j < NJ; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.f;
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-      av[a] = *reinterpret_cast<const float4*>(As + (ty + 16 * a) * (DP + PAD) + d);
+    for (int kd = k0; kd < k0 + 32; kd += 8) {
+      uint32_t ab[4], al[4];
+      ldmatrix_x4(ab, a_ldm + kd);
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
-      bv[b] = *reinterpret_cast<const float4*>(Bs + (tx + 16 * b) * (DP + PAD) + d);
+      for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(ab[e]), ab[e], al[e]);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+      for (int j = 0; j < NJ; j += 2) {
+        uint32_t bb[4], bl[4];  // b0, b1 of j, then of j + 1
+        ldmatrix_x4(bb, b_ldm + 8 * j * LD + kd);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        acc[a][b] = fmaf(av[a].x, bv[b].x, acc[a][b]);
-        acc[a][b] = fmaf(av[a].y, bv[b].y, acc[a][b]);
-        acc[a][b] = fmaf(av[a].z, bv[b].z, acc[a][b]);
-        acc[a][b] = fmaf(av[a].w, bv[b].w, acc[a][b]);
+        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(bb[e]), bb[e], bl[e]);
+        mma_3xtf32(part[j], ab, al, bb, bl);
+        mma_3xtf32(part[j + 1], ab, al, bb + 2, bl + 2);
       }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
   }
 }
 
-__device__ __forceinline__ float logit(float dot, float bias, bool masked, float T) {
-  const float x = masked ? MIN_FLOAT : dot + bias;
-  return x / T;
-}
-
 // ---------------------------------------------------------------------------
-// K1: online log-sum-exp
+// K1: online log-sum-exp on the tensor cores
 // ---------------------------------------------------------------------------
 
+// Block (own tile x, split y): the GBR query rows of tile x against the
+// negatives [y * chunk, min((y + 1) * chunk, N)), BCT at a time through the
+// cp.async ring; one (m, s) partial per (split, row).
 template <int DP>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(GTHREADS)
 lse_partial(const float* __restrict__ q, const float* __restrict__ neg,
             const int* __restrict__ pid, const int* __restrict__ nid,
             const float* __restrict__ bias, float* __restrict__ part_m,
             float* __restrict__ part_s, int Q, int N, int D, float T, int downscore,
-            int chunk) {
+            int chunk, int vec) {
+  constexpr int BCT = grad_bc<DP>(), LD = DP + GPAD, NJ = BCT / 8;
+  constexpr int STAGE = grad_stage<DP>();
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                  // [BR][DP + PAD]
-  float* ns = qs + BR * (DP + PAD);  // [BC][DP + PAD]
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r0 = blockIdx.x * BR;
-  const int split = blockIdx.y;
-  const int c_begin = split * chunk;
+  float* os = smem;               // [GBR][LD] own query rows
+  float* stages = os + GBR * LD;  // two stages: the tile, bias, -, nid
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * GBR;
+  const int c_begin = blockIdx.y * chunk;
   const int c_end = min(c_begin + chunk, N);
+  const int* s_id = downscore ? nid : nullptr;
 
-  load_rows<DP>(qs, q, r0, Q, D);
-  int my_pid[4];
-  float m[4], s[4];
+  auto load_stage = [&](int buf, int c0) {
+    float* ss = stages + buf * STAGE;
+    load_tile_async<DP, BCT, GTHREADS, GPAD>(ss, neg, c0, c_end, D, vec);
+    float* meta = ss + BCT * LD;
+    load_vec_async<GTHREADS>(meta, bias, c0, c_end, BCT, neg);
+    load_vec_async<GTHREADS>(meta + 2 * BCT, s_id, c0, c_end, BCT, neg);
+    cp_async_commit();
+  };
+  load_tile_async<DP, GBR, GTHREADS, GPAD>(os, q, r0, Q, D, vec);
+  load_stage(0, c_begin);  // one group: the own rows and the first tile
+
+  // the lane's rows g and g + 8 of the warp's 16: an online (max, sum) each
+  // over the columns its C fragments hold
+  int o_id[2];
+  float m[2], sum[2];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = r0 + ty + 16 * a;
-    my_pid[a] = (downscore && i < Q) ? pid[i] : 0;
-    m[a] = EMPTY;
-    s[a] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 16 * warp + g + 8 * h;
+    o_id[h] = (downscore && r < Q) ? pid[r] : 0;
+    m[h] = EMPTY;
+    sum[h] = 0.f;
   }
+  const float inv_t = 1.f / T;  // as K2 / K3 scale their logits
 
-  for (int c0 = c_begin; c0 < c_end; c0 += BC) {
-    __syncthreads();  // the previous tile is consumed
-    load_rows<DP>(ns, neg, c0, c_end, D);
-    __syncthreads();
-    float acc[4][4];
-    dot_tile<DP>(qs, ns, ty, tx, acc);
-    float bj[4];
-    int nj[4];
-    bool ok[4];
+  int buf = 0;
+  for (int c0 = c_begin; c0 < c_end; c0 += BCT, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile is in, and every warp is done with the other stage
+    if (c0 + BCT < c_end) load_stage(buf ^ 1, c0 + BCT);
+    const float* ss = stages + buf * STAGE;
+    const float* m_bias = ss + BCT * LD;
+    const int* m_id = reinterpret_cast<const int*>(m_bias + 2 * BCT);
+    float s[NJ][4];
+    logit_products<DP, NJ>(os, ss, warp, lane, s);
+    // element e of s[j] is own row g + 8 (e >> 1), tile row 8j + 2t + (e & 1);
+    // a column past the chunk's end is -inf: it moves no max and adds exp = 0
+    float tmax[2] = {EMPTY, EMPTY};
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = c0 + tx + 16 * b;
-      ok[b] = j < c_end;
-      bj[b] = (bias && ok[b]) ? bias[j] : 0.f;
-      nj[b] = (downscore && ok[b]) ? nid[j] : 0;
-    }
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float x[4];
-      float tmax = EMPTY;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        x[b] = logit(acc[a][b], bj[b], downscore && nj[b] == my_pid[a], T);
-        if (ok[b]) tmax = fmaxf(tmax, x[b]);
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1), h = e >> 1;
+        const bool masked = downscore && o_id[h] == m_id[col];
+        const float x = (masked ? MIN_FLOAT : s[j][e] + m_bias[col]) * inv_t;
+        s[j][e] = c0 + col < c_end ? x : -INFINITY;
+        tmax[h] = fmaxf(tmax[h], s[j][e]);
       }
-      const float mn = fmaxf(m[a], tmax);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[h], tmax[h]);
       float add = 0.f;
 #pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if (ok[b]) add += expf(x[b] - mn);
-      s[a] = s[a] * expf(m[a] - mn) + add;
-      m[a] = mn;
+      for (int j = 0; j < NJ; ++j) add += expf(s[j][2 * h] - mn) + expf(s[j][2 * h + 1] - mn);
+      sum[h] = sum[h] * expf(m[h] - mn) + add;
+      m[h] = mn;
     }
   }
 
-  // the 16 threads of a row are lanes tx = 0..15 of one half-warp
+  // the four lanes of a quad hold the same two rows: merge, then write
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int off = 8; off; off >>= 1) {
-      const float mo = __shfl_xor_sync(FULL, m[a], off);
-      const float so = __shfl_xor_sync(FULL, s[a], off);
-      const float mn = fmaxf(m[a], mo);
-      s[a] = s[a] * expf(m[a] - mn) + so * expf(mo - mn);
-      m[a] = mn;
+    for (int off = 1; off < 4; off <<= 1) {
+      const float mo = __shfl_xor_sync(FULL, m[h], off);
+      const float so = __shfl_xor_sync(FULL, sum[h], off);
+      const float mn = fmaxf(m[h], mo);
+      sum[h] = sum[h] * expf(m[h] - mn) + so * expf(mo - mn);
+      m[h] = mn;
     }
-    const int i = r0 + ty + 16 * a;
-    if (tx == 0 && i < Q) {
-      part_m[(size_t)split * Q + i] = m[a];
-      part_s[(size_t)split * Q + i] = s[a];
+    const int r = r0 + 16 * warp + g + 8 * h;
+    if (t == 0 && r < Q) {
+      part_m[(size_t)blockIdx.y * Q + r] = m[h];
+      part_s[(size_t)blockIdx.y * Q + r] = sum[h];
     }
   }
 }
@@ -258,120 +290,10 @@ __global__ void lse_merge(const float* __restrict__ pos_logit, const float* __re
 // K2 / K3: the backward products on the tensor cores (3xTF32 mma.sync)
 // ---------------------------------------------------------------------------
 
-constexpr int GBR = 64;        // own rows a block holds: 4 warps x 16
-constexpr int GTHREADS = 128;
-constexpr int GPAD = 4;        // row stride DP + 4 = 4 mod 32 banks
-
-// streamed rows per tile: at DP = 256 the 16 x DP accumulator takes 128
-// registers a lane, so the logit tile shrinks to 16 x 32
-template <int DP>
-__host__ __device__ constexpr int grad_bc() { return DP == 256 ? 32 : 64; }
-
-// one stage: the tile [BC][DP + GPAD], then BC floats each of the streamed
-// rows' first and second float input and their ids
-template <int DP>
-__host__ __device__ constexpr int grad_stage() { return grad_bc<DP>() * (DP + GPAD) + 3 * grad_bc<DP>(); }
-
-template <int DP>
-constexpr size_t grad_smem() {
-  return ((size_t)GBR * (DP + GPAD) + 2 * (size_t)grad_stage<DP>()) * sizeof(float);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-               "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
-               "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// rows [r0, r0 + ROWS) of a (rows, D) matrix, those below r_end, into shared
-// [ROWS][DP + GPAD] by cp.async; other rows and columns at or past D are
-// zero-filled. vec: D % 4 == 0 and src 16-byte aligned.
-template <int DP, int ROWS>
-__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ src,
-                                                int r0, int r_end, int D, bool vec) {
-  constexpr int LD = DP + GPAD;
-  if (vec) {
-    constexpr int C4 = DP / 4;
-    for (int i = threadIdx.x; i < ROWS * C4; i += GTHREADS) {
-      const int r = i / C4, c = 4 * (i % C4);
-      const bool ok = r0 + r < r_end && c < D;
-      cp_async16(dst + r * LD + c, ok ? src + (size_t)(r0 + r) * D + c : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += GTHREADS) {
-      const int r = i / DP, c = i % DP;
-      const bool ok = r0 + r < r_end && c < D;
-      cp_async4(dst + r * LD + c, ok ? src + (size_t)(r0 + r) * D + c : src, ok ? 4 : 0);
-    }
-  }
-}
-
-// n 4-byte entries [c0, c0 + n) of a vector, those below c_end, into shared;
-// the rest, or all of them where src is null, zero-filled (`any` is a valid
-// address that is not read)
-__device__ __forceinline__ void load_vec_async(void* dst, const void* src, int c0, int c_end,
-                                               int n, const void* any) {
-  for (int i = threadIdx.x; i < n; i += GTHREADS) {
-    const bool ok = src && c0 + i < c_end;
-    cp_async4(static_cast<char*>(dst) + 4 * i,
-              ok ? static_cast<const char*>(src) + 4 * (size_t)(c0 + i) : any, ok ? 4 : 0);
-  }
-}
-
-// x = big + small: big x rounded to TF32 (to nearest, ties away: add half a
-// TF32 ulp, clear the 13 low bits), small the exact remainder, of which the
-// tensor core reads the top 10 mantissa bits. Three instructions; with
-// cvt.rna.tf32, which guards infinities, five
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// four 8 x 4 fp32 matrices from shared memory: lane 8i + r gives the address
-// of row r of matrix i; register i of lane 4g + t is element (g, t) of
-// matrix i, a TF32 fragment
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const float* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"((unsigned)__cvta_generic_to_shared(p)));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a * b in 3xTF32: the small terms first, then big * big
-__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t a_big[4],
-                                           const uint32_t a_small[4], const uint32_t b_big[2],
-                                           const uint32_t b_small[2]) {
-  mma_tf32(c, a_small, b_big);
-  mma_tf32(c, a_big, b_small);
-  mma_tf32(c, a_big, b_big);
-}
-
 // OWN_Q: the block owns query rows and streams negatives (K2, dq); otherwise
 // it owns negative rows and streams queries (K3, dneg). Block (own tile x,
 // chunk y) streams rows [y * chunk, min((y + 1) * chunk, n_strm)) and writes
-// its (n_own, D) sum to dst + y * n_own * D.
-//
-// Fragments of m16n8k8 (lane = 4 g + t): A (16 x 8) a0 (g, t), a1 (g + 8, t),
-// a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8, k x n) b0 (t, g), b1 (t + 4, g);
-// C (16 x 8) c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+// its (n_own, D) sum to dst + y * n_own * D. Fragments as in mma_tf32.cuh.
 template <int DP, bool OWN_Q>
 __global__ void __launch_bounds__(GTHREADS)
 grad_rows(const float* __restrict__ q, const float* __restrict__ neg,
@@ -403,14 +325,14 @@ grad_rows(const float* __restrict__ q, const float* __restrict__ neg,
 
   auto load_stage = [&](int buf, int c0) {
     float* ss = stages + buf * STAGE;
-    load_tile_async<DP, BCT>(ss, strm, c0, c_end, D, vec);
+    load_tile_async<DP, BCT, GTHREADS, GPAD>(ss, strm, c0, c_end, D, vec);
     float* meta = ss + BCT * LD;
-    load_vec_async(meta, s_f0, c0, c_end, BCT, strm);
-    load_vec_async(meta + BCT, s_f1, c0, c_end, BCT, strm);
-    load_vec_async(meta + 2 * BCT, s_id, c0, c_end, BCT, strm);
+    load_vec_async<GTHREADS>(meta, s_f0, c0, c_end, BCT, strm);
+    load_vec_async<GTHREADS>(meta + BCT, s_f1, c0, c_end, BCT, strm);
+    load_vec_async<GTHREADS>(meta + 2 * BCT, s_id, c0, c_end, BCT, strm);
     cp_async_commit();
   };
-  load_tile_async<DP, GBR>(os, own, r0, n_own, D, vec);
+  load_tile_async<DP, GBR, GTHREADS, GPAD>(os, own, r0, n_own, D, vec);
   load_stage(0, c_begin);  // one group: the own rows and the first tile
 
   // the lane's own rows: g and g + 8 of the warp's 16; (lse, gw, pid) for a
@@ -440,46 +362,13 @@ grad_rows(const float* __restrict__ q, const float* __restrict__ neg,
     __syncthreads();  // this tile is in, and every warp is done with the other stage
     if (c0 + BCT < c_end) load_stage(buf ^ 1, c0 + BCT);
     const float* ss = stages + buf * STAGE;
-    // ldmatrix rows: lane 8i + r reads row r of matrix i; A: rows + 8 (i & 1),
-    // columns + 4 (i >> 1); B (a pair of j): rows + 8 (i >> 1), columns + 4 (i & 1)
-    const float* a_ldm = os + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 4 * (lane >> 4);
-    const float* b_ldm = ss + (8 * (lane >> 4) + (lane & 7)) * LD + 4 * ((lane >> 3) & 1);
     const float* m_f0 = ss + BCT * LD;
     const float* m_f1 = m_f0 + BCT;
     const int* m_id = reinterpret_cast<const int*>(m_f1 + BCT);
 
-    // the warp's 16 x BCT logits: s[j] covers tile rows 8j .. 8j + 7. Each
-    // 32 columns of d are summed from 0 and join s by an fp32 add. Columns
-    // past D are zeros: no branch inside the products, so that loads and
-    // independent mma chains interleave
+    // the warp's 16 x BCT logits: s[j] covers tile rows 8j .. 8j + 7
     float s[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    for (int k0 = 0; k0 < DP; k0 += 32) {
-      float part[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.f;
-#pragma unroll
-      for (int kd = k0; kd < k0 + 32; kd += 8) {
-        uint32_t ab[4], al[4];
-        ldmatrix_x4(ab, a_ldm + kd);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(ab[e]), ab[e], al[e]);
-#pragma unroll
-        for (int j = 0; j < NJ; j += 2) {
-          uint32_t bb[4], bl[4];  // b0, b1 of j, then of j + 1
-          ldmatrix_x4(bb, b_ldm + 8 * j * LD + kd);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(bb[e]), bb[e], bl[e]);
-          mma_3xtf32(part[j], ab, al, bb, bl);
-          mma_3xtf32(part[j + 1], ab, al, bb + 2, bl + 2);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
-    }
+    logit_products<DP, NJ>(os, ss, warp, lane, s);
 
     // coefficients, in place: element e of s[j] is own row g + 8 (e >> 1),
     // tile row 8j + 2t + (e & 1)
@@ -560,13 +449,20 @@ __global__ void grad_merge(const float* __restrict__ part, float* __restrict__ o
 // the padded width a D runs at
 int dp_for(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
 
+// K1 keeps grad_rows' layout: own rows, then two stages of a tile and its
+// per-row inputs (the second vector unused)
+template <int DP>
+cudaError_t lse_attr() {
+  return cudaFuncSetAttribute(lse_partial<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)grad_smem<DP>());
+}
+
 template <int DP>
 cudaError_t lse_blocks_per_sm(int* blocks) {
-  const size_t smem = lse_smem<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      lse_partial<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = lse_attr<DP>();
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lse_partial<DP>, THREADS, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lse_partial<DP>, GTHREADS,
+                                                       grad_smem<DP>());
 }
 
 cudaError_t sm_count(int* sms) {
@@ -585,26 +481,34 @@ int fill_splits(int per_sm, int sms, int row_blocks, int tiles) {
 
 int lse_splits(int Q, int N, int D) {
   int per_sm = 1, sms = 1;
-  cudaError_t err = dp_for(D) == 64 ? lse_blocks_per_sm<64>(&per_sm)
-                  : dp_for(D) == 128 ? lse_blocks_per_sm<128>(&per_sm)
-                                     : lse_blocks_per_sm<256>(&per_sm);
+  const int dp = dp_for(D);
+  cudaError_t err = dp == 64 ? lse_blocks_per_sm<64>(&per_sm)
+                  : dp == 128 ? lse_blocks_per_sm<128>(&per_sm)
+                              : lse_blocks_per_sm<256>(&per_sm);
   if (err != cudaSuccess) return -(int)err;
   if ((err = sm_count(&sms)) != cudaSuccess) return -(int)err;
-  const int tiles = N > 0 ? (N + BC - 1) / BC : 1;
-  return fill_splits(per_sm, sms, (Q + BR - 1) / BR, tiles);
+  const int bc = dp == 256 ? grad_bc<256>() : grad_bc<128>();
+  return fill_splits(per_sm, sms, (Q + GBR - 1) / GBR, (N + bc - 1) / bc);
 }
 
 template <int DP>
-cudaError_t launch_lse(const float* q, const float* neg, const int* pid, const int* nid,
-                       const float* bias, float* part_m, float* part_s, int Q, int N, int D,
-                       float T, int downscore, int chunk, int splits, cudaStream_t stream) {
-  const size_t smem = lse_smem<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      lse_partial<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_lse(const float* q, const float* pos_logit, const float* neg, const int* pid,
+                       const int* nid, const float* bias, float* part_m, float* part_s,
+                       float* m, float* s, int Q, int N, int D, float T, int downscore,
+                       int splits, cudaStream_t stream) {
+  constexpr int BCT = grad_bc<DP>();
+  const int tiles = (N + BCT - 1) / BCT;
+  const int chunk = (tiles + splits - 1) / splits * BCT;
+  const int used = (N + chunk - 1) / chunk;  // splits that hold a negative
+  cudaError_t err = lse_attr<DP>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((Q + BR - 1) / BR, splits);
-  lse_partial<DP><<<grid, THREADS, smem, stream>>>(q, neg, pid, nid, bias, part_m, part_s, Q,
-                                                   N, D, T, downscore, chunk);
+  const int vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(neg) % 16 == 0;
+  const dim3 grid((Q + GBR - 1) / GBR, used);
+  lse_partial<DP><<<grid, GTHREADS, grad_smem<DP>(), stream>>>(
+      q, neg, pid, nid, bias, part_m, part_s, Q, N, D, T, downscore, chunk, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  lse_merge<<<(Q + 255) / 256, 256, 0, stream>>>(pos_logit, part_m, part_s, m, s, Q, used);
   return cudaGetLastError();
 }
 
@@ -687,7 +591,7 @@ extern "C" int flash_ce_dmax() { return DMAX; }
 // shapes; the caller sizes part_m and part_s as (splits, Q). A negative value
 // is a CUDA error, negated.
 extern "C" int flash_ce_lse_splits(int Q, int N, int D) {
-  if (Q < 1 || N < 0 || D < 1 || D > DMAX) return -(int)cudaErrorInvalidValue;
+  if (Q < 1 || N < 1 || D < 1 || D > DMAX) return -(int)cudaErrorInvalidValue;
   return lse_splits(Q, N, D);
 }
 
@@ -699,20 +603,13 @@ extern "C" int flash_ce_lse_forward(const float* q, const float* pos_logit, cons
                                     float* part_m, float* part_s, float* m, float* s, int Q,
                                     int N, int D, float T, int downscore, int splits,
                                     cudaStream_t stream) {
-  if (Q < 1 || N < 0 || D < 1 || D > DMAX || splits < 1 || splits > SPLITS_MAX)
+  if (Q < 1 || N < 1 || D < 1 || D > DMAX || splits < 1 || splits > SPLITS_MAX)
     return (int)cudaErrorInvalidValue;
   downscore = downscore && pid && nid;
-  const int tiles = N > 0 ? (N + BC - 1) / BC : 1;
-  const int chunk = (tiles + splits - 1) / splits * BC;
-  const int used = N > 0 ? (N + chunk - 1) / chunk : 1;  // splits that hold a negative
   const int dp = dp_for(D);
-  cudaError_t err =
-      dp == 64 ? launch_lse<64>(q, neg, pid, nid, bias, part_m, part_s, Q, N, D, T, downscore, chunk, used, stream)
-      : dp == 128 ? launch_lse<128>(q, neg, pid, nid, bias, part_m, part_s, Q, N, D, T, downscore, chunk, used, stream)
-                  : launch_lse<256>(q, neg, pid, nid, bias, part_m, part_s, Q, N, D, T, downscore, chunk, used, stream);
-  if (err != cudaSuccess) return (int)err;
-  lse_merge<<<(Q + 255) / 256, 256, 0, stream>>>(pos_logit, part_m, part_s, m, s, Q, used);
-  return (int)cudaGetLastError();
+  return (int)(dp == 64 ? launch_lse<64>(q, pos_logit, neg, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream)
+             : dp == 128 ? launch_lse<128>(q, pos_logit, neg, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream)
+                         : launch_lse<256>(q, pos_logit, neg, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream));
 }
 
 // The number of chunks flash_ce_grad_query (own_q != 0) or flash_ce_grad_neg

@@ -13,9 +13,11 @@ with ``MIN_FLOAT`` in place of the sum before the division where
 None of them writes the (Q, N) logits. CUDA tensors go to the kernels of
 ``csrc/flash_ce.cu``; CPU tensors to the plain versions, which walk the
 negatives tile by tile in the order of the JAX scan (``ops/contrastive.py``).
-On the card K2 and K3 compute both products on the tensor cores as 3xTF32
-(near fp32's error), K1 in fp32 FMAs. Inputs are float32: bf16 operands wait
-for the mixed-precision slice.
+On the card all three compute their products on the tensor cores as 3xTF32
+(near fp32's error), K1 and K2 / K3 the same logits. The kernels hold widths
+up to :data:`DMAX`; :func:`fits` tells a caller whether its operands may go
+to them. Inputs are float32: bf16 operands wait for the mixed-precision
+slice.
 """
 
 from __future__ import annotations
@@ -29,6 +31,15 @@ from ..core.constants import MIN_FLOAT
 from . import kernels
 
 TILE = 2048  # negatives per step of the plain versions
+DMAX = 256  # the widest D the card's kernels hold (csrc/flash_ce.cu, flash_ce_dmax)
+
+
+def fits(D: int, device) -> bool:
+    """Whether operands of width D on ``device`` may go to :func:`lse_forward`,
+    :func:`grad_query` and :func:`grad_neg`: always on the CPU, whose plain
+    versions take any width; on the card up to :data:`DMAX`. A route chosen
+    from the shape, as the JAX package's ``_use_flash`` chooses one."""
+    return torch.device(device).type == "cpu" or D <= DMAX
 
 
 def _tile_logits(query, neg_t, pos_id, neg_id_t, bias_t, temperature, downscore):
@@ -139,10 +150,8 @@ def _check(query, neg_emb, pos_id, neg_id, bias, per_query):
         _check_vector(name, x, Q, torch.float32, dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the flash-CE kernels run on CUDA or the CPU, not {dev}")
-    if dev.type == "cuda":
-        dmax = _lib().flash_ce_dmax()
-        if query.shape[1] > dmax:
-            raise ValueError(f"the flash-CE kernels hold D <= {dmax}; got D={query.shape[1]}")
+    if dev.type == "cuda" and not fits(query.shape[1], dev):
+        raise ValueError(f"the flash-CE kernels hold D <= {DMAX}; got D={query.shape[1]}")
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -163,9 +172,9 @@ def lse_forward(query, pos_logit, neg_emb, pos_id, neg_id, bias, temperature: fl
         return lse_forward_plain(query, pos_logit, neg_emb, pos_id, neg_id, bias,
                                  temperature, downscore)
     (Q, D), N = query.shape, neg_emb.shape[0]
+    if Q == 0 or N == 0:  # no negative: the positive alone
+        return pos_logit.clone(), torch.ones_like(pos_logit)
     m, s = torch.empty_like(pos_logit), torch.empty_like(pos_logit)
-    if Q == 0:
-        return m, s
     lib = _lib()
     splits = lib.flash_ce_lse_splits(Q, N, D)
     if splits < 0:

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc`` for ``sm_90a`` into ``build/models_tpu_torch/`` at the root of the
-checkout, under a name that carries a hash of the source, then loaded with
+checkout, under a name that carries a hash of the source and of every header
+in ``csrc/`` (which the sources include from there), then loaded with
 ``ctypes``. Nothing is compiled or loaded when this module is imported.
 """
 
@@ -22,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "models_tpu_torch"
 SOURCES = ("streaming_topk", "binned_rescore", "flash_ce", "row_scatter", "row_gather")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
 ]
 
 _lock = threading.Lock()
@@ -37,9 +38,14 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def _target(name: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """The library of ``<csrc>/<name>.cu``, named by a hash of its source and
+    of the headers beside it: an edit to either builds it anew."""
+    h = hashlib.sha1((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return build_dir / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> List[Path]:

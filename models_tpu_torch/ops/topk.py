@@ -53,10 +53,6 @@ _BINNED_BIN_SIZE = 64
 _BINNED_MARGIN = 2
 _BINNED_POOL_BYTES = 512 * 2**20
 
-# streaming kernel geometry (csrc/streaming_topk.cu)
-_QB, _TC = 32, 128
-
-
 def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k best of each row by (score desc, position asc): the first k of a
     stable descending sort, as ``lax.top_k`` ranks. On the CPU, where a full
@@ -166,12 +162,32 @@ def _streaming_lib():
     lib = kernels.load("streaming_topk")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.streaming_topk.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.streaming_topk.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.streaming_topk.restype = i
-        lib.streaming_topk_kmax.restype = i
-        lib.streaming_topk_splits_max.restype = i
+        lib.streaming_topk_splits.argtypes = [i, i, i, i, i]
+        lib.streaming_topk_splits.restype = i
+        pi = ctypes.POINTER(ctypes.c_int)
+        lib.streaming_topk_plan.argtypes = [i, i, i, i, i, pi, pi, pi, pi]
+        lib.streaming_topk_plan.restype = i
         lib._typed = True
     return lib
+
+
+def streaming_plan(cand_dtype: torch.dtype, B: int, D: int, c_real: int, k: int) -> dict:
+    """How :func:`streaming_topk` launches on the card for these shapes (a
+    report; it builds the kernel): scoring warps a block, ring stages, whether
+    the lists sit in shared memory, dynamic shared memory in bytes, splits."""
+    lib = _streaming_lib()
+    out = [ctypes.c_int() for _ in range(4)]
+    code = _DTYPE_CODE[cand_dtype]
+    kernels.check(lib, lib.streaming_topk_plan(code, B, D, c_real, k,
+                                               *(ctypes.byref(x) for x in out)),
+                  "streaming_topk_plan")
+    splits = lib.streaming_topk_splits(code, B, D, c_real, k)
+    if splits < 0:
+        kernels.check(lib, -splits, "streaming_topk_splits")
+    return {"warps": out[0].value, "stages": out[1].value, "lists_shared": bool(out[2].value),
+            "smem": out[3].value, "splits": splits}
 
 
 def _check_operands(queries, candidates, ids=None, scale=None, query_dtype=torch.float32):
@@ -220,30 +236,26 @@ def streaming_topk(
                                     scale=scale)
     if queries.device.type != "cuda":
         raise ValueError(f"streaming_topk runs on CUDA or the CPU, not {queries.device}")
-    lib = _streaming_lib()
-    kmax = lib.streaming_topk_kmax()
-    if k > kmax:
-        raise ValueError(f"streaming_topk holds at most k={kmax} per row; got k={k}")
     B, D = queries.shape
     out_s = torch.empty((B, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((B, k), dtype=torch.int32, device=queries.device)
     if B == 0:
         return out_s, out_i
-    # cut the catalog into splits so that about four blocks per SM run
-    sms = torch.cuda.get_device_properties(queries.device).multi_processor_count
-    row_blocks = -(-B // _QB)
-    tiles = max(1, -(-c_real // _TC))
-    splits = max(1, min(lib.streaming_topk_splits_max(), tiles, -(-4 * sms // row_blocks)))
-    chunk = -(-tiles // splits) * _TC
-    splits = max(1, -(-c_real // chunk))
+    lib = _streaming_lib()
+    code = _DTYPE_CODE[candidates.dtype]
+    # the kernel cuts the catalog into splits that fill the card; each keeps a
+    # sorted list of k per row, merged in split order
+    splits = lib.streaming_topk_splits(code, B, D, c_real, k)
+    if splits < 0:
+        kernels.check(lib, -splits, "streaming_topk_splits")
     part_s = torch.empty((B, splits, k), dtype=torch.float32, device=queries.device)
     part_p = torch.empty((B, splits, k), dtype=torch.int32, device=queries.device)
     rc = lib.streaming_topk(
-        queries.data_ptr(), candidates.data_ptr(), _DTYPE_CODE[candidates.dtype],
+        queries.data_ptr(), candidates.data_ptr(), code,
         scale.data_ptr() if scale is not None else None,
         ids.data_ptr() if ids is not None else None,
         part_s.data_ptr(), part_p.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        B, D, c_real, k, chunk, splits,
+        B, D, c_real, k, splits,
         torch.cuda.current_stream(queries.device).cuda_stream,
     )
     kernels.check(lib, rc, "streaming_topk")

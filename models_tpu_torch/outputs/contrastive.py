@@ -10,7 +10,10 @@
 
 Three branches. Training with ``need_logits`` False (no metric reads the
 logits) takes the fused loss, :func:`~models_tpu_torch.ops.contrastive.sampled_softmax_loss`,
-which never holds the (B, 1+N) logits. Otherwise (training steps that feed
+which never holds the (B, 1+N) logits, where its kernels hold the towers'
+width (:func:`~models_tpu_torch.ops.flash_ce.fits`: any width on the CPU, up
+to 256 on the card; wider towers take the logits branch, as the JAX
+package's ``_use_flash`` routes shapes outside its kernel). Otherwise (training steps that feed
 metrics, and evaluation: targets given, or the engine's ``testing`` flag)
 the head returns those logits with a one-hot target on column 0, for the
 model's loss and the top-k metrics. Without either it scores each row's own
@@ -28,6 +31,7 @@ from torch import nn
 from ..core.constants import LOGQ_EPS, MIN_FLOAT
 from ..core.types import Prediction
 from ..data.loader import ROW_VALID_KEY
+from ..ops import flash_ce
 from ..ops.contrastive import sampled_softmax_loss
 from ..schema import ColumnSchema, Schema
 from .base import ModelOutput
@@ -156,7 +160,8 @@ class ContrastiveOutput(ModelOutput):
                 need_logits = context.get("need_logits", True) if context is not None else True
                 if (self.fused_loss in ("auto", True) and training and not need_logits
                         and negatives.embedding is not None
-                        and positive.embedding is not None):
+                        and positive.embedding is not None
+                        and flash_ce.fits(query.shape[-1], query.device)):
                     return self._fused(query, positive, negatives)
                 logits = self.contrastive_logits(query, positive, negatives)
                 if self.logits_scaler is not None:

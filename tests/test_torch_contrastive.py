@@ -193,3 +193,48 @@ def test_contrastive_output_fused_matches_unfused(name, kw):
     for n in plain:
         np.testing.assert_allclose(fused[n].numpy(), plain[n].numpy(), rtol=GRAD_RTOL,
                                    atol=GRAD_ATOL, err_msg=n)
+
+
+def test_wide_towers_take_the_unfused_branch_where_the_kernels_refuse(monkeypatch):
+    """Towers wider than the card's kernels hold (fits False) train through
+    the logits branch, with the JAX model's fused loss and gradients: one SGD
+    step at D = 320 from the same weights, loss and every parameter after it.
+    fits itself: any width on the CPU, at most DMAX on the card."""
+    from flax import nnx
+
+    from models_tpu.data import Loader as JLoader
+    from models_tpu.data import generate_data as jax_generate
+    from models_tpu.models import TwoTowerModel as JTwoTowerModel
+
+    import models_tpu_torch.outputs.contrastive as thead
+
+    assert tflash.fits(320, "cpu") and not tflash.fits(320, "cuda")
+    assert tflash.fits(tflash.DMAX, "cuda") and not tflash.fits(tflash.DMAX + 1, "cuda")
+    kw = dict(query_tower=(16, 320))
+    jds = jax_generate("e-commerce", num_rows=64, seed=5)
+    tds = mt.generate_data("e-commerce", num_rows=64, seed=5)
+    jm = JTwoTowerModel(jds.schema, **kw)
+    jm.compile()
+    jm.build(JLoader(jds, 64))
+    flat = {"/".join(str(p) for p in path): np.asarray(var[...])
+            for path, var in nnx.state(jm, nnx.Param).flat_state()}
+    tm = mt.TwoTowerModel(tds.schema, device="cpu", **kw)
+    mt.load_jax_params(tm, flat)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the fused loss ran where fits refuses")
+
+    monkeypatch.setattr(tflash, "fits", lambda D, device: False)
+    monkeypatch.setattr(thead, "sampled_softmax_loss", refuse)
+    jm.compile(optimizer="sgd", learning_rate=0.5, metrics=[])
+    tm.compile(optimizer="sgd", learning_rate=0.5, metrics=[])
+    jh = jm.fit(jds, epochs=1, batch_size=64, shuffle=False, verbose=0)
+    th = tm.fit(tds, epochs=1, batch_size=64, shuffle=False, device="cpu")
+    np.testing.assert_allclose(th.history["loss"], jh.history["loss"], rtol=LOSS_RTOL)
+    params = dict(tm.named_parameters())
+    for path, var in nnx.state(jm, nnx.Param).flat_state():
+        parts, value = [str(p) for p in path], np.asarray(var[...])
+        if parts[-1] == "kernel":
+            parts, value = parts[:-1] + ["weight"], value.T
+        np.testing.assert_allclose(params[".".join(parts)].detach().numpy(), value,
+                                   rtol=1e-4, atol=1e-6, err_msg="/".join(parts))

@@ -66,6 +66,21 @@ def test_streaming_plain_matches_pallas_topk(dtype, C, k, n_valid):
     _assert_same(port_bw, ref)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_streaming_plain_matches_blockwise_at_large_k(dtype):
+    """k = 600 over 1,000 rows, past the 512 the card's earlier kernel held:
+    streaming_topk on CPU tensors (its plain version) == JAX's blockwise_topk
+    (pallas_topk in interpret mode unrolls k rounds, too slow at this k),
+    with padding rows that never rank."""
+    q, c, ids = _inputs(6, 5, 1000, 16)
+    n, k = 990, 600
+    ref = jtopk.blockwise_topk(jnp.asarray(q), _jax_cand(c, dtype)[:n], k,
+                               ids=jnp.asarray(ids[:n]), tile=256)
+    port = ttopk.streaming_topk(torch.from_numpy(q), _torch_cand(c, dtype), k,
+                                ids=torch.from_numpy(ids), n_valid=n)
+    _assert_same(port, ref)
+
+
 def test_planted_ties_resolve_to_lowest_position():
     """Duplicated rows score bitwise alike; every route ranks the copy at the
     lowest position first, as lax.top_k and pallas_topk do."""
