@@ -18,7 +18,9 @@
    Q = N = 8192, D = 128 with downscoring, planted duplicate ids and MIN_FLOAT
    biases (K2 and K3 twice, equal bit for bit), at Q=1000, N=3001, T=0.7
    with zero weights and no ids, at D = 64, 100 and 256, at Q = 8191,
-   N = 8193 and at N = 40 (fewer negatives than K3 has chunks); the row
+   N = 8193 and at N = 40 (fewer negatives than K3 has chunks), and their
+   bf16 forms (bf16 query and negatives) at the same shapes but N = 40
+   (K1-K3 twice, equal bit for bit); the row
    scatters (K7 add, K8 write) bit for bit, fp32 and bf16 tables, on the
    userId table at the path's batch (deduplicated skewed ids, stale
    duplicates and out-of-range ids on invalid positions), 81,920 ids over
@@ -57,7 +59,14 @@
 8. times the train step (host clock, median and range, examples/s), splits
    it with CUDA events into host batch and copy, tower forward, loss forward,
    backward and optimizer step, and traces four steps with torch.profiler
-   (the device's busy share, the largest kernels' time per step);
+   (the device's busy share, the largest kernels' time per step); then the
+   mixed-precision path (``set_dtype_policy("mixed_bfloat16")``,
+   ``compile(..., optimizer_state_dtype="bfloat16")``): the fused step at
+   batch 8192 against a CPU copy and the unfused head (the bf16 forms of
+   K1-K3 launched once each, the fp32 forms never), three steps against a
+   CPU copy with bf16 and fp32 slots and row-sparsely with bf16 tables, 16
+   steps at full width (the bf16 forms once a step), timed as above, and a
+   probe of ``torch.mm(out_dtype=float32)`` on bf16 operands;
 9. checks row-sparse training (``embedding_optimizer="adagrad"``) with fp32
    and with bf16 tables: three steps at batch 1024 on the card and on a CPU
    copy, both rounding with the CPU generator's noise;
@@ -83,7 +92,8 @@
    time, the plain version's, the least time the card could take and a
    PyTorch yardstick's (the bound at the peak of the arithmetic each kernel
    runs: 3xTF32 for K1-K3 and K6 on fp32 rows, 2xTF32 for K6 on bf16 and
-   int8 rows, or HBM3 bytes, named in ``bound_peak``; K1 and K6 also with
+   int8 rows, bf16 and 2xTF32 for K1-K3's bf16 forms, or HBM3 bytes, named
+   in ``bound_peak``; K1 and K6 also with
    the L2 flushed, ``ms_cold``), then the card line and ``{"ok": true,
    ...}`` last. Host-clock times are [median, min, max].
 
@@ -105,6 +115,11 @@ element). Row-sparse steps, card vs CPU: as training, slots included; a bf16
 table element may be one bf16 ulp off where the two sides' fp32 sums differ
 in the last bits and the noise falls between them (at most 1e-3 of the
 elements written).
+
+Mixed precision: the bf16 forms of K1-K3 under the fp32 forms'
+tolerances; card vs CPU and fused vs unfused as the constants FLIP_SHARE_MAX,
+MIXED_PARAM_ATOL and MIXED_HEAD_GRAD_TOL say (bf16 rounding flips bounded
+and counted; the heads round the query's cotangents at other places).
 
 Row gather: bit for bit (a copy). int8: the binned route's ids and scores
 bit-equal card vs CPU (integer dots); K6 int8 within the top-k tolerance.
@@ -136,12 +151,29 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32 = (PEAK_TF32_FLOPS / 3, "3xTF32")
 PEAK_2XTF32 = (PEAK_TF32_FLOPS / 2, "2xTF32")
 PEAK_FP32 = (PEAK_FP32_FLOPS, "fp32")
+PEAK_BF16 = (989e12, "bf16")  # dense, the bf16 forms' logit products
+SFU_PER_CLOCK_PER_SM = 16  # exponentials a clock on each SM (the special function units)
 PEAK_BYTES_PER_S = 3.35e12
 REL_TOL = 2e-6  # fp32 sums of 128 products taken in another order
 FCE_TOL = 1e-5  # flash-CE (m, s) and loss, of their largest |value|
 FCE_GRAD_TOL = 2e-5  # flash-CE gradients, of the largest |gradient|
 TRAIN_GRAD_TOL = 2e-5  # fused vs unfused gradients, of the model's largest |gradient|
 PARAM_ATOL = 1e-5  # card vs CPU parameters after three steps
+# mixed precision (the mixed_bfloat16 policy). A value rounded to bf16 from
+# float32 values a few ulps apart (card and CPU sum in other orders) may
+# land one bf16 ulp away (a flip). Such elements, at most FLIP_SHARE_MAX of
+# those compared, are held to a bound on what a flip can do instead of the
+# float32 tolerance: a gradient term moves by 2**-7 of itself; an adagrad
+# update (at most the learning rate) by 2**-7 of the learning rate a step, so
+# after three steps parameters are held to PARAM_ATOL but for flips, which
+# stay within MIXED_PARAM_ATOL (bf16 tables: and one ulp of their rounding)
+FLIP_SHARE_MAX = 1e-3
+MIXED_PARAM_ATOL = 3 * 0.05 * 2.0 ** -7
+# fused vs unfused head under the policy, of the model's largest |gradient|:
+# the unfused head rounds the query's two cotangents (positive, negatives)
+# to bf16 each, the fused one their sum, and the two nearly cancel (the JAX
+# package's branches differ alike; tests/test_torch_mixed_precision.py)
+MIXED_HEAD_GRAD_TOL = 5e-2
 TRAIN_BATCH = 8192
 SEED = 0
 CATALOG = 56_680  # movieIds 0..56679
@@ -192,7 +224,7 @@ def device_ms(fn, reps: int = 50, warmup: int = 5, cold: bool = False) -> float:
     out of the sum), so that the call finds its rows in device memory and not
     in the 50 MB L2."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     flush = torch.ones(32 << 20, device="cuda") if cold else None
 
@@ -209,14 +241,25 @@ def device_ms(fn, reps: int = 50, warmup: int = 5, cold: bool = False) -> float:
     # events), so a call's time is each kernel's mean duration times the
     # number of times a call launches it (its count over `reps`, rounded). A
     # trace more than LOST_EVENTS_MAX events off whole calls, or with no
-    # device time, is taken again; the fifth such trace fails the run
+    # device time, is taken again; the fifth such trace fails the run. The
+    # trace runs a warm-up step before the timed one: a trace that starts with
+    # the timed calls misses the first call's first events on a slow host
+    # (2 memsets, a copy and a kernel of the sparse update, every trace)
     for attempt in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        events = []
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
+                wait=0, warmup=1, active=1), on_trace_ready=lambda p: events.extend(p.events())
+                ) as prof:
+            for _ in range(warmup):
+                call()
+            torch.cuda.synchronize()  # none of the warm-up's kernels in the timed step
+            prof.step()
             for _ in range(reps):
                 call()
             torch.cuda.synchronize()
+            prof.step()
         by_name = {}
-        for e in prof.events():
+        for e in events:
             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False) \
                     and not (cold and "MulFunctor" in e.name):
                 n, us = by_name.get(e.name, (0, 0.0))
@@ -228,8 +271,10 @@ def device_ms(fn, reps: int = 50, warmup: int = 5, cold: bool = False) -> float:
                 print(f"  device_ms: {lost} device events missing or extra over {reps} calls",
                       flush=True)
             return per_call_us / 1e3
+        odd = {name[:60]: n for name, (n, _) in by_name.items() if n % reps}
         print(f"  device_ms: trace {attempt + 1}: {lost} device events missing or extra over "
-              f"{reps} calls, device time {per_call_us:.3f} us a call; taken again", flush=True)
+              f"{reps} calls ({odd}), device time {per_call_us:.3f} us a call; taken again",
+              flush=True)
     raise AssertionError("device_ms: five traces in a row lost device events or saw none")
 
 
@@ -471,19 +516,23 @@ def serving_breakdown(dev, model, queries, results):
 
 
 def _row(name, source, replaces, launches, err, ms, plain, lib, flops, nbytes, peak=PEAK_FP32,
-         ms_cold=None):
+         ms_cold=None, extra=()):
     """A kernel's entry of the kernels line. ``peak``: the rate of the
     arithmetic the kernel runs, (FLOP/s, its name), named in ``bound_peak``.
-    ``ms_cold``: the kernel's device time with the L2 flushed before each
-    call, where it was taken beside the back-to-back time ``ms``."""
-    ops_ms = flops / peak[0] * 1e3
+    ``extra``: more (ms, name) terms of operations the kernel runs on other
+    units or at other peaks; the operations' bound is the largest term (a
+    caller sums terms that share a unit into one). ``ms_cold``: the
+    kernel's device time with the L2 flushed before each call, where it was
+    taken beside the back-to-back time ``ms``."""
+    terms = [(flops / peak[0] * 1e3, peak[1]), *extra]
+    ops_ms, ops_peak = max(terms)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     row = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_peak": peak[1] if ops_ms >= bytes_ms else "HBM3", "library_ms": lib,
+        "bound_peak": ops_peak if ops_ms >= bytes_ms else "HBM3", "library_ms": lib,
     }
     if ms_cold is not None:
         row["ms_cold"] = ms_cold
@@ -566,10 +615,11 @@ def max_err(got, want) -> float:
     return max_abs_err(got, want)
 
 
-def fce_case(dev, gen, Q, N, D, T, ids, bias_min, zero_w):
+def fce_case(dev, gen, Q, N, D, T, ids, bias_min, zero_w, dtype=torch.float32):
     """Seeded flash-CE inputs: ids with planted duplicates (in-batch: the
     negatives' ids are the positives'), a bias with MIN_FLOAT where the row
-    is invalid (its embedding zeroed, as the head does), row weights."""
+    is invalid (its embedding zeroed, as the head does), row weights; query
+    and negatives in ``dtype`` (the positive logit from the same values)."""
     from models_tpu_torch.core.constants import MIN_FLOAT
 
     q = torch.randn(Q, D, device=dev, generator=gen) * 0.3
@@ -588,17 +638,21 @@ def fce_case(dev, gen, Q, N, D, T, ids, bias_min, zero_w):
     w = torch.ones(Q, device=dev)
     if zero_w:
         w[::5] = 0.0
-    pos_logit = ((q * pos).sum(1) / T).contiguous()
+    q, pos, neg = (a.to(dtype) for a in (q, pos, neg))
+    pos_logit = ((q.float() * pos.float()).sum(1) / T).contiguous()
     return q, pos_logit, neg, pid, nid, bias, w
 
 
 def check_fce(name, dev, args, T, errs, repeat=False):
-    """K1, K2 and K3 against their plain versions on the same inputs;
-    ``repeat``: K2 and K3 again, to the same bits (the chunk merge is ordered)."""
+    """K1, K2 and K3 against their plain versions on the same inputs, in the
+    form the query's dtype takes (fp32, or bf16: errors under ``*_bf16``);
+    ``repeat``: the three again, to the same bits (the chunk merges are
+    ordered)."""
     from models_tpu_torch.ops import contrastive as C
     from models_tpu_torch.ops import flash_ce as F
 
     q, pos_logit, neg, pid, nid, bias, w = args
+    sfx = "_bf16" if q.dtype == torch.bfloat16 else ""
     ds = pid is not None
     m, s = F.lse_forward(q, pos_logit, neg, pid, nid, bias, T, ds)
     pm, ps = F.lse_forward_plain(q, pos_logit, neg, pid, nid, bias, T, ds)
@@ -618,15 +672,18 @@ def check_fce(name, dev, args, T, errs, repeat=False):
         require(err <= tol, f"flash-CE {name}: {what} off by {err:.3g} of its size (tol {tol})")
     require(not dq[gw == 0].any(), f"flash-CE {name}: zero-weight rows have a gradient")
     if repeat:
-        again = (F.grad_query(q, neg, lse, gw, pid, nid, bias, T, ds),
+        again = (*F.lse_forward(q, pos_logit, neg, pid, nid, bias, T, ds),
+                 F.grad_query(q, neg, lse, gw, pid, nid, bias, T, ds),
                  F.grad_neg(q, neg, lse, gw, pid, nid, bias, T, ds))
         torch.cuda.synchronize()
-        require(all(torch.equal(raw_bits(a), raw_bits(b)) for a, b in zip((dq, dn), again)),
-                f"flash-CE {name}: K2 / K3 differ from one call to the next")
-    errs["lse_forward"] = max(errs["lse_forward"], max_err(m, pm), max_err(s, ps))
-    errs["grad_query"] = max(errs["grad_query"], max_err(dq, pdq))
-    errs["grad_neg"] = max(errs["grad_neg"], max_err(dn, pdn))
-    print(f"  flash-CE {name}: rel m {rel_err(m, pm):.3g} s {rel_err(s, ps):.3g} "
+        require(all(torch.equal(raw_bits(a), raw_bits(b))
+                    for a, b in zip((m, s, dq, dn), again)),
+                f"flash-CE {name}: K1 / K2 / K3 differ from one call to the next")
+    for key, err in (("lse_forward", max(max_err(m, pm), max_err(s, ps))),
+                     ("grad_query", max_err(dq, pdq)), ("grad_neg", max_err(dn, pdn))):
+        errs[key + sfx] = max(errs.get(key + sfx, 0.0), err)
+    form = " (bf16 forms)" if sfx else ""
+    print(f"  flash-CE {name}{form}: rel m {rel_err(m, pm):.3g} s {rel_err(s, ps):.3g} "
           f"loss {rel_err(loss[None], ploss[None]):.3g} dq {rel_err(dq, pdq):.3g} "
           f"dneg {rel_err(dn, pdn):.3g}", flush=True)
 
@@ -646,6 +703,26 @@ def phase_flash_ce(dev, gen, errs):
     for name, Q, N, D, T, ids, bias_min, zero_w in cases:
         check_fce(name, dev, fce_case(dev, gen, Q, N, D, T, ids, bias_min, zero_w), T, errs,
                   repeat=Q == N == 8192)
+
+
+def phase_flash_ce_bf16(dev, gen, errs):
+    """The bf16 forms of K1-K3 (the mixed_bfloat16 path) against their plain
+    versions, under the fp32 forms' tolerances: the training path's shapes
+    with downscoring, duplicate ids and MIN_FLOAT biases (the three twice,
+    bit-equal), 1000 x 3001 at T = 0.7 with zero weights, D = 64 and 256,
+    a width with no 16-byte rows (D = 100: the element-wise copies), and
+    ragged Q, N."""
+    cases = (("Q=N=8192 D=128 downscore bias", 8192, 8192, 128, 1.0, True, True, False),
+             ("Q=1000 N=3001 D=128 T=0.7 zero weights", 1000, 3001, 128, 0.7, False, False,
+              True),
+             ("Q=N=2048 D=64 downscore bias", 2048, 2048, 64, 1.0, True, True, False),
+             ("Q=N=2048 D=256 T=0.7 downscore", 2048, 2048, 256, 0.7, True, False, True),
+             ("Q=N=2048 D=100 downscore bias", 2048, 2048, 100, 1.0, True, True, True),
+             ("Q=8191 N=8193 D=128 T=0.7 downscore bias", 8191, 8193, 128, 0.7, True, True,
+              True))
+    for name, Q, N, D, T, ids, bias_min, zero_w in cases:
+        check_fce(name, dev, fce_case(dev, gen, Q, N, D, T, ids, bias_min, zero_w,
+                                      torch.bfloat16), T, errs, repeat=Q == N == 8192)
 
 
 def head_grads(model, xb, yb, fused):
@@ -755,6 +832,14 @@ def flash_launches():
 
     return {"lse_forward": F.lse_forward.launches, "grad_query": F.grad_query.launches,
             "grad_neg": F.grad_neg.launches}
+
+
+def flash_launches_bf16():
+    """The bf16 forms' launches, under the kernels line's names."""
+    from models_tpu_torch.ops import flash_ce as F
+
+    return {f"{name}_bf16": fn.launches_bf16 for name, fn in (
+        ("lse_forward", F.lse_forward), ("grad_query", F.grad_query), ("grad_neg", F.grad_neg))}
 
 
 def phase_train(dev, model, catalog, queries):
@@ -870,11 +955,18 @@ def train_profile(dev, model, data, steps: int = 4):
             "top_kernels_ms_per_step": [[n[:90], v / steps / 1e3] for n, v in top]}
 
 
-def measure_flash_ce(dev, model, data, launches, errs):
+def measure_flash_ce(dev, model, data, launches, errs, dtype=torch.float32):
     """K1-K3 timed on the inputs the training path gives them (the towers'
     outputs for one batch, in-batch negatives, downscoring, the valid rows'
     zero bias), beside the plain versions and PyTorch yardsticks over the
-    materialised logits (never called by the port)."""
+    materialised logits (never called by the port). ``dtype`` bf16: the
+    mixed-precision path's forms, on the towers' outputs cast to bf16 as the
+    head casts them (rows ``*_bf16``; the yardsticks take the bf16 product
+    with an fp32 result, ``mm_f32``). Bounds: fp32 forms at 3xTF32; bf16
+    forms the larger of the tensor cores' time (the logits at the bf16
+    peak, plus K2 / K3's gradient product at 2xTF32: one unit runs both)
+    and the Q*N exponentials at the special function units' rate, or the
+    bytes."""
     from models_tpu_torch.core.constants import MIN_FLOAT
     from models_tpu_torch.core.types import ModelContext, to_device_batch
     from models_tpu_torch.data import Loader
@@ -886,44 +978,59 @@ def measure_flash_ce(dev, model, data, launches, errs):
         towers = model.blocks[0](xb, context=ModelContext(features=xb))
     q, neg = towers["query"].contiguous(), towers["candidate"].contiguous()
     valid = xb["__row_valid__"].bool()
-    neg = torch.where(valid[:, None], neg, 0.0).contiguous()
+    neg = torch.where(valid[:, None], neg, 0.0).to(dtype).contiguous()
     bias = torch.where(valid, 0.0, MIN_FLOAT).contiguous()
     pid = nid = xb[model.item_id_name].to(torch.int32).contiguous()
-    pos_logit = (q * towers["candidate"]).sum(1).contiguous()
+    pos = towers["candidate"].to(dtype)
+    q = q.to(dtype).contiguous()
+    pos_logit = (q.float() * pos.float()).sum(1).contiguous()
     T, (Q, D), N = 1.0, q.shape, neg.shape[0]
     check_fce("the training path's inputs", dev,
               (q, pos_logit, neg, pid, nid, bias, valid.float()), T, errs)
     m, s = F.lse_forward_plain(q, pos_logit, neg, pid, nid, bias, T, True)
     lse = (m + torch.log(s)).contiguous()
     gw = torch.full_like(lse, 1.0 / Q)
+    product = mm_f32 if dtype == torch.bfloat16 else torch.matmul
 
     def logits():
-        x = torch.where(nid[None, :] == pid[:, None], MIN_FLOAT, q @ neg.T + bias)
+        x = torch.where(nid[None, :] == pid[:, None], MIN_FLOAT, product(q, neg.T) + bias)
         return x / T
 
     def coef():
         return gw[:, None] * torch.exp(logits() - lse[:, None]) / T
 
     args = (q, neg, lse, gw, pid, nid, bias, T, True)
+    item = q.element_size()
     vec = 4 * (2 * Q + 2 * N)  # pid, nid, bias and one per-row f32 input
+    logit_flops = 2 * Q * N * D  # and as much again for K2 / K3's gradient product
+    if dtype == torch.bfloat16:
+        sfx = "_bf16"
+        exp_ms = Q * N / (SFU_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0)
+                          .multi_processor_count * sm_clock_hz()) * 1e3
+        logit_ms = logit_flops / PEAK_BF16[0] * 1e3
+        grad_ms = logit_flops / PEAK_2XTF32[0] * 1e3
+        bounds = {"lse_forward": (0, [(logit_ms, "bf16"), (exp_ms, "SFU exp")]),
+                  "grad": (0, [(logit_ms + grad_ms, "bf16 + 2xTF32"), (exp_ms, "SFU exp")])}
+    else:  # both products as 3xTF32; the exponentials left out
+        sfx = ""
+        bounds = {"lse_forward": (logit_flops, []), "grad": (2 * logit_flops, [])}
     rows = []
-    # all three as 3xTF32 on the tensor cores
-    for name, line, fn, plain, lib, flops, nbytes, peak in (
+    for name, line, fn, plain, lib, nbytes in (
             ("lse_forward", 76, lambda: F.lse_forward(q, pos_logit, neg, pid, nid, bias, T, True),
              lambda: F.lse_forward_plain(q, pos_logit, neg, pid, nid, bias, T, True),
              lambda: torch.logsumexp(torch.cat([pos_logit[:, None], logits()], 1), 1),
-             2 * Q * N * D, (Q + N) * D * 4 + vec + 2 * Q * 4, PEAK_3XTF32),
+             (Q + N) * D * item + vec + 2 * Q * 4),
             ("grad_query", 134, lambda: F.grad_query(*args), lambda: F.grad_query_plain(*args),
-             lambda: coef() @ neg, 4 * Q * N * D, (Q + N) * D * 4 + vec + 4 * Q + Q * D * 4,
-             PEAK_3XTF32),
+             lambda: coef() @ neg.float(), (Q + N) * D * item + vec + 4 * Q + Q * D * 4),
             ("grad_neg", 184, lambda: F.grad_neg(*args), lambda: F.grad_neg_plain(*args),
-             lambda: coef().T @ q, 4 * Q * N * D, (Q + N) * D * 4 + vec + 4 * Q + N * D * 4,
-             PEAK_3XTF32)):
-        rows.append(_row(name, "models_tpu_torch/csrc/flash_ce.cu",
-                         f"models_tpu/ops/flash_ce.py:{line}", launches[name], errs[name],
-                         cuda_ms(fn), cuda_ms(plain, reps=3), cuda_ms(lib, reps=3), flops,
-                         nbytes, peak,
-                         ms_cold=device_ms(fn, cold=True) if name == "lse_forward" else None))
+             lambda: coef().T @ q.float(), (Q + N) * D * item + vec + 4 * Q + N * D * 4)):
+        flops, extra = bounds["lse_forward" if name == "lse_forward" else "grad"]
+        rows.append(_row(name + sfx, "models_tpu_torch/csrc/flash_ce.cu",
+                         f"models_tpu/ops/flash_ce.py:{line}", launches[name + sfx],
+                         errs[name + sfx], cuda_ms(fn), cuda_ms(plain, reps=3),
+                         cuda_ms(lib, reps=3), flops, nbytes, PEAK_3XTF32,
+                         ms_cold=device_ms(fn, cold=True) if name == "lse_forward" else None,
+                         extra=extra))
     return rows
 
 
@@ -1020,6 +1127,8 @@ def zero_launches():
 
     for fn in (F.lse_forward, F.grad_query, F.grad_neg, S.row_scatter_add, S.row_scatter_write):
         fn.launches = 0
+    for fn in (F.lse_forward, F.grad_query, F.grad_neg):
+        fn.launches_bf16 = 0
 
 
 def cpu_noise(shape, salt, step, device):
@@ -1676,6 +1785,264 @@ def measure_int8(dev, enc, q4096, launches, errs):
     return [k6, k5]
 
 
+# ---------------------------------------------------------------------------
+# mixed precision: the mixed_bfloat16 policy, bf16 optimizer slots, the bf16
+# forms of K1-K3
+# ---------------------------------------------------------------------------
+
+MM_OUT_DTYPE = False  # whether this card's torch.mm takes out_dtype on bf16 (probe_bf16_mm)
+_SM_CLOCK_HZ = []
+
+
+def sm_clock_hz() -> float:
+    """The card's largest SM clock (nvidia-smi ``clocks.max.sm``), in Hz."""
+    if not _SM_CLOCK_HZ:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                             timeout=60, check=True)
+        _SM_CLOCK_HZ.append(float(out.stdout.split()[0]) * 1e6)
+    return _SM_CLOCK_HZ[0]
+
+
+def mm_f32(a, b):
+    """The bf16 product with an fp32 result in one PyTorch call, a yardstick
+    only: ``torch.mm(out_dtype=torch.float32)`` where this card's build
+    runs it (``probe_bf16_mm``), else the fp32 product of the widened
+    operands."""
+    if MM_OUT_DTYPE:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def probe_bf16_mm(dev, model):
+    """Whether this card's torch runs ``torch.mm(a, b, out_dtype=float32)``
+    on bf16 operands, and its backward, at the query tower's first Dense
+    layer at batch 8192, beside the product the port's ``Dense`` takes under
+    the policy (the operands widened, cuBLAS fp32 with TF32 off): times of
+    both (CUDA events), the out_dtype product's largest difference from the
+    widened one. The port keeps the widened product; this sets the
+    yardsticks' ``mm_f32``."""
+    global MM_OUT_DTYPE
+    from models_tpu_torch.blocks.mlp import Dense
+
+    dense = next(m for m in model.query_encoder.modules() if isinstance(m, Dense))
+    gen = torch.Generator(dev).manual_seed(SEED)
+    x = torch.randn(TRAIN_BATCH, dense.weight.shape[1], device=dev, generator=gen).bfloat16()
+    wt = dense.weight.detach().bfloat16().T
+    out = {"shape": [TRAIN_BATCH, *wt.shape], "widened_fp32_ms": cuda_ms(
+        lambda: x.float() @ wt.float())}
+    want = x.float() @ wt.float()
+    try:
+        got = torch.mm(x, wt, out_dtype=torch.float32)
+    except (RuntimeError, TypeError) as exc:  # the build has no such kernel: say so
+        out["out_dtype"] = f"refused: {str(exc).splitlines()[0][:160]}"
+    else:
+        MM_OUT_DTYPE = got.dtype == torch.float32
+        out["out_dtype"] = str(got.dtype)
+        out["out_dtype_ms"] = cuda_ms(lambda: torch.mm(x, wt, out_dtype=torch.float32))
+        out["out_dtype_rel_err"] = rel_err(got, want)
+        xr = x.clone().requires_grad_()
+        try:
+            torch.mm(xr, wt, out_dtype=torch.float32).sum().backward()
+            out["out_dtype_backward"] = f"runs, input gradient {xr.grad.dtype}"
+        except (RuntimeError, TypeError) as exc:
+            out["out_dtype_backward"] = f"refused: {str(exc).splitlines()[0][:160]}"
+    print("bf16 product with an fp32 result " + json.dumps(out), flush=True)
+    return out
+
+
+def mixed_model(dev, catalog, seed):
+    import models_tpu_torch as mt
+
+    return mt.TwoTowerModel(catalog.schema, query_tower=(256, 128), embedding_dim=128,
+                            seed=seed, device=dev)
+
+
+def compare_rounded(name, pairs, tol, flip, share_of=None):
+    """``pairs`` of (card, CPU) tensors: every element within ``tol`` but for
+    the flips, which stay within ``flip`` = (a, r): a + r * the larger
+    |value| (2**-7 of it is one bf16 ulp at most). At most FLIP_SHARE_MAX of
+    ``share_of`` elements (default: all compared) may flip. Returns the
+    largest |difference| outside the flips, their count and the share's
+    denominator."""
+    worst, flips, total = 0.0, 0, 0
+    for got, want in pairs:
+        got, want = got.detach().float().cpu(), want.detach().float().cpu()
+        d = (got - want).abs()
+        off = d > tol
+        within = d <= flip[0] + flip[1] * torch.maximum(got.abs(), want.abs())
+        require(bool(within[off].all()),
+                f"{name}: {int(off.sum())} elements past {tol:.3g}, some past {flip} "
+                f"(largest |d| {float(d.max()):.3g})")
+        worst = max(worst, float(d[~off].max()) if bool((~off).any()) else 0.0)
+        flips += int(off.sum())
+        total += d.numel()
+    share_of = total if share_of is None else share_of
+    require(flips <= FLIP_SHARE_MAX * max(share_of, 1),
+            f"{name}: {flips} elements flipped, of {share_of}")
+    return worst, flips, share_of
+
+
+def moved(base: dict, after: dict) -> int:
+    """Elements of ``after``'s tensors that differ from ``base``'s."""
+    return sum(int((after[n].detach().cpu() != t.detach().cpu()).sum()) for n, t in base.items())
+
+
+def phase_mixed_checks(dev, catalog):
+    """The mixed-precision path at the bench's configuration
+    (``set_dtype_policy("mixed_bfloat16")``, ``compile("adagrad",
+    learning_rate=0.05, optimizer_state_dtype="bfloat16")``), checked:
+
+    - at batch 8192, the fused loss (the bf16 forms of K1-K3, each launched
+      once, the fp32 forms never) against the same step on a CPU copy (the
+      plain versions; loss within FCE_TOL, gradients within TRAIN_GRAD_TOL
+      of the largest |gradient| but for bf16 rounding flips: at most
+      FLIP_SHARE_MAX of the nonzero elements, each within 2**-7 of the
+      largest |gradient|) and against
+      the unfused head on the card (loss within FCE_TOL, gradients within
+      MIXED_HEAD_GRAD_TOL);
+    - three steps at batch 1024 against a CPU copy, with and without
+      ``optimizer_state_dtype`` (losses within FCE_TOL, parameters and slots
+      within PARAM_ATOL but for flips, which stay within MIXED_PARAM_ATOL;
+      the slots bf16);
+    - row-sparsely with bf16 tables (``embedding_optimizer="adagrad"``),
+      three steps at batch 1024 against a CPU copy rounding with the same
+      noise: as above, a bf16 table element one bf16 ulp at most.
+
+    The caller sets the policy."""
+    import copy
+
+    import models_tpu_torch as mt
+    from models_tpu_torch.core.types import to_device_batch, to_device_targets
+    from models_tpu_torch.data import Loader
+
+    model = mixed_model(dev, catalog, SEED + 12)
+    ds = mt.generate_data("movielens-25m", num_rows=TRAIN_BATCH, seed=SEED + 4)
+    x, y = next(iter(Loader(ds, TRAIN_BATCH)))
+    xb, yb = to_device_batch(x, dev), to_device_targets(y, dev)
+    model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[],
+                  optimizer_state_dtype="bfloat16")
+    zero_launches()
+    fused_loss, fused = head_grads(model, xb, yb, fused=True)
+    torch.cuda.synchronize()
+    launches = {**flash_launches(), **flash_launches_bf16()}
+    require(launches == {"lse_forward": 0, "grad_query": 0, "grad_neg": 0, "lse_forward_bf16": 1,
+                         "grad_query_bf16": 1, "grad_neg_bf16": 1},
+            f"one mixed-precision step launched {launches}")
+    cpu = copy.deepcopy(model).to("cpu")
+    cpu_loss, cpu_grads = head_grads(cpu, to_device_batch(x, "cpu"), to_device_targets(y, "cpu"),
+                                     fused=True)
+    err = abs(fused_loss - cpu_loss) / abs(cpu_loss)
+    require(err <= FCE_TOL, f"mixed: fused loss {fused_loss} on the card vs {cpu_loss} on the CPU")
+    # a gradient element may sum bf16-rounded cotangents (an embedding row's
+    # over the batch): a flip of one moves it by a bf16 ulp of that term, at
+    # most 2**-7 of the largest |gradient|
+    scale = max(float(g.abs().max()) for g in cpu_grads.values())
+    worst, flips, total = compare_rounded(
+        "mixed fused gradients, card vs CPU",
+        [(fused[n], cpu_grads[n]) for n in cpu_grads], TRAIN_GRAD_TOL * scale,
+        (2.0 ** -7 * scale, 0.0), share_of=sum(int((g != 0).sum()) for g in cpu_grads.values()))
+    print(f"  batch {TRAIN_BATCH}, mixed_bfloat16: fused loss card {fused_loss:.7f} vs CPU "
+          f"{cpu_loss:.7f} (rel {err:.3g}); gradients off by {worst / scale:.3g} of the largest "
+          f"|gradient| {scale:.3g} but {flips} of {total} nonzero elements, each within "
+          f"2**-7 of it", flush=True)
+    plain_loss, plain = head_grads(model, xb, yb, fused=False)
+    err = abs(fused_loss - plain_loss) / abs(plain_loss)
+    require(err <= FCE_TOL, f"mixed: fused loss {fused_loss} vs unfused {plain_loss}")
+    worst = max(max_err(fused[n], plain[n]) for n in plain) / scale
+    require(worst <= MIXED_HEAD_GRAD_TOL, f"mixed: fused vs unfused gradients off by {worst:.3g}")
+    print(f"  batch {TRAIN_BATCH}, mixed_bfloat16: fused loss {fused_loss:.7f} vs unfused "
+          f"{plain_loss:.7f} (rel {err:.3g}); gradients off by {worst:.3g} of the largest "
+          f"|gradient| (the heads round the query's cotangents at other places)", flush=True)
+    stamp("mixed precision: three steps on the card and on a CPU copy")
+
+    small = mt.generate_data("movielens-25m", num_rows=1024, seed=SEED + 5)
+    runs = (("bf16 slots", {"optimizer_state_dtype": "bfloat16"}, None),
+            ("fp32 slots", {}, None),
+            ("bf16 tables, row-sparse", {"embedding_optimizer": "adagrad"}, torch.bfloat16))
+    for tag, kw, table_dtype in runs:
+        base = model if table_dtype is None else mt.TwoTowerModel(
+            catalog.schema, query_tower=(256, 128), embedding_dim=128, table_dtype=table_dtype,
+            seed=SEED + 13, device=dev)
+        on_card, on_cpu = copy.deepcopy(base), copy.deepcopy(base).to("cpu")
+        hist = {}
+        for side, m, d in (("card", on_card, dev), ("cpu", on_cpu, "cpu")):
+            m.compile(optimizer="adagrad", learning_rate=0.05, metrics=[], **kw)
+            if m._emb_opt is not None:
+                m._emb_opt.noise = cpu_noise
+            hist[side] = m.fit(small, epochs=3, batch_size=1024, shuffle=False,
+                               device=d).history["loss"]
+        np.testing.assert_allclose(hist["card"], hist["cpu"], rtol=FCE_TOL)
+        state = {n: t for n, t in list(base.named_parameters()) + list(base.named_buffers())}
+        cpu_state = {**dict(on_cpu.named_parameters()), **dict(on_cpu.named_buffers())}
+        card_state = {**dict(on_card.named_parameters()), **dict(on_card.named_buffers())}
+        # parameters and the row-sparse slots: PARAM_ATOL, flips within
+        # MIXED_PARAM_ATOL, at most FLIP_SHARE_MAX of the parameter elements the
+        # steps moved (the slots, made by fit, count their flips only); bf16
+        # tables, rounded stochastically from such updates: every element
+        # that differs is a flip, within MIXED_PARAM_ATOL and one bf16 ulp
+        for kind, names, tol, flip in (
+                ("fp32 parameters and row-sparse slots",
+                 [n for n, t in card_state.items() if t.dtype == torch.float32], PARAM_ATOL,
+                 (MIXED_PARAM_ATOL, 0.0)),
+                ("bf16 tables", [n for n, t in card_state.items() if t.dtype == torch.bfloat16],
+                 0.0, (MIXED_PARAM_ATOL, 2.0 ** -7))):
+            if not names:
+                continue
+            worst, flips, n_moved = compare_rounded(
+                f"mixed {tag} {kind}, card vs CPU", [(card_state[n], cpu_state[n]) for n in names],
+                tol, flip, share_of=moved({n: state[n] for n in names if n in state}, cpu_state))
+            print(f"  mixed_bfloat16, {tag}: 3 adagrad steps at batch 1024, card vs CPU: losses "
+                  f"{hist['card']} vs {hist['cpu']}; {kind} max|d| {worst:.3g} but {flips} of "
+                  f"{n_moved} moved elements (within {flip})", flush=True)
+        # the dense optimizer's slots: a flipped gradient g moves acc += g*g by
+        # up to 2**-6 of itself; bf16 slots round that to one more ulp at most
+        slots = [(a, b) for sa, sb in zip(on_card._optimizer.state.values(),
+                                          on_cpu._optimizer.state.values())
+                 for a, b in zip(sa.values(), sb.values())]
+        dtypes = {a.dtype for pair in slots for a in pair}
+        require(dtypes == {torch.bfloat16 if "optimizer_state_dtype" in kw else torch.float32},
+                f"{tag}: dense slots {dtypes}")
+        worst, flips, n_slots = compare_rounded(f"mixed {tag} dense slots, card vs CPU", slots,
+                                                PARAM_ATOL, (0.0, 2.0 ** -6 + 2.0 ** -7))
+        print(f"  mixed_bfloat16, {tag}: dense slots ({dtypes.pop()}) max|d| {worst:.3g} but "
+              f"{flips} of {n_slots} elements", flush=True)
+    return model
+
+
+def phase_mixed_train(dev, model, catalog, queries):
+    """The mixed-precision training path at full width: 16 steps of 8192
+    rows (``fit``, two epochs), each launching K1-K3 once in their bf16
+    forms and never in their fp32 forms; losses finite, the slots bf16; the
+    trained model serves 256 rows under the policy."""
+    import models_tpu_torch as mt
+
+    data = mt.generate_data("movielens-25m", num_rows=8 * TRAIN_BATCH, seed=SEED + 3)
+    model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[],
+                  optimizer_state_dtype="bfloat16")
+    zero_launches()
+    t = time.perf_counter()
+    hist = model.fit(data, epochs=2, batch_size=TRAIN_BATCH, shuffle=False, device=dev)
+    torch.cuda.synchronize()
+    steps = 2 * data.num_rows // TRAIN_BATCH
+    launches = flash_launches_bf16()
+    print(f"  fit {steps} mixed-precision steps in {time.perf_counter() - t:.2f} s: loss "
+          f"{hist.history['loss']}, launches {launches}, fp32 forms {flash_launches()}",
+          flush=True)
+    require(all(n == steps for n in launches.values()),
+            f"the mixed path launched the bf16 forms {launches} in {steps} steps")
+    require(not any(flash_launches().values()), "the mixed path launched an fp32 form")
+    require(all(np.isfinite(hist.history["loss"])), "mixed: non-finite training loss")
+    require(all(v.dtype == torch.bfloat16 for st in model._optimizer.state.values()
+                for v in st.values()), "mixed: the optimizer's slots left bf16")
+    enc = model.to_top_k_encoder(catalog, k=K, batch_size=1024, device=dev)
+    out = enc.predict(queries.take(256), batch_size=256, device=dev)
+    require(out["scores"].shape == (256, K) and np.isfinite(out["scores"]).all(),
+            "mixed: the trained model serves non-finite scores")
+    return data, launches, {"fit_loss": hist.history["loss"],
+                            "fit_examples_per_sec": hist.history["examples_per_sec"]}
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -1706,8 +2073,10 @@ def main() -> int:
 
     require(F.DMAX == F._lib().flash_ce_dmax(),
             f"flash_ce.DMAX {F.DMAX} is not the kernels' {F._lib().flash_ce_dmax()}")
-    print("    flash_ce grad_rows and lse_partial dynamic shared memory (bytes) at D = 64, 128, "
-          f"256: {[F._lib().flash_ce_grad_smem(d) for d in (64, 128, 256)]}", flush=True)
+    for form, bf16 in (("fp32", 0), ("bf16", 1)):
+        print(f"    flash_ce grad_rows and lse_partial dynamic shared memory (bytes), {form} "
+              f"forms, at D = 64, 128, 256: "
+              f"{[F._lib().flash_ce_grad_smem(d, bf16) for d in (64, 128, 256)]}", flush=True)
     for dtype, B, k in ((torch.float32, 4096, K), (torch.bfloat16, 4096, K),
                         (torch.int8, 4096, K), (torch.float32, 256, 600),
                         (torch.float32, 8, 5000)):
@@ -1718,6 +2087,7 @@ def main() -> int:
     errs = phase_kernels(dev, gen)
     errs.update(lse_forward=0.0, grad_query=0.0, grad_neg=0.0)
     phase_flash_ce(dev, gen, errs)
+    phase_flash_ce_bf16(dev, gen, errs)
     phase_row_scatter(dev, gen, errs)
     phase_gather(dev, gen, errs)
     phase_int8_kernels(dev, gen, errs)
@@ -1779,9 +2149,26 @@ def main() -> int:
     print("training " + json.dumps(train), flush=True)
     rows += measure_flash_ce(dev, tmodel, data, train_launches, errs)
 
-    stamp("phase 7: row-sparse training against the CPU")
+    stamp("phase 6b: mixed precision (mixed_bfloat16, bf16 slots) against the CPU and the "
+          "unfused head")
     import models_tpu_torch as mt
 
+    mt.set_dtype_policy("mixed_bfloat16")
+    try:
+        probe_bf16_mm(dev, tmodel)
+        mmodel = phase_mixed_checks(dev, catalog)
+        stamp("phase 6c: mixed-precision training at full width")
+        mdata, mixed_launches, mixed = phase_mixed_train(dev, mmodel, catalog, queries)
+        stamp("mixed-precision training times")
+        mixed.update(train_times(dev, mmodel, mdata))
+        mixed.update(train_profile(dev, mmodel, mdata))
+        print("mixed training " + json.dumps(mixed), flush=True)
+        rows += measure_flash_ce(dev, mmodel, mdata, mixed_launches, errs, torch.bfloat16)
+    finally:
+        mt.set_dtype_policy("float32")
+    del mmodel
+
+    stamp("phase 7: row-sparse training against the CPU")
     sparse_models = {tag: mt.TwoTowerModel(catalog.schema, query_tower=(256, 128),
                                            embedding_dim=128, table_dtype=dtype, seed=SEED,
                                            device=dev)

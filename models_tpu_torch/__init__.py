@@ -19,6 +19,7 @@ with ``nvcc`` at first use.
 from .blocks.optimizer import LazyAdam, SparseEmbeddingOptimizer
 from .convert import load_jax_params
 from .core import Encoder, SequenceFeature, TopKEncoder, TopKPrediction, resolve_device
+from .core.policy import get_dtype_policy, set_dtype_policy
 from .data import Dataset, Loader, generate_data
 from .metrics import Metric, TopKMetricsAggregator
 from .models import History, Model, RetrievalModelV2, TwoTowerModel
@@ -31,5 +32,5 @@ __all__ = [
     "RetrievalModelV2", "Schema", "SequenceFeature", "SparseEmbeddingOptimizer", "Tags",
     "TopKEncoder",
     "TopKMetricsAggregator", "TopKOutput", "TopKPrediction", "TwoTowerModel", "generate_data",
-    "load_jax_params", "resolve_device",
+    "get_dtype_policy", "load_jax_params", "resolve_device", "set_dtype_policy",
 ]

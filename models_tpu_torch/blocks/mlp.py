@@ -1,7 +1,10 @@
 """Dense and MLPBlock (``models_tpu/blocks/mlp.py``).
 
 The JAX kernel is (in, out); the port's ``weight`` is (out, in), its
-transpose, as ``torch.nn.functional.linear`` takes it.
+transpose, as ``torch.nn.functional.linear`` takes it. Under the
+``mixed_bfloat16`` policy the product takes the input and the weight cast to
+bf16 and gives a float32 result (the widened operands' fp32 product, cuBLAS
+with TF32 off on the card); the bias and the activation follow in float32.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from torch import nn
 
 from ..core.block import Block
 from ..core.combinators import SequentialBlock
+from ..core.policy import cast_compute
 
 _ACTIVATIONS = {"relu": F.relu, None: None}
 
@@ -41,7 +45,8 @@ class Dense(Block):
         self.bias = nn.Parameter(torch.zeros(self.units, device=device))
 
     def forward(self, inputs, **kwargs):
-        out = F.linear(inputs, self.weight, self.bias)
+        x, w = cast_compute(inputs), cast_compute(self.weight)
+        out = F.linear(x.float(), w.float(), self.bias)
         act = _ACTIVATIONS[self.activation]
         return out if act is None else act(out)
 

@@ -6,7 +6,9 @@ the accumulator starts at 0.1, ``acc += g * g`` and
 ``update = -lr * g * rsqrt(acc + 1e-7)``. ``torch.optim.Adagrad`` differs: its
 accumulator starts at 0 and its eps sits outside the square root. ``sgd`` and
 ``adam`` (eps 1e-8) are torch's, whose formulas are optax's. The other names
-are not ported yet (ROADMAP.md queue 1).
+are not ported yet (ROADMAP.md queue 1). :func:`low_precision_optimizer_state`
+(``compile(optimizer_state_dtype=...)``) keeps a dense optimizer's slots in
+bf16 at rest.
 
 The row-sparse embedding optimizer (:class:`SparseEmbeddingOptimizer`,
 ``compile(embedding_optimizer=...)``) updates only the rows a batch looked
@@ -55,6 +57,54 @@ class Adagrad(torch.optim.Optimizer):
             torch._foreach_rsqrt_(scale)
             torch._foreach_mul_(scale, grads)
             torch._foreach_add_(params, scale, alpha=-group["lr"])
+
+
+class LowPrecisionState:
+    """A dense optimizer whose floating slots (Adagrad's ``sum``, Adam's
+    ``exp_avg`` and ``exp_avg_sq``) are stored in ``dtype`` at rest, the JAX
+    package's ``low_precision_optimizer_state``. Each step casts them up to
+    float32, runs the optimizer's own float32 update on those copies (never
+    in bf16), and rounds them back to nearest. Other state (Adam's ``step``)
+    is left as it is. Everything but ``step`` is the wrapped optimizer's."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, dtype: torch.dtype):
+        self.optimizer = optimizer
+        self.state_dtype = dtype
+        self._cast(dtype)
+
+    def __getattr__(self, name):
+        return getattr(self.optimizer, name)
+
+    def _cast(self, dtype: torch.dtype) -> None:
+        for state in self.optimizer.state.values():
+            for key, value in state.items():
+                if key != "step" and torch.is_tensor(value) and value.is_floating_point():
+                    state[key] = value.to(dtype)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        self._cast(torch.float32)
+        out = self.optimizer.step(closure)
+        self._cast(self.state_dtype)
+        return out
+
+
+def low_precision_optimizer_state(optimizer: torch.optim.Optimizer,
+                                  dtype: Union[str, torch.dtype] = torch.bfloat16
+                                  ) -> LowPrecisionState:
+    """``optimizer`` with its slots stored in ``dtype`` (a torch dtype or its
+    name, e.g. ``"bfloat16"``): :class:`LowPrecisionState`. bf16 keeps about
+    8 bits of mantissa, so a monotone accumulator (adagrad's sum of squares,
+    adam's second moment) drops relative increments below about 2**-8."""
+    return LowPrecisionState(optimizer, state_dtype(dtype))
+
+
+def state_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
+    """The floating torch dtype ``dtype`` names; raises for any other."""
+    resolved = getattr(torch, dtype, None) if isinstance(dtype, str) else dtype
+    if not isinstance(resolved, torch.dtype) or not resolved.is_floating_point:
+        raise ValueError(f"optimizer_state_dtype must be a floating dtype, not {dtype!r}")
+    return resolved
 
 
 def check_optimizer(name: str) -> None:

@@ -6,7 +6,9 @@
 //   flash_ce_grad_query   <- grad_query  (K2)
 //   flash_ce_grad_neg     <- grad_neg    (K3)
 //
-// For query row i and negative row j the logit is
+// q and neg are both fp32 or both bf16 (the mixed_bfloat16 policy, where the
+// TPU kernels take bf16 operands); every other input and every output is
+// fp32. For query row i and negative row j the logit is
 //   x_ij = (sum_d q[i,d] * neg[j,d] + bias[j]) / T,
 // with the sum before the division replaced by MIN_FLOAT (float16.min / 100)
 // where downscoring is on and nid[j] == pid[i]. A null pid, nid or bias means
@@ -77,6 +79,26 @@
 //       order; with one chunk the block writes the result. No atomics: the
 //       result is the same bits from run to run.
 //
+// The bf16 forms (TI = bf16) are the same kernels on 16-bit tiles, half the
+// shared memory and copies of the fp32 ones:
+//   - Logits: one bf16 product into fp32, mma.sync.m16n8k16, no split: bf16
+//     products are exact in fp32, so only the sums round (toward zero on the
+//     tensor cores: each 32 columns of d, two k16 steps, are summed from 0
+//     and join s by an fp32 add, as in the fp32 forms). K1 and K2 / K3 take
+//     them from one function, logit_products, as the fp32 forms do.
+//   - Gradient products: the fp32 coefficients times the bf16 tile widened,
+//     as 2xTF32 (mma_2xtf32): the bf16 row is exact in TF32, and coef splits
+//     into a TF32 part and a TF32 remainder, so the product keeps about
+//     2^-21 relative, near fp32's, where one TF32 or bf16 pass keeps 1e-3.
+//     A three-part bf16 split of coef on m16n8k16 would cost 3 bf16 passes
+//     (3/4 of 2xTF32's tensor time) and a transposed B tile (ldmatrix.trans);
+//     2xTF32 keeps the fp32 forms' fragment layout and row permutation, the
+//     tile read by 2-byte loads, conflict-free at the bf16 row stride.
+//   - Copies: 16-byte cp.async of 8 elements where D % 8 == 0 and the rows
+//     are 16-byte aligned, else plain element loads into shared (a 2-byte
+//     element has no cp.async); rows padded by 16 bytes (DP + 8 elements),
+//     so that ldmatrix and the 2-byte loads are conflict-free.
+//
 // Bound on an H100 SXM at Q = N = 8192, D = 128: operations. K1 does
 // 2*Q*N*D = 17.2 GFLOP, as 3xTF32 51.5 GFLOP on the TF32 tensor cores: 0.104
 // ms at 495 TFLOP/s (0.256 ms as fp32 on the CUDA cores, the earlier
@@ -88,7 +110,10 @@
 // 8 warps per SM on 128 of 132 SMs (two blocks of 4 warps on every SM,
 // through the splits); synchronous 4-byte tile loads with no double
 // buffering and two or three barriers a tile (cp.async into two stages, one
-// barrier, coefficients kept in registers).
+// barrier, coefficients kept in registers). bf16 forms: K1's logits are
+// 17.2 GFLOP at 989 TFLOP/s (0.017 ms) and its Q*N = 67 M exponentials at
+// the SFU's 16 a clock per SM (0.016 ms at 1.98 GHz); K2 / K3 add the
+// gradient product as 2xTF32, 34.4 GFLOP at 495 / 2 TFLOP/s (0.139 ms).
 
 #include <cfloat>
 #include <cmath>
@@ -107,38 +132,77 @@ constexpr float EMPTY = -FLT_MAX;             // the max over no logit
 
 constexpr int GBR = 64;        // own rows a block holds: 4 warps x 16
 constexpr int GTHREADS = 128;
-constexpr int GPAD = 4;        // row stride DP + 4 = 4 mod 32 banks
+
+using bf16 = uint16_t;         // a bfloat16's raw bits
 
 // streamed rows per tile: at DP = 256 the 16 x DP accumulator takes 128
 // registers a lane, so the logit tile shrinks to 16 x 32
 template <int DP>
 __host__ __device__ constexpr int grad_bc() { return DP == 256 ? 32 : 64; }
 
-// one stage: the tile [BC][DP + GPAD], then BC floats each of the streamed
-// rows' first and second float input and their ids
-template <int DP>
-__host__ __device__ constexpr int grad_stage() { return grad_bc<DP>() * (DP + GPAD) + 3 * grad_bc<DP>(); }
+// shared row stride in elements: DP and 16 bytes (4 fp32 or 8 bf16), 4 mod
+// 32 banks, so that ldmatrix's eight rows fall on distinct banks
+template <int DP, typename TI>
+__host__ __device__ constexpr int grad_ld() { return DP + 16 / (int)sizeof(TI); }
 
-template <int DP>
+// one stage: the tile [BC][LD] of TI, then BC floats each of the streamed
+// rows' first and second float input and their ids
+template <int DP, typename TI>
+__host__ __device__ constexpr int grad_stage_bytes() {
+  return grad_bc<DP>() * grad_ld<DP, TI>() * (int)sizeof(TI) + 3 * grad_bc<DP>() * 4;
+}
+
+// the own rows [GBR][LD] of TI, then two stages
+template <int DP, typename TI>
 constexpr size_t grad_smem() {
-  return ((size_t)GBR * (DP + GPAD) + 2 * (size_t)grad_stage<DP>()) * sizeof(float);
+  return (size_t)GBR * grad_ld<DP, TI>() * sizeof(TI) + 2 * (size_t)grad_stage_bytes<DP, TI>();
+}
+
+// rows [r0, r0 + ROWS) of a (rows, D) matrix, those below r_end, into shared
+// [ROWS][LD], NT threads; other rows and columns past D zero. fp32: the
+// cp.async loader of mma_tf32.cuh; bf16: 16-byte cp.async where vec (D % 8
+// == 0, 16-byte aligned rows), else plain element loads, which the same
+// barrier publishes
+template <int DP, int ROWS, int NT, typename TI>
+__device__ __forceinline__ void load_rows(TI* dst, const TI* __restrict__ src, int r0, int r_end,
+                                          int D, bool vec) {
+  if constexpr (sizeof(TI) == 4) {
+    load_tile_async<DP, ROWS, NT, 4>(dst, src, r0, r_end, D, vec);
+  } else {
+    constexpr int LD = grad_ld<DP, TI>();
+    if (vec) {
+      constexpr int C8 = DP / 8;
+      for (int i = threadIdx.x; i < ROWS * C8; i += NT) {
+        const int r = i / C8, c = 8 * (i % C8);
+        const bool ok = r0 + r < r_end && c < D;
+        cp_async16(dst + r * LD + c, ok ? src + (size_t)(r0 + r) * D + c : src, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < ROWS * DP; i += NT) {
+        const int r = i / DP, c = i % DP;
+        dst[r * LD + c] = (r0 + r < r_end && c < D) ? src[(size_t)(r0 + r) * D + c] : bf16(0);
+      }
+    }
+  }
 }
 
 // The warp's 16 x BCT logit products, own rows (16 * warp ..) of os against
-// the tile ss, both [rows][DP + GPAD] in shared memory: s[j] covers tile rows
-// 8j .. 8j + 7 in the C fragment's layout. 3xTF32; each 32 columns of d are
-// summed from 0 and join s by an fp32 add. Columns past D are zeros: no
-// branch inside the products, so that loads and independent mma chains
+// the tile ss, both [rows][LD] in shared memory: s[j] covers tile rows
+// 8j .. 8j + 7 in the C fragment's layout. fp32: 3xTF32 on m16n8k8; bf16:
+// one m16n8k16 product (exact products). Each 32 columns of d are summed
+// from 0 and join s by an fp32 add. Columns past D are zeros: no branch
+// inside the products, so that loads and independent mma chains
 // interleave. K1 and K2 / K3 both take their logits from here, so that the
 // forward's lse and the backward's exp(x - lse) see the same x.
-template <int DP, int NJ>
-__device__ __forceinline__ void logit_products(const float* os, const float* ss, int warp,
+template <int DP, int NJ, typename TI>
+__device__ __forceinline__ void logit_products(const TI* os, const TI* ss, int warp,
                                                int lane, float s[NJ][4]) {
-  constexpr int LD = DP + GPAD;
+  constexpr int LD = grad_ld<DP, TI>();
+  constexpr int E16 = 16 / (int)sizeof(TI);  // elements in 16 bytes: a matrix row
   // ldmatrix rows: lane 8i + r reads row r of matrix i; A: rows + 8 (i & 1),
-  // columns + 4 (i >> 1); B (a pair of j): rows + 8 (i >> 1), columns + 4 (i & 1)
-  const float* a_ldm = os + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 4 * (lane >> 4);
-  const float* b_ldm = ss + (8 * (lane >> 4) + (lane & 7)) * LD + 4 * ((lane >> 3) & 1);
+  // columns + E16 (i >> 1); B (a pair of j): rows + 8 (i >> 1), columns + E16 (i & 1)
+  const TI* a_ldm = os + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + E16 * (lane >> 4);
+  const TI* b_ldm = ss + (8 * (lane >> 4) + (lane & 7)) * LD + E16 * ((lane >> 3) & 1);
 #pragma unroll
   for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
   for (int k0 = 0; k0 < DP; k0 += 32) {
@@ -146,19 +210,26 @@ __device__ __forceinline__ void logit_products(const float* os, const float* ss,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.f;
 #pragma unroll
-    for (int kd = k0; kd < k0 + 32; kd += 8) {
+    for (int kd = k0; kd < k0 + 32; kd += 2 * E16) {  // one k-step: 8 (fp32) or 16 (bf16)
       uint32_t ab[4], al[4];
       ldmatrix_x4(ab, a_ldm + kd);
+      if constexpr (sizeof(TI) == 4) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(ab[e]), ab[e], al[e]);
+        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(ab[e]), ab[e], al[e]);
+      }
 #pragma unroll
       for (int j = 0; j < NJ; j += 2) {
         uint32_t bb[4], bl[4];  // b0, b1 of j, then of j + 1
         ldmatrix_x4(bb, b_ldm + 8 * j * LD + kd);
+        if constexpr (sizeof(TI) == 4) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(bb[e]), bb[e], bl[e]);
-        mma_3xtf32(part[j], ab, al, bb, bl);
-        mma_3xtf32(part[j + 1], ab, al, bb + 2, bl + 2);
+          for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(bb[e]), bb[e], bl[e]);
+          mma_3xtf32(part[j], ab, al, bb, bl);
+          mma_3xtf32(part[j + 1], ab, al, bb + 2, bl + 2);
+        } else {
+          mma_bf16(part[j], ab, bb);
+          mma_bf16(part[j + 1], ab, bb + 2);
+        }
       }
     }
 #pragma unroll
@@ -175,18 +246,18 @@ __device__ __forceinline__ void logit_products(const float* os, const float* ss,
 // Block (own tile x, split y): the GBR query rows of tile x against the
 // negatives [y * chunk, min((y + 1) * chunk, N)), BCT at a time through the
 // cp.async ring; one (m, s) partial per (split, row).
-template <int DP>
+template <int DP, typename TI>
 __global__ void __launch_bounds__(GTHREADS)
-lse_partial(const float* __restrict__ q, const float* __restrict__ neg,
+lse_partial(const TI* __restrict__ q, const TI* __restrict__ neg,
             const int* __restrict__ pid, const int* __restrict__ nid,
             const float* __restrict__ bias, float* __restrict__ part_m,
             float* __restrict__ part_s, int Q, int N, int D, float T, int downscore,
             int chunk, int vec) {
-  constexpr int BCT = grad_bc<DP>(), LD = DP + GPAD, NJ = BCT / 8;
-  constexpr int STAGE = grad_stage<DP>();
-  extern __shared__ __align__(16) float smem[];
-  float* os = smem;               // [GBR][LD] own query rows
-  float* stages = os + GBR * LD;  // two stages: the tile, bias, -, nid
+  constexpr int BCT = grad_bc<DP>(), LD = grad_ld<DP, TI>(), NJ = BCT / 8;
+  constexpr int STAGE = grad_stage_bytes<DP, TI>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  TI* os = reinterpret_cast<TI*>(smem);  // [GBR][LD] own query rows
+  unsigned char* stages = smem + GBR * LD * sizeof(TI);  // two stages: the tile, bias, -, nid
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * GBR;
@@ -195,14 +266,14 @@ lse_partial(const float* __restrict__ q, const float* __restrict__ neg,
   const int* s_id = downscore ? nid : nullptr;
 
   auto load_stage = [&](int buf, int c0) {
-    float* ss = stages + buf * STAGE;
-    load_tile_async<DP, BCT, GTHREADS, GPAD>(ss, neg, c0, c_end, D, vec);
-    float* meta = ss + BCT * LD;
+    TI* ss = reinterpret_cast<TI*>(stages + buf * STAGE);
+    load_rows<DP, BCT, GTHREADS>(ss, neg, c0, c_end, D, vec);
+    float* meta = reinterpret_cast<float*>(ss + BCT * LD);
     load_vec_async<GTHREADS>(meta, bias, c0, c_end, BCT, neg);
     load_vec_async<GTHREADS>(meta + 2 * BCT, s_id, c0, c_end, BCT, neg);
     cp_async_commit();
   };
-  load_tile_async<DP, GBR, GTHREADS, GPAD>(os, q, r0, Q, D, vec);
+  load_rows<DP, GBR, GTHREADS>(os, q, r0, Q, D, vec);
   load_stage(0, c_begin);  // one group: the own rows and the first tile
 
   // the lane's rows g and g + 8 of the warp's 16: an online (max, sum) each
@@ -223,8 +294,8 @@ lse_partial(const float* __restrict__ q, const float* __restrict__ neg,
     cp_async_wait_all();
     __syncthreads();  // this tile is in, and every warp is done with the other stage
     if (c0 + BCT < c_end) load_stage(buf ^ 1, c0 + BCT);
-    const float* ss = stages + buf * STAGE;
-    const float* m_bias = ss + BCT * LD;
+    const TI* ss = reinterpret_cast<const TI*>(stages + buf * STAGE);
+    const float* m_bias = reinterpret_cast<const float*>(ss + BCT * LD);
     const int* m_id = reinterpret_cast<const int*>(m_bias + 2 * BCT);
     float s[NJ][4];
     logit_products<DP, NJ>(os, ss, warp, lane, s);
@@ -294,23 +365,23 @@ __global__ void lse_merge(const float* __restrict__ pos_logit, const float* __re
 // it owns negative rows and streams queries (K3, dneg). Block (own tile x,
 // chunk y) streams rows [y * chunk, min((y + 1) * chunk, n_strm)) and writes
 // its (n_own, D) sum to dst + y * n_own * D. Fragments as in mma_tf32.cuh.
-template <int DP, bool OWN_Q>
+template <int DP, bool OWN_Q, typename TI>
 __global__ void __launch_bounds__(GTHREADS)
-grad_rows(const float* __restrict__ q, const float* __restrict__ neg,
+grad_rows(const TI* __restrict__ q, const TI* __restrict__ neg,
           const float* __restrict__ lse, const float* __restrict__ gw,
           const int* __restrict__ pid, const int* __restrict__ nid,
           const float* __restrict__ bias, float* __restrict__ dst, int Q, int N, int D,
           float T, int downscore, int chunk, int vec) {
   // MG: output n-tiles a pass; JG: k-steps of the second product summed
   // from 0 before each fp32 add (see "Sums" above)
-  constexpr int BCT = grad_bc<DP>(), LD = DP + GPAD, NJ = BCT / 8, NM = DP / 8, MG = 8;
+  constexpr int BCT = grad_bc<DP>(), LD = grad_ld<DP, TI>(), NJ = BCT / 8, NM = DP / 8, MG = 8;
   constexpr int JG = NJ < 4 ? NJ : 4;
-  constexpr int STAGE = grad_stage<DP>();
-  extern __shared__ __align__(16) float smem[];
-  float* os = smem;               // [GBR][LD] own rows
-  float* stages = os + GBR * LD;  // two stages
-  const float* own = OWN_Q ? q : neg;
-  const float* strm = OWN_Q ? neg : q;
+  constexpr int STAGE = grad_stage_bytes<DP, TI>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  TI* os = reinterpret_cast<TI*>(smem);                  // [GBR][LD] own rows
+  unsigned char* stages = smem + GBR * LD * sizeof(TI);  // two stages
+  const TI* own = OWN_Q ? q : neg;
+  const TI* strm = OWN_Q ? neg : q;
   const int n_own = OWN_Q ? Q : N;
   const int n_strm = OWN_Q ? N : Q;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -324,15 +395,15 @@ grad_rows(const float* __restrict__ q, const float* __restrict__ neg,
   const int* s_id = downscore ? (OWN_Q ? nid : pid) : nullptr;
 
   auto load_stage = [&](int buf, int c0) {
-    float* ss = stages + buf * STAGE;
-    load_tile_async<DP, BCT, GTHREADS, GPAD>(ss, strm, c0, c_end, D, vec);
-    float* meta = ss + BCT * LD;
+    TI* ss = reinterpret_cast<TI*>(stages + buf * STAGE);
+    load_rows<DP, BCT, GTHREADS>(ss, strm, c0, c_end, D, vec);
+    float* meta = reinterpret_cast<float*>(ss + BCT * LD);
     load_vec_async<GTHREADS>(meta, s_f0, c0, c_end, BCT, strm);
     load_vec_async<GTHREADS>(meta + BCT, s_f1, c0, c_end, BCT, strm);
     load_vec_async<GTHREADS>(meta + 2 * BCT, s_id, c0, c_end, BCT, strm);
     cp_async_commit();
   };
-  load_tile_async<DP, GBR, GTHREADS, GPAD>(os, own, r0, n_own, D, vec);
+  load_rows<DP, GBR, GTHREADS>(os, own, r0, n_own, D, vec);
   load_stage(0, c_begin);  // one group: the own rows and the first tile
 
   // the lane's own rows: g and g + 8 of the warp's 16; (lse, gw, pid) for a
@@ -361,8 +432,8 @@ grad_rows(const float* __restrict__ q, const float* __restrict__ neg,
     cp_async_wait_all();
     __syncthreads();  // this tile is in, and every warp is done with the other stage
     if (c0 + BCT < c_end) load_stage(buf ^ 1, c0 + BCT);
-    const float* ss = stages + buf * STAGE;
-    const float* m_f0 = ss + BCT * LD;
+    const TI* ss = reinterpret_cast<const TI*>(stages + buf * STAGE);
+    const float* m_f0 = reinterpret_cast<const float*>(ss + BCT * LD);
     const float* m_f1 = m_f0 + BCT;
     const int* m_id = reinterpret_cast<const int*>(m_f1 + BCT);
 
@@ -389,8 +460,9 @@ grad_rows(const float* __restrict__ q, const float* __restrict__ neg,
     // 8j + 2t + 1 (k = t + 4), so A is (c0, c2, c1, c3) of s[j], split where
     // it is used. MG output n-tiles a pass (MG independent mma chains); each
     // sums JG k-steps from 0 before its fp32 add. Output columns past D are
-    // computed (zeros) and not stored
-    const float* b0 = ss + 2 * t * LD + g;
+    // computed (zeros) and not stored. The tile: fp32 split for 3xTF32, bf16
+    // widened (exact in TF32) for 2xTF32
+    const TI* b0 = ss + 2 * t * LD + g;
 #pragma unroll
     for (int m0 = 0; m0 < NM; m0 += MG) {
 #pragma unroll
@@ -407,10 +479,16 @@ grad_rows(const float* __restrict__ q, const float* __restrict__ neg,
           split_tf32(s[j][3], cb[3], cl[3]);
 #pragma unroll
           for (int u = 0; u < MG; ++u) {
-            uint32_t bb[2], bl[2];
-            split_tf32(b0[8 * j * LD + 8 * (m0 + u)], bb[0], bl[0]);
-            split_tf32(b0[(8 * j + 1) * LD + 8 * (m0 + u)], bb[1], bl[1]);
-            mma_3xtf32(sum[u], cb, cl, bb, bl);
+            if constexpr (sizeof(TI) == 4) {
+              uint32_t bb[2], bl[2];
+              split_tf32(b0[8 * j * LD + 8 * (m0 + u)], bb[0], bl[0]);
+              split_tf32(b0[(8 * j + 1) * LD + 8 * (m0 + u)], bb[1], bl[1]);
+              mma_3xtf32(sum[u], cb, cl, bb, bl);
+            } else {
+              const uint32_t bb[2] = {bf16_as_tf32(b0[8 * j * LD + 8 * (m0 + u)]),
+                                      bf16_as_tf32(b0[(8 * j + 1) * LD + 8 * (m0 + u)])};
+              mma_2xtf32(sum[u], cb, cl, bb);
+            }
           }
         }
 #pragma unroll
@@ -449,20 +527,28 @@ __global__ void grad_merge(const float* __restrict__ part, float* __restrict__ o
 // the padded width a D runs at
 int dp_for(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
 
-// K1 keeps grad_rows' layout: own rows, then two stages of a tile and its
-// per-row inputs (the second vector unused)
-template <int DP>
-cudaError_t lse_attr() {
-  return cudaFuncSetAttribute(lse_partial<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)grad_smem<DP>());
+// 16-byte copies: D a whole number of 16-byte pieces and both operands
+// 16-byte aligned
+template <typename TI>
+int vec_copies(const void* q, const void* neg, int D) {
+  return D % (16 / (int)sizeof(TI)) == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(neg) % 16 == 0;
 }
 
-template <int DP>
+// K1 keeps grad_rows' layout: own rows, then two stages of a tile and its
+// per-row inputs (the second vector unused)
+template <int DP, typename TI>
+cudaError_t lse_attr() {
+  return cudaFuncSetAttribute(lse_partial<DP, TI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)grad_smem<DP, TI>());
+}
+
+template <int DP, typename TI>
 cudaError_t lse_blocks_per_sm(int* blocks) {
-  cudaError_t err = lse_attr<DP>();
+  cudaError_t err = lse_attr<DP, TI>();
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lse_partial<DP>, GTHREADS,
-                                                       grad_smem<DP>());
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lse_partial<DP, TI>, GTHREADS,
+                                                       grad_smem<DP, TI>());
 }
 
 cudaError_t sm_count(int* sms) {
@@ -479,20 +565,21 @@ int fill_splits(int per_sm, int sms, int row_blocks, int tiles) {
   return splits < 1 ? 1 : splits > tiles ? tiles : splits > SPLITS_MAX ? SPLITS_MAX : splits;
 }
 
+template <typename TI>
 int lse_splits(int Q, int N, int D) {
   int per_sm = 1, sms = 1;
   const int dp = dp_for(D);
-  cudaError_t err = dp == 64 ? lse_blocks_per_sm<64>(&per_sm)
-                  : dp == 128 ? lse_blocks_per_sm<128>(&per_sm)
-                              : lse_blocks_per_sm<256>(&per_sm);
+  cudaError_t err = dp == 64 ? lse_blocks_per_sm<64, TI>(&per_sm)
+                  : dp == 128 ? lse_blocks_per_sm<128, TI>(&per_sm)
+                              : lse_blocks_per_sm<256, TI>(&per_sm);
   if (err != cudaSuccess) return -(int)err;
   if ((err = sm_count(&sms)) != cudaSuccess) return -(int)err;
   const int bc = dp == 256 ? grad_bc<256>() : grad_bc<128>();
   return fill_splits(per_sm, sms, (Q + GBR - 1) / GBR, (N + bc - 1) / bc);
 }
 
-template <int DP>
-cudaError_t launch_lse(const float* q, const float* pos_logit, const float* neg, const int* pid,
+template <int DP, typename TI>
+cudaError_t launch_lse(const TI* q, const float* pos_logit, const TI* neg, const int* pid,
                        const int* nid, const float* bias, float* part_m, float* part_s,
                        float* m, float* s, int Q, int N, int D, float T, int downscore,
                        int splits, cudaStream_t stream) {
@@ -500,48 +587,61 @@ cudaError_t launch_lse(const float* q, const float* pos_logit, const float* neg,
   const int tiles = (N + BCT - 1) / BCT;
   const int chunk = (tiles + splits - 1) / splits * BCT;
   const int used = (N + chunk - 1) / chunk;  // splits that hold a negative
-  cudaError_t err = lse_attr<DP>();
+  cudaError_t err = lse_attr<DP, TI>();
   if (err != cudaSuccess) return err;
-  const int vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(neg) % 16 == 0;
   const dim3 grid((Q + GBR - 1) / GBR, used);
-  lse_partial<DP><<<grid, GTHREADS, grad_smem<DP>(), stream>>>(
-      q, neg, pid, nid, bias, part_m, part_s, Q, N, D, T, downscore, chunk, vec);
+  lse_partial<DP, TI><<<grid, GTHREADS, grad_smem<DP, TI>(), stream>>>(
+      q, neg, pid, nid, bias, part_m, part_s, Q, N, D, T, downscore, chunk,
+      vec_copies<TI>(q, neg, D));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   lse_merge<<<(Q + 255) / 256, 256, 0, stream>>>(pos_logit, part_m, part_s, m, s, Q, used);
   return cudaGetLastError();
 }
 
-template <int DP, bool OWN_Q>
-cudaError_t grad_attr() {
-  return cudaFuncSetAttribute(grad_rows<DP, OWN_Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)grad_smem<DP>());
+template <typename TI>
+int lse_forward(const void* q, const float* pos_logit, const void* neg, const int* pid,
+                const int* nid, const float* bias, float* part_m, float* part_s, float* m,
+                float* s, int Q, int N, int D, float T, int downscore, int splits,
+                cudaStream_t stream) {
+  const TI* qt = static_cast<const TI*>(q);
+  const TI* nt = static_cast<const TI*>(neg);
+  const int dp = dp_for(D);
+  return (int)(dp == 64 ? launch_lse<64, TI>(qt, pos_logit, nt, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream)
+             : dp == 128 ? launch_lse<128, TI>(qt, pos_logit, nt, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream)
+                         : launch_lse<256, TI>(qt, pos_logit, nt, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream));
 }
 
-template <int DP, bool OWN_Q>
+template <int DP, bool OWN_Q, typename TI>
+cudaError_t grad_attr() {
+  return cudaFuncSetAttribute(grad_rows<DP, OWN_Q, TI>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)grad_smem<DP, TI>());
+}
+
+template <int DP, bool OWN_Q, typename TI>
 int grad_splits_dp(int n_own, int n_strm) {
   int per_sm = 1, sms = 1;
-  cudaError_t err = grad_attr<DP, OWN_Q>();
+  cudaError_t err = grad_attr<DP, OWN_Q, TI>();
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grad_rows<DP, OWN_Q>, GTHREADS,
-                                                        grad_smem<DP>());
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grad_rows<DP, OWN_Q, TI>,
+                                                        GTHREADS, grad_smem<DP, TI>());
   if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return -(int)err;
   const int tiles = (n_strm + grad_bc<DP>() - 1) / grad_bc<DP>();
   return fill_splits(per_sm, sms, (n_own + GBR - 1) / GBR, tiles);
 }
 
-template <bool OWN_Q>
+template <bool OWN_Q, typename TI>
 int grad_splits(int Q, int N, int D) {
   const int n_own = OWN_Q ? Q : N, n_strm = OWN_Q ? N : Q;
   const int dp = dp_for(D);
-  return dp == 64 ? grad_splits_dp<64, OWN_Q>(n_own, n_strm)
-       : dp == 128 ? grad_splits_dp<128, OWN_Q>(n_own, n_strm)
-                   : grad_splits_dp<256, OWN_Q>(n_own, n_strm);
+  return dp == 64 ? grad_splits_dp<64, OWN_Q, TI>(n_own, n_strm)
+       : dp == 128 ? grad_splits_dp<128, OWN_Q, TI>(n_own, n_strm)
+                   : grad_splits_dp<256, OWN_Q, TI>(n_own, n_strm);
 }
 
-template <int DP, bool OWN_Q>
-cudaError_t launch_grad(const float* q, const float* neg, const float* lse, const float* gw,
+template <int DP, bool OWN_Q, typename TI>
+cudaError_t launch_grad(const TI* q, const TI* neg, const float* lse, const float* gw,
                         const int* pid, const int* nid, const float* bias, float* part,
                         float* out, int Q, int N, int D, float T, int downscore, int splits,
                         cudaStream_t stream) {
@@ -550,13 +650,12 @@ cudaError_t launch_grad(const float* q, const float* neg, const float* lse, cons
   const int chunk = (tiles + splits - 1) / splits * grad_bc<DP>();
   const int used = (n_strm + chunk - 1) / chunk;  // chunks that hold a streamed row
   if (used > 1 && !part) return cudaErrorInvalidValue;
-  cudaError_t err = grad_attr<DP, OWN_Q>();
+  cudaError_t err = grad_attr<DP, OWN_Q, TI>();
   if (err != cudaSuccess) return err;
-  const int vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(neg) % 16 == 0;
   const dim3 grid((n_own + GBR - 1) / GBR, used);
-  grad_rows<DP, OWN_Q><<<grid, GTHREADS, grad_smem<DP>(), stream>>>(
-      q, neg, lse, gw, pid, nid, bias, used > 1 ? part : out, Q, N, D, T, downscore, chunk, vec);
+  grad_rows<DP, OWN_Q, TI><<<grid, GTHREADS, grad_smem<DP, TI>(), stream>>>(
+      q, neg, lse, gw, pid, nid, bias, used > 1 ? part : out, Q, N, D, T, downscore, chunk,
+      vec_copies<TI>(q, neg, D));
   if ((err = cudaGetLastError()) != cudaSuccess || used == 1) return err;
   const size_t n = (size_t)n_own * D;
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
@@ -564,18 +663,20 @@ cudaError_t launch_grad(const float* q, const float* neg, const float* lse, cons
   return cudaGetLastError();
 }
 
-template <bool OWN_Q>
-int grad(const float* q, const float* neg, const float* lse, const float* gw, const int* pid,
+template <bool OWN_Q, typename TI>
+int grad(const void* q, const void* neg, const float* lse, const float* gw, const int* pid,
          const int* nid, const float* bias, float* part, float* out, int Q, int N, int D,
          float T, int downscore, int splits, cudaStream_t stream) {
   if (Q < 1 || N < 1 || D < 1 || D > DMAX || splits < 1 || splits > SPLITS_MAX)
     return (int)cudaErrorInvalidValue;
   downscore = downscore && pid && nid;
+  const TI* qt = static_cast<const TI*>(q);
+  const TI* nt = static_cast<const TI*>(neg);
   const int dp = dp_for(D);
   cudaError_t err =
-      dp == 64 ? launch_grad<64, OWN_Q>(q, neg, lse, gw, pid, nid, bias, part, out, Q, N, D, T, downscore, splits, stream)
-      : dp == 128 ? launch_grad<128, OWN_Q>(q, neg, lse, gw, pid, nid, bias, part, out, Q, N, D, T, downscore, splits, stream)
-                  : launch_grad<256, OWN_Q>(q, neg, lse, gw, pid, nid, bias, part, out, Q, N, D, T, downscore, splits, stream);
+      dp == 64 ? launch_grad<64, OWN_Q, TI>(qt, nt, lse, gw, pid, nid, bias, part, out, Q, N, D, T, downscore, splits, stream)
+      : dp == 128 ? launch_grad<128, OWN_Q, TI>(qt, nt, lse, gw, pid, nid, bias, part, out, Q, N, D, T, downscore, splits, stream)
+                  : launch_grad<256, OWN_Q, TI>(qt, nt, lse, gw, pid, nid, bias, part, out, Q, N, D, T, downscore, splits, stream);
   return (int)err;
 }
 
@@ -587,63 +688,76 @@ extern "C" const char* kernel_error_string(int err) {
 
 extern "C" int flash_ce_dmax() { return DMAX; }
 
+// Every entry takes is_bf16: 0 for fp32 q and neg, 1 for bf16 (their raw
+// 16-bit values); the shapes and every other input are the same for both.
+
 // The number of negative splits flash_ce_lse_forward cuts N into for these
 // shapes; the caller sizes part_m and part_s as (splits, Q). A negative value
 // is a CUDA error, negated.
-extern "C" int flash_ce_lse_splits(int Q, int N, int D) {
+extern "C" int flash_ce_lse_splits(int Q, int N, int D, int is_bf16) {
   if (Q < 1 || N < 1 || D < 1 || D > DMAX) return -(int)cudaErrorInvalidValue;
-  return lse_splits(Q, N, D);
+  return is_bf16 ? lse_splits<bf16>(Q, N, D) : lse_splits<float>(Q, N, D);
 }
 
-// q (Q, D), pos_logit (Q,), neg (N, D), bias (N,) or null: float32.
-// pid (Q,), nid (N,): int32 or null. part_m / part_s: (splits, Q) scratch with
-// splits = flash_ce_lse_splits(Q, N, D). m, s: (Q,). Returns cudaGetLastError().
-extern "C" int flash_ce_lse_forward(const float* q, const float* pos_logit, const float* neg,
+// q (Q, D), neg (N, D): fp32 or bf16; pos_logit (Q,), bias (N,) or null:
+// float32. pid (Q,), nid (N,): int32 or null. part_m / part_s: (splits, Q)
+// scratch with splits = flash_ce_lse_splits(Q, N, D, is_bf16). m, s: (Q,).
+// Returns cudaGetLastError().
+extern "C" int flash_ce_lse_forward(const void* q, const float* pos_logit, const void* neg,
                                     const int* pid, const int* nid, const float* bias,
                                     float* part_m, float* part_s, float* m, float* s, int Q,
                                     int N, int D, float T, int downscore, int splits,
-                                    cudaStream_t stream) {
+                                    int is_bf16, cudaStream_t stream) {
   if (Q < 1 || N < 1 || D < 1 || D > DMAX || splits < 1 || splits > SPLITS_MAX)
     return (int)cudaErrorInvalidValue;
   downscore = downscore && pid && nid;
-  const int dp = dp_for(D);
-  return (int)(dp == 64 ? launch_lse<64>(q, pos_logit, neg, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream)
-             : dp == 128 ? launch_lse<128>(q, pos_logit, neg, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream)
-                         : launch_lse<256>(q, pos_logit, neg, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream));
+  return is_bf16 ? lse_forward<bf16>(q, pos_logit, neg, pid, nid, bias, part_m, part_s, m, s,
+                                     Q, N, D, T, downscore, splits, stream)
+                 : lse_forward<float>(q, pos_logit, neg, pid, nid, bias, part_m, part_s, m, s,
+                                      Q, N, D, T, downscore, splits, stream);
 }
 
 // The number of chunks flash_ce_grad_query (own_q != 0) or flash_ce_grad_neg
 // cuts the streamed side into for these shapes; with more than one the
 // caller passes part, (splits, Q, D) or (splits, N, D) float32 scratch. A
 // negative value is a CUDA error, negated.
-extern "C" int flash_ce_grad_splits(int Q, int N, int D, int own_q) {
+extern "C" int flash_ce_grad_splits(int Q, int N, int D, int own_q, int is_bf16) {
   if (Q < 1 || N < 1 || D < 1 || D > DMAX) return -(int)cudaErrorInvalidValue;
-  return own_q ? grad_splits<true>(Q, N, D) : grad_splits<false>(Q, N, D);
+  if (is_bf16) return own_q ? grad_splits<true, bf16>(Q, N, D) : grad_splits<false, bf16>(Q, N, D);
+  return own_q ? grad_splits<true, float>(Q, N, D) : grad_splits<false, float>(Q, N, D);
 }
 
-// Dynamic shared memory of a grad_rows block at width D, in bytes.
-extern "C" int flash_ce_grad_smem(int D) {
+// Dynamic shared memory of a grad_rows (and lse_partial) block at width D, in bytes.
+extern "C" int flash_ce_grad_smem(int D, int is_bf16) {
   const int dp = dp_for(D);
-  return (int)(dp == 64 ? grad_smem<64>() : dp == 128 ? grad_smem<128>() : grad_smem<256>());
+  if (is_bf16)
+    return (int)(dp == 64 ? grad_smem<64, bf16>() : dp == 128 ? grad_smem<128, bf16>()
+                                                             : grad_smem<256, bf16>());
+  return (int)(dp == 64 ? grad_smem<64, float>() : dp == 128 ? grad_smem<128, float>()
+                                                            : grad_smem<256, float>());
 }
 
-// dq (Q, D) = sum_j coef_ij * neg[j]; lse, gw (Q,) float32; part as
+// dq (Q, D) float32 = sum_j coef_ij * neg[j]; lse, gw (Q,) float32; part as
 // flash_ce_grad_splits says (null with one chunk); the rest as above.
-extern "C" int flash_ce_grad_query(const float* q, const float* neg, const float* lse,
+extern "C" int flash_ce_grad_query(const void* q, const void* neg, const float* lse,
                                    const float* gw, const int* pid, const int* nid,
                                    const float* bias, float* part, float* dq, int Q, int N,
-                                   int D, float T, int downscore, int splits,
+                                   int D, float T, int downscore, int splits, int is_bf16,
                                    cudaStream_t stream) {
-  return grad<true>(q, neg, lse, gw, pid, nid, bias, part, dq, Q, N, D, T, downscore, splits,
-                    stream);
+  return is_bf16 ? grad<true, bf16>(q, neg, lse, gw, pid, nid, bias, part, dq, Q, N, D, T,
+                                    downscore, splits, stream)
+                 : grad<true, float>(q, neg, lse, gw, pid, nid, bias, part, dq, Q, N, D, T,
+                                     downscore, splits, stream);
 }
 
-// dneg (N, D) = sum_i coef_ij * q[i].
-extern "C" int flash_ce_grad_neg(const float* q, const float* neg, const float* lse,
+// dneg (N, D) float32 = sum_i coef_ij * q[i].
+extern "C" int flash_ce_grad_neg(const void* q, const void* neg, const float* lse,
                                  const float* gw, const int* pid, const int* nid,
                                  const float* bias, float* part, float* dneg, int Q, int N,
-                                 int D, float T, int downscore, int splits,
+                                 int D, float T, int downscore, int splits, int is_bf16,
                                  cudaStream_t stream) {
-  return grad<false>(q, neg, lse, gw, pid, nid, bias, part, dneg, Q, N, D, T, downscore, splits,
-                     stream);
+  return is_bf16 ? grad<false, bf16>(q, neg, lse, gw, pid, nid, bias, part, dneg, Q, N, D, T,
+                                     downscore, splits, stream)
+                 : grad<false, float>(q, neg, lse, gw, pid, nid, bias, part, dneg, Q, N, D, T,
+                                      downscore, splits, stream);
 }

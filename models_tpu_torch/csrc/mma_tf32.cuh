@@ -1,6 +1,6 @@
 // Helpers shared by the tensor-core kernels of flash_ce.cu (K1-K3) and
 // streaming_topk.cu (K6): asynchronous copies into shared memory, the 3xTF32
-// split of an fp32 operand, and mma.sync.m16n8k8 in TF32.
+// split of an fp32 operand, mma.sync.m16n8k8 in TF32 and m16n8k16 in bf16.
 //
 // Fragments of m16n8k8 (lane = 4 g + t): A (16 x 8) a0 (g, t), a1 (g + 8, t),
 // a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8, k x n) b0 (t, g), b1 (t + 4, g);
@@ -79,10 +79,11 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
   small = __float_as_uint(x - __uint_as_float(big));
 }
 
-// four 8 x 4 fp32 matrices from shared memory: lane 8i + r gives the address
-// of row r of matrix i; register i of lane 4g + t is element (g, t) of
-// matrix i, a TF32 fragment
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const float* p) {
+// four 8 x 16-byte matrices from shared memory: lane 8i + r gives the
+// address of row r of matrix i; register i of lane 4g + t holds bytes
+// [4t, 4t + 4) of row g of matrix i: fp32 element (g, t), a TF32 fragment,
+// or the bf16 pair (g, 2t), (g, 2t + 1), a bf16 fragment
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"((unsigned)__cvta_generic_to_shared(p)));
@@ -103,6 +104,21 @@ __device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t a_big[4],
   mma_tf32(c, a_big, b_small);
   mma_tf32(c, a_big, b_big);
 }
+
+// c += a * b on bf16 operands into fp32: mma.sync.m16n8k16. Fragments (lane
+// = 4 g + t, two bf16 a register, the lower column in the low half): A (16 x
+// 16) a0 (g, 2t..), a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..);
+// B (16 x 8, k x n) b0 (2t.., g), b1 (2t + 8.., g); C as m16n8k8's. The
+// products are exact; only the sums round
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// a bf16 value (its raw bits) widened to fp32, which TF32 holds exactly
+__device__ __forceinline__ uint32_t bf16_as_tf32(uint16_t bits) { return (uint32_t)bits << 16; }
 
 // c += a * b in 2xTF32, for a B operand that TF32 holds exactly (bf16 or
 // int8 values widened to fp32): its small part is zero

@@ -3,7 +3,8 @@
 
 Columns sharing an int-domain name share one table. A list column not tagged
 ``SEQUENCE`` is mean-pooled over its mask (multi-hot). Tables are float32 or,
-at rest, bfloat16; lookups of a bf16 table are cast up to float32.
+at rest, bfloat16; lookups of a bf16 table are cast to the policy's compute
+dtype (float32, or bf16 under ``mixed_bfloat16``: ``_cast_up``).
 
 A table routed to the row-sparse optimizer (``sparse_routed``, set by
 ``Model.fit``) looks up from the detached table, in training, into float32
@@ -24,6 +25,7 @@ from torch import nn
 
 from ..core.aggregation import SEQUENCE_COMBINERS
 from ..core.combinators import ParallelBlock
+from ..core.policy import compute_dtype
 from ..core.block import Block
 from ..core.types import SequenceFeature
 from ..schema import ColumnSchema, Schema, Tags, infer_embedding_dim
@@ -101,7 +103,14 @@ class EmbeddingTable(Block):
         # F.embedding, not table[ids]: its backward sums repeated ids by
         # sorting them, where the indexing backward serialises each repeated
         # row (genres: 21 rows take every list entry of a batch)
-        return F.embedding(ids.long(), self.table).float()
+        return self._cast_up(F.embedding(ids.long(), self.table))
+
+    @staticmethod
+    def _cast_up(emb: torch.Tensor) -> torch.Tensor:
+        """Rows of a bf16 table in the policy's compute dtype; float32 rows
+        as they are. (The row-sparse lookup's rows are float32 leaves: the
+        JAX package's float32 tap, added to them, makes them float32 too.)"""
+        return emb if emb.dtype == torch.float32 else emb.to(compute_dtype())
 
     def _call_single(self, value, context):
         if isinstance(value, SequenceFeature):

@@ -25,8 +25,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..blocks.optimizer import (SparseEmbeddingOptimizer, check_optimizer, make_optimizer,
-                                split_embeddings_on_size)
+from ..blocks.optimizer import (SparseEmbeddingOptimizer, check_optimizer,
+                                low_precision_optimizer_state, make_optimizer,
+                                split_embeddings_on_size, state_dtype)
 from ..core.block import Block
 from ..core.device import check_module_device
 from ..core.types import (ModelContext, Prediction, TopKPrediction, to_device_batch,
@@ -138,7 +139,8 @@ class Model(Block):
     def compile(self, optimizer: str = "adam", loss=None, metrics=None,
                 learning_rate: Optional[float] = None, train_metrics_steps: int = 1,
                 embedding_optimizer: Union[None, str, SparseEmbeddingOptimizer] = None,
-                sparse_threshold: Optional[int] = None) -> "Model":
+                sparse_threshold: Optional[int] = None,
+                optimizer_state_dtype: Union[None, str, torch.dtype] = None) -> "Model":
         """Choose the optimizer, the loss (a name, a callable, or a dict by
         head name or target; None takes each head's default) and the metrics
         (None takes each head's default, the top-k metrics @10 for the
@@ -152,7 +154,11 @@ class Model(Block):
         ``"sparse_adagrad"``, at ``learning_rate``, default 0.05) trains the
         embedding tables row-sparsely; the dense optimizer takes the rest. With
         ``sparse_threshold``, only tables of more than that many rows, and
-        every bf16 table, go to it. Its slots live on the tables."""
+        every bf16 table, go to it. Its slots live on the tables.
+        ``optimizer_state_dtype`` (e.g. ``"bfloat16"``) stores the dense
+        optimizer's slots in that dtype at rest
+        (:func:`~models_tpu_torch.blocks.optimizer.low_precision_optimizer_state`);
+        the row-sparse slots stay float32."""
         if train_metrics_steps < 1:
             raise ValueError(f"train_metrics_steps must be >= 1, got {train_metrics_steps}")
         check_optimizer(optimizer)
@@ -167,6 +173,8 @@ class Model(Block):
         self._sparse_threshold = sparse_threshold
         self._sparse_tables: List[EmbeddingTable] = []
         self._optimizer_name = optimizer
+        self._optimizer_state_dtype = (None if optimizer_state_dtype is None
+                                       else state_dtype(optimizer_state_dtype))
         self._learning_rate = learning_rate
         self._loss_spec = loss
         self._metrics_spec = metrics
@@ -381,6 +389,9 @@ class Model(Block):
                 self._optimizer_name,
                 [p for p in self.parameters() if p.requires_grad and id(p) not in routed],
                 self._learning_rate)
+            if self._optimizer_state_dtype is not None:
+                self._optimizer = low_precision_optimizer_state(self._optimizer,
+                                                                self._optimizer_state_dtype)
         history = History()
         for epoch in range(epochs):
             t0 = time.perf_counter()

@@ -7,7 +7,11 @@ weighted over the rows, where ``pos_i = (q_i . p_i + pos_bias_i) / T`` and
 log-sum-exp kernel K1; the backward recomputes the logits in K2 (the query
 gradient) and K3 (the negatives' gradient), so the (Q, N) logits are never
 held. On CUDA tensors the kernels always run; on CPU tensors their plain
-versions.
+versions. Query and embeddings are float32, or bf16 under the
+``mixed_bfloat16`` policy: the logits, the loss and the gradients are then
+taken in float32 on the operands widened (bf16 products are exact in
+float32), and each cotangent is returned in its primal's dtype, as the JAX
+package's custom VJP returns them.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ class _SampledSoftmaxLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, query, pos_emb, neg_emb, pos_id, neg_id, weights, neg_bias, pos_bias,
                 temperature):
-        pos_logit = (query * pos_emb).sum(dim=1) / temperature
+        pos_logit = (query.float() * pos_emb.float()).sum(dim=1) / temperature
         if pos_bias is not None:
             # the bias lands on the raw score, before the temperature
             pos_logit = pos_logit + pos_bias / temperature
@@ -56,12 +60,13 @@ class _SampledSoftmaxLoss(torch.autograd.Function):
         # d loss_i / d x_ij = softmax_ij; d loss_i / d pos_i = softmax_i0 - 1
         coef_pos = gw * (torch.exp(pos_logit - lse) - 1.0) / T
         downscore = pos_id is not None and neg_id is not None
-        d_query = coef_pos[:, None] * pos_emb + flash_ce.grad_query(
+        d_query = coef_pos[:, None] * pos_emb.float() + flash_ce.grad_query(
             query, neg_emb, lse, gw, pos_id, neg_id, neg_bias, T, downscore)
-        d_pos = coef_pos[:, None] * query
+        d_pos = coef_pos[:, None] * query.float()
         d_neg = flash_ce.grad_neg(query, neg_emb, lse, gw, pos_id, neg_id, neg_bias, T,
                                   downscore)
-        return d_query, d_pos, d_neg, None, None, None, None, None, None
+        return (d_query.to(query.dtype), d_pos.to(pos_emb.dtype), d_neg.to(neg_emb.dtype),
+                None, None, None, None, None, None)
 
 
 def _ids(x):

@@ -13,11 +13,16 @@ with ``MIN_FLOAT`` in place of the sum before the division where
 None of them writes the (Q, N) logits. CUDA tensors go to the kernels of
 ``csrc/flash_ce.cu``; CPU tensors to the plain versions, which walk the
 negatives tile by tile in the order of the JAX scan (``ops/contrastive.py``).
-On the card all three compute their products on the tensor cores as 3xTF32
-(near fp32's error), K1 and K2 / K3 the same logits. The kernels hold widths
-up to :data:`DMAX`; :func:`fits` tells a caller whether its operands may go
-to them. Inputs are float32: bf16 operands wait for the mixed-precision
-slice.
+Query and negatives are both float32 or both bf16 (the ``mixed_bfloat16``
+policy); the per-row inputs and every output are float32. On the card the
+float32 forms compute their products on the tensor cores as 3xTF32 (near
+fp32's error); the bf16 forms take the logits as one bf16 product into fp32
+and the gradient products as 2xTF32 (the bf16 row is exact in TF32). K1 and
+K2 / K3 see the same logits. The plain versions widen bf16 operands to
+float32 before each product: bf16 products are exact in float32, so they
+compute what the kernels compute, up to the order of the sums. The kernels
+hold widths up to :data:`DMAX`; :func:`fits` tells a caller whether its
+operands may go to them.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ def fits(D: int, device) -> bool:
 
 
 def _tile_logits(query, neg_t, pos_id, neg_id_t, bias_t, temperature, downscore):
-    s = query @ neg_t.T
+    s = query.float() @ neg_t.float().T
     if bias_t is not None:
         s = s + bias_t[None, :]
     if downscore and pos_id is not None and neg_id_t is not None:
@@ -79,19 +84,20 @@ def _coef(query, neg_t, lse, gw, pos_id, nid_t, bias_t, temperature, downscore):
 def grad_query_plain(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature: float,
                      downscore: bool, tile: int = TILE) -> torch.Tensor:
     """Plain version of :func:`grad_query`: the tiled recompute."""
-    dq = torch.zeros_like(query)
+    dq = torch.zeros(query.shape, dtype=torch.float32, device=query.device)
     for _, _, neg_t, nid_t, bias_t in _tiles(neg_emb, neg_id, bias, tile):
-        dq += _coef(query, neg_t, lse, gw, pos_id, nid_t, bias_t, temperature, downscore) @ neg_t
+        coef = _coef(query, neg_t, lse, gw, pos_id, nid_t, bias_t, temperature, downscore)
+        dq += coef @ neg_t.float()
     return dq
 
 
 def grad_neg_plain(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature: float,
                    downscore: bool, tile: int = TILE) -> torch.Tensor:
     """Plain version of :func:`grad_neg`: the tiled recompute."""
-    dneg = torch.empty_like(neg_emb)
+    dneg = torch.empty(neg_emb.shape, dtype=torch.float32, device=neg_emb.device)
     for t0, t1, neg_t, nid_t, bias_t in _tiles(neg_emb, neg_id, bias, tile):
         coef = _coef(query, neg_t, lse, gw, pos_id, nid_t, bias_t, temperature, downscore)
-        dneg[t0:t1] = coef.T @ query
+        dneg[t0:t1] = coef.T @ query.float()
     return dneg
 
 
@@ -105,31 +111,33 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_ce_dmax.restype = i
-        lib.flash_ce_lse_splits.argtypes = [i, i, i]
+        lib.flash_ce_lse_splits.argtypes = [i, i, i, i]
         lib.flash_ce_lse_splits.restype = i
-        lib.flash_ce_lse_forward.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, f, i, i, p]
+        lib.flash_ce_lse_forward.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, f, i, i, i, p]
         lib.flash_ce_lse_forward.restype = i
-        lib.flash_ce_grad_splits.argtypes = [i, i, i, i]
+        lib.flash_ce_grad_splits.argtypes = [i, i, i, i, i]
         lib.flash_ce_grad_splits.restype = i
-        lib.flash_ce_grad_smem.argtypes = [i]
+        lib.flash_ce_grad_smem.argtypes = [i, i]
         lib.flash_ce_grad_smem.restype = i
         for fn in (lib.flash_ce_grad_query, lib.flash_ce_grad_neg):
-            fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i, i, p]
+            fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i, i, i, p]
             fn.restype = i
         lib._typed = True
     return lib
 
 
-def _check_matrix(name, x, D=None, device=None):
-    if x.dtype == torch.bfloat16:
-        raise ValueError(f"{name}: bf16 inputs to the flash-CE kernels wait for the "
-                         "mixed-precision slice (ROADMAP.md queue 1); pass float32")
-    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous 2-D float32 tensor")
-    if D is not None and x.shape[1] != D:
-        raise ValueError(f"{name} has width {x.shape[1]}, the queries {D}")
-    if device is not None and x.device != device:
-        raise ValueError(f"{name} lies on {x.device}, the queries on {device}")
+def _check_matrix(name, x, like=None):
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 2-D float32 or bfloat16 tensor")
+    if like is None:
+        return
+    if x.dtype != like.dtype:
+        raise ValueError(f"{name} is {x.dtype}, the queries {like.dtype}: both float32 or "
+                         "both bfloat16")
+    if x.shape[1] != like.shape[1]:
+        raise ValueError(f"{name} has width {x.shape[1]}, the queries {like.shape[1]}")
+    if x.device != like.device:
+        raise ValueError(f"{name} lies on {x.device}, the queries on {like.device}")
 
 
 def _check_vector(name, x, n, dtype, device):
@@ -141,7 +149,7 @@ def _check_vector(name, x, n, dtype, device):
 
 def _check(query, neg_emb, pos_id, neg_id, bias, per_query):
     _check_matrix("query", query)
-    _check_matrix("neg_emb", neg_emb, query.shape[1], query.device)
+    _check_matrix("neg_emb", neg_emb, query)
     Q, N, dev = query.shape[0], neg_emb.shape[0], query.device
     _check_vector("pos_id", pos_id, Q, torch.int32, dev)
     _check_vector("neg_id", neg_id, N, torch.int32, dev)
@@ -162,11 +170,26 @@ def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _bf16(x: torch.Tensor) -> int:
+    """The kernels' operand form: 1 for bf16 query and negatives, 0 for fp32."""
+    return int(x.dtype == torch.bfloat16)
+
+
+def _count(wrapper, x: torch.Tensor) -> None:
+    """One launch more on the wrapper's count of the form ``x`` takes:
+    ``launches`` (fp32) or ``launches_bf16``."""
+    if _bf16(x):
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
 def lse_forward(query, pos_logit, neg_emb, pos_id, neg_id, bias, temperature: float,
                 downscore: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """(m, s), each (Q,) f32: the running max and the sum of exponentials
-    relative to it over the positive logit and every negative. ``pos_id``
-    (Q,) / ``neg_id`` (N,) int32 and ``bias`` (N,) f32 may be None."""
+    relative to it over the positive logit and every negative. ``query``
+    (Q, D) and ``neg_emb`` (N, D) f32 or bf16; ``pos_id`` (Q,) / ``neg_id``
+    (N,) int32 and ``bias`` (N,) f32 may be None."""
     _check(query, neg_emb, pos_id, neg_id, bias, {"pos_logit": pos_logit})
     if query.device.type == "cpu":
         return lse_forward_plain(query, pos_logit, neg_emb, pos_id, neg_id, bias,
@@ -176,7 +199,7 @@ def lse_forward(query, pos_logit, neg_emb, pos_id, neg_id, bias, temperature: fl
         return pos_logit.clone(), torch.ones_like(pos_logit)
     m, s = torch.empty_like(pos_logit), torch.empty_like(pos_logit)
     lib = _lib()
-    splits = lib.flash_ce_lse_splits(Q, N, D)
+    splits = lib.flash_ce_lse_splits(Q, N, D, _bf16(query))
     if splits < 0:
         kernels.check(lib, -splits, "flash_ce_lse_splits")
     part_m = torch.empty((splits, Q), dtype=torch.float32, device=query.device)
@@ -184,10 +207,10 @@ def lse_forward(query, pos_logit, neg_emb, pos_id, neg_id, bias, temperature: fl
     rc = lib.flash_ce_lse_forward(
         query.data_ptr(), pos_logit.data_ptr(), neg_emb.data_ptr(), _ptr(pos_id), _ptr(neg_id),
         _ptr(bias), part_m.data_ptr(), part_s.data_ptr(), m.data_ptr(), s.data_ptr(),
-        Q, N, D, float(temperature), int(bool(downscore)), splits, _stream(query),
+        Q, N, D, float(temperature), int(bool(downscore)), splits, _bf16(query), _stream(query),
     )
     kernels.check(lib, rc, "flash_ce_lse_forward")
-    lse_forward.launches += 1
+    _count(lse_forward, query)
     return m, s
 
 
@@ -199,7 +222,8 @@ def _grad(entry, counter, out, query, neg_emb, lse, gw, pos_id, neg_id, bias, te
     lib = _lib()
     # the kernel cuts the streamed side into chunks that fill the card; each
     # chunk's partial sum goes to scratch, summed in chunk order
-    splits = lib.flash_ce_grad_splits(Q, N, D, int(entry == "flash_ce_grad_query"))
+    splits = lib.flash_ce_grad_splits(Q, N, D, int(entry == "flash_ce_grad_query"),
+                                      _bf16(query))
     if splits < 0:
         kernels.check(lib, -splits, "flash_ce_grad_splits")
     part = None if splits == 1 else torch.empty((splits, *out.shape), dtype=torch.float32,
@@ -207,10 +231,10 @@ def _grad(entry, counter, out, query, neg_emb, lse, gw, pos_id, neg_id, bias, te
     rc = getattr(lib, entry)(
         query.data_ptr(), neg_emb.data_ptr(), lse.data_ptr(), gw.data_ptr(), _ptr(pos_id),
         _ptr(neg_id), _ptr(bias), _ptr(part), out.data_ptr(), Q, N, D, float(temperature),
-        int(bool(downscore)), splits, _stream(query),
+        int(bool(downscore)), splits, _bf16(query), _stream(query),
     )
     kernels.check(lib, rc, entry)
-    counter.launches += 1
+    _count(counter, query)
     return out
 
 
@@ -222,8 +246,9 @@ def grad_query(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature: float
     if query.device.type == "cpu":
         return grad_query_plain(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature,
                                 downscore)
-    return _grad("flash_ce_grad_query", grad_query, torch.empty_like(query), query, neg_emb,
-                 lse, gw, pos_id, neg_id, bias, temperature, downscore)
+    return _grad("flash_ce_grad_query", grad_query,
+                 torch.empty(query.shape, dtype=torch.float32, device=query.device), query,
+                 neg_emb, lse, gw, pos_id, neg_id, bias, temperature, downscore)
 
 
 def grad_neg(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature: float,
@@ -233,10 +258,10 @@ def grad_neg(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature: float,
     if query.device.type == "cpu":
         return grad_neg_plain(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature,
                               downscore)
-    return _grad("flash_ce_grad_neg", grad_neg, torch.empty_like(neg_emb), query, neg_emb,
-                 lse, gw, pos_id, neg_id, bias, temperature, downscore)
+    return _grad("flash_ce_grad_neg", grad_neg,
+                 torch.empty(neg_emb.shape, dtype=torch.float32, device=neg_emb.device), query,
+                 neg_emb, lse, gw, pos_id, neg_id, bias, temperature, downscore)
 
 
-lse_forward.launches = 0
-grad_query.launches = 0
-grad_neg.launches = 0
+for _wrapper in (lse_forward, grad_query, grad_neg):
+    _wrapper.launches = _wrapper.launches_bf16 = 0

@@ -17,7 +17,9 @@ package's ``_use_flash`` routes shapes outside its kernel). Otherwise (training 
 metrics, and evaluation: targets given, or the engine's ``testing`` flag)
 the head returns those logits with a one-hot target on column 0, for the
 model's loss and the top-k metrics. Without either it scores each row's own
-pair (inference). Weight tying with an embedding table and post blocks are
+pair (inference). Under the ``mixed_bfloat16`` policy the first two cast
+their operands to bf16 (``cast_compute``, each operand on its own) and keep
+float32 scores; the inference branch scores as it is given. Weight tying with an embedding table and post blocks are
 not ported yet.
 """
 
@@ -29,6 +31,7 @@ import torch
 from torch import nn
 
 from ..core.constants import LOGQ_EPS, MIN_FLOAT
+from ..core.policy import cast_compute
 from ..core.types import Prediction
 from ..data.loader import ROW_VALID_KEY
 from ..ops import flash_ce
@@ -106,11 +109,13 @@ class ContrastiveOutput(ModelOutput):
             id=pos_id, embedding=inputs.get("candidate"), valid=row_valid)
 
     def contrastive_logits(self, query, positive: Candidate, negatives: Candidate):
-        """(B, 1+N) logits before the temperature: [positive | negatives]."""
-        pos_score = (query * positive.embedding).sum(dim=1, keepdim=True)
+        """(B, 1+N) float32 logits before the temperature: [positive |
+        negatives], from the operands in the policy's compute dtype."""
+        pos_score = (cast_compute(query).float() * cast_compute(positive.embedding).float()
+                     ).sum(dim=1, keepdim=True)
         if self.logq_sampling_correction and positive.sampling_prob is not None:
             pos_score = pos_score - torch.log(positive.sampling_prob + LOGQ_EPS)[:, None]
-        neg_scores = query @ negatives.embedding.T
+        neg_scores = cast_compute(query).float() @ cast_compute(negatives.embedding).float().T
         if self.logq_sampling_correction and negatives.sampling_prob is not None:
             neg_scores = neg_scores - torch.log(negatives.sampling_prob + LOGQ_EPS)[None, :]
         if self.downscore_false_negatives and positive.id is not None \
@@ -140,8 +145,10 @@ class ContrastiveOutput(ModelOutput):
         if self.logq_sampling_correction and positive.sampling_prob is not None:
             pos_bias = -torch.log(positive.sampling_prob + LOGQ_EPS)
         downscore = self.downscore_false_negatives
+        # each operand its own cast: under in-batch negatives positive and
+        # negatives are one tensor, whose two bf16 cotangents then sum in fp32
         loss = sampled_softmax_loss(
-            query, positive.embedding, neg_emb,
+            cast_compute(query), cast_compute(positive.embedding), cast_compute(neg_emb),
             positive.id if downscore else None, negatives.id if downscore else None,
             w, neg_bias,
             self.logits_scaler.temperature if self.logits_scaler is not None else 1.0,

@@ -96,8 +96,12 @@ def test_plain_kernels_match_pallas_interpret(N, downscore, bias_kind, T, D):
 
 def test_wrappers_refuse_bf16_and_mismatched_operands():
     q = torch.zeros(4, 8)
-    with pytest.raises(ValueError, match="mixed-precision"):
+    # bf16 operands are taken (the mixed-precision forms), but not beside fp32 ones
+    with pytest.raises(ValueError, match="both float32 or both bfloat16"):
         tflash.lse_forward(q.bfloat16(), torch.zeros(4), q, None, None, None, 1.0, False)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tflash.grad_query(q.half(), q.half(), torch.zeros(4), torch.zeros(4), None, None, None,
+                          1.0, False)
     with pytest.raises(ValueError, match="width"):
         tflash.grad_neg(q, torch.zeros(5, 7), torch.zeros(4), torch.zeros(4), None, None,
                         None, 1.0, False)
