@@ -63,10 +63,10 @@
    mixed-precision path (``set_dtype_policy("mixed_bfloat16")``,
    ``compile(..., optimizer_state_dtype="bfloat16")``): the fused step at
    batch 8192 against a CPU copy and the unfused head (the bf16 forms of
-   K1-K3 launched once each, the fp32 forms never), three steps against a
+   K1-K3 launched once each, the fp32 forms never; also the head's float32
+   cotangents before it rounds them), three steps at batch 8192 against a
    CPU copy with bf16 and fp32 slots and row-sparsely with bf16 tables, 16
-   steps at full width (the bf16 forms once a step), timed as above, and a
-   probe of ``torch.mm(out_dtype=float32)`` on bf16 operands;
+   steps at full width (the bf16 forms once a step), timed as above;
 9. checks row-sparse training (``embedding_optimizer="adagrad"``) with fp32
    and with bf16 tables: three steps at batch 1024 on the card and on a CPU
    copy, both rounding with the CPU generator's noise;
@@ -90,10 +90,10 @@
 14. prints one JSON line with each kernel's launches (on its own path's run;
    K7 and K8: both row-sparse runs), error against its plain version, its
    time, the plain version's, the least time the card could take and a
-   PyTorch yardstick's (the bound at the peak of the arithmetic each kernel
-   runs: 3xTF32 for K1-K3 and K6 on fp32 rows, 2xTF32 for K6 on bf16 and
-   int8 rows, bf16 and 2xTF32 for K1-K3's bf16 forms, or HBM3 bytes, named
-   in ``bound_peak``; K1 and K6 also with
+   PyTorch yardstick's (the bound at the peak of the fastest arithmetic
+   that gives each product fp32's error: 3xTF32 for K1-K3 and K6 on fp32
+   rows, 3xbf16 for K6 on bf16 and int8 rows, bf16 and 3xbf16 for K1-K3's
+   bf16 forms, or HBM3 bytes, named in ``bound_peak``; K1 and K6 also with
    the L2 flushed, ``ms_cold``), then the card line and ``{"ok": true,
    ...}`` last. Host-clock times are [median, min, max].
 
@@ -118,8 +118,9 @@ elements written).
 
 Mixed precision: the bf16 forms of K1-K3 under the fp32 forms'
 tolerances; card vs CPU and fused vs unfused as the constants FLIP_SHARE_MAX,
-MIXED_PARAM_ATOL and MIXED_HEAD_GRAD_TOL say (bf16 rounding flips bounded
-and counted; the heads round the query's cotangents at other places).
+FLIP_GRAD_TOL, MIXED_PARAM_ATOL and MIXED_HEAD_GRAD_TOL say (bf16 rounding
+flips bounded and counted; the heads round the query's cotangents at other
+places, and before they do agree within 2e-5 of the largest).
 
 Row gather: bit for bit (a copy). int8: the binned route's ids and scores
 bit-equal card vs CPU (integer dots); K6 int8 within the top-k tolerance.
@@ -143,15 +144,20 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, TF32 on
-# the tensor cores, HBM3. K1-K3 and K6 on fp32 rows run 3xTF32 (three TF32
-# products per product), K6 on bf16 and int8 rows 2xTF32 (two)
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, TF32 and
+# bf16 (dense) on the tensor cores, HBM3. A bound takes the fastest tensor-core
+# arithmetic that gives a product fp32's error: fp32 x fp32 as 3xTF32 (three
+# TF32 products, as K1-K3 and K6 on fp32 rows run; six bf16 ones are as
+# fast); fp32 x bf16 (or int8, exact in bf16) as 3xbf16, the fp32 operand
+# split in three bf16 parts, faster than the 2xTF32 that K2/K3's bf16 forms
+# and K6 on bf16 and int8 rows run; bf16 x bf16 as one bf16 product
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_3XTF32 = (PEAK_TF32_FLOPS / 3, "3xTF32")
-PEAK_2XTF32 = (PEAK_TF32_FLOPS / 2, "2xTF32")
+PEAK_3XBF16 = (PEAK_BF16_FLOPS / 3, "3xbf16")
 PEAK_FP32 = (PEAK_FP32_FLOPS, "fp32")
-PEAK_BF16 = (989e12, "bf16")  # dense, the bf16 forms' logit products
+PEAK_BF16 = (PEAK_BF16_FLOPS, "bf16")  # the bf16 forms' logit products
 SFU_PER_CLOCK_PER_SM = 16  # exponentials a clock on each SM (the special function units)
 PEAK_BYTES_PER_S = 3.35e12
 REL_TOL = 2e-6  # fp32 sums of 128 products taken in another order
@@ -169,11 +175,19 @@ PARAM_ATOL = 1e-5  # card vs CPU parameters after three steps
 # stay within MIXED_PARAM_ATOL (bf16 tables: and one ulp of their rounding)
 FLIP_SHARE_MAX = 1e-3
 MIXED_PARAM_ATOL = 3 * 0.05 * 2.0 ** -7
+# card vs CPU gradients under the policy: a flipped element within this share
+# of the largest |gradient| (one bf16 ulp of it), five times the largest flip
+# seen at batch 8192 (1.6e-3 of it: 3.81e-6 of 2.38e-3, on an H100 80GB HBM3
+# at 700 W; PERF.md)
+FLIP_GRAD_TOL = 2.0 ** -7
 # fused vs unfused head under the policy, of the model's largest |gradient|:
 # the unfused head rounds the query's two cotangents (positive, negatives)
 # to bf16 each, the fused one their sum, and the two nearly cancel (the JAX
-# package's branches differ alike; tests/test_torch_mixed_precision.py)
-MIXED_HEAD_GRAD_TOL = 5e-2
+# package's branches differ alike; tests/test_torch_mixed_precision.py holds
+# them to this on the CPU too). At batch 8192 on the card 4.37e-3 (PERF.md).
+# Before each head rounds them, the cotangents agree within TRAIN_GRAD_TOL
+# (mixed_head_cotangents)
+MIXED_HEAD_GRAD_TOL = 1e-2
 TRAIN_BATCH = 8192
 SEED = 0
 CATALOG = 56_680  # movieIds 0..56679
@@ -518,7 +532,8 @@ def serving_breakdown(dev, model, queries, results):
 def _row(name, source, replaces, launches, err, ms, plain, lib, flops, nbytes, peak=PEAK_FP32,
          ms_cold=None, extra=()):
     """A kernel's entry of the kernels line. ``peak``: the rate of the
-    arithmetic the kernel runs, (FLOP/s, its name), named in ``bound_peak``.
+    fastest arithmetic that gives its products their precision, (FLOP/s, its
+    name), named in ``bound_peak``.
     ``extra``: more (ms, name) terms of operations the kernel runs on other
     units or at other peaks; the operations' bound is the largest term (a
     caller sums terms that share a unit into one). ``ms_cold``: the
@@ -568,7 +583,7 @@ def phase_measure(dev, model, queries, results, launches, errs):
                   "models_tpu/ops/topk.py:102", launches["streaming_topk"],
                   errs["streaming_topk"], ms, plain, lib, 2 * B * n * D,
                   B * D * 4 + n * D * item + n * 4 + B * K * 8,
-                  PEAK_3XTF32 if tag == "fp32" else PEAK_2XTF32, ms_cold=cold)
+                  PEAK_3XTF32 if tag == "fp32" else PEAK_3XBF16, ms_cold=cold)
         full = bf.candidates  # 886 full bins, the padding in the last
         bs = 64
         idx = T.select_bins(q256, full, K, n_valid=n)
@@ -962,9 +977,10 @@ def measure_flash_ce(dev, model, data, launches, errs, dtype=torch.float32):
     materialised logits (never called by the port). ``dtype`` bf16: the
     mixed-precision path's forms, on the towers' outputs cast to bf16 as the
     head casts them (rows ``*_bf16``; the yardsticks take the bf16 product
-    with an fp32 result, ``mm_f32``). Bounds: fp32 forms at 3xTF32; bf16
+    with an fp32 result, ``torch.mm(out_dtype=torch.float32)``, which runs
+    on the card but has no backward). Bounds: fp32 forms at 3xTF32; bf16
     forms the larger of the tensor cores' time (the logits at the bf16
-    peak, plus K2 / K3's gradient product at 2xTF32: one unit runs both)
+    peak, plus K2 / K3's gradient product at 3xbf16: one unit runs both)
     and the Q*N exponentials at the special function units' rate, or the
     bytes."""
     from models_tpu_torch.core.constants import MIN_FLOAT
@@ -990,7 +1006,11 @@ def measure_flash_ce(dev, model, data, launches, errs, dtype=torch.float32):
     m, s = F.lse_forward_plain(q, pos_logit, neg, pid, nid, bias, T, True)
     lse = (m + torch.log(s)).contiguous()
     gw = torch.full_like(lse, 1.0 / Q)
-    product = mm_f32 if dtype == torch.bfloat16 else torch.matmul
+    if dtype == torch.bfloat16:
+        def product(a, b):
+            return torch.mm(a, b, out_dtype=torch.float32)
+    else:
+        product = torch.matmul
 
     def logits():
         x = torch.where(nid[None, :] == pid[:, None], MIN_FLOAT, product(q, neg.T) + bias)
@@ -1008,9 +1028,9 @@ def measure_flash_ce(dev, model, data, launches, errs, dtype=torch.float32):
         exp_ms = Q * N / (SFU_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0)
                           .multi_processor_count * sm_clock_hz()) * 1e3
         logit_ms = logit_flops / PEAK_BF16[0] * 1e3
-        grad_ms = logit_flops / PEAK_2XTF32[0] * 1e3
+        grad_ms = logit_flops / PEAK_3XBF16[0] * 1e3
         bounds = {"lse_forward": (0, [(logit_ms, "bf16"), (exp_ms, "SFU exp")]),
-                  "grad": (0, [(logit_ms + grad_ms, "bf16 + 2xTF32"), (exp_ms, "SFU exp")])}
+                  "grad": (0, [(logit_ms + grad_ms, "bf16 + 3xbf16"), (exp_ms, "SFU exp")])}
     else:  # both products as 3xTF32; the exponentials left out
         sfx = ""
         bounds = {"lse_forward": (logit_flops, []), "grad": (2 * logit_flops, [])}
@@ -1764,7 +1784,7 @@ def measure_int8(dev, enc, q4096, launches, errs):
     k6 = _row("streaming_topk_int8", "models_tpu_torch/csrc/streaming_topk.cu",
               "models_tpu/ops/topk.py:102", launches["streaming_topk_int8"],
               errs["streaming_topk_int8"], ms, plain, lib, 2 * B * n * D,
-              B * D * 4 + n * D + n * 8 + B * K * 8, PEAK_2XTF32, ms_cold=cold)
+              B * D * 4 + n * D + n * 8 + B * K * 8, PEAK_3XBF16, ms_cold=cold)
     q8, _ = T.quantize_queries(q4096[:256].contiguous())
     full, bs = bf.candidates, 64
     idx = T.select_bins(q8, full, K, n_valid=n, col_scale=bf.scales, col_scale_per_bin=True)
@@ -1790,7 +1810,6 @@ def measure_int8(dev, enc, q4096, launches, errs):
 # forms of K1-K3
 # ---------------------------------------------------------------------------
 
-MM_OUT_DTYPE = False  # whether this card's torch.mm takes out_dtype on bf16 (probe_bf16_mm)
 _SM_CLOCK_HZ = []
 
 
@@ -1802,53 +1821,6 @@ def sm_clock_hz() -> float:
                              timeout=60, check=True)
         _SM_CLOCK_HZ.append(float(out.stdout.split()[0]) * 1e6)
     return _SM_CLOCK_HZ[0]
-
-
-def mm_f32(a, b):
-    """The bf16 product with an fp32 result in one PyTorch call, a yardstick
-    only: ``torch.mm(out_dtype=torch.float32)`` where this card's build
-    runs it (``probe_bf16_mm``), else the fp32 product of the widened
-    operands."""
-    if MM_OUT_DTYPE:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
-
-
-def probe_bf16_mm(dev, model):
-    """Whether this card's torch runs ``torch.mm(a, b, out_dtype=float32)``
-    on bf16 operands, and its backward, at the query tower's first Dense
-    layer at batch 8192, beside the product the port's ``Dense`` takes under
-    the policy (the operands widened, cuBLAS fp32 with TF32 off): times of
-    both (CUDA events), the out_dtype product's largest difference from the
-    widened one. The port keeps the widened product; this sets the
-    yardsticks' ``mm_f32``."""
-    global MM_OUT_DTYPE
-    from models_tpu_torch.blocks.mlp import Dense
-
-    dense = next(m for m in model.query_encoder.modules() if isinstance(m, Dense))
-    gen = torch.Generator(dev).manual_seed(SEED)
-    x = torch.randn(TRAIN_BATCH, dense.weight.shape[1], device=dev, generator=gen).bfloat16()
-    wt = dense.weight.detach().bfloat16().T
-    out = {"shape": [TRAIN_BATCH, *wt.shape], "widened_fp32_ms": cuda_ms(
-        lambda: x.float() @ wt.float())}
-    want = x.float() @ wt.float()
-    try:
-        got = torch.mm(x, wt, out_dtype=torch.float32)
-    except (RuntimeError, TypeError) as exc:  # the build has no such kernel: say so
-        out["out_dtype"] = f"refused: {str(exc).splitlines()[0][:160]}"
-    else:
-        MM_OUT_DTYPE = got.dtype == torch.float32
-        out["out_dtype"] = str(got.dtype)
-        out["out_dtype_ms"] = cuda_ms(lambda: torch.mm(x, wt, out_dtype=torch.float32))
-        out["out_dtype_rel_err"] = rel_err(got, want)
-        xr = x.clone().requires_grad_()
-        try:
-            torch.mm(xr, wt, out_dtype=torch.float32).sum().backward()
-            out["out_dtype_backward"] = f"runs, input gradient {xr.grad.dtype}"
-        except (RuntimeError, TypeError) as exc:
-            out["out_dtype_backward"] = f"refused: {str(exc).splitlines()[0][:160]}"
-    print("bf16 product with an fp32 result " + json.dumps(out), flush=True)
-    return out
 
 
 def mixed_model(dev, catalog, seed):
@@ -1863,9 +1835,9 @@ def compare_rounded(name, pairs, tol, flip, share_of=None):
     the flips, which stay within ``flip`` = (a, r): a + r * the larger
     |value| (2**-7 of it is one bf16 ulp at most). At most FLIP_SHARE_MAX of
     ``share_of`` elements (default: all compared) may flip. Returns the
-    largest |difference| outside the flips, their count and the share's
-    denominator."""
-    worst, flips, total = 0.0, 0, 0
+    largest |difference| outside the flips, their count, the share's
+    denominator and the largest flip."""
+    worst, flips, total, largest = 0.0, 0, 0, 0.0
     for got, want in pairs:
         got, want = got.detach().float().cpu(), want.detach().float().cpu()
         d = (got - want).abs()
@@ -1875,12 +1847,13 @@ def compare_rounded(name, pairs, tol, flip, share_of=None):
                 f"{name}: {int(off.sum())} elements past {tol:.3g}, some past {flip} "
                 f"(largest |d| {float(d.max()):.3g})")
         worst = max(worst, float(d[~off].max()) if bool((~off).any()) else 0.0)
+        largest = max(largest, float(d[off].max()) if bool(off.any()) else 0.0)
         flips += int(off.sum())
         total += d.numel()
     share_of = total if share_of is None else share_of
     require(flips <= FLIP_SHARE_MAX * max(share_of, 1),
             f"{name}: {flips} elements flipped, of {share_of}")
-    return worst, flips, share_of
+    return worst, flips, share_of, largest
 
 
 def moved(base: dict, after: dict) -> int:
@@ -1888,26 +1861,76 @@ def moved(base: dict, after: dict) -> int:
     return sum(int((after[n].detach().cpu() != t.detach().cpu()).sum()) for n, t in base.items())
 
 
+def mixed_head_cotangents(model, xb):
+    """The fused head's float32 cotangents under the policy, before the head
+    rounds them to bf16 (``ops/contrastive.py::loss_cotangents``: the bf16
+    forms of K2 and K3 and the positive's term, on the towers' outputs cast
+    to bf16 as the head casts them), against the unfused head's loss taken
+    by float32 autograd on the same bf16 values: within TRAIN_GRAD_TOL of the
+    largest |cotangent|. Control: the same cotangents rounded to bf16, as
+    the head returns them, must miss that tolerance. Returns (error,
+    control's error), of the largest |cotangent|."""
+    from models_tpu_torch.core.constants import MIN_FLOAT
+    from models_tpu_torch.core.types import ModelContext
+    from models_tpu_torch.ops import contrastive as C
+
+    head = model.contrastive_output
+    T = head.logits_scaler.temperature if head.logits_scaler is not None else 1.0
+    with torch.no_grad():
+        towers = model.blocks[0](xb, context=ModelContext(features=xb))
+    valid = xb["__row_valid__"].bool()
+    q = towers["query"].bfloat16().contiguous()
+    c = towers["candidate"].bfloat16().contiguous()
+    neg = torch.where(valid[:, None], c, 0.0).contiguous()
+    bias = torch.where(valid, 0.0, MIN_FLOAT).contiguous()
+    ids = xb[model.item_id_name].to(torch.int32).contiguous()
+    pid = nid = ids if head.downscore_false_negatives else None
+    w = valid.float()
+    stats = C.loss_stats(q, c, neg, pid, nid, bias, None, T)
+    dq, dp, dn = C.loss_cotangents(torch.ones((), device=q.device), q, c, neg, pid, nid, w, bias,
+                                   *stats, T)
+    fused = {"query": dq, "candidate": dp + torch.where(valid[:, None], dn, 0.0)}
+    # the unfused head: [positive | negatives] logits, the false negatives and
+    # the invalid rows masked, a softmax cross-entropy weighted by the rows
+    qf, cf = q.float().requires_grad_(), c.float().requires_grad_()
+    negs = qf @ cf.T
+    mask = ~valid[None, :]
+    if pid is not None:
+        mask = mask | (ids[None, :] == ids[:, None])
+    logits = torch.cat([(qf * cf).sum(1, keepdim=True), torch.where(mask, MIN_FLOAT, negs)], 1)
+    per = torch.logsumexp(logits / T, 1) - logits[:, 0] / T
+    ((per * w).sum() / w.sum()).backward()
+    want = {"query": qf.grad, "candidate": cf.grad}
+    scale = max(float(g.abs().max()) for g in want.values())
+    err = max(max_err(fused[k], want[k]) for k in want) / scale
+    control = max(max_err(fused[k].bfloat16().float(), want[k]) for k in want) / scale
+    require(err <= TRAIN_GRAD_TOL, f"mixed: fused vs unfused float32 cotangents off by {err:.3g}")
+    require(control > TRAIN_GRAD_TOL,
+            f"mixed: cotangents rounded to bf16 within {control:.3g} of the float32 ones")
+    return err, control
+
+
 def phase_mixed_checks(dev, catalog):
     """The mixed-precision path at the bench's configuration
     (``set_dtype_policy("mixed_bfloat16")``, ``compile("adagrad",
-    learning_rate=0.05, optimizer_state_dtype="bfloat16")``), checked:
+    learning_rate=0.05, optimizer_state_dtype="bfloat16")``), checked at
+    batch 8192:
 
-    - at batch 8192, the fused loss (the bf16 forms of K1-K3, each launched
-      once, the fp32 forms never) against the same step on a CPU copy (the
-      plain versions; loss within FCE_TOL, gradients within TRAIN_GRAD_TOL
-      of the largest |gradient| but for bf16 rounding flips: at most
-      FLIP_SHARE_MAX of the nonzero elements, each within 2**-7 of the
-      largest |gradient|) and against
-      the unfused head on the card (loss within FCE_TOL, gradients within
-      MIXED_HEAD_GRAD_TOL);
-    - three steps at batch 1024 against a CPU copy, with and without
+    - the fused loss (the bf16 forms of K1-K3, each launched once, the fp32
+      forms never) against the same step on a CPU copy (the plain versions;
+      loss within FCE_TOL, gradients within TRAIN_GRAD_TOL of the largest
+      |gradient| but for bf16 rounding flips: at most FLIP_SHARE_MAX of the
+      nonzero elements, each within FLIP_GRAD_TOL of it);
+    - against the unfused head on the card: the loss within FCE_TOL, the
+      model's gradients within MIXED_HEAD_GRAD_TOL, the head's float32
+      cotangents within TRAIN_GRAD_TOL (``mixed_head_cotangents``);
+    - three steps against a CPU copy, with and without
       ``optimizer_state_dtype`` (losses within FCE_TOL, parameters and slots
       within PARAM_ATOL but for flips, which stay within MIXED_PARAM_ATOL;
       the slots bf16);
     - row-sparsely with bf16 tables (``embedding_optimizer="adagrad"``),
-      three steps at batch 1024 against a CPU copy rounding with the same
-      noise: as above, a bf16 table element one bf16 ulp at most.
+      three steps against a CPU copy rounding with the same noise: as
+      above, a bf16 table element one bf16 ulp at most.
 
     The caller sets the policy."""
     import copy
@@ -1935,28 +1958,30 @@ def phase_mixed_checks(dev, catalog):
     err = abs(fused_loss - cpu_loss) / abs(cpu_loss)
     require(err <= FCE_TOL, f"mixed: fused loss {fused_loss} on the card vs {cpu_loss} on the CPU")
     # a gradient element may sum bf16-rounded cotangents (an embedding row's
-    # over the batch): a flip of one moves it by a bf16 ulp of that term, at
-    # most 2**-7 of the largest |gradient|
+    # over the batch), some of which the two sides round to neighbours
     scale = max(float(g.abs().max()) for g in cpu_grads.values())
-    worst, flips, total = compare_rounded(
+    worst, flips, total, largest = compare_rounded(
         "mixed fused gradients, card vs CPU",
         [(fused[n], cpu_grads[n]) for n in cpu_grads], TRAIN_GRAD_TOL * scale,
-        (2.0 ** -7 * scale, 0.0), share_of=sum(int((g != 0).sum()) for g in cpu_grads.values()))
+        (FLIP_GRAD_TOL * scale, 0.0), share_of=sum(int((g != 0).sum()) for g in cpu_grads.values()))
     print(f"  batch {TRAIN_BATCH}, mixed_bfloat16: fused loss card {fused_loss:.7f} vs CPU "
           f"{cpu_loss:.7f} (rel {err:.3g}); gradients off by {worst / scale:.3g} of the largest "
-          f"|gradient| {scale:.3g} but {flips} of {total} nonzero elements, each within "
-          f"2**-7 of it", flush=True)
+          f"|gradient| {scale:.3g} but {flips} of {total} nonzero elements, the largest "
+          f"{largest:.3g} ({largest / scale:.3g} of it)", flush=True)
     plain_loss, plain = head_grads(model, xb, yb, fused=False)
     err = abs(fused_loss - plain_loss) / abs(plain_loss)
     require(err <= FCE_TOL, f"mixed: fused loss {fused_loss} vs unfused {plain_loss}")
     worst = max(max_err(fused[n], plain[n]) for n in plain) / scale
     require(worst <= MIXED_HEAD_GRAD_TOL, f"mixed: fused vs unfused gradients off by {worst:.3g}")
+    head, control = mixed_head_cotangents(model, xb)
     print(f"  batch {TRAIN_BATCH}, mixed_bfloat16: fused loss {fused_loss:.7f} vs unfused "
           f"{plain_loss:.7f} (rel {err:.3g}); gradients off by {worst:.3g} of the largest "
-          f"|gradient| (the heads round the query's cotangents at other places)", flush=True)
+          f"|gradient| (the heads round the query's cotangents at other places); the head's "
+          f"float32 cotangents off by {head:.3g} of the largest (rounded to bf16: "
+          f"{control:.3g})", flush=True)
     stamp("mixed precision: three steps on the card and on a CPU copy")
 
-    small = mt.generate_data("movielens-25m", num_rows=1024, seed=SEED + 5)
+    steps = mt.generate_data("movielens-25m", num_rows=TRAIN_BATCH, seed=SEED + 5)
     runs = (("bf16 slots", {"optimizer_state_dtype": "bfloat16"}, None),
             ("fp32 slots", {}, None),
             ("bf16 tables, row-sparse", {"embedding_optimizer": "adagrad"}, torch.bfloat16))
@@ -1970,7 +1995,7 @@ def phase_mixed_checks(dev, catalog):
             m.compile(optimizer="adagrad", learning_rate=0.05, metrics=[], **kw)
             if m._emb_opt is not None:
                 m._emb_opt.noise = cpu_noise
-            hist[side] = m.fit(small, epochs=3, batch_size=1024, shuffle=False,
+            hist[side] = m.fit(steps, epochs=3, batch_size=TRAIN_BATCH, shuffle=False,
                                device=d).history["loss"]
         np.testing.assert_allclose(hist["card"], hist["cpu"], rtol=FCE_TOL)
         state = {n: t for n, t in list(base.named_parameters()) + list(base.named_buffers())}
@@ -1989,12 +2014,13 @@ def phase_mixed_checks(dev, catalog):
                  0.0, (MIXED_PARAM_ATOL, 2.0 ** -7))):
             if not names:
                 continue
-            worst, flips, n_moved = compare_rounded(
+            worst, flips, n_moved, largest = compare_rounded(
                 f"mixed {tag} {kind}, card vs CPU", [(card_state[n], cpu_state[n]) for n in names],
                 tol, flip, share_of=moved({n: state[n] for n in names if n in state}, cpu_state))
-            print(f"  mixed_bfloat16, {tag}: 3 adagrad steps at batch 1024, card vs CPU: losses "
-                  f"{hist['card']} vs {hist['cpu']}; {kind} max|d| {worst:.3g} but {flips} of "
-                  f"{n_moved} moved elements (within {flip})", flush=True)
+            print(f"  mixed_bfloat16, {tag}: 3 adagrad steps at batch {TRAIN_BATCH}, card vs "
+                  f"CPU: losses {hist['card']} vs {hist['cpu']}; {kind} max|d| {worst:.3g} but "
+                  f"{flips} of {n_moved} moved elements, the largest {largest:.3g} (within "
+                  f"{flip})", flush=True)
         # the dense optimizer's slots: a flipped gradient g moves acc += g*g by
         # up to 2**-6 of itself; bf16 slots round that to one more ulp at most
         slots = [(a, b) for sa, sb in zip(on_card._optimizer.state.values(),
@@ -2003,10 +2029,10 @@ def phase_mixed_checks(dev, catalog):
         dtypes = {a.dtype for pair in slots for a in pair}
         require(dtypes == {torch.bfloat16 if "optimizer_state_dtype" in kw else torch.float32},
                 f"{tag}: dense slots {dtypes}")
-        worst, flips, n_slots = compare_rounded(f"mixed {tag} dense slots, card vs CPU", slots,
-                                                PARAM_ATOL, (0.0, 2.0 ** -6 + 2.0 ** -7))
+        worst, flips, n_slots, largest = compare_rounded(
+            f"mixed {tag} dense slots, card vs CPU", slots, PARAM_ATOL, (0.0, 2.0 ** -6 + 2.0 ** -7))
         print(f"  mixed_bfloat16, {tag}: dense slots ({dtypes.pop()}) max|d| {worst:.3g} but "
-              f"{flips} of {n_slots} elements", flush=True)
+              f"{flips} of {n_slots} elements, the largest {largest:.3g}", flush=True)
     return model
 
 
@@ -2155,7 +2181,6 @@ def main() -> int:
 
     mt.set_dtype_policy("mixed_bfloat16")
     try:
-        probe_bf16_mm(dev, tmodel)
         mmodel = phase_mixed_checks(dev, catalog)
         stamp("phase 6c: mixed-precision training at full width")
         mdata, mixed_launches, mixed = phase_mixed_train(dev, mmodel, catalog, queries)

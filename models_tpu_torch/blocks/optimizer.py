@@ -65,27 +65,66 @@ class LowPrecisionState:
     package's ``low_precision_optimizer_state``. Each step casts them up to
     float32, runs the optimizer's own float32 update on those copies (never
     in bf16), and rounds them back to nearest. Other state (Adam's ``step``)
-    is left as it is. Everything but ``step`` is the wrapped optimizer's."""
+    is left as it is. Everything but ``step`` is the wrapped optimizer's.
+
+    The slots at rest are views of one flat tensor, so that a step casts them
+    up in one copy and back in another, whatever the number of parameters.
+    Slots the optimizer makes (Adam at its first step) or replaces
+    (``load_state_dict``) are packed anew after the step that finds them."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, dtype: torch.dtype):
         self.optimizer = optimizer
         self.state_dtype = dtype
-        self._cast(dtype)
+        self._layout: List[tuple] = []  # (state, key, shape) of each slot, in packing order
+        self._views: List[torch.Tensor] = []  # the slots as _point left them
+        self._rest: Optional[torch.Tensor] = None  # the slots at rest, flat, in ``dtype``
+        self._pack()
 
     def __getattr__(self, name):
         return getattr(self.optimizer, name)
 
-    def _cast(self, dtype: torch.dtype) -> None:
-        for state in self.optimizer.state.values():
-            for key, value in state.items():
-                if key != "step" and torch.is_tensor(value) and value.is_floating_point():
-                    state[key] = value.to(dtype)
+    def _slots(self) -> List[tuple]:
+        return [(state, key) for state in self.optimizer.state.values()
+                for key, value in state.items()
+                if key != "step" and torch.is_tensor(value) and value.is_floating_point()]
+
+    def _point(self, flat: torch.Tensor) -> None:
+        """Make every slot its view of ``flat``."""
+        self._views, at = [], 0
+        for state, key, shape in self._layout:
+            state[key] = flat[at:at + shape.numel()].view(shape)
+            self._views.append(state[key])
+            at += shape.numel()
+
+    def _packed(self) -> bool:
+        """Whether the slots are still the views ``_point`` made."""
+        slots = self._slots()
+        return len(slots) == len(self._views) and all(
+            state[key] is view for (state, key), view in zip(slots, self._views))
+
+    def _pack(self) -> None:
+        """Round the slots as they are into a new flat tensor at rest."""
+        slots = self._slots()
+        self._layout = [(state, key, state[key].shape) for state, key in slots]
+        self._rest = torch.cat([state[key].reshape(-1).float() for state, key in slots]).to(
+            self.state_dtype) if slots else None
+        self._views = []
+        if slots:
+            self._point(self._rest)
 
     @torch.no_grad()
     def step(self, closure=None):
-        self._cast(torch.float32)
+        if not self._packed():
+            self._pack()
+        work = None if self._rest is None else self._rest.float()
+        if work is not None:
+            self._point(work)
         out = self.optimizer.step(closure)
-        self._cast(self.state_dtype)
+        if work is not None and self._packed():
+            self._rest.copy_(work)  # rounds to nearest
+            self._point(self._rest)
+        else:
+            self._pack()
         return out
 
 

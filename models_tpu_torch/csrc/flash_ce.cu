@@ -113,7 +113,10 @@
 // barrier, coefficients kept in registers). bf16 forms: K1's logits are
 // 17.2 GFLOP at 989 TFLOP/s (0.017 ms) and its Q*N = 67 M exponentials at
 // the SFU's 16 a clock per SM (0.016 ms at 1.98 GHz); K2 / K3 add the
-// gradient product as 2xTF32, 34.4 GFLOP at 495 / 2 TFLOP/s (0.139 ms).
+// gradient product, 17.2 GFLOP: 0.069 ms as the 2xTF32 these run (495 / 2
+// TFLOP/s), 0.052 ms as a three-part bf16 split (989 / 3 TFLOP/s), the
+// faster arithmetic of fp32's error and the one chip_smoke.py bounds them by
+// (0.017 + 0.052 = 0.069 ms with the logits).
 
 #include <cfloat>
 #include <cmath>

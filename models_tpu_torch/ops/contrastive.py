@@ -30,17 +30,47 @@ def _loss_from_lse(pos_logit, m, s, weights):
     return (per * weights).sum() / weights.sum().clamp_min(1e-9)
 
 
+def loss_stats(query, pos_emb, neg_emb, pos_id, neg_id, neg_bias, pos_bias, temperature):
+    """(pos_logit, m, s), float32: the positive logits and K1's running (max,
+    sum) over them and the negatives."""
+    pos_logit = (query.float() * pos_emb.float()).sum(dim=1) / temperature
+    if pos_bias is not None:
+        # the bias lands on the raw score, before the temperature
+        pos_logit = pos_logit + pos_bias / temperature
+    downscore = pos_id is not None and neg_id is not None
+    m, s = flash_ce.lse_forward(query, pos_logit, neg_emb, pos_id, neg_id, neg_bias,
+                                temperature, downscore)
+    return pos_logit, m, s
+
+
+def loss_cotangents(g, query, pos_emb, neg_emb, pos_id, neg_id, weights, neg_bias, pos_logit,
+                    m, s, temperature):
+    """The loss's float32 cotangents (d_query, d_pos, d_neg) for the upstream
+    gradient ``g``, before each is rounded to its primal's dtype: K2 and K3
+    recompute the negatives' logits from :func:`loss_stats`' (m, s)."""
+    T = temperature
+    lse = m + torch.log(s)
+    if weights is None:
+        w = torch.full_like(lse, 1.0 / query.shape[0])
+    else:
+        w = weights / weights.sum().clamp_min(1e-9)
+    gw = (g * w).contiguous()
+    # d loss_i / d x_ij = softmax_ij; d loss_i / d pos_i = softmax_i0 - 1
+    coef_pos = gw * (torch.exp(pos_logit - lse) - 1.0) / T
+    downscore = pos_id is not None and neg_id is not None
+    d_query = coef_pos[:, None] * pos_emb.float() + flash_ce.grad_query(
+        query, neg_emb, lse, gw, pos_id, neg_id, neg_bias, T, downscore)
+    d_pos = coef_pos[:, None] * query.float()
+    d_neg = flash_ce.grad_neg(query, neg_emb, lse, gw, pos_id, neg_id, neg_bias, T, downscore)
+    return d_query, d_pos, d_neg
+
+
 class _SampledSoftmaxLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, query, pos_emb, neg_emb, pos_id, neg_id, weights, neg_bias, pos_bias,
                 temperature):
-        pos_logit = (query.float() * pos_emb.float()).sum(dim=1) / temperature
-        if pos_bias is not None:
-            # the bias lands on the raw score, before the temperature
-            pos_logit = pos_logit + pos_bias / temperature
-        downscore = pos_id is not None and neg_id is not None
-        m, s = flash_ce.lse_forward(query, pos_logit, neg_emb, pos_id, neg_id, neg_bias,
-                                    temperature, downscore)
+        pos_logit, m, s = loss_stats(query, pos_emb, neg_emb, pos_id, neg_id, neg_bias, pos_bias,
+                                     temperature)
         ctx.save_for_backward(query, pos_emb, neg_emb, pos_id, neg_id, weights, neg_bias,
                               pos_logit, m, s)
         ctx.temperature = temperature
@@ -48,23 +78,9 @@ class _SampledSoftmaxLoss(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        query, pos_emb, neg_emb, pos_id, neg_id, weights, neg_bias, pos_logit, m, s = (
-            ctx.saved_tensors)
-        T = ctx.temperature
-        lse = m + torch.log(s)
-        if weights is None:
-            w = torch.full_like(lse, 1.0 / query.shape[0])
-        else:
-            w = weights / weights.sum().clamp_min(1e-9)
-        gw = (g * w).contiguous()
-        # d loss_i / d x_ij = softmax_ij; d loss_i / d pos_i = softmax_i0 - 1
-        coef_pos = gw * (torch.exp(pos_logit - lse) - 1.0) / T
-        downscore = pos_id is not None and neg_id is not None
-        d_query = coef_pos[:, None] * pos_emb.float() + flash_ce.grad_query(
-            query, neg_emb, lse, gw, pos_id, neg_id, neg_bias, T, downscore)
-        d_pos = coef_pos[:, None] * query.float()
-        d_neg = flash_ce.grad_neg(query, neg_emb, lse, gw, pos_id, neg_id, neg_bias, T,
-                                  downscore)
+        saved = ctx.saved_tensors
+        d_query, d_pos, d_neg = loss_cotangents(g, *saved, ctx.temperature)
+        query, pos_emb, neg_emb = saved[:3]
         return (d_query.to(query.dtype), d_pos.to(pos_emb.dtype), d_neg.to(neg_emb.dtype),
                 None, None, None, None, None, None)
 

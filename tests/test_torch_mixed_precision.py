@@ -335,6 +335,46 @@ def test_low_precision_optimizer_state_matches_jax(name):
             assert state["step"].dtype == torch.float32 and float(state["step"]) == t
 
 
+@pytest.mark.parametrize("name", ["adagrad", "adam"])
+def test_low_precision_slots_live_in_one_flat_tensor(name):
+    """The slots at rest are views of one flat bf16 tensor (a step casts them
+    up in one copy and back in another), equal bit for bit to those of the
+    same optimizer whose slots are rounded to bf16 one by one before each
+    step, as are the parameters; slots that ``load_state_dict`` replaces are
+    packed anew at the next step."""
+    rng = np.random.default_rng(2)
+    w0 = [rng.standard_normal(shape).astype(np.float32) for shape in ((8, 4), (5,), (3, 2, 2))]
+    ps = [torch.from_numpy(w.copy()).requires_grad_() for w in w0]
+    refs = [torch.from_numpy(w.copy()).requires_grad_() for w in w0]
+    opt = low_precision_optimizer_state(make_optimizer(name, ps, 0.1), "bfloat16")
+    ref = make_optimizer(name, refs, 0.1)
+
+    def floating(state):
+        return {k: v for k, v in state.items() if k != "step" and v.is_floating_point()}
+
+    for t in range(4):
+        if t == 2:
+            opt.load_state_dict(opt.state_dict())
+            assert all(v.dtype == torch.float32 for st in opt.state.values()
+                       for v in floating(st).values())
+        for st in ref.state.values():
+            st.update({k: v.to(torch.bfloat16).float() for k, v in floating(st).items()})
+        for p, r in zip(ps, refs):
+            g = torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32))
+            p.grad, r.grad = g, g.clone()
+        opt.step()
+        ref.step()
+        storage = opt._rest.untyped_storage().data_ptr()
+        for p, r in zip(ps, refs):
+            np.testing.assert_array_equal(p.detach().numpy(), r.detach().numpy())
+            slots, want = floating(opt.state[p]), floating(ref.state[r])
+            assert slots.keys() == want.keys() and slots
+            for k, v in slots.items():
+                assert v.dtype == torch.bfloat16 and v.untyped_storage().data_ptr() == storage
+                np.testing.assert_array_equal(v.view(torch.int16).numpy(),
+                                              want[k].to(torch.bfloat16).view(torch.int16).numpy())
+
+
 def test_optimizer_state_dtype_is_checked_at_compile():
     ds = mt.generate_data("e-commerce", num_rows=8, seed=0)
     model = mt.TwoTowerModel(ds.schema, query_tower=(8,), device="cpu")
