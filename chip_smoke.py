@@ -5,9 +5,10 @@
 1. requires CUDA and prints the card's name and power limit;
 2. builds the port's CUDA kernels from ``models_tpu_torch/csrc`` (nvcc, sm_90a,
    one process per source, all at once) and prints their ptxas registers
-   (flash_ce's and streaming_topk's per kernel, with spills and shared
-   memory), checks that ``flash_ce.DMAX`` is the kernels' width limit, and
-   prints how K6 launches at the path's shapes (warps, ring stages, lists);
+   (flash_ce's and streaming_topk's per kernel, with spills, shared memory
+   and any wgmma serialization warning), checks that ``flash_ce.DMAX`` is the
+   kernels' width limit, and prints how K6 launches at the path's shapes
+   (warps, ring stages, lists);
 3. holds each kernel against its plain PyTorch version on the card: the top-k
    kernels at the shapes the serving path gives them, fp32 and bf16, with
    padding and planted ties, the streaming kernel also at k=256 and k=512,
@@ -19,8 +20,12 @@
    biases (K2 and K3 twice, equal bit for bit), at Q=1000, N=3001, T=0.7
    with zero weights and no ids, at D = 64, 100 and 256, at Q = 8191,
    N = 8193 and at N = 40 (fewer negatives than K3 has chunks), and their
-   bf16 forms (bf16 query and negatives) at the same shapes but N = 40
-   (K1-K3 twice, equal bit for bit); the row
+   bf16 forms (bf16 query and negatives) at the same shapes and at Q = N =
+   8192, D = 64 (K1-K3 twice at Q = N = 8192, equal bit for bit), printing
+   which kernel each case's bf16 K2 / K3 took (grad_wg: wgmma, a TMA ring,
+   the three-part bf16 product; or grad_rows by shape), and whether K1-bf16's
+   logits (mma.sync) and grad_wg's (wgmma) agree bit for bit on one tile at
+   D = 64 and 128; the row
    scatters (K7 add, K8 write) bit for bit, fp32 and bf16 tables, on the
    userId table at the path's batch (deduplicated skewed ids, stale
    duplicates and out-of-range ids on invalid positions), 81,920 ids over
@@ -724,20 +729,67 @@ def phase_flash_ce_bf16(dev, gen, errs):
     """The bf16 forms of K1-K3 (the mixed_bfloat16 path) against their plain
     versions, under the fp32 forms' tolerances: the training path's shapes
     with downscoring, duplicate ids and MIN_FLOAT biases (the three twice,
-    bit-equal), 1000 x 3001 at T = 0.7 with zero weights, D = 64 and 256,
-    a width with no 16-byte rows (D = 100: the element-wise copies), and
-    ragged Q, N."""
+    bit-equal), the same at D = 64, 1000 x 3001 at T = 0.7 with zero
+    weights, D = 64 and 256, a width with no 16-byte rows (D = 100: the
+    element-wise copies), ragged Q, N, and fewer negatives than K3 has
+    chunks (N = 40). Each case prints the kernel K2 / K3 took (grad_wg, or
+    grad_rows by shape). Then the logit invariant: K1-bf16's logits
+    (mma.sync) and grad_wg's (wgmma) on one tile, bit for bit or not."""
+    from models_tpu_torch.ops import flash_ce as F
+
     cases = (("Q=N=8192 D=128 downscore bias", 8192, 8192, 128, 1.0, True, True, False),
+             ("Q=N=8192 D=64 downscore bias", 8192, 8192, 64, 1.0, True, True, False),
              ("Q=1000 N=3001 D=128 T=0.7 zero weights", 1000, 3001, 128, 0.7, False, False,
               True),
              ("Q=N=2048 D=64 downscore bias", 2048, 2048, 64, 1.0, True, True, False),
              ("Q=N=2048 D=256 T=0.7 downscore", 2048, 2048, 256, 0.7, True, False, True),
              ("Q=N=2048 D=100 downscore bias", 2048, 2048, 100, 1.0, True, True, True),
              ("Q=8191 N=8193 D=128 T=0.7 downscore bias", 8191, 8193, 128, 0.7, True, True,
-              True))
+              True),
+             ("Q=8192 N=40 D=128 downscore bias", 8192, 40, 128, 1.0, True, True, True))
+    routes = {}
     for name, Q, N, D, T, ids, bias_min, zero_w in cases:
-        check_fce(name, dev, fce_case(dev, gen, Q, N, D, T, ids, bias_min, zero_w,
-                                      torch.bfloat16), T, errs, repeat=Q == N == 8192)
+        args = fce_case(dev, gen, Q, N, D, T, ids, bias_min, zero_w, torch.bfloat16)
+        routes[name] = F.grad_route(args[0], args[2])
+        check_fce(name, dev, args, T, errs, repeat=Q == N == 8192)
+    print("  K2 / K3 bf16 routes: " + json.dumps(routes), flush=True)
+    for D in (64, 128):
+        require(all(r == "grad_wg" for n, r in routes.items() if f"D={D} " in n),
+                f"a D = {D} case with 16-byte rows did not take grad_wg: {routes}")
+    logit_invariant(dev, gen)
+
+
+def logit_invariant(dev, gen):
+    """K1-bf16 and grad_wg compute one tile's logit sums (64 x 64, before bias
+    and 1/T) on the tensor cores through different instructions, mma.sync
+    and wgmma. Prints whether they agree bit for bit, at D = 64 and 128 on
+    seeded rows scaled as the towers' outputs, and how far apart they are
+    (in units of the largest |logit|); a disagreement moves exp(x - lse) by
+    the same relative amount. Fails past 1e-6 of the largest |logit|: each
+    32-deep sum on either path is within a few fp32 ulps of the exact one."""
+    from models_tpu_torch.ops import flash_ce as F
+    from models_tpu_torch.ops import kernels
+
+    lib = F._lib()
+    for D in (64, 128):
+        q = (torch.randn(64, D, device=dev, generator=gen) * 0.3).bfloat16()
+        neg = (torch.randn(64, D, device=dev, generator=gen) * 0.3).bfloat16()
+        out_mma = torch.empty(64, 64, device=dev)
+        out_wg = torch.empty(64, 64, device=dev)
+        rc = lib.flash_ce_logit_probe(q.data_ptr(), neg.data_ptr(), out_mma.data_ptr(),
+                                      out_wg.data_ptr(), D, F._stream(q))
+        kernels.check(lib, rc, "flash_ce_logit_probe")
+        torch.cuda.synchronize()
+        exact = q.double() @ neg.double().T
+        scale = float(exact.abs().max())
+        same = int((raw_bits(out_mma) == raw_bits(out_wg)).sum())
+        diff = float((out_mma - out_wg).abs().max()) / scale
+        errs_vs_exact = [float((o.double() - exact).abs().max()) / scale
+                         for o in (out_mma, out_wg)]
+        print(f"  logit invariant D={D}: {same} of 4096 K1 / grad_wg logits bit-equal, "
+              f"largest difference {diff:.3g} of the largest |logit|; against the exact sums "
+              f"mma.sync {errs_vs_exact[0]:.3g}, wgmma {errs_vs_exact[1]:.3g}", flush=True)
+        require(diff <= 1e-6, f"logit invariant D={D}: K1 and grad_wg logits {diff:.3g} apart")
 
 
 def head_grads(model, xb, yb, fused):
@@ -1045,13 +1097,29 @@ def measure_flash_ce(dev, model, data, launches, errs, dtype=torch.float32):
             ("grad_neg", 184, lambda: F.grad_neg(*args), lambda: F.grad_neg_plain(*args),
              lambda: coef().T @ q.float(), (Q + N) * D * item + vec + 4 * Q + N * D * 4)):
         flops, extra = bounds["lse_forward" if name == "lse_forward" else "grad"]
-        rows.append(_row(name + sfx, "models_tpu_torch/csrc/flash_ce.cu",
-                         f"models_tpu/ops/flash_ce.py:{line}", launches[name + sfx],
-                         errs[name + sfx], cuda_ms(fn), cuda_ms(plain, reps=3),
-                         cuda_ms(lib, reps=3), flops, nbytes, PEAK_3XTF32,
-                         ms_cold=device_ms(fn, cold=True) if name == "lse_forward" else None,
-                         extra=extra))
+        source, wg = "models_tpu_torch/csrc/flash_ce.cu", sfx and name != "lse_forward"
+        if wg:  # the bf16 K2 / K3 take grad_wg on these inputs
+            require(F.grad_route(q, neg) == "grad_wg", f"{name}{sfx} did not take grad_wg")
+            source += f":{source_line(source, 'grad_wg(const __grid_constant__')}"
+        row = _row(name + sfx, source, f"models_tpu/ops/flash_ce.py:{line}",
+                   launches[name + sfx], errs[name + sfx], cuda_ms(fn), cuda_ms(plain, reps=3),
+                   cuda_ms(lib, reps=3), flops, nbytes, PEAK_3XTF32,
+                   ms_cold=device_ms(fn, cold=True) if name == "lse_forward" else None,
+                   extra=extra)
+        if wg:
+            row["design"] = "grad_wg: wgmma, TMA ring, 3xbf16 gradient product"
+        rows.append(row)
     return rows
+
+
+def source_line(path: str, text: str) -> int:
+    """The line of ``path`` (from the repo's root) where ``text`` first
+    appears."""
+    with open(os.path.join(ROOT, path)) as f:
+        for n, ln in enumerate(f, 1):
+            if text in ln:
+                return n
+    raise AssertionError(f"{text!r} not in {path}")
 
 
 # ---------------------------------------------------------------------------
@@ -2093,7 +2161,8 @@ def main() -> int:
     # memory and spills
     for name in ("flash_ce", "streaming_topk"):
         for ln in kernels.build_logs.get(name, "").splitlines():
-            if "entry function" in ln or "Used" in ln or "spill" in ln:
+            if ("entry function" in ln or "Used" in ln or "spill" in ln
+                    or "wgmma" in ln or "warning" in ln.lower()):
                 print(f"    {name} ptxas: {ln.split(':', 1)[-1].strip()}", flush=True)
     from models_tpu_torch.ops import flash_ce as F
 
@@ -2103,6 +2172,8 @@ def main() -> int:
         print(f"    flash_ce grad_rows and lse_partial dynamic shared memory (bytes), {form} "
               f"forms, at D = 64, 128, 256: "
               f"{[F._lib().flash_ce_grad_smem(d, bf16) for d in (64, 128, 256)]}", flush=True)
+    print(f"    flash_ce grad_wg (bf16 K2 / K3) dynamic shared memory (bytes) at D = 64, 128: "
+          f"{[F._lib().flash_ce_grad_wg_smem(d) for d in (64, 128)]}", flush=True)
     for dtype, B, k in ((torch.float32, 4096, K), (torch.bfloat16, 4096, K),
                         (torch.int8, 4096, K), (torch.float32, 256, 600),
                         (torch.float32, 8, 5000)):

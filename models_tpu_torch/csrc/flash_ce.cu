@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernels of models_tpu/ops/flash_ce.py:
 //   flash_ce_lse_forward  <- lse_forward (K1)
-//   flash_ce_grad_query   <- grad_query  (K2)
-//   flash_ce_grad_neg     <- grad_neg    (K3)
+//   flash_ce_grad_query   <- grad_query  (K2; bf16 form: grad_wg)
+//   flash_ce_grad_neg     <- grad_neg    (K3; bf16 form: grad_wg)
 //
 // q and neg are both fp32 or both bf16 (the mixed_bfloat16 policy, where the
 // TPU kernels take bf16 operands); every other input and every output is
@@ -79,25 +79,82 @@
 //       order; with one chunk the block writes the result. No atomics: the
 //       result is the same bits from run to run.
 //
-// The bf16 forms (TI = bf16) are the same kernels on 16-bit tiles, half the
-// shared memory and copies of the fp32 ones:
-//   - Logits: one bf16 product into fp32, mma.sync.m16n8k16, no split: bf16
-//     products are exact in fp32, so only the sums round (toward zero on the
-//     tensor cores: each 32 columns of d, two k16 steps, are summed from 0
-//     and join s by an fp32 add, as in the fp32 forms). K1 and K2 / K3 take
-//     them from one function, logit_products, as the fp32 forms do.
-//   - Gradient products: the fp32 coefficients times the bf16 tile widened,
-//     as 2xTF32 (mma_2xtf32): the bf16 row is exact in TF32, and coef splits
-//     into a TF32 part and a TF32 remainder, so the product keeps about
-//     2^-21 relative, near fp32's, where one TF32 or bf16 pass keeps 1e-3.
-//     A three-part bf16 split of coef on m16n8k16 would cost 3 bf16 passes
-//     (3/4 of 2xTF32's tensor time) and a transposed B tile (ldmatrix.trans);
-//     2xTF32 keeps the fp32 forms' fragment layout and row permutation, the
-//     tile read by 2-byte loads, conflict-free at the bf16 row stride.
-//   - Copies: 16-byte cp.async of 8 elements where D % 8 == 0 and the rows
-//     are 16-byte aligned, else plain element loads into shared (a 2-byte
-//     element has no cp.async); rows padded by 16 bytes (DP + 8 elements),
-//     so that ldmatrix and the 2-byte loads are conflict-free.
+// The bf16 forms (q and neg bf16, the mixed_bfloat16 path):
+//   - K1-bf16: lse_partial on 16-bit tiles, half the shared memory and copies
+//     of the fp32 form; logits as one bf16 product into fp32,
+//     mma.sync.m16n8k16, no split: bf16 products are exact in fp32, so only
+//     the sums round (toward zero on the tensor cores: each 32 columns of d,
+//     two k16 steps, are summed from 0 and join s by an fp32 add).
+//   - K2-bf16 / K3-bf16: grad_wg, on wgmma with a TMA ring, where D % 8 == 0,
+//     D <= 128 and both operands have 16-byte aligned rows (the training
+//     path's shapes); other shapes (D = 100, D = 256, an unaligned operand)
+//     keep grad_rows on bf16 tiles with 2xTF32 gradient products (the
+//     fp32 coefficient split in a TF32 part and a TF32 remainder, the bf16
+//     row exact in TF32), chosen from the shape and pointers alone
+//     (flash_ce_grad_route).
+//   - Copies of the bf16 lse_partial and grad_rows: 16-byte cp.async of 8
+//     elements where D % 8 == 0 and the rows are 16-byte aligned, else plain
+//     element loads into shared (a 2-byte element has no cp.async); rows
+//     padded by 16 bytes (DP + 8 elements), so that ldmatrix and the 2-byte
+//     loads are conflict-free.
+//   grad_wg's bound at Q = N = 8192, D = 128: the logits, 17.2 GFLOP at the
+//   bf16 peak (989 TFLOP/s), 0.017 ms, and the gradient product near fp32's
+//   error as three bf16 passes, 51.5 GFLOP, 0.052 ms: 0.069 ms of tensor
+//   time ("bf16 + 3xbf16"); the Q * N = 67 M exponentials take 0.016 ms of
+//   the special function units (16 a clock per SM), beside it.
+//   What held grad_rows' bf16 form (0.386 ms) back: K1-bf16 computes the same
+//   logits and exponentials in 0.132 ms, so two thirds of the time went to
+//   the gradient product: 2xTF32 on mma.sync (two passes at the TF32 rate,
+//   the tensor time of four bf16 passes), its B fragments by scalar 2-byte
+//   loads widened one by one, the coefficients split anew every k-step, one
+//   warp doing everything in sequence behind a __syncthreads a tile.
+//   grad_wg's design:
+//   - Block: two consumer warpgroups own 64 rows each (wgmma's M: queries
+//     for K2, negatives for K3) and one copying warp, 288 threads. The own
+//     rows come once by TMA; the chunk's streamed rows come 64 at a time by
+//     TMA into a ring of 4 stages (64-column boxes, 128-byte swizzle), with
+//     their per-row inputs (bias and nid for K2; lse log2(e), gw / T and pid
+//     for K3) loaded by the copying warp, one full and one empty mbarrier a
+//     stage; both warpgroups read every stage.
+//   - Logits: wgmma m64n64k16 bf16, both operands from shared memory,
+//     K-major; each 32 deep summed from zero (scale-d 0) and added to an fp32
+//     sum in depth order, as logit_products adds its parts: on every tile the
+//     card was probed with, K1-bf16's logits and grad_wg's are equal bit for
+//     bit (chip_smoke.py checks it each run, at D = 64 and 128), so the
+//     forward's lse and the backward's exp(x - lse) still see one x.
+//   - Coefficients in registers: the logit accumulator turns into
+//     gw / T * 2^(x log2(e) / T - lse log2(e)) in place (one fma, one
+//     ex2.approx, which keeps 2 ulp), masking and the chunk's end as in
+//     grad_rows; then each pair splits into three bf16 parts (hopper.cuh,
+//     split3_bf16, exact but below 2^-110) packed straight into wgmma's
+//     register A fragment: for 16-bit types the accumulator's layout is the
+//     A fragment's.
+//   - Gradient product: the three parts against the same streamed tile read
+//     MN-major (the transpose bit: one tile in shared memory serves both
+//     products), wgmma m64n64k16 with A from registers, six (the small parts
+//     first) into a 32-register sum from zero for each 32 tile rows and 64
+//     columns, then one fp32 add into the (64 x D) result: the bound's own
+//     arithmetic, summed as the fp32 forms sum (see "Sums" above).
+//   - Registers: nine warps put three on one of the SM's four sub-partitions
+//     (16 K registers each), so ptxas budgets 168 a thread; 32-register part
+//     sums (m64n64) run unserialized in it. A 64-register sum (m64n128 at D =
+//     128), two sums in flight, or setmaxnreg with a copying warpgroup made
+//     ptxas serialize the wgmma or spill. A 256-thread block with no copying
+//     warp (255 registers; the last warp done with a stage refilled it) ran
+//     m64n128 unserialized once its sum no longer shared registers with the
+//     logits' parts, at 241 registers, and was no faster.
+//   - Filling the card: 128 own rows a block, the streamed side cut into
+//     chunks from the occupancy the card reports (fill_splits: 2 at Q = N =
+//     8192, 128 blocks), the chunks' partial sums merged in order by
+//     grad_merge: no atomics, the same bits every call.
+//   What still holds it (its times in PERF.md): the tensor work and the
+//   exponentials, splits and adds barely overlap: probes without the
+//   gradient products ran far faster, and those products alone, outside the
+//   kernel, ran near the tensor cores' peak. Taking turns on the
+//   tensor cores (named barriers), 64-row groups, half as many drains
+//   (m64n128) and the coefficients' parts in shared memory (A from shared
+//   memory: m64n64 then reads 4 KB a 32 clocks, the SM's whole shared-memory
+//   rate) were no faster.
 //
 // Bound on an H100 SXM at Q = N = 8192, D = 128: operations. K1 does
 // 2*Q*N*D = 17.2 GFLOP, as 3xTF32 51.5 GFLOP on the TF32 tensor cores: 0.104
@@ -112,17 +169,16 @@
 // buffering and two or three barriers a tile (cp.async into two stages, one
 // barrier, coefficients kept in registers). bf16 forms: K1's logits are
 // 17.2 GFLOP at 989 TFLOP/s (0.017 ms) and its Q*N = 67 M exponentials at
-// the SFU's 16 a clock per SM (0.016 ms at 1.98 GHz); K2 / K3 add the
-// gradient product, 17.2 GFLOP: 0.069 ms as the 2xTF32 these run (495 / 2
-// TFLOP/s), 0.052 ms as a three-part bf16 split (989 / 3 TFLOP/s), the
-// faster arithmetic of fp32's error and the one chip_smoke.py bounds them by
-// (0.017 + 0.052 = 0.069 ms with the logits).
+// the SFU's 16 a clock per SM (0.016 ms at 1.98 GHz); K2 / K3's bound is
+// grad_wg's above (0.069 ms), what chip_smoke.py bounds them by.
 
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -527,6 +583,306 @@ __global__ void grad_merge(const float* __restrict__ part, float* __restrict__ o
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2 / K3, bf16 forms: grad_wg (wgmma, a TMA ring, the 3xbf16 gradient product)
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BC = 64;                   // streamed rows a tile
+constexpr int WG_STAGES = 4;                // tiles in the ring
+constexpr int WG_CONSUMERS = 2;             // warpgroups of 64 own rows each
+constexpr int WG_ROWS = 64 * WG_CONSUMERS;  // own rows a block
+// and one copying warp. Nine warps put three on one of the SM's four
+// sub-partitions, whose 16 K registers cap a thread at 168 (ptxas' budget)
+constexpr int WG_THREADS = 128 * WG_CONSUMERS + 32;
+constexpr int WG_SLAB = 64 * 128;           // 64 rows of 64 bf16, swizzled: one TMA box
+constexpr int WG_META = 3 * WG_BC * 4;      // a tile's per-row inputs: two floats and an id
+
+// one warpgroup's own rows, and one streamed tile: DP / 64 slabs
+template <int DP> __host__ __device__ constexpr int wg_tile_bytes() { return DP / 64 * WG_SLAB; }
+
+// 1024 bytes of slack to align the tiles for the swizzle, the own rows, the
+// ring's tiles and per-row inputs, a full and an empty barrier a stage and
+// the own rows' barrier
+template <int DP>
+__host__ __device__ constexpr size_t wg_smem() {
+  return 1024 + (size_t)(WG_CONSUMERS + WG_STAGES) * wg_tile_bytes<DP>() +
+         (size_t)WG_STAGES * WG_META + (2 * WG_STAGES + 1) * 8;
+}
+
+// 32-deep part p of the logits (k16 steps 2p and 2p + 1, in slab p / 2) of
+// the warpgroup's 64 own rows against the 64 tile rows, from zero into d
+__device__ __forceinline__ void logit_part(float (&d)[32], const unsigned char* own,
+                                           const unsigned char* tile, int p) {
+  const int off = (p >> 1) * WG_SLAB + (p & 1) * 64;
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    wgmma_ss(d, wgmma_desc(own + off + 32 * s, 16, 1024),
+                 wgmma_desc(tile + off + 32 * s, 16, 1024), s);
+}
+
+// The warpgroup's 64 x 64 logit sums (before bias and 1/T) into S, in the
+// accumulator layout (hopper.cuh): one m64n64k16 bf16 product a 16-deep
+// step, each 32 deep summed from zero and added to S in depth order, as
+// logit_products adds its parts. P: scratch for the part in flight.
+template <int DP>
+__device__ __forceinline__ void wg_logits(const unsigned char* own, const unsigned char* tile,
+                                          float (&S)[32], float (&P)[32]) {
+  fence_regs(S);
+  fence_regs(P);
+  wgmma_fence();
+  logit_part(S, own, tile, 0);
+  logit_part(P, own, tile, 1);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(S);
+#pragma unroll
+  for (int p = 2; p <= DP / 32; ++p) {
+    fence_regs(P);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) S[i] += P[i];
+    if (p == DP / 32) break;
+    wgmma_fence();
+    logit_part(P, own, tile, p);
+    wgmma_commit();
+    wgmma_wait();
+  }
+}
+
+// OWN_Q as in grad_rows. Block (own tile x of WG_ROWS rows, chunk y):
+// warpgroups 0 and 1 own 64 rows each and consume; warp 8 fills the ring.
+// The chunk's rows [y * chunk, min((y + 1) * chunk, n_strm)) come WG_BC at a
+// time by TMA (own_map, strm_map: 64-column boxes, 128-byte swizzle, rows
+// past the end zero), their per-row inputs by the copying warp's loads,
+// scaled as the coefficients take them. A stage is full when the copying
+// warp's lanes and the TMA bytes have arrived, empty when every consuming
+// thread has.
+template <int DP, bool OWN_Q>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+grad_wg(const __grid_constant__ CUtensorMap own_map,
+        const __grid_constant__ CUtensorMap strm_map, const float* __restrict__ lse,
+        const float* __restrict__ gw, const int* __restrict__ pid,
+        const int* __restrict__ nid, const float* __restrict__ bias, float* __restrict__ dst,
+        int Q, int N, int D, float T, int downscore, int chunk) {
+  constexpr int SL = DP / 64, TILE = wg_tile_bytes<DP>();
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* own_s = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* tiles = own_s + WG_CONSUMERS * TILE;
+  float* metas = reinterpret_cast<float*>(tiles + WG_STAGES * TILE);  // [stage][3][WG_BC]
+  uint64_t* full = reinterpret_cast<uint64_t*>(metas + WG_STAGES * 3 * WG_BC);
+  uint64_t* empty = full + WG_STAGES;
+  uint64_t* own_bar = empty + WG_STAGES;
+  const int n_own = OWN_Q ? Q : N, n_strm = OWN_Q ? N : Q;
+  const int r0 = blockIdx.x * WG_ROWS;
+  const int c_begin = blockIdx.y * chunk;
+  const int c_end = min(c_begin + chunk, n_strm);
+  const int n_tiles = (c_end - c_begin + WG_BC - 1) / WG_BC;
+  const int wg = threadIdx.x >> 7;
+  // 1/T once, and the exponent in base 2: coef = gw / T * 2^(x' log2(e) / T
+  // - lse log2(e)), x' the logit before 1/T: one fma and one ex2
+  const float inv_t = 1.f / T, scale = inv_t * LOG2E;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < WG_STAGES; ++i) {
+      mbar_init(full + i, 32);                    // the copying warp's lanes
+      mbar_init(empty + i, 128 * WG_CONSUMERS);   // every consuming thread
+    }
+    mbar_init(own_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == WG_CONSUMERS) {  // the copying warp
+    const int lane = threadIdx.x & 31;
+    // the streamed rows' inputs: K2 (bias, -, nid), K3 (lse log2(e), gw / T, pid)
+    const float* s_f0 = OWN_Q ? bias : lse;
+    const float* s_f1 = OWN_Q ? nullptr : gw;
+    const int* s_id = downscore ? (OWN_Q ? nid : pid) : nullptr;
+    if (lane == 0) {
+      mbar_arrive_expect(own_bar, WG_CONSUMERS * TILE);
+      for (int w = 0; w < WG_CONSUMERS; ++w)
+        for (int s = 0; s < SL; ++s)
+          tma_load_2d(own_s + w * TILE + s * WG_SLAB, &own_map, 64 * s, r0 + 64 * w, own_bar);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % WG_STAGES, c0 = c_begin + it * WG_BC;
+      mbar_wait(empty + st, ((it / WG_STAGES) & 1) ^ 1);  // tile it - WG_STAGES consumed
+      float* meta = metas + st * 3 * WG_BC;
+      for (int r = lane; r < WG_BC; r += 32) {
+        const bool ok = c0 + r < c_end;
+        const float f0 = ok && s_f0 ? s_f0[c0 + r] : 0.f;
+        meta[r] = OWN_Q ? f0 : f0 * LOG2E;
+        meta[WG_BC + r] = ok && s_f1 ? s_f1[c0 + r] * inv_t : 0.f;
+        reinterpret_cast<int*>(meta)[2 * WG_BC + r] = ok && s_id ? s_id[c0 + r] : 0;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect(full + st, TILE);
+        for (int s = 0; s < SL; ++s)
+          tma_load_2d(tiles + st * TILE + s * WG_SLAB, &strm_map, 64 * s, c0, full + st);
+      } else {
+        mbar_arrive(full + st);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x & 127, wid = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = r0 + 64 * wg + 16 * wid + g;  // the thread's rows: row0, row0 + 8
+  // the own rows' inputs: K2 (lse log2(e), gw / T, pid), K3 (bias, nid)
+  float o_l2[2], o_wt[2], o_bias[2];
+  int o_id[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    const bool ok = r < n_own;
+    o_l2[h] = (OWN_Q && ok) ? lse[r] * LOG2E : 0.f;
+    o_wt[h] = (OWN_Q && ok) ? gw[r] * inv_t : 0.f;
+    o_bias[h] = (!OWN_Q && bias && ok) ? bias[r] : 0.f;
+    o_id[h] = (downscore && ok) ? (OWN_Q ? pid[r] : nid[r]) : 0;
+  }
+  const unsigned char* own = own_s + wg * TILE;
+  float acc[SL][32];
+#pragma unroll
+  for (int s = 0; s < SL; ++s)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[s][i] = 0.f;
+  mbar_wait(own_bar, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % WG_STAGES, c0 = c_begin + it * WG_BC;
+    mbar_wait(full + st, (it / WG_STAGES) & 1);
+    const unsigned char* tile = tiles + st * TILE;
+    const float* m_f0 = metas + st * 3 * WG_BC;
+    const float* m_f1 = m_f0 + WG_BC;
+    const int* m_id = reinterpret_cast<const int*>(m_f1 + WG_BC);
+    float S[32], P[32];
+    wg_logits<DP>(own, tile, S, P);
+
+    // coefficients, in place: register 4 j + e is own row g + 8 (e >> 1),
+    // tile row 8 j + 2 t + (e & 1); ex2.approx (2 ulp; results below fp32's
+    // normal range flush to 0). On the chunk's last tile, rows past its end
+    // are 0
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1), h = e >> 1;
+        const bool masked = downscore && o_id[h] == m_id[col];
+        const float x = masked ? MIN_FLOAT : S[4 * j + e] + (OWN_Q ? m_f0[col] : o_bias[h]);
+        const float l2 = OWN_Q ? o_l2[h] : m_f0[col];
+        const float wt = OWN_Q ? o_wt[h] : m_f1[col];
+        S[4 * j + e] = wt * ex2_approx(fmaf(x, scale, -l2));
+      }
+    const int valid = c_end - c0;
+    if (valid < WG_BC) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + 2 * t + (e & 1) >= valid) S[4 * j + e] = 0.f;
+    }
+
+    // acc += coef x tile, 32 tile rows (k16 steps 2 q2, 2 q2 + 1) by 64
+    // columns (slab s) at a time: the rows' coefficients (registers 8 k ..
+    // 8 k + 7, the A fragment) split in three bf16 parts, six products (the
+    // small parts first) from zero into P, then one fp32 add into acc[s]
+#pragma unroll
+    for (int q2 = 0; q2 < 2; ++q2) {
+      uint32_t a[3][2][4];  // [lo, mid, hi][k - 2 q2][register]
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * (2 * q2 + u) + 2 * r;
+          split3_bf16(S[i], S[i + 1], a[2][u][r], a[1][u][r], a[0][u][r]);
+        }
+#pragma unroll
+      for (int s = 0; s < SL; ++s) {
+        fence_regs(P);
+        wgmma_fence();
+#pragma unroll
+        for (int part = 0; part < 3; ++part)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            // tile rows 16 k .. 16 k + 15 of slab s, read MN-major: 8-row
+            // groups 1024 bytes apart
+            wgmma_rs_t(P, a[part][u],
+                       wgmma_desc(tile + s * WG_SLAB + 16 * 128 * (2 * q2 + u), WG_SLAB, 1024),
+                       part + u > 0);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(P);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[s][i] += P[i];
+      }
+    }
+    mbar_arrive(empty + st);  // this thread is done with the stage
+  }
+
+  // register 4 j + e of acc[s] is row g + 8 (e >> 1), column 64 s + 8 j + 2 t
+  // + (e & 1); D % 8 == 0, so a pair is in or out whole
+  float* out = dst + (size_t)blockIdx.y * n_own * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    if (r >= n_own) continue;
+#pragma unroll
+    for (int s = 0; s < SL; ++s)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = 64 * s + 8 * j + 2 * t;
+        if (d < D)
+          *reinterpret_cast<float2*>(out + (size_t)r * D + d) =
+              make_float2(acc[s][4 * j + 2 * h], acc[s][4 * j + 2 * h + 1]);
+      }
+  }
+}
+
+// The logit invariant between K1 (logit_products on mma.sync) and grad_wg
+// (wg_logits on wgmma): both stages on one 64 x 64 tile, q and neg (64, D)
+// bf16, D % 8 == 0, D <= 128; out_mma and out_wg (64, 64) fp32 sums. One
+// block of one warpgroup.
+template <int DP>
+__global__ void __launch_bounds__(128)
+logit_probe(const bf16* __restrict__ q, const bf16* __restrict__ neg, float* __restrict__ out_mma,
+            float* __restrict__ out_wg, int D) {
+  constexpr int LD = grad_ld<DP, bf16>(), SL = DP / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* own_sw = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* tile_sw = own_sw + SL * WG_SLAB;
+  bf16* os = reinterpret_cast<bf16*>(tile_sw + SL * WG_SLAB);
+  bf16* ss = os + 64 * LD;
+  load_rows<DP, 64, 128>(os, q, 0, 64, D, true);
+  load_rows<DP, 64, 128>(ss, neg, 0, 64, D, true);
+  cp_async_commit();
+  // the same rows in the 128-byte swizzle TMA writes
+  for (int i = threadIdx.x; i < 64 * DP; i += 128) {
+    const int r = i / DP, c = i % DP, cc = c % 64;
+    const int at = (c / 64) * WG_SLAB + r * 128 + ((cc / 8) ^ (r % 8)) * 16 + (cc % 8) * 2;
+    *reinterpret_cast<bf16*>(own_sw + at) = c < D ? q[r * D + c] : bf16(0);
+    *reinterpret_cast<bf16*>(tile_sw + at) = c < D ? neg[r * D + c] : bf16(0);
+  }
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  float s[8][4];
+  logit_products<DP, 8>(os, ss, warp, lane, s);
+  float S[32], P[32];
+  wg_logits<DP>(own_sw, tile_sw, S, P);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at = (16 * warp + g + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1);
+      out_mma[at] = s[j][e];
+      out_wg[at] = S[4 * j + e];
+    }
+}
+
 // the padded width a D runs at
 int dp_for(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
 
@@ -643,6 +999,14 @@ int grad_splits(int Q, int N, int D) {
                    : grad_splits_dp<256, OWN_Q, TI>(n_own, n_strm);
 }
 
+// out = the chunks' partial sums of part, in chunk order
+cudaError_t merge_chunks(const float* part, float* out, size_t n, int chunks,
+                         cudaStream_t stream) {
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  grad_merge<<<blocks, 256, 0, stream>>>(part, out, n, chunks);
+  return cudaGetLastError();
+}
+
 template <int DP, bool OWN_Q, typename TI>
 cudaError_t launch_grad(const TI* q, const TI* neg, const float* lse, const float* gw,
                         const int* pid, const int* nid, const float* bias, float* part,
@@ -660,10 +1024,108 @@ cudaError_t launch_grad(const TI* q, const TI* neg, const float* lse, const floa
       q, neg, lse, gw, pid, nid, bias, used > 1 ? part : out, Q, N, D, T, downscore, chunk,
       vec_copies<TI>(q, neg, D));
   if ((err = cudaGetLastError()) != cudaSuccess || used == 1) return err;
-  const size_t n = (size_t)n_own * D;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  grad_merge<<<blocks, 256, 0, stream>>>(part, out, n, used);
-  return cudaGetLastError();
+  return merge_chunks(part, out, (size_t)n_own * D, used, stream);
+}
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query: no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (!found) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &status);
+#endif
+    if (err != cudaSuccess) return err;
+    if (status != cudaDriverEntryPointSuccess || !p) return cudaErrorNotSupported;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return cudaSuccess;
+}
+
+// a (rows, D) bf16 matrix as boxes of 64 columns by `box_rows` rows, in the
+// 128-byte swizzle; reads outside the matrix give zeros
+cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int rows, int D, int box_rows) {
+  EncodeTiled encode;
+  cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// grad_wg takes the bf16 shapes with 16-byte rows up to 128 wide; the
+// splits follow from the shape alone, the route from the shape and the
+// pointers (TMA wants 16-byte aligned rows): D = 100, 256 or an unaligned
+// operand take grad_rows<..., bf16>
+bool wg_shape(int D) { return D <= 128 && D % 8 == 0; }
+
+bool wg_route(int D, const void* q, const void* neg) {
+  return wg_shape(D) && vec_copies<bf16>(q, neg, D);
+}
+
+template <int DP, bool OWN_Q>
+cudaError_t wg_attr() {
+  return cudaFuncSetAttribute(grad_wg<DP, OWN_Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)wg_smem<DP>());
+}
+
+template <int DP, bool OWN_Q>
+int wg_splits_dp(int n_own, int n_strm) {
+  int per_sm = 1, sms = 1;
+  cudaError_t err = wg_attr<DP, OWN_Q>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grad_wg<DP, OWN_Q>, WG_THREADS,
+                                                        wg_smem<DP>());
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err != cudaSuccess) return -(int)err;
+  return fill_splits(per_sm, sms, (n_own + WG_ROWS - 1) / WG_ROWS, (n_strm + WG_BC - 1) / WG_BC);
+}
+
+template <bool OWN_Q>
+int wg_splits(int Q, int N, int D) {
+  const int n_own = OWN_Q ? Q : N, n_strm = OWN_Q ? N : Q;
+  return D <= 64 ? wg_splits_dp<64, OWN_Q>(n_own, n_strm)
+                 : wg_splits_dp<128, OWN_Q>(n_own, n_strm);
+}
+
+template <int DP, bool OWN_Q>
+cudaError_t launch_grad_wg(const bf16* q, const bf16* neg, const float* lse, const float* gw,
+                           const int* pid, const int* nid, const float* bias, float* part,
+                           float* out, int Q, int N, int D, float T, int downscore, int splits,
+                           cudaStream_t stream) {
+  const int n_own = OWN_Q ? Q : N, n_strm = OWN_Q ? N : Q;
+  const int tiles = (n_strm + WG_BC - 1) / WG_BC;
+  const int chunk = (tiles + splits - 1) / splits * WG_BC;
+  const int used = (n_strm + chunk - 1) / chunk;  // chunks that hold a streamed row
+  if (used > 1 && !part) return cudaErrorInvalidValue;
+  CUtensorMap own_map, strm_map;
+  cudaError_t err = bf16_tensor_map(&own_map, OWN_Q ? q : neg, n_own, D, 64);
+  if (err == cudaSuccess) err = bf16_tensor_map(&strm_map, OWN_Q ? neg : q, n_strm, D, WG_BC);
+  if (err == cudaSuccess) err = wg_attr<DP, OWN_Q>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_own + WG_ROWS - 1) / WG_ROWS, used);
+  grad_wg<DP, OWN_Q><<<grid, WG_THREADS, wg_smem<DP>(), stream>>>(
+      own_map, strm_map, lse, gw, pid, nid, bias, used > 1 ? part : out, Q, N, D, T, downscore,
+      chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess || used == 1) return err;
+  return merge_chunks(part, out, (size_t)n_own * D, used, stream);
 }
 
 template <bool OWN_Q, typename TI>
@@ -676,6 +1138,11 @@ int grad(const void* q, const void* neg, const float* lse, const float* gw, cons
   const TI* qt = static_cast<const TI*>(q);
   const TI* nt = static_cast<const TI*>(neg);
   const int dp = dp_for(D);
+  if constexpr (sizeof(TI) == 2) {
+    if (wg_route(D, q, neg))
+      return (int)(dp == 64 ? launch_grad_wg<64, OWN_Q>(qt, nt, lse, gw, pid, nid, bias, part, out, Q, N, D, T, downscore, splits, stream)
+                            : launch_grad_wg<128, OWN_Q>(qt, nt, lse, gw, pid, nid, bias, part, out, Q, N, D, T, downscore, splits, stream));
+  }
   cudaError_t err =
       dp == 64 ? launch_grad<64, OWN_Q, TI>(qt, nt, lse, gw, pid, nid, bias, part, out, Q, N, D, T, downscore, splits, stream)
       : dp == 128 ? launch_grad<128, OWN_Q, TI>(qt, nt, lse, gw, pid, nid, bias, part, out, Q, N, D, T, downscore, splits, stream)
@@ -726,6 +1193,7 @@ extern "C" int flash_ce_lse_forward(const void* q, const float* pos_logit, const
 // negative value is a CUDA error, negated.
 extern "C" int flash_ce_grad_splits(int Q, int N, int D, int own_q, int is_bf16) {
   if (Q < 1 || N < 1 || D < 1 || D > DMAX) return -(int)cudaErrorInvalidValue;
+  if (is_bf16 && wg_shape(D)) return own_q ? wg_splits<true>(Q, N, D) : wg_splits<false>(Q, N, D);
   if (is_bf16) return own_q ? grad_splits<true, bf16>(Q, N, D) : grad_splits<false, bf16>(Q, N, D);
   return own_q ? grad_splits<true, float>(Q, N, D) : grad_splits<false, float>(Q, N, D);
 }
@@ -738,6 +1206,37 @@ extern "C" int flash_ce_grad_smem(int D, int is_bf16) {
                                                              : grad_smem<256, bf16>());
   return (int)(dp == 64 ? grad_smem<64, float>() : dp == 128 ? grad_smem<128, float>()
                                                             : grad_smem<256, float>());
+}
+
+// Which kernel flash_ce_grad_query / flash_ce_grad_neg launch for these
+// operands: 1 grad_wg (bf16, D % 8 == 0, D <= 128, 16-byte aligned rows), 0
+// grad_rows.
+extern "C" int flash_ce_grad_route(int D, const void* q, const void* neg, int is_bf16) {
+  return is_bf16 && D >= 1 && wg_route(D, q, neg);
+}
+
+// Dynamic shared memory of a grad_wg block at width D (<= 128), in bytes.
+extern "C" int flash_ce_grad_wg_smem(int D) {
+  return (int)(D <= 64 ? wg_smem<64>() : wg_smem<128>());
+}
+
+// The logits of K1-bf16 (logit_products, mma.sync) and of grad_wg (wgmma) on
+// one tile: q, neg (64, D) bf16, 16-byte aligned, D % 8 == 0, D <= 128;
+// out_mma, out_wg (64, 64) float32 sums q neg^T, before bias and 1/T.
+extern "C" int flash_ce_logit_probe(const void* q, const void* neg, float* out_mma,
+                                    float* out_wg, int D, cudaStream_t stream) {
+  if (!wg_route(D, q, neg)) return (int)cudaErrorInvalidValue;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* nt = static_cast<const bf16*>(neg);
+  const auto run = [&](auto kernel, int dp) {
+    const int smem = 1024 + 2 * (dp / 64) * WG_SLAB + 2 * 64 * (dp + 8) * (int)sizeof(bf16);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<1, 128, smem, stream>>>(qt, nt, out_mma, out_wg, D);
+    return cudaGetLastError();
+  };
+  return (int)(D <= 64 ? run(logit_probe<64>, 64) : run(logit_probe<128>, 128));
 }
 
 // dq (Q, D) float32 = sum_j coef_ij * neg[j]; lse, gw (Q,) float32; part as

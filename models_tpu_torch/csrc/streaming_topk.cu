@@ -82,6 +82,7 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -172,43 +173,6 @@ template <typename T>
 size_t smem_bytes(const Geo& g, int nw, int ns, int k, bool lists_shared) {
   return BAR_BYTES + (size_t)g.qbytes + (size_t)ns * g.stage + (size_t)nw * g.wbytes +
          (lists_shared ? (size_t)16 * nw * k * 8 : 0);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-// arrive, and expect `bytes` more of bulk copies before the phase completes
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// one bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
-// global to shared memory, counted on `bar` as it lands
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1], %2, [%3];\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n .reg .b64 tok;\n mbarrier.arrive.shared::cta.b64 tok, [%0];\n}\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile("{\n .reg .pred p;\n"
-                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 " selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
 // rows [r0, r0 + rows) x depths [d0, d0 + w) of a (n, D) matrix into shared

@@ -16,13 +16,16 @@ negatives tile by tile in the order of the JAX scan (``ops/contrastive.py``).
 Query and negatives are both float32 or both bf16 (the ``mixed_bfloat16``
 policy); the per-row inputs and every output are float32. On the card the
 float32 forms compute their products on the tensor cores as 3xTF32 (near
-fp32's error); the bf16 forms take the logits as one bf16 product into fp32
-and the gradient products as 2xTF32 (the bf16 row is exact in TF32). K1 and
-K2 / K3 see the same logits. The plain versions widen bf16 operands to
-float32 before each product: bf16 products are exact in float32, so they
-compute what the kernels compute, up to the order of the sums. The kernels
-hold widths up to :data:`DMAX`; :func:`fits` tells a caller whether its
-operands may go to them.
+fp32's error); the bf16 forms take the logits as one bf16 product into fp32.
+Their gradient products split each fp32 coefficient into three bf16 parts,
+whose products with the bf16 rows are exact (:func:`grad_query_split3` and
+:func:`grad_neg_split3` model that arithmetic on the CPU, for the tests),
+on ``wgmma`` where :func:`grad_route` says so, else as 2xTF32 on
+``mma.sync``. The plain versions widen bf16 operands to float32 before each
+product: bf16 products are exact in float32, so they compute what the
+kernels compute, up to the order of the sums. The kernels hold widths up to
+:data:`DMAX`; :func:`fits` tells a caller whether its operands may go to
+them.
 """
 
 from __future__ import annotations
@@ -101,6 +104,51 @@ def grad_neg_plain(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature: f
     return dneg
 
 
+SPLIT_ROWS = 32  # rows of the bf16 kernels' gradient product summed from zero
+
+
+def split3_bf16(c: torch.Tensor):
+    """(hi, mid, lo), bf16: ``hi`` is ``c`` rounded to nearest, ``mid`` and
+    ``lo`` the remainders after the parts before, rounded alike. Each
+    remainder is exact in float32, and the three parts sum to ``c`` exactly
+    where ``|c| >= 2**-110``, within ``2**-134`` below (csrc/hopper.cuh,
+    ``split3_bf16``)."""
+    hi = c.to(torch.bfloat16)
+    rest = c - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
+def split3_product(coef: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``coef @ rows`` as the bf16 kernels take it: (M, K) float32
+    coefficients split in three bf16 parts, times (K, D) bf16 rows, each
+    product exact in float32; each :data:`SPLIT_ROWS` rows summed from zero
+    (the small parts first), then added to the (M, D) float32 result."""
+    out = torch.zeros(coef.shape[0], rows.shape[1], dtype=torch.float32, device=coef.device)
+    for k0 in range(0, coef.shape[1], SPLIT_ROWS):
+        r = rows[k0:k0 + SPLIT_ROWS].float()
+        hi, mid, lo = split3_bf16(coef[:, k0:k0 + SPLIT_ROWS].contiguous())
+        out += lo.float() @ r + mid.float() @ r + hi.float() @ r
+    return out
+
+
+def grad_query_split3(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature: float,
+                      downscore: bool) -> torch.Tensor:
+    """:func:`grad_query` in the bf16 kernels' arithmetic (the tests' model
+    of it): the coefficients as the plain version computes them, the product
+    by :func:`split3_product`."""
+    coef = _coef(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature, downscore)
+    return split3_product(coef, neg_emb)
+
+
+def grad_neg_split3(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature: float,
+                    downscore: bool) -> torch.Tensor:
+    """:func:`grad_neg` in the bf16 kernels' arithmetic, as
+    :func:`grad_query_split3`."""
+    coef = _coef(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature, downscore)
+    return split3_product(coef.T, query)
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
@@ -119,6 +167,12 @@ def _lib():
         lib.flash_ce_grad_splits.restype = i
         lib.flash_ce_grad_smem.argtypes = [i, i]
         lib.flash_ce_grad_smem.restype = i
+        lib.flash_ce_grad_wg_smem.argtypes = [i]
+        lib.flash_ce_grad_wg_smem.restype = i
+        lib.flash_ce_grad_route.argtypes = [i, p, p, i]
+        lib.flash_ce_grad_route.restype = i
+        lib.flash_ce_logit_probe.argtypes = [p, p, p, p, i, p]
+        lib.flash_ce_logit_probe.restype = i
         for fn in (lib.flash_ce_grad_query, lib.flash_ce_grad_neg):
             fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i, i, i, p]
             fn.restype = i
@@ -236,6 +290,16 @@ def _grad(entry, counter, out, query, neg_emb, lse, gw, pos_id, neg_id, bias, te
     kernels.check(lib, rc, entry)
     _count(counter, query)
     return out
+
+
+def grad_route(query: torch.Tensor, neg_emb: torch.Tensor) -> str:
+    """The kernel :func:`grad_query` and :func:`grad_neg` launch for these CUDA
+    operands, chosen from the shape and the pointers: ``"grad_wg"`` (bf16, D
+    a multiple of 8 up to 128, 16-byte aligned rows: wgmma, a TMA ring, the
+    three-part bf16 product) or ``"grad_rows"`` (mma.sync)."""
+    wg = _lib().flash_ce_grad_route(query.shape[1], query.data_ptr(), neg_emb.data_ptr(),
+                                    _bf16(query))
+    return "grad_wg" if wg else "grad_rows"
 
 
 def grad_query(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature: float,

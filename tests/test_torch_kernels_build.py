@@ -18,13 +18,15 @@ def csrc(tmp_path):
 @pytest.mark.parametrize("name", kernels.SOURCES)
 def test_digest_follows_the_shared_header(csrc, tmp_path, name):
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["mma_tf32.cuh"]
+    assert [h.name for h in headers] == ["hopper.cuh", "mma_tf32.cuh"]
     before = kernels._target(name, csrc, tmp_path)
     assert kernels._target(name, csrc, tmp_path) == before  # same bytes, same name
     assert before == tmp_path / kernels._target(name).name  # the checkout's own name
-    headers[0].write_bytes(headers[0].read_bytes() + b"\n// edited\n")
-    after = kernels._target(name, csrc, tmp_path)
-    assert after != before and after.name.startswith(f"lib{name}-")
+    for header in headers:  # an edit to either header renames the library
+        header.write_bytes(header.read_bytes() + b"\n// edited\n")
+        after = kernels._target(name, csrc, tmp_path)
+        assert after != before and after.name.startswith(f"lib{name}-")
+        before = after
 
 
 def test_digest_follows_the_source_and_nvcc_sees_the_headers(csrc, tmp_path):
@@ -35,4 +37,5 @@ def test_digest_follows_the_source_and_nvcc_sees_the_headers(csrc, tmp_path):
     flags = kernels.NVCC_FLAGS
     assert flags[flags.index("-I") + 1] == str(kernels.CSRC)
     for name in ("flash_ce", "streaming_topk"):
-        assert '#include "mma_tf32.cuh"' in (kernels.CSRC / f"{name}.cu").read_text()
+        source = (kernels.CSRC / f"{name}.cu").read_text()
+        assert '#include "mma_tf32.cuh"' in source and '#include "hopper.cuh"' in source
