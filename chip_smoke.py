@@ -20,17 +20,21 @@
    biases (K2 and K3 twice, equal bit for bit), at Q=1000, N=3001, T=0.7
    with zero weights and no ids, at D = 64, 100 and 256, at Q = 8191,
    N = 8193 and at N = 40 (fewer negatives than K3 has chunks), and their
-   bf16 forms (bf16 query and negatives) at the same shapes and at Q = N =
-   8192, D = 64 (K1-K3 twice at Q = N = 8192, equal bit for bit), printing
-   which kernel each case's bf16 K2 / K3 took (grad_wg: wgmma, a TMA ring,
-   the three-part bf16 product; or grad_rows by shape), and whether K1-bf16's
-   logits (mma.sync) and grad_wg's (wgmma) agree bit for bit on one tile at
-   D = 64 and 128; the row
+   bf16 forms (bf16 query and negatives) at the same shapes, at Q = N =
+   8192, D = 64 and on query rows off 16-byte alignment (K1-K3 twice at
+   Q = N = 8192, equal bit for bit), printing which kernels each case's
+   bf16 K1 and K2 / K3 took (lse_wg and grad_wg: wgmma, a TMA ring; or
+   lse_partial and grad_rows by shape and alignment, one rule for all
+   three), that lse_wg's logits, taken through K1 itself, equal grad_wg's
+   bit for bit on one tile at D = 64 and 128, and how far lse_partial's
+   (mma.sync) are from them; the row
    scatters (K7 add, K8 write) bit for bit, fp32 and bf16 tables, on the
    userId table at the path's batch (deduplicated skewed ids, stale
    duplicates and out-of-range ids on invalid positions), 81,920 ids over
    24 rows, D = 64, 200 and 130, misaligned rows, N = 1 and no valid
-   position; the row gather (K9) bit for bit, fp32, bf16 and fp16 tables of
+   position, and K7's batch edges (N = 31, 33, 32 P +- 1 for its P
+   positions a warp, N = 3, D = 256, ids -7 and R + 7 on valid and invalid
+   positions); the row gather (K9) bit for bit, fp32, bf16 and fp16 tables of
    R % 8 != 0 rows, duplicates, ids at both ends, clamped ids, B = 1, D = 7,
    a misaligned table, and 8192 ids into the bench's 4M x 128 fp32 and
    16M x 128 bf16 tables; the int8 forms: K5 (int8 x int8 -> int32) equal,
@@ -83,7 +87,9 @@
 11. times those steps as in 8, with a row-sparse update part, the bench's
    op-level steps (sparse adagrad on a 4M x 128 fp32 table, dense adagrad on
    the same as its yardstick, sparse adagrad on a 16M x 128 bf16 table), and
-   K7, K8 (bf16) and K8's fp32 instance on the 4M-row table;
+   K7, K8 (bf16) and K8's fp32 instance on the 4M-row table (and on the
+   userId table; K7 also after a read-only flush, which leaves the L2's
+   lines clean);
 12. runs the row gather through its entry point (8192 ids into the 4M x 128
    fp32 and 16M x 128 bf16 tables, four calls each) and times it;
 13. evaluates, the README's flow at full width: ``compile(metrics=None,
@@ -234,22 +240,29 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 50, warmup: int = 5, cold: bool = False) -> float:
+def device_ms(fn, reps: int = 50, warmup: int = 5, cold=False) -> float:
     """Device time of one call of ``fn``: the kernels and copies ``reps``
     calls put on the card (torch.profiler), each at its mean duration, as
     many times as one call launches it. For calls of a few microseconds,
     where back-to-back events would time the host's launches instead.
     ``cold``: before each call, rewrite a 128 MB buffer (its kernel is left
     out of the sum), so that the call finds its rows in device memory and not
-    in the 50 MB L2."""
+    in the 50 MB L2; the L2 is then full of the buffer's dirty lines, and
+    each line the call brings in first writes one back. ``cold="read"``:
+    read the buffer instead (a sum), which leaves the L2 full of clean
+    lines."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     flush = torch.ones(32 << 20, device="cuda") if cold else None
+    # the flush's own kernels: none of the timed calls runs one
+    flush_kernels = ("reduce_kernel", "Memset") if cold == "read" else ("MulFunctor",)
 
     def call():
-        if cold:
-            flush.mul_(1.0)  # a MulFunctor kernel: none of the timed calls runs one
+        if cold == "read":
+            flush.sum()
+        elif cold:
+            flush.mul_(1.0)
         fn()
 
     for _ in range(warmup):
@@ -280,7 +293,7 @@ def device_ms(fn, reps: int = 50, warmup: int = 5, cold: bool = False) -> float:
         by_name = {}
         for e in events:
             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False) \
-                    and not (cold and "MulFunctor" in e.name):
+                    and not (cold and any(k in e.name for k in flush_kernels)):
                 n, us = by_name.get(e.name, (0, 0.0))
                 by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
         lost = sum(abs(n - round(n / reps) * reps) for n, _ in by_name.values())
@@ -725,16 +738,26 @@ def phase_flash_ce(dev, gen, errs):
                   repeat=Q == N == 8192)
 
 
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data starts one element past a
+    16-byte boundary (rows no TMA copy takes)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def phase_flash_ce_bf16(dev, gen, errs):
     """The bf16 forms of K1-K3 (the mixed_bfloat16 path) against their plain
     versions, under the fp32 forms' tolerances: the training path's shapes
     with downscoring, duplicate ids and MIN_FLOAT biases (the three twice,
     bit-equal), the same at D = 64, 1000 x 3001 at T = 0.7 with zero
     weights, D = 64 and 256, a width with no 16-byte rows (D = 100: the
-    element-wise copies), ragged Q, N, and fewer negatives than K3 has
-    chunks (N = 40). Each case prints the kernel K2 / K3 took (grad_wg, or
-    grad_rows by shape). Then the logit invariant: K1-bf16's logits
-    (mma.sync) and grad_wg's (wgmma) on one tile, bit for bit or not."""
+    element-wise copies), query rows off 16-byte alignment, ragged Q, N,
+    and fewer negatives than K3 has chunks (N = 40). Each case prints the
+    kernels K1 (lse_wg or lse_partial) and K2 / K3 (grad_wg or grad_rows)
+    took: lse_wg exactly where grad_wg, on every D = 64 and 128 case with
+    16-byte rows. Then the logit invariant (``logit_invariant``)."""
     from models_tpu_torch.ops import flash_ce as F
 
     cases = (("Q=N=8192 D=128 downscore bias", 8192, 8192, 128, 1.0, True, True, False),
@@ -744,29 +767,71 @@ def phase_flash_ce_bf16(dev, gen, errs):
              ("Q=N=2048 D=64 downscore bias", 2048, 2048, 64, 1.0, True, True, False),
              ("Q=N=2048 D=256 T=0.7 downscore", 2048, 2048, 256, 0.7, True, False, True),
              ("Q=N=2048 D=100 downscore bias", 2048, 2048, 100, 1.0, True, True, True),
+             ("Q=N=2048 D=128 unaligned query rows", 2048, 2048, 128, 1.0, True, True, False),
              ("Q=8191 N=8193 D=128 T=0.7 downscore bias", 8191, 8193, 128, 0.7, True, True,
               True),
              ("Q=8192 N=40 D=128 downscore bias", 8192, 40, 128, 1.0, True, True, True))
     routes = {}
     for name, Q, N, D, T, ids, bias_min, zero_w in cases:
         args = fce_case(dev, gen, Q, N, D, T, ids, bias_min, zero_w, torch.bfloat16)
-        routes[name] = F.grad_route(args[0], args[2])
+        if "unaligned" in name:
+            args = (misaligned(args[0]), *args[1:])
+        routes[name] = (F.lse_route(args[0], args[2]), F.grad_route(args[0], args[2]))
         check_fce(name, dev, args, T, errs, repeat=Q == N == 8192)
-    print("  K2 / K3 bf16 routes: " + json.dumps(routes), flush=True)
-    for D in (64, 128):
-        require(all(r == "grad_wg" for n, r in routes.items() if f"D={D} " in n),
-                f"a D = {D} case with 16-byte rows did not take grad_wg: {routes}")
+    print("  K1 / K2, K3 bf16 routes: " + json.dumps(routes), flush=True)
+    for name, (lse, grad) in routes.items():
+        require((lse == "lse_wg") == (grad == "grad_wg"),
+                f"{name}: K1 took {lse}, K2 / K3 {grad}: not the same rule")
+        wg = (" D=64 " in name or " D=128 " in name) and "unaligned" not in name
+        require(lse == ("lse_wg" if wg else "lse_partial"), f"{name}: K1 took {lse}")
     logit_invariant(dev, gen)
 
 
+def lse_wg_logits(dev, gen, q, nk):
+    """lse_wg's logit sums of q (64, D) against nk (64, D), both bf16, taken
+    through K1 itself: one split over 256 negatives (four tiles), nk's rows
+    as tiles 1 and 2 (those the kernel computes while the tile before takes
+    its exponentials; tile 2 in the other register set), the rest random,
+    T = 1, the positive logit -inf and every negative's bias -1e30 but one:
+    then m_i is that negative's logit sum. Returns (tile 1's, tile 2's),
+    each (64, 64) float32."""
+    from models_tpu_torch.ops import flash_ce as F
+    from models_tpu_torch.ops import kernels
+
+    lib, D = F._lib(), q.shape[1]
+    fill = (torch.randn(64, D, device=dev, generator=gen) * 0.3).bfloat16()
+    neg = torch.cat([fill, nk, nk, fill]).contiguous()
+    pos = torch.full((64,), -float("inf"), device=dev)
+    part = torch.empty(2, 64, device=dev)
+    m, s = torch.empty(64, device=dev), torch.empty(64, device=dev)
+    require(F.lse_route(q, neg) == "lse_wg", "the lse_wg logit probe did not take lse_wg")
+    out = []
+    for tile in (1, 2):
+        cols = torch.empty(64, 64, device=dev)
+        for k in range(64):
+            bias = torch.full((256,), -1e30, device=dev)
+            bias[64 * tile + k] = 0.0
+            rc = lib.flash_ce_lse_forward(q.data_ptr(), pos.data_ptr(), neg.data_ptr(), None,
+                                          None, bias.data_ptr(), part[0].data_ptr(),
+                                          part[1].data_ptr(), m.data_ptr(), s.data_ptr(), 64,
+                                          256, D, 1.0, 0, 1, 1, F._stream(q))
+            kernels.check(lib, rc, "flash_ce_lse_forward")
+            cols[:, k] = m
+        out.append(cols)
+    torch.cuda.synchronize()
+    return out
+
+
 def logit_invariant(dev, gen):
-    """K1-bf16 and grad_wg compute one tile's logit sums (64 x 64, before bias
-    and 1/T) on the tensor cores through different instructions, mma.sync
-    and wgmma. Prints whether they agree bit for bit, at D = 64 and 128 on
-    seeded rows scaled as the towers' outputs, and how far apart they are
-    (in units of the largest |logit|); a disagreement moves exp(x - lse) by
-    the same relative amount. Fails past 1e-6 of the largest |logit|: each
-    32-deep sum on either path is within a few fp32 ulps of the exact one."""
+    """K1-bf16 and K2 / K3-bf16 must see one x: the forward's lse and the
+    backward's exp(x - lse). On seeded rows scaled as the towers' outputs,
+    at D = 64 and 128: lse_wg's logit sums (``lse_wg_logits``, through K1
+    itself) must equal grad_wg's (``wg_logits``, the probe kernel) bit for
+    bit, as they share the wgmma parts and their order; and lse_partial's
+    (``logit_products``, mma.sync: the other shapes' K1) must lie within
+    1e-6 of the largest |logit| of them (each 32-deep sum on either path is
+    within a few fp32 ulps of the exact one). Prints how far each is from
+    the exact sums."""
     from models_tpu_torch.ops import flash_ce as F
     from models_tpu_torch.ops import kernels
 
@@ -779,17 +844,23 @@ def logit_invariant(dev, gen):
         rc = lib.flash_ce_logit_probe(q.data_ptr(), neg.data_ptr(), out_mma.data_ptr(),
                                       out_wg.data_ptr(), D, F._stream(q))
         kernels.check(lib, rc, "flash_ce_logit_probe")
-        torch.cuda.synchronize()
+        lse_t1, lse_t2 = lse_wg_logits(dev, gen, q, neg)
         exact = q.double() @ neg.double().T
         scale = float(exact.abs().max())
-        same = int((raw_bits(out_mma) == raw_bits(out_wg)).sum())
+        # by value: lse_wg's m adds a zero bias, which turns a -0 sum into +0
+        same = [int((o == out_wg).sum()) for o in (lse_t1, lse_t2)]
+        mma_same = int((raw_bits(out_mma) == raw_bits(out_wg)).sum())
         diff = float((out_mma - out_wg).abs().max()) / scale
         errs_vs_exact = [float((o.double() - exact).abs().max()) / scale
                          for o in (out_mma, out_wg)]
-        print(f"  logit invariant D={D}: {same} of 4096 K1 / grad_wg logits bit-equal, "
-              f"largest difference {diff:.3g} of the largest |logit|; against the exact sums "
-              f"mma.sync {errs_vs_exact[0]:.3g}, wgmma {errs_vs_exact[1]:.3g}", flush=True)
-        require(diff <= 1e-6, f"logit invariant D={D}: K1 and grad_wg logits {diff:.3g} apart")
+        print(f"  logit invariant D={D}: lse_wg (tiles 1, 2) and grad_wg logits equal on "
+              f"{same[0]} and {same[1]} of 4096; lse_partial (mma.sync) and grad_wg bit-equal "
+              f"on {mma_same} of 4096, largest difference {diff:.3g} of the largest |logit|; "
+              f"against the exact sums mma.sync {errs_vs_exact[0]:.3g}, wgmma "
+              f"{errs_vs_exact[1]:.3g}", flush=True)
+        require(same == [4096, 4096], f"logit invariant D={D}: lse_wg and grad_wg logits differ")
+        require(diff <= 1e-6, f"logit invariant D={D}: lse_partial and grad_wg logits "
+                f"{diff:.3g} apart")
 
 
 def head_grads(model, xb, yb, fused):
@@ -1097,19 +1168,29 @@ def measure_flash_ce(dev, model, data, launches, errs, dtype=torch.float32):
             ("grad_neg", 184, lambda: F.grad_neg(*args), lambda: F.grad_neg_plain(*args),
              lambda: coef().T @ q.float(), (Q + N) * D * item + vec + 4 * Q + N * D * 4)):
         flops, extra = bounds["lse_forward" if name == "lse_forward" else "grad"]
-        source, wg = "models_tpu_torch/csrc/flash_ce.cu", sfx and name != "lse_forward"
-        if wg:  # the bf16 K2 / K3 take grad_wg on these inputs
-            require(F.grad_route(q, neg) == "grad_wg", f"{name}{sfx} did not take grad_wg")
-            source += f":{source_line(source, 'grad_wg(const __grid_constant__')}"
+        source, design = "models_tpu_torch/csrc/flash_ce.cu", None
+        if sfx:  # the bf16 forms take the wgmma kernels on these inputs
+            kernel = "lse_wg" if name == "lse_forward" else "grad_wg"
+            route = (F.lse_route if name == "lse_forward" else F.grad_route)(q, neg)
+            require(route == kernel, f"{name}{sfx} took {route}, not {kernel}")
+            source += f":{source_line(source, kernel + '(const __grid_constant__')}"
+            design = WG_DESIGNS[kernel]
         row = _row(name + sfx, source, f"models_tpu/ops/flash_ce.py:{line}",
                    launches[name + sfx], errs[name + sfx], cuda_ms(fn), cuda_ms(plain, reps=3),
                    cuda_ms(lib, reps=3), flops, nbytes, PEAK_3XTF32,
                    ms_cold=device_ms(fn, cold=True) if name == "lse_forward" else None,
                    extra=extra)
-        if wg:
-            row["design"] = "grad_wg: wgmma, TMA ring, 3xbf16 gradient product"
+        if design:
+            row["design"] = design
         rows.append(row)
     return rows
+
+
+WG_DESIGNS = {
+    "lse_wg": "lse_wg: wgmma, TMA ring, the next tile's logits in flight during this tile's "
+              "exponentials (ex2 with the scale folded into one fma)",
+    "grad_wg": "grad_wg: wgmma, TMA ring, 3xbf16 gradient product",
+}
 
 
 def source_line(path: str, text: str) -> int:
@@ -1172,7 +1253,9 @@ def phase_row_scatter(dev, gen, errs):
     at the path's batch (a deduplicated skewed batch with stale duplicates
     and out-of-range ids on invalid positions), genres-like (81,920 ids over
     24 rows), D = 64 and 200, D = 130 and misaligned rows (the scalar path),
-    fp32 and bf16 tables, N = 1 and no valid position."""
+    fp32 and bf16 tables, N = 1 and no valid position; K7's batch edges
+    (N = 31, 33, 32 P - 1, 32 P + 1, N = 3, fewer positions than the grid's
+    warps, D = 256), with ids -7 and R + 7 on invalid and valid positions."""
     from models_tpu_torch.ops import scatter as S
 
     errs["row_scatter_add"] = errs["row_scatter_write"] = 0.0
@@ -1190,6 +1273,25 @@ def phase_row_scatter(dev, gen, errs):
         scatter_case(dev, gen, 64, 128, 1, dtype, one, none[:1], errs=errs)
         ids = torch.randperm(4096, device=dev, generator=gen)[:512].to(torch.int32)
         scatter_case(dev, gen, 4096, 128, 512, dtype, ids, none, errs=errs)
+    # K7's batches of P positions a warp: ragged last batches, fewer
+    # positions than the grid has warps, two pieces a lane (D = 256); valid
+    # and invalid positions with ids -7 and R + 7
+    P = S._lib().row_scatter_add_batch()
+    R = 4096
+    for N, D in ((31, 128), (33, 128), (32 * P - 1, 128), (32 * P + 1, 128), (3, 128),
+                 (1000, 256)):
+        ids = torch.randperm(R, device=dev, generator=gen)[:N].to(torch.int32)
+        valid = torch.rand(N, device=dev, generator=gen) < 0.8
+        off = torch.arange(N, device=dev)
+        ids = torch.where(~valid & (off % 2 == 0), -7, ids)
+        ids = torch.where(~valid & (off % 2 == 1), R + 7, ids)
+        ids = torch.where(valid & (off % 13 == 5), R + 7, ids)  # valid, out of range: dropped
+        ids = torch.where(valid & (off % 13 == 6), -7, ids).to(torch.int32).contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            n_valid = scatter_case(dev, gen, R, D, N, dtype, ids, valid, errs=errs)
+        in_range = int(((ids >= 0) & (ids < R) & valid).sum())
+        print(f"  row scatters P={P} N={N} D={D}: {n_valid} valid ({in_range} in range), fp32 "
+              "and bf16 tables bit-equal", flush=True)
     # rows one element off 16-byte alignment take the scalar path
     table = torch.randn(4096, 128, device=dev, generator=gen)
     buf = torch.randn(512 * 128 + 1, device=dev, generator=gen)
@@ -1430,8 +1532,12 @@ def measure_row_scatter(dev, gen, launches, errs):
             row = _row(name, "models_tpu_torch/csrc/row_scatter.cu",
                        f"models_tpu/ops/scatter.py:{line}", launches[name], errs[name], ms,
                        plain_ms, lib_ms, 0, nbytes)
+            if name == "row_scatter_add":
+                row["design"] = (f"batches of {S._lib().row_scatter_add_batch()} positions a "
+                                 "warp, the batch's ids in one load, grid from occupancy")
             extra[f"{name}_R{R}"] = {
                 **{k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                "read_flush_ms": device_ms(kernel, cold="read"),
                 "l2_warm_ms": device_ms(kernel),
                 "library_l2_warm_ms": device_ms(lambda: lib(table, arg, arg_v)),
                 "back_to_back_ms": cuda_ms(kernel, reps=50)}
@@ -2159,7 +2265,7 @@ def main() -> int:
         print(f"  {name}: {regs}", flush=True)
     # the tensor-core kernels in full: each kernel's registers, static shared
     # memory and spills
-    for name in ("flash_ce", "streaming_topk"):
+    for name in ("flash_ce", "streaming_topk", "row_scatter"):
         for ln in kernels.build_logs.get(name, "").splitlines():
             if ("entry function" in ln or "Used" in ln or "spill" in ln
                     or "wgmma" in ln or "warning" in ln.lower()):
@@ -2172,8 +2278,9 @@ def main() -> int:
         print(f"    flash_ce grad_rows and lse_partial dynamic shared memory (bytes), {form} "
               f"forms, at D = 64, 128, 256: "
               f"{[F._lib().flash_ce_grad_smem(d, bf16) for d in (64, 128, 256)]}", flush=True)
-    print(f"    flash_ce grad_wg (bf16 K2 / K3) dynamic shared memory (bytes) at D = 64, 128: "
-          f"{[F._lib().flash_ce_grad_wg_smem(d) for d in (64, 128)]}", flush=True)
+    print(f"    flash_ce grad_wg (bf16 K2 / K3) and lse_wg (bf16 K1) dynamic shared memory "
+          f"(bytes) at D = 64, 128: {[F._lib().flash_ce_grad_wg_smem(d) for d in (64, 128)]}, "
+          f"{[F._lib().flash_ce_lse_wg_smem(d) for d in (64, 128)]}", flush=True)
     for dtype, B, k in ((torch.float32, 4096, K), (torch.bfloat16, 4096, K),
                         (torch.int8, 4096, K), (torch.float32, 256, 600),
                         (torch.float32, 8, 5000)):

@@ -2,7 +2,7 @@
 // the two backward products, none of which writes the (Q, N) logit matrix.
 //
 // Replaces the TPU kernels of models_tpu/ops/flash_ce.py:
-//   flash_ce_lse_forward  <- lse_forward (K1)
+//   flash_ce_lse_forward  <- lse_forward (K1; bf16 form: lse_wg)
 //   flash_ce_grad_query   <- grad_query  (K2; bf16 form: grad_wg)
 //   flash_ce_grad_neg     <- grad_neg    (K3; bf16 form: grad_wg)
 //
@@ -22,7 +22,8 @@
 // Design. The TPU grid walked the negatives in order and carried (m, s), or
 // the dq / dneg block, in VMEM from one grid step to the next. Blocks on
 // Hopper run in parallel and carry nothing.
-//   K1: lse_partial, on the tensor cores: grad_rows' first half. A block of
+//   K1: lse_partial (fp32; bf16 where lse_wg does not take the shape), on
+//     the tensor cores: grad_rows' first half. A block of
 //     4 warps owns GBR = 64 query rows (16 a warp) and streams its split of
 //     the negatives in tiles through the same cp.async ring. The logits come
 //     from the same 3xTF32 product with the same 32-column partial sums
@@ -80,18 +81,18 @@
 //       result is the same bits from run to run.
 //
 // The bf16 forms (q and neg bf16, the mixed_bfloat16 path):
-//   - K1-bf16: lse_partial on 16-bit tiles, half the shared memory and copies
-//     of the fp32 form; logits as one bf16 product into fp32,
-//     mma.sync.m16n8k16, no split: bf16 products are exact in fp32, so only
-//     the sums round (toward zero on the tensor cores: each 32 columns of d,
-//     two k16 steps, are summed from 0 and join s by an fp32 add).
-//   - K2-bf16 / K3-bf16: grad_wg, on wgmma with a TMA ring, where D % 8 == 0,
-//     D <= 128 and both operands have 16-byte aligned rows (the training
-//     path's shapes); other shapes (D = 100, D = 256, an unaligned operand)
-//     keep grad_rows on bf16 tiles with 2xTF32 gradient products (the
-//     fp32 coefficient split in a TF32 part and a TF32 remainder, the bf16
-//     row exact in TF32), chosen from the shape and pointers alone
-//     (flash_ce_grad_route).
+//   - K1-bf16: lse_wg, on wgmma with a TMA ring, and K2-bf16 / K3-bf16:
+//     grad_wg, where D % 8 == 0, D <= 128 and both operands have 16-byte
+//     aligned rows (the training path's shapes); other shapes (D = 100,
+//     D = 256, an unaligned operand) keep lse_partial and grad_rows on bf16
+//     tiles, chosen from the shape and pointers alone, the same rule for
+//     all three (flash_ce_grad_route). lse_partial's bf16 logits: one bf16
+//     product into fp32, mma.sync.m16n8k16, no split: bf16 products are
+//     exact in fp32, so only the sums round (toward zero on the tensor
+//     cores: each 32 columns of d, two k16 steps, are summed from 0 and
+//     join s by an fp32 add); grad_rows' bf16 gradient products as 2xTF32
+//     (the fp32 coefficient split in a TF32 part and a TF32 remainder, the
+//     bf16 row exact in TF32).
 //   - Copies of the bf16 lse_partial and grad_rows: 16-byte cp.async of 8
 //     elements where D % 8 == 0 and the rows are 16-byte aligned, else plain
 //     element loads into shared (a 2-byte element has no cp.async); rows
@@ -118,10 +119,12 @@
 //     stage; both warpgroups read every stage.
 //   - Logits: wgmma m64n64k16 bf16, both operands from shared memory,
 //     K-major; each 32 deep summed from zero (scale-d 0) and added to an fp32
-//     sum in depth order, as logit_products adds its parts: on every tile the
-//     card was probed with, K1-bf16's logits and grad_wg's are equal bit for
-//     bit (chip_smoke.py checks it each run, at D = 64 and 128), so the
-//     forward's lse and the backward's exp(x - lse) still see one x.
+//     sum in depth order, as logit_products adds its parts. K1-bf16 on these
+//     shapes (lse_wg) takes the same parts in the same order, so the
+//     forward's lse and the backward's exp(x - lse) see one x; on every tile
+//     the card was probed with, lse_partial's mma.sync logits (K1 on the
+//     other shapes) equal them bit for bit too (chip_smoke.py checks both
+//     each run, at D = 64 and 128).
 //   - Coefficients in registers: the logit accumulator turns into
 //     gw / T * 2^(x log2(e) / T - lse log2(e)) in place (one fma, one
 //     ex2.approx, which keeps 2 ulp), masking and the chunk's end as in
@@ -155,6 +158,41 @@
 //   (m64n128) and the coefficients' parts in shared memory (A from shared
 //   memory: m64n64 then reads 4 KB a 32 clocks, the SM's whole shared-memory
 //   rate) were no faster.
+//   lse_wg (K1-bf16) replaces lse_partial<DP, bf16> on those shapes. Its
+//   bound at Q = N = 8192, D = 128: the logits, 17.2 GFLOP at the bf16 peak,
+//   0.0174 ms; the Q * N = 67 M exponentials take 0.016 ms of the special
+//   function units beside it. What held lse_partial's bf16 form (0.131 ms,
+//   13% of the bound, on an H100 80GB HBM3 at 700 W): mma.sync logits fed by
+//   ldmatrix from a two-stage cp.async ring, one __syncthreads a tile, four
+//   warps doing copies, products, one expf a logit and the online (max, sum)
+//   in sequence. lse_wg's design:
+//   - Block, ring and copying warp: grad_wg<DP, true>'s (wg_layout,
+//     wg_fill: a 4-stage TMA ring of 64 negatives with their bias and nid),
+//     with three consumer warpgroups, 192 own query rows (lse_wg keeps no
+//     result: 128 registers a thread and no spill; a fourth warpgroup
+//     spilled and serialized the wgmma); the negatives cut into splits from
+//     the occupancy the card reports (fill_splits), the partials merged in
+//     split order by lse_merge with the positive logit: the same bits every
+//     call.
+//   - Logits: the very parts of wg_logits in its order (each 32 deep summed
+//     from zero by wgmma m64n64k16, added in depth order), so that K1-bf16's
+//     logits equal K2-bf16 / K3-bf16's bit for bit by construction
+//     (chip_smoke.py checks it through K1 itself).
+//   - Overlap: two tiles' logits take turns in two 32-register sets; tile
+//     i + 1's parts are issued before tile i's exponentials, which run in
+//     DP / 32 - 1 chunks, one between each wait for a part and the issue of
+//     the next. On the chunk's last tile the parts run again on that tile,
+//     their sums unused: issued and waited for on every path, the wgmma stay
+//     unserialized.
+//   - Softmax in the accumulator layout (rows g and g + 8 of the warp's 16,
+//     as lse_partial): each column pair's biases and ids by one 8-byte
+//     shared load each and the mask with no branch (under the mask's
+//     short-circuit every load became a branch around a generic load, 32 in
+//     sequence a tile, and the kernel ran slower than lse_partial); the max
+//     over x' + bias scaled once by 1/T (the same value as the max of the
+//     scaled logits); each exponential one fma and one ex2.approx,
+//     2^(fma(x' + bias, log2(e) / T, -m log2(e))); the running sum rescaled
+//     by expf; the quad merge of lse_partial.
 //
 // Bound on an H100 SXM at Q = N = 8192, D = 128: operations. K1 does
 // 2*Q*N*D = 17.2 GFLOP, as 3xTF32 51.5 GFLOP on the TF32 tensor cores: 0.104
@@ -188,6 +226,7 @@ constexpr int SPLITS_MAX = 1024;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float MIN_FLOAT = -0x1.47851ep+9f;  // float16.min / 100 = -655.04, as float32
 constexpr float EMPTY = -FLT_MAX;             // the max over no logit
+constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = 2^(x log2(e))
 
 constexpr int GBR = 64;        // own rows a block holds: 4 warps x 16
 constexpr int GTHREADS = 128;
@@ -302,6 +341,30 @@ __device__ __forceinline__ void logit_products(const TI* os, const TI* ss, int w
 // K1: online log-sum-exp on the tensor cores
 // ---------------------------------------------------------------------------
 
+// The four lanes of a quad (t = 0 .. 3) hold online (max, sum) pairs of the
+// same two rows: merge them, then lane 0 writes the block's split's partial
+// of each row below Q
+__device__ __forceinline__ void write_partials(float (&m)[2], float (&sum)[2],
+                                               const int (&rows)[2], int t, int Q,
+                                               float* __restrict__ part_m,
+                                               float* __restrict__ part_s) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float mo = __shfl_xor_sync(FULL, m[h], off);
+      const float so = __shfl_xor_sync(FULL, sum[h], off);
+      const float mn = fmaxf(m[h], mo);
+      sum[h] = sum[h] * expf(m[h] - mn) + so * expf(mo - mn);
+      m[h] = mn;
+    }
+    if (t == 0 && rows[h] < Q) {
+      part_m[(size_t)blockIdx.y * Q + rows[h]] = m[h];
+      part_s[(size_t)blockIdx.y * Q + rows[h]] = sum[h];
+    }
+  }
+}
+
 // Block (own tile x, split y): the GBR query rows of tile x against the
 // negatives [y * chunk, min((y + 1) * chunk, N)), BCT at a time through the
 // cp.async ring; one (m, s) partial per (split, row).
@@ -382,23 +445,8 @@ lse_partial(const TI* __restrict__ q, const TI* __restrict__ neg,
     }
   }
 
-  // the four lanes of a quad hold the same two rows: merge, then write
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const float mo = __shfl_xor_sync(FULL, m[h], off);
-      const float so = __shfl_xor_sync(FULL, sum[h], off);
-      const float mn = fmaxf(m[h], mo);
-      sum[h] = sum[h] * expf(m[h] - mn) + so * expf(mo - mn);
-      m[h] = mn;
-    }
-    const int r = r0 + 16 * warp + g + 8 * h;
-    if (t == 0 && r < Q) {
-      part_m[(size_t)blockIdx.y * Q + r] = m[h];
-      part_s[(size_t)blockIdx.y * Q + r] = sum[h];
-    }
-  }
+  const int rows[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+  write_partials(m, sum, rows, t, Q, part_m, part_s);
 }
 
 __global__ void lse_merge(const float* __restrict__ pos_logit, const float* __restrict__ part_m,
@@ -589,11 +637,17 @@ __global__ void grad_merge(const float* __restrict__ part, float* __restrict__ o
 
 constexpr int WG_BC = 64;                   // streamed rows a tile
 constexpr int WG_STAGES = 4;                // tiles in the ring
-constexpr int WG_CONSUMERS = 2;             // warpgroups of 64 own rows each
-constexpr int WG_ROWS = 64 * WG_CONSUMERS;  // own rows a block
-// and one copying warp. Nine warps put three on one of the SM's four
-// sub-partitions, whose 16 K registers cap a thread at 168 (ptxas' budget)
-constexpr int WG_THREADS = 128 * WG_CONSUMERS + 32;
+// A block of the wgmma kernels: CONS consumer warpgroups of 64 own rows each
+// and one copying warp. grad_wg takes two: nine warps put three on one of
+// the SM's four sub-partitions, whose 16 K registers cap a thread at 168
+// (ptxas' budget), which its 64 x D result needs. lse_wg keeps no result and
+// fits 128 registers: a third warpgroup keeps more products in flight
+constexpr int WG_CONSUMERS = 2;             // grad_wg's
+constexpr int LSE_CONSUMERS = 3;            // lse_wg's
+__host__ __device__ constexpr int wg_rows(int cons) { return 64 * cons; }
+__host__ __device__ constexpr int wg_threads(int cons) { return 128 * cons + 32; }
+constexpr int WG_ROWS = wg_rows(WG_CONSUMERS);
+constexpr int WG_THREADS = wg_threads(WG_CONSUMERS);
 constexpr int WG_SLAB = 64 * 128;           // 64 rows of 64 bf16, swizzled: one TMA box
 constexpr int WG_META = 3 * WG_BC * 4;      // a tile's per-row inputs: two floats and an id
 
@@ -603,10 +657,84 @@ template <int DP> __host__ __device__ constexpr int wg_tile_bytes() { return DP 
 // 1024 bytes of slack to align the tiles for the swizzle, the own rows, the
 // ring's tiles and per-row inputs, a full and an empty barrier a stage and
 // the own rows' barrier
-template <int DP>
+template <int DP, int CONS = WG_CONSUMERS>
 __host__ __device__ constexpr size_t wg_smem() {
-  return 1024 + (size_t)(WG_CONSUMERS + WG_STAGES) * wg_tile_bytes<DP>() +
+  return 1024 + (size_t)(CONS + WG_STAGES) * wg_tile_bytes<DP>() +
          (size_t)WG_STAGES * WG_META + (2 * WG_STAGES + 1) * 8;
+}
+
+// wg_smem's layout, shared by grad_wg and lse_wg
+struct WgSmem {
+  unsigned char* own;    // CONS tiles, 1024-byte aligned for the swizzle
+  unsigned char* tiles;  // the ring: WG_STAGES tiles
+  float* metas;          // [stage][3][WG_BC]: the tile's per-row inputs
+  uint64_t* full;        // a stage's tile and inputs have arrived
+  uint64_t* empty;       // every consuming thread is done with a stage
+  uint64_t* own_bar;     // the own rows have arrived
+};
+
+// carve the layout out of the dynamic shared memory and initialise the
+// barriers (one thread; the whole block waits)
+template <int DP, int CONS = WG_CONSUMERS>
+__device__ __forceinline__ WgSmem wg_layout(unsigned char* raw) {
+  constexpr int TILE = wg_tile_bytes<DP>();
+  WgSmem s;
+  s.own = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                           ~uintptr_t(1023));
+  s.tiles = s.own + CONS * TILE;
+  s.metas = reinterpret_cast<float*>(s.tiles + WG_STAGES * TILE);
+  s.full = reinterpret_cast<uint64_t*>(s.metas + WG_STAGES * 3 * WG_BC);
+  s.empty = s.full + WG_STAGES;
+  s.own_bar = s.empty + WG_STAGES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < WG_STAGES; ++i) {
+      mbar_init(s.full + i, 32);           // the copying warp's lanes
+      mbar_init(s.empty + i, 128 * CONS);  // every consuming thread
+    }
+    mbar_init(s.own_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return s;
+}
+
+// The copying warp of grad_wg and lse_wg: the block's own rows [r0, r0 +
+// 64 CONS) once by TMA, then the chunk's rows [c_begin, c_end) WG_BC at a
+// time into the ring with their per-row inputs, scaled as the consumers
+// take them: OWN_Q (K2, K1-bf16) the negatives' bias, -, nid; else (K3) the
+// queries' lse log2(e), gw / T, pid. Null inputs arrive as zeros.
+template <int DP, bool OWN_Q, int CONS = WG_CONSUMERS>
+__device__ __forceinline__ void wg_fill(const WgSmem& sm, const void* own_map,
+                                        const void* strm_map, const float* s_f0,
+                                        const float* s_f1, const int* s_id, float inv_t,
+                                        int r0, int c_begin, int c_end, int n_tiles) {
+  constexpr int SL = DP / 64, TILE = wg_tile_bytes<DP>();
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    mbar_arrive_expect(sm.own_bar, CONS * TILE);
+    for (int w = 0; w < CONS; ++w)
+      for (int s = 0; s < SL; ++s)
+        tma_load_2d(sm.own + w * TILE + s * WG_SLAB, own_map, 64 * s, r0 + 64 * w, sm.own_bar);
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % WG_STAGES, c0 = c_begin + it * WG_BC;
+    mbar_wait(sm.empty + st, ((it / WG_STAGES) & 1) ^ 1);  // tile it - WG_STAGES consumed
+    float* meta = sm.metas + st * 3 * WG_BC;
+    for (int r = lane; r < WG_BC; r += 32) {
+      const bool ok = c0 + r < c_end;
+      const float f0 = ok && s_f0 ? s_f0[c0 + r] : 0.f;
+      meta[r] = OWN_Q ? f0 : f0 * LOG2E;
+      meta[WG_BC + r] = ok && s_f1 ? s_f1[c0 + r] * inv_t : 0.f;
+      reinterpret_cast<int*>(meta)[2 * WG_BC + r] = ok && s_id ? s_id[c0 + r] : 0;
+    }
+    if (lane == 0) {
+      mbar_arrive_expect(sm.full + st, TILE);
+      for (int s = 0; s < SL; ++s)
+        tma_load_2d(sm.tiles + st * TILE + s * WG_SLAB, strm_map, 64 * s, c0, sm.full + st);
+    } else {
+      mbar_arrive(sm.full + st);
+    }
+  }
 }
 
 // 32-deep part p of the logits (k16 steps 2p and 2p + 1, in slab p / 2) of
@@ -664,15 +792,12 @@ grad_wg(const __grid_constant__ CUtensorMap own_map,
         const int* __restrict__ nid, const float* __restrict__ bias, float* __restrict__ dst,
         int Q, int N, int D, float T, int downscore, int chunk) {
   constexpr int SL = DP / 64, TILE = wg_tile_bytes<DP>();
-  constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* own_s = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* tiles = own_s + WG_CONSUMERS * TILE;
-  float* metas = reinterpret_cast<float*>(tiles + WG_STAGES * TILE);  // [stage][3][WG_BC]
-  uint64_t* full = reinterpret_cast<uint64_t*>(metas + WG_STAGES * 3 * WG_BC);
-  uint64_t* empty = full + WG_STAGES;
-  uint64_t* own_bar = empty + WG_STAGES;
+  const WgSmem sm = wg_layout<DP>(smem_raw);
+  unsigned char* tiles = sm.tiles;
+  const float* metas = sm.metas;
+  uint64_t* full = sm.full;
+  uint64_t* empty = sm.empty;
   const int n_own = OWN_Q ? Q : N, n_strm = OWN_Q ? N : Q;
   const int r0 = blockIdx.x * WG_ROWS;
   const int c_begin = blockIdx.y * chunk;
@@ -683,47 +808,10 @@ grad_wg(const __grid_constant__ CUtensorMap own_map,
   // - lse log2(e)), x' the logit before 1/T: one fma and one ex2
   const float inv_t = 1.f / T, scale = inv_t * LOG2E;
 
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < WG_STAGES; ++i) {
-      mbar_init(full + i, 32);                    // the copying warp's lanes
-      mbar_init(empty + i, 128 * WG_CONSUMERS);   // every consuming thread
-    }
-    mbar_init(own_bar, 1);
-    mbar_init_fence();
-  }
-  __syncthreads();
-
   if (wg == WG_CONSUMERS) {  // the copying warp
-    const int lane = threadIdx.x & 31;
-    // the streamed rows' inputs: K2 (bias, -, nid), K3 (lse log2(e), gw / T, pid)
-    const float* s_f0 = OWN_Q ? bias : lse;
-    const float* s_f1 = OWN_Q ? nullptr : gw;
-    const int* s_id = downscore ? (OWN_Q ? nid : pid) : nullptr;
-    if (lane == 0) {
-      mbar_arrive_expect(own_bar, WG_CONSUMERS * TILE);
-      for (int w = 0; w < WG_CONSUMERS; ++w)
-        for (int s = 0; s < SL; ++s)
-          tma_load_2d(own_s + w * TILE + s * WG_SLAB, &own_map, 64 * s, r0 + 64 * w, own_bar);
-    }
-    for (int it = 0; it < n_tiles; ++it) {
-      const int st = it % WG_STAGES, c0 = c_begin + it * WG_BC;
-      mbar_wait(empty + st, ((it / WG_STAGES) & 1) ^ 1);  // tile it - WG_STAGES consumed
-      float* meta = metas + st * 3 * WG_BC;
-      for (int r = lane; r < WG_BC; r += 32) {
-        const bool ok = c0 + r < c_end;
-        const float f0 = ok && s_f0 ? s_f0[c0 + r] : 0.f;
-        meta[r] = OWN_Q ? f0 : f0 * LOG2E;
-        meta[WG_BC + r] = ok && s_f1 ? s_f1[c0 + r] * inv_t : 0.f;
-        reinterpret_cast<int*>(meta)[2 * WG_BC + r] = ok && s_id ? s_id[c0 + r] : 0;
-      }
-      if (lane == 0) {
-        mbar_arrive_expect(full + st, TILE);
-        for (int s = 0; s < SL; ++s)
-          tma_load_2d(tiles + st * TILE + s * WG_SLAB, &strm_map, 64 * s, c0, full + st);
-      } else {
-        mbar_arrive(full + st);
-      }
-    }
+    wg_fill<DP, OWN_Q>(sm, &own_map, &strm_map, OWN_Q ? bias : lse, OWN_Q ? nullptr : gw,
+                       downscore ? (OWN_Q ? nid : pid) : nullptr, inv_t, r0, c_begin, c_end,
+                       n_tiles);
     return;
   }
 
@@ -742,13 +830,13 @@ grad_wg(const __grid_constant__ CUtensorMap own_map,
     o_bias[h] = (!OWN_Q && bias && ok) ? bias[r] : 0.f;
     o_id[h] = (downscore && ok) ? (OWN_Q ? pid[r] : nid[r]) : 0;
   }
-  const unsigned char* own = own_s + wg * TILE;
+  const unsigned char* own = sm.own + wg * TILE;
   float acc[SL][32];
 #pragma unroll
   for (int s = 0; s < SL; ++s)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[s][i] = 0.f;
-  mbar_wait(own_bar, 0);
+  mbar_wait(sm.own_bar, 0);
 
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it % WG_STAGES, c0 = c_begin + it * WG_BC;
@@ -840,8 +928,190 @@ grad_wg(const __grid_constant__ CUtensorMap own_map,
   }
 }
 
-// The logit invariant between K1 (logit_products on mma.sync) and grad_wg
-// (wg_logits on wgmma): both stages on one 64 x 64 tile, q and neg (64, D)
+// ---------------------------------------------------------------------------
+// K1-bf16: lse_wg (wgmma, a TMA ring, the next tile's logits in flight during
+// this tile's exponentials)
+// ---------------------------------------------------------------------------
+
+// two adjacent 4-byte values of shared memory, 8-byte aligned (ordered after
+// the barrier waits, which are volatile too)
+__device__ __forceinline__ float2 lds_v2(const float* p) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(smem_addr(p)));
+  return v;
+}
+
+// What a consuming thread of lse_wg keeps across tiles
+struct LseThread {
+  const unsigned char* own;    // its warpgroup's 64 own query rows
+  const unsigned char* tiles;  // the ring (wg_smem's layout)
+  const float* metas;
+  uint64_t* full;
+  uint64_t* empty;
+  int n_tiles, c_begin, c_end;
+  bool downscore;
+  int t;               // its position in the quad: columns 8 j + 2 t, + 1
+  int o_id[2];         // pid of its rows g and g + 8
+  float inv_t, scale;  // 1 / T, and log2(e) / T
+  float m[2], sum[2];  // the online (max, sum) of its two rows
+};
+
+// 32-deep part p of the logits of the warpgroup's own rows against `tile`,
+// issued from zero into d (one commit group; the caller waits for it)
+__device__ __forceinline__ void issue_part(float (&d)[32], const unsigned char* own,
+                                           const unsigned char* tile, int p) {
+  fence_regs(d);
+  wgmma_fence();
+  logit_part(d, own, tile, p);
+  wgmma_commit();
+}
+
+// Tile `it` of the chunk: cur holds its logit sums (wg_logits' order). Tile it
+// + 1's parts are issued after this tile's max and before its exponentials,
+// each into tmp from zero and added to nxt in depth order once it has landed,
+// as wg_logits adds them: nxt leaves with tile it + 1's logits, bit for bit
+// wg_logits'.
+//   x = (masked ? MIN_FLOAT : x' + bias) / T, x' the sum; the max is taken
+//   over x' + bias (or MIN_FLOAT) and scaled once, m = max(m, vmax * (1/T)),
+//   the same value as the max of the scaled x (rounding is monotone);
+//   exp(x - m) = 2^(fma(x' + bias, log2(e) / T, -m log2(e))), one ex2.approx.
+// Columns past the chunk's end are -inf: no max, exp 0.
+template <int DP>
+__device__ __forceinline__ void lse_tile(LseThread& th, int it, float (&cur)[32],
+                                         float (&nxt)[32], float (&tmp)[32]) {
+  constexpr int TILE = wg_tile_bytes<DP>(), NP = DP / 32, NC = NP - 1;
+  const int st = it % WG_STAGES;
+  // x' + bias, or MIN_FLOAT. Register 4 j + e is own row g + 8 (e >> 1),
+  // tile column 8 j + 2 t + (e & 1): the thread's two columns of each j come
+  // as one 8-byte shared load of their biases and one of their ids, with no
+  // branch (a load under the mask's short-circuit became a branch around
+  // each generic load, 32 round trips in sequence a tile)
+  const float* m_bias = th.metas + st * 3 * WG_BC + 2 * th.t;
+  const float* m_id = m_bias + 2 * WG_BC;  // the ids' bits
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 b = lds_v2(m_bias + 8 * j);
+    const float2 id = lds_v2(m_id + 8 * j);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col_id = __float_as_int(e & 1 ? id.y : id.x);
+      const bool masked = th.downscore & (col_id == th.o_id[e >> 1]);
+      cur[4 * j + e] = masked ? MIN_FLOAT : cur[4 * j + e] + (e & 1 ? b.y : b.x);
+    }
+  }
+  const int valid = th.c_end - (th.c_begin + it * WG_BC);
+  if (valid < WG_BC) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * th.t + (e & 1) >= valid) cur[4 * j + e] = -INFINITY;
+  }
+  float vmax[2] = {-INFINITY, -INFINITY}, nml[2], add[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) vmax[(i >> 1) & 1] = fmaxf(vmax[(i >> 1) & 1], cur[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(th.m[h], vmax[h] * th.inv_t);
+    th.sum[h] *= expf(th.m[h] - mn);
+    th.m[h] = mn;
+    // while m is EMPTY the thread has seen only -inf columns: exp 0, not
+    // 2^(-inf + inf)
+    nml[h] = fminf(-mn * LOG2E, FLT_MAX);
+  }
+  // tile it + 1's parts; on the chunk's last tile the same products on this
+  // tile again, their sums unused: the parts are issued and waited for on
+  // every path (issued under one branch and waited for under another, they
+  // made ptxas serialize the wgmma)
+  const bool more = it + 1 < th.n_tiles;
+  const int sn = more ? (it + 1) % WG_STAGES : st;
+  const unsigned char* next_tile = th.tiles + sn * TILE;
+  if (more) mbar_wait(th.full + sn, ((it + 1) / WG_STAGES) & 1);
+  issue_part(nxt, th.own, next_tile, 0);
+  issue_part(tmp, th.own, next_tile, 1);
+  // the exponentials in NC chunks, one between each wait for a part and the
+  // issue of the next
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int j = 8 * c / NC; j < 8 * (c + 1) / NC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        add[e >> 1] += ex2_approx(fmaf(cur[4 * j + e], th.scale, nml[e >> 1]));
+    wgmma_wait();
+    fence_regs(nxt);
+    fence_regs(tmp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) nxt[i] += tmp[i];
+    if (c + 2 < NP) issue_part(tmp, th.own, next_tile, c + 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) th.sum[h] += add[h];
+  mbar_arrive(th.empty + st);  // this thread is done with the stage
+}
+
+// Block (own tile x of 64 LSE_CONSUMERS query rows, split y), fed as
+// grad_wg<DP, true> is: the negatives [y * chunk, min((y + 1) * chunk, N))
+// stream WG_BC at a time through the ring; one (m, s) partial per (split,
+// row), merged by lse_merge.
+template <int DP>
+__global__ void __launch_bounds__(wg_threads(LSE_CONSUMERS), 1)
+lse_wg(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap neg_map,
+       const int* __restrict__ pid, const int* __restrict__ nid, const float* __restrict__ bias,
+       float* __restrict__ part_m, float* __restrict__ part_s, int Q, int N, float T,
+       int downscore, int chunk) {
+  constexpr int TILE = wg_tile_bytes<DP>();
+  extern __shared__ unsigned char smem_raw[];
+  const WgSmem sm = wg_layout<DP, LSE_CONSUMERS>(smem_raw);
+  const int r0 = blockIdx.x * wg_rows(LSE_CONSUMERS);
+  const int c_begin = blockIdx.y * chunk;
+  const int c_end = min(c_begin + chunk, N);
+  const int n_tiles = (c_end - c_begin + WG_BC - 1) / WG_BC;
+  const int wg = threadIdx.x >> 7;
+  const float inv_t = 1.f / T;  // as lse_partial and grad_wg scale their logits
+  if (wg == LSE_CONSUMERS) {    // the copying warp
+    wg_fill<DP, true, LSE_CONSUMERS>(sm, &q_map, &neg_map, bias, nullptr,
+                                     downscore ? nid : nullptr, inv_t, r0, c_begin, c_end,
+                                     n_tiles);
+    return;
+  }
+
+  const int tid = threadIdx.x & 127, lane = tid & 31;
+  const int row0 = r0 + 64 * wg + 16 * (tid >> 5) + (lane >> 2);  // rows row0, row0 + 8
+  LseThread th;
+  th.own = sm.own + wg * TILE;
+  th.tiles = sm.tiles;
+  th.metas = sm.metas;
+  th.full = sm.full;
+  th.empty = sm.empty;
+  th.n_tiles = n_tiles;
+  th.c_begin = c_begin;
+  th.c_end = c_end;
+  th.downscore = downscore;
+  th.t = lane & 3;
+  th.inv_t = inv_t;
+  th.scale = inv_t * LOG2E;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    th.o_id[h] = (downscore && r < Q) ? pid[r] : 0;
+    th.m[h] = EMPTY;
+    th.sum[h] = 0.f;
+  }
+  mbar_wait(sm.own_bar, 0);
+  float S[32], A[32], B[32];  // two tiles' logits take turns; B: the part in flight
+  mbar_wait(sm.full, 0);
+  wg_logits<DP>(th.own, sm.tiles, S, B);
+  for (int it = 0; it < n_tiles; it += 2) {
+    lse_tile<DP>(th, it, S, A, B);
+    if (it + 1 < n_tiles) lse_tile<DP>(th, it + 1, A, S, B);
+  }
+  const int rows[2] = {row0, row0 + 8};
+  write_partials(th.m, th.sum, rows, th.t, Q, part_m, part_s);
+}
+
+// The logit invariant between lse_partial (logit_products on mma.sync) and
+// grad_wg (wg_logits on wgmma): both stages on one 64 x 64 tile, q and neg (64, D)
 // bf16, D % 8 == 0, D <= 128; out_mma and out_wg (64, 64) fp32 sums. One
 // block of one warpgroup.
 template <int DP>
@@ -957,19 +1227,6 @@ cudaError_t launch_lse(const TI* q, const float* pos_logit, const TI* neg, const
   return cudaGetLastError();
 }
 
-template <typename TI>
-int lse_forward(const void* q, const float* pos_logit, const void* neg, const int* pid,
-                const int* nid, const float* bias, float* part_m, float* part_s, float* m,
-                float* s, int Q, int N, int D, float T, int downscore, int splits,
-                cudaStream_t stream) {
-  const TI* qt = static_cast<const TI*>(q);
-  const TI* nt = static_cast<const TI*>(neg);
-  const int dp = dp_for(D);
-  return (int)(dp == 64 ? launch_lse<64, TI>(qt, pos_logit, nt, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream)
-             : dp == 128 ? launch_lse<128, TI>(qt, pos_logit, nt, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream)
-                         : launch_lse<256, TI>(qt, pos_logit, nt, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream));
-}
-
 template <int DP, bool OWN_Q, typename TI>
 cudaError_t grad_attr() {
   return cudaFuncSetAttribute(grad_rows<DP, OWN_Q, TI>,
@@ -1080,29 +1337,62 @@ bool wg_route(int D, const void* q, const void* neg) {
   return wg_shape(D) && vec_copies<bf16>(q, neg, D);
 }
 
-template <int DP, bool OWN_Q>
-cudaError_t wg_attr() {
-  return cudaFuncSetAttribute(grad_wg<DP, OWN_Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)wg_smem<DP>());
+// a wgmma kernel (grad_wg, lse_wg) of width DP and CONS consumer
+// warpgroups may take wg_smem<DP, CONS> bytes
+template <int DP, int CONS, typename Kernel>
+cudaError_t wg_attr(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)wg_smem<DP, CONS>());
 }
 
-template <int DP, bool OWN_Q>
-int wg_splits_dp(int n_own, int n_strm) {
+// the splits of the streamed side that fill the card with blocks of a wgmma
+// kernel over n_own own rows; a negative value is a CUDA error, negated
+template <int DP, int CONS, typename Kernel>
+int wg_splits_for(Kernel kernel, int n_own, int n_strm) {
   int per_sm = 1, sms = 1;
-  cudaError_t err = wg_attr<DP, OWN_Q>();
+  cudaError_t err = wg_attr<DP, CONS>(kernel);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grad_wg<DP, OWN_Q>, WG_THREADS,
-                                                        wg_smem<DP>());
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, wg_threads(CONS),
+                                                        wg_smem<DP, CONS>());
   if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return -(int)err;
-  return fill_splits(per_sm, sms, (n_own + WG_ROWS - 1) / WG_ROWS, (n_strm + WG_BC - 1) / WG_BC);
+  return fill_splits(per_sm, sms, (n_own + wg_rows(CONS) - 1) / wg_rows(CONS),
+                     (n_strm + WG_BC - 1) / WG_BC);
 }
 
 template <bool OWN_Q>
 int wg_splits(int Q, int N, int D) {
   const int n_own = OWN_Q ? Q : N, n_strm = OWN_Q ? N : Q;
-  return D <= 64 ? wg_splits_dp<64, OWN_Q>(n_own, n_strm)
-                 : wg_splits_dp<128, OWN_Q>(n_own, n_strm);
+  return D <= 64 ? wg_splits_for<64, WG_CONSUMERS>(grad_wg<64, OWN_Q>, n_own, n_strm)
+                 : wg_splits_for<128, WG_CONSUMERS>(grad_wg<128, OWN_Q>, n_own, n_strm);
+}
+
+// K1-bf16 on lse_wg: the negatives cut as grad_wg<..., true> cuts them
+int lse_wg_splits(int Q, int N, int D) {
+  return D <= 64 ? wg_splits_for<64, LSE_CONSUMERS>(lse_wg<64>, Q, N)
+                 : wg_splits_for<128, LSE_CONSUMERS>(lse_wg<128>, Q, N);
+}
+
+template <int DP>
+cudaError_t launch_lse_wg(const bf16* q, const float* pos_logit, const bf16* neg, const int* pid,
+                          const int* nid, const float* bias, float* part_m, float* part_s,
+                          float* m, float* s, int Q, int N, int D, float T, int downscore,
+                          int splits, cudaStream_t stream) {
+  const int tiles = (N + WG_BC - 1) / WG_BC;
+  const int chunk = (tiles + splits - 1) / splits * WG_BC;
+  const int used = (N + chunk - 1) / chunk;  // splits that hold a negative
+  CUtensorMap q_map, neg_map;
+  cudaError_t err = bf16_tensor_map(&q_map, q, Q, D, 64);
+  if (err == cudaSuccess) err = bf16_tensor_map(&neg_map, neg, N, D, WG_BC);
+  if (err == cudaSuccess) err = wg_attr<DP, LSE_CONSUMERS>(lse_wg<DP>);
+  if (err != cudaSuccess) return err;
+  constexpr int ROWS = wg_rows(LSE_CONSUMERS);
+  const dim3 grid((Q + ROWS - 1) / ROWS, used);
+  lse_wg<DP><<<grid, wg_threads(LSE_CONSUMERS), wg_smem<DP, LSE_CONSUMERS>(), stream>>>(
+      q_map, neg_map, pid, nid, bias, part_m, part_s, Q, N, T, downscore, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  lse_merge<<<(Q + 255) / 256, 256, 0, stream>>>(pos_logit, part_m, part_s, m, s, Q, used);
+  return cudaGetLastError();
 }
 
 template <int DP, bool OWN_Q>
@@ -1118,7 +1408,7 @@ cudaError_t launch_grad_wg(const bf16* q, const bf16* neg, const float* lse, con
   CUtensorMap own_map, strm_map;
   cudaError_t err = bf16_tensor_map(&own_map, OWN_Q ? q : neg, n_own, D, 64);
   if (err == cudaSuccess) err = bf16_tensor_map(&strm_map, OWN_Q ? neg : q, n_strm, D, WG_BC);
-  if (err == cudaSuccess) err = wg_attr<DP, OWN_Q>();
+  if (err == cudaSuccess) err = wg_attr<DP, WG_CONSUMERS>(grad_wg<DP, OWN_Q>);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_own + WG_ROWS - 1) / WG_ROWS, used);
   grad_wg<DP, OWN_Q><<<grid, WG_THREADS, wg_smem<DP>(), stream>>>(
@@ -1126,6 +1416,26 @@ cudaError_t launch_grad_wg(const bf16* q, const bf16* neg, const float* lse, con
       chunk);
   if ((err = cudaGetLastError()) != cudaSuccess || used == 1) return err;
   return merge_chunks(part, out, (size_t)n_own * D, used, stream);
+}
+
+// K1: lse_wg where wg_route says so (bf16, the training path's shapes), else
+// lse_partial
+template <typename TI>
+int lse_forward(const void* q, const float* pos_logit, const void* neg, const int* pid,
+                const int* nid, const float* bias, float* part_m, float* part_s, float* m,
+                float* s, int Q, int N, int D, float T, int downscore, int splits,
+                cudaStream_t stream) {
+  const TI* qt = static_cast<const TI*>(q);
+  const TI* nt = static_cast<const TI*>(neg);
+  const int dp = dp_for(D);
+  if constexpr (sizeof(TI) == 2) {
+    if (wg_route(D, q, neg))
+      return (int)(dp == 64 ? launch_lse_wg<64>(qt, pos_logit, nt, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream)
+                            : launch_lse_wg<128>(qt, pos_logit, nt, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream));
+  }
+  return (int)(dp == 64 ? launch_lse<64, TI>(qt, pos_logit, nt, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream)
+             : dp == 128 ? launch_lse<128, TI>(qt, pos_logit, nt, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream)
+                         : launch_lse<256, TI>(qt, pos_logit, nt, pid, nid, bias, part_m, part_s, m, s, Q, N, D, T, downscore, splits, stream));
 }
 
 template <bool OWN_Q, typename TI>
@@ -1162,10 +1472,13 @@ extern "C" int flash_ce_dmax() { return DMAX; }
 // 16-bit values); the shapes and every other input are the same for both.
 
 // The number of negative splits flash_ce_lse_forward cuts N into for these
-// shapes; the caller sizes part_m and part_s as (splits, Q). A negative value
-// is a CUDA error, negated.
-extern "C" int flash_ce_lse_splits(int Q, int N, int D, int is_bf16) {
+// operands (the shapes, and the pointers, which choose between lse_wg and
+// lse_partial as flash_ce_grad_route says); the caller sizes part_m and
+// part_s as (splits, Q). A negative value is a CUDA error, negated.
+extern "C" int flash_ce_lse_splits(int Q, int N, int D, const void* q, const void* neg,
+                                   int is_bf16) {
   if (Q < 1 || N < 1 || D < 1 || D > DMAX) return -(int)cudaErrorInvalidValue;
+  if (is_bf16 && wg_route(D, q, neg)) return lse_wg_splits(Q, N, D);
   return is_bf16 ? lse_splits<bf16>(Q, N, D) : lse_splits<float>(Q, N, D);
 }
 
@@ -1208,9 +1521,9 @@ extern "C" int flash_ce_grad_smem(int D, int is_bf16) {
                                                             : grad_smem<256, float>());
 }
 
-// Which kernel flash_ce_grad_query / flash_ce_grad_neg launch for these
-// operands: 1 grad_wg (bf16, D % 8 == 0, D <= 128, 16-byte aligned rows), 0
-// grad_rows.
+// Which kernels flash_ce_lse_forward and flash_ce_grad_query /
+// flash_ce_grad_neg launch for these operands: 1 lse_wg and grad_wg (bf16,
+// D % 8 == 0, D <= 128, 16-byte aligned rows), 0 lse_partial and grad_rows.
 extern "C" int flash_ce_grad_route(int D, const void* q, const void* neg, int is_bf16) {
   return is_bf16 && D >= 1 && wg_route(D, q, neg);
 }
@@ -1220,7 +1533,12 @@ extern "C" int flash_ce_grad_wg_smem(int D) {
   return (int)(D <= 64 ? wg_smem<64>() : wg_smem<128>());
 }
 
-// The logits of K1-bf16 (logit_products, mma.sync) and of grad_wg (wgmma) on
+// Dynamic shared memory of an lse_wg block at width D (<= 128), in bytes.
+extern "C" int flash_ce_lse_wg_smem(int D) {
+  return (int)(D <= 64 ? wg_smem<64, LSE_CONSUMERS>() : wg_smem<128, LSE_CONSUMERS>());
+}
+
+// The logits of lse_partial (logit_products, mma.sync) and of grad_wg (wgmma) on
 // one tile: q, neg (64, D) bf16, 16-byte aligned, D % 8 == 0, D <= 128;
 // out_mma, out_wg (64, 64) float32 sums q neg^T, before bias and 1/T.
 extern "C" int flash_ce_logit_probe(const void* q, const void* neg, float* out_mma,

@@ -9,26 +9,46 @@
 //   row_scatter_write: table[ids[j]]  = rows[j]
 //
 // for every position j with valid[j] (every j when valid is null) and
-// 0 <= ids[j] < R. An invalid position may hold any id: valid[j] is read
-// first and the id is never used as an address; an id outside the table is
-// dropped. The valid ids must be unique (dedup_rows makes them so): each row
-// then has one writer, so there are no atomics, and each element takes one
-// fp32 add or one copy, the plain version's result bit for bit.
+// 0 <= ids[j] < R. An invalid position may hold any id: it is never used as
+// an address; an id outside the table is dropped. The valid ids must be
+// unique (dedup_rows makes them so): each row then has one writer, so there
+// are no atomics, and each element takes one fp32 add or one copy, the plain
+// version's result bit for bit.
 //
-// Design. One warp per position, a grid-stride loop over positions. The
-// lanes take neighbouring 16-byte pieces of the row (a 128-wide fp32 row is
-// one float4 per lane), when the row is whole pieces and the pointers are
-// 16-byte aligned; otherwise each lane takes every 32nd element. The TPU
-// kernels' DMA ring with dummy-slot pairing, the 128-lane routing and the
-// 8-row block composition for 16-bit rows were Mosaic workarounds and are
-// gone: on this card a row is a row. One write kernel, templated on the
-// element type, serves fp32 (K8a) and bf16 (K8b).
+// Design.
+//   K7 (scatter_add): a warp takes ADD_P = 8 positions at a time, a
+//   grid-stride loop over such batches, the grid sized to what the card
+//   holds at once (occupancy x SMs) or to the batches, if fewer. Lanes 0..7
+//   read the batch's ids and valid flags in one coalesced load each, and
+//   shuffles hand the targets to every lane; then each lane loads its
+//   16-byte piece of the eight update rows (ld.global.nc, no L1 line: read
+//   once) and of the eight table rows, all before the first add and store,
+//   so that two dependent round trips to memory (ids, then rows) stand
+//   before the stores. A D = 128 fp32 row is one float4 a lane; D = 256 two
+//   pieces, one after the other; a bf16 row takes its fp32 updates as two
+//   float4 a piece. Rows not whole 16-byte pieces, or pointers off 16
+//   bytes, take each lane's every 32nd element, position by position.
+//   What held the first design (one warp per position, 1024 blocks of 256
+//   threads; 0.00838 ms at the path's shape, 45% of its bound, on an H100
+//   80GB HBM3 at 700 W): three dependent round trips (valid[j], then ids[j],
+//   then the rows behind the skip's branch), 1 KB in flight a warp, and a
+//   launch of 1024 blocks for 8192 positions.
+//   K8 (scatter_write): one warp per position, as first designed; the lanes
+//   take neighbouring 16-byte pieces of the row when it is whole pieces and
+//   the pointers are 16-byte aligned, otherwise every 32nd element. One
+//   write kernel, templated on the element type, serves fp32 (K8a) and bf16
+//   (K8b).
+// The TPU kernels' DMA ring with dummy-slot pairing, the 128-lane routing
+// and the 8-row block composition for 16-bit rows were Mosaic workarounds and
+// are gone: on this card a row is a row.
 //
 // Bound on an H100 SXM: memory. The add moves 3*n_valid*D*4 bytes for an
 // fp32 table (read the row, read the update, write the row) and the write
 // 2*n_valid*D*itemsize, plus 5 bytes of id and flag per position, at
-// 3.35 TB/s. At the model's batch (8192 rows of 128) that is a few
-// microseconds, so launch latency sets the time there.
+// 3.35 TB/s: at the path's batch (8192 rows of 128 into the bench's 4M-row
+// fp32 table) the add's bound is 0.00377 ms. Random rows of a 2 GB table
+// also miss the TLB, which the byte bound leaves out; the userId table
+// (162,544 rows) shows how much.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,19 +59,28 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_BLOCKS = 4096;  // the grid-stride loop takes the rest
+constexpr int ADD_P = 8;          // K7: positions a warp takes at a time
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-// one 16-byte piece of a row plus its fp32 updates
-__device__ __forceinline__ uint4 add_piece(uint4 v, const float* u, float) {
-  const float4 x = *reinterpret_cast<const float4*>(u);
-  v.x = __float_as_uint(__uint_as_float(v.x) + x.x);
-  v.y = __float_as_uint(__uint_as_float(v.y) + x.y);
-  v.z = __float_as_uint(__uint_as_float(v.z) + x.z);
-  v.w = __float_as_uint(__uint_as_float(v.w) + x.w);
+// 16 bytes of updates, read once: through the non-coherent path, no L1 line
+__device__ __forceinline__ float4 load_once(const float* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
+}
+
+// one 16-byte piece of a row plus its fp32 updates (one float4 for fp32)
+__device__ __forceinline__ uint4 add_piece(uint4 v, const float4* x, float) {
+  v.x = __float_as_uint(__uint_as_float(v.x) + x[0].x);
+  v.y = __float_as_uint(__uint_as_float(v.y) + x[0].y);
+  v.z = __float_as_uint(__uint_as_float(v.z) + x[0].z);
+  v.w = __float_as_uint(__uint_as_float(v.w) + x[0].w);
   return v;
 }
 
@@ -64,13 +93,12 @@ __device__ __forceinline__ unsigned add_bf16x2(unsigned w, float a, float b) {
          ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
 
-__device__ __forceinline__ uint4 add_piece(uint4 v, const float* u, __nv_bfloat16) {
-  const float4 x0 = *reinterpret_cast<const float4*>(u);
-  const float4 x1 = *reinterpret_cast<const float4*>(u + 4);
-  v.x = add_bf16x2(v.x, x0.x, x0.y);
-  v.y = add_bf16x2(v.y, x0.z, x0.w);
-  v.z = add_bf16x2(v.z, x1.x, x1.y);
-  v.w = add_bf16x2(v.w, x1.z, x1.w);
+// eight bf16 plus two float4 of updates
+__device__ __forceinline__ uint4 add_piece(uint4 v, const float4* x, __nv_bfloat16) {
+  v.x = add_bf16x2(v.x, x[0].x, x[0].y);
+  v.y = add_bf16x2(v.y, x[0].z, x[0].w);
+  v.z = add_bf16x2(v.z, x[1].x, x[1].y);
+  v.w = add_bf16x2(v.w, x[1].z, x[1].w);
   return v;
 }
 
@@ -81,22 +109,58 @@ __device__ __forceinline__ int target(const int* ids, const unsigned char* valid
   return (id >= 0 && id < R) ? id : -1;
 }
 
+// K7. Warp w takes the batches b = w, w + (warps in the grid), ... of ADD_P
+// positions [b ADD_P, (b + 1) ADD_P): lanes 0 .. ADD_P - 1 read the batch's
+// ids and flags together (one coalesced load each), the targets go to every
+// lane by shuffles, then each lane loads its 16-byte piece of the ADD_P
+// update rows (read once) and of the ADD_P table rows, all before the first
+// add and store. Positions past N, invalid or out of range load nothing.
+// VEC false (D not whole pieces, or a pointer off 16 bytes): each lane takes
+// every 32nd element of each row in turn.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 scatter_add(T* __restrict__ table, const int* __restrict__ ids, const float* __restrict__ upd,
             const unsigned char* __restrict__ valid, int N, int R, int D) {
-  constexpr int V = 16 / sizeof(T);  // elements in a 16-byte piece
+  constexpr int V = 16 / sizeof(T), U = V / 4;  // elements in a piece; their float4 updates
   const int lane = threadIdx.x & 31;
-  for (int j = blockIdx.x * WARPS + (threadIdx.x >> 5); j < N; j += gridDim.x * WARPS) {
-    const int id = target(ids, valid, j, R);
-    if (id < 0) continue;
-    T* row = table + (size_t)id * D;
-    const float* u = upd + (size_t)j * D;
+  const int batches = (N + ADD_P - 1) / ADD_P;
+  for (int b = blockIdx.x * WARPS + (threadIdx.x >> 5); b < batches; b += gridDim.x * WARPS) {
+    const int j = b * ADD_P + lane;
+    int id = -1, ok = 0;
+    if (lane < ADD_P && j < N) {
+      id = ids[j];
+      ok = valid == nullptr || valid[j];
+    }
+    const int mine = ok && id >= 0 && id < R ? id : -1;
+    int tgt[ADD_P];
+#pragma unroll
+    for (int p = 0; p < ADD_P; ++p) tgt[p] = __shfl_sync(FULL, mine, p);
+    const float* u0 = upd + (size_t)b * ADD_P * D;
     if (VEC) {
-      uint4* piece = reinterpret_cast<uint4*>(row);
-      for (int c = lane; c < D / V; c += 32) piece[c] = add_piece(piece[c], u + c * V, T());
+      for (int c = lane; c < (D / V + 31) / 32 * 32; c += 32) {
+        const bool in = c < D / V;
+        uint4 row[ADD_P];
+        float4 u[ADD_P][U];
+#pragma unroll
+        for (int p = 0; p < ADD_P; ++p)
+          if (in && tgt[p] >= 0) {
+#pragma unroll
+            for (int k = 0; k < U; ++k) u[p][k] = load_once(u0 + (size_t)p * D + c * V + 4 * k);
+            row[p] = reinterpret_cast<const uint4*>(table + (size_t)tgt[p] * D)[c];
+          }
+#pragma unroll
+        for (int p = 0; p < ADD_P; ++p)
+          if (in && tgt[p] >= 0)
+            reinterpret_cast<uint4*>(table + (size_t)tgt[p] * D)[c] = add_piece(row[p], u[p], T());
+      }
     } else {
-      for (int d = lane; d < D; d += 32) store(row + d, to_f32(row[d]) + u[d]);
+#pragma unroll
+      for (int p = 0; p < ADD_P; ++p) {
+        if (tgt[p] < 0) continue;
+        T* row = table + (size_t)tgt[p] * D;
+        const float* u = u0 + (size_t)p * D;
+        for (int d = lane; d < D; d += 32) store(row + d, to_f32(row[d]) + u[d]);
+      }
     }
   }
 }
@@ -129,16 +193,38 @@ int blocks_for(int N) {
   return b < MAX_BLOCKS ? b : MAX_BLOCKS;
 }
 
+// as many blocks of `kernel` as the card holds at once (the first call's
+// card; a negative value is a CUDA error, negated)
+template <typename Kernel>
+int card_blocks(Kernel kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+  return err != cudaSuccess ? -(int)err : per_sm * sms > 0 ? per_sm * sms : 1;
+}
+
+// K7's grid: one warp a batch of ADD_P positions, at most what the card holds
+template <typename T, bool VEC>
+cudaError_t launch_add_as(T* table, const int* ids, const float* upd,
+                          const unsigned char* valid, int N, int R, int D, cudaStream_t stream) {
+  static const int cap = card_blocks(scatter_add<T, VEC>);
+  if (cap < 0) return (cudaError_t)-cap;
+  const int need = ((N + ADD_P - 1) / ADD_P + WARPS - 1) / WARPS;
+  scatter_add<T, VEC><<<need < cap ? need : cap, THREADS, 0, stream>>>(table, ids, upd, valid, N,
+                                                                       R, D);
+  return cudaGetLastError();
+}
+
 template <typename T>
-void launch_add(void* table, const int* ids, const void* upd, const unsigned char* valid, int N,
-                int R, int D, cudaStream_t stream) {
+cudaError_t launch_add(void* table, const int* ids, const void* upd, const unsigned char* valid,
+                       int N, int R, int D, cudaStream_t stream) {
   T* t = static_cast<T*>(table);
   const float* u = static_cast<const float*>(upd);
   const bool vec = D % (16 / sizeof(T)) == 0 && aligned16(table) && aligned16(upd);
-  if (vec)
-    scatter_add<T, true><<<blocks_for(N), THREADS, 0, stream>>>(t, ids, u, valid, N, R, D);
-  else
-    scatter_add<T, false><<<blocks_for(N), THREADS, 0, stream>>>(t, ids, u, valid, N, R, D);
+  return vec ? launch_add_as<T, true>(t, ids, u, valid, N, R, D, stream)
+             : launch_add_as<T, false>(t, ids, u, valid, N, R, D, stream);
 }
 
 template <typename T>
@@ -165,12 +251,12 @@ extern "C" int row_scatter_add(void* table, int table_bf16, const int* ids, cons
                                const unsigned char* valid, int N, int R, int D,
                                cudaStream_t stream) {
   if (N < 1 || R < 0 || D < 1) return (int)cudaErrorInvalidValue;
-  if (table_bf16)
-    launch_add<__nv_bfloat16>(table, ids, upd, valid, N, R, D, stream);
-  else
-    launch_add<float>(table, ids, upd, valid, N, R, D, stream);
-  return (int)cudaGetLastError();
+  return (int)(table_bf16 ? launch_add<__nv_bfloat16>(table, ids, upd, valid, N, R, D, stream)
+                          : launch_add<float>(table, ids, upd, valid, N, R, D, stream));
 }
+
+// The positions a warp of row_scatter_add takes at a time.
+extern "C" int row_scatter_add_batch() { return ADD_P; }
 
 // table (R, D) and rows (N, D), both f32 or both bf16 (table_bf16 != 0);
 // otherwise as row_scatter_add.

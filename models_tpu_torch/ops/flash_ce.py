@@ -16,16 +16,19 @@ negatives tile by tile in the order of the JAX scan (``ops/contrastive.py``).
 Query and negatives are both float32 or both bf16 (the ``mixed_bfloat16``
 policy); the per-row inputs and every output are float32. On the card the
 float32 forms compute their products on the tensor cores as 3xTF32 (near
-fp32's error); the bf16 forms take the logits as one bf16 product into fp32.
-Their gradient products split each fp32 coefficient into three bf16 parts,
-whose products with the bf16 rows are exact (:func:`grad_query_split3` and
-:func:`grad_neg_split3` model that arithmetic on the CPU, for the tests),
-on ``wgmma`` where :func:`grad_route` says so, else as 2xTF32 on
-``mma.sync``. The plain versions widen bf16 operands to float32 before each
-product: bf16 products are exact in float32, so they compute what the
-kernels compute, up to the order of the sums. The kernels hold widths up to
-:data:`DMAX`; :func:`fits` tells a caller whether its operands may go to
-them.
+fp32's error); the bf16 forms take the logits as one bf16 product into fp32,
+on ``wgmma`` where :func:`lse_route` and :func:`grad_route` say so (one
+rule: bf16, D a multiple of 8 up to 128, 16-byte aligned rows), else on
+``mma.sync``. On ``wgmma`` the forward forms each exponential as one fma
+and one ``ex2`` (:func:`lse_forward_ex2` models that arithmetic on the CPU,
+for the tests). The gradient products split each fp32 coefficient into three
+bf16 parts, whose products with the bf16 rows are exact
+(:func:`grad_query_split3` and :func:`grad_neg_split3` model that arithmetic),
+on ``wgmma``, else as 2xTF32 on ``mma.sync``. The plain versions widen
+bf16 operands to float32 before each product: bf16 products are exact in
+float32, so they compute what the kernels compute, up to the order of the
+sums. The kernels hold widths up to :data:`DMAX`; :func:`fits` tells a
+caller whether its operands may go to them.
 """
 
 from __future__ import annotations
@@ -149,6 +152,58 @@ def grad_neg_split3(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature: 
     return split3_product(coef.T, query)
 
 
+LOGIT_PART = 32  # depth of each bf16 logit part summed from zero
+WG_TILE = 64  # negatives per tile of the wgmma kernels
+LOG2E = 1.4426950408889634
+
+
+def logit_parts(query: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """``query @ neg.T`` as the bf16 kernels sum it: exact products in
+    float32, each :data:`LOGIT_PART` deep summed from zero, the parts added
+    in depth order."""
+    out = None
+    for k0 in range(0, query.shape[1], LOGIT_PART):
+        part = query[:, k0:k0 + LOGIT_PART].float() @ neg[:, k0:k0 + LOGIT_PART].float().T
+        out = part if out is None else out + part
+    return out
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def lse_forward_ex2(query, pos_logit, neg_emb, pos_id, neg_id, bias, temperature: float,
+                    downscore: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lse_forward` in ``lse_wg``'s arithmetic (the tests' model of
+    it): the logits by :func:`logit_parts`; per tile of :data:`WG_TILE`
+    negatives the max over ``x' + bias`` (``MIN_FLOAT`` where masked),
+    scaled once by ``1 / T``; each exponential as
+    ``2 ** fma(x' + bias, log2(e) / T, -m log2(e))`` against the running max
+    (the fma's one rounding taken in float64, then float32); the running
+    sum rescaled by ``exp``; the positive logit merged last, as ``lse_merge``
+    merges it. One split: the card's splits merge alike."""
+    Q, N = query.shape[0], neg_emb.shape[0]
+    inv_t = _f32(1.0) / _f32(temperature)
+    scale = inv_t * _f32(LOG2E)
+    v = logit_parts(query, neg_emb)
+    if bias is not None:
+        v = v + bias[None, :]
+    if downscore and pos_id is not None and neg_id is not None:
+        v = torch.where(neg_id[None, :] == pos_id[:, None], MIN_FLOAT, v)
+    m = torch.full((Q,), -torch.finfo(torch.float32).max)
+    s = torch.zeros(Q)
+    for c0 in range(0, N, WG_TILE):
+        vt = v[:, c0:c0 + WG_TILE]
+        mn = torch.maximum(m, vt.amax(dim=1) * inv_t)
+        s = s * torch.exp(m - mn)
+        nml = torch.clamp(-mn * _f32(LOG2E), max=torch.finfo(torch.float32).max)
+        e = (vt.double() * scale.double() + nml.double()[:, None]).float()
+        s = s + torch.exp2(e.double()).float().sum(dim=1)
+        m = mn
+    mm = torch.maximum(pos_logit, m)
+    return mm, torch.exp(pos_logit - mm) + s * torch.exp(m - mm)
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
@@ -159,7 +214,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_ce_dmax.restype = i
-        lib.flash_ce_lse_splits.argtypes = [i, i, i, i]
+        lib.flash_ce_lse_splits.argtypes = [i, i, i, p, p, i]
         lib.flash_ce_lse_splits.restype = i
         lib.flash_ce_lse_forward.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, f, i, i, i, p]
         lib.flash_ce_lse_forward.restype = i
@@ -167,8 +222,9 @@ def _lib():
         lib.flash_ce_grad_splits.restype = i
         lib.flash_ce_grad_smem.argtypes = [i, i]
         lib.flash_ce_grad_smem.restype = i
-        lib.flash_ce_grad_wg_smem.argtypes = [i]
-        lib.flash_ce_grad_wg_smem.restype = i
+        for fn in (lib.flash_ce_grad_wg_smem, lib.flash_ce_lse_wg_smem):
+            fn.argtypes = [i]
+            fn.restype = i
         lib.flash_ce_grad_route.argtypes = [i, p, p, i]
         lib.flash_ce_grad_route.restype = i
         lib.flash_ce_logit_probe.argtypes = [p, p, p, p, i, p]
@@ -253,7 +309,8 @@ def lse_forward(query, pos_logit, neg_emb, pos_id, neg_id, bias, temperature: fl
         return pos_logit.clone(), torch.ones_like(pos_logit)
     m, s = torch.empty_like(pos_logit), torch.empty_like(pos_logit)
     lib = _lib()
-    splits = lib.flash_ce_lse_splits(Q, N, D, _bf16(query))
+    splits = lib.flash_ce_lse_splits(Q, N, D, query.data_ptr(), neg_emb.data_ptr(),
+                                     _bf16(query))
     if splits < 0:
         kernels.check(lib, -splits, "flash_ce_lse_splits")
     part_m = torch.empty((splits, Q), dtype=torch.float32, device=query.device)
@@ -292,14 +349,27 @@ def _grad(entry, counter, out, query, neg_emb, lse, gw, pos_id, neg_id, bias, te
     return out
 
 
+def _wg(query: torch.Tensor, neg_emb: torch.Tensor) -> bool:
+    """Whether these CUDA operands take the wgmma kernels: bf16, D a multiple
+    of 8 up to 128, 16-byte aligned rows (``flash_ce_grad_route``)."""
+    return bool(_lib().flash_ce_grad_route(query.shape[1], query.data_ptr(),
+                                           neg_emb.data_ptr(), _bf16(query)))
+
+
 def grad_route(query: torch.Tensor, neg_emb: torch.Tensor) -> str:
     """The kernel :func:`grad_query` and :func:`grad_neg` launch for these CUDA
     operands, chosen from the shape and the pointers: ``"grad_wg"`` (bf16, D
     a multiple of 8 up to 128, 16-byte aligned rows: wgmma, a TMA ring, the
     three-part bf16 product) or ``"grad_rows"`` (mma.sync)."""
-    wg = _lib().flash_ce_grad_route(query.shape[1], query.data_ptr(), neg_emb.data_ptr(),
-                                    _bf16(query))
-    return "grad_wg" if wg else "grad_rows"
+    return "grad_wg" if _wg(query, neg_emb) else "grad_rows"
+
+
+def lse_route(query: torch.Tensor, neg_emb: torch.Tensor) -> str:
+    """The kernel :func:`lse_forward` launches for these CUDA operands, by the
+    rule of :func:`grad_route`: ``"lse_wg"`` (wgmma, a TMA ring, the logits
+    bit for bit ``grad_wg``'s) where K2 / K3 take ``grad_wg``, else
+    ``"lse_partial"`` (mma.sync)."""
+    return "lse_wg" if _wg(query, neg_emb) else "lse_partial"
 
 
 def grad_query(query, neg_emb, lse, gw, pos_id, neg_id, bias, temperature: float,

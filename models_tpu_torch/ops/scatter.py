@@ -110,6 +110,7 @@ def _lib():
         for fn in (lib.row_scatter_add, lib.row_scatter_write):
             fn.argtypes = [p, i, p, p, p, i, i, i, p]
             fn.restype = i
+        lib.row_scatter_add_batch.restype = i
         lib._typed = True
     return lib
 

@@ -68,6 +68,36 @@ def test_row_scatter_add_matches_the_pallas_kernel(dtype):
     np.testing.assert_array_equal(_bits(got), _jax_bits(want))
 
 
+def _batch(n, rows, seed):
+    """n positions of a deduplicated batch into ``rows`` rows: unique valid
+    ids, and invalid positions (about a fifth) holding -7 or rows + 7."""
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(rows)[:n].astype(np.int32)
+    valid = rng.uniform(size=n) < 0.8
+    at = np.arange(n)
+    ids[~valid] = np.where(at[~valid] % 2 == 0, -7, rows + 7)
+    return ids, valid
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 31, 33, 257])
+def test_row_scatter_add_matches_the_pallas_kernel_at_batch_edges(n, dtype):
+    """N around the card kernel's batches of positions (8 a warp, 32 ids a
+    load): one position, ragged last batches, N past 32 * 8."""
+    rows = 512
+    ids, valid = _batch(n, rows, n)
+    rng = np.random.default_rng(n + 1)
+    table = rng.standard_normal((rows, D)).astype(np.float32)
+    upd = rng.standard_normal((n, D)).astype(np.float32)
+    jt = jnp.asarray(table, dtype)
+    want = J.pallas_row_scatter_add(jt, jnp.asarray(ids), jnp.asarray(upd), jnp.asarray(valid),
+                                    block=4, n_buf=2, interpret=True)
+    tt = torch.tensor(np.asarray(jt, np.float32)).to(getattr(torch, dtype))
+    got = S.row_scatter_add(tt, torch.tensor(ids), torch.tensor(upd), torch.tensor(valid))
+    assert got is tt
+    np.testing.assert_array_equal(_bits(got), _jax_bits(want))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_row_scatter_write_matches_the_pallas_kernel(dtype):
     table, rows = _inputs(2)
