@@ -5,8 +5,9 @@
 1. requires CUDA and prints the card's name and power limit;
 2. builds the port's CUDA kernels from ``models_tpu_torch/csrc`` (nvcc, sm_90a,
    one process per source, all at once) and prints their ptxas registers
-   (flash_ce's and streaming_topk's per kernel, with spills, shared memory
-   and any wgmma serialization warning), checks that ``flash_ce.DMAX`` is the
+   (flash_ce's, streaming_topk's, row_scatter's and binned_rescore's per
+   kernel, with spills, shared memory and any wgmma serialization warning),
+   checks that ``flash_ce.DMAX`` is the
    kernels' width limit, and prints how K6 launches at the path's shapes
    (warps, ring stages, lists);
 3. holds each kernel against its plain PyTorch version on the card: the top-k
@@ -34,12 +35,21 @@
    24 rows, D = 64, 200 and 130, misaligned rows, N = 1 and no valid
    position, and K7's batch edges (N = 31, 33, 32 P +- 1 for its P
    positions a warp, N = 3, D = 256, ids -7 and R + 7 on valid and invalid
-   positions); the row gather (K9) bit for bit, fp32, bf16 and fp16 tables of
+   positions), and K8's (N = 1, P +- 1, 33, 257 for its P positions a warp,
+   D = 64, 128, 200 and 256, the same ids; misaligned rows of both
+   scatters, fp32 and bf16); the binned rescore (K5) against its plain
+   version, fp32, bf16 and int8, printing each case's route (the bin-major
+   rescore_bins with its grid, distinct bins and busiest block, or the first
+   design by shape): random bins of the serving catalog, every query on one
+   bin, every bin selected, kb = 1 with B = 1, bins out of range (NaN,
+   INT32_MIN), 6,656 selections (two of the bin-major form's windows), one
+   block owning every pair, D = 64 and 100; the row gather (K9) bit for
+   bit, fp32, bf16 and fp16 tables of
    R % 8 != 0 rows, duplicates, ids at both ends, clamped ids, B = 1, D = 7,
    a misaligned table, and 8192 ids into the bench's 4M x 128 fp32 and
    16M x 128 bf16 tables; the int8 forms: K5 (int8 x int8 -> int32) equal,
-   also at D = 130 and on a misaligned catalog, K6 with int8 rows and per-row
-   scales within the fp32 tolerance, with planted ties;
+   also at D = 130 and on a misaligned catalog (the first design), K6 with
+   int8 rows and per-row scales within the fp32 tolerance, with planted ties;
 4. serves the two-tower model end to end at the bench's full width
    (movielens-25m schema, query_tower=(256, 128), embedding_dim=128, seeded
    random weights) over the whole 56,680-item catalog, fp32 and bf16
@@ -52,7 +62,8 @@
    ``topk_scores`` at B = 256 and k = 600 over the catalog (K6, fp32 and int8
    indexes) against the CPU route;
 5. times the requests (fp32, bf16, int8; host clock), their parts, the index
-   builds and the top-k layer on the bench's 1M x 128 catalog at B = 256;
+   builds and the top-k layer on the bench's 1M x 128 catalog at B = 256,
+   with K5 at that layer's own bins (L2 flushed, against its plain version);
 6. checks the training step at the same width: the fused loss (K1-K3) against
    the unfused head (materialised logits, cuBLAS fp32, autograd) at batch
    8192, loss and every parameter's gradient; three adagrad steps at batch
@@ -88,8 +99,8 @@
    op-level steps (sparse adagrad on a 4M x 128 fp32 table, dense adagrad on
    the same as its yardstick, sparse adagrad on a 16M x 128 bf16 table), and
    K7, K8 (bf16) and K8's fp32 instance on the 4M-row table (and on the
-   userId table; K7 also after a read-only flush, which leaves the L2's
-   lines clean);
+   userId table; also after a read-only flush, which leaves the L2's lines
+   clean, and warm);
 12. runs the row gather through its entry point (8192 ids into the 4M x 128
    fp32 and 16M x 128 bf16 tables, four calls each) and times it;
 13. evaluates, the README's flow at full width: ``compile(metrics=None,
@@ -104,8 +115,10 @@
    PyTorch yardstick's (the bound at the peak of the fastest arithmetic
    that gives each product fp32's error: 3xTF32 for K1-K3 and K6 on fp32
    rows, 3xbf16 for K6 on bf16 and int8 rows, bf16 and 3xbf16 for K1-K3's
-   bf16 forms, or HBM3 bytes, named in ``bound_peak``; K1 and K6 also with
-   the L2 flushed, ``ms_cold``), then the card line and ``{"ok": true,
+   bf16 forms, or HBM3 bytes, named in ``bound_peak``; K1, K5 and K6 also with
+   the L2 flushed, ``ms_cold``; K5 also its profiler device time with the
+   catalog in L2, ``ms_warm``, since back to back its calls are timed at the
+   host's rate), then the card line and ``{"ok": true,
    ...}`` last. Host-clock times are [median, min, max].
 
 Tolerances. Top-k scores: 2e-6 of the largest |score| (K6 sums 128
@@ -407,18 +420,104 @@ def phase_kernels(dev, gen):
                              got, want, positions=True)
             tag = "streaming_topk_int8" if dtype == torch.int8 else "streaming_topk"
             errs[tag] = max(errs[tag], err)
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(256, 128, device=dev, generator=gen)
-        c = torch.randn(886 * 64, 128, device=dev, generator=gen).to(dtype)
-        idx = torch.randint(0, 886, (256, 12), device=dev, generator=gen, dtype=torch.int32)
-        got = T.binned_rescore(q, c, idx, 64)
-        want = T.binned_rescore_plain(q, c, idx, 64)
-        torch.cuda.synchronize()
-        err = T.max_abs_err(got, want)
-        require(err <= tol_for(want), f"binned_rescore {dtype}: max|d| {err}")
-        print(f"  binned_rescore B=256 kb=12 bs=64 D=128 {dtype}: max|d| {err:.3g}", flush=True)
-        errs["binned_rescore"] = max(errs["binned_rescore"], err)
+    phase_rescore(dev, gen, errs)
     return errs
+
+
+def rescore_case(dev, q, c, idx, name, errs, bs=64):
+    """K5 against its plain version on one case, printing the route it took
+    (and for the bin-major form its grid, the distinct bins, and the busiest
+    block's bins and pairs by ``rescore_schedule``): fp32 and bf16 within
+    ``tol_for``, int8 equal; a bin outside the catalog gives NaN
+    (INT32_MIN), the other slots are held against the plain version on the
+    bins clamped into range."""
+    from models_tpu_torch.ops import topk as T
+
+    n_bins = c.shape[0] // bs
+    plan = T.rescore_plan(q, c, idx, bs)
+    got = T.binned_rescore(q, c, idx, bs)
+    inside = (idx >= 0) & (idx < n_bins)
+    want = T.binned_rescore_plain(q, c, idx.clamp(0, n_bins - 1), bs)
+    torch.cuda.synchronize()
+    bad = (~inside).repeat_interleave(bs, dim=1)
+    is_int = c.dtype == torch.int8
+    if is_int:
+        require(got.dtype == torch.int32 and torch.equal(got[~bad], want[~bad])
+                and bool((got[bad] == -2**31).all()), f"binned_rescore int8 {name}: differs")
+        err, tag = 0.0, "binned_rescore_int8"
+    else:
+        err = T.max_abs_err(got[~bad], want[~bad])
+        require(err <= tol_for(want) and bool(torch.isnan(got[bad]).all())
+                and bool(torch.isfinite(got[~bad]).all()),
+                f"binned_rescore {c.dtype} {name}: max|d| {err}")
+        tag = "binned_rescore"
+    errs[tag] = max(errs.get(tag, 0.0), err)
+    B, kb = idx.shape
+    if plan["route"] == "bins":
+        sched, _ = T.rescore_schedule(idx.cpu(), n_bins, plan["blocks"], plan["window"],
+                                      plan["query_group"], plan["pairs_per_item"])
+        items = [sum(len(w) for w in blk) for blk in sched]
+        pairs = [sum(len(e) for w in blk for _, e in w) for blk in sched]
+        distinct = int(torch.unique(idx[inside]).numel())
+        route = (f"bins ({plan['blocks']} blocks, {distinct} distinct bins, {sum(items)} "
+                 f"items; busiest block {max(items)} items and {max(pairs)} pairs)")
+    else:
+        route = "rows"
+    print(f"  binned_rescore {name} B={B} kb={kb} bs={bs} D={q.shape[1]} {c.dtype}: "
+          f"{'equal' if is_int else f'max|d| {err:.3g}'}; route {route}", flush=True)
+    return plan["route"]
+
+
+def phase_rescore(dev, gen, errs):
+    """K5 (fp32, bf16, int8) against its plain version: random bins of the
+    serving catalog (886 bins of 64), every query on one bin, every bin
+    selected, kb = 1 with B = 1, bins out of range, B kb past the bin-major
+    form's window (two windows), one block owning every pair (32 query rows,
+    one group), D = 64 and 100
+    (bf16 and int8 rows of 100 are not 16-byte pieces: the first design), a
+    catalog off 16-byte alignment (the first design)."""
+    from models_tpu_torch.ops import topk as T
+
+    def selections(B, kb, how):
+        if how == "random":
+            return torch.randint(0, 886, (B, kb), device=dev, generator=gen, dtype=torch.int32)
+        if how == "one bin":
+            return torch.full((B, kb), 417, device=dev, dtype=torch.int32)
+        if how == "every bin":
+            e = torch.randperm(B * kb, device=dev, generator=gen) % 886
+            return e.view(B, kb).to(torch.int32).contiguous()
+        if how == "out of range":
+            idx = selections(B, kb, "random")
+            idx[3, 1], idx[100, 0], idx[200, kb - 1] = -1, 886, 2**30
+            return idx
+        if how == "one owner":  # one group of query rows, bins 5 + G m: block 5's
+            G = T.rescore_plan(q[:B], c, selections(B, kb, "random"), 64)["blocks"]
+            m = torch.randint(0, (886 - 5 + G - 1) // G, (B, kb), device=dev, generator=gen)
+            return (5 + G * m).clamp(max=885).to(torch.int32)
+        raise ValueError(how)
+
+    cases = [(256, 12, "random"), (256, 13, "one bin"), (256, 13, "every bin"),
+             (1, 1, "random"), (256, 13, "out of range"), (512, 13, "random"),
+             (32, 13, "one owner")]
+    routes = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for D in (128, 64, 100):
+            if dtype == torch.int8:
+                q = torch.randint(-127, 128, (512, D), device=dev, generator=gen,
+                                  dtype=torch.int8)
+                c = torch.randint(-127, 128, (886 * 64, D), device=dev, generator=gen,
+                                  dtype=torch.int8)
+            else:
+                q = torch.randn(512, D, device=dev, generator=gen)
+                c = torch.randn(886 * 64, D, device=dev, generator=gen).to(dtype)
+            for B, kb, how in cases if D == 128 else cases[:1]:
+                idx = selections(B, kb, how)
+                route = rescore_case(dev, q[:B], c, idx, f"{how} D={D}", errs)
+                routes[(dtype, D, how)] = route
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        require(routes[(dtype, 128, "random")] == "bins", f"K5 {dtype} D=128: not bin-major")
+    require(routes[(torch.float32, 100, "random")] == "bins"
+            and routes[(torch.bfloat16, 100, "random")] == "rows", "K5 D=100 routes")
 
 
 def build_model(dev):
@@ -572,6 +671,23 @@ def _row(name, source, replaces, launches, err, ms, plain, lib, flops, nbytes, p
     return row
 
 
+def rescore_design(q, c, idx, bs) -> dict:
+    """K5's route for these operands and its design, for the kernels line."""
+    from models_tpu_torch.ops import topk as T
+
+    plan = T.rescore_plan(q, c, idx, bs)
+    if plan["route"] == "bins":
+        design = (f"bin-major: {plan['blocks']} blocks own the keys (a bin and a group of "
+                  f"{plan['query_group']} query rows), scan the selections {plan['window']} at "
+                  f"a time, items of at most {plan['pairs_per_item']} pairs, one bulk copy of "
+                  "the bin and one of each pair's query row into mbarrier rings, the bin in "
+                  "registers as mma.sync B fragments (3xTF32 fp32, 2xTF32 bf16, s8 int8) "
+                  "against the item's query rows")
+    else:
+        design = "rows: a block per query row, a warp per candidate row"
+    return {"form": plan["route"], "design": design}
+
+
 def phase_measure(dev, model, queries, results, launches, errs):
     """Each kernel timed on the inputs the serving path gave it (the query
     embeddings of the 4096- and 256-row requests, the index, the bins phase A
@@ -615,13 +731,19 @@ def phase_measure(dev, model, queries, results, launches, errs):
         print(f"  binned_rescore {tag} at the serving bins B={B} kb={kb}: max|d| {err:.3g}",
               flush=True)
         ms = cuda_ms(lambda: T.binned_rescore(q256, full, idx, bs))
+        cold = device_ms(lambda: T.binned_rescore(q256, full, idx, bs), cold=True)
         plain = cuda_ms(lambda: T.binned_rescore_plain(q256, full, idx, bs))
         lib = cuda_ms(lambda: torch.einsum("bd,bksd->bks", q256, c3[idx.long()].float()))
         n_bins = int(torch.unique(idx).numel())  # each selected bin read once
         k5 = _row("binned_rescore", "models_tpu_torch/csrc/binned_rescore.cu",
                   "models_tpu/ops/topk.py:208", launches["binned_rescore"],
                   max(errs["binned_rescore"], err), ms, plain, lib, 2 * B * kb * bs * D,
-                  n_bins * bs * D * item + B * D * 4 + B * kb * 4 + B * kb * bs * 4)
+                  n_bins * bs * D * item + B * D * 4 + B * kb * 4 + B * kb * bs * 4,
+                  ms_cold=cold)
+        # back to back, a call of a few tens of microseconds is timed at the
+        # host's rate of calls: its device time (profiler) beside it
+        k5["ms_warm"] = device_ms(lambda: T.binned_rescore(q256, full, idx, bs))
+        k5.update(rescore_design(q256, full, idx, bs))
         print(f"  {tag}: phase A selects kb={kb} bins per row, {n_bins} distinct", flush=True)
         if tag == "fp32":
             rows = [k6, k5]
@@ -1264,8 +1386,8 @@ def phase_row_scatter(dev, gen, errs):
     for R, D, N in cases:
         for dtype in (torch.float32, torch.bfloat16):
             n_valid = scatter_case(dev, gen, R, D, N, dtype, None, errs=errs)
-            print(f"  row scatters R={R} D={D} N={N} {dtype}: {n_valid} valid, bit-equal",
-                  flush=True)
+            print(f"  row scatters R={R} D={D} N={N} {dtype}: {n_valid} valid, bit-equal "
+                  f"(write: {S.write_order(N, R)})", flush=True)
     one = torch.tensor([5], dtype=torch.int32, device=dev)
     for dtype in (torch.float32, torch.bfloat16):
         none = torch.zeros(512, dtype=torch.bool, device=dev)
@@ -1292,15 +1414,38 @@ def phase_row_scatter(dev, gen, errs):
         in_range = int(((ids >= 0) & (ids < R) & valid).sum())
         print(f"  row scatters P={P} N={N} D={D}: {n_valid} valid ({in_range} in range), fp32 "
               "and bf16 tables bit-equal", flush=True)
+    # K8's batches of P positions a warp, its rows one run of 16-byte pieces
+    # (two bf16 rows of 128 an instruction, pieces split across rows at
+    # D = 200 bf16): one position, a batch short by one and one past it,
+    # ragged batches, N past 32 P; the same ids as K7's edges
+    P = S._lib().row_scatter_write_batch()
+    for N in (1, P - 1, P + 1, 33, 257):
+        ids = torch.randperm(R, device=dev, generator=gen)[:N].to(torch.int32)
+        valid = torch.rand(N, device=dev, generator=gen) < 0.8
+        off = torch.arange(N, device=dev)
+        ids = torch.where(~valid & (off % 2 == 0), -7, ids)
+        ids = torch.where(~valid & (off % 2 == 1), R + 7, ids)
+        ids = torch.where(valid & (off % 13 == 5), R + 7, ids)
+        ids = torch.where(valid & (off % 13 == 6), -7, ids).to(torch.int32).contiguous()
+        for D in (64, 128, 200, 256):
+            for dtype in (torch.float32, torch.bfloat16):
+                scatter_case(dev, gen, R, D, N, dtype, ids, valid, errs=errs)
+        print(f"  row scatters P={P} (write: {S.write_order(N, R)}) N={N} D=64, 128, 200, 256: "
+              "fp32 and bf16 tables bit-equal", flush=True)
     # rows one element off 16-byte alignment take the scalar path
-    table = torch.randn(4096, 128, device=dev, generator=gen)
-    buf = torch.randn(512 * 128 + 1, device=dev, generator=gen)
-    upd = buf[1:].view(512, 128)
     ids = torch.randperm(4096, device=dev, generator=gen)[:512].to(torch.int32)
-    got = S.row_scatter_add(table.clone(), ids, upd)
-    want = S.row_scatter_add_plain(table.clone(), ids, upd)
-    errs["row_scatter_add"] = max(errs["row_scatter_add"], max_err(got, want))
-    require(torch.equal(raw_bits(got), raw_bits(want)), "row_scatter_add, misaligned updates")
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.randn(4096, 128, device=dev, generator=gen).to(dtype)
+        buf = torch.randn(512 * 128 + 1, device=dev, generator=gen)
+        for name, fn, plain, arg in (
+                ("add", S.row_scatter_add, S.row_scatter_add_plain, buf[1:].view(512, 128)),
+                ("write", S.row_scatter_write, S.row_scatter_write_plain,
+                 buf.to(dtype)[1:].view(512, 128))):
+            got, want = fn(table.clone(), ids, arg), plain(table.clone(), ids, arg)
+            errs[f"row_scatter_{name}"] = max(errs[f"row_scatter_{name}"],
+                                              max_err(got.float(), want.float()))
+            require(torch.equal(raw_bits(got), raw_bits(want)),
+                    f"row_scatter_{name} {dtype}, misaligned rows")
     print("  row scatters N=1, no valid position, misaligned rows: bit-equal", flush=True)
 
 
@@ -1493,6 +1638,18 @@ def opt_step_times(dev, gen):
     return out
 
 
+def scatter_design(name: str) -> str:
+    """The design of K7 or K8, for the kernels line."""
+    from models_tpu_torch.ops import scatter as S
+
+    if name == "row_scatter_add":
+        return (f"batches of {S._lib().row_scatter_add_batch()} positions a warp, the batch's "
+                "ids in one load, grid from occupancy")
+    return (f"batches of {S._lib().row_scatter_write_batch()} positions a warp, the batch's ids "
+            "in one load, its rows one run of 16-byte pieces read once before the first "
+            "store (beside the ids where N <= R, after them where N > R), grid from occupancy")
+
+
 def measure_row_scatter(dev, gen, launches, errs):
     """K7 and K8 timed at the op-level step's shape (a 4M x 128 table, a
     deduplicated batch of 8192 ids) and at the model's (the userId table,
@@ -1532,9 +1689,9 @@ def measure_row_scatter(dev, gen, launches, errs):
             row = _row(name, "models_tpu_torch/csrc/row_scatter.cu",
                        f"models_tpu/ops/scatter.py:{line}", launches[name], errs[name], ms,
                        plain_ms, lib_ms, 0, nbytes)
-            if name == "row_scatter_add":
-                row["design"] = (f"batches of {S._lib().row_scatter_add_batch()} positions a "
-                                 "warp, the batch's ids in one load, grid from occupancy")
+            row["design"] = scatter_design(name)
+            if name == "row_scatter_write":
+                row["order"] = S.write_order(B, R)
             extra[f"{name}_R{R}"] = {
                 **{k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
                 "read_flush_ms": device_ms(kernel, cold="read"),
@@ -1616,20 +1773,16 @@ def phase_int8_kernels(dev, gen, errs):
     rows past the last bin), card and CPU equal bit for bit."""
     from models_tpu_torch.ops import topk as T
 
-    errs["binned_rescore_int8"] = 0.0  # K6 int8's errors began in phase_kernels
+    # K5 int8's and K6 int8's errors began in phase_kernels
     for D, offset in ((128, 0), (130, 0), (128, 1)):
         q8 = torch.randint(-127, 128, (256, D), device=dev, generator=gen, dtype=torch.int8)
         buf = torch.randint(-127, 128, (886 * 64 * D + offset,), device=dev, generator=gen,
                             dtype=torch.int8)
         c8 = buf[offset:].view(886 * 64, D)
         idx = torch.randint(0, 886, (256, 12), device=dev, generator=gen, dtype=torch.int32)
-        got = T.binned_rescore(q8, c8, idx, 64)
-        want = T.binned_rescore_plain(q8, c8, idx, 64)
-        torch.cuda.synchronize()
-        require(got.dtype == torch.int32 and torch.equal(got, want),
-                f"binned_rescore int8 D={D} offset={offset}: differs from the plain version")
-        print(f"  binned_rescore int8 B=256 kb=12 bs=64 D={D} offset={offset}: equal",
-              flush=True)
+        route = rescore_case(dev, q8, c8, idx, f"offset={offset} D={D}", errs)
+        require(route == ("bins" if (D, offset) == (128, 0) else "rows"),
+                f"binned_rescore int8 D={D} offset={offset}: route {route}")
     for B, C, n_valid, k in ((4096, 56_704, CATALOG, K), (16, 56_704, CATALOG, 512),
                              (8, 1_000_000, None, K)):
         q = torch.randn(B, 128, device=dev, generator=gen)
@@ -1853,9 +2006,14 @@ def evaluate_times(dev, model, data, catalog):
     return out
 
 
-def topk_1m_times(dev, gen):
+def topk_1m_times(dev, gen, errs):
     """The top-k layer on the bench's 1M x 128 catalog (``bench.py:730-815``),
-    B = 256, k = 10, fp32, bf16 and int8 indexes: CUDA events, back to back."""
+    B = 256, k = 10, fp32, bf16 and int8 indexes: CUDA events, back to back;
+    and K5 at the bins the layer's phase A selects (kb = 12 of 15,625 bins:
+    most distinct, some 100 MB of fp32 rows, past the 50 MB L2), with the L2
+    flushed before each call (profiler device time), against its plain
+    version, with its bound (the distinct bins once)."""
+    from models_tpu_torch.ops import topk as T
     from models_tpu_torch.outputs.topk import BruteForce
 
     cand = torch.randn(1_000_000, 128, device=dev, generator=gen)
@@ -1864,6 +2022,28 @@ def topk_1m_times(dev, gen):
     for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.int8)):
         bf = BruteForce(K).index(cand, dtype=dtype, device=dev)
         out[f"topk_1M_{tag}_B256_ms"] = cuda_ms(lambda: bf(q))
+        full, n = bf.candidates, bf.n_valid
+        if dtype == torch.int8:
+            qk, _ = T.quantize_queries(q)
+            idx = T.select_bins(qk, full, K, n_valid=n, col_scale=bf.scales,
+                                col_scale_per_bin=bf.scales_per_bin)
+        else:
+            qk = q
+            idx = T.select_bins(q, full, K, n_valid=n)
+        rescore_case(dev, qk, full, idx, f"1M catalog {tag}", errs)
+        distinct = int(torch.unique(idx).numel())
+        B, kb = idx.shape
+        qbytes = 1 if dtype == torch.int8 else 4
+        nbytes = (distinct * 64 * 128 * full.element_size() + B * 128 * qbytes + B * kb * 4
+                  + B * kb * 64 * 4)
+        out[f"binned_rescore_1M_{tag}"] = {
+            "kb": kb, "distinct_bins": distinct,
+            "ms_cold": device_ms(lambda: T.binned_rescore(qk, full, idx, 64), cold=True),
+            "ms_read_flush": device_ms(lambda: T.binned_rescore(qk, full, idx, 64),
+                                       cold="read"),
+            "plain_ms_cold": device_ms(lambda: T.binned_rescore_plain(qk, full, idx, 64),
+                                       reps=10, cold=True),
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, **rescore_design(qk, full, idx, 64)}
         del bf
     del cand
     torch.cuda.empty_cache()
@@ -1932,6 +2112,13 @@ def measure_scatter_write_fp32(dev, gen, errs, launches):
     row = _row("row_scatter_write_fp32", "models_tpu_torch/csrc/row_scatter.cu",
                "models_tpu/ops/scatter.py:243", launches, err, ms, plain, lib, 0,
                2 * n * D * 4 + B * 5)
+    row["design"] = scatter_design("row_scatter_write")
+    row["order"] = S.write_order(B, R)
+    kernel = lambda: S.row_scatter_write(table, ids, rows, valid)  # noqa: E731
+    print("row scatter write fp32 " + json.dumps({
+        "ms": ms, "read_flush_ms": device_ms(kernel, cold="read"),
+        "l2_warm_ms": device_ms(kernel), "back_to_back_ms": cuda_ms(kernel, reps=50)}),
+        flush=True)
     del table
     torch.cuda.empty_cache()
     return row
@@ -1968,13 +2155,16 @@ def measure_int8(dev, enc, q4096, launches, errs):
     torch.cuda.synchronize()
     require(torch.equal(got, want), "binned_rescore int8 at the serving bins: differs")
     ms = cuda_ms(lambda: T.binned_rescore(q8, full, idx, bs))
+    cold = device_ms(lambda: T.binned_rescore(q8, full, idx, bs), cold=True)
     plain = cuda_ms(lambda: T.binned_rescore_plain(q8, full, idx, bs))
     lib = cuda_ms(lambda: torch.einsum("bd,bksd->bks", q8.float(), c3[idx.long()].float()))
     n_bins = int(torch.unique(idx).numel())
     k5 = _row("binned_rescore_int8", "models_tpu_torch/csrc/binned_rescore.cu",
               "models_tpu/ops/topk.py:208", launches["binned_rescore_int8"],
               errs["binned_rescore_int8"], ms, plain, lib, 2 * B * kb * bs * D,
-              n_bins * bs * D + B * D + B * kb * 4 + B * kb * bs * 4)
+              n_bins * bs * D + B * D + B * kb * 4 + B * kb * bs * 4, ms_cold=cold)
+    k5["ms_warm"] = device_ms(lambda: T.binned_rescore(q8, full, idx, bs))
+    k5.update(rescore_design(q8, full, idx, bs))
     print(f"  int8: phase A selects kb={kb} bins per row, {n_bins} distinct", flush=True)
     return [k6, k5]
 
@@ -2265,7 +2455,7 @@ def main() -> int:
         print(f"  {name}: {regs}", flush=True)
     # the tensor-core kernels in full: each kernel's registers, static shared
     # memory and spills
-    for name in ("flash_ce", "streaming_topk", "row_scatter"):
+    for name in ("flash_ce", "streaming_topk", "row_scatter", "binned_rescore"):
         for ln in kernels.build_logs.get(name, "").splitlines():
             if ("entry function" in ln or "Used" in ln or "spill" in ln
                     or "wgmma" in ln or "warning" in ln.lower()):
@@ -2331,7 +2521,7 @@ def main() -> int:
         timing[f"predict_int8_B{B}_ms"] = host_ms(
             lambda: enc8.predict(ds, batch_size=B, device=dev))
     timing.update(serving_breakdown(dev, model, queries, results))
-    timing.update(topk_1m_times(dev, gen))
+    timing.update(topk_1m_times(dev, gen, errs))
     print("serving " + json.dumps(timing), flush=True)
     rows, bf16 = phase_measure(dev, model, queries, results, launches, errs)
     print("bf16 index " + json.dumps(bf16), flush=True)

@@ -33,11 +33,26 @@
 //   80GB HBM3 at 700 W): three dependent round trips (valid[j], then ids[j],
 //   then the rows behind the skip's branch), 1 KB in flight a warp, and a
 //   launch of 1024 blocks for 8192 positions.
-//   K8 (scatter_write): one warp per position, as first designed; the lanes
-//   take neighbouring 16-byte pieces of the row when it is whole pieces and
-//   the pointers are 16-byte aligned, otherwise every 32nd element. One
+//   K8 (scatter_write): a warp takes WRITE_P = 8 positions at a time, with
+//   K7's batch targets (one coalesced load of the ids and one of the flags,
+//   shuffles) and its grid from occupancy. The batch's source rows are one
+//   run of 16-byte pieces, which the lanes take in turn, 32 pieces an
+//   instruction (two bf16 rows of 128, one fp32 row), each lane up to
+//   WRITE_K of them read once before the first store; a lane finds its
+//   piece's target by one shuffle. Where N <= R the rows are read beside the
+//   ids, so that one round trip to memory stands before the stores; where
+//   N > R (at least N - R positions invalid: a genres-like batch of 81,920
+//   positions into 24 rows) after them, for the valid positions only. One
 //   write kernel, templated on the element type, serves fp32 (K8a) and bf16
-//   (K8b).
+//   (K8b); rows not whole pieces, or pointers off 16 bytes, take each lane's
+//   every 32nd element, position by position. What held the first design
+//   (one warp per position, 1024 blocks of 256 threads; 0.00492 ms for bf16
+//   rows at the path's shape, 26% of its bound, on an H100 80GB HBM3 at
+//   700 W): three dependent round trips (valid[j], then ids[j], then the row
+//   behind the skip's branch) and half of each warp idle on a 256-byte bf16
+//   row. Batching alone, the ids first, left K8b where it was (0.00493 ms);
+//   the rows beside the ids took it to 0.00377, and 16 positions a warp
+//   were slower than 8.
 // The TPU kernels' DMA ring with dummy-slot pairing, the 128-lane routing
 // and the 8-row block composition for 16-bit rows were Mosaic workarounds and
 // are gone: on this card a row is a row.
@@ -58,8 +73,9 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_BLOCKS = 4096;  // the grid-stride loop takes the rest
 constexpr int ADD_P = 8;          // K7: positions a warp takes at a time
+constexpr int WRITE_P = 8;        // K8: positions a warp takes at a time
+constexpr int WRITE_K = 8;        // K8: 16-byte pieces a lane holds at once
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -72,6 +88,13 @@ __device__ __forceinline__ float4 load_once(const float* p) {
   float4 v;
   asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
       : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint4 load_once(const uint4* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
   return v;
 }
 
@@ -102,11 +125,18 @@ __device__ __forceinline__ uint4 add_piece(uint4 v, const float4* x, __nv_bfloat
   return v;
 }
 
-// the row position j writes, or -1 when j is skipped (warp-uniform)
-__device__ __forceinline__ int target(const int* ids, const unsigned char* valid, int j, int R) {
-  if (valid != nullptr && !valid[j]) return -1;
-  const int id = ids[j];
-  return (id >= 0 && id < R) ? id : -1;
+// Lane p < P of a warp: the row that position b P + p of batch b writes, or
+// -1 when it is past N, invalid or out of range; other lanes: -1. The ids
+// and the flags come in one coalesced load each
+__device__ __forceinline__ int batch_target(const int* ids, const unsigned char* valid, int b,
+                                            int P, int N, int R, int lane) {
+  const int j = b * P + lane;
+  int id = -1, ok = 0;
+  if (lane < P && j < N) {
+    id = ids[j];
+    ok = valid == nullptr || valid[j];
+  }
+  return ok && id >= 0 && id < R ? id : -1;
 }
 
 // K7. Warp w takes the batches b = w, w + (warps in the grid), ... of ADD_P
@@ -125,13 +155,7 @@ scatter_add(T* __restrict__ table, const int* __restrict__ ids, const float* __r
   const int lane = threadIdx.x & 31;
   const int batches = (N + ADD_P - 1) / ADD_P;
   for (int b = blockIdx.x * WARPS + (threadIdx.x >> 5); b < batches; b += gridDim.x * WARPS) {
-    const int j = b * ADD_P + lane;
-    int id = -1, ok = 0;
-    if (lane < ADD_P && j < N) {
-      id = ids[j];
-      ok = valid == nullptr || valid[j];
-    }
-    const int mine = ok && id >= 0 && id < R ? id : -1;
+    const int mine = batch_target(ids, valid, b, ADD_P, N, R, lane);
     int tgt[ADD_P];
 #pragma unroll
     for (int p = 0; p < ADD_P; ++p) tgt[p] = __shfl_sync(FULL, mine, p);
@@ -165,33 +189,61 @@ scatter_add(T* __restrict__ table, const int* __restrict__ ids, const float* __r
   }
 }
 
-template <typename T, bool VEC>
+// K8. Warp w takes the batches of WRITE_P positions as K7's warps do, with
+// their targets. VEC: the batch's source rows, P = min(WRITE_P, N - b
+// WRITE_P) rows of pr = D / V pieces, are pieces f = 0 .. P pr - 1 of one
+// run; lane l takes f = l, l + 32, ..., WRITE_K at a time: it loads them
+// (read once), then stores each to row f / pr of the batch, at piece f % pr
+// of its target. ROWS_FIRST: the loads go out beside the ids' (one round
+// trip before the stores, every position's row read); otherwise after them,
+// for the valid positions only (two round trips). Positions past N, invalid
+// or out of range store nothing. VEC false: each lane takes every 32nd
+// element of each row in turn.
+template <typename T, bool VEC, bool ROWS_FIRST>
 __global__ void __launch_bounds__(THREADS)
 scatter_write(T* __restrict__ table, const int* __restrict__ ids, const T* __restrict__ rows,
               const unsigned char* __restrict__ valid, int N, int R, int D) {
   constexpr int V = 16 / sizeof(T);
   const int lane = threadIdx.x & 31;
-  for (int j = blockIdx.x * WARPS + (threadIdx.x >> 5); j < N; j += gridDim.x * WARPS) {
-    const int id = target(ids, valid, j, R);
-    if (id < 0) continue;
-    T* row = table + (size_t)id * D;
-    const T* src = rows + (size_t)j * D;
+  const int batches = (N + WRITE_P - 1) / WRITE_P;
+  for (int b = blockIdx.x * WARPS + (threadIdx.x >> 5); b < batches; b += gridDim.x * WARPS) {
+    const int mine = batch_target(ids, valid, b, WRITE_P, N, R, lane);
+    const T* src = rows + (size_t)b * WRITE_P * D;
     if (VEC) {
-      uint4* dst4 = reinterpret_cast<uint4*>(row);
-      const uint4* src4 = reinterpret_cast<const uint4*>(src);
-      for (int c = lane; c < D / V; c += 32) dst4[c] = src4[c];
+      const int pr = D / V;
+      const int n = min(WRITE_P, N - b * WRITE_P) * pr;  // the batch's pieces
+      for (int f0 = 0; f0 < n; f0 += 32 * WRITE_K) {
+        uint4 v[WRITE_K];
+        int tgt[WRITE_K];
+#pragma unroll
+        for (int k = 0; k < WRITE_K; ++k) {
+          const int f = f0 + 32 * k + lane;
+          if (ROWS_FIRST && f < n) v[k] = load_once(reinterpret_cast<const uint4*>(src) + f);
+          tgt[k] = __shfl_sync(FULL, mine, f / pr);  // every lane, in or past the run
+          if (!ROWS_FIRST && f < n && tgt[k] >= 0)
+            v[k] = load_once(reinterpret_cast<const uint4*>(src) + f);
+        }
+#pragma unroll
+        for (int k = 0; k < WRITE_K; ++k) {
+          const int f = f0 + 32 * k + lane;
+          if (f < n && tgt[k] >= 0)
+            reinterpret_cast<uint4*>(table + (size_t)tgt[k] * D)[f % pr] = v[k];
+        }
+      }
     } else {
-      for (int d = lane; d < D; d += 32) row[d] = src[d];
+#pragma unroll
+      for (int p = 0; p < WRITE_P; ++p) {
+        const int tgt = __shfl_sync(FULL, mine, p);
+        if (tgt < 0) continue;
+        T* row = table + (size_t)tgt * D;
+        const T* from = src + (size_t)p * D;
+        for (int d = lane; d < D; d += 32) row[d] = from[d];
+      }
     }
   }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
-int blocks_for(int N) {
-  const int b = (N + WARPS - 1) / WARPS;
-  return b < MAX_BLOCKS ? b : MAX_BLOCKS;
-}
 
 // as many blocks of `kernel` as the card holds at once (the first call's
 // card; a negative value is a CUDA error, negated)
@@ -227,16 +279,35 @@ cudaError_t launch_add(void* table, const int* ids, const void* upd, const unsig
              : launch_add_as<T, false>(t, ids, u, valid, N, R, D, stream);
 }
 
+// K8's grid: one warp a batch of WRITE_P positions, at most what the card holds
+template <typename T, bool VEC, bool ROWS_FIRST>
+cudaError_t launch_write_as(T* table, const int* ids, const T* rows, const unsigned char* valid,
+                            int N, int R, int D, cudaStream_t stream) {
+  static const int cap = card_blocks(scatter_write<T, VEC, ROWS_FIRST>);
+  if (cap < 0) return (cudaError_t)-cap;
+  const int need = ((N + WRITE_P - 1) / WRITE_P + WARPS - 1) / WARPS;
+  scatter_write<T, VEC, ROWS_FIRST><<<need < cap ? need : cap, THREADS, 0, stream>>>(
+      table, ids, rows, valid, N, R, D);
+  return cudaGetLastError();
+}
+
+// K8's order of loads, from the shape: the rows beside the ids where at most
+// N <= R positions can be valid anyway (the valid ids are unique rows of the
+// table), so that reading every position's row costs at most what a batch
+// of N valid positions reads; after the ids where N > R, where at least N - R
+// positions are invalid (a genres-like batch: 81,920 positions into 24 rows)
+bool write_rows_first(int N, int R) { return N <= R; }
+
 template <typename T>
-void launch_write(void* table, const int* ids, const void* rows, const unsigned char* valid,
-                  int N, int R, int D, cudaStream_t stream) {
+cudaError_t launch_write(void* table, const int* ids, const void* rows,
+                         const unsigned char* valid, int N, int R, int D, cudaStream_t stream) {
   T* t = static_cast<T*>(table);
   const T* r = static_cast<const T*>(rows);
   const bool vec = D % (16 / sizeof(T)) == 0 && aligned16(table) && aligned16(rows);
-  if (vec)
-    scatter_write<T, true><<<blocks_for(N), THREADS, 0, stream>>>(t, ids, r, valid, N, R, D);
-  else
-    scatter_write<T, false><<<blocks_for(N), THREADS, 0, stream>>>(t, ids, r, valid, N, R, D);
+  if (!vec) return launch_write_as<T, false, false>(t, ids, r, valid, N, R, D, stream);
+  return write_rows_first(N, R)
+             ? launch_write_as<T, true, true>(t, ids, r, valid, N, R, D, stream)
+             : launch_write_as<T, true, false>(t, ids, r, valid, N, R, D, stream);
 }
 
 }  // namespace
@@ -264,9 +335,13 @@ extern "C" int row_scatter_write(void* table, int table_bf16, const int* ids, co
                                  const unsigned char* valid, int N, int R, int D,
                                  cudaStream_t stream) {
   if (N < 1 || R < 0 || D < 1) return (int)cudaErrorInvalidValue;
-  if (table_bf16)
-    launch_write<__nv_bfloat16>(table, ids, rows, valid, N, R, D, stream);
-  else
-    launch_write<float>(table, ids, rows, valid, N, R, D, stream);
-  return (int)cudaGetLastError();
+  return (int)(table_bf16 ? launch_write<__nv_bfloat16>(table, ids, rows, valid, N, R, D, stream)
+                          : launch_write<float>(table, ids, rows, valid, N, R, D, stream));
 }
+
+// The positions a warp of row_scatter_write takes at a time.
+extern "C" int row_scatter_write_batch() { return WRITE_P; }
+
+// 1 where row_scatter_write reads the source rows beside the ids (N <= R),
+// 0 where after them.
+extern "C" int row_scatter_write_rows_first(int N, int R) { return write_rows_first(N, R); }

@@ -111,6 +111,9 @@ def _lib():
             fn.argtypes = [p, i, p, p, p, i, i, i, p]
             fn.restype = i
         lib.row_scatter_add_batch.restype = i
+        lib.row_scatter_write_batch.restype = i
+        lib.row_scatter_write_rows_first.argtypes = [i, i]
+        lib.row_scatter_write_rows_first.restype = i
         lib._typed = True
     return lib
 
@@ -168,6 +171,15 @@ def row_scatter_write(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor
     if table.device.type == "cpu":
         return row_scatter_write_plain(table, ids, rows, valid)
     return _launch("row_scatter_write", row_scatter_write, table, ids, rows, valid)
+
+
+def write_order(n: int, rows: int) -> str:
+    """The order of loads :func:`row_scatter_write` takes on the card for
+    ``n`` positions into a table of ``rows`` rows (16-byte rows): ``"rows
+    first"`` (the source rows read beside the ids, every position's, where
+    ``n <= rows``) or ``"ids first"`` (the valid positions' rows after the
+    ids, where at least ``n - rows`` positions are invalid)."""
+    return "rows first" if _lib().row_scatter_write_rows_first(n, rows) else "ids first"
 
 
 row_scatter_add.launches = 0

@@ -291,9 +291,77 @@ def _rescore_lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.binned_rescore.argtypes = [p, p, i, p, p, i, i, i, i, i, p]
-        lib.binned_rescore.restype = i
+        lib.binned_rescore_route.argtypes = [p, p, i, i, i, i, i, i]
+        lib.binned_rescore_grid.argtypes = [i, i, i, i]
+        lib.binned_rescore_const.argtypes = [i]
+        for fn in (lib.binned_rescore, lib.binned_rescore_route, lib.binned_rescore_grid,
+                   lib.binned_rescore_const):
+            fn.restype = i
         lib._typed = True
     return lib
+
+
+def rescore_plan(queries: torch.Tensor, candidates: torch.Tensor, bin_idx: torch.Tensor,
+                 bin_size: int) -> dict:
+    """How :func:`binned_rescore` launches on the card for these CUDA operands:
+    ``route`` ``"bins"`` (``rescore_bins``: bin-major, each selected bin
+    copied once a group of query rows by a bulk copy and scored against
+    every query of the group that picked it) or ``"rows"`` (the first
+    design, a block per query row: bins other than 64 rows, rows not whole
+    16-byte pieces or past 512 bytes, unaligned pointers), and for
+    ``"bins"`` the arguments of :func:`rescore_schedule`:
+    the grid's ``blocks``, the selections a block scans at a time
+    (``window``), the query rows of a group (``query_group``) and the pairs
+    of an item (``pairs_per_item``)."""
+    lib = _rescore_lib()
+    (B, D), kb = queries.shape, bin_idx.shape[1]
+    code, n_bins = _DTYPE_CODE[candidates.dtype], candidates.shape[0] // bin_size
+    by_bins = lib.binned_rescore_route(queries.data_ptr(), candidates.data_ptr(), code, B, D, kb,
+                                       bin_size, n_bins)
+    if by_bins < 0:
+        kernels.check(lib, -by_bins, "binned_rescore_route")
+    if not by_bins:
+        return {"route": "rows"}
+    blocks = lib.binned_rescore_grid(code, B, D, n_bins)
+    if blocks < 0:
+        kernels.check(lib, -blocks, "binned_rescore_grid")
+    return {"route": "bins", "blocks": blocks, "window": lib.binned_rescore_const(0),
+            "query_group": lib.binned_rescore_const(1),
+            "pairs_per_item": lib.binned_rescore_const(2)}
+
+
+def rescore_schedule(bin_idx: torch.Tensor, n_bins: int, blocks: int, window: int = 4096,
+                     query_group: int = 32, pairs_per_item: int = 8):
+    """The bin-major form's schedule (``csrc/binned_rescore.cu::rescore_bins``),
+    modelled on the host. The selections ``bin_idx`` (B, kb) are pairs at flat
+    positions ``e = b * kb + j``; the pairs of bin ``n`` from query rows of
+    group ``h = b // query_group`` form key ``n * ceil(B / query_group) +
+    h``, and block ``g`` of ``blocks`` owns the keys ``key % blocks == g``.
+    A block scans the pairs ``window`` at a time; within a window it takes
+    its keys in ascending order, each as items of at most ``pairs_per_item``
+    pairs, and each item is one copy of the bin (and of its pairs' query
+    rows). Returns (``plan``, ``missing``): ``plan[g]`` holds one list per
+    window of the block's items ``(bin, positions)``; ``missing`` the
+    positions of bins outside ``[0, n_bins)``, which block 0 fills (NaN or
+    INT32_MIN). Within a key the kernel takes the pairs in any order: each
+    has one writer."""
+    B, kb = bin_idx.shape
+    groups = -(-B // query_group)
+    flat = bin_idx.reshape(-1).tolist()
+    plan, missing = [[] for _ in range(blocks)], []
+    for w0 in range(0, len(flat), window):
+        keys = {}
+        for e in range(w0, min(w0 + window, len(flat))):
+            n = flat[e]
+            if 0 <= n < n_bins:
+                keys.setdefault(n * groups + e // kb // query_group, []).append(e)
+            else:
+                missing.append(e)
+        for g in range(blocks):
+            plan[g].append([(key // groups, pairs[i:i + pairs_per_item])
+                            for key, pairs in sorted(keys.items()) if key % blocks == g
+                            for i in range(0, len(pairs), pairs_per_item)])
+    return plan, missing
 
 
 def binned_rescore(

@@ -53,6 +53,24 @@ def test_importing_the_kernels_builds_nothing_and_loads_no_triton():
     assert not loaded & (set(FORBIDDEN) | {"triton"}), sorted(loaded & set(FORBIDDEN))
 
 
+@pytest.mark.parametrize("script", ["chip_smoke", "ab_kernels"])
+def test_the_card_scripts_load_no_jax_and_nothing_of_the_jax_package(script):
+    """The scripts that run the port on the card, imported as modules (their
+    work runs only under ``__main__``), and the port's modules their phases
+    import, load nothing of JAX."""
+    code = (
+        f"import sys, {script}\n"
+        "import models_tpu_torch.ops.scatter, models_tpu_torch.ops.topk\n"
+        "import models_tpu_torch.outputs.topk, models_tpu_torch.core.types\n"
+        "print('\\n'.join(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120).stdout.split()
+    loaded = {name.split(".")[0] for name in out}
+    assert script in loaded and "torch" in loaded
+    assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
+
+
 def _model():
     ds = mt.generate_data("e-commerce", num_rows=40, seed=0)
     return ds, mt.TwoTowerModel(ds.schema, query_tower=(8, 4), device="cpu")

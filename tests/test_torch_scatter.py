@@ -112,6 +112,30 @@ def test_row_scatter_write_matches_the_pallas_kernel(dtype):
     np.testing.assert_array_equal(_bits(got), _jax_bits(want))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 7, 9, 31, 33, 257])
+def test_row_scatter_write_matches_the_pallas_kernel_at_batch_edges(n, dtype):
+    """N around the card kernel's batches (8 positions a warp, their ids in
+    one load, the batch's rows one run of 16-byte pieces): one position, a
+    batch short by one, one past a batch, ragged last batches, N past 32 * 8.
+    Out-of-range ids sit on invalid positions only (the Pallas kernel writes
+    a valid position's id as it is)."""
+    rows = 512
+    ids, valid = _batch(n, rows, 100 + n)
+    rng = np.random.default_rng(n + 2)
+    table = rng.standard_normal((rows, D)).astype(np.float32)
+    src = rng.standard_normal((n, D)).astype(np.float32)
+    jt, jr = jnp.asarray(table, dtype), jnp.asarray(src, dtype)
+    want = J.pallas_row_scatter_write(jt, jnp.asarray(ids), jr, jnp.asarray(valid),
+                                      block=4, n_buf=2, interpret=True)
+    tdt = getattr(torch, dtype)
+    tt = torch.tensor(np.asarray(jt, np.float32)).to(tdt)
+    got = S.row_scatter_write(tt, torch.tensor(ids), torch.tensor(np.asarray(jr, np.float32))
+                              .to(tdt), torch.tensor(valid))
+    assert got is tt
+    np.testing.assert_array_equal(_bits(got), _jax_bits(want))
+
+
 def test_rows_of_invalid_positions_and_of_no_id_stay():
     table, upd = _inputs(3)
     got = S.row_scatter_add(torch.tensor(table), torch.tensor(IDS), torch.tensor(upd),
