@@ -1,10 +1,10 @@
-"""A/B timings of the row scatter-write (K8) and the binned rescore (K5) on one
-NVIDIA card, each form built from its own sources and timed in turns in one
-process.
+"""A/B timings of the row scatter-write (K8), the binned rescore (K5) and the
+row gather (K9) on one NVIDIA card, each form built from its own sources and
+timed in turns in one process.
 
-    python3 ab_kernels.py [--parent DIR] [--only NAME,...]
+    python3 ab_kernels.py [--parent DIR] [--only NAME,...] [--kernels K8,K5,K9]
 
-Builds ``row_scatter.cu`` and ``binned_rescore.cu`` from
+Builds ``row_scatter.cu``, ``binned_rescore.cu`` and ``row_gather.cu`` from
 ``models_tpu_torch/csrc`` ("head"), from copies of it with a few lines of
 the source changed (``VARIANTS``; ``DIAGNOSTIC`` ones skip work or keep
 clocks and are not held against the plain version), and with ``--parent``
@@ -26,10 +26,18 @@ order A, B, ..., then back (..., B, A), and both turns are printed:
   seeded), fp32, bf16 and int8 indexes: back-to-back CUDA events, device
   time warm (the catalog in L2, as between requests) and with the L2
   flushed; and at the bins of a 1M x 128 catalog (B = 256,
-  kb = 12), flushed dirty and read-only.
+  kb = 12), flushed dirty and read-only;
+- K9 at the bench's op-level shape (8192 uniform ids into a 4M x 128 fp32
+  table) and at the device-resident training route's (one chunk of 16
+  batches of 8192, 131,072 ids, into the packed movielens-25m columns of
+  1,048,576 rows of 26 int32): device time with the L2 flushed dirty,
+  flushed read-only and warm, and back-to-back CUDA events; beside them
+  ``index_select`` (``gather_no_ids``, a diagnostic, reads row j for
+  position j: one round trip to memory instead of two).
 
-Prints the card's name and power limit, each form's ptxas report, and one
-JSON line per measurement: ``{"what": ..., "ms": {form: [turn 1, turn 2]}}``.
+``--kernels`` runs only the named sections. Prints the card's name and power
+limit, each form's ptxas report, and one JSON line per measurement:
+``{"what": ..., "ms": {form: [turn 1, turn 2]}}``.
 """
 
 from __future__ import annotations
@@ -92,9 +100,22 @@ VARIANTS = {
     "rescore_no_score": ("binned_rescore", [("      if (g4 < m) {\n        Acc* to",
                                              "      if (g4 < 0) {\n        Acc* to")]),
     "rescore_trace": ("binned_rescore", TRACE),
+    # K9's stores as streaming stores (evict first)
+    "gather_cs": ("row_gather", [("if (p < pieces && j < B) out[(size_t)j * pieces + p] = v[u];",
+                                  "if (p < pieces && j < B) __stcs(out + (size_t)j * pieces + p, "
+                                  "v[u]);")]),
+    # K9 with 4 rows a lane in flight instead of 8
+    "gather_u4": ("row_gather", [("constexpr int U = 8;", "constexpr int U = 4;")]),
+    # diagnostic: K9 reading row j for position j, its rows independent of
+    # the ids (one round trip to memory, not two; not a gather)
+    "gather_no_ids": ("row_gather", [("v[u] = load_once(table + (size_t)id[u] * pieces + p);",
+                                      "v[u] = load_once(table + (size_t)(j0 + u * RPI + s) * "
+                                      "pieces + p);")]),
 }
-DIAGNOSTIC = ("rescore_no_score", "rescore_trace")
-NAMES = ("row_scatter", "binned_rescore")
+DIAGNOSTIC = ("rescore_no_score", "rescore_trace", "gather_no_ids")
+NAMES = ("row_scatter", "binned_rescore", "row_gather")
+# the section of each source's forms
+SECTION = {"row_scatter": "K8", "binned_rescore": "K5", "row_gather": "K9"}
 
 
 def sources(parent):
@@ -116,13 +137,13 @@ def sources(parent):
     return forms
 
 
-def build(forms):
+def build(forms, names=NAMES):
     """(form, name) -> loaded library: one nvcc a source, all at once."""
     procs, libs = {}, {}
     for form, csrc in forms.items():
         out_dir = BUILD / form
         out_dir.mkdir(parents=True, exist_ok=True)
-        for name in NAMES:
+        for name in names:
             out = kernels._target(name, csrc, out_dir)
             flags = [f if f != str(kernels.CSRC) else str(csrc) for f in kernels.NVCC_FLAGS]
             cmd = [kernels._nvcc(), *flags, "-o", str(out), str(csrc / f"{name}.cu")]
@@ -138,10 +159,12 @@ def build(forms):
         print(f"{form} {name} ptxas: {ptx}", flush=True)
         lib = ctypes.CDLL(str(out))
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn = lib.row_scatter_write if name == "row_scatter" else lib.binned_rescore
-        fn.argtypes = ([p, i, p, p, p, i, i, i, p] if name == "row_scatter"
-                       else [p, p, i, p, p, i, i, i, i, i, p])
-        fn.restype = i
+        entry, args = {
+            "row_scatter": ("row_scatter_write", [p, i, p, p, p, i, i, i, p]),
+            "binned_rescore": ("binned_rescore", [p, p, i, p, p, i, i, i, i, i, p]),
+            "row_gather": ("row_gather", [p, i, p, p, i, i, i, p])}[name]
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = args, i
         libs[(form, name)] = lib
     return libs
 
@@ -162,6 +185,12 @@ def rescore_call(lib, q, c, idx, out, bs=64):
     return lambda: lib.binned_rescore(q.data_ptr(), c.data_ptr(), code, idx.data_ptr(),
                                       out.data_ptr(), q.shape[0], q.shape[1], idx.shape[1], bs,
                                       c.shape[0] // bs, stream())
+
+
+def gather_call(lib, table, ids, out):
+    R, D = table.shape
+    return lambda: lib.row_gather(table.data_ptr(), table.element_size(), ids.data_ptr(),
+                                  out.data_ptr(), ids.shape[0], R, D, stream())
 
 
 def turns(what, calls, timer):
@@ -203,6 +232,43 @@ def scatter_ab(dev, gen, libs, forms):
             turns(f"{tag}, read-only flush", calls, lambda f: C.device_ms(f, cold="read"))
             turns(f"{tag}, warm", calls, lambda f: C.device_ms(f))
         del table
+        torch.cuda.empty_cache()
+
+
+def gather_ab(dev, gen, libs, forms):
+    from models_tpu_torch.ops import embedding_lookup as E
+
+    cases = [("op-level 4M x 128 fp32", C.OP_ROWS_FP32, 128, torch.float32, 8192),
+             ("pack 1,048,576 x 26 int32", 1 << 20, 26, torch.int32, 16 * C.TRAIN_BATCH)]
+    for what, R, D, dtype, B in cases:
+        if dtype == torch.int32:
+            table = torch.randint(-2**31, 2**31 - 1, (R, D), device=dev, generator=gen,
+                                  dtype=torch.int32)
+        else:
+            table = torch.empty(R, D, device=dev, dtype=dtype).normal_(generator=gen)
+        ids = torch.randint(0, R, (B,), device=dev, generator=gen, dtype=torch.int32)
+        ids_l = ids.long()
+        want = E.row_gather_plain(table, ids)
+        out = torch.empty_like(want)
+        calls = {}
+        for form in forms:
+            fn = gather_call(libs[(form, "row_gather")], table, ids, out)
+            out.zero_()
+            C.require(fn() == 0, f"{form}: row_gather launch failed")
+            torch.cuda.synchronize()
+            C.require(form in DIAGNOSTIC or torch.equal(C.raw_bits(out), C.raw_bits(want)),
+                      f"{form}: row_gather {what} differs")
+            calls[form] = fn
+        calls["index_select"] = lambda: torch.index_select(table, 0, ids_l)
+        nbytes = 2 * B * D * table.element_size() + 4 * B
+        print(json.dumps({"what": f"row_gather {what}, B={B}", "bound_ms":
+                          nbytes / C.PEAK_BYTES_PER_S * 1e3}), flush=True)
+        turns(f"row_gather {what}, dirty flush", calls, lambda f: C.device_ms(f, cold=True))
+        turns(f"row_gather {what}, read-only flush", calls,
+              lambda f: C.device_ms(f, cold="read"))
+        turns(f"row_gather {what}, warm", calls, lambda f: C.device_ms(f))
+        turns(f"row_gather {what}, back to back", calls, lambda f: C.cuda_ms(f, reps=50))
+        del table, want, out
         torch.cuda.empty_cache()
 
 
@@ -286,7 +352,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another checkout's csrc directory, built as 'parent'")
     ap.add_argument("--only", help="forms to build and time, comma-separated (head always)")
+    ap.add_argument("--kernels", default="K8,K5,K9", help="sections to run, comma-separated")
     args = ap.parse_args()
+    sections = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 1
@@ -296,13 +364,21 @@ def main() -> int:
     if args.only:
         keep = {"head", *args.only.split(",")}
         forms = {f: d for f, d in forms.items() if f in keep}
-    libs = build(forms)
+    names = [n for n in NAMES if SECTION[n] in sections]
+    forms = {f: d for f, d in forms.items() if f not in VARIANTS or VARIANTS[f][0] in names}
+    libs = build(forms, names)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(dev).manual_seed(C.SEED)
-    scatter_forms = [f for f in forms if not f.startswith("rescore_")]
-    rescore_forms = [f for f in forms if not f.startswith("write_")]
-    scatter_ab(dev, gen, libs, scatter_forms)
-    rescore_ab(dev, gen, libs, rescore_forms)
+
+    def of(name):
+        return [f for f in forms if f not in VARIANTS or VARIANTS[f][0] == name]
+
+    if "K8" in sections:
+        scatter_ab(dev, gen, libs, of("row_scatter"))
+    if "K5" in sections:
+        rescore_ab(dev, gen, libs, of("binned_rescore"))
+    if "K9" in sections:
+        gather_ab(dev, gen, libs, of("row_gather"))
     print(C.gpu_line(), flush=True)
     return 0
 

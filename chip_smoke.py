@@ -44,10 +44,13 @@
    bin, every bin selected, kb = 1 with B = 1, bins out of range (NaN,
    INT32_MIN), 6,656 selections (two of the bin-major form's windows), one
    block owning every pair, D = 64 and 100; the row gather (K9) bit for
-   bit, fp32, bf16 and fp16 tables of
-   R % 8 != 0 rows, duplicates, ids at both ends, clamped ids, B = 1, D = 7,
-   a misaligned table, and 8192 ids into the bench's 4M x 128 fp32 and
-   16M x 128 bf16 tables; the int8 forms: K5 (int8 x int8 -> int32) equal,
+   bit, printing each case's plan (piece bytes, lanes a row, rows a warp),
+   fp32, bf16 and fp16 tables of R % 8 != 0 rows, duplicates, ids at both
+   ends, clamped ids, B = 1, D = 7, D = 256, a misaligned table, the
+   training route's pack (2**20 rows of 26 int32, one chunk of 131,072 ids:
+   8-byte pieces, 16 lanes a row) and views of it and of an fp32 table 8
+   bytes off 16-byte alignment, and 8192 ids into the bench's 4M x 128 fp32
+   and 16M x 128 bf16 tables; the int8 forms: K5 (int8 x int8 -> int32) equal,
    also at D = 130 and on a misaligned catalog (the first design), K6 with
    int8 rows and per-row scales within the fp32 tolerance, with planted ties;
 4. serves the two-tower model end to end at the bench's full width
@@ -87,6 +90,34 @@
    cotangents before it rounds them), three steps at batch 8192 against a
    CPU copy with bf16 and fp32 slots and row-sparsely with bf16 tables, 16
    steps at full width (the bf16 forms once a step), timed as above;
+   then k steps a chunk (``compile(steps_per_execution=k, jit=...)``, the
+   dataset's columns packed on the card, each chunk's rows gathered by K9,
+   the chunk one CUDA graph replay): (a) fp32 dense adagrad, 16 batches of
+   8192, 2 epochs, shuffled, 8 steps a chunk, on the graph route, eagerly
+   (``jit=False``, twice) and one step at a time, and graph and eager with
+   deterministic algorithms on: those two bit for bit (losses, parameters
+   and the optimizer's state), the others within SPE_LOSS_RTOL and
+   PARAM_ATOL (F.embedding's backward sums the genres table's repeated rows
+   in an order that varies from call to call; the script prints two calls'
+   differing elements); then two fits on the default device
+   (``device=None``) that must reuse the pack and the graph and call no
+   wrapper, timed (ms a step) and traced (busy share, and the route's
+   kernels counted in the trace: K1-K3 once a step and K9 once a chunk);
+   (b) the JAX package's pipeline headline (``mixed_bfloat16``, bf16 slots,
+   no metrics, PIPE_BATCHES = 128 batches an epoch and a chunk, unshuffled;
+   16 batches of rows generated, repeated): graph and eager bit for bit
+   over 3 epochs with deterministic algorithms on, then the same model's
+   chunk captured again without them, a warm fit, a measured fit of 3
+   epochs (ms a step, examples/s), a traced epoch (busy share, the bf16
+   kernels counted), the capture's seconds and its memory pool's bytes;
+   (c) the top-k metrics every 3rd step, 4 steps a chunk, deterministic
+   algorithms on: graph and eager histories bit for bit; (d) the wrappers'
+   counts: the graph route's eager chunk and captured chunk (replays call
+   no wrapper and are counted in the traces); (e) Adam, capturable on the
+   card: against torch's default form on the same gradients (ADAM_REL,
+   ADAM_ATOL_P), card against a CPU copy one step at a time (PARAM_ATOL but
+   for rounding-noise gradients, ADAM_FLIP_ATOL), graph and eager bit for
+   bit in fp32 and under mixed_bfloat16 with bf16 slots;
 9. checks row-sparse training (``embedding_optimizer="adagrad"``) with fp32
    and with bf16 tables: three steps at batch 1024 on the card and on a CPU
    copy, both rounding with the CPU generator's noise;
@@ -102,7 +133,8 @@
    userId table; also after a read-only flush, which leaves the L2's lines
    clean, and warm);
 12. runs the row gather through its entry point (8192 ids into the 4M x 128
-   fp32 and 16M x 128 bf16 tables, four calls each) and times it;
+   fp32 and 16M x 128 bf16 tables, four calls each) and times it there and
+   on the training route's pack, L2 warm and flushed;
 13. evaluates, the README's flow at full width: ``compile(metrics=None,
    train_metrics_steps=4)`` and ``fit`` for 8 steps of 8192 rows (K1-K3
    must launch on exactly the 6 steps without metrics), in-batch
@@ -118,7 +150,11 @@
    bf16 forms, or HBM3 bytes, named in ``bound_peak``; K1, K5 and K6 also with
    the L2 flushed, ``ms_cold``; K5 also its profiler device time with the
    catalog in L2, ``ms_warm``, since back to back its calls are timed at the
-   host's rate), then the card line and ``{"ok": true,
+   host's rate; K9 profiler device time warm and flushed, its launches those
+   its wrapper issued on the graph route's run, the pack's times under
+   ``pack``; K1-K3 and K9 also ``launches_replayed_traced``, their kernels
+   in the traces of the graph route's replays), then the card line
+   and ``{"ok": true,
    ...}`` last. Host-clock times are [median, min, max].
 
 Tolerances. Top-k scores: 2e-6 of the largest |score| (K6 sums 128
@@ -149,6 +185,13 @@ places, and before they do agree within 2e-5 of the largest).
 Row gather: bit for bit (a copy). int8: the binned route's ids and scores
 bit-equal card vs CPU (integer dots); K6 int8 within the top-k tolerance.
 Evaluation, card vs CPU: loss within 1e-5, metrics within METRIC_ATOL.
+k steps a chunk: the CUDA graph's replays against the same chunk run eagerly
+bit for bit with deterministic algorithms on (the same kernels in the same
+order; losses, parameters, the optimizer's state); with them off, and
+against one step at a time, losses within
+SPE_LOSS_RTOL (a plain mean of the rows' losses against a weighted one;
+F.embedding's backward, whose sums over a table's repeated rows vary from
+call to call) and parameters within PARAM_ATOL.
 
 Any failed check raises, and the script exits non-zero. It imports nothing of
 JAX or of the JAX package.
@@ -156,11 +199,14 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -1185,34 +1231,110 @@ def train_profile(dev, model, data, steps: int = 4):
     """A torch.profiler trace of ``steps`` train steps: the device's busy
     share of the window (kernels and copies over host wall time) and the
     device time per step of the largest kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from models_tpu_torch.core.types import to_device_batch, to_device_targets
     from models_tpu_torch.data import Loader
 
     loss_fns = model._resolve_task_losses()
     batches = list(Loader(data, TRAIN_BATCH, drop_last=True))[:steps]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+
+    def run():
         for x, y in batches:
             model.train_step(to_device_batch(x, dev), to_device_targets(y, dev), loss_fns)
+
+    # eager steps: the trace counts what the wrappers counted
+    out = profile_launches(run, steps, None, "eager train steps")
+    require(out["device_busy_share"] > 0, "the profiler saw no device time in the train steps")
+    return out
+
+
+# the launch counters of the training route's wrappers, which a trace counts
+# by kernel name (traced_wrapper)
+TRACED_WRAPPERS = ("row_gather", "lse_forward", "grad_query", "grad_neg", "lse_forward_bf16",
+                   "grad_query_bf16", "grad_neg_bf16")
+KERNEL_NAME = re.compile(r"^void \(anonymous namespace\)::(\w+)<([^>]*)>\(")
+
+
+def traced_wrapper(name: str):
+    """The wrapper (its counter's name in TRACED_WRAPPERS) whose call launched
+    the kernel of a trace's demangled ``name``, or None: K9's ``gather``; K1's
+    ``lse_partial`` (``_bf16`` on bf16 rows) and ``lse_wg`` (bf16); K2's and
+    K3's ``grad_rows`` and ``grad_wg`` (``OWN_Q`` true: K2). One wrapper call
+    launches one of these (and at most one merge kernel beside it)."""
+    m = KERNEL_NAME.match(name)
+    if m is None:
+        return None
+    kernel, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
+    bf16 = "" if args[-1] == "float" and kernel in ("lse_partial", "grad_rows") else "_bf16"
+    if kernel == "gather":
+        return "row_gather"
+    if kernel in ("lse_partial", "lse_wg"):
+        return "lse_forward" + bf16
+    if kernel in ("grad_rows", "grad_wg"):
+        return ("grad_query" if args[1] == "true" else "grad_neg") + bf16
+    return None
+
+
+def profile_busy(run, steps: int) -> dict:
+    """A torch.profiler trace of ``run()`` (``steps`` train steps, ending in a
+    synchronise): the device's busy share of the window (kernels and copies
+    over host wall time), its device time a step, the largest kernels', the
+    training route's kernels launched in it by wrapper (``launches_traced``:
+    a graph replay's kernels too, which no wrapper counts) and the launches
+    the wrappers counted in it (``launches_issued``). As in device_ms, the
+    trace runs ``run()`` once as a warm-up step before the traced one: a
+    trace that starts with the traced calls may miss their first events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    events = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        before = route_launches()
+        t = time.perf_counter()
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    by_name = {}
-    for e in prof.events():
+        issued = {n: v - before[n] for n, v in route_launches().items()}
+        prof.step()
+    by_name, traced = {}, dict.fromkeys(TRACED_WRAPPERS, 0)
+    for e in events:
         # kernels and copies; an annotation range on the device timeline
         # (the optimizer's "Optimizer.step#...") would count its kernels twice
         if e.device_type == DeviceType.CUDA and not (
                 getattr(e, "is_user_annotation", False) or e.name.startswith("Optimizer.")):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            wrapper = traced_wrapper(e.name)
+            if wrapper is not None:
+                traced[wrapper] += 1
     busy = sum(by_name.values())
-    require(busy > 0, "the profiler saw no device time in the train steps")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"device_busy_share": busy / wall_us,
             "device_ms_per_step": busy / steps / 1e3,
-            "top_kernels_ms_per_step": [[n[:90], v / steps / 1e3] for n, v in top]}
+            "top_kernels_ms_per_step": [[n[:90], v / steps / 1e3] for n, v in top],
+            "launches_traced": traced, "launches_issued": issued}
+
+
+def profile_launches(run, steps: int, want, what: str, attempts: int = 3) -> dict:
+    """profile_busy(run, steps) whose trace shows the training route's
+    kernels launched as ``want`` says, by wrapper (None: as the wrappers
+    counted them in the traced window). The profiler loses a device event
+    now and then (device_ms), so a trace that does not is taken again, up to
+    ``attempts`` traces; a kernel launched too often or too rarely fails
+    every one."""
+    for attempt in range(attempts):
+        out = profile_busy(run, steps)
+        expect = out["launches_issued"] if want is None else {
+            n: want.get(n, 0) for n in TRACED_WRAPPERS}
+        if out["launches_traced"] == expect:
+            return out
+        print(f"  {what}: trace {attempt + 1} shows launches {out['launches_traced']}, want "
+              f"{expect}; taken again", flush=True)
+    raise AssertionError(f"{what}: {attempts} traces in a row show other launches than {expect}")
 
 
 def measure_flash_ce(dev, model, data, launches, errs, dtype=torch.float32):
@@ -1711,8 +1833,10 @@ def measure_row_scatter(dev, gen, launches, errs):
 # ---------------------------------------------------------------------------
 
 
-def gather_case(name, table, ids, errs):
-    """K9 against its plain version: equal bit for bit."""
+def gather_case(name, table, ids, errs, plan=None):
+    """K9 against its plain version: equal bit for bit. Prints the kernel's
+    plan (piece bytes, lanes a row, rows a warp) and, with ``plan``,
+    requires it."""
     from models_tpu_torch.ops import embedding_lookup as E
 
     got, want = E.row_gather(table, ids), E.row_gather_plain(table, ids)
@@ -1723,15 +1847,27 @@ def gather_case(name, table, ids, errs):
     errs["row_gather"] = max(errs["row_gather"], err)
     require(torch.equal(raw_bits(got), raw_bits(want)),
             f"row_gather {name}: differs from the plain version (max|d| {err})")
-    print(f"  row_gather {name}: bit-equal", flush=True)
+    got_plan = E.gather_plan(table, got)
+    require(plan is None or got_plan == plan, f"row_gather {name}: plan {got_plan}, want {plan}")
+    print(f"  row_gather {name}: bit-equal, {got_plan}", flush=True)
+
+
+# the device-resident training route's pack: movielens-25m's columns as 26
+# int32 a row (movieId, userId, genres' 10 values and 10 mask, two
+# continuous columns, two targets), 2**20 rows, one chunk of 16 batches
+PACK_ROWS, PACK_COLS, PACK_IDS = 1 << 20, 26, 16 * 8192
+PACK_PLAN = {"piece_bytes": 8, "lanes": 16, "rows_per_warp": 16}
 
 
 def phase_gather(dev, gen, errs):
     """K9 against its plain version, bit for bit: fp32, bf16 and fp16 tables
     of R % 8 != 0 rows, duplicates, ids at both ends, B = 1 and B not a
-    multiple of 256, ids out of range (clamped), D = 7 (the scalar path), a
-    table one element off 16-byte alignment; and at the bench's op-level
-    sizes, 8192 ids into 4M x 128 fp32 and 16M x 128 bf16 tables."""
+    multiple of a warp's rows, ids out of range (clamped), D = 7 (4- and
+    2-byte pieces), D = 256 (two passes of 32 lanes), a table one element off
+    16-byte alignment; the training route's pack (int32, 26 columns: 13
+    pieces of 8 bytes, 16 lanes a row) and a view of it 8 bytes off 16-byte
+    alignment; and at the bench's op-level sizes, 8192 ids into 4M x 128
+    fp32 and 16M x 128 bf16 tables."""
     errs["row_gather"] = 0.0
     R = 1003
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -1745,6 +1881,20 @@ def phase_gather(dev, gen, errs):
         gather_case(f"R={R} D=7 {dtype}", narrow, ids, errs)
         buf = torch.randn(R * 128 + 1, device=dev, generator=gen).to(dtype)
         gather_case(f"R={R} D=128 misaligned {dtype}", buf[1:].view(R, 128), ids, errs)
+    wide = torch.randn(R, 256, device=dev, generator=gen)
+    gather_case(f"R={R} D=256 fp32", wide, ids, errs)
+    buf = torch.randint(-2**31, 2**31 - 1, (PACK_ROWS * PACK_COLS + 2,), device=dev,
+                        generator=gen, dtype=torch.int32)
+    ids = torch.randint(0, PACK_ROWS, (PACK_IDS,), device=dev, generator=gen, dtype=torch.int32)
+    ids[:4] = torch.tensor([0, PACK_ROWS - 1, -1, PACK_ROWS], dtype=torch.int32)
+    gather_case(f"pack R={PACK_ROWS} D={PACK_COLS} B={PACK_IDS} int32",
+                buf[:PACK_ROWS * PACK_COLS].view(PACK_ROWS, PACK_COLS), ids, errs, PACK_PLAN)
+    gather_case(f"pack R={PACK_ROWS} D={PACK_COLS} 8 bytes off 16 int32",
+                buf[2:].view(PACK_ROWS, PACK_COLS), ids, errs, PACK_PLAN)
+    gather_case(f"R={R} D=128 8 bytes off 16 fp32", buf[2:2 + R * 128].view(torch.float32)
+                .view(R, 128), ids[:1000].remainder(R), errs,
+                {"piece_bytes": 8, "lanes": 32, "rows_per_warp": 8})
+    del buf
     for R, dtype in ((OP_ROWS_FP32, torch.float32), (OP_ROWS_BF16, torch.bfloat16)):
         table = torch.empty(R, 128, device=dev, dtype=dtype).normal_(generator=gen)
         ids = torch.randint(0, R, (8192,), device=dev, generator=gen, dtype=torch.int32)
@@ -2052,35 +2202,49 @@ def topk_1m_times(dev, gen, errs):
 
 def measure_gather(dev, gen, launches, errs):
     """K9 on the bench's op-level tables (8192 uniform ids into 4M x 128 fp32
-    and 16M x 128 bf16): profiler device time per call with the L2 flushed,
-    as the bound assumes, beside the plain version and ``index_select``.
-    Bound: 2*n*D*itemsize + 4*n bytes. Returns the fp32 row and the bf16
-    times."""
+    and 16M x 128 bf16) and on the training route's pack (one chunk of
+    131,072 ids into 2**20 rows of 26 int32): profiler device time per call
+    with the L2 warm (``ms``) and flushed dirty (``ms_cold``, as the bound
+    assumes), the plain version and ``index_select`` flushed (and the latter
+    warm). Bound: 2*n*row_bytes + 4*n bytes. Returns the K9 row: the 4M fp32
+    table's numbers, the pack's under ``pack``; ``launches``: the training
+    route's."""
     from models_tpu_torch.ops import embedding_lookup as E
 
-    B, D = 8192, 128
-    rows, extra = [], {}
-    for R, dtype in ((OP_ROWS_FP32, torch.float32), (OP_ROWS_BF16, torch.bfloat16)):
-        table = torch.empty(R, D, device=dev, dtype=dtype).normal_(generator=gen)
+    row, extra = None, {}
+    for tag, R, D, dtype, B in (("R4000000_fp32", OP_ROWS_FP32, 128, torch.float32, 8192),
+                                ("R16000000_bf16", OP_ROWS_BF16, 128, torch.bfloat16, 8192),
+                                ("pack", PACK_ROWS, PACK_COLS, torch.int32, PACK_IDS)):
+        if dtype == torch.int32:
+            table = torch.randint(-2**31, 2**31 - 1, (R, D), device=dev, generator=gen,
+                                  dtype=dtype)
+        else:
+            table = torch.empty(R, D, device=dev, dtype=dtype).normal_(generator=gen)
         ids = torch.randint(0, R, (B,), device=dev, generator=gen, dtype=torch.int32)
         ids_l = ids.long()
-        item = table.element_size()
-        ms = device_ms(lambda: E.row_gather(table, ids), cold=True)
-        plain = device_ms(lambda: E.row_gather_plain(table, ids), cold=True)
-        lib = device_ms(lambda: torch.index_select(table, 0, ids_l), cold=True)
-        row = _row("row_gather", "models_tpu_torch/csrc/row_gather.cu",
-                   "models_tpu/ops/embedding_lookup.py:38", launches, errs["row_gather"], ms,
-                   plain, lib, 0, 2 * B * D * item + 4 * B)
-        extra[f"row_gather_R{R}_{'fp32' if item == 4 else 'bf16'}"] = {
-            **{k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-            "l2_warm_ms": device_ms(lambda: E.row_gather(table, ids)),
-            "back_to_back_ms": cuda_ms(lambda: E.row_gather(table, ids), reps=50)}
-        if dtype == torch.float32:
-            rows.append(row)
+        nbytes = 2 * B * D * table.element_size() + 4 * B
+        times = {"ms": device_ms(lambda: E.row_gather(table, ids)),
+                 "ms_cold": device_ms(lambda: E.row_gather(table, ids), cold=True),
+                 "plain_ms": device_ms(lambda: E.row_gather_plain(table, ids), cold=True),
+                 "library_ms": device_ms(lambda: torch.index_select(table, 0, ids_l), cold=True),
+                 "library_ms_warm": device_ms(lambda: torch.index_select(table, 0, ids_l)),
+                 "back_to_back_ms": cuda_ms(lambda: E.row_gather(table, ids), reps=50),
+                 "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+        times["share_of_bound_cold"] = times["bound_ms"] / times["ms_cold"]
+        extra[f"row_gather_{tag}"] = times
+        if tag == "R4000000_fp32":
+            row = _row("row_gather", "models_tpu_torch/csrc/row_gather.cu",
+                       "models_tpu/ops/embedding_lookup.py:38", launches, errs["row_gather"],
+                       times["ms"], times["plain_ms"], times["library_ms"], 0, nbytes,
+                       ms_cold=times["ms_cold"])
+            row["library_ms_warm"] = times["library_ms_warm"]
+        elif tag == "pack":
+            row["pack"] = {k: times[k] for k in ("ms", "ms_cold", "plain_ms", "library_ms",
+                                                 "library_ms_warm", "bound_ms")}
         del table
     torch.cuda.empty_cache()
     print("row gather " + json.dumps(extra), flush=True)
-    return rows
+    return row
 
 
 def measure_scatter_write_fp32(dev, gen, errs, launches):
@@ -2433,6 +2597,430 @@ def phase_mixed_train(dev, model, catalog, queries):
                             "fit_examples_per_sec": hist.history["examples_per_sec"]}
 
 
+# ---------------------------------------------------------------------------
+# k steps a chunk (compile(steps_per_execution=, jit=)): device-resident
+# columns, the chunk's rows gathered by K9, the chunk one CUDA graph replay
+# ---------------------------------------------------------------------------
+
+PIPE_BATCHES = 128  # the JAX package's pipeline headline (bench.py:37, :464-522)
+# the chunked route against one step at a time: the packed batches carry no
+# __row_valid__, so the loss is a plain mean of the rows' losses where the
+# streaming route takes a weighted one (weights 1): a few ulps apart. Also
+# the graph route against the eager one: F.embedding's backward sums the
+# genres table's repeated rows in an order that varies from call to call
+SPE_LOSS_RTOL = 1e-6
+# Adam on the card is capturable: its step count lives on the device and its
+# bias corrections are taken there in float32, with beta2 = 0.999 rounded to
+# float32 (1.3e-8 off: 1.3e-5 of 1 - beta2, as optax takes them), where
+# torch's default form takes them in Python floats. On the same gradients
+# the two forms' updates differ by up to 6.4e-6 of the update (half of that
+# error, under the square root), |u_t| <= lr * sqrt(t) at step t, and each
+# step may round the parameter one ulp apart: after n steps an element is
+# held to ADAM_MOVE * ADAM_REL + n * ADAM_ATOL_P * |p|
+ADAM_LR = 1e-3
+ADAM_STEPS = 3
+ADAM_REL = 2.0 ** -16
+ADAM_ATOL_P = 2.0 ** -23
+ADAM_MOVE = ADAM_LR * sum((t + 1) ** 0.5 for t in range(ADAM_STEPS))  # sum_t lr * sqrt(t)
+# Adam card vs CPU: an element whose gradient is rounding noise (a bias whose
+# true gradient is 0) takes a step of up to lr * sqrt(t) of either sign on
+# either side; such elements, at most FLIP_SHARE_MAX of them, are held to
+# twice the sum of those steps, the rest to PARAM_ATOL
+ADAM_FLIP_ATOL = 2 * ADAM_MOVE
+
+
+def spe_data(batches: int):
+    """movielens-25m rows for ``batches`` batches of 8192: 16 batches
+    generated from a seed (the generator builds list columns row by row,
+    some 27 s for 2**20 rows), repeated to the count where it is larger."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.data.dataset import take_rows
+
+    base = mt.generate_data("movielens-25m", num_rows=16 * TRAIN_BATCH, seed=SEED + 5)
+    if batches <= 16:
+        return base.take(batches * TRAIN_BATCH)
+    idx = np.tile(np.arange(base.num_rows), -(-batches // 16))[:batches * TRAIN_BATCH]
+    return base._from_cols(take_rows(base.to_numpy_dict(), idx))
+
+
+def route_launches() -> dict:
+    from models_tpu_torch.ops import embedding_lookup as E
+
+    return {**flash_launches(), **flash_launches_bf16(), "row_gather": E.row_gather.launches}
+
+
+def zero_route_launches() -> None:
+    from models_tpu_torch.ops import embedding_lookup as E
+
+    zero_launches()
+    E.row_gather.launches = 0
+
+
+def spe_fit(dev, catalog, data, epochs, shuffle=True, optimizer="adagrad", learning_rate=0.05,
+            **compile_kw):
+    """A fresh seeded model fit with ``compile(**compile_kw)``: (history,
+    model, the launches its wrappers counted, host seconds)."""
+    model = mixed_model(dev, catalog, SEED)
+    model.compile(optimizer=optimizer, learning_rate=learning_rate, **compile_kw)
+    zero_route_launches()
+    t = time.perf_counter()
+    hist = model.fit(data, epochs=epochs, batch_size=TRAIN_BATCH, shuffle=shuffle, device=dev)
+    torch.cuda.synchronize()
+    return hist.history, model, route_launches(), time.perf_counter() - t
+
+
+def same_params(a, b) -> bool:
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    return all(torch.equal(pa[n], pb[n]) for n in pa)
+
+
+def optimizer_tensors(model) -> list:
+    """The dense optimizer's state tensors, in the order of its parameters
+    (Adam's ``step`` among them); with bf16 slots, the flat tensor at rest."""
+    opt = model._optimizer
+    inner = getattr(opt, "optimizer", opt)
+    ts = [v for st in inner.state.values() for v in st.values() if torch.is_tensor(v)]
+    rest = getattr(opt, "_rest", None)
+    return ts + ([rest] if rest is not None else [])
+
+
+def same_state(a, b) -> bool:
+    sa, sb = optimizer_tensors(a), optimizer_tensors(b)
+    return len(sa) == len(sb) > 0 and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(sa, sb))
+
+
+def param_spread(a, b) -> list:
+    """[max |a - b| over every parameter, the elements that differ]."""
+    pb = dict(b.named_parameters())
+    with torch.no_grad():
+        diffs = [(p - pb[n]).abs() for n, p in a.named_parameters()]
+    return [max(float(d.max()) for d in diffs), int(sum(int((d != 0).sum()) for d in diffs))]
+
+
+@contextlib.contextmanager
+def deterministic(on: bool):
+    """``torch.use_deterministic_algorithms`` on inside the block, where
+    ``on`` (an op with no deterministic form only warns; the warnings are
+    dropped)."""
+    if not on:
+        yield
+        return
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def graph_vs_eager(dev, catalog, data, epochs, what, shuffle=True, **kw):
+    """One configuration fit on the graph route and eagerly (``jit=False``)
+    from the same seed, deterministic algorithms on: losses, every parameter
+    and the optimizer's state bit for bit, one graph captured. Returns the
+    graph run's (history, model, launches) and the eager run's launches."""
+    with deterministic(True):
+        hg, mg, lg, _ = spe_fit(dev, catalog, data, epochs, shuffle, **kw)
+        he, me, le, _ = spe_fit(dev, catalog, data, epochs, shuffle, jit=False, **kw)
+    require(len(mg._chunk_graphs) == 1 and len(me._chunk_graphs) == 0,
+            f"{what}: {len(mg._chunk_graphs)} graphs captured on the graph route")
+    require(hg["loss"] == he["loss"], f"{what}: losses {hg['loss']} (graph) / {he['loss']}")
+    require(same_params(mg, me), f"{what}: graph and eager parameters differ: "
+            f"{param_spread(mg, me)}")
+    require(same_state(mg, me), f"{what}: graph and eager optimizer states differ")
+    print(f"  {what}: graph and eager bit-equal over {epochs} epochs (losses {hg['loss']}, "
+          f"parameters, {len(optimizer_tensors(mg))} optimizer state tensors)", flush=True)
+    return hg, mg, lg, le
+
+
+def embedding_backward_repeat(dev, data) -> list:
+    """F.embedding's backward twice on the first batch's genres ids into the
+    genres table's 24 rows: [elements of the two gradients that differ, of
+    all]."""
+    from models_tpu_torch.data import Loader
+
+    x, _ = next(iter(Loader(data, TRAIN_BATCH, drop_last=True)))
+    ids = torch.as_tensor(x["genres"].values, device=dev).long()
+    table = torch.randn(24, 128, device=dev, requires_grad=True)
+    up = torch.randn(*ids.shape, 128, device=dev)
+    grads = []
+    for _ in range(2):
+        table.grad = None
+        torch.nn.functional.embedding(ids, table).backward(up)
+        grads.append(table.grad.clone())
+    return [int((grads[0] != grads[1]).sum()), grads[0].numel()]
+
+
+def graph_stats(model) -> list:
+    return [{"k": key[0], "metrics": key[1], **v} for key, v in model._chunk_graphs.stats.items()]
+
+
+def replayed_fit(model, data, epochs, steps, what):
+    """A fit of a model whose chunks are all captured, on the default device
+    (``device=None``): host seconds, ms a step (host clock, the fit's wall
+    over its steps), the history. Every chunk must replay: the same pack and
+    the same graphs as before, and no wrapper launches a kernel."""
+    ds_pack = getattr(data, "_device_train_pack", None)
+    graphs = dict(model._chunk_graphs._entries)
+    zero_route_launches()
+    t = time.perf_counter()
+    hist = model.fit(data, epochs=epochs, batch_size=TRAIN_BATCH, shuffle=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    ln = route_launches()
+    require(ds_pack is not None and data._device_train_pack is ds_pack,
+            f"{what}: fit(device=None) packed the dataset again")
+    require(len(model._chunk_graphs) == len(graphs) and all(
+        model._chunk_graphs._entries.get(key) is e for key, e in graphs.items()),
+        f"{what}: fit(device=None) captured its chunks again")
+    require(not any(ln.values()), f"{what}: eager launches on the replayed route: {ln}")
+    return hist.history, wall, wall / steps * 1e3
+
+
+def traced_replays(model, data, steps, want, what) -> dict:
+    """The device's busy share of a traced fit of one epoch of replays and the
+    launches its trace shows (profile_launches): each of ``want``'s kernels
+    that many times, the route's others never, and no wrapper called."""
+    out = profile_launches(
+        lambda: model.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False), steps, want,
+        what)
+    require(not any(out["launches_issued"].values()),
+            f"{what}: eager launches on the replayed route: {out['launches_issued']}")
+    return out
+
+
+def adam_capturable_cost(dev, model) -> dict:
+    """The card's Adam (``make_optimizer``: capturable) against torch's
+    default Adam on copies of ``model``'s parameters, fed the same seeded
+    gradients for ADAM_STEPS steps (spread over eight decades, a tenth of
+    them exactly 0): every element within ADAM_MOVE * ADAM_REL +
+    ADAM_STEPS * ADAM_ATOL_P * |p|. Returns the largest |difference| and
+    the elements that differ."""
+    from models_tpu_torch.blocks.optimizer import make_optimizer
+
+    g = torch.Generator(dev).manual_seed(SEED + 7)
+    base = [p.detach().clone() for p in model.parameters()]
+    pa, pb = [p.clone() for p in base], [p.clone() for p in base]
+    oa = make_optimizer("adam", pa, ADAM_LR)
+    ob = torch.optim.Adam(pb, lr=ADAM_LR, eps=1e-8)
+    require(oa.defaults["capturable"] and not ob.defaults["capturable"],
+            "make_optimizer's Adam on the card is not capturable")
+    for _ in range(ADAM_STEPS):
+        for a, b in zip(pa, pb):
+            scale = torch.empty(a.shape, device=dev).uniform_(-23.0, -4.6, generator=g).exp_()
+            grad = torch.randn(a.shape, device=dev, generator=g) * scale
+            grad[torch.rand(a.shape, device=dev, generator=g) < 0.1] = 0.0
+            a.grad, b.grad = grad, grad.clone()
+        oa.step()
+        ob.step()
+    worst, differ = 0.0, 0
+    for a, b in zip(pa, pb):
+        d = (a - b).abs()
+        tol = (ADAM_MOVE * ADAM_REL + ADAM_STEPS * ADAM_ATOL_P * torch.maximum(a.abs(), b.abs()))
+        require(bool((d <= tol).all()), f"Adam capturable vs not: |d| {float(d.max()):.3g} past "
+                f"the tolerance")
+        worst, differ = max(worst, float(d.max())), differ + int((d != 0).sum())
+    return {"max_abs": worst, "elements_differing": differ,
+            "elements": sum(p.numel() for p in pa)}
+
+
+def adam_card_vs_cpu(dev, catalog) -> dict:
+    """ADAM_STEPS Adam steps, one at a time, at batch 1024 on the card
+    (capturable) and on a CPU copy (not): losses within FCE_TOL, parameters
+    within PARAM_ATOL but for elements whose gradient is rounding noise,
+    held to ADAM_FLIP_ATOL (at most FLIP_SHARE_MAX of them)."""
+    import copy
+
+    import models_tpu_torch as mt
+
+    small = mt.generate_data("movielens-25m", num_rows=1024, seed=SEED + 5)
+    on_card = mixed_model(dev, catalog, SEED)
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    hist = {}
+    for tag, m, d in (("card", on_card, dev), ("cpu", on_cpu, "cpu")):
+        m.compile(optimizer="adam", learning_rate=ADAM_LR, metrics=[])
+        hist[tag] = m.fit(small, epochs=ADAM_STEPS, batch_size=1024, shuffle=False,
+                          device=d).history["loss"]
+    np.testing.assert_allclose(hist["card"], hist["cpu"], rtol=FCE_TOL)
+    require(on_card._optimizer.defaults["capturable"]
+            and not on_cpu._optimizer.defaults["capturable"], "Adam's forms on card and CPU")
+    cpu = dict(on_cpu.named_parameters())
+    worst, flips, total, largest = compare_rounded(
+        "Adam card vs CPU", [(p, cpu[n]) for n, p in on_card.named_parameters()], PARAM_ATOL,
+        (ADAM_FLIP_ATOL, 0.0))
+    return {"losses_card": hist["card"], "losses_cpu": hist["cpu"], "params_max_abs": worst,
+            "flips": flips, "of": total, "largest_flip": largest}
+
+
+def phase_steps_per_execution(dev, catalog, card):
+    """``compile(steps_per_execution=, jit=)`` at full width.
+
+    (a) fp32 dense adagrad, 16 batches, 2 epochs, shuffled, 8 steps a chunk:
+    graph, eager (twice) and one step at a time, and graph and eager again
+    with deterministic algorithms on; those two bit for bit (losses, every
+    parameter, the optimizer's state), the others within SPE_LOSS_RTOL and
+    PARAM_ATOL (the eager route does not repeat itself bit for bit:
+    F.embedding's backward on the genres table, printed). Then two fits of
+    the graph model on the default device (``device=None``), every chunk
+    replayed: the first timed, the second traced.
+    (b) the JAX package's pipeline headline (mixed_bfloat16, bf16 slots, no
+    metrics, PIPE_BATCHES batches an epoch and a chunk, unshuffled): graph
+    and eager bit for bit over 3 epochs (the first chunk eager, the second
+    captured, the third replayed), deterministic algorithms on; then the
+    same graph model, its chunk captured again with them off (as users run
+    it): a warm fit, a measured one, its ms a step, the device's busy share
+    of a traced replay, the capture's seconds and its pool's bytes.
+    (c) metrics inside a chunk (train_metrics_steps = 3, 4 steps a chunk,
+    the default top-k metrics), deterministic algorithms on: graph and eager
+    histories bit for bit.
+    (d) the launch counts. A wrapper counts what it issues: the eager
+    chunk's launches and those a capture records, so on the graph route K9
+    twice and K1-K3 2 k times (eager, then captured), eagerly once a chunk
+    and once a step. Replays call no wrapper: the traces of (a) and (b)
+    count their kernels, K1-K3 once a step and K9 once a chunk.
+    (e) Adam (capturable on the card): its arithmetic against torch's default
+    form on the same gradients, the card against a CPU copy one step at a
+    time, and graph and eager bit for bit in fp32 and under mixed_bfloat16
+    with bf16 slots (which Adam makes at its first step, in the eager
+    chunk).
+
+    Returns (the launches of (a)'s graph run, the kernels' launches in the
+    traces of (a) and (b), the numbers to print)."""
+    import models_tpu_torch as mt
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    data = spe_data(16)
+    runs = {}
+    for tag, kw in (("graph", dict(steps_per_execution=8)),
+                    ("eager", dict(steps_per_execution=8, jit=False)),
+                    ("eager2", dict(steps_per_execution=8, jit=False)),
+                    ("spe1", dict(steps_per_execution=1))):
+        runs[tag] = spe_fit(dev, catalog, data, 2, metrics=[], **kw)
+    hd, md, ld, lde = graph_vs_eager(dev, catalog, data, 2, "(a) fp32 adagrad", metrics=[],
+                                     steps_per_execution=8)
+    runs["graph_det"] = (hd, md, ld, None)
+    runs["eager_det"] = (None, None, lde, None)
+    (hg, mg, lg, sg), (he, me, le, se), (h1, m1, l1, s1) = (runs[t] for t in
+                                                            ("graph", "eager", "spe1"))
+    print(f"  (a) fp32, 8 steps a chunk: graph {sg:.2f} s, eager {se:.2f} s, one step at a "
+          f"time {s1:.2f} s; losses {hg['loss']} / {he['loss']} / {h1['loss']}; launches "
+          f"{lg} / {le} / {l1}; graphs {graph_stats(mg)}", flush=True)
+    require(len(mg._chunk_graphs) == 1 and len(me._chunk_graphs) == 0,
+            f"(a): {len(mg._chunk_graphs)} graphs captured on the graph route")
+    # F.embedding's backward sums the genres table's repeated rows (81,920
+    # ids into 24 rows a batch) in an order that varies from call to call
+    # unless deterministic algorithms are on: the eager route does not repeat
+    # itself bit for bit. With them on, graph and eager are bit-equal
+    # (graph_vs_eager); with them off (the route as users run it), within
+    # the fp32 tolerances
+    spread = {f"{a}_vs_{b}": param_spread(runs[a][1], runs[b][1])
+              for a, b in (("graph", "eager"), ("eager", "eager2"))}
+    out["embedding_backward_repeat"] = embedding_backward_repeat(dev, data)
+    print(f"  (a) parameters, max |d| and elements differing: {spread}; F.embedding backward "
+          f"called twice on a batch's genres ids: {out['embedding_backward_repeat']}",
+          flush=True)
+    out["param_spread"] = spread
+    require(np.allclose(hg["loss"], he["loss"], rtol=SPE_LOSS_RTOL, atol=0)
+            and spread["graph_vs_eager"][0] <= PARAM_ATOL,
+            f"(a): graph against eager: losses {hg['loss']} / {he['loss']}, parameters {spread}")
+    require(np.allclose(hg["loss"], h1["loss"], rtol=SPE_LOSS_RTOL, atol=0),
+            f"(a): chunked losses {hg['loss']} against one step at a time {h1['loss']}")
+    dp = param_spread(mg, m1)[0]
+    require(dp <= PARAM_ATOL, f"(a): parameters {dp} from one step at a time")
+    k, steps = 8, 2 * 16
+    for tag, (_, _, ln, _) in runs.items():
+        # (K9, each of K1-K3) the wrappers issue: the graph route's eager
+        # chunk and captured chunk, eagerly every chunk and step
+        want = {"graph": (2, 2 * k), "graph_det": (2, 2 * k), "spe1": (0, steps)}.get(
+            tag, (steps // k, steps))
+        require(all(ln[n] == want[1] for n in ("lse_forward", "grad_query", "grad_neg"))
+                and ln["row_gather"] == want[0],
+                f"(a) {tag}: the wrappers issued {ln} in {steps} steps, want K9 {want[0]} and "
+                f"K1-K3 {want[1]} times")
+    out["dense_params_max_abs_from_spe1"] = dp
+    del md, runs
+    hist, wall, ms = replayed_fit(mg, data, 2, steps, "(a)")
+    out["dense_graph_ms_per_step"] = ms
+    out["dense_graph_examples_per_sec"] = hist["examples_per_sec"]
+    dense = traced_replays(mg, data, 16, {"row_gather": 2, "lse_forward": 16,
+                                          "grad_query": 16, "grad_neg": 16}, "(a)")
+    out.update({f"dense_graph_{k}": v for k, v in dense.items()})
+    launches = lg
+    del mg, me, m1
+
+    mt.set_dtype_policy("mixed_bfloat16")
+    try:
+        pipe = spe_data(PIPE_BATCHES)
+        pipe_kw = dict(metrics=[], optimizer_state_dtype="bfloat16",
+                       steps_per_execution=PIPE_BATCHES)
+        _, model, _, _ = graph_vs_eager(dev, catalog, pipe, 3, "(b) mixed, bf16 slots, "
+                                        f"{PIPE_BATCHES} steps a chunk", shuffle=False, **pipe_kw)
+        # captured with deterministic algorithms on: the timed chunk is
+        # captured again without them, as users run it
+        model._chunk_graphs.clear()
+        t = time.perf_counter()
+        warm = model.fit(pipe, epochs=2, batch_size=TRAIN_BATCH, shuffle=False, device=dev)
+        torch.cuda.synchronize()
+        out["pipe_warm_fit_s"] = time.perf_counter() - t
+        out["pipe_warm_examples_per_sec"] = warm.history["examples_per_sec"]
+        out["pipe_graphs"] = graph_stats(model)
+        require(len(model._chunk_graphs) == 1, "(b): no graph captured")
+        steps = 3 * PIPE_BATCHES
+        hist, wall, ms = replayed_fit(model, pipe, 3, steps, "(b)")
+        print(f"  (b) mixed, {PIPE_BATCHES} steps a chunk: {ms:.3f} ms a step, examples/s "
+              f"{hist['examples_per_sec']}, graphs {out['pipe_graphs']}; {card}", flush=True)
+        require(all(np.isfinite(hist["loss"])), "(b): non-finite loss")
+        out.update({"pipe_batches": PIPE_BATCHES, "pipe_rows_generated": 16 * TRAIN_BATCH,
+                    "pipe_ms_per_step": ms, "pipe_examples_per_sec": hist["examples_per_sec"],
+                    "pipe_fit_s": wall, "pipe_loss": hist["loss"]})
+        pipe_trace = traced_replays(model, pipe, PIPE_BATCHES, {
+            "row_gather": 1, "lse_forward_bf16": PIPE_BATCHES,
+            "grad_query_bf16": PIPE_BATCHES, "grad_neg_bf16": PIPE_BATCHES}, "(b)")
+        out.update({f"pipe_{k}": v for k, v in pipe_trace.items()})
+        del model, pipe
+        torch.cuda.empty_cache()
+        graph_vs_eager(dev, catalog, data, 2, "(e) Adam, mixed, bf16 slots, 8 steps a chunk",
+                       optimizer="adam", learning_rate=ADAM_LR, metrics=[],
+                       optimizer_state_dtype="bfloat16", steps_per_execution=8)
+    finally:
+        mt.set_dtype_policy("float32")
+    torch.cuda.empty_cache()
+
+    # deterministic algorithms on: the two routes run the same arithmetic, and
+    # F.embedding's backward then repeats itself (see (a))
+    data12 = data.take(12 * TRAIN_BATCH)
+    with deterministic(True):
+        hm, mm, lm, sm = spe_fit(dev, catalog, data12, 1, train_metrics_steps=3,
+                                 steps_per_execution=4)
+        hx, mx, lx, sx = spe_fit(dev, catalog, data12, 1, train_metrics_steps=3,
+                                 steps_per_execution=4, jit=False)
+    keys = sorted(k for k in hm if k != "examples_per_sec")
+    print(f"  (c) metrics every 3rd step, 4 steps a chunk: graph {sm:.2f} s, eager {sx:.2f} s; "
+          f"{ {k: hm[k] for k in keys} }; graphs {graph_stats(mm)}", flush=True)
+    require(sorted(hm) == sorted(hx) and "recall_at_10" in hm, f"(c): keys {sorted(hm)}")
+    require(all(hm[k] == hx[k] for k in keys), "(c): graph and eager histories differ")
+    require(len(mm._chunk_graphs) == 1 and lm["row_gather"] == 2 and lx["row_gather"] == 3,
+            f"(c): {len(mm._chunk_graphs)} graphs, launches {lm} / {lx}")
+    out["metrics_graphs"] = graph_stats(mm)
+    del mm, mx
+
+    graph_vs_eager(dev, catalog, data, 2, "(e) Adam, fp32, 8 steps a chunk", optimizer="adam",
+                   learning_rate=ADAM_LR, metrics=[], steps_per_execution=8)
+    probe = mixed_model(dev, catalog, SEED)
+    out["adam_capturable_vs_default"] = adam_capturable_cost(dev, probe)
+    del probe
+    out["adam_card_vs_cpu"] = adam_card_vs_cpu(dev, catalog)
+    print(f"  (e) Adam: capturable against torch's default form on the same gradients "
+          f"{out['adam_capturable_vs_default']}; card against CPU, one step at a time, "
+          f"{out['adam_card_vs_cpu']}", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    traced = {**dense["launches_traced"],
+              **{n: v for n, v in pipe_trace["launches_traced"].items() if n.endswith("_bf16")}}
+    return launches, traced, out
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -2561,6 +3149,10 @@ def main() -> int:
         mt.set_dtype_policy("float32")
     del mmodel
 
+    stamp("phase 6d: k steps a chunk (steps_per_execution), device-resident, CUDA graphs")
+    spe_launches, spe_traced, spe = phase_steps_per_execution(dev, catalog, card)
+    print("steps_per_execution " + json.dumps(spe), flush=True)
+
     stamp("phase 7: row-sparse training against the CPU")
     sparse_models = {tag: mt.TwoTowerModel(catalog.schema, query_tower=(256, 128),
                                            embedding_dim=128, table_dtype=dtype, seed=SEED,
@@ -2600,7 +3192,7 @@ def main() -> int:
     require(gather_launches == 8, f"row_gather launched {gather_launches} times, want 8")
     del tables, out
     torch.cuda.empty_cache()
-    rows += measure_gather(dev, gen, gather_launches, errs)
+    rows.append(measure_gather(dev, gen, spe_launches["row_gather"], errs))
 
     stamp("phase 11: evaluation (fit with metrics, in-batch and corpus evaluate)")
     emodel, edata, _, eval_launches = phase_evaluate(dev, catalog)
@@ -2609,6 +3201,9 @@ def main() -> int:
     etimes = evaluate_times(dev, emodel, edata, catalog)
     print("evaluation " + json.dumps(etimes), flush=True)
     rows += int8_rows
+    for row in rows:  # the graph route's replays, counted in their traces
+        if row["name"] in spe_traced:
+            row["launches_replayed_traced"] = spe_traced[row["name"]]
     stamp("done")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

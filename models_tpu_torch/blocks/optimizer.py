@@ -5,7 +5,13 @@ The dense optimizers: ``adagrad`` follows optax's formula (``scale_by_rss``):
 the accumulator starts at 0.1, ``acc += g * g`` and
 ``update = -lr * g * rsqrt(acc + 1e-7)``. ``torch.optim.Adagrad`` differs: its
 accumulator starts at 0 and its eps sits outside the square root. ``sgd`` and
-``adam`` (eps 1e-8) are torch's, whose formulas are optax's. The other names
+``adam`` (eps 1e-8) are torch's, whose formulas are optax's; on the card
+Adam is ``capturable`` (its step count on the device, its bias corrections
+taken there in float32, so that a training chunk can be captured as a CUDA
+graph), on the CPU not (the bias corrections in Python floats). beta2 = 0.999
+rounds to float32 1.3e-8 off, 1.3e-5 of ``1 - beta2`` (optax rounds it so
+too): the card's updates differ from the CPU's by up to 6.4e-6 of the
+update (``chip_smoke.py`` holds them to 2**-16 of it). The other names
 are not ported yet (ROADMAP.md queue 1). :func:`low_precision_optimizer_state`
 (``compile(optimizer_state_dtype=...)``) keeps a dense optimizer's slots in
 bf16 at rest.
@@ -168,7 +174,8 @@ def make_optimizer(name: str, params: Iterable[torch.Tensor],
         return Adagrad(params, lr)
     if name == "sgd":
         return torch.optim.SGD(params, lr=lr)
-    return torch.optim.Adam(params, lr=lr, eps=1e-8)
+    return torch.optim.Adam(params, lr=lr, eps=1e-8,
+                            capturable=any(p.device.type == "cuda" for p in params))
 
 
 # ---------------------------------------------------------------------------

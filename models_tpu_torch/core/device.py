@@ -11,12 +11,17 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means ``"cuda"``. Raises when CUDA is asked for and no card is
-    present, so that a GPU-less host never serves on the CPU by accident."""
+    present, so that a GPU-less host never serves on the CPU by accident. A
+    card named without an index is the current one, returned with its index
+    (``cuda:0``), so that it compares equal to the device of the tensors
+    made on it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

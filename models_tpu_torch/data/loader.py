@@ -83,6 +83,32 @@ class Loader:
             targets = next(iter(targets.values()))
         return feats, (targets if len(targets) else None)
 
+    def dense_columns(self):
+        """The whole dataset's assembled columns for the device-resident
+        training route: ``(features, targets, n_rows)``, unshuffled, list
+        columns padded to (n, L) values plus mask as
+        :class:`SequenceFeature`, no ``__row_valid__`` (the route keeps only
+        full batches). The engine uploads them to the device once and
+        gathers each chunk's rows there. Raises ``ValueError`` for data it
+        cannot hold so: a dataset of no rows."""
+        cols = self.dataset.to_numpy_dict()
+        n = self.dataset.num_rows
+        if n == 0:
+            raise ValueError("dense_columns() needs a dataset with rows")
+        feats: Dict[str, Any] = {}
+        targets: Dict[str, Any] = {}
+        for name in self._feature_cols + self._target_cols:
+            dest = targets if name in self._target_cols else feats
+            if name in self._list_cols:
+                padded, mask = pad_ragged(cols[name + VALUES], cols[name + OFFSETS],
+                                          self._list_cols[name])
+                dest[name] = SequenceFeature(padded, mask)
+            else:
+                dest[name] = cols[name]
+        if len(targets) == 1:
+            targets = next(iter(targets.values()))
+        return feats, (targets if len(targets) else None), n
+
     def __iter__(self) -> Iterator[Tuple[Dict[str, Any], Optional[Any]]]:
         self._epoch += 1
         cols = self.dataset.to_numpy_dict()

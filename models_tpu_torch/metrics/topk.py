@@ -52,7 +52,7 @@ def _column_permutation(scores: torch.Tensor, targets: torch.Tensor, seed: int) 
     low = (scores.to(torch.float32).contiguous().view(torch.int32) & 0x7FFFFF).sum()
     weighted = (tgt * ranks).sum().view(torch.int32).to(torch.int64)
     salt = (_wrap_int32(low) ^ weighted) & _MASK32
-    key = _hash32(salt + _hash32(torch.tensor(seed, dtype=torch.int64, device=scores.device)))
+    key = _hash32(salt + _hash32(torch.full((), seed, dtype=torch.int64, device=scores.device)))
     cols = torch.arange(C, dtype=torch.int64, device=scores.device)
     return torch.argsort(_hash32(cols * 0x9E3779B1 + key), stable=True)
 
@@ -138,9 +138,10 @@ _TOPK_FNS = {
 
 
 def _weighted(vals: torch.Tensor, sample_weight) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum of vals * w, sum of w), w = 1 without sample weights."""
+    """(sum of vals * w, sum of w), w = 1 without sample weights. No tensor
+    is copied from the host (a training chunk is captured as a CUDA graph)."""
     if sample_weight is None:
-        return vals.sum(), torch.tensor(float(vals.shape[0]), device=vals.device)
+        return vals.sum(), vals.new_full((), float(vals.shape[0]))
     w = sample_weight.reshape(-1).to(vals.dtype)
     return (vals * w).sum(), w.sum()
 

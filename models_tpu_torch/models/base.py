@@ -3,23 +3,37 @@
 ``models_tpu/models/base.py`` that the two-tower model serves, trains and
 evaluates with).
 
-Training steps run eagerly, one batch at a time: the forward, the backward,
-one dense optimizer step, and, with ``compile(embedding_optimizer=...)``, one
-row-sparse update of each routed table per lookup (``blocks/optimizer.py``).
-A step that feeds the metrics (every ``train_metrics_steps``-th) runs the
-forward with ``need_logits`` True, so that the contrastive head returns its
-logits; the others with False, so that it takes its fused loss. Metric states
-stay on the device; each epoch (and each ``evaluate``) copies its losses and
-metric results to the host once. Not ported yet (ROADMAP.md queue 1):
-``steps_per_execution``, device-resident epochs, meshes, callbacks,
-``MultiOptimizer``, the sharded sparse update and frozen blocks.
+A training step runs the forward, the backward, one dense optimizer step,
+and, with ``compile(embedding_optimizer=...)``, one row-sparse update of
+each routed table per lookup (``blocks/optimizer.py``). A step that feeds
+the metrics (every ``train_metrics_steps``-th) runs the forward with
+``need_logits`` True, so that the contrastive head returns its logits; the
+others with False, so that it takes its fused loss. Metric states stay on
+the device; each epoch (and each ``evaluate``) copies its losses and metric
+results to the host once.
+
+``compile(steps_per_execution=k)`` runs k steps a chunk, as the JAX package
+does, and only without an embedding optimizer (the row-sparse step stays one
+step at a time). Where the dataset's columns fit (at most 2 GiB packed),
+``fit`` packs them into one (n, F) int32 matrix, uploads it once (cached on
+the dataset, for at most two datasets) with every epoch's permutation, and
+each chunk gathers its permuted rows on the device (K9) and slices its
+batches from them; otherwise it packs k host batches at a time and runs the
+leftover batches one step each. On CUDA with ``compile(jit=True)`` each chunk
+is one CUDA graph replay (``models/step_graph.py``); on the CPU, and with
+``jit=False``, the same chunk runs eagerly. Not ported yet (ROADMAP.md queue
+1): the device-resident ``evaluate`` and validation, the bucketed device
+groups, meshes, callbacks, ``MultiOptimizer``, the sharded sparse update and
+frozen blocks.
 """
 
 from __future__ import annotations
 
 import time
 import warnings
-from typing import Callable, Dict, List, Optional, Union
+import weakref
+from collections import deque
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,15 +44,32 @@ from ..blocks.optimizer import (SparseEmbeddingOptimizer, check_optimizer,
                                 split_embeddings_on_size, state_dtype)
 from ..core.block import Block
 from ..core.device import check_module_device
-from ..core.types import (ModelContext, Prediction, TopKPrediction, to_device_batch,
-                          to_device_targets)
+from ..core.policy import get_dtype_policy
+from ..core.types import (ModelContext, Prediction, SequenceFeature, TopKPrediction,
+                          to_device_batch, to_device_targets)
 from ..data.dataset import Dataset
 from ..data.loader import ROW_VALID_KEY, Loader
 from ..inputs.embedding import EmbeddingTable
 from ..losses import categorical_crossentropy, get_loss, sparse_categorical_crossentropy
 from ..metrics.base import Metric
 from ..metrics.topk import TopKMetric, TopKMetricsAggregator
+from ..ops.embedding_lookup import row_gather
 from ..outputs.base import ModelOutput
+from .step_graph import ChunkGraphs
+
+# the datasets that keep a device-resident training pack: at most two
+_TRAIN_PACK_LRU: deque = deque()
+# the largest pack fit uploads (the JAX package's limit)
+MAX_PACK_BYTES = 2 << 30
+
+
+class DevicePack(NamedTuple):
+    """A dataset's columns on the device: ``packed`` (n, F) int32 and the
+    ``spec`` that :meth:`Model._make_unpack` decodes a slice of it by."""
+
+    n_rows: int
+    spec: tuple
+    packed: torch.Tensor
 
 
 def _auto_loss(loss_fn: Callable, labels, logits, sample_weight):
@@ -140,7 +171,8 @@ class Model(Block):
                 learning_rate: Optional[float] = None, train_metrics_steps: int = 1,
                 embedding_optimizer: Union[None, str, SparseEmbeddingOptimizer] = None,
                 sparse_threshold: Optional[int] = None,
-                optimizer_state_dtype: Union[None, str, torch.dtype] = None) -> "Model":
+                optimizer_state_dtype: Union[None, str, torch.dtype] = None,
+                steps_per_execution: int = 1, jit: bool = True) -> "Model":
         """Choose the optimizer, the loss (a name, a callable, or a dict by
         head name or target; None takes each head's default) and the metrics
         (None takes each head's default, the top-k metrics @10 for the
@@ -158,7 +190,13 @@ class Model(Block):
         ``optimizer_state_dtype`` (e.g. ``"bfloat16"``) stores the dense
         optimizer's slots in that dtype at rest
         (:func:`~models_tpu_torch.blocks.optimizer.low_precision_optimizer_state`);
-        the row-sparse slots stay float32."""
+        the row-sparse slots stay float32.
+
+        ``steps_per_execution`` (at least 1) runs that many steps a chunk in
+        ``fit``, without an embedding optimizer (see the module's note). With
+        ``jit`` (the default) a chunk on the card is one CUDA graph replay;
+        ``jit=False`` runs the same chunk eagerly. Every captured graph dies
+        with the next ``compile()``."""
         if train_metrics_steps < 1:
             raise ValueError(f"train_metrics_steps must be >= 1, got {train_metrics_steps}")
         check_optimizer(optimizer)
@@ -179,6 +217,11 @@ class Model(Block):
         self._loss_spec = loss
         self._metrics_spec = metrics
         self.train_metrics_steps = train_metrics_steps
+        self._steps_per_execution = max(int(steps_per_execution), 1)
+        self._jit = bool(jit)
+        # every compiled-artifact cache dies with compile(): a graph holds the
+        # optimizer, losses and metrics resolved when it was captured
+        self._chunk_graphs = ChunkGraphs()
         self._optimizer = None
         self._step = 0
         self._compiled = True
@@ -264,7 +307,12 @@ class Model(Block):
         under ``loss``. A fused head's loss has its weights folded in."""
         row_valid = x.get(ROW_VALID_KEY)
         logs: Dict[str, torch.Tensor] = {}
-        total = torch.zeros((), device=row_valid.device if row_valid is not None else None)
+        # the sum starts on the heads' device: a packed batch has no row
+        # validity to take it from, and a chunk's graph copies nothing from
+        # the host
+        dev = next((p.outputs.device for p in pred_dict.values() if torch.is_tensor(p.outputs)),
+                   None)
+        total = torch.zeros((), device=dev)
         for name, pred in pred_dict.items():
             if pred.precomputed_loss is not None:
                 value = pred.precomputed_loss
@@ -364,6 +412,193 @@ class Model(Block):
         self._step += 1
         return {k: v.detach() for k, v in logs.items()}
 
+    # ------------------------------------------------------------------
+    # k steps a chunk (steps_per_execution)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _column_leaves(feats: Dict[str, Any], targets) -> Tuple[list, str]:
+        """The columns as (where, name, part, array) leaves, a list column as
+        its values and its mask, and how the targets nest ("none", "one" or
+        "dict")."""
+        leaves = []
+        for name, v in feats.items():
+            if isinstance(v, SequenceFeature):
+                leaves += [("x", name, "values", v.values), ("x", name, "mask", v.mask)]
+            else:
+                leaves.append(("x", name, None, v))
+        if isinstance(targets, dict):
+            return leaves + [("y", name, None, v) for name, v in targets.items()], "dict"
+        if targets is None:
+            return leaves, "none"
+        return leaves + [("y", None, None, targets)], "one"
+
+    @staticmethod
+    def _pack_device_columns(feats: Dict[str, Any], targets, n_rows: int
+                             ) -> Tuple[np.ndarray, tuple]:
+        """Every feature and target column in ONE (n, F) int32 matrix (float32
+        bit-cast, bool widened, a list column's values and mask each their
+        own block of columns) and the static spec that :meth:`_make_unpack`
+        decodes it by: a chunk then slices one tensor a batch, not one a
+        column (the JAX package's ``_pack_device_columns``)."""
+        leaves, y_kind = Model._column_leaves(feats, targets)
+        entries, cols, off = [], [], 0
+        for where, name, part, leaf in leaves:
+            a = np.asarray(leaf)
+            tail = a.shape[1:]
+            w = int(np.prod(tail)) if tail else 1
+            flat = np.ascontiguousarray(a.reshape(n_rows, w))
+            if flat.dtype == np.bool_:
+                kind, flat = "bool", flat.astype(np.int32)
+            elif flat.dtype.kind == "f":
+                kind, flat = "f32", flat.astype(np.float32).view(np.int32)
+            else:
+                kind, flat = "i32", flat.astype(np.int32)
+            entries.append((where, name, part, kind, off, w, tail))
+            cols.append(flat)
+            off += w
+        packed = np.concatenate(cols, axis=1) if cols else np.zeros((n_rows, 0), np.int32)
+        return packed, (tuple(entries), y_kind)
+
+    @staticmethod
+    def _make_unpack(spec: tuple) -> Callable[[torch.Tensor], tuple]:
+        """The inverse of :meth:`_pack_device_columns` for one (B, F) slice:
+        ``(features, targets)``, each column a view of the slice (float
+        columns bit-cast back, no copy), bool columns ``!= 0``."""
+        entries, y_kind = spec
+
+        def unpack(sl: torch.Tensor):
+            x: Dict[str, Any] = {}
+            y: Dict[str, Any] = {}
+            parts: Dict[str, Dict[str, torch.Tensor]] = {}
+            for where, name, part, kind, off, w, tail in entries:
+                col = sl[:, off:off + w]
+                if kind == "f32":
+                    col = col.view(torch.float32)
+                elif kind == "bool":
+                    col = col != 0
+                col = col.reshape((sl.shape[0],) + tuple(tail))
+                if part is not None:
+                    parts.setdefault(name, {})[part] = col
+                elif where == "x":
+                    x[name] = col
+                else:
+                    y[name] = col
+            for name, p in parts.items():
+                x[name] = SequenceFeature(p["values"], p["mask"])
+            if y_kind == "none":
+                return x, None
+            return x, (y[None] if y_kind == "one" else y)
+
+        return unpack
+
+    @staticmethod
+    def _device_train_pack(loader: Loader, dev: torch.device) -> Optional[DevicePack]:
+        """The loader's dataset as one packed matrix on ``dev``, cached on the
+        dataset (``_device_train_pack``; at most two datasets keep one, the
+        least recently packed dropped first), or None where the route does
+        not apply: batches that keep a partial last one, or a pack of more
+        than 2 GiB. The pack does not depend on the batch size."""
+        if not loader.drop_last:
+            return None
+        ds = loader.dataset
+        cached = getattr(ds, "_device_train_pack", None)
+        if cached is not None and cached.packed.device == dev:
+            return cached
+        try:
+            feats, targets, n_rows = loader.dense_columns()
+        except ValueError:
+            return None
+        leaves, _ = Model._column_leaves(feats, targets)
+        if sum(np.asarray(leaf[-1]).nbytes for leaf in leaves) > MAX_PACK_BYTES:
+            return None
+        packed, spec = Model._pack_device_columns(feats, targets, n_rows)
+        pack = DevicePack(n_rows, spec, torch.as_tensor(packed, device=dev))
+        ds._device_train_pack = pack
+        _TRAIN_PACK_LRU.append(weakref.ref(ds))
+        while len(_TRAIN_PACK_LRU) > 2:
+            old = _TRAIN_PACK_LRU.popleft()()
+            if old is not None and old is not ds:
+                old._device_train_pack = None
+        return pack
+
+    def _chunk_fn(self, k: int, batch_size: int, spec: tuple, loss_fns, task_metrics,
+                  with_metrics: bool) -> Callable:
+        """``fn(source, idx, states) -> (logs, states)``: the chunk's rows of
+        ``source`` gathered at ``idx`` (K9, one launch), then k train steps
+        on contiguous (batch_size, F) slices of them; the logs of each name
+        stacked (k,). With ``with_metrics`` every step of the chunk feeds
+        the metrics, as the JAX package's chunk does where one of its steps
+        is a metric step."""
+        unpack = self._make_unpack(spec)
+
+        def fn(source: torch.Tensor, idx: torch.Tensor, states):
+            rows = row_gather(source, idx)
+            step_logs: Dict[str, List[torch.Tensor]] = {}
+            for i in range(k):
+                x, y = unpack(rows[i * batch_size:(i + 1) * batch_size])
+                logs = self.train_step(x, y, loss_fns, task_metrics=task_metrics,
+                                       metric_states=states if with_metrics else None)
+                for name, v in logs.items():
+                    step_logs.setdefault(name, []).append(v)
+            return {name: torch.stack(v) for name, v in step_logs.items()}, states
+
+        return fn
+
+    def _run_chunk(self, source: torch.Tensor, spec: tuple, idx: torch.Tensor, k: int,
+                   batch_size: int, with_metrics: bool, loss_fns, task_metrics, states):
+        """One chunk of k steps: a CUDA graph replay on the card under
+        ``jit`` (:class:`~models_tpu_torch.models.step_graph.ChunkGraphs`),
+        else eagerly."""
+        fn = self._chunk_fn(k, batch_size, spec, loss_fns, task_metrics, with_metrics)
+        if not (self._jit and source.device.type == "cuda"):
+            return fn(source, idx, states)
+        # the source's address is not in the key: ChunkGraphs drops every
+        # graph when a tensor it captured (the source among them) is replaced
+        key = (k, with_metrics, batch_size, spec, get_dtype_policy())
+        return self._chunk_graphs.run(self, key, fn, source, idx, states, k)
+
+    def _host_chunk(self, batches, dev):
+        """k host batches packed into one (k B, F) matrix on ``dev`` (their
+        ``__row_valid__`` with them) and its spec: a chunk of the host route.
+        The matrix is copied into one staging tensor of its shape, kept on the
+        model, so that a captured chunk finds it at the same address."""
+        xs = [x for x, _ in batches]
+        ys = [y for _, y in batches]
+
+        def stack(vals):
+            v0 = vals[0]
+            if isinstance(v0, SequenceFeature):
+                return SequenceFeature(np.concatenate([v.values for v in vals]),
+                                       np.concatenate([v.mask for v in vals]))
+            return np.concatenate(vals)
+
+        feats = {name: stack([x[name] for x in xs]) for name in xs[0]}
+        if ys[0] is None:
+            targets = None
+        elif isinstance(ys[0], dict):
+            targets = {name: stack([y[name] for y in ys]) for name in ys[0]}
+        else:
+            targets = stack(ys)
+        n = sum(len(x[ROW_VALID_KEY]) for x in xs)
+        packed, spec = self._pack_device_columns(feats, targets, n)
+        stage = getattr(self, "_host_stage", None)
+        if stage is None or stage.shape != packed.shape or stage.device != dev:
+            stage = self._host_stage = torch.empty(packed.shape, dtype=torch.int32, device=dev)
+        stage.copy_(torch.from_numpy(packed))
+        return stage, spec
+
+    def _build_optimizer(self) -> None:
+        """Route the tables and make the dense optimizer, once per compile."""
+        self._sparse_tables = self._setup_sparse_embeddings()
+        routed = {id(t.table) for t in self._sparse_tables}
+        self._optimizer = make_optimizer(
+            self._optimizer_name,
+            [p for p in self.parameters() if p.requires_grad and id(p) not in routed],
+            self._learning_rate)
+        if self._optimizer_state_dtype is not None:
+            self._optimizer = low_precision_optimizer_state(self._optimizer,
+                                                            self._optimizer_state_dtype)
+
     def fit(self, data: Union[Dataset, Loader], epochs: int = 1,
             batch_size: Optional[int] = None, shuffle: bool = True,
             validation_data: Union[None, Dataset, Loader] = None, validation_freq: int = 1,
@@ -373,46 +608,97 @@ class Model(Block):
         epoch's mean step log, the metrics over its metric steps, plus
         ``examples_per_sec`` (host clock); with ``validation_data``, every
         ``validation_freq``-th epoch adds :meth:`evaluate`'s results under
-        ``val_<name>``."""
+        ``val_<name>``. With ``compile(steps_per_execution=k)``, k steps a
+        chunk (the module's note); the batches and their order are the
+        streaming route's."""
         if not self._compiled:
             self.compile()
         dev = check_module_device(self, device)
         loader = data if isinstance(data, Loader) else Loader(
             data, batch_size or 1024, drop_last=True, shuffle=shuffle)
+        B = loader.batch_size
         loss_fns = self._resolve_task_losses()
         task_metrics = self._resolve_task_metrics()
         has_metrics = any(task_metrics.values())
         if self._optimizer is None:
-            self._sparse_tables = self._setup_sparse_embeddings()
-            routed = {id(t.table) for t in self._sparse_tables}
-            self._optimizer = make_optimizer(
-                self._optimizer_name,
-                [p for p in self.parameters() if p.requires_grad and id(p) not in routed],
-                self._learning_rate)
-            if self._optimizer_state_dtype is not None:
-                self._optimizer = low_precision_optimizer_state(self._optimizer,
-                                                                self._optimizer_state_dtype)
+            self._build_optimizer()
+        # k steps a chunk only without an embedding optimizer: the JAX package
+        # sets spe = 1 where a sparse one is set
+        spe = 1 if self._sparse_tables else self._steps_per_execution
+        pack = self._device_train_pack(loader, dev) if spe > 1 else None
+        if pack is not None:
+            # every epoch's permutation in one upload, drawn from the loader's
+            # epoch seeds: the device route trains on the streaming route's
+            # batches, in its order
+            perms = np.stack([
+                np.random.default_rng(loader.seed + (loader._epoch + 1 + e) * 9973
+                                      ).permutation(pack.n_rows) if loader.shuffle
+                else np.arange(pack.n_rows) for e in range(epochs)]).astype(np.int32)
+            perms = torch.as_tensor(perms, device=dev)
+
+        def metric_chunk(k):
+            return has_metrics and any(
+                (self._step + i) % self.train_metrics_steps == 0 for i in range(k))
+
+        # The JAX package also fuses every epoch into one program where no
+        # step but the first of a chunk differs (train_metrics_steps == 1 or no
+        # metrics) and no validation intervenes. Here that program is the
+        # chunk itself: its graph is replayed once per chunk of each epoch and
+        # computes what the fused epochs compute, with one fetch an epoch.
         history = History()
         for epoch in range(epochs):
             t0 = time.perf_counter()
             states = self._init_metric_states(task_metrics, dev)
             step_logs: Dict[str, List[torch.Tensor]] = {}
             n_examples = 0
-            for x, y in loader:
+
+            def keep(logs):
+                for name, v in logs.items():
+                    step_logs.setdefault(name, []).append(v.reshape(-1))
+
+            def single(x, y):
+                nonlocal n_examples
                 metric_step = has_metrics and self._step % self.train_metrics_steps == 0
-                logs = self.train_step(to_device_batch(x, dev), to_device_targets(y, dev),
-                                       loss_fns, task_metrics=task_metrics,
-                                       metric_states=states if metric_step else None)
-                for k, v in logs.items():
-                    step_logs.setdefault(k, []).append(v)
-                n_examples += loader.batch_size
-            values = {k: torch.stack(v).mean() for k, v in step_logs.items()}
+                keep(self.train_step(to_device_batch(x, dev), to_device_targets(y, dev),
+                                     loss_fns, task_metrics=task_metrics,
+                                     metric_states=states if metric_step else None))
+                n_examples += B
+
+            if pack is not None:
+                loader._epoch += 1  # the loader's seed bookkeeping, as if it had streamed
+                n_batches, local = pack.n_rows // B, 0
+                while local < n_batches:
+                    k = min(spe, n_batches - local)
+                    logs, states = self._run_chunk(
+                        pack.packed, pack.spec, perms[epoch, local * B:(local + k) * B], k, B,
+                        metric_chunk(k), loss_fns, task_metrics, states)
+                    keep(logs)
+                    n_examples += k * B
+                    local += k
+            else:
+                chunk = []
+                for x, y in loader:
+                    if spe == 1:
+                        single(x, y)
+                        continue
+                    chunk.append((x, y))
+                    if len(chunk) == spe:
+                        source, spec = self._host_chunk(chunk, dev)
+                        idx = torch.arange(spe * B, dtype=torch.int32, device=dev)
+                        logs, states = self._run_chunk(source, spec, idx, spe, B,
+                                                       metric_chunk(spe), loss_fns,
+                                                       task_metrics, states)
+                        keep(logs)
+                        n_examples += spe * B
+                        chunk = []
+                for x, y in chunk:  # the batches that fill no chunk: one step each
+                    single(x, y)
+            values = {k: torch.cat(v).mean() for k, v in step_logs.items()}
             values.update(self._metric_results(states, task_metrics))
             epoch_logs = _fetch(values)  # one copy to the host per epoch
             epoch_logs["examples_per_sec"] = n_examples / max(time.perf_counter() - t0, 1e-9)
             if validation_data is not None and (epoch + 1) % validation_freq == 0:
-                val = self.evaluate(validation_data, batch_size=batch_size or loader.batch_size,
-                                    device=dev)
+                val = self.evaluate(validation_data, batch_size=batch_size or B, device=dev)
                 epoch_logs.update({f"val_{k}": v for k, v in val.items()})
             history.append(epoch_logs)
         self.history = history

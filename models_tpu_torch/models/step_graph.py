@@ -1,0 +1,166 @@
+"""A chunk of k training steps captured as one CUDA graph and replayed: the
+port's counterpart of ``jax.jit`` over the JAX package's ``lax.scan`` chunk
+(``models_tpu/models/base.py::_make_device_chunk_step``, ``_make_multi_train_step``).
+
+A chunk function ``fn(source, idx, states) -> (logs, states)`` gathers the
+chunk's rows of the packed (n, F) int32 columns (``source``) at ``idx`` with
+the row gather (K9) and runs k ``Model.train_step`` calls on contiguous
+views of them (``Model._chunk_fn``). :class:`ChunkGraphs` runs it by key
+(k, metrics or not, batch size, the pack's layout, the dtype policy), as
+the JAX package caches ``chunk_fns``:
+
+- the first call of a key runs the function eagerly on a side stream, as
+  training that is kept: the kernels' first launches (``cudaFuncSetAttribute``,
+  the TMA encoder's lookup, the occupancy queries), cuBLAS's workspaces and
+  the optimizer's slots (Adam makes them at its first step, which
+  ``LowPrecisionState`` then packs) all happen outside the capture;
+- the second call captures the function into a ``torch.cuda.CUDAGraph``
+  (its own memory pool, in which a step reuses the blocks the step before
+  it freed), then replays it; every later call replays it. Before a replay
+  the chunk's ids are copied into the graph's index buffer and the metric
+  states into its state buffers; after it the logs and states are cloned
+  out, since the next replay writes the same memory;
+- a capture that fails raises: no call quietly runs eager steps instead.
+
+What a graph holds by address: the parameters, the optimizer's state
+tensors (a bf16 optimizer state's flat tensor at rest), the source, and
+the tensors it allocated itself (gradients, activations, the gathered rows).
+Each call compares the first three with what the graph captured and drops
+every graph when one was replaced; ``Model.compile()`` drops them too.
+
+Python state does not replay: the model's step count is put back after a
+capture, and each replay adds the chunk's k steps. The kernels' launch
+counters are left alone: a wrapper counts the launches it issues, the eager
+chunk's and the ones a capture records (which the capture's own replay
+runs); later replays launch the recorded kernels with no Python call, and
+are counted from a profiler trace of the replays (``chip_smoke.py``).
+``ModelContext(step=...)`` is frozen at its capture value: no block on the
+dense route reads it (the row-sparse update, which does, never takes this
+route). The route draws no random numbers.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+import torch.utils._pytree as pytree
+
+
+def captured_tensors(model, source: torch.Tensor) -> tuple:
+    """(address, shape) of each tensor a chunk's graph reads or writes that
+    it did not allocate: the parameters, the optimizer's state tensors and
+    the source."""
+    opt = model._optimizer
+    inner = getattr(opt, "optimizer", opt)
+    ts = list(model.parameters())
+    ts += [v for st in inner.state.values() for v in st.values() if torch.is_tensor(v)]
+    rest = getattr(opt, "_rest", None)
+    if rest is not None:
+        ts.append(rest)
+    ts.append(source)
+    return tuple((t.data_ptr(), tuple(t.shape)) for t in ts)
+
+
+class _Entry:
+    """One key's state: warmed (eager run done) or captured."""
+
+    def __init__(self):
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.idx: Optional[torch.Tensor] = None
+        self.state_leaves: List[torch.Tensor] = []
+        self.state_spec = None
+        self.logs: Dict[str, torch.Tensor] = {}
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+
+
+class ChunkGraphs:
+    """The model's captured chunks, by key. ``stats`` keeps, per key, the
+    capture's seconds and the bytes its memory pool took."""
+
+    def __init__(self):
+        self._entries: Dict[tuple, _Entry] = {}
+        self._fingerprint: Optional[tuple] = None
+        self.stats: Dict[tuple, dict] = {}
+
+    def clear(self) -> None:
+        self._entries.clear()
+        self._fingerprint = None
+
+    def __len__(self) -> int:
+        return sum(e.graph is not None for e in self._entries.values())
+
+    def run(self, model, key: tuple, fn: Callable, source: torch.Tensor, idx: torch.Tensor,
+            states, k: int):
+        """``fn(source, idx, states)`` for the chunk of ``k`` steps under
+        ``key``: eager on a side stream the first time, captured the second,
+        replayed after. Returns (logs, states), the logs (k,) tensors."""
+        fingerprint = captured_tensors(model, source)
+        if fingerprint != self._fingerprint:
+            self.clear()
+            self._fingerprint = fingerprint
+        entry = self._entries.get(key)
+        if entry is None:
+            side = torch.cuda.Stream(source.device)
+            side.wait_stream(torch.cuda.current_stream(source.device))
+            with torch.cuda.stream(side):
+                out = fn(source, idx, states)
+            torch.cuda.current_stream(source.device).wait_stream(side)
+            self._entries[key] = _Entry()
+            # the eager run may pack new optimizer slots: what the graph holds
+            self._fingerprint = captured_tensors(model, source)
+            return out
+        if entry.graph is None:
+            self._capture(model, key, entry, fn, source, idx, states, k)
+        return self._replay(model, entry, idx, states, k)
+
+    def _capture(self, model, key, entry: _Entry, fn, source, idx, states, k) -> None:
+        dev = source.device
+        leaves, entry.state_spec = pytree.tree_flatten(states)
+        entry.idx = idx.clone()
+        entry.state_leaves = [t.clone() for t in leaves]
+        inp = pytree.tree_unflatten(entry.state_leaves, entry.state_spec)
+        step0 = model._step
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()  # as the capture does on entry: the pool's bytes alone below
+        reserved = torch.cuda.memory_stats(dev).get("reserved_bytes.all.current", 0)
+        graph = torch.cuda.CUDAGraph()
+        t = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                logs, out = fn(source, entry.idx, inp)
+                out_leaves = pytree.tree_leaves(out)
+                # a chunk without metrics passes the states through; a chunk
+                # with them leaves them where they came in
+                through = len(out_leaves) == len(leaves) and all(
+                    a is b for a, b in zip(out_leaves, entry.state_leaves))
+                if not through:
+                    torch._foreach_copy_(entry.state_leaves, out_leaves)
+        except Exception as err:
+            raise RuntimeError(f"capturing the training chunk {key} as a CUDA graph failed: "
+                               f"{err}") from err
+        finally:
+            model._step = step0
+        if through:
+            entry.state_leaves = []
+        entry.capture_s = time.perf_counter() - t
+        entry.pool_bytes = (torch.cuda.memory_stats(dev).get("reserved_bytes.all.current", 0)
+                            - reserved)
+        entry.logs = logs
+        entry.graph = graph
+        self.stats[key] = {"capture_s": entry.capture_s, "pool_bytes": entry.pool_bytes}
+
+    @staticmethod
+    def _replay(model, entry: _Entry, idx, states, k):
+        entry.idx.copy_(idx)
+        if entry.state_leaves:
+            torch._foreach_copy_(entry.state_leaves, pytree.tree_leaves(states))
+        entry.graph.replay()
+        model._step += k
+        logs = {name: v.clone() for name, v in entry.logs.items()}
+        if not entry.state_leaves:
+            return logs, states
+        return logs, pytree.tree_unflatten([t.clone() for t in entry.state_leaves],
+                                           entry.state_spec)

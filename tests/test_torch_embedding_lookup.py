@@ -81,3 +81,18 @@ def test_row_gather_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="no rows"):
         E.row_gather(torch.zeros(0, 4), torch.zeros(3, dtype=torch.int32))
     assert E.row_gather(table, torch.zeros(0, dtype=torch.int32)).shape == (0, 4)
+
+
+def test_int32_pack_rows_match_jnp_take_clip():
+    """The device-resident training route gathers rows of its packed (n, 26)
+    int32 columns (2**20 rows, one chunk of 16 batches of 8192 ids): the
+    copy takes int32 tables as it takes float32 ones, clamped ids included,
+    equal to the JAX chunk step's jnp.take(mode="clip")."""
+    rng = np.random.default_rng(11)
+    table = rng.integers(-2**31, 2**31 - 1, size=(1 << 20, 26), dtype=np.int64).astype(np.int32)
+    ids = rng.integers(0, 1 << 20, size=16 * 8192).astype(np.int32)
+    ids[:4] = [0, (1 << 20) - 1, -1, 1 << 20]
+    ref = jnp.take(jnp.asarray(table), jnp.asarray(ids), axis=0, mode="clip")
+    got = E.row_gather(torch.from_numpy(table), torch.from_numpy(ids))
+    assert got.dtype == torch.int32 and E.TABLE_DTYPES[1] == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
