@@ -141,7 +141,34 @@
    ``evaluate`` at batch 8192 and ``evaluate(item_corpus=...)`` with fp32,
    bf16 and int8 indexes (K6, 2048 queries) against a CPU copy, and times
    both (examples/s);
-14. prints one JSON line with each kernel's launches (on its own path's run;
+14. the ranking models (phases 12-14): the DLRM at the bench's width
+   (``bench.py::bench_dlrm_compute``: criteo-small, D = 64, bottom MLP 256,
+   64, top MLP 256, 128, adagrad at 0.05, batch 8192, 16 batches of seeded
+   rows): (a) one step at a time, timed as in 8; (b) 8 steps a chunk, each
+   chunk one CUDA graph replay with K9 gathering the chunk's rows of the
+   40-column pack (160-byte rows): graph and eager bit for bit with
+   deterministic algorithms on, K9's launches counted from zero around the
+   graph run (the eager chunk and the capture), then a timed fit and a
+   traced epoch of replays (K9 once a chunk, the busy share); (c) the card
+   against a CPU copy after 4 steps (losses within FCE_TOL, parameters
+   within PARAM_ATOL); (d) ``evaluate`` with the binary head's metrics (AUC,
+   precision, recall, binary accuracy) against the CPU copy's (loss within
+   FCE_TOL, metrics within METRIC_ATOL), and its examples/s; (e)
+   ``predict``: probabilities in [0, 1] of shape (B,), within FCE_TOL of the
+   CPU's, its latency at 8192 rows; then K9 on that pack at one chunk's ids,
+   bit for bit, timed warm and flushed beside ``index_select``; the DLRM on
+   the full Criteo cardinalities (26 tables, 31.46M rows, fp32 tables and
+   adagrad slots of 8 GB each) trained row-sparsely, 8 steps at batch 8192:
+   K7 counted from zero around the fit (twice a table a step, fused and
+   per-domain tables), losses finite, each table's looked-up rows moved, the
+   peak memory and the step's times, then K7 bit for bit against its plain
+   version on the largest table's slot at one batch's ids, timed there
+   beside ``index_add_``; DCN-v2 (stacked; parallel with low rank), DeepFM
+   and NCF at the JAX tests' widths, 3 steps of 1024 against a CPU copy; a
+   DCN whose deep MLP has BatchNorm, graph and eager bit for bit (its
+   running statistics among the buffers compared); Dropout's generator on a
+   captured graph (each replay draws a new mask);
+15. prints one JSON line with each kernel's launches (on its own path's run;
    K7 and K8: both row-sparse runs), error against its plain version, its
    time, the plain version's, the least time the card could take and a
    PyTorch yardstick's (the bound at the peak of the fastest arithmetic
@@ -153,7 +180,11 @@
    host's rate; K9 profiler device time warm and flushed, its launches those
    its wrapper issued on the graph route's run, the pack's times under
    ``pack``; K1-K3 and K9 also ``launches_replayed_traced``, their kernels
-   in the traces of the graph route's replays), then the card line
+   in the traces of the graph route's replays; K9 also the DLRM's graph
+   route's launches, ``launches_dlrm`` and ``launches_replayed_traced_dlrm``,
+   and its Criteo pack's times, ``criteo_pack``; K7 also the full-Criteo
+   fit's launches, ``launches_criteo``, and its times there, ``criteo``),
+   then the card line
    and ``{"ok": true,
    ...}`` last. Host-clock times are [median, min, max].
 
@@ -192,6 +223,15 @@ against one step at a time, losses within
 SPE_LOSS_RTOL (a plain mean of the rows' losses against a weighted one;
 F.embedding's backward, whose sums over a table's repeated rows vary from
 call to call) and parameters within PARAM_ATOL.
+
+Ranking, card vs CPU: losses within FCE_TOL, parameters and buffers within
+PARAM_ATOL after 3 or 4 steps (fp32 sums in another order); ``evaluate``'s
+loss within FCE_TOL and its metrics within METRIC_ATOL (a probability that
+the two sigmoids round to either side of a threshold moves a count);
+``predict``'s probabilities within FCE_TOL; the graph route bit for bit
+against the eager one with deterministic algorithms on (the fused table's
+``F.embedding`` backward sums its repeated rows in an order that varies
+otherwise).
 
 Any failed check raises, and the script exits non-zero. It imports nothing of
 JAX or of the JAX package.
@@ -2657,21 +2697,25 @@ def zero_route_launches() -> None:
 
 
 def spe_fit(dev, catalog, data, epochs, shuffle=True, optimizer="adagrad", learning_rate=0.05,
-            **compile_kw):
-    """A fresh seeded model fit with ``compile(**compile_kw)``: (history,
+            make=None, batch=None, **compile_kw):
+    """A fresh seeded model (the two-tower model, or ``make()``) fit with
+    ``compile(**compile_kw)`` in batches of ``batch`` (TRAIN_BATCH): (history,
     model, the launches its wrappers counted, host seconds)."""
-    model = mixed_model(dev, catalog, SEED)
+    model = make() if make is not None else mixed_model(dev, catalog, SEED)
     model.compile(optimizer=optimizer, learning_rate=learning_rate, **compile_kw)
     zero_route_launches()
     t = time.perf_counter()
-    hist = model.fit(data, epochs=epochs, batch_size=TRAIN_BATCH, shuffle=shuffle, device=dev)
+    hist = model.fit(data, epochs=epochs, batch_size=batch or TRAIN_BATCH, shuffle=shuffle,
+                     device=dev)
     torch.cuda.synchronize()
     return hist.history, model, route_launches(), time.perf_counter() - t
 
 
 def same_params(a, b) -> bool:
-    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
-    return all(torch.equal(pa[n], pb[n]) for n in pa)
+    """Every parameter and buffer (BatchNorm's statistics) equal."""
+    pa = dict(list(a.named_parameters()) + list(a.named_buffers()))
+    pb = dict(list(b.named_parameters()) + list(b.named_buffers()))
+    return sorted(pa) == sorted(pb) and all(torch.equal(pa[n], pb[n]) for n in pa)
 
 
 def optimizer_tensors(model) -> list:
@@ -3021,6 +3065,344 @@ def phase_steps_per_execution(dev, catalog, card):
     return launches, traced, out
 
 
+# ---------------------------------------------------------------------------
+# ranking: the DLRM at the bench's width (criteo-small), the DLRM on the full
+# Criteo cardinalities row-sparsely, DCN-v2, DeepFM and NCF, K9 on the pack
+# ---------------------------------------------------------------------------
+
+# bench.py::bench_dlrm_compute's model: D = 64, a bottom MLP of 256, 64 (and
+# the embedding width), a top MLP of 256, 128; adagrad at 0.05, batch 8192
+DLRM_KW = dict(embedding_dim=64, bottom_block=(256, 64), top_block=(256, 128))
+DLRM_BATCHES = 16
+DLRM_SPE = 8
+DLRM_CPU_STEPS = 4
+CRITEO_STEPS = 8
+ZOO_BATCH, ZOO_STEPS = 1024, 3
+
+
+def dlrm_model(dev, schema):
+    import models_tpu_torch as mt
+
+    return mt.DLRMModel(schema, seed=SEED, device=dev, **DLRM_KW)
+
+
+def card_vs_cpu(dev, make, data, steps, batch, what) -> dict:
+    """A seeded model and its CPU copy, ``steps`` adagrad steps each, in
+    batches of ``batch``, unshuffled, no metrics: losses within FCE_TOL,
+    every parameter and buffer within PARAM_ATOL. Returns the card's model,
+    the CPU's and the numbers."""
+    import copy
+
+    on_card = make()
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    hist = {}
+    for side, m, d in (("card", on_card, dev), ("cpu", on_cpu, "cpu")):
+        m.compile(optimizer="adagrad", learning_rate=0.05, metrics=[])
+        hist[side] = m.fit(data.take(steps * batch), epochs=1, batch_size=batch, shuffle=False,
+                           device=d).history
+    loss_card, loss_cpu = hist["card"]["loss"], hist["cpu"]["loss"]
+    require(all(np.isfinite(loss_card)), f"{what}: non-finite loss on the card")
+    require(np.allclose(loss_card, loss_cpu, rtol=FCE_TOL, atol=0),
+            f"{what}: losses {loss_card} (card) / {loss_cpu} (CPU)")
+    cpu = dict(list(on_cpu.named_parameters()) + list(on_cpu.named_buffers()))
+    worst = max(max_err(t.detach().cpu(), cpu[n].detach())
+                for n, t in list(on_card.named_parameters()) + list(on_card.named_buffers()))
+    require(worst <= PARAM_ATOL, f"{what}: card and CPU parameters differ by {worst:.3g}")
+    print(f"  {what}: {steps} steps of {batch}, card vs CPU: losses {loss_card} / {loss_cpu}, "
+          f"parameters max|d| {worst:.3g}", flush=True)
+    return on_card, on_cpu, {"loss_card": loss_card, "loss_cpu": loss_cpu, "param_max_abs": worst}
+
+
+def phase_dlrm(dev, card):
+    """The DLRM at the bench's width on criteo-small (DLRM_KW, batch 8192,
+    DLRM_BATCHES batches of seeded rows): (a) one step at a time, timed as
+    the two-tower steps are (train_times, train_profile); (b) DLRM_SPE steps
+    a chunk, each chunk a CUDA graph replay (K9 gathers the chunk's rows of
+    the 40-column pack): graph and eager bit for bit with deterministic
+    algorithms on, then the chunk captured again without them, a timed fit
+    and a traced epoch (K9 once a chunk); (c) the card against a CPU copy
+    after DLRM_CPU_STEPS steps; (d) ``evaluate`` with the binary head's
+    metrics against the CPU copy's, and its examples/s; (e) ``predict``:
+    probabilities in [0, 1], (B,), against the CPU copy's, and its latency at
+    8192 rows. Returns (the numbers, K9's launches issued on the graph route,
+    traced in a replayed epoch, the dataset)."""
+    import models_tpu_torch as mt
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "config": {**DLRM_KW, "batch": TRAIN_BATCH, "schema": "criteo-small",
+                                    "optimizer": "adagrad", "learning_rate": 0.05}}
+    data = mt.generate_data("criteo-small", num_rows=DLRM_BATCHES * TRAIN_BATCH, seed=SEED + 7)
+
+    def make():
+        return dlrm_model(dev, data.schema)
+
+    model = make()
+    out["parameters"] = sum(p.numel() for p in model.parameters())
+    out["tables"] = {n: tuple(t.table.shape) for n, t in
+                     model.blocks[0].embeddings.branches.items()}
+    model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[])
+    warm = model.fit(data.take(2 * TRAIN_BATCH), batch_size=TRAIN_BATCH, shuffle=False,
+                     device=dev)
+    require(all(np.isfinite(warm.history["loss"])), "(a): non-finite loss")
+    out["one_step"] = {**train_times(dev, model, data), **train_profile(dev, model, data)}
+    print(f"  (a) one step at a time: {out['one_step']['step_ms']} ms, busy "
+          f"{out['one_step']['device_busy_share']:.3f}, device "
+          f"{out['one_step']['device_ms_per_step']:.3f} ms a step; {card}", flush=True)
+    del model
+
+    # (b) the graph route; its K9 launches counted from zero by spe_fit
+    _, mg, lg, le = graph_vs_eager(dev, None, data, 2, f"(b) DLRM, {DLRM_SPE} steps a chunk",
+                                   make=make, metrics=[], steps_per_execution=DLRM_SPE)
+    require(lg["row_gather"] == 2 and le["row_gather"] == 2 * DLRM_BATCHES // DLRM_SPE,
+            f"(b): K9 issued {lg['row_gather']} (graph) / {le['row_gather']} (eager) times")
+    pack = data._device_train_pack
+    require(pack is not None and tuple(pack.packed.shape) == (DLRM_BATCHES * TRAIN_BATCH, 40),
+            f"(b): the pack is {None if pack is None else tuple(pack.packed.shape)}")
+    mg._chunk_graphs.clear()  # captured again as users run it, deterministic algorithms off
+    mg.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False, device=dev)
+    steps = 2 * DLRM_BATCHES
+    hist, wall, ms = replayed_fit(mg, data, 2, steps, "(b) DLRM")
+    require(all(np.isfinite(hist["loss"])), "(b): non-finite loss")
+    trace = traced_replays(mg, data, DLRM_BATCHES,
+                           {"row_gather": DLRM_BATCHES // DLRM_SPE}, "(b) DLRM")
+    out["graph"] = {"ms_per_step": ms, "examples_per_sec": hist["examples_per_sec"],
+                    "fit_s": wall, "loss": hist["loss"], "graphs": graph_stats(mg),
+                    "one_step_ms_ratio": ms / out["one_step"]["step_ms"][0],
+                    **{k: v for k, v in trace.items() if k != "launches_issued"}}
+    print(f"  (b) DLRM graph route: {ms:.3f} ms a step, examples/s {hist['examples_per_sec']}, "
+          f"busy {trace['device_busy_share']:.3f}, K9 traced "
+          f"{trace['launches_traced']['row_gather']} in {DLRM_BATCHES} replayed steps; {card}",
+          flush=True)
+    del mg
+
+    on_card, on_cpu, out["card_vs_cpu"] = card_vs_cpu(dev, make, data, DLRM_CPU_STEPS,
+                                                      TRAIN_BATCH, "(c) DLRM")
+    evaluation = data.take(8 * TRAIN_BATCH)
+    for m in (on_card, on_cpu):  # the binary head's default metrics
+        m.compile(optimizer="adagrad", learning_rate=0.05)
+    got = on_card.evaluate(evaluation, batch_size=TRAIN_BATCH, device=dev)
+    want = on_cpu.evaluate(evaluation, batch_size=TRAIN_BATCH, device="cpu")
+    require(sorted(got) == sorted(want) == ["label/auc", "label/binary_accuracy",
+                                            "label/precision", "label/recall", "loss"],
+            f"(d): evaluate's keys {sorted(got)}")
+    compare_eval("(d) DLRM evaluate", got, want, TRAIN_BATCH)
+    t = time.perf_counter()
+    on_card.evaluate(evaluation, batch_size=TRAIN_BATCH, device=dev)
+    torch.cuda.synchronize()
+    out["evaluate"] = {"card": got, "cpu": want, "rows": evaluation.num_rows,
+                       "examples_per_sec": evaluation.num_rows / (time.perf_counter() - t)}
+    request = data.take(TRAIN_BATCH)
+    probs = on_card.predict(request, batch_size=TRAIN_BATCH, device=dev)
+    ref = on_cpu.predict(request, batch_size=TRAIN_BATCH, device="cpu")
+    require(probs.shape == (TRAIN_BATCH,) and np.isfinite(probs).all()
+            and ((probs >= 0) & (probs <= 1)).all(), f"(e): predict gave {probs.shape}")
+    err = float(np.abs(probs - ref).max())
+    require(err <= FCE_TOL, f"(e): card and CPU probabilities differ by {err:.3g}")
+    out["predict"] = {"rows": TRAIN_BATCH, "max_abs_vs_cpu": err,
+                      "ms": host_ms(lambda: on_card.predict(request, batch_size=TRAIN_BATCH,
+                                                            device=dev))}
+    print(f"  (d) evaluate {got}, {out['evaluate']['examples_per_sec']:.0f} examples/s; (e) "
+          f"predict at {TRAIN_BATCH} rows {out['predict']['ms']} ms, probabilities within "
+          f"{err:.3g} of the CPU's", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, lg["row_gather"], trace["launches_traced"]["row_gather"], data
+
+
+def phase_criteo_sparse(dev, gen, errs):
+    """The DLRM on the full Criteo cardinalities (26 tables, 31.46M rows at
+    D = 64: fp32 tables and adagrad slots of 8 GB each), row-sparsely
+    (``embedding_optimizer="adagrad"``), batch 8192, CRITEO_STEPS steps: K7
+    must launch twice (slot and table) a table a step, on the fused tables
+    and on the per-domain ones, every loss finite, every table's looked-up
+    rows moved; the peak memory, the step's times (host clock, its parts);
+    then K7 against its plain version, bit for bit, on the largest table's
+    slot at one batch's deduplicated ids, and timed there (L2 flushed)
+    beside ``index_add_``. Returns (the numbers, K7's launches in the fit,
+    K7's times at that shape)."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.ops import scatter as S
+
+    t_phase = time.perf_counter()
+    data = mt.generate_data("criteo", num_rows=CRITEO_STEPS * TRAIN_BATCH, seed=SEED + 8)
+    gen_s = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)  # the earlier phases' tensors still alive
+    model = dlrm_model(dev, data.schema)
+    tables = model._embedding_tables()
+    fused = [t for t in tables if isinstance(t, mt.inputs.FusedEmbeddingTables)]
+    rows = sum(t.table.shape[0] for t in tables)
+    x0, _ = next(iter(mt.Loader(data, TRAIN_BATCH)))
+    before = {}
+    for t in tables:
+        ids = (torch.stack([torch.as_tensor(x0[f]) for f in t.features], 1).to(dev).long()
+               + t.offsets if isinstance(t, mt.inputs.FusedEmbeddingTables)
+               else torch.as_tensor(x0[t.features[0]], device=dev).long())
+        before[id(t)] = (ids, t.table[ids].detach().clone())
+    model.compile(optimizer="adagrad", learning_rate=0.05, embedding_optimizer="adagrad",
+                  metrics=[])
+    S.row_scatter_add.launches = 0
+    t = time.perf_counter()
+    hist = model.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    launches = S.row_scatter_add.launches
+    n_sparse = len(model._sparse_tables)
+    require(n_sparse == len(tables) and fused and len(tables) > len(fused),
+            f"criteo: {n_sparse} of {len(tables)} tables row-sparse, {len(fused)} fused")
+    require(launches == 2 * n_sparse * CRITEO_STEPS,
+            f"criteo: K7 launched {launches} times in {CRITEO_STEPS} steps, want "
+            f"{2 * n_sparse * CRITEO_STEPS}")
+    require(all(np.isfinite(hist.history["loss"])), f"criteo: losses {hist.history['loss']}")
+    for t in tables:
+        ids, old = before[id(t)]
+        require(not torch.equal(t.table[ids], old), f"criteo: table {t.block_name} did not move")
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = {"rows": rows, "tables": n_sparse, "fused_tables": len(fused),
+           "table_gb": sum(t.table.numel() * 4 for t in tables) / 1e9,
+           "slot_gb": sum(t.sparse_slots["acc"].numel() * 4 for t in tables) / 1e9,
+           "max_memory_allocated_gb": peak / 1e9, "peak_above_held_gb": (peak - held) / 1e9,
+           "data_s": gen_s, "fit_s": fit_s,
+           "loss": hist.history["loss"], "k7_launches": launches}
+    out.update(train_times(dev, model, data))
+    out.update(train_profile(dev, model, data))
+    print(f"  criteo row-sparse: {rows} rows in {n_sparse} tables ({len(fused)} fused), peak "
+          f"{peak / 1e9:.2f} GB ({(peak - held) / 1e9:.2f} above what earlier phases hold), K7 {launches} launches in {CRITEO_STEPS} steps, step "
+          f"{out['step_ms']} ms (row-sparse update {out['sparse_update_ms']:.3f} ms)", flush=True)
+
+    # K7 on the largest table's slot at one batch's ids, as the update runs it
+    big = max(tables, key=lambda t: t.table.shape[0])
+    D = big.table.shape[1]
+    raw = torch.as_tensor(x0[big.features[0]], device=dev).to(torch.int32)
+    grads = torch.randn(TRAIN_BATCH, D, device=dev, generator=gen)
+    ids, gsum, valid = S.dedup_rows(raw, grads)
+    acc = big.sparse_slots["acc"]
+    got, want = S.row_scatter_add(acc.clone(), ids, gsum, valid), S.row_scatter_add_plain(
+        acc.clone(), ids, gsum, valid)
+    err = max_err(got, want)
+    errs["row_scatter_add"] = max(errs["row_scatter_add"], err)
+    require(torch.equal(raw_bits(got), raw_bits(want)),
+            f"criteo: K7 on {big.block_name} differs from its plain version (max|d| {err})")
+    del got, want
+    table = acc.clone()
+    n = int(valid.sum())
+    ids_v, g_v = ids[valid].long(), gsum[valid]
+    nbytes = 3 * n * D * 4 + TRAIN_BATCH * 5
+    k7 = {"table": big.block_name, "rows": big.table.shape[0], "valid_ids": n,
+          "ms": device_ms(lambda: S.row_scatter_add(table, ids, gsum, valid), cold=True),
+          "plain_ms": device_ms(lambda: S.row_scatter_add_plain(table, ids, gsum, valid), reps=10,
+                                cold=True),
+          "library_ms": device_ms(lambda: table.index_add_(0, ids_v, g_v), cold=True),
+          "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+    print(f"  K7 on {big.block_name} ({big.table.shape[0]} rows), {n} of {TRAIN_BATCH} ids: "
+          f"bit-equal to its plain version; {json.dumps(k7)}", flush=True)
+    del model, tables, table, before, acc, big
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches, k7
+
+
+def phase_ranking_zoo(dev):
+    """DCN-v2 (stacked; parallel with low rank), DeepFM and NCF at the JAX
+    tests' widths, ZOO_STEPS steps of ZOO_BATCH on the card against a CPU
+    copy (card_vs_cpu); then a DCN whose deep MLP has BatchNorm, 4 steps a
+    chunk: graph and eager bit for bit with deterministic algorithms on,
+    BatchNorm's running statistics among the compared buffers; and Dropout's
+    generator on a captured graph: each replay draws a new mask, and the
+    replays draw what eager calls from the same seed draw."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.blocks.mlp import Dropout, MLPBlock
+
+    out = {}
+    ec = mt.generate_data("e-commerce", num_rows=8 * ZOO_BATCH, seed=SEED + 9)
+    ml = mt.generate_data("movielens-25m", num_rows=ZOO_STEPS * ZOO_BATCH, seed=SEED + 9)
+    cases = {
+        "dcn_stacked": (ec, lambda: mt.DCNModel(ec.schema, depth=2, deep_block=(32, 16),
+                                                embedding_dim=8, device=dev)),
+        "dcn_parallel_low_rank": (ec, lambda: mt.DCNModel(
+            ec.schema, depth=1, deep_block=(16,), stacked=False, low_rank_dim=4,
+            embedding_dim=8, device=dev)),
+        "deepfm": (ec, lambda: mt.DeepFMModel(ec.schema, embedding_dim=8, deep_block=(16,),
+                                              device=dev)),
+        "ncf": (ml, lambda: mt.NCFModel(ml.schema, embedding_dim=8, mlp_block=(16,),
+                                        device=dev)),
+    }
+    for name, (data, make) in cases.items():
+        _, _, out[name] = card_vs_cpu(dev, make, data, ZOO_STEPS, ZOO_BATCH, name)
+
+    def dcn_bn():
+        width = mt.inputs.InputBlockV2(ec.schema, dim=8, device=dev).out_features
+        return mt.DCNModel(ec.schema, depth=1, embedding_dim=8, device=dev,
+                           deep_block=MLPBlock(width, (32, 16), normalization="batch_norm",
+                                               device=dev))
+
+    _, mbn, _, _ = graph_vs_eager(dev, None, ec, 2, "DCN with BatchNorm, 4 steps a chunk",
+                                  make=dcn_bn, batch=ZOO_BATCH, metrics=[],
+                                  steps_per_execution=4)
+    bn = [m for m in mbn.modules() if isinstance(m, mt.blocks.BatchNorm)]
+    require(len(bn) == 2 and not torch.equal(bn[0].mean, torch.zeros_like(bn[0].mean)),
+            "DCN with BatchNorm: the running statistics did not move on the graph route")
+
+    x = torch.ones(4096, device=dev)
+    eager = Dropout(0.5, seed=11, device=dev)
+    stream = [eager(x, training=True) for _ in range(3)]
+    drop = Dropout(0.5, seed=11, device=dev)
+    first = drop(x, training=True)  # the eager chunk before a capture
+    graph = torch.cuda.CUDAGraph()
+    from models_tpu_torch.models.step_graph import chunk_generators
+
+    holder = torch.nn.ModuleList([drop])
+    for g in chunk_generators(holder):
+        graph.register_generator_state(g)
+    with torch.cuda.graph(graph):
+        captured = drop(x, training=True)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(captured.clone())
+    torch.cuda.synchronize()
+    require(not torch.equal(replays[0], replays[1]), "Dropout: two replays drew the same mask")
+    out["dropout_replays_follow_eager_stream"] = bool(
+        torch.equal(first, stream[0]) and torch.equal(replays[0], stream[1])
+        and torch.equal(replays[1], stream[2]))
+    print(f"  Dropout on a captured graph: replays draw new masks; they follow the eager "
+          f"stream: {out['dropout_replays_follow_eager_stream']}", flush=True)
+    return out
+
+
+def measure_criteo_pack(dev, gen, data, errs) -> dict:
+    """K9 on the DLRM's training pack (the criteo-small dataset's 40 int32
+    columns, 160-byte rows: 13 float32 bit-cast, 26 ids, the label) at one
+    chunk's ids (DLRM_SPE batches of a permutation): bit for bit against its
+    plain version (its plan printed: 16-byte pieces), then timed as
+    measure_gather times K9's other shapes: warm and flushed, the plain
+    version and ``index_select`` flushed and warm. Bound: 2*n*160 + 4*n
+    bytes."""
+    from models_tpu_torch.ops import embedding_lookup as E
+
+    packed = data._device_train_pack.packed
+    B = DLRM_SPE * TRAIN_BATCH
+    ids = torch.randperm(packed.shape[0], device=dev, generator=gen)[:B].to(torch.int32)
+    gather_case(f"criteo pack R={packed.shape[0]} D={packed.shape[1]} B={B} int32", packed, ids,
+                errs)
+    out_plan = E.gather_plan(packed, torch.empty(B, packed.shape[1], dtype=torch.int32,
+                                                 device=dev))
+    require(out_plan["piece_bytes"] == 16, f"criteo pack: K9's plan {out_plan}")
+    ids_l = ids.long()
+    nbytes = 2 * B * packed.shape[1] * 4 + 4 * B
+    times = {"rows": packed.shape[0], "row_bytes": packed.shape[1] * 4, "ids": B,
+             "plan": out_plan,
+             "ms": device_ms(lambda: E.row_gather(packed, ids)),
+             "ms_cold": device_ms(lambda: E.row_gather(packed, ids), cold=True),
+             "plain_ms": device_ms(lambda: E.row_gather_plain(packed, ids), cold=True),
+             "library_ms": device_ms(lambda: torch.index_select(packed, 0, ids_l), cold=True),
+             "library_ms_warm": device_ms(lambda: torch.index_select(packed, 0, ids_l)),
+             "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+    times["share_of_bound_cold"] = times["bound_ms"] / times["ms_cold"]
+    print("row gather, criteo pack " + json.dumps(times), flush=True)
+    return times
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -3204,6 +3586,29 @@ def main() -> int:
     for row in rows:  # the graph route's replays, counted in their traces
         if row["name"] in spe_traced:
             row["launches_replayed_traced"] = spe_traced[row["name"]]
+
+    stamp("phase 12: the DLRM at the bench's width (criteo-small), one step at a time, "
+          "graph-replayed, card vs CPU, evaluate, predict")
+    dlrm, dlrm_k9, dlrm_k9_traced, dlrm_data = phase_dlrm(dev, card)
+    print("dlrm " + json.dumps(dlrm), flush=True)
+    stamp("phase 12b: K9 on the DLRM's 160-byte pack")
+    criteo_pack = measure_criteo_pack(dev, gen, dlrm_data, errs)
+    del dlrm_data
+    torch.cuda.empty_cache()
+    stamp("phase 13: the DLRM on the full Criteo cardinalities, row-sparse (K7)")
+    criteo, criteo_k7, criteo_k7_times = phase_criteo_sparse(dev, gen, errs)
+    print("criteo " + json.dumps(criteo), flush=True)
+    stamp("phase 14: DCN-v2, DeepFM, NCF card vs CPU; BatchNorm and Dropout on the graph route")
+    zoo = phase_ranking_zoo(dev)
+    print("ranking zoo " + json.dumps(zoo), flush=True)
+    for row in rows:  # the ranking paths' launches, each counted from zero around its run
+        if row["name"] == "row_gather":
+            row.update(launches_dlrm=dlrm_k9, launches_replayed_traced_dlrm=dlrm_k9_traced,
+                       criteo_pack=criteo_pack)
+            row["max_abs_err"] = errs["row_gather"]
+        elif row["name"] == "row_scatter_add":
+            row.update(launches_criteo=criteo_k7, criteo=criteo_k7_times)
+            row["max_abs_err"] = errs["row_scatter_add"]
     stamp("done")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -2,15 +2,21 @@
 its port.
 
 The caller flattens the JAX side: ``{"/".join(path): numpy array}`` over
-``nnx.state(model, nnx.Param)`` for the parameters, and over the
-``sparse_slots`` entries of ``nnx.state(model, nnx.Variable)`` for the slots.
-The port's module tree mirrors the JAX attribute names, so a key maps to the
-parameter of the same dotted path, except that a Dense ``kernel`` (in, out)
+``nnx.state(model, nnx.Param)`` for the parameters (or over
+``nnx.state(model, nnx.Variable)`` without the slots, which adds BatchNorm's
+running ``mean`` and ``var``), and over the ``sparse_slots`` entries of
+``nnx.state(model, nnx.Variable)`` for the slots. The port's module tree
+mirrors the JAX attribute names, so a key maps to the parameter or buffer of
+the same path (a module name may hold a ``/``, as a head's
+``"click/BinaryOutput"`` does), except that a Dense ``kernel`` (in, out)
 becomes the port's ``weight`` (out, in). What is carried:
 
 - every parameter, in its own dtype: a bf16 embedding table stays bf16, bit
   for bit (the array's dtype must be the port parameter's);
-- embedding tables whole, padding rows included;
+- embedding tables whole, padding rows included, the fused tables too;
+  ``DenseMaybeLowRank``'s ``u`` and ``v`` (the cross layers') in the JAX
+  layout;
+- BatchNorm's running statistics, where the caller gives them;
 - the slots (``.../<table>/sparse_slots/<acc|m|v>``, float32) onto the
   table's ``sparse_slots`` buffers, which ``fit`` then keeps when they are
   the ones its embedding optimizer needs.
@@ -40,20 +46,24 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 
 def load_jax_params(module: nn.Module, flat: Dict[str, np.ndarray],
                     slots: Optional[Dict[str, np.ndarray]] = None) -> nn.Module:
-    """Copy ``flat`` into ``module``'s parameters and ``slots`` onto its
-    tables. Raises on a key that names no parameter or table, on a shape or
-    dtype mismatch, and on any parameter left unset."""
+    """Copy ``flat`` into ``module``'s parameters (and buffers) and
+    ``slots`` onto its tables. Raises on a key that names no parameter,
+    buffer or table, on a shape or dtype mismatch, and on any parameter left
+    unset."""
     params = dict(module.named_parameters())
+    # the port's names by their JAX path: "." and "/" both separate
+    targets = {name.replace(".", "/"): (name, t)
+               for name, t in list(params.items()) + list(module.named_buffers())}
     unset = set(params)
     for key, value in flat.items():
         parts = key.split("/")
         arr = np.asarray(value)
         if parts[-1] == "kernel":
             parts, arr = parts[:-1] + ["weight"], arr.T
-        name = ".".join(parts)
-        if name not in params:
-            raise KeyError(f"JAX parameter {key!r} has no counterpart {name!r} in the port")
-        p, t = params[name], _tensor(arr)
+        if "/".join(parts) not in targets:
+            raise KeyError(f"JAX parameter {key!r} has no counterpart in the port")
+        name, p = targets["/".join(parts)]
+        t = _tensor(arr)
         if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
             raise ValueError(f"{key!r}: JAX {tuple(t.shape)} {t.dtype} != port "
                              f"{tuple(p.shape)} {p.dtype}")

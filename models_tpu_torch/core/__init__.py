@@ -1,4 +1,4 @@
-from .aggregation import ConcatFeatures, sequence_mean
+from .aggregation import ConcatFeatures, StackFeatures, sequence_mean, sequence_sum
 from .block import Block
 from .combinators import ParallelBlock, SequentialBlock
 from .device import resolve_device
@@ -7,6 +7,6 @@ from .types import ModelContext, Prediction, SequenceFeature, TopKPrediction
 
 __all__ = [
     "Block", "ConcatFeatures", "Encoder", "ModelContext", "ParallelBlock",
-    "Prediction", "SequenceFeature", "SequentialBlock", "TopKEncoder",
-    "TopKPrediction", "resolve_device", "sequence_mean",
+    "Prediction", "SequenceFeature", "SequentialBlock", "StackFeatures", "TopKEncoder",
+    "TopKPrediction", "resolve_device", "sequence_mean", "sequence_sum",
 ]

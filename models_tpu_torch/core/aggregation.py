@@ -1,4 +1,6 @@
-"""Aggregations the towers use (``models_tpu/core/aggregation.py``)."""
+"""Aggregations (``models_tpu/core/aggregation.py``): concatenation and
+stacking of a dict of features, both in sorted key order, and the masked
+mean and sum over a list column's axis 1."""
 
 from __future__ import annotations
 
@@ -29,6 +31,22 @@ class ConcatFeatures(Block):
         return torch.cat(vals, dim=-1)
 
 
+class StackFeatures(Block):
+    """Stack equal-width features on a new axis (1: (B, F, D)), in SORTED
+    key order; the input of the dot-product interaction."""
+
+    def __init__(self, axis: int = 1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, inputs: TensorDict, **kwargs) -> torch.Tensor:
+        vals = [v.values if isinstance(v, SequenceFeature) else v
+                for v in (inputs[name] for name in sorted(inputs))]
+        if len({v.ndim for v in vals}) > 1:
+            raise ValueError("stack: mixed tensor ranks; pool sequence features first")
+        return torch.stack(vals, dim=self.axis)
+
+
 def sequence_mean(x: Union[torch.Tensor, SequenceFeature]) -> torch.Tensor:
     """Masked mean over axis 1; the count is clamped at 1 for empty rows."""
     if isinstance(x, SequenceFeature):
@@ -37,4 +55,11 @@ def sequence_mean(x: Union[torch.Tensor, SequenceFeature]) -> torch.Tensor:
     return x.mean(dim=1)
 
 
-SEQUENCE_COMBINERS = {"mean": sequence_mean}
+def sequence_sum(x: Union[torch.Tensor, SequenceFeature]) -> torch.Tensor:
+    """Masked sum over axis 1."""
+    if isinstance(x, SequenceFeature):
+        return (x.values * x.mask[..., None].to(x.values.dtype)).sum(dim=1)
+    return x.sum(dim=1)
+
+
+SEQUENCE_COMBINERS = {"mean": sequence_mean, "masked-mean": sequence_mean, "sum": sequence_sum}

@@ -1,8 +1,10 @@
 """Synthetic datasets from the known schemas.
 
-Copies the ``e-commerce`` and ``movielens-25m`` schemas and the numpy draws of
-``models_tpu/data/synthetic.py``, so that one seed gives the same rows in both
-packages.
+Copies the ``e-commerce``, ``movielens-25m``, ``criteo`` and ``criteo-small``
+schemas and the numpy draws of ``models_tpu/data/synthetic.py``, so that one
+seed gives the same rows in both packages. ``criteo`` has the published
+Criteo 1TB cardinalities (26 tables, 31,457,706 rows); ``criteo-small`` the
+same layout with 1000 ids a column.
 """
 
 from __future__ import annotations
@@ -76,9 +78,36 @@ def _movielens_25m_schema() -> Schema:
     )
 
 
+# the Criteo 1TB click logs' 26 categorical cardinalities (the largest id of
+# each column; the table takes one row more)
+CRITEO_CARDINALITIES = (
+    7599500, 33521, 17022, 7339, 20046, 4, 7068, 1377, 63, 5345303,
+    561810, 242827, 11, 2209, 10616, 100, 4, 968, 15, 7838519,
+    2580502, 6878028, 298771, 11951, 97, 35)
+
+
+def _criteo_layout(cards) -> Schema:
+    """13 continuous columns I1..I13, 26 categorical C1..C26, the binary
+    ``label``."""
+    cols: List[ColumnSchema] = [cont(f"I{i}", tags=Tags.CONTINUOUS) for i in range(1, 14)]
+    cols += [cat(f"C{i}", card) for i, card in enumerate(cards, start=1)]
+    cols.append(_binary_target("label"))
+    return Schema(cols)
+
+
+def _criteo_schema() -> Schema:
+    return _criteo_layout(CRITEO_CARDINALITIES)
+
+
+def _criteo_small_schema() -> Schema:
+    return _criteo_layout([1000] * 26)
+
+
 KNOWN_DATASETS: Dict[str, Callable[[], Schema]] = {
     "e-commerce": _ecommerce_schema,
     "movielens-25m": _movielens_25m_schema,
+    "criteo": _criteo_schema,
+    "criteo-small": _criteo_small_schema,
 }
 
 

@@ -1,5 +1,6 @@
 from .base import InputBlockV2
-from .continuous import Continuous
-from .embedding import EmbeddingTable, Embeddings
+from .continuous import ConcatDict, Continuous, ContinuousEmbedding, ContinuousProjection
+from .embedding import EmbeddingTable, Embeddings, FusedEmbeddingTables
 
-__all__ = ["InputBlockV2", "Continuous", "EmbeddingTable", "Embeddings"]
+__all__ = ["ConcatDict", "Continuous", "ContinuousEmbedding", "ContinuousProjection",
+           "EmbeddingTable", "Embeddings", "FusedEmbeddingTables", "InputBlockV2"]

@@ -1,13 +1,17 @@
-"""Continuous features (``models_tpu/inputs/continuous.py``)."""
+"""Continuous features (``models_tpu/inputs/continuous.py``): the selection,
+the soft embedding and the projection."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch import nn
 
+from ..core.aggregation import ConcatFeatures
 from ..core.block import Block
-from ..core.types import TensorDict
+from ..core.combinators import SequentialBlock
+from ..core.types import SequenceFeature, TensorDict
 from ..schema import Schema
 
 
@@ -29,3 +33,44 @@ class Continuous(Block):
             v = inputs[name]
             out[name] = (v[:, None] if v.ndim == 1 else v).to(torch.float32)
         return out
+
+
+class ContinuousEmbedding(Block):
+    """Soft embedding of continuous features: each scalar attends over a
+    small learned table, ``softmax(x @ proj) @ table`` with ``proj`` (1, n)
+    and ``table`` (n, dim), both drawn N(0, 0.05**2) from ``seed``."""
+
+    def __init__(self, num_embeddings: int = 10, dim: int = 8, seed: int = 0, device=None):
+        super().__init__(block_name="continuous_embedding")
+        self.out_features = dim
+        gen = torch.Generator(torch.device(device or "cpu")).manual_seed(seed)
+        self.proj = nn.Parameter(
+            torch.randn(1, num_embeddings, generator=gen, device=device) * 0.05)
+        self.table = nn.Parameter(
+            torch.randn(num_embeddings, dim, generator=gen, device=device) * 0.05)
+
+    def _embed(self, x: torch.Tensor) -> torch.Tensor:
+        x = x[:, None] if x.ndim == 1 else x
+        return torch.softmax(x.float() @ self.proj, dim=-1) @ self.table
+
+    def forward(self, inputs, **kwargs):
+        if isinstance(inputs, dict):
+            return {k: self._embed(v) for k, v in inputs.items()
+                    if not isinstance(v, SequenceFeature)}
+        return self._embed(inputs)
+
+
+class ConcatDict(Block):
+    """Concatenate a feature dict along the last axis, in sorted key order."""
+
+    def forward(self, inputs, **kwargs):
+        return ConcatFeatures()(inputs)
+
+
+def ContinuousProjection(schema: Schema, projection: Block) -> SequentialBlock:
+    """The continuous columns, concatenated, through ``projection`` (whose
+    ``out_features`` the block takes)."""
+    block = SequentialBlock([Continuous(schema), ConcatDict(), projection],
+                            block_name="continuous_projection")
+    block.out_features = projection.out_features
+    return block

@@ -1,10 +1,21 @@
 """Embedding tables and the schema-driven ``Embeddings()`` factory
-(``models_tpu/inputs/embedding.py``, the plain single-device lookup).
+(``models_tpu/inputs/embedding.py``, the plain single-device lookup), with
+the fused tables of the ranking models.
 
 Columns sharing an int-domain name share one table. A list column not tagged
-``SEQUENCE`` is mean-pooled over its mask (multi-hot). Tables are float32 or,
-at rest, bfloat16; lookups of a bf16 table are cast to the policy's compute
-dtype (float32, or bf16 under ``mixed_bfloat16``: ``_cast_up``).
+``SEQUENCE`` is pooled over its mask (``sequence_combiner``: mean by
+default, or sum). Tables are float32 or, at rest, bfloat16; lookups of a
+bf16 table are cast to the policy's compute dtype (float32, or bf16 under
+``mixed_bfloat16``: ``_cast_up``).
+
+``Embeddings(fused=True)`` (the DLRM's default) puts the single-column
+scalar domains into uniform-stride :class:`FusedEmbeddingTables`, grouped by
+:func:`_fused_groups` with the JAX package's constants (so the grouping, and
+so the parameters, are the same function of the schema in both packages):
+one lookup of (B, F) offset ids instead of F. The JAX package takes the
+fused table's gradient as a one-hot product, a workaround for XLA's slow
+scatter on TPU; the port keeps the function, ``F.embedding`` on the offset
+ids, whose backward sums the repeated rows.
 
 A table routed to the row-sparse optimizer (``sparse_routed``, set by
 ``Model.fit``) looks up from the detached table, in training, into float32
@@ -12,13 +23,16 @@ rows that are a leaf of the autograd graph: after the backward their
 ``.grad`` is the gradient of the gathered rows, whatever the table's dtype.
 Each such lookup is recorded as ``(table, ids, rows)`` in the context's
 ``sparse_lookups``; a sequence column is recorded before its combiner, with
-the padded (B, L) ids, as the JAX package taps it.
+the padded (B, L) ids, as the JAX package taps it, and a fused table with
+its (B, F) offset ids.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Union
+import warnings
+from typing import Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -28,7 +42,8 @@ from ..core.combinators import ParallelBlock
 from ..core.policy import compute_dtype
 from ..core.block import Block
 from ..core.types import SequenceFeature
-from ..schema import ColumnSchema, Schema, Tags, infer_embedding_dim
+from ..schema import (ColumnSchema, Schema, Tags, create_categorical_column,
+                      infer_embedding_dim)
 
 
 class SparseSlots(nn.Module):
@@ -130,16 +145,115 @@ class EmbeddingTable(Block):
         return f"{self.input_dim}x{self.dim}, features={self.features}"
 
 
+# uniform-stride fused tables are worth their padding up to a point
+_FUSED_STRIDE_MAX = 8192
+_FUSED_BYTES_MAX = 256 << 20
+# the JAX package's cost model of a fused group (its constants, taken
+# unchanged so that both packages group a schema alike): a lookup's fixed
+# cost, and the cost of a (feature x stride-row) of the backward; a stride
+# tier merges into the next larger one when the extra rows cost less than
+# the lookup it saves. Whether the card wants other groups is open
+# (ROADMAP.md queue 2).
+_FUSED_KERNEL_MS = 0.05
+_FUSED_ROW_MS = 1.05e-5
+
+
+def _fused_groups(cols: Sequence[ColumnSchema], dim: int) -> List[List[ColumnSchema]]:
+    """Partition fusable columns into uniform-stride groups: power-of-two
+    stride tiers merged upward where the cost model says so, each group at
+    most ``_FUSED_STRIDE_MAX`` rows a column and ``_FUSED_BYTES_MAX`` in all.
+    Columns of more padded rows than the stride cap, and tiers that leave
+    fewer than two columns, stay out (they get their own tables)."""
+    tiers: Dict[int, list] = {}
+    for c in cols:
+        p = -(-int(c.cardinality) // 8) * 8
+        if p > _FUSED_STRIDE_MAX:
+            continue
+        tiers.setdefault(1 << (p - 1).bit_length(), []).append(c)
+    strides = sorted(tiers)
+    groups = []
+    for i, s in enumerate(strides):
+        group = tiers[s]
+        if i + 1 < len(strides):
+            # a lone column left behind costs a table of its own, so it
+            # accepts a pricier merge than a tier that would fuse anyway
+            thresh = _FUSED_KERNEL_MS if len(group) > 1 else 2 * _FUSED_KERNEL_MS
+            if len(group) * (strides[i + 1] - s) * _FUSED_ROW_MS < thresh:
+                tiers[strides[i + 1]] = group + tiers[strides[i + 1]]
+                continue
+        if len(group) < 2:
+            continue
+        max_feats = _FUSED_BYTES_MAX // (s * dim * 4)
+        if max_feats < 2:
+            continue
+        for j in range(0, len(group), max_feats):
+            chunk = group[j:j + max_feats]
+            if len(chunk) >= 2:
+                groups.append(chunk)
+    return groups
+
+
+class FusedEmbeddingTables(EmbeddingTable):
+    """One table serving several scalar categorical columns: column f's
+    rows start at ``row_offsets[f]``, and one lookup of the (B, F) offset
+    ids replaces F. Where every column fits a uniform stride (the groups
+    :func:`_fused_groups` makes) the rows are (F * stride, D); otherwise they
+    pack tightly. ``block_name`` is ``"fused_embeddings"``."""
+
+    def __init__(self, col_schemas: Sequence[ColumnSchema], dim: int,
+                 dtype: torch.dtype = torch.float32, seed: int = 0, device=None):
+        cols = list(col_schemas)
+        padded = [-(-int(c.cardinality) // 8) * 8 for c in cols]
+        stride = max(padded)
+        uniform = (stride <= _FUSED_STRIDE_MAX
+                   and stride * len(cols) * dim * 4 <= _FUSED_BYTES_MAX)
+        if uniform:
+            padded = [stride] * len(cols)
+        else:
+            warnings.warn("FusedEmbeddingTables packs its columns tightly (non-uniform "
+                          "strides); Embeddings(..., fused=True) fuses only uniform-stride "
+                          "groups", stacklevel=2)
+        total = int(sum(padded))
+        super().__init__(dim, create_categorical_column("fused_embeddings", total - 1),
+                         dtype=dtype, seed=seed, device=device)
+        self.features = [c.name for c in cols]
+        self.schema = Schema(cols)
+        self.block_name = "fused_embeddings"
+        self.stride = stride if uniform else None
+        self.row_offsets = [int(x) for x in np.cumsum([0] + padded[:-1])]
+        self.register_buffer("offsets", torch.tensor(self.row_offsets, dtype=torch.int64,
+                                                     device=device), persistent=False)
+
+    def forward(self, inputs, context=None, **kwargs):
+        local = torch.stack([inputs[name].to(torch.int64) for name in self.features], dim=1)
+        emb = self._lookup(local + self.offsets, context)  # (B, F, D)
+        # unbind, not emb[:, i]: its backward stacks the columns' gradients
+        # into one (B, F, D) tensor, where each slice's would be a zero-filled
+        # (B, F, D) tensor, all F of them summed (on the card, at batch 8192
+        # and F = 26, 1.8 of a 3.3 ms step)
+        return dict(zip(self.features, emb.unbind(1)))
+
+    def extra_repr(self) -> str:
+        return f"{self.input_dim}x{self.dim}, stride={self.stride}, features={self.features}"
+
+
 def Embeddings(
-    schema: Schema, dim: Optional[int] = None, param_dtype: Optional[torch.dtype] = None,
-    seed: int = 0, device=None
+    schema: Schema, dim: Optional[int] = None,
+    sequence_combiner: Union[str, Dict[str, Optional[str]], None] = "default",
+    param_dtype: Optional[torch.dtype] = None, seed: int = 0, fused: bool = False,
+    device=None,
 ) -> ParallelBlock:
     """One :class:`EmbeddingTable` per categorical domain, ``dim`` wide (or
-    inferred from each domain's cardinality). ``SEQUENCE`` list columns stay
-    3-D; other list columns are mean-pooled over their mask.
+    inferred from each domain's cardinality). ``sequence_combiner``:
+    ``"default"`` keeps ``SEQUENCE`` list columns 3-D and mean-pools other
+    list columns over their mask; a combiner's name (``"mean"``, ``"sum"``)
+    pools every list column; a dict gives it by column.
     ``param_dtype=torch.bfloat16`` stores the tables bf16 at rest; they then
     train only through a row-sparse ``embedding_optimizer`` (stochastic-
-    rounding writes)."""
+    rounding writes). ``fused=True`` with an int ``dim`` puts the
+    single-column scalar domains into :class:`FusedEmbeddingTables` (named
+    ``fused``, or ``fused_<i>`` for several groups; float32), the other
+    domains into tables of their own."""
     cat = schema.categorical
     if not len(cat):
         raise ValueError("Schema has no categorical columns")
@@ -148,11 +262,24 @@ def Embeddings(
         by_domain.setdefault(col.domain_name, []).append(col)
 
     def combiner_for(col: ColumnSchema) -> Optional[str]:
-        if not col.is_list or col.has_tag(Tags.SEQUENCE):
+        if isinstance(sequence_combiner, dict):
+            return sequence_combiner.get(col.name)
+        if not col.is_list:
             return None
-        return "mean"
+        if sequence_combiner == "default":
+            return None if col.has_tag(Tags.SEQUENCE) else "mean"
+        return sequence_combiner
 
-    tables = {}
+    tables: Dict[str, EmbeddingTable] = {}
+    if fused and isinstance(dim, int):
+        fusable = [cols[0] for cols in by_domain.values()
+                   if len(cols) == 1 and not cols[0].is_list]
+        groups = _fused_groups(fusable, dim) if len(fusable) > 1 else []
+        for gi, chunk in enumerate(groups):
+            name = "fused" if len(groups) == 1 else f"fused_{gi}"
+            tables[name] = FusedEmbeddingTables(chunk, dim, seed=seed + 101 * gi, device=device)
+        consumed = {c.domain_name for chunk in groups for c in chunk}
+        by_domain = {d: cs for d, cs in by_domain.items() if d not in consumed}
     for i, (domain, cols) in enumerate(by_domain.items()):
         combiners = {combiner_for(c) for c in cols}
         tables[domain] = EmbeddingTable(

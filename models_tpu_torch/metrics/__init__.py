@@ -1,4 +1,5 @@
-from .base import Metric
+from .base import (AUC, MAE, RMSE, BinaryAccuracy, LogLoss, MeanMetric, Metric, Precision,
+                   Recall)
 from .topk import (
     AvgPrecisionAt,
     MRRAt,
@@ -17,7 +18,8 @@ from .topk import (
 )
 
 __all__ = [
-    "AvgPrecisionAt", "MRRAt", "Metric", "NDCGAt", "PrecisionAt", "RecallAt", "TopKMetric",
+    "AUC", "AvgPrecisionAt", "BinaryAccuracy", "LogLoss", "MAE", "MRRAt", "MeanMetric",
+    "Metric", "NDCGAt", "Precision", "PrecisionAt", "RMSE", "Recall", "RecallAt", "TopKMetric",
     "TopKMetricsAggregator", "average_precision_at", "dcg_at", "extract_topk", "mrr_at",
     "ndcg_at", "precision_at", "recall_at",
 ]

@@ -1,4 +1,7 @@
 from .base import History, Model
+from .benchmark import NCFModel
+from .ranking import DCNModel, DeepFMModel, DLRMModel
 from .retrieval import RetrievalModelV2, TwoTowerModel
 
-__all__ = ["History", "Model", "RetrievalModelV2", "TwoTowerModel"]
+__all__ = ["DCNModel", "DLRMModel", "DeepFMModel", "History", "Model", "NCFModel",
+           "RetrievalModelV2", "TwoTowerModel"]

@@ -1,7 +1,11 @@
-"""Model: a sequential container ending in a head, with ``predict``,
-``compile``, ``fit`` and ``evaluate`` (the subset of
-``models_tpu/models/base.py`` that the two-tower model serves, trains and
-evaluates with).
+"""Model: a sequential container ending in a head (or a block of heads),
+with ``predict``, ``compile``, ``fit`` and ``evaluate`` (the subset of
+``models_tpu/models/base.py`` that the two-tower and ranking models serve,
+train and evaluate with). ``predict`` gives each head's ``activation`` of
+its logits (probabilities for a binary head); ``compile`` takes each head's
+default loss and metrics. Blocks that keep state across steps (BatchNorm's
+running statistics) update it in place in the training forward, so that a
+captured chunk replays it.
 
 A training step runs the forward, the backward, one dense optimizer step,
 and, with ``compile(embedding_optimizer=...)``, one row-sparse update of
@@ -135,19 +139,27 @@ class Model(Block):
     def heads(self) -> List[ModelOutput]:
         return [m for m in self.modules() if isinstance(m, ModelOutput)]
 
-    @staticmethod
-    def _outputs(preds):
+    def _outputs(self, preds):
+        """What ``predict`` returns of the model's output: each head's
+        activation of its logits."""
         if isinstance(preds, TopKPrediction):
             return {"scores": preds.scores, "ids": preds.identifiers}
+        heads = {h.block_name: h for h in self.heads()}
         if isinstance(preds, Prediction):
-            return preds.outputs
+            head = next(iter(heads.values()), None)
+            return head.activation(preds.outputs) if head is not None else preds.outputs
+        if isinstance(preds, dict):
+            return {k: heads[k].activation(v.outputs) if isinstance(v, Prediction) and k in heads
+                    else v for k, v in preds.items()}
         return preds
 
     @torch.no_grad()
     def predict(self, data: Union[Dataset, Loader], batch_size: Optional[int] = None,
                 device=None):
-        """Run the model over the data in batches and drop padded rows. A top-k
-        model returns ``{"scores": (n, k) f32, "ids": (n, k) int32}`` as numpy."""
+        """Run the model over the data in batches and drop padded rows: numpy
+        arrays of each head's activation (a binary head's probabilities (n,),
+        a regression head's values (n,); several heads: a dict by head name).
+        A top-k model returns ``{"scores": (n, k) f32, "ids": (n, k) int32}``."""
         dev = check_module_device(self, device)
         loader = data if isinstance(data, Loader) else Loader(data, batch_size or 1024)
         chunks = []

@@ -36,7 +36,10 @@ runs); later replays launch the recorded kernels with no Python call, and
 are counted from a profiler trace of the replays (``chip_smoke.py``).
 ``ModelContext(step=...)`` is frozen at its capture value: no block on the
 dense route reads it (the row-sparse update, which does, never takes this
-route). The route draws no random numbers.
+route). The random numbers a chunk draws come from generators on the card
+(``Dropout``'s own), each registered with the graph, so that every replay
+draws anew. Blocks that keep state across steps (BatchNorm's running
+statistics) update it in place: a replay updates it as the eager steps do.
 """
 
 from __future__ import annotations
@@ -61,6 +64,13 @@ def captured_tensors(model, source: torch.Tensor) -> tuple:
         ts.append(rest)
     ts.append(source)
     return tuple((t.data_ptr(), tuple(t.shape)) for t in ts)
+
+
+def chunk_generators(model) -> list:
+    """The generators on the card that the model's blocks draw from in
+    training (``Dropout.generator``)."""
+    gens = [getattr(m, "generator", None) for m in model.modules()]
+    return [g for g in gens if isinstance(g, torch.Generator) and g.device.type == "cuda"]
 
 
 class _Entry:
@@ -127,6 +137,8 @@ class ChunkGraphs:
         torch.cuda.empty_cache()  # as the capture does on entry: the pool's bytes alone below
         reserved = torch.cuda.memory_stats(dev).get("reserved_bytes.all.current", 0)
         graph = torch.cuda.CUDAGraph()
+        for gen in chunk_generators(model):
+            graph.register_generator_state(gen)
         t = time.perf_counter()
         try:
             with torch.cuda.graph(graph):

@@ -1,11 +1,29 @@
-"""Model output heads (``models_tpu/outputs/base.py``): the temperature scaler
-and the part of ``ModelOutput`` the contrastive head uses."""
+"""Model output heads (``models_tpu/outputs/base.py``).
+
+A head maps the body's output to logits and emits a :class:`Prediction`
+with its bound target and sample weight; it carries its default loss and
+metrics, which ``Model.compile`` resolves per head, and the ``activation``
+that ``Model.predict`` applies to its logits. Ported: the temperature
+scaler, ``ModelOutput``, ``RegressionOutput``, ``BinaryOutput``,
+``CategoricalTarget``, ``CategoricalOutput``, ``ColumnBasedSampleWeight`` and
+``OutputBlock`` (heads from the schema's TARGET columns). A head's width is
+given at construction (``in_features``: the body's ``out_features``).
+Weight tying (``EmbeddingTablePrediction``) and ``DotProduct`` are not
+ported yet (ROADMAP.md queue 1).
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple
 
+import torch
+from torch import nn
+
+from ..blocks.mlp import Dense
 from ..core.block import Block
+from ..core.combinators import ParallelBlock
+from ..core.types import Prediction
+from ..schema import ColumnSchema, Schema, Tags
 
 
 class LogitsTemperatureScaler(Block):
@@ -20,20 +38,22 @@ class LogitsTemperatureScaler(Block):
 
 
 class ModelOutput(Block):
-    """Head base: the bound target, the loss it defaults to, and the
-    temperature scaler (present only when T != 1). The head's ``block_name``,
-    ``"<target>/<class>"``, names its loss in the logs."""
+    """Head base: ``pre -> to_call -> temperature`` gives the logits, then
+    the target binding and the ``post`` block (the sample weights:
+    :class:`ColumnBasedSampleWeight`) on the :class:`Prediction`. The head's
+    ``block_name``, ``"<target>/<class>"``, names its loss in the logs.
+    """
 
     default_loss: str = "mse"
 
-    def __init__(self, target: Optional[str] = None, post=None, logits_temperature: float = 1.0):
+    def __init__(self, target: Optional[str] = None, post=None, logits_temperature: float = 1.0,
+                 to_call: Optional[nn.Module] = None, pre: Optional[nn.Module] = None):
         super().__init__(
             block_name=f"{target}/{type(self).__name__}" if target else type(self).__name__)
-        if post is not None:
-            raise NotImplementedError(
-                "a post block on a head (ContrastiveSampleWeight) is not ported yet "
-                "(ROADMAP.md queue 1)")
         self.target = target
+        self.to_call = to_call
+        self.pre = pre
+        self.post = post
         self.logits_scaler = (
             LogitsTemperatureScaler(logits_temperature) if logits_temperature != 1.0 else None
         )
@@ -51,3 +71,183 @@ class ModelOutput(Block):
                 return next(iter(targets.values()))
             return None
         return targets
+
+    def activation(self, logits):
+        """The user-facing prediction of the logits (``predict``)."""
+        return logits
+
+    def logits(self, inputs, **kwargs):
+        out = inputs
+        # a multi-task body emits a dict by task: take this head's
+        if isinstance(out, dict) and self.target is not None and self.target in out:
+            out = out[self.target]
+        if self.pre is not None:
+            out = self.pre(out, **kwargs)
+        if self.to_call is not None:
+            out = self.to_call(out, **kwargs)
+        if self.logits_scaler is not None:
+            out = self.logits_scaler(out)
+        return out
+
+    def forward(self, inputs, *, training=False, context=None, targets=None, **kwargs):
+        logits = self.logits(inputs, training=training, context=context, targets=targets)
+        pred = Prediction(outputs=logits, targets=self.bind_target(targets))
+        if self.post is not None:
+            pred = self.post(pred, training=training, context=context, targets=targets)
+        return pred
+
+
+def _squeeze_last(x: torch.Tensor) -> torch.Tensor:
+    return x[..., 0] if x.ndim > 1 and x.shape[-1] == 1 else x
+
+
+def _target_name(target) -> Optional[str]:
+    return target.name if isinstance(target, ColumnSchema) else target
+
+
+class RegressionOutput(ModelOutput):
+    """Linear regression head: one Dense unit; ``predict`` squeezes it."""
+
+    default_loss = "mse"
+
+    def __init__(self, target=None, in_features: int = 1, seed: int = 0, device=None, **kwargs):
+        super().__init__(target=_target_name(target), **kwargs)
+        self.to_call = Dense(in_features, 1, seed=seed, device=device)
+
+    def default_metrics(self):
+        from ..metrics.base import RMSE
+
+        return [RMSE(name=f"{self.target}/rmse" if self.target else "rmse")]
+
+    def activation(self, logits):
+        return _squeeze_last(logits)
+
+
+class BinaryOutput(ModelOutput):
+    """Binary classification head: emits logits (the loss takes them in its
+    stable form); ``predict`` gives the sigmoid, squeezed to (B,)."""
+
+    default_loss = "binary_crossentropy"
+
+    def __init__(self, target=None, in_features: int = 1, seed: int = 0, device=None, **kwargs):
+        super().__init__(target=_target_name(target), **kwargs)
+        self.to_call = Dense(in_features, 1, seed=seed, device=device)
+
+    def default_metrics(self):
+        from ..metrics.base import AUC, BinaryAccuracy, Precision, Recall
+
+        p = f"{self.target}/" if self.target else ""
+        return [BinaryAccuracy(name=f"{p}binary_accuracy"), Precision(name=f"{p}precision"),
+                Recall(name=f"{p}recall"), AUC(name=f"{p}auc")]
+
+    def activation(self, logits):
+        return _squeeze_last(torch.sigmoid(logits))
+
+
+class CategoricalTarget(Block):
+    """Dense projection to the classes' logits."""
+
+    def __init__(self, in_features: int, num_classes: int, use_bias: bool = True,
+                 seed: int = 0, device=None):
+        super().__init__()
+        self.dense = Dense(in_features, num_classes, use_bias=use_bias, seed=seed, device=device)
+        self.num_classes = num_classes
+
+    def forward(self, inputs, **kwargs):
+        return self.dense(inputs)
+
+
+class CategoricalOutput(ModelOutput):
+    """Multi-class head over a categorical column (its cardinality) or a
+    number of classes; ``predict`` gives the softmax."""
+
+    default_loss = "sparse_categorical_crossentropy"
+
+    def __init__(self, to_call, in_features: int, target: Optional[str] = None,
+                 default_metrics_top_ks: Sequence[int] = (10,), seed: int = 0, device=None,
+                 **kwargs):
+        if isinstance(to_call, ColumnSchema):
+            target = target or to_call.name
+            num_classes = to_call.cardinality
+        elif isinstance(to_call, int):
+            num_classes = to_call
+        else:
+            raise NotImplementedError(
+                "weight tying (an EmbeddingTable as the head) is not ported yet "
+                "(ROADMAP.md queue 1)")
+        super().__init__(target=target, **kwargs)
+        self.num_classes = num_classes
+        self.top_ks = tuple(default_metrics_top_ks)
+        self.to_call = CategoricalTarget(in_features, num_classes, seed=seed, device=device)
+
+    def default_metrics(self):
+        from ..metrics.topk import TopKMetricsAggregator
+
+        return [TopKMetricsAggregator.default(k) for k in self.top_ks]
+
+    def activation(self, logits):
+        return torch.softmax(logits, dim=-1)
+
+
+class ColumnBasedSampleWeight(Block):
+    """A head's ``post``: sample weights from a feature or target column,
+    or binary class weights ``(negative, positive)`` by its value; they
+    multiply the weights the Prediction already has."""
+
+    def __init__(self, weight_column_name: str,
+                 binary_class_weights: Optional[Tuple[float, float]] = None):
+        super().__init__()
+        self.weight_column_name = weight_column_name
+        self.binary_class_weights = binary_class_weights
+
+    def compute_weight(self, col: torch.Tensor) -> torch.Tensor:
+        col = col.to(torch.float32)
+        if self.binary_class_weights is not None:
+            neg_w, pos_w = self.binary_class_weights
+            return torch.where(col > 0, pos_w, neg_w)
+        return col
+
+    def forward(self, inputs, *, context=None, targets=None, **kwargs):
+        col = context.features.get(self.weight_column_name) if context is not None else None
+        if col is None and isinstance(targets, dict):
+            col = targets.get(self.weight_column_name)
+        if col is None:
+            raise ValueError(f"Column {self.weight_column_name!r} not found for sample weights")
+        w = self.compute_weight(col)
+        if isinstance(inputs, Prediction):
+            prev = inputs.sample_weight
+            return inputs._replace(sample_weight=w if prev is None else w * prev)
+        return inputs
+
+
+def OutputBlock(schema: Schema, in_features: int,
+                task_blocks: Optional[Dict[str, nn.Module]] = None,
+                logits_temperature: float = 1.0, device=None) -> Block:
+    """Heads from the schema's TARGET columns: regression (a REGRESSION tag,
+    or a float column not tagged binary) → :class:`RegressionOutput`; a
+    MULTI_CLASS_CLASSIFICATION int column → :class:`CategoricalOutput`;
+    otherwise :class:`BinaryOutput`. One head is returned as it is, several
+    as a :class:`ParallelBlock` of heads by name (a dict of Predictions).
+    ``task_blocks`` gives a target its own tower (the head's ``pre``, with
+    an ``out_features``)."""
+    targets = schema.targets
+    if not len(targets):
+        raise ValueError("Schema has no TARGET-tagged columns")
+    heads: Dict[str, ModelOutput] = {}
+    for col in targets:
+        tower = (task_blocks or {}).get(col.name)
+        kw = dict(logits_temperature=logits_temperature, device=device,
+                  in_features=tower.out_features if tower is not None else in_features)
+        if tower is not None:
+            kw["pre"] = tower
+        if col.has_tag(Tags.REGRESSION) or (
+                col.dtype.startswith("float") and not col.has_tag(Tags.BINARY_CLASSIFICATION)):
+            head = RegressionOutput(col.name, **kw)
+        elif col.has_tag(Tags.MULTI_CLASS_CLASSIFICATION) and col.int_domain:
+            head = CategoricalOutput(col, **kw)
+        else:
+            head = BinaryOutput(col.name, **kw)
+        heads[head.block_name] = head
+    if len(heads) == 1:
+        return next(iter(heads.values()))
+    return ParallelBlock(heads, block_name="output_block")

@@ -64,7 +64,11 @@ class ContrastiveOutput(ModelOutput):
             raise NotImplementedError(
                 "weight tying (an EmbeddingTable as the head) is not ported yet "
                 "(ROADMAP.md queue 1)")
-        super().__init__(target=target, post=post, logits_temperature=logits_temperature)
+        if post is not None:
+            raise NotImplementedError(
+                "a post block on the contrastive head (ContrastiveSampleWeight) is not ported "
+                "yet (ROADMAP.md queue 1)")
+        super().__init__(target=target, logits_temperature=logits_temperature)
         if isinstance(negative_samplers, (str, CandidateSampler)):
             negative_samplers = [negative_samplers]
         self.samplers = nn.ModuleList(CandidateSampler.parse(s) for s in negative_samplers or [])

@@ -182,6 +182,13 @@ class Schema:
         return self.select_by_tag(Tags.TARGET)
 
     @property
+    def user_id_column(self) -> ColumnSchema:
+        sel = self.select_by_tag(Tags.USER_ID)
+        if not len(sel):
+            raise ValueError("Schema has no column tagged user_id")
+        return sel.first
+
+    @property
     def item_id_column(self) -> ColumnSchema:
         sel = self.select_by_tag(Tags.ITEM_ID)
         if not len(sel):

@@ -20,6 +20,10 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
     code = (
         "import sys, models_tpu_torch, models_tpu_torch.ops.topk\n"
         "import models_tpu_torch.ops.embedding_lookup, models_tpu_torch.metrics\n"
+        "import models_tpu_torch.models.ranking, models_tpu_torch.models.benchmark\n"
+        "import models_tpu_torch.blocks.dlrm, models_tpu_torch.blocks.cross\n"
+        "import models_tpu_torch.blocks.interaction, models_tpu_torch.outputs.base\n"
+        "import models_tpu_torch.inputs.continuous, models_tpu_torch.losses\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -84,6 +88,9 @@ def _encoder():
 Q, C = np.ones((2, 4), np.float32), np.ones((100, 4), np.float32)
 ENTRY_POINTS = {
     "TwoTowerModel": lambda: mt.TwoTowerModel(_model()[0].schema, query_tower=(8, 4)),
+    "DLRMModel": lambda: mt.DLRMModel(mt.generate_data("criteo-small", num_rows=8).schema,
+                                      embedding_dim=8),
+    "NCFModel": lambda: mt.NCFModel(_model()[0].schema, embedding_dim=8),
     "to_top_k_encoder": lambda: _model()[1].to_top_k_encoder(_model()[0], k=3),
     "candidate_embeddings": lambda: _model()[1].candidate_embeddings(_model()[0]),
     "predict": lambda: _encoder()[1].predict(_encoder()[0], batch_size=16),
