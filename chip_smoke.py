@@ -168,7 +168,23 @@
    DCN whose deep MLP has BatchNorm, graph and eager bit for bit (its
    running statistics among the buffers compared); Dropout's generator on a
    captured graph (each replay draws a new mask);
-15. prints one JSON line with each kernel's launches (on its own path's run;
+15. the session models (phases 15-17): the bench's ``session`` cell
+   (``sequence-testing``, its L = 4, batch 1024, the GPT2-style block at
+   d_model 128, 8 heads, 2 layers, Adam at 1e-3) trained next-item through
+   ``fit(pre=SequencePredictNext)`` one step at a time (K1-K3 once a step)
+   and 8 steps a graph replay (graph and eager bit for bit with
+   deterministic algorithms on; the replays traced: K1-K3 once a step, K9
+   once a chunk), against a CPU copy after 4 steps, ``evaluate(pre=
+   SequencePredictLast)`` against the CPU's, ``predict`` (full-catalog
+   scores); ``session_bucket``'s data at ``pad="max"`` (L = 64): K1-K3
+   against their plain versions at Q = N = 65,536 on the head's real
+   operands, timed there, 8 steps one at a time (the kernels' share of the
+   step), and the mixed head (``lse_wg``, ``grad_wg``) against the unfused
+   one at the ``session`` size; ``pad="bucket"`` with 16 steps a chunk
+   (one pack and one graph a length group of 8, 16, 32, 64 positions):
+   sessions/s, each group's replayed step, the traced replays, K9 on each
+   group's pack (bit for bit, warm and flushed, ``index_select``);
+16. prints one JSON line with each kernel's launches (on its own path's run;
    K7 and K8: both row-sparse runs), error against its plain version, its
    time, the plain version's, the least time the card could take and a
    PyTorch yardstick's (the bound at the peak of the fastest arithmetic
@@ -183,7 +199,11 @@
    in the traces of the graph route's replays; K9 also the DLRM's graph
    route's launches, ``launches_dlrm`` and ``launches_replayed_traced_dlrm``,
    and its Criteo pack's times, ``criteo_pack``; K7 also the full-Criteo
-   fit's launches, ``launches_criteo``, and its times there, ``criteo``),
+   fit's launches, ``launches_criteo``, and its times there, ``criteo``;
+   K1-K3 also ``launches_session`` and the session routes' traced
+   launches, and their times at 65,536 x 65,536, ``session_long``; K9 the
+   session routes' launches and its times on the group packs,
+   ``session_bucket``),
    then the card line
    and ``{"ok": true,
    ...}`` last. Host-clock times are [median, min, max].
@@ -232,6 +252,13 @@ the two sigmoids round to either side of a threshold moves a count);
 against the eager one with deterministic algorithms on (the fused table's
 ``F.embedding`` backward sums its repeated rows in an order that varies
 otherwise).
+
+Sessions, card vs CPU after 4 Adam steps: losses within FCE_TOL,
+parameters within PARAM_ATOL but for rounding-noise elements (a gradient
+whose true value is 0 may step either way each step: SESSION_ADAM_FLIP_ATOL,
+at most FLIP_SHARE_MAX of them); ``evaluate`` as above; ``predict``'s
+scores within FCE_TOL of the largest; K1-K3 at 65,536 x 65,536 under the
+flash-CE tolerances.
 
 Any failed check raises, and the script exits non-zero. It imports nothing of
 JAX or of the JAX package.
@@ -306,6 +333,16 @@ USER_ROWS = 162_544  # the userId table, padded to a multiple of 8
 # device_ms: device events a trace may miss (or hold extra) over whole calls.
 # At most 2 cannot round a kernel launched once a call away (reps >= 5)
 LOST_EVENTS_MAX = 2
+# A traced window's lead-in: filler kernels before its first marker. Late in
+# a long run the profiler drops the first device events of an active step
+# (on an H100 under torch 2.11, whether or not the host pauses after the
+# step: a few calls' kernels of a device_ms trace, the first steps' of a
+# traced epoch; window_events prints how many of the fillers it dropped),
+# and some traces hold a warm-up call's events; the fillers take the drop,
+# and only the events between the two markers count
+LEAD_IN_KERNELS = 4096
+FILLER_KERNEL = "CUDAFunctorOnSelf_add<double>"  # a float64 add: nothing traced runs one
+WINDOW_MARKER = "spin_kernel"  # torch.cuda._sleep's kernel: nothing traced launches it
 # the bench's op-level embedding-optimizer tables (bench.py:40)
 OP_ROWS_FP32, OP_ROWS_BF16 = 4_000_000, 16_000_000
 
@@ -339,6 +376,61 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+_LEAD_IN = []
+
+
+def lead_in_graph():
+    """LEAD_IN_KERNELS float64 adds captured as one CUDA graph, once, outside
+    any trace: a replay puts the lead-in on the device's timeline for one
+    launch (the profiler's host-side work grows faster than linearly in the
+    host events of a trace: eager adds would cost seconds a window)."""
+    if not _LEAD_IN:
+        filler = torch.zeros(1, device="cuda", dtype=torch.float64)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(LEAD_IN_KERNELS):
+                filler.add_(1.0)
+        _LEAD_IN.append((graph, filler))
+    return _LEAD_IN[0][0]
+
+
+@contextlib.contextmanager
+def traced_window():
+    """Marks a window of a profiler trace on the device's timeline: the body's
+    kernels come between two of WINDOW_MARKER's, behind LEAD_IN_KERNELS
+    fillers (and before a few) that take a drop of the trace's first (or
+    last) events in their place. Call lead_in_graph() before the trace
+    starts; read with window_events."""
+    lead_in_graph().replay()
+    torch.cuda._sleep(1)
+    yield
+    torch.cuda._sleep(1)
+    filler = _LEAD_IN[0][1]
+    for _ in range(64):
+        filler.add_(1.0)
+
+
+def window_events(events):
+    """The device events (kernels and copies; no annotation ranges, whose
+    kernels would count twice) that start between a traced_window's two
+    markers, or None where the trace lost a marker. Prints how many of the
+    lead-in's fillers the profiler dropped, where it dropped any."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and not (
+        getattr(e, "is_user_annotation", False) or e.name.startswith("Optimizer."))]
+    marks = sorted(e.time_range.start for e in dev if WINDOW_MARKER in e.name)
+    lead_in = sum(FILLER_KERNEL in e.name and (not marks or e.time_range.start < marks[0])
+                  for e in dev)
+    if lead_in < LEAD_IN_KERNELS:
+        print(f"  traced window: the profiler dropped {LEAD_IN_KERNELS - lead_in} of the "
+              f"{LEAD_IN_KERNELS} lead-in kernels" + ("" if len(marks) == 2 else
+                                                       f", {2 - len(marks)} marker(s)"), flush=True)
+    if len(marks) != 2:
+        return None
+    return [e for e in dev if marks[0] < e.time_range.start < marks[1]]
+
+
 def device_ms(fn, reps: int = 50, warmup: int = 5, cold=False) -> float:
     """Device time of one call of ``fn``: the kernels and copies ``reps``
     calls put on the card (torch.profiler), each at its mean duration, as
@@ -350,7 +442,6 @@ def device_ms(fn, reps: int = 50, warmup: int = 5, cold=False) -> float:
     each line the call brings in first writes one back. ``cold="read"``:
     read the buffer instead (a sum), which leaves the L2 full of clean
     lines."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     flush = torch.ones(32 << 20, device="cuda") if cold else None
@@ -366,6 +457,7 @@ def device_ms(fn, reps: int = 50, warmup: int = 5, cold=False) -> float:
 
     for _ in range(warmup):
         call()
+    lead_in_graph()
     torch.cuda.synchronize()
     # the profiler loses device events now and then (on an H100 under
     # torch 2.11: a trace with none, and traces short of 1-24 of 50 calls'
@@ -375,7 +467,9 @@ def device_ms(fn, reps: int = 50, warmup: int = 5, cold=False) -> float:
     # device time, is taken again; the fifth such trace fails the run. The
     # trace runs a warm-up step before the timed one: a trace that starts with
     # the timed calls misses the first call's first events on a slow host
-    # (2 memsets, a copy and a kernel of the sparse update, every trace)
+    # (2 memsets, a copy and a kernel of the sparse update, every trace); and
+    # the timed calls sit in a traced_window, behind fillers that take the
+    # drop of an active step's first events
     for attempt in range(5):
         events = []
         with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
@@ -385,14 +479,14 @@ def device_ms(fn, reps: int = 50, warmup: int = 5, cold=False) -> float:
                 call()
             torch.cuda.synchronize()  # none of the warm-up's kernels in the timed step
             prof.step()
-            for _ in range(reps):
-                call()
+            with traced_window():
+                for _ in range(reps):
+                    call()
             torch.cuda.synchronize()
             prof.step()
         by_name = {}
-        for e in events:
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False) \
-                    and not (cold and any(k in e.name for k in flush_kernels)):
+        for e in window_events(events) or ():
+            if not (cold and any(k in e.name for k in flush_kernels)):
                 n, us = by_name.get(e.name, (0, 0.0))
                 by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
         lost = sum(abs(n - round(n / reps) * reps) for n, _ in by_name.values())
@@ -1322,10 +1416,12 @@ def profile_busy(run, steps: int) -> dict:
     a graph replay's kernels too, which no wrapper counts) and the launches
     the wrappers counted in it (``launches_issued``). As in device_ms, the
     trace runs ``run()`` once as a warm-up step before the traced one: a
-    trace that starts with the traced calls may miss their first events."""
-    from torch.autograd import DeviceType
+    trace that starts with the traced calls may miss their first events; and
+    the traced run sits in a traced_window (a trace that lost one of its
+    markers counts no launch, and profile_launches takes it again)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    lead_in_graph()
     torch.cuda.synchronize()
     events = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1334,23 +1430,22 @@ def profile_busy(run, steps: int) -> dict:
         run()
         torch.cuda.synchronize()
         prof.step()
-        before = route_launches()
-        t = time.perf_counter()
-        run()
+        with traced_window():
+            torch.cuda.synchronize()  # the fillers and the marker before the clock starts
+            before = route_launches()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+            issued = {n: v - before[n] for n, v in route_launches().items()}
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-        issued = {n: v - before[n] for n, v in route_launches().items()}
         prof.step()
     by_name, traced = {}, dict.fromkeys(TRACED_WRAPPERS, 0)
-    for e in events:
-        # kernels and copies; an annotation range on the device timeline
-        # (the optimizer's "Optimizer.step#...") would count its kernels twice
-        if e.device_type == DeviceType.CUDA and not (
-                getattr(e, "is_user_annotation", False) or e.name.startswith("Optimizer.")):
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            wrapper = traced_wrapper(e.name)
-            if wrapper is not None:
-                traced[wrapper] += 1
+    for e in window_events(events) or ():
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        wrapper = traced_wrapper(e.name)
+        if wrapper is not None:
+            traced[wrapper] += 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"device_busy_share": busy / wall_us,
@@ -2163,7 +2258,11 @@ def phase_evaluate(dev, catalog):
 # relevant item is near-tied with a neighbour may rank it one place apart;
 # one such flip at the top moves a mean by at most 0.5 / rows. Allowed: two
 # flips in the in-batch evaluation (8192 rows), four in the corpus's (2048)
-METRIC_ATOL = {8192: 1.25e-4, 2048: 1e-3}
+# evaluate, card vs CPU, by the rows evaluated: a row whose positive and a
+# negative score within the two sides' rounding may rank either way (8192:
+# one row; 2048: two rows; 4096, the session's predict-last evaluation: two
+# rows)
+METRIC_ATOL = {8192: 1.25e-4, 2048: 1e-3, 4096: 5e-4}
 
 
 def compare_eval(name, got, want, rows):
@@ -2697,16 +2796,17 @@ def zero_route_launches() -> None:
 
 
 def spe_fit(dev, catalog, data, epochs, shuffle=True, optimizer="adagrad", learning_rate=0.05,
-            make=None, batch=None, **compile_kw):
+            make=None, batch=None, pre=None, **compile_kw):
     """A fresh seeded model (the two-tower model, or ``make()``) fit with
-    ``compile(**compile_kw)`` in batches of ``batch`` (TRAIN_BATCH): (history,
-    model, the launches its wrappers counted, host seconds)."""
+    ``compile(**compile_kw)`` in batches of ``batch`` (TRAIN_BATCH), with
+    ``fit(pre=pre)``: (history, model, the launches its wrappers counted,
+    host seconds)."""
     model = make() if make is not None else mixed_model(dev, catalog, SEED)
     model.compile(optimizer=optimizer, learning_rate=learning_rate, **compile_kw)
     zero_route_launches()
     t = time.perf_counter()
     hist = model.fit(data, epochs=epochs, batch_size=batch or TRAIN_BATCH, shuffle=shuffle,
-                     device=dev)
+                     pre=pre, device=dev)
     torch.cuda.synchronize()
     return hist.history, model, route_launches(), time.perf_counter() - t
 
@@ -2800,7 +2900,7 @@ def graph_stats(model) -> list:
     return [{"k": key[0], "metrics": key[1], **v} for key, v in model._chunk_graphs.stats.items()]
 
 
-def replayed_fit(model, data, epochs, steps, what):
+def replayed_fit(model, data, epochs, steps, what, batch=TRAIN_BATCH, pre=None):
     """A fit of a model whose chunks are all captured, on the default device
     (``device=None``): host seconds, ms a step (host clock, the fit's wall
     over its steps), the history. Every chunk must replay: the same pack and
@@ -2809,7 +2909,7 @@ def replayed_fit(model, data, epochs, steps, what):
     graphs = dict(model._chunk_graphs._entries)
     zero_route_launches()
     t = time.perf_counter()
-    hist = model.fit(data, epochs=epochs, batch_size=TRAIN_BATCH, shuffle=False)
+    hist = model.fit(data, epochs=epochs, batch_size=batch, shuffle=False, pre=pre)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     ln = route_launches()
@@ -2822,13 +2922,13 @@ def replayed_fit(model, data, epochs, steps, what):
     return hist.history, wall, wall / steps * 1e3
 
 
-def traced_replays(model, data, steps, want, what) -> dict:
+def traced_replays(model, data, steps, want, what, batch=TRAIN_BATCH, pre=None) -> dict:
     """The device's busy share of a traced fit of one epoch of replays and the
     launches its trace shows (profile_launches): each of ``want``'s kernels
     that many times, the route's others never, and no wrapper called."""
     out = profile_launches(
-        lambda: model.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False), steps, want,
-        what)
+        lambda: model.fit(data, epochs=1, batch_size=batch, shuffle=False, pre=pre), steps,
+        want, what)
     require(not any(out["launches_issued"].values()),
             f"{what}: eager launches on the replayed route: {out['launches_issued']}")
     return out
@@ -3403,6 +3503,418 @@ def measure_criteo_pack(dev, gen, data, errs) -> dict:
     return times
 
 
+# the bench's session cells (bench.py:657-676 `session`, :525-576
+# `session_bucket`): the GPT2-style block at d_model 128, 8 heads, 2 layers,
+# no dropout, the item table 128 wide, Adam at 1e-3 with no metrics
+SESSION_BATCH = 1024
+SESSION_BATCHES = 16
+SESSION_SPE = 8
+SESSION_CPU_STEPS = 4
+# Adam card vs CPU after SESSION_CPU_STEPS steps: a rounding-noise gradient
+# may step either way each step (ADAM_FLIP_ATOL's reasoning)
+SESSION_ADAM_FLIP_ATOL = 2 * ADAM_LR * sum((t + 1) ** 0.5 for t in range(SESSION_CPU_STEPS))
+# session_bucket's lengths, 16 batches of sessions each (bench.py:538-545)
+BUCKET_LENGTHS = ((5, 8), (9, 16), (17, 32), (33, 64))
+BUCKET_BATCHES = 16
+BUCKET_SPE = 16
+LONG_STEPS = 8
+
+
+def session_model(dev, schema):
+    import models_tpu_torch as mt
+    from models_tpu_torch.transformer import GPT2Block
+
+    return mt.SessionBasedTransformerModel(
+        schema, transformer=GPT2Block(d_model=128, n_head=8, n_layer=2, dropout=0.0, seed=SEED),
+        embedding_dim=128, seed=SEED, device=dev)
+
+
+def session_pre(schema, kind="next"):
+    from models_tpu_torch.transforms import SequencePredictLast, SequencePredictNext
+
+    return (SequencePredictNext if kind == "next" else SequencePredictLast)(
+        schema, target="item_id_seq")
+
+
+def bucket_data():
+    """session_bucket's data, drawn as bench.py:538-567 draws it: 16 batches
+    of 1024 sessions of each length range (5-8, 9-16, 17-32, 33-64),
+    shuffled, item ids uniform in 1..9999, one list column ``item_id_seq``
+    of at most 64 positions over 10,000 items."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.schema import Schema, Tags, create_categorical_column
+
+    rng = np.random.default_rng(11)
+    per_group = BUCKET_BATCHES * SESSION_BATCH
+    lengths = np.concatenate([rng.integers(lo, hi + 1, per_group) for lo, hi in BUCKET_LENGTHS])
+    rng.shuffle(lengths)
+    values = rng.integers(1, 10_000, int(lengths.sum())).astype(np.int32)
+    schema = Schema([create_categorical_column(
+        "item_id_seq", 10_000, tags=(Tags.ITEM, Tags.ITEM_ID, Tags.SEQUENCE), is_list=True,
+        max_seq_length=64)])
+    rows = np.empty(len(lengths), dtype=object)
+    rows[:] = np.split(values, np.cumsum(lengths)[:-1])
+    return mt.Dataset({"item_id_seq": rows}, schema=schema)
+
+
+def head_inputs(model, x, dev, pre):
+    """The fused head's operands for one loader batch, as the training step
+    forms them: the flattened (B*L, D) queries, the positives' rows of the
+    tied table (also the in-batch negatives), their ids, the prediction mask
+    as weights, and the valid rows' pinned bias (0)."""
+    from models_tpu_torch.core.types import ModelContext, to_device_batch
+
+    xb = to_device_batch(x, dev)
+    xp, yp = model._apply_pre(pre, xb, None, training=True)
+    with torch.no_grad():
+        ctx = ModelContext(features=xp, targets=yp)
+        hidden = model._query(xp, training=True, context=ctx)
+        q, pos, w = model.contrastive_output._query_and_positive(hidden, ctx, yp)
+    q, neg = q.contiguous(), pos.embedding.contiguous()
+    ids = pos.id.to(torch.int32).contiguous()
+    pos_logit = (q * neg).sum(1).contiguous()
+    return (q, pos_logit, neg, ids, ids, torch.zeros(neg.shape[0], device=dev),
+            w.contiguous()), (xp, yp)
+
+
+def phase_session(dev, card):
+    """The bench's ``session`` cell (sequence-testing, its session length L
+    = 4, batch 1024, SESSION_BATCHES batches of seeded rows), trained
+    next-item through ``fit(pre=SequencePredictNext)``: (a) one step at a
+    time (K1-K3 once a step); (b) SESSION_SPE steps a chunk as CUDA graph
+    replays, graph and eager bit for bit with deterministic algorithms on,
+    then captured again without them, timed and traced (K1-K3 once a step,
+    K9 once a chunk, counted in the trace); (c) the card against a CPU copy
+    after SESSION_CPU_STEPS Adam steps (losses within FCE_TOL, parameters
+    within PARAM_ATOL but for rounding-noise elements, SESSION_ADAM_FLIP_ATOL);
+    (d) ``evaluate(pre=SequencePredictLast)`` against the CPU copy's (loss
+    within FCE_TOL, metrics within METRIC_ATOL); (e) ``predict`` at 1024
+    sessions: full-catalog scores (1024, 4, 101), finite, within FCE_TOL of
+    the CPU's. Returns (the numbers, K1-K3's launches on the one-step
+    route, the traced replays' launches)."""
+    import copy
+
+    import models_tpu_torch as mt
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    data = mt.generate_data("sequence-testing", num_rows=SESSION_BATCHES * SESSION_BATCH,
+                            seed=SEED + 10)
+    schema = data.schema
+    pre = session_pre(schema)
+
+    def make():
+        return session_model(dev, schema)
+
+    out = {"card": card, "config": {"block": "GPT2Block(d_model=128, n_head=8, n_layer=2)",
+                                    "embedding_dim": 128, "batch": SESSION_BATCH,
+                                    "schema": "sequence-testing", "max_seq_length": 4,
+                                    "optimizer": "adam", "learning_rate": ADAM_LR,
+                                    "data_s": time.perf_counter() - t_phase}}
+    model = make()
+    out["parameters"] = sum(p.numel() for p in model.parameters())
+    model.compile(optimizer="adam", learning_rate=ADAM_LR, metrics=[])
+    model.fit(data.take(2 * SESSION_BATCH), batch_size=SESSION_BATCH, shuffle=False, pre=pre,
+              device=dev)
+    zero_route_launches()
+    t = time.perf_counter()
+    hist = model.fit(data, batch_size=SESSION_BATCH, shuffle=False, pre=pre, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    one = route_launches()
+    require(all(np.isfinite(hist.history["loss"])), f"(a): losses {hist.history['loss']}")
+    require(all(one[n] == SESSION_BATCHES for n in ("lse_forward", "grad_query", "grad_neg")),
+            f"(a): K1-K3 launched {one} in {SESSION_BATCHES} steps")
+    out["one_step"] = {"ms_per_step": wall / SESSION_BATCHES * 1e3, "loss": hist.history["loss"],
+                       "launches": one}
+    print(f"  (a) session one step at a time: {out['one_step']['ms_per_step']:.3f} ms a step "
+          f"(host clock), launches {one}; {card}", flush=True)
+    del model
+
+    what = f"(b) session, {SESSION_SPE} steps a chunk"
+    _, mg, lg, le = graph_vs_eager(dev, None, data, 1, what, make=make, batch=SESSION_BATCH,
+                                   pre=pre, optimizer="adam", learning_rate=ADAM_LR,
+                                   metrics=[], steps_per_execution=SESSION_SPE)
+    for n in ("lse_forward", "grad_query", "grad_neg"):
+        require(lg[n] == 2 * SESSION_SPE and le[n] == SESSION_BATCHES,
+                f"{what}: {n} issued {lg[n]} (graph) / {le[n]} (eager) times")
+    require(lg["row_gather"] == 2, f"{what}: K9 issued {lg['row_gather']} times")
+    mg._chunk_graphs.clear()  # captured again as users run it, deterministic algorithms off
+    mg.fit(data, epochs=1, batch_size=SESSION_BATCH, shuffle=False, pre=pre, device=dev)
+    hist, wall, ms = replayed_fit(mg, data, 2, 2 * SESSION_BATCHES, what,
+                                  batch=SESSION_BATCH, pre=pre)
+    require(all(np.isfinite(hist["loss"])), f"{what}: non-finite loss")
+    want = {"row_gather": SESSION_BATCHES // SESSION_SPE, "lse_forward": SESSION_BATCHES,
+            "grad_query": SESSION_BATCHES, "grad_neg": SESSION_BATCHES}
+    trace = traced_replays(mg, data, SESSION_BATCHES, want, what, batch=SESSION_BATCH, pre=pre)
+    out["graph"] = {"ms_per_step": ms, "examples_per_sec": hist["examples_per_sec"],
+                    "fit_s": wall, "loss": hist["loss"], "graphs": graph_stats(mg),
+                    "one_step_ms_ratio": ms / out["one_step"]["ms_per_step"],
+                    **{k: v for k, v in trace.items() if k != "launches_issued"}}
+    print(f"  {what}: {ms:.3f} ms a step graph-replayed, busy "
+          f"{trace['device_busy_share']:.3f}, traced {trace['launches_traced']}; {card}",
+          flush=True)
+    del mg
+
+    on_card = make()
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    losses = {}
+    for tag, m, d in (("card", on_card, dev), ("cpu", on_cpu, "cpu")):
+        m.compile(optimizer="adam", learning_rate=ADAM_LR, metrics=[])
+        losses[tag] = m.fit(data.take(SESSION_CPU_STEPS * SESSION_BATCH),
+                            batch_size=SESSION_BATCH, shuffle=False, pre=pre,
+                            device=d).history["loss"]
+    require(np.allclose(losses["card"], losses["cpu"], rtol=FCE_TOL, atol=0),
+            f"(c) session: losses {losses['card']} (card) / {losses['cpu']} (CPU)")
+    cpu = dict(on_cpu.named_parameters())
+    worst, flips, total, largest = compare_rounded(
+        "(c) session card vs CPU", [(p, cpu[n]) for n, p in on_card.named_parameters()],
+        PARAM_ATOL, (SESSION_ADAM_FLIP_ATOL, 0.0))
+    out["card_vs_cpu"] = {"steps": SESSION_CPU_STEPS, "loss_card": losses["card"],
+                          "loss_cpu": losses["cpu"], "param_max_abs": worst, "flips": flips,
+                          "of": total, "largest_flip": largest}
+    print(f"  (c) session card vs CPU after {SESSION_CPU_STEPS} Adam steps: "
+          f"{json.dumps(out['card_vs_cpu'])}", flush=True)
+
+    last = session_pre(schema, "last")
+    evaluation = data.take(4 * SESSION_BATCH)
+    for m in (on_card, on_cpu):  # the head's default top-k metrics
+        m.compile(optimizer="adam", learning_rate=ADAM_LR)
+    got = on_card.evaluate(evaluation, batch_size=SESSION_BATCH, pre=last, device=dev)
+    want = on_cpu.evaluate(evaluation, batch_size=SESSION_BATCH, pre=last, device="cpu")
+    compare_eval("(d) session evaluate(pre=SequencePredictLast)", got, want,
+                 evaluation.num_rows)
+    request = data.take(SESSION_BATCH)
+    scores = on_card.predict(request, batch_size=SESSION_BATCH, device=dev)
+    ref = on_cpu.predict(request, batch_size=SESSION_BATCH, device="cpu")
+    require(scores.shape == (SESSION_BATCH, 4, 101) and np.isfinite(scores).all(),
+            f"(e): predict gave {scores.shape}")
+    err = float(np.abs(scores - ref).max() / np.abs(ref).max())
+    require(err <= FCE_TOL, f"(e): card and CPU scores differ by {err:.3g} of the largest")
+    out["evaluate"] = {"card": got, "cpu": want, "rows": evaluation.num_rows}
+    out["predict"] = {"rows": SESSION_BATCH, "shape": list(scores.shape), "rel_vs_cpu": err,
+                      "ms": host_ms(lambda: on_card.predict(request, batch_size=SESSION_BATCH,
+                                                            device=dev))}
+    print(f"  (e) session predict at {SESSION_BATCH} sessions: {out['predict']}; {card}",
+          flush=True)
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, one, trace["launches_traced"]
+
+
+def phase_session_long(dev, gen, card, errs, data):
+    """session_bucket's data with pad="max" (L = 64: Q = N = 65,536
+    flattened positions a batch): K1, K2 and K3 once each against their
+    plain versions on the head's real operands of the first batch (the
+    prediction mask as weights, the shifted ids, downscoring), then timed
+    there (their bounds: the logit product at 3xTF32, K2 / K3's gradient
+    product as much again); LONG_STEPS steps one at a time (K1-K3 once a
+    step), the step's time and the kernels' share of it; then, under
+    ``mixed_bfloat16``, the fused head (``lse_wg``, ``grad_wg``) against the
+    unfused head at the ``session`` size (loss within FCE_TOL, gradients
+    within MIXED_HEAD_GRAD_TOL of the largest). Returns the numbers and the
+    K1-K3 times at this size."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.ops import flash_ce as F
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pre = session_pre(data.schema)
+    long = data.take(LONG_STEPS * SESSION_BATCH)
+    model = session_model(dev, data.schema)
+    x, _ = next(iter(mt.Loader(long, SESSION_BATCH)))
+    args, _ = head_inputs(model, x, dev, pre)
+    q, pos_logit, neg, pid, nid, bias, w = args
+    Q, D = q.shape
+    N = neg.shape[0]
+    require(Q == N == SESSION_BATCH * 64, f"session_long: Q={Q}, N={N}")
+    out = {"card": card, "Q": Q, "N": N, "D": D, "weighted_rows": int((w > 0).sum())}
+    check_fce(f"session_long Q=N={Q} D={D} prediction-mask weights, shifted ids", dev, args,
+              1.0, errs)
+    m, s = F.lse_forward_plain(q, pos_logit, neg, pid, nid, bias, 1.0, True)
+    lse = (m + torch.log(s)).contiguous()
+    gw = (w / w.sum()).contiguous()
+    gargs = (q, neg, lse, gw, pid, nid, bias, 1.0, True)
+    logit_flops = 2 * Q * N * D
+    vec = 4 * (2 * Q + 2 * N)
+    kernels_ms = {}
+    for name, fn, plain, flops, nbytes in (
+            ("lse_forward", lambda: F.lse_forward(q, pos_logit, neg, pid, nid, bias, 1.0, True),
+             lambda: F.lse_forward_plain(q, pos_logit, neg, pid, nid, bias, 1.0, True),
+             logit_flops, (Q + N) * D * 4 + vec + 2 * Q * 4),
+            ("grad_query", lambda: F.grad_query(*gargs), lambda: F.grad_query_plain(*gargs),
+             2 * logit_flops, (Q + N) * D * 4 + vec + 4 * Q + Q * D * 4),
+            ("grad_neg", lambda: F.grad_neg(*gargs), lambda: F.grad_neg_plain(*gargs),
+             2 * logit_flops, (Q + N) * D * 4 + vec + 4 * Q + N * D * 4)):
+        ops_ms = flops / PEAK_3XTF32[0] * 1e3
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        kernels_ms[name] = {
+            "Q": Q, "N": N, "D": D, "ms": cuda_ms(fn, reps=3, warmup=1),
+            "plain_ms": cuda_ms(plain, reps=1, warmup=1), "library_ms": None,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_peak": PEAK_3XTF32[1] if ops_ms >= bytes_ms else "HBM3"}
+    del args, q, neg, gargs, m, s, lse
+    print(f"  session_long kernels at Q = N = {Q}: {json.dumps(kernels_ms)}; {card}", flush=True)
+
+    model.compile(optimizer="adam", learning_rate=ADAM_LR, metrics=[])
+    model.fit(long.take(SESSION_BATCH), batch_size=SESSION_BATCH, shuffle=False, pre=pre,
+              device=dev)
+    zero_route_launches()
+    t = time.perf_counter()
+    hist = model.fit(long, batch_size=SESSION_BATCH, shuffle=False, pre=pre, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    ln = route_launches()
+    require(all(np.isfinite(hist.history["loss"])), f"session_long: {hist.history['loss']}")
+    require(all(ln[n] == LONG_STEPS for n in ("lse_forward", "grad_query", "grad_neg")),
+            f"session_long: K1-K3 launched {ln} in {LONG_STEPS} steps")
+    step_ms = wall / LONG_STEPS * 1e3
+    kernel_sum = sum(v["ms"] for v in kernels_ms.values())
+    out.update(step_ms=step_ms, loss=hist.history["loss"], launches=ln,
+               kernels_ms_per_step=kernel_sum, kernels_share_of_step=kernel_sum / step_ms,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print(f"  session_long: {LONG_STEPS} steps one at a time at L = 64, {step_ms:.3f} ms a step "
+          f"(host clock), K1-K3 {kernel_sum:.3f} ms of it ({kernel_sum / step_ms:.3f}); "
+          f"{card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    sdata = mt.generate_data("sequence-testing", num_rows=SESSION_BATCH, seed=SEED + 10)
+    mt.set_dtype_policy("mixed_bfloat16")
+    try:
+        mm = session_model(dev, sdata.schema)
+        mm.compile(optimizer="adam", learning_rate=ADAM_LR, metrics=[])
+        x, _ = next(iter(mt.Loader(sdata, SESSION_BATCH)))
+        spre = session_pre(sdata.schema)
+        args, (xp, yp) = head_inputs(mm, x, dev, spre)
+        routes = (F.lse_route(args[0].to(torch.bfloat16), args[2].to(torch.bfloat16)),
+                  F.grad_route(args[0].to(torch.bfloat16), args[2].to(torch.bfloat16)))
+        require(routes == ("lse_wg", "grad_wg"), f"mixed session head: routes {routes}")
+        zero_launches()
+        loss_f, g_f = head_grads(mm, xp, yp, fused=True)
+        bf16 = flash_launches_bf16()
+        require(all(v == 1 for v in bf16.values()) and not any(flash_launches().values()),
+                f"mixed session head: fused launches {bf16}, fp32 {flash_launches()}")
+        loss_u, g_u = head_grads(mm, xp, yp, fused=False)
+    finally:
+        mt.set_dtype_policy("float32")
+    largest = max(float(g.abs().max()) for g in g_u.values())
+    worst = max(float((g_f[n] - g_u[n]).abs().max()) for n in g_u)
+    loss_rel = abs(loss_f - loss_u) / abs(loss_u)
+    require(loss_rel <= FCE_TOL, f"mixed session head: loss {loss_f} fused / {loss_u}")
+    require(worst <= MIXED_HEAD_GRAD_TOL * largest,
+            f"mixed session head: gradients {worst:.3g} apart of {largest:.3g}")
+    out["mixed_head"] = {"routes": routes, "loss_rel": loss_rel, "grad_max_abs": worst,
+                         "largest_grad": largest, "launches_bf16": bf16}
+    print(f"  mixed_bfloat16 session head, fused (lse_wg, grad_wg) vs unfused: "
+          f"{json.dumps(out['mixed_head'])}", flush=True)
+    del mm
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, kernels_ms
+
+
+def phase_session_bucket(dev, gen, card, errs, data):
+    """The bench's ``session_bucket`` cell (bench.py:568-576): Loader(pad=
+    "bucket", batch 1024, unshuffled), BUCKET_SPE steps a chunk: one packed
+    matrix and one graph a bucket group (8, 16, 32, 64). A first fit runs
+    each group's chunk eagerly (K9 once a group), a second of two epochs
+    captures and replays them, a third is timed (sessions/s; no wrapper
+    called), and a fourth traced (K1-K3 once a step, K9 once a group, busy
+    share). Then each group's graph replayed alone (ms a step, sessions/s),
+    and K9 on each group's pack at one chunk's ids, bit for bit against its
+    plain version, timed warm and flushed beside ``index_select``. Returns
+    the numbers, K9's launches and its per-group times."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.ops import embedding_lookup as E
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pre = session_pre(data.schema)
+    loader = mt.Loader(data, SESSION_BATCH, pad="bucket", drop_last=True, shuffle=False)
+    model = session_model(dev, data.schema)
+    model.compile(optimizer="adam", learning_rate=ADAM_LR, metrics=[],
+                  train_metrics_steps=10_000, steps_per_execution=BUCKET_SPE)
+    steps = len(BUCKET_LENGTHS) * BUCKET_BATCHES
+    zero_route_launches()
+    t = time.perf_counter()
+    model.fit(loader, epochs=1, pre=pre, device=dev)
+    torch.cuda.synchronize()
+    out = {"card": card, "eager_fit_s": time.perf_counter() - t,
+           "launches_eager": route_launches()}
+    groups = data._device_bucket_groups
+    require([b for b, _ in groups] == [8, 16, 32, 64] and all(
+        g.n_rows == BUCKET_BATCHES * SESSION_BATCH for _, g in groups),
+        f"session_bucket: groups {[(b, g.n_rows) for b, g in groups]}")
+    require(out["launches_eager"]["row_gather"] == len(groups)
+            and out["launches_eager"]["lse_forward"] == steps,
+            f"session_bucket: eager launches {out['launches_eager']}")
+    t = time.perf_counter()
+    model.fit(loader, epochs=2, pre=pre, device=dev)
+    torch.cuda.synchronize()
+    out["capture_fit_s"] = time.perf_counter() - t
+    require(sorted(model._group_graphs) == [8, 16, 32, 64]
+            and all(len(g) == 1 for g in model._group_graphs.values()),
+            f"session_bucket: graphs {[(b, len(g)) for b, g in model._group_graphs.items()]}")
+    out["graphs"] = {b: list(g.stats.values()) for b, g in model._group_graphs.items()}
+    zero_route_launches()
+    t = time.perf_counter()
+    hist = model.fit(loader, epochs=1, pre=pre)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    issued = route_launches()
+    require(not any(issued.values()), f"session_bucket: eager launches on replays: {issued}")
+    require(all(np.isfinite(hist.history["loss"])), f"session_bucket: {hist.history['loss']}")
+    out.update(sessions_per_sec=steps * SESSION_BATCH / wall, ms_per_step=wall / steps * 1e3,
+               loss=hist.history["loss"], examples_per_sec=hist.history["examples_per_sec"])
+    want = {"row_gather": len(groups), "lse_forward": steps, "grad_query": steps,
+            "grad_neg": steps}
+    # a trace of 64 long steps loses a device event more often than the
+    # other routes' short ones (on an H100, two traces of three came one K9
+    # or two K1-K3 events short): more attempts, the same count required
+    trace = profile_launches(lambda: model.fit(loader, epochs=1, pre=pre), steps, want,
+                             "session_bucket", attempts=6)
+    out.update({k: v for k, v in trace.items() if k != "launches_issued"})
+    per_group = {}
+    for bucket, graphs in model._group_graphs.items():
+        (entry,) = [e for e in graphs._entries.values() if e.graph is not None]
+        ms = cuda_ms(entry.graph.replay, reps=2, warmup=1)
+        per_group[bucket] = {"ms_per_step": ms / BUCKET_SPE,
+                             "sessions_per_sec": BUCKET_SPE * SESSION_BATCH / ms * 1e3}
+    out["per_group"] = per_group
+    print(f"  session_bucket: {out['sessions_per_sec']:.0f} sessions/s, "
+          f"{out['ms_per_step']:.3f} ms a step (host clock), busy "
+          f"{trace['device_busy_share']:.3f}; per group {json.dumps(per_group)}; {card}",
+          flush=True)
+    k9 = {}
+    for bucket, gpack in groups:
+        packed = gpack.packed
+        B = BUCKET_SPE * SESSION_BATCH
+        ids = torch.randperm(packed.shape[0], device=dev, generator=gen)[:B].to(torch.int32)
+        gather_case(f"session pack bucket {bucket} R={packed.shape[0]} D={packed.shape[1]}",
+                    packed, ids, errs)
+        ids_l = ids.long()
+        nbytes = 2 * B * packed.shape[1] * 4 + 4 * B
+        k9[bucket] = {"rows": packed.shape[0], "row_bytes": packed.shape[1] * 4, "ids": B,
+                      "ms": device_ms(lambda: E.row_gather(packed, ids)),
+                      "ms_cold": device_ms(lambda: E.row_gather(packed, ids), cold=True),
+                      "plain_ms": device_ms(lambda: E.row_gather_plain(packed, ids), cold=True),
+                      "library_ms": device_ms(lambda: torch.index_select(packed, 0, ids_l),
+                                              cold=True),
+                      "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+        k9[bucket]["share_of_bound_cold"] = k9[bucket]["bound_ms"] / k9[bucket]["ms_cold"]
+    out["k9"] = k9
+    print("  row gather on the session packs " + json.dumps(k9), flush=True)
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del model
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, out["launches_eager"]["row_gather"], trace["launches_traced"], k9
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -3609,6 +4121,32 @@ def main() -> int:
         elif row["name"] == "row_scatter_add":
             row.update(launches_criteo=criteo_k7, criteo=criteo_k7_times)
             row["max_abs_err"] = errs["row_scatter_add"]
+    stamp("phase 15: the session model (sequence-testing, L = 4): one step at a time, "
+          "graph-replayed, card vs CPU, evaluate, predict")
+    session, session_launches, session_traced = phase_session(dev, card)
+    print("session " + json.dumps(session), flush=True)
+    bucket_ds = bucket_data()
+    stamp("phase 16: session_bucket's data at pad=\"max\" (L = 64, Q = N = 65,536)")
+    session_long, long_kernels = phase_session_long(dev, gen, card, errs, bucket_ds)
+    print("session_long " + json.dumps(session_long), flush=True)
+    stamp("phase 17: session_bucket: pad=\"bucket\", one graph a bucket group")
+    session_bucket, bucket_k9, bucket_traced, bucket_k9_times = phase_session_bucket(
+        dev, gen, card, errs, bucket_ds)
+    print("session_bucket " + json.dumps(session_bucket), flush=True)
+    for row in rows:  # the session paths' launches and the kernels' times at their sizes
+        name = row["name"]
+        if name in ("lse_forward", "grad_query", "grad_neg"):
+            row.update(launches_session=session_launches[name],
+                       launches_replayed_traced_session=session_traced[name],
+                       launches_replayed_traced_session_bucket=bucket_traced[name],
+                       session_long=long_kernels[name])
+            row["max_abs_err"] = errs[name]
+        elif name == "row_gather":
+            row.update(launches_session_bucket=bucket_k9,
+                       launches_replayed_traced_session=session_traced[name],
+                       launches_replayed_traced_session_bucket=bucket_traced[name],
+                       session_bucket=bucket_k9_times)
+            row["max_abs_err"] = errs["row_gather"]
     stamp("done")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -4,8 +4,10 @@ The JAX package ``models_tpu`` is the reference; this package imports nothing
 of it, nor JAX. Entry points run on the card (``device="cuda"``, the default)
 unless the caller passes ``device="cpu"``; without a card they raise.
 
-The two-tower retrieval model and the ranking models (DLRM, DCN-v2, DeepFM,
-NCF) are ported. Build the two-tower model from a schema, train it
+The two-tower retrieval model, the ranking models (DLRM, DCN-v2, DeepFM,
+NCF) and the session models (``SessionBasedTransformerModel`` over the
+transformer blocks of ``transformer/``, trained with the sequence transforms
+of ``transforms/sequence.py`` as ``fit(pre=...)``) are ported. Build the two-tower model from a schema, train it
 (``compile(optimizer)``, ``fit``, with the top-k metrics and
 ``validation_data``) with the sampled-softmax loss on in-batch negatives, its
 embedding tables optionally row-sparsely (``compile(embedding_optimizer=...)``)
@@ -29,7 +31,7 @@ from .core.policy import get_dtype_policy, set_dtype_policy
 from .data import Dataset, Loader, generate_data
 from .metrics import AUC, BinaryAccuracy, Metric, Precision, Recall, TopKMetricsAggregator
 from .models import (DCNModel, DeepFMModel, DLRMModel, History, Model, NCFModel,
-                     RetrievalModelV2, TwoTowerModel)
+                     RetrievalModelV2, SessionBasedTransformerModel, TwoTowerModel)
 from .outputs import (BinaryOutput, BruteForce, ContrastiveOutput, OutputBlock, RegressionOutput,
                       TopKOutput)
 from .schema import ColumnSchema, Schema, Tags
@@ -39,6 +41,7 @@ __all__ = [
     "DCNModel", "DLRMModel", "Dataset", "DeepFMModel", "Encoder", "History", "LazyAdam",
     "Loader", "Metric", "Model", "NCFModel", "OutputBlock", "Precision", "Recall",
     "RegressionOutput", "RetrievalModelV2", "Schema", "SequenceFeature",
+    "SessionBasedTransformerModel",
     "SparseEmbeddingOptimizer", "Tags", "TopKEncoder", "TopKMetricsAggregator", "TopKOutput",
     "TopKPrediction", "TwoTowerModel", "binary_crossentropy", "generate_data",
     "get_dtype_policy", "load_jax_params", "mean_absolute_error", "mean_squared_error",

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.block import Block
+from ..core.block import Block, RandomBlock
 from ..core.combinators import SequentialBlock
 from ..core.policy import cast_compute
 
@@ -115,54 +115,44 @@ class BatchNorm(Block):
         return (inputs - mean) / torch.sqrt(var + self.epsilon) * self.scale + self.bias
 
 
-class _LayerNormParams(nn.Module):
-    """``nnx.LayerNorm``'s parameters, under its attribute names."""
-
-    def __init__(self, num_features: int, device=None):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(num_features, device=device))
-        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
-
-
-class LayerNorm(Block):
-    """Layer normalisation over the last axis, flax's: the variance as
-    ``E[x^2] - E[x]^2`` (clipped at 0), ``(x - mean) * (rsqrt(var + eps) *
-    scale) + bias``, eps 1e-6."""
+class NNXLayerNorm(nn.Module):
+    """``nnx.LayerNorm`` under its attribute names (``scale``, ``bias``):
+    over the last axis, the variance as ``E[x^2] - E[x]^2`` (clipped at 0),
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, eps 1e-6."""
 
     def __init__(self, num_features: int, epsilon: float = 1e-6, device=None):
         super().__init__()
         self.epsilon = epsilon
-        self.out_features = num_features
-        self.ln = _LayerNormParams(num_features, device)
+        self.scale = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
 
-    def forward(self, inputs, **kwargs):
+    def forward(self, inputs):
         x = inputs.float()
         mean = x.mean(dim=-1, keepdim=True)
         var = ((x * x).mean(dim=-1, keepdim=True) - mean.square()).clamp_min(0)
-        return (x - mean) * (torch.rsqrt(var + self.epsilon) * self.ln.scale) + self.ln.bias
+        return (x - mean) * (torch.rsqrt(var + self.epsilon) * self.scale) + self.bias
 
 
-class Dropout(Block):
+class LayerNorm(Block):
+    """The JAX package's LayerNorm block: an :class:`NNXLayerNorm` as ``ln``."""
+
+    def __init__(self, num_features: int, epsilon: float = 1e-6, device=None):
+        super().__init__()
+        self.out_features = num_features
+        self.ln = NNXLayerNorm(num_features, epsilon, device)
+
+    def forward(self, inputs, **kwargs):
+        return self.ln(inputs)
+
+
+class Dropout(RandomBlock):
     """Dropout in training: each element kept with probability ``1 - rate``
     and scaled by ``1 / (1 - rate)``. JAX derives its bits from (seed, step);
-    the port draws them from its own ``torch.Generator`` on the device,
-    seeded by ``seed`` (``ModelContext(step=)`` is frozen in a captured
-    chunk; ``models/step_graph.py`` registers the generator with each graph,
-    so that every replay draws anew). Moving the block to another device
-    seeds a generator there anew."""
+    the port draws them from the block's generator (:class:`RandomBlock`)."""
 
     def __init__(self, rate: float, seed: int = 0, device=None):
-        super().__init__()
+        super().__init__(seed=seed, device=device)
         self.rate = float(rate)
-        self.seed = seed
-        self.generator = torch.Generator(torch.device(device or "cpu")).manual_seed(seed)
-
-    def _apply(self, fn, recurse=True):
-        out = super()._apply(fn, recurse)
-        dev = fn(torch.empty(0, device=self.generator.device)).device
-        if dev != self.generator.device:
-            self.generator = torch.Generator(dev).manual_seed(self.seed)
-        return out
 
     def forward(self, inputs, *, training: bool = False, **kwargs):
         if not training or self.rate == 0.0:

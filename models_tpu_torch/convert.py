@@ -17,6 +17,12 @@ becomes the port's ``weight`` (out, in). What is carried:
   ``DenseMaybeLowRank``'s ``u`` and ``v`` (the cross layers') in the JAX
   layout;
 - BatchNorm's running statistics, where the caller gives them;
+- the session models' transformer in the JAX layout ((in, out) weights
+  kept as they are): each layer's ``wq``, ``wk``, ``wv``, ``wo`` and their
+  biases, ``w1``, ``w2``, ``b1``, ``b2``, the LayerNorms ``ln1``, ``ln2`` and
+  ``final_ln``, XLNet's ``wr``, ``u`` and ``v``, ``pos_emb``, the Dense
+  ``in_proj`` and ``_ProjectToTableDim.dense``, and
+  ``ReplaceMaskedEmbeddings.mask_embedding``;
 - the slots (``.../<table>/sparse_slots/<acc|m|v>``, float32) onto the
   table's ``sparse_slots`` buffers, which ``fit`` then keeps when they are
   the ones its embedding optimizer needs.

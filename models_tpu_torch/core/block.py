@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
 from torch import nn
 
 from ..schema import Schema
@@ -22,3 +23,24 @@ class Block(nn.Module):
 
     def forward(self, inputs, **kwargs):  # pragma: no cover - overridden
         raise NotImplementedError
+
+
+class RandomBlock(Block):
+    """A block that draws from its own ``torch.Generator`` on its device,
+    seeded by ``seed``. ``models/step_graph.py`` registers the generator of
+    every such block on the card with each captured graph, so that every
+    replay draws anew (the JAX package derives its draws from (seed, step),
+    and a captured graph's step is frozen). Moving the block to another
+    device seeds a generator there anew."""
+
+    def __init__(self, seed: int = 0, device=None, **kwargs):
+        super().__init__(**kwargs)
+        self.seed = seed
+        self.generator = torch.Generator(torch.device(device or "cpu")).manual_seed(seed)
+
+    def _apply(self, fn, recurse=True):
+        out = super()._apply(fn, recurse)
+        dev = fn(torch.empty(0, device=self.generator.device)).device
+        if dev != self.generator.device:
+            self.generator = torch.Generator(dev).manual_seed(self.seed)
+        return out

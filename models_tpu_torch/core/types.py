@@ -23,6 +23,10 @@ class SequenceFeature:
     def shape(self):
         return self.values.shape
 
+    def lengths(self) -> torch.Tensor:
+        """(B,) int32: the valid positions of each row."""
+        return self.mask.to(torch.int32).sum(dim=1, dtype=torch.int32)
+
     def __repr__(self):
         return f"SequenceFeature(values={tuple(self.values.shape)}, mask={tuple(self.mask.shape)})"
 
@@ -52,15 +56,50 @@ class TopKPrediction(NamedTuple):
     identifiers: torch.Tensor  # (B, k) int32
 
 
+# where a sequence transform leaves the positions to predict, (B, L) bool
+MASK_KEY = "__sequence_prediction_mask__"
+
+
+def prediction_mask_from_targets(targets):
+    """The prediction mask of a :class:`SequenceFeature` target (the first
+    one of a dict of targets), or None."""
+    if isinstance(targets, SequenceFeature):
+        return targets.mask
+    if isinstance(targets, dict):
+        for v in targets.values():
+            if isinstance(v, SequenceFeature):
+                return v.mask
+    return None
+
+
 class ModelContext(dict):
     """Shared context threaded through a forward pass: the raw ``features``,
     the batch's ``targets``, the global ``step`` and flags such as
     ``need_logits`` (False when nothing downstream reads a head's logits) and
-    ``testing`` (set by ``evaluate``: heads take their evaluation branch)."""
+    ``testing`` (set by ``evaluate``: heads take their evaluation branch).
+
+    Made with :class:`SequenceFeature` targets, it holds their prediction
+    mask under :data:`MASK_KEY` (the JAX package's recovery: a step builds a
+    fresh context, and ``ReplaceMaskedEmbeddings`` reads the mask there)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if MASK_KEY not in self:
+            m = prediction_mask_from_targets(self.get("targets"))
+            if m is not None:
+                self[MASK_KEY] = m
 
     @property
     def features(self) -> TensorDict:
         return self.get("features", {})
+
+    @property
+    def targets(self):
+        return self.get("targets")
+
+    @targets.setter
+    def targets(self, value):
+        self["targets"] = value
 
 
 def _to_device(val, device):

@@ -3,13 +3,15 @@
 
 Batches are always full-size: the final partial batch is zero-padded and the
 boolean column ``__row_valid__`` marks its real rows. List columns leave as
-:class:`SequenceFeature` (values padded to the schema's max length, plus mask).
-Batches hold numpy arrays; ``core.types.to_device_batch`` moves them.
+:class:`SequenceFeature`, values plus mask, padded to the schema's max length
+(``pad="max"``) or, with ``pad="bucket"``, to the batch's longest row rounded
+up to a power of two and capped at that max. Batches hold numpy arrays;
+``core.types.to_device_batch`` moves them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -32,14 +34,22 @@ def pad_ragged(values: np.ndarray, offsets: np.ndarray, max_len: int):
     return padded, mask
 
 
+def _bucket(n: int) -> int:
+    """The power of two at or above ``n`` (1 for ``n`` <= 1)."""
+    return 1 << max(0, int(np.ceil(np.log2(max(n, 1)))))
+
+
 class Loader:
     """Iterates ``(features, targets)`` batches over a dataset, in row order,
     or with ``shuffle`` in one permutation per pass, drawn from
     ``seed + epoch * 9973`` (the JAX loader's epoch seed; the pass counter
-    starts at 1)."""
+    starts at 1). ``pad``: ``"max"`` or ``"bucket"`` (the module's note)."""
 
     def __init__(self, dataset: Dataset, batch_size: int, drop_last: bool = False,
-                 shuffle: bool = False, seed: int = 0):
+                 shuffle: bool = False, seed: int = 0, pad: str = "max"):
+        if pad not in ("max", "bucket"):
+            raise ValueError(f"pad must be 'max' or 'bucket', got {pad!r}")
+        self.pad = pad
         self.dataset = dataset
         self.schema = dataset.schema
         self.batch_size = int(batch_size)
@@ -70,9 +80,11 @@ class Loader:
         for name in self._feature_cols + self._target_cols:
             dest = targets if name in self._target_cols else feats
             if name in self._list_cols:
-                padded, mask = pad_ragged(
-                    cols[name + VALUES], cols[name + OFFSETS][lo : hi + 1], self._list_cols[name]
-                )
+                offsets = cols[name + OFFSETS][lo : hi + 1]
+                L = self._list_cols[name]
+                if self.pad == "bucket":
+                    L = min(L, _bucket(int(np.diff(offsets).max()) if hi > lo else 1))
+                padded, mask = pad_ragged(cols[name + VALUES], offsets, L)
                 dest[name] = SequenceFeature(pad_rows(padded), pad_rows(mask))
             else:
                 dest[name] = pad_rows(cols[name][lo:hi])
@@ -108,6 +120,41 @@ class Loader:
         if len(targets) == 1:
             targets = next(iter(targets.values()))
         return feats, (targets if len(targets) else None), n
+
+    def bucketed_dense_columns(self) -> List[Tuple[int, Dict[str, Any], Any, int]]:
+        """The whole dataset's columns grouped by length bucket, for the
+        device-resident route under ``pad="bucket"``: each row's bucket is the
+        power of two at or above its longest list (each list cut at its
+        column's max), and each group's list columns are padded to
+        min(bucket, the column's max), so that batches taken within a group
+        share one shape. ``[(bucket, features, targets, n_rows), ...]`` by
+        bucket, each group's rows in dataset order, no ``__row_valid__``."""
+        if not self._list_cols:
+            raise ValueError("bucketed_dense_columns needs list columns")
+        cols = self.dataset.to_numpy_dict()
+        row_max = None
+        for name, L in self._list_cols.items():
+            n = np.minimum(np.diff(cols[name + OFFSETS]), L)
+            row_max = n if row_max is None else np.maximum(row_max, n)
+        buckets = 1 << np.ceil(np.log2(np.maximum(row_max, 1))).astype(np.int64)
+        groups = []
+        for bucket in np.unique(buckets):
+            idx = np.nonzero(buckets == bucket)[0]
+            rows = take_rows(cols, idx)
+            feats: Dict[str, Any] = {}
+            targets: Dict[str, Any] = {}
+            for name in self._feature_cols + self._target_cols:
+                dest = targets if name in self._target_cols else feats
+                if name in self._list_cols:
+                    L = min(self._list_cols[name], int(bucket))
+                    dest[name] = SequenceFeature(*pad_ragged(rows[name + VALUES],
+                                                             rows[name + OFFSETS], L))
+                else:
+                    dest[name] = rows[name]
+            if len(targets) == 1:
+                targets = next(iter(targets.values()))
+            groups.append((int(bucket), feats, targets if len(targets) else None, len(idx)))
+        return groups
 
     def __iter__(self) -> Iterator[Tuple[Dict[str, Any], Optional[Any]]]:
         self._epoch += 1

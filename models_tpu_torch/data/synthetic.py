@@ -1,10 +1,13 @@
 """Synthetic datasets from the known schemas.
 
-Copies the ``e-commerce``, ``movielens-25m``, ``criteo`` and ``criteo-small``
-schemas and the numpy draws of ``models_tpu/data/synthetic.py``, so that one
+Copies the ``e-commerce``, ``movielens-25m``, ``criteo``, ``criteo-small``
+and ``sequence-testing`` schemas and the numpy draws of ``models_tpu/data/synthetic.py``, so that one
 seed gives the same rows in both packages. ``criteo`` has the published
 Criteo 1TB cardinalities (26 tables, 31,457,706 rows); ``criteo-small`` the
-same layout with 1000 ids a column.
+same layout with 1000 ids a column. ``sequence-testing`` is the JAX package's
+session schema: its list columns hold at most 4 positions (``max_seq_length``
+4; ``generate_data``'s ``min_session_length`` / ``max_session_length`` draw
+other lengths).
 """
 
 from __future__ import annotations
@@ -103,11 +106,32 @@ def _criteo_small_schema() -> Schema:
     return _criteo_layout([1000] * 26)
 
 
+def _sequence_testing_schema() -> Schema:
+    seq = (Tags.ITEM, Tags.SEQUENCE)
+    L = 4  # the JAX schema's session length
+    return Schema(
+        [
+            cat("test_user_id", 90, tags=(Tags.USER, Tags.USER_ID)),
+            cont("item_age_days_norm", tags=seq, is_list=True, max_seq_length=L),
+            cont("event_hour_sin", tags=seq, is_list=True, max_seq_length=L),
+            cont("event_hour_cos", tags=seq, is_list=True, max_seq_length=L),
+            cont("event_weekday_sin", tags=seq, is_list=True, max_seq_length=L),
+            cont("event_weekday_cos", tags=seq, is_list=True, max_seq_length=L),
+            cat("item_id_seq", 100, tags=(Tags.ITEM_ID,) + seq, is_list=True, max_seq_length=L),
+            cat("categories", 331, tags=(Tags.LIST,) + seq, is_list=True, max_seq_length=L),
+            cat("user_country", 62, tags=Tags.USER),
+            cont("user_age", tags=Tags.USER),
+            ColumnSchema("event_timestamp", dtype="int32"),
+        ]
+    )
+
+
 KNOWN_DATASETS: Dict[str, Callable[[], Schema]] = {
     "e-commerce": _ecommerce_schema,
     "movielens-25m": _movielens_25m_schema,
     "criteo": _criteo_schema,
     "criteo-small": _criteo_small_schema,
+    "sequence-testing": _sequence_testing_schema,
 }
 
 
@@ -124,7 +148,9 @@ def generate_data(
     min_session_length: Optional[int] = None,
     max_session_length: Optional[int] = None,
 ) -> Dataset:
-    """A random dataset honouring the schema's domains."""
+    """A random dataset honouring the schema's domains. A list column's rows
+    take lengths uniform in [``min_session_length``, ``max_session_length``]
+    (default: half the column's ``max_seq_length``, and that length)."""
     schema = known_schema(input) if isinstance(input, str) else input
     rng = np.random.default_rng(seed)
     data = {

@@ -16,10 +16,15 @@ from .embedding import Embeddings
 
 def InputBlockV2(schema: Schema, dim: Optional[int] = None,
                  param_dtype: Optional[torch.dtype] = None, seed: int = 0,
-                 device=None) -> ParallelBlock:
+                 aggregation: Optional[str] = "concat", device=None) -> ParallelBlock:
     """Build the input layer from the schema; TARGET columns are excluded.
-    The branches' outputs are concatenated into one (B, out_features) tensor.
+    The branches' outputs are concatenated into one (B, out_features) tensor
+    (``aggregation="concat"``), or, with ``aggregation=None``, returned as
+    the dict by column (sequence columns as :class:`SequenceFeature`);
+    ``out_features`` is then the width they would concatenate to.
     ``param_dtype`` is the embedding tables' dtype at rest (see ``Embeddings``)."""
+    if aggregation not in ("concat", None):
+        raise ValueError(f"aggregation must be 'concat' or None, got {aggregation!r}")
     schema = schema.excluding_by_tag(Tags.TARGET)
     branches = {}
     cat_schema = schema.categorical
@@ -32,7 +37,8 @@ def InputBlockV2(schema: Schema, dim: Optional[int] = None,
     if not branches:
         raise ValueError("Schema produced no input branches")
     block = ParallelBlock(
-        branches, aggregation=ConcatFeatures(), block_name="input_block", schema=schema
+        branches, aggregation=ConcatFeatures() if aggregation else None,
+        block_name="input_block", schema=schema,
     )
     # every categorical column gives its table's dim, every continuous one 1
     tables = branches["categorical"].branches.values() if len(cat_schema) else ()

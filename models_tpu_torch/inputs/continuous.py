@@ -17,7 +17,8 @@ from ..schema import Schema
 
 class Continuous(Block):
     """Select the continuous columns and turn each (B,) column into (B, 1)
-    float32."""
+    float32, and each (B, L) list column into a :class:`SequenceFeature` of
+    (B, L, 1) float32 values."""
 
     def __init__(self, schema: Optional[Schema] = None):
         if schema is not None and len(schema.continuous):
@@ -31,7 +32,11 @@ class Continuous(Block):
             if name not in inputs:
                 continue
             v = inputs[name]
-            out[name] = (v[:, None] if v.ndim == 1 else v).to(torch.float32)
+            if isinstance(v, SequenceFeature):
+                vals = v.values[..., None] if v.values.ndim == 2 else v.values
+                out[name] = SequenceFeature(vals.to(torch.float32), v.mask)
+            else:
+                out[name] = (v[:, None] if v.ndim == 1 else v).to(torch.float32)
         return out
 
 

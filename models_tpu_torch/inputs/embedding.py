@@ -109,6 +109,14 @@ class EmbeddingTable(Block):
     def embeddings(self) -> torch.Tensor:
         return self.table[: self.input_dim]
 
+    def to_dataset(self):
+        """The table's ``input_dim`` rows as a Dataset of ``id`` (int64) and
+        ``embedding`` (float32; a bf16 table's rows widened)."""
+        from ..data.dataset import Dataset
+
+        emb = self.embeddings.detach().float().cpu().numpy()
+        return Dataset({"id": np.arange(emb.shape[0], dtype=np.int64), "embedding": emb})
+
     def _lookup(self, ids, context):
         lookups = context.get("sparse_lookups") if context is not None else None
         if lookups is not None and self.sparse_routed:

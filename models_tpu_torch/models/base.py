@@ -1,9 +1,10 @@
 """Model: a sequential container ending in a head (or a block of heads),
 with ``predict``, ``compile``, ``fit`` and ``evaluate`` (the subset of
-``models_tpu/models/base.py`` that the two-tower and ranking models serve,
-train and evaluate with). ``predict`` gives each head's ``activation`` of
-its logits (probabilities for a binary head); ``compile`` takes each head's
-default loss and metrics. Blocks that keep state across steps (BatchNorm's
+``models_tpu/models/base.py`` that the two-tower, ranking and session
+models serve, train and evaluate with; each takes a ``pre=`` transform).
+``predict`` gives each head's ``activation`` of its logits (probabilities
+for a binary head); ``compile`` takes each head's default loss and
+metrics. Blocks that keep state across steps (BatchNorm's
 running statistics) update it in place in the training forward, so that a
 captured chunk replays it.
 
@@ -25,10 +26,14 @@ each chunk gathers its permuted rows on the device (K9) and slices its
 batches from them; otherwise it packs k host batches at a time and runs the
 leftover batches one step each. On CUDA with ``compile(jit=True)`` each chunk
 is one CUDA graph replay (``models/step_graph.py``); on the CPU, and with
-``jit=False``, the same chunk runs eagerly. Not ported yet (ROADMAP.md queue
-1): the device-resident ``evaluate`` and validation, the bucketed device
-groups, meshes, callbacks, ``MultiOptimizer``, the sharded sparse update and
-frozen blocks.
+``jit=False``, the same chunk runs eagerly. Under ``Loader(pad="bucket")``
+each length bucket's rows form a group with its own pack and graphs
+(:meth:`Model.fit`). A head over sequences flattens a batch's B * L
+positions into rows: the loader's row validity repeats over them
+(``_merge_row_valid``), and (B, L, C) outputs flatten for the metrics. Not
+ported yet (ROADMAP.md queue 1): the device-resident ``evaluate`` and
+validation, meshes, callbacks, ``MultiOptimizer``, the sharded sparse
+update and frozen blocks.
 """
 
 from __future__ import annotations
@@ -86,14 +91,44 @@ def _auto_loss(loss_fn: Callable, labels, logits, sample_weight):
     return loss_fn(labels, logits, sample_weight)
 
 
-def _merge_row_valid(sw, row_valid):
-    """The head's sample weights times the loader's row validity."""
+def _keep_pack(ds: Dataset) -> None:
+    """Note that ``ds`` keeps device-resident columns (its pack, or its
+    bucket groups' packs): at most two datasets do, the least recently
+    packed dropping theirs first."""
+    _TRAIN_PACK_LRU.append(weakref.ref(ds))
+    while len(_TRAIN_PACK_LRU) > 2:
+        old = _TRAIN_PACK_LRU.popleft()()
+        if old is not None and old is not ds:
+            old._device_train_pack = old._device_bucket_groups = None
+
+
+def _unwrap_targets(pred: Prediction):
+    """(targets, sample weights): a :class:`SequenceFeature` target gives
+    its values, and its mask multiplies the weights."""
+    t, sw = pred.targets, pred.sample_weight
+    if isinstance(t, SequenceFeature):
+        m = t.mask.to(torch.float32)
+        sw = m if sw is None else sw * m
+        t = t.values
+    return t, sw
+
+
+def _merge_row_valid(sw, row_valid, lead_dim: int):
+    """The head's sample weights times the loader's row validity. Where the
+    head's rows are a batch's flattened positions (``lead_dim`` = B * L
+    against B rows), each row's validity repeats over its positions."""
     if row_valid is None:
         return sw
     rv = row_valid.to(torch.float32)
     if sw is None:
+        if lead_dim != rv.shape[0] and lead_dim % rv.shape[0] == 0:
+            rv = rv.repeat_interleave(lead_dim // rv.shape[0])
         return rv
-    return sw * rv.reshape(rv.shape + (1,) * (sw.ndim - 1))
+    if sw.shape[0] == rv.shape[0]:
+        return sw * rv.reshape(rv.shape + (1,) * (sw.ndim - 1))
+    if sw.shape[0] % rv.shape[0] == 0:
+        return sw * rv.repeat_interleave(sw.shape[0] // rv.shape[0])
+    return sw
 
 
 def _fetch(values: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -155,16 +190,22 @@ class Model(Block):
 
     @torch.no_grad()
     def predict(self, data: Union[Dataset, Loader], batch_size: Optional[int] = None,
-                device=None):
+                pre: Optional[nn.Module] = None, device=None):
         """Run the model over the data in batches and drop padded rows: numpy
         arrays of each head's activation (a binary head's probabilities (n,),
-        a regression head's values (n,); several heads: a dict by head name).
-        A top-k model returns ``{"scores": (n, k) f32, "ids": (n, k) int32}``."""
+        a regression head's values (n,), a tied head's full-catalog scores
+        (n[, L], catalog); several heads: a dict by head name). A top-k
+        model returns ``{"scores": (n, k) f32, "ids": (n, k) int32}``.
+        ``pre``: a transform of each batch's features on the device first."""
         dev = check_module_device(self, device)
         loader = data if isinstance(data, Loader) else Loader(data, batch_size or 1024)
         chunks = []
-        for x, _ in loader:
-            out = self._outputs(self(to_device_batch(x, dev)))
+        for x, y in loader:
+            xb = to_device_batch(x, dev)
+            if pre is not None:
+                xb, _ = self._apply_pre(pre.to(dev), xb, to_device_targets(y, dev),
+                                        training=False)
+            out = self._outputs(self(xb))
             valid = x[ROW_VALID_KEY]
             if isinstance(out, dict):
                 chunks.append({k: v.cpu().numpy()[valid] for k, v in out.items()})
@@ -234,6 +275,7 @@ class Model(Block):
         # every compiled-artifact cache dies with compile(): a graph holds the
         # optimizer, losses and metrics resolved when it was captured
         self._chunk_graphs = ChunkGraphs()
+        self._group_graphs: Dict[int, ChunkGraphs] = {}
         self._optimizer = None
         self._step = 0
         self._compiled = True
@@ -278,8 +320,15 @@ class Model(Block):
             pred = pred_dict.get(name)
             if pred is None or pred.targets is None:
                 continue
-            outputs, t = pred.outputs.detach(), pred.targets
-            sw = _merge_row_valid(pred.sample_weight, row_valid)
+            t, sw = _unwrap_targets(pred)
+            outputs = pred.outputs.detach()
+            sw = _merge_row_valid(sw, row_valid, outputs.shape[0])
+            if outputs.ndim == 3:  # sequence logits (B, L, C) -> (B * L, C)
+                outputs = outputs.reshape(-1, outputs.shape[-1])
+                if t is not None and t.ndim >= 2:
+                    t = t.reshape(-1) if t.ndim == 2 else t.reshape(-1, t.shape[-1])
+                if sw is not None:
+                    sw = sw.reshape(-1)
             for i, m in enumerate(ms):
                 if isinstance(m, (TopKMetric, TopKMetricsAggregator)):
                     if t.ndim == outputs.ndim - 1:
@@ -331,8 +380,9 @@ class Model(Block):
             elif pred.targets is None or name not in loss_fns:
                 continue
             else:
-                sw = _merge_row_valid(pred.sample_weight, row_valid)
-                value = _auto_loss(loss_fns[name], pred.targets, pred.outputs, sw)
+                t, sw = _unwrap_targets(pred)
+                sw = _merge_row_valid(sw, row_valid, pred.outputs.shape[0])
+                value = _auto_loss(loss_fns[name], t, pred.outputs, sw)
             logs[f"loss/{name}"] = value
             total = total + value
         # no regularizer is ported yet (every table's l2_reg is 0)
@@ -391,11 +441,23 @@ class Model(Block):
                     grad = rows.grad if rows.grad is not None else torch.zeros_like(rows)
                     self._emb_opt.apply(table, ids, grad, self._step)
 
+    @staticmethod
+    def _apply_pre(pre, x, y, training: bool):
+        """The ``pre=`` transform on one batch on the device: ``(x, y)``, the
+        targets from the transform's return or, where it returns the
+        features alone, from its context."""
+        context = ModelContext(features=x, targets=y)
+        out = pre(x, targets=y, training=training, context=context)
+        if isinstance(out, tuple):
+            return out
+        return out, context.targets if context.targets is not None else y
+
     def train_step(self, x: Dict[str, torch.Tensor], y, loss_fns,
                    mark: Optional[Callable[[str], None]] = None,
                    task_metrics=None, metric_states=None) -> Dict[str, torch.Tensor]:
-        """One step on a batch already on the model's device: forward, backward,
-        dense optimizer step, row-sparse updates. Returns the step's logs,
+        """One step on a batch already on the model's device: the ``pre=``
+        transform of ``fit`` where one is set, forward, backward, dense
+        optimizer step, row-sparse updates. Returns the step's logs,
         detached, on the device. With ``metric_states`` the step feeds the
         metrics: the heads return their logits (``need_logits``) and the
         states of ``task_metrics`` are updated in place. ``mark``, where
@@ -404,6 +466,9 @@ class Model(Block):
         that a caller can time the parts."""
         mark = mark or (lambda name: None)
         with_metrics = metric_states is not None
+        pre = getattr(self, "_pre_transform", None)
+        if pre is not None:
+            x, y = self._apply_pre(pre, x, y, training=True)
         context = ModelContext(features=x, targets=y, step=self._step, need_logits=with_metrics)
         if self._sparse_tables:
             context["sparse_lookups"] = []
@@ -526,12 +591,43 @@ class Model(Block):
         packed, spec = Model._pack_device_columns(feats, targets, n_rows)
         pack = DevicePack(n_rows, spec, torch.as_tensor(packed, device=dev))
         ds._device_train_pack = pack
-        _TRAIN_PACK_LRU.append(weakref.ref(ds))
-        while len(_TRAIN_PACK_LRU) > 2:
-            old = _TRAIN_PACK_LRU.popleft()()
-            if old is not None and old is not ds:
-                old._device_train_pack = None
+        _keep_pack(ds)
         return pack
+
+    @staticmethod
+    def _device_bucket_groups(loader: Loader, dev: torch.device
+                              ) -> Optional[List[Tuple[int, DevicePack]]]:
+        """The loader's dataset grouped by length bucket
+        (``Loader.bucketed_dense_columns``), each group one packed matrix on
+        ``dev``: ``[(bucket, DevicePack), ...]``, cached on the dataset
+        (``_device_bucket_groups``) beside the unbucketed pack. None where the
+        route does not apply, as the JAX package rules: batches that keep a
+        partial last one, groups whose full batches hold less than 80% of
+        the rows (drop_last applies to each group), or more than 2 GiB
+        packed."""
+        if not loader.drop_last:
+            return None
+        ds = loader.dataset
+        groups = getattr(ds, "_device_bucket_groups", None)
+        if groups is None or groups[0][1].packed.device != dev:
+            try:
+                raw = loader.bucketed_dense_columns()
+            except ValueError:
+                return None
+            leaves = [leaf for _, f, t, _ in raw for leaf in Model._column_leaves(f, t)[0]]
+            if sum(np.asarray(leaf[-1]).nbytes for leaf in leaves) > MAX_PACK_BYTES:
+                return None
+            groups = []
+            for bucket, feats, targets, n in raw:
+                packed, spec = Model._pack_device_columns(feats, targets, n)
+                groups.append((bucket, DevicePack(n, spec, torch.as_tensor(packed, device=dev))))
+            ds._device_bucket_groups = groups
+            _keep_pack(ds)
+        B = loader.batch_size
+        total = sum(g.n_rows for _, g in groups)
+        if sum(g.n_rows // B * B for _, g in groups) < 0.8 * total:
+            return None
+        return groups
 
     def _chunk_fn(self, k: int, batch_size: int, spec: tuple, loss_fns, task_metrics,
                   with_metrics: bool) -> Callable:
@@ -557,17 +653,20 @@ class Model(Block):
         return fn
 
     def _run_chunk(self, source: torch.Tensor, spec: tuple, idx: torch.Tensor, k: int,
-                   batch_size: int, with_metrics: bool, loss_fns, task_metrics, states):
+                   batch_size: int, with_metrics: bool, loss_fns, task_metrics, states,
+                   graphs: Optional[ChunkGraphs] = None):
         """One chunk of k steps: a CUDA graph replay on the card under
-        ``jit`` (:class:`~models_tpu_torch.models.step_graph.ChunkGraphs`),
-        else eagerly."""
+        ``jit`` (``graphs``, a
+        :class:`~models_tpu_torch.models.step_graph.ChunkGraphs`: the
+        model's, or a bucket group's), else eagerly."""
         fn = self._chunk_fn(k, batch_size, spec, loss_fns, task_metrics, with_metrics)
         if not (self._jit and source.device.type == "cuda"):
             return fn(source, idx, states)
         # the source's address is not in the key: ChunkGraphs drops every
         # graph when a tensor it captured (the source among them) is replaced
         key = (k, with_metrics, batch_size, spec, get_dtype_policy())
-        return self._chunk_graphs.run(self, key, fn, source, idx, states, k)
+        graphs = self._chunk_graphs if graphs is None else graphs
+        return graphs.run(self, key, fn, source, idx, states, k)
 
     def _host_chunk(self, batches, dev):
         """k host batches packed into one (k B, F) matrix on ``dev`` (their
@@ -614,7 +713,7 @@ class Model(Block):
     def fit(self, data: Union[Dataset, Loader], epochs: int = 1,
             batch_size: Optional[int] = None, shuffle: bool = True,
             validation_data: Union[None, Dataset, Loader] = None, validation_freq: int = 1,
-            device=None) -> History:
+            pre: Optional[nn.Module] = None, device=None) -> History:
         """Train for ``epochs`` passes over ``data`` in full batches (the
         loader drops the last partial one). ``history[name]`` holds each
         epoch's mean step log, the metrics over its metric steps, plus
@@ -622,10 +721,26 @@ class Model(Block):
         ``validation_freq``-th epoch adds :meth:`evaluate`'s results under
         ``val_<name>``. With ``compile(steps_per_execution=k)``, k steps a
         chunk (the module's note); the batches and their order are the
-        streaming route's."""
+        streaming route's.
+
+        ``pre``: a transform of each batch on the device before its step
+        (``SequencePredictNext``, ``SequenceMaskRandom``, ...), run inside
+        the step, so inside a chunk's captured graph; it must take the
+        batch's tensors and return ``(features, targets)`` (or the
+        features, its context's ``targets`` set) with no copy to the host.
+        It is moved to the model's device. A loader with ``pad="bucket"``
+        and k steps a chunk trains each length bucket's rows as a group of
+        its own (``_device_bucket_groups``), one packed matrix and one set of
+        graphs a group, the groups in bucket order, each shuffled by its own
+        permutation; where that route does not apply, one step at a time."""
         if not self._compiled:
             self.compile()
         dev = check_module_device(self, device)
+        if pre is not getattr(self, "_pre_transform", None):
+            # a captured chunk holds the transform it ran
+            self._chunk_graphs.clear()
+            self._group_graphs.clear()
+        self._pre_transform = pre.to(dev) if isinstance(pre, nn.Module) else pre
         loader = data if isinstance(data, Loader) else Loader(
             data, batch_size or 1024, drop_last=True, shuffle=shuffle)
         B = loader.batch_size
@@ -637,16 +752,27 @@ class Model(Block):
         # k steps a chunk only without an embedding optimizer: the JAX package
         # sets spe = 1 where a sparse one is set
         spe = 1 if self._sparse_tables else self._steps_per_execution
-        pack = self._device_train_pack(loader, dev) if spe > 1 else None
-        if pack is not None:
+        bucketed = getattr(loader, "pad", "max") == "bucket"
+        groups = self._device_bucket_groups(loader, dev) if spe > 1 and bucketed else None
+        if bucketed and groups is None:
+            spe = 1  # bucketed batches differ in shape: no chunk of host batches
+        pack = self._device_train_pack(loader, dev) if spe > 1 and not bucketed else None
+
+        def epoch_perms(n_rows: int, salt: int = 0) -> torch.Tensor:
             # every epoch's permutation in one upload, drawn from the loader's
-            # epoch seeds: the device route trains on the streaming route's
-            # batches, in its order
-            perms = np.stack([
-                np.random.default_rng(loader.seed + (loader._epoch + 1 + e) * 9973
-                                      ).permutation(pack.n_rows) if loader.shuffle
-                else np.arange(pack.n_rows) for e in range(epochs)]).astype(np.int32)
-            perms = torch.as_tensor(perms, device=dev)
+            # epoch seeds (a bucket group's salted with its bucket, as the JAX
+            # package salts them): the device route trains on the streaming
+            # route's batches, in its order
+            return torch.as_tensor(np.stack([
+                np.random.default_rng(loader.seed + (loader._epoch + 1 + e) * 9973 + salt
+                                      ).permutation(n_rows) if loader.shuffle
+                else np.arange(n_rows) for e in range(epochs)]).astype(np.int32), device=dev)
+
+        if pack is not None:
+            perms = epoch_perms(pack.n_rows)
+        if groups is not None:
+            group_perms = {bucket: epoch_perms(g.n_rows, bucket & 0xFFFF)
+                           for bucket, g in groups}
 
         def metric_chunk(k):
             return has_metrics and any(
@@ -676,17 +802,21 @@ class Model(Block):
                                      metric_states=states if metric_step else None))
                 n_examples += B
 
-            if pack is not None:
+            if pack is not None or groups is not None:
                 loader._epoch += 1  # the loader's seed bookkeeping, as if it had streamed
-                n_batches, local = pack.n_rows // B, 0
-                while local < n_batches:
-                    k = min(spe, n_batches - local)
-                    logs, states = self._run_chunk(
-                        pack.packed, pack.spec, perms[epoch, local * B:(local + k) * B], k, B,
-                        metric_chunk(k), loss_fns, task_metrics, states)
-                    keep(logs)
-                    n_examples += k * B
-                    local += k
+                for bucket, gpack in groups or [(None, pack)]:
+                    gperm = perms if bucket is None else group_perms[bucket]
+                    graphs = (None if bucket is None
+                              else self._group_graphs.setdefault(bucket, ChunkGraphs()))
+                    n_batches, local = gpack.n_rows // B, 0
+                    while local < n_batches:
+                        k = min(spe, n_batches - local)
+                        logs, states = self._run_chunk(
+                            gpack.packed, gpack.spec, gperm[epoch, local * B:(local + k) * B],
+                            k, B, metric_chunk(k), loss_fns, task_metrics, states, graphs)
+                        keep(logs)
+                        n_examples += k * B
+                        local += k
             else:
                 chunk = []
                 for x, y in loader:
@@ -718,12 +848,15 @@ class Model(Block):
 
     @torch.no_grad()
     def evaluate(self, data: Union[Dataset, Loader], batch_size: Optional[int] = None,
-                 steps: Optional[int] = None, device=None) -> Dict[str, float]:
+                 steps: Optional[int] = None, pre: Optional[nn.Module] = None,
+                 device=None) -> Dict[str, float]:
         """The loss and the metrics over ``data`` (every row, the last batch
         padded and its padding masked; at most ``steps`` batches): the heads
         take their evaluation branch (``testing``), the contrastive head
         scoring each batch's in-batch negatives, the top-k head the catalog.
-        ``loss`` is the mean of the batches' losses. One copy to the host."""
+        ``loss`` is the mean of the batches' losses. One copy to the host.
+        ``pre``: a transform of each batch on the device, as ``fit``'s
+        (``SequencePredictLast``: the next-item protocol)."""
         if not self._compiled:
             self.compile()
         dev = check_module_device(self, device)
@@ -737,6 +870,8 @@ class Model(Block):
             if steps is not None and step >= steps:
                 break
             xb, yb = to_device_batch(x, dev), to_device_targets(y, dev)
+            if pre is not None:
+                xb, yb = self._apply_pre(pre.to(dev), xb, yb, training=False)
             context = ModelContext(features=xb, targets=yb, testing=True, need_logits=True)
             preds = self(xb, targets=yb, training=False, context=context)
             pred_dict = self._as_pred_dict(preds)

@@ -1,5 +1,6 @@
-"""The two-tower retrieval model (``models_tpu/models/retrieval.py``):
-serving, and training through its contrastive head."""
+"""Retrieval models (``models_tpu/models/retrieval.py``): the two-tower
+model, served and trained through its contrastive head, and the
+query-only form that a tied head completes (the session model)."""
 
 from __future__ import annotations
 
@@ -22,10 +23,11 @@ from .base import Model
 
 class RetrievalModelV2(Model):
     """A query tower and a candidate tower, run side by side into a
-    :class:`ContrastiveOutput`. ``item_id_name`` names the column whose values
-    become the index's ids."""
+    :class:`ContrastiveOutput`; or, with ``candidate=None``, the query tower
+    alone into a head whose candidates are its tied table's rows.
+    ``item_id_name`` names the column whose values become the index's ids."""
 
-    def __init__(self, query: Block, candidate: Block, output: ContrastiveOutput,
+    def __init__(self, query: Block, candidate: Optional[Block], output: ContrastiveOutput,
                  schema: Optional[Schema] = None):
         # Model.__init__ would register ``blocks`` first; the towers come
         # first, so that ``named_parameters()`` (which names a shared module
@@ -33,8 +35,9 @@ class RetrievalModelV2(Model):
         Block.__init__(self, schema=schema, block_name="two_tower")
         self._query = query
         self._candidate = candidate
-        self.blocks = nn.ModuleList(
-            [ParallelBlock({"query": query, "candidate": candidate}), output])
+        encoder = query if candidate is None else ParallelBlock(
+            {"query": query, "candidate": candidate})
+        self.blocks = nn.ModuleList([encoder, output])
         self._compiled = False
 
     @property
@@ -53,11 +56,20 @@ class RetrievalModelV2(Model):
     def candidate_encoder(self) -> Block:
         return self._candidate
 
-    def candidate_embeddings(self, dataset: Dataset, batch_size: int = 1024,
+    def query_embeddings(self, dataset: Dataset, batch_size: int = 1024,
+                         index: Union[str, Tags, None] = Tags.USER_ID, device=None) -> Dataset:
+        """Encode the queries with the query tower, as ``id`` + ``embedding``."""
+        return Encoder(self._query).encode(dataset, index=index, batch_size=batch_size,
+                                           device=device)
+
+    def candidate_embeddings(self, dataset: Optional[Dataset] = None, batch_size: int = 1024,
                              index: Union[str, Tags, None] = Tags.ITEM_ID,
                              device=None) -> Dataset:
         """Encode the catalog: one row per distinct item id (its first row in
-        ``dataset``), as ``id`` + ``embedding``."""
+        ``dataset``), as ``id`` + ``embedding``; with a tied head and no
+        candidate tower, the tied table's rows."""
+        if self._candidate is None:
+            return self.contrastive_output.to_dataset()
         if dataset is None:
             raise ValueError("Two-tower candidate_embeddings needs an item dataset")
         if isinstance(index, Tags):
@@ -82,13 +94,17 @@ class RetrievalModelV2(Model):
                            candidate_dtype=candidate_dtype, device=device)
 
     def evaluate(self, data, batch_size: Optional[int] = None, item_corpus=None, k: int = 10,
-                 steps: Optional[int] = None, device=None):
+                 steps: Optional[int] = None, pre=None, device=None):
         """In-batch evaluation (:meth:`Model.evaluate`), or, with
         ``item_corpus`` (a Dataset of items), each query scored against the
         whole corpus: a brute-force fp32 index of the candidate tower's
         embeddings, then the top-k metrics of its ``k`` best."""
         if item_corpus is None:
-            return super().evaluate(data, batch_size=batch_size, steps=steps, device=device)
+            return super().evaluate(data, batch_size=batch_size, steps=steps, pre=pre,
+                                    device=device)
+        if pre is not None:
+            raise NotImplementedError("evaluate(item_corpus=, pre=) is not ported yet "
+                                      "(ROADMAP.md queue 1)")
         corpus = None if item_corpus is True else item_corpus
         topk = self.to_top_k_encoder(corpus, k=k, device=device)
         return topk.evaluate(data, batch_size=batch_size, steps=steps, device=device)

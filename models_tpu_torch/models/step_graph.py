@@ -37,8 +37,9 @@ are counted from a profiler trace of the replays (``chip_smoke.py``).
 ``ModelContext(step=...)`` is frozen at its capture value: no block on the
 dense route reads it (the row-sparse update, which does, never takes this
 route). The random numbers a chunk draws come from generators on the card
-(``Dropout``'s own), each registered with the graph, so that every replay
-draws anew. Blocks that keep state across steps (BatchNorm's running
+(each ``RandomBlock``'s own: ``Dropout``, the popularity sampler, the
+random sequence transforms of ``fit(pre=)``), each registered with the
+graph, so that every replay draws anew. Blocks that keep state across steps (BatchNorm's running
 statistics) update it in place: a replay updates it as the eager steps do.
 """
 
@@ -68,7 +69,8 @@ def captured_tensors(model, source: torch.Tensor) -> tuple:
 
 def chunk_generators(model) -> list:
     """The generators on the card that the model's blocks draw from in
-    training (``Dropout.generator``)."""
+    training (``RandomBlock.generator``; ``fit``'s ``pre`` is one of the
+    model's modules while it trains)."""
     gens = [getattr(m, "generator", None) for m in model.modules()]
     return [g for g in gens if isinstance(g, torch.Generator) and g.device.type == "cuda"]
 

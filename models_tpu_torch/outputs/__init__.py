@@ -1,11 +1,13 @@
 from .base import (BinaryOutput, CategoricalOutput, CategoricalTarget, ColumnBasedSampleWeight,
-                   LogitsTemperatureScaler, ModelOutput, OutputBlock, RegressionOutput)
+                   EmbeddingTablePrediction, LogitsTemperatureScaler, ModelOutput, OutputBlock,
+                   RegressionOutput)
 from .contrastive import ContrastiveOutput
-from .sampling import Candidate, CandidateSampler, InBatchSampler
+from .sampling import Candidate, CandidateSampler, InBatchSampler, PopularityBasedSampler
 from .topk import BruteForce, TopKOutput
 
 __all__ = [
     "BinaryOutput", "BruteForce", "Candidate", "CandidateSampler", "CategoricalOutput",
-    "CategoricalTarget", "ColumnBasedSampleWeight", "ContrastiveOutput", "InBatchSampler",
-    "LogitsTemperatureScaler", "ModelOutput", "OutputBlock", "RegressionOutput", "TopKOutput",
+    "CategoricalTarget", "ColumnBasedSampleWeight", "ContrastiveOutput",
+    "EmbeddingTablePrediction", "InBatchSampler", "LogitsTemperatureScaler", "ModelOutput",
+    "OutputBlock", "PopularityBasedSampler", "RegressionOutput", "TopKOutput",
 ]

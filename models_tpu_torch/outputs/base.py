@@ -6,10 +6,10 @@ metrics, which ``Model.compile`` resolves per head, and the ``activation``
 that ``Model.predict`` applies to its logits. Ported: the temperature
 scaler, ``ModelOutput``, ``RegressionOutput``, ``BinaryOutput``,
 ``CategoricalTarget``, ``CategoricalOutput``, ``ColumnBasedSampleWeight`` and
-``OutputBlock`` (heads from the schema's TARGET columns). A head's width is
-given at construction (``in_features``: the body's ``out_features``).
-Weight tying (``EmbeddingTablePrediction``) and ``DotProduct`` are not
-ported yet (ROADMAP.md queue 1).
+``OutputBlock`` (heads from the schema's TARGET columns), and the
+weight-tying head ``EmbeddingTablePrediction``. A head's width is given at
+construction (``in_features``: the body's ``out_features``). ``DotProduct``
+is not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from torch import nn
 from ..blocks.mlp import Dense
 from ..core.block import Block
 from ..core.combinators import ParallelBlock
-from ..core.types import Prediction
+from ..core.policy import cast_compute
+from ..core.types import Prediction, SequenceFeature
 from ..schema import ColumnSchema, Schema, Tags
 
 
@@ -155,6 +156,30 @@ class CategoricalTarget(Block):
 
     def forward(self, inputs, **kwargs):
         return self.dense(inputs)
+
+
+class EmbeddingTablePrediction(Block):
+    """Weight tying: the logits are ``x @ table.T`` over the table's
+    ``input_dim`` rows (the catalog), the operands in the policy's compute
+    dtype, the result float32. ``embedding_lookup`` gathers the table's rows
+    as its input lookups do (``EmbeddingTable._lookup``)."""
+
+    def __init__(self, table):
+        super().__init__()
+        self.table = table
+
+    def forward(self, inputs, *, training=False, context=None, **kwargs):
+        if training and context is not None and context.get("sparse_lookups") is not None:
+            raise ValueError(
+                "Full-catalog weight-tying softmax produces dense table gradients, "
+                "incompatible with the row-sparse embedding optimizer. Use sampled "
+                "softmax (ContrastiveOutput) or a dense optimizer for this table.")
+        if isinstance(inputs, SequenceFeature):
+            inputs = inputs.values
+        return cast_compute(inputs).float() @ cast_compute(self.table.embeddings).float().T
+
+    def embedding_lookup(self, ids: torch.Tensor, context=None) -> torch.Tensor:
+        return self.table._lookup(ids, context)
 
 
 class CategoricalOutput(ModelOutput):

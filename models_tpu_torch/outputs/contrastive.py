@@ -1,5 +1,7 @@
-"""ContrastiveOutput: the sampled-softmax training head of the two-tower model
-(``models_tpu/outputs/contrastive.py``), with in-batch negatives.
+"""ContrastiveOutput: the sampled-softmax training head
+(``models_tpu/outputs/contrastive.py``), for the two-tower model (``{"query",
+"candidate"}`` inputs) and with weight tying (an :class:`EmbeddingTable` as
+``to_call``: the candidates are the table's rows, the query a tensor).
 
 - positive score: the row-wise dot of query and positive candidate;
 - negative scores: ``query @ negatives.T``;
@@ -8,19 +10,30 @@
 - false negatives (negative id == positive id) scored ``MIN_FLOAT``;
 - temperature: every logit divided by T.
 
+Sequence queries (B, L, D) flatten to (B*L, D): every position is a query,
+weighted by the target's prediction mask (or the query's mask), and the
+loader's row validity repeats over the L positions. A scalar target (the
+predict-last protocol) takes the hidden state at each row's last valid
+position instead. Padded positions inside a valid row stay in-batch
+negatives, with their id (0 after the shift): the JAX package marks
+validity per row (ROADMAP.md queue 3).
+
 Three branches. Training with ``need_logits`` False (no metric reads the
 logits) takes the fused loss, :func:`~models_tpu_torch.ops.contrastive.sampled_softmax_loss`,
-which never holds the (B, 1+N) logits, where its kernels hold the towers'
+which never holds the (Q, 1+N) logits, where its kernels hold the query's
 width (:func:`~models_tpu_torch.ops.flash_ce.fits`: any width on the CPU, up
-to 256 on the card; wider towers take the logits branch, as the JAX
+to 256 on the card; wider queries take the logits branch, as the JAX
 package's ``_use_flash`` routes shapes outside its kernel). Otherwise (training steps that feed
 metrics, and evaluation: targets given, or the engine's ``testing`` flag)
-the head returns those logits with a one-hot target on column 0, for the
-model's loss and the top-k metrics. Without either it scores each row's own
-pair (inference). Under the ``mixed_bfloat16`` policy the first two cast
-their operands to bf16 (``cast_compute``, each operand on its own) and keep
-float32 scores; the inference branch scores as it is given. Weight tying with an embedding table and post blocks are
-not ported yet.
+the head returns those logits with a one-hot target on column 0 and the
+prediction mask as ``sample_weight``, for the model's loss and the top-k
+metrics. Without either it scores each row's own pair (two-tower) or the
+whole catalog (weight tying: (B[, L], catalog) logits). Under the
+``mixed_bfloat16`` policy the first two cast their operands to bf16
+(``cast_compute``, each operand on its own) and keep float32 scores; the
+tying inference takes its product through ``cast_compute`` too, the
+two-tower inference scores as it is given. Post blocks, several samplers
+in one head and row-sparse training of a tied table are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,15 +43,17 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
+from ..core.aggregation import sequence_last
 from ..core.constants import LOGQ_EPS, MIN_FLOAT
 from ..core.policy import cast_compute
-from ..core.types import Prediction
+from ..core.types import Prediction, SequenceFeature
 from ..data.loader import ROW_VALID_KEY
+from ..inputs.embedding import EmbeddingTable
 from ..ops import flash_ce
 from ..ops.contrastive import sampled_softmax_loss
 from ..schema import ColumnSchema, Schema
-from .base import ModelOutput
-from .sampling import Candidate, CandidateSampler
+from .base import EmbeddingTablePrediction, ModelOutput
+from .sampling import Candidate, CandidateSampler, PopularityBasedSampler
 
 
 class ContrastiveOutput(ModelOutput):
@@ -46,7 +61,7 @@ class ContrastiveOutput(ModelOutput):
 
     def __init__(
         self,
-        to_call: Union[ColumnSchema, Schema, None] = None,
+        to_call: Union[ColumnSchema, Schema, EmbeddingTable, None] = None,
         negative_samplers: Union[str, CandidateSampler, Sequence, None] = "in-batch",
         target: Optional[str] = None,
         downscore_false_negatives: bool = True,
@@ -56,14 +71,20 @@ class ContrastiveOutput(ModelOutput):
         post=None,
         default_metrics_top_ks: Sequence[int] = (10,),
     ):
+        table = None
         if isinstance(to_call, ColumnSchema):
-            target = target or to_call.name
+            col_schema = to_call
         elif isinstance(to_call, Schema):
-            target = target or to_call.item_id_column.name
-        elif to_call is not None:
-            raise NotImplementedError(
-                "weight tying (an EmbeddingTable as the head) is not ported yet "
-                "(ROADMAP.md queue 1)")
+            col_schema = to_call.item_id_column
+        elif isinstance(to_call, EmbeddingTable):
+            table, col_schema = to_call, to_call.schema.first
+        elif to_call is None:
+            col_schema = None
+        else:
+            raise TypeError(f"ContrastiveOutput takes a column, a schema or an EmbeddingTable, "
+                            f"not {type(to_call).__name__}")
+        if col_schema is not None:
+            target = target or col_schema.name
         if post is not None:
             raise NotImplementedError(
                 "a post block on the contrastive head (ContrastiveSampleWeight) is not ported "
@@ -77,11 +98,20 @@ class ContrastiveOutput(ModelOutput):
         if len(self.samplers) > 1:
             raise NotImplementedError("several negative samplers are not ported yet "
                                       "(ROADMAP.md queue 1)")
+        # a catalog sampler takes the item domain from the head's column
+        if col_schema is not None and col_schema.cardinality:
+            for s in self.samplers:
+                if isinstance(s, PopularityBasedSampler) and s.max_id is None:
+                    s.max_id = int(col_schema.cardinality) - 1
         self.downscore_false_negatives = downscore_false_negatives
         self.logq_sampling_correction = logq_sampling_correction
         # "auto" or True: the fused loss on training steps that need no logits
         self.fused_loss = fused_loss
         self.top_ks = tuple(default_metrics_top_ks)
+        self.tying = None
+        if table is not None:
+            self.tying = EmbeddingTablePrediction(table)
+            self.samplers.to(table.table.device)  # a catalog sampler draws beside the table
 
     def default_metrics(self):
         from ..metrics.topk import TopKMetricsAggregator
@@ -92,25 +122,72 @@ class ContrastiveOutput(ModelOutput):
     def item_id_name(self) -> Optional[str]:
         return self.target
 
-    def _query_and_positive(self, inputs, context, targets):
-        """(query (Q, D), the positive Candidate): ids from the targets when
-        they hold the item id, else from the batch's features."""
-        if not isinstance(inputs, dict):
-            raise NotImplementedError(
-                "ContrastiveOutput takes {'query', 'candidate'} inputs; weight tying "
-                "is not ported yet (ROADMAP.md queue 1)")
-        features = context.features if context is not None else {}
+    def _resolve_positive_ids(self, context, targets):
+        """(positive ids, prediction weights or None): from the targets where
+        they hold the item id, else from the batch's features; a sequence
+        target gives its values and its mask as the weights."""
         if isinstance(targets, dict) and self.item_id_name in targets:
-            pos_id = targets[self.item_id_name]
+            source = targets[self.item_id_name]
         elif targets is not None and not isinstance(targets, dict):
-            pos_id = targets
+            source = targets
         else:
-            pos_id = features.get(self.item_id_name)
-        row_valid = features.get(ROW_VALID_KEY)
+            source = (context.features if context is not None else {}).get(self.item_id_name)
+        if isinstance(source, SequenceFeature):
+            return source.values, source.mask.to(torch.float32)
+        return source, None
+
+    def _query_and_positive(self, inputs, context, targets):
+        """(query (Q, D), the positive Candidate, weights (Q,) or None)."""
+        pos_id, weights = self._resolve_positive_ids(context, targets)
+        row_valid = (context.features if context is not None else {}).get(ROW_VALID_KEY)
         if row_valid is not None:
             row_valid = row_valid.to(torch.bool)
-        return inputs["query"], Candidate(
-            id=pos_id, embedding=inputs.get("candidate"), valid=row_valid)
+        if isinstance(inputs, dict):
+            return inputs["query"], Candidate(
+                id=pos_id, embedding=inputs.get("candidate"), valid=row_valid), weights
+        if self.tying is None:
+            raise ValueError("ContrastiveOutput with tensor input requires an EmbeddingTable "
+                             "(weight tying) or dict {'query', 'candidate'} inputs")
+        query, qmask = inputs, None
+        if isinstance(query, SequenceFeature):
+            query, qmask = query.values, query.mask
+        if query.ndim == 3:
+            B, L, D = query.shape
+            if pos_id is not None and pos_id.ndim == 1:
+                # a scalar target: the hidden state at the last valid position
+                m = qmask if qmask is not None else torch.ones(
+                    B, L, dtype=torch.bool, device=query.device)
+                query = sequence_last(SequenceFeature(query, m))
+            else:
+                query = query.reshape(B * L, D)
+                if pos_id is not None and pos_id.ndim == 2:
+                    pos_id = pos_id.reshape(B * L)
+                if weights is not None:
+                    weights = weights.reshape(B * L)
+                elif qmask is not None:
+                    weights = qmask.to(torch.float32).reshape(B * L)
+        if pos_id is None:
+            raise ValueError(f"ContrastiveOutput needs feature/target {self.item_id_name!r} "
+                             "to identify positives")
+        if self.tying.table.sparse_routed:
+            raise NotImplementedError("row-sparse training of a tied table is not ported yet "
+                                      "(ROADMAP.md queue 1)")
+        emb = self.tying.embedding_lookup(pos_id, context)
+        if row_valid is not None and pos_id.shape[0] != row_valid.shape[0] \
+                and pos_id.shape[0] % row_valid.shape[0] == 0:
+            row_valid = row_valid.repeat_interleave(pos_id.shape[0] // row_valid.shape[0])
+        return query, Candidate(id=pos_id, embedding=emb, valid=row_valid), weights
+
+    def _sample_negatives(self, positive: Candidate, training, step, context) -> Candidate:
+        sampler = self.samplers[0]
+        negatives = sampler(positive, training=training, step=step, context=context)
+        if negatives.embedding is None:
+            if self.tying is None:
+                raise ValueError(f"Sampler {type(sampler).__name__} returned ids only; "
+                                 "embedding lookup requires weight tying")
+            negatives = negatives._replace(
+                embedding=self.tying.embedding_lookup(negatives.id, context))
+        return negatives
 
     def contrastive_logits(self, query, positive: Candidate, negatives: Candidate):
         """(B, 1+N) float32 logits before the temperature: [positive |
@@ -131,9 +208,12 @@ class ContrastiveOutput(ModelOutput):
             neg_scores = torch.where(negatives.valid[None, :], neg_scores, MIN_FLOAT)
         return torch.cat([pos_score, neg_scores], dim=1)
 
-    def _fused(self, query, positive: Candidate, negatives: Candidate) -> Prediction:
-        # row validity becomes the rows' weights
-        w = None if positive.valid is None else positive.valid.to(torch.float32)
+    def _fused(self, query, positive: Candidate, negatives: Candidate, weights) -> Prediction:
+        # the rows' weights: the prediction mask times the row validity
+        w = weights
+        if positive.valid is not None:
+            rv = positive.valid.to(torch.float32)
+            w = rv if w is None else w * rv
         neg_bias = None
         neg_emb = negatives.embedding
         if self.logq_sampling_correction and negatives.sampling_prob is not None:
@@ -164,25 +244,41 @@ class ContrastiveOutput(ModelOutput):
         step = context.get("step") if context is not None else None
         testing = context is not None and context.get("testing", False)
         if training or targets is not None or testing:
-            query, positive = self._query_and_positive(inputs, context, targets)
+            query, positive, weights = self._query_and_positive(inputs, context, targets)
             if positive.id is not None:
+                negatives = self._sample_negatives(positive, training, step, context)
                 sampler = self.samplers[0]
-                negatives = sampler(positive, training=training, step=step, context=context)
+                if self.logq_sampling_correction and positive.sampling_prob is None \
+                        and getattr(sampler, "max_id", None) is not None:
+                    # a sampler that knows its distribution stamps the
+                    # positive's probability too
+                    positive = positive._replace(
+                        sampling_prob=sampler.sampling_probs(positive.id, sampler.max_id))
                 need_logits = context.get("need_logits", True) if context is not None else True
                 if (self.fused_loss in ("auto", True) and training and not need_logits
                         and negatives.embedding is not None
                         and positive.embedding is not None
                         and flash_ce.fits(query.shape[-1], query.device)):
-                    return self._fused(query, positive, negatives)
+                    return self._fused(query, positive, negatives, weights)
                 logits = self.contrastive_logits(query, positive, negatives)
                 if self.logits_scaler is not None:
                     logits = self.logits_scaler(logits)
                 onehot = torch.zeros_like(logits)
                 onehot[:, 0] = 1.0
-                return Prediction(outputs=logits, targets=onehot,
+                return Prediction(outputs=logits, targets=onehot, sample_weight=weights,
                                   negative_candidate_ids=negatives.id)
-        # inference: each row's own (query, candidate) score
-        logits = (inputs["query"] * inputs["candidate"]).sum(dim=-1, keepdim=True)
+        if isinstance(inputs, dict):
+            # inference: each row's own (query, candidate) score
+            logits = (inputs["query"] * inputs["candidate"]).sum(dim=-1, keepdim=True)
+        else:
+            # weight tying: the whole catalog, (B[, L], catalog)
+            logits = self.tying(inputs)
         if self.logits_scaler is not None:
             logits = self.logits_scaler(logits)
         return Prediction(outputs=logits, targets=self.bind_target(targets))
+
+    def to_dataset(self):
+        """The tied table's rows as a Dataset of ``id`` and ``embedding``."""
+        if self.tying is None:
+            raise ValueError("No tied embedding table to export")
+        return self.tying.table.to_dataset()

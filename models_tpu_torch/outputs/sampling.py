@@ -1,13 +1,14 @@
 """Negative candidate samplers (``models_tpu/outputs/sampling.py``): the
-in-batch sampler. The popularity sampler waits (ROADMAP.md queue 1)."""
+in-batch sampler and the popularity (log-uniform) sampler."""
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from ..core.block import Block
+from ..core.block import Block, RandomBlock
 
 
 class Candidate(NamedTuple):
@@ -35,8 +36,7 @@ class CandidateSampler(Block):
         if s in ("in-batch", "inbatch"):
             return InBatchSampler()
         if s in ("popularity", "popularity-based"):
-            raise NotImplementedError(
-                f"the {s!r} sampler is not ported yet (ROADMAP.md queue 1)")
+            return PopularityBasedSampler()
         raise ValueError(f"Unknown negative sampler {s!r}")
 
 
@@ -45,3 +45,46 @@ class InBatchSampler(CandidateSampler):
 
     def forward(self, positive: Candidate, *, training: bool = False, step=None, **kwargs):
         return positive
+
+
+def _log32(x: float) -> float:
+    """log(x) in float32 (as JAX takes ``jnp.log`` of a Python float), as a
+    Python number: a captured graph holds no host tensor."""
+    return float(np.log(np.float32(x)))
+
+
+class PopularityBasedSampler(CandidateSampler, RandomBlock):
+    """Log-uniform (Zipfian) draws over the ids 0..``max_id``, with their
+    analytic probabilities for the logQ correction:
+
+        P(id) = (log(id + 2) - log(id + 1)) / log(max_id + 2)
+
+    (ids frequency-sorted, id 0 the most popular, as the JAX package
+    requires). ``max_num_samples`` ids a step, drawn by the inverse CDF from
+    the block's generator (:class:`~models_tpu_torch.core.block.RandomBlock`;
+    JAX folds the step into its key, so the two packages draw different
+    ids). The contrastive head looks up their embeddings in its tied table.
+    """
+
+    def __init__(self, max_num_samples: int = 100, max_id: Optional[int] = None, seed: int = 0,
+                 device=None):
+        super().__init__(seed=seed, device=device)
+        self.max_num_samples = int(max_num_samples)
+        self.max_id = max_id
+
+    def sample_ids(self, n: int, max_id: int, device) -> torch.Tensor:
+        """(n,) int32 ids by the log-uniform inverse CDF over [0, max_id]."""
+        u = torch.rand(n, generator=self.generator, device=device)
+        ids = torch.exp(u * _log32(max_id + 2.0)) - 1.0
+        return ids.to(torch.int32).clamp(0, max_id)
+
+    @staticmethod
+    def sampling_probs(ids: torch.Tensor, max_id: int) -> torch.Tensor:
+        ids_f = ids.to(torch.float32)
+        return (torch.log(ids_f + 2.0) - torch.log(ids_f + 1.0)) / _log32(max_id + 2.0)
+
+    def forward(self, positive: Candidate, *, training: bool = False, step=None, **kwargs):
+        if self.max_id is None:
+            raise ValueError("PopularityBasedSampler needs max_id (catalog size - 1)")
+        ids = self.sample_ids(self.max_num_samples, self.max_id, self.generator.device)
+        return Candidate(id=ids, sampling_prob=self.sampling_probs(ids, self.max_id))

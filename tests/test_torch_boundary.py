@@ -24,6 +24,8 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "import models_tpu_torch.blocks.dlrm, models_tpu_torch.blocks.cross\n"
         "import models_tpu_torch.blocks.interaction, models_tpu_torch.outputs.base\n"
         "import models_tpu_torch.inputs.continuous, models_tpu_torch.losses\n"
+        "import models_tpu_torch.transformer, models_tpu_torch.transforms.sequence\n"
+        "import models_tpu_torch.models.session, models_tpu_torch.outputs.sampling\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -91,6 +93,8 @@ ENTRY_POINTS = {
     "DLRMModel": lambda: mt.DLRMModel(mt.generate_data("criteo-small", num_rows=8).schema,
                                       embedding_dim=8),
     "NCFModel": lambda: mt.NCFModel(_model()[0].schema, embedding_dim=8),
+    "SessionBasedTransformerModel": lambda: mt.SessionBasedTransformerModel(
+        mt.generate_data("sequence-testing", num_rows=8).schema, embedding_dim=8),
     "to_top_k_encoder": lambda: _model()[1].to_top_k_encoder(_model()[0], k=3),
     "candidate_embeddings": lambda: _model()[1].candidate_embeddings(_model()[0]),
     "predict": lambda: _encoder()[1].predict(_encoder()[0], batch_size=16),
