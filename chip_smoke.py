@@ -3915,6 +3915,397 @@ def phase_session_bucket(dev, gen, card, errs, data):
     return out, out["launches_eager"]["row_gather"], trace["launches_traced"], k9
 
 
+# ---------------------------------------------------------------------------
+# retrieval breadth: the matrix factorization with cross-batch negatives and
+# YouTube-DNN, trained and served at full width
+# ---------------------------------------------------------------------------
+
+MF_BATCH = 4096  # the reference's tuned MF (BASELINE.md): dim 64, T 1.4, batch 4096, Adam 0.005
+MF_DIM = 64
+MF_QUEUE = 4096
+MF_T = 1.4
+MF_LR = 0.005
+MF_STEPS = 16
+MF_SPE = 8
+MF_CPU_STEPS = 3
+YT_SAMPLED = 100
+
+
+def mf_model(dev, schema, table_dtype=None, **kw):
+    """The matrix factorization of the slice's path: movielens-25m's 162,541
+    users and 56,680 items, dim 64, T 1.4, ``["in-batch",
+    CachedCrossBatchSampler(4096, 64)]`` negatives (Q = 4096, N = 8192)."""
+    import models_tpu_torch as mt
+
+    return mt.MatrixFactorizationModel(
+        schema, dim=MF_DIM, logits_temperature=MF_T, table_dtype=table_dtype, seed=SEED,
+        negative_samplers=["in-batch", mt.CachedCrossBatchSampler(MF_QUEUE, MF_DIM)],
+        device=dev, **kw)
+
+
+def mf_queue(model):
+    return model.contrastive_output.samplers[1].queue
+
+
+def fce_args_of(model, xb, T, samplers_ids=None):
+    """The fused head's operands for one batch, as the training step forms
+    them: the query rows, the positives' rows, the negatives (the in-batch
+    positives, then the ring with its unfilled slots zeroed and pinned to
+    MIN_FLOAT; or the sampled ids' rows with their logQ bias), ids, the
+    positive logit (logQ on it where the head has one sampler that knows its
+    probabilities) and the row weights."""
+    from models_tpu_torch.core.constants import LOGQ_EPS, MIN_FLOAT
+    from models_tpu_torch.core.types import ModelContext
+
+    head = model.contrastive_output
+    with torch.no_grad():
+        q = model.query_encoder(xb, context=ModelContext(features=xb)).contiguous()
+        pid = xb[head.item_id_name].to(torch.int32).contiguous()
+        pos = head.table.embeddings[pid.long()]
+        pos_logit = (q * pos).sum(1)
+        if samplers_ids is None:  # ["in-batch", queue]
+            snap = mf_queue(model).snapshot()
+            neg = torch.cat([pos, torch.where(snap.valid[:, None], snap.embedding, 0.0)])
+            nid = torch.cat([pid, snap.id])
+            bias = torch.cat([torch.zeros_like(pos_logit),
+                              torch.where(snap.valid, 0.0, MIN_FLOAT)])
+        else:  # one popularity sampler: logQ on both sides
+            sampler = head.samplers[0]
+            nid = samplers_ids.to(torch.int32)
+            neg = head.table.embeddings[nid.long()]
+            bias = -torch.log(sampler.sampling_probs(nid, sampler.max_id) + LOGQ_EPS)
+            pos_logit = pos_logit - torch.log(sampler.sampling_probs(pid, sampler.max_id)
+                                              + LOGQ_EPS)
+    return (q, (pos_logit / T).contiguous(), neg.contiguous(), pid, nid.contiguous(),
+            bias.contiguous(), torch.ones_like(pos_logit))
+
+
+def fce_shape_times(args, T) -> dict:
+    """K1-K3 at one path's operands (fp32): device time back to back, the
+    plain versions', the PyTorch calls' over the materialised logits, and
+    the bound (3xTF32 products, or the bytes)."""
+    from models_tpu_torch.core.constants import MIN_FLOAT
+    from models_tpu_torch.ops import flash_ce as F
+
+    q, pos_logit, neg, pid, nid, bias, w = args
+    (Q, D), N = q.shape, neg.shape[0]
+    m, s = F.lse_forward_plain(q, pos_logit, neg, pid, nid, bias, T, True)
+    lse = (m + torch.log(s)).contiguous()
+    gw = (w / w.sum()).contiguous()
+    gargs = (q, neg, lse, gw, pid, nid, bias, T, True)
+
+    def logits():
+        return torch.where(nid[None, :] == pid[:, None], MIN_FLOAT, q @ neg.T + bias) / T
+
+    def coef():
+        return gw[:, None] * torch.exp(logits() - lse[:, None]) / T
+
+    vec = 4 * (2 * Q + 2 * N)
+    flops = 2 * Q * N * D
+    out = {"Q": Q, "N": N, "D": D, "T": T}
+    for name, fn, plain, lib, nbytes, f in (
+            ("lse_forward", lambda: F.lse_forward(q, pos_logit, neg, pid, nid, bias, T, True),
+             lambda: F.lse_forward_plain(q, pos_logit, neg, pid, nid, bias, T, True),
+             lambda: torch.logsumexp(torch.cat([pos_logit[:, None], logits()], 1), 1),
+             (Q + N) * D * 4 + vec + 2 * Q * 4, flops),
+            ("grad_query", lambda: F.grad_query(*gargs), lambda: F.grad_query_plain(*gargs),
+             lambda: coef() @ neg, (Q + N) * D * 4 + vec + 4 * Q + Q * D * 4, 2 * flops),
+            ("grad_neg", lambda: F.grad_neg(*gargs), lambda: F.grad_neg_plain(*gargs),
+             lambda: coef().T @ q, (Q + N) * D * 4 + vec + 4 * Q + N * D * 4, 2 * flops)):
+        ops_ms = f / PEAK_3XTF32[0] * 1e3
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[name] = {"ms": cuda_ms(fn), "ms_cold": device_ms(fn, cold=True),
+                     "plain_ms": cuda_ms(plain, reps=3), "library_ms": cuda_ms(lib, reps=3),
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    return out
+
+
+def check_head_routes(dev, model, xb, what, errs, T, fce_args) -> dict:
+    """The fused loss and its gradients against the unfused head's CE over
+    the same step (every parameter's gradient within TRAIN_GRAD_TOL of the
+    largest), and K1-K3 against their plain versions on the head's
+    operands."""
+    fused_loss, fused = head_grads(model, xb, None, fused=True)
+    plain_loss, plain = head_grads(model, xb, None, fused=False)
+    require(np.isfinite(fused_loss) and np.isfinite(plain_loss),
+            f"{what}: losses {fused_loss} (fused) / {plain_loss} (unfused)")
+    err = abs(fused_loss - plain_loss) / abs(plain_loss)
+    require(err <= FCE_TOL, f"{what}: fused loss {fused_loss} vs unfused {plain_loss}")
+    scale = max(float(g.abs().max()) for g in plain.values())
+    worst = max(max_err(fused[n], plain[n]) for n in plain) / scale
+    require(worst <= TRAIN_GRAD_TOL, f"{what}: fused vs unfused gradients off by {worst:.3g}")
+    check_fce(what, dev, fce_args, T, errs)
+    print(f"  {what}: fused loss {fused_loss:.7f} vs unfused {plain_loss:.7f} (rel {err:.3g}); "
+          f"gradients off by {worst:.3g} of the largest", flush=True)
+    return {"loss_fused": fused_loss, "loss_unfused": plain_loss, "loss_rel": err,
+            "grad_rel": worst}
+
+
+def serve_tied(dev, model, queries, what, sizes) -> dict:
+    """``to_top_k_encoder(k=10)`` over the tied catalog (no candidates
+    given): requests of each of ``sizes`` rows, each through the route the
+    dispatch gives its shape (``topk_route``: binned, phase B in K5, while
+    the binned pool holds; else streaming, K6) and against the plain route
+    on the same query rows and index; the request's host-clock time. Both
+    kernels must serve. Returns the numbers and K5's and K6's launches."""
+    from models_tpu_torch.core.types import ModelContext, to_device_batch
+    from models_tpu_torch.data import Loader
+    from models_tpu_torch.ops import topk as T
+
+    t = time.perf_counter()
+    enc = model.to_top_k_encoder(k=K, device=dev)
+    torch.cuda.synchronize()
+    bf = enc.blocks[-1].topk_layer
+    catalog = model.contrastive_output.table.input_dim
+    require(bf.n_valid == catalog, f"{what}: index of {bf.n_valid} rows, want {catalog}")
+    out = {"index_ms": (time.perf_counter() - t) * 1e3, "catalog": list(bf.candidates.shape)}
+    T.streaming_topk.launches = T.binned_rescore.launches = 0
+    for B in sizes:
+        ds = queries.take(B)
+        route = T.topk_route(B, bf.candidates.shape[0], bf.candidates.shape[1], K, on_cuda=True)
+        out[f"route_B{B}"] = route
+        before = T.streaming_topk.launches, T.binned_rescore.launches
+        got = enc.predict(ds, batch_size=B, device=dev)
+        ran = T.streaming_topk.launches > before[0], T.binned_rescore.launches > before[1]
+        require(ran == (route == "streaming", route == "binned"),
+                f"{what} B={B}: K6 / K5 ran {ran} on the {route} route")
+        xb = to_device_batch(next(iter(Loader(ds, B)))[0], dev)
+        with torch.no_grad():
+            qv = model.query_encoder(xb, context=ModelContext(features=xb))
+        want = T.streaming_topk_plain(qv, bf.candidates, K, ids=bf.ids, n_valid=bf.n_valid)
+        check_topk(f"{what} serve B={B} vs plain",
+                   (torch.as_tensor(got["scores"]), torch.as_tensor(got["ids"])), want)
+    torch.cuda.synchronize()
+    launches = {"binned_rescore": T.binned_rescore.launches,
+                "streaming_topk": T.streaming_topk.launches}
+    require(all(launches.values()), f"{what}: the requests launched {launches}")
+    for B in sizes:
+        ds = queries.take(B)
+        out[f"predict_B{B}_ms"] = host_ms(lambda: enc.predict(ds, batch_size=B, device=dev))
+    return out, launches
+
+
+def phase_retrieval(dev, card, errs):
+    """Retrieval breadth at full width (movielens-25m, batch 4096):
+    (a) the MF's fused head against the unfused one at T = 1.4 and 0.6, the
+    ring empty (every one of its 4096 slots invalid) and full: loss, every
+    gradient, and K1-K3 against their plain versions at Q = 4096, N = 8192,
+    D = 64; (b) three adagrad steps, card vs a CPU copy, the ring, its ids
+    and its cursor included; (c) 16 Adam steps one at a time (K1-K3 once a
+    step), then 8 a chunk as CUDA graph replays, graph and eager bit for bit
+    with deterministic algorithms on (the ring too), timed and traced (K1-K3
+    once a step, K9 once a chunk); after each fit the ring holds the last
+    batch's 4096 positives; (d) 16 row-sparse steps on bf16 tables (K7 and
+    K8b on the user table and on the tied item table, each once a table a
+    step; rows no batch looked up unchanged); (e) serving the tied catalog at
+    B = 256 (K5) and 4096 (K6) against the plain route; (f) YouTube-DNN at
+    its defaults (item dim 32, 100 popularity-sampled negatives, logQ on
+    both sides): fused vs unfused with fixed draws, K1-K3 at Q = 4096, N =
+    100, D = 32, 16 steps (K1-K3 once a step), serving at B = 256 (K5) and
+    8192 (K6: at D = 32 the binned route holds 4096 rows); (g) ``loss="bpr"``
+    with no metric: the logits route, K1-K3 never launched. Returns the
+    numbers, each path's launches and K1-K3's times at the two shapes."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.core.types import to_device_batch
+    from models_tpu_torch.data import Loader
+    from models_tpu_torch.ops import scatter as S
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    data = mt.generate_data("movielens-25m", num_rows=MF_STEPS * MF_BATCH, seed=SEED + 20)
+    schema = data.schema
+    queries = data.take(8192)
+    out = {"card": card, "config": {
+        "model": "MatrixFactorizationModel", "dim": MF_DIM, "batch": MF_BATCH,
+        "negative_samplers": ["in-batch", f"CachedCrossBatchSampler({MF_QUEUE}, {MF_DIM})"],
+        "logits_temperature": MF_T, "optimizer": "adam", "learning_rate": MF_LR,
+        "data_s": time.perf_counter() - t_phase}}
+    launches, shapes = {}, {}
+    xb = to_device_batch(next(iter(Loader(data, MF_BATCH)))[0], dev)
+    last = torch.as_tensor(data.to_numpy_dict()["movieId"][-MF_BATCH:], device=dev)
+
+    def ring_holds_the_last_batch(model, what):
+        queue = mf_queue(model)
+        require(torch.equal(queue.ids.long(), last.long()) and int(queue.cursor) == 0,
+                f"{what}: the ring does not hold the last batch's positives")
+
+    # (a) fused vs unfused, the ring empty and full
+    model = mf_model(dev, schema)
+    model.compile(optimizer="adam", learning_rate=MF_LR, metrics=[])
+    head, queue = model.contrastive_output, mf_queue(model)
+    out["heads"] = {}
+    for fill in ("empty", "full"):
+        if fill == "full":
+            ids = torch.randint(0, head.table.input_dim, (MF_QUEUE,), device=dev,
+                                dtype=torch.int32, generator=torch.Generator(dev).manual_seed(3))
+            queue.enqueue(ids, head.table.embeddings[ids.long()])
+        for T in (MF_T, 0.6):
+            head.logits_scaler.temperature = T
+            args = fce_args_of(model, xb, T)
+            tag = f"(a) MF T={T} ring {fill}"
+            out["heads"][f"T{T}_{fill}"] = check_head_routes(dev, model, xb, tag, errs, T, args)
+            if fill == "empty" and T == MF_T:
+                require(int((args[5] == args[5].min()).sum()) == MF_QUEUE,
+                        "(a): the empty ring's slots are not pinned to MIN_FLOAT")
+                shapes["mf"] = fce_shape_times(args, T)
+    head.logits_scaler.temperature = MF_T
+    del model
+
+    # (b) card vs CPU, the ring included
+    on_card, on_cpu, out["card_vs_cpu"] = card_vs_cpu(
+        dev, lambda: mf_model(dev, schema), data, MF_CPU_STEPS, MF_BATCH, "(b) MF")
+    for name in ("ids", "cursor"):
+        require(torch.equal(getattr(mf_queue(on_card), name).cpu(),
+                            getattr(mf_queue(on_cpu), name)), f"(b) MF: the ring's {name} differ")
+    del on_card, on_cpu
+
+    # (c) one step at a time, then graph-replayed
+    model = mf_model(dev, schema)
+    model.compile(optimizer="adam", learning_rate=MF_LR, metrics=[])
+    model.fit(data.take(2 * MF_BATCH), batch_size=MF_BATCH, shuffle=False, device=dev)
+    zero_route_launches()
+    t = time.perf_counter()
+    hist = model.fit(data, batch_size=MF_BATCH, shuffle=False, device=dev).history
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    one = route_launches()
+    require(all(np.isfinite(hist["loss"])), f"(c) MF: losses {hist['loss']}")
+    require(all(one[n] == MF_STEPS for n in ("lse_forward", "grad_query", "grad_neg"))
+            and one["row_gather"] == 0, f"(c) MF: launches {one} in {MF_STEPS} steps")
+    ring_holds_the_last_batch(model, "(c) MF one step at a time")
+    launches["mf"] = one
+    out["one_step"] = {"ms_per_step": wall / MF_STEPS * 1e3, "loss": hist["loss"],
+                       "examples_per_sec": MF_BATCH * MF_STEPS / wall, "launches": one}
+    print(f"  (c) MF one step at a time: {out['one_step']['ms_per_step']:.3f} ms a step "
+          f"(host clock), launches {one}; {card}", flush=True)
+    del model
+    what = f"(c) MF, {MF_SPE} steps a chunk"
+    _, mg, lg, le = graph_vs_eager(dev, None, data, 1, what, shuffle=False,
+                                   make=lambda: mf_model(dev, schema), batch=MF_BATCH,
+                                   optimizer="adam", learning_rate=MF_LR, metrics=[],
+                                   steps_per_execution=MF_SPE)
+    for n in ("lse_forward", "grad_query", "grad_neg"):
+        require(lg[n] == 2 * MF_SPE and le[n] == MF_STEPS,
+                f"{what}: {n} issued {lg[n]} (graph) / {le[n]} (eager) times")
+    require(lg["row_gather"] == 2, f"{what}: K9 issued {lg['row_gather']} times")
+    ring_holds_the_last_batch(mg, what)
+    mg._chunk_graphs.clear()  # captured again as users run it, deterministic algorithms off
+    mg.fit(data, epochs=1, batch_size=MF_BATCH, shuffle=False, device=dev)
+    hist, wall, ms = replayed_fit(mg, data, 2, 2 * MF_STEPS, what, batch=MF_BATCH)
+    require(all(np.isfinite(hist["loss"])), f"{what}: non-finite loss")
+    ring_holds_the_last_batch(mg, f"{what}, replayed")
+    want = {"row_gather": MF_STEPS // MF_SPE, "lse_forward": MF_STEPS,
+            "grad_query": MF_STEPS, "grad_neg": MF_STEPS}
+    trace = traced_replays(mg, data, MF_STEPS, want, what, batch=MF_BATCH)
+    launches["mf_graph"] = {"issued": lg, "traced": trace["launches_traced"]}
+    out["graph"] = {"ms_per_step": ms, "examples_per_sec": hist["examples_per_sec"],
+                    "fit_s": wall, "loss": hist["loss"], "graphs": graph_stats(mg),
+                    **{k: v for k, v in trace.items() if k != "launches_issued"}}
+    print(f"  {what}: {ms:.3f} ms a step graph-replayed, busy "
+          f"{trace['device_busy_share']:.3f}, traced {trace['launches_traced']}; {card}",
+          flush=True)
+
+    # (e) serving the tied catalog (the graph-trained model)
+    out["serving"], launches["mf_serving"] = serve_tied(dev, mg, queries, "(e) MF", (256, 4096))
+    print(f"  (e) MF serving: {json.dumps(out['serving'])}; {card}", flush=True)
+    del mg
+
+    # (d) row-sparse, bf16 tables
+    model = compile_sparse(mf_model(dev, schema, table_dtype=torch.bfloat16))
+    applied = {}
+    apply = model._emb_opt.apply
+
+    def counted(table, ids, grads, step):
+        applied[table.block_name] = applied.get(table.block_name, 0) + 1
+        return apply(table, ids, grads, step)
+
+    model.fit(data.take(2 * MF_BATCH), batch_size=MF_BATCH, shuffle=False, device=dev)
+    model._emb_opt.apply = counted
+    tables = {t.block_name: t.table.detach().clone() for t in model._embedding_tables()}
+    S.row_scatter_add.launches = S.row_scatter_write.launches = 0
+    zero_route_launches()
+    t = time.perf_counter()
+    hist = model.fit(data, batch_size=MF_BATCH, shuffle=False, device=dev).history
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    sparse = {"row_scatter_add": S.row_scatter_add.launches,
+              "row_scatter_write": S.row_scatter_write.launches, **flash_launches()}
+    require(all(np.isfinite(hist["loss"])), f"(d) MF row-sparse: losses {hist['loss']}")
+    require(applied == {"userId": MF_STEPS, "movieId": MF_STEPS},
+            f"(d) MF row-sparse: updates by table {applied}")
+    require(sparse["row_scatter_add"] == sparse["row_scatter_write"] == 2 * MF_STEPS,
+            f"(d) MF row-sparse: launches {sparse}, want K7 and K8b once a table a step")
+    seen = seen_ids(data, MF_BATCH)
+    for t in model._embedding_tables():
+        untouched = torch.ones(t.table.shape[0], dtype=torch.bool, device=dev)
+        untouched[torch.as_tensor(seen[t.block_name], device=dev).long()] = False
+        require(torch.equal(t.table.detach()[untouched], tables[t.block_name][untouched]),
+                f"(d) MF row-sparse: {t.block_name} rows no batch looked up moved")
+        require(t.table.dtype == torch.bfloat16, "(d): the table is no longer bf16")
+    ring_holds_the_last_batch(model, "(d) MF row-sparse")
+    launches["mf_sparse"] = sparse
+    out["sparse_bf16"] = {"ms_per_step": wall / MF_STEPS * 1e3, "loss": hist["loss"],
+                          "launches": sparse, "updates": applied}
+    print(f"  (d) MF row-sparse bf16: {out['sparse_bf16']['ms_per_step']:.3f} ms a step, "
+          f"launches {sparse}; {card}", flush=True)
+    del model, tables
+
+    # (g) bpr: the logits route
+    model = mf_model(dev, schema)
+    model.compile(optimizer="adam", learning_rate=MF_LR, loss="bpr", metrics=[])
+    zero_route_launches()
+    hist = model.fit(data.take(2 * MF_BATCH), batch_size=MF_BATCH, shuffle=False,
+                     device=dev).history
+    torch.cuda.synchronize()
+    bpr = route_launches()
+    require(not any(bpr.values()), f"(g) MF loss=bpr launched {bpr}")
+    require(all(np.isfinite(hist["loss"])) and hist["loss"][0] < 1.0,
+            f"(g) MF loss=bpr: losses {hist['loss']} (bpr starts near log 2)")
+    out["bpr"] = {"loss": hist["loss"], "launches": bpr}
+    print(f"  (g) MF loss=bpr, metrics=[]: loss {hist['loss']}, launches {bpr}", flush=True)
+    del model
+
+    # (f) YouTube-DNN
+    yt = mt.YoutubeDNNRetrievalModel(schema, seed=SEED, device=dev)
+    (sampler,) = yt.contrastive_output.samplers
+    require(sampler.max_num_samples == YT_SAMPLED and yt.contrastive_output.table.dim == 32,
+            "(f) YouTube-DNN defaults")
+    yt.compile(optimizer="adam", learning_rate=MF_LR, metrics=[])
+    fixed = sampler.sample_ids(YT_SAMPLED, sampler.max_id, dev)
+    sampler.sample_ids = lambda n, max_id, device: fixed
+    args = fce_args_of(yt, xb, 1.0, fixed)
+    out["youtube_dnn"] = {"heads": check_head_routes(dev, yt, xb, "(f) YouTube-DNN, fixed draws",
+                                                     errs, 1.0, args),
+                          "parameters": sum(p.numel() for p in yt.parameters())}
+    shapes["youtube_dnn"] = fce_shape_times(args, 1.0)
+    del sampler.sample_ids  # its own draws again
+    yt.fit(data.take(2 * MF_BATCH), batch_size=MF_BATCH, shuffle=False, device=dev)
+    zero_route_launches()
+    t = time.perf_counter()
+    hist = yt.fit(data, batch_size=MF_BATCH, shuffle=False, device=dev).history
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    ytl = route_launches()
+    require(all(np.isfinite(hist["loss"])), f"(f) YouTube-DNN: losses {hist['loss']}")
+    require(all(ytl[n] == MF_STEPS for n in ("lse_forward", "grad_query", "grad_neg")),
+            f"(f) YouTube-DNN: launches {ytl} in {MF_STEPS} steps")
+    launches["youtube_dnn"] = ytl
+    out["youtube_dnn"].update(ms_per_step=wall / MF_STEPS * 1e3, loss=hist["loss"],
+                              examples_per_sec=MF_BATCH * MF_STEPS / wall, launches=ytl)
+    # at D = 32 the binned pool holds 4096 rows: 8192 take the streaming route
+    out["youtube_dnn"]["serving"], launches["youtube_dnn_serving"] = serve_tied(
+        dev, yt, queries, "(f) YouTube-DNN", (256, 8192))
+    print(f"  (f) YouTube-DNN: {json.dumps(out['youtube_dnn'])}; {card}", flush=True)
+    del yt
+    out["shapes"] = shapes
+    print("  K1-K3 at the new shapes " + json.dumps(shapes), flush=True)
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches, shapes
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -4147,6 +4538,26 @@ def main() -> int:
                        launches_replayed_traced_session_bucket=bucket_traced[name],
                        session_bucket=bucket_k9_times)
             row["max_abs_err"] = errs["row_gather"]
+    stamp("phase 18: retrieval breadth: the matrix factorization with cross-batch negatives "
+          "(Q = 4096, N = 8192, D = 64) and YouTube-DNN (N = 100, D = 32), trained and served")
+    retrieval, rl, shapes = phase_retrieval(dev, card, errs)
+    print("retrieval " + json.dumps(retrieval), flush=True)
+    for row in rows:  # the retrieval paths' launches and K1-K3 at their shapes
+        name = row["name"]
+        if name in ("lse_forward", "grad_query", "grad_neg"):
+            row.update(launches_mf=rl["mf"][name],
+                       launches_replayed_traced_mf=rl["mf_graph"]["traced"][name],
+                       launches_youtube_dnn=rl["youtube_dnn"][name],
+                       mf=shapes["mf"][name], youtube_dnn=shapes["youtube_dnn"][name])
+            row["max_abs_err"] = errs[name]
+        elif name in ("streaming_topk", "binned_rescore"):
+            row.update(launches_mf_serving=rl["mf_serving"][name],
+                       launches_youtube_dnn_serving=rl["youtube_dnn_serving"][name])
+        elif name in ("row_scatter_add", "row_scatter_write"):
+            row["launches_mf_sparse"] = rl["mf_sparse"][name]
+        elif name == "row_gather":
+            row.update(launches_mf=rl["mf_graph"]["issued"][name],
+                       launches_replayed_traced_mf=rl["mf_graph"]["traced"][name])
     stamp("done")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -4,7 +4,9 @@ The JAX package ``models_tpu`` is the reference; this package imports nothing
 of it, nor JAX. Entry points run on the card (``device="cuda"``, the default)
 unless the caller passes ``device="cpu"``; without a card they raise.
 
-The two-tower retrieval model, the ranking models (DLRM, DCN-v2, DeepFM,
+The retrieval models (the two-tower model, the matrix factorization and
+YouTube-DNN, with in-batch, cross-batch and popularity-sampled negatives,
+the pairwise losses and the beyond-accuracy metrics), the ranking models (DLRM, DCN-v2, DeepFM,
 NCF) and the session models (``SessionBasedTransformerModel`` over the
 transformer blocks of ``transformer/``, trained with the sequence transforms
 of ``transforms/sequence.py`` as ``fit(pre=...)``) are ported. Build the two-tower model from a schema, train it
@@ -30,20 +32,23 @@ from .core import Encoder, SequenceFeature, TopKEncoder, TopKPrediction, resolve
 from .core.policy import get_dtype_policy, set_dtype_policy
 from .data import Dataset, Loader, generate_data
 from .metrics import AUC, BinaryAccuracy, Metric, Precision, Recall, TopKMetricsAggregator
-from .models import (DCNModel, DeepFMModel, DLRMModel, History, Model, NCFModel,
-                     RetrievalModelV2, SessionBasedTransformerModel, TwoTowerModel)
-from .outputs import (BinaryOutput, BruteForce, ContrastiveOutput, OutputBlock, RegressionOutput,
-                      TopKOutput)
+from .models import (DCNModel, DeepFMModel, DLRMModel, History, MatrixFactorizationModel,
+                     Model, NCFModel, RetrievalModelV2, SessionBasedTransformerModel,
+                     TwoTowerModel, YoutubeDNNRetrievalModel)
+from .outputs import (BinaryOutput, BruteForce, CachedCrossBatchSampler, ContrastiveOutput,
+                      ContrastiveSampleWeight, OutputBlock, RegressionOutput, TopKOutput)
 from .schema import ColumnSchema, Schema, Tags
 
 __all__ = [
-    "AUC", "BinaryAccuracy", "BinaryOutput", "BruteForce", "ColumnSchema", "ContrastiveOutput",
-    "DCNModel", "DLRMModel", "Dataset", "DeepFMModel", "Encoder", "History", "LazyAdam",
-    "Loader", "Metric", "Model", "NCFModel", "OutputBlock", "Precision", "Recall",
+    "AUC", "BinaryAccuracy", "BinaryOutput", "BruteForce", "CachedCrossBatchSampler",
+    "ColumnSchema", "ContrastiveOutput", "ContrastiveSampleWeight", "DCNModel", "DLRMModel",
+    "Dataset", "DeepFMModel", "Encoder", "History", "LazyAdam", "Loader",
+    "MatrixFactorizationModel", "Metric", "Model", "NCFModel", "OutputBlock", "Precision",
+    "Recall",
     "RegressionOutput", "RetrievalModelV2", "Schema", "SequenceFeature",
     "SessionBasedTransformerModel",
     "SparseEmbeddingOptimizer", "Tags", "TopKEncoder", "TopKMetricsAggregator", "TopKOutput",
-    "TopKPrediction", "TwoTowerModel", "binary_crossentropy", "generate_data",
+    "TopKPrediction", "TwoTowerModel", "YoutubeDNNRetrievalModel", "binary_crossentropy", "generate_data",
     "get_dtype_policy", "load_jax_params", "mean_absolute_error", "mean_squared_error",
     "resolve_device", "set_dtype_policy",
 ]

@@ -4,8 +4,11 @@ from .interaction import (DotProductInteraction, FMBlock, FMPairwiseInteraction,
                           XDeepFmOuterProduct)
 from .mlp import (BatchNorm, Dense, DenseMaybeLowRank, DenseResidualBlock, Dropout, LayerNorm,
                   MLPBlock, get_activation)
+from .retrieval import (DualEncoderBlock, ItemRetrievalScorer, MatrixFactorizationBlock,
+                        QueryItemIdsEmbeddingsBlock, TowerBlock, TwoTowerBlock)
 
 __all__ = ["BatchNorm", "Cross", "CrossBlock", "DLRMBlock", "Dense", "DenseMaybeLowRank",
-           "DenseResidualBlock", "DotProductInteraction", "Dropout", "FMBlock",
-           "FMPairwiseInteraction", "LayerNorm", "MLPBlock", "XDeepFmOuterProduct",
-           "get_activation"]
+           "DenseResidualBlock", "DotProductInteraction", "Dropout", "DualEncoderBlock", "FMBlock",
+           "FMPairwiseInteraction", "ItemRetrievalScorer", "LayerNorm", "MLPBlock",
+           "MatrixFactorizationBlock", "QueryItemIdsEmbeddingsBlock", "TowerBlock",
+           "TwoTowerBlock", "XDeepFmOuterProduct", "get_activation"]

@@ -163,13 +163,31 @@ def check_optimizer(name: str) -> None:
     raise ValueError(f"Unknown optimizer {name!r}")
 
 
+class NoParameters:
+    """The dense optimizer of a model whose every parameter trains
+    row-sparsely (a matrix factorization under ``embedding_optimizer``):
+    nothing to step, as optax steps an empty tree."""
+
+    state: dict = {}
+    param_groups: list = []
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        pass
+
+    def step(self, closure=None) -> None:
+        pass
+
+
 def make_optimizer(name: str, params: Iterable[torch.Tensor],
                    learning_rate: Optional[float]) -> torch.optim.Optimizer:
-    """The optimizer ``name`` over ``params``; the learning rate defaults to
-    1e-3, as in the JAX package."""
+    """The optimizer ``name`` over ``params`` (:class:`NoParameters` where
+    there are none); the learning rate defaults to 1e-3, as in the JAX
+    package."""
     check_optimizer(name)
     lr = 1e-3 if learning_rate is None else float(learning_rate)
     params = list(params)
+    if not params:
+        return NoParameters()
     if name == "adagrad":
         return Adagrad(params, lr)
     if name == "sgd":

@@ -23,6 +23,12 @@ becomes the port's ``weight`` (out, in). What is carried:
   ``final_ln``, XLNet's ``wr``, ``u`` and ``v``, ``pos_emb``, the Dense
   ``in_proj`` and ``_ProjectToTableDim.dense``, and
   ``ReplaceMaskedEmbeddings.mask_embedding``;
+- the retrieval zoo's paths as they stand: the matrix factorization's
+  ``_query/block/table`` (its ``EmbeddingEncoder``) and
+  ``blocks/1/table/table`` (the head's tied item table), YouTube-DNN's
+  query tower and tied table; a cross-batch queue's ring
+  (``.../samplers/<i>/queue/embeddings``, ``ids``, ``cursor``), which the
+  caller gives from ``nnx.state(model, nnx.Variable)``;
 - the slots (``.../<table>/sparse_slots/<acc|m|v>``, float32) onto the
   table's ``sparse_slots`` buffers, which ``fit`` then keeps when they are
   the ones its embedding optimizer needs.

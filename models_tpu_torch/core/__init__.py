@@ -4,11 +4,11 @@ from .aggregation import (ConcatFeatures, SequenceAggregator, SequenceLast, Sequ
 from .block import Block
 from .combinators import ParallelBlock, SequentialBlock
 from .device import resolve_device
-from .encoder import Encoder, TopKEncoder
+from .encoder import EmbeddingEncoder, Encoder, TopKEncoder
 from .types import MASK_KEY, ModelContext, Prediction, SequenceFeature, TopKPrediction
 
 __all__ = [
-    "Block", "ConcatFeatures", "Encoder", "MASK_KEY", "ModelContext", "ParallelBlock",
+    "Block", "ConcatFeatures", "EmbeddingEncoder", "Encoder", "MASK_KEY", "ModelContext", "ParallelBlock",
     "Prediction", "SequenceAggregator", "SequenceFeature", "SequenceLast", "SequenceMax",
     "SequenceMean", "SequenceMin", "SequenceSum", "SequentialBlock", "StackFeatures",
     "TopKEncoder", "TopKPrediction", "resolve_device", "sequence_last", "sequence_max",

@@ -44,3 +44,28 @@ class RandomBlock(Block):
         if dev != self.generator.device:
             self.generator = torch.Generator(dev).manual_seed(self.seed)
         return out
+
+
+def fresh_copy(block: nn.Module, salt: int) -> nn.Module:
+    """A deep copy of ``block`` with its weights drawn anew, each from a
+    generator seeded by ``7919 * salt`` and its position: embedding tables
+    truncated-normal (sigma 0.05, as made), other weights of two or more
+    dimensions (Dense kernels) glorot-uniform; biases and norms kept. The
+    JAX package re-seeds its lazy initialisers by the same salt; the draws
+    differ, as every draw of the two packages does. Used where one tower
+    block would otherwise serve both towers of a two-tower model."""
+    import copy
+
+    cp = copy.deepcopy(block)
+    with torch.no_grad():
+        for i, (name, p) in enumerate(cp.named_parameters()):
+            if p.ndim < 2 or not p.is_floating_point():
+                continue
+            w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            gen = torch.Generator(p.device).manual_seed(7919 * salt + i)
+            if name.split(".")[-1] == "table":
+                nn.init.trunc_normal_(w, std=0.05, a=-0.1, b=0.1, generator=gen)
+            else:
+                nn.init.xavier_uniform_(w, generator=gen)
+            p.copy_(w)
+    return cp

@@ -60,6 +60,43 @@ class Encoder(Block):
         })
 
 
+class EmbeddingEncoder(Encoder):
+    """One embedding table as an encoder (the matrix factorization's query
+    tower): the rows of its feature, looked up from a batch dict (the
+    feature, or any column the table serves) or from ids. The context goes
+    on to the table, whose row-sparse route records the lookup there (the
+    JAX package's note: dropping it froze the query table of
+    ``MatrixFactorizationModel`` under an ``embedding_optimizer``)."""
+
+    def __init__(self, table, feature_name: Optional[str] = None):
+        from ..inputs.embedding import EmbeddingTable
+
+        if not isinstance(table, EmbeddingTable):
+            raise TypeError(f"EmbeddingEncoder takes an EmbeddingTable, not "
+                            f"{type(table).__name__}")
+        super().__init__(table)
+        self.schema = table.schema
+        self.table = table
+        self.feature_name = feature_name or table.features[0]
+
+    def forward(self, inputs, context=None, **kwargs):
+        feature = self.feature_name
+        if isinstance(inputs, dict):
+            val = inputs.get(feature)
+            if val is None:
+                for f in self.table.features:
+                    if f in inputs:
+                        val, feature = inputs[f], f
+                        break
+            if val is None:
+                raise KeyError(f"{self.feature_name} not found in inputs")
+            return self.table._call_single(val, context, feature)
+        return self.table._call_single(inputs, context, feature)
+
+    def to_dataset(self) -> Dataset:
+        return self.table.to_dataset()
+
+
 def TopKEncoder(
     query_encoder: Block,
     candidates=None,

@@ -21,10 +21,17 @@ A table routed to the row-sparse optimizer (``sparse_routed``, set by
 ``Model.fit``) looks up from the detached table, in training, into float32
 rows that are a leaf of the autograd graph: after the backward their
 ``.grad`` is the gradient of the gathered rows, whatever the table's dtype.
-Each such lookup is recorded as ``(table, ids, rows)`` in the context's
+Each such lookup is recorded as ``(table, ids, rows, key)`` in the context's
 ``sparse_lookups``; a sequence column is recorded before its combiner, with
 the padded (B, L) ids, as the JAX package taps it, and a fused table with
-its (B, F) offset ids.
+its (B, F) offset ids. ``key`` names the lookup's site as the JAX package
+keys its taps: the column's name, ``"pos"`` and ``"neg"`` for a tied
+head's positives and sampled negatives, ``""`` for a fused table.
+
+``l2_reg`` adds ``l2_reg * sum(table**2)`` (padding rows included) to the
+training loss (:meth:`EmbeddingTable.regularization_loss`); a row-sparse
+table's term is a constant, as the JAX package's sparse step takes no
+gradient of it.
 """
 
 from __future__ import annotations
@@ -79,10 +86,12 @@ class EmbeddingTable(Block):
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
         device=None,
+        l2_reg: float = 0.0,
     ):
         cols = [col_schema] if isinstance(col_schema, ColumnSchema) else list(col_schema)
         super().__init__(schema=Schema(cols), block_name=cols[0].domain_name)
         self.dim = int(dim)
+        self.l2_reg = float(l2_reg)
         self.features = [c.name for c in cols]
         self.sequence_combiner = sequence_combiner
         card = cols[0].cardinality
@@ -117,11 +126,18 @@ class EmbeddingTable(Block):
         emb = self.embeddings.detach().float().cpu().numpy()
         return Dataset({"id": np.arange(emb.shape[0], dtype=np.int64), "embedding": emb})
 
-    def _lookup(self, ids, context):
+    def regularization_loss(self) -> Optional[torch.Tensor]:
+        """``l2_reg * sum(table**2)``, or None without a regularizer."""
+        if not self.l2_reg:
+            return None
+        table = self.table.detach() if self.sparse_routed else self.table
+        return self.l2_reg * table.float().square().sum()
+
+    def _lookup(self, ids, context, key: str = ""):
         lookups = context.get("sparse_lookups") if context is not None else None
         if lookups is not None and self.sparse_routed:
             rows = F.embedding(ids.long(), self.table.detach()).float().requires_grad_()
-            lookups.append((self, ids, rows))
+            lookups.append((self, ids, rows, key))
             return rows
         # F.embedding, not table[ids]: its backward sums repeated ids by
         # sorting them, where the indexing backward serialises each repeated
@@ -135,18 +151,20 @@ class EmbeddingTable(Block):
         JAX package's float32 tap, added to them, makes them float32 too.)"""
         return emb if emb.dtype == torch.float32 else emb.to(compute_dtype())
 
-    def _call_single(self, value, context):
+    def _call_single(self, value, context, feature: Optional[str] = None):
+        key = feature or self.features[0]
         if isinstance(value, SequenceFeature):
-            emb = self._lookup(value.values, context)  # (B, L, D)
+            emb = self._lookup(value.values, context, key)  # (B, L, D)
             seq = SequenceFeature(emb, value.mask)
             if self.sequence_combiner is None:
                 return seq
             return SEQUENCE_COMBINERS[self.sequence_combiner](seq)
-        return self._lookup(value, context)
+        return self._lookup(value, context, key)
 
     def forward(self, inputs, context=None, **kwargs):
         if isinstance(inputs, dict):
-            return {n: self._call_single(inputs[n], context) for n in self.features if n in inputs}
+            return {n: self._call_single(inputs[n], context, n)
+                    for n in self.features if n in inputs}
         return self._call_single(inputs, context)
 
     def extra_repr(self) -> str:

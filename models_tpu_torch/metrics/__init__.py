@@ -1,5 +1,6 @@
 from .base import (AUC, MAE, RMSE, BinaryAccuracy, LogLoss, MeanMetric, Metric, Precision,
                    Recall)
+from .evaluation import ItemCoverageAt, NoveltyAt, PopularityBiasAt
 from .topk import (
     AvgPrecisionAt,
     MRRAt,
@@ -18,8 +19,8 @@ from .topk import (
 )
 
 __all__ = [
-    "AUC", "AvgPrecisionAt", "BinaryAccuracy", "LogLoss", "MAE", "MRRAt", "MeanMetric",
-    "Metric", "NDCGAt", "Precision", "PrecisionAt", "RMSE", "Recall", "RecallAt", "TopKMetric",
+    "AUC", "AvgPrecisionAt", "BinaryAccuracy", "ItemCoverageAt", "LogLoss", "MAE", "MRRAt",
+    "MeanMetric", "Metric", "NDCGAt", "NoveltyAt", "PopularityBiasAt", "Precision", "PrecisionAt", "RMSE", "Recall", "RecallAt", "TopKMetric",
     "TopKMetricsAggregator", "average_precision_at", "dcg_at", "extract_topk", "mrr_at",
     "ndcg_at", "precision_at", "recall_at",
 ]

@@ -6,7 +6,11 @@ models serve, train and evaluate with; each takes a ``pre=`` transform).
 for a binary head); ``compile`` takes each head's default loss and
 metrics. Blocks that keep state across steps (BatchNorm's
 running statistics) update it in place in the training forward, so that a
-captured chunk replays it.
+captured chunk replays it; a block whose state the backward may still read
+(a cross-batch queue's ring) records its new state in the context's
+``state_updates``, which the step writes in place after the optimizer.
+The loss adds each block's ``regularization_loss`` (an embedding table's
+``l2_reg``).
 
 A training step runs the forward, the backward, one dense optimizer step,
 and, with ``compile(embedding_optimizer=...)``, one row-sparse update of
@@ -64,6 +68,7 @@ from ..metrics.base import Metric
 from ..metrics.topk import TopKMetric, TopKMetricsAggregator
 from ..ops.embedding_lookup import row_gather
 from ..outputs.base import ModelOutput
+from ..outputs.queue import apply_state_updates
 from .step_graph import ChunkGraphs
 
 # the datasets that keep a device-resident training pack: at most two
@@ -323,6 +328,8 @@ class Model(Block):
             t, sw = _unwrap_targets(pred)
             outputs = pred.outputs.detach()
             sw = _merge_row_valid(sw, row_valid, outputs.shape[0])
+            if sw is not None and sw.ndim == 2 and sw.shape[1] > 1 and sw.shape == outputs.shape:
+                sw = sw[:, 0]  # per-candidate weights: the positive's column
             if outputs.ndim == 3:  # sequence logits (B, L, C) -> (B * L, C)
                 outputs = outputs.reshape(-1, outputs.shape[-1])
                 if t is not None and t.ndim >= 2:
@@ -385,8 +392,14 @@ class Model(Block):
                 value = _auto_loss(loss_fns[name], t, pred.outputs, sw)
             logs[f"loss/{name}"] = value
             total = total + value
-        # no regularizer is ported yet (every table's l2_reg is 0)
-        logs["regularization_loss"] = torch.zeros_like(total)
+        reg = torch.zeros_like(total)
+        for m in self.modules():
+            fn = getattr(m, "regularization_loss", None)
+            term = fn() if fn is not None and m is not self else None
+            if term is not None:
+                reg = reg + term
+        total = total + reg
+        logs["regularization_loss"] = reg
         logs["loss"] = total
         return total, logs
 
@@ -432,14 +445,17 @@ class Model(Block):
         return routed
 
     def _apply_sparse(self, lookups) -> None:
-        """One row-sparse update per lookup: table by table, each in the order
-        of its lookups in the forward (the JAX package's order). A table that
-        serves two columns takes two updates."""
+        """One row-sparse update per lookup: table by table, each table's in
+        the sorted order of their keys (the column's name, or a tied head's
+        ``"neg"`` and ``"pos"``), as the JAX package applies them: its
+        lookups leave the traced step as a dict, which comes back sorted. A
+        table that serves two columns, or a tied table looked up at two
+        sites, takes two updates."""
         for table in self._sparse_tables:
-            for t, ids, rows in lookups:
-                if t is table:
-                    grad = rows.grad if rows.grad is not None else torch.zeros_like(rows)
-                    self._emb_opt.apply(table, ids, grad, self._step)
+            mine = sorted((entry for entry in lookups if entry[0] is table), key=lambda e: e[3])
+            for _, ids, rows, _ in mine:
+                grad = rows.grad if rows.grad is not None else torch.zeros_like(rows)
+                self._emb_opt.apply(table, ids, grad, self._step)
 
     @staticmethod
     def _apply_pre(pre, x, y, training: bool):
@@ -469,7 +485,8 @@ class Model(Block):
         pre = getattr(self, "_pre_transform", None)
         if pre is not None:
             x, y = self._apply_pre(pre, x, y, training=True)
-        context = ModelContext(features=x, targets=y, step=self._step, need_logits=with_metrics)
+        context = ModelContext(features=x, targets=y, step=self._step, need_logits=with_metrics,
+                               head_losses=loss_fns)
         if self._sparse_tables:
             context["sparse_lookups"] = []
         preds = self(x, targets=y, training=True, context=context)
@@ -486,6 +503,9 @@ class Model(Block):
         if self._sparse_tables:
             self._apply_sparse(context["sparse_lookups"])
         mark("sparse_update")
+        # the blocks' state (a cross-batch queue's ring), written in place
+        # now that nothing of the step reads it
+        apply_state_updates(context.get("state_updates"))
         self._step += 1
         return {k: v.detach() for k, v in logs.items()}
 

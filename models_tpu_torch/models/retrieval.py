@@ -1,6 +1,8 @@
 """Retrieval models (``models_tpu/models/retrieval.py``): the two-tower
-model, served and trained through its contrastive head, and the
-query-only form that a tied head completes (the session model)."""
+model, the matrix factorization and the YouTube-DNN candidate generator,
+each a :class:`RetrievalModelV2` trained through its contrastive head and
+served through ``to_top_k_encoder``. A tied model (no candidate tower: the
+head's item table is the catalog) indexes the table itself."""
 
 from __future__ import annotations
 
@@ -10,14 +12,17 @@ import torch
 from torch import nn
 
 from ..blocks.mlp import MLPBlock
-from ..core.block import Block
+from ..core.block import Block, fresh_copy
 from ..core.combinators import ParallelBlock, SequentialBlock
 from ..core.device import resolve_device
-from ..core.encoder import Encoder, TopKEncoder
+from ..core.encoder import EmbeddingEncoder, Encoder, TopKEncoder
 from ..data.dataset import Dataset
 from ..inputs.base import InputBlockV2
+from ..inputs.embedding import EmbeddingTable
 from ..outputs.contrastive import ContrastiveOutput
-from ..schema import Schema, Tags
+from ..outputs.sampling import PopularityBasedSampler
+from ..schema import Schema, Tags, infer_embedding_dim
+from ..transforms.regularization import L2Norm
 from .base import Model
 
 
@@ -28,11 +33,11 @@ class RetrievalModelV2(Model):
     ``item_id_name`` names the column whose values become the index's ids."""
 
     def __init__(self, query: Block, candidate: Optional[Block], output: ContrastiveOutput,
-                 schema: Optional[Schema] = None):
+                 schema: Optional[Schema] = None, block_name: str = "two_tower"):
         # Model.__init__ would register ``blocks`` first; the towers come
         # first, so that ``named_parameters()`` (which names a shared module
         # by its first registration) gives the JAX package's paths
-        Block.__init__(self, schema=schema, block_name="two_tower")
+        Block.__init__(self, schema=schema, block_name=block_name)
         self._query = query
         self._candidate = candidate
         encoder = query if candidate is None else ParallelBlock(
@@ -56,9 +61,15 @@ class RetrievalModelV2(Model):
     def candidate_encoder(self) -> Block:
         return self._candidate
 
-    def query_embeddings(self, dataset: Dataset, batch_size: int = 1024,
+    def query_embeddings(self, dataset: Optional[Dataset] = None, batch_size: int = 1024,
                          index: Union[str, Tags, None] = Tags.USER_ID, device=None) -> Dataset:
-        """Encode the queries with the query tower, as ``id`` + ``embedding``."""
+        """Encode the queries with the query tower, as ``id`` + ``embedding``;
+        with no dataset, an :class:`EmbeddingEncoder` query tower's table."""
+        if dataset is None:
+            if not isinstance(self._query, EmbeddingEncoder):
+                raise ValueError("query_embeddings needs a dataset unless the query tower is "
+                                 "an EmbeddingEncoder")
+            return self._query.to_dataset()
         return Encoder(self._query).encode(dataset, index=index, batch_size=batch_size,
                                            device=device)
 
@@ -83,22 +94,27 @@ class RetrievalModelV2(Model):
             dataset, index=index, batch_size=batch_size, device=device
         )
 
-    def to_top_k_encoder(self, candidates: Dataset, k: int = 10, batch_size: int = 1024,
-                         candidate_dtype: Optional[torch.dtype] = None, device=None):
+    def to_top_k_encoder(self, candidates: Optional[Dataset] = None, k: int = 10,
+                         batch_size: int = 1024, candidate_dtype: Optional[torch.dtype] = None,
+                         device=None):
         """A servable and evaluable brute-force top-k model over the encoded
-        ``candidates``; ``candidate_dtype=torch.bfloat16`` stores the index
-        half-width, ``torch.int8`` bin-quantized (a quarter)."""
+        ``candidates`` (a tied model: its table, no dataset needed);
+        ``candidate_dtype=torch.bfloat16`` stores the index half-width,
+        ``torch.int8`` bin-quantized (a quarter)."""
         cand_ds = self.candidate_embeddings(candidates, batch_size=batch_size, device=device)
         return TopKEncoder(self._query, candidates=cand_ds, k=k,
                            item_id_name=self.item_id_name,
                            candidate_dtype=candidate_dtype, device=device)
 
+    to_top_k_recommender = to_top_k_encoder
+
     def evaluate(self, data, batch_size: Optional[int] = None, item_corpus=None, k: int = 10,
                  steps: Optional[int] = None, pre=None, device=None):
         """In-batch evaluation (:meth:`Model.evaluate`), or, with
-        ``item_corpus`` (a Dataset of items), each query scored against the
-        whole corpus: a brute-force fp32 index of the candidate tower's
-        embeddings, then the top-k metrics of its ``k`` best."""
+        ``item_corpus`` (a Dataset of items, or True for a tied model's
+        table), each query scored against the whole corpus: a brute-force
+        fp32 index of the candidate embeddings, then the top-k metrics of
+        its ``k`` best."""
         if item_corpus is None:
             return super().evaluate(data, batch_size=batch_size, steps=steps, pre=pre,
                                     device=device)
@@ -110,39 +126,139 @@ class RetrievalModelV2(Model):
         return topk.evaluate(data, batch_size=batch_size, steps=steps, device=device)
 
 
-def TwoTowerModel(
+def MatrixFactorizationModel(
     schema: Schema,
-    query_tower: Sequence[int] = (128, 64),
-    embedding_dim: Optional[int] = None,
+    dim: Optional[int] = None,
     negative_samplers: Union[str, Sequence] = "in-batch",
     logits_temperature: float = 1.0,
+    logq_correction: bool = True,
+    l2_reg: float = 0.0,
+    post: Optional[Block] = None,
     table_dtype: Optional[torch.dtype] = None,
     seed: int = 0,
     device=None,
 ) -> RetrievalModelV2:
-    """USER columns feed the query tower, ITEM columns the candidate tower;
-    each is an input block and an MLP of ``query_tower`` widths whose last
-    layer is linear. The head trains on in-batch negatives. Weights are drawn
-    from ``seed`` on ``device`` (default the card). ``table_dtype=
-    torch.bfloat16`` stores the embedding tables bf16 at rest: train them with
-    ``compile(embedding_optimizer=...)``."""
+    """The user-id table's row against the item-id table's (an
+    :class:`EmbeddingEncoder` query, a head tied to the item table), trained
+    by the sampled softmax over ``negative_samplers`` (``"in-batch"``,
+    ``"popularity"``, a :class:`~models_tpu_torch.outputs.queue.CachedCrossBatchSampler`,
+    or a list of them). ``dim`` defaults to the larger inferred width of the
+    two columns; ``table_dtype=torch.bfloat16`` stores both tables bf16 at
+    rest (train them with ``compile(embedding_optimizer=...)``); ``l2_reg``
+    regularises both tables. Weights from ``seed`` (the item table's from
+    ``seed + 1``) on ``device`` (default the card)."""
+    dev = resolve_device(device)
+    user_col, item_col = schema.user_id_column, schema.item_id_column
+    if dim is None:
+        dim = max(infer_embedding_dim(user_col), infer_embedding_dim(item_col))
+    tkw = dict(l2_reg=l2_reg, dtype=table_dtype or torch.float32, device=dev)
+    user_table = EmbeddingTable(dim, user_col, seed=seed, **tkw)
+    item_table = EmbeddingTable(dim, item_col, seed=seed + 1, **tkw)
+    output = ContrastiveOutput(item_table, negative_samplers=negative_samplers,
+                               logits_temperature=logits_temperature,
+                               logq_sampling_correction=logq_correction, post=post)
+    output.to(dev)
+    return RetrievalModelV2(EmbeddingEncoder(user_table), None, output, schema=schema,
+                            block_name="matrix_factorization")
+
+
+MatrixFactorizationModelV2 = MatrixFactorizationModel
+
+
+def TwoTowerModel(
+    schema: Schema,
+    query_tower: Union[Block, Sequence[int], None] = (128, 64),
+    item_tower: Union[Block, Sequence[int], None] = None,
+    embedding_dim: Optional[int] = None,
+    negative_samplers: Union[str, Sequence] = "in-batch",
+    logits_temperature: float = 1.0,
+    l2_norm: bool = False,
+    dropout: Optional[float] = None,
+    post: Optional[Block] = None,
+    table_dtype: Optional[torch.dtype] = None,
+    seed: int = 0,
+    device=None,
+) -> RetrievalModelV2:
+    """USER columns feed the query tower, ITEM columns the candidate tower.
+    A tower given as widths is an input block and an MLP of those widths
+    (its last layer linear, ``dropout`` after each layer where given); a
+    tower given as a Block is used as it is (it takes the batch dict). The
+    item tower defaults to the query tower's widths, or to a re-seeded copy
+    of a query Block (:func:`~models_tpu_torch.core.block.fresh_copy`: one
+    Block never serves both towers). ``l2_norm`` normalises both towers'
+    outputs (cosine training); ``post`` goes to the contrastive head
+    (:class:`~models_tpu_torch.outputs.contrastive.ContrastiveSampleWeight`).
+    Weights are drawn from ``seed`` on ``device`` (default the card).
+    ``table_dtype=torch.bfloat16`` stores the embedding tables bf16 at rest:
+    train them with ``compile(embedding_optimizer=...)``."""
     dev = resolve_device(device)
     user_schema = schema.select_by_tag(Tags.USER)
     item_schema = schema.select_by_tag(Tags.ITEM)
     if not len(user_schema) or not len(item_schema):
         raise ValueError("TwoTowerModel needs USER- and ITEM-tagged columns")
 
-    def build_tower(dims, tower_schema, tower_seed):
+    def build_tower(tower, tower_schema, tower_seed):
+        if isinstance(tower, Block):
+            return tower.to(dev)
+        dims = tuple(tower) if tower is not None else (128, 64)
         inputs = InputBlockV2(tower_schema, dim=embedding_dim, param_dtype=table_dtype,
                               seed=tower_seed, device=dev)
-        mlp = MLPBlock(inputs.out_features, tuple(dims), no_activation_last_layer=True,
-                       seed=tower_seed, device=dev)
-        block = SequentialBlock([inputs, mlp])
+        layers = [inputs, MLPBlock(inputs.out_features, dims, dropout=dropout,
+                                   no_activation_last_layer=True, seed=tower_seed, device=dev)]
+        if l2_norm:
+            layers.append(L2Norm())
+        block = SequentialBlock(layers)
         block.schema = tower_schema.excluding_by_tag(Tags.TARGET)
         return block
 
     query = build_tower(query_tower, user_schema, seed)
-    candidate = build_tower(query_tower, item_schema, seed + 100)
+    if item_tower is None and isinstance(query_tower, Block):
+        item_tower = fresh_copy(query_tower, 1)
+    candidate = build_tower(item_tower if item_tower is not None else query_tower,
+                            item_schema, seed + 100)
     output = ContrastiveOutput(schema.item_id_column, negative_samplers=negative_samplers,
-                               logits_temperature=logits_temperature)
+                               logits_temperature=logits_temperature, post=post)
+    output.to(dev)
     return RetrievalModelV2(query, candidate, output, schema=schema)
+
+
+TwoTowerModelV2 = TwoTowerModel
+
+
+def YoutubeDNNRetrievalModel(
+    schema: Schema,
+    top_block: Union[Block, Sequence[int]] = (64,),
+    num_sampled: int = 100,
+    embedding_dim: Optional[int] = None,
+    logits_temperature: float = 1.0,
+    seed: int = 0,
+    device=None,
+) -> RetrievalModelV2:
+    """The YouTube-DNN candidate generator: every non-target column but the
+    item id (an input block) through an MLP of ``top_block`` widths and the
+    item table's width (its last layer linear), scored by the sampled
+    softmax over the tied item table with ``num_sampled`` popularity-sampled
+    negatives a step (logQ-corrected, the positive's too). The item table's
+    width is ``embedding_dim`` or inferred from its cardinality. Weights
+    from ``seed`` on ``device`` (default the card)."""
+    dev = resolve_device(device)
+    item_col = schema.item_id_column
+    dim = embedding_dim or infer_embedding_dim(item_col)
+    input_schema = schema.excluding_by_tag(Tags.TARGET)
+    item_table = EmbeddingTable(dim, item_col, seed=seed, device=dev)
+    rest = input_schema.excluding_by_name(item_col.name)
+    inputs = (InputBlockV2(rest, dim=embedding_dim, seed=seed, device=dev)
+              if len(rest.categorical) or len(input_schema.continuous) else None)
+    if not isinstance(top_block, Block):
+        if inputs is None:
+            raise ValueError("YoutubeDNNRetrievalModel needs input columns besides the item id "
+                             "to size its MLP (or a top_block Block)")
+        top_block = MLPBlock(inputs.out_features, tuple(top_block) + (dim,),
+                             no_activation_last_layer=True, seed=seed, device=dev)
+    sampler = PopularityBasedSampler(max_num_samples=num_sampled,
+                                     max_id=item_col.cardinality - 1, seed=seed)
+    output = ContrastiveOutput(item_table, negative_samplers=[sampler],
+                               logits_temperature=logits_temperature)
+    output.to(dev)
+    query = SequentialBlock(([inputs] if inputs is not None else []) + [top_block.to(dev)])
+    return RetrievalModelV2(query, None, output, schema=schema, block_name="youtube_dnn")

@@ -22,11 +22,14 @@ the JAX package caches ``chunk_fns``:
   out, since the next replay writes the same memory;
 - a capture that fails raises: no call quietly runs eager steps instead.
 
-What a graph holds by address: the parameters, the optimizer's state
-tensors (a bf16 optimizer state's flat tensor at rest), the source, and
-the tensors it allocated itself (gradients, activations, the gathered rows).
-Each call compares the first three with what the graph captured and drops
-every graph when one was replaced; ``Model.compile()`` drops them too.
+What a graph holds by address: the parameters, the model's buffers, the
+optimizer's state tensors (a bf16 optimizer state's flat tensor at rest),
+the source, and the tensors it allocated itself (gradients, activations,
+the gathered rows). Each call compares the first four with what the graph
+captured and drops every graph when one was replaced (a buffer rebound by
+``module.to()``, say); ``Model.compile()`` drops them too. A cross-batch
+queue's ring is written in place at the end of each step
+(``state_updates``), so a replay advances it as the eager steps do.
 
 Python state does not replay: the model's step count is put back after a
 capture, and each replay adds the chunk's k steps. The kernels' launch
@@ -54,11 +57,12 @@ import torch.utils._pytree as pytree
 
 def captured_tensors(model, source: torch.Tensor) -> tuple:
     """(address, shape) of each tensor a chunk's graph reads or writes that
-    it did not allocate: the parameters, the optimizer's state tensors and
-    the source."""
+    it did not allocate: the parameters, the model's buffers (BatchNorm's
+    statistics, a cross-batch queue's ring), the optimizer's state tensors
+    and the source."""
     opt = model._optimizer
     inner = getattr(opt, "optimizer", opt)
-    ts = list(model.parameters())
+    ts = list(model.parameters()) + list(model.buffers())
     ts += [v for st in inner.state.values() for v in st.values() if torch.is_tensor(v)]
     rest = getattr(opt, "_rest", None)
     if rest is not None:

@@ -1,13 +1,15 @@
 from .base import (BinaryOutput, CategoricalOutput, CategoricalTarget, ColumnBasedSampleWeight,
-                   EmbeddingTablePrediction, LogitsTemperatureScaler, ModelOutput, OutputBlock,
-                   RegressionOutput)
-from .contrastive import ContrastiveOutput
+                   DotProduct, EmbeddingTablePrediction, LogitsTemperatureScaler, ModelOutput,
+                   OutputBlock, RegressionOutput)
+from .contrastive import ContrastiveOutput, ContrastiveSampleWeight
+from .queue import CachedCrossBatchSampler, FIFOQueue
 from .sampling import Candidate, CandidateSampler, InBatchSampler, PopularityBasedSampler
-from .topk import BruteForce, TopKOutput
+from .topk import BruteForce, TopKLayer, TopKOutput
 
 __all__ = [
-    "BinaryOutput", "BruteForce", "Candidate", "CandidateSampler", "CategoricalOutput",
-    "CategoricalTarget", "ColumnBasedSampleWeight", "ContrastiveOutput",
-    "EmbeddingTablePrediction", "InBatchSampler", "LogitsTemperatureScaler", "ModelOutput",
-    "OutputBlock", "PopularityBasedSampler", "RegressionOutput", "TopKOutput",
+    "BinaryOutput", "BruteForce", "CachedCrossBatchSampler", "Candidate", "CandidateSampler",
+    "CategoricalOutput", "CategoricalTarget", "ColumnBasedSampleWeight", "ContrastiveOutput",
+    "ContrastiveSampleWeight", "DotProduct", "EmbeddingTablePrediction", "FIFOQueue",
+    "InBatchSampler", "LogitsTemperatureScaler", "ModelOutput", "OutputBlock",
+    "PopularityBasedSampler", "RegressionOutput", "TopKLayer", "TopKOutput",
 ]

@@ -6,10 +6,10 @@ metrics, which ``Model.compile`` resolves per head, and the ``activation``
 that ``Model.predict`` applies to its logits. Ported: the temperature
 scaler, ``ModelOutput``, ``RegressionOutput``, ``BinaryOutput``,
 ``CategoricalTarget``, ``CategoricalOutput``, ``ColumnBasedSampleWeight`` and
-``OutputBlock`` (heads from the schema's TARGET columns), and the
-weight-tying head ``EmbeddingTablePrediction``. A head's width is given at
-construction (``in_features``: the body's ``out_features``). ``DotProduct``
-is not ported yet (ROADMAP.md queue 1).
+``OutputBlock`` (heads from the schema's TARGET columns), the
+weight-tying head ``EmbeddingTablePrediction`` (also as
+``CategoricalOutput``'s ``to_call``) and ``DotProduct``. A head's width is
+given at construction (``in_features``: the body's ``out_features``).
 """
 
 from __future__ import annotations
@@ -178,32 +178,50 @@ class EmbeddingTablePrediction(Block):
             inputs = inputs.values
         return cast_compute(inputs).float() @ cast_compute(self.table.embeddings).float().T
 
-    def embedding_lookup(self, ids: torch.Tensor, context=None) -> torch.Tensor:
-        return self.table._lookup(ids, context)
+    def embedding_lookup(self, ids: torch.Tensor, site: str = "tying",
+                         context=None) -> torch.Tensor:
+        """The table's rows at ``ids``; on the row-sparse route recorded
+        under ``site`` (``"pos"``, ``"neg"``), as the JAX package taps them."""
+        return self.table._lookup(ids, context, site)
+
+    @property
+    def num_classes(self) -> int:
+        return self.table.input_dim
 
 
 class CategoricalOutput(ModelOutput):
-    """Multi-class head over a categorical column (its cardinality) or a
-    number of classes; ``predict`` gives the softmax."""
+    """Multi-class head over a categorical column (its cardinality), a
+    number of classes, or an :class:`EmbeddingTable` (weight tying: the
+    logits are ``x @ table.T``, the target the table's first column; no
+    ``in_features``); ``predict`` gives the softmax."""
 
     default_loss = "sparse_categorical_crossentropy"
 
-    def __init__(self, to_call, in_features: int, target: Optional[str] = None,
+    def __init__(self, to_call, in_features: Optional[int] = None, target: Optional[str] = None,
                  default_metrics_top_ks: Sequence[int] = (10,), seed: int = 0, device=None,
                  **kwargs):
+        from ..inputs.embedding import EmbeddingTable
+
+        head = None
         if isinstance(to_call, ColumnSchema):
             target = target or to_call.name
             num_classes = to_call.cardinality
         elif isinstance(to_call, int):
             num_classes = to_call
+        elif isinstance(to_call, EmbeddingTable):
+            target = target or to_call.features[0]
+            head = EmbeddingTablePrediction(to_call)
+            num_classes = head.num_classes
         else:
-            raise NotImplementedError(
-                "weight tying (an EmbeddingTable as the head) is not ported yet "
-                "(ROADMAP.md queue 1)")
+            raise TypeError("CategoricalOutput takes a column, a number of classes or an "
+                            f"EmbeddingTable, not {type(to_call).__name__}")
+        if head is None and in_features is None:
+            raise ValueError("CategoricalOutput needs in_features (the body's width)")
         super().__init__(target=target, **kwargs)
         self.num_classes = num_classes
         self.top_ks = tuple(default_metrics_top_ks)
-        self.to_call = CategoricalTarget(in_features, num_classes, seed=seed, device=device)
+        self.to_call = head if head is not None else CategoricalTarget(
+            in_features, num_classes, seed=seed, device=device)
 
     def default_metrics(self):
         from ..metrics.topk import TopKMetricsAggregator
@@ -212,6 +230,18 @@ class CategoricalOutput(ModelOutput):
 
     def activation(self, logits):
         return torch.softmax(logits, dim=-1)
+
+
+class DotProduct(Block):
+    """The row-wise dot of a dict's query and candidate, (B, 1)."""
+
+    def __init__(self, query_name: str = "query", candidate_name: str = "candidate"):
+        super().__init__()
+        self.query_name = query_name
+        self.candidate_name = candidate_name
+
+    def forward(self, inputs: dict, **kwargs):
+        return (inputs[self.query_name] * inputs[self.candidate_name]).sum(dim=-1, keepdim=True)
 
 
 class ColumnBasedSampleWeight(Block):

@@ -32,26 +32,43 @@ whole catalog (weight tying: (B[, L], catalog) logits). Under the
 ``mixed_bfloat16`` policy the first two cast their operands to bf16
 (``cast_compute``, each operand on its own) and keep float32 scores; the
 tying inference takes its product through ``cast_compute`` too, the
-two-tower inference scores as it is given. Post blocks, several samplers
-in one head and row-sparse training of a tied table are not ported yet.
+two-tower inference scores as it is given.
+
+Several samplers: their candidates concatenate in the samplers' order (ids,
+embeddings, ``sampling_prob`` only where every sampler gives one, ``valid``
+with True for a sampler that gives none); only a head with one sampler
+stamps the positive's ``sampling_prob``. A ``post`` block (the sample
+weights of :class:`ContrastiveSampleWeight`, ``PopularityLogitsCorrection``)
+works on the logits' Prediction, so a head with one never takes the fused
+loss, nor does one built with ``fused_loss=False``, nor one whose compiled
+loss is not the categorical cross-entropy that the fused loss computes: the
+engine passes each head's compiled loss in the context (``head_losses``),
+and a pairwise loss (``"bpr"``, ...) then takes the logits. (The JAX package
+takes the fused CE whatever the compiled loss, ROADMAP.md queue 3; the port
+does what it means.) On the row-sparse route a tied table records its
+lookups as the JAX package taps them, the positives' under ``"pos"``, the
+negatives' under ``"neg"``.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core.aggregation import sequence_last
+from ..core.block import Block
 from ..core.constants import LOGQ_EPS, MIN_FLOAT
 from ..core.policy import cast_compute
 from ..core.types import Prediction, SequenceFeature
 from ..data.loader import ROW_VALID_KEY
 from ..inputs.embedding import EmbeddingTable
+from ..losses import categorical_crossentropy
 from ..ops import flash_ce
 from ..ops.contrastive import sampled_softmax_loss
-from ..schema import ColumnSchema, Schema
+from ..schema import ColumnSchema, Schema, Tags
 from .base import EmbeddingTablePrediction, ModelOutput
 from .sampling import Candidate, CandidateSampler, PopularityBasedSampler
 
@@ -85,19 +102,15 @@ class ContrastiveOutput(ModelOutput):
                             f"not {type(to_call).__name__}")
         if col_schema is not None:
             target = target or col_schema.name
-        if post is not None:
-            raise NotImplementedError(
-                "a post block on the contrastive head (ContrastiveSampleWeight) is not ported "
-                "yet (ROADMAP.md queue 1)")
-        super().__init__(target=target, logits_temperature=logits_temperature)
+        super().__init__(target=target, logits_temperature=logits_temperature, post=post)
+        # the JAX package's attribute: a tied model's item table is named
+        # ``.../table/table`` by its first registration, here
+        self.table = table
         if isinstance(negative_samplers, (str, CandidateSampler)):
             negative_samplers = [negative_samplers]
         self.samplers = nn.ModuleList(CandidateSampler.parse(s) for s in negative_samplers or [])
         if not len(self.samplers):
             raise ValueError("ContrastiveOutput needs at least one negative sampler")
-        if len(self.samplers) > 1:
-            raise NotImplementedError("several negative samplers are not ported yet "
-                                      "(ROADMAP.md queue 1)")
         # a catalog sampler takes the item domain from the head's column
         if col_schema is not None and col_schema.cardinality:
             for s in self.samplers:
@@ -105,7 +118,8 @@ class ContrastiveOutput(ModelOutput):
                     s.max_id = int(col_schema.cardinality) - 1
         self.downscore_false_negatives = downscore_false_negatives
         self.logq_sampling_correction = logq_sampling_correction
-        # "auto" or True: the fused loss on training steps that need no logits
+        # "auto" or True: the fused loss on training steps that need no
+        # logits, where the compiled loss is the categorical CE; False never
         self.fused_loss = fused_loss
         self.top_ks = tuple(default_metrics_top_ks)
         self.tying = None
@@ -169,25 +183,49 @@ class ContrastiveOutput(ModelOutput):
         if pos_id is None:
             raise ValueError(f"ContrastiveOutput needs feature/target {self.item_id_name!r} "
                              "to identify positives")
-        if self.tying.table.sparse_routed:
-            raise NotImplementedError("row-sparse training of a tied table is not ported yet "
-                                      "(ROADMAP.md queue 1)")
-        emb = self.tying.embedding_lookup(pos_id, context)
+        emb = self.tying.embedding_lookup(pos_id, "pos", context)
         if row_valid is not None and pos_id.shape[0] != row_valid.shape[0] \
                 and pos_id.shape[0] % row_valid.shape[0] == 0:
             row_valid = row_valid.repeat_interleave(pos_id.shape[0] // row_valid.shape[0])
         return query, Candidate(id=pos_id, embedding=emb, valid=row_valid), weights
 
     def _sample_negatives(self, positive: Candidate, training, step, context) -> Candidate:
-        sampler = self.samplers[0]
-        negatives = sampler(positive, training=training, step=step, context=context)
-        if negatives.embedding is None:
-            if self.tying is None:
-                raise ValueError(f"Sampler {type(sampler).__name__} returned ids only; "
-                                 "embedding lookup requires weight tying")
-            negatives = negatives._replace(
-                embedding=self.tying.embedding_lookup(negatives.id, context))
-        return negatives
+        negs = []
+        for sampler in self.samplers:
+            c = sampler(positive, training=training, step=step, context=context)
+            if c.embedding is None:
+                if self.tying is None:
+                    raise ValueError(f"Sampler {type(sampler).__name__} returned ids only; "
+                                     "embedding lookup requires weight tying")
+                c = c._replace(embedding=self.tying.embedding_lookup(c.id, "neg", context))
+            negs.append(c)
+        if len(negs) == 1:
+            return negs[0]
+        probs = None
+        if all(c.sampling_prob is not None for c in negs):
+            probs = torch.cat([c.sampling_prob for c in negs])
+        valid = None
+        if any(c.valid is not None for c in negs):
+            valid = torch.cat([c.valid if c.valid is not None else torch.ones(
+                c.id.shape[0], dtype=torch.bool, device=c.id.device) for c in negs])
+        return Candidate(id=torch.cat([c.id.to(torch.int32) for c in negs]),
+                         embedding=torch.cat([c.embedding for c in negs]),
+                         sampling_prob=probs, valid=valid)
+
+    def _fused_route(self, training, query, positive: Candidate, negatives: Candidate,
+                     context) -> bool:
+        """Whether this step takes the fused loss: a training step whose
+        logits nothing reads, a head without ``post`` and not built with
+        ``fused_loss=False``, whose compiled loss is the categorical CE,
+        with operands the kernels hold."""
+        if not (training and self.fused_loss in ("auto", True) and self.post is None):
+            return False
+        if context is None or context.get("need_logits", True):
+            return False
+        loss = (context.get("head_losses") or {}).get(self.block_name, categorical_crossentropy)
+        return (loss is categorical_crossentropy and negatives.embedding is not None
+                and positive.embedding is not None
+                and flash_ce.fits(query.shape[-1], query.device))
 
     def contrastive_logits(self, query, positive: Candidate, negatives: Candidate):
         """(B, 1+N) float32 logits before the temperature: [positive |
@@ -248,25 +286,25 @@ class ContrastiveOutput(ModelOutput):
             if positive.id is not None:
                 negatives = self._sample_negatives(positive, training, step, context)
                 sampler = self.samplers[0]
-                if self.logq_sampling_correction and positive.sampling_prob is None \
+                if self.logq_sampling_correction and len(self.samplers) == 1 \
+                        and positive.sampling_prob is None \
                         and getattr(sampler, "max_id", None) is not None:
                     # a sampler that knows its distribution stamps the
                     # positive's probability too
                     positive = positive._replace(
                         sampling_prob=sampler.sampling_probs(positive.id, sampler.max_id))
-                need_logits = context.get("need_logits", True) if context is not None else True
-                if (self.fused_loss in ("auto", True) and training and not need_logits
-                        and negatives.embedding is not None
-                        and positive.embedding is not None
-                        and flash_ce.fits(query.shape[-1], query.device)):
+                if self._fused_route(training, query, positive, negatives, context):
                     return self._fused(query, positive, negatives, weights)
                 logits = self.contrastive_logits(query, positive, negatives)
                 if self.logits_scaler is not None:
                     logits = self.logits_scaler(logits)
                 onehot = torch.zeros_like(logits)
                 onehot[:, 0] = 1.0
-                return Prediction(outputs=logits, targets=onehot, sample_weight=weights,
+                pred = Prediction(outputs=logits, targets=onehot, sample_weight=weights,
                                   negative_candidate_ids=negatives.id)
+                if self.post is not None:
+                    pred = self.post(pred, training=training, context=context, targets=targets)
+                return pred
         if isinstance(inputs, dict):
             # inference: each row's own (query, candidate) score
             logits = (inputs["query"] * inputs["candidate"]).sum(dim=-1, keepdim=True)
@@ -282,3 +320,89 @@ class ContrastiveOutput(ModelOutput):
         if self.tying is None:
             raise ValueError("No tied embedding table to export")
         return self.tying.table.to_dataset()
+
+
+class ContrastiveSampleWeight(Block):
+    """A contrastive head's ``post``: per-candidate sample weights, a (B,
+    1+N) matrix over the [positive | negatives] logits, times the row
+    weights the head already gave (a sequence's prediction mask).
+
+    - ``pos_class_weight``: a column's name (each interaction's weight from
+      that feature), an array (num_candidates,) gathered by the positive's
+      id (needs ``schema`` with a ``candidate_tag_id`` column), or a number;
+    - ``neg_class_weight``: an array gathered by the negatives' ids, or a
+      number.
+
+    The losses adapt the matrix to their shape (``losses._weighted_mean``);
+    the metrics take its positive column."""
+
+    def __init__(self, pos_class_weight, neg_class_weight=1.0, schema: Optional[Schema] = None,
+                 candidate_tag_id: Tags = Tags.ITEM_ID, device=None):
+        super().__init__()
+        self.candidate_id_name = None
+        if schema is not None:
+            sel = schema.select_by_tag(candidate_tag_id)
+            if len(sel):
+                self.candidate_id_name = sel.first.name
+        self.pos_class_weight = None
+        self.neg_class_weight = None
+        if isinstance(pos_class_weight, (str, int, float)):
+            self.pos_class_weight = pos_class_weight
+            self.register_buffer("pos_table", None)
+        else:
+            if self.candidate_id_name is None:
+                raise ValueError("per-candidate pos_class_weight needs schema= with a "
+                                 f"{candidate_tag_id}-tagged candidate-id column")
+            self.register_buffer("pos_table", torch.as_tensor(
+                np.asarray(pos_class_weight, np.float32), device=device))
+        if isinstance(neg_class_weight, (int, float)):
+            self.neg_class_weight = float(neg_class_weight)
+            self.register_buffer("neg_table", None)
+        else:
+            self.register_buffer("neg_table", torch.as_tensor(
+                np.asarray(neg_class_weight, np.float32), device=device))
+
+    def _positive_ids(self, context, targets):
+        ids = context.features.get(self.candidate_id_name) if context is not None else None
+        if ids is None and isinstance(targets, dict):
+            ids = targets.get(self.candidate_id_name)
+        if ids is None:
+            raise ValueError(f"candidate-id column {self.candidate_id_name!r} not found in the "
+                             "features or targets (the per-candidate positive weights)")
+        return ids
+
+    def forward(self, inputs, *, context=None, targets=None, **kwargs):
+        if not isinstance(inputs, Prediction) or inputs.outputs is None:
+            return inputs
+        logits = inputs.outputs
+        if logits.ndim != 2 or logits.shape[1] < 2:
+            return inputs  # not a [positive | negatives] layout
+        batch, n_negs = logits.shape[0], logits.shape[1] - 1
+        f32 = dict(dtype=torch.float32, device=logits.device)
+        if self.pos_table is not None:
+            ids = self._positive_ids(context, targets).reshape(-1).long()
+            pos = self.pos_table[ids].reshape(-1, 1)
+        elif isinstance(self.pos_class_weight, str):
+            col = context.features.get(self.pos_class_weight) if context is not None else None
+            if col is None:
+                raise ValueError("The model's inputs don't contain the positive weight "
+                                 f"feature {self.pos_class_weight!r}.")
+            pos = col.to(torch.float32).reshape(-1, 1)
+        else:
+            pos = torch.full((batch, 1), float(self.pos_class_weight), **f32)
+        if self.neg_table is not None:
+            neg_ids = inputs.negative_candidate_ids
+            if neg_ids is None:
+                raise ValueError("per-candidate neg_class_weight needs the head to emit "
+                                 "negative_candidate_ids")
+            nw = self.neg_table[neg_ids.reshape(-1).long()].reshape(neg_ids.shape)
+            # in-batch negatives are every row's: (N,) -> (B, N)
+            neg = nw.reshape(1, -1).expand(batch, n_negs) if nw.ndim == 1 else nw
+        else:
+            neg = torch.full((batch, n_negs), self.neg_class_weight, **f32)
+        w = torch.cat([pos, neg], dim=1)
+        prev = inputs.sample_weight
+        if prev is not None:
+            prev = prev.to(torch.float32).reshape(prev.shape[0], -1)
+            w = w * (prev[:, :1] if prev.shape[1] == 1 else prev)
+        return inputs._replace(sample_weight=w)

@@ -1,5 +1,6 @@
 """Negative candidate samplers (``models_tpu/outputs/sampling.py``): the
-in-batch sampler and the popularity (log-uniform) sampler."""
+in-batch sampler and the popularity (log-uniform) sampler; the cross-batch
+queue is in ``outputs/queue.py``."""
 
 from __future__ import annotations
 
@@ -37,6 +38,10 @@ class CandidateSampler(Block):
             return InBatchSampler()
         if s in ("popularity", "popularity-based"):
             return PopularityBasedSampler()
+        if s in ("cross-batch", "cached-cross-batch"):
+            from .queue import CachedCrossBatchSampler
+
+            return CachedCrossBatchSampler()
         raise ValueError(f"Unknown negative sampler {s!r}")
 
 

@@ -1,5 +1,6 @@
-"""Top-k retrieval layers (``models_tpu/outputs/topk.py``): fp32, bf16 and
-bin-quantized int8 indexes on one device, and the top-k head with its
+"""Top-k retrieval layers (``models_tpu/outputs/topk.py``): the
+:class:`TopKLayer` base and its brute-force index (fp32, bf16 and
+bin-quantized int8, on one device), and the top-k head with its
 evaluation branch. The mesh-sharded index waits for the distribution slice
 (ROADMAP.md queue 1)."""
 
@@ -19,7 +20,45 @@ from .base import ModelOutput
 INDEX_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 
-class BruteForce(Block):
+class TopKLayer(Block):
+    """A top-k layer: :meth:`index` the candidates, then call it on queries
+    for a :class:`TopKPrediction`."""
+
+    def __init__(self, k: int = 10):
+        super().__init__()
+        self.k = int(k)
+
+    def index(self, candidates, ids=None, dtype: torch.dtype = torch.float32,
+              device=None) -> "TopKLayer":
+        raise NotImplementedError
+
+    def index_from_dataset(self, dataset, check_unique_ids: bool = True,
+                           dtype: torch.dtype = torch.float32, device=None) -> "TopKLayer":
+        """Index a Dataset (or a dict of arrays) of ``id`` (else its first
+        column) and ``embedding`` (n, D), or ``embedding__values`` (flat), or
+        else one vector column per dimension (every column but the ids)."""
+        data = dataset.to_numpy_dict() if hasattr(dataset, "to_numpy_dict") else dataset
+        id_col = "id" if "id" in data else next(iter(data))
+        ids = np.asarray(data[id_col])
+        if "embedding__values" in data:
+            emb = np.asarray(data["embedding__values"]).reshape(len(ids), -1)
+        elif "embedding" in data:
+            emb = data["embedding"]
+            emb = np.asarray(emb) if getattr(emb, "ndim", 1) == 2 else np.asarray(list(emb))
+        else:
+            emb = np.stack([np.asarray(data[c]) for c in data if c != id_col], axis=1)
+        if check_unique_ids:
+            self._check_unique_ids(ids)
+        return self.index(emb, ids, dtype=dtype, device=device)
+
+    @staticmethod
+    def _check_unique_ids(ids) -> None:
+        arr = np.asarray(ids)
+        if len(np.unique(arr)) != len(arr):
+            raise ValueError("Candidate ids must be unique to build a top-k index")
+
+
+class BruteForce(TopKLayer):
     """Exact top-k over the whole candidate matrix.
 
     :meth:`index` zero-pads the matrix ONCE to a multiple of the 64-row bin
@@ -28,8 +67,7 @@ class BruteForce(Block):
     matrix on every request."""
 
     def __init__(self, k: int = 10):
-        super().__init__()
-        self.k = int(k)
+        super().__init__(k)
         self.n_valid: Optional[int] = None
         self.scales_per_bin = False
         self.register_buffer("candidates", None)
@@ -76,15 +114,6 @@ class BruteForce(Block):
         self.scales_per_bin = scales is not None
         self.n_valid = int(n)
         return self
-
-    def index_from_dataset(self, dataset, dtype: torch.dtype = torch.float32,
-                           device=None) -> "BruteForce":
-        """Index a Dataset with columns ``id`` and ``embedding`` (n, D)."""
-        data = dataset.to_numpy_dict()
-        ids = np.asarray(data["id"])
-        if len(np.unique(ids)) != len(ids):
-            raise ValueError("Candidate ids must be unique to build a top-k index")
-        return self.index(np.asarray(data["embedding"]), ids, dtype=dtype, device=device)
 
     def forward(self, queries, k: Optional[int] = None, **kwargs) -> TopKPrediction:
         if self.candidates is None:

@@ -169,6 +169,10 @@ class Schema:
         drop = set(_norm_tags(tags))
         return Schema([c for c in self if not (drop & set(c.tags))])
 
+    def excluding_by_name(self, names: Union[str, Iterable[str]]) -> "Schema":
+        drop = {names} if isinstance(names, str) else set(names)
+        return Schema([c for c in self if c.name not in drop])
+
     @property
     def categorical(self) -> "Schema":
         return self.select_by_tag(Tags.CATEGORICAL).excluding_by_tag(Tags.TARGET)

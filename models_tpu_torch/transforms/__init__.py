@@ -1,9 +1,11 @@
+from .bias import PopularityLogitsCorrection
+from .regularization import L2Norm
 from .sequence import (ExtractMaskFromTargets, ReplaceMaskedEmbeddings, SequenceMaskLast,
                        SequenceMaskLastInference, SequenceMaskRandom, SequencePredictLast,
                        SequencePredictNext, SequencePredictRandom, SequenceTargetAsInput,
                        SequenceTransform)
 
-__all__ = ["ExtractMaskFromTargets", "ReplaceMaskedEmbeddings", "SequenceMaskLast",
+__all__ = ["ExtractMaskFromTargets", "L2Norm", "PopularityLogitsCorrection", "ReplaceMaskedEmbeddings", "SequenceMaskLast",
            "SequenceMaskLastInference", "SequenceMaskRandom", "SequencePredictLast",
            "SequencePredictNext", "SequencePredictRandom", "SequenceTargetAsInput",
            "SequenceTransform"]

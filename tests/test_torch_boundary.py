@@ -26,6 +26,11 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "import models_tpu_torch.inputs.continuous, models_tpu_torch.losses\n"
         "import models_tpu_torch.transformer, models_tpu_torch.transforms.sequence\n"
         "import models_tpu_torch.models.session, models_tpu_torch.outputs.sampling\n"
+        "import models_tpu_torch.outputs.queue, models_tpu_torch.outputs.contrastive\n"
+        "import models_tpu_torch.models.retrieval, models_tpu_torch.blocks.retrieval\n"
+        "import models_tpu_torch.transforms.bias, models_tpu_torch.transforms.regularization\n"
+        "import models_tpu_torch.metrics.evaluation, models_tpu_torch.core.encoder\n"
+        "import models_tpu_torch.outputs.topk\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -95,6 +100,14 @@ ENTRY_POINTS = {
     "NCFModel": lambda: mt.NCFModel(_model()[0].schema, embedding_dim=8),
     "SessionBasedTransformerModel": lambda: mt.SessionBasedTransformerModel(
         mt.generate_data("sequence-testing", num_rows=8).schema, embedding_dim=8),
+    "MatrixFactorizationModel": lambda: mt.MatrixFactorizationModel(
+        mt.generate_data("e-commerce", num_rows=8).schema, dim=8),
+    "YoutubeDNNRetrievalModel": lambda: mt.YoutubeDNNRetrievalModel(
+        mt.generate_data("e-commerce", num_rows=8).schema, num_sampled=4),
+    "MatrixFactorizationBlock": lambda: mt.blocks.MatrixFactorizationBlock(
+        mt.generate_data("e-commerce", num_rows=8).schema, dim=8),
+    "TwoTowerBlock": lambda: mt.blocks.TwoTowerBlock(
+        mt.generate_data("e-commerce", num_rows=8).schema, (8, 4)),
     "to_top_k_encoder": lambda: _model()[1].to_top_k_encoder(_model()[0], k=3),
     "candidate_embeddings": lambda: _model()[1].candidate_embeddings(_model()[0]),
     "predict": lambda: _encoder()[1].predict(_encoder()[0], batch_size=16),
