@@ -184,7 +184,23 @@
    (one pack and one graph a length group of 8, 16, 32, 64 positions):
    sessions/s, each group's replayed step, the traced replays, K9 on each
    group's pack (bit for bit, warm and flushed, ``index_select``);
-16. prints one JSON line with each kernel's launches (on its own path's run;
+16. multi-task ranking (phase 19) on the full Ali-CCP schema (21 tables,
+   3,448,362 rows at D = 32), 16 seeded batches of 2048: the MMOE at
+   ``examples/04_multi_task_mmoe.py``'s width (Adam 1e-3, loss weights 1 and
+   0.5) one step at a time, 8 steps a graph replay (graph and eager bit for
+   bit with deterministic algorithms on; a traced epoch of replays: K9 once
+   a chunk on the 23-column pack, the busy share, the ``_foreach`` kernels'
+   share, dense Adam's), row-sparse (adagrad 0.05 on the three tables of
+   more than 10,000 rows: K7 twice a table a step), against a CPU copy after
+   4 Adam steps with ``class_weight={0: 1, 1: 4}``, ``evaluate`` (both
+   tasks' AUC, precision, recall) and ``predict`` against the CPU's; one
+   step of each of adamw, rmsprop, lamb and adafactor against a CPU copy,
+   then 4 steps of each, 2 a chunk (the second chunk a graph replay);
+   frozen experts bit-unchanged by a fit while the gates move; PLE at the
+   JAX package's defaults one step at a time and graph-replayed (K9
+   traced); the V1 prediction tasks at
+   ``examples/14_v1_prediction_tasks.py``'s width one step at a time;
+17. prints one JSON line with each kernel's launches (on its own path's run;
    K7 and K8: both row-sparse runs), error against its plain version, its
    time, the plain version's, the least time the card could take and a
    PyTorch yardstick's (the bound at the peak of the fastest arithmetic
@@ -203,7 +219,8 @@
    K1-K3 also ``launches_session`` and the session routes' traced
    launches, and their times at 65,536 x 65,536, ``session_long``; K9 the
    session routes' launches and its times on the group packs,
-   ``session_bucket``),
+   ``session_bucket``; K9 and K7 the multi-task paths' launches,
+   ``launches_mmoe*``, ``launches_ple*``),
    then the card line
    and ``{"ok": true,
    ...}`` last. Host-clock times are [median, min, max].
@@ -232,6 +249,14 @@ tolerances; card vs CPU and fused vs unfused as the constants FLIP_SHARE_MAX,
 FLIP_GRAD_TOL, MIXED_PARAM_ATOL and MIXED_HEAD_GRAD_TOL say (bf16 rounding
 flips bounded and counted; the heads round the query's cotangents at other
 places, and before they do agree within 2e-5 of the largest).
+
+Multi-task, card vs CPU after 4 Adam steps and after 2 steps of adamw,
+rmsprop, lamb or adafactor: each step's loss within FCE_TOL; parameters
+within PARAM_ATOL but for flips (elements whose gradient is rounding noise
+may step either way), each within twice the most the optimizer's steps can
+move an element (noise_step), in each parameter at most MT_FLIP_PARAM_SHARE
+of the elements that moved on the CPU or one row, and FLIP_SHARE_MAX of all
+that moved; ``evaluate`` and ``predict`` as the ranking models'.
 
 Row gather: bit for bit (a copy). int8: the binned route's ids and scores
 bit-equal card vs CPU (integer dots); K6 int8 within the top-k tolerance.
@@ -268,6 +293,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -1311,7 +1337,7 @@ def phase_train(dev, model, catalog, queries):
                             "fit_examples_per_sec": hist.history["examples_per_sec"]}
 
 
-def train_times(dev, model, data):
+def train_times(dev, model, data, batch=TRAIN_BATCH):
     """The train step on the host clock (each step ends in a synchronise), and
     its parts on CUDA events recorded at ``train_step``'s marks and at the end
     of the towers' forward: host batch and copy, tower forward, loss forward
@@ -1324,7 +1350,7 @@ def train_times(dev, model, data):
 
     loss_fns = model._resolve_task_losses()
     t = time.perf_counter()
-    batches = list(Loader(data, TRAIN_BATCH, drop_last=True))
+    batches = list(Loader(data, batch, drop_last=True))
     out = {"host_assemble_ms": (time.perf_counter() - t) * 1e3 / len(batches)}
     it = iter(batches * 4)
 
@@ -1333,7 +1359,7 @@ def train_times(dev, model, data):
         model.train_step(to_device_batch(x, dev), to_device_targets(y, dev), loss_fns)
 
     out["step_ms"] = host_ms(step, reps=12)
-    out["examples_per_sec"] = TRAIN_BATCH / out["step_ms"][0] * 1e3
+    out["examples_per_sec"] = batch / out["step_ms"][0] * 1e3
     names = ("batch_copy", "towers", "loss_forward", "backward", "optimizer", "sparse_update")
     sums = dict.fromkeys(names, 0.0)
     ev = {}
@@ -1361,7 +1387,7 @@ def train_times(dev, model, data):
     return out
 
 
-def train_profile(dev, model, data, steps: int = 4):
+def train_profile(dev, model, data, steps: int = 4, batch=TRAIN_BATCH):
     """A torch.profiler trace of ``steps`` train steps: the device's busy
     share of the window (kernels and copies over host wall time) and the
     device time per step of the largest kernels."""
@@ -1369,7 +1395,7 @@ def train_profile(dev, model, data, steps: int = 4):
     from models_tpu_torch.data import Loader
 
     loss_fns = model._resolve_task_losses()
-    batches = list(Loader(data, TRAIN_BATCH, drop_last=True))[:steps]
+    batches = list(Loader(data, batch, drop_last=True))[:steps]
 
     def run():
         for x, y in batches:
@@ -1448,8 +1474,11 @@ def profile_busy(run, steps: int) -> dict:
             traced[wrapper] += 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # torch's foreach kernels: on the training routes, the dense optimizer's
+    foreach = sum(v for n, v in by_name.items() if "multi_tensor_apply_kernel" in n)
     return {"device_busy_share": busy / wall_us,
             "device_ms_per_step": busy / steps / 1e3,
+            "foreach_ms_per_step": foreach / steps / 1e3,
             "top_kernels_ms_per_step": [[n[:90], v / steps / 1e3] for n, v in top],
             "launches_traced": traced, "launches_issued": issued}
 
@@ -3372,31 +3401,10 @@ def phase_criteo_sparse(dev, gen, errs):
 
     # K7 on the largest table's slot at one batch's ids, as the update runs it
     big = max(tables, key=lambda t: t.table.shape[0])
-    D = big.table.shape[1]
-    raw = torch.as_tensor(x0[big.features[0]], device=dev).to(torch.int32)
-    grads = torch.randn(TRAIN_BATCH, D, device=dev, generator=gen)
-    ids, gsum, valid = S.dedup_rows(raw, grads)
-    acc = big.sparse_slots["acc"]
-    got, want = S.row_scatter_add(acc.clone(), ids, gsum, valid), S.row_scatter_add_plain(
-        acc.clone(), ids, gsum, valid)
-    err = max_err(got, want)
-    errs["row_scatter_add"] = max(errs["row_scatter_add"], err)
-    require(torch.equal(raw_bits(got), raw_bits(want)),
-            f"criteo: K7 on {big.block_name} differs from its plain version (max|d| {err})")
-    del got, want
-    table = acc.clone()
-    n = int(valid.sum())
-    ids_v, g_v = ids[valid].long(), gsum[valid]
-    nbytes = 3 * n * D * 4 + TRAIN_BATCH * 5
-    k7 = {"table": big.block_name, "rows": big.table.shape[0], "valid_ids": n,
-          "ms": device_ms(lambda: S.row_scatter_add(table, ids, gsum, valid), cold=True),
-          "plain_ms": device_ms(lambda: S.row_scatter_add_plain(table, ids, gsum, valid), reps=10,
-                                cold=True),
-          "library_ms": device_ms(lambda: table.index_add_(0, ids_v, g_v), cold=True),
-          "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
-    print(f"  K7 on {big.block_name} ({big.table.shape[0]} rows), {n} of {TRAIN_BATCH} ids: "
-          f"bit-equal to its plain version; {json.dumps(k7)}", flush=True)
-    del model, tables, table, before, acc, big
+    k7 = measure_k7(dev, gen, big,
+                    torch.as_tensor(x0[big.features[0]], device=dev).to(torch.int32), errs,
+                    "criteo")
+    del model, tables, before, big
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     return out, launches, k7
@@ -3470,28 +3478,23 @@ def phase_ranking_zoo(dev):
     return out
 
 
-def measure_criteo_pack(dev, gen, data, errs) -> dict:
-    """K9 on the DLRM's training pack (the criteo-small dataset's 40 int32
-    columns, 160-byte rows: 13 float32 bit-cast, 26 ids, the label) at one
-    chunk's ids (DLRM_SPE batches of a permutation): bit for bit against its
-    plain version (its plan printed: 16-byte pieces), then timed as
+def measure_pack(dev, gen, packed, B, what, piece_bytes, errs) -> dict:
+    """K9 on a training route's pack (``packed``: the dataset's int32
+    columns) at one chunk's ids (B rows of a permutation): bit for bit
+    against its plain version, its plan's piece bytes required, then timed as
     measure_gather times K9's other shapes: warm and flushed, the plain
-    version and ``index_select`` flushed and warm. Bound: 2*n*160 + 4*n
-    bytes."""
+    version and ``index_select`` flushed and warm. Bound: 2*B*row bytes +
+    4*B bytes."""
     from models_tpu_torch.ops import embedding_lookup as E
 
-    packed = data._device_train_pack.packed
-    B = DLRM_SPE * TRAIN_BATCH
-    ids = torch.randperm(packed.shape[0], device=dev, generator=gen)[:B].to(torch.int32)
-    gather_case(f"criteo pack R={packed.shape[0]} D={packed.shape[1]} B={B} int32", packed, ids,
-                errs)
-    out_plan = E.gather_plan(packed, torch.empty(B, packed.shape[1], dtype=torch.int32,
-                                                 device=dev))
-    require(out_plan["piece_bytes"] == 16, f"criteo pack: K9's plan {out_plan}")
+    R, C = packed.shape
+    ids = torch.randperm(R, device=dev, generator=gen)[:B].to(torch.int32)
+    gather_case(f"{what} R={R} D={C} B={B} int32", packed, ids, errs)
+    out_plan = E.gather_plan(packed, torch.empty(B, C, dtype=torch.int32, device=dev))
+    require(out_plan["piece_bytes"] == piece_bytes, f"{what}: K9's plan {out_plan}")
     ids_l = ids.long()
-    nbytes = 2 * B * packed.shape[1] * 4 + 4 * B
-    times = {"rows": packed.shape[0], "row_bytes": packed.shape[1] * 4, "ids": B,
-             "plan": out_plan,
+    nbytes = 2 * B * C * 4 + 4 * B
+    times = {"rows": R, "row_bytes": C * 4, "ids": B, "plan": out_plan,
              "ms": device_ms(lambda: E.row_gather(packed, ids)),
              "ms_cold": device_ms(lambda: E.row_gather(packed, ids), cold=True),
              "plain_ms": device_ms(lambda: E.row_gather_plain(packed, ids), cold=True),
@@ -3499,8 +3502,43 @@ def measure_criteo_pack(dev, gen, data, errs) -> dict:
              "library_ms_warm": device_ms(lambda: torch.index_select(packed, 0, ids_l)),
              "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
     times["share_of_bound_cold"] = times["bound_ms"] / times["ms_cold"]
-    print("row gather, criteo pack " + json.dumps(times), flush=True)
+    print(f"row gather, {what} " + json.dumps(times), flush=True)
     return times
+
+
+def measure_k7(dev, gen, table, raw, errs, what) -> dict:
+    """K7 on a row-sparse ``table``'s adagrad slot at one batch's ids
+    (``raw``, int32), as the update runs it: the ids deduplicated with seeded
+    row gradients, against its plain version bit for bit, then timed (L2
+    flushed) beside the plain version and ``index_add_``. Bound: the valid
+    rows read, their gradients read and the rows written, 4 bytes an element,
+    and 5 bytes an id (the id and its valid flag)."""
+    from models_tpu_torch.ops import scatter as S
+
+    D, N = table.table.shape[1], raw.shape[0]
+    grads = torch.randn(N, D, device=dev, generator=gen)
+    ids, gsum, valid = S.dedup_rows(raw, grads)
+    acc = table.sparse_slots["acc"]
+    got, want = S.row_scatter_add(acc.clone(), ids, gsum, valid), S.row_scatter_add_plain(
+        acc.clone(), ids, gsum, valid)
+    err = max_err(got, want)
+    errs["row_scatter_add"] = max(errs["row_scatter_add"], err)
+    require(torch.equal(raw_bits(got), raw_bits(want)),
+            f"{what}: K7 on {table.block_name} differs from its plain version (max|d| {err})")
+    del got, want
+    work = acc.clone()
+    n = int(valid.sum())
+    ids_v, g_v = ids[valid].long(), gsum[valid]
+    nbytes = 3 * n * D * 4 + N * 5
+    k7 = {"table": table.block_name, "rows": table.table.shape[0], "ids": N, "valid_ids": n,
+          "ms": device_ms(lambda: S.row_scatter_add(work, ids, gsum, valid), cold=True),
+          "plain_ms": device_ms(lambda: S.row_scatter_add_plain(work, ids, gsum, valid), reps=10,
+                                cold=True),
+          "library_ms": device_ms(lambda: work.index_add_(0, ids_v, g_v), cold=True),
+          "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+    print(f"  K7 on {table.block_name} ({table.table.shape[0]} rows), {n} of {N} ids: "
+          f"bit-equal to its plain version; {json.dumps(k7)}", flush=True)
+    return k7
 
 
 # the bench's session cells (bench.py:657-676 `session`, :525-576
@@ -4306,6 +4344,396 @@ def phase_retrieval(dev, card, errs):
     return out, launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# multi-task ranking: MMOE and PLE on the full Ali-CCP schema, the V1
+# prediction tasks, and the optimizers they train under
+# ---------------------------------------------------------------------------
+
+# examples/04_multi_task_mmoe.py's model and loss weights; PLE at the JAX
+# package's defaults; examples/14_v1_prediction_tasks.py's V1 tasks. Adam at
+# 1e-3, batch 2048, MT_BATCHES batches of seeded rows of the full schema
+# (21 tables, 3,448,362 rows at D = 32: 441 MB of fp32 tables)
+MT_BATCH = 2048
+MT_BATCHES = 16
+MT_SPE = 8
+MT_CPU_STEPS = 4
+MT_SPARSE_STEPS = 8
+MT_LOSS_WEIGHTS = {"click/BinaryOutput": 1.0, "conversion/BinaryOutput": 0.5}
+MT_CLASS_WEIGHT = {0: 1.0, 1: 4.0}
+MMOE_KW = dict(expert_block=(64, 32), num_experts=4, embedding_dim=32)
+PLE_KW = dict(expert_block=(64, 32), num_layers=2, num_task_experts=1, num_shared_experts=2,
+              embedding_dim=32)
+MT_SPARSE_THRESHOLD = 10_000
+MT_OPTIMIZERS = ("adamw", "rmsprop", "lamb", "adafactor")
+MT_OPT_STEPS = 2  # each further optimizer's steps, card vs CPU: the second loss sees the update
+# card vs CPU flips in one parameter: at most 1% of its moved elements or
+# one row (a unit's weights, a table's row), whichever is more. A unit at a
+# ReLU's kink on one device and not the other changes its row of the next
+# gradient: 4 Adam steps flipped 313 of the 42,963 moved elements of an
+# expert's first kernel (0.73%, about half a 672-wide row), 10 of the user
+# profile table's 3164 (0.32%); at most 6e-4 elsewhere and 4.5e-4 of all
+# that moved (H100 80GB HBM3, 700 W). A lamb whose trust ratio is 1% off
+# flips 82% of the item table's moved elements, 10.9% of all that moved
+MT_FLIP_PARAM_SHARE = 0.01
+
+
+def adam_step_bound(t: int, b1: float = 0.9, b2: float = 0.999) -> float:
+    """The most Adam's bias-corrected direction ``mu_hat / sqrt(nu_hat)``
+    can be in magnitude at its t-th step, whatever the gradients
+    (Cauchy-Schwarz over the moments' weights): 1.0 at t = 1, 1.0068 at 4."""
+    s = sum(((1 - b1) * b1 ** (t - k)) ** 2 / ((1 - b2) * b2 ** (t - k)) for k in range(1, t + 1))
+    return s ** 0.5 * (1 - b2 ** t) ** 0.5 / (1 - b1 ** t)
+
+
+def noise_step(name: str, steps: int, before: torch.Tensor, after: torch.Tensor) -> float:
+    """The most ``steps`` steps of optimizer ``name`` at ADAM_LR can move one
+    element of a parameter, whatever its gradients: the move of an element
+    whose gradient is rounding noise, which the card and the CPU may take
+    with opposite signs (``before`` and ``after``: the parameter on the CPU
+    around the steps). adam and adamw: adam_step_bound a step (adamw's decay,
+    1e-4 of the parameter, is the same on both); rmsprop: 1 / sqrt(1 - 0.9)
+    a step; adafactor: t**0.4 a step (its decay 1 - t**-0.8 keeps that share
+    of the squared gradient), times the parameter's RMS (at least 1e-3);
+    lamb: its step is the trust ratio |p| / |u| times Adam's direction, and
+    the ratio is the parameter's own, so the unit is the largest move on the
+    CPU, a step where Adam's direction is 1, times adam_step_bound."""
+    ts = range(1, steps + 1)
+    if name in ("adam", "adamw"):
+        return ADAM_LR * sum(adam_step_bound(t) for t in ts)
+    if name == "rmsprop":
+        return ADAM_LR * steps / (1 - 0.9) ** 0.5
+    if name == "adafactor":
+        rms = max(float(x.float().pow(2).mean().sqrt()) for x in (before, after))
+        return ADAM_LR * max(rms, 1e-3) * sum(t ** 0.4 for t in ts)
+    if name == "lamb":
+        return float((after - before).abs().max()) * max(adam_step_bound(t) for t in ts)
+    raise ValueError(name)
+
+
+def mt_compile(model, **kw):
+    args = dict(optimizer="adam", learning_rate=ADAM_LR, metrics=[],
+                loss_weights=MT_LOSS_WEIGHTS)
+    args.update(kw)
+    return model.compile(**args)
+
+
+def v1_model(dev, schema):
+    """examples/14_v1_prediction_tasks.py: an MLP of 64, 32 over the input
+    block; ``PredictionTasks`` with one tower of 16 cloned a task, a bias
+    tower of 8, task weights 1 and 0.5."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.core import SequentialBlock
+
+    inputs = mt.InputBlockV2(schema, seed=SEED, device=dev)
+    body = SequentialBlock([inputs, mt.MLPBlock(inputs.out_features, [64, 32], seed=SEED,
+                                                device=dev)])
+    tasks = mt.PredictionTasks(schema, 32, task_blocks=mt.MLPBlock(32, [16], device=dev),
+                               task_weight_dict={"click": 1.0, "conversion": 0.5},
+                               bias_block=mt.MLPBlock(32, [8], device=dev), device=dev)
+    return mt.Model(body, tasks, schema=schema)
+
+
+def rows_of(data, start: int, n: int):
+    """Rows [start, start + n) of ``data``, as a dataset."""
+    from models_tpu_torch.data.dataset import take_rows
+
+    return data._from_cols(take_rows(data._cols, np.arange(start, start + n)))
+
+
+def step_card_vs_cpu(model, on_cpu, data, steps, what, optimizer):
+    """``steps`` steps of the compiled ``model`` on the card and of its
+    compiled CPU copy, one batch a ``fit`` so that each step's loss is read:
+    every loss within FCE_TOL (from the second on, the updates enter them).
+    Parameters within PARAM_ATOL but for flips, elements whose gradient is
+    rounding noise, which the two may step either way: each within twice
+    noise_step. In each parameter at most MT_FLIP_PARAM_SHARE of the
+    elements that moved on the CPU by more than PARAM_ATOL or one row,
+    whichever is more, and at most FLIP_SHARE_MAX of all the moved
+    elements."""
+    cpu_before = {n: p.detach().clone() for n, p in on_cpu.named_parameters()}
+    losses = {"card": [], "cpu": []}
+    dev = next(model.parameters()).device
+    for s in range(steps):
+        batch = rows_of(data, s * MT_BATCH, MT_BATCH)
+        for tag, m, d in (("card", model, dev), ("cpu", on_cpu, "cpu")):
+            losses[tag] += m.fit(batch, batch_size=MT_BATCH, shuffle=False,
+                                 device=d).history["loss"]
+    require(all(np.isfinite(losses["card"])), f"{what}: losses {losses['card']}")
+    require(np.allclose(losses["card"], losses["cpu"], rtol=FCE_TOL, atol=0),
+            f"{what}: losses {losses['card']} (card) / {losses['cpu']} (CPU)")
+    cpu = dict(on_cpu.named_parameters())
+    worst, flips, moved, largest, by_param = 0.0, 0, 0, 0.0, {}
+    for n, p in model.named_parameters():
+        after = cpu[n].detach()
+        moved_here = int(((after - cpu_before[n]).abs() > PARAM_ATOL).sum())
+        bound = 2 * noise_step(optimizer, steps, cpu_before[n], after)
+        w, f, _, big = compare_rounded(f"{what}: {n}", [(p, after)], PARAM_ATOL,
+                                       (max(bound, PARAM_ATOL), 0.0), share_of=math.inf)
+        allowed = max(p.numel() // p.shape[0], MT_FLIP_PARAM_SHARE * moved_here)
+        require(f <= allowed, f"{what}: {n}: {f} elements flipped, of {moved_here} moved "
+                f"(at most {allowed:g})")
+        worst, flips, moved, largest = max(worst, w), flips + f, moved + moved_here, max(
+            largest, big)
+        if f:
+            by_param[n] = [f, moved_here]
+    require(flips <= FLIP_SHARE_MAX * moved, f"{what}: {flips} elements flipped, of {moved} "
+            "moved")
+    out = {"steps": steps, "loss_card": losses["card"], "loss_cpu": losses["cpu"],
+           "param_max_abs": worst, "flips": flips, "of_moved": moved, "largest_flip": largest,
+           "flips_by_parameter": by_param}
+    print(f"  {what}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_multi_task(dev, gen, card, errs):
+    """Multi-task ranking on the full Ali-CCP schema (MT_BATCHES batches of
+    MT_BATCH seeded rows): (a) the MMOE (MMOE_KW, adam, loss weights) one
+    step at a time, timed as the two-tower steps are; (b) MT_SPE steps a
+    chunk as CUDA graph replays: graph and eager bit for bit with
+    deterministic algorithms on, then captured again without them, a timed
+    fit and a traced epoch (K9 once a chunk on the 23-column pack); (c)
+    row-sparse, adagrad at 0.05 on the tables of more than
+    MT_SPARSE_THRESHOLD rows (user_id, item_id, user_intentions: K7 twice a
+    table a step), timed; (d) card vs CPU after MT_CPU_STEPS Adam steps
+    with loss weights and ``class_weight``, then ``evaluate`` (both tasks'
+    AUC, precision, recall) and ``predict`` at 2048 rows against the CPU
+    copy's; (e) MT_OPT_STEPS steps of each of adamw, rmsprop, lamb and
+    adafactor, card vs CPU, then 4 steps of each, 2 a chunk, the second
+    chunk a graph replay; (f) frozen experts bit-unchanged by a fit while the gates
+    move; (g) PLE (PLE_KW) one step at a time and graph-replayed (K9
+    traced); (h) the V1 prediction tasks one step at a time. K9 on the
+    route's 23-column pack and K7 on item_id's slot at one batch's ids are
+    held against their plain versions, bit for bit, and timed (measure_pack,
+    measure_k7). Returns (the numbers, the launches by path, K9's and K7's
+    times at these shapes)."""
+    import copy
+
+    import models_tpu_torch as mt
+    from models_tpu_torch.ops import scatter as S
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    data = mt.generate_data("aliccp", num_rows=MT_BATCHES * MT_BATCH, seed=SEED + 19)
+    schema = data.schema
+    out = {"card": card, "config": {"mmoe": {k: list(v) if isinstance(v, tuple) else v
+                                             for k, v in MMOE_KW.items()},
+                                    "ple": {k: list(v) if isinstance(v, tuple) else v
+                                            for k, v in PLE_KW.items()},
+                                    "batch": MT_BATCH, "schema": "aliccp",
+                                    "loss_weights": MT_LOSS_WEIGHTS,
+                                    "optimizer": "adam", "learning_rate": ADAM_LR,
+                                    "data_s": time.perf_counter() - t_phase}}
+    launches = {}
+
+    def make():
+        return mt.MMOEModel(schema, seed=SEED, device=dev, **MMOE_KW)
+
+    def make_ple():
+        return mt.PLEModel(schema, seed=SEED, device=dev, **PLE_KW)
+
+    # (a) one step at a time
+    model = make()
+    out["parameters"] = sum(p.numel() for p in model.parameters())
+    out["table_rows"] = sum(t.table.shape[0] for t in model._embedding_tables())
+    mt_compile(model)
+    warm = model.fit(data.take(2 * MT_BATCH), batch_size=MT_BATCH, shuffle=False, device=dev)
+    require(all(np.isfinite(warm.history["loss"])), "(a) MMOE: non-finite loss")
+    out["mmoe_one_step"] = {**train_times(dev, model, data, batch=MT_BATCH),
+                            **train_profile(dev, model, data, batch=MT_BATCH)}
+    one = out["mmoe_one_step"]
+    print(f"  (a) MMOE one step at a time: {one['step_ms']} ms, busy "
+          f"{one['device_busy_share']:.3f}, device {one['device_ms_per_step']:.3f} ms a step, "
+          f"optimizer {one['optimizer_ms']:.3f} ms; {card}", flush=True)
+    del model
+
+    # (b) the graph route
+    what = f"(b) MMOE, {MT_SPE} steps a chunk"
+    _, mg, lg, le = graph_vs_eager(dev, None, data, 2, what, make=make, batch=MT_BATCH,
+                                   optimizer="adam", learning_rate=ADAM_LR, metrics=[],
+                                   loss_weights=MT_LOSS_WEIGHTS, steps_per_execution=MT_SPE)
+    require(lg["row_gather"] == 2 and le["row_gather"] == 2 * MT_BATCHES // MT_SPE,
+            f"{what}: K9 issued {lg['row_gather']} (graph) / {le['row_gather']} (eager)")
+    pack = data._device_train_pack
+    require(pack is not None and tuple(pack.packed.shape) == (MT_BATCHES * MT_BATCH, 23),
+            f"{what}: the pack is {None if pack is None else tuple(pack.packed.shape)}")
+    # K9 at a chunk's ids on the pack: 92-byte rows, so 4-byte pieces
+    k9 = measure_pack(dev, gen, pack.packed, MT_SPE * MT_BATCH, "aliccp pack", 4, errs)
+    mg._chunk_graphs.clear()  # captured again as users run it, deterministic algorithms off
+    mg.fit(data, epochs=1, batch_size=MT_BATCH, shuffle=False, device=dev)
+    hist, wall, ms = replayed_fit(mg, data, 2, 2 * MT_BATCHES, what, batch=MT_BATCH)
+    require(all(np.isfinite(hist["loss"])), f"{what}: non-finite loss")
+    trace = traced_replays(mg, data, MT_BATCHES, {"row_gather": MT_BATCHES // MT_SPE}, what,
+                           batch=MT_BATCH)
+    out["mmoe_graph"] = {"ms_per_step": ms, "examples_per_sec": hist["examples_per_sec"],
+                         "fit_s": wall, "loss": hist["loss"], "graphs": graph_stats(mg),
+                         "one_step_ms_ratio": ms / one["step_ms"][0],
+                         "foreach_share_of_device": trace["foreach_ms_per_step"]
+                         / max(trace["device_ms_per_step"], 1e-12),
+                         **{k: v for k, v in trace.items() if k != "launches_issued"}}
+    launches["mmoe_graph"] = {"issued": lg["row_gather"], "eager": le["row_gather"],
+                              "traced": trace["launches_traced"]["row_gather"]}
+    print(f"  {what}: {ms:.3f} ms a step graph-replayed, examples/s {hist['examples_per_sec']}, "
+          f"busy {trace['device_busy_share']:.3f}, device {trace['device_ms_per_step']:.3f} ms "
+          f"a step, foreach (dense Adam) {trace['foreach_ms_per_step']:.3f} ms, K9 traced "
+          f"{trace['launches_traced']['row_gather']}; {card}", flush=True)
+    del mg
+    torch.cuda.empty_cache()
+
+    # (c) row-sparse
+    model = make()
+    model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[],
+                  loss_weights=MT_LOSS_WEIGHTS, embedding_optimizer="adagrad",
+                  sparse_threshold=MT_SPARSE_THRESHOLD)
+    before = {t.block_name: t.table.detach().clone() for t in model._embedding_tables()}
+    S.row_scatter_add.launches = S.row_scatter_write.launches = 0
+    hist = model.fit(data.take(MT_SPARSE_STEPS * MT_BATCH), batch_size=MT_BATCH,
+                     shuffle=False, device=dev)
+    torch.cuda.synchronize()
+    routed = sorted(t.block_name for t in model._sparse_tables)
+    k7 = S.row_scatter_add.launches
+    require(routed == ["item_id", "user_id", "user_intentions"], f"(c): routed {routed}")
+    require(k7 == 2 * len(routed) * MT_SPARSE_STEPS and S.row_scatter_write.launches == 0,
+            f"(c): K7 launched {k7} times in {MT_SPARSE_STEPS} steps")
+    require(all(np.isfinite(hist.history["loss"])), "(c): non-finite loss")
+    require(all(not torch.equal(before[n], model._embedding_tables()[i].table)
+                for i, n in enumerate(before)), "(c): a table did not move")
+    launches["mmoe_sparse"] = k7
+    x0, _ = next(iter(mt.Loader(data, MT_BATCH)))
+    item = next(t for t in model._sparse_tables if t.block_name == "item_id")
+    k7_times = measure_k7(dev, gen, item, torch.as_tensor(x0[item.features[0]], device=dev).to(
+        torch.int32), errs, "(c) MMOE row-sparse")
+    out["mmoe_sparse"] = {"routed": routed, "k7_launches": k7, "loss": hist.history["loss"],
+                          **train_times(dev, model, data, batch=MT_BATCH)}
+    print(f"  (c) MMOE row-sparse: routed {routed}, K7 {k7} in {MT_SPARSE_STEPS} steps, "
+          f"{out['mmoe_sparse']['step_ms']} ms a step; {card}", flush=True)
+    del model, before
+    torch.cuda.empty_cache()
+
+    # (d) card vs CPU with class weights, evaluate, predict
+    on_card = make()
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    for m in (on_card, on_cpu):
+        mt_compile(m, class_weight=MT_CLASS_WEIGHT)
+    out["card_vs_cpu"] = step_card_vs_cpu(on_card, on_cpu, data, MT_CPU_STEPS,
+                                          "(d) MMOE card vs CPU, adam, class weights", "adam")
+    evaluation = data.take(MT_BATCH)
+    for m in (on_card, on_cpu):  # the binary heads' default metrics
+        mt_compile(m, metrics=None)
+    got = on_card.evaluate(evaluation, batch_size=MT_BATCH, device=dev)
+    want = on_cpu.evaluate(evaluation, batch_size=MT_BATCH, device="cpu")
+    require({"click/auc", "conversion/auc", "click/precision", "conversion/recall"}
+            <= set(got), f"(d): evaluate's keys {sorted(got)}")
+    compare_eval("(d) MMOE evaluate", got, want, MT_BATCH)
+    t = time.perf_counter()
+    on_card.evaluate(evaluation, batch_size=MT_BATCH, device=dev)
+    torch.cuda.synchronize()
+    out["evaluate"] = {"card": got, "cpu": want, "rows": evaluation.num_rows,
+                       "examples_per_sec": evaluation.num_rows / (time.perf_counter() - t)}
+    probs = on_card.predict(evaluation, batch_size=MT_BATCH, device=dev)
+    ref = on_cpu.predict(evaluation, batch_size=MT_BATCH, device="cpu")
+    require(sorted(probs) == sorted(MT_LOSS_WEIGHTS) and all(
+        v.shape == (MT_BATCH,) and np.isfinite(v).all() and ((v >= 0) & (v <= 1)).all()
+        for v in probs.values()), "(d): predict's probabilities")
+    err = max(float(np.abs(probs[k] - ref[k]).max()) for k in probs)
+    require(err <= FCE_TOL, f"(d): card and CPU probabilities differ by {err:.3g}")
+    out["predict"] = {"rows": MT_BATCH, "max_abs_vs_cpu": err,
+                      "ms": host_ms(lambda: on_card.predict(evaluation, batch_size=MT_BATCH,
+                                                            device=dev))}
+    print(f"  (d) evaluate {got['click/auc']:.4f} / {got['conversion/auc']:.4f} AUC, "
+          f"{out['evaluate']['examples_per_sec']:.0f} examples/s; predict at {MT_BATCH} rows "
+          f"{out['predict']['ms']} ms, within {err:.3g} of the CPU's", flush=True)
+    del on_card, on_cpu
+
+    # (e) each further optimizer, one step, card vs CPU
+    out["optimizers"] = {}
+    base = make()
+    for name in MT_OPTIMIZERS:
+        on_card = copy.deepcopy(base)
+        on_cpu = copy.deepcopy(base).to("cpu")
+        for m in (on_card, on_cpu):
+            mt_compile(m, optimizer=name)
+        out["optimizers"][name] = step_card_vs_cpu(on_card, on_cpu, data, MT_OPT_STEPS,
+                                                   f"(e) MMOE {name} card vs CPU", name)
+        require(type(on_card._optimizer).__name__.lower() == name,
+                f"(e): {name} ran as {type(on_card._optimizer).__name__}")
+        # captured: 2 steps a chunk, the second chunk one graph replay
+        mt_compile(on_card, optimizer=name, steps_per_execution=2)
+        hist = on_card.fit(data.take(4 * MT_BATCH), batch_size=MT_BATCH, shuffle=False,
+                           device=dev)
+        require(len(on_card._chunk_graphs) == 1 and all(np.isfinite(hist.history["loss"]))
+                and all(int(st["step"]) == 4 for st in on_card._optimizer.state.values()),
+                f"(e) {name}: the captured chunk ({len(on_card._chunk_graphs)} graphs, "
+                f"losses {hist.history['loss']})")
+        out["optimizers"][name]["captured_loss"] = hist.history["loss"]
+        del on_card, on_cpu
+    del base
+    torch.cuda.empty_cache()
+
+    # (f) frozen experts
+    model = make()
+    mt_compile(model)
+    experts = model.blocks[0].layers[1].experts
+    model.freeze_blocks(experts)
+    frozen = [p.detach().clone() for p in experts.parameters()]
+    gates = [p.detach().clone() for p in model.blocks[0].layers[1].gates.parameters()]
+    model.fit(data.take(MT_CPU_STEPS * MT_BATCH), batch_size=MT_BATCH, shuffle=False,
+              device=dev)
+    require(all(torch.equal(a, b) for a, b in zip(frozen, experts.parameters())),
+            "(f): a frozen expert moved")
+    require(all(not torch.equal(a, b) for a, b in
+                zip(gates, model.blocks[0].layers[1].gates.parameters())),
+            "(f): a gate did not move")
+    require(not {id(p) for p in experts.parameters()} & {id(p) for p in model._optimizer.state},
+            "(f): the optimizer holds a frozen expert's slots")
+    out["frozen_experts"] = {"experts_unchanged": True, "gates_moved": True,
+                             "frozen_parameters": sum(p.numel() for p in frozen)}
+    print(f"  (f) frozen experts bit-unchanged over {MT_CPU_STEPS} steps, the gates moved",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # (g) PLE: one step at a time, graph-replayed
+    model = make_ple()
+    out["ple_parameters"] = sum(p.numel() for p in model.parameters())
+    mt_compile(model)
+    model.fit(data.take(2 * MT_BATCH), batch_size=MT_BATCH, shuffle=False, device=dev)
+    out["ple_one_step"] = train_times(dev, model, data, batch=MT_BATCH)
+    mt_compile(model, steps_per_execution=MT_SPE)
+    zero_route_launches()
+    model.fit(data, epochs=1, batch_size=MT_BATCH, shuffle=False, device=dev)
+    torch.cuda.synchronize()
+    issued = route_launches()["row_gather"]
+    require(issued == 2 and len(model._chunk_graphs) == 1,
+            f"(g) PLE: K9 issued {issued} times, {len(model._chunk_graphs)} graphs")
+    hist, wall, ms = replayed_fit(model, data, 2, 2 * MT_BATCHES, "(g) PLE", batch=MT_BATCH)
+    require(all(np.isfinite(hist["loss"])), "(g) PLE: non-finite loss")
+    trace = traced_replays(model, data, MT_BATCHES, {"row_gather": MT_BATCHES // MT_SPE},
+                           "(g) PLE", batch=MT_BATCH)
+    out["ple_graph"] = {"ms_per_step": ms, "examples_per_sec": hist["examples_per_sec"],
+                        "loss": hist["loss"],
+                        **{k: v for k, v in trace.items() if k != "launches_issued"}}
+    launches["ple_graph"] = {"issued": issued, "traced": trace["launches_traced"]["row_gather"]}
+    print(f"  (g) PLE: {out['ple_one_step']['step_ms']} ms a step one at a time, {ms:.3f} ms "
+          f"graph-replayed, busy {trace['device_busy_share']:.3f}; {card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # (h) the V1 prediction tasks
+    model = v1_model(dev, schema)
+    mt_compile(model, loss_weights=None)
+    require(model._loss_weight_for("conversion/BinaryOutput") == 0.5,
+            "(h): the task weight dict's weight")
+    hist = model.fit(data.take(2 * MT_BATCH), batch_size=MT_BATCH, shuffle=False, device=dev)
+    require(all(np.isfinite(hist.history["loss"])), "(h) V1 tasks: non-finite loss")
+    out["v1_tasks_one_step"] = train_times(dev, model, data, batch=MT_BATCH)
+    print(f"  (h) V1 prediction tasks: {out['v1_tasks_one_step']['step_ms']} ms a step; {card}",
+          flush=True)
+    del model
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches, k9, k7_times
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -4495,7 +4923,8 @@ def main() -> int:
     dlrm, dlrm_k9, dlrm_k9_traced, dlrm_data = phase_dlrm(dev, card)
     print("dlrm " + json.dumps(dlrm), flush=True)
     stamp("phase 12b: K9 on the DLRM's 160-byte pack")
-    criteo_pack = measure_criteo_pack(dev, gen, dlrm_data, errs)
+    criteo_pack = measure_pack(dev, gen, dlrm_data._device_train_pack.packed,
+                               DLRM_SPE * TRAIN_BATCH, "criteo pack", 16, errs)
     del dlrm_data
     torch.cuda.empty_cache()
     stamp("phase 13: the DLRM on the full Criteo cardinalities, row-sparse (K7)")
@@ -4558,6 +4987,23 @@ def main() -> int:
         elif name == "row_gather":
             row.update(launches_mf=rl["mf_graph"]["issued"][name],
                        launches_replayed_traced_mf=rl["mf_graph"]["traced"][name])
+    stamp("phase 19: multi-task ranking on the full Ali-CCP schema: MMOE (one step at a time, "
+          "graph-replayed, row-sparse, card vs CPU, evaluate, predict, four optimizers, frozen "
+          "experts), PLE, the V1 prediction tasks")
+    multi, ml, mt_k9, mt_k7 = phase_multi_task(dev, gen, card, errs)
+    print("multi_task " + json.dumps(multi), flush=True)
+    for row in rows:  # the multi-task paths' launches, each counted from zero around its run
+        if row["name"] == "row_gather":
+            row.update(launches_mmoe=ml["mmoe_graph"]["issued"],
+                       launches_mmoe_eager=ml["mmoe_graph"]["eager"],
+                       launches_replayed_traced_mmoe=ml["mmoe_graph"]["traced"],
+                       launches_ple=ml["ple_graph"]["issued"],
+                       launches_replayed_traced_ple=ml["ple_graph"]["traced"],
+                       aliccp_pack=mt_k9)
+            row["max_abs_err"] = errs["row_gather"]
+        elif row["name"] == "row_scatter_add":
+            row.update(launches_mmoe_sparse=ml["mmoe_sparse"], aliccp=mt_k7)
+            row["max_abs_err"] = errs["row_scatter_add"]
     stamp("done")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -4,7 +4,10 @@ The JAX package ``models_tpu`` is the reference; this package imports nothing
 of it, nor JAX. Entry points run on the card (``device="cuda"``, the default)
 unless the caller passes ``device="cpu"``; without a card they raise.
 
-The retrieval models (the two-tower model, the matrix factorization and
+The multi-task models (``MMOEModel``, ``PLEModel``, the V1
+``PredictionTasks``), trained with loss and class weights, adam, adamw,
+adagrad, rmsprop, lamb, adafactor or sgd (or a ``MultiOptimizer``), frozen
+blocks and callbacks, are ported. The retrieval models (the two-tower model, the matrix factorization and
 YouTube-DNN, with in-batch, cross-batch and popularity-sampled negatives,
 the pairwise losses and the beyond-accuracy metrics), the ranking models (DLRM, DCN-v2, DeepFM,
 NCF) and the session models (``SessionBasedTransformerModel`` over the
@@ -25,26 +28,37 @@ rescoring, the row scatter-add and scatter-write, the row gather) are built
 with ``nvcc`` at first use.
 """
 
-from .blocks.optimizer import LazyAdam, SparseEmbeddingOptimizer
+from .blocks.experts import CGCBlock, ExpertsGate, MMOEBlock, PLEBlock
+from .blocks.mlp import MLPBlock
+from .blocks.optimizer import LazyAdam, MultiOptimizer, SparseEmbeddingOptimizer
 from .losses import binary_crossentropy, mean_absolute_error, mean_squared_error
 from .convert import load_jax_params
 from .core import Encoder, SequenceFeature, TopKEncoder, TopKPrediction, resolve_device
 from .core.policy import get_dtype_policy, set_dtype_policy
 from .data import Dataset, Loader, generate_data
 from .metrics import AUC, BinaryAccuracy, Metric, Precision, Recall, TopKMetricsAggregator
-from .models import (DCNModel, DeepFMModel, DLRMModel, History, MatrixFactorizationModel,
-                     Model, NCFModel, RetrievalModelV2, SessionBasedTransformerModel,
-                     TwoTowerModel, YoutubeDNNRetrievalModel)
+from .inputs import InputBlockV2
+from .models import (BaseModel, DCNModel, DeepFMModel, DLRMModel, History, MatrixFactorizationModel,
+                     MMOEModel, Model, ModelBlock, NCFModel, PLEModel, RetrievalModelV2,
+                     SessionBasedTransformerModel, TwoTowerModel, YoutubeDNNRetrievalModel)
 from .outputs import (BinaryOutput, BruteForce, CachedCrossBatchSampler, ContrastiveOutput,
-                      ContrastiveSampleWeight, OutputBlock, RegressionOutput, TopKOutput)
+                      ContrastiveSampleWeight, NextItemPredictionTask, OutputBlock,
+                      ParallelPredictionBlock, PredictionTasks, RegressionOutput, TopKOutput)
+from .transforms import InBatchNegatives
+from .utils.callbacks import (Callback, CSVLogger, EarlyStopping, ExamplesPerSecondCallback,
+                              TerminateOnNaN)
 from .schema import ColumnSchema, Schema, Tags
 
 __all__ = [
-    "AUC", "BinaryAccuracy", "BinaryOutput", "BruteForce", "CachedCrossBatchSampler",
+    "AUC", "BaseModel", "BinaryAccuracy", "BinaryOutput", "BruteForce", "CGCBlock",
+    "CSVLogger", "CachedCrossBatchSampler", "Callback",
     "ColumnSchema", "ContrastiveOutput", "ContrastiveSampleWeight", "DCNModel", "DLRMModel",
-    "Dataset", "DeepFMModel", "Encoder", "History", "LazyAdam", "Loader",
-    "MatrixFactorizationModel", "Metric", "Model", "NCFModel", "OutputBlock", "Precision",
-    "Recall",
+    "Dataset", "DeepFMModel", "EarlyStopping", "Encoder", "ExamplesPerSecondCallback",
+    "ExpertsGate", "History", "InBatchNegatives", "InputBlockV2", "LazyAdam", "Loader",
+    "MLPBlock", "MMOEBlock", "MMOEModel", "MatrixFactorizationModel", "Metric", "Model",
+    "ModelBlock", "MultiOptimizer", "NCFModel", "NextItemPredictionTask", "OutputBlock",
+    "PLEBlock", "PLEModel", "ParallelPredictionBlock", "Precision", "PredictionTasks",
+    "Recall", "TerminateOnNaN",
     "RegressionOutput", "RetrievalModelV2", "Schema", "SequenceFeature",
     "SessionBasedTransformerModel",
     "SparseEmbeddingOptimizer", "Tags", "TopKEncoder", "TopKMetricsAggregator", "TopKOutput",

@@ -1,5 +1,6 @@
 from .cross import Cross, CrossBlock
 from .dlrm import DLRMBlock
+from .experts import CGCBlock, ExpertsGate, MMOEBlock, PLEBlock
 from .interaction import (DotProductInteraction, FMBlock, FMPairwiseInteraction,
                           XDeepFmOuterProduct)
 from .mlp import (BatchNorm, Dense, DenseMaybeLowRank, DenseResidualBlock, Dropout, LayerNorm,
@@ -7,8 +8,9 @@ from .mlp import (BatchNorm, Dense, DenseMaybeLowRank, DenseResidualBlock, Dropo
 from .retrieval import (DualEncoderBlock, ItemRetrievalScorer, MatrixFactorizationBlock,
                         QueryItemIdsEmbeddingsBlock, TowerBlock, TwoTowerBlock)
 
-__all__ = ["BatchNorm", "Cross", "CrossBlock", "DLRMBlock", "Dense", "DenseMaybeLowRank",
-           "DenseResidualBlock", "DotProductInteraction", "Dropout", "DualEncoderBlock", "FMBlock",
-           "FMPairwiseInteraction", "ItemRetrievalScorer", "LayerNorm", "MLPBlock",
-           "MatrixFactorizationBlock", "QueryItemIdsEmbeddingsBlock", "TowerBlock",
+__all__ = ["BatchNorm", "CGCBlock", "Cross", "CrossBlock", "DLRMBlock", "Dense",
+           "DenseMaybeLowRank", "DenseResidualBlock", "DotProductInteraction", "Dropout",
+           "DualEncoderBlock", "ExpertsGate", "FMBlock", "FMPairwiseInteraction",
+           "ItemRetrievalScorer", "LayerNorm", "MLPBlock", "MMOEBlock",
+           "MatrixFactorizationBlock", "PLEBlock", "QueryItemIdsEmbeddingsBlock", "TowerBlock",
            "TwoTowerBlock", "XDeepFmOuterProduct", "get_activation"]

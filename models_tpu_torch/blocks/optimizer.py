@@ -11,10 +11,21 @@ taken there in float32, so that a training chunk can be captured as a CUDA
 graph), on the CPU not (the bias corrections in Python floats). beta2 = 0.999
 rounds to float32 1.3e-8 off, 1.3e-5 of ``1 - beta2`` (optax rounds it so
 too): the card's updates differ from the CPU's by up to 6.4e-6 of the
-update (``chip_smoke.py`` holds them to 2**-16 of it). The other names
-are not ported yet (ROADMAP.md queue 1). :func:`low_precision_optimizer_state`
+update (``chip_smoke.py`` holds them to 2**-16 of it).
+
+``adamw``, ``rmsprop``, ``lamb`` and ``adafactor`` are written out to optax
+0.2.6's chains with its defaults (:class:`AdamW`, :class:`RMSprop`,
+:class:`Lamb`, :class:`Adafactor`); torch's own differ (``RMSprop``'s decay
+0.99 and its eps outside the root; ``AdamW``'s decay folded into the
+parameter first). Each keeps its step count on the parameter's device, so
+that a captured chunk replays its bias corrections and schedules, and steps
+every parameter, one without a gradient as with a zero one, as optax does.
+Their ``learning_rate`` may be a function of the step count (an int32
+tensor, 0 at the first step) giving the rate; adagrad, adam and sgd take a
+number. :func:`low_precision_optimizer_state`
 (``compile(optimizer_state_dtype=...)``) keeps a dense optimizer's slots in
-bf16 at rest.
+bf16 at rest. :class:`MultiOptimizer` sends parameters to different
+optimizers by rule.
 
 The row-sparse embedding optimizer (:class:`SparseEmbeddingOptimizer`,
 ``compile(embedding_optimizer=...)``) updates only the rows a batch looked
@@ -27,15 +38,16 @@ stochastic rounding, from noise seeded by (table, step).
 
 from __future__ import annotations
 
+import re
 import zlib
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..inputs.embedding import SparseSlots
 from ..ops.scatter import dedup_rows, row_scatter_add, row_scatter_write, stochastic_round
 
-_NOT_PORTED = ("adamw", "rmsprop", "lamb", "adafactor")
+DENSE_OPTIMIZERS = ("adagrad", "adam", "adamw", "adafactor", "lamb", "rmsprop", "sgd")
 SPARSE_KINDS = ("sgd", "adagrad", "adam")
 
 
@@ -63,6 +75,167 @@ class Adagrad(torch.optim.Optimizer):
             torch._foreach_rsqrt_(scale)
             torch._foreach_mul_(scale, grads)
             torch._foreach_add_(params, scale, alpha=-group["lr"])
+
+
+# optax 0.2.6's defaults of the chains below, the only values the JAX
+# package's ``compile()`` reaches
+ADAM_B1, ADAM_B2 = 0.9, 0.999
+ADAMW_EPS, ADAMW_WEIGHT_DECAY = 1e-8, 1e-4
+LAMB_EPS = 1e-6  # lamb's weight decay is 0
+RMSPROP_DECAY, RMSPROP_EPS = 0.9, 1e-8  # nu starts at 0 (initial_scale)
+ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR = 128
+ADAFACTOR_DECAY_RATE = 0.8
+ADAFACTOR_CLIPPING_THRESHOLD = 1.0
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_MIN_SCALE = 1e-3
+
+
+class _OptaxChain(torch.optim.Optimizer):
+    """Base of the optimizers written out to an optax chain at its defaults.
+    Each parameter has its slots from construction and its own int32
+    ``step`` on its device (the chain's count); every step updates every
+    parameter, one without a gradient as with a zero gradient. ``lr``: a
+    number, or a function of the step count giving the rate (optax's
+    schedule)."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr):
+        super().__init__(params, dict(lr=lr))
+        for group in self.param_groups:
+            for p in group["params"]:
+                state = self.state[p]
+                state["step"] = torch.zeros((), dtype=torch.int32, device=p.device)
+                self._init_slots(p, state)
+
+    def _init_slots(self, p: torch.Tensor, state: dict) -> None:
+        raise NotImplementedError
+
+    def _update(self, p, g, state, lr):
+        """The update the chain adds to ``p`` (its slots moved in place)."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                state = self.state[p]
+                lr = group["lr"](state["step"]) if callable(group["lr"]) else group["lr"]
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                p.add_(self._update(p, g, state, lr))
+                state["step"].add_(1)
+
+
+def _adam_direction(g, state, eps: float) -> torch.Tensor:
+    """optax.scale_by_adam (b1 0.9, b2 0.999): the moments moved in place,
+    and ``mu_hat / (sqrt(nu_hat) + eps)`` with the bias corrections in
+    float32."""
+    mu, nu = state["mu"], state["nu"]
+    mu.copy_((1 - ADAM_B1) * g + ADAM_B1 * mu)
+    nu.copy_((1 - ADAM_B2) * g * g + ADAM_B2 * nu)
+    t = (state["step"] + 1).to(torch.float32)
+    # float32 powers on the device (torch.full: no copy from the host, so
+    # that a capture holds them)
+    mu_hat = mu / (1 - torch.full_like(t, ADAM_B1) ** t)
+    nu_hat = nu / (1 - torch.full_like(t, ADAM_B2) ** t)
+    return mu_hat / (torch.sqrt(nu_hat) + eps)
+
+
+def _adam_slots(p, state):
+    state["mu"], state["nu"] = torch.zeros_like(p), torch.zeros_like(p)
+
+
+class AdamW(_OptaxChain):
+    """optax.adamw: Adam's direction (eps 1e-8) plus ``1e-4 * p`` on every
+    parameter (tables and biases too: no mask), times ``-lr``."""
+
+    _init_slots = staticmethod(_adam_slots)
+
+    def _update(self, p, g, state, lr):
+        u = _adam_direction(g, state, ADAMW_EPS)
+        return (u + ADAMW_WEIGHT_DECAY * p) * -lr
+
+
+class RMSprop(_OptaxChain):
+    """optax.rmsprop: ``nu = 0.1 g**2 + 0.9 nu`` from 0, the update
+    ``-lr * g * rsqrt(nu + 1e-8)`` (eps in the root)."""
+
+    def _init_slots(self, p, state):
+        state["nu"] = torch.zeros_like(p)
+
+    def _update(self, p, g, state, lr):
+        nu = state["nu"]
+        nu.copy_((1 - RMSPROP_DECAY) * g * g + RMSPROP_DECAY * nu)
+        return torch.rsqrt(nu + RMSPROP_EPS) * g * -lr
+
+
+class Lamb(_OptaxChain):
+    """optax.lamb: Adam's direction (eps 1e-6; weight decay 0), scaled by the
+    trust ratio ``|p| / |u|`` (1 where either norm is 0), times ``-lr``."""
+
+    _init_slots = staticmethod(_adam_slots)
+
+    def _update(self, p, g, state, lr):
+        u = _adam_direction(g, state, LAMB_EPS)
+        # sqrt(sum(x * x)), optax's formula: torch's float32 vector_norm on
+        # the CPU is 1% off over a 98.5M-element table, the sum is not
+        pn, un = torch.sqrt((p * p).sum()), torch.sqrt((u * u).sum())
+        ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
+        return u * ratio * -lr
+
+
+def factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: (d1, d0), the second largest dimension and
+    the largest, where a parameter of two or more dimensions has its second
+    largest at least 128 (``min_dim_size_to_factor``); else None (not
+    factored)."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: shape[i])  # stable, as np.argsort
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR:
+        return None
+    return order[-2], order[-1]
+
+
+class Adafactor(_OptaxChain):
+    """optax.adafactor's chain: ``scale_by_factored_rms`` (decay
+    ``1 - (t + 1)**-0.8``, eps 1e-30; a parameter factored into row and
+    column second moments where :func:`factored_dims` says so, else one
+    second moment of its shape), ``clip_by_block_rms(1.0)``, the learning
+    rate, ``scale_by_param_block_rms`` (the parameter's RMS, at least 1e-3),
+    and the sign. A port Dense's weight is the JAX kernel transposed: its
+    factors swap roles, and the factored update, symmetric in them, is the
+    same."""
+
+    def _init_slots(self, p, state):
+        dims = factored_dims(p.shape)
+        if dims is None:
+            state["v"] = torch.zeros_like(p)
+            return
+        d1, d0 = dims
+        state["v_row"] = p.new_zeros(tuple(n for i, n in enumerate(p.shape) if i != d0))
+        state["v_col"] = p.new_zeros(tuple(n for i, n in enumerate(p.shape) if i != d1))
+
+    def _update(self, p, g, state, lr):
+        t = (state["step"] + 1).to(torch.float32)
+        d = 1.0 - t ** -ADAFACTOR_DECAY_RATE
+        g2 = g * g + ADAFACTOR_EPS
+        dims = factored_dims(p.shape)
+        if dims is None:
+            v = state["v"]
+            v.copy_(d * v + (1.0 - d) * g2)
+            u = g * v ** -0.5
+        else:
+            d1, d0 = dims
+            vr, vc = state["v_row"], state["v_col"]
+            vr.copy_(d * vr + (1.0 - d) * g2.mean(dim=d0))
+            vc.copy_(d * vc + (1.0 - d) * g2.mean(dim=d1))
+            row_mean = vr.mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)
+            u = g * ((vr / row_mean) ** -0.5).unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
+        u = u / torch.clamp_min(torch.sqrt((u * u).mean()) / ADAFACTOR_CLIPPING_THRESHOLD, 1.0)
+        u = u * lr
+        rms = torch.sqrt((p * p).mean())
+        u = u * torch.where(rms <= ADAFACTOR_MIN_SCALE,
+                            torch.full_like(rms, ADAFACTOR_MIN_SCALE), rms)
+        return u * -1
 
 
 class LowPrecisionState:
@@ -152,15 +325,12 @@ def state_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return resolved
 
 
-def check_optimizer(name: str) -> None:
-    """Raise unless ``name`` is a ported optimizer."""
-    if name in ("adagrad", "sgd", "adam"):
+def check_optimizer(optimizer) -> None:
+    """Raise unless ``optimizer`` is a dense optimizer's name or a
+    :class:`MultiOptimizer`."""
+    if isinstance(optimizer, MultiOptimizer) or optimizer in DENSE_OPTIMIZERS:
         return
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP.md queue 1); ported: adagrad, "
-            "sgd, adam")
-    raise ValueError(f"Unknown optimizer {name!r}")
+    raise ValueError(f"Unknown optimizer {optimizer!r}; options {sorted(DENSE_OPTIMIZERS)}")
 
 
 class NoParameters:
@@ -171,29 +341,108 @@ class NoParameters:
     state: dict = {}
     param_groups: list = []
 
-    def zero_grad(self, set_to_none: bool = True) -> None:
-        pass
-
     def step(self, closure=None) -> None:
         pass
 
 
+_CHAINS = {"adamw": AdamW, "rmsprop": RMSprop, "lamb": Lamb, "adafactor": Adafactor}
+
+
 def make_optimizer(name: str, params: Iterable[torch.Tensor],
-                   learning_rate: Optional[float]) -> torch.optim.Optimizer:
+                   learning_rate: Union[None, float, Callable]) -> torch.optim.Optimizer:
     """The optimizer ``name`` over ``params`` (:class:`NoParameters` where
     there are none); the learning rate defaults to 1e-3, as in the JAX
-    package."""
+    package. A function of the step is taken by adamw, rmsprop, lamb and
+    adafactor."""
     check_optimizer(name)
-    lr = 1e-3 if learning_rate is None else float(learning_rate)
+    lr = 1e-3 if learning_rate is None else learning_rate
     params = list(params)
     if not params:
         return NoParameters()
+    if name in _CHAINS:
+        return _CHAINS[name](params, lr)
+    if callable(lr):
+        raise ValueError(f"optimizer {name!r} takes a number as its learning rate; a function "
+                         f"of the step is taken by {sorted(_CHAINS)}")
+    lr = float(lr)
     if name == "adagrad":
         return Adagrad(params, lr)
     if name == "sgd":
         return torch.optim.SGD(params, lr=lr)
     return torch.optim.Adam(params, lr=lr, eps=1e-8,
                             capturable=any(p.device.type == "cuda" for p in params))
+
+
+def param_path(name: str) -> str:
+    """A parameter's JAX state path from its ``named_parameters()`` name:
+    ``/`` for ``.``, a Dense's ``weight`` as ``kernel`` (``load_jax_params``'s
+    correspondence)."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "/".join(parts)
+
+
+class MultiOptimizer:
+    """Parameters routed to different optimizers by rule, the JAX package's
+    ``MultiOptimizer`` (``optax.multi_transform``): ``rules`` is a sequence
+    of ``(selector, optimizer)``, the first matching rule wins, everything
+    else takes ``default``. A selector is a regex searched in a parameter's
+    JAX state path (:func:`param_path`: the port's ``named_parameters()``
+    name with ``/`` for ``.`` and a Dense's ``weight`` named ``kernel``, e.g.
+    ``blocks/0/layers/0/branches/categorical/branches/item_id/table``), or a
+    block, matching its parameters. An optimizer is a name of
+    ``compile()``'s (at ``compile``'s learning rate) or a ``(name,
+    learning_rate)`` pair.
+
+    >>> MultiOptimizer(default="adam", rules=[("table", ("adagrad", 0.05))])
+    """
+
+    def __init__(self, default="adam", rules: Sequence[tuple] = ()):
+        self.default = default
+        self.rules = list(rules)
+
+    @staticmethod
+    def _make(spec, params: list, learning_rate):
+        name, lr = spec if isinstance(spec, tuple) else (spec, learning_rate)
+        return make_optimizer(name, params, lr)
+
+    def build(self, named_params, learning_rate=None) -> "MultiStep":
+        """The optimizers over ``named_params`` ((name, parameter) pairs), one
+        a rule that matched any, and the default's."""
+        owned = [None if isinstance(sel, str) else {id(p) for p in sel.parameters()}
+                 for sel, _ in self.rules]
+        groups: Dict[int, list] = {}
+        for name, p in named_params:
+            path = param_path(name)
+            label = next((i for i, (sel, _) in enumerate(self.rules)
+                          if (re.search(sel, path) if owned[i] is None else id(p) in owned[i])),
+                         -1)
+            groups.setdefault(label, []).append(p)
+        specs = {-1: self.default, **{i: spec for i, (_, spec) in enumerate(self.rules)}}
+        return MultiStep({label: self._make(specs[label], ps, learning_rate)
+                          for label, ps in sorted(groups.items())})
+
+
+class MultiStep:
+    """The optimizers a :class:`MultiOptimizer` built, stepped as one
+    (``optimizers``: by rule index, -1 the default's); ``state`` holds every
+    parameter's."""
+
+    def __init__(self, optimizers: Dict[int, torch.optim.Optimizer]):
+        self.optimizers = optimizers
+
+    @property
+    def state(self) -> dict:
+        return {p: st for opt in self.optimizers.values() for p, st in opt.state.items()}
+
+    @property
+    def param_groups(self) -> list:
+        return [g for opt in self.optimizers.values() for g in opt.param_groups]
+
+    def step(self, closure=None) -> None:
+        for opt in self.optimizers.values():
+            opt.step()
 
 
 # ---------------------------------------------------------------------------

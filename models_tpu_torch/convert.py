@@ -29,6 +29,12 @@ becomes the port's ``weight`` (out, in). What is carried:
   query tower and tied table; a cross-batch queue's ring
   (``.../samplers/<i>/queue/embeddings``, ``ids``, ``cursor``), which the
   caller gives from ``nnx.state(model, nnx.Variable)``;
+- the multi-task blocks' paths as they stand: each expert's MLP
+  (``.../experts/experts/<i>/layers/<j>/kernel``), each gate's bias-free
+  ``gate`` kernel, CGC's ``shared_experts``, ``task_experts/<task>``,
+  ``task_gates/<task>`` and ``shared_gate``, PLE's layers (flattened into
+  the body's ``layers``), and ``ParallelPredictionBlock``'s
+  ``heads/<head>``, ``bias_block`` and ``bias_logit``;
 - the slots (``.../<table>/sparse_slots/<acc|m|v>``, float32) onto the
   table's ``sparse_slots`` buffers, which ``fit`` then keeps when they are
   the ones its embedding optimizer needs.

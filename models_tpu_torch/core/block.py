@@ -52,8 +52,10 @@ def fresh_copy(block: nn.Module, salt: int) -> nn.Module:
     truncated-normal (sigma 0.05, as made), other weights of two or more
     dimensions (Dense kernels) glorot-uniform; biases and norms kept. The
     JAX package re-seeds its lazy initialisers by the same salt; the draws
-    differ, as every draw of the two packages does. Used where one tower
-    block would otherwise serve both towers of a two-tower model."""
+    differ, as every draw of the two packages does. Used where one block
+    would otherwise serve twice: both towers of a two-tower model, the
+    experts of a group (``blocks/experts.py``), a tower cloned for each
+    task (``outputs/tasks.py::PredictionTasks``)."""
     import copy
 
     cp = copy.deepcopy(block)

@@ -1,10 +1,14 @@
 """Synthetic datasets from the known schemas.
 
-Copies the ``e-commerce``, ``movielens-25m``, ``criteo``, ``criteo-small``
-and ``sequence-testing`` schemas and the numpy draws of ``models_tpu/data/synthetic.py``, so that one
+Copies the ``e-commerce``, ``movielens-25m``, ``aliccp``, ``aliccp-small``,
+``criteo``, ``criteo-small`` and ``sequence-testing`` schemas and the numpy draws of ``models_tpu/data/synthetic.py``, so that one
 seed gives the same rows in both packages. ``criteo`` has the published
 Criteo 1TB cardinalities (26 tables, 31,457,706 rows); ``criteo-small`` the
-same layout with 1000 ids a column. ``sequence-testing`` is the JAX package's
+same layout with 1000 ids a column. ``aliccp`` is the Ali-CCP click and
+conversion log's layout (21 categorical columns, 3,448,362 rows of tables
+in all, ``item_id`` 3,078,308 of them; two binary targets, ``click`` and
+``conversion``); ``aliccp-small`` the same with every domain cut to at most
+1001 ids. ``sequence-testing`` is the JAX package's
 session schema: its list columns hold at most 4 positions (``max_seq_length``
 4; ``generate_data``'s ``min_session_length`` / ``max_session_length`` draw
 other lengths).
@@ -81,6 +85,43 @@ def _movielens_25m_schema() -> Schema:
     )
 
 
+def _aliccp_schema() -> Schema:
+    return Schema([
+        cat("user_id", 294737, tags=(Tags.USER, Tags.USER_ID)),
+        cat("item_id", 3078307, tags=(Tags.ITEM, Tags.ITEM_ID)),
+        cat("item_category", 8582, tags=Tags.ITEM),
+        cat("item_shop", 4532, tags=Tags.ITEM),
+        cat("item_brand", 9996, tags=Tags.ITEM),
+        cat("user_categories", 6087, tags=Tags.USER),
+        cat("user_shops", 6736, tags=Tags.USER),
+        cat("user_profile", 99, tags=Tags.USER),
+        cat("user_group", 14, tags=Tags.USER),
+        cat("user_gender", 3, tags=Tags.USER),
+        cat("user_age", 8, tags=Tags.USER),
+        cat("user_consumption_2", 4, tags=Tags.USER),
+        cat("user_is_occupied", 3, tags=Tags.USER),
+        cat("user_geography", 5, tags=Tags.USER),
+        cat("user_intentions", 33787, tags=Tags.USER),
+        cat("user_brands", 5429, tags=Tags.USER),
+        cat("user_item_categories", 2),
+        cat("user_item_shops", 2),
+        cat("user_item_brands", 2),
+        cat("user_item_intentions", 2),
+        cat("position", 4, tags=Tags.CONTEXT),
+        _binary_target("click"),
+        _binary_target("conversion"),
+    ])
+
+
+def _aliccp_small_schema() -> Schema:
+    """``aliccp`` with every integer domain above 1000 cut to 1000."""
+    from dataclasses import replace
+
+    return Schema([replace(c, int_domain=replace(c.int_domain, max=1000))
+                   if c.int_domain is not None and c.int_domain.max > 1000 else c
+                   for c in _aliccp_schema()])
+
+
 # the Criteo 1TB click logs' 26 categorical cardinalities (the largest id of
 # each column; the table takes one row more)
 CRITEO_CARDINALITIES = (
@@ -129,6 +170,8 @@ def _sequence_testing_schema() -> Schema:
 KNOWN_DATASETS: Dict[str, Callable[[], Schema]] = {
     "e-commerce": _ecommerce_schema,
     "movielens-25m": _movielens_25m_schema,
+    "aliccp": _aliccp_schema,
+    "aliccp-small": _aliccp_small_schema,
     "criteo": _criteo_schema,
     "criteo-small": _criteo_small_schema,
     "sequence-testing": _sequence_testing_schema,

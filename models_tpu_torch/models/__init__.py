@@ -1,11 +1,13 @@
-from .base import History, Model
+from .base import BaseModel, History, Model, ModelBlock
 from .benchmark import NCFModel
+from .multi_task import MMOEModel, PLEModel
 from .ranking import DCNModel, DeepFMModel, DLRMModel
 from .retrieval import (MatrixFactorizationModel, MatrixFactorizationModelV2, RetrievalModelV2,
                         TwoTowerModel, TwoTowerModelV2, YoutubeDNNRetrievalModel)
 from .session import SessionBasedTransformerModel
 
-__all__ = ["DCNModel", "DLRMModel", "DeepFMModel", "History", "MatrixFactorizationModel",
-           "MatrixFactorizationModelV2", "Model", "NCFModel", "RetrievalModelV2",
+__all__ = ["BaseModel", "DCNModel", "DLRMModel", "DeepFMModel", "History", "MMOEModel",
+           "MatrixFactorizationModel", "MatrixFactorizationModelV2", "Model", "ModelBlock",
+           "NCFModel", "PLEModel", "RetrievalModelV2",
            "SessionBasedTransformerModel", "TwoTowerModel", "TwoTowerModelV2",
            "YoutubeDNNRetrievalModel"]

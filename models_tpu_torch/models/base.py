@@ -1,7 +1,9 @@
 """Model: a sequential container ending in a head (or a block of heads),
 with ``predict``, ``compile``, ``fit`` and ``evaluate`` (the subset of
-``models_tpu/models/base.py`` that the two-tower, ranking and session
-models serve, train and evaluate with; each takes a ``pre=`` transform).
+``models_tpu/models/base.py`` that the two-tower, ranking, session and
+multi-task models serve, train and evaluate with; each takes a ``pre=``
+transform), on :class:`BaseModel`; :class:`ModelBlock` makes any block a
+model.
 ``predict`` gives each head's ``activation`` of its logits (probabilities
 for a binary head); ``compile`` takes each head's default loss and
 metrics. Blocks that keep state across steps (BatchNorm's
@@ -34,10 +36,19 @@ is one CUDA graph replay (``models/step_graph.py``); on the CPU, and with
 each length bucket's rows form a group with its own pack and graphs
 (:meth:`Model.fit`). A head over sequences flattens a batch's B * L
 positions into rows: the loader's row validity repeats over them
-(``_merge_row_valid``), and (B, L, C) outputs flatten for the metrics. Not
-ported yet (ROADMAP.md queue 1): the device-resident ``evaluate`` and
-validation, meshes, callbacks, ``MultiOptimizer``, the sharded sparse
-update and frozen blocks.
+(``_merge_row_valid``), and (B, L, C) outputs flatten for the metrics.
+
+The loss sums the heads' in sorted name order (the JAX package's jitted
+step sorts them), each times its weight (``compile(loss_weights=)``, else a
+``ParallelPredictionBlock``'s ``task_weight_dict``, else 1), a binary head's
+rows weighted by ``compile(class_weight=)``. ``freeze_blocks`` takes a
+block's parameters out of the next ``fit``'s optimizer (and its row-sparse
+tables out of the sparse update); a fit with frozen blocks or a
+:class:`~models_tpu_torch.blocks.optimizer.MultiOptimizer`, and the first
+plain fit after one, starts from fresh optimizer slots and step 0, as the
+JAX package's does (it rebuilds its transform). Not ported yet (ROADMAP.md
+queue 1): the device-resident ``evaluate`` and validation, meshes and the
+sharded sparse update.
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..blocks.optimizer import (SparseEmbeddingOptimizer, check_optimizer,
+from ..blocks.optimizer import (MultiOptimizer, SparseEmbeddingOptimizer, check_optimizer,
                                 low_precision_optimizer_state, make_optimizer,
                                 split_embeddings_on_size, state_dtype)
 from ..core.block import Block
@@ -67,7 +78,7 @@ from ..losses import categorical_crossentropy, get_loss, sparse_categorical_cros
 from ..metrics.base import Metric
 from ..metrics.topk import TopKMetric, TopKMetricsAggregator
 from ..ops.embedding_lookup import row_gather
-from ..outputs.base import ModelOutput
+from ..outputs.base import BinaryOutput, ModelOutput
 from ..outputs.queue import apply_state_updates
 from .step_graph import ChunkGraphs
 
@@ -159,22 +170,11 @@ class History:
         return f"History({ {k: [round(x, 4) for x in v] for k, v in self.history.items()} })"
 
 
-class Model(Block):
-    def __init__(self, *blocks: nn.Module):
-        super().__init__()
-        self.blocks = nn.ModuleList(blocks)
-        for b in blocks:
-            if getattr(b, "schema", None) is not None:
-                self.schema = b.schema
-                break
-        self._compiled = False
+class BaseModel(Block):
+    """The engine (``predict``, ``compile``, ``fit``, ``evaluate``, freezing)
+    over a subclass's ``forward``."""
 
-    def forward(self, inputs, **kwargs):
-        kwargs.setdefault("context", ModelContext(features=inputs))
-        out = inputs
-        for block in self.blocks:
-            out = block(out, **kwargs)
-        return out
+    _compiled = False
 
     def heads(self) -> List[ModelOutput]:
         return [m for m in self.modules() if isinstance(m, ModelOutput)]
@@ -225,19 +225,33 @@ class Model(Block):
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
-    def compile(self, optimizer: str = "adam", loss=None, metrics=None,
-                learning_rate: Optional[float] = None, train_metrics_steps: int = 1,
+    def compile(self, optimizer: Union[str, MultiOptimizer] = "adam", loss=None, metrics=None,
+                loss_weights: Optional[Dict[str, float]] = None,
+                learning_rate: Union[None, float, Callable] = None,
+                train_metrics_steps: int = 1,
                 embedding_optimizer: Union[None, str, SparseEmbeddingOptimizer] = None,
                 sparse_threshold: Optional[int] = None,
                 optimizer_state_dtype: Union[None, str, torch.dtype] = None,
-                steps_per_execution: int = 1, jit: bool = True) -> "Model":
-        """Choose the optimizer, the loss (a name, a callable, or a dict by
-        head name or target; None takes each head's default) and the metrics
-        (None takes each head's default, the top-k metrics @10 for the
-        retrieval heads; a name, a :class:`Metric`, a list of them, or a dict
-        by head name or target; ``[]`` none). Training updates the metrics on
-        every ``train_metrics_steps``-th step. The dense optimizer's slots and
-        the step count live until the next ``compile()``.
+                steps_per_execution: int = 1, jit: bool = True,
+                class_weight: Optional[Dict] = None) -> "BaseModel":
+        """Choose the optimizer (a name: adam, adamw, adagrad, adafactor,
+        lamb, rmsprop, sgd; or a :class:`MultiOptimizer`), the loss (a name, a
+        callable, or a dict by head name or target; None takes each head's
+        default) and the metrics (None takes each head's default, the top-k
+        metrics @10 for the retrieval heads; a name, a :class:`Metric`, a
+        list of them, or a dict by head name or target; ``[]`` none).
+        Training updates the metrics on every ``train_metrics_steps``-th
+        step. The dense optimizer's slots and the step count live until the
+        next ``compile()`` (or a fit that starts them afresh: the module's
+        note). ``learning_rate``: a number, or for adamw, rmsprop, lamb and
+        adafactor a function of the step count.
+
+        ``loss_weights``: a head's loss weight by its name or its bare
+        target (``{"click/BinaryOutput": 1.0, "conversion": 0.5}``); a head
+        it does not name takes its ``task_weight_dict`` weight, else 1.
+        ``class_weight``: ``{0: w0, 1: w1}`` weighs every binary head's rows
+        by their label, or ``{task: {0: w0, 1: w1}}`` by head name or target.
+        Both enter a captured chunk as constants.
 
         ``embedding_optimizer`` (a :class:`SparseEmbeddingOptimizer`, or its
         kind: ``"sgd"``, ``"adagrad"``, ``"adam"``, also as ``"lazy_adam"`` or
@@ -247,8 +261,9 @@ class Model(Block):
         every bf16 table, go to it. Its slots live on the tables.
         ``optimizer_state_dtype`` (e.g. ``"bfloat16"``) stores the dense
         optimizer's slots in that dtype at rest
-        (:func:`~models_tpu_torch.blocks.optimizer.low_precision_optimizer_state`);
-        the row-sparse slots stay float32.
+        (:func:`~models_tpu_torch.blocks.optimizer.low_precision_optimizer_state`;
+        not with a :class:`MultiOptimizer`); the row-sparse slots stay
+        float32.
 
         ``steps_per_execution`` (at least 1) runs that many steps a chunk in
         ``fit``, without an embedding optimizer (see the module's note). With
@@ -258,6 +273,9 @@ class Model(Block):
         if train_metrics_steps < 1:
             raise ValueError(f"train_metrics_steps must be >= 1, got {train_metrics_steps}")
         check_optimizer(optimizer)
+        if optimizer_state_dtype is not None and isinstance(optimizer, MultiOptimizer):
+            raise ValueError("optimizer_state_dtype: wrap the individual optimizers of a "
+                             "MultiOptimizer with low_precision_optimizer_state instead")
         if isinstance(embedding_optimizer, str):
             kind = embedding_optimizer.replace("lazy_", "").replace("sparse_", "")
             embedding_optimizer = SparseEmbeddingOptimizer(
@@ -268,12 +286,15 @@ class Model(Block):
         self._emb_opt = embedding_optimizer
         self._sparse_threshold = sparse_threshold
         self._sparse_tables: List[EmbeddingTable] = []
-        self._optimizer_name = optimizer
+        self._optimizer_spec = optimizer
         self._optimizer_state_dtype = (None if optimizer_state_dtype is None
                                        else state_dtype(optimizer_state_dtype))
         self._learning_rate = learning_rate
         self._loss_spec = loss
         self._metrics_spec = metrics
+        self._loss_weights = dict(loss_weights or {})
+        self._class_weight = class_weight
+        self._head_weights: Dict[str, tuple] = {}
         self.train_metrics_steps = train_metrics_steps
         self._steps_per_execution = max(int(steps_per_execution), 1)
         self._jit = bool(jit)
@@ -282,6 +303,8 @@ class Model(Block):
         self._chunk_graphs = ChunkGraphs()
         self._group_graphs: Dict[int, ChunkGraphs] = {}
         self._optimizer = None
+        self._plain_optimizer = True
+        self._frozen_ids: frozenset = frozenset()
         self._step = 0
         self._compiled = True
         return self
@@ -370,9 +393,46 @@ class Model(Block):
             return {k: v for k, v in preds.items() if isinstance(v, Prediction)}
         raise TypeError(f"Model produced {type(preds)}; expected Prediction or dict")
 
+    def _loss_weight_for(self, name: str) -> float:
+        """A head's loss weight: ``compile(loss_weights=)`` by its name, then
+        by its bare target; then a block's ``task_weight_dict`` likewise;
+        else 1."""
+        base = name.split("/")[0]
+        for weights in [self._loss_weights] + [
+                m.task_weight_dict for m in self.modules()
+                if isinstance(getattr(m, "task_weight_dict", None), dict)]:
+            if name in weights:
+                return float(weights[name])
+            if base in weights:
+                return float(weights[base])
+        return 1.0
+
+    def _class_weight_for(self, name: str) -> Optional[Tuple[float, float]]:
+        """(w0, w1) for a head's rows by label, from ``compile(class_weight=)``:
+        a flat ``{0: w0, 1: w1}`` for the binary heads only, or a nested dict
+        by head name or bare target; None where none applies."""
+        cw = self._class_weight
+        if not cw:
+            return None
+        if all(isinstance(k, (int, np.integer)) for k in cw):
+            binary = {h.block_name for h in self.heads() if isinstance(h, BinaryOutput)}
+            return (float(cw.get(0, 1.0)), float(cw.get(1, 1.0))) if name in binary else None
+        task = cw.get(name) or cw.get(name.split("/")[0])
+        return None if task is None else (float(task.get(0, 1.0)), float(task.get(1, 1.0)))
+
+    def _weights_of(self, name: str) -> tuple:
+        """(loss weight, class weights) of a head, resolved once a compile."""
+        if name not in self._head_weights:
+            self._head_weights[name] = (self._loss_weight_for(name),
+                                        self._class_weight_for(name))
+        return self._head_weights[name]
+
     def _compute_losses(self, pred_dict, x, loss_fns):
-        """(total, logs): each head's loss under ``loss/<head>``, their sum
-        under ``loss``. A fused head's loss has its weights folded in."""
+        """(total, logs): each head's loss under ``loss/<head>``, their
+        weighted sum (the module's note) under ``loss``. A fused head's loss
+        has its sample weights folded in; its loss weight multiplies it
+        here. Class weights multiply the sample weights after the row
+        validity."""
         row_valid = x.get(ROW_VALID_KEY)
         logs: Dict[str, torch.Tensor] = {}
         # the sum starts on the heads' device: a packed batch has no row
@@ -381,7 +441,8 @@ class Model(Block):
         dev = next((p.outputs.device for p in pred_dict.values() if torch.is_tensor(p.outputs)),
                    None)
         total = torch.zeros((), device=dev)
-        for name, pred in pred_dict.items():
+        for name in sorted(pred_dict):
+            pred = pred_dict[name]
             if pred.precomputed_loss is not None:
                 value = pred.precomputed_loss
             elif pred.targets is None or name not in loss_fns:
@@ -389,9 +450,15 @@ class Model(Block):
             else:
                 t, sw = _unwrap_targets(pred)
                 sw = _merge_row_valid(sw, row_valid, pred.outputs.shape[0])
+                cw = self._weights_of(name)[1]
+                if cw is not None:
+                    csw = torch.where(t > 0, cw[1], cw[0]).to(torch.float32)
+                    if csw.ndim == 2 and csw.shape[-1] == 1:
+                        csw = csw[:, 0]
+                    sw = csw if sw is None else sw * csw.reshape(sw.shape)
                 value = _auto_loss(loss_fns[name], t, pred.outputs, sw)
             logs[f"loss/{name}"] = value
-            total = total + value
+            total = total + self._weights_of(name)[0] * value
         reg = torch.zeros_like(total)
         for m in self.modules():
             fn = getattr(m, "regularization_loss", None)
@@ -402,6 +469,39 @@ class Model(Block):
         logs["regularization_loss"] = reg
         logs["loss"] = total
         return total, logs
+
+    # ------------------------------------------------------------------
+    # freezing
+    # ------------------------------------------------------------------
+    def freeze_blocks(self, blocks) -> None:
+        """Freeze blocks (instances, or names matched against ``block_name``,
+        one or a list): the next ``fit`` leaves their parameters, and their
+        row-sparse tables, as they are, without a re-``compile``."""
+        for b in self._match_blocks(blocks):
+            b._frozen = True
+
+    def unfreeze_blocks(self, blocks) -> None:
+        for b in self._match_blocks(blocks):
+            b._frozen = False
+
+    def unfreeze_all_frozen_blocks(self) -> None:
+        for b in self.frozen_blocks():
+            b._frozen = False
+
+    def frozen_blocks(self) -> List[nn.Module]:
+        return [m for m in self.modules() if getattr(m, "_frozen", False)]
+
+    def _match_blocks(self, spec) -> List[nn.Module]:
+        out = []
+        for s in spec if isinstance(spec, (list, tuple)) else [spec]:
+            if isinstance(s, nn.Module):
+                out.append(s)
+                continue
+            found = [m for m in self.modules() if getattr(m, "block_name", None) == s]
+            if not found:
+                raise ValueError(f"No block named {s!r}")
+            out.extend(found)
+        return out
 
     # ------------------------------------------------------------------
     # row-sparse embedding training
@@ -452,6 +552,8 @@ class Model(Block):
         table that serves two columns, or a tied table looked up at two
         sites, takes two updates."""
         for table in self._sparse_tables:
+            if id(table.table) in self._frozen_ids:
+                continue
             mine = sorted((entry for entry in lookups if entry[0] is table), key=lambda e: e[3])
             for _, ids, rows, _ in mine:
                 grad = rows.grad if rows.grad is not None else torch.zeros_like(rows)
@@ -495,7 +597,8 @@ class Model(Block):
         if with_metrics:
             self._update_metrics(metric_states, pred_dict, x, task_metrics)
         mark("loss_forward")
-        self._optimizer.zero_grad(set_to_none=True)
+        # every gradient, a frozen parameter's too (it is in no optimizer)
+        self.zero_grad(set_to_none=True)
         total.backward()
         mark("backward")
         self._optimizer.step()
@@ -719,13 +822,22 @@ class Model(Block):
         return stage, spec
 
     def _build_optimizer(self) -> None:
-        """Route the tables and make the dense optimizer, once per compile."""
+        """Route the tables and make the dense optimizer (a
+        :class:`MultiOptimizer`'s, where compiled with one) over the
+        parameters that train densely and are not frozen."""
+        frozen = self.frozen_blocks()
+        self._frozen_ids = frozenset(id(p) for b in frozen for p in b.parameters())
+        multi = isinstance(self._optimizer_spec, MultiOptimizer)
+        self._plain_optimizer = not frozen and not multi
         self._sparse_tables = self._setup_sparse_embeddings()
-        routed = {id(t.table) for t in self._sparse_tables}
-        self._optimizer = make_optimizer(
-            self._optimizer_name,
-            [p for p in self.parameters() if p.requires_grad and id(p) not in routed],
-            self._learning_rate)
+        skip = {id(t.table) for t in self._sparse_tables} | self._frozen_ids
+        named = [(n, p) for n, p in self.named_parameters()
+                 if p.requires_grad and id(p) not in skip]
+        if multi:
+            self._optimizer = self._optimizer_spec.build(named, self._learning_rate)
+        else:
+            self._optimizer = make_optimizer(self._optimizer_spec, [p for _, p in named],
+                                             self._learning_rate)
         if self._optimizer_state_dtype is not None:
             self._optimizer = low_precision_optimizer_state(self._optimizer,
                                                             self._optimizer_state_dtype)
@@ -733,7 +845,8 @@ class Model(Block):
     def fit(self, data: Union[Dataset, Loader], epochs: int = 1,
             batch_size: Optional[int] = None, shuffle: bool = True,
             validation_data: Union[None, Dataset, Loader] = None, validation_freq: int = 1,
-            pre: Optional[nn.Module] = None, device=None) -> History:
+            pre: Optional[nn.Module] = None, steps_per_epoch: Optional[int] = None,
+            callbacks: Optional[list] = None, device=None) -> History:
         """Train for ``epochs`` passes over ``data`` in full batches (the
         loader drops the last partial one). ``history[name]`` holds each
         epoch's mean step log, the metrics over its metric steps, plus
@@ -752,7 +865,17 @@ class Model(Block):
         and k steps a chunk trains each length bucket's rows as a group of
         its own (``_device_bucket_groups``), one packed matrix and one set of
         graphs a group, the groups in bucket order, each shuffled by its own
-        permutation; where that route does not apply, one step at a time."""
+        permutation; where that route does not apply, one step at a time.
+
+        ``steps_per_epoch`` bounds an epoch's batches on every route (the
+        bucket groups' together, in their order). ``callbacks``
+        (:mod:`~models_tpu_torch.utils.callbacks`, or any object with some of
+        the hooks): ``set_model(model)`` first, then ``on_epoch_begin(epoch)``,
+        ``on_batch_end(step, logs)`` after each step with its logs (device
+        tensors; with k steps a chunk, after each chunk with its last step's
+        logs and the index of that step), ``on_epoch_end(epoch, logs)`` with
+        the epoch's logs, and ``on_train_end(history)``. A callback that sets
+        ``model.stop_training`` ends the fit after that epoch."""
         if not self._compiled:
             self.compile()
         dev = check_module_device(self, device)
@@ -767,8 +890,25 @@ class Model(Block):
         loss_fns = self._resolve_task_losses()
         task_metrics = self._resolve_task_metrics()
         has_metrics = any(task_metrics.values())
-        if self._optimizer is None:
+        fresh = (self.frozen_blocks() or isinstance(self._optimizer_spec, MultiOptimizer)
+                 or not self._plain_optimizer)
+        if self._optimizer is None or fresh:
+            # the JAX package rebuilds its transform for frozen blocks or a
+            # MultiOptimizer, and then starts from fresh slots at step 0
+            if self._optimizer is not None:
+                self._step = 0
+            self._chunk_graphs.clear()
+            self._group_graphs.clear()
             self._build_optimizer()
+        self.stop_training = False
+        callbacks = list(callbacks or [])
+        for cb in callbacks:
+            getattr(cb, "set_model", lambda m: None)(self)
+
+        def hook(name, *args):
+            for cb in callbacks:
+                getattr(cb, name, lambda *a: None)(*args)
+
         # k steps a chunk only without an embedding optimizer: the JAX package
         # sets spe = 1 where a sparse one is set
         spe = 1 if self._sparse_tables else self._steps_per_execution
@@ -805,6 +945,7 @@ class Model(Block):
         # computes what the fused epochs compute, with one fetch an epoch.
         history = History()
         for epoch in range(epochs):
+            hook("on_epoch_begin", epoch)
             t0 = time.perf_counter()
             states = self._init_metric_states(task_metrics, dev)
             step_logs: Dict[str, List[torch.Tensor]] = {}
@@ -814,34 +955,47 @@ class Model(Block):
                 for name, v in logs.items():
                     step_logs.setdefault(name, []).append(v.reshape(-1))
 
-            def single(x, y):
+            def single(step, x, y):
                 nonlocal n_examples
                 metric_step = has_metrics and self._step % self.train_metrics_steps == 0
-                keep(self.train_step(to_device_batch(x, dev), to_device_targets(y, dev),
-                                     loss_fns, task_metrics=task_metrics,
-                                     metric_states=states if metric_step else None))
+                logs = self.train_step(to_device_batch(x, dev), to_device_targets(y, dev),
+                                       loss_fns, task_metrics=task_metrics,
+                                       metric_states=states if metric_step else None)
+                keep(logs)
                 n_examples += B
+                hook("on_batch_end", step, logs)
+
+            def chunk_done(step, logs):
+                keep(logs)
+                hook("on_batch_end", step, {name: v[-1] for name, v in logs.items()})
 
             if pack is not None or groups is not None:
                 loader._epoch += 1  # the loader's seed bookkeeping, as if it had streamed
+                budget = steps_per_epoch
                 for bucket, gpack in groups or [(None, pack)]:
                     gperm = perms if bucket is None else group_perms[bucket]
                     graphs = (None if bucket is None
                               else self._group_graphs.setdefault(bucket, ChunkGraphs()))
                     n_batches, local = gpack.n_rows // B, 0
+                    if budget is not None:
+                        n_batches = min(n_batches, budget)
+                        budget -= n_batches
                     while local < n_batches:
                         k = min(spe, n_batches - local)
                         logs, states = self._run_chunk(
                             gpack.packed, gpack.spec, gperm[epoch, local * B:(local + k) * B],
                             k, B, metric_chunk(k), loss_fns, task_metrics, states, graphs)
-                        keep(logs)
                         n_examples += k * B
                         local += k
+                        chunk_done(local - 1, logs)
             else:
-                chunk = []
-                for x, y in loader:
+                chunk, taken = [], 0
+                for step, (x, y) in enumerate(loader):
+                    if steps_per_epoch is not None and step >= steps_per_epoch:
+                        break
+                    taken += 1
                     if spe == 1:
-                        single(x, y)
+                        single(step, x, y)
                         continue
                     chunk.append((x, y))
                     if len(chunk) == spe:
@@ -850,11 +1004,11 @@ class Model(Block):
                         logs, states = self._run_chunk(source, spec, idx, spe, B,
                                                        metric_chunk(spe), loss_fns,
                                                        task_metrics, states)
-                        keep(logs)
                         n_examples += spe * B
+                        chunk_done(step, logs)
                         chunk = []
-                for x, y in chunk:  # the batches that fill no chunk: one step each
-                    single(x, y)
+                for i, (x, y) in enumerate(chunk):  # the batches that fill no chunk
+                    single(taken - len(chunk) + i, x, y)
             values = {k: torch.cat(v).mean() for k, v in step_logs.items()}
             values.update(self._metric_results(states, task_metrics))
             epoch_logs = _fetch(values)  # one copy to the host per epoch
@@ -863,6 +1017,10 @@ class Model(Block):
                 val = self.evaluate(validation_data, batch_size=batch_size or B, device=dev)
                 epoch_logs.update({f"val_{k}": v for k, v in val.items()})
             history.append(epoch_logs)
+            hook("on_epoch_end", epoch, epoch_logs)
+            if self.stop_training:
+                break
+        hook("on_train_end", history.history)
         self.history = history
         return history
 
@@ -903,3 +1061,28 @@ class Model(Block):
         values.update(self._metric_results(states, task_metrics))
         results = _fetch(values)
         return {"loss": results.pop("loss"), **results}
+
+
+class Model(BaseModel):
+    """A sequential container of blocks ending in a head or a block of
+    heads; ``schema`` defaults to the first block's."""
+
+    def __init__(self, *blocks: nn.Module, schema=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.schema = schema
+        for b in blocks:
+            if schema is None and getattr(b, "schema", None) is not None:
+                self.schema = b.schema
+                break
+
+    def forward(self, inputs, **kwargs):
+        kwargs.setdefault("context", ModelContext(features=inputs))
+        out = inputs
+        for block in self.blocks:
+            out = block(out, **kwargs)
+        return out
+
+
+class ModelBlock(Model):
+    """Any block (ending in a head) as a trainable model."""

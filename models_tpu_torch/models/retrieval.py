@@ -43,7 +43,6 @@ class RetrievalModelV2(Model):
         encoder = query if candidate is None else ParallelBlock(
             {"query": query, "candidate": candidate})
         self.blocks = nn.ModuleList([encoder, output])
-        self._compiled = False
 
     @property
     def item_id_name(self) -> Optional[str]:

@@ -31,6 +31,9 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "import models_tpu_torch.transforms.bias, models_tpu_torch.transforms.regularization\n"
         "import models_tpu_torch.metrics.evaluation, models_tpu_torch.core.encoder\n"
         "import models_tpu_torch.outputs.topk\n"
+        "import models_tpu_torch.blocks.experts, models_tpu_torch.models.multi_task\n"
+        "import models_tpu_torch.outputs.tasks, models_tpu_torch.transforms.negative_sampling\n"
+        "import models_tpu_torch.utils.callbacks\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -108,6 +111,11 @@ ENTRY_POINTS = {
         mt.generate_data("e-commerce", num_rows=8).schema, dim=8),
     "TwoTowerBlock": lambda: mt.blocks.TwoTowerBlock(
         mt.generate_data("e-commerce", num_rows=8).schema, (8, 4)),
+    "MMOEModel": lambda: mt.MMOEModel(_model()[0].schema, embedding_dim=8),
+    "PLEModel": lambda: mt.PLEModel(_model()[0].schema, embedding_dim=8),
+    "PredictionTasks": lambda: mt.PredictionTasks(_model()[0].schema, 8),
+    "NextItemPredictionTask": lambda: mt.NextItemPredictionTask(
+        _model()[0].schema, weight_tying=False, in_features=8),
     "to_top_k_encoder": lambda: _model()[1].to_top_k_encoder(_model()[0], k=3),
     "candidate_embeddings": lambda: _model()[1].candidate_embeddings(_model()[0]),
     "predict": lambda: _encoder()[1].predict(_encoder()[0], batch_size=16),
