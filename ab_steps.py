@@ -1,0 +1,124 @@
+"""A/B host times of the training step, one step at a time, of the
+two-tower model, the DLRM and the MMOE on one NVIDIA card, for this
+checkout and another one, in turns in one call.
+
+    python3 ab_steps.py --parent DIR [--reps N]
+
+``DIR`` is another checkout's root (e.g. one unpacked by
+``git archive <commit> | tar -x -C build/parent``). Each turn is a process
+of its own that imports ``models_tpu_torch`` and ``chip_smoke`` from one
+checkout, in the order parent, head, head, parent. A turn builds each model
+as ``chip_smoke.py``'s phases do (``build_model``: the movielens-25m
+two-tower at batch 8192, adagrad; ``dlrm_model``: the DLRM on criteo-small
+at batch 8192, adagrad; ``MMOE_KW`` on the full Ali-CCP schema at batch
+2048, adam with ``mt_compile``), fits two warm-up steps, and times ``reps``
+calls of ``train_step`` on the host clock, each ending in a synchronise
+(``chip_smoke.host_ms``). The one-at-a-time routes are host-bound, so these
+times move with the host work a step does (block calls, argument checks).
+
+Prints the card's name and power limit, and one JSON line per model:
+``{"what": ..., "ms": {"parent": [turn 1, turn 2], "head": [...]}}``, each
+entry [median, min, max] ms.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+MODELS = ("two_tower", "dlrm", "mmoe")
+
+
+def worker(tree: str, reps: int) -> None:
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    import chip_smoke as C
+    import models_tpu_torch as mt
+    from models_tpu_torch.core.types import to_device_batch, to_device_targets
+
+    assert Path(mt.__file__).resolve().is_relative_to(Path(tree).resolve()), mt.__file__
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def build(name):
+        if name == "two_tower":
+            model = C.build_model(dev)[0]
+            data = mt.generate_data("movielens-25m", num_rows=8 * C.TRAIN_BATCH, seed=C.SEED + 3)
+            model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[])
+            return model, data, C.TRAIN_BATCH
+        if name == "dlrm":
+            data = mt.generate_data("criteo-small", num_rows=8 * C.TRAIN_BATCH, seed=C.SEED + 7)
+            model = C.dlrm_model(dev, data.schema)
+            model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[])
+            return model, data, C.TRAIN_BATCH
+        data = mt.generate_data("aliccp", num_rows=16 * C.MT_BATCH, seed=C.SEED + 19)
+        model = mt.MMOEModel(data.schema, seed=C.SEED, device=dev, **C.MMOE_KW)
+        C.mt_compile(model)
+        return model, data, C.MT_BATCH
+
+    out = {}
+    for name in MODELS:
+        model, data, batch = build(name)
+        model.fit(data.take(2 * batch), batch_size=batch, shuffle=False, device=dev)
+        loss_fns = model._resolve_task_losses()
+        batches = list(mt.Loader(data, batch, drop_last=True))
+        it = iter(batches * (reps // len(batches) + 2))
+
+        def step():
+            x, y = next(it)
+            model.train_step(to_device_batch(x, dev), to_device_targets(y, dev), loss_fns)
+
+        out[name] = C.host_ms(step, reps=reps)
+        assert all(np.isfinite(v) for v in out[name])
+        del model
+        torch.cuda.empty_cache()
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent")
+    ap.add_argument("--reps", type=int, default=41)
+    ap.add_argument("--worker")
+    args = ap.parse_args()
+    if args.worker:
+        worker(args.worker, args.reps)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_steps: no CUDA device", file=sys.stderr)
+        return 1
+    if not args.parent:
+        ap.error("--parent DIR is required")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    trees = {"parent": str(Path(args.parent).resolve()), "head": str(ROOT)}
+    ms = {name: {"parent": [], "head": []} for name in MODELS}
+    for form in ("parent", "head", "head", "parent"):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        proc = subprocess.run([sys.executable, str(ROOT / "ab_steps.py"), "--worker",
+                               trees[form], "--reps", str(args.reps)],
+                              cwd=trees[form], env=env, capture_output=True, text=True)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+        if proc.returncode or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        for name, t in json.loads(lines[-1][len("RESULT "):]).items():
+            ms[name][form].append(t)
+    for name in MODELS:
+        print(json.dumps({"what": f"{name} train_step one at a time", "ms": ms[name]}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -200,7 +200,24 @@
    JAX package's defaults one step at a time and graph-replayed (K9
    traced); the V1 prediction tasks at
    ``examples/14_v1_prediction_tasks.py``'s width one step at a time;
-17. prints one JSON line with each kernel's launches (on its own path's run;
+17. the block DSL slice (phase 20): Wide&Deep at its defaults on
+   criteo-small, batch 8192 (the wide path's gathered form against its
+   dense form on 256 rows; 16 steps one at a time; 8 a graph replay, graph
+   and eager bit for bit, K9 on the 40-column pack; row-sparse on the 26
+   deep tables, K7 twice a table a step; against a CPU copy after 4 steps;
+   ``evaluate``, ``predict``; K9 and K7 on the path's own pack and slot);
+   dynamic-vocabulary tables over full-Criteo raw ids (26 tables, 39.3M
+   rows at the default capacities, 16 row-sparse steps: each batch's slots
+   and the keys bit for bit against a CPU replay of the map, each id left
+   without a slot met a full probe window or was outbid by a larger id of
+   its batch, ``evaluate`` leaving the keys, a second day
+   allocating, the probe and insert's share of the step, K7 on the slots;
+   ``examples/17`` at its capacities 8 steps a graph replay bit for bit
+   against eager, keys included, and against a CPU copy); a pretrained
+   movieId table frozen (bit-unchanged dense and row-sparse, no K7 on it),
+   unfrozen, and ``trainable=False``; five TT tables on full Criteo, one
+   step against a CPU copy, their lookups timed;
+18. prints one JSON line with each kernel's launches (on its own path's run;
    K7 and K8: both row-sparse runs), error against its plain version, its
    time, the plain version's, the least time the card could take and a
    PyTorch yardstick's (the bound at the peak of the fastest arithmetic
@@ -220,7 +237,10 @@
    launches, and their times at 65,536 x 65,536, ``session_long``; K9 the
    session routes' launches and its times on the group packs,
    ``session_bucket``; K9 and K7 the multi-task paths' launches,
-   ``launches_mmoe*``, ``launches_ple*``),
+   ``launches_mmoe*``, ``launches_ple*``; K9 and K7 the DSL slice's,
+   ``launches_wd*``, ``launches_dynamic``, ``launches_pretrained``,
+   ``launches_example17``, and their times there, ``wd_pack``, ``wd``,
+   ``dynamic_slots``),
    then the card line
    and ``{"ok": true,
    ...}`` last. Host-clock times are [median, min, max].
@@ -284,6 +304,11 @@ whose true value is 0 may step either way each step: SESSION_ADAM_FLIP_ATOL,
 at most FLIP_SHARE_MAX of them); ``evaluate`` as above; ``predict``'s
 scores within FCE_TOL of the largest; K1-K3 at 65,536 x 65,536 under the
 flash-CE tolerances.
+
+Wide&Deep and the DSL slice's models, card vs CPU: as multi-task, with
+adagrad's bound (one learning rate a step); the wide path's gathered form
+within FCE_TOL of its dense form (the largest |output| at least 1); dynamic
+tables' slots and keys bit for bit.
 
 Any failed check raises, and the script exits non-zero. It imports nothing of
 JAX or of the JAX package.
@@ -3441,8 +3466,8 @@ def phase_ranking_zoo(dev):
     def dcn_bn():
         width = mt.inputs.InputBlockV2(ec.schema, dim=8, device=dev).out_features
         return mt.DCNModel(ec.schema, depth=1, embedding_dim=8, device=dev,
-                           deep_block=MLPBlock(width, (32, 16), normalization="batch_norm",
-                                               device=dev))
+                           deep_block=MLPBlock((32, 16), normalization="batch_norm",
+                                               in_features=width, device=dev))
 
     _, mbn, _, _ = graph_vs_eager(dev, None, ec, 2, "DCN with BatchNorm, 4 steps a chunk",
                                   make=dcn_bn, batch=ZOO_BATCH, metrics=[],
@@ -4385,8 +4410,9 @@ def adam_step_bound(t: int, b1: float = 0.9, b2: float = 0.999) -> float:
     return s ** 0.5 * (1 - b2 ** t) ** 0.5 / (1 - b1 ** t)
 
 
-def noise_step(name: str, steps: int, before: torch.Tensor, after: torch.Tensor) -> float:
-    """The most ``steps`` steps of optimizer ``name`` at ADAM_LR can move one
+def noise_step(name: str, steps: int, before: torch.Tensor, after: torch.Tensor,
+               lr: float = ADAM_LR) -> float:
+    """The most ``steps`` steps of optimizer ``name`` at ``lr`` can move one
     element of a parameter, whatever its gradients: the move of an element
     whose gradient is rounding noise, which the card and the CPU may take
     with opposite signs (``before`` and ``after``: the parameter on the CPU
@@ -4396,15 +4422,18 @@ def noise_step(name: str, steps: int, before: torch.Tensor, after: torch.Tensor)
     of the squared gradient), times the parameter's RMS (at least 1e-3);
     lamb: its step is the trust ratio |p| / |u| times Adam's direction, and
     the ratio is the parameter's own, so the unit is the largest move on the
-    CPU, a step where Adam's direction is 1, times adam_step_bound."""
+    CPU, a step where Adam's direction is 1, times adam_step_bound; adagrad:
+    1 a step (its accumulator holds the gradient's square)."""
     ts = range(1, steps + 1)
     if name in ("adam", "adamw"):
-        return ADAM_LR * sum(adam_step_bound(t) for t in ts)
+        return lr * sum(adam_step_bound(t) for t in ts)
+    if name == "adagrad":
+        return lr * steps
     if name == "rmsprop":
-        return ADAM_LR * steps / (1 - 0.9) ** 0.5
+        return lr * steps / (1 - 0.9) ** 0.5
     if name == "adafactor":
         rms = max(float(x.float().pow(2).mean().sqrt()) for x in (before, after))
-        return ADAM_LR * max(rms, 1e-3) * sum(t ** 0.4 for t in ts)
+        return lr * max(rms, 1e-3) * sum(t ** 0.4 for t in ts)
     if name == "lamb":
         return float((after - before).abs().max()) * max(adam_step_bound(t) for t in ts)
     raise ValueError(name)
@@ -4425,11 +4454,12 @@ def v1_model(dev, schema):
     from models_tpu_torch.core import SequentialBlock
 
     inputs = mt.InputBlockV2(schema, seed=SEED, device=dev)
-    body = SequentialBlock([inputs, mt.MLPBlock(inputs.out_features, [64, 32], seed=SEED,
-                                                device=dev)])
-    tasks = mt.PredictionTasks(schema, 32, task_blocks=mt.MLPBlock(32, [16], device=dev),
+    body = SequentialBlock([inputs, mt.MLPBlock([64, 32], seed=SEED,
+                                                in_features=inputs.out_features, device=dev)])
+    tasks = mt.PredictionTasks(schema, task_blocks=mt.MLPBlock([16], in_features=32, device=dev),
                                task_weight_dict={"click": 1.0, "conversion": 0.5},
-                               bias_block=mt.MLPBlock(32, [8], device=dev), device=dev)
+                               bias_block=mt.MLPBlock([8], in_features=32, device=dev),
+                               in_features=32, device=dev)
     return mt.Model(body, tasks, schema=schema)
 
 
@@ -4440,7 +4470,7 @@ def rows_of(data, start: int, n: int):
     return data._from_cols(take_rows(data._cols, np.arange(start, start + n)))
 
 
-def step_card_vs_cpu(model, on_cpu, data, steps, what, optimizer):
+def step_card_vs_cpu(model, on_cpu, data, steps, what, optimizer, lr=ADAM_LR, batch=MT_BATCH):
     """``steps`` steps of the compiled ``model`` on the card and of its
     compiled CPU copy, one batch a ``fit`` so that each step's loss is read:
     every loss within FCE_TOL (from the second on, the updates enter them).
@@ -4454,9 +4484,9 @@ def step_card_vs_cpu(model, on_cpu, data, steps, what, optimizer):
     losses = {"card": [], "cpu": []}
     dev = next(model.parameters()).device
     for s in range(steps):
-        batch = rows_of(data, s * MT_BATCH, MT_BATCH)
+        rows = rows_of(data, s * batch, batch)
         for tag, m, d in (("card", model, dev), ("cpu", on_cpu, "cpu")):
-            losses[tag] += m.fit(batch, batch_size=MT_BATCH, shuffle=False,
+            losses[tag] += m.fit(rows, batch_size=batch, shuffle=False,
                                  device=d).history["loss"]
     require(all(np.isfinite(losses["card"])), f"{what}: losses {losses['card']}")
     require(np.allclose(losses["card"], losses["cpu"], rtol=FCE_TOL, atol=0),
@@ -4466,7 +4496,7 @@ def step_card_vs_cpu(model, on_cpu, data, steps, what, optimizer):
     for n, p in model.named_parameters():
         after = cpu[n].detach()
         moved_here = int(((after - cpu_before[n]).abs() > PARAM_ATOL).sum())
-        bound = 2 * noise_step(optimizer, steps, cpu_before[n], after)
+        bound = 2 * noise_step(optimizer, steps, cpu_before[n], after, lr)
         w, f, _, big = compare_rounded(f"{what}: {n}", [(p, after)], PARAM_ATOL,
                                        (max(bound, PARAM_ATOL), 0.0), share_of=math.inf)
         allowed = max(p.numel() // p.shape[0], MT_FLIP_PARAM_SHARE * moved_here)
@@ -4732,6 +4762,545 @@ def phase_multi_task(dev, gen, card, errs):
     out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["phase_s"] = time.perf_counter() - t_phase
     return out, launches, k9, k7_times
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the block DSL and the rest of the inputs: Wide&Deep on
+# criteo-small, dynamic-vocabulary tables over full-Criteo raw ids,
+# pretrained and frozen tables, tensor-train tables
+# ---------------------------------------------------------------------------
+
+WD_BATCHES = 16
+WD_SPE = 8
+WD_CPU_STEPS = 4
+WD_DENSE_ROWS = 256  # the wide path's dense form: (256, 351,026) float32, 359 MB
+ADAGRAD_LR = 0.05
+DYN_STEPS = 16
+DYN_DIM = 16
+DAY2_STEPS = 2
+EX17_BATCH, EX17_ROWS, EX17_SPE, EX17_CPU_STEPS = 512, 4096, 8, 4
+PRE_STEPS, PRE_DIM = 8, 64
+TT_THRESHOLD = 1_000_000
+
+
+def wd_model(dev, schema):
+    import models_tpu_torch as mt
+
+    return mt.WideAndDeepModel(schema, seed=SEED, device=dev)
+
+
+def eval_and_predict(dev, on_card, on_cpu, data, batch, what) -> dict:
+    """``evaluate`` (the binary head's metrics) and ``predict`` on the card
+    against the CPU copy, 8 batches and one."""
+    evaluation = data.take(8 * batch)
+    for m in (on_card, on_cpu):
+        m.compile(optimizer="adagrad", learning_rate=ADAGRAD_LR)
+    got = on_card.evaluate(evaluation, batch_size=batch, device=dev)
+    want = on_cpu.evaluate(evaluation, batch_size=batch, device="cpu")
+    compare_eval(f"{what} evaluate", got, want, batch)
+    request = data.take(batch)
+    probs = on_card.predict(request, batch_size=batch, device=dev)
+    ref = on_cpu.predict(request, batch_size=batch, device="cpu")
+    require(probs.shape == (batch,) and np.isfinite(probs).all(), f"{what}: predict {probs.shape}")
+    err = float(np.abs(probs - ref).max())
+    require(err <= FCE_TOL, f"{what}: card and CPU probabilities differ by {err:.3g}")
+    return {"evaluate": got, "evaluate_cpu": want, "predict_max_abs_vs_cpu": err,
+            "predict_ms": host_ms(lambda: on_card.predict(request, batch_size=batch, device=dev))}
+
+
+def phase_wide_and_deep(dev, gen, card, errs):
+    """(a) Wide&Deep at its defaults on criteo-small (embedding_dim 32, deep
+    (64, 32), 325 crosses x 1000 bins: the wide Dense over 351,026 inputs),
+    batch 8192, adagrad 0.05: the wide path's gathered form against its
+    dense form on WD_DENSE_ROWS rows; WD_BATCHES steps one at a time
+    (timed, peak memory); WD_SPE steps a chunk as CUDA graph replays (graph
+    and eager bit for bit with deterministic algorithms on, a timed fit, a
+    traced epoch, K9 on the 40-column pack); row-sparse on the 26 deep
+    tables (K7 twice a table a step); card vs CPU (step_card_vs_cpu) after
+    WD_CPU_STEPS steps; ``evaluate`` and ``predict`` against the CPU copy.
+    Returns (numbers, K9's launches on the graph route, traced, K9 on the
+    pack, K7's launches row-sparsely, K7 on a deep table's slot)."""
+    import copy
+
+    import models_tpu_torch as mt
+    from models_tpu_torch.core.types import to_device_batch
+    from models_tpu_torch.ops import scatter as S
+
+    t_phase = time.perf_counter()
+    data = mt.generate_data("criteo-small", num_rows=WD_BATCHES * TRAIN_BATCH, seed=SEED + 20)
+
+    def make():
+        return wd_model(dev, data.schema)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    model = make()
+    wide = model.blocks[0].branches["wide"]
+    width = wide.linear.weight.shape[1]
+    out = {"card": card, "config": {"embedding_dim": 32, "deep_block": [64, 32], "crosses": 325,
+                                    "num_bins": 1000, "batch": TRAIN_BATCH,
+                                    "schema": "criteo-small", "optimizer": "adagrad",
+                                    "learning_rate": ADAGRAD_LR},
+           "parameters": sum(p.numel() for p in model.parameters()), "wide_inputs": width,
+           "dense_multi_hot_gb_at_batch": TRAIN_BATCH * width * 4 / 1e9}
+    x, _ = next(iter(mt.Loader(data, WD_DENSE_ROWS)))
+    xb = to_device_batch(x, dev)
+    with torch.no_grad():
+        gathered, dense = wide(xb), wide.dense_forward(xb)
+    err = max_err(gathered, dense)
+    require(gathered.shape == dense.shape == (WD_DENSE_ROWS, 1)
+            and err <= FCE_TOL * max(1.0, float(dense.abs().max())),
+            f"(a) the wide path's gathered and dense forms differ by {err:.3g}")
+    out["wide_gathered_vs_dense_max_abs"] = err
+    del dense, xb
+    torch.cuda.empty_cache()
+    model.compile(optimizer="adagrad", learning_rate=ADAGRAD_LR, metrics=[])
+    warm = model.fit(data.take(2 * TRAIN_BATCH), batch_size=TRAIN_BATCH, shuffle=False,
+                     device=dev)
+    require(all(np.isfinite(warm.history["loss"])), "(a): non-finite loss")
+    out["one_step"] = {**train_times(dev, model, data), **train_profile(dev, model, data)}
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["peak_above_held_gb"] = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+    print(f"  (a) W&D: wide Dense over {width} inputs, gathered vs dense form {err:.3g}; one "
+          f"step at a time {out['one_step']['step_ms']} ms, busy "
+          f"{out['one_step']['device_busy_share']:.3f}, peak {out['peak_above_held_gb']:.2f} GB "
+          f"above what earlier phases hold; {card}", flush=True)
+    del model, wide
+
+    _, mg, lg, le = graph_vs_eager(dev, None, data, 2, f"(a) W&D, {WD_SPE} steps a chunk",
+                                   make=make, metrics=[], steps_per_execution=WD_SPE)
+    require(lg["row_gather"] == 2 and le["row_gather"] == 2 * WD_BATCHES // WD_SPE,
+            f"(a): K9 issued {lg['row_gather']} (graph) / {le['row_gather']} (eager) times")
+    pack = data._device_train_pack
+    require(pack is not None and tuple(pack.packed.shape) == (WD_BATCHES * TRAIN_BATCH, 40),
+            f"(a): the pack is {None if pack is None else tuple(pack.packed.shape)}")
+    mg._chunk_graphs.clear()  # captured again as users run it, deterministic algorithms off
+    mg.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False, device=dev)
+    hist, wall, ms = replayed_fit(mg, data, 2, 2 * WD_BATCHES, "(a) W&D")
+    require(all(np.isfinite(hist["loss"])), "(a): non-finite loss on the graph route")
+    trace = traced_replays(mg, data, WD_BATCHES, {"row_gather": WD_BATCHES // WD_SPE},
+                           "(a) W&D")
+    out["graph"] = {"ms_per_step": ms, "examples_per_sec": hist["examples_per_sec"],
+                    "fit_s": wall, "loss": hist["loss"], "graphs": graph_stats(mg),
+                    **{k: v for k, v in trace.items() if k != "launches_issued"}}
+    print(f"  (a) W&D graph route: {ms:.3f} ms a step, busy {trace['device_busy_share']:.3f}, "
+          f"K9 traced {trace['launches_traced']['row_gather']} in {WD_BATCHES} replayed steps",
+          flush=True)
+    del mg
+    k9 = measure_pack(dev, gen, pack.packed, WD_SPE * TRAIN_BATCH, "W&D pack", 16, errs)
+
+    sm = make()
+    sm.compile(optimizer="adagrad", learning_rate=ADAGRAD_LR, embedding_optimizer="adagrad",
+               metrics=[])
+    S.row_scatter_add.launches = 0
+    h = sm.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False, device=dev)
+    torch.cuda.synchronize()
+    k7_launches = S.row_scatter_add.launches
+    n_sparse = len(sm._sparse_tables)
+    require(n_sparse == 26 and k7_launches == 2 * n_sparse * WD_BATCHES,
+            f"(a) row-sparse: {n_sparse} tables, K7 {k7_launches} launches in {WD_BATCHES} steps")
+    require(all(np.isfinite(h.history["loss"])), "(a) row-sparse: non-finite loss")
+    out["sparse"] = {"tables": n_sparse, "k7_launches": k7_launches, "loss": h.history["loss"],
+                     **train_times(dev, sm, data)}
+    print(f"  (a) W&D row-sparse on {n_sparse} deep tables: K7 {k7_launches} launches, step "
+          f"{out['sparse']['step_ms']} ms", flush=True)
+    x0, _ = next(iter(mt.Loader(data, TRAIN_BATCH)))
+    table = sm._sparse_tables[0]
+    k7 = measure_k7(dev, gen, table,
+                    torch.as_tensor(x0[table.features[0]], device=dev).to(torch.int32), errs,
+                    "W&D")
+    del sm, table
+
+    on_card = make()
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    for m in (on_card, on_cpu):
+        m.compile(optimizer="adagrad", learning_rate=ADAGRAD_LR, metrics=[])
+    out["card_vs_cpu"] = step_card_vs_cpu(on_card, on_cpu, data, WD_CPU_STEPS,
+                                          "(a) W&D card vs CPU", "adagrad", lr=ADAGRAD_LR,
+                                          batch=TRAIN_BATCH)
+    out.update(eval_and_predict(dev, on_card, on_cpu, data, TRAIN_BATCH, "(a) W&D"))
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, lg["row_gather"], trace["launches_traced"]["row_gather"], k9, k7_launches, k7
+
+
+def criteo_raw(card: int, n: int, seed: int) -> np.ndarray:
+    """examples/17's raw 31-bit ids, ``id * 2654435761 % 2**31``, over ids
+    drawn from a domain of ``card`` with the data generator's skew."""
+    return skewed_ids(n, card, seed).astype(np.int64) * 2654435761 % 2**31
+
+
+def dynamic_model(dev, schema, target, **emb_kw):
+    """examples/17's model: dynamic tables DYN_DIM wide, an MLP of 32, a
+    binary head."""
+    import models_tpu_torch as mt
+
+    emb = mt.Embeddings(schema.categorical, dim=DYN_DIM, dynamic=True, seed=SEED, device=dev,
+                        **emb_kw)
+    return mt.Model(mt.SequentialBlock([mt.InputBlockV2(schema, categorical=emb, device=dev),
+                                        mt.MLPBlock([32], seed=SEED)]),
+                    mt.BinaryOutput(target), schema=schema)
+
+
+def unplaced_ids(table, raw: torch.Tensor, keys: torch.Tensor, place):
+    """Runs ``place(raw, keys)`` (one training call of the map, which
+    writes its claims into ``keys``) and sorts the ids of ``raw`` that own
+    no slot after it, from the probe windows as they were before it: an id
+    whose whole window was taken (the overflow case: it takes the shared
+    fallback slot), or an id outbid for the first empty slot of its window
+    by a larger id of the same batch (the claim keeps the largest). Returns
+    (slots, full-window ids, outbid ids, ids that own no slot for neither
+    reason: none, unless the map is at fault)."""
+    from models_tpu_torch.inputs.dynamic import EMPTY, _mix
+
+    h = (_mix(raw) % table.capacity).long()
+    pos = (h[:, None] + torch.arange(table.probes, device=raw.device)) % table.capacity
+    window = keys[pos]
+    matched = (window == raw[:, None]).any(1)
+    empty = window == EMPTY
+    full = ~matched & ~empty.any(1)
+    cand = pos.gather(1, empty.to(torch.uint8).argmax(1, keepdim=True))[:, 0]
+    slots = place(raw, keys)
+    holder = keys[cand]
+    lost = ~matched & ~full & (holder != raw)
+    outbid = lost & (holder > raw) & torch.isin(holder, raw)
+    return (slots, set(raw[full].tolist()), set(raw[outbid].tolist()),
+            set(raw[lost & ~outbid].tolist()))
+
+
+def phase_dynamic(dev, gen, card, errs):
+    """(b) dynamic-vocabulary tables over full-Criteo raw ids: examples/17's
+    model on the 26 Criteo categorical columns at their cardinalities (the
+    default capacities: 39.3M rows, 2.52 GB fp32), raw 31-bit ids, batch
+    8192, DYN_STEPS steps one at a time, row-sparse adagrad 0.05 on every
+    table (K7 on the slots). Checks: each batch's slots and the key buffers
+    bit-equal to a CPU replay of ``_map_ids`` over the same batches;
+    every id the map leaves without a slot, at each batch, met a full probe
+    window or was outbid for its window's first empty slot by a larger id of
+    its batch (where a domain is nearly full, all its ids seen at the default
+    capacity of cardinality / 0.8, some ids meet a full probe window and
+    share the fallback slot, as the JAX package's map gives them; they are
+    counted); ``evaluate`` leaves
+    the keys; a second day of new ids allocates mid-fit; K7 bit for bit on
+    the largest table's slot at one batch's slots. Then examples/17 itself
+    (capacities 2048 and 1024, batch 512): a dense fit EX17_SPE steps a
+    chunk as CUDA graph replays, keys and parameters bit-equal to the eager
+    fit's; card vs CPU after EX17_CPU_STEPS Adam steps. Returns (numbers,
+    K7's launches, K7 at the slot table, K9's launches on example 17's
+    graph route)."""
+    import copy
+
+    import models_tpu_torch as mt
+    from models_tpu_torch.data.synthetic import known_schema
+    from models_tpu_torch.ops import scatter as S
+
+    t_phase = time.perf_counter()
+    full = known_schema("criteo")
+    schema = mt.Schema(list(full.categorical) + list(full.targets))
+    cards = {c.name: c.cardinality for c in full.categorical}
+    n = DYN_STEPS * TRAIN_BATCH
+
+    def day(seed_base, shift):
+        cols = {name: criteo_raw(c, n, seed_base + i) + shift
+                for i, (name, c) in enumerate(cards.items())}
+        cols = {k: v % 2**31 for k, v in cols.items()}
+        cols["label"] = (cols["C1"] % 2).astype(np.float32)
+        return mt.Dataset(cols, schema=schema)
+
+    day1 = day(SEED + 30, 0)
+    gen_s = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    model = dynamic_model(dev, schema, "label")
+    tables = [m for m in model.modules() if isinstance(m, mt.DynamicEmbeddingTable)]
+    require(len(tables) == 26, f"(b): {len(tables)} dynamic tables")
+    rows = sum(t.capacity for t in tables)
+    recorded = {t.block_name: [] for t in tables}
+    probe_ev = []
+
+    def spy(table):
+        orig = table._map_ids
+
+        def mapped(raw, keys, training):
+            if not training:
+                return orig(raw, keys, training)
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            slots = orig(raw, keys, training)
+            ev[1].record()
+            probe_ev.append(ev)
+            recorded[table.block_name].append(slots.clone())
+            return slots
+
+        table._map_ids = mapped
+        return orig
+
+    origs = {t.block_name: spy(t) for t in tables}
+    model.compile(optimizer="adagrad", learning_rate=ADAGRAD_LR, embedding_optimizer="adagrad",
+                  metrics=[])
+    S.row_scatter_add.launches = 0
+    t = time.perf_counter()
+    hist = model.fit(day1, epochs=1, batch_size=TRAIN_BATCH, shuffle=False, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    k7_launches = S.row_scatter_add.launches
+    require(len(model._sparse_tables) == 26 and k7_launches == 2 * 26 * DYN_STEPS,
+            f"(b): K7 launched {k7_launches} times in {DYN_STEPS} steps")
+    require(all(np.isfinite(hist.history["loss"])), f"(b): losses {hist.history['loss']}")
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # the CPU replay of the map over the same batches, in the model's order.
+    # Every id the map leaves without a slot at a sighting must have met a
+    # full probe window (its domain nearly full: the default capacity is its
+    # cardinality / 0.8) or been outbid by a larger id of its batch; an id
+    # without a slot at the end is one of those at its last sighting
+    keys = {tb.block_name: torch.full((tb.capacity,), -1, dtype=torch.int32) for tb in tables}
+    seen = {tb.block_name: set() for tb in tables}
+    overflowed = {tb.block_name: set() for tb in tables}
+    outbid = {tb.block_name: set() for tb in tables}
+    for step, (x, _) in enumerate(mt.Loader(day1, TRAIN_BATCH, drop_last=True)):
+        for tb in tables:
+            name = tb.block_name
+            raw = torch.as_tensor(x[tb.features[0]]).to(torch.int32)
+            slots, full_w, lost, unjustified = unplaced_ids(
+                tb, raw, keys[name], lambda r, k, f=origs[name]: f(r, k, True))
+            require(not unjustified,
+                    f"(b): step {step}, {name}: {len(unjustified)} ids left without a slot "
+                    "with a free slot in their window and no larger id claiming it")
+            overflowed[name] |= full_w
+            outbid[name] |= lost
+            require(torch.equal(slots, recorded[name][step].cpu()),
+                    f"(b): step {step}, {name}: the card's slots differ from the CPU replay's")
+            seen[name].update(raw.tolist())
+    by_table = {}
+    for tb in tables:
+        name = tb.block_name
+        require(torch.equal(tb.hash_keys.cpu(), keys[name]),
+                f"(b): {name}'s keys differ from the CPU replay's")
+        owned = set(keys[name][keys[name] != -1].tolist())
+        left = seen[name] - owned
+        require(tb.num_allocated == len(owned) and owned <= seen[name],
+                f"(b): {name} allocated {tb.num_allocated}, owned {len(owned)}")
+        require(left <= overflowed[name] | outbid[name],
+                f"(b): {name}: {len(left - overflowed[name] - outbid[name])} ids without a "
+                "slot were never outbid and never met a full window")
+        if left:
+            by_table[name] = {"cardinality": cards[name], "capacity": tb.capacity,
+                              "distinct": len(seen[name]), "without_slot": len(left),
+                              "full_window": len(left & overflowed[name]),
+                              "outbid": len(left - overflowed[name])}
+    distinct = sum(len(v) for v in seen.values())
+    allocated = sum(tb.num_allocated for tb in tables)
+    without = sum(v["without_slot"] for v in by_table.values())
+    full = sum(v["full_window"] for v in by_table.values())
+    print(f"  (b) dynamic tables: {rows} rows in 26 tables, {allocated} of {distinct} distinct "
+          f"ids allocated; {without} without a slot ({full} met a full probe window, the rest "
+          f"were outbid in their batch): {json.dumps(by_table)}; slots and keys bit-equal to "
+          f"the CPU replay; K7 {k7_launches} launches; fit {fit_s:.1f} s", flush=True)
+
+    # the step's time and its probe-and-insert share (CUDA events)
+    probe_ev.clear()
+    times = train_times(dev, model, day1)
+    torch.cuda.synchronize()
+    n_steps = len(probe_ev) // 26
+    probe_ms = sum(a.elapsed_time(b) for a, b in probe_ev) / max(n_steps, 1)
+    out = {"card": card, "rows": rows, "table_gb": rows * DYN_DIM * 4 / 1e9,
+           "hash_keys_mb": rows * 4 / 1e6, "slot_gb": rows * DYN_DIM * 4 / 1e9,
+           "data_s": gen_s, "fit_s": fit_s, "loss": hist.history["loss"],
+           "k7_launches": k7_launches, "distinct_ids": distinct, "allocated": allocated,
+           "without_slot": without, "full_window": full, "without_slot_by_table": by_table,
+           "max_memory_allocated_gb": peak / 1e9,
+           "peak_above_held_gb": (peak - held) / 1e9, **times,
+           "probe_insert_ms_per_step": probe_ms,
+           "probe_insert_share": probe_ms / times["step_ms"][0]}
+
+    before = [tb.hash_keys.clone() for tb in tables]
+    model.evaluate(day1.take(2 * TRAIN_BATCH), batch_size=TRAIN_BATCH, device=dev)
+    require(all(torch.equal(k, tb.hash_keys) for k, tb in zip(before, tables)),
+            "(b): evaluate changed the keys")
+    day2 = day(SEED + 60, 1_000_003)  # a second day: other raw ids
+    n1 = allocated
+    model.fit(day2.take(DAY2_STEPS * TRAIN_BATCH), epochs=1, batch_size=TRAIN_BATCH,
+              shuffle=False, device=dev)
+    n2 = sum(tb.num_allocated for tb in tables)
+    require(n2 > n1, f"(b): day 2 allocated nothing ({n1} -> {n2})")
+    out["day2_allocated"] = n2 - n1
+    for tb in tables:
+        tb._map_ids = origs[tb.block_name]
+    big = max(tables, key=lambda tb: tb.capacity)
+    x0, _ = next(iter(mt.Loader(day1, TRAIN_BATCH)))
+    slots0 = origs[big.block_name](torch.as_tensor(x0[big.features[0]], device=dev).int(),
+                                   big.hash_keys.clone(), False).to(torch.int32)
+    k7 = measure_k7(dev, gen, big, slots0, errs, "dynamic slots")
+    print(f"  (b) step {times['step_ms']} ms, probe and insert {probe_ms:.3f} ms a step "
+          f"({out['probe_insert_share']:.3f}); peak {(peak - held) / 1e9:.2f} GB above what "
+          f"earlier phases hold; evaluate left the keys; day 2 allocated {n2 - n1} slots in "
+          f"{DAY2_STEPS} steps", flush=True)
+    del model, tables, big, recorded, keys, before
+    torch.cuda.empty_cache()
+
+    # examples/17 at its own capacities: the graph route and card vs CPU
+    rng = np.random.default_rng(7)
+    ex_schema = mt.Schema([
+        mt.create_categorical_column("item", 1_000_000_000, tags=(mt.Tags.ITEM_ID,)),
+        mt.create_categorical_column("user", 1_000_000_000, tags=(mt.Tags.USER_ID,)),
+        mt.create_categorical_column("click", 1, tags=(mt.Tags.TARGET,
+                                                       mt.Tags.BINARY_CLASSIFICATION))])
+    items = rng.integers(0, 200, EX17_ROWS).astype(np.int64) * 2654435761 % 2**31
+    users = mt.string_id_hash(np.array([f"user_{u}" for u in rng.integers(0, 500, EX17_ROWS)]))
+    ex_data = mt.Dataset({"item": items, "user": users.astype(np.int64),
+                          "click": (items % 2).astype(np.float32)}, schema=ex_schema)
+
+    def make17():
+        return dynamic_model(dev, ex_schema, "click",
+                             dynamic_capacity={"item": 2048, "user": 1024})
+
+    _, mg, lg, le = graph_vs_eager(dev, None, ex_data, 2, f"(b) examples/17, {EX17_SPE} steps a "
+                                   "chunk", make=make17, batch=EX17_BATCH, optimizer="adam",
+                                   learning_rate=ADAGRAD_LR, metrics=[],
+                                   steps_per_execution=EX17_SPE)
+    require(lg["row_gather"] == 2, f"(b) examples/17: K9 issued {lg['row_gather']} times")
+    ex_tables = [m for m in mg.modules() if isinstance(m, mt.DynamicEmbeddingTable)]
+    out["example17_graph"] = {"allocated": [t.num_allocated for t in ex_tables],
+                              "graphs": graph_stats(mg)}
+    del mg
+    on_card = make17().build(ex_data, device=dev)  # built on the card, then copied
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    for m in (on_card, on_cpu):
+        m.compile(optimizer="adam", learning_rate=ADAGRAD_LR, metrics=[])
+    out["example17_card_vs_cpu"] = step_card_vs_cpu(
+        on_card, on_cpu, ex_data, EX17_CPU_STEPS, "(b) examples/17 card vs CPU", "adam",
+        lr=ADAGRAD_LR, batch=EX17_BATCH)
+    for a, b in zip([m for m in on_card.modules() if isinstance(m, mt.DynamicEmbeddingTable)],
+                    [m for m in on_cpu.modules() if isinstance(m, mt.DynamicEmbeddingTable)]):
+        require(torch.equal(a.hash_keys.cpu(), b.hash_keys), f"(b) examples/17: {a.block_name}'s "
+                "keys differ card vs CPU")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, k7_launches, k7, lg["row_gather"]
+
+
+def phase_pretrained(dev, card):
+    """(c) examples/15's flow on movielens-25m: D = PRE_DIM, batch 8192, the
+    movieId table (56,681 x 64) from given rows. Frozen, it is bit-unchanged
+    after PRE_STEPS dense steps and after PRE_STEPS row-sparse steps, and
+    K7 lands only on the other tables (the wrapper's count: twice a table a
+    step); unfrozen, it moves; built ``trainable=False`` it is a buffer in no
+    optimizer group and stays. Returns (numbers, K7's launches)."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.ops import scatter as S
+
+    t_phase = time.perf_counter()
+    data = mt.generate_data("movielens-25m", num_rows=PRE_STEPS * TRAIN_BATCH, seed=SEED + 40)
+    schema = data.schema.excluding_by_name(["rating", "title"])
+    n_items = schema["movieId"].cardinality
+    rows = (np.random.default_rng(SEED).normal(size=(n_items, PRE_DIM)) / 4.0).astype(np.float32)
+    want = torch.as_tensor(rows)
+
+    def make(**kw):
+        inputs = mt.InputBlockV2(schema, dim=PRE_DIM, seed=SEED, device=dev,
+                                 table_kwargs={"movieId": {"weights": rows}}, **kw)
+        model = mt.Model(inputs >> mt.MLPBlock([64, 32], seed=SEED), mt.OutputBlock(schema),
+                         schema=schema)
+        return model, inputs["categorical"]["movieId"]
+
+    def fit(model):
+        return model.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False,
+                         device=dev).history["loss"]
+
+    out = {"card": card, "table": [n_items, PRE_DIM]}
+    model, table = make()
+    model.compile(optimizer="adagrad", learning_rate=ADAGRAD_LR, metrics=[])
+    model.freeze_blocks("movieId")
+    out["dense_frozen_loss"] = fit(model)
+    require(torch.equal(table.embeddings.cpu(), want), "(c): the frozen table moved (dense)")
+
+    model, table = make()
+    model.compile(optimizer="adagrad", learning_rate=ADAGRAD_LR, embedding_optimizer="adagrad",
+                  metrics=[])
+    model.freeze_blocks("movieId")
+    S.row_scatter_add.launches = 0
+    out["sparse_frozen_loss"] = fit(model)
+    torch.cuda.synchronize()
+    launches = S.row_scatter_add.launches
+    others = len(model._sparse_tables) - 1
+    require(table in model._sparse_tables and launches == 2 * others * PRE_STEPS,
+            f"(c): K7 launched {launches} times, want {2 * others * PRE_STEPS} (none on the "
+            "frozen table)")
+    require(torch.equal(table.embeddings.cpu(), want), "(c): the frozen table moved (row-sparse)")
+    model.unfreeze_all_frozen_blocks()
+    out["sparse_unfrozen_loss"] = fit(model)
+    moved = int((table.embeddings.cpu() != want).any(dim=1).sum())
+    require(moved > 0, "(c): the unfrozen table did not move")
+
+    model, table = make(trainable={"movieId": False})
+    model.compile(optimizer="adagrad", learning_rate=ADAGRAD_LR, metrics=[])
+    out["buffer_loss"] = fit(model)
+    groups = {id(p) for g in model._optimizer.param_groups for p in g["params"]}
+    require(not isinstance(table.table, torch.nn.Parameter) and id(table.table) not in groups
+            and table not in model._sparse_tables and torch.equal(table.embeddings.cpu(), want),
+            "(c): the trainable=False table is in an optimizer group or moved")
+    out.update(k7_launches=launches, unfrozen_rows_moved=moved,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"  (c) pretrained movieId: frozen bit-unchanged after {PRE_STEPS} dense and "
+          f"{PRE_STEPS} row-sparse steps (K7 {launches} launches, none on it), unfrozen "
+          f"{moved} rows moved, trainable=False in no optimizer group", flush=True)
+    return out, launches
+
+
+def phase_tt(dev, card):
+    """(d) ``Embeddings(dim=16, tt_compression_threshold=TT_THRESHOLD)`` on the
+    full Criteo layout: five TT tables (C1, C10, C20, C21, C22); one adagrad
+    step at batch 8192 on the card against a CPU copy; each TT lookup's time
+    at one batch's ids and the tables' bytes against the plain tables'."""
+    import copy
+
+    import models_tpu_torch as mt
+
+    t_phase = time.perf_counter()
+    data = mt.generate_data("criteo", num_rows=TRAIN_BATCH, seed=SEED + 50)
+    schema = data.schema
+    emb = mt.Embeddings(schema.categorical, dim=16, tt_compression_threshold=TT_THRESHOLD,
+                        seed=SEED, device=dev)
+    tts = {n: b for n, b in emb.branches.items() if isinstance(b, mt.TTEmbeddingTable)}
+    require(sorted(tts) == ["C1", "C10", "C20", "C21", "C22"], f"(d): TT tables {sorted(tts)}")
+    model = mt.Model(mt.InputBlockV2(schema, categorical=emb, device=dev)
+                     >> mt.MLPBlock([32], seed=SEED), mt.OutputBlock(schema), schema=schema)
+    model.build(data, device=dev)
+    on_cpu = copy.deepcopy(model).to("cpu")
+    for m in (model, on_cpu):
+        m.compile(optimizer="adagrad", learning_rate=ADAGRAD_LR, metrics=[])
+    cvc = step_card_vs_cpu(model, on_cpu, data, 1, "(d) TT card vs CPU", "adagrad",
+                           lr=ADAGRAD_LR, batch=TRAIN_BATCH)
+    x, _ = next(iter(mt.Loader(data, TRAIN_BATCH)))
+    lookup = {n: cuda_ms(lambda b=b, ids=torch.as_tensor(x[n], device=dev): b._lookup(ids))
+              for n, b in tts.items()}
+    tt_bytes = sum(sum(c.numel() for c in (b.core1, b.core2, b.core3)) * 4 for b in tts.values())
+    plain_bytes = sum(b.input_dim * b.dim * 4 for b in tts.values())
+    out = {"card": card, "card_vs_cpu": cvc, "lookup_ms": lookup, "tt_bytes": tt_bytes,
+           "plain_bytes": plain_bytes, "phase_s": time.perf_counter() - t_phase}
+    print(f"  (d) TT tables {sorted(tts)}: {tt_bytes / 1e6:.2f} MB against {plain_bytes / 1e9:.2f} "
+          f"GB plain; lookups {json.dumps(lookup)} ms at {TRAIN_BATCH} ids; {card}", flush=True)
+    return out
+
+
+def phase_dsl(dev, gen, card, errs):
+    """Phase 20: (a) Wide&Deep, (b) dynamic tables, (c) pretrained and
+    frozen tables, (d) TT tables. Returns (numbers, K9 launches, K9 on the
+    W&D pack, K7 launches, K7 times)."""
+    out = {}
+    out["wide_and_deep"], wd_k9, wd_k9_traced, wd_pack, wd_k7, wd_k7_times = \
+        phase_wide_and_deep(dev, gen, card, errs)
+    out["dynamic"], dyn_k7, dyn_k7_times, ex17_k9 = phase_dynamic(dev, gen, card, errs)
+    out["pretrained"], pre_k7 = phase_pretrained(dev, card)
+    out["tt"] = phase_tt(dev, card)
+    k9 = {"launches_wd": wd_k9, "launches_replayed_traced_wd": wd_k9_traced,
+          "launches_example17": ex17_k9, "wd_pack": wd_pack}
+    k7 = {"launches_wd_sparse": wd_k7, "launches_dynamic": dyn_k7,
+          "launches_pretrained": pre_k7, "wd": wd_k7_times, "dynamic_slots": dyn_k7_times}
+    return out, k9, k7
 
 
 def main() -> int:
@@ -5003,6 +5572,17 @@ def main() -> int:
             row["max_abs_err"] = errs["row_gather"]
         elif row["name"] == "row_scatter_add":
             row.update(launches_mmoe_sparse=ml["mmoe_sparse"], aliccp=mt_k7)
+            row["max_abs_err"] = errs["row_scatter_add"]
+    stamp("phase 20: the block DSL and the rest of the inputs: Wide&Deep on criteo-small, "
+          "dynamic tables over full-Criteo raw ids, pretrained and frozen tables, TT tables")
+    dsl, dsl_k9, dsl_k7 = phase_dsl(dev, gen, card, errs)
+    print("dsl " + json.dumps(dsl), flush=True)
+    for row in rows:  # the slice's launches, each counted from zero around its run
+        if row["name"] == "row_gather":
+            row.update(dsl_k9)
+            row["max_abs_err"] = errs["row_gather"]
+        elif row["name"] == "row_scatter_add":
+            row.update(dsl_k7)
             row["max_abs_err"] = errs["row_scatter_add"]
     stamp("done")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -4,7 +4,11 @@ The JAX package ``models_tpu`` is the reference; this package imports nothing
 of it, nor JAX. Entry points run on the card (``device="cuda"``, the default)
 unless the caller passes ``device="cpu"``; without a card they raise.
 
-The multi-task models (``MMOEModel``, ``PLEModel``, the V1
+The block DSL (``>>``, ``SequentialBlock``, ``ParallelBlock`` with named
+aggregations, ``Filter``, ``ResidualBlock``, ...; layers whose widths build
+at the model's build pass), the rest of the inputs (pretrained and frozen
+tables, dynamic-vocabulary and tensor-train tables), the feature transforms
+and Wide&Deep are ported. The multi-task models (``MMOEModel``, ``PLEModel``, the V1
 ``PredictionTasks``), trained with loss and class weights, adam, adamw,
 adagrad, rmsprop, lamb, adafactor or sgd (or a ``MultiOptimizer``), frozen
 blocks and callbacks, are ported. The retrieval models (the two-tower model, the matrix factorization and
@@ -29,27 +33,47 @@ with ``nvcc`` at first use.
 """
 
 from .blocks.experts import CGCBlock, ExpertsGate, MMOEBlock, PLEBlock
-from .blocks.mlp import MLPBlock
+from .blocks.cross import CrossBlock
+from .blocks.mlp import BatchNorm, Dense, DenseResidualBlock, Dropout, LayerNorm, MLPBlock
 from .blocks.optimizer import LazyAdam, MultiOptimizer, SparseEmbeddingOptimizer
 from .losses import binary_crossentropy, mean_absolute_error, mean_squared_error
 from .convert import load_jax_params
-from .core import Encoder, SequenceFeature, TopKEncoder, TopKPrediction, resolve_device
+from .core import (AsTabular, Block, Cond, Debug, Encoder, Filter, Lambda, MapValues, NoOp,
+                   ParallelBlock, ResidualBlock, SequenceFeature, SequentialBlock, TopKEncoder,
+                   TopKPrediction, WithShortcut, as_block, resolve_device)
 from .core.policy import get_dtype_policy, set_dtype_policy
 from .data import Dataset, Loader, generate_data
 from .metrics import AUC, BinaryAccuracy, Metric, Precision, Recall, TopKMetricsAggregator
-from .inputs import InputBlockV2
+from .inputs import (AverageEmbeddingsByWeightFeature, DynamicEmbeddingTable, EmbeddingFeatures,
+                     EmbeddingTable, Embeddings, InputBlock, InputBlockV2, PretrainedEmbeddings,
+                     PretrainedEmbeddingsBlock, SequenceEmbeddingFeatures, TTEmbeddingTable,
+                     string_id_hash)
 from .models import (BaseModel, DCNModel, DeepFMModel, DLRMModel, History, MatrixFactorizationModel,
                      MMOEModel, Model, ModelBlock, NCFModel, PLEModel, RetrievalModelV2,
-                     SessionBasedTransformerModel, TwoTowerModel, YoutubeDNNRetrievalModel)
+                     SessionBasedTransformerModel, TwoTowerModel, WideAndDeepModel,
+                     YoutubeDNNRetrievalModel)
 from .outputs import (BinaryOutput, BruteForce, CachedCrossBatchSampler, ContrastiveOutput,
                       ContrastiveSampleWeight, NextItemPredictionTask, OutputBlock,
                       ParallelPredictionBlock, PredictionTasks, RegressionOutput, TopKOutput)
-from .transforms import InBatchNegatives
+from .transforms import (BroadcastToSequence, CategoryEncoding, ExpandDims, HashedCross,
+                         HashedCrossAll, InBatchNegatives, PrepareFeatures, StochasticSwapNoise,
+                         ToTarget)
 from .utils.callbacks import (Callback, CSVLogger, EarlyStopping, ExamplesPerSecondCallback,
                               TerminateOnNaN)
-from .schema import ColumnSchema, Schema, Tags
+from .schema import (ColumnSchema, Schema, Tags, categorical_cardinalities, categorical_domains,
+                     create_categorical_column, create_continuous_column)
 
 __all__ = [
+    "AsTabular", "AverageEmbeddingsByWeightFeature", "BatchNorm", "Block",
+    "BroadcastToSequence", "CategoryEncoding", "Cond", "CrossBlock", "Debug", "Dense",
+    "DenseResidualBlock", "Dropout", "DynamicEmbeddingTable", "EmbeddingFeatures",
+    "EmbeddingTable", "Embeddings", "ExpandDims", "Filter", "HashedCross", "HashedCrossAll",
+    "InputBlock", "Lambda", "LayerNorm", "MapValues", "NoOp", "ParallelBlock", "PrepareFeatures",
+    "PretrainedEmbeddings", "PretrainedEmbeddingsBlock", "ResidualBlock",
+    "SequenceEmbeddingFeatures", "SequentialBlock", "StochasticSwapNoise", "TTEmbeddingTable",
+    "ToTarget", "WideAndDeepModel", "WithShortcut", "as_block", "categorical_cardinalities",
+    "categorical_domains", "create_categorical_column", "create_continuous_column",
+    "string_id_hash",
     "AUC", "BaseModel", "BinaryAccuracy", "BinaryOutput", "BruteForce", "CGCBlock",
     "CSVLogger", "CachedCrossBatchSampler", "Callback",
     "ColumnSchema", "ContrastiveOutput", "ContrastiveSampleWeight", "DCNModel", "DLRMModel",

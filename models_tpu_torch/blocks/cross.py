@@ -14,12 +14,12 @@ class Cross(Block):
     """One cross layer over ``(x0, x_l)`` (or one tensor for both); returns
     ``(x0, x_{l+1})``."""
 
-    def __init__(self, in_features: int, low_rank_dim: Optional[int] = None, seed: int = 0,
-                 device=None):
+    def __init__(self, low_rank_dim: Optional[int] = None, seed: int = 0,
+                 in_features: Optional[int] = None, device=None):
         super().__init__()
         self.out_features = in_features
-        self.dense = DenseMaybeLowRank(in_features, low_rank_dim=low_rank_dim, seed=seed,
-                                       device=device)
+        self.dense = DenseMaybeLowRank(low_rank_dim=low_rank_dim, seed=seed,
+                                       in_features=in_features, device=device)
 
     def forward(self, inputs, **kwargs):
         x0, x = inputs if isinstance(inputs, tuple) else (inputs, inputs)
@@ -31,13 +31,15 @@ class _TakeCrossOutput(Block):
         return inputs[1] if isinstance(inputs, tuple) else inputs
 
 
-def CrossBlock(in_features: int, depth: int = 1, low_rank_dim: Optional[int] = None,
-               seed: int = 0, block_name: str = "CrossBlock", device=None) -> SequentialBlock:
-    """``depth`` cross layers threading ``(x0, x_l)``, then ``x_depth``."""
+def CrossBlock(depth: int = 1, low_rank_dim: Optional[int] = None, seed: int = 0,
+               block_name: str = "CrossBlock", in_features: Optional[int] = None,
+               device=None) -> SequentialBlock:
+    """``depth`` cross layers threading ``(x0, x_l)``, then ``x_depth``;
+    without ``in_features`` each builds at its first call."""
     if depth < 1:
         raise ValueError(f"CrossBlock depth must be >= 1, got {depth}")
-    layers = [Cross(in_features, low_rank_dim=low_rank_dim, seed=seed + i, device=device)
-              for i in range(depth)]
+    layers = [Cross(low_rank_dim=low_rank_dim, seed=seed + i, in_features=in_features,
+                    device=device) for i in range(depth)]
     block = SequentialBlock(layers + [_TakeCrossOutput()], block_name=block_name)
     block.out_features = in_features
     return block

@@ -43,8 +43,8 @@ class DLRMBlock(Block):
                                      seed=seed, fused=True, device=device)
         self.continuous = Continuous(cont) if len(cont) else None
         if self.continuous is not None and bottom_block is None:
-            bottom_block = MLPBlock(len(cont), [embedding_dim * 2, embedding_dim], seed=seed,
-                                    device=device)
+            bottom_block = MLPBlock([embedding_dim * 2, embedding_dim], seed=seed,
+                                    in_features=len(cont), device=device)
         if bottom_block is not None and bottom_block.out_features != embedding_dim:
             raise ValueError(f"bottom block output dim {bottom_block.out_features} != "
                              f"embedding_dim {embedding_dim}")

@@ -3,8 +3,9 @@ MMOE (one softmax gate per task over shared experts) and PLE / CGC (task
 experts and shared experts, a gate per task, and a shared gate between
 stacked layers).
 
-Widths are fixed at construction (``in_features``: the input block's
-width), as elsewhere in the port. An expert is one block (an
+The zoo models give the input block's width (``in_features``); left out,
+the experts and gates build at their first call. ``MMOEBlock`` takes
+``gate_block`` and, as the JAX package's, does not use it. An expert is one block (an
 :func:`~models_tpu_torch.blocks.mlp.MLPBlock` where widths are given), so
 that ``load_jax_params`` maps the JAX experts one to one; the experts run
 one after another and stack to (B, E, D). The first expert of a group is
@@ -15,7 +16,7 @@ experts, whose gates then see one output E times).
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -31,10 +32,10 @@ GROUP_SALT = 1009
 LAYER_SALT = GROUP_SALT * GROUP_SALT
 
 
-def _expert(expert_block, in_features: int, seed: int, device) -> nn.Module:
+def _expert(expert_block, in_features: Optional[int], seed: int, device) -> nn.Module:
     """An expert from its widths (an MLPBlock over ``in_features``) or as given."""
     if isinstance(expert_block, (list, tuple)):
-        return MLPBlock(in_features, list(expert_block), seed=seed, device=device)
+        return MLPBlock(list(expert_block), seed=seed, in_features=in_features, device=device)
     return expert_block
 
 
@@ -42,9 +43,11 @@ class ExpertsGate(Block):
     """A softmax gate mixing stacked expert outputs: ``(gate_input (B, F),
     experts (B, E, D)) -> (B, D)``; ``gate`` is a bias-free Dense(F, E)."""
 
-    def __init__(self, in_features: int, num_experts: int, seed: int = 0, device=None):
+    def __init__(self, in_features: Optional[int], num_experts: int, seed: int = 0,
+                 device=None):
         super().__init__()
-        self.gate = Dense(in_features, num_experts, use_bias=False, seed=seed, device=device)
+        self.gate = Dense(num_experts, use_bias=False, seed=seed, in_features=in_features,
+                          device=device)
 
     def forward(self, inputs, **kwargs):
         gate_input, experts = inputs
@@ -72,8 +75,9 @@ class MMOEBlock(Block):
     the block's input. Output: a dict task -> (B, D), which the heads of
     ``OutputBlock`` pick by their target."""
 
-    def __init__(self, outputs: Sequence[str], expert_block, in_features: int,
-                 num_experts: int = 4, seed: int = 0, device=None):
+    def __init__(self, outputs: Sequence[str], expert_block, in_features: Optional[int] = None,
+                 num_experts: int = 4, gate_block: Optional[nn.Module] = None, seed: int = 0,
+                 device=None):
         super().__init__()
         expert = _expert(expert_block, in_features, seed, device)
         self.experts = _StackedExperts(expert, num_experts)
@@ -95,7 +99,7 @@ class CGCBlock(Block):
     is a tensor, or (a stacked layer) the dict of the layer before it, each
     branch reading its task's entry, else ``"shared"``."""
 
-    def __init__(self, outputs: Sequence[str], expert_block, in_features: int,
+    def __init__(self, outputs: Sequence[str], expert_block, in_features: Optional[int] = None,
                  num_task_experts: int = 1, num_shared_experts: int = 1,
                  final_layer: bool = False, seed: int = 0, salt: int = 0, device=None):
         super().__init__()
@@ -141,7 +145,7 @@ class CGCBlock(Block):
 
 
 def PLEBlock(outputs: Sequence[str], expert_block: Union[Sequence[int], nn.Module],
-             in_features: int, num_layers: int = 2, num_task_experts: int = 1,
+             in_features: Optional[int] = None, num_layers: int = 2, num_task_experts: int = 1,
              num_shared_experts: int = 1, seed: int = 0, device=None) -> SequentialBlock:
     """Progressive layered extraction: ``num_layers`` CGC layers, the last
     one final. Layer 0 reads ``in_features``, each later layer the experts'

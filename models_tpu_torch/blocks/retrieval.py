@@ -67,8 +67,8 @@ def TwoTowerBlock(schema: Schema, query_tower: Union[nn.Module, Sequence[int]],
     def tower(tower_schema, block, tower_seed):
         inputs = InputBlockV2(tower_schema, dim=embedding_dim, seed=tower_seed, device=dev)
         if not isinstance(block, nn.Module):
-            block = MLPBlock(inputs.out_features, tuple(block), no_activation_last_layer=True,
-                             seed=tower_seed, device=dev)
+            block = MLPBlock(tuple(block), no_activation_last_layer=True, seed=tower_seed,
+                             in_features=inputs.out_features, device=dev)
         return SequentialBlock([inputs, block.to(dev)])
 
     return DualEncoderBlock(tower(user_schema, query_tower, seed),

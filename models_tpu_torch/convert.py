@@ -35,6 +35,12 @@ becomes the port's ``weight`` (out, in). What is carried:
   ``task_gates/<task>`` and ``shared_gate``, PLE's layers (flattened into
   the body's ``layers``), and ``ParallelPredictionBlock``'s
   ``heads/<head>``, ``bias_block`` and ``bias_logit``;
+- the slice of PR 16's state: layers that built at a build pass (load
+  after both sides have built: ``model.build(data)``), a frozen table's
+  rows (``trainable=False``: a buffer, from ``nnx.Variable`` state), a
+  dynamic table's ``hash_keys`` (an int32 buffer), a TT table's
+  ``core1``..``core3`` and Wide&Deep's wide kernel
+  (``.../branches/wide/linear/kernel``, (sum of widths, 1));
 - the slots (``.../<table>/sparse_slots/<acc|m|v>``, float32) onto the
   table's ``sparse_slots`` buffers, which ``fit`` then keeps when they are
   the ones its embedding optimizer needs.

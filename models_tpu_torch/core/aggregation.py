@@ -1,15 +1,20 @@
-"""Aggregations (``models_tpu/core/aggregation.py``): concatenation and
-stacking of a dict of features, both in sorted key order, the masked mean,
-sum, max, min and last value over a list column's axis 1, and the
-sequence aggregators that pool every 3-D input by one of them and
-concatenate."""
+"""Aggregations (``models_tpu/core/aggregation.py``): dict -> tensor
+merges, registered by name (``"concat"``, ``"stack"``, ``"sum"`` /
+``"element-wise-sum"``, ``"sum-residual"``, ``"element-wise-multiply"``,
+``"element-wise-sum-item-multi"``, ``"cosine"``, ``"masked_mean"``, the
+``"sequence-*"`` aggregators) and parsed by
+:meth:`TabularAggregation.parse`; the masked mean, sum, max, min and last
+value over a list column's axis 1. Concatenation, stacking, sums and
+products take the features in sorted key order, as the JAX package does
+whatever order the producer built the dict in."""
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
+from ..registry import aggregation_registry
 from .block import Block
 from .types import SequenceFeature, TensorDict
 
@@ -24,21 +29,43 @@ def _expand_2d(x: torch.Tensor) -> torch.Tensor:
     return x[:, None] if x.ndim == 1 else x
 
 
-class ConcatFeatures(Block):
-    """Concatenate along the last axis, in SORTED key order (as the JAX
-    package does, whatever order the producer built the dict in)."""
+def _as_array(v):
+    return v.values if isinstance(v, SequenceFeature) else v
+
+
+def _values(inputs: TensorDict) -> list:
+    return [_as_array(inputs[k]) for k in sorted(inputs)]
+
+
+class TabularAggregation(Block):
+    """Base of the dict -> tensor aggregations."""
+
+    @staticmethod
+    def parse(agg) -> Optional[Block]:
+        """None, a block (as it is) or a registered name (an instance)."""
+        if agg is None or isinstance(agg, Block):
+            return agg
+        return aggregation_registry.parse(agg)
+
+
+@aggregation_registry.register("concat")
+class ConcatFeatures(TabularAggregation):
+    """Concatenate along ``axis`` (the last), in SORTED key order; (B,)
+    features as (B, 1)."""
+
+    def __init__(self, axis: int = -1):
+        super().__init__()
+        self.axis = axis
 
     def forward(self, inputs: TensorDict, **kwargs) -> torch.Tensor:
-        vals = []
-        for name in sorted(inputs):
-            v = inputs[name]
-            vals.append(_expand_2d(v.values if isinstance(v, SequenceFeature) else v))
+        vals = [_expand_2d(v) for v in _values(inputs)]
         if len({v.ndim for v in vals}) > 1:
             raise ValueError("concat: mixed tensor ranks; pool sequence features first")
-        return torch.cat(vals, dim=-1)
+        return torch.cat(vals, dim=self.axis)
 
 
-class StackFeatures(Block):
+@aggregation_registry.register("stack")
+class StackFeatures(TabularAggregation):
     """Stack equal-width features on a new axis (1: (B, F, D)), in SORTED
     key order; the input of the dot-product interaction."""
 
@@ -52,6 +79,92 @@ class StackFeatures(Block):
         if len({v.ndim for v in vals}) > 1:
             raise ValueError("stack: mixed tensor ranks; pool sequence features first")
         return torch.stack(vals, dim=self.axis)
+
+
+@aggregation_registry.register_with_multiple_names("sum", "element-wise-sum")
+class ElementwiseSum(TabularAggregation):
+    """The features' sum, (B,) features as (B, 1)."""
+
+    def forward(self, inputs: TensorDict, **kwargs) -> torch.Tensor:
+        vals = [_expand_2d(v) for v in _values(inputs)]
+        out = vals[0]
+        for v in vals[1:]:
+            out = out + v
+        return out
+
+
+@aggregation_registry.register("sum-residual")
+class SumResidual(TabularAggregation):
+    """The sum over every feature but the shortcut of ``activation(feature +
+    shortcut)``, in the dict's order."""
+
+    def __init__(self, activation=None, shortcut_name: str = "shortcut"):
+        super().__init__()
+        self.activation = activation
+        self.shortcut_name = shortcut_name
+
+    def forward(self, inputs: TensorDict, **kwargs) -> torch.Tensor:
+        from ..blocks.mlp import get_activation
+
+        act = get_activation(self.activation)
+        shortcut = _as_array(inputs[self.shortcut_name])
+        out = None
+        for name, v in inputs.items():
+            if name == self.shortcut_name:
+                continue
+            v = _as_array(v) + shortcut
+            if act is not None:
+                v = act(v)
+            out = v if out is None else out + v
+        return out
+
+
+@aggregation_registry.register("element-wise-multiply")
+class ElementwiseMultiply(TabularAggregation):
+    def forward(self, inputs: TensorDict, **kwargs) -> torch.Tensor:
+        vals = _values(inputs)
+        out = vals[0]
+        for v in vals[1:]:
+            out = out * v
+        return out
+
+
+@aggregation_registry.register("element-wise-sum-item-multi")
+class ElementwiseSumItemMulti(TabularAggregation):
+    """The one 3-D input (item embeddings over a sequence) plus the sum of
+    the 2-D context features, broadcast over its axis 1."""
+
+    def forward(self, inputs: TensorDict, **kwargs) -> torch.Tensor:
+        seq = [_as_array(v) for v in inputs.values() if _as_array(v).ndim == 3]
+        ctx = {k: v for k, v in inputs.items() if _as_array(v).ndim == 2}
+        if len(seq) != 1:
+            raise ValueError("element-wise-sum-item-multi expects exactly one 3-D input")
+        item = seq[0]
+        if ctx:
+            item = item + ElementwiseSum()(ctx)[:, None, :]
+        return item
+
+
+@aggregation_registry.register("cosine")
+class CosineSimilarity(TabularAggregation):
+    """Row-wise cosine similarity of exactly two features, (B, 1)."""
+
+    def forward(self, inputs: TensorDict, **kwargs) -> torch.Tensor:
+        vals = _values(inputs)
+        if len(vals) != 2:
+            raise ValueError("cosine aggregation needs exactly 2 inputs")
+        a, b = vals
+        a = a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True) + 1e-12)
+        b = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True) + 1e-12)
+        return (a * b).sum(dim=-1, keepdim=True)
+
+
+@aggregation_registry.register("masked_mean")
+class MaskedMean(TabularAggregation):
+    """Each feature's masked mean over axis 1, concatenated."""
+
+    def forward(self, inputs: TensorDict, **kwargs) -> torch.Tensor:
+        return ConcatFeatures()({name: sequence_mean(v) for name, v in inputs.items()})
 
 
 def sequence_mean(x: Union[torch.Tensor, SequenceFeature]) -> torch.Tensor:
@@ -102,7 +215,7 @@ SEQUENCE_COMBINERS = {
 }
 
 
-class SequenceAggregator(Block):
+class SequenceAggregator(TabularAggregation):
     """Pool every 3-D input over axis 1 by a named combiner, pass 2-D inputs
     as they are, and concatenate (:class:`ConcatFeatures`)."""
 
@@ -121,26 +234,31 @@ class SequenceAggregator(Block):
         return ConcatFeatures()(out)
 
 
+@aggregation_registry.register("sequence-mean")
 class SequenceMean(SequenceAggregator):
     def __init__(self):
         super().__init__("mean")
 
 
+@aggregation_registry.register("sequence-sum")
 class SequenceSum(SequenceAggregator):
     def __init__(self):
         super().__init__("sum")
 
 
+@aggregation_registry.register("sequence-max")
 class SequenceMax(SequenceAggregator):
     def __init__(self):
         super().__init__("max")
 
 
+@aggregation_registry.register("sequence-min")
 class SequenceMin(SequenceAggregator):
     def __init__(self):
         super().__init__("min")
 
 
+@aggregation_registry.register("sequence-last")
 class SequenceLast(SequenceAggregator):
     def __init__(self):
         super().__init__("last")

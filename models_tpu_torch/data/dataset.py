@@ -8,7 +8,7 @@ row's values, concatenated) and ``<name>__offsets`` (row starts, length n+1).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -26,6 +26,17 @@ def _is_ragged(col) -> bool:
     )
 
 
+def _hash_if_strings(arr: np.ndarray) -> np.ndarray:
+    """A string or bytes column as int32 ids (``string_id_hash``, the JAX
+    package's loader convention), so that raw string ids feed a
+    dynamic-vocabulary table; other columns pass."""
+    if arr.dtype == object or arr.dtype.kind in ("U", "S"):
+        from ..inputs.dynamic import string_id_hash
+
+        return string_id_hash(arr)
+    return arr
+
+
 def _encode(data: Dict[str, object]) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for name, col in data.items():
@@ -37,9 +48,9 @@ def _encode(data: Dict[str, object]) -> Dict[str, np.ndarray]:
             values = np.concatenate(rows)
             if values.dtype == object:  # equal-length rows made a 2-D object array
                 values = np.asarray(values.tolist())
-            out[name + VALUES] = values
+            out[name + VALUES] = _hash_if_strings(values)
         else:
-            out[name] = np.asarray(col)
+            out[name] = _hash_if_strings(np.asarray(col))
     return out
 
 
@@ -106,6 +117,18 @@ class Dataset:
 
     def take(self, n: int) -> "Dataset":
         return self._from_cols(take_rows(self._cols, np.arange(min(n, self.num_rows))))
+
+    def split(self, fractions: Sequence[float], seed: int = 0) -> List["Dataset"]:
+        """Disjoint parts of ``round(fraction * rows)`` rows each, from one
+        permutation drawn from ``seed`` (the JAX package's split)."""
+        n = self.num_rows
+        idx = np.random.default_rng(seed).permutation(n)
+        out, start = [], 0
+        for frac in fractions:
+            count = int(round(frac * n))
+            out.append(self._from_cols(take_rows(self._cols, idx[start:start + count])))
+            start += count
+        return out
 
     def unique_by(self, column: str) -> "Dataset":
         """Deduplicate rows by a column, keeping each value's FIRST row, in

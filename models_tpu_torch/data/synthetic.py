@@ -1,6 +1,6 @@
 """Synthetic datasets from the known schemas.
 
-Copies the ``e-commerce``, ``movielens-25m``, ``aliccp``, ``aliccp-small``,
+Copies the ``e-commerce``, ``movielens-100k``, ``movielens-25m``, ``aliccp``, ``aliccp-small``,
 ``criteo``, ``criteo-small`` and ``sequence-testing`` schemas and the numpy draws of ``models_tpu/data/synthetic.py``, so that one
 seed gives the same rows in both packages. ``criteo`` has the published
 Criteo 1TB cardinalities (26 tables, 31,457,706 rows); ``criteo-small`` the
@@ -167,8 +167,27 @@ def _sequence_testing_schema() -> Schema:
     )
 
 
+def _movielens_100k_schema() -> Schema:
+    return Schema(
+        [
+            cat("movieId", 1680, tags=(Tags.ITEM, Tags.ITEM_ID)),
+            cat("userId", 943, tags=(Tags.USER, Tags.USER_ID)),
+            cat("genres", 216, tags=Tags.ITEM),
+            cont("TE_movieId_rating", tags=Tags.CONTINUOUS),
+            cat("gender", 2, tags=Tags.USER),
+            cat("zip_code", 795, tags=Tags.USER),
+            cat("age", 8, tags=Tags.USER),
+            ColumnSchema("title", dtype="bytes"),
+            cont("userId_count"),
+            _binary_target("rating_binary"),
+            _regression_target("rating"),
+        ]
+    )
+
+
 KNOWN_DATASETS: Dict[str, Callable[[], Schema]] = {
     "e-commerce": _ecommerce_schema,
+    "movielens-100k": _movielens_100k_schema,
     "movielens-25m": _movielens_25m_schema,
     "aliccp": _aliccp_schema,
     "aliccp-small": _aliccp_small_schema,

@@ -1,6 +1,13 @@
-from .base import InputBlockV2
+from .base import InputBlock, InputBlockV2
 from .continuous import ConcatDict, Continuous, ContinuousEmbedding, ContinuousProjection
-from .embedding import EmbeddingTable, Embeddings, FusedEmbeddingTables
+from .dynamic import DynamicEmbeddingTable, string_id_hash
+from .embedding import (AverageEmbeddingsByWeightFeature, EmbeddingFeatures, EmbeddingTable,
+                        Embeddings, FusedEmbeddingTables, PretrainedEmbeddings,
+                        PretrainedEmbeddingsBlock, SequenceEmbeddingFeatures)
+from .tt_embedding import TTEmbeddingTable
 
-__all__ = ["ConcatDict", "Continuous", "ContinuousEmbedding", "ContinuousProjection",
-           "EmbeddingTable", "Embeddings", "FusedEmbeddingTables", "InputBlockV2"]
+__all__ = ["AverageEmbeddingsByWeightFeature", "ConcatDict", "Continuous",
+           "ContinuousEmbedding", "ContinuousProjection", "DynamicEmbeddingTable",
+           "EmbeddingFeatures", "EmbeddingTable", "Embeddings", "FusedEmbeddingTables",
+           "InputBlock", "InputBlockV2", "PretrainedEmbeddings", "PretrainedEmbeddingsBlock",
+           "SequenceEmbeddingFeatures", "TTEmbeddingTable", "string_id_hash"]

@@ -32,12 +32,19 @@ head's positives and sampled negatives, ``""`` for a fused table.
 training loss (:meth:`EmbeddingTable.regularization_loss`); a row-sparse
 table's term is a constant, as the JAX package's sparse step takes no
 gradient of it.
+
+A table made with ``trainable=False`` holds its rows in a buffer, not a
+parameter (the JAX package's ``nnx.Variable``): no optimizer, dense or
+row-sparse, sees it. ``weights=`` (or :meth:`EmbeddingTable.from_pretrained`)
+starts a table from given rows. ``Embeddings`` also makes tensor-train
+tables (``tt_compression_threshold``; ``inputs/tt_embedding.py``) and
+dynamic-vocabulary tables (``dynamic``; ``inputs/dynamic.py``).
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -48,7 +55,8 @@ from ..core.aggregation import SEQUENCE_COMBINERS
 from ..core.combinators import ParallelBlock
 from ..core.policy import compute_dtype
 from ..core.block import Block
-from ..core.types import SequenceFeature
+from ..core.device import resolve_device
+from ..core.types import SequenceFeature, TensorDict
 from ..schema import (ColumnSchema, Schema, Tags, create_categorical_column,
                       infer_embedding_dim)
 
@@ -76,6 +84,7 @@ class EmbeddingTable(Block):
     Rows are padded to a multiple of 8, as in the JAX package, so that its
     tables load whole; ids must stay below ``input_dim`` (a CUDA gather out
     of range is a device-side assert, where ``jnp.take`` would not fault).
+    Without ``device`` the table is made on the card, and raises without one.
     """
 
     def __init__(
@@ -87,11 +96,15 @@ class EmbeddingTable(Block):
         seed: int = 0,
         device=None,
         l2_reg: float = 0.0,
+        trainable: bool = True,
+        initializer: Optional[Callable] = None,
+        weights=None,
     ):
         cols = [col_schema] if isinstance(col_schema, ColumnSchema) else list(col_schema)
         super().__init__(schema=Schema(cols), block_name=cols[0].domain_name)
         self.dim = int(dim)
         self.l2_reg = float(l2_reg)
+        self.trainable = bool(trainable)
         self.features = [c.name for c in cols]
         self.sequence_combiner = sequence_combiner
         card = cols[0].cardinality
@@ -103,27 +116,61 @@ class EmbeddingTable(Block):
         self.padded_rows = -(-self.input_dim // 8) * 8
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"embedding tables are float32 or bfloat16, not {dtype}")
-        table = torch.empty(self.padded_rows, self.dim, device=device)
-        gen = torch.Generator(table.device).manual_seed(seed)
-        # truncated normal at 2 sigma, sigma 0.05 (the JAX initializer)
-        nn.init.trunc_normal_(table, std=0.05, a=-0.1, b=0.1, generator=gen)
+        device = resolve_device(device)
+        if weights is not None:
+            w = torch.as_tensor(np.asarray(weights), dtype=torch.float32)
+            if tuple(w.shape) != (self.input_dim, self.dim):
+                raise ValueError(f"Pretrained weights {tuple(w.shape)} != "
+                                 f"({self.input_dim}, {self.dim})")
+            table = torch.zeros(self.padded_rows, self.dim, device=device)
+            table[: self.input_dim] = w.to(table.device)
+        elif initializer is not None:
+            # a function (generator, shape, device) -> rows
+            gen = torch.Generator(device).manual_seed(seed)
+            table = initializer(gen, (self.padded_rows, self.dim), device)
+        else:
+            table = torch.empty(self.padded_rows, self.dim, device=device)
+            gen = torch.Generator(table.device).manual_seed(seed)
+            # truncated normal at 2 sigma, sigma 0.05 (the JAX initializer)
+            nn.init.trunc_normal_(table, std=0.05, a=-0.1, b=0.1, generator=gen)
         # trained densely, the lookup's backward gives a (rows, D) gradient,
-        # as the JAX package's dense optimizer sees it
-        self.table = nn.Parameter(table.to(dtype))
+        # as the JAX package's dense optimizer sees it; not trainable, the
+        # rows are a buffer
+        if self.trainable:
+            self.table = nn.Parameter(table.to(dtype))
+        else:
+            self.register_buffer("table", table.to(dtype))
         self.sparse_routed = False
         # the row-sparse optimizer's per-row state, created by its init_slots
         self.sparse_slots: Optional[SparseSlots] = None
 
+    @classmethod
+    def from_pretrained(cls, data, col_schema: Optional[ColumnSchema] = None,
+                        trainable: bool = True, name: str = "pretrained",
+                        sequence_combiner: Optional[str] = None, device=None
+                        ) -> "EmbeddingTable":
+        """A table of a (cardinality, dim) array's rows (a column named
+        ``name`` of that cardinality where none is given)."""
+        arr = np.asarray(data)
+        if col_schema is None:
+            col_schema = create_categorical_column(name, arr.shape[0] - 1)
+        return cls(arr.shape[1], col_schema, sequence_combiner=sequence_combiner,
+                   trainable=trainable, weights=arr, device=device)
+
     @property
     def embeddings(self) -> torch.Tensor:
         return self.table[: self.input_dim]
+
+    def to_array(self) -> np.ndarray:
+        """The ``input_dim`` rows on the host (a bf16 table's widened)."""
+        return self.embeddings.detach().float().cpu().numpy()
 
     def to_dataset(self):
         """The table's ``input_dim`` rows as a Dataset of ``id`` (int64) and
         ``embedding`` (float32; a bf16 table's rows widened)."""
         from ..data.dataset import Dataset
 
-        emb = self.embeddings.detach().float().cpu().numpy()
+        emb = self.to_array()
         return Dataset({"id": np.arange(emb.shape[0], dtype=np.int64), "embedding": emb})
 
     def regularization_loss(self) -> Optional[torch.Tensor]:
@@ -227,7 +274,8 @@ class FusedEmbeddingTables(EmbeddingTable):
     pack tightly. ``block_name`` is ``"fused_embeddings"``."""
 
     def __init__(self, col_schemas: Sequence[ColumnSchema], dim: int,
-                 dtype: torch.dtype = torch.float32, seed: int = 0, device=None):
+                 dtype: torch.dtype = torch.float32, seed: int = 0, device=None,
+                 l2_reg: float = 0.0):
         cols = list(col_schemas)
         padded = [-(-int(c.cardinality) // 8) * 8 for c in cols]
         stride = max(padded)
@@ -241,14 +289,14 @@ class FusedEmbeddingTables(EmbeddingTable):
                           "groups", stacklevel=2)
         total = int(sum(padded))
         super().__init__(dim, create_categorical_column("fused_embeddings", total - 1),
-                         dtype=dtype, seed=seed, device=device)
+                         dtype=dtype, seed=seed, device=device, l2_reg=l2_reg)
         self.features = [c.name for c in cols]
         self.schema = Schema(cols)
         self.block_name = "fused_embeddings"
         self.stride = stride if uniform else None
         self.row_offsets = [int(x) for x in np.cumsum([0] + padded[:-1])]
         self.register_buffer("offsets", torch.tensor(self.row_offsets, dtype=torch.int64,
-                                                     device=device), persistent=False)
+                                                     device=self.table.device), persistent=False)
 
     def forward(self, inputs, context=None, **kwargs):
         local = torch.stack([inputs[name].to(torch.int64) for name in self.features], dim=1)
@@ -264,28 +312,64 @@ class FusedEmbeddingTables(EmbeddingTable):
 
 
 def Embeddings(
-    schema: Schema, dim: Optional[int] = None,
+    schema: Schema, dim: Union[int, Dict[str, int], None] = None,
     sequence_combiner: Union[str, Dict[str, Optional[str]], None] = "default",
+    trainable: Union[bool, Dict[str, bool]] = True,
+    infer_dim_multiplier: float = 2.0,
+    l2_reg: float = 0.0,
+    table_kwargs: Optional[Dict[str, dict]] = None,
     param_dtype: Optional[torch.dtype] = None, seed: int = 0, fused: bool = False,
+    tt_compression_threshold: Optional[int] = None,
+    tt_ranks: Union[int, tuple] = 32,
+    dynamic: Union[bool, Dict[str, bool]] = False,
+    dynamic_capacity: Optional[Dict[str, int]] = None,
     device=None,
 ) -> ParallelBlock:
-    """One :class:`EmbeddingTable` per categorical domain, ``dim`` wide (or
-    inferred from each domain's cardinality). ``sequence_combiner``:
-    ``"default"`` keeps ``SEQUENCE`` list columns 3-D and mean-pools other
-    list columns over their mask; a combiner's name (``"mean"``, ``"sum"``)
-    pools every list column; a dict gives it by column.
-    ``param_dtype=torch.bfloat16`` stores the tables bf16 at rest; they then
-    train only through a row-sparse ``embedding_optimizer`` (stochastic-
-    rounding writes). ``fused=True`` with an int ``dim`` puts the
-    single-column scalar domains into :class:`FusedEmbeddingTables` (named
-    ``fused``, or ``fused_<i>`` for several groups; float32), the other
-    domains into tables of their own."""
+    """One table per categorical domain.
+
+    - ``dim``: an int for every table, a dict by column or domain name, or
+      None to infer it from the cardinality (``infer_dim_multiplier *
+      cardinality ** 0.25``, rounded up to a multiple of 8);
+    - ``sequence_combiner``: ``"default"`` keeps ``SEQUENCE`` list columns
+      3-D and mean-pools other list columns over their mask; a combiner's
+      name (``"mean"``, ``"sum"``) pools every list column; a dict gives it
+      by column;
+    - ``trainable``: a bool, or a dict by domain (a frozen table is a
+      buffer); ``table_kwargs``: keyword arguments of one domain's
+      :class:`EmbeddingTable` (``weights=``, ``initializer=``, ...);
+    - ``param_dtype=torch.bfloat16`` stores the tables bf16 at rest; they
+      then train only through a row-sparse ``embedding_optimizer``
+      (stochastic-rounding writes);
+    - ``fused=True`` with an int ``dim`` puts the single-column scalar
+      domains with default options into :class:`FusedEmbeddingTables`
+      (named ``fused``, or ``fused_<i>`` for several groups; float32), the
+      other domains into tables of their own;
+    - ``tt_compression_threshold``: a domain of more rows than this takes a
+      tensor-train table of ``tt_ranks``
+      (:class:`~models_tpu_torch.inputs.tt_embedding.TTEmbeddingTable`),
+      unless it is frozen or has ``table_kwargs`` (then a dense table, with
+      a warning);
+    - ``dynamic``: True, or a dict by domain, makes
+      :class:`~models_tpu_torch.inputs.dynamic.DynamicEmbeddingTable` tables
+      (slots allocated to raw ids as they come), of ``dynamic_capacity``
+      rows by domain (default cardinality / 0.8 plus the probes)."""
     cat = schema.categorical
     if not len(cat):
         raise ValueError("Schema has no categorical columns")
     by_domain: Dict[str, list] = {}
     for col in cat:
         by_domain.setdefault(col.domain_name, []).append(col)
+
+    def dim_for(domain: str, cols) -> int:
+        if isinstance(dim, dict):
+            for c in cols:
+                if c.name in dim:
+                    return dim[c.name]
+            if domain in dim:
+                return dim[domain]
+        elif isinstance(dim, int):
+            return dim
+        return infer_embedding_dim(cols[0], multiplier=infer_dim_multiplier)
 
     def combiner_for(col: ColumnSchema) -> Optional[str]:
         if isinstance(sequence_combiner, dict):
@@ -296,21 +380,121 @@ def Embeddings(
             return None if col.has_tag(Tags.SEQUENCE) else "mean"
         return sequence_combiner
 
-    tables: Dict[str, EmbeddingTable] = {}
+    def tt_eligible(cols) -> bool:
+        return (tt_compression_threshold is not None
+                and (cols[0].cardinality or 0) > tt_compression_threshold)
+
+    tables: Dict[str, nn.Module] = {}
     if fused and isinstance(dim, int):
-        fusable = [cols[0] for cols in by_domain.values()
-                   if len(cols) == 1 and not cols[0].is_list]
-        groups = _fused_groups(fusable, dim) if len(fusable) > 1 else []
+        fusable = [(domain, cols[0]) for domain, cols in by_domain.items()
+                   if len(cols) == 1 and not cols[0].is_list and not tt_eligible(cols)
+                   and (trainable is True or (isinstance(trainable, dict)
+                                              and trainable.get(domain, True)))
+                   and domain not in (table_kwargs or {})]
+        groups = _fused_groups([c for _, c in fusable], dim) if len(fusable) > 1 else []
+        domain_of = {c.name: d for d, c in fusable}
         for gi, chunk in enumerate(groups):
             name = "fused" if len(groups) == 1 else f"fused_{gi}"
-            tables[name] = FusedEmbeddingTables(chunk, dim, seed=seed + 101 * gi, device=device)
-        consumed = {c.domain_name for chunk in groups for c in chunk}
+            tables[name] = FusedEmbeddingTables(chunk, dim, seed=seed + 101 * gi, device=device,
+                                                l2_reg=l2_reg)
+        consumed = {domain_of[c.name] for chunk in groups for c in chunk}
         by_domain = {d: cs for d, cs in by_domain.items() if d not in consumed}
     for i, (domain, cols) in enumerate(by_domain.items()):
         combiners = {combiner_for(c) for c in cols}
+        combiner = next(iter(combiners)) if len(combiners) == 1 else None
+        tr = trainable if isinstance(trainable, bool) else trainable.get(domain, True)
+        kw = dict((table_kwargs or {}).get(domain, {}))
+        if tt_eligible(cols):
+            if not tr or kw:
+                warnings.warn(
+                    f"domain {domain!r} exceeds tt_compression_threshold but has "
+                    f"{'trainable=False' if not tr else 'table_kwargs'}: using a DENSE table",
+                    stacklevel=2)
+            else:
+                from .tt_embedding import TTEmbeddingTable
+
+                tables[domain] = TTEmbeddingTable(dim_for(domain, cols), cols, ranks=tt_ranks,
+                                                  sequence_combiner=combiner, l2_reg=l2_reg,
+                                                  seed=seed + i, device=device)
+                continue
+        if param_dtype is not None:
+            kw.setdefault("dtype", param_dtype)
+        dyn = dynamic if isinstance(dynamic, bool) else dynamic.get(domain, False)
+        if dyn:
+            from .dynamic import DynamicEmbeddingTable
+
+            tables[domain] = DynamicEmbeddingTable(
+                dim_for(domain, cols), cols, capacity=(dynamic_capacity or {}).get(domain),
+                sequence_combiner=combiner, trainable=tr, l2_reg=l2_reg, seed=seed + i,
+                device=device, **kw)
+            continue
         tables[domain] = EmbeddingTable(
-            dim if dim is not None else infer_embedding_dim(cols[0]), cols,
-            sequence_combiner=next(iter(combiners)) if len(combiners) == 1 else None,
-            dtype=param_dtype or torch.float32, seed=seed + i, device=device,
-        )
+            dim_for(domain, cols), cols, sequence_combiner=combiner, trainable=tr,
+            l2_reg=l2_reg, seed=seed + i, device=device, **kw)
     return ParallelBlock(tables, block_name="embeddings", schema=cat)
+
+
+class AverageEmbeddingsByWeightFeature(Block):
+    """Each sequence embedding's mean weighted by a weight column of the
+    batch's features (the context's), over its mask; other entries pass."""
+
+    def __init__(self, weight_feature_name: str):
+        super().__init__()
+        self.weight_feature_name = weight_feature_name
+
+    def forward(self, inputs: TensorDict, *, context=None, **kwargs):
+        feats = context.features if context is not None else {}
+        w = feats.get(self.weight_feature_name)
+        if w is None:
+            raise ValueError(f"weight feature {self.weight_feature_name} not in context")
+        w_vals = w.values if isinstance(w, SequenceFeature) else w
+        out = {}
+        for name, v in inputs.items():
+            if isinstance(v, SequenceFeature):
+                weights = (w_vals * v.mask).to(v.values.dtype)
+                denom = weights.sum(dim=1, keepdim=True).clamp_min(1e-9)
+                out[name] = torch.einsum("bld,bl->bd", v.values, weights) / denom
+            else:
+                out[name] = v
+        return out
+
+
+class PretrainedEmbeddingsBlock(Block):
+    """The schema's ``EMBEDDING`` columns as they are (pre-computed
+    vectors), list columns pooled by ``sequence_combiner`` and each passed
+    through ``normalizer`` where given."""
+
+    def __init__(self, schema: Schema, sequence_combiner: Optional[str] = "mean",
+                 normalizer: Optional[Callable] = None):
+        emb_schema = schema.select_by_tag(Tags.EMBEDDING) if schema is not None else None
+        super().__init__(schema=emb_schema, block_name="pretrained_embeddings")
+        self.sequence_combiner = sequence_combiner
+        self.normalizer = normalizer
+
+    def forward(self, inputs: TensorDict, **kwargs):
+        out = {}
+        for name, v in inputs.items():
+            if isinstance(v, SequenceFeature) and self.sequence_combiner:
+                v = SEQUENCE_COMBINERS[self.sequence_combiner](v)
+            if self.normalizer is not None:
+                v = self.normalizer(v)
+            out[name] = v
+        return out
+
+
+def PretrainedEmbeddings(schema: Schema, sequence_combiner: Optional[str] = "mean",
+                         normalizer: Optional[Callable] = None) -> Block:
+    """The reference's name for :class:`PretrainedEmbeddingsBlock`."""
+    return PretrainedEmbeddingsBlock(schema, sequence_combiner, normalizer)
+
+
+def EmbeddingFeatures(schema: Schema, dim: Union[int, Dict[str, int], None] = None,
+                      seed: int = 0, **kwargs) -> ParallelBlock:
+    """The V1 lookup block: one table per categorical domain, no combiner."""
+    return Embeddings(schema, dim=dim, sequence_combiner=None, seed=seed, **kwargs)
+
+
+def SequenceEmbeddingFeatures(schema: Schema, dim: Union[int, Dict[str, int], None] = None,
+                              seed: int = 0, **kwargs) -> ParallelBlock:
+    """The V1 sequence lookups: list columns stay (B, L, D) SequenceFeatures."""
+    return Embeddings(schema, dim=dim, sequence_combiner=None, seed=seed, **kwargs)

@@ -1,7 +1,7 @@
 from .base import BaseModel, History, Model, ModelBlock
 from .benchmark import NCFModel
 from .multi_task import MMOEModel, PLEModel
-from .ranking import DCNModel, DeepFMModel, DLRMModel
+from .ranking import DCNModel, DeepFMModel, DLRMModel, WideAndDeepModel
 from .retrieval import (MatrixFactorizationModel, MatrixFactorizationModelV2, RetrievalModelV2,
                         TwoTowerModel, TwoTowerModelV2, YoutubeDNNRetrievalModel)
 from .session import SessionBasedTransformerModel
@@ -10,4 +10,4 @@ __all__ = ["BaseModel", "DCNModel", "DLRMModel", "DeepFMModel", "History", "MMOE
            "MatrixFactorizationModel", "MatrixFactorizationModelV2", "Model", "ModelBlock",
            "NCFModel", "PLEModel", "RetrievalModelV2",
            "SessionBasedTransformerModel", "TwoTowerModel", "TwoTowerModelV2",
-           "YoutubeDNNRetrievalModel"]
+           "WideAndDeepModel", "YoutubeDNNRetrievalModel"]

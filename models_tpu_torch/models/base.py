@@ -63,10 +63,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..blocks.mlp import LazyMixin
 from ..blocks.optimizer import (MultiOptimizer, SparseEmbeddingOptimizer, check_optimizer,
                                 low_precision_optimizer_state, make_optimizer,
                                 split_embeddings_on_size, state_dtype)
-from ..core.block import Block
+from ..core.block import Block, as_block, call_block
 from ..core.device import check_module_device
 from ..core.policy import get_dtype_policy
 from ..core.types import (ModelContext, Prediction, SequenceFeature, TopKPrediction,
@@ -147,6 +148,18 @@ def _merge_row_valid(sw, row_valid, lead_dim: int):
     return sw
 
 
+def _build_batch(data: Union[Dataset, Loader], cap: int = 32):
+    """One batch of at most ``cap`` rows to build a model on, in row order:
+    2 rows of a dataset, or the loader's batch size capped (the JAX
+    package's ``sample_batch`` and ``_slice_build_batch``: only the batch
+    axis is cut, so every width is the data's)."""
+    if isinstance(data, Loader):
+        loader = Loader(data.dataset, min(data.batch_size, cap), pad=data.pad)
+    else:
+        loader = Loader(data, 2)
+    return next(iter(loader))
+
+
 def _fetch(values: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """Scalars to the host in one copy."""
     if not values:
@@ -179,6 +192,36 @@ class BaseModel(Block):
     def heads(self) -> List[ModelOutput]:
         return [m for m in self.modules() if isinstance(m, ModelOutput)]
 
+    def unbuilt_layers(self) -> List[nn.Module]:
+        """The layers that build at their first call and have not yet."""
+        return [m for m in self.modules() if isinstance(m, LazyMixin) and not m.built]
+
+    @torch.no_grad()
+    def build(self, data, device=None) -> "BaseModel":
+        """Build every layer left without its width (``blocks/mlp.py``'s
+        ``LazyMixin``) in one eager forward, ``training=False``, on at most 32
+        rows of a sample batch of ``data`` (a Dataset, a Loader, or a
+        ``(features, targets)`` pair of host batches), on ``device`` (the
+        model's; the default the card). A model with nothing to build runs
+        nothing. ``fit``, ``evaluate`` and ``predict`` call it first, so
+        that the parameters exist before the optimizer, the row-sparse slots
+        and any captured graph."""
+        if not self.unbuilt_layers():
+            return self
+        dev = check_module_device(self, device)
+        if isinstance(data, (Dataset, Loader)):
+            x, y = _build_batch(data)
+        else:
+            x, y = data if isinstance(data, tuple) else (data, None)
+        xb, yb = to_device_batch(x, dev), to_device_targets(y, dev)
+        self(xb, targets=yb, training=False,
+             context=ModelContext(features=xb, targets=yb))
+        left = self.unbuilt_layers()
+        if left:
+            raise RuntimeError(f"the build pass left {len(left)} layers unbuilt "
+                               f"({type(left[0]).__name__}): no input reached them")
+        return self
+
     def _outputs(self, preds):
         """What ``predict`` returns of the model's output: each head's
         activation of its logits."""
@@ -204,6 +247,7 @@ class BaseModel(Block):
         ``pre``: a transform of each batch's features on the device first."""
         dev = check_module_device(self, device)
         loader = data if isinstance(data, Loader) else Loader(data, batch_size or 1024)
+        self.build(loader, device=dev)
         chunks = []
         for x, y in loader:
             xb = to_device_batch(x, dev)
@@ -507,7 +551,9 @@ class BaseModel(Block):
     # row-sparse embedding training
     # ------------------------------------------------------------------
     def _embedding_tables(self) -> List[EmbeddingTable]:
-        return [m for m in self.modules() if isinstance(m, EmbeddingTable)]
+        """The trainable tables (a frozen table, ``trainable=False``, is a
+        buffer that no optimizer sees)."""
+        return [m for m in self.modules() if isinstance(m, EmbeddingTable) and m.trainable]
 
     def _setup_sparse_embeddings(self) -> List[EmbeddingTable]:
         """Route the tables and return the row-sparse ones, with slots (kept
@@ -846,7 +892,7 @@ class BaseModel(Block):
             batch_size: Optional[int] = None, shuffle: bool = True,
             validation_data: Union[None, Dataset, Loader] = None, validation_freq: int = 1,
             pre: Optional[nn.Module] = None, steps_per_epoch: Optional[int] = None,
-            callbacks: Optional[list] = None, device=None) -> History:
+            callbacks: Optional[list] = None, verbose: int = 0, device=None) -> History:
         """Train for ``epochs`` passes over ``data`` in full batches (the
         loader drops the last partial one). ``history[name]`` holds each
         epoch's mean step log, the metrics over its metric steps, plus
@@ -875,7 +921,9 @@ class BaseModel(Block):
         tensors; with k steps a chunk, after each chunk with its last step's
         logs and the index of that step), ``on_epoch_end(epoch, logs)`` with
         the epoch's logs, and ``on_train_end(history)``. A callback that sets
-        ``model.stop_training`` ends the fit after that epoch."""
+        ``model.stop_training`` ends the fit after that epoch. ``verbose``
+        prints each epoch's logs (the JAX package's line; its default is 1,
+        the port's 0). The model is built first (:meth:`build`)."""
         if not self._compiled:
             self.compile()
         dev = check_module_device(self, device)
@@ -886,6 +934,7 @@ class BaseModel(Block):
         self._pre_transform = pre.to(dev) if isinstance(pre, nn.Module) else pre
         loader = data if isinstance(data, Loader) else Loader(
             data, batch_size or 1024, drop_last=True, shuffle=shuffle)
+        self.build(loader, device=dev)
         B = loader.batch_size
         loss_fns = self._resolve_task_losses()
         task_metrics = self._resolve_task_metrics()
@@ -1017,6 +1066,9 @@ class BaseModel(Block):
                 val = self.evaluate(validation_data, batch_size=batch_size or B, device=dev)
                 epoch_logs.update({f"val_{k}": v for k, v in val.items()})
             history.append(epoch_logs)
+            if verbose:
+                msg = " - ".join(f"{k}: {v:.4f}" for k, v in epoch_logs.items())
+                print(f"Epoch {epoch + 1}/{epochs} - {msg}")
             hook("on_epoch_end", epoch, epoch_logs)
             if self.stop_training:
                 break
@@ -1027,18 +1079,21 @@ class BaseModel(Block):
     @torch.no_grad()
     def evaluate(self, data: Union[Dataset, Loader], batch_size: Optional[int] = None,
                  steps: Optional[int] = None, pre: Optional[nn.Module] = None,
-                 device=None) -> Dict[str, float]:
+                 return_dict: bool = True, verbose: int = 0, device=None) -> Dict[str, float]:
         """The loss and the metrics over ``data`` (every row, the last batch
         padded and its padding masked; at most ``steps`` batches): the heads
         take their evaluation branch (``testing``), the contrastive head
         scoring each batch's in-batch negatives, the top-k head the catalog.
         ``loss`` is the mean of the batches' losses. One copy to the host.
         ``pre``: a transform of each batch on the device, as ``fit``'s
-        (``SequencePredictLast``: the next-item protocol)."""
+        (``SequencePredictLast``: the next-item protocol). ``return_dict``
+        is taken and, as in the JAX package, the result is a dict either
+        way; ``verbose`` prints it."""
         if not self._compiled:
             self.compile()
         dev = check_module_device(self, device)
         loader = data if isinstance(data, Loader) else Loader(data, batch_size or 1024)
+        self.build(loader, device=dev)
         loss_fns = self._resolve_task_losses()
         task_metrics = self._resolve_task_metrics()
         states = self._init_metric_states(task_metrics, dev)
@@ -1060,28 +1115,50 @@ class BaseModel(Block):
         values = {"loss": loss_total / max(n_batches, 1)}
         values.update(self._metric_results(states, task_metrics))
         results = _fetch(values)
-        return {"loss": results.pop("loss"), **results}
+        results = {"loss": results.pop("loss"), **results}
+        if verbose:
+            print(" - ".join(f"{k}: {v:.4f}" for k, v in results.items()))
+        return results
 
 
 class Model(BaseModel):
-    """A sequential container of blocks ending in a head or a block of
-    heads; ``schema`` defaults to the first block's."""
+    """A sequential container of blocks (or functions, or registered names:
+    ``as_block``) ending in a head or a block of heads, with an optional
+    ``pre`` and ``post`` block around them; ``schema`` defaults to the
+    first block's."""
 
-    def __init__(self, *blocks: nn.Module, schema=None):
+    def __init__(self, *blocks, schema=None, pre=None, post=None):
         super().__init__()
+        blocks = [as_block(b) for b in blocks]
         self.blocks = nn.ModuleList(blocks)
+        self.pre = as_block(pre) if pre is not None else None
+        self.post = as_block(post) if post is not None else None
         self.schema = schema
         for b in blocks:
             if schema is None and getattr(b, "schema", None) is not None:
                 self.schema = b.schema
                 break
 
+    @classmethod
+    def from_block(cls, block, schema=None, **kwargs) -> "Model":
+        return cls(block, schema=schema, **kwargs)
+
+    @property
+    def first(self) -> nn.Module:
+        return self.blocks[0]
+
+    @property
+    def last(self) -> nn.Module:
+        return self.blocks[-1]
+
     def forward(self, inputs, **kwargs):
         kwargs.setdefault("context", ModelContext(features=inputs))
-        out = inputs
+        # subclasses that make their blocks themselves may have no pre / post
+        pre, post = getattr(self, "pre", None), getattr(self, "post", None)
+        out = inputs if pre is None else call_block(pre, inputs, **kwargs)
         for block in self.blocks:
-            out = block(out, **kwargs)
-        return out
+            out = call_block(block, out, **kwargs)
+        return out if post is None else call_block(post, out, **kwargs)
 
 
 class ModelBlock(Model):

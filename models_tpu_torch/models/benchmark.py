@@ -28,7 +28,7 @@ class _NCFBody(Block):
         self.mlp_user = EmbeddingTable(embedding_dim, user_col, seed=seed + 2, device=device)
         self.mlp_item = EmbeddingTable(embedding_dim, item_col, seed=seed + 3, device=device)
         if not isinstance(mlp_block, Block):
-            mlp_block = MLPBlock(2 * embedding_dim, mlp_block, seed=seed, device=device)
+            mlp_block = MLPBlock(mlp_block, seed=seed, in_features=2 * embedding_dim, device=device)
         self.mlp = mlp_block
         self.out_features = embedding_dim + mlp_block.out_features
 

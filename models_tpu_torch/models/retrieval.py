@@ -202,8 +202,9 @@ def TwoTowerModel(
         dims = tuple(tower) if tower is not None else (128, 64)
         inputs = InputBlockV2(tower_schema, dim=embedding_dim, param_dtype=table_dtype,
                               seed=tower_seed, device=dev)
-        layers = [inputs, MLPBlock(inputs.out_features, dims, dropout=dropout,
-                                   no_activation_last_layer=True, seed=tower_seed, device=dev)]
+        layers = [inputs, MLPBlock(dims, dropout=dropout, no_activation_last_layer=True,
+                                   seed=tower_seed, in_features=inputs.out_features,
+                                   device=dev)]
         if l2_norm:
             layers.append(L2Norm())
         block = SequentialBlock(layers)
@@ -252,8 +253,8 @@ def YoutubeDNNRetrievalModel(
         if inputs is None:
             raise ValueError("YoutubeDNNRetrievalModel needs input columns besides the item id "
                              "to size its MLP (or a top_block Block)")
-        top_block = MLPBlock(inputs.out_features, tuple(top_block) + (dim,),
-                             no_activation_last_layer=True, seed=seed, device=dev)
+        top_block = MLPBlock(tuple(top_block) + (dim,), no_activation_last_layer=True,
+                             seed=seed, in_features=inputs.out_features, device=dev)
     sampler = PopularityBasedSampler(max_num_samples=num_sampled,
                                      max_id=item_col.cardinality - 1, seed=seed)
     output = ContrastiveOutput(item_table, negative_samplers=[sampler],

@@ -61,7 +61,8 @@ class _ProjectToTableDim(Block):
         super().__init__()
         self.dim = dim
         self.dense = (None if in_features == dim else
-                      Dense(in_features, dim, use_bias=False, seed=seed, device=device))
+                      Dense(dim, use_bias=False, seed=seed, in_features=in_features,
+                            device=device))
 
     def forward(self, inputs, **kwargs):
         if self.dense is None:

@@ -40,18 +40,22 @@ class LogitsTemperatureScaler(Block):
 
 class ModelOutput(Block):
     """Head base: ``pre -> to_call -> temperature`` gives the logits, then
-    the target binding and the ``post`` block (the sample weights:
-    :class:`ColumnBasedSampleWeight`) on the :class:`Prediction`. The head's
-    ``block_name``, ``"<target>/<class>"``, names its loss in the logs.
+    the target binding, the sample weights of the feature
+    ``sample_weight_column`` where one is named, and the ``post`` block
+    (more sample weights: :class:`ColumnBasedSampleWeight`) on the
+    :class:`Prediction`. The head's ``block_name``, ``task_name`` or else
+    ``"<target>/<class>"``, names its loss in the logs.
     """
 
     default_loss: str = "mse"
 
     def __init__(self, target: Optional[str] = None, post=None, logits_temperature: float = 1.0,
-                 to_call: Optional[nn.Module] = None, pre: Optional[nn.Module] = None):
-        super().__init__(
-            block_name=f"{target}/{type(self).__name__}" if target else type(self).__name__)
+                 to_call: Optional[nn.Module] = None, pre: Optional[nn.Module] = None,
+                 sample_weight_column: Optional[str] = None, task_name: Optional[str] = None):
+        super().__init__(block_name=task_name or (
+            f"{target}/{type(self).__name__}" if target else type(self).__name__))
         self.target = target
+        self.sample_weight_column = sample_weight_column
         self.to_call = to_call
         self.pre = pre
         self.post = post
@@ -92,7 +96,11 @@ class ModelOutput(Block):
 
     def forward(self, inputs, *, training=False, context=None, targets=None, **kwargs):
         logits = self.logits(inputs, training=training, context=context, targets=targets)
-        pred = Prediction(outputs=logits, targets=self.bind_target(targets))
+        sw = None
+        if self.sample_weight_column is not None and context is not None:
+            sw = context.features.get(self.sample_weight_column)
+            sw = None if sw is None else sw.to(torch.float32)
+        pred = Prediction(outputs=logits, targets=self.bind_target(targets), sample_weight=sw)
         if self.post is not None:
             pred = self.post(pred, training=training, context=context, targets=targets)
         return pred
@@ -111,9 +119,10 @@ class RegressionOutput(ModelOutput):
 
     default_loss = "mse"
 
-    def __init__(self, target=None, in_features: int = 1, seed: int = 0, device=None, **kwargs):
+    def __init__(self, target=None, in_features: Optional[int] = None, seed: int = 0,
+                 device=None, **kwargs):
         super().__init__(target=_target_name(target), **kwargs)
-        self.to_call = Dense(in_features, 1, seed=seed, device=device)
+        self.to_call = Dense(1, seed=seed, in_features=in_features, device=device)
 
     def default_metrics(self):
         from ..metrics.base import RMSE
@@ -130,9 +139,10 @@ class BinaryOutput(ModelOutput):
 
     default_loss = "binary_crossentropy"
 
-    def __init__(self, target=None, in_features: int = 1, seed: int = 0, device=None, **kwargs):
+    def __init__(self, target=None, in_features: Optional[int] = None, seed: int = 0,
+                 device=None, **kwargs):
         super().__init__(target=_target_name(target), **kwargs)
-        self.to_call = Dense(in_features, 1, seed=seed, device=device)
+        self.to_call = Dense(1, seed=seed, in_features=in_features, device=device)
 
     def default_metrics(self):
         from ..metrics.base import AUC, BinaryAccuracy, Precision, Recall
@@ -148,10 +158,11 @@ class BinaryOutput(ModelOutput):
 class CategoricalTarget(Block):
     """Dense projection to the classes' logits."""
 
-    def __init__(self, in_features: int, num_classes: int, use_bias: bool = True,
-                 seed: int = 0, device=None):
+    def __init__(self, num_classes: int, use_bias: bool = True, seed: int = 0,
+                 in_features: Optional[int] = None, device=None):
         super().__init__()
-        self.dense = Dense(in_features, num_classes, use_bias=use_bias, seed=seed, device=device)
+        self.dense = Dense(num_classes, use_bias=use_bias, seed=seed, in_features=in_features,
+                           device=device)
         self.num_classes = num_classes
 
     def forward(self, inputs, **kwargs):
@@ -215,13 +226,11 @@ class CategoricalOutput(ModelOutput):
         else:
             raise TypeError("CategoricalOutput takes a column, a number of classes or an "
                             f"EmbeddingTable, not {type(to_call).__name__}")
-        if head is None and in_features is None:
-            raise ValueError("CategoricalOutput needs in_features (the body's width)")
         super().__init__(target=target, **kwargs)
         self.num_classes = num_classes
         self.top_ks = tuple(default_metrics_top_ks)
         self.to_call = head if head is not None else CategoricalTarget(
-            in_features, num_classes, seed=seed, device=device)
+            num_classes, seed=seed, in_features=in_features, device=device)
 
     def default_metrics(self):
         from ..metrics.topk import TopKMetricsAggregator
@@ -275,7 +284,7 @@ class ColumnBasedSampleWeight(Block):
         return inputs
 
 
-def OutputBlock(schema: Schema, in_features: int,
+def OutputBlock(schema: Schema, in_features: Optional[int] = None,
                 task_blocks: Optional[Dict[str, nn.Module]] = None,
                 logits_temperature: float = 1.0, device=None) -> Block:
     """Heads from the schema's TARGET columns: regression (a REGRESSION tag,
@@ -291,8 +300,10 @@ def OutputBlock(schema: Schema, in_features: int,
     heads: Dict[str, ModelOutput] = {}
     for col in targets:
         tower = (task_blocks or {}).get(col.name)
+        # a tower's width builds the head now only where its device is known
         kw = dict(logits_temperature=logits_temperature, device=device,
-                  in_features=tower.out_features if tower is not None else in_features)
+                  in_features=(getattr(tower, "out_features", None) if device is not None
+                               else None) if tower is not None else in_features)
         if tower is not None:
             kw["pre"] = tower
         if col.has_tag(Tags.REGRESSION) or (

@@ -87,6 +87,8 @@ class ContrastiveOutput(ModelOutput):
         fused_loss: Union[str, bool] = "auto",
         post=None,
         default_metrics_top_ks: Sequence[int] = (10,),
+        query_name: str = "query",
+        candidate_name: str = "candidate",
     ):
         table = None
         if isinstance(to_call, ColumnSchema):
@@ -103,6 +105,7 @@ class ContrastiveOutput(ModelOutput):
         if col_schema is not None:
             target = target or col_schema.name
         super().__init__(target=target, logits_temperature=logits_temperature, post=post)
+        self.query_name, self.candidate_name = query_name, candidate_name
         # the JAX package's attribute: a tied model's item table is named
         # ``.../table/table`` by its first registration, here
         self.table = table
@@ -157,8 +160,8 @@ class ContrastiveOutput(ModelOutput):
         if row_valid is not None:
             row_valid = row_valid.to(torch.bool)
         if isinstance(inputs, dict):
-            return inputs["query"], Candidate(
-                id=pos_id, embedding=inputs.get("candidate"), valid=row_valid), weights
+            return inputs[self.query_name], Candidate(
+                id=pos_id, embedding=inputs.get(self.candidate_name), valid=row_valid), weights
         if self.tying is None:
             raise ValueError("ContrastiveOutput with tensor input requires an EmbeddingTable "
                              "(weight tying) or dict {'query', 'candidate'} inputs")
@@ -307,7 +310,8 @@ class ContrastiveOutput(ModelOutput):
                 return pred
         if isinstance(inputs, dict):
             # inference: each row's own (query, candidate) score
-            logits = (inputs["query"] * inputs["candidate"]).sum(dim=-1, keepdim=True)
+            logits = (inputs[self.query_name] * inputs[self.candidate_name]).sum(dim=-1,
+                                                                                 keepdim=True)
         else:
             # weight tying: the whole catalog, (B[, L], catalog)
             logits = self.tying(inputs)

@@ -77,7 +77,8 @@ class ParallelPredictionBlock(Block):
         self.heads = nn.ModuleDict(dict(heads))
         self.bias_block = bias_block
         self.bias_logit = (None if bias_block is None else
-                           Dense(bias_block.out_features, 1, device=resolve_device(device)))
+                           Dense(1, in_features=getattr(bias_block, "out_features", None),
+                                 device=resolve_device(device)))
         self.task_weight_dict = {str(k): float(v) for k, v in (task_weight_dict or {}).items()}
 
     def forward(self, inputs, *, training=False, context=None, targets=None, **kwargs):
@@ -96,12 +97,12 @@ class ParallelPredictionBlock(Block):
 
 def PredictionTasks(
     schema: Schema,
-    in_features: int,
     task_blocks: Union[None, nn.Module, Dict[str, nn.Module], Callable[[], nn.Module]] = None,
     task_weight_dict: Optional[Dict[str, float]] = None,
     task_pre_dict: Optional[Dict[str, nn.Module]] = None,
     bias_block: Optional[nn.Module] = None,
     logits_temperature: float = 1.0,
+    in_features: Optional[int] = None,
     device=None,
 ) -> ParallelPredictionBlock:
     """A V1 multi-task block from the schema's TARGET columns, each a head as
@@ -136,7 +137,7 @@ def PredictionTasks(
         parts = [b for b in (tower_for(col.name, i), (task_pre_dict or {}).get(col.name))
                  if b is not None]
         kw = dict(logits_temperature=logits_temperature, device=dev,
-                  in_features=parts[-1].out_features if parts else in_features)
+                  in_features=getattr(parts[-1], "out_features", None) if parts else in_features)
         if parts:
             kw["pre"] = parts[0] if len(parts) == 1 else SequentialBlock(parts)
         if col.has_tag(Tags.REGRESSION) or (

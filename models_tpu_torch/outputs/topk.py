@@ -151,13 +151,14 @@ class TopKOutput(ModelOutput):
 
     def __init__(self, k: int = 10, candidates=None, item_id_name: Optional[str] = None,
                  default_metrics_top_ks=(10,), candidate_dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 to_call: Optional["BruteForce"] = None, device=None):
         super().__init__(target=item_id_name)
         self.block_name = "topk_output"
         self.k = int(k)
         self.item_id_name = item_id_name
         self.top_ks = tuple(default_metrics_top_ks)
-        self.topk_layer = BruteForce(k=k)
+        # to_call: a top-k layer of the caller's (an empty BruteForce of k)
+        self.topk_layer = BruteForce(k=k) if to_call is None else to_call
         dtype = torch.float32 if candidate_dtype is None else candidate_dtype
         if candidates is not None:
             self.topk_layer.index_from_dataset(candidates, dtype=dtype, device=device)

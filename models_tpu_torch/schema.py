@@ -9,7 +9,7 @@ for categorical columns, an integer domain with a known cardinality.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from enum import Enum
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
@@ -93,6 +93,25 @@ class ColumnSchema:
     def has_tag(self, tag: TagLike) -> bool:
         return _norm_tag(tag) in self.tags
 
+    def has_any_tag(self, tags: Iterable[TagLike]) -> bool:
+        return any(self.has_tag(t) for t in tags)
+
+    def has_all_tags(self, tags: Iterable[TagLike]) -> bool:
+        return all(self.has_tag(t) for t in tags)
+
+    def with_tags(self, tags: Union[TagLike, Iterable[TagLike]]) -> "ColumnSchema":
+        return replace(self, tags=tuple(dict.fromkeys(self.tags + _norm_tags(tags))))
+
+    def without_tags(self, tags: Union[TagLike, Iterable[TagLike]]) -> "ColumnSchema":
+        drop = set(_norm_tags(tags))
+        return replace(self, tags=tuple(t for t in self.tags if t not in drop))
+
+    def with_name(self, name: str) -> "ColumnSchema":
+        return replace(self, name=name)
+
+    def with_properties(self, **props) -> "ColumnSchema":
+        return replace(self, properties={**self.properties, **props})
+
     @property
     def is_categorical(self) -> bool:
         return self.has_tag(Tags.CATEGORICAL)
@@ -147,6 +166,9 @@ class Schema:
     def __getitem__(self, name: str) -> ColumnSchema:
         return self._by_name[name]
 
+    def get(self, name: str, default=None) -> Optional[ColumnSchema]:
+        return self._by_name.get(name, default)
+
     def __eq__(self, other) -> bool:
         return isinstance(other, Schema) and self._by_name == other._by_name
 
@@ -164,6 +186,27 @@ class Schema:
     def select_by_tag(self, tags: Union[TagLike, Iterable[TagLike]]) -> "Schema":
         want = set(_norm_tags(tags))
         return Schema([c for c in self if want & set(c.tags)])
+
+    def select_by_all_tags(self, tags: Iterable[TagLike]) -> "Schema":
+        return Schema([c for c in self if c.has_all_tags(tags)])
+
+    def select_by_name(self, names: Union[str, Iterable[str]]) -> "Schema":
+        """The named columns that exist, in the order given."""
+        names = [names] if isinstance(names, str) else list(names)
+        return Schema([self._by_name[n] for n in names if n in self._by_name])
+
+    def __add__(self, other: "Schema") -> "Schema":
+        merged = dict(self._by_name)
+        for c in other:
+            merged[c.name] = c
+        return Schema(merged.values())
+
+    def map(self, fn) -> "Schema":
+        return Schema([fn(c) for c in self])
+
+    def cardinalities(self) -> Dict[str, int]:
+        return {c.name: c.cardinality for c in self
+                if c.int_domain is not None and c.int_domain.is_categorical}
 
     def excluding_by_tag(self, tags: Union[TagLike, Iterable[TagLike]]) -> "Schema":
         drop = set(_norm_tags(tags))
@@ -211,6 +254,15 @@ def infer_embedding_dim(
     if ensure_multiple_of_8:
         dim = int(math.ceil(dim / 8) * 8)
     return max(dim, 8)
+
+
+def categorical_cardinalities(schema: Schema) -> Dict[str, int]:
+    return schema.categorical.cardinalities()
+
+
+def categorical_domains(schema: Schema) -> Dict[str, str]:
+    """Each categorical column's shared domain name (its table's key)."""
+    return {c.name: c.domain_name for c in schema.categorical}
 
 
 def create_categorical_column(

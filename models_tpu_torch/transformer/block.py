@@ -201,7 +201,7 @@ class TransformerBlock(Block):
         if self.in_features == self.d_model:
             self.in_proj = None
         else:
-            self.in_proj = Dense(self.in_features, self.d_model, seed=5, device=device)
+            self.in_proj = Dense(self.d_model, seed=5, in_features=self.in_features, device=device)
 
     def forward(self, inputs, *, training: bool = False, context=None, **kwargs):
         if isinstance(inputs, SequenceFeature):
@@ -295,7 +295,8 @@ class PoolerOutput(Block):
 
     def __init__(self, in_features: int, seed: int = 0, device=None):
         super().__init__()
-        self.dense = Dense(in_features, in_features, activation="tanh", seed=seed, device=device)
+        self.dense = Dense(in_features, activation="tanh", seed=seed, in_features=in_features,
+                           device=device)
 
     def forward(self, inputs, **kwargs):
         v = inputs.values if isinstance(inputs, SequenceFeature) else inputs

@@ -1,4 +1,7 @@
 from .bias import PopularityLogitsCorrection
+from .features import (BroadcastToSequence, CategoryEncoding, ExpandDims, HashedCross,
+                       HashedCrossAll, PrepareFeatures, ToTarget)
+from .noise import StochasticSwapNoise
 from .negative_sampling import InBatchNegatives
 from .regularization import L2Norm
 from .sequence import (ExtractMaskFromTargets, ReplaceMaskedEmbeddings, SequenceMaskLast,
@@ -6,7 +9,9 @@ from .sequence import (ExtractMaskFromTargets, ReplaceMaskedEmbeddings, Sequence
                        SequencePredictNext, SequencePredictRandom, SequenceTargetAsInput,
                        SequenceTransform)
 
-__all__ = ["ExtractMaskFromTargets", "InBatchNegatives", "L2Norm", "PopularityLogitsCorrection", "ReplaceMaskedEmbeddings", "SequenceMaskLast",
+__all__ = ["BroadcastToSequence", "CategoryEncoding", "ExpandDims", "HashedCross",
+           "HashedCrossAll", "PrepareFeatures", "StochasticSwapNoise", "ToTarget",
+           "ExtractMaskFromTargets", "InBatchNegatives", "L2Norm", "PopularityLogitsCorrection", "ReplaceMaskedEmbeddings", "SequenceMaskLast",
            "SequenceMaskLastInference", "SequenceMaskRandom", "SequencePredictLast",
            "SequencePredictNext", "SequencePredictRandom", "SequenceTargetAsInput",
            "SequenceTransform"]

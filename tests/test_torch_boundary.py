@@ -13,7 +13,7 @@ import models_tpu_torch as mt
 from models_tpu_torch.ops import topk as ttopk
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pyarrow", "models_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pyarrow", "pandas", "models_tpu")
 
 
 def test_import_loads_no_jax_and_nothing_of_the_jax_package():
@@ -34,6 +34,13 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "import models_tpu_torch.blocks.experts, models_tpu_torch.models.multi_task\n"
         "import models_tpu_torch.outputs.tasks, models_tpu_torch.transforms.negative_sampling\n"
         "import models_tpu_torch.utils.callbacks\n"
+        "import models_tpu_torch.core.block, models_tpu_torch.core.combinators\n"
+        "import models_tpu_torch.core.aggregation, models_tpu_torch.registry\n"
+        "import models_tpu_torch.inputs.embedding, models_tpu_torch.inputs.base\n"
+        "import models_tpu_torch.inputs.dynamic, models_tpu_torch.inputs.tt_embedding\n"
+        "import models_tpu_torch.transforms.features, models_tpu_torch.transforms.noise\n"
+        "import models_tpu_torch.data.dataset, models_tpu_torch.schema\n"
+        "models_tpu_torch.string_id_hash(['a', b'b', None])\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -113,9 +120,28 @@ ENTRY_POINTS = {
         mt.generate_data("e-commerce", num_rows=8).schema, (8, 4)),
     "MMOEModel": lambda: mt.MMOEModel(_model()[0].schema, embedding_dim=8),
     "PLEModel": lambda: mt.PLEModel(_model()[0].schema, embedding_dim=8),
-    "PredictionTasks": lambda: mt.PredictionTasks(_model()[0].schema, 8),
+    "PredictionTasks": lambda: mt.PredictionTasks(_model()[0].schema, in_features=8),
     "NextItemPredictionTask": lambda: mt.NextItemPredictionTask(
         _model()[0].schema, weight_tying=False, in_features=8),
+    "WideAndDeepModel": lambda: mt.WideAndDeepModel(
+        mt.generate_data("criteo-small", num_rows=8).schema, enable_wide_crosses=False),
+    "DynamicEmbeddingTable": lambda: mt.DynamicEmbeddingTable(
+        8, mt.create_categorical_column("item", 99)),
+    "TTEmbeddingTable": lambda: mt.TTEmbeddingTable(8, mt.create_categorical_column("item", 999)),
+    "EmbeddingTable": lambda: mt.EmbeddingTable(8, mt.create_categorical_column("item", 99)),
+    "EmbeddingTable.from_pretrained": lambda: mt.EmbeddingTable.from_pretrained(
+        np.ones((10, 4), np.float32)),
+    "Embeddings": lambda: mt.Embeddings(_model()[0].schema, dim=4),
+    "Embeddings(dynamic=)": lambda: mt.Embeddings(_model()[0].schema, dim=4,
+                                                  dynamic={"item_id": True}),
+    "EmbeddingFeatures": lambda: mt.EmbeddingFeatures(_model()[0].schema, dim=4),
+    "SequenceEmbeddingFeatures": lambda: mt.SequenceEmbeddingFeatures(
+        mt.generate_data("sequence-testing", num_rows=8).schema, dim=4),
+    "InputBlockV2": lambda: mt.InputBlockV2(_model()[0].schema, dim=4),
+    "InputBlock": lambda: mt.InputBlock(_model()[0].schema, embedding_dim_default=4),
+    "Model.build": lambda: mt.Model(
+        mt.InputBlockV2(_model()[0].schema, dim=4, device="cpu") >> mt.MLPBlock([4]),
+        mt.OutputBlock(_model()[0].schema)).build(_model()[0]),
     "to_top_k_encoder": lambda: _model()[1].to_top_k_encoder(_model()[0], k=3),
     "candidate_embeddings": lambda: _model()[1].candidate_embeddings(_model()[0]),
     "predict": lambda: _encoder()[1].predict(_encoder()[0], batch_size=16),

@@ -445,7 +445,7 @@ def test_in_batch_negatives_train_a_model():
 def test_model_block_trains_any_block():
     _, tds = data(rows=64)
     inputs = mt.InputBlockV2(tds.schema, dim=4, device="cpu")
-    body = mt.core.SequentialBlock([inputs, mt.MLPBlock(inputs.out_features, [8],
+    body = mt.core.SequentialBlock([inputs, mt.MLPBlock([8], in_features=inputs.out_features,
                                                         device="cpu")])
     model = mt.ModelBlock(body, mt.OutputBlock(tds.schema, in_features=8, device="cpu"),
                           schema=tds.schema)

@@ -143,7 +143,7 @@ def test_dense_matches_jax_under_the_policy(activation):
         bias = rng.standard_normal(24).astype(np.float32)
         jd.bias.value = jnp.asarray(bias)
         want = np.asarray(jd(jnp.asarray(x)))
-        td = Dense(40, 24, activation=activation, device="cpu")
+        td = Dense(24, activation=activation, in_features=40, device="cpu")
         with torch.no_grad():
             td.weight.copy_(torch.from_numpy(kernel.T.copy()))
             td.bias.copy_(torch.from_numpy(bias))

@@ -350,18 +350,18 @@ def test_graph_route_code_equals_one_step_at_a_time(kind):
 def v1_pair(jds, tds, task_pre=False, bias=True):
     jbody = mm.InputBlockV2(jds.schema, dim=8) >> mm.MLPBlock([16, 8])
     inputs = mt.InputBlockV2(tds.schema, dim=8, device="cpu")
-    tbody = SequentialBlock([inputs, MLPBlock(inputs.out_features, [16, 8], device="cpu")])
+    tbody = SequentialBlock([inputs, MLPBlock([16, 8], in_features=inputs.out_features, device="cpu")])
     jkw = dict(task_blocks=mm.MLPBlock([6]), task_weight_dict={"click": 1.0, "conversion": 0.5})
-    tkw = dict(task_blocks=MLPBlock(8, [6], device="cpu"),
+    tkw = dict(task_blocks=MLPBlock([6], in_features=8, device="cpu"),
                task_weight_dict={"click": 1.0, "conversion": 0.5})
     if bias:
         jkw["bias_block"] = mm.MLPBlock([4])
-        tkw["bias_block"] = MLPBlock(8, [4], device="cpu")
+        tkw["bias_block"] = MLPBlock([4], in_features=8, device="cpu")
     if task_pre:
         jkw["task_pre_dict"] = {"click": mm.MLPBlock([3])}
-        tkw["task_pre_dict"] = {"click": MLPBlock(6, [3], device="cpu")}
+        tkw["task_pre_dict"] = {"click": MLPBlock([3], in_features=6, device="cpu")}
     jm = mm.Model(jbody, mm.PredictionTasks(jds.schema, **jkw), schema=jds.schema)
-    tm = mt.Model(tbody, mt.PredictionTasks(tds.schema, 8, device="cpu", **tkw),
+    tm = mt.Model(tbody, mt.PredictionTasks(tds.schema, in_features=8, device="cpu", **tkw),
                   schema=tds.schema)
     return jm, tm
 
@@ -398,13 +398,13 @@ def test_cloned_task_blocks_start_apart():
     """One tower block is cloned for each task with its weights drawn anew;
     a factory is called once a task."""
     _, tds = data(rows=8)
-    tasks = mt.PredictionTasks(tds.schema, 8, task_blocks=MLPBlock(8, [6], device="cpu"),
+    tasks = mt.PredictionTasks(tds.schema, in_features=8, task_blocks=MLPBlock([6], in_features=8, device="cpu"),
                                device="cpu")
     a, b = (tasks.heads[n].pre[0].weight for n in sorted(tasks.heads))
     assert a.shape == b.shape == (6, 8) and not torch.equal(a, b)
     made = []
-    mt.PredictionTasks(tds.schema, 8, device="cpu",
-                       task_blocks=lambda: made.append(1) or MLPBlock(8, [6], device="cpu"))
+    mt.PredictionTasks(tds.schema, in_features=8, device="cpu",
+                       task_blocks=lambda: made.append(1) or MLPBlock([6], in_features=8, device="cpu"))
     assert len(made) == 2
 
 

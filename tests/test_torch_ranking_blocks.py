@@ -99,7 +99,7 @@ def test_cross_layer_full_and_low_rank(low_rank_dim):
     x0, x = rand(8, 24), rand(8, 24, seed=1)
     jc = JCross(low_rank_dim=low_rank_dim, seed=3)
     jout = jc((jnp.asarray(x0), jnp.asarray(x)))
-    tc = Cross(24, low_rank_dim=low_rank_dim, device="cpu")
+    tc = Cross(low_rank_dim=low_rank_dim, in_features=24, device="cpu")
     mt.load_jax_params(tc, jax_flat(jc))
     tout = tc((torch.from_numpy(x0), torch.from_numpy(x)))
     close(tout[0], x0, rtol=0, atol=0)
@@ -113,7 +113,7 @@ def test_batch_norm_training_inference_and_running_statistics():
     momentum 0.99, biased variance), then inference on the running ones."""
     jbn = JBatchNorm()
     jbn(jnp.asarray(rand(4, 12)))  # builds it
-    tbn = BatchNorm(12, device="cpu")
+    tbn = BatchNorm(in_features=12, device="cpu")
     mt.load_jax_params(tbn, jax_flat(jbn))
     for step in range(3):
         x = rand(32, 12, seed=10 + step, scale=3.0) + step
@@ -136,7 +136,7 @@ def test_layer_norm():
     x = rand(10, 16, scale=2.0) + 1.0
     jln = JLayerNorm()
     jout = jln(jnp.asarray(x))
-    tln = LayerNorm(16, device="cpu")
+    tln = LayerNorm(in_features=16, device="cpu")
     mt.load_jax_params(tln, jax_flat(jln))
     close(tln(torch.from_numpy(x)), jout)
 
@@ -145,7 +145,7 @@ def test_dense_residual_block_with_batch_norm():
     x = rand(16, 12)
     jb = JResidual(low_rank_dim=3, seed=2)
     jb(jnp.asarray(x))
-    tb = DenseResidualBlock(12, low_rank_dim=3, device="cpu")
+    tb = DenseResidualBlock(low_rank_dim=3, in_features=12, device="cpu")
     mt.load_jax_params(tb, jax_flat(jb))
     close(tb(torch.from_numpy(x), training=True), jb(jnp.asarray(x), training=True))
     close(tb.norm.mean, jb.norm.mean.value, rtol=1e-6, atol=1e-7)
@@ -240,7 +240,7 @@ def test_continuous_embedding_and_projection():
     out = tce({"a": torch.from_numpy(x), "b": torch.from_numpy(x[::-1].copy())})
     assert sorted(out) == ["a", "b"] and out["a"].shape == (12, 4)
     schema = known_schema("criteo-small")
-    proj = mt.blocks.Dense(13, 5, device="cpu")
+    proj = mt.blocks.Dense(5, in_features=13, device="cpu")
     block = ContinuousProjection(schema, proj)
     ds = mt.generate_data("criteo-small", num_rows=8, seed=0)
     xb, _ = next(iter(mt.Loader(ds, 8)))

@@ -109,7 +109,7 @@ def data(name, rows, seed):
 def dcn_bn_deep(ts):
     width = mt.inputs.InputBlockV2(ts, dim=8, device="cpu").out_features
     return (JMLPBlock((16, 8), normalization="batch_norm"),
-            MLPBlock(width, (16, 8), normalization="batch_norm", device="cpu"))
+            MLPBlock((16, 8), normalization="batch_norm", in_features=width, device="cpu"))
 
 
 CASES = {

@@ -449,7 +449,7 @@ def test_two_tower_l2_norm_and_block_towers():
     # Block towers: taken as given; the item tower a re-seeded copy of the query's
     user = tds.schema.select_by_tag(Tags.USER)
     tower = mt.core.SequentialBlock([mt.inputs.InputBlockV2(user, dim=DIM, device="cpu"),
-                                     mt.blocks.MLPBlock(DIM + 1, (8,), device="cpu")])
+                                     mt.blocks.MLPBlock((8,), in_features=DIM + 1, device="cpu")])
     tm = mt.TwoTowerModel(tds.schema, query_tower=tower, device="cpu")
     assert tm.query_encoder is tower and tm.candidate_encoder is not tower
     pq = dict(tm.query_encoder.named_parameters())
@@ -489,8 +489,11 @@ def test_l2norm_dotproduct_and_tied_categorical_output_match_jax():
     np.testing.assert_allclose(thead.activation(got.outputs).detach().numpy(),
                                np.asarray(jhead.activation(want.outputs)), rtol=1e-5,
                                atol=1e-9)
-    with pytest.raises(ValueError, match="in_features"):
-        CategoricalOutput(10)
+    # without in_features the head's Dense builds at its first call
+    lazy = CategoricalOutput(10)
+    assert not lazy.to_call.dense.built
+    out = lazy(torch.ones(3, 7), targets={"x": torch.arange(3)}).outputs
+    assert out.shape == (3, 10) and lazy.to_call.dense.weight.shape == (10, 7)
 
 
 @pytest.mark.parametrize("name", ["NoveltyAt", "PopularityBiasAt", "ItemCoverageAt"])
@@ -555,7 +558,7 @@ def test_embedding_encoder_reads_its_feature_and_passes_the_context():
     np.testing.assert_array_equal(enc.to_dataset().to_numpy_dict()["id"],
                                   np.arange(tds.schema["userId"].cardinality))
     with pytest.raises(TypeError):
-        EmbeddingEncoder(mt.blocks.Dense(2, 2))
+        EmbeddingEncoder(mt.blocks.Dense(2, in_features=2))
 
 
 def test_topk_layer_indexes_every_dataset_layout():

@@ -177,7 +177,7 @@ def test_sparse_optimizer_apply_matches_jax(kind, dtype):
     step drives Adam's correction and a bf16 table's rounding noise)."""
     rng = np.random.default_rng(9)
     jt = JTable(128, jcat("item", 63), seed=2, dtype=getattr(jnp, dtype))
-    tt = EmbeddingTable(128, tcat("item", 63), dtype=getattr(torch, dtype))
+    tt = EmbeddingTable(128, tcat("item", 63), dtype=getattr(torch, dtype), device="cpu")
     mt.load_jax_params(tt, {"table": np.asarray(jt.table[...])})
     assert tt.table.dtype == getattr(torch, dtype)
     jopt, topt = JSparse(kind, learning_rate=0.1), SparseEmbeddingOptimizer(kind, 0.1)
@@ -263,7 +263,7 @@ def test_stochastic_rounding_lands_tiny_updates_in_expectation():
     """A bf16 row takes 300 updates of 1e-5, far below half its ulp:
     rounding to nearest would drop them all; stochastic rounding moves the
     row by 3e-3 on average."""
-    t = EmbeddingTable(8, tcat("item", 99), dtype=torch.bfloat16, seed=3)
+    t = EmbeddingTable(8, tcat("item", 99), dtype=torch.bfloat16, seed=3, device="cpu")
     opt = SparseEmbeddingOptimizer("sgd", learning_rate=1.0)
     opt.init_slots(t)
     before = t.table.detach().clone()
