@@ -217,6 +217,26 @@
    movieId table frozen (bit-unchanged dense and row-sparse, no K7 on it),
    unfrozen, and ``trainable=False``; five TT tables on full Criteo, one
    step against a CPU copy, their lookups timed;
+17b. persistence (phase 21): the bench's two-tower trained 4 epochs of 8
+   batches of 8192 (unshuffled, deterministic algorithms on) against the
+   same run cut after 2 by ``ModelCheckpoint`` and resumed on a fresh model
+   through ``CheckpointManager.restore_training`` and
+   ``fit(initial_epoch=2)``: adam on a warmup-cosine schedule (a function
+   of the device step) one step at a time and 8 steps a graph replay, and
+   row-sparse adagrad on bf16 tables (2 epochs of 4), each bit for bit
+   (losses, state, row-sparse slots, optimizer state, step), the resumed
+   fits' launches counted (K1-K3; K9 on the graph route; K7 and K8b
+   row-sparsely); the trained model saved on the card and loaded on the
+   card (predictions bit for bit) and on the CPU (within FCE_TOL); K5 and
+   K6 through ``torch.ops.models_tpu_torch`` against their wrappers (bit
+   for bit) and plain versions; its top-k encoder over the catalog with
+   fp32, bf16 and int8 indexes and the DLRM at the bench's width exported
+   (``torch.export``) and served by a fresh process that builds no model
+   (``SERVE_CODE``): 256 rows through the K5 op and 4096 through the K6
+   op, each counted there, scores and ids bit for bit against
+   ``predict``'s, the DLRM's 8192 probabilities within FCE_TOL, and each
+   program's latency (host clock and CUDA events, median of 20 calls from
+   host arrays) beside ``predict``'s;
 18. prints one JSON line with each kernel's launches (on its own path's run;
    K7 and K8: both row-sparse runs), error against its plain version, its
    time, the plain version's, the least time the card could take and a
@@ -240,7 +260,9 @@
    ``launches_mmoe*``, ``launches_ple*``; K9 and K7 the DSL slice's,
    ``launches_wd*``, ``launches_dynamic``, ``launches_pretrained``,
    ``launches_example17``, and their times there, ``wd_pack``, ``wd``,
-   ``dynamic_slots``),
+   ``dynamic_slots``; K1-K3, K7, K8b and K9 the resumed fits',
+   ``launches_resume*``; K5 and K6 the served programs',
+   ``launches_exported_<index>_B<rows>``),
    then the card line
    and ``{"ok": true,
    ...}`` last. Host-clock times are [median, min, max].
@@ -5303,6 +5325,397 @@ def phase_dsl(dev, gen, card, errs):
     return out, k9, k7
 
 
+# ---------------------------------------------------------------------------
+# phase 21: save and load, step checkpoints and exact resume, serving export
+# ---------------------------------------------------------------------------
+
+PERSIST_BATCHES = 8  # batches of TRAIN_BATCH an epoch of the resume runs
+SERVE_REPS = 20  # calls a latency is the median of
+PERSIST_DIR = os.path.join(ROOT, "build", "phase21")
+
+# the exported programs, served in a fresh process that builds no model:
+# each program's outputs, the K5 and K6 launches its run counted, the
+# models_tpu_torch operators it holds and its latency (host clock and CUDA
+# events, median of SERVE_REPS calls from host arrays)
+SERVE_CODE = r"""
+import json, sys, time
+import numpy as np
+import torch
+import models_tpu_torch as mt
+from models_tpu_torch.core import config
+from models_tpu_torch.ops import topk as T
+
+out = {}
+for job in json.loads(sys.argv[1]):
+    model = mt.load_serving(job["path"])
+    with np.load(job["request"]) as z:
+        x = {k: z[k] for k in z.files}
+    T.binned_rescore.launches = T.streaming_topk.launches = 0
+    got = model(x)
+    torch.cuda.synchronize()
+    launches = {"binned_rescore": T.binned_rescore.launches,
+                "streaming_topk": T.streaming_topk.launches}
+    got = got if isinstance(got, dict) else {"": got}
+    np.savez(job["out"], **{k: v.cpu().numpy() for k, v in got.items()})
+    host, events = [], []
+    for _ in range(%d):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        model(x)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+        events.append(start.elapsed_time(end))
+    # the program on inputs already on the card, through its call (the
+    # input guards of ExportedProgram.module() first) and its forward alone
+    feats = {k: torch.as_tensor(v, device="cuda") for k, v in x.items()}
+    timed = {}
+    for what, fn in (("call", model._run), ("forward", model._run.forward)):
+        fn(feats)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(%d):
+            t = time.perf_counter()
+            fn(feats)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        timed[what] = float(np.median(ts))
+    ops = sorted({str(n.target) for n in model.program.graph.nodes
+                  if n.op == "call_function" and "models_tpu_torch" in str(n.target)})
+    out[job["name"]] = {"launches": launches, "ops": ops, "host_ms": float(np.median(host)),
+                        "event_ms": float(np.median(events)),
+                        "device_inputs_call_ms": timed["call"],
+                        "device_inputs_forward_ms": timed["forward"]}
+print(json.dumps({"served": out, "constructed": len(config._INIT_ARGS)}))
+""" % (SERVE_REPS, SERVE_REPS)
+
+
+def request_ms(fn, reps: int = SERVE_REPS) -> dict:
+    """A request's latency, median of ``reps`` calls each ending in a
+    synchronise: host clock and CUDA events (ms)."""
+    fn()
+    torch.cuda.synchronize()
+    host, events = [], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+        events.append(start.elapsed_time(end))
+    return {"host_ms": float(np.median(host)), "event_ms": float(np.median(events))}
+
+
+def warmup_cosine(peak: float, warmup: int, decay: int):
+    """optax.warmup_cosine_decay_schedule(0, peak, warmup, decay) in torch
+    ops on the optimizer's device step: evaluated inside the step, so that a
+    captured chunk replays it."""
+    def schedule(step):
+        s = step.to(torch.float32)
+        warm = peak * torch.clamp(s, 0, warmup) / warmup
+        c = torch.clamp(s - warmup, 0, decay - warmup)
+        return torch.where(s < warmup, warm,
+                           peak * 0.5 * (1 + torch.cos(math.pi * c / (decay - warmup))))
+
+    return schedule
+
+
+def resume_case(dev, schema, data, epochs, what, make_kw, compile_kw) -> dict:
+    """An uninterrupted fit of ``epochs`` epochs, unshuffled, against the same
+    run cut after ``epochs // 2`` epochs by a ``ModelCheckpoint`` and resumed
+    on a fresh model through ``CheckpointManager.restore_training`` and
+    ``fit(initial_epoch=)``, deterministic algorithms on: losses, every
+    parameter and buffer (row-sparse slots, bf16 tables), the dense
+    optimizer's state and the step count bit for bit. Returns the launches
+    the resumed fit's wrappers counted and the restore's seconds."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.utils.checkpoint import CheckpointManager, ModelCheckpoint
+    from models_tpu_torch.utils.io import model_state
+
+    def make():
+        m = mt.TwoTowerModel(schema, query_tower=(256, 128), embedding_dim=128, seed=SEED,
+                             device=dev, **make_kw)
+        m.compile(metrics=[], **compile_kw)
+        return m
+
+    half = epochs // 2
+    ckpt = os.path.join(PERSIST_DIR, "ckpt_" + what.replace(" ", "_"))
+    with deterministic(True):
+        whole = make()
+        hw = whole.fit(data, epochs=epochs, batch_size=TRAIN_BATCH, shuffle=False,
+                       device=dev).history
+        first = make()
+        first.fit(data, epochs=half, batch_size=TRAIN_BATCH, shuffle=False, device=dev,
+                  callbacks=[ModelCheckpoint(ckpt, max_to_keep=1)])
+        del first
+        resumed = make()
+        t = time.perf_counter()
+        step = CheckpointManager(ckpt).restore_training(resumed, data=data, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        zero_route_launches()
+        hr = resumed.fit(data, epochs=epochs, initial_epoch=step + 1, batch_size=TRAIN_BATCH,
+                         shuffle=False, device=dev).history
+        torch.cuda.synchronize()
+        launches = {**route_launches(), **sparse_launches()}
+    require(step == half - 1, f"{what}: restored step {step}")
+    require(hr["loss"] == hw["loss"][half:],
+            f"{what}: resumed losses {hr['loss']} against {hw['loss'][half:]}")
+    require(resumed._step == whole._step, f"{what}: steps {resumed._step} / {whole._step}")
+    sw, sr = model_state(whole), model_state(resumed)
+    require(list(sw) == list(sr) and all(
+        sw[k].dtype == sr[k].dtype and torch.equal(sw[k], sr[k]) for k in sw),
+        f"{what}: resumed state differs: {[k for k in sw if not torch.equal(sw[k], sr[k])]}")
+    ow, orr = whole.training_state()["opt_state"], resumed.training_state()["opt_state"]
+    require(sorted(ow) == sorted(orr) and all(
+        torch.equal(v, orr[i][n]) for i in ow for n, v in ow[i].items() if torch.is_tensor(v)),
+        f"{what}: resumed optimizer state differs")
+    slots = sum(".sparse_slots." in k for k in sw)
+    print(f"  (a) {what}: resumed from epoch {step} bit-equal to the uninterrupted run "
+          f"(losses {hr['loss']}, {len(sw)} state tensors, {slots} row-sparse slots, "
+          f"{sum(len(v) for v in ow.values())} optimizer tensors, step {resumed._step}); "
+          f"restore {restore_s:.2f} s, launches {launches}", flush=True)
+    return {"losses": hr["loss"], "restore_s": restore_s, "launches": launches,
+            "model": resumed}
+
+
+def export_trained(dev, model, data, rows: int = 1024) -> None:
+    """A model trained 8 steps a graph replay, its captured chunk (a
+    ``torch.cuda.CUDAGraph``) and optimizer in its engine, exported with
+    the default platforms (the card and the CPU; the CPU program traced on
+    a copy without the engine): the card's program serves ``predict``'s
+    outputs bit for bit, the CPU's within the fp32 tolerance, and the
+    model keeps its chunk."""
+    import models_tpu_torch as mt
+
+    art = os.path.join(PERSIST_DIR, "graph_trained")
+    ds = data.take(rows)
+    t = time.perf_counter()
+    model.export_serving(art, data=ds, batch_size=rows, device=dev)
+    export_s = time.perf_counter() - t
+    with open(os.path.join(art, "serving_spec.json")) as f:
+        require(json.load(f)["platforms"] == ["cuda", "cpu"], "default platforms")
+    require(len(model._chunk_graphs) == 1 and model._optimizer is not None,
+            "the export took the engine away")
+    x, _ = next(iter(mt.Loader(ds, rows)))
+    x = {k: v for k, v in x.items() if k != "__row_valid__"}
+
+    def arrays(out):
+        out = out if isinstance(out, dict) else {"": out}
+        return {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                for k, v in out.items()}
+
+    want = arrays(model.predict(ds, batch_size=rows, device=dev))
+    card_out = arrays(mt.load_serving(art, device=dev)(x))
+    cpu_out = arrays(mt.load_serving(art, device="cpu")(x))
+    require(sorted(card_out) == sorted(want) == sorted(cpu_out)
+            and all(np.array_equal(card_out[k], want[k]) for k in want),
+            "the graph-trained model's card program differs from predict")
+    err = max(float(np.abs(cpu_out[k] - want[k]).max()) for k in want)
+    scale = max(1.0, max(float(np.abs(v).max()) for v in want.values()))
+    require(err <= FCE_TOL * scale, f"the graph-trained model's CPU program: max|d| {err}")
+    print(f"  (a) the graph-trained model exported for the card and the CPU in {export_s:.2f} s "
+          f"(its captured chunk and optimizer kept): the card's program bit-equal to predict, "
+          f"the CPU's within {err:.3g}", flush=True)
+
+
+def check_ops_entry(dev, index, queries) -> dict:
+    """K5 and K6 through their custom-op entries (``torch.ops.
+    models_tpu_torch``), against the wrappers (bit for bit) and the plain
+    versions (the top-k tolerance), on the fp32 index at the serving
+    shapes."""
+    from models_tpu_torch.ops import topk as T
+
+    q = queries.contiguous()
+    n = index.n_valid
+    idx = T.select_bins(q[:256], index.candidates, K, n_valid=n)
+    op5 = torch.ops.models_tpu_torch.binned_rescore(q[:256], index.candidates, idx, 64)
+    wrap5 = T.binned_rescore(q[:256], index.candidates, idx, 64)
+    plain5 = T.binned_rescore_plain(q[:256], index.candidates, idx, 64)
+    s6, i6 = torch.ops.models_tpu_torch.streaming_topk(q, index.candidates, K, index.ids, n, None)
+    ws, wi = T.streaming_topk(q, index.candidates, K, ids=index.ids, n_valid=n)
+    ps, pi = T.streaming_topk_plain(q, index.candidates, K, ids=index.ids, n_valid=n)
+    torch.cuda.synchronize()
+    require(torch.equal(op5, wrap5) and torch.equal(s6, ws) and torch.equal(i6, wi),
+            "the custom-op entries differ from the wrappers")
+    err5 = T.max_abs_err(op5, plain5)
+    require(err5 <= tol_for(plain5), f"binned_rescore through its op: max|d| {err5}")
+    check_topk("streaming_topk through its op", (s6, i6), (ps, pi))
+    print(f"  (c) K5, K6 through torch.ops.models_tpu_torch: equal to the wrappers, K5 max|d| "
+          f"{err5:.3g} against its plain version", flush=True)
+    return {"binned_rescore": err5, "streaming_topk": T.max_abs_err(s6, ps)}
+
+
+def phase_persistence(dev, card, errs):
+    """Phase 21: (a) exact resume, (b) save and load, (c) the exported top-k
+    encoder served by a fresh process, (d) the exported DLRM. Returns
+    (numbers, launches by kernel row and path)."""
+    import shutil
+
+    import models_tpu_torch as mt
+    from models_tpu_torch.ops import topk as T
+
+    shutil.rmtree(PERSIST_DIR, ignore_errors=True)
+    os.makedirs(PERSIST_DIR)
+    out, rows = {}, {}
+    schema = mt.generate_data("movielens-25m", num_rows=1).schema
+    data = mt.generate_data("movielens-25m", num_rows=PERSIST_BATCHES * TRAIN_BATCH,
+                            seed=SEED + 21)
+
+    # (a) resume: adam on a warmup-cosine schedule one step at a time and 8
+    # steps a graph replay; adagrad row-sparsely on bf16 tables
+    sched = dict(optimizer="adam", learning_rate=warmup_cosine(1e-3, 4, 40))
+    one = resume_case(dev, schema, data, 4, "adam warmup-cosine, one step at a time", {},
+                      sched)
+    graph = resume_case(dev, schema, data, 4, "adam warmup-cosine, 8 steps a graph replay",
+                        {}, dict(sched, steps_per_execution=PERSIST_BATCHES))
+    require(len(graph["model"]._chunk_graphs) == 1, "the resumed graph route captured no chunk")
+    sparse = resume_case(dev, schema, data.take(4 * TRAIN_BATCH), 2,
+                         "row-sparse adagrad on bf16 tables", dict(table_dtype=torch.bfloat16),
+                         dict(optimizer="adagrad", learning_rate=0.05,
+                              embedding_optimizer="adagrad"))
+    out["resume"] = {k: {"losses": v["losses"], "restore_s": v["restore_s"]}
+                     for k, v in (("one_step", one), ("graph", graph), ("sparse_bf16", sparse))}
+    for name in ("lse_forward", "grad_query", "grad_neg"):
+        rows.setdefault(name, {})["launches_resume"] = one["launches"][name]
+        rows[name]["launches_resume_graph"] = graph["launches"][name]
+        rows[name]["launches_resume_sparse"] = sparse["launches"][name]
+        require(one["launches"][name] > 0 and graph["launches"][name] > 0,
+                f"the resumed fits never launched {name}")
+    export_trained(dev, graph["model"], data)
+    rows["row_gather"] = {"launches_resume_graph": graph["launches"]["row_gather"]}
+    rows["row_scatter_add"] = {"launches_resume_sparse": sparse["launches"]["row_scatter_add"]}
+    rows["row_scatter_write"] = {
+        "launches_resume_sparse": sparse["launches"]["row_scatter_write"]}
+    for name, n in (("row_gather", graph["launches"]["row_gather"]),
+                    ("row_scatter_add", sparse["launches"]["row_scatter_add"]),
+                    ("row_scatter_write", sparse["launches"]["row_scatter_write"])):
+        require(n > 0, f"the resumed fits never launched {name}")
+
+    # (b) save on the card, load on the card and on the CPU
+    model = one["model"]
+    del graph, sparse
+    queries = mt.generate_data("movielens-25m", num_rows=4096, seed=SEED + 22)
+    path = os.path.join(PERSIST_DIR, "saved")
+    t = time.perf_counter()
+    model.save(path)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    on_card = mt.load_model(path, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    on_cpu = mt.load_model(path, device="cpu")
+    want = model.predict(queries, batch_size=1024, device=dev)
+    got = on_card.predict(queries, batch_size=1024, device=dev)
+    cpu = on_cpu.predict(queries, batch_size=1024, device="cpu")
+    require(np.array_equal(got, want), "the model loaded on the card predicts otherwise")
+    cpu_err = float(np.abs(cpu - want).max())
+    require(cpu_err <= FCE_TOL * max(1.0, float(np.abs(want).max())),
+            f"the model loaded on the CPU: max|d| {cpu_err}")
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
+               if os.path.isfile(os.path.join(path, f)))
+    out["save_load"] = {"save_s": save_s, "load_s": load_s, "bytes": size, "cpu_max_abs_err":
+                        cpu_err}
+    print(f"  (b) saved in {save_s:.2f} s ({size} bytes), loaded on the card in {load_s:.2f} s: "
+          f"predictions bit-equal; on the CPU within {cpu_err:.3g}", flush=True)
+    del on_card, on_cpu
+
+    # (c) the top-k encoder exported over the catalog, fp32, bf16 and int8
+    _, catalog, _ = build_model(dev)
+    jobs, want, export_s, latency = [], {}, {}, {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.int8)):
+        enc = model.to_top_k_encoder(catalog, k=K, candidate_dtype=dtype, batch_size=8192,
+                                     device=dev)
+        if tag == "fp32":
+            out["ops_entry_max_abs_err"] = check_ops_entry(
+                dev, enc.blocks[-1].topk_layer,
+                enc.blocks[0](mt.core.types.to_device_batch(
+                    next(iter(mt.Loader(queries, 4096)))[0], dev)).detach())
+        for B in (256, 4096):
+            name = f"topk_{tag}_B{B}"
+            art = os.path.join(PERSIST_DIR, name)
+            ds = queries.take(B)
+            t = time.perf_counter()
+            enc.export_serving(art, data=ds, batch_size=B, device=dev,
+                               platforms=("cuda", "cpu") if B == 256 else ("cuda",))
+            export_s[name] = time.perf_counter() - t
+            x, _ = next(iter(mt.Loader(ds, B)))
+            np.savez(os.path.join(art, "request.npz"), **mt.core.types.flatten_features(
+                {k: v for k, v in x.items() if k != "__row_valid__"}))
+            want[name] = enc.predict(ds, batch_size=B, device=dev)
+            latency[name] = {f"predict_{k}": v for k, v in request_ms(
+                lambda: enc.predict(ds, batch_size=B, device=dev)).items()}
+            jobs.append({"name": name, "path": art, "request": os.path.join(art, "request.npz"),
+                         "out": os.path.join(art, "served.npz")})
+        del enc
+    # (d) the DLRM at the bench's width, 8192 rows
+    crit = mt.generate_data("criteo-small", num_rows=TRAIN_BATCH, seed=SEED + 23)
+    dlrm = dlrm_model(dev, crit.schema)
+    art = os.path.join(PERSIST_DIR, "dlrm_B8192")
+    t = time.perf_counter()
+    dlrm.export_serving(art, data=crit, batch_size=TRAIN_BATCH, device=dev,
+                        platforms=("cuda",))
+    export_s["dlrm_B8192"] = time.perf_counter() - t
+    x, _ = next(iter(mt.Loader(crit, TRAIN_BATCH)))
+    np.savez(os.path.join(art, "request.npz"), **mt.core.types.flatten_features(
+        {k: v for k, v in x.items() if k != "__row_valid__"}))
+    want["dlrm_B8192"] = dlrm.predict(crit, batch_size=TRAIN_BATCH, device=dev)
+    latency["dlrm_B8192"] = {f"predict_{k}": v for k, v in request_ms(
+        lambda: dlrm.predict(crit, batch_size=TRAIN_BATCH, device=dev)).items()}
+    jobs.append({"name": "dlrm_B8192", "path": art, "request": os.path.join(art, "request.npz"),
+                 "out": os.path.join(art, "served.npz")})
+    del dlrm, model
+    torch.cuda.empty_cache()
+    print(f"  exported in {json.dumps(export_s)} s", flush=True)
+
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", SERVE_CODE, json.dumps(jobs)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    require(res.returncode == 0, f"the serving process failed:\n{res.stderr[-4000:]}")
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"  the serving process ran in {time.perf_counter() - t:.1f} s, constructed "
+          f"{report['constructed']} blocks", flush=True)
+    require(report["constructed"] == 0, "the serving process built a model")
+    launches = {}
+    for job in jobs:
+        name, served = job["name"], report["served"][job["name"]]
+        with np.load(job["out"]) as z:
+            got = {k: z[k] for k in z.files}
+        latency[name].update(served_host_ms=served["host_ms"], served_event_ms=served["event_ms"],
+                             served_device_inputs_call_ms=served["device_inputs_call_ms"],
+                             served_device_inputs_forward_ms=served["device_inputs_forward_ms"])
+        launches[name] = served["launches"]
+        if name.startswith("dlrm"):
+            err = float(np.abs(got[""] - want[name]).max())
+            require(err <= FCE_TOL, f"{name}: served probabilities max|d| {err}")
+            require(served["ops"] == [], f"{name}: operators {served['ops']}")
+            print(f"  (d) {name}: served within {err:.3g} of predict; {latency[name]}",
+                  flush=True)
+            continue
+        kernel = "binned_rescore" if name.endswith("B256") else "streaming_topk"
+        require(served["ops"] == [f"models_tpu_torch.{kernel}.default"],
+                f"{name}: the program holds {served['ops']}")
+        require(served["launches"][kernel] > 0, f"{name}: the loaded program never launched "
+                f"{kernel}: {served['launches']}")
+        require(np.array_equal(got["scores"], want[name]["scores"])
+                and np.array_equal(got["ids"], want[name]["ids"]),
+                f"{name}: served scores or ids differ from predict's")
+        print(f"  (c) {name}: {served['ops']}, launches {served['launches']}, scores and ids "
+              f"bit-equal to predict's; {latency[name]}", flush=True)
+    out.update(export_s=export_s, latency=latency, served_launches=launches)
+    for name, n in launches.items():  # on the kernel's fp32 row, by index and batch
+        if name.startswith("topk"):
+            kernel = "binned_rescore" if name.endswith("B256") else "streaming_topk"
+            rows.setdefault(kernel, {})["launches_exported_" + name[len("topk_"):]] = n[kernel]
+    shutil.rmtree(PERSIST_DIR, ignore_errors=True)
+    print(card, flush=True)
+    return out, rows
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -5584,6 +5997,12 @@ def main() -> int:
         elif row["name"] == "row_scatter_add":
             row.update(dsl_k7)
             row["max_abs_err"] = errs["row_scatter_add"]
+    stamp("phase 21: save and load, exact resume through ModelCheckpoint, the exported "
+          "top-k encoder and DLRM served by a fresh process")
+    persistence, prow = phase_persistence(dev, card, errs)
+    print("persistence " + json.dumps(persistence), flush=True)
+    for row in rows:  # the slice's launches, each counted from zero around its run
+        row.update(prow.get(row["name"], {}))
     stamp("done")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -30,6 +30,15 @@ accuracy; RMSE) and ``predict`` probabilities. The CUDA
 kernels (``csrc/``: the flash-CE forward and backward, streaming top-k, bin
 rescoring, the row scatter-add and scatter-write, the row gather) are built
 with ``nvcc`` at first use.
+
+A model saves and loads (``save_model`` / ``BaseModel.save``,
+``load_model`` / ``BaseModel.load``: a constructor-replay config and its
+state, no pickled module), checkpoints its training
+(``ModelCheckpoint``, ``CheckpointManager.restore_training``: the
+interrupted run continues bit for bit) and exports its inference step as a
+``torch.export`` program (``export_serving``, ``load_serving``) that runs
+with no model code, the top-k kernels inside it as the custom ops that
+importing this package registers.
 """
 
 from .blocks.experts import CGCBlock, ExpertsGate, MMOEBlock, PLEBlock
@@ -58,8 +67,10 @@ from .outputs import (BinaryOutput, BruteForce, CachedCrossBatchSampler, Contras
 from .transforms import (BroadcastToSequence, CategoryEncoding, ExpandDims, HashedCross,
                          HashedCrossAll, InBatchNegatives, PrepareFeatures, StochasticSwapNoise,
                          ToTarget)
-from .utils.callbacks import (Callback, CSVLogger, EarlyStopping, ExamplesPerSecondCallback,
-                              TerminateOnNaN)
+from .utils import (Callback, CheckpointManager, CSVLogger, EarlyStopping,
+                    ExamplesPerSecondCallback, ModelCheckpoint, ProfilerCallback, ServingModel,
+                    TerminateOnNaN, Timing, WandbLogger, export_serving, load_model, load_serving,
+                    save_model)
 from .schema import (ColumnSchema, Schema, Tags, categorical_cardinalities, categorical_domains,
                      create_categorical_column, create_continuous_column)
 
@@ -89,4 +100,6 @@ __all__ = [
     "TopKPrediction", "TwoTowerModel", "YoutubeDNNRetrievalModel", "binary_crossentropy", "generate_data",
     "get_dtype_policy", "load_jax_params", "mean_absolute_error", "mean_squared_error",
     "resolve_device", "set_dtype_policy",
+    "CheckpointManager", "ModelCheckpoint", "ProfilerCallback", "ServingModel", "Timing",
+    "WandbLogger", "export_serving", "load_model", "load_serving", "save_model",
 ]

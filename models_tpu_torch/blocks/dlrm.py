@@ -48,7 +48,9 @@ class DLRMBlock(Block):
         if bottom_block is not None and bottom_block.out_features != embedding_dim:
             raise ValueError(f"bottom block output dim {bottom_block.out_features} != "
                              f"embedding_dim {embedding_dim}")
-        self.bottom = bottom_block
+        # without continuous columns the bottom block never runs: the JAX
+        # package's never builds, and holds no parameter
+        self.bottom = bottom_block if self.continuous is not None else None
         self.interaction = DotProductInteraction(self_interaction=self_interaction)
         self.top = top_block
         self.stack = StackFeatures(axis=1)

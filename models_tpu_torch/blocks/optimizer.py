@@ -4,14 +4,15 @@
 The dense optimizers: ``adagrad`` follows optax's formula (``scale_by_rss``):
 the accumulator starts at 0.1, ``acc += g * g`` and
 ``update = -lr * g * rsqrt(acc + 1e-7)``. ``torch.optim.Adagrad`` differs: its
-accumulator starts at 0 and its eps sits outside the square root. ``sgd`` and
-``adam`` (eps 1e-8) are torch's, whose formulas are optax's; on the card
-Adam is ``capturable`` (its step count on the device, its bias corrections
-taken there in float32, so that a training chunk can be captured as a CUDA
-graph), on the CPU not (the bias corrections in Python floats). beta2 = 0.999
-rounds to float32 1.3e-8 off, 1.3e-5 of ``1 - beta2`` (optax rounds it so
-too): the card's updates differ from the CPU's by up to 6.4e-6 of the
-update (``chip_smoke.py`` holds them to 2**-16 of it).
+accumulator starts at 0 and its eps sits outside the square root. ``sgd`` is
+``update = -lr * g``. ``adam`` (eps 1e-8) with a number for its rate is
+torch's, whose formula is optax's; on the card Adam is ``capturable`` (its
+step count on the device, its bias corrections taken there in float32, so
+that a training chunk can be captured as a CUDA graph), on the CPU not (the
+bias corrections in Python floats). beta2 = 0.999 rounds to float32 1.3e-8
+off, 1.3e-5 of ``1 - beta2`` (optax rounds it so too): the card's updates
+differ from the CPU's by up to 6.4e-6 of the update (``chip_smoke.py`` holds
+them to 2**-16 of it).
 
 ``adamw``, ``rmsprop``, ``lamb`` and ``adafactor`` are written out to optax
 0.2.6's chains with its defaults (:class:`AdamW`, :class:`RMSprop`,
@@ -21,8 +22,10 @@ parameter first). Each keeps its step count on the parameter's device, so
 that a captured chunk replays its bias corrections and schedules, and steps
 every parameter, one without a gradient as with a zero one, as optax does.
 Their ``learning_rate`` may be a function of the step count (an int32
-tensor, 0 at the first step) giving the rate; adagrad, adam and sgd take a
-number. :func:`low_precision_optimizer_state`
+tensor, 0 at the first step) giving the rate; adagrad and sgd take one too
+(:class:`Adagrad` and :class:`SGD` then keep that count on the device), and
+adam takes one as :class:`Adam` (AdamW's chain without the decay: optax's
+adam term for term). :func:`low_precision_optimizer_state`
 (``compile(optimizer_state_dtype=...)``) keeps a dense optimizer's slots in
 bf16 at rest. :class:`MultiOptimizer` sends parameters to different
 optimizers by rule.
@@ -51,30 +54,72 @@ DENSE_OPTIMIZERS = ("adagrad", "adam", "adamw", "adafactor", "lamb", "rmsprop", 
 SPARSE_KINDS = ("sgd", "adagrad", "adam")
 
 
-class Adagrad(torch.optim.Optimizer):
-    """optax.adagrad. Parameters without a gradient are left as they are,
-    which is what a zero gradient does to them."""
+class _Foreach(torch.optim.Optimizer):
+    """Base of adagrad and sgd: one update for all of a group's parameters
+    in a few multi-tensor (``_foreach``) calls. Parameters without a
+    gradient are left as they are, which is what a zero gradient does to
+    them. ``lr``: a number, or a function of the step count giving the rate
+    (optax's schedule), evaluated inside the step from an int32 ``step`` that
+    each parameter then keeps on its device, so that a captured chunk
+    replays the schedule. Only a schedule reads the count, so only a
+    schedule keeps it."""
 
-    def __init__(self, params: Iterable[torch.Tensor], lr: float,
-                 initial_accumulator_value: float = 0.1, eps: float = 1e-7):
-        super().__init__(params, dict(lr=lr, eps=eps))
+    def __init__(self, params: Iterable[torch.Tensor], lr):
+        super().__init__(params, dict(lr=lr))
         for group in self.param_groups:
             for p in group["params"]:
-                self.state[p]["sum"] = torch.full_like(p, initial_accumulator_value)
+                state = self.state[p]
+                if callable(lr):
+                    state["step"] = torch.zeros((), dtype=torch.int32, device=p.device)
+                self._init_slots(p, state)
+
+    def _init_slots(self, p: torch.Tensor, state: dict) -> None:
+        pass
+
+    def _direction(self, params: list, grads: list) -> list:
+        """The update before the rate: new tensors (the slots moved in
+        place)."""
+        raise NotImplementedError
 
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
+            lr, rate = group["lr"], None
+            if callable(lr):
+                steps = [self.state[p]["step"] for p in group["params"]]
+                rate = -lr(steps[0])  # optax: updates * -lr(count)
+                torch._foreach_add_(steps, 1)
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
-            grads = [p.grad for p in params]
-            acc = [self.state[p]["sum"] for p in params]
-            torch._foreach_addcmul_(acc, grads, grads)
-            scale = torch._foreach_add(acc, group["eps"])
-            torch._foreach_rsqrt_(scale)
-            torch._foreach_mul_(scale, grads)
-            torch._foreach_add_(params, scale, alpha=-group["lr"])
+            u = self._direction(params, [p.grad for p in params])
+            if rate is None:
+                torch._foreach_add_(params, u, alpha=-lr)
+            else:
+                torch._foreach_add_(params, torch._foreach_mul(u, rate))
+
+
+class Adagrad(_Foreach):
+    """optax.adagrad: the accumulator from 0.1, ``acc += g * g``, the update
+    ``rsqrt(acc + 1e-7) * g * -lr``."""
+
+    def _init_slots(self, p, state):
+        state["sum"] = torch.full_like(p, 0.1)
+
+    def _direction(self, params, grads):
+        acc = [self.state[p]["sum"] for p in params]
+        torch._foreach_addcmul_(acc, grads, grads)
+        scale = torch._foreach_add(acc, 1e-7)
+        torch._foreach_rsqrt_(scale)
+        torch._foreach_mul_(scale, grads)
+        return scale
+
+
+class SGD(_Foreach):
+    """optax.sgd: the update ``g * -lr``."""
+
+    def _direction(self, params, grads):
+        return grads
 
 
 # optax 0.2.6's defaults of the chains below, the only values the JAX
@@ -148,10 +193,24 @@ class AdamW(_OptaxChain):
     parameter (tables and biases too: no mask), times ``-lr``."""
 
     _init_slots = staticmethod(_adam_slots)
+    weight_decay = ADAMW_WEIGHT_DECAY
 
     def _update(self, p, g, state, lr):
         u = _adam_direction(g, state, ADAMW_EPS)
-        return (u + ADAMW_WEIGHT_DECAY * p) * -lr
+        if self.weight_decay:
+            u = u + self.weight_decay * p
+        return u * -lr
+
+
+class Adam(AdamW):
+    """optax.adam (eps 1e-8), term for term: AdamW's chain without the
+    decay. ``compile("adam")`` takes it where the learning rate is a
+    function of the step. A number rate keeps ``torch.optim.Adam``: its
+    multi-tensor step is a few launches for all parameters, where this
+    chain makes several for each parameter, and the card's one-step
+    training routes are bound by the host's launches (PERF.md §5)."""
+
+    weight_decay = 0.0
 
 
 class RMSprop(_OptaxChain):
@@ -344,32 +403,32 @@ class NoParameters:
     def step(self, closure=None) -> None:
         pass
 
+    def state_dict(self) -> dict:
+        return {"state": {}, "param_groups": []}
 
-_CHAINS = {"adamw": AdamW, "rmsprop": RMSprop, "lamb": Lamb, "adafactor": Adafactor}
+
+_CHAINS = {"adamw": AdamW, "rmsprop": RMSprop, "lamb": Lamb, "adafactor": Adafactor,
+           "adagrad": Adagrad, "sgd": SGD}
 
 
 def make_optimizer(name: str, params: Iterable[torch.Tensor],
                    learning_rate: Union[None, float, Callable]) -> torch.optim.Optimizer:
     """The optimizer ``name`` over ``params`` (:class:`NoParameters` where
     there are none); the learning rate defaults to 1e-3, as in the JAX
-    package. A function of the step is taken by adamw, rmsprop, lamb and
-    adafactor."""
+    package. Every one takes a function of the step count (an int32 tensor
+    on the parameters' device, 0 at the first step) as its learning rate,
+    evaluated inside the step, so that a captured chunk replays the
+    schedule (adam then runs as :class:`Adam`)."""
     check_optimizer(name)
     lr = 1e-3 if learning_rate is None else learning_rate
     params = list(params)
     if not params:
         return NoParameters()
     if name in _CHAINS:
-        return _CHAINS[name](params, lr)
+        return _CHAINS[name](params, lr if callable(lr) else float(lr))
     if callable(lr):
-        raise ValueError(f"optimizer {name!r} takes a number as its learning rate; a function "
-                         f"of the step is taken by {sorted(_CHAINS)}")
-    lr = float(lr)
-    if name == "adagrad":
-        return Adagrad(params, lr)
-    if name == "sgd":
-        return torch.optim.SGD(params, lr=lr)
-    return torch.optim.Adam(params, lr=lr, eps=1e-8,
+        return Adam(params, lr)
+    return torch.optim.Adam(params, lr=float(lr), eps=1e-8,
                             capturable=any(p.device.type == "cuda" for p in params))
 
 
@@ -443,6 +502,15 @@ class MultiStep:
     def step(self, closure=None) -> None:
         for opt in self.optimizers.values():
             opt.step()
+
+    def state_dict(self) -> dict:
+        """Each optimizer's ``state_dict()`` under ``state``, by rule index."""
+        return {"state": {label: opt.state_dict() for label, opt in self.optimizers.items()},
+                "param_groups": []}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        for label, opt in self.optimizers.items():
+            opt.load_state_dict(state_dict["state"][label])
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,8 @@ build pass (``blocks/mlp.py::LazyMixin``).
 
 from __future__ import annotations
 
+import copy
+import functools
 import inspect
 from typing import Any, Callable, Dict, Optional
 
@@ -24,6 +26,7 @@ from torch import nn
 
 from ..registry import block_registry
 from ..schema import Schema
+from .config import copy_captures, record_init
 
 _CALL_KWARGS_CACHE: Dict[Any, Any] = {}
 
@@ -51,10 +54,38 @@ def call_block(block, inputs, **kwargs):
 
 
 class Block(nn.Module):
+    """Every subclass's constructor call is recorded
+    (:func:`~models_tpu_torch.core.config.record_init`, the outermost call
+    of an object), so that a model saves as a config tree
+    (``core/config.py``); a deep copy carries its records, its blocks mapped
+    to their copies."""
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        orig = cls.__dict__.get("__init__")
+        if orig is not None and not getattr(orig, "_records_config", False):
+            @functools.wraps(orig)
+            def wrapped(self, *args, __orig=orig, **kwargs):
+                record_init(self, args, kwargs)
+                __orig(self, *args, **kwargs)
+
+            wrapped._records_config = True
+            cls.__init__ = wrapped
+
     def __init__(self, schema: Optional[Schema] = None, block_name: Optional[str] = None):
+        record_init(self, (), {"schema": schema, "block_name": block_name})
         super().__init__()
         self.schema = schema
         self.block_name = block_name or type(self).__name__
+
+    def __deepcopy__(self, memo):
+        # nn.Module's own deep copy (its __reduce_ex__ state through
+        # __setstate__), plus the config records
+        new = type(self).__new__(type(self))
+        memo[id(self)] = new
+        new.__setstate__(copy.deepcopy(self.__dict__, memo))
+        copy_captures(self, new, memo)
+        return new
 
     def forward(self, inputs, **kwargs):  # pragma: no cover - overridden
         raise NotImplementedError
@@ -194,8 +225,6 @@ def fresh_copy(block, salt: int) -> nn.Module:
     would otherwise serve twice: ``Block.repeat``, both towers of a
     two-tower model, the experts of a group (``blocks/experts.py``), a tower
     cloned for each task (``outputs/tasks.py::PredictionTasks``)."""
-    import copy
-
     cp = copy.deepcopy(as_block(block))
     for m in cp.modules():
         if (hasattr(m, "built") and not m.built and isinstance(getattr(m, "seed", None), int)):

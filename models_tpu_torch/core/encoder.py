@@ -10,21 +10,32 @@ import torch
 
 from ..data.dataset import Dataset
 from ..data.loader import ROW_VALID_KEY, Loader
-from ..schema import Tags
+from ..schema import Schema, Tags
 from .block import Block
 from .device import check_module_device
 from .types import ModelContext, to_device_batch
 
 
 class Encoder(Block):
-    """Wrap a block for batch inference."""
+    """Blocks (one, or several in sequence) for batch inference; ``schema``
+    defaults to the block's. It does not train: ``fit`` raises."""
 
-    def __init__(self, block: Block):
-        super().__init__(schema=getattr(block, "schema", None))
+    def __init__(self, *blocks, schema: Optional[Schema] = None):
+        from .combinators import SequentialBlock
+
+        block = blocks[0] if len(blocks) == 1 else SequentialBlock(list(blocks))
+        super().__init__(schema=schema if schema is not None else getattr(block, "schema", None))
         self.block = block
 
     def forward(self, inputs, **kwargs):
         return self.block(inputs, **kwargs)
+
+    def fit(self, *args, **kwargs):
+        raise RuntimeError("Encoder is inference-only; train the parent model instead")
+
+    def batch_predict(self, dataset: Dataset, batch_size: int = 1024, device=None) -> Dataset:
+        """:meth:`encode` without an index column: ``id`` the row numbers."""
+        return self.encode(dataset, batch_size=batch_size, device=device)
 
     @torch.no_grad()
     def encode(
@@ -101,17 +112,20 @@ def TopKEncoder(
     query_encoder: Block,
     candidates=None,
     k: int = 10,
+    topk_layer: Union[str, Block] = "brute-force-topk",
     item_id_name: Optional[str] = None,
     candidate_dtype: Optional[torch.dtype] = None,
     device=None,
 ):
     """Query encoder + brute-force top-k head, as a model whose ``predict``
-    serves ``{"scores", "ids"}``."""
+    serves ``{"scores", "ids"}``. ``topk_layer``: ``"brute-force-topk"`` or
+    a :class:`~models_tpu_torch.outputs.topk.BruteForce` (``method=`` forces
+    a route); anything else raises."""
     from ..models.base import Model
     from ..outputs.topk import TopKOutput
 
     output = TopKOutput(k=k, candidates=candidates, item_id_name=item_id_name,
-                        candidate_dtype=candidate_dtype, device=device)
+                        candidate_dtype=candidate_dtype, to_call=topk_layer, device=device)
     model = Model(query_encoder, output)
     model.block_name = "topk_encoder"
     return model

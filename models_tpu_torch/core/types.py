@@ -123,3 +123,29 @@ def to_device_targets(targets, device):
     if isinstance(targets, dict):
         return to_device_batch(targets, device)
     return _to_device(targets, device)
+
+
+def flatten_features(x: Dict[str, Any]) -> Dict[str, Any]:
+    """A batch's features as a flat dict, each :class:`SequenceFeature` as
+    ``<name>__values`` and ``<name>__mask`` (``models_tpu/utils/io.py``'s
+    serving layout)."""
+    flat = {}
+    for name, v in x.items():
+        if isinstance(v, SequenceFeature):
+            flat[name + "__values"] = v.values
+            flat[name + "__mask"] = v.mask
+        else:
+            flat[name] = v
+    return flat
+
+
+def unflatten_features(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`flatten_features`."""
+    out = {}
+    for name, v in flat.items():
+        if name.endswith("__values"):
+            base = name[: -len("__values")]
+            out[base] = SequenceFeature(v, flat[base + "__mask"])
+        elif not name.endswith("__mask"):
+            out[name] = v
+    return out

@@ -115,6 +115,18 @@ class Dataset:
         ds._cols, ds.schema = cols, self.schema
         return ds
 
+    def with_columns(self, columns: Dict[str, np.ndarray]) -> "Dataset":
+        """This dataset with ``columns`` added (or replaced), each an array
+        of one row per row; the schema is kept."""
+        cols = dict(self._cols)
+        for name, col in columns.items():
+            col = np.asarray(col)
+            if len(col) != self.num_rows:
+                raise ValueError(f"column {name!r} has {len(col)} rows, the dataset "
+                                 f"{self.num_rows}")
+            cols[name] = col
+        return self._from_cols(cols)
+
     def take(self, n: int) -> "Dataset":
         return self._from_cols(take_rows(self._cols, np.arange(min(n, self.num_rows))))
 

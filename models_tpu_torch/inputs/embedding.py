@@ -55,6 +55,7 @@ from ..core.aggregation import SEQUENCE_COMBINERS
 from ..core.combinators import ParallelBlock
 from ..core.policy import compute_dtype
 from ..core.block import Block
+from ..core.config import set_init_arg
 from ..core.device import resolve_device
 from ..core.types import SequenceFeature, TensorDict
 from ..schema import (ColumnSchema, Schema, Tags, create_categorical_column,
@@ -124,6 +125,8 @@ class EmbeddingTable(Block):
                                  f"({self.input_dim}, {self.dim})")
             table = torch.zeros(self.padded_rows, self.dim, device=device)
             table[: self.input_dim] = w.to(table.device)
+            # the rows are the table's state: the config keeps no copy
+            set_init_arg(self, "weights", None)
         elif initializer is not None:
             # a function (generator, shape, device) -> rows
             gen = torch.Generator(device).manual_seed(seed)

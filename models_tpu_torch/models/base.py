@@ -208,11 +208,15 @@ class BaseModel(Block):
         and any captured graph."""
         if not self.unbuilt_layers():
             return self
+        from ..utils.io import spec_of
+
         dev = check_module_device(self, device)
         if isinstance(data, (Dataset, Loader)):
             x, y = _build_batch(data)
         else:
             x, y = data if isinstance(data, tuple) else (data, None)
+        # the batch's shapes, which load_model builds a fresh model on
+        self._build_spec = spec_of((x, y))
         xb, yb = to_device_batch(x, dev), to_device_targets(y, dev)
         self(xb, targets=yb, training=False,
              context=ModelContext(features=xb, targets=yb))
@@ -287,8 +291,9 @@ class BaseModel(Block):
         Training updates the metrics on every ``train_metrics_steps``-th
         step. The dense optimizer's slots and the step count live until the
         next ``compile()`` (or a fit that starts them afresh: the module's
-        note). ``learning_rate``: a number, or for adamw, rmsprop, lamb and
-        adafactor a function of the step count.
+        note). ``learning_rate``: a number, or a function of the step count
+        (an int32 tensor on the device, 0 at the first step), evaluated
+        inside each step (optax's schedules, written in torch ops).
 
         ``loss_weights``: a head's loss weight by its name or its bare
         target (``{"click/BinaryOutput": 1.0, "conversion": 0.5}``); a head
@@ -892,7 +897,8 @@ class BaseModel(Block):
             batch_size: Optional[int] = None, shuffle: bool = True,
             validation_data: Union[None, Dataset, Loader] = None, validation_freq: int = 1,
             pre: Optional[nn.Module] = None, steps_per_epoch: Optional[int] = None,
-            callbacks: Optional[list] = None, verbose: int = 0, device=None) -> History:
+            callbacks: Optional[list] = None, verbose: int = 0, initial_epoch: int = 0,
+            validation_steps: Optional[int] = None, device=None) -> History:
         """Train for ``epochs`` passes over ``data`` in full batches (the
         loader drops the last partial one). ``history[name]`` holds each
         epoch's mean step log, the metrics over its metric steps, plus
@@ -923,9 +929,18 @@ class BaseModel(Block):
         the epoch's logs, and ``on_train_end(history)``. A callback that sets
         ``model.stop_training`` ends the fit after that epoch. ``verbose``
         prints each epoch's logs (the JAX package's line; its default is 1,
-        the port's 0). The model is built first (:meth:`build`)."""
+        the port's 0). The model is built first (:meth:`build`).
+
+        ``initial_epoch``: the epoch to start from (the epochs run are
+        ``initial_epoch`` ... ``epochs - 1``, as Keras counts them), to
+        continue a run: the optimizer's slots and the step count carry over
+        from the last ``fit`` or from :meth:`arm_training_state`
+        (``CheckpointManager.restore_training``). ``validation_steps`` bounds
+        each validation's batches."""
         if not self._compiled:
             self.compile()
+        if not 0 <= initial_epoch < max(epochs, 1):
+            raise ValueError(f"initial_epoch={initial_epoch} must be in [0, epochs={epochs})")
         dev = check_module_device(self, device)
         if pre is not getattr(self, "_pre_transform", None):
             # a captured chunk holds the transform it ran
@@ -975,7 +990,8 @@ class BaseModel(Block):
             return torch.as_tensor(np.stack([
                 np.random.default_rng(loader.seed + (loader._epoch + 1 + e) * 9973 + salt
                                       ).permutation(n_rows) if loader.shuffle
-                else np.arange(n_rows) for e in range(epochs)]).astype(np.int32), device=dev)
+                else np.arange(n_rows) for e in range(epochs - initial_epoch)]).astype(np.int32),
+                device=dev)
 
         if pack is not None:
             perms = epoch_perms(pack.n_rows)
@@ -993,7 +1009,7 @@ class BaseModel(Block):
         # chunk itself: its graph is replayed once per chunk of each epoch and
         # computes what the fused epochs compute, with one fetch an epoch.
         history = History()
-        for epoch in range(epochs):
+        for epoch in range(initial_epoch, epochs):
             hook("on_epoch_begin", epoch)
             t0 = time.perf_counter()
             states = self._init_metric_states(task_metrics, dev)
@@ -1022,7 +1038,8 @@ class BaseModel(Block):
                 loader._epoch += 1  # the loader's seed bookkeeping, as if it had streamed
                 budget = steps_per_epoch
                 for bucket, gpack in groups or [(None, pack)]:
-                    gperm = perms if bucket is None else group_perms[bucket]
+                    gperm = (perms if bucket is None else group_perms[bucket])[
+                        epoch - initial_epoch]
                     graphs = (None if bucket is None
                               else self._group_graphs.setdefault(bucket, ChunkGraphs()))
                     n_batches, local = gpack.n_rows // B, 0
@@ -1032,7 +1049,7 @@ class BaseModel(Block):
                     while local < n_batches:
                         k = min(spe, n_batches - local)
                         logs, states = self._run_chunk(
-                            gpack.packed, gpack.spec, gperm[epoch, local * B:(local + k) * B],
+                            gpack.packed, gpack.spec, gperm[local * B:(local + k) * B],
                             k, B, metric_chunk(k), loss_fns, task_metrics, states, graphs)
                         n_examples += k * B
                         local += k
@@ -1063,7 +1080,8 @@ class BaseModel(Block):
             epoch_logs = _fetch(values)  # one copy to the host per epoch
             epoch_logs["examples_per_sec"] = n_examples / max(time.perf_counter() - t0, 1e-9)
             if validation_data is not None and (epoch + 1) % validation_freq == 0:
-                val = self.evaluate(validation_data, batch_size=batch_size or B, device=dev)
+                val = self.evaluate(validation_data, batch_size=batch_size or B,
+                                    steps=validation_steps, device=dev)
                 epoch_logs.update({f"val_{k}": v for k, v in val.items()})
             history.append(epoch_logs)
             if verbose:
@@ -1119,6 +1137,142 @@ class BaseModel(Block):
         if verbose:
             print(" - ".join(f"{k}: {v:.4f}" for k, v in results.items()))
         return results
+
+    @torch.no_grad()
+    def batch_predict(self, data: Union[Dataset, Loader], batch_size: int = 1024,
+                      prefix: str = "prediction", pre: Optional[nn.Module] = None,
+                      device=None) -> Dataset:
+        """:meth:`predict` over every row of ``data``, the dataset returned
+        with the predictions appended as columns: ``prefix``, or
+        ``<prefix>/<name>`` for each of a dict's outputs (a (n, k) output a
+        2-D column)."""
+        dataset = data.dataset if isinstance(data, Loader) else data
+        preds = self.predict(data, batch_size=batch_size, pre=pre, device=device)
+        cols = ({f"{prefix}/{k}": v for k, v in preds.items()} if isinstance(preds, dict)
+                else {prefix: preds})
+        return dataset.with_columns(cols)
+
+    # ------------------------------------------------------------------
+    # persistence
+    # ------------------------------------------------------------------
+    def summary(self, print_fn=print) -> str:
+        """The block tree with each block's own parameter count (its
+        parameters and its blocks'), and the model's total, each parameter
+        counted once (a tied table once), as the JAX package counts its
+        ``nnx.Param`` leaves."""
+        lines = [f"Model: {type(self).__name__} ({self.block_name or 'model'})"]
+        seen = set()
+
+        def walk(block, depth):
+            if id(block) in seen:
+                return
+            seen.add(id(block))
+            own = sum(p.numel() for p in block.parameters())
+            name = getattr(block, "block_name", None) or type(block).__name__
+            lines.append(f"{'  ' * depth}{name} [{type(block).__name__}]  params={own:,}")
+            for child in block.children():
+                if isinstance(child, Block):
+                    walk(child, depth + 1)
+                elif isinstance(child, (nn.ModuleList, nn.ModuleDict)):
+                    for c in child.children():
+                        if isinstance(c, Block):
+                            walk(c, depth + 1)
+
+        for child in self.children():
+            for b in (child.children() if isinstance(child, (nn.ModuleList, nn.ModuleDict))
+                      else [child]):
+                if isinstance(b, Block):
+                    walk(b, 1)
+        total = sum(p.numel() for p in self.parameters())
+        lines.append(f"Total params: {total:,} ({total * 4 / 2**20:.1f} MB fp32)")
+        out = "\n".join(lines)
+        if print_fn:
+            print_fn(out)
+        return out
+
+    def save(self, path: str, format: str = "auto") -> str:
+        """:func:`~models_tpu_torch.utils.io.save_model`."""
+        from ..utils.io import save_model
+
+        return save_model(self, path, format=format)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "BaseModel":
+        """:func:`~models_tpu_torch.utils.io.load_model` on ``device``
+        (default the card)."""
+        from ..utils.io import load_model
+
+        return load_model(path, device=device)
+
+    def export_serving(self, path: str, data, batch_size: int = 1024, platforms=None,
+                       device=None) -> str:
+        """:func:`~models_tpu_torch.utils.io.export_serving`: the inference
+        step as ``torch.export`` programs with no model code."""
+        from ..utils.io import export_serving
+
+        return export_serving(self, path, data=data, batch_size=batch_size,
+                              platforms=platforms, device=device)
+
+    def _inner_optimizer(self):
+        """The dense optimizer whose ``state`` holds the slots (the wrapped
+        one of a bf16 optimizer state), or None before the first fit."""
+        opt = getattr(self, "_optimizer", None)
+        return getattr(opt, "optimizer", opt)
+
+    def training_state(self) -> Optional[dict]:
+        """``{"opt_state", "global_step"}``: the dense optimizer's state
+        (``state_dict()["state"]``: its slots and step counts by parameter
+        index, references to the live tensors) and the step count, or None
+        before the first fit. With the model's own state (parameters,
+        row-sparse slots and buffers) it is what ``ModelCheckpoint`` saves
+        so that a run resumes exactly (``CheckpointManager.restore_training``)."""
+        inner = self._inner_optimizer()
+        if inner is None:
+            return None
+        return {"opt_state": inner.state_dict()["state"], "global_step": int(self._step)}
+
+    @torch.no_grad()
+    def arm_training_state(self, opt_state: dict, global_step: int = 0) -> None:
+        """Install restored optimizer state (:meth:`training_state`'s
+        ``opt_state``) and the step count, so that the next ``fit`` continues
+        from them. The model must be built and compiled with the optimizer
+        the state came from. Each slot is copied into the tensor the
+        optimizer holds (its dtype and address kept); slots the optimizer has
+        not made yet (Adam's before its first step) are loaded through
+        ``load_state_dict`` and packed anew. Every captured chunk graph is
+        dropped either way, so that no replay reads a tensor of before."""
+        if not self._compiled:
+            raise ValueError("compile() the model before arm_training_state")
+        if isinstance(self._optimizer_spec, MultiOptimizer) or self.frozen_blocks():
+            raise ValueError("a MultiOptimizer or frozen-block fit starts from fresh slots at "
+                             "step 0: its training state cannot be armed")
+        if self._optimizer is None:
+            self._build_optimizer()
+        inner = self._inner_optimizer()
+        live = inner.state_dict()["state"]
+        same = set(live) == set(opt_state) and all(
+            set(live[i]) == set(opt_state[i]) and all(
+                torch.is_tensor(v) == torch.is_tensor(opt_state[i][n])
+                and (not torch.is_tensor(v) or v.shape == opt_state[i][n].shape)
+                for n, v in live[i].items())
+            for i in live)
+        if same:
+            params = [p for g in inner.param_groups for p in g["params"]]
+            for i, slots in live.items():
+                for name, value in slots.items():
+                    if torch.is_tensor(value):
+                        value.copy_(opt_state[i][name])
+                    else:
+                        inner.state[params[i]][name] = opt_state[i][name]
+        elif opt_state:
+            inner.load_state_dict({"state": opt_state,
+                                   "param_groups": inner.state_dict()["param_groups"]})
+            repack = getattr(self._optimizer, "_pack", None)
+            if repack is not None:
+                repack()
+        self._step = int(global_step)
+        self._chunk_graphs.clear()
+        self._group_graphs.clear()
 
 
 class Model(BaseModel):

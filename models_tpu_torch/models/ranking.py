@@ -62,7 +62,7 @@ def DLRMModel(
     n_cont = len(schema.excluding_by_tag(Tags.TARGET).continuous)
     if isinstance(bottom_block, (list, tuple)):
         bottom_block = MLPBlock(list(bottom_block) + [embedding_dim], seed=seed,
-                                in_features=n_cont, device=dev)
+                                in_features=n_cont, device=dev) if n_cont else None
     if isinstance(top_block, (list, tuple)):
         top_block = MLPBlock(top_block, seed=seed + 1,
                              in_features=DLRMBlock.interaction_width(schema, embedding_dim),

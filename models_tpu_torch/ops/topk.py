@@ -27,7 +27,18 @@ query's; the direct, streaming and blockwise routes score fp32 queries
 against the int8 rows widened to fp32, times the row's scale.
 
 A kernel wrapper takes its plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel or raises. K5 and K6 are
+``torch.library`` custom ops, ``models_tpu_torch::binned_rescore`` and
+``models_tpu_torch::streaming_topk``: each has a fake implementation (its
+outputs' shapes and dtypes), a CPU one (the plain version) and a CUDA one
+(the launch, which counts it), so that a program traced by
+``torch.export`` holds the kernel as an operator and runs it wherever the
+program is loaded after ``import models_tpu_torch``. Their wrappers call
+the op while a program is traced (``torch.compiler.is_compiling()``:
+``torch.export``, ``torch.compile``) and the same two bodies directly
+otherwise: the op's dispatch costs 0.013-0.017 ms of host time a K5 call
+and 0.04-0.07 ms a K6 call on an H100 (PERF.md §6, ``ab_steps.py --what
+predict``). Registering the ops builds and loads nothing.
 """
 
 from __future__ import annotations
@@ -58,10 +69,12 @@ def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     stable descending sort, as ``lax.top_k`` ranks. On the CPU, where a full
     sort costs many times a selection, ``torch.topk`` answers wherever it is
     unambiguous: no two of the k scores equal and no other score equal to
-    the k-th (its order among equal scores is unspecified). Otherwise, and
-    on the card (the check would wait for the device), the sort."""
+    the k-th (its order among equal scores is unspecified). Otherwise, on
+    the card (the check would wait for the device) and while
+    ``torch.export`` traces (the check reads data), the sort."""
     k = min(k, scores.shape[1])
-    if scores.device.type == "cpu":
+    # the check reads the scores: never while torch.export traces
+    if scores.device.type == "cpu" and not torch.compiler.is_exporting():
         s, idx = torch.topk(scores, k, dim=1)
         if not bool((s[:, 1:] == s[:, :-1]).any()) \
                 and bool(((scores >= s[:, -1:]).sum(dim=1) == k).all()):
@@ -231,11 +244,42 @@ def streaming_topk(
     c_real = candidates.shape[0] if n_valid is None else int(n_valid)
     if not 0 <= c_real <= candidates.shape[0]:
         raise ValueError(f"n_valid={n_valid} outside [0, {candidates.shape[0]}]")
+    if queries.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"streaming_topk runs on CUDA or the CPU, not {queries.device}")
+    if torch.compiler.is_compiling():  # the trace holds the operator
+        return torch.ops.models_tpu_torch.streaming_topk(queries, candidates, k, ids, c_real,
+                                                         scale)
     if queries.device.type == "cpu":
         return streaming_topk_plain(queries, candidates, k, ids=ids, n_valid=c_real,
                                     scale=scale)
-    if queries.device.type != "cuda":
-        raise ValueError(f"streaming_topk runs on CUDA or the CPU, not {queries.device}")
+    return _streaming_topk_cuda(queries, candidates, k, ids, c_real, scale)
+
+
+streaming_topk.launches = 0
+
+
+@torch.library.custom_op("models_tpu_torch::streaming_topk", mutates_args=(),
+                         device_types="cpu")
+def _streaming_topk_op(queries: torch.Tensor, candidates: torch.Tensor, k: int,
+                       ids: Optional[torch.Tensor], n_valid: int,
+                       scale: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 as an operator (what a traced program holds); on the CPU its plain
+    version."""
+    return streaming_topk_plain(queries, candidates, k, ids=ids, n_valid=n_valid, scale=scale)
+
+
+@_streaming_topk_op.register_fake
+def _(queries, candidates, k, ids, n_valid, scale):
+    B = queries.shape[0]
+    return (queries.new_empty((B, k), dtype=torch.float32),
+            queries.new_empty((B, k), dtype=torch.int32))
+
+
+@_streaming_topk_op.register_kernel("cuda")
+def _streaming_topk_cuda(queries, candidates, k, ids, n_valid, scale):
+    """The launch of ``csrc/streaming_topk.cu``: its split count planned
+    from the shapes here, at run time."""
+    c_real = n_valid
     B, D = queries.shape
     out_s = torch.empty((B, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((B, k), dtype=torch.int32, device=queries.device)
@@ -261,9 +305,6 @@ def streaming_topk(
     kernels.check(lib, rc, "streaming_topk")
     streaming_topk.launches += 1
     return out_s, out_i
-
-
-streaming_topk.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -382,10 +423,39 @@ def binned_rescore(
     if bin_idx.dtype != torch.int32 or bin_idx.ndim != 2 or not bin_idx.is_contiguous() \
             or bin_idx.shape[0] != queries.shape[0] or bin_idx.device != queries.device:
         raise ValueError("bin_idx must be a contiguous (B, kb) int32 tensor beside the queries")
+    if queries.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"binned_rescore runs on CUDA or the CPU, not {queries.device}")
+    if torch.compiler.is_compiling():  # the trace holds the operator
+        return torch.ops.models_tpu_torch.binned_rescore(queries, candidates, bin_idx, bin_size)
     if queries.device.type == "cpu":
         return binned_rescore_plain(queries, candidates, bin_idx, bin_size)
-    if queries.device.type != "cuda":
-        raise ValueError(f"binned_rescore runs on CUDA or the CPU, not {queries.device}")
+    return _binned_rescore_cuda(queries, candidates, bin_idx, bin_size)
+
+
+binned_rescore.launches = 0
+
+
+@torch.library.custom_op("models_tpu_torch::binned_rescore", mutates_args=(),
+                         device_types="cpu")
+def _binned_rescore_op(queries: torch.Tensor, candidates: torch.Tensor, bin_idx: torch.Tensor,
+                       bin_size: int) -> torch.Tensor:
+    """K5 as an operator (what a traced program holds); on the CPU its plain
+    version."""
+    return binned_rescore_plain(queries, candidates, bin_idx, bin_size)
+
+
+@_binned_rescore_op.register_fake
+def _(queries, candidates, bin_idx, bin_size):
+    return queries.new_empty(
+        (queries.shape[0], bin_idx.shape[1] * bin_size),
+        dtype=torch.int32 if candidates.dtype == torch.int8 else torch.float32)
+
+
+@_binned_rescore_op.register_kernel("cuda")
+def _binned_rescore_cuda(queries, candidates, bin_idx, bin_size):
+    """The launch of ``csrc/binned_rescore.cu`` (its route and grid chosen
+    from the shapes and pointers there, at run time)."""
+    is_int = candidates.dtype == torch.int8
     B, D = queries.shape
     kb = bin_idx.shape[1]
     out = torch.empty((B, kb * bin_size), dtype=torch.int32 if is_int else torch.float32,
@@ -402,9 +472,6 @@ def binned_rescore(
     kernels.check(lib, rc, "binned_rescore")
     binned_rescore.launches += 1
     return out
-
-
-binned_rescore.launches = 0
 
 
 # ---------------------------------------------------------------------------

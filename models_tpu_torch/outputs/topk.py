@@ -6,15 +6,17 @@ evaluation branch. The mesh-sharded index waits for the distribution slice
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.block import Block
+from ..core.config import set_init_arg
 from ..core.device import resolve_device
 from ..core.types import Prediction, TopKPrediction
 from ..ops.topk import _BINNED_BIN_SIZE, int8_scale, topk_scores
+from ..registry import topk_registry
 from .base import ModelOutput
 
 INDEX_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
@@ -58,21 +60,34 @@ class TopKLayer(Block):
             raise ValueError("Candidate ids must be unique to build a top-k index")
 
 
+@topk_registry.register("brute-force-topk")
 class BruteForce(TopKLayer):
     """Exact top-k over the whole candidate matrix.
 
     :meth:`index` zero-pads the matrix ONCE to a multiple of the 64-row bin
     (padded ids are -1) and keeps the real row count in ``n_valid``, so the
     binned route masks the padding in its small pool instead of copying the
-    matrix on every request."""
+    matrix on every request. The index (``candidates``, ``ids``,
+    ``scales``) and its count of padded rows (``padding``) are buffers: a
+    saved model, a checkpoint and an exported program hold them.
+    ``method`` forces a route of ``ops/topk.py::topk_route`` (``"auto"``
+    picks by shape)."""
 
-    def __init__(self, k: int = 10):
+    def __init__(self, k: int = 10, method: str = "auto"):
         super().__init__(k)
+        self.method = method
         self.n_valid: Optional[int] = None
         self.scales_per_bin = False
         self.register_buffer("candidates", None)
         self.register_buffer("ids", None)
         self.register_buffer("scales", None)
+        self.register_buffer("padding", None)
+
+    def state_loaded(self) -> None:
+        """Read the row count back from the buffers after a load."""
+        if self.candidates is not None and self.padding is not None:
+            self.n_valid = int(self.candidates.shape[0] - int(self.padding))
+            self.scales_per_bin = self.scales is not None
 
     def index(self, candidates, ids=None, dtype: torch.dtype = torch.float32,
               device=None) -> "BruteForce":
@@ -113,6 +128,7 @@ class BruteForce(TopKLayer):
         self.scales = scales
         self.scales_per_bin = scales is not None
         self.n_valid = int(n)
+        self.padding = torch.tensor(pad, dtype=torch.int64, device=dev)
         return self
 
     def forward(self, queries, k: Optional[int] = None, **kwargs) -> TopKPrediction:
@@ -120,7 +136,7 @@ class BruteForce(TopKLayer):
             raise ValueError("BruteForce index is empty; call index() first")
         scores, ids = topk_scores(
             queries, self.candidates, k or self.k, ids=self.ids, n_valid=self.n_valid,
-            col_scale=self.scales, col_scale_per_bin=self.scales_per_bin,
+            col_scale=self.scales, col_scale_per_bin=self.scales_per_bin, method=self.method,
             device=self.candidates.device,
         )
         return TopKPrediction(scores, ids)
@@ -151,17 +167,24 @@ class TopKOutput(ModelOutput):
 
     def __init__(self, k: int = 10, candidates=None, item_id_name: Optional[str] = None,
                  default_metrics_top_ks=(10,), candidate_dtype: Optional[torch.dtype] = None,
-                 to_call: Optional["BruteForce"] = None, device=None):
+                 to_call: Union[str, "BruteForce", None] = "brute-force-topk", device=None):
         super().__init__(target=item_id_name)
         self.block_name = "topk_output"
         self.k = int(k)
         self.item_id_name = item_id_name
         self.top_ks = tuple(default_metrics_top_ks)
-        # to_call: a top-k layer of the caller's (an empty BruteForce of k)
-        self.topk_layer = BruteForce(k=k) if to_call is None else to_call
+        # to_call: a top-k layer's registered name or the layer
+        if to_call is None or isinstance(to_call, str):
+            to_call = topk_registry.parse(to_call or "brute-force-topk", k=k)
+        if not isinstance(to_call, BruteForce):
+            raise ValueError(f"the top-k layer must be 'brute-force-topk' or a BruteForce, not "
+                             f"{to_call!r}")
+        self.topk_layer = to_call
         dtype = torch.float32 if candidate_dtype is None else candidate_dtype
         if candidates is not None:
             self.topk_layer.index_from_dataset(candidates, dtype=dtype, device=device)
+            # the index is the layer's state: a saved config replays an empty one
+            set_init_arg(self, "candidates", None)
 
     def default_metrics(self):
         from ..metrics.topk import TopKMetricsAggregator

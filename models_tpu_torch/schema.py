@@ -3,11 +3,15 @@
 A copy of the serving subset of ``models_tpu/schema.py`` (the port imports
 nothing of the JAX package). A ``Schema`` is an ordered collection of
 ``ColumnSchema`` objects, each carrying semantic ``Tags``, dtype, list-ness and,
-for categorical columns, an integer domain with a known cardinality.
+for categorical columns, an integer domain with a known cardinality. It
+reads and writes the TF-metadata JSON layout (``to_dict``, ``save``,
+``load``): the ``.merlin/`` sidecars of a saved model, byte-equal to the
+JAX package's for the same schema.
 """
 
 from __future__ import annotations
 
+import json
 import math
 from dataclasses import dataclass, field, replace
 from enum import Enum
@@ -241,6 +245,83 @@ class Schema:
         if not len(sel):
             raise ValueError("Schema has no column tagged item_id")
         return sel.first
+
+    # ---- the TF-metadata JSON layout (models_tpu/schema.py:293-440) -------
+    def to_dict(self) -> dict:
+        feats = []
+        for c in self:
+            f: dict = {"name": c.name}
+            if c.dtype.startswith("int") or c.dtype.startswith("uint"):
+                f["type"] = "INT"
+            elif c.dtype.startswith("float") or c.dtype.startswith("bfloat"):
+                f["type"] = "FLOAT"
+            else:
+                f["type"] = "BYTES"
+            if c.is_list and c.value_count:
+                f["valueCount"] = {"min": str(c.value_count[0]), "max": str(c.value_count[1])}
+            if c.int_domain:
+                d: dict = {"name": c.int_domain.name or c.name}
+                if c.int_domain.min:
+                    d["min"] = str(int(c.int_domain.min))
+                d["max"] = str(int(c.int_domain.max))
+                if c.int_domain.is_categorical:
+                    d["isCategorical"] = True
+                f["intDomain"] = d
+            extra = {"is_list": c.is_list, "is_ragged": c.is_ragged, "dtype_item_size": 32.0,
+                     **c.properties}
+            f["annotation"] = {"tag": list(c.tags), "extraMetadata": [extra]}
+            feats.append(f)
+        return {"feature": feats}
+
+    def to_json(self, indent: Optional[int] = 2) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "Schema":
+        cols = []
+        for f in data.get("feature", []):
+            name = f["name"]
+            ftype = f.get("type", "FLOAT")
+            ann = f.get("annotation", {}) or {}
+            extra_list = ann.get("extraMetadata", []) or []
+            extra = dict(extra_list[0]) if extra_list else {}
+            value_count = None
+            if "valueCount" in f:
+                vc = f["valueCount"]
+                vmin, vmax = int(vc.get("min", 0)), int(vc.get("max", 0))
+                # NVTabular writes {min: N} alone for lists of fixed length N
+                value_count = (vmin, vmax or vmin)
+            int_domain = None
+            if "intDomain" in f:
+                d = f["intDomain"]
+                int_domain = Domain(min=int(d.get("min", 0)), max=int(d.get("max", 0)),
+                                    name=d.get("name") or name,
+                                    is_categorical=bool(d.get("isCategorical", False)))
+            if ftype == "INT":
+                dtype = "int64" if extra.get("dtype_item_size", 32.0) == 64.0 else "int32"
+            else:
+                dtype = "float32" if ftype == "FLOAT" else "bytes"
+            cols.append(ColumnSchema(
+                name=name, tags=tuple(ann.get("tag", []) or []), dtype=dtype,
+                is_list=bool(extra.get("is_list", False)) or "valueCount" in f,
+                is_ragged=bool(extra.get("is_ragged", False)), int_domain=int_domain,
+                value_count=value_count,
+                properties={k: v for k, v in extra.items()
+                            if k not in ("is_list", "is_ragged", "dtype_item_size", "_dims")}))
+        return cls(cols)
+
+    @classmethod
+    def from_json(cls, text: str) -> "Schema":
+        return cls.from_dict(json.loads(text))
+
+    def save(self, path) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
+    @classmethod
+    def load(cls, path) -> "Schema":
+        with open(path) as f:
+            return cls.from_json(f.read())
 
 
 def infer_embedding_dim(

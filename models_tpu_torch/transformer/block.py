@@ -35,6 +35,7 @@ from torch import nn
 from ..blocks.mlp import Dense, Dropout, NNXLayerNorm, _glorot, get_activation
 from ..core.aggregation import sequence_last, sequence_mean
 from ..core.block import Block
+from ..core.config import record_call
 from ..core.policy import cast_compute
 from ..core.types import SequenceFeature
 
@@ -196,7 +197,9 @@ class TransformerBlock(Block):
 
     def set_in_features(self, in_features: int, device=None) -> None:
         """Take inputs ``in_features`` wide: a projection to ``d_model``
-        (``Dense``, seed 5) where the widths differ, none where they match."""
+        (``Dense``, seed 5) where the widths differ, none where they match.
+        A saved model's config replays the call."""
+        record_call(self, "set_in_features", in_features, device=device)
         self.in_features = int(in_features)
         if self.in_features == self.d_model:
             self.in_proj = None

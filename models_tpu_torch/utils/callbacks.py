@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import math
 import time
+from typing import Optional
 
 
 class Callback:
@@ -58,6 +59,82 @@ class ExamplesPerSecondCallback(Callback):
             self.history.append(eps)
             self.log_fn(f"examples/sec (last {self.every_n_steps} steps): {eps:,.0f}")
             self._t0 = time.perf_counter()
+
+
+class WandbLogger(Callback):
+    """Each epoch's logs to Weights & Biases (``models_tpu/utils/callbacks.py``).
+    Without the ``wandb`` package it does nothing."""
+
+    def __init__(self, project: str = "models-tpu", run_name: Optional[str] = None, config=None):
+        try:
+            import wandb
+        except ImportError:
+            wandb = None
+        self._wandb = wandb
+        self.project = project
+        self.run_name = run_name
+        self.config = config or {}
+        self._run = None
+
+    def set_model(self, model):
+        super().set_model(model)
+        if self._wandb is not None and self._run is None:
+            self._run = self._wandb.init(project=self.project, name=self.run_name,
+                                         config=self.config)
+
+    def on_epoch_end(self, epoch, logs):
+        if self._run is not None:
+            self._wandb.log(dict(logs), step=epoch)
+
+    def finish(self):
+        if self._run is not None:
+            self._run.finish()
+
+
+class ProfilerCallback(Callback):
+    """A ``torch.profiler`` trace of the ``num_steps`` calls of
+    ``on_batch_end`` from the ``start_step``-th on (counted from 1 over the
+    fit), written to ``log_dir`` as a Chrome trace (``trace.json``, CPU and,
+    on the card, CUDA activity). ``trace_path`` names the file once it is
+    written. Under ``steps_per_execution=k`` a call is a chunk."""
+
+    def __init__(self, log_dir: str, start_step: int = 5, num_steps: int = 5):
+        self.log_dir = log_dir
+        self.start_step = start_step
+        self.stop_step = start_step + num_steps
+        self.trace_path: Optional[str] = None
+        self._prof = None
+        self._calls = 0
+
+    def _stop(self):
+        import os
+
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self._prof.__exit__(None, None, None)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.trace_path = os.path.join(self.log_dir, "trace.json")
+        self._prof.export_chrome_trace(self.trace_path)
+        self._prof = None
+
+    def on_batch_end(self, step, logs):
+        import torch
+
+        self._calls += 1
+        if self._calls + 1 == self.start_step and self._prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.__enter__()
+        elif self._calls + 1 == self.stop_step and self._prof is not None:
+            self._stop()
+
+    def on_train_end(self, logs=None):
+        if self._prof is not None:
+            self._stop()
 
 
 class EarlyStopping(Callback):

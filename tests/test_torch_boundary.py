@@ -3,6 +3,7 @@ its entry points refuse to run on the CPU unless asked to."""
 
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -11,9 +12,10 @@ import torch
 
 import models_tpu_torch as mt
 from models_tpu_torch.ops import topk as ttopk
+from models_tpu_torch.utils.checkpoint import CheckpointManager
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pyarrow", "pandas", "models_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pyarrow", "pandas", "models_tpu")
 
 
 def test_import_loads_no_jax_and_nothing_of_the_jax_package():
@@ -40,6 +42,8 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "import models_tpu_torch.inputs.dynamic, models_tpu_torch.inputs.tt_embedding\n"
         "import models_tpu_torch.transforms.features, models_tpu_torch.transforms.noise\n"
         "import models_tpu_torch.data.dataset, models_tpu_torch.schema\n"
+        "import models_tpu_torch.core.config, models_tpu_torch.utils.io\n"
+        "import models_tpu_torch.utils.checkpoint, models_tpu_torch.utils.misc\n"
         "models_tpu_torch.string_id_hash(['a', b'b', None])\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
@@ -61,8 +65,11 @@ def test_importing_the_kernels_builds_nothing_and_loads_no_triton():
         "    popen(self, *a, **k)\n"
         "subprocess.Popen.__init__ = spy\n"
         "import models_tpu_torch.ops.flash_ce, models_tpu_torch.ops.contrastive\n"
-        "import models_tpu_torch.ops.embedding_lookup\n"
+        "import models_tpu_torch.ops.embedding_lookup, models_tpu_torch.ops.topk\n"
+        "import torch\n"
         "from models_tpu_torch.ops import kernels\n"
+        "ops = torch.ops.models_tpu_torch\n"
+        "assert ops.binned_rescore.default and ops.streaming_topk.default\n"
         "print(len(started), len(kernels._libs))\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
@@ -100,6 +107,33 @@ def _model():
 def _encoder():
     ds, m = _model()
     return ds, m.to_top_k_encoder(ds, k=3, batch_size=16, device="cpu")
+
+
+def _cpu_model():
+    ds = mt.generate_data("e-commerce", num_rows=40, seed=0)
+    return ds, mt.TwoTowerModel(ds.schema, query_tower=(8, 4), device="cpu")
+
+
+def _saved() -> str:
+    path = tempfile.mkdtemp()
+    _cpu_model()[1].save(path)
+    return path
+
+
+def _exported() -> str:
+    ds, m = _cpu_model()
+    path = tempfile.mkdtemp()
+    m.to_top_k_encoder(ds, k=3, batch_size=16, device="cpu").export_serving(
+        path, data=ds, batch_size=16, device="cpu")
+    return path
+
+
+def _restore_training():
+    ds, m = _cpu_model()
+    m.compile(optimizer="adagrad", metrics=[])
+    path = tempfile.mkdtemp()
+    CheckpointManager(path).save(0, m, opt_state={}, global_step=0)
+    return CheckpointManager(path).restore_training(m, data=ds)
 
 
 Q, C = np.ones((2, 4), np.float32), np.ones((100, 4), np.float32)
@@ -151,6 +185,12 @@ ENTRY_POINTS = {
     "topk_scores": lambda: ttopk.topk_scores(Q, C, 3),
     "binned_topk": lambda: ttopk.binned_topk(Q, C, 3),
     "blockwise_topk": lambda: ttopk.blockwise_topk(Q, C, 3),
+    "load_model": lambda: mt.load_model(_saved()),
+    "BaseModel.load": lambda: mt.BaseModel.load(_saved()),
+    "load_serving": lambda: mt.load_serving(_exported()),
+    "CheckpointManager.restore_training": _restore_training,
+    "export_serving": lambda: _cpu_model()[1].export_serving(
+        tempfile.mkdtemp(), data=_cpu_model()[0], batch_size=16),
 }
 
 

@@ -33,8 +33,9 @@ from models_tpu.data import generate_data as jax_generate
 from models_tpu.transforms.negative_sampling import InBatchNegatives as JInBatchNegatives
 
 import models_tpu_torch as mt
-from models_tpu_torch.blocks.optimizer import (Adafactor, LowPrecisionState, MultiStep,
-                                               factored_dims, low_precision_optimizer_state,
+from models_tpu_torch.blocks.optimizer import (SGD, Adafactor, Adagrad, Adam, LowPrecisionState,
+                                               MultiStep, factored_dims,
+                                               low_precision_optimizer_state,
                                                make_optimizer, param_path)
 from models_tpu_torch.core.types import to_device_batch, to_device_targets
 from models_tpu_torch.utils import callbacks as cbs
@@ -63,13 +64,13 @@ def _schedule(count):
     return 1e-2 * 0.5 ** count
 
 
-@pytest.mark.parametrize("name", OPTIMIZERS)
-@pytest.mark.parametrize("lr", ["constant", "schedule"])
-def test_optimizer_matches_optax(name, lr):
-    """Three steps on parameters of 2-D (one of them (256, 128): adafactor
-    factors it), 1-D and a zero row; the same gradients in both (one
-    parameter's gradient missing on the port's side: optax sees zeros)."""
-    rate = 1e-2 if lr == "constant" else _schedule
+def _three_steps_against_optax(name, rate):
+    """Three steps of ``make_optimizer(name)`` and of ``optax.<name>`` on
+    parameters of 2-D (one of them (256, 128): adafactor factors it), 1-D
+    and a zero row, with the same gradients (one parameter's gradient
+    missing on the port's side at the second step: optax sees zeros); the
+    parameters within 1e-6 of their scale after each. Returns (the port's
+    optimizer, its parameters, optax's state)."""
     rng = np.random.default_rng(3)
     ws = [rng.standard_normal(s).astype(np.float32) for s in SHAPES]
     ws[2][0] = 0.0
@@ -91,6 +92,15 @@ def test_optimizer_matches_optax(name, lr):
             want = np.asarray(want)
             np.testing.assert_allclose(p.detach().numpy(), want, rtol=0,
                                        atol=1e-6 * np.abs(want).max(), err_msg=f"step {step}")
+    return opt, ps, state
+
+
+@pytest.mark.parametrize("name", OPTIMIZERS)
+@pytest.mark.parametrize("lr", ["constant", "schedule"])
+def test_optimizer_matches_optax(name, lr):
+    """The chains against optax (:func:`_three_steps_against_optax`), and
+    their second moments and step counts after."""
+    opt, ps, state = _three_steps_against_optax(name, 1e-2 if lr == "constant" else _schedule)
     if name == "adafactor":
         big = opt.state[ps[0]]
         assert factored_dims(SHAPES[0]) == (1, 0) and factored_dims(SHAPES[1]) is None
@@ -158,9 +168,31 @@ def test_optimizer_under_low_precision_state(name):
     np.testing.assert_allclose(p.detach().numpy(), ref.detach().numpy(), rtol=0, atol=2e-2 * 3e-2)
 
 
+@pytest.mark.parametrize("name,lr", [("adagrad", "constant"), ("adagrad", "schedule"),
+                                     ("sgd", "constant"), ("sgd", "schedule"),
+                                     ("adam", "schedule")])
+def test_adagrad_sgd_and_scheduled_adam_match_optax(name, lr):
+    """adagrad and sgd, one class each whatever the rate, and adam with a
+    schedule (its chain) against optax; a schedule's step count on the
+    parameters, none for a number rate."""
+    opt, ps, state = _three_steps_against_optax(name, 1e-2 if lr == "constant" else _schedule)
+    assert type(opt) is {"adagrad": Adagrad, "sgd": SGD, "adam": Adam}[name]
+    if name == "adagrad":
+        np.testing.assert_allclose(opt.state[ps[0]]["sum"].numpy(),
+                                   np.asarray(state[0].sum_of_squares[0]), rtol=1e-6)
+    steps = [st.get("step") for st in opt.state.values()]
+    if lr == "schedule":
+        assert all(int(s) == 3 for s in steps) and len(steps) == len(ps)
+    else:
+        assert steps == [None] * len(steps)
+
+
 def test_callable_learning_rate_is_refused_where_it_is_not_taken():
-    with pytest.raises(ValueError, match="takes a number"):
-        make_optimizer("adam", [torch.zeros(2, requires_grad=True)], _schedule)
+    # adam, adagrad and sgd take a schedule too; only an unknown optimizer
+    # is refused
+    for name, cls in (("adam", Adam), ("adagrad", Adagrad), ("sgd", SGD)):
+        assert type(make_optimizer(name, [torch.zeros(2, requires_grad=True)],
+                                   _schedule)) is cls
     with pytest.raises(ValueError, match="Unknown optimizer"):
         make_optimizer("adadelta", [torch.zeros(2, requires_grad=True)], 0.1)
 
