@@ -237,7 +237,29 @@
    ``predict``'s, the DLRM's 8192 probabilities within FCE_TOL, and each
    program's latency (host clock and CUDA events, median of 20 calls from
    host arrays) beside ``predict``'s;
-18. prints one JSON line with each kernel's launches (on its own path's run;
+18. the mesh (phase 22), its ranks started by
+   ``models_tpu_torch.parallel.launch.spawn`` as functions of this file:
+   (a) one rank over NCCL trains the bench's two-tower 8 steps on a
+   {1, 1} mesh, bit for bit the fit without a mesh (deterministic
+   algorithms on), and runs the sharded lookup (K9), row update (K7) and
+   top-k (K5 at 256 rows, K6 at 4096) on a model axis of one against the
+   single-card ops; NCCL is asked for four ranks on the card and its answer
+   printed; (b) four ranks on the one card over MESH_BACKEND (gloo: NCCL
+   refuses ranks that share a card) train the two-tower (dense Adam,
+   row-sparse adagrad on fp32 and on bf16 tables) and the DLRM at the
+   bench's widths 8 steps each on {2, 2}, each step's global loss within
+   MESH_RTOL of the same fit in this process (the bf16 tables, stitched
+   from the shards, to its tables by the flip rule), each rank's launches of the
+   path's kernels counted, the largest collective at most the global
+   batch's rows of its widest lookup and no all-reduce larger than the
+   dense gradients; rank 0 holds K1-K3 (Q = 4096, N = 8192), K9, K7 and
+   K8 on the userId shard, and K5 and K6 on a 250,000-row catalog shard,
+   to their plain versions; the 1M x 128 catalog split over {1, 4}
+   (fp32, bf16, int8) serves 256 rows (K5) and 4096 (K6) with the
+   one-rank route's ids; each rank's step time (host clock and CUDA
+   events) and time in collectives (medians of steps 2-8), labelled
+   MESH_LABEL;
+19. prints one JSON line with each kernel's launches (on its own path's run;
    K7 and K8: both row-sparse runs), error against its plain version, its
    time, the plain version's, the least time the card could take and a
    PyTorch yardstick's (the bound at the peak of the fastest arithmetic
@@ -331,6 +353,15 @@ Wide&Deep and the DSL slice's models, card vs CPU: as multi-task, with
 adagrad's bound (one learning rate a step); the wide path's gathered form
 within FCE_TOL of its dense form (the largest |output| at least 1); dynamic
 tables' slots and keys bit for bit.
+
+The mesh: one NCCL rank bit for bit against no mesh; four ranks' global
+losses within MESH_RTOL (2e-4, the JAX package's mesh tests' tolerance) of
+one process's (fp32 sums in another order, over the data line), the bf16
+tables as card vs CPU under the policy (every element that differs a
+flip within MIXED_PARAM_ATOL and one bf16 ulp, at most FLIP_SHARE_MAX of
+those the steps moved: both sides round with the same noise); sharded
+top-k ids against the one-rank route as the serving checks hold them. A
+rank that fails fails the phase (``spawn`` raises with its traceback).
 
 Any failed check raises, and the script exits non-zero. It imports nothing of
 JAX or of the JAX package.
@@ -5716,6 +5747,530 @@ def phase_persistence(dev, card, errs):
     return out, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the mesh (torch.distributed ranks)
+# ---------------------------------------------------------------------------
+
+# The four ranks share the one card. NCCL refuses two ranks on one device
+# (the phase asks it again and prints its answer), so they join over gloo,
+# chosen here and not by a try: the collective layer stages each collective
+# of CUDA tensors through host memory under gloo
+# (models_tpu_torch/parallel/collectives.py).
+MESH_BACKEND = "gloo"
+MESH_SHAPE = {"data": 2, "model": 2}
+TOPK_MESH = {"data": 1, "model": 4}
+MESH_STEPS = 8
+MESH_RTOL = 2e-4  # the JAX tests' tolerance on a mesh's loss trajectory
+MESH_TIMEOUT = 300
+MESH_LABEL = "four ranks sharing one H100, not a multi-card time"
+MESH_KINDS = ("dense", "sparse", "bf16", "dlrm")
+# where each run must launch each kernel of its path
+MESH_PATHS = {
+    "dense": ("lse_forward", "grad_query", "grad_neg", "row_gather", "row_scatter_add"),
+    "sparse": ("lse_forward", "grad_query", "grad_neg", "row_gather", "row_scatter_add"),
+    "bf16": ("lse_forward", "grad_query", "grad_neg", "row_gather", "row_scatter_add",
+             "row_scatter_write"),
+    "dlrm": ("row_gather", "row_scatter_add"),
+}
+
+
+def mesh_counters() -> dict:
+    from models_tpu_torch.ops import embedding_lookup as E
+    from models_tpu_torch.ops import flash_ce as F
+    from models_tpu_torch.ops import scatter as S
+    from models_tpu_torch.ops import topk as T
+
+    return {"lse_forward": F.lse_forward, "grad_query": F.grad_query, "grad_neg": F.grad_neg,
+            "row_gather": E.row_gather, "row_scatter_add": S.row_scatter_add,
+            "row_scatter_write": S.row_scatter_write, "binned_rescore": T.binned_rescore,
+            "streaming_topk": T.streaming_topk}
+
+
+def zero_mesh_counts() -> None:
+    for fn in mesh_counters().values():
+        fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
+
+
+def mesh_counts() -> dict:
+    return {name: fn.launches for name, fn in mesh_counters().items()}
+
+
+def mesh_model(kind: str, schema, dev):
+    import models_tpu_torch as mt
+
+    if kind == "dlrm":
+        return dlrm_model(dev, schema)
+    dtype = torch.bfloat16 if kind == "bf16" else None
+    return mt.TwoTowerModel(schema, query_tower=(256, 128), embedding_dim=128, table_dtype=dtype,
+                            seed=SEED, device=dev)
+
+
+def mesh_compile(model, kind: str):
+    if kind == "dense":
+        return model.compile(optimizer="adam", learning_rate=ADAM_LR, metrics=[])
+    if kind == "dlrm":
+        return model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[])
+    return compile_sparse(model)
+
+
+class StepClock:
+    """A fit callback: each step's local loss, its end on the host clock
+    (after a synchronise) and as a CUDA event, and the host seconds spent in
+    collectives so far (``TRAFFIC``)."""
+
+    def set_model(self, model):
+        pass
+
+    def _mark(self):
+        from models_tpu_torch.parallel.collectives import TRAFFIC
+
+        self.host.append(time.perf_counter())
+        self.coll.append(sum(TRAFFIC.seconds.values()))
+
+    def on_epoch_begin(self, epoch):
+        torch.cuda.synchronize()
+        self.losses, self.events = [], [torch.cuda.Event(enable_timing=True)]
+        self.events[0].record()
+        self.host, self.coll = [], []
+        self._mark()
+
+    def on_batch_end(self, step, logs):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        torch.cuda.synchronize()
+        self._mark()
+        self.events.append(ev)
+        self.losses.append(logs["loss"].detach().reshape(()))
+
+    def step_ms(self) -> dict:
+        """Medians over the steps after the first (which builds the
+        optimizer's slots, the lookups' buffers and the groups' links)."""
+        host = np.diff(self.host) * 1e3
+        coll = np.diff(self.coll) * 1e3
+        events = [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+        return {"host_ms": float(np.median(host[1:])), "events_ms": float(np.median(events[1:])),
+                "collective_ms": float(np.median(coll[1:])), "first_host_ms": float(host[0])}
+
+
+def mesh_fit(model, kind, data, dev, mesh=None) -> dict:
+    """MESH_STEPS steps of a seeded model, one epoch, unshuffled: the global
+    batch's loss of each step (the mean over the data line of the ranks'),
+    the kernels' launches, the collectives and the step times."""
+    from models_tpu_torch.parallel.collectives import TRAFFIC, all_reduce
+
+    mesh_compile(model, kind)
+    clock = StepClock()
+    zero_mesh_counts()
+    TRAFFIC.reset()
+    model.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False, device=dev, mesh=mesh,
+              callbacks=[clock])
+    torch.cuda.synchronize()
+    traffic = TRAFFIC.snapshot()
+    launches = mesh_counts()
+    losses = torch.stack(clock.losses).float()
+    if mesh is not None:
+        g = mesh.group("data")
+        losses = all_reduce(losses, g) / g.size
+    return {"loss": losses.cpu().tolist(), "launches": launches, "traffic": traffic,
+            **clock.step_ms()}
+
+
+def nccl_probe(rank, world, init):
+    """NCCL's answer to four ranks on one card: an all-reduce over them, or
+    the error it raises (recorded: the phase's backend is chosen apart)."""
+    from models_tpu_torch.parallel import initialize, shutdown
+
+    try:
+        initialize(init, world, rank, backend="nccl", device="cuda:0", timeout=30)
+        t = torch.ones(4, device="cuda:0")
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        return {"ok": True, "sum": float(t[0])}
+    except Exception as err:  # the probe's result is the answer itself
+        return {"ok": False, "error": f"{type(err).__name__}: {err}"[:800]}
+    finally:
+        shutdown()
+
+
+def mesh_ops_one(mesh, dev) -> dict:
+    """The sharded ops on a model axis of one against the single-card ones:
+    the lookup (K9), the row update (K7), the top-k (K5 at 256 queries, K6
+    at 4096) over a 65,536-row catalog."""
+    from models_tpu_torch.ops import embedding_lookup as E
+    from models_tpu_torch.ops import topk as T
+
+    gen = torch.Generator(dev).manual_seed(SEED + 221)
+    table = torch.randn(USER_ROWS, 128, device=dev, generator=gen)
+    ids = torch.randint(0, USER_ROWS, (TRAIN_BATCH,), device=dev, generator=gen)
+    upd = torch.randn(TRAIN_BATCH, 128, device=dev, generator=gen)
+    zero_mesh_counts()
+    got = E.sharded_lookup(table, ids, mesh)
+    require(torch.equal(got, E.row_gather_plain(table, ids.to(torch.int32))),
+            "sharded_lookup on a model axis of one differs from the gather")
+    moved = E.sharded_update_rows(table.clone(), ids, upd, mesh)
+    want = table.clone().index_add_(0, ids, upd)
+    require(max_err(moved, want) <= 1e-5, "sharded_update_rows on a model axis of one")
+    cand = torch.randn(65_536, 128, device=dev, generator=gen)
+    q = torch.randn(4096, 128, device=dev, generator=gen)
+    for B in (256, 4096):
+        check_topk(f"sharded_topk, a model axis of one, B={B}",
+                   T.sharded_topk(q[:B], cand, K, mesh), T.topk_scores(q[:B], cand, K))
+    torch.cuda.synchronize()
+    return mesh_counts()
+
+
+def mesh_one_rank(rank, world, init, data):
+    """Phase 22a: one rank over NCCL. The bench's two-tower trained
+    MESH_STEPS steps on a {1, 1} mesh equals the same fit without a mesh,
+    bit for bit (deterministic algorithms on); then the sharded ops."""
+    from models_tpu_torch.parallel import initialize, make_mesh, shutdown
+
+    initialize(init, world, rank, backend="nccl", device="cuda:0", timeout=MESH_TIMEOUT)
+    dev = torch.device("cuda", 0)
+    try:
+        mesh = make_mesh({"data": 1, "model": 1})
+        runs = {}
+        with deterministic(True):
+            for tag, m in (("mesh", mesh), ("none", None)):
+                model = mesh_model("dense", data.schema, dev)
+                runs[tag] = (mesh_fit(model, "dense", data, dev, m), model)
+        (rec, a), (ref, b) = runs["mesh"], runs["none"]
+        same = all(torch.equal(raw_bits(x), raw_bits(y))
+                   for x, y in zip(list(a.parameters()) + list(a.buffers()),
+                                   list(b.parameters()) + list(b.buffers())))
+        return {"loss_mesh": rec["loss"], "loss_none": ref["loss"], "params_equal": same,
+                "launches_fit": rec["launches"], "launches_ops": mesh_ops_one(mesh, dev),
+                "backend": mesh.backend}
+    finally:
+        shutdown()
+
+
+def mesh_kernel_checks(dev, shards: dict) -> dict:
+    """K1-K3, K7, K8b and K9 at the shapes a {2, 2} rank gives them, against
+    their plain versions: the flash-CE kernels at Q = B/dp = 4096 queries
+    and N = B = 8192 (the global in-batch negatives), the scatters and the
+    gather on the rank's userId shard with a step's ids."""
+    gen = torch.Generator(dev).manual_seed(SEED + 222)
+    errs = {"row_scatter_add": 0.0, "row_scatter_write": 0.0, "row_gather": 0.0}
+    Q, N = TRAIN_BATCH // MESH_SHAPE["data"], TRAIN_BATCH
+    check_fce(f"mesh shard Q={Q} N={N}", dev, fce_case(dev, gen, Q, N, 128, 1.0, True, False,
+                                                        False), 1.0, errs)
+    for tag, shard in shards.items():
+        rows = shard.shape[0]
+        ids = torch.randint(0, rows, (Q,), device=dev, generator=gen, dtype=torch.int32)
+        gather_case(f"mesh userId shard {tag} ({rows} rows)", shard.contiguous(), ids, errs)
+        scatter_case(dev, gen, rows, shard.shape[1], N, shard.dtype, None, errs=errs)
+    return errs
+
+
+def mesh_topk(dev, mesh, check: bool) -> dict:
+    """The 1M x 128 catalog split by rows over {1, 4}, fp32, bf16 and int8
+    indexes (each a rank's 250,000 rows; the int8 index takes one scale a
+    row, 1M rows not being whole bins a shard): 256 queries (K5) and 4096
+    (K6), launches counted; then, with ``check``, K5 and K6 at the shard's
+    shapes against their plain versions."""
+    from models_tpu_torch.ops import topk as T
+    from models_tpu_torch.outputs.topk import BruteForce
+
+    gen = torch.Generator(dev).manual_seed(SEED + 223)
+    cand = torch.randn(1_000_000, 128, device=dev, generator=gen)
+    q = torch.randn(4096, 128, device=dev, generator=gen)
+    out, counts = {}, {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.int8)):
+        layer = BruteForce(K).index(cand, dtype=dtype, device=dev, mesh=mesh)
+        zero_mesh_counts()
+        for B in (256, 4096):
+            pred = layer(q[:B])
+            out[f"{tag}/{B}"] = (pred.scores.cpu(), pred.identifiers.cpu())
+        torch.cuda.synchronize()
+        counts[tag] = mesh_counts()
+        if check:
+            shard, scales = layer.candidates, layer.scales
+            full = shard[: shard.shape[0] // 64 * 64]  # the shard's whole bins
+            qk = T.quantize_queries(q[:256])[0] if dtype == torch.int8 else q[:256]
+            idx = T.select_bins(qk, full, K, col_scale=scales)
+            rescore_case(dev, qk, full, idx, f"mesh shard {tag}", {})
+            check_topk(f"streaming_topk, mesh shard {tag}",
+                       T.streaming_topk(q, shard, K, scale=scales),
+                       T.streaming_topk_plain(q, shard, K, scale=scales))
+        del layer
+    del cand
+    torch.cuda.empty_cache()
+    return {"results": out, "launches": counts}
+
+
+def mesh_ranks(rank, world, init, tt_data, dlrm_data, t_spawn):
+    """Phase 22b, one of four ranks on the one card: the two-tower (dense
+    adam, row-sparse adagrad on fp32 and on bf16 tables) and the DLRM, each
+    MESH_STEPS steps on the {2, 2} mesh; the kernels at the rank's shapes;
+    the 1M-row top-k on {1, 4}."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.parallel import initialize, make_mesh, shutdown
+
+    quiet = rank != 0
+    sink = open(os.devnull, "w")
+    marks = {"entered": time.time() - t_spawn}
+    initialize(init, world, rank, backend=MESH_BACKEND, device="cuda:0", timeout=MESH_TIMEOUT)
+    dev = torch.device("cuda", 0)
+    try:
+        marks["joined"] = time.time() - t_spawn
+        mesh = make_mesh(MESH_SHAPE)
+        marks["mesh"] = time.time() - t_spawn
+        out = {"coords": mesh.coords, "backend": mesh.backend, "runs": {}, "marks": marks}
+        shards = {}
+        for kind in MESH_KINDS:
+            data = dlrm_data if kind == "dlrm" else tt_data
+            model = mesh_model(kind, data.schema, dev)
+            marks[f"{kind}_built"] = time.time() - t_spawn
+            rec = mesh_fit(model, kind, data, dev, mesh)
+            marks[f"{kind}_fit"] = time.time() - t_spawn
+            sharded = model._sharded_ids()
+            tables = model._embedding_tables()
+            rec["shard_bytes"] = sum(t.table.numel() * t.table.element_size() for t in tables
+                                     if t.shard is not None)
+            rec["dense_bytes"] = sum(p.numel() * p.element_size()
+                                     for g in model._optimizer.param_groups
+                                     for p in g["params"] if id(p) not in sharded)
+            # the global batch's rows of its widest lookup (ids a row looks up
+            # in one table: a list column's length, a fused table's columns)
+            x, _ = next(iter(mt.Loader(data, TRAIN_BATCH)))
+            width = max(sum(int(np.prod(getattr(x[f], "values", x[f]).shape[1:]))
+                            for f in t.features if f in x) for t in tables)
+            rec["lookup_bytes"] = TRAIN_BATCH * width * max(t.dim for t in tables) * 4
+            if kind == "bf16" and mesh.index("data") == 0:
+                # the model line's shards, for the flip rule in the parent
+                rec["bf16_shards"] = {t.block_name: t.table.detach().cpu() for t in tables
+                                      if t.shard is not None}
+            out["runs"][kind] = rec
+            if kind in ("sparse", "bf16"):
+                user = next(t for t in model._embedding_tables() if t.block_name == "userId")
+                shards[kind] = user.table.detach()
+            del model
+        # every rank's kernels take the same shapes: rank 0 holds them to
+        # their plain versions
+        out["kernel_errs"] = mesh_kernel_checks(dev, shards) if rank == 0 else {}
+        del shards
+        torch.cuda.empty_cache()
+        marks["kernels"] = time.time() - t_spawn
+        with contextlib.redirect_stdout(sink) if quiet else contextlib.nullcontext():
+            out["topk"] = mesh_topk(dev, make_mesh(TOPK_MESH), check=rank == 0)
+        marks["topk"] = time.time() - t_spawn
+        if quiet:
+            out["topk"]["results"] = {k: v for k, v in out["topk"]["results"].items()
+                                      if k.endswith("/256")}
+        return out
+    finally:
+        shutdown()
+
+
+def mesh_references(dev, tt_data, dlrm_data) -> dict:
+    """The same fits in this process, no mesh: the trajectories the ranks
+    are held to, and the bf16 tables before and after theirs."""
+    refs = {}
+    for kind in MESH_KINDS:
+        data = dlrm_data if kind == "dlrm" else tt_data
+        model = mesh_model(kind, data.schema, dev)
+        before = {t.block_name: t.table.detach().cpu().clone()
+                  for t in model._embedding_tables()}
+        refs[kind] = mesh_fit(model, kind, data, dev)
+        if kind == "bf16":
+            refs[kind]["tables"] = (before, {t.block_name: t.table.detach().cpu()
+                                             for t in model._embedding_tables()})
+    return refs
+
+
+def mesh_bf16_flips(ranks, ref) -> list:
+    """The bf16 tables the four ranks trained, stitched from the model
+    line's shards, against the one process's: every element that differs is
+    a stochastic-rounding flip, within MIXED_PARAM_ATOL and one bf16 ulp, at
+    most FLIP_SHARE_MAX of the elements the steps moved."""
+    before, after = ref["tables"]
+    parts: dict = {}
+    for out in ranks:
+        for name, shard in out["runs"]["bf16"].get("bf16_shards", {}).items():
+            parts.setdefault(name, {})[out["coords"][1]] = shard
+    require(bool(parts), "22b bf16: no shard came back")
+    names = sorted(parts)
+    pairs = [(torch.cat([parts[n][m] for m in sorted(parts[n])]), after[n]) for n in names]
+    worst, flips, n_moved, largest = compare_rounded(
+        "22b bf16 tables, four ranks vs one process", pairs, 0.0, (MIXED_PARAM_ATOL, 2.0 ** -7),
+        share_of=moved({n: before[n] for n in names}, {n: after[n] for n in names}))
+    print(f"  22b bf16 tables {names}: {flips} of {n_moved} moved elements flipped, the largest "
+          f"{largest:.3g}", flush=True)
+    return [flips, n_moved, largest]
+
+
+def mesh_topk_references(dev) -> dict:
+    """The one-rank route over the whole 1M-row catalog, each index as the
+    mesh builds it (the int8 one with one scale a row)."""
+    from models_tpu_torch.ops import topk as T
+
+    gen = torch.Generator(dev).manual_seed(SEED + 223)
+    cand = torch.randn(1_000_000, 128, device=dev, generator=gen)
+    q = torch.randn(4096, 128, device=dev, generator=gen)
+    out = {}
+    for tag in ("fp32", "bf16", "int8"):
+        if tag == "int8":
+            scales = T.int8_scale(cand.abs().amax(dim=1))
+            c = torch.clamp(torch.round(cand / scales[:, None]), -127, 127).to(torch.int8)
+        else:
+            scales, c = None, cand.to(getattr(torch, "float32" if tag == "fp32" else "bfloat16"))
+        for B in (256, 4096):
+            s, i = T.topk_scores(q[:B], c, K, col_scale=scales)
+            out[f"{tag}/{B}"] = (s.cpu(), i.cpu())
+        del c
+    del cand
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(dev, card) -> tuple:
+    """Phase 22: (a) one rank over NCCL equals the fit without a mesh, and
+    the sharded ops on a model axis of one; NCCL's answer to four ranks on
+    the one card; (b) four ranks over MESH_BACKEND: the trajectories of the
+    {2, 2} fits against this process's, the launches of each kernel on the
+    mesh path, the largest collective (of order B * D, never a table), the
+    kernels at the ranks' shapes, the 1M-row top-k against the one-rank
+    route; times labelled MESH_LABEL."""
+    import threading
+
+    import models_tpu_torch as mt
+    from models_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    tt_data = mt.generate_data("movielens-25m", num_rows=MESH_STEPS * TRAIN_BATCH,
+                               seed=SEED + 22)
+    box = {}
+
+    def run(name, *args, **kw):
+        try:
+            box[name] = spawn(*args, **kw)
+        except RuntimeError as err:
+            box[name + "_error"] = str(err)
+
+    dlrm_data = mt.generate_data("criteo-small", num_rows=MESH_STEPS * TRAIN_BATCH,
+                                 seed=SEED + 23)
+    # 22a, NCCL's probe and 22b start together, and this process fits the
+    # references while the ranks start (22b's ranks take some 40 s to reach
+    # their first step, by when the others are done)
+    t_spawn = time.time()
+    threads = [threading.Thread(target=run, args=("one", mesh_one_rank, 1, (tt_data,)),
+                                kwargs={"timeout": MESH_TIMEOUT}),
+               threading.Thread(target=run, args=("probe", nccl_probe, 4, ()),
+                                kwargs={"timeout": 90}),
+               threading.Thread(target=run, args=("ranks", mesh_ranks, 4,
+                                                  (tt_data, dlrm_data, t_spawn)),
+                                kwargs={"timeout": MESH_TIMEOUT})]
+    for th in threads:
+        th.start()
+    refs = mesh_references(dev, tt_data, dlrm_data)
+    topk_refs = mesh_topk_references(dev)
+    stamp(f"  22: one-process references done, {time.time() - t_spawn:.1f} s after the spawns")
+    threads[0].join()
+    threads[1].join()
+    stamp(f"  22a and the NCCL probe joined, {time.time() - t_spawn:.1f} s after the spawns")
+    require("one" in box, f"phase 22a failed: {box.get('one_error')}")
+    one = box["one"][0]
+    probe = box.get("probe") or [{"ok": False, "error": box.get("probe_error", "")[:800]}]
+    print(f"  22a: one rank over {one['backend']}: losses {one['loss_mesh']} / without a mesh "
+          f"{one['loss_none']}, parameters bit-equal {one['params_equal']}", flush=True)
+    require(one["loss_mesh"] == one["loss_none"] and one["params_equal"],
+            "22a: the fit on a mesh of one rank differs from the fit without a mesh")
+    for name in ("lse_forward", "grad_query", "grad_neg"):
+        require(one["launches_fit"][name] == MESH_STEPS, f"22a: {name} launched "
+                f"{one['launches_fit'][name]} times in {MESH_STEPS} steps")
+    for name in ("row_gather", "row_scatter_add", "binned_rescore", "streaming_topk"):
+        require(one["launches_ops"][name] > 0, f"22a: the sharded ops never launched {name}")
+    print(f"  22a: sharded ops on a model axis of one, launches {one['launches_ops']}",
+          flush=True)
+    nccl = {"ok": all(p.get("ok") for p in probe),
+            "answer": next((p["error"] for p in probe if not p.get("ok")), "all-reduce ok")}
+    print(f"  NCCL, four ranks on one card: {nccl}", flush=True)
+
+    threads[2].join()
+    require("ranks" in box, f"phase 22b failed: {box.get('ranks_error')}")
+    ranks = box["ranks"]
+    wall_ranks = time.time() - t_spawn
+    stamp(f"  22b joined, {wall_ranks:.1f} s after the spawns; rank 0 (s after the spawns): "
+          f"{ranks[0]['marks']}")
+    summary = {"label": MESH_LABEL, "backend": MESH_BACKEND, "card": card, "nccl_4_ranks": nccl,
+               "one_rank": {k: one[k] for k in ("loss_mesh", "loss_none", "params_equal")},
+               "ranks_s": wall_ranks, "rank0_marks_s": ranks[0]["marks"]}
+    for kind in MESH_KINDS:
+        ref = refs[kind]
+        for rank, out in enumerate(ranks):
+            rec = out["runs"][kind]
+            require(out["backend"] == MESH_BACKEND, f"rank {rank}: backend {out['backend']}")
+            require(np.allclose(rec["loss"], ref["loss"], rtol=MESH_RTOL, atol=0),
+                    f"{kind}, rank {rank}: losses {rec['loss']}, one process {ref['loss']}")
+            for name in MESH_PATHS[kind]:
+                require(rec["launches"][name] > 0,
+                        f"{kind}, rank {rank}: the mesh path never launched {name}")
+            # rows and ids move at most as the global batch's rows of its
+            # widest lookup (a bound of the batch alone, whatever the tables'
+            # rows); an all-reduce at most as the dense gradients
+            largest = rec["traffic"]["largest"]
+            moved = max(largest.get("all_gather", 0), largest.get("all_to_all", 0))
+            require(0 < moved <= rec["lookup_bytes"],
+                    f"{kind}, rank {rank}: a collective of {moved} bytes, more than the "
+                    f"batch's widest lookup ({rec['lookup_bytes']})")
+            require(largest.get("all_reduce", 0) <= rec["dense_bytes"],
+                    f"{kind}, rank {rank}: an all-reduce larger than the dense parameters")
+        r0 = ranks[0]["runs"][kind]
+        summary[kind] = {
+            "loss_rank0": r0["loss"], "loss_one_process": ref["loss"],
+            "max_rel_dev": max(float(np.max(np.abs(np.asarray(o["runs"][kind]["loss"])
+                                                   - ref["loss"]) / np.abs(ref["loss"])))
+                               for o in ranks),
+            "launches_per_rank": [o["runs"][kind]["launches"] for o in ranks],
+            "largest_collective_bytes": [o["runs"][kind]["traffic"]["max_bytes"] for o in ranks],
+            "largest_by_kind_rank0": r0["traffic"]["largest"],
+            "shard_bytes": r0["shard_bytes"], "dense_bytes": r0["dense_bytes"],
+            "lookup_bytes": r0["lookup_bytes"],
+            "b_d_bytes": TRAIN_BATCH * (64 if kind == "dlrm" else 128) * 4,
+            "step_host_ms_per_rank": [o["runs"][kind]["host_ms"] for o in ranks],
+            "step_events_ms_per_rank": [o["runs"][kind]["events_ms"] for o in ranks],
+            "collective_ms_per_step_per_rank": [o["runs"][kind]["collective_ms"]
+                                                for o in ranks],
+            "one_process_step_host_ms": ref["host_ms"],
+            "one_process_step_events_ms": ref["events_ms"]}
+        print(f"  22b {kind} on {MESH_SHAPE} ({MESH_LABEL}): losses rank 0 {r0['loss']} / one "
+              f"process {ref['loss']}, largest collective {r0['traffic']['max_bytes']} B "
+              f"({r0['traffic']['max_kind']}), step {r0['host_ms']:.1f} ms host / "
+              f"{r0['events_ms']:.1f} ms events, collectives "
+              f"{r0['collective_ms']:.1f} ms a step (medians of steps 2-{MESH_STEPS})",
+              flush=True)
+    summary["bf16"]["table_flips_of_moved"] = mesh_bf16_flips(ranks, refs["bf16"])
+    for o in ranks:
+        o["runs"]["bf16"].pop("bf16_shards", None)
+    summary["kernel_errs_per_rank"] = [o["kernel_errs"] for o in ranks]
+    for tag in ("fp32", "bf16", "int8"):
+        for B in (256, 4096):
+            key = f"{tag}/{B}"
+            for rank, out in enumerate(ranks):
+                if key in out["topk"]["results"]:
+                    check_topk(f"sharded top-k {key}, rank {rank}",
+                               out["topk"]["results"][key], topk_refs[key])
+        for rank, out in enumerate(ranks):
+            for name in ("binned_rescore", "streaming_topk"):
+                require(out["topk"]["launches"][tag][name] > 0,
+                        f"sharded top-k {tag}, rank {rank}: never launched {name}")
+    summary["topk_launches_per_rank"] = [o["topk"]["launches"] for o in ranks]
+    summary["phase_s"] = time.perf_counter() - t0
+    rows = {}
+    for name in mesh_counters():
+        rows[name] = {"launches_mesh": {
+            "one_rank_nccl": one["launches_fit"][name],
+            **{f"two_tower_{k}" if k != "dlrm" else "dlrm": [o["runs"][k]["launches"][name]
+                                                             for o in ranks]
+               for k in MESH_KINDS},
+            "topk_1M": [sum(o["topk"]["launches"][t][name] for t in o["topk"]["launches"])
+                        for o in ranks]}}
+    return summary, rows
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -6003,6 +6558,13 @@ def main() -> int:
     print("persistence " + json.dumps(persistence), flush=True)
     for row in rows:  # the slice's launches, each counted from zero around its run
         row.update(prow.get(row["name"], {}))
+    stamp("phase 22: the mesh: one rank over NCCL against no mesh; four ranks on the one card "
+          f"over {MESH_BACKEND}: the two-tower and the DLRM on {MESH_SHAPE}, the 1M-row top-k "
+          f"on {TOPK_MESH}")
+    mesh, mrows = phase_mesh(dev, card)
+    print("mesh " + json.dumps(mesh), flush=True)
+    for row in rows:  # each rank's launches on the mesh path, counted from zero around each run
+        row.update(mrows.get(row["name"], {}))
     stamp("done")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

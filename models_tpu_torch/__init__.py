@@ -39,6 +39,13 @@ interrupted run continues bit for bit) and exports its inference step as a
 ``torch.export`` program (``export_serving``, ``load_serving``) that runs
 with no model code, the top-k kernels inside it as the custom ops that
 importing this package registers.
+
+A model trains on a mesh of ranks (``parallel``: one process per rank,
+``parallel.initialize()``, ``make_mesh({"data": d, "model": m})``,
+``fit(mesh=)``): batches split over ``data``, embedding tables split by rows
+over ``model`` and looked up by an all-to-all, row-sparse updates on the
+owning shard, the top-k index split by rows; save, checkpoints and exports
+gather the shards through the host.
 """
 
 from .blocks.experts import CGCBlock, ExpertsGate, MMOEBlock, PLEBlock
@@ -73,6 +80,8 @@ from .utils import (Callback, CheckpointManager, CSVLogger, EarlyStopping,
                     save_model)
 from .schema import (ColumnSchema, Schema, Tags, categorical_cardinalities, categorical_domains,
                      create_categorical_column, create_continuous_column)
+from . import parallel
+from .parallel import make_mesh
 
 __all__ = [
     "AsTabular", "AverageEmbeddingsByWeightFeature", "BatchNorm", "Block",
@@ -102,4 +111,5 @@ __all__ = [
     "resolve_device", "set_dtype_policy",
     "CheckpointManager", "ModelCheckpoint", "ProfilerCallback", "ServingModel", "Timing",
     "WandbLogger", "export_serving", "load_model", "load_serving", "save_model",
+    "make_mesh", "parallel",
 ]

@@ -581,14 +581,29 @@ class SparseEmbeddingOptimizer:
         table.sparse_slots = SparseSlots(slots)
 
     @torch.no_grad()
-    def apply(self, table, ids: torch.Tensor, grads: torch.Tensor, step: int) -> None:
+    def apply(self, table, ids: torch.Tensor, grads: torch.Tensor, step: int, mesh=None,
+              axis: str = "model") -> None:
         """Update ``table`` and its slots at the looked-up rows. ``ids``
         (...,) of any integer type, ``grads`` (..., D): each lookup's row
         gradient. Equal ids are summed first, so each row takes one update
-        from its summed gradient, as a dense gradient would give it."""
+        from its summed gradient, as a dense gradient would give it.
+
+        A table split by rows over a mesh (its ``shard``, ``parallel/
+        mesh.py``; ``mesh`` and ``axis`` are the JAX signature's and the
+        table's own placement decides) takes the update of the rows it owns
+        on its own table and slot shards, the slot math and the commit (K7;
+        K8 with stochastic rounding on bf16) unchanged: ``ids`` and
+        ``grads`` are then the global batch's, the same on every rank, so
+        that nothing table-sized moves between ranks and every rank's noise
+        is the single device's."""
         flat_ids = ids.reshape(-1).to(torch.int32)
         flat_g = grads.reshape(-1, grads.shape[-1]).float()
         sids, gsum, valid = dedup_rows(flat_ids, flat_g)
+        shard = getattr(table, "shard", None)
+        if shard is not None:
+            from ..ops.embedding_lookup import owned_rows
+
+            sids, valid = owned_rows(table.table, sids, valid, shard.mesh, shard.axis)
         lr = self.learning_rate(step) if callable(self.learning_rate) else self.learning_rate
         salt = _table_salt(table)
 

@@ -116,16 +116,20 @@ def TopKEncoder(
     item_id_name: Optional[str] = None,
     candidate_dtype: Optional[torch.dtype] = None,
     device=None,
+    mesh=None,
 ):
     """Query encoder + brute-force top-k head, as a model whose ``predict``
     serves ``{"scores", "ids"}``. ``topk_layer``: ``"brute-force-topk"`` or
     a :class:`~models_tpu_torch.outputs.topk.BruteForce` (``method=`` forces
-    a route); anything else raises."""
+    a route); anything else raises. ``mesh`` splits the index by rows over
+    the mesh's model axis: every rank of a model line then serves the same
+    queries."""
     from ..models.base import Model
     from ..outputs.topk import TopKOutput
 
     output = TopKOutput(k=k, candidates=candidates, item_id_name=item_id_name,
-                        candidate_dtype=candidate_dtype, to_call=topk_layer, device=device)
+                        candidate_dtype=candidate_dtype, to_call=topk_layer, device=device,
+                        mesh=mesh)
     model = Model(query_encoder, output)
     model.block_name = "topk_encoder"
     return model

@@ -7,6 +7,13 @@ boolean column ``__row_valid__`` marks its real rows. List columns leave as
 (``pad="max"``) or, with ``pad="bucket"``, to the batch's longest row rounded
 up to a power of two and capped at that max. Batches hold numpy arrays;
 ``core.types.to_device_batch`` moves them.
+
+``global_size`` / ``global_rank`` give each of a run's processes its own
+rows (``parallel.local_loader_kwargs()``), as the JAX loader does: every
+process draws the same permutation (or keeps row order) and takes every
+``global_size``-th row of it from ``global_rank`` on. Under ``pad="bucket"``
+they agree on each step's bucket from the permutation of all rows, so that
+every process's batch of a step has the same shape.
 """
 
 from __future__ import annotations
@@ -46,10 +53,16 @@ class Loader:
     starts at 1). ``pad``: ``"max"`` or ``"bucket"`` (the module's note)."""
 
     def __init__(self, dataset: Dataset, batch_size: int, drop_last: bool = False,
-                 shuffle: bool = False, seed: int = 0, pad: str = "max"):
+                 shuffle: bool = False, seed: int = 0, pad: str = "max", global_size: int = 1,
+                 global_rank: int = 0):
         if pad not in ("max", "bucket"):
             raise ValueError(f"pad must be 'max' or 'bucket', got {pad!r}")
+        if not 0 <= global_rank < global_size:
+            raise ValueError(f"global_rank={global_rank} outside [0, global_size={global_size})")
         self.pad = pad
+        self.global_size = int(global_size)
+        self.global_rank = int(global_rank)
+        self._bucket_plan: Optional[Dict[str, np.ndarray]] = None
         self.dataset = dataset
         self.schema = dataset.schema
         self.batch_size = int(batch_size)
@@ -67,6 +80,8 @@ class Loader:
 
     def __len__(self) -> int:
         n = self.dataset.num_rows
+        if self.global_size > 1:
+            n //= self.global_size
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _assemble(self, cols: Dict[str, np.ndarray], lo: int, hi: int):
@@ -82,7 +97,11 @@ class Loader:
             if name in self._list_cols:
                 offsets = cols[name + OFFSETS][lo : hi + 1]
                 L = self._list_cols[name]
-                if self.pad == "bucket":
+                plan = self._bucket_plan
+                if self.pad == "bucket" and plan is not None and name in plan:
+                    step = lo // self.batch_size
+                    L = int(plan[name][min(step, len(plan[name]) - 1)])
+                elif self.pad == "bucket":
                     L = min(L, _bucket(int(np.diff(offsets).max()) if hi > lo else 1))
                 padded, mask = pad_ragged(cols[name + VALUES], offsets, L)
                 dest[name] = SequenceFeature(pad_rows(padded), pad_rows(mask))
@@ -103,6 +122,8 @@ class Loader:
         full batches). The engine uploads them to the device once and
         gathers each chunk's rows there. Raises ``ValueError`` for data it
         cannot hold so: a dataset of no rows."""
+        if self.global_size > 1:
+            raise ValueError("dense_columns() takes the whole dataset: not with global_size")
         cols = self.dataset.to_numpy_dict()
         n = self.dataset.num_rows
         if n == 0:
@@ -129,8 +150,8 @@ class Loader:
         min(bucket, the column's max), so that batches taken within a group
         share one shape. ``[(bucket, features, targets, n_rows), ...]`` by
         bucket, each group's rows in dataset order, no ``__row_valid__``."""
-        if not self._list_cols:
-            raise ValueError("bucketed_dense_columns needs list columns")
+        if not self._list_cols or self.global_size > 1:
+            raise ValueError("bucketed_dense_columns needs list columns and the whole dataset")
         cols = self.dataset.to_numpy_dict()
         row_max = None
         for name, L in self._list_cols.items():
@@ -156,13 +177,40 @@ class Loader:
             groups.append((int(bucket), feats, targets if len(targets) else None, len(idx)))
         return groups
 
+    def _plan_buckets(self, cols, idx: np.ndarray) -> Optional[Dict[str, np.ndarray]]:
+        """Each list column's pad length for each step, agreed by every
+        process: global step s covers ``idx[s * B * S:(s + 1) * B * S]``
+        (the strided rows of every process's batch s), padded to the power of
+        two at or above its longest list, capped at the column's max."""
+        if not self._list_cols:
+            return None
+        B, S = self.batch_size, self.global_size
+        n_steps = -(-len(idx) // (B * S))
+        plan = {}
+        for name, L in self._list_cols.items():
+            lengths = np.diff(cols[name + OFFSETS])[idx]
+            padded = np.concatenate([lengths, np.zeros(n_steps * B * S - len(idx),
+                                                        lengths.dtype)])
+            per_step = padded.reshape(n_steps, B * S).max(axis=1)
+            buckets = 1 << np.ceil(np.log2(np.maximum(per_step, 1))).astype(np.int64)
+            plan[name] = np.minimum(np.maximum(buckets, 1), L)
+        return plan
+
     def __iter__(self) -> Iterator[Tuple[Dict[str, Any], Optional[Any]]]:
         self._epoch += 1
         cols = self.dataset.to_numpy_dict()
         n = self.dataset.num_rows
+        idx = None
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self._epoch * 9973)
-            cols = take_rows(cols, rng.permutation(n))
+            idx = rng.permutation(n)
+        if self.global_size > 1:
+            idx = np.arange(n) if idx is None else idx
+            self._bucket_plan = self._plan_buckets(cols, idx) if self.pad == "bucket" else None
+            idx = idx[self.global_rank::self.global_size]
+            n = len(idx)
+        if idx is not None:
+            cols = take_rows(cols, idx)
         full = n // self.batch_size
         for step in range(full):
             lo = step * self.batch_size

@@ -33,6 +33,16 @@ training loss (:meth:`EmbeddingTable.regularization_loss`); a row-sparse
 table's term is a constant, as the JAX package's sparse step takes no
 gradient of it.
 
+On a mesh (``fit(mesh=)``, ``parallel/mesh.py``) a table whose padded rows
+divide the model axis is split by rows over it, as the JAX package places
+it: the table records its ``shard`` and looks its rows up through
+``ops/embedding_lookup.py::sharded_lookup`` (the all-to-all route, K9 at the
+owner), with no lookup that reads a shard as if it were the table. Under a
+mesh step (the context's ``mesh``) the lookup's backward gives the shard the
+global batch's gradient; a row-sparse table's lookup records the rows it
+got, whose gradients the engine gathers over the data axis. A sharded
+table's ``l2_reg`` term sums every shard's rows.
+
 A table made with ``trainable=False`` holds its rows in a buffer, not a
 parameter (the JAX package's ``nnx.Variable``): no optimizer, dense or
 row-sparse, sees it. ``weights=`` (or :meth:`EmbeddingTable.from_pretrained`)
@@ -146,6 +156,8 @@ class EmbeddingTable(Block):
         self.sparse_routed = False
         # the row-sparse optimizer's per-row state, created by its init_slots
         self.sparse_slots: Optional[SparseSlots] = None
+        # this rank's rows of a table split over a mesh (parallel/mesh.py)
+        self.shard = None
 
     @classmethod
     def from_pretrained(cls, data, col_schema: Optional[ColumnSchema] = None,
@@ -165,7 +177,14 @@ class EmbeddingTable(Block):
         return self.table[: self.input_dim]
 
     def to_array(self) -> np.ndarray:
-        """The ``input_dim`` rows on the host (a bf16 table's widened)."""
+        """The ``input_dim`` rows on the host (a bf16 table's widened); a
+        table split over a mesh gathers its shards (every rank of the model
+        line calls it)."""
+        if self.shard is not None:
+            from ..parallel.mesh import gather_full
+
+            full = gather_full(self.table, (self.shard.axis, None), self.shard.mesh)
+            return full[: self.input_dim].float().cpu().numpy()
         return self.embeddings.detach().float().cpu().numpy()
 
     def to_dataset(self):
@@ -181,10 +200,19 @@ class EmbeddingTable(Block):
         if not self.l2_reg:
             return None
         table = self.table.detach() if self.sparse_routed else self.table
-        return self.l2_reg * table.float().square().sum()
+        term = self.l2_reg * table.float().square().sum()
+        if self.shard is not None:
+            # the value sums every shard; the gradient is this shard's own
+            from ..parallel.collectives import all_reduce
+
+            whole = all_reduce(term.detach().clone(), self.shard.mesh.group(self.shard.axis))
+            term = term + (whole - term.detach())
+        return term
 
     def _lookup(self, ids, context, key: str = ""):
         lookups = context.get("sparse_lookups") if context is not None else None
+        if self.shard is not None:
+            return self._sharded_lookup(ids, context, lookups, key)
         if lookups is not None and self.sparse_routed:
             rows = F.embedding(ids.long(), self.table.detach()).float().requires_grad_()
             lookups.append((self, ids, rows, key))
@@ -193,6 +221,22 @@ class EmbeddingTable(Block):
         # sorting them, where the indexing backward serialises each repeated
         # row (genres: 21 rows take every list entry of a batch)
         return self._cast_up(F.embedding(ids.long(), self.table))
+
+    def _sharded_lookup(self, ids, context, lookups, key: str):
+        """The lookup of a table split over a mesh (the module's note)."""
+        from ..ops.embedding_lookup import sharded_lookup
+        from ..parallel.mesh import DATA_AXIS
+
+        shard = self.shard
+        in_step = context is not None and context.get("mesh") is not None
+        if lookups is not None and self.sparse_routed:
+            with torch.no_grad():
+                rows = sharded_lookup(self.table.detach(), ids, shard.mesh, axis=shard.axis)
+            rows = rows.float().requires_grad_()
+            lookups.append((self, ids, rows, key))
+            return rows
+        return self._cast_up(sharded_lookup(self.table, ids, shard.mesh, axis=shard.axis,
+                                            data_axis=DATA_AXIS if in_step else None))
 
     @staticmethod
     def _cast_up(emb: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,8 @@ from typing import Callable, Optional, Union
 import torch
 import torch.nn.functional as F
 
+from .parallel.collectives import weight_total
+
 
 def _weighted_mean(values: torch.Tensor, sample_weight: Optional[torch.Tensor]) -> torch.Tensor:
     if sample_weight is None:
@@ -24,7 +26,7 @@ def _weighted_mean(values: torch.Tensor, sample_weight: Optional[torch.Tensor]) 
             sample_weight = sample_weight[:, :1] * sample_weight[:, 1:]
     w = sample_weight.reshape(sample_weight.shape + (1,) * (values.ndim - sample_weight.ndim))
     w = w.expand(values.shape).to(values.dtype)
-    return (values * w).sum() / w.sum().clamp_min(1e-9)
+    return (values * w).sum() / weight_total(w.sum()).clamp_min(1e-9)
 
 
 def categorical_crossentropy(labels, logits, sample_weight=None):

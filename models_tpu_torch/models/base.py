@@ -38,6 +38,23 @@ each length bucket's rows form a group with its own pack and graphs
 positions into rows: the loader's row validity repeats over them
 (``_merge_row_valid``), and (B, L, C) outputs flatten for the metrics.
 
+``fit(mesh=)`` trains on a mesh of ranks (``parallel/mesh.py``), one step at
+a time as the JAX package does there, no step captured in a CUDA graph.
+Every rank runs the same loader; each keeps its data slice of every batch
+(``shard_batch``); the tables that the rules shard are split by rows over
+the model axis and looked up by the all-to-all route. The mean loss over
+the global batch is the mean of the ranks' losses (a weighted mean divides
+by the data line's total weight: ``parallel/collectives.py::data_scope``),
+and each gradient is that loss's: the dense parameters' gradients are
+all-reduced over the world and divided by its size (the ranks of a model
+line compute the same ones); a sharded table's gradient is made global in
+its lookup's backward, which gathers the (ids, row gradients) of the data
+line and never the shard; a row-sparse table's (ids, row gradients) are
+gathered over the data line before the owner-masked update. Metric states
+and the logged losses are reduced over the data line once an epoch, so that
+``fit``'s history and ``evaluate`` on a mesh are those of one device. The
+first fit on a mesh checks that every rank holds the same weights.
+
 The loss sums the heads' in sorted name order (the JAX package's jitted
 step sorts them), each times its weight (``compile(loss_weights=)``, else a
 ``ParallelPredictionBlock``'s ``task_weight_dict``, else 1), a binary head's
@@ -46,9 +63,9 @@ block's parameters out of the next ``fit``'s optimizer (and its row-sparse
 tables out of the sparse update); a fit with frozen blocks or a
 :class:`~models_tpu_torch.blocks.optimizer.MultiOptimizer`, and the first
 plain fit after one, starts from fresh optimizer slots and step 0, as the
-JAX package's does (it rebuilds its transform). Not ported yet (ROADMAP.md
-queue 1): the device-resident ``evaluate`` and validation, meshes and the
-sharded sparse update.
+JAX package's does (it rebuilds its transform), and so does a fit on
+another mesh than the optimizer's (its ``fingerprint``). Not ported yet
+(ROADMAP.md queue 1): the device-resident ``evaluate`` and validation.
 """
 
 from __future__ import annotations
@@ -81,6 +98,8 @@ from ..metrics.topk import TopKMetric, TopKMetricsAggregator
 from ..ops.embedding_lookup import row_gather
 from ..outputs.base import BinaryOutput, ModelOutput
 from ..outputs.queue import apply_state_updates
+from ..parallel import mesh as pmesh
+from ..parallel.collectives import all_gather, all_reduce, all_reduce_tree, data_scope
 from .step_graph import ChunkGraphs
 
 # the datasets that keep a device-resident training pack: at most two
@@ -188,6 +207,7 @@ class BaseModel(Block):
     over a subclass's ``forward``."""
 
     _compiled = False
+    _mesh = None
 
     def heads(self) -> List[ModelOutput]:
         return [m for m in self.modules() if isinstance(m, ModelOutput)]
@@ -602,12 +622,18 @@ class BaseModel(Block):
         lookups leave the traced step as a dict, which comes back sorted. A
         table that serves two columns, or a tied table looked up at two
         sites, takes two updates."""
+        g = self._mesh.group(pmesh.DATA_AXIS) if self._mesh is not None else None
         for table in self._sparse_tables:
             if id(table.table) in self._frozen_ids:
                 continue
             mine = sorted((entry for entry in lookups if entry[0] is table), key=lambda e: e[3])
             for _, ids, rows, _ in mine:
                 grad = rows.grad if rows.grad is not None else torch.zeros_like(rows)
+                if g is not None and g.size > 1:
+                    # the global batch's (ids, row gradients), the gradients
+                    # of the global mean loss, the same on every rank
+                    ids = all_gather(ids.reshape(-1).to(torch.int32), g)
+                    grad = all_gather(grad.reshape(-1, grad.shape[-1]).float(), g) / g.size
                 self._emb_opt.apply(table, ids, grad, self._step)
 
     @staticmethod
@@ -640,17 +666,23 @@ class BaseModel(Block):
             x, y = self._apply_pre(pre, x, y, training=True)
         context = ModelContext(features=x, targets=y, step=self._step, need_logits=with_metrics,
                                head_losses=loss_fns)
+        mesh = self._mesh
+        if mesh is not None:
+            context["mesh"] = mesh
         if self._sparse_tables:
             context["sparse_lookups"] = []
-        preds = self(x, targets=y, training=True, context=context)
-        pred_dict = self._as_pred_dict(preds)
-        total, logs = self._compute_losses(pred_dict, x, loss_fns)
-        if with_metrics:
-            self._update_metrics(metric_states, pred_dict, x, task_metrics)
-        mark("loss_forward")
-        # every gradient, a frozen parameter's too (it is in no optimizer)
-        self.zero_grad(set_to_none=True)
-        total.backward()
+        with data_scope(mesh.group(pmesh.DATA_AXIS) if mesh is not None else None):
+            preds = self(x, targets=y, training=True, context=context)
+            pred_dict = self._as_pred_dict(preds)
+            total, logs = self._compute_losses(pred_dict, x, loss_fns)
+            if with_metrics:
+                self._update_metrics(metric_states, pred_dict, x, task_metrics)
+            mark("loss_forward")
+            # every gradient, a frozen parameter's too (it is in no optimizer)
+            self.zero_grad(set_to_none=True)
+            total.backward()
+        if mesh is not None:
+            self._reduce_grads(mesh)
         mark("backward")
         self._optimizer.step()
         mark("optimizer")
@@ -662,6 +694,86 @@ class BaseModel(Block):
         apply_state_updates(context.get("state_updates"))
         self._step += 1
         return {k: v.detach() for k, v in logs.items()}
+
+    # ------------------------------------------------------------------
+    # meshes
+    # ------------------------------------------------------------------
+    def _sharded_ids(self) -> set:
+        """The ids of the model's tensors held as slices of a mesh."""
+        named = dict(self.named_parameters())
+        named.update(dict(self.named_buffers()))
+        return {id(named[n]) for n in pmesh.sharded_names(self) if n in named}
+
+    @torch.no_grad()
+    def _reduce_grads(self, mesh) -> None:
+        """The dense parameters' gradients summed over the world and divided
+        by its size, in one all-reduce a dtype: the global mean loss's (the
+        ranks of a model line hold the same ones). A sharded parameter's
+        gradient is the global batch's already (its lookup's backward)."""
+        sharded = self._sharded_ids()
+        grads = [p.grad for g in self._optimizer.param_groups for p in g["params"]
+                 if p.grad is not None and id(p) not in sharded]
+        all_reduce_tree(grads, mesh.world_group)
+        for grad in grads:
+            grad.div_(mesh.world)
+
+    @staticmethod
+    @torch.no_grad()
+    def _data_mean(values: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+        """Each scalar's mean over the rank's data line, in one all-reduce."""
+        g = mesh.group(pmesh.DATA_AXIS)
+        if g.size == 1 or not values:
+            return values
+        stacked = torch.stack([v.float().reshape(()) for v in values.values()])
+        all_reduce(stacked, g)
+        return dict(zip(values, stacked / g.size))
+
+    @torch.no_grad()
+    def _check_replicas(self, mesh) -> None:
+        """Raise unless every rank holds the same weights (the model whole,
+        before it is placed): each tensor's sum and sum of squares (float64)
+        against the chief's."""
+        g = mesh.world_group
+        stats = [v for t in pmesh.named_tensors(self).values() if t.is_floating_point()
+                 for v in (t.double().sum(), t.double().square().sum())]
+        if g.size == 1 or not stats:
+            return
+        every = all_gather(torch.stack(stats)[None], g)
+        bad = [g.ranks[i] for i in range(g.size) if not torch.equal(every[i], every[0])]
+        if bad:
+            raise RuntimeError(f"ranks {bad} hold other weights than rank {g.ranks[0]}: build "
+                               "every rank's model from the same seed (or load the same "
+                               "parameters) before fit(mesh=)")
+
+    def _place_on_mesh(self, mesh, shard_rules) -> None:
+        """Shard the model's state on ``mesh`` (a model sharded on another
+        mesh is made whole first), checking at the first placement that the
+        ranks agree."""
+        from ..inputs.dynamic import DynamicEmbeddingTable
+
+        if any(isinstance(m, DynamicEmbeddingTable) for m in self.modules()):
+            raise NotImplementedError("dynamic-vocabulary tables on a mesh are not ported yet "
+                                      "(ROADMAP.md queue 1)")
+        placed = pmesh.state_mesh(self)
+        if placed is not None and placed is not mesh:
+            pmesh.unshard_state(self)
+        if pmesh.state_mesh(self) is None:
+            self._check_replicas(mesh)
+        pmesh.shard_state(self, mesh, shard_rules)
+
+    def _mesh_batches(self, loader, mesh, dev, steps: Optional[int]):
+        """This rank's slice of each of the loader's batches, on the device,
+        one batch ahead of the step that takes it."""
+        ahead = deque()
+        for step, (x, y) in enumerate(loader):
+            if steps is not None and step >= steps:
+                break
+            x, y = pmesh.shard_batch(x, mesh), pmesh.shard_batch(y, mesh)
+            ahead.append((step, to_device_batch(x, dev), to_device_targets(y, dev)))
+            if len(ahead) > 1:
+                yield ahead.popleft()
+        while ahead:
+            yield ahead.popleft()
 
     # ------------------------------------------------------------------
     # k steps a chunk (steps_per_execution)
@@ -898,7 +1010,8 @@ class BaseModel(Block):
             validation_data: Union[None, Dataset, Loader] = None, validation_freq: int = 1,
             pre: Optional[nn.Module] = None, steps_per_epoch: Optional[int] = None,
             callbacks: Optional[list] = None, verbose: int = 0, initial_epoch: int = 0,
-            validation_steps: Optional[int] = None, device=None) -> History:
+            validation_steps: Optional[int] = None, device=None, mesh=None,
+            shard_rules=None) -> History:
         """Train for ``epochs`` passes over ``data`` in full batches (the
         loader drops the last partial one). ``history[name]`` holds each
         epoch's mean step log, the metrics over its metric steps, plus
@@ -936,7 +1049,14 @@ class BaseModel(Block):
         continue a run: the optimizer's slots and the step count carry over
         from the last ``fit`` or from :meth:`arm_training_state`
         (``CheckpointManager.restore_training``). ``validation_steps`` bounds
-        each validation's batches."""
+        each validation's batches.
+
+        ``mesh`` (:func:`~models_tpu_torch.parallel.make_mesh`, called by
+        every rank) trains on it (the module's note): the model is placed by
+        ``shard_rules`` (default ``parallel.mesh.DEFAULT_RULES``) and stays
+        placed for ``evaluate``, ``predict`` and the next fit; the batch size
+        is the global batch's and divides the data axis. Only the chief
+        prints (``verbose``)."""
         if not self._compiled:
             self.compile()
         if not 0 <= initial_epoch < max(epochs, 1):
@@ -951,11 +1071,23 @@ class BaseModel(Block):
             data, batch_size or 1024, drop_last=True, shuffle=shuffle)
         self.build(loader, device=dev)
         B = loader.batch_size
+        if mesh is not None:
+            if mesh.device != dev:
+                raise ValueError(f"the mesh's rank lives on {mesh.device}, the model on {dev}")
+            if B % mesh.size(pmesh.DATA_AXIS):
+                raise ValueError(f"batch {B} does not divide the mesh's data axis "
+                                 f"{mesh.size(pmesh.DATA_AXIS)}")
+            self._place_on_mesh(mesh, shard_rules)
+        elif pmesh.state_mesh(self) is not None:
+            pmesh.unshard_state(self)  # a fit with no mesh trains the whole model
+        self._mesh = mesh
         loss_fns = self._resolve_task_losses()
         task_metrics = self._resolve_task_metrics()
         has_metrics = any(task_metrics.values())
+        fingerprint = None if mesh is None else mesh.fingerprint
         fresh = (self.frozen_blocks() or isinstance(self._optimizer_spec, MultiOptimizer)
-                 or not self._plain_optimizer)
+                 or not self._plain_optimizer
+                 or getattr(self, "_fit_mesh_fp", None) != fingerprint)
         if self._optimizer is None or fresh:
             # the JAX package rebuilds its transform for frozen blocks or a
             # MultiOptimizer, and then starts from fresh slots at step 0
@@ -964,6 +1096,7 @@ class BaseModel(Block):
             self._chunk_graphs.clear()
             self._group_graphs.clear()
             self._build_optimizer()
+        self._fit_mesh_fp = fingerprint
         self.stop_training = False
         callbacks = list(callbacks or [])
         for cb in callbacks:
@@ -973,9 +1106,9 @@ class BaseModel(Block):
             for cb in callbacks:
                 getattr(cb, name, lambda *a: None)(*args)
 
-        # k steps a chunk only without an embedding optimizer: the JAX package
-        # sets spe = 1 where a sparse one is set
-        spe = 1 if self._sparse_tables else self._steps_per_execution
+        # k steps a chunk only without an embedding optimizer and off a mesh:
+        # the JAX package sets spe = 1 there
+        spe = 1 if self._sparse_tables or mesh is not None else self._steps_per_execution
         bucketed = getattr(loader, "pad", "max") == "bucket"
         groups = self._device_bucket_groups(loader, dev) if spe > 1 and bucketed else None
         if bucketed and groups is None:
@@ -1020,11 +1153,10 @@ class BaseModel(Block):
                 for name, v in logs.items():
                     step_logs.setdefault(name, []).append(v.reshape(-1))
 
-            def single(step, x, y):
+            def single(step, xb, yb):
                 nonlocal n_examples
                 metric_step = has_metrics and self._step % self.train_metrics_steps == 0
-                logs = self.train_step(to_device_batch(x, dev), to_device_targets(y, dev),
-                                       loss_fns, task_metrics=task_metrics,
+                logs = self.train_step(xb, yb, loss_fns, task_metrics=task_metrics,
                                        metric_states=states if metric_step else None)
                 keep(logs)
                 n_examples += B
@@ -1054,6 +1186,9 @@ class BaseModel(Block):
                         n_examples += k * B
                         local += k
                         chunk_done(local - 1, logs)
+            elif mesh is not None:
+                for step, xb, yb in self._mesh_batches(loader, mesh, dev, steps_per_epoch):
+                    single(step, xb, yb)
             else:
                 chunk, taken = [], 0
                 for step, (x, y) in enumerate(loader):
@@ -1061,7 +1196,7 @@ class BaseModel(Block):
                         break
                     taken += 1
                     if spe == 1:
-                        single(step, x, y)
+                        single(step, to_device_batch(x, dev), to_device_targets(y, dev))
                         continue
                     chunk.append((x, y))
                     if len(chunk) == spe:
@@ -1074,8 +1209,12 @@ class BaseModel(Block):
                         chunk_done(step, logs)
                         chunk = []
                 for i, (x, y) in enumerate(chunk):  # the batches that fill no chunk
-                    single(taken - len(chunk) + i, x, y)
+                    single(taken - len(chunk) + i, to_device_batch(x, dev),
+                           to_device_targets(y, dev))
             values = {k: torch.cat(v).mean() for k, v in step_logs.items()}
+            if mesh is not None:  # the global batch's logs and metrics
+                values = self._data_mean(values, mesh)
+                all_reduce_tree(states, mesh.group(pmesh.DATA_AXIS))
             values.update(self._metric_results(states, task_metrics))
             epoch_logs = _fetch(values)  # one copy to the host per epoch
             epoch_logs["examples_per_sec"] = n_examples / max(time.perf_counter() - t0, 1e-9)
@@ -1084,7 +1223,7 @@ class BaseModel(Block):
                                     steps=validation_steps, device=dev)
                 epoch_logs.update({f"val_{k}": v for k, v in val.items()})
             history.append(epoch_logs)
-            if verbose:
+            if verbose and pmesh.is_chief():
                 msg = " - ".join(f"{k}: {v:.4f}" for k, v in epoch_logs.items())
                 print(f"Epoch {epoch + 1}/{epochs} - {msg}")
             hook("on_epoch_end", epoch, epoch_logs)
@@ -1103,6 +1242,8 @@ class BaseModel(Block):
         take their evaluation branch (``testing``), the contrastive head
         scoring each batch's in-batch negatives, the top-k head the catalog.
         ``loss`` is the mean of the batches' losses. One copy to the host.
+        After ``fit(mesh=)`` it runs on that mesh, each rank on its data slice
+        of every batch, the results the global batches'.
         ``pre``: a transform of each batch on the device, as ``fit``'s
         (``SequencePredictLast``: the next-item protocol). ``return_dict``
         is taken and, as in the JAX package, the result is a dict either
@@ -1112,6 +1253,11 @@ class BaseModel(Block):
         dev = check_module_device(self, device)
         loader = data if isinstance(data, Loader) else Loader(data, batch_size or 1024)
         self.build(loader, device=dev)
+        mesh = getattr(self, "_mesh", None)
+        dg = mesh.group(pmesh.DATA_AXIS) if mesh is not None else None
+        if dg is not None and loader.batch_size % dg.size:
+            raise ValueError(f"batch {loader.batch_size} does not divide the mesh's data axis "
+                             f"{dg.size}")
         loss_fns = self._resolve_task_losses()
         task_metrics = self._resolve_task_metrics()
         states = self._init_metric_states(task_metrics, dev)
@@ -1120,21 +1266,29 @@ class BaseModel(Block):
         for step, (x, y) in enumerate(loader):
             if steps is not None and step >= steps:
                 break
+            if mesh is not None:
+                x, y = pmesh.shard_batch(x, mesh), pmesh.shard_batch(y, mesh)
             xb, yb = to_device_batch(x, dev), to_device_targets(y, dev)
             if pre is not None:
                 xb, yb = self._apply_pre(pre.to(dev), xb, yb, training=False)
             context = ModelContext(features=xb, targets=yb, testing=True, need_logits=True)
-            preds = self(xb, targets=yb, training=False, context=context)
-            pred_dict = self._as_pred_dict(preds)
-            total, _ = self._compute_losses(pred_dict, xb, loss_fns)
+            if mesh is not None:
+                context["mesh"] = mesh
+            with data_scope(dg):
+                preds = self(xb, targets=yb, training=False, context=context)
+                pred_dict = self._as_pred_dict(preds)
+                total, _ = self._compute_losses(pred_dict, xb, loss_fns)
             self._update_metrics(states, pred_dict, xb, task_metrics)
             loss_total = loss_total + total
             n_batches += 1
         values = {"loss": loss_total / max(n_batches, 1)}
+        if mesh is not None:  # the global batches' loss and metrics
+            values = self._data_mean(values, mesh)
+            all_reduce_tree(states, dg)
         values.update(self._metric_results(states, task_metrics))
         results = _fetch(values)
         results = {"loss": results.pop("loss"), **results}
-        if verbose:
+        if verbose and pmesh.is_chief():
             print(" - ".join(f"{k}: {v:.4f}" for k, v in results.items()))
         return results
 
@@ -1229,10 +1383,39 @@ class BaseModel(Block):
         inner = self._inner_optimizer()
         if inner is None:
             return None
-        return {"opt_state": inner.state_dict()["state"], "global_step": int(self._step)}
+        state = inner.state_dict()["state"]
+        if pmesh.state_mesh(self) is not None:
+            state = self._mesh_opt_state(inner, state, gather=True)
+        return {"opt_state": state, "global_step": int(self._step)}
+
+    def _mesh_opt_state(self, inner, state: dict, gather: bool) -> dict:
+        """The optimizer state of a model on a mesh made whole (``gather``: a
+        collective, the slots of each sharded parameter gathered) or cut to
+        this rank's slices (a whole state, as a checkpoint holds it)."""
+        if not all(isinstance(k, int) for k in state):
+            raise NotImplementedError("the training state of a MultiOptimizer on a mesh is not "
+                                      "ported yet")
+        mesh = pmesh.state_mesh(self)
+        named = {id(t): n for n, t in pmesh.named_tensors(self).items()}
+        specs = pmesh.sharded_names(self)
+        params = [p for g in inner.param_groups for p in g["params"]]
+        out = {}
+        for i, slots in state.items():
+            spec = specs.get(named.get(id(params[i])))
+            out[i] = dict(slots)
+            if spec is None:
+                continue
+            for name, v in slots.items():
+                if not torch.is_tensor(v) or v.ndim != params[i].ndim:
+                    continue
+                if gather:
+                    out[i][name] = pmesh.gather_full(v, spec, mesh)
+                else:
+                    out[i][name] = v[pmesh.shard_slices(spec, v.shape, mesh)].clone()
+        return out
 
     @torch.no_grad()
-    def arm_training_state(self, opt_state: dict, global_step: int = 0) -> None:
+    def arm_training_state(self, opt_state: dict, global_step: int = 0, mesh=None) -> None:
         """Install restored optimizer state (:meth:`training_state`'s
         ``opt_state``) and the step count, so that the next ``fit`` continues
         from them. The model must be built and compiled with the optimizer
@@ -1240,9 +1423,14 @@ class BaseModel(Block):
         optimizer holds (its dtype and address kept); slots the optimizer has
         not made yet (Adam's before its first step) are loaded through
         ``load_state_dict`` and packed anew. Every captured chunk graph is
-        dropped either way, so that no replay reads a tensor of before."""
+        dropped either way, so that no replay reads a tensor of before.
+        ``mesh``: the one the next ``fit(mesh=)`` trains on, on which the
+        model is placed already (``CheckpointManager.restore_training``
+        places it); ``opt_state`` is whole and each rank keeps its slices."""
         if not self._compiled:
             raise ValueError("compile() the model before arm_training_state")
+        if mesh is None and pmesh.state_mesh(self) is not None:
+            raise ValueError("the model is placed on a mesh: pass it as mesh=")
         if isinstance(self._optimizer_spec, MultiOptimizer) or self.frozen_blocks():
             raise ValueError("a MultiOptimizer or frozen-block fit starts from fresh slots at "
                              "step 0: its training state cannot be armed")
@@ -1250,6 +1438,8 @@ class BaseModel(Block):
             self._build_optimizer()
         inner = self._inner_optimizer()
         live = inner.state_dict()["state"]
+        if pmesh.state_mesh(self) is not None:
+            opt_state = self._mesh_opt_state(inner, opt_state, gather=False)
         same = set(live) == set(opt_state) and all(
             set(live[i]) == set(opt_state[i]) and all(
                 torch.is_tensor(v) == torch.is_tensor(opt_state[i][n])
@@ -1271,6 +1461,8 @@ class BaseModel(Block):
             if repack is not None:
                 repack()
         self._step = int(global_step)
+        self._mesh = mesh
+        self._fit_mesh_fp = None if mesh is None else mesh.fingerprint
         self._chunk_graphs.clear()
         self._group_graphs.clear()
 

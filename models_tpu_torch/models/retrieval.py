@@ -95,25 +95,28 @@ class RetrievalModelV2(Model):
 
     def to_top_k_encoder(self, candidates: Optional[Dataset] = None, k: int = 10,
                          batch_size: int = 1024, candidate_dtype: Optional[torch.dtype] = None,
-                         device=None):
+                         device=None, mesh=None):
         """A servable and evaluable brute-force top-k model over the encoded
         ``candidates`` (a tied model: its table, no dataset needed);
         ``candidate_dtype=torch.bfloat16`` stores the index half-width,
-        ``torch.int8`` bin-quantized (a quarter)."""
+        ``torch.int8`` bin-quantized (a quarter). ``mesh`` splits the index
+        by rows over the mesh's model axis (``outputs/topk.py``): every rank
+        calls it, and every rank of a model line serves the same queries."""
         cand_ds = self.candidate_embeddings(candidates, batch_size=batch_size, device=device)
         return TopKEncoder(self._query, candidates=cand_ds, k=k,
                            item_id_name=self.item_id_name,
-                           candidate_dtype=candidate_dtype, device=device)
+                           candidate_dtype=candidate_dtype, device=device, mesh=mesh)
 
     to_top_k_recommender = to_top_k_encoder
 
     def evaluate(self, data, batch_size: Optional[int] = None, item_corpus=None, k: int = 10,
-                 steps: Optional[int] = None, pre=None, device=None):
+                 steps: Optional[int] = None, pre=None, device=None, mesh=None):
         """In-batch evaluation (:meth:`Model.evaluate`), or, with
         ``item_corpus`` (a Dataset of items, or True for a tied model's
         table), each query scored against the whole corpus: a brute-force
         fp32 index of the candidate embeddings, then the top-k metrics of
-        its ``k`` best."""
+        its ``k`` best; ``mesh`` splits that index over the mesh's model
+        axis."""
         if item_corpus is None:
             return super().evaluate(data, batch_size=batch_size, steps=steps, pre=pre,
                                     device=device)
@@ -121,7 +124,7 @@ class RetrievalModelV2(Model):
             raise NotImplementedError("evaluate(item_corpus=, pre=) is not ported yet "
                                       "(ROADMAP.md queue 1)")
         corpus = None if item_corpus is True else item_corpus
-        topk = self.to_top_k_encoder(corpus, k=k, device=device)
+        topk = self.to_top_k_encoder(corpus, k=k, device=device, mesh=mesh)
         return topk.evaluate(data, batch_size=batch_size, steps=steps, device=device)
 
 

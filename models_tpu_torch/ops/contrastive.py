@@ -20,14 +20,29 @@ from typing import Optional
 
 import torch
 
+from ..parallel.collectives import in_data_scope, weight_total
 from . import flash_ce
 
 
-def _loss_from_lse(pos_logit, m, s, weights):
-    per = (m + torch.log(s)) - pos_logit
+def _weight_sum(query, weights) -> Optional[torch.Tensor]:
+    """The weighted mean's denominator: the rows' total weight, under a mesh
+    step the data line's total over its size
+    (``parallel/collectives.py::weight_total``); None for the plain mean of
+    unweighted rows outside one."""
     if weights is None:
+        if not in_data_scope():
+            return None
+        weights = torch.ones(query.shape[0], device=query.device)
+    return weight_total(weights.sum()).clamp_min(1e-9)
+
+
+def _loss_from_lse(pos_logit, m, s, weights, denom=None):
+    per = (m + torch.log(s)) - pos_logit
+    if weights is None and denom is None:
         return per.mean()
-    return (per * weights).sum() / weights.sum().clamp_min(1e-9)
+    if denom is None:
+        denom = weights.sum().clamp_min(1e-9)
+    return (per if weights is None else per * weights).sum() / denom
 
 
 def loss_stats(query, pos_emb, neg_emb, pos_id, neg_id, neg_bias, pos_bias, temperature):
@@ -44,16 +59,19 @@ def loss_stats(query, pos_emb, neg_emb, pos_id, neg_id, neg_bias, pos_bias, temp
 
 
 def loss_cotangents(g, query, pos_emb, neg_emb, pos_id, neg_id, weights, neg_bias, pos_logit,
-                    m, s, temperature):
+                    m, s, temperature, denom=None):
     """The loss's float32 cotangents (d_query, d_pos, d_neg) for the upstream
     gradient ``g``, before each is rounded to its primal's dtype: K2 and K3
-    recompute the negatives' logits from :func:`loss_stats`' (m, s)."""
+    recompute the negatives' logits from :func:`loss_stats`' (m, s).
+    ``denom``: the forward's weighted-mean denominator (by default this
+    rank's own)."""
     T = temperature
     lse = m + torch.log(s)
     if weights is None:
-        w = torch.full_like(lse, 1.0 / query.shape[0])
+        w = (torch.full_like(lse, 1.0 / query.shape[0]) if denom is None
+             else torch.ones_like(lse) / denom)
     else:
-        w = weights / weights.sum().clamp_min(1e-9)
+        w = weights / (weights.sum().clamp_min(1e-9) if denom is None else denom)
     gw = (g * w).contiguous()
     # d loss_i / d x_ij = softmax_ij; d loss_i / d pos_i = softmax_i0 - 1
     coef_pos = gw * (torch.exp(pos_logit - lse) - 1.0) / T
@@ -71,15 +89,17 @@ class _SampledSoftmaxLoss(torch.autograd.Function):
                 temperature):
         pos_logit, m, s = loss_stats(query, pos_emb, neg_emb, pos_id, neg_id, neg_bias, pos_bias,
                                      temperature)
+        denom = _weight_sum(query, weights)
         ctx.save_for_backward(query, pos_emb, neg_emb, pos_id, neg_id, weights, neg_bias,
-                              pos_logit, m, s)
+                              pos_logit, m, s, denom)
         ctx.temperature = temperature
-        return _loss_from_lse(pos_logit, m, s, weights)
+        return _loss_from_lse(pos_logit, m, s, weights, denom)
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        d_query, d_pos, d_neg = loss_cotangents(g, *saved, ctx.temperature)
+        d_query, d_pos, d_neg = loss_cotangents(g, *saved[:10], ctx.temperature,
+                                                denom=saved[10])
         query, pos_emb, neg_emb = saved[:3]
         return (d_query.to(query.dtype), d_pos.to(pos_emb.dtype), d_neg.to(neg_emb.dtype),
                 None, None, None, None, None, None)

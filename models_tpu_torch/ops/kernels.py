@@ -4,12 +4,15 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc`` for ``sm_90a`` into ``build/models_tpu_torch/`` at the root of the
 checkout, under a name that carries a hash of the source and of every header
 in ``csrc/`` (which the sources include from there), then loaded with
-``ctypes``. Nothing is compiled or loaded when this module is imported.
+``ctypes``. Nothing is compiled or loaded when this module is imported. The
+build holds a file lock in that directory, so that the ranks of a run on one
+host compile each library once between them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -52,6 +55,12 @@ def build(names: Iterable[str] = SOURCES) -> List[Path]:
     """Compile the named sources that are not built yet, one ``nvcc`` each,
     all started together. Raises with the compiler's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        return _build_locked(list(names))
+
+
+def _build_locked(names: List[str]) -> List[Path]:
     procs = {}
     for name in names:
         out = _target(name)

@@ -10,7 +10,9 @@ Routes, picked by :func:`topk_route` as the JAX ``topk_scores`` picks them:
 - ``streaming``: the CUDA kernel :func:`streaming_topk` (replacing K6), for
   query batches whose binned pool would be too large, when the tensors lie on
   the card;
-- ``blockwise``: the same function in plain PyTorch, tile by tile, elsewhere.
+- ``blockwise``: the same function in plain PyTorch, tile by tile, elsewhere;
+- :func:`sharded_topk`: the top-k over a catalog split by rows over a mesh
+  axis, each rank scanning its shard and the (B, k) lists merged.
 
 Every selection ranks by (score descending, position ascending), the order of
 ``lax.top_k``. Scores are fp32 for fp32 and bf16 catalogs alike, as JAX
@@ -704,6 +706,48 @@ def topk_scores(
     if route == "streaming":
         return streaming_topk(q, c, k, ids=ids, scale=col_scale)
     return _blockwise(q, c, k, ids, tile, col_scale)
+
+
+def sharded_topk(queries, candidates: torch.Tensor, k: int, mesh, axis: str = "model",
+                 ids: Optional[torch.Tensor] = None, tile: int = 4096,
+                 col_scale: Optional[torch.Tensor] = None,
+                 col_scale_per_bin: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over a catalog split by rows over ``axis`` (``models_tpu/ops/
+    topk.py::sharded_topk``): ``candidates`` is this rank's contiguous shard
+    (C/n, D), ``ids`` its ids (default the global positions), ``col_scale``
+    its rows' scales (the int8 index); the queries are the same on every
+    rank of the model line. Each rank takes the single-card route on its
+    shard: binned (phase B in K5) where the shard has more than 128 k rows,
+    as the JAX package's, and where the binned pool holds (the single-card
+    bound, ``topk_route``: at 1M x 128 and k = 10 a 4096-row batch would
+    gather a 1.6 GB pool), else the streaming K6 (its plain version on the
+    CPU). Then the (B, k) lists are all-gathered over the line and merged:
+    ties go to the lowest global position, since the shards are contiguous
+    and each list ranks by (score desc, position asc). Only (B, k) scores
+    and ids move between ranks."""
+    from ..parallel.collectives import all_gather
+
+    g = mesh.group(axis)
+    q, c, ids, col_scale = _prepare(queries, candidates, ids, candidates.device, col_scale)
+    _check_k(k)
+    C = c.shape[0]
+    if ids is None:
+        ids = torch.arange(C, dtype=torch.int32, device=c.device) + g.index * C
+    pool_bytes = q.shape[0] * (k + _BINNED_MARGIN) * _BINNED_BIN_SIZE * q.shape[1] * 4
+    if C // 128 > k and pool_bytes <= _BINNED_POOL_BYTES:
+        s, i = _binned(q, c, k, ids, _BINNED_BIN_SIZE, _BINNED_MARGIN, None, col_scale,
+                       col_scale_per_bin)
+    else:
+        if k > C:
+            raise ValueError(f"k={k} exceeds the shard's {C} candidates")
+        s, i = streaming_topk(q, c, k, ids=ids, scale=col_scale)
+    if g.size == 1:
+        return s, i
+    B = q.shape[0]
+    all_s = all_gather(s.contiguous(), g).view(g.size, B, k).transpose(0, 1).reshape(B, -1)
+    all_i = all_gather(i.contiguous(), g).view(g.size, B, k).transpose(0, 1).reshape(B, -1)
+    best_s, pos = stable_topk(all_s, k)
+    return best_s, torch.gather(all_i, 1, pos)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:

@@ -187,7 +187,23 @@ class EmbeddingTablePrediction(Block):
                 "softmax (ContrastiveOutput) or a dense optimizer for this table.")
         if isinstance(inputs, SequenceFeature):
             inputs = inputs.values
+        shard = getattr(self.table, "shard", None)
+        if shard is not None:
+            return self._sharded_logits(inputs, shard)
         return cast_compute(inputs).float() @ cast_compute(self.table.embeddings).float().T
+
+    def _sharded_logits(self, inputs, shard):
+        """Inference over a table split by rows over a mesh: each rank
+        scores its shard's rows, and the columns are gathered over the
+        model line (the same queries on every rank of it)."""
+        from ..parallel.collectives import all_gather
+
+        if torch.is_grad_enabled() and inputs.requires_grad:
+            raise NotImplementedError("training a full-catalog tied head over a table split "
+                                      "over a mesh is not ported yet (ROADMAP.md queue 1)")
+        part = cast_compute(inputs).float() @ cast_compute(self.table.table).float().T
+        cols = all_gather(part.movedim(-1, 0).contiguous(), shard.mesh.group(shard.axis))
+        return cols.movedim(0, -1)[..., : self.table.input_dim]
 
     def embedding_lookup(self, ids: torch.Tensor, site: str = "tying",
                          context=None) -> torch.Tensor:

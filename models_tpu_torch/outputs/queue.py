@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from ..core.block import Block
-from .sampling import Candidate, CandidateSampler
+from .sampling import Candidate, CandidateSampler, global_candidates
 
 
 class FIFOQueue(Block):
@@ -87,6 +87,8 @@ class CachedCrossBatchSampler(CandidateSampler):
                 context=None, **kwargs):
         snapshot = self.queue.snapshot()
         if training and positive.embedding is not None and positive.id is not None:
+            # under a mesh the ring holds the global batch's rows
+            positive = global_candidates(positive, context)
             new = self.queue.enqueue_functional(positive.id, positive.embedding)
             bufs = (self.queue.embeddings, self.queue.ids, self.queue.cursor)
             if context is not None:

@@ -45,11 +45,41 @@ class CandidateSampler(Block):
         raise ValueError(f"Unknown negative sampler {s!r}")
 
 
-class InBatchSampler(CandidateSampler):
-    """The batch's positive items are everyone's negatives."""
-
-    def forward(self, positive: Candidate, *, training: bool = False, step=None, **kwargs):
+def global_candidates(positive: Candidate, context) -> Candidate:
+    """``positive`` over the global batch under a mesh step whose batch is
+    split over the data axis (the context's ``mesh``): its ids, embeddings,
+    sampling probabilities and validity all-gathered over the rank's data
+    line, the embeddings' gradient reduce-scattered back
+    (``parallel/collectives.py::GatherRows``); else ``positive`` itself."""
+    mesh = context.get("mesh") if context is not None else None
+    if mesh is None:
         return positive
+    from ..parallel.collectives import all_gather, gather_rows
+    from ..parallel.mesh import DATA_AXIS
+
+    g = mesh.group(DATA_AXIS)
+    if g.size == 1:
+        return positive
+
+    def rows(x):
+        return None if x is None else all_gather(x.contiguous(), g)
+
+    return Candidate(id=rows(positive.id),
+                     embedding=None if positive.embedding is None
+                     else gather_rows(positive.embedding, g),
+                     sampling_prob=rows(positive.sampling_prob), metadata=positive.metadata,
+                     valid=rows(positive.valid))
+
+
+class InBatchSampler(CandidateSampler):
+    """The batch's positive items are everyone's negatives: under a mesh
+    whose data axis splits the batch, the global batch's
+    (:func:`global_candidates`), as in the JAX package, whose negatives are
+    the whole data-sharded batch."""
+
+    def forward(self, positive: Candidate, *, training: bool = False, step=None, context=None,
+                **kwargs):
+        return global_candidates(positive, context)
 
 
 def _log32(x: float) -> float:

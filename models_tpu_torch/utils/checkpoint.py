@@ -9,6 +9,11 @@ persistent buffers, the row-sparse slots and bf16 tables among them), and
 where given the dense optimizer's state (slots, bf16 slots at rest, and
 step counts), the global step and the states of the blocks' random
 generators (dropout, samplers). Only ``max_to_keep`` checkpoints are kept.
+
+On a mesh (``fit(mesh=)``) every rank calls ``save``: the sharded tables,
+their slots and their optimizer slots are gathered whole (through the host)
+and the chief alone writes; ``restore_training(mesh=, shard_rules=)`` reads
+the whole state on every rank and places it on the mesh.
 """
 
 from __future__ import annotations
@@ -54,12 +59,16 @@ class CheckpointManager:
         """Write checkpoint ``step``: the model's state, and ``opt_state``
         and ``global_step`` where given (:meth:`BaseModel.training_state`).
         Returns False where the interval skips the step."""
+        from ..parallel.mesh import barrier, full_state, is_chief
         from .io import model_state
 
         if step % self.save_interval_steps:
             return False
-        payload = {"model": model_state(model),
+        payload = {"model": full_state(model, model_state(model)),
                    "generators": {k: g.get_state() for k, g in _generators(model).items()}}
+        if not is_chief():
+            barrier()  # the chief's write is done when save returns
+            return True
         if opt_state is not None:
             payload["opt_state"] = opt_state
         if global_step is not None:
@@ -73,6 +82,7 @@ class CheckpointManager:
         os.replace(tmp, final)
         for old in self.all_steps()[:-self.max_to_keep] if self.max_to_keep else []:
             shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+        barrier()
         return True
 
     def _read(self, step: Optional[int], dev) -> tuple:
@@ -101,7 +111,7 @@ class CheckpointManager:
         return step, payload.get("opt_state")
 
     def restore_training(self, model, data=None, step: Optional[int] = None,
-                         device=None) -> int:
+                         device=None, mesh=None, shard_rules=None) -> int:
         """Resume training: restore the model's state, the optimizer's and
         the global step, so that the next ``fit(initial_epoch=<returned> +
         1, ...)`` continues the interrupted run. ``model`` (on ``device``,
@@ -110,7 +120,9 @@ class CheckpointManager:
         checkpoint's step (the epoch, from ``ModelCheckpoint``). The
         resumed trajectory is the uninterrupted one bit for bit where the
         batch order is (``shuffle=False``). A ``MultiOptimizer`` (its
-        optimizers are made anew each fit) is refused."""
+        optimizers are made anew each fit) is refused. ``mesh`` and
+        ``shard_rules``: those of the ``fit(mesh=)`` that continues, the
+        model (whole, built on every rank) placed on it after the load."""
         from ..blocks.optimizer import MultiOptimizer
 
         if not getattr(model, "_compiled", False):
@@ -127,10 +139,15 @@ class CheckpointManager:
         if "opt_state" not in payload:
             raise ValueError(f"checkpoint {step} has no optimizer state (saved without "
                              "training_state?)")
-        if model._optimizer is None:
-            model._build_optimizer()  # the row-sparse slots, which the state fills
-        self._restore_model(model, payload, dev)
-        model.arm_training_state(payload["opt_state"], payload.get("global_step", 0))
+        if mesh is not None:
+            self._restore_model(model, payload, dev)
+            model._place_on_mesh(mesh, shard_rules)
+            model._build_optimizer()
+        else:
+            if model._optimizer is None:
+                model._build_optimizer()  # the row-sparse slots, which the state fills
+            self._restore_model(model, payload, dev)
+        model.arm_training_state(payload["opt_state"], payload.get("global_step", 0), mesh=mesh)
         return step
 
 

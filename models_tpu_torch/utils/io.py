@@ -56,7 +56,8 @@ SERVING_SPEC = "serving_spec.json"
 # an export, remade by compile()
 ENGINE_ATTRS = ("_optimizer", "_chunk_graphs", "_group_graphs", "_pre_transform", "_host_stage",
                 "_emb_opt", "_sparse_tables", "_frozen_ids", "_loss_spec", "_metrics_spec",
-                "_optimizer_spec", "_learning_rate", "_head_weights", "history", "_compiled")
+                "_optimizer_spec", "_learning_rate", "_head_weights", "history", "_compiled",
+                "_mesh", "_fit_mesh_fp")
 
 
 @contextlib.contextmanager
@@ -83,6 +84,44 @@ def cpu_copy(model):
                        if isinstance(t, torch.nn.Parameter) else host)
     with engine_set_aside(model):
         return copy.deepcopy(model, memo).to("cpu")
+
+
+@contextlib.contextmanager
+def _placement_set_aside(model):
+    """``model`` with its mesh placement (the tables' shards, the modules'
+    records of sharded tensors, a split index's mesh) taken off inside the
+    block and put back after it: a mesh's process groups cannot be copied."""
+    saved = []
+    for m in model.modules():
+        for key in ("_mesh_specs", "_mesh_of_state", "mesh", "shard"):
+            if key in m.__dict__:
+                saved.append((m, key, m.__dict__.pop(key)))
+                if key in ("mesh", "shard"):
+                    m.__dict__[key] = None
+    try:
+        yield model
+    finally:
+        for m, key, value in saved:
+            m.__dict__[key] = value
+
+
+def whole_copy(model, device=None):
+    """A model placed on a mesh as one whole model: a copy (its engine left
+    behind, on ``device``, default the model's own) whose sharded tensors
+    are gathered whole. A collective: every rank of the mesh calls it."""
+    from ..parallel.mesh import named_tensors, full_state, sharded_names
+
+    specs = sharded_names(model)
+    state = full_state(model, model_state(model))
+    with _placement_set_aside(model):
+        copied = cpu_copy(model)
+    tensors = named_tensors(copied)
+    with torch.no_grad():
+        for name in specs:
+            tensors[name].data = state[name].detach().cpu().clone()
+    dev = device if device is not None else next(
+        (t.device for t in itertools.chain(model.parameters(), model.buffers())), None)
+    return copied.to(dev) if dev is not None else copied
 
 
 def serving_file(platform: str) -> str:
@@ -246,8 +285,17 @@ def save_model(model, path: str, format: str = "auto") -> str:
 
     from ..core.config import ConfigError
 
+    from ..parallel.mesh import barrier, is_chief, state_mesh
+
     if format not in ("auto", "config", "pickle"):
         raise ValueError(f"format must be 'auto', 'config' or 'pickle', not {format!r}")
+    if state_mesh(model) is not None:
+        # a model on a mesh: made whole through the host, written by the chief
+        whole = whole_copy(model, "cpu")
+        if is_chief():
+            save_model(whole, path, format=format)
+        barrier()
+        return path
     os.makedirs(path, exist_ok=True)
     if format in ("auto", "config"):
         try:
@@ -372,8 +420,18 @@ def export_serving(model, path: str, data=None, batch_size: int = 1024, platform
     The batch size is static: the sample batch's (``data``: a Dataset or
     Loader, of which the first full batch of ``batch_size`` rows, or a dict
     of host arrays). A model with a dynamic-vocabulary table does not
-    export (its lookup inserts keys)."""
+    export (its lookup inserts keys). A model on a mesh is made whole
+    (:func:`whole_copy`: every rank calls this) and the chief writes."""
+    from ..parallel.mesh import barrier, is_chief, state_mesh
+
     dev = check_module_device(model, device)
+    if state_mesh(model) is not None:
+        whole = whole_copy(model, dev)
+        if is_chief():
+            export_serving(whole, path, data=data, batch_size=batch_size, platforms=platforms,
+                           device=dev)
+        barrier()
+        return path
     os.makedirs(path, exist_ok=True)
     x = _sample_features(model, data, batch_size, dev)
     flat = {k: np.asarray(v.cpu() if torch.is_tensor(v) else v)

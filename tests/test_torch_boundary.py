@@ -44,6 +44,9 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "import models_tpu_torch.data.dataset, models_tpu_torch.schema\n"
         "import models_tpu_torch.core.config, models_tpu_torch.utils.io\n"
         "import models_tpu_torch.utils.checkpoint, models_tpu_torch.utils.misc\n"
+        "import models_tpu_torch.parallel, models_tpu_torch.parallel.launch\n"
+        "import models_tpu_torch.parallel.collectives, models_tpu_torch.parallel.mesh\n"
+        "import models_tpu_torch.parallel.distributed\n"
         "models_tpu_torch.string_id_hash(['a', b'b', None])\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
@@ -191,6 +194,9 @@ ENTRY_POINTS = {
     "CheckpointManager.restore_training": _restore_training,
     "export_serving": lambda: _cpu_model()[1].export_serving(
         tempfile.mkdtemp(), data=_cpu_model()[0], batch_size=16),
+    "parallel.initialize": lambda: mt.parallel.initialize(
+        init_method="file://" + tempfile.mktemp(), world_size=1, rank=0),
+    "make_mesh": lambda: mt.make_mesh({"data": 1, "model": 1}),
 }
 
 
@@ -208,3 +214,19 @@ def test_the_same_entry_points_run_when_asked_for_the_cpu():
     assert out["ids"].shape == (40, 3)
     s, i = ttopk.topk_scores(Q, C, 3, device="cpu")
     assert s.shape == (2, 3) and i.dtype == torch.int32
+
+
+def test_the_mesh_runs_on_the_cpu_only_over_gloo():
+    """On the CPU ``initialize`` needs ``backend="gloo"`` beside
+    ``device="cpu"`` (NCCL runs on the card only), and refuses before it
+    joins anything; ``make_mesh(device="cpu")`` with no process group is a
+    mesh of one rank."""
+    init = "file://" + tempfile.mktemp()
+    with pytest.raises(ValueError, match="gloo"):
+        mt.parallel.initialize(init_method=init, world_size=1, rank=0, device="cpu")
+    with pytest.raises(ValueError, match="nccl"):
+        mt.parallel.initialize(init_method=init, world_size=1, rank=0, device="cpu",
+                               backend="nccl")
+    assert not torch.distributed.is_initialized()
+    mesh = mt.make_mesh({"data": 1, "model": 1}, device="cpu")
+    assert (mesh.world, mesh.coords, mesh.group("model").size) == (1, (0, 0), 1)
