@@ -6271,6 +6271,527 @@ def phase_mesh(dev, card) -> tuple:
     return summary, rows
 
 
+# phase 23: the last mesh configurations and the data plane that feeds them
+BREADTH_DYN_STEPS = 4  # steps a route of 23a (the keys hashed after each)
+BREADTH_DYN_ROUTES = ("adagrad", "adam", "bf16")
+BREADTH_SESSION_BATCH = 1024
+BREADTH_MUSIC_BATCH = TRAIN_BATCH
+BREADTH_EX06_ROWS = 20_000
+BREADTH_EX06_BATCH = 1024
+BREADTH_EX09_ROWS = 10_000
+BREADTH_EX09_RTOL = 1e-4  # the card's and the CPU's two epochs of example 09's DLRM
+# (a run on an H100 read 1.53e-5)
+BREADTH_KINDS = ("session", "tied", "music", "ex06")
+# where each run must launch each kernel of its path
+BREADTH_PATHS = {
+    "dynamic_adagrad": ("row_gather", "row_scatter_add"),
+    "dynamic_adam": ("row_gather", "row_scatter_add"),
+    "dynamic_bf16": ("row_gather", "row_scatter_add", "row_scatter_write"),
+    "session": ("lse_forward", "grad_query", "grad_neg", "row_gather", "row_scatter_add"),
+    "tied": ("row_gather", "row_scatter_add"),
+    "music": ("row_gather", "row_scatter_add"),
+    "ex06": ("lse_forward", "grad_query", "grad_neg", "row_gather", "row_scatter_add"),
+}
+
+
+def sha(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def criteo_dynamic_data(n: int):
+    """phase_dynamic's first day: the 26 Criteo columns as raw 31-bit ids,
+    ``n`` rows, the label from C1."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.data.synthetic import known_schema
+
+    full = known_schema("criteo")
+    schema = mt.Schema(list(full.categorical) + list(full.targets))
+    cols = {c.name: criteo_raw(c.cardinality, n, SEED + 30 + i) % 2**31
+            for i, c in enumerate(full.categorical)}
+    cols["label"] = (cols["C1"] % 2).astype(np.float32)
+    return mt.Dataset(cols, schema=schema)
+
+
+def breadth_dyn_model(dev, schema, route):
+    import models_tpu_torch as mt
+
+    kw = {"param_dtype": torch.bfloat16} if route == "bf16" else {}
+    model = dynamic_model(dev, schema, "label", **kw)
+    if route == "adam":
+        model.compile(optimizer="adam", learning_rate=ADAM_LR, metrics=[])
+    else:
+        model.compile(optimizer="adagrad", learning_rate=ADAGRAD_LR, metrics=[],
+                      embedding_optimizer="adagrad")
+    return model, [m for m in model.modules() if isinstance(m, mt.DynamicEmbeddingTable)]
+
+
+class KeyDigests:
+    """A fit callback and a spy on each dynamic table's map: the SHA-256 of
+    every table's slots at each training call (the global batch's, on a
+    mesh) and of its key buffer after each step."""
+
+    def __init__(self, tables):
+        self.tables = tables
+        self.slots = {t.block_name: [] for t in tables}
+        self.keys = {t.block_name: [] for t in tables}
+        for t in tables:
+            orig = t._map_ids
+
+            def mapped(raw, keys, training, orig=orig, name=t.block_name):
+                out = orig(raw, keys, training)
+                if training:
+                    self.slots[name].append(sha(out))
+                return out
+
+            t._map_ids = mapped
+
+    def set_model(self, model):
+        pass
+
+    def on_batch_end(self, step, logs):
+        for t in self.tables:
+            self.keys[t.block_name].append(sha(t.hash_keys))
+
+
+def breadth_fit(model, data, dev, mesh, batch, pre=None, callbacks=()) -> dict:
+    """One epoch, unshuffled: the global batch's loss of each step (the mean
+    over the data line of the ranks'), the kernels' launches, the
+    collectives and the step times (medians of the steps after the
+    first)."""
+    from models_tpu_torch.parallel.collectives import TRAFFIC, all_reduce
+
+    clock = StepClock()
+    zero_mesh_counts()
+    TRAFFIC.reset()
+    model.fit(data, epochs=1, batch_size=batch, shuffle=False, device=dev, mesh=mesh, pre=pre,
+              callbacks=[clock, *callbacks])
+    torch.cuda.synchronize()
+    launches, traffic = mesh_counts(), TRAFFIC.snapshot()
+    losses = torch.stack(clock.losses).float()
+    if mesh is not None:
+        g = mesh.group("data")
+        losses = all_reduce(losses, g) / g.size
+    return {"loss": losses.cpu().tolist(), "launches": launches, "traffic": traffic,
+            **clock.step_ms()}
+
+
+def breadth_tied_model(dev, schema):
+    """The session body at phase_session's width into the tied full-catalog
+    ``NextItemPredictionTask(table=)``."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.models.session import (_find_item_table, _ProjectToTableDim,
+                                                 _SequenceConcat)
+    from models_tpu_torch.transformer import GPT2Block
+
+    inputs = mt.InputBlockV2(schema.excluding_by_tag(mt.Tags.TARGET), dim=128, aggregation=None,
+                             seed=SEED, device=dev)
+    table = _find_item_table(inputs, schema.select_by_tag(mt.Tags.ITEM_ID).first.domain_name)
+    tr = GPT2Block(d_model=128, n_head=8, n_layer=2, dropout=0.0, seed=SEED).to(dev)
+    tr.set_in_features(inputs.out_features, dev)
+    body = mt.SequentialBlock([inputs, _SequenceConcat(), tr,
+                               _ProjectToTableDim(tr.d_model, table.dim, device=dev)])
+    return mt.Model(body, mt.NextItemPredictionTask(schema, table=table, device=dev))
+
+
+def breadth_case(kind, dev, data):
+    """(model, batch, pre) of 23b-d, compiled."""
+    import models_tpu_torch as mt
+
+    if kind in ("session", "tied"):
+        model = (session_model(dev, data.schema) if kind == "session"
+                 else breadth_tied_model(dev, data.schema))
+        model.compile(optimizer="adam", learning_rate=ADAM_LR, metrics=[])
+        return model, BREADTH_SESSION_BATCH, session_pre(data.schema)
+    if kind == "music":
+        model = dlrm_model(dev, data.schema)
+        model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[])
+        return model, BREADTH_MUSIC_BATCH, None
+    model = mt.TwoTowerModel(data.schema, query_tower=(64, 32), embedding_dim=32, seed=SEED,
+                             device=dev)
+    model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[])
+    return model, BREADTH_EX06_BATCH, None
+
+
+class IdGathers:
+    """A spy on the dynamic tables' all-gather of the raw ids over the data
+    line: the bytes ``TRAFFIC`` counts for those calls alone, and their host
+    seconds."""
+
+    def __init__(self):
+        from models_tpu_torch.inputs import dynamic
+
+        self.module, self.orig = dynamic, dynamic.all_gather
+        self.bytes, self.seconds = 0, 0.0
+
+        def counted(t, g):
+            from models_tpu_torch.parallel.collectives import TRAFFIC
+
+            b0, s0 = TRAFFIC.bytes.get("all_gather", 0), TRAFFIC.seconds.get("all_gather", 0.0)
+            out = self.orig(t, g)
+            self.bytes += TRAFFIC.bytes.get("all_gather", 0) - b0
+            self.seconds += TRAFFIC.seconds.get("all_gather", 0.0) - s0
+            return out
+
+        dynamic.all_gather = counted
+
+    def close(self):
+        self.module.all_gather = self.orig
+
+
+class TiedBackward:
+    """A spy on the tied head's backward over a split table
+    (``_ShardLogits``): the bytes ``TRAFFIC`` counts in each call, by kind,
+    the largest over the calls, beside the bound of one collective of the
+    queries' gradient and one of the shard's (their bytes, whatever the
+    catalog)."""
+
+    def __init__(self):
+        from models_tpu_torch.outputs.base import _ShardLogits
+        from models_tpu_torch.parallel.collectives import TRAFFIC
+
+        self.cls, self.orig = _ShardLogits, _ShardLogits.backward
+        self.calls, self.bytes, self.bound = 0, {}, 0
+
+        def spy(ctx, grad):
+            x, shard = ctx.saved_tensors
+            before = dict(TRAFFIC.bytes)
+            out = self.orig(ctx, grad)
+            for kind, n in TRAFFIC.bytes.items():
+                if n > before.get(kind, 0):
+                    self.bytes[kind] = max(self.bytes.get(kind, 0), n - before.get(kind, 0))
+            self.bound = max(self.bound, (x.numel() + shard.numel()) * 4)
+            self.calls += 1
+            return out
+
+        _ShardLogits.backward = staticmethod(spy)
+
+    def close(self):
+        self.cls.backward = staticmethod(self.orig)
+
+    def record(self) -> dict:
+        return {"calls": self.calls, "bytes_by_kind": self.bytes, "bound": self.bound}
+
+
+def breadth_dynamic_run(route, dev, data, mesh) -> dict:
+    model, tables = breadth_dyn_model(dev, data.schema, route)
+    digests = KeyDigests(tables)
+    ids = IdGathers()
+    try:
+        rec = breadth_fit(model, data, dev, mesh, TRAIN_BATCH, callbacks=[digests])
+    finally:
+        ids.close()
+    steps = len(rec["loss"])
+    rec.update(slot_sha=digests.slots, key_sha=digests.keys,
+               allocated=sum(t.num_allocated for t in tables),
+               id_gather_bytes_per_step=ids.bytes / steps,
+               id_gather_ms_per_step=ids.seconds * 1e3 / steps)
+    if route == "bf16" and mesh is not None:
+        rec["shard_rows"] = max(t.table.shape[0] for t in tables)
+    return rec
+
+
+def breadth_kernel_checks(dev, shard_rows: int, positions: int) -> dict:
+    """K1-K3, K7, K8b and K9 at a {2, 2} rank's shapes, against their plain
+    versions: the flash-CE kernels at the session's Q = a rank's
+    predicted positions and N = the global batch's (D = 128), the gather and
+    the scatters on a shard of the largest dynamic table (D = 16) with a
+    step's ids."""
+    gen = torch.Generator(dev).manual_seed(SEED + 231)
+    errs = {"row_scatter_add": 0.0, "row_scatter_write": 0.0, "row_gather": 0.0}
+    Q, N = positions // MESH_SHAPE["data"], positions
+    check_fce(f"23b session shard Q={Q} N={N}", dev,
+              fce_case(dev, gen, Q, N, 128, 1.0, True, False, False), 1.0, errs)
+    table = torch.randn(shard_rows, DYN_DIM, device=dev, generator=gen)
+    ids = torch.randint(0, shard_rows, (TRAIN_BATCH,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    gather_case(f"23a dynamic shard ({shard_rows} rows)", table, ids, errs)
+    for dtype in (torch.float32, torch.bfloat16):
+        scatter_case(dev, gen, shard_rows, DYN_DIM, TRAIN_BATCH, dtype, None, errs=errs)
+    return errs
+
+
+def breadth_ranks(rank, world, init, dyn_data, datas, t_spawn):
+    """Phase 23, one of four ranks on the one card over MESH_BACKEND, on
+    MESH_SHAPE: (a) the dynamic tables, three routes; (b) the session
+    transformer with the in-batch head and with the tied full-catalog head;
+    (c) the music-streaming DLRM; (d) examples/06's two-tower; then, on
+    rank 0, the kernels at a rank's shapes."""
+    from models_tpu_torch.parallel import initialize, make_mesh, shutdown
+
+    marks = {"entered": time.time() - t_spawn}
+    initialize(init, world, rank, backend=MESH_BACKEND, device="cuda:0", timeout=MESH_TIMEOUT)
+    dev = torch.device("cuda", 0)
+    try:
+        mesh = make_mesh(MESH_SHAPE)
+        marks["mesh"] = time.time() - t_spawn
+        out = {"coords": mesh.coords, "backend": mesh.backend, "runs": {}, "marks": marks}
+        shard_rows = 0
+        for route in BREADTH_DYN_ROUTES:
+            rec = breadth_dynamic_run(route, dev, dyn_data, mesh)
+            shard_rows = rec.pop("shard_rows", shard_rows)
+            out["runs"][f"dynamic_{route}"] = rec
+            marks[f"dynamic_{route}"] = time.time() - t_spawn
+            torch.cuda.empty_cache()
+        for kind in BREADTH_KINDS:
+            model, batch, pre = breadth_case(kind, dev, datas[kind])
+            spy = TiedBackward() if kind == "tied" else None
+            try:
+                out["runs"][kind] = breadth_fit(model, datas[kind], dev, mesh, batch, pre=pre)
+            finally:
+                if spy is not None:
+                    spy.close()
+                    out["runs"][kind]["tied_backward"] = spy.record()
+            marks[kind] = time.time() - t_spawn
+            del model
+        torch.cuda.empty_cache()
+        out["kernel_errs"] = (breadth_kernel_checks(dev, shard_rows, datas["positions"])
+                              if rank == 0 else {})
+        marks["kernels"] = time.time() - t_spawn
+        return out
+    finally:
+        shutdown()
+
+
+def breadth_replay(dyn_data, tables) -> dict:
+    """The CPU replay of the map over 23a's global batches, in order: the
+    SHA-256 of each table's slots at each step and of its keys after it."""
+    import models_tpu_torch as mt
+
+    keys = {t.block_name: torch.full((t.capacity,), -1, dtype=torch.int32) for t in tables}
+    out = {"slots": {t.block_name: [] for t in tables}, "keys": {t.block_name: [] for t in tables}}
+    for x, _ in mt.Loader(dyn_data, TRAIN_BATCH, drop_last=True):
+        for t in tables:
+            raw = torch.as_tensor(x[t.features[0]]).to(torch.int32)
+            slots = mt.DynamicEmbeddingTable._map_ids(t, raw, keys[t.block_name], True)
+            out["slots"][t.block_name].append(sha(slots))
+            out["keys"][t.block_name].append(sha(keys[t.block_name]))
+    out["allocated"] = sum(int((k != -1).sum()) for k in keys.values())
+    return out
+
+
+def phase_example09(dev) -> dict:
+    """examples/09 on the port's names: the raw log through the Workflow
+    (Categorify, TargetEncoding, GroupbyCount, Bucketize, LambdaOp), the
+    DLRM fit two epochs with validation and evaluated, on the card and on a
+    CPU copy."""
+    import copy
+
+    import models_tpu_torch as mt
+    from models_tpu_torch.data.workflow import (Bucketize, Categorify, GroupbyCount, LambdaOp,
+                                                TargetEncoding, Workflow)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    n = BREADTH_EX09_ROWS
+    raw = mt.Dataset(
+        {"userId": rng.integers(1000, 2000, n), "movieId": rng.choice([7, 11, 42, 99, 123], n),
+         "rating": rng.integers(1, 6, n).astype(np.float64),
+         "age": rng.integers(10, 80, n).astype(np.float32)},
+        schema=mt.Schema([mt.ColumnSchema("userId", dtype="int64"),
+                          mt.ColumnSchema("movieId", dtype="int64"),
+                          mt.create_continuous_column("rating"),
+                          mt.create_continuous_column("age")]))
+    train, valid = raw.split([0.8, 0.2], seed=1)
+    wf = Workflow([
+        Categorify(["userId", "movieId"]),
+        TargetEncoding("movieId", target="rating", kfold=5, p_smooth=20,
+                       out="TE_movieId_rating", tags=mt.Tags.ITEM),
+        GroupbyCount("userId", log=True, tags=mt.Tags.USER),
+        Bucketize({"age": [0, 10, 20, 30, 40, 50, 60, 70, 80, 90]}, tags=mt.Tags.USER),
+        LambdaOp("rating", lambda v: (v > 3).astype("int32"), out="rating_binary",
+                 tags=(mt.Tags.BINARY_CLASSIFICATION, mt.Tags.TARGET), dtype="int32"),
+    ])
+    train_t, valid_t = wf.fit_transform(train), wf.transform(valid)
+    workflow_s = time.perf_counter() - t0
+    schema = train_t.schema.excluding_by_name("rating")
+    on_card = mt.DLRMModel(schema, embedding_dim=16, top_block=(32, 16), seed=SEED, device=dev)
+    on_card.build(train_t, device=dev)
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    hist = {}
+    for tag, m, d in (("card", on_card, dev), ("cpu", on_cpu, "cpu")):
+        m.compile(learning_rate=0.01)
+        hist[tag] = m.fit(train_t, epochs=2, batch_size=512, shuffle=False, device=d,
+                          validation_data=valid_t).history
+    ev = on_card.evaluate(valid_t, batch_size=512, device=dev)
+    for k in ("loss", "val_loss"):
+        require(all(np.isfinite(hist["card"][k])), f"23d examples/09: {k} {hist['card'][k]}")
+        require(np.allclose(hist["card"][k], hist["cpu"][k], rtol=BREADTH_EX09_RTOL, atol=0),
+                f"23d examples/09: {k} card {hist['card'][k]} vs CPU {hist['cpu'][k]}")
+    require("rating_binary/auc" in ev and np.isfinite(ev["loss"]), f"23d examples/09: {ev}")
+    dev_rel = max(float(np.max(np.abs(np.asarray(hist["card"][k]) - hist["cpu"][k])
+                               / np.abs(hist["cpu"][k]))) for k in ("loss", "val_loss"))
+    out = {"rows": n, "workflow_s": workflow_s, "schema": train_t.schema.column_names,
+           "loss_card": hist["card"]["loss"], "loss_cpu": hist["cpu"]["loss"],
+           "val_loss_card": hist["card"]["val_loss"], "max_rel_dev_card_cpu": dev_rel,
+           "evaluate": {k: float(v) for k, v in ev.items()}}
+    print(f"  23d examples/09: workflow {workflow_s:.2f} s, columns {out['schema']}; DLRM losses "
+          f"card {out['loss_card']} / CPU {out['loss_cpu']} (max rel {dev_rel:.3g}); evaluate "
+          f"{out['evaluate']}", flush=True)
+    return out
+
+
+def phase_breadth(dev, card, errs) -> tuple:
+    """Phase 23: four ranks over MESH_BACKEND on MESH_SHAPE, each at the
+    slice's full width: (a) examples/17's dynamic tables on the 26 full
+    Criteo columns (39.3M rows, D = 16, raw 31-bit ids, batch 8192),
+    row-sparse adagrad, dense Adam and row-sparse adagrad on bf16 tables,
+    BREADTH_DYN_STEPS steps each: every rank's slots and keys, hashed at each
+    step, equal to a CPU replay of the map, the losses to this process's;
+    (b) the session transformer (GPT2Block(128, 8, 2), D = 128, batch 1024)
+    with its in-batch head and with the tied full-catalog head; (c) dry run
+    3, the multi-task DLRM on music-streaming at the bench's DLRM width; (d)
+    examples/06 (get_movielens("ml-25m", num_rows=20,000) synthesized, the
+    two-tower (64, 32) at dim 32, batch 1024, adagrad 0.05 as the example
+    compiles it but without its top-k metrics, so that every step takes the
+    fused head, K1-K3), each held to this process's
+    trajectory at MESH_RTOL. Before the ranks start, this process runs those
+    references, the replay and examples/09's workflow into a DLRM on the
+    card, held to a CPU copy. Times labelled MESH_LABEL."""
+    import models_tpu_torch as mt
+    from models_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    dyn_data = criteo_dynamic_data(BREADTH_DYN_STEPS * TRAIN_BATCH)
+    seq = mt.generate_data("sequence-testing", num_rows=MESH_STEPS * BREADTH_SESSION_BATCH,
+                           seed=SEED + 23)
+    datas = {"session": seq, "tied": seq,
+             "music": mt.generate_data("music-streaming", num_rows=MESH_STEPS
+                                       * BREADTH_MUSIC_BATCH, seed=SEED + 24),
+             "ex06": mt.data.datasets.get_movielens(variant="ml-25m",
+                                                    num_rows=BREADTH_EX06_ROWS)[0]}
+    x, _ = next(iter(mt.Loader(seq, BREADTH_SESSION_BATCH)))
+    pre = session_pre(seq.schema)
+    from models_tpu_torch.core.types import to_device_batch
+
+    _, y = mt.Model._apply_pre(pre, to_device_batch(x, "cpu"), None, training=True)
+    datas["positions"] = int(next(iter(y.values())).values.numel()
+                             if isinstance(y, dict) else y.values.numel())
+    data_s = time.perf_counter() - t0
+    # the one-process references, the CPU replay and examples/09 first, so
+    # that the ranks' times are taken with no fifth process on the card
+    refs = {}
+    replay = None
+    for route in BREADTH_DYN_ROUTES:
+        model, tables = breadth_dyn_model(dev, dyn_data.schema, route)
+        if replay is None:
+            replay = breadth_replay(dyn_data, tables)
+            capacity = sum(t.capacity for t in tables)
+        refs[f"dynamic_{route}"] = breadth_fit(model, dyn_data, dev, None, TRAIN_BATCH)
+        del model, tables
+        torch.cuda.empty_cache()
+    for kind in BREADTH_KINDS:
+        model, batch, pre_k = breadth_case(kind, dev, datas[kind])
+        refs[kind] = breadth_fit(model, datas[kind], dev, None, batch, pre=pre_k)
+        del model
+    torch.cuda.empty_cache()
+    stamp("  23: one-process references and the CPU replay done")
+    ex09 = phase_example09(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    stamp("  23: examples/09 done; the four ranks start")
+    t_spawn = time.time()
+    try:
+        ranks = spawn(breadth_ranks, 4, (dyn_data, datas, t_spawn), timeout=2 * MESH_TIMEOUT)
+    except RuntimeError as err:
+        raise AssertionError(f"phase 23 failed: {err}") from err
+    wall = time.time() - t_spawn
+    stamp(f"  23 joined, {wall:.1f} s after the spawn; rank 0 (s after the spawn): "
+          f"{ranks[0]['marks']}")
+    summary = {"label": MESH_LABEL, "backend": MESH_BACKEND, "card": card, "shape": MESH_SHAPE,
+               "data_s": data_s, "ranks_s": wall, "rank0_marks_s": ranks[0]["marks"],
+               "examples09": ex09, "dynamic_table_rows": capacity,
+               "session_positions": datas["positions"]}
+    for name in [f"dynamic_{r}" for r in BREADTH_DYN_ROUTES] + list(BREADTH_KINDS):
+        ref = refs[name]
+        for rank, out in enumerate(ranks):
+            rec = out["runs"][name]
+            require(out["backend"] == MESH_BACKEND, f"23 rank {rank}: backend {out['backend']}")
+            require(len(rec["loss"]) == len(ref["loss"]) and all(np.isfinite(rec["loss"])),
+                    f"23 {name}, rank {rank}: losses {rec['loss']}")
+            require(np.allclose(rec["loss"], ref["loss"], rtol=MESH_RTOL, atol=0),
+                    f"23 {name}, rank {rank}: losses {rec['loss']}, one process {ref['loss']}")
+            for kernel in BREADTH_PATHS[name]:
+                require(rec["launches"][kernel] > 0,
+                        f"23 {name}, rank {rank}: the mesh path never launched {kernel}")
+            if name.startswith("dynamic_"):
+                for tname, want in replay["slots"].items():
+                    require(rec["slot_sha"][tname] == want,
+                            f"23a {name}, rank {rank}, {tname}: slots differ from the CPU replay")
+                    require(rec["key_sha"][tname] == replay["keys"][tname],
+                            f"23a {name}, rank {rank}, {tname}: keys differ from the CPU replay "
+                            "after some step")
+                require(rec["allocated"] == replay["allocated"],
+                        f"23a {name}, rank {rank}: {rec['allocated']} slots allocated, the "
+                        f"replay {replay['allocated']}")
+            if name == "tied":
+                tb = rec["tied_backward"]
+                require(tb["calls"] == len(rec["loss"]),
+                        f"23b tied, rank {rank}: {tb['calls']} backward calls of the split "
+                        f"head in {len(rec['loss'])} steps")
+                require("all_gather" not in tb["bytes_by_kind"]
+                        and sum(tb["bytes_by_kind"].values()) <= tb["bound"],
+                        f"23b tied, rank {rank}: the split head's backward moved "
+                        f"{tb['bytes_by_kind']}, beyond one all-reduce of the queries' and "
+                        f"one of the shard's gradient ({tb['bound']} B)")
+        r0 = ranks[0]["runs"][name]
+        if name == "tied":
+            print(f"  23b tied: the split head's backward, rank 0, largest a call by kind "
+                  f"{r0['tied_backward']['bytes_by_kind']} B, bound {r0['tied_backward']['bound']}"
+                  " B (the queries' and the shard's gradients)", flush=True)
+        summary[name] = {
+            "loss_rank0": r0["loss"], "loss_one_process": ref["loss"],
+            "max_rel_dev": max(float(np.max(np.abs(np.asarray(o["runs"][name]["loss"])
+                                                   - ref["loss"]) / np.abs(ref["loss"])))
+                               for o in ranks),
+            "launches_per_rank": [o["runs"][name]["launches"] for o in ranks],
+            "largest_collective_bytes": [o["runs"][name]["traffic"]["max_bytes"]
+                                         for o in ranks],
+            "largest_by_kind_rank0": r0["traffic"]["largest"],
+            "bytes_by_kind_rank0": r0["traffic"].get("bytes"),
+            "step_host_ms_per_rank": [o["runs"][name]["host_ms"] for o in ranks],
+            "step_events_ms_per_rank": [o["runs"][name]["events_ms"] for o in ranks],
+            "collective_ms_per_step_per_rank": [o["runs"][name]["collective_ms"]
+                                                for o in ranks],
+            "one_process_step_host_ms": ref["host_ms"],
+            "one_process_step_events_ms": ref["events_ms"]}
+        if name == "tied":
+            summary[name]["split_head_backward_rank0"] = r0["tied_backward"]
+        if name.startswith("dynamic_"):
+            summary[name]["allocated"] = r0["allocated"]
+            # the ids each rank gathers over its data line to agree on the
+            # keys, as TRAFFIC counted them (mean of the steps)
+            summary[name]["id_gather_bytes_per_step"] = r0["id_gather_bytes_per_step"]
+            summary[name]["id_gather_host_ms_per_step"] = r0["id_gather_ms_per_step"]
+            require(r0["id_gather_bytes_per_step"] > 0,
+                    f"23a {name}: the ranks gathered no ids over the data line")
+            summary[name]["steps_keys_checked"] = len(next(iter(r0["key_sha"].values())))
+        print(f"  23 {name} on {MESH_SHAPE} ({MESH_LABEL}): losses rank 0 {r0['loss']} / one "
+              f"process {ref['loss']} (max rel {summary[name]['max_rel_dev']:.3g}), largest "
+              f"collective {r0['traffic']['max_bytes']} B ({r0['traffic']['max_kind']}), step "
+              f"{r0['host_ms']:.1f} ms host / {r0['events_ms']:.1f} ms events, collectives "
+              f"{r0['collective_ms']:.1f} ms a step (medians after the first); one process "
+              f"{ref['host_ms']:.1f} ms", flush=True)
+    print(f"  23a: every rank's slots and keys of the 26 tables equal to the CPU replay at each "
+          f"of {BREADTH_DYN_STEPS} steps, in each route; {replay['allocated']} slots "
+          "allocated", flush=True)
+    print("  23a: the raw ids' all-gather over the data line, rank 0, a step: "
+          + ", ".join(f"{r} {summary[f'dynamic_{r}']['id_gather_bytes_per_step']:.0f} B / "
+                      f"{summary[f'dynamic_{r}']['id_gather_host_ms_per_step']:.1f} ms"
+                      for r in BREADTH_DYN_ROUTES), flush=True)
+    k_errs = ranks[0]["kernel_errs"]
+    for key, err in k_errs.items():
+        errs[key] = max(errs.get(key, 0.0), err)
+    summary["kernel_errs_rank0"] = k_errs
+    summary["phase_s"] = time.perf_counter() - t0
+    names = [f"dynamic_{r}" for r in BREADTH_DYN_ROUTES] + list(BREADTH_KINDS)
+    rows = {kernel: {f"23_{name}": [o["runs"][name]["launches"][kernel] for o in ranks]
+                     for name in names}
+            for kernel in mesh_counters()}
+    return summary, rows
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -6565,6 +7086,17 @@ def main() -> int:
     print("mesh " + json.dumps(mesh), flush=True)
     for row in rows:  # each rank's launches on the mesh path, counted from zero around each run
         row.update(mrows.get(row["name"], {}))
+    stamp("phase 23: four ranks on the one card over {MESH_BACKEND} on {MESH_SHAPE}: dynamic "
+          "tables over full-Criteo raw ids (adagrad, adam, bf16), the session transformer "
+          "(in-batch and tied full-catalog heads), the music-streaming DLRM, examples/06; "
+          "examples/09's workflow into a DLRM".format(MESH_BACKEND=MESH_BACKEND,
+                                                      MESH_SHAPE=MESH_SHAPE))
+    breadth, brows = phase_breadth(dev, card, errs)
+    print("mesh_breadth " + json.dumps(breadth), flush=True)
+    for row in rows:  # the slice's mesh paths' launches, each rank's, counted from zero a run
+        row.setdefault("launches_mesh", {}).update(brows.get(row["name"], {}))
+        if row["name"] in errs:
+            row["max_abs_err"] = max(row.get("max_abs_err", 0.0), errs[row["name"]])
     stamp("done")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

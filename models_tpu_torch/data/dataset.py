@@ -4,11 +4,18 @@ The JAX package keeps an arrow table (``models_tpu/data/dataset.py``); the port
 needs no parquet IO, so a column is a numpy array and a list column is stored
 the way ``table_to_numpy`` hands it to the loader: ``<name>__values`` (every
 row's values, concatenated) and ``<name>__offsets`` (row starts, length n+1).
+
+A string or bytes column stays as it is in the table, as the arrow table
+keeps it, so that a preprocessing workflow (``data/workflow.py``) sees the
+raw values; :meth:`Dataset.to_numpy_dict`, the loader's view, hands it out
+hashed to int32 ids (``string_id_hash``), as the JAX package's
+``table_to_numpy`` does. Where the JAX package returns an arrow table
+(``head``, ``partitions``), the port returns its own :class:`Dataset`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -48,9 +55,9 @@ def _encode(data: Dict[str, object]) -> Dict[str, np.ndarray]:
             values = np.concatenate(rows)
             if values.dtype == object:  # equal-length rows made a 2-D object array
                 values = np.asarray(values.tolist())
-            out[name + VALUES] = _hash_if_strings(values)
+            out[name + VALUES] = values
         else:
-            out[name] = _hash_if_strings(np.asarray(col))
+            out[name] = np.asarray(col)
     return out
 
 
@@ -81,6 +88,7 @@ class Dataset:
             schema = schema or data.schema
             data = data._cols
         self._cols = _encode(data)
+        self._hashed: Optional[Dict[str, np.ndarray]] = None
         if schema is None:
             schema = Schema([ColumnSchema(n) for n in self.column_names])
         self.schema = schema
@@ -107,12 +115,31 @@ class Dataset:
         return self.num_rows
 
     def to_numpy_dict(self) -> Dict[str, np.ndarray]:
-        """Every column; a list column as its ``__values``/``__offsets`` pair."""
-        return dict(self._cols)
+        """Every column; a list column as its ``__values``/``__offsets`` pair;
+        string and bytes values hashed to int32 ids (computed once)."""
+        if self._hashed is None:
+            self._hashed = {k: _hash_if_strings(v) for k, v in self._cols.items()}
+        return dict(self._hashed)
 
-    def _from_cols(self, cols: Dict[str, np.ndarray]) -> "Dataset":
+    def columns(self) -> Dict[str, object]:
+        """Every column as the table holds it: strings as strings, a list
+        column as an object array of per-row arrays (the JAX package's
+        ``to_table()`` columns, read by ``Workflow``)."""
+        out: Dict[str, object] = {}
+        for name in self.column_names:
+            if name + OFFSETS in self._cols:
+                offs, vals = self._cols[name + OFFSETS], self._cols[name + VALUES]
+                rows = np.empty(len(offs) - 1, dtype=object)
+                rows[:] = [vals[a:b] for a, b in zip(offs[:-1], offs[1:])]
+                out[name] = rows
+            else:
+                out[name] = self._cols[name]
+        return out
+
+    def _from_cols(self, cols: Dict[str, np.ndarray], schema: Optional[Schema] = None
+                   ) -> "Dataset":
         ds = Dataset.__new__(Dataset)
-        ds._cols, ds.schema = cols, self.schema
+        ds._cols, ds.schema, ds._hashed = cols, schema or self.schema, None
         return ds
 
     def with_columns(self, columns: Dict[str, np.ndarray]) -> "Dataset":
@@ -129,6 +156,39 @@ class Dataset:
 
     def take(self, n: int) -> "Dataset":
         return self._from_cols(take_rows(self._cols, np.arange(min(n, self.num_rows))))
+
+    def head(self, n: int = 5) -> "Dataset":
+        """The first ``n`` rows (the JAX package returns them as an arrow
+        table; the port as a Dataset)."""
+        return self.take(n)
+
+    def shuffle(self, seed: int = 0) -> "Dataset":
+        """The rows in one permutation drawn from ``seed`` (the JAX
+        package's)."""
+        idx = np.random.default_rng(seed).permutation(self.num_rows)
+        return self._from_cols(take_rows(self._cols, idx))
+
+    def select_columns(self, names: Sequence[str]) -> "Dataset":
+        """The named columns, in that order, with the schema's columns of
+        those names."""
+        names = list(names)
+        missing = [n for n in names if n not in self.column_names]
+        if missing:
+            raise KeyError(f"no columns {missing} in {self.column_names}")
+        cols: Dict[str, np.ndarray] = {}
+        for name in names:
+            if name + OFFSETS in self._cols:
+                cols[name + VALUES] = self._cols[name + VALUES]
+                cols[name + OFFSETS] = self._cols[name + OFFSETS]
+            else:
+                cols[name] = self._cols[name]
+        return self._from_cols(cols, self.schema.select_by_name(names))
+
+    def partitions(self) -> Iterator["Dataset"]:
+        """The table's parts: one, the whole in-memory table (the JAX
+        package yields one arrow table a parquet file; the port holds no
+        files)."""
+        yield self
 
     def split(self, fractions: Sequence[float], seed: int = 0) -> List["Dataset"]:
         """Disjoint parts of ``round(fraction * rows)`` rows each, from one

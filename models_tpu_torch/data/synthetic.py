@@ -1,8 +1,9 @@
 """Synthetic datasets from the known schemas.
 
-Copies the ``e-commerce``, ``movielens-100k``, ``movielens-25m``, ``aliccp``, ``aliccp-small``,
-``criteo``, ``criteo-small`` and ``sequence-testing`` schemas and the numpy draws of ``models_tpu/data/synthetic.py``, so that one
-seed gives the same rows in both packages. ``criteo`` has the published
+Copies every schema that ``models_tpu/data/synthetic.py`` registers (twenty
+names, ``music_streaming`` an alias of ``music-streaming``) and its numpy
+draws, so that one seed gives the same rows in both packages, and its
+``generate_data(set_sizes=)`` split. ``criteo`` has the published
 Criteo 1TB cardinalities (26 tables, 31,457,706 rows); ``criteo-small`` the
 same layout with 1000 ids a column. ``aliccp`` is the Ali-CCP click and
 conversion log's layout (21 categorical columns, 3,448,362 rows of tables
@@ -185,15 +186,243 @@ def _movielens_100k_schema() -> Schema:
     )
 
 
+def _music_streaming_schema() -> Schema:
+    return Schema(
+        [
+            cat("session_id", 10000, tags=Tags.SESSION_ID),
+            cat("item_id", 10000, tags=(Tags.ITEM, Tags.ITEM_ID)),
+            cat("item_category", 100, tags=Tags.ITEM),
+            cont("item_recency", tags=Tags.ITEM),
+            cat("item_genres", 100, tags=Tags.ITEM, is_list=True, max_seq_length=4),
+            cat("user_id", 10000, tags=(Tags.USER, Tags.USER_ID)),
+            cat("country", 100, tags=Tags.USER),
+            ColumnSchema("user_age", tags=(Tags.USER, Tags.CONTINUOUS), dtype="int32",
+                         int_domain=Domain(0, 50, is_categorical=False)),
+            cat("user_genres", 100, tags=Tags.USER, is_list=True, max_seq_length=4),
+            ColumnSchema("position", tags=("bias", Tags.CONTINUOUS), dtype="int32",
+                         int_domain=Domain(0, 100, is_categorical=False)),
+            _binary_target("click"),
+            _regression_target("play_percentage"),
+            _binary_target("like"),
+        ]
+    )
+
+
+def _testing_schema() -> Schema:
+    return Schema(
+        [
+            cat("user_id", 90, tags=(Tags.USER, Tags.USER_ID)),
+            cont("item_age_days_norm", tags=Tags.ITEM),
+            cont("event_hour_sin", tags=Tags.ITEM),
+            cont("event_hour_cos", tags=Tags.ITEM),
+            cont("event_weekday_sin", tags=Tags.ITEM),
+            cont("event_weekday_cos", tags=Tags.ITEM),
+            ColumnSchema("event_timestamp", dtype="int32"),
+            cat("item_id", 100, tags=(Tags.ITEM, Tags.ITEM_ID)),
+            cat("categories", 70, tags=(Tags.ITEM, Tags.LIST), is_list=True, max_seq_length=4),
+            cat("user_country", 62, tags=Tags.USER),
+            cont("user_age", tags=Tags.USER),
+        ]
+    )
+
+
+def _social_schema() -> Schema:
+    cols = [
+        cat("user_categories", 6086, tags=Tags.USER),
+        cat("user_intentions", 33786, tags=Tags.USER),
+        cat("user_profile", 98, tags=Tags.USER),
+        cat("user_group", 14, tags=Tags.USER),
+        cat("user_id", 294736, tags=(Tags.USER, Tags.USER_ID)),
+        cat("user_age", 8, tags=Tags.USER),
+        cat("user_consumption_1", 4, tags=Tags.USER),
+        cat("user_gender", 3, tags=Tags.USER),
+        cat("user_geography", 5, tags=Tags.USER),
+        cat("user_is_occupied", 3, tags=Tags.USER),
+        cat("item_category", 8581, tags=Tags.ITEM),
+        cat("item_id", 3078306, tags=(Tags.ITEM, Tags.ITEM_ID)),
+        cat("item_user_id", 294736, tags=Tags.ITEM),
+        cat("position", 4, tags=Tags.CONTEXT),
+    ]
+    cols += [_binary_target(t, domain_max=0) for t in ("click", "like", "comment", "share", "hide")]
+    return Schema(cols)
+
+
+def _booking_schema() -> Schema:
+    """The Booking.com next-destination challenge's layout: per-trip city
+    sequences and the trip's context (a session dataset)."""
+    return Schema(
+        [
+            cat("utrip_id", 217686, tags=Tags.SESSION_ID),
+            cat(
+                "city_id", 39901, tags=(Tags.ITEM, Tags.ITEM_ID, Tags.SEQUENCE),
+                is_list=True, max_seq_length=10,
+            ),
+            cat(
+                "booker_country", 5, tags=(Tags.USER, Tags.SEQUENCE),
+                is_list=True, max_seq_length=10,
+            ),
+            cat("device_class", 3, tags=Tags.USER),
+            cat("affiliate_id", 3254, tags=Tags.CONTEXT),
+            cat("month_checkin", 12, tags=Tags.CONTEXT),
+        ]
+    )
+
+
+def _movielens_1m_schema() -> Schema:
+    return Schema(
+        [
+            cat("userId", 6040, tags=(Tags.USER, Tags.USER_ID)),
+            cat("movieId", 3684, tags=(Tags.ITEM, Tags.ITEM_ID)),
+            cat("title", 3684),
+            cat("genres", 18, tags=Tags.ITEM, is_list=True, max_seq_length=1),
+            cat("gender", 2),
+            cat("age", 7),
+            cat("occupation", 21),
+            cat("zipcode", 3439),
+            cont("TE_age_rating", tags=Tags.USER),
+            cont("TE_gender_rating", tags=Tags.USER),
+            cont("TE_occupation_rating", tags=Tags.USER),
+            cont("TE_zipcode_rating", tags=Tags.USER),
+            cont("TE_movieId_rating", tags=Tags.ITEM),
+            cont("TE_userId_rating", tags=Tags.USER),
+            ColumnSchema("rating_binary", tags=(Tags.BINARY_CLASSIFICATION, Tags.TARGET),
+                         dtype="int32"),
+            _regression_target("rating"),
+        ]
+    )
+
+
+def _transactions_schema() -> Schema:
+    """An H&M-style purchase log: customer_id (1,362,282 ids), article_id
+    (104,548), sales_channel_id (3), the standardized price."""
+    return Schema(
+        [
+            cat("customer_id", 1_362_281, tags=(Tags.USER, Tags.USER_ID, "id")),
+            cat("article_id", 104_547, tags=(Tags.ITEM, Tags.ITEM_ID, "id")),
+            cat("sales_channel_id", 2),
+            cont("price"),
+        ]
+    )
+
+
+def _tenrec_video_schema() -> Schema:
+    return Schema(
+        [
+            cat("user_id", 100_000, tags=(Tags.USER, Tags.USER_ID, "id")),
+            cat("item_id", 179_280, tags=(Tags.ITEM, Tags.ITEM_ID, "id")),
+            cat("video_category", 5, tags=Tags.ITEM),
+            cat("gender", 5, tags=Tags.USER),
+            cat("age", 10, tags=Tags.USER),
+            ColumnSchema("click", tags=(Tags.BINARY_CLASSIFICATION, Tags.TARGET), dtype="int32"),
+            ColumnSchema("follow", tags=(Tags.BINARY_CLASSIFICATION, Tags.TARGET), dtype="int32"),
+            ColumnSchema("like", tags=(Tags.BINARY_CLASSIFICATION, Tags.TARGET), dtype="int32"),
+            ColumnSchema("share", tags=(Tags.BINARY_CLASSIFICATION, Tags.TARGET), dtype="int32"),
+            ColumnSchema("watching_times", tags=(Tags.REGRESSION, Tags.TARGET), dtype="int32",
+                         int_domain=Domain(0, 5, is_categorical=False)),
+        ]
+    )
+
+
+def _ecommerce_large_schema() -> Schema:
+    user_cats = {
+        "user_categories": 6086, "user_shops": 116741, "user_brands": 58015,
+        "user_intentions": 33786, "user_profile": 98, "user_group": 14,
+        "user_gender": 3, "user_age": 8, "user_consumption_1": 4,
+        "user_consumption_2": 4, "user_is_occupied": 3, "user_geography": 5,
+    }
+    item_cats = {
+        "item_category": 8581, "item_shop": 604498, "item_intention": 96258,
+        "item_brand": 208179,
+    }
+    cross_cats = {
+        "user_item_categories": 7735, "user_item_shops": 384343,
+        "user_item_brands": 142632, "user_item_intentions": 74317,
+    }
+    cols: List[ColumnSchema] = []
+    for name, card in user_cats.items():
+        cols.append(cat(name, card, tags=Tags.USER))
+    cols.append(cat("user_id", 294736, tags=(Tags.USER, Tags.USER_ID)))
+    for name, card in item_cats.items():
+        cols.append(cat(name, card, tags=Tags.ITEM))
+    cols.append(cat("item_id", 3078306, tags=(Tags.ITEM, Tags.ITEM_ID)))
+    for name, card in cross_cats.items():
+        cols.append(cat(name, card, tags=("user_item",)))
+    cols.append(cat("position", 4, tags=Tags.CONTEXT))
+    cols.append(_binary_target("click", domain_max=0))
+    cols.append(_binary_target("conversion", domain_max=0))
+    return Schema(cols)
+
+
+def _sigir_browsing_schema() -> Schema:
+    """The SIGIR'21 e-commerce challenge's browsing events."""
+    return Schema(
+        [
+            cat("session_id_hash", 999, tags=(Tags.ITEM_ID, Tags.ITEM)),
+            cat("event_type", 2),
+            cat("product_action", 4),
+            cat("product_sku_hash", 999),
+            cat("hashed_url", 999),
+            cont("server_timestamp_epoch_ms"),
+        ]
+    )
+
+
+def _sigir_sku_schema() -> Schema:
+    """The SIGIR'21 challenge's SKU side information: ``description_vector``
+    is a 50-wide dense float list."""
+    return Schema(
+        [
+            cat("product_sku_hash", 999, tags=(Tags.ITEM,)),
+            cont("description_vector", tags=(Tags.ITEM,), is_list=True, max_seq_length=50),
+            cat("category_hash", 174, tags=(Tags.ITEM, Tags.ITEM_ID)),
+            cont("price_bucket"),
+        ]
+    )
+
+
+def _dressipi_schema() -> Schema:
+    """Dressipi's RecSys'22 sessions, preprocessed: session views joined
+    with the pivoted item feature categories (f_*) and the purchased item."""
+    feats = {
+        "f_3": 7, "f_5": 13, "f_7": 37, "f_17": 6, "f_24": 4, "f_45": 10,
+        "f_47": 18, "f_50": 25, "f_55": 51, "f_56": 68, "f_58": 7, "f_61": 7,
+        "f_63": 25, "f_65": 13, "f_68": 50, "f_69": 31, "f_72": 27, "f_73": 4,
+    }
+    cols = [
+        cat("session_id", 920831, tags=(Tags.SESSION, Tags.SESSION_ID)),
+        cat("date", 4284223),
+    ]
+    cols += [cat(name, card, tags=Tags.ITEM) for name, card in feats.items()]
+    cols += [
+        cat("timestamp", 4284223),
+        cat("day", 485),
+        cat("purchase_id", 18544, tags=(Tags.TARGET,)),
+        cat("item_id", 23145, tags=(Tags.ITEM_ID, Tags.ITEM)),
+    ]
+    return Schema(cols)
+
+
 KNOWN_DATASETS: Dict[str, Callable[[], Schema]] = {
     "e-commerce": _ecommerce_schema,
+    "music-streaming": _music_streaming_schema,
+    "music_streaming": _music_streaming_schema,
+    "sequence-testing": _sequence_testing_schema,
+    "testing": _testing_schema,
+    "social": _social_schema,
     "movielens-100k": _movielens_100k_schema,
+    "movielens-1m": _movielens_1m_schema,
     "movielens-25m": _movielens_25m_schema,
+    "tenrec-video": _tenrec_video_schema,
+    "e-commerce-large": _ecommerce_large_schema,
     "aliccp": _aliccp_schema,
     "aliccp-small": _aliccp_small_schema,
     "criteo": _criteo_schema,
     "criteo-small": _criteo_small_schema,
-    "sequence-testing": _sequence_testing_schema,
+    "booking": _booking_schema,
+    "sigir-browsing": _sigir_browsing_schema,
+    "sigir-sku": _sigir_sku_schema,
+    "transactions": _transactions_schema,
+    "dressipi2022-preprocessed": _dressipi_schema,
 }
 
 
@@ -206,20 +435,26 @@ def known_schema(name: str) -> Schema:
 def generate_data(
     input: Union[str, Schema],
     num_rows: int = 100,
+    set_sizes: Sequence[float] = (1.0,),
     seed: int = 42,
     min_session_length: Optional[int] = None,
     max_session_length: Optional[int] = None,
-) -> Dataset:
+) -> Union[Dataset, List[Dataset]]:
     """A random dataset honouring the schema's domains. A list column's rows
     take lengths uniform in [``min_session_length``, ``max_session_length``]
-    (default: half the column's ``max_seq_length``, and that length)."""
+    (default: half the column's ``max_seq_length``, and that length).
+    ``set_sizes=(0.8, 0.2)`` returns a [train, valid] list, split by
+    :meth:`Dataset.split` with ``seed`` (the JAX package's contract)."""
     schema = known_schema(input) if isinstance(input, str) else input
     rng = np.random.default_rng(seed)
     data = {
         col.name: _sample_column(col, num_rows, rng, min_session_length, max_session_length)
         for col in schema
     }
-    return Dataset(data, schema=schema)
+    ds = Dataset(data, schema=schema)
+    if tuple(set_sizes) == (1.0,):
+        return ds
+    return ds.split(set_sizes, seed=seed)
 
 
 def _sample_column(col, num_rows, rng, min_len, max_len):

@@ -20,9 +20,21 @@ as they first arrive in training, the reference's ``sok.DynamicVariable``.
 - No eviction: size the capacity at the distinct ids over 0.8.
 
 On the row-sparse route the lookup records the slots, so the update (K7 on
-the card) reaches the rows the map gave. The hash and the map are plain
-torch, as the JAX package's are plain ``jnp``: uint32 arithmetic in int64
-with the top bits masked after each multiply.
+the card) reaches the rows the map gave.
+
+On a mesh (``fit(mesh=)``) every rank keeps the whole key buffer, as the
+JAX package replicates it, and the table's rows are split over the model
+axis as a static table's are. The JAX package runs one insert over the
+global batch; here, in a training step, each rank all-gathers the raw ids of
+its data line (the global batch, in its row order), runs the same map on
+them against its own copy of the keys, and keeps its own rows' slots. Every
+rank thus claims, races and falls back as the one global scatter does, and
+the ranks' keys stay bit-equal. Evaluation claims nothing and maps its own
+ids.
+
+The hash and the map are plain torch, as the JAX package's are plain
+``jnp``: uint32 arithmetic in int64 with the top bits masked after each
+multiply.
 """
 
 from __future__ import annotations
@@ -35,6 +47,8 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.types import SequenceFeature
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import DATA_AXIS
 from ..schema import ColumnSchema, Domain
 from .embedding import EmbeddingTable
 
@@ -186,12 +200,23 @@ class DynamicEmbeddingTable(EmbeddingTable):
         won = keys[cand] == raw
         return torch.where(matched, match_slot, torch.where(need & won, cand, h))
 
+    def _slots(self, raw: torch.Tensor, context, training: bool) -> torch.Tensor:
+        """Slots of this rank's raw ids (B,): in a mesh step's training the
+        map runs over the data line's gathered ids (the module's note)."""
+        mesh = context.get("mesh") if training and context is not None else None
+        g = mesh.group(DATA_AXIS) if mesh is not None else None
+        if g is None or g.size == 1:
+            return self._map_ids(raw, self.hash_keys, training)
+        n = raw.shape[0]
+        every = all_gather(raw.to(torch.int32).contiguous(), g)
+        return self._map_ids(every, self.hash_keys, training)[g.index * n:(g.index + 1) * n]
+
     def _call_single(self, value, context, feature: Optional[str] = None, training=False):
         if isinstance(value, SequenceFeature):
-            slots = self._map_ids(value.values.reshape(-1), self.hash_keys, training)
+            slots = self._slots(value.values.reshape(-1), context, training)
             mapped = SequenceFeature(slots.reshape(value.values.shape), value.mask)
             return super()._call_single(mapped, context, feature)
-        slots = self._map_ids(value.reshape(-1), self.hash_keys, training)
+        slots = self._slots(value.reshape(-1), context, training)
         return super()._call_single(slots.reshape(value.shape), context, feature)
 
     def forward(self, inputs, context=None, training: bool = False, **kwargs):

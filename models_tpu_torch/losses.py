@@ -1,8 +1,9 @@
 """Loss functions (``models_tpu/losses.py``): the categorical cross-entropies
-the contrastive head trains with, the binary cross-entropy of the binary head
-and the mean squared and absolute errors of the regression head, under the
-JAX package's names. Each takes (labels, logits, sample_weight) and returns a
-scalar; the pairwise ranking losses are not ported yet.
+the contrastive head trains with, the binary cross-entropy of the binary head,
+the mean squared and absolute errors of the regression head and the pairwise
+ranking losses (BPR, TOP1 and their variants, logistic, hinge), under the JAX
+package's names. Each takes (labels, logits, sample_weight) and returns a
+scalar.
 """
 
 from __future__ import annotations

@@ -730,11 +730,12 @@ class BaseModel(Block):
 
     @torch.no_grad()
     def _check_replicas(self, mesh) -> None:
-        """Raise unless every rank holds the same weights (the model whole,
-        before it is placed): each tensor's sum and sum of squares (float64)
-        against the chief's."""
+        """Raise unless every rank holds the same weights and integer state
+        (the model whole, before it is placed; a dynamic table's keys among
+        it): each tensor's sum and sum of squares (float64) against the
+        chief's."""
         g = mesh.world_group
-        stats = [v for t in pmesh.named_tensors(self).values() if t.is_floating_point()
+        stats = [v for t in pmesh.named_tensors(self).values() if t.dtype != torch.bool
                  for v in (t.double().sum(), t.double().square().sum())]
         if g.size == 1 or not stats:
             return
@@ -749,11 +750,6 @@ class BaseModel(Block):
         """Shard the model's state on ``mesh`` (a model sharded on another
         mesh is made whole first), checking at the first placement that the
         ranks agree."""
-        from ..inputs.dynamic import DynamicEmbeddingTable
-
-        if any(isinstance(m, DynamicEmbeddingTable) for m in self.modules()):
-            raise NotImplementedError("dynamic-vocabulary tables on a mesh are not ported yet "
-                                      "(ROADMAP.md queue 1)")
         placed = pmesh.state_mesh(self)
         if placed is not None and placed is not mesh:
             pmesh.unshard_state(self)

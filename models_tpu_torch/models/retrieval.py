@@ -121,8 +121,8 @@ class RetrievalModelV2(Model):
             return super().evaluate(data, batch_size=batch_size, steps=steps, pre=pre,
                                     device=device)
         if pre is not None:
-            raise NotImplementedError("evaluate(item_corpus=, pre=) is not ported yet "
-                                      "(ROADMAP.md queue 1)")
+            raise NotImplementedError("evaluate(item_corpus=, pre=): the JAX package fails on "
+                                      "it too, and the port leaves it (ROADMAP.md queue 3)")
         corpus = None if item_corpus is True else item_corpus
         topk = self.to_top_k_encoder(corpus, k=k, device=device, mesh=mesh)
         return topk.evaluate(data, batch_size=batch_size, steps=steps, device=device)

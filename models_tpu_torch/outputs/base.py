@@ -169,6 +169,39 @@ class CategoricalTarget(Block):
         return self.dense(inputs)
 
 
+class _ShardLogits(torch.autograd.Function):
+    """``x @ shard.T`` on each rank of a model line (``g``), the columns
+    all-gathered over it into the whole catalog's logits. The backward takes
+    this rank's own columns of the cotangent: the shard's gradient is
+    ``own.T @ x``, all-reduced over the data line (``dg``, where the batch is
+    split over it; one collective of the shard's size, whatever the batch)
+    and divided by its size; the queries' gradient is ``own @ shard``, summed
+    over the model line."""
+
+    @staticmethod
+    def forward(ctx, x, shard, g, dg):
+        from ..parallel.collectives import all_gather
+
+        ctx.save_for_backward(x, shard)
+        ctx.g, ctx.dg = g, dg
+        part = x @ shard.T  # (N, R / n)
+        return all_gather(part.T.contiguous(), g).T
+
+    @staticmethod
+    def backward(ctx, grad):
+        from ..parallel.collectives import all_reduce
+
+        x, shard = ctx.saved_tensors
+        g, dg = ctx.g, ctx.dg
+        rows = shard.shape[0]
+        own = grad[:, g.index * rows:(g.index + 1) * rows]
+        gx = all_reduce(own @ shard, g)
+        gw = own.T @ x
+        if dg is not None:
+            gw = all_reduce(gw, dg) / dg.size
+        return gx, gw, None, None
+
+
 class EmbeddingTablePrediction(Block):
     """Weight tying: the logits are ``x @ table.T`` over the table's
     ``input_dim`` rows (the catalog), the operands in the policy's compute
@@ -189,21 +222,26 @@ class EmbeddingTablePrediction(Block):
             inputs = inputs.values
         shard = getattr(self.table, "shard", None)
         if shard is not None:
-            return self._sharded_logits(inputs, shard)
+            return self._sharded_logits(inputs, shard, context)
         return cast_compute(inputs).float() @ cast_compute(self.table.embeddings).float().T
 
-    def _sharded_logits(self, inputs, shard):
-        """Inference over a table split by rows over a mesh: each rank
-        scores its shard's rows, and the columns are gathered over the
-        model line (the same queries on every rank of it)."""
-        from ..parallel.collectives import all_gather
+    def _sharded_logits(self, inputs, shard, context):
+        """The logits over a table split by rows over a mesh: each rank
+        scores its shard's rows and the columns are gathered over the model
+        line (the same queries on every rank of it); :class:`_ShardLogits`
+        gives the backward. In a mesh step the shard's gradient is the
+        global batch's."""
+        from ..parallel.mesh import DATA_AXIS
 
-        if torch.is_grad_enabled() and inputs.requires_grad:
-            raise NotImplementedError("training a full-catalog tied head over a table split "
-                                      "over a mesh is not ported yet (ROADMAP.md queue 1)")
-        part = cast_compute(inputs).float() @ cast_compute(self.table.table).float().T
-        cols = all_gather(part.movedim(-1, 0).contiguous(), shard.mesh.group(shard.axis))
-        return cols.movedim(0, -1)[..., : self.table.input_dim]
+        mesh = shard.mesh
+        in_step = context is not None and context.get("mesh") is not None
+        dg = mesh.group(DATA_AXIS) if in_step else None
+        x = cast_compute(inputs).float()
+        w = cast_compute(self.table.table).float()
+        flat = x.reshape(-1, x.shape[-1])
+        logits = _ShardLogits.apply(flat, w, mesh.group(shard.axis),
+                                    dg if dg is not None and dg.size > 1 else None)
+        return logits.reshape(*x.shape[:-1], -1)[..., : self.table.input_dim]
 
     def embedding_lookup(self, ids: torch.Tensor, site: str = "tying",
                          context=None) -> torch.Tensor:

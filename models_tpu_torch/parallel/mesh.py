@@ -255,8 +255,6 @@ def shard_state(tree, mesh: Mesh, rules=None):
         specs = sharding_for_tree(tree, mesh, rules)
         return {k: (v[shard_slices(specs[k], v.shape, mesh)].clone() if specs.get(k) else v)
                 for k, v in tree.items()}
-    from ..inputs.dynamic import DynamicEmbeddingTable
-
     model = tree
     if mesh.world == 1:
         return model  # one rank holds everything: nothing to split
@@ -273,10 +271,6 @@ def shard_state(tree, mesh: Mesh, rules=None):
         if spec[0] != MODEL_AXIS or any(a is not None for a in spec[1:]):
             raise NotImplementedError(f"{names[0]}: a table is sharded by rows over the model "
                                       f"axis only, not by {spec}")
-        if isinstance(table, DynamicEmbeddingTable):
-            raise NotImplementedError(
-                f"{names[0]}: dynamic-vocabulary tables on a model axis are not ported yet "
-                "(ROADMAP.md queue 1)")
         for name in names:
             t = tensors[name]
             t.data = t.data[shard_slices(spec, t.shape, mesh)].clone()

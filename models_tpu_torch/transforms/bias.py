@@ -1,6 +1,6 @@
 """Logit corrections (``models_tpu/transforms/bias.py``). ``from_parquet``
 is not ported: it reads with ``pyarrow``, which the port does not import
-(ROADMAP.md queue 1, item 8)."""
+(ROADMAP.md queue 1, item 6)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """The port's boundaries: it imports nothing of JAX or of the JAX package, and
 its entry points refuse to run on the CPU unless asked to."""
 
+import os
 import subprocess
 import sys
 import tempfile
@@ -47,6 +48,7 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "import models_tpu_torch.parallel, models_tpu_torch.parallel.launch\n"
         "import models_tpu_torch.parallel.collectives, models_tpu_torch.parallel.mesh\n"
         "import models_tpu_torch.parallel.distributed\n"
+        "import models_tpu_torch.data.workflow, models_tpu_torch.data.datasets\n"
         "models_tpu_torch.string_id_hash(['a', b'b', None])\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
@@ -99,6 +101,26 @@ def test_the_card_scripts_load_no_jax_and_nothing_of_the_jax_package(script):
                          text=True, check=True, timeout=120).stdout.split()
     loaded = {name.split(".")[0] for name in out}
     assert script in loaded and "torch" in loaded
+    assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
+
+
+@pytest.mark.parametrize("module", ["torch_mesh_workers", "torch_mesh_breadth_workers"])
+def test_the_mesh_tests_rank_workers_load_no_jax(module):
+    """The rank workers of the mesh tests run the port alone: importing one,
+    and running the data plane it reads (the synthesized getter), loads
+    nothing of JAX, pandas or pyarrow."""
+    code = (
+        f"import sys, {module}\n"
+        "import models_tpu_torch as mt\n"
+        "train, valid = mt.data.datasets.get_movielens(variant='ml-25m', num_rows=40)\n"
+        "assert isinstance(train, mt.Dataset) and train.num_rows == 32\n"
+        "print('\\n'.join(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT / "tests", capture_output=True,
+                         text=True, check=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)}).stdout.split()
+    loaded = {name.split(".")[0] for name in out}
+    assert module in loaded and "models_tpu_torch" in loaded
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
 
 

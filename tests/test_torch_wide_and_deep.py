@@ -111,7 +111,8 @@ def test_wide_path_gathered_form_equals_the_dense_form_and_jax(case):
 
 def build_pair(rows=STEPS * BATCH, seed=4):
     js, ts = schemas()
-    jds, tds = mm.generate_data(js, num_rows=rows, seed=seed), mt.generate_data(ts, rows, seed)
+    jds = mm.generate_data(js, num_rows=rows, seed=seed)
+    tds = mt.generate_data(ts, num_rows=rows, seed=seed)
     jm = mm.WideAndDeepModel(js, embedding_dim=8, deep_block=(16, 8), seed=1)
     tm = mt.WideAndDeepModel(ts, embedding_dim=8, deep_block=(16, 8), seed=1, device="cpu")
     jm.build(mm.Loader(jds, BATCH))
