@@ -178,8 +178,11 @@
    SequencePredictLast)`` against the CPU's, ``predict`` (full-catalog
    scores); ``session_bucket``'s data at ``pad="max"`` (L = 64): K1-K3
    against their plain versions at Q = N = 65,536 on the head's real
-   operands, timed there, 8 steps one at a time (the kernels' share of the
-   step), and the mixed head (``lse_wg``, ``grad_wg``) against the unfused
+   operands, timed there beside their PyTorch yardsticks (the (Q, N) fp32
+   logits materialised once, 17.2 GB, and worked in place: masked product
+   and ``logsumexp``; the coefficient and ``coef @ neg`` / ``coefᵀ @ q``;
+   the bytes asked for where the card runs out), 8 steps one at a time (the
+   kernels' share of the step), and the mixed head (``lse_wg``, ``grad_wg``) against the unfused
    one at the ``session`` size; ``pad="bucket"`` with 16 steps a chunk
    (one pack and one graph a length group of 8, 16, 32, 64 positions):
    sessions/s, each group's replayed step, the traced replays, K9 on each
@@ -259,6 +262,20 @@
    one-rank route's ids; each rank's step time (host clock and CUDA
    events) and time in collectives (medians of steps 2-8), labelled
    MESH_LABEL;
+18b. the data plane from files (phase 24), with no pyarrow: the port's
+   ``to_parquet`` writes 262,144 movielens-25m rows (4 files, row groups of
+   20,000: chunks do not align with batches) and 16,384 sequence-testing
+   rows (list columns); ``Dataset(path)`` reads every column back bit for
+   bit; the C++ batcher (``pad_ragged``) bit-equal to its numpy version on
+   the list columns; the two-tower model at the bench's width trains 32
+   steps of 8192 from the files one step at a time through a streaming
+   ``Loader(shuffle=False, prefetch=2, cache=False)`` (and ``prefetch=0``;
+   K1-K3 once a step) and 32 steps at ``steps_per_execution=8`` from
+   ``dense_columns`` over the files (K9 and K1-K3 launched), each bit for
+   bit against the same fit from the Dataset in memory (deterministic
+   algorithms on); the write and read seconds and MB/s at 4,194,304 rows,
+   the loader's host ms a batch in an uncached and a cached epoch, and each
+   fit's ms a step, with the card's name and power limit;
 19. prints one JSON line with each kernel's launches (on its own path's run;
    K7 and K8: both row-sparse runs), error against its plain version, its
    time, the plain version's, the least time the card could take and a
@@ -284,7 +301,9 @@
    ``launches_example17``, and their times there, ``wd_pack``, ``wd``,
    ``dynamic_slots``; K1-K3, K7, K8b and K9 the resumed fits',
    ``launches_resume*``; K5 and K6 the served programs',
-   ``launches_exported_<index>_B<rows>``),
+   ``launches_exported_<index>_B<rows>``; K1-K3 and K9 the data plane's
+   fits from files, ``launches_parquet_stream`` and
+   ``launches_parquet_chunked``),
    then the card line
    and ``{"ok": true,
    ...}`` last. Host-clock times are [median, min, max].
@@ -3818,6 +3837,47 @@ def phase_session(dev, card):
     return out, one, trace["launches_traced"]
 
 
+def session_long_library(q, pos_logit, neg, pid, nid, bias, lse, gw) -> dict:
+    """K1-K3's PyTorch yardsticks at Q = N = 65,536 (T = 1), each with its
+    (Q, N) fp32 logits materialised once (17.2 GB) and worked in place: K1
+    the masked ``q @ negᵀ`` and ``logsumexp`` (with the positive by
+    ``logaddexp``); K2 / K3 the logits again, the coefficient ``gw ·
+    exp(logit - lse)`` in place and ``coef @ neg`` / ``coefᵀ @ q``; beside
+    them the two products alone on a kept coefficient. Where the card runs
+    out of memory, the bytes asked for in place of the times."""
+    from models_tpu_torch.core.constants import MIN_FLOAT
+
+    def logits():
+        x = q @ neg.T
+        x.add_(bias[None, :])
+        return x.masked_fill_(nid[None, :] == pid[:, None], MIN_FLOAT)
+
+    def coef():
+        return logits().sub_(lse[:, None]).exp_().mul_(gw[:, None])
+
+    out = {name: {"library_ms": None} for name in ("lse_forward", "grad_query", "grad_neg")}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out["lse_forward"]["library_ms"] = cuda_ms(
+            lambda: torch.logaddexp(torch.logsumexp(logits(), 1), pos_logit), reps=3, warmup=1)
+        out["grad_query"]["library_ms"] = cuda_ms(lambda: coef() @ neg, reps=3, warmup=1)
+        out["grad_neg"]["library_ms"] = cuda_ms(lambda: coef().T @ q, reps=3, warmup=1)
+        kept = coef()
+        out["grad_query"]["library_product_ms"] = cuda_ms(lambda: kept @ neg, reps=3, warmup=1)
+        out["grad_neg"]["library_product_ms"] = cuda_ms(lambda: kept.T @ q, reps=3, warmup=1)
+        del kept
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for v in out.values():
+            v["library_peak_gb"] = peak
+    except torch.OutOfMemoryError as e:
+        for v in out.values():
+            v["library_oom"] = str(e).splitlines()[0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()  # the phase's peak is its fit's
+    return out
+
+
 def phase_session_long(dev, gen, card, errs, data):
     """session_bucket's data with pad="max" (L = 64: Q = N = 65,536
     flattened positions a batch): K1, K2 and K3 once each against their
@@ -3867,10 +3927,12 @@ def phase_session_long(dev, gen, card, errs, data):
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         kernels_ms[name] = {
             "Q": Q, "N": N, "D": D, "ms": cuda_ms(fn, reps=3, warmup=1),
-            "plain_ms": cuda_ms(plain, reps=1, warmup=1), "library_ms": None,
+            "plain_ms": cuda_ms(plain, reps=1, warmup=1),
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "bound_peak": PEAK_3XTF32[1] if ops_ms >= bytes_ms else "HBM3"}
+    for name, lib in session_long_library(q, pos_logit, neg, pid, nid, bias, lse, gw).items():
+        kernels_ms[name].update(lib)
     del args, q, neg, gargs, m, s, lse
     print(f"  session_long kernels at Q = N = {Q}: {json.dumps(kernels_ms)}; {card}", flush=True)
 
@@ -6792,6 +6854,203 @@ def phase_breadth(dev, card, errs) -> tuple:
     return summary, rows
 
 
+PARQUET_ROWS = 262_144  # movielens-25m rows written and trained on: 32 batches of 8192
+PARQUET_GROUP = 20_000  # rows a row group: chunks do not align with batches
+PARQUET_PARTS = 4
+PARQUET_SESSION_ROWS = 16_384
+PARQUET_TIMING_ROWS = 4_194_304  # the write / read timing's rows (the 262,144 tiled)
+PARQUET_SPE = 8
+
+
+def column_bytes(cols: dict) -> int:
+    """The bytes a table's values hold: numbers as stored, strings as their
+    UTF-8."""
+    total = 0
+    for v in cols.values():
+        if v.dtype == object or v.dtype.kind == "U":
+            total += sum(len(x.encode()) for x in v.tolist() if x is not None)
+        else:
+            total += v.nbytes
+    return total
+
+
+def same_table(got: dict, want: dict, what: str) -> None:
+    """Every column bit-equal: the same names, numbers of the same dtype and
+    bytes, strings equal."""
+    require(sorted(got) == sorted(want), f"{what}: columns {sorted(got)} / {sorted(want)}")
+    for k, w in want.items():
+        g = got[k]
+        if w.dtype == object or w.dtype.kind == "U":
+            require(g.dtype == object and g.tolist() == w.tolist(), f"{what}: {k} differs")
+        else:
+            require(g.dtype == w.dtype and np.ascontiguousarray(g).view(np.uint8).tobytes()
+                    == np.ascontiguousarray(w).view(np.uint8).tobytes(),
+                    f"{what}: {k} ({g.dtype} / {w.dtype}) differs")
+
+
+def parquet_fit(dev, schema, data, what, spe=1):
+    """A fresh seeded two-tower model at the bench's width fit one epoch of
+    ``data`` (a Dataset or a Loader) in batches of 8192, deterministic
+    algorithms on: (history, model, launches its wrappers counted, ms a
+    step on the host clock)."""
+    import models_tpu_torch as mt
+
+    model = mt.TwoTowerModel(schema, query_tower=(256, 128), embedding_dim=128, seed=SEED,
+                             device=dev)
+    model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[], steps_per_execution=spe)
+    with deterministic(True):
+        zero_route_launches()
+        t = time.perf_counter()
+        hist = model.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    steps = PARQUET_ROWS // TRAIN_BATCH
+    require(all(np.isfinite(hist.history["loss"])), f"{what}: loss {hist.history['loss']}")
+    return hist.history, model, route_launches(), wall / steps * 1e3
+
+
+def phase_parquet(dev, card) -> tuple:
+    """The data plane from files on the card's host (no pyarrow): the
+    port's ``to_parquet`` writes PARQUET_ROWS rows of movielens-25m
+    (PARQUET_PARTS files in row groups of PARQUET_GROUP) and
+    PARQUET_SESSION_ROWS of sequence-testing (list columns); ``Dataset(path)``
+    reads every column back bit for bit; the C++ batcher pads the list
+    columns bit-equal to its numpy version; the two-tower model at the
+    bench's width trains 32 steps from the files one step at a time through
+    a streaming ``Loader(shuffle=False, prefetch=2, cache=False)`` (and with
+    ``prefetch=0``) and 32 steps at ``steps_per_execution=8`` from
+    ``dense_columns`` over the files (K9, K1-K3), each bit-equal to the same
+    fit from the Dataset in memory (deterministic algorithms on); then the
+    write and read times at PARQUET_TIMING_ROWS rows and the loader's host
+    ms a batch uncached and cached. Returns the numbers and the kernels'
+    launches on the two routes."""
+    import shutil
+    import tempfile
+
+    import models_tpu_torch as mt
+    from models_tpu_torch.data import native, parquet
+    from models_tpu_torch.data.dataset import take_rows
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_parquet_")
+    out = {"card": card}
+    try:
+        ml = mt.generate_data("movielens-25m", num_rows=PARQUET_ROWS, seed=SEED + 30)
+        sess = mt.generate_data("sequence-testing", num_rows=PARQUET_SESSION_ROWS,
+                                seed=SEED + 31)
+        out["data_s"] = time.perf_counter() - t_phase
+        ml_path = ml.to_parquet(os.path.join(root, "ml"), row_group_size=PARQUET_GROUP,
+                                num_partitions=PARQUET_PARTS)
+        sess_path = sess.to_parquet(os.path.join(root, "sess"), row_group_size=PARQUET_GROUP)
+        files = mt.Dataset(ml_path)
+        require(len(files.files) == PARQUET_PARTS and files.num_rows == PARQUET_ROWS,
+                f"parquet: {files.files} hold {files.num_rows} rows")
+        require(files.schema.to_dict() == ml.schema.to_dict(), "parquet: schema sidecar")
+        same_table(files.table(), ml.table(), "movielens-25m round trip")
+        sess_back = mt.Dataset(sess_path)
+        same_table(sess_back.table(), sess.table(), "sequence-testing round trip")
+        groups = sum(parquet.ParquetFile(f).num_row_groups for f in files.files)
+        print(f"  round trip bit-equal: {PARQUET_ROWS} movielens-25m rows in "
+              f"{PARQUET_PARTS} files, {groups} row groups; {PARQUET_SESSION_ROWS} "
+              f"sequence-testing rows", flush=True)
+
+        padded = 0
+        for ds, back in ((ml, files), (sess, sess_back)):
+            cols = back.table()
+            for col in ds.schema:
+                if not col.is_list:
+                    continue
+                vals, offs = cols[col.name + "__values"], cols[col.name + "__offsets"]
+                L = max(col.max_seq_length, 1)
+                got, mask = native.pad_ragged(vals, offs, L)
+                want, wmask = native.plain_pad_ragged(vals, offs, L)
+                require(got.dtype == want.dtype and np.array_equal(got, want)
+                        and np.array_equal(mask, wmask), f"pad_ragged on {col.name}")
+                padded += 1
+        out["pad_ragged_columns_bit_equal"] = padded
+        print(f"  pad_ragged (C++) bit-equal to numpy on {padded} list columns", flush=True)
+
+        memory = mt.Dataset(ml.table(), schema=ml.schema)
+        runs = {}  # the first fit warms the process up; "memory" is the second
+        runs["memory_first"] = parquet_fit(dev, ml.schema, memory, "in-memory fit, first")
+        for prefetch in (2, 0):
+            loader = mt.Loader(ml_path, TRAIN_BATCH, shuffle=False, drop_last=True,
+                               prefetch=prefetch, cache=False)
+            require(len(loader._chunk_list()) == groups, "parquet: the loader's chunks")
+            runs[f"stream_prefetch{prefetch}"] = parquet_fit(dev, ml.schema, loader,
+                                                             f"streaming fit, prefetch={prefetch}")
+        runs["memory"] = parquet_fit(dev, ml.schema, memory, "in-memory fit")
+        h0, m0, _, _ = runs["memory_first"]
+        for name in ("stream_prefetch2", "stream_prefetch0", "memory"):
+            h, m, ln, _ = runs[name]
+            require(h["loss"] == h0["loss"], f"{name}: losses {h['loss']} / {h0['loss']}")
+            require(same_params(m, m0), f"{name}: parameters differ from the in-memory fit: "
+                    f"{param_spread(m, m0)}")
+        stream_ln = runs["stream_prefetch2"][2]
+        steps = PARQUET_ROWS // TRAIN_BATCH
+        for k in ("lse_forward", "grad_query", "grad_neg"):
+            require(stream_ln[k] == steps, f"streaming fit: {k} launched {stream_ln[k]} times")
+        out["ms_per_step"] = {name: run[3] for name, run in runs.items()}
+        print(f"  streaming fits bit-equal to the in-memory fit over {steps} steps; ms a step "
+              f"(host clock, deterministic algorithms): {json.dumps(out['ms_per_step'])}; "
+              f"{card}", flush=True)
+
+        chunked = {}
+        for name, data in (("memory", mt.Dataset(ml.table(), schema=ml.schema)),
+                           ("files", mt.Dataset(ml_path))):
+            chunked[name] = parquet_fit(dev, ml.schema, data, f"chunked fit from {name}",
+                                        spe=PARQUET_SPE)
+            require(getattr(data, "_device_train_pack", None) is not None,
+                    f"chunked fit from {name}: no device pack")
+        (hm, mm_, _, _), (hf, mf, chunk_ln, chunk_ms) = chunked["memory"], chunked["files"]
+        require(hf["loss"] == hm["loss"], f"chunked fits: losses {hf['loss']} / {hm['loss']}")
+        require(same_params(mf, mm_), f"chunked fits differ: {param_spread(mf, mm_)}")
+        for k in ("lse_forward", "grad_query", "grad_neg", "row_gather"):
+            require(chunk_ln[k] > 0, f"chunked fit from files: {k} never launched")
+        out["chunked_ms_per_step"] = {"memory": chunked["memory"][3], "files": chunk_ms}
+        print(f"  chunked fits (k = {PARQUET_SPE}) from files and memory bit-equal; launches "
+              f"{chunk_ln}; ms a step {json.dumps(out['chunked_ms_per_step'])}", flush=True)
+        del runs, chunked, m0, mf, mm_
+        torch.cuda.empty_cache()
+
+        loader = mt.Loader(ml_path, TRAIN_BATCH, shuffle=True, prefetch=0)
+        per_epoch = []
+        for _ in range(2):
+            t = time.perf_counter()
+            n = sum(1 for _ in loader)
+            per_epoch.append((time.perf_counter() - t) / n * 1e3)
+        require(len(loader._file_cache) == groups, "the loader's cache")
+        out["loader_host_ms_per_batch"] = {"uncached": per_epoch[0], "cached": per_epoch[1],
+                                           "batches": n, "prefetch": 0}
+        print(f"  loader, host ms a batch of {TRAIN_BATCH}: "
+              f"{json.dumps(out['loader_host_ms_per_batch'])}", flush=True)
+
+        cols = ml.table()
+        big = take_rows(cols, np.tile(np.arange(PARQUET_ROWS), PARQUET_TIMING_ROWS // PARQUET_ROWS))
+        nbytes = column_bytes(big)
+        big_path = os.path.join(root, "big.parquet")
+        t = time.perf_counter()
+        parquet.write_table(big, big_path)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = parquet.read_table(big_path)
+        read_s = time.perf_counter() - t
+        require(parquet.table_rows(back) == PARQUET_TIMING_ROWS, "the timing file's rows")
+        out["io"] = {"rows": PARQUET_TIMING_ROWS, "column_bytes": nbytes,
+                     "file_bytes": os.path.getsize(big_path), "write_s": write_s,
+                     "read_s": read_s, "write_mb_per_s": nbytes / write_s / 1e6,
+                     "read_mb_per_s": nbytes / read_s / 1e6, "read": "warm (page cache)"}
+        print(f"  {PARQUET_TIMING_ROWS} rows: {json.dumps(out['io'])}; {card}", flush=True)
+        out["launches"] = {"stream": {k: stream_ln[k] for k in ("lse_forward", "grad_query",
+                                                                "grad_neg", "row_gather")},
+                           "chunked": {k: chunk_ln[k] for k in ("lse_forward", "grad_query",
+                                                                "grad_neg", "row_gather")}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, out["launches"]
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -7097,6 +7356,14 @@ def main() -> int:
         row.setdefault("launches_mesh", {}).update(brows.get(row["name"], {}))
         if row["name"] in errs:
             row["max_abs_err"] = max(row.get("max_abs_err", 0.0), errs[row["name"]])
+    stamp("phase 24: the data plane from files (the port's parquet codec, file-backed "
+          "Datasets, the streaming Loader, the C++ batcher), fits from files against memory")
+    pq_out, pq_ln = phase_parquet(dev, card)
+    print("parquet " + json.dumps(pq_out), flush=True)
+    for row in rows:  # the slice's launches, each counted from zero around its run
+        for route, ln in pq_ln.items():
+            if row["name"] in ln:
+                row[f"launches_parquet_{route}"] = ln[row["name"]]
     stamp("done")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

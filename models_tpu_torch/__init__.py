@@ -58,7 +58,7 @@ from .core import (AsTabular, Block, Cond, Debug, Encoder, Filter, Lambda, MapVa
                    ParallelBlock, ResidualBlock, SequenceFeature, SequentialBlock, TopKEncoder,
                    TopKPrediction, WithShortcut, as_block, resolve_device)
 from .core.policy import get_dtype_policy, set_dtype_policy
-from .data import Dataset, Loader, generate_data
+from .data import Dataset, Loader, generate_data, sample_batch
 from .metrics import AUC, BinaryAccuracy, Metric, Precision, Recall, TopKMetricsAggregator
 from .inputs import (AverageEmbeddingsByWeightFeature, DynamicEmbeddingTable, EmbeddingFeatures,
                      EmbeddingTable, Embeddings, InputBlock, InputBlockV2, PretrainedEmbeddings,
@@ -99,6 +99,7 @@ __all__ = [
     "ColumnSchema", "ContrastiveOutput", "ContrastiveSampleWeight", "DCNModel", "DLRMModel",
     "Dataset", "DeepFMModel", "EarlyStopping", "Encoder", "ExamplesPerSecondCallback",
     "ExpertsGate", "History", "InBatchNegatives", "InputBlockV2", "LazyAdam", "Loader",
+    "sample_batch",
     "MLPBlock", "MMOEBlock", "MMOEModel", "MatrixFactorizationModel", "Metric", "Model",
     "ModelBlock", "MultiOptimizer", "NCFModel", "NextItemPredictionTask", "OutputBlock",
     "PLEBlock", "PLEModel", "ParallelPredictionBlock", "Precision", "PredictionTasks",

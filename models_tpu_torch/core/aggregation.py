@@ -51,17 +51,25 @@ class TabularAggregation(Block):
 @aggregation_registry.register("concat")
 class ConcatFeatures(TabularAggregation):
     """Concatenate along ``axis`` (the last), in SORTED key order; (B,)
-    features as (B, 1)."""
+    features as (B, 1). Where an input is a :class:`SequenceFeature` and
+    the result is 3-D, it is a SequenceFeature with the mask of the first
+    sequence input in sorted key order (the JAX block takes the first in its
+    dict's order, which under ``jax.jit`` is the sorted one)."""
 
     def __init__(self, axis: int = -1):
         super().__init__()
         self.axis = axis
 
-    def forward(self, inputs: TensorDict, **kwargs) -> torch.Tensor:
+    def forward(self, inputs: TensorDict, **kwargs):
+        mask = next((inputs[n].mask for n in sorted(inputs)
+                     if isinstance(inputs[n], SequenceFeature)), None)
         vals = [_expand_2d(v) for v in _values(inputs)]
         if len({v.ndim for v in vals}) > 1:
             raise ValueError("concat: mixed tensor ranks; pool sequence features first")
-        return torch.cat(vals, dim=self.axis)
+        out = torch.cat(vals, dim=self.axis)
+        if mask is not None and out.ndim == 3:
+            return SequenceFeature(out, mask)
+        return out
 
 
 @aggregation_registry.register("stack")

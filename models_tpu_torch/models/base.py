@@ -173,9 +173,9 @@ def _build_batch(data: Union[Dataset, Loader], cap: int = 32):
     package's ``sample_batch`` and ``_slice_build_batch``: only the batch
     axis is cut, so every width is the data's)."""
     if isinstance(data, Loader):
-        loader = Loader(data.dataset, min(data.batch_size, cap), pad=data.pad)
+        loader = Loader(data.dataset, min(data.batch_size, cap), pad=data.pad, prefetch=0)
     else:
-        loader = Loader(data, 2)
+        loader = Loader(data, 2, prefetch=0)
     return next(iter(loader))
 
 

@@ -1,12 +1,14 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host libraries.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc`` for ``sm_90a`` into ``build/models_tpu_torch/`` at the root of the
 checkout, under a name that carries a hash of the source and of every header
 in ``csrc/`` (which the sources include from there), then loaded with
-``ctypes``. Nothing is compiled or loaded when this module is imported. The
-build holds a file lock in that directory, so that the ranks of a run on one
-host compile each library once between them.
+``ctypes``. The host libraries, ``csrc/host/<name>.cc`` (the parquet codec's
+loops and the native batcher), are built the same way by ``g++ -O3 -shared
+-fPIC``, named by a hash of their source. Nothing is compiled or loaded when
+this module is imported. The build holds a file lock in that directory, so
+that the ranks of a run on one host compile each library once between them.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "models_tpu_torch"
 SOURCES = ("streaming_topk", "binned_rescore", "flash_ce", "row_scatter", "row_gather")
+HOST = CSRC / "host"
+HOST_SOURCES = ("parquet_codec", "fastbatch")
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
@@ -41,9 +46,20 @@ def _nvcc() -> str:
     return found
 
 
+def _gxx() -> str:
+    found = shutil.which("g++") or shutil.which("c++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host libraries build with a C++ compiler")
+    return found
+
+
 def _target(name: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     """The library of ``<csrc>/<name>.cu``, named by a hash of its source and
-    of the headers beside it: an edit to either builds it anew."""
+    of the headers beside it: an edit to either builds it anew. A host
+    library, ``<csrc>/host/<name>.cc``, by a hash of its source."""
+    if name in HOST_SOURCES:
+        h = hashlib.sha1((csrc / "host" / f"{name}.cc").read_bytes())
+        return build_dir / f"lib{name}-{h.hexdigest()[:12]}.so"
     h = hashlib.sha1((csrc / f"{name}.cu").read_bytes())
     for header in sorted(csrc.glob("*.cuh")):
         h.update(header.name.encode())
@@ -51,9 +67,16 @@ def _target(name: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     return build_dir / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> List[Path]:
-    """Compile the named sources that are not built yet, one ``nvcc`` each,
-    all started together. Raises with the compiler's output on failure."""
+def _command(name: str, out: Path) -> List[str]:
+    if name in HOST_SOURCES:
+        return [_gxx(), *GXX_FLAGS, "-o", str(out), str(HOST / f"{name}.cc")]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build(names: Iterable[str] = SOURCES + HOST_SOURCES) -> List[Path]:
+    """Compile the named sources that are not built yet, one compiler each
+    (``nvcc`` for a kernel, ``g++`` for a host library), all started
+    together. Raises with the compiler's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
@@ -67,7 +90,7 @@ def _build_locked(names: List[str]) -> List[Path]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = _command(name, tmp)
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp, out)
     failed = []
@@ -79,19 +102,21 @@ def _build_locked(names: List[str]) -> List[Path]:
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("the build failed for " + "\n".join(failed))
     return [_target(n) for n in names]
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu`` (or of the host source
+    ``csrc/host/<name>.cc``), built first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(_target(name)))
-            lib.kernel_error_string.argtypes = [ctypes.c_int]
-            lib.kernel_error_string.restype = ctypes.c_char_p
+            if name not in HOST_SOURCES:
+                lib.kernel_error_string.argtypes = [ctypes.c_int]
+                lib.kernel_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
 

@@ -6,7 +6,9 @@ nothing of the JAX package). A ``Schema`` is an ordered collection of
 for categorical columns, an integer domain with a known cardinality. It
 reads and writes the TF-metadata JSON layout (``to_dict``, ``save``,
 ``load``): the ``.merlin/`` sidecars of a saved model, byte-equal to the
-JAX package's for the same schema.
+JAX package's for the same schema. It reads the TF-metadata text layout too
+(``from_pbtxt``, ``load_pbtxt``: the ``schema.pbtxt`` sidecar NVTabular
+writes beside a dataset's parquet files).
 """
 
 from __future__ import annotations
@@ -314,6 +316,55 @@ class Schema:
     def from_json(cls, text: str) -> "Schema":
         return cls.from_dict(json.loads(text))
 
+    @classmethod
+    def from_pbtxt(cls, text: str) -> "Schema":
+        """Parse the TF-metadata ``schema.pbtxt`` text format (the other layout
+        NVTabular emits, e.g. the reference's Ali-CCP/Criteo schemas). Minimal
+        recursive text-proto reader covering feature/int_domain/value_count/
+        annotation.tag; binary extra_metadata blobs are skipped."""
+        feats = []
+        for block in _pbtxt_blocks(text, "feature"):
+            f: dict = {}
+            name = _pbtxt_scalar(block, "name")
+            if name:
+                f["name"] = name.strip('"')
+            ftype = _pbtxt_scalar(block, "type")
+            if ftype:
+                f["type"] = ftype
+            dom = next(iter(_pbtxt_blocks(block, "int_domain")), None)
+            if dom is not None:
+                d = {"name": (_pbtxt_scalar(dom, "name") or "").strip('"') or f.get("name")}
+                for key in ("min", "max"):
+                    v = _pbtxt_scalar(dom, key)
+                    if v is not None:
+                        d[key] = v
+                if (_pbtxt_scalar(dom, "is_categorical") or "").lower() == "true":
+                    d["isCategorical"] = True
+                f["intDomain"] = d
+            vc = next(iter(_pbtxt_blocks(block, "value_count")), None)
+            if vc is not None:
+                f["valueCount"] = {
+                    k: _pbtxt_scalar(vc, k) or "0" for k in ("min", "max")
+                }
+            ann = next(iter(_pbtxt_blocks(block, "annotation")), None)
+            tags = []
+            is_list = vc is not None
+            if ann is not None:
+                import re as _re
+
+                tags = [m.group(1) for m in _re.finditer(r'tag:\s*"([^"]+)"', ann)]
+            f["annotation"] = {
+                "tag": tags,
+                "extraMetadata": [{"is_list": is_list, "is_ragged": is_list}],
+            }
+            feats.append(f)
+        return cls.from_dict({"feature": feats})
+
+    @classmethod
+    def load_pbtxt(cls, path) -> "Schema":
+        with open(path) as f:
+            return cls.from_pbtxt(f.read())
+
     def save(self, path) -> None:
         with open(path, "w") as f:
             f.write(self.to_json())
@@ -322,6 +373,49 @@ class Schema:
     def load(cls, path) -> "Schema":
         with open(path) as f:
             return cls.from_json(f.read())
+
+
+def _pbtxt_blocks(text: str, name: str):
+    """Yield the brace-delimited bodies of `name { ... }` blocks (depth-aware)."""
+    i = 0
+    n = len(text)
+    while True:
+        idx = text.find(name, i)
+        if idx < 0:
+            return
+        j = idx + len(name)
+        while j < n and text[j] in " \t\r\n":
+            j += 1
+        if j >= n or text[j] != "{":
+            i = idx + len(name)
+            continue
+        depth = 0
+        start = j
+        while j < n:
+            if text[j] == "{":
+                depth += 1
+            elif text[j] == "}":
+                depth -= 1
+                if depth == 0:
+                    break
+            j += 1
+        yield text[start + 1 : j]
+        i = j + 1
+
+
+def _pbtxt_scalar(block: str, key: str):
+    """First top-level `key: value` in a block (ignores nested blocks)."""
+    import re as _re
+
+    depth = 0
+    for line in block.splitlines():
+        stripped = line.strip()
+        if depth == 0:
+            m = _re.match(rf"{key}\s*:\s*(.+)", stripped)
+            if m:
+                return m.group(1).strip()
+        depth += stripped.count("{") - stripped.count("}")
+    return None
 
 
 def infer_embedding_dim(

@@ -1,6 +1,4 @@
-"""Logit corrections (``models_tpu/transforms/bias.py``). ``from_parquet``
-is not ported: it reads with ``pyarrow``, which the port does not import
-(ROADMAP.md queue 1, item 6)."""
+"""Logit corrections (``models_tpu/transforms/bias.py``)."""
 
 from __future__ import annotations
 
@@ -25,6 +23,14 @@ class PopularityLogitsCorrection(Block):
         probs = freqs / torch.clamp_min(freqs.sum(), 1.0)
         self.register_buffer("log_probs", torch.log(torch.clamp_min(probs, 1e-12)))
         self.reg_factor = reg_factor
+
+    @classmethod
+    def from_parquet(cls, path: str, frequency_col: str = "frequency", **kwargs):
+        """The item frequencies from the column ``frequency_col`` of a
+        parquet file (read by the port's codec, ``data/parquet.py``)."""
+        from ..data import parquet
+
+        return cls(parquet.read_table(path, [frequency_col])[frequency_col], **kwargs)
 
     def correction(self, candidate_ids: torch.Tensor) -> torch.Tensor:
         return self.reg_factor * self.log_probs[candidate_ids.long()]

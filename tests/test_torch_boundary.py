@@ -49,6 +49,8 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "import models_tpu_torch.parallel.collectives, models_tpu_torch.parallel.mesh\n"
         "import models_tpu_torch.parallel.distributed\n"
         "import models_tpu_torch.data.workflow, models_tpu_torch.data.datasets\n"
+        "import models_tpu_torch.data.parquet, models_tpu_torch.data.native\n"
+        "import models_tpu_torch.data.loader\n"
         "models_tpu_torch.string_id_hash(['a', b'b', None])\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
@@ -121,6 +123,33 @@ def test_the_mesh_tests_rank_workers_load_no_jax(module):
                          env={**os.environ, "PYTHONPATH": str(ROOT)}).stdout.split()
     loaded = {name.split(".")[0] for name in out}
     assert module in loaded and "models_tpu_torch" in loaded
+    assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
+
+
+def test_the_data_plane_from_files_loads_no_jax_pandas_or_pyarrow(tmp_path):
+    """Writing and reading parquet, a Loader streaming files, a raw getter
+    (Tenrec's csv) and ``sample_batch(device="cpu")``, in a process of their
+    own, load no module of FORBIDDEN."""
+    code = (
+        "import sys\n"
+        "import models_tpu_torch as mt\n"
+        f"root = {str(tmp_path)!r}\n"
+        "ds = mt.generate_data('sequence-testing', num_rows=300, seed=0)\n"
+        "path = ds.to_parquet(root + '/p', row_group_size=70, num_partitions=2)\n"
+        "back = mt.Dataset(path)\n"
+        "assert back.num_rows == 300 and back.to_numpy_dict().keys() == ds.to_numpy_dict().keys()\n"
+        "batches = list(mt.Loader(path, 32, shuffle=True, prefetch=2))\n"
+        "assert len(batches) == 9\n"
+        "feats, targets = mt.sample_batch(path, batch_size=8, device='cpu')\n"
+        "open(root + '/QK-video.csv', 'w').write('user_id,item_id,click\\n1,2,0\\n3,4,1\\n')\n"
+        "train, valid = mt.data.datasets.get_tenrec(root)\n"
+        "assert train.num_rows + valid.num_rows == 2\n"
+        "print('\\n'.join(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=300).stdout.split()
+    loaded = {name.split(".")[0] for name in out}
+    assert "models_tpu_torch" in loaded
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
 
 
@@ -219,6 +248,7 @@ ENTRY_POINTS = {
     "parallel.initialize": lambda: mt.parallel.initialize(
         init_method="file://" + tempfile.mktemp(), world_size=1, rank=0),
     "make_mesh": lambda: mt.make_mesh({"data": 1, "model": 1}),
+    "sample_batch": lambda: mt.sample_batch(_model()[0], batch_size=8),
 }
 
 

@@ -2,7 +2,8 @@
 synthetic schemas and ``generate_data(set_sizes=)``, the ``Dataset`` methods,
 the preprocessing ops and ``Workflow`` of ``data/workflow.py``, the named
 getters of ``data/datasets.py`` (``get_movielens(path)`` on tiny raw
-ml-100k, ml-1m and ml-25m layouts written here, read by JAX through pandas),
+ml-100k, ml-1m and ml-25m layouts written here, read by JAX through pandas;
+the other raw layouts are in ``test_torch_raw_datasets.py``),
 and ``examples/09``'s flow on the port's names. Datasets are held equal
 column by column (``to_numpy_dict``: values and dtypes, strings hashed as
 both packages hash them; a list column's values of one kind, since the JAX
@@ -329,23 +330,21 @@ def test_get_movielens_raw_layouts_match_jax(tmp_path, layout):
 
 
 def test_routes_the_port_does_not_take_raise(tmp_path):
-    """Prepared parquet and the other getters' raw layouts raise, naming the
-    queue; a path that holds none of them synthesizes."""
-    os.makedirs(tmp_path / "pq" / "train")
-    os.makedirs(tmp_path / "pq" / "valid")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        tdatasets.get_sigir(str(tmp_path / "pq"), num_rows=20)
-    write(str(tmp_path), "day_0", ["0\t" * 39])
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        tdatasets.get_criteo(str(tmp_path), num_rows=20)
-    for getter, name in (("get_booking", "train_set.csv"), ("get_tenrec", "QK-video.csv"),
-                         ("get_ecommerce_transactions", "transactions_train.csv"),
-                         ("get_dressipi2022", "train_sessions.csv")):
-        d = tmp_path / getter
-        os.makedirs(d)
-        write(str(d), name, ["a,b"])
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            getattr(tdatasets, getter)(str(d), num_rows=20)
+    """Prepared parquet and every getter's raw layout are read
+    (``tests/test_torch_raw_datasets.py``); what the port's codec does not
+    read raises naming it (prepared parquet compressed with ZSTD), and a
+    path that holds none of them synthesizes."""
+    import pyarrow.parquet as pq
+
+    train, valid = jax_generate("sigir-browsing", num_rows=40, set_sizes=(0.8, 0.2), seed=1)
+    for part, ds in (("train", train), ("valid", valid)):
+        os.makedirs(tmp_path / "pq" / part)
+        pq.write_table(ds.to_table(), str(tmp_path / "pq" / part / "part_0.parquet"),
+                       compression="zstd")
+    got_train, _ = tdatasets.get_sigir(str(tmp_path / "pq"), num_rows=20)
+    assert got_train.num_rows == 32  # the footer reads; the pages do not
+    with pytest.raises(NotImplementedError, match="ZSTD"):
+        got_train.to_numpy_dict()
     empty = tmp_path / "empty"
     os.makedirs(empty)
     for t, j in zip(tdatasets.get_tenrec(str(empty), num_rows=40),

@@ -188,7 +188,7 @@ def test_bucketed_loader_matches_jax(shuffle):
     kw = dict(num_rows=45, seed=11, min_session_length=1, max_session_length=4)
     jds, tds = jax_generate("sequence-testing", **kw), mt.generate_data("sequence-testing", **kw)
     jl = JLoader(jds, 4, pad="bucket", shuffle=shuffle, drop_last=False, prefetch=0)
-    tl = mt.Loader(tds, 4, pad="bucket", shuffle=shuffle)
+    tl = mt.Loader(tds, 4, pad="bucket", shuffle=shuffle, drop_last=False)
     widths = set()
     for (jx, _), (tx, _) in zip(jl, tl):
         assert sorted(jx) == sorted(tx)
