@@ -276,6 +276,28 @@
    algorithms on); the write and read seconds and MB/s at 4,194,304 rows,
    the loader's host ms a batch in an uncached and a cached epoch, and each
    fit's ms a step, with the card's name and power limit;
+18c. the public surface and the side stacks (phase 25): the torch
+   side-backend's two-tower model (``models_tpu_torch.torch_backend``) at
+   the bench's width (movielens-25m schema, dim 128, towers (256, 128),
+   embedding_dim 128) trains SIDE_TRAIN_ROWS rows in batches of 8192 on the
+   card and on a CPU copy made with the same seed (losses within
+   SIDE_LOSS_RTOL), serves 256 rows through ``to_top_k_recommender`` over
+   the whole 56,680-id catalog (K5: the binned route; the top-10 agreeing
+   under ``ops/topk.py::ids_agree`` with a CPU copy of the card's trained
+   weights) and runs ``evaluate_retrieval``
+   at batch 8192 (K6: the streaming route; the same recommender then driven
+   over the same 8192-row batches, each batch's top-10 agreeing under
+   ``ids_agree`` with the CPU copy's, K6 launched once a batch; the card's
+   and the CPU copy's metrics printed); K5 and K6 counted from zero around
+   that run (``launches_side`` in each kernels row); the side DLRM and the side
+   session transformer card vs CPU copy; ``examples/05`` and ``examples/10``
+   on the port's names (the source read with ``models_tpu`` as
+   ``models_tpu_torch``), their predictions against a CPU copy of the
+   trained model within SIDE_PRED_RTOL, the kernels' launches counted on
+   examples/05 (its default metrics, fed every step, read the logits: the
+   unfused CE, no K1-K3); the
+   step, the served call and ``evaluate_retrieval`` timed on the host clock
+   with the card's name and power limit;
 19. prints one JSON line with each kernel's launches (on its own path's run;
    K7 and K8: both row-sparse runs), error against its plain version, its
    time, the plain version's, the least time the card could take and a
@@ -7051,6 +7073,228 @@ def phase_parquet(dev, card) -> tuple:
     return out, out["launches"]
 
 
+# the side stacks (phase 25)
+SIDE_TRAIN_ROWS = 3 * TRAIN_BATCH  # three steps an epoch, two epochs
+SIDE_EVAL_ROWS = 2 * TRAIN_BATCH  # evaluate_retrieval: two batches of 8192 (K6)
+SIDE_SERVE = 256  # rows a served request (K5)
+SIDE_LOSS_RTOL = 1e-5  # card vs CPU epoch losses (fp32 sums in another order, Adam;
+#                        sound runs read 3.5e-8 to 5.9e-8 on the H100)
+SIDE_PRED_RTOL = 1e-4  # card vs CPU predictions of the same weights, of the largest
+
+
+def _close(got, want, rtol: float, what: str) -> float:
+    """The largest deviation of ``got`` from ``want`` relative to the largest
+    |want|; raises above ``rtol``."""
+    got, want = (torch.as_tensor(np.asarray(a, np.float64)) for a in (got, want))
+    require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+            f"{what}: shapes or non-finite")
+    dev = rel_err(got, want)
+    require(dev <= rtol, f"{what}: deviation {dev:.3g} > {rtol}")
+    return dev
+
+
+def _run_example(name: str, rows: dict) -> dict:
+    """``examples/<name>`` with ``models_tpu`` read as ``models_tpu_torch``,
+    its ``num_rows`` replaced by ``rows``; returns its globals."""
+    import re
+
+    src = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                            name)).read()
+    for old, new in rows.items():
+        src = src.replace(old, new)
+    scope = {"__name__": "__side_example__"}
+    exec(compile(re.sub(r"\bmodels_tpu\b", "models_tpu_torch", src), name, "exec"), scope)
+    return scope
+
+
+def phase_side(dev, card) -> tuple:
+    """The side stacks on the card (docstring item 18c). Returns the numbers
+    and each kernel's launches on the side two-tower path."""
+    import copy
+
+    import models_tpu_torch as mt
+    import models_tpu_torch.torch_backend as tb
+    from models_tpu_torch.ops.topk import ids_agree
+    from models_tpu_torch.utils.io import cpu_copy
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    cpu = torch.device("cpu")
+    schema = mt.generate_data("movielens-25m", num_rows=1).schema
+    cat = mt.generate_data("movielens-25m", num_rows=CATALOG, seed=SEED + 41).to_numpy_dict()
+    cat["movieId"] = np.arange(CATALOG, dtype=np.int32)  # every item once
+    catalog = mt.Dataset(cat, schema=schema)
+    train = mt.generate_data("movielens-25m", num_rows=SIDE_TRAIN_ROWS, seed=SEED + 42)
+    evalset = mt.generate_data("movielens-25m", num_rows=SIDE_EVAL_ROWS, seed=SEED + 43)
+    serve_x, _ = mt.Loader(evalset, SIDE_SERVE).peek()
+
+    def two_tower(where):  # the constructor on each device, the same seeded draws
+        torch.manual_seed(SEED)
+        return tb.TwoTowerModel(schema, dim=128, query_block=(256, 128), embedding_dim=128,
+                                device=where)
+
+    card_m, cpu_m = two_tower(dev), two_tower(cpu)
+    for (name, a), b in zip(card_m.state_dict().items(), cpu_m.state_dict().values()):
+        require(torch.equal(a.cpu(), b), f"side two-tower: {name} differs at construction")
+
+    zero_mesh_counts()
+    t = time.perf_counter()
+    hist = card_m.fit(train, epochs=2, batch_size=TRAIN_BATCH, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    def serve_batch(recommender, x):
+        with torch.no_grad():
+            return recommender(x)
+
+    def serve(recommender):
+        return serve_batch(recommender, serve_x)
+
+    rec = card_m.to_top_k_recommender(catalog, k=K, batch_size=TRAIN_BATCH, device=dev)
+    scores, ids = serve(rec)
+    metrics = card_m.evaluate_retrieval(evalset, candidate_data=catalog, k=K,
+                                        batch_size=TRAIN_BATCH, device=dev)
+    torch.cuda.synchronize()
+    launches = mesh_counts()
+    for name in ("binned_rescore", "streaming_topk"):
+        require(launches[name] >= 1, f"the side two-tower path never launched {name}")
+    print(f"  side two-tower path launches {launches}", flush=True)
+
+    cpu_hist = cpu_m.fit(train, epochs=2, batch_size=TRAIN_BATCH, device=cpu)
+    out["two_tower_loss"] = {"card": hist["loss"], "cpu": cpu_hist["loss"]}
+    out["two_tower_loss_rel_dev"] = _close(hist["loss"], cpu_hist["loss"], SIDE_LOSS_RTOL,
+                                           "side two-tower losses")
+    # serving and evaluation against a CPU copy of the card's trained weights
+    served_cpu = copy.deepcopy(card_m).to(cpu)
+    cpu_rec = served_cpu.to_top_k_recommender(catalog, k=K, batch_size=TRAIN_BATCH, device=cpu)
+    cs, ci = serve(cpu_rec)
+    tol = tol_for(cs)
+    require(ids_agree(scores.cpu(), ids.cpu(), cs, ci, tol),
+            "side two-tower: the card's served top-10 against the CPU copy's (scores "
+            f"{float((scores.cpu() - cs).abs().max()):.3g} apart, tol {tol:.3g})")
+    out["served_ids_agree"] = True
+    out["served_ids_equal_share"] = float((ids.cpu() == ci).float().mean())
+    # evaluate_retrieval's K6 held at its own shapes: the same recommender driven
+    # over the same 8192-row batches, each batch's top-10 against the CPU copy's
+    zero_mesh_counts()
+    eval_agree = []
+    for x, _ in mt.Loader(evalset, TRAIN_BATCH):
+        (gs, gi), (ws, wi) = serve_batch(rec, x), serve_batch(cpu_rec, x)
+        gs, gi = gs.cpu(), gi.cpu()
+        tol = tol_for(ws)
+        require(ids_agree(gs, gi, ws, wi, tol),
+                f"side two-tower: the card's top-{K} of an 8192-row evaluate_retrieval batch "
+                f"against the CPU copy's (scores {float((gs - ws).abs().max()):.3g} apart, "
+                f"tol {tol:.3g})")
+        eval_agree.append(float((gi == wi).float().mean()))
+    checked = mesh_counts()
+    require(checked["streaming_topk"] == len(eval_agree) and checked["binned_rescore"] == 0,
+            f"the 8192-row batches took another route than K6: {checked}")
+    out["eval_batches_ids_equal_share"] = eval_agree
+    cpu_metrics = served_cpu.evaluate_retrieval(evalset, candidate_data=catalog, k=K,
+                                                batch_size=TRAIN_BATCH, device=cpu)
+    for key, value in metrics.items():
+        require(np.isfinite(value), f"side evaluate_retrieval {key}: {value}")
+    out["evaluate_retrieval"] = {"card": metrics, "cpu": cpu_metrics}
+    print(f"  side two-tower: losses {json.dumps(out['two_tower_loss'])}, largest relative "
+          f"deviation {out['two_tower_loss_rel_dev']:.3g}; served top-{K} agree (ids equal "
+          f"{out['served_ids_equal_share']:.4f}); evaluate_retrieval's 8192-row batches agree "
+          f"(ids equal {out['eval_batches_ids_equal_share']}); evaluate_retrieval card "
+          f"{json.dumps(metrics)}, CPU copy {json.dumps(cpu_metrics)}",
+          flush=True)
+
+    steps = 2 * (SIDE_TRAIN_ROWS // TRAIN_BATCH)
+    t = time.perf_counter()
+    card_m.fit(train, epochs=1, batch_size=TRAIN_BATCH, device=dev)
+    torch.cuda.synchronize()
+    out["times"] = {
+        "step_ms_first_fit": fit_s / steps * 1e3,
+        "step_ms": (time.perf_counter() - t) / (SIDE_TRAIN_ROWS // TRAIN_BATCH) * 1e3,
+        "served_256_ms": host_ms(lambda: serve(rec)),
+        "to_top_k_recommender_ms": host_ms(lambda: card_m.to_top_k_recommender(
+            catalog, k=K, batch_size=TRAIN_BATCH, device=dev), reps=3),
+        "evaluate_retrieval_8192_ms": host_ms(lambda: card_m.evaluate_retrieval(
+            evalset, candidate_data=catalog, k=K, batch_size=TRAIN_BATCH, device=dev), reps=3),
+        "clock": "host, each call ending in a synchronise; [median, min, max] where a list",
+    }
+    print(f"  side two-tower times {json.dumps(out['times'])}; {card}", flush=True)
+    del card_m, cpu_m, served_cpu, rec, cpu_rec
+    torch.cuda.empty_cache()
+
+    # the side DLRM, card vs a CPU copy of the same weights
+    criteo = mt.generate_data("criteo-small", num_rows=4 * TRAIN_BATCH, seed=SEED + 44)
+    torch.manual_seed(SEED)
+    dlrm = tb.DLRMModel(criteo.schema, dim=64, bottom_block=(256, 128), top_block=(256, 128),
+                        device=dev)
+    dlrm_cpu = copy.deepcopy(dlrm).to(cpu)
+    h = dlrm.fit(criteo, epochs=1, batch_size=TRAIN_BATCH, learning_rate=1e-3, device=dev)
+    hc = dlrm_cpu.fit(criteo, epochs=1, batch_size=TRAIN_BATCH, learning_rate=1e-3,
+                      device=cpu)
+    out["dlrm_loss"] = {"card": h["loss"], "cpu": hc["loss"],
+                        "rel_dev": _close(h["loss"], hc["loss"], SIDE_LOSS_RTOL,
+                                          "side DLRM losses")}
+    pc = dlrm.predict(criteo, batch_size=TRAIN_BATCH, device=dev)
+    pcc = copy.deepcopy(dlrm).to(cpu).predict(criteo, batch_size=TRAIN_BATCH, device=cpu)
+    out["dlrm_predict_rel_dev"] = _close(pc["label"], pcc["label"], SIDE_PRED_RTOL,
+                                         "side DLRM predictions")
+    print(f"  side DLRM: {json.dumps(out['dlrm_loss'])}, predictions of the trained weights "
+          f"within {out['dlrm_predict_rel_dev']:.3g}", flush=True)
+    del dlrm, dlrm_cpu
+
+    # the side session transformer, card vs a CPU copy of the same weights
+    seq = mt.generate_data("sequence-testing", num_rows=4096, seed=SEED + 45)
+    torch.manual_seed(SEED)
+    sess = tb.SessionTransformerModel(seq.schema, d_model=64, n_head=4, n_layer=2, device=dev)
+    sess_cpu = copy.deepcopy(sess).to(cpu)
+    pre = tb.TabularPredictNext(seq.schema, "item_id_seq")
+    h = sess.fit(seq, epochs=2, batch_size=512, pre=pre, device=dev)
+    hc = sess_cpu.fit(seq, epochs=2, batch_size=512, pre=pre, device=cpu)
+    out["session_loss"] = {"card": h["loss"], "cpu": hc["loss"],
+                           "rel_dev": _close(h["loss"], hc["loss"], SIDE_LOSS_RTOL,
+                                             "side session losses")}
+    s1, i1 = sess.predict_next(seq, k=K, device=dev)
+    s2, i2 = copy.deepcopy(sess).to(cpu).predict_next(seq, k=K, device=cpu)
+    require(ids_agree(s1, i1, s2, i2, SIDE_PRED_RTOL * max(1.0, float(np.abs(s2).max()))),
+            "side session predict_next: card against the CPU copy")
+    print(f"  side session transformer: {json.dumps(out['session_loss'])}; predict_next "
+          "agrees with the CPU copy", flush=True)
+    del sess, sess_cpu
+
+    # examples/05 (the JAX package's session transformer) and examples/10 (the
+    # side backend) on the port's names, at their sizes
+    zero_mesh_counts()
+    t = time.perf_counter()
+    ex05 = _run_example("05_session_based_transformer.py", {})
+    torch.cuda.synchronize()
+    # counted, not required: the example compiles the default metrics, fed on
+    # every step, so its steps read the logits and take the unfused CE
+    ex05_launches = mesh_counts()
+    model, data = ex05["model"], ex05["data"]
+    probe = data.take(512)
+    pa = model.predict(probe, batch_size=256, device=dev)
+    pb = cpu_copy(model).predict(probe, batch_size=256, device=cpu)
+    out["example_05"] = {"s": time.perf_counter() - t, "launches": ex05_launches,
+                         "predict_rel_dev": _close(pa, pb, SIDE_PRED_RTOL,
+                                                   "examples/05 predictions")}
+    del ex05, model
+    t = time.perf_counter()
+    ex10 = _run_example("10_torch_backend.py", {})
+    dcn, custom, valid = ex10["model"], ex10["custom"], ex10["valid"]
+    devs = {}
+    for tag, m in (("dcn", dcn), ("custom", custom)):
+        pa = m.predict(valid, batch_size=512, device=dev)
+        pb = copy.deepcopy(m).to(cpu).predict(valid, batch_size=512, device=cpu)
+        devs[tag] = max(_close(pa[k], pb[k], SIDE_PRED_RTOL, f"examples/10 {tag} {k}")
+                        for k in pb)
+    out["example_10"] = {"s": time.perf_counter() - t, "predict_rel_dev": devs,
+                         "evaluate": dcn.evaluate(valid, batch_size=512, device=dev)}
+    del ex10, dcn, custom
+    torch.cuda.empty_cache()
+    print(f"  examples/05 and 10 on the port's names: {json.dumps(out['example_05'])} "
+          f"{json.dumps(out['example_10'])}", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
+
+
 def main() -> int:
     from models_tpu_torch.ops import kernels
     from models_tpu_torch.ops import topk as T
@@ -7364,6 +7608,13 @@ def main() -> int:
         for route, ln in pq_ln.items():
             if row["name"] in ln:
                 row[f"launches_parquet_{route}"] = ln[row["name"]]
+    stamp("phase 25: the public surface and the side stacks: the torch side-backend's "
+          "two-tower at the bench's width (K5 serving 256 rows, K6 in evaluate_retrieval at "
+          "8192), its DLRM and session transformer, examples/05 and examples/10, card vs CPU")
+    side, side_ln = phase_side(dev, card)
+    print("side " + json.dumps(side), flush=True)
+    for row in rows:  # the side two-tower path's launches, counted from zero around its run
+        row["launches_side"] = side_ln.get(row["name"], 0)
     stamp("done")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

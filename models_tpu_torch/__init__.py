@@ -53,7 +53,7 @@ from .blocks.cross import CrossBlock
 from .blocks.mlp import BatchNorm, Dense, DenseResidualBlock, Dropout, LayerNorm, MLPBlock
 from .blocks.optimizer import LazyAdam, MultiOptimizer, SparseEmbeddingOptimizer
 from .losses import binary_crossentropy, mean_absolute_error, mean_squared_error
-from .convert import load_jax_params
+from .convert import load_jax_params, load_torch_backend_params
 from .core import (AsTabular, Block, Cond, Debug, Encoder, Filter, Lambda, MapValues, NoOp,
                    ParallelBlock, ResidualBlock, SequenceFeature, SequentialBlock, TopKEncoder,
                    TopKPrediction, WithShortcut, as_block, resolve_device)
@@ -81,7 +81,44 @@ from .utils import (Callback, CheckpointManager, CSVLogger, EarlyStopping,
 from .schema import (ColumnSchema, Schema, Tags, categorical_cardinalities, categorical_domains,
                      create_categorical_column, create_continuous_column)
 from . import parallel
-from .parallel import make_mesh
+from .parallel import distributed, make_mesh
+from .api import MerlinModel
+from .registry import Registry
+from .schema import Domain, infer_embedding_dim
+from .core import ModelContext, Prediction
+from .core.aggregation import ConcatFeatures, ElementwiseSum, ElementwiseSumItemMulti, StackFeatures
+from .core.encoder import EmbeddingEncoder
+from .inputs.continuous import Continuous, ContinuousEmbedding, ContinuousProjection
+from .blocks.cross import Cross
+from .blocks.dlrm import DLRMBlock
+from .blocks.interaction import (DotProductInteraction, FMBlock, FMPairwiseInteraction,
+                                 XDeepFmOuterProduct)
+from .blocks.optimizer import split_embeddings_on_size
+from .blocks.retrieval import (DualEncoderBlock, ItemRetrievalScorer, MatrixFactorizationBlock,
+                               QueryItemIdsEmbeddingsBlock, TowerBlock, TwoTowerBlock)
+from .outputs import (Candidate, CandidateSampler, CategoricalOutput, CategoricalTarget,
+                      ColumnBasedSampleWeight, DotProduct, EmbeddingTablePrediction, FIFOQueue,
+                      InBatchSampler, LogitsTemperatureScaler, ModelOutput,
+                      PopularityBasedSampler, TopKLayer)
+from .outputs import (BinaryClassificationTask, ItemRetrievalTask, MultiClassClassificationTask,
+                      RegressionTask)
+from .metrics import (MAE, RMSE, AvgPrecisionAt, ItemCoverageAt, LogLoss, MRRAt, NDCGAt,
+                      NoveltyAt, PopularityBiasAt, PrecisionAt, RecallAt, TopKMetric)
+from .models import MatrixFactorizationModelV2, TwoTowerModelV2
+from .transforms import (ExtractMaskFromTargets, L2Norm, PopularityLogitsCorrection,
+                         ReplaceMaskedEmbeddings, SequenceMaskLast, SequenceMaskLastInference,
+                         SequenceMaskRandom, SequencePredictLast, SequencePredictNext,
+                         SequencePredictRandom, SequenceTargetAsInput)
+from .transformer.block import (AlbertBlock, AttentionWeights, BertBlock, GPT2Block, HiddenStates,
+                                LastHiddenState, PoolerOutput, RobertaBlock, SequenceSummary,
+                                TransformerBlock, TransformerInferenceHiddenState, XLNetBlock)
+from . import api, compat
+from .compat import (ContinuousFeatures, EmbeddingOptions, EmbeddingWithMetadata, FeatureConfig,
+                     InBatchSamplerV2, IndexBlock, ItemSampler, LogLossMetric,
+                     PopularityBasedSamplerV2, PredictionTask, PrepareListFeatures,
+                     RetrievalModel, SequenceAggregator, TableConfig, TabularBlock,
+                     TensorInitializer, ToDense, ToOneHot, ToSparse, TopKIndexBlock,
+                     YoutubeDNNRetrievalModelV2, is_transformers_available, right_shift_layer)
 
 __all__ = [
     "AsTabular", "AverageEmbeddingsByWeightFeature", "BatchNorm", "Block",
@@ -108,9 +145,34 @@ __all__ = [
     "SessionBasedTransformerModel",
     "SparseEmbeddingOptimizer", "Tags", "TopKEncoder", "TopKMetricsAggregator", "TopKOutput",
     "TopKPrediction", "TwoTowerModel", "YoutubeDNNRetrievalModel", "binary_crossentropy", "generate_data",
-    "get_dtype_policy", "load_jax_params", "mean_absolute_error", "mean_squared_error",
+    "get_dtype_policy", "load_jax_params", "load_torch_backend_params", "mean_absolute_error",
+    "mean_squared_error",
     "resolve_device", "set_dtype_policy",
     "CheckpointManager", "ModelCheckpoint", "ProfilerCallback", "ServingModel", "Timing",
     "WandbLogger", "export_serving", "load_model", "load_serving", "save_model",
     "make_mesh", "parallel",
+    "AlbertBlock", "AttentionWeights", "AvgPrecisionAt", "BertBlock", "BinaryClassificationTask",
+    "Candidate", "CandidateSampler", "CategoricalOutput", "CategoricalTarget",
+    "ColumnBasedSampleWeight", "ConcatFeatures", "Continuous", "ContinuousEmbedding",
+    "ContinuousFeatures", "ContinuousProjection", "Cross", "DLRMBlock", "Domain", "DotProduct",
+    "DotProductInteraction", "DualEncoderBlock", "ElementwiseSum", "ElementwiseSumItemMulti",
+    "EmbeddingEncoder", "EmbeddingOptions", "EmbeddingTablePrediction", "EmbeddingWithMetadata",
+    "ExtractMaskFromTargets", "FIFOQueue", "FMBlock", "FMPairwiseInteraction", "FeatureConfig",
+    "GPT2Block", "HiddenStates", "InBatchSampler", "InBatchSamplerV2", "IndexBlock",
+    "ItemCoverageAt", "ItemRetrievalScorer", "ItemRetrievalTask", "ItemSampler", "L2Norm",
+    "LastHiddenState", "LogLoss", "LogLossMetric", "LogitsTemperatureScaler", "MAE", "MRRAt",
+    "MatrixFactorizationBlock", "MatrixFactorizationModelV2", "MerlinModel", "ModelContext",
+    "ModelOutput", "MultiClassClassificationTask", "NDCGAt", "NoveltyAt", "PoolerOutput",
+    "PopularityBasedSampler", "PopularityBasedSamplerV2", "PopularityBiasAt",
+    "PopularityLogitsCorrection", "PrecisionAt", "Prediction", "PredictionTask",
+    "PrepareListFeatures", "QueryItemIdsEmbeddingsBlock", "RMSE", "RecallAt", "Registry",
+    "RegressionTask", "ReplaceMaskedEmbeddings", "RetrievalModel", "RobertaBlock",
+    "SequenceAggregator", "SequenceMaskLast", "SequenceMaskLastInference", "SequenceMaskRandom",
+    "SequencePredictLast", "SequencePredictNext", "SequencePredictRandom", "SequenceSummary",
+    "SequenceTargetAsInput", "StackFeatures", "TableConfig", "TabularBlock", "TensorInitializer",
+    "ToDense", "ToOneHot", "ToSparse", "TopKIndexBlock", "TopKLayer", "TopKMetric", "TowerBlock",
+    "TransformerBlock", "TransformerInferenceHiddenState", "TwoTowerBlock", "TwoTowerModelV2",
+    "XDeepFmOuterProduct", "XLNetBlock", "YoutubeDNNRetrievalModelV2", "api", "compat",
+    "distributed", "infer_embedding_dim", "is_transformers_available", "right_shift_layer",
+    "split_embeddings_on_size",
 ]

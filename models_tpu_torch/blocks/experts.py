@@ -43,7 +43,7 @@ class ExpertsGate(Block):
     """A softmax gate mixing stacked expert outputs: ``(gate_input (B, F),
     experts (B, E, D)) -> (B, D)``; ``gate`` is a bias-free Dense(F, E)."""
 
-    def __init__(self, in_features: Optional[int], num_experts: int, seed: int = 0,
+    def __init__(self, num_experts: int, seed: int = 0, in_features: Optional[int] = None,
                  device=None):
         super().__init__()
         self.gate = Dense(num_experts, use_bias=False, seed=seed, in_features=in_features,
@@ -75,15 +75,15 @@ class MMOEBlock(Block):
     the block's input. Output: a dict task -> (B, D), which the heads of
     ``OutputBlock`` pick by their target."""
 
-    def __init__(self, outputs: Sequence[str], expert_block, in_features: Optional[int] = None,
-                 num_experts: int = 4, gate_block: Optional[nn.Module] = None, seed: int = 0,
-                 device=None):
+    def __init__(self, outputs: Sequence[str], expert_block, num_experts: int = 4,
+                 gate_block: Optional[nn.Module] = None, seed: int = 0,
+                 in_features: Optional[int] = None, device=None):
         super().__init__()
         expert = _expert(expert_block, in_features, seed, device)
         self.experts = _StackedExperts(expert, num_experts)
         self.task_names = list(outputs)
-        self.gates = nn.ModuleDict({t: ExpertsGate(in_features, num_experts, seed=seed + i,
-                                                   device=device)
+        self.gates = nn.ModuleDict({t: ExpertsGate(num_experts, seed=seed + i,
+                                                   in_features=in_features, device=device)
                                     for i, t in enumerate(self.task_names)})
         self.out_features = self.experts.out_features
 
@@ -99,9 +99,9 @@ class CGCBlock(Block):
     is a tensor, or (a stacked layer) the dict of the layer before it, each
     branch reading its task's entry, else ``"shared"``."""
 
-    def __init__(self, outputs: Sequence[str], expert_block, in_features: Optional[int] = None,
-                 num_task_experts: int = 1, num_shared_experts: int = 1,
-                 final_layer: bool = False, seed: int = 0, salt: int = 0, device=None):
+    def __init__(self, outputs: Sequence[str], expert_block, num_task_experts: int = 1,
+                 num_shared_experts: int = 1, final_layer: bool = False, seed: int = 0,
+                 in_features: Optional[int] = None, salt: int = 0, device=None):
         super().__init__()
         template = _expert(expert_block, in_features, seed, device)
         self.task_names = list(outputs)
@@ -115,12 +115,13 @@ class CGCBlock(Block):
         self.task_experts = nn.ModuleDict(
             {t: group(j + 1, num_task_experts) for j, t in enumerate(self.task_names)})
         self.task_gates = nn.ModuleDict(
-            {t: ExpertsGate(in_features, num_task_experts + num_shared_experts, seed=seed + i,
-                            device=device)
+            {t: ExpertsGate(num_task_experts + num_shared_experts, seed=seed + i,
+                            in_features=in_features, device=device)
              for i, t in enumerate(self.task_names)})
         total = num_shared_experts + num_task_experts * len(self.task_names)
         self.shared_gate = (None if final_layer else
-                            ExpertsGate(in_features, total, seed=seed + 91, device=device))
+                            ExpertsGate(total, seed=seed + 91, in_features=in_features,
+                                        device=device))
         self.out_features = template.out_features
 
     def forward(self, inputs, **kwargs):
@@ -145,8 +146,8 @@ class CGCBlock(Block):
 
 
 def PLEBlock(outputs: Sequence[str], expert_block: Union[Sequence[int], nn.Module],
-             in_features: Optional[int] = None, num_layers: int = 2, num_task_experts: int = 1,
-             num_shared_experts: int = 1, seed: int = 0, device=None) -> SequentialBlock:
+             num_layers: int = 2, num_task_experts: int = 1, num_shared_experts: int = 1,
+             seed: int = 0, in_features: Optional[int] = None, device=None) -> SequentialBlock:
     """Progressive layered extraction: ``num_layers`` CGC layers, the last
     one final. Layer 0 reads ``in_features``, each later layer the experts'
     width. ``expert_block``: the expert's widths, or a block whose input and
@@ -155,7 +156,8 @@ def PLEBlock(outputs: Sequence[str], expert_block: Union[Sequence[int], nn.Modul
     layers = []
     width = in_features
     for i in range(num_layers):
-        layer = CGCBlock(outputs, expert_block, width, num_task_experts=num_task_experts,
+        layer = CGCBlock(outputs, expert_block, in_features=width,
+                         num_task_experts=num_task_experts,
                          num_shared_experts=num_shared_experts, final_layer=i == num_layers - 1,
                          seed=seed + 13 * i, salt=LAYER_SALT * i, device=device)
         layers.append(layer)

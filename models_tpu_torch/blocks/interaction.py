@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..blocks.mlp import LazyMixin, _capturing
 from ..core.aggregation import StackFeatures
 from ..core.block import Block
 from ..inputs.embedding import Embeddings
@@ -67,23 +68,50 @@ class FMPairwiseInteraction(Block):
         return 0.5 * (inputs.sum(dim=1).square() - inputs.square().sum(dim=1))
 
 
-class XDeepFmOuterProduct(Block):
+class XDeepFmOuterProduct(LazyMixin, Block):
     """One CIN layer of xDeepFM: ``x_k[h] = sum_{i, j} W[h, i, j] (x_prev[i] *
     x0[j])``. JAX's ``kernel`` is (dim, H, F), glorot-uniform as flax draws
     it (fans over the last two axes times the first); the port's ``weight``
-    is its transpose (F, H, dim), as for a Dense kernel."""
+    is its transpose (F, H, dim), as for a Dense kernel. Without
+    ``num_prev`` and ``num_fields`` it builds at its first call (the model's
+    build pass) from the inputs' H and F, as the JAX package's does."""
 
-    def __init__(self, dim: int, num_prev: int, num_fields: int, seed: int = 0, device=None):
+    def __init__(self, dim: int, seed: int = 0, num_prev: Optional[int] = None,
+                 num_fields: Optional[int] = None, device=None):
         super().__init__()
         self.dim = dim
-        bound = math.sqrt(6.0 / (dim * (num_prev + num_fields)))
-        weight = torch.empty(num_fields, num_prev, dim, device=device)
-        weight.uniform_(-bound, bound, generator=torch.Generator(weight.device).manual_seed(seed))
+        self.seed = seed
+        self.register_parameter("weight", None)
+        if num_prev is not None and num_fields is not None:
+            self._build_shape(int(num_prev), int(num_fields), device)
+
+    def _build_shape(self, num_prev: int, num_fields: int, device) -> None:
+        bound = math.sqrt(6.0 / (self.dim * (num_prev + num_fields)))
+        weight = torch.empty(num_fields, num_prev, self.dim, device=device)
+        weight.uniform_(-bound, bound,
+                        generator=torch.Generator(weight.device).manual_seed(self.seed))
         self.weight = nn.Parameter(weight)
+        self.built = True
+
+    @staticmethod
+    def _split(inputs):
+        return inputs if isinstance(inputs, (list, tuple)) else (inputs, inputs)
+
+    def build(self, x, device=None) -> None:
+        """Build on a sample ``(x_prev (B, H, D), x0 (B, F, D))`` (or one
+        tensor for both), on its device."""
+        x_prev, x0 = self._split(x)
+        self._build_shape(int(x_prev.shape[1]), int(x0.shape[1]),
+                          x_prev.device if device is None else device)
 
     def forward(self, inputs, **kwargs):
         """``(x_prev (B, H, D), x0 (B, F, D))``, or one tensor for both."""
-        x_prev, x0 = inputs if isinstance(inputs, (list, tuple)) else (inputs, inputs)
+        x_prev, x0 = self._split(inputs)
+        if not self.built:
+            if _capturing():
+                raise RuntimeError("XDeepFmOuterProduct is not built. Run model.build(data) "
+                                   "before capturing a graph.")
+            self.build((x_prev, x0))
         outer = torch.einsum("bhd,bfd->bhfd", x_prev, x0)
         return torch.einsum("bhfd,fhk->bkd", outer, self.weight)
 

@@ -27,6 +27,7 @@ from torch import nn
 
 from ..core.block import Block, RandomBlock
 from ..core.combinators import SequentialBlock
+from ..core.device import resolve_device
 from ..core.policy import cast_compute
 from ..core.types import SequenceFeature
 
@@ -119,10 +120,22 @@ class LazyMixin:
         if _capturing():
             raise RuntimeError(f"{type(self).__name__} is not built. Run model.build(data) "
                                "(fit, evaluate and predict do) before capturing a graph.")
-        self.build(int(x.shape[-1]), x.device)
+        self._build(int(x.shape[-1]), x.device)
         self.built = True
 
-    def build(self, in_features: int, device) -> None:  # pragma: no cover - overridden
+    def build(self, x, device=None) -> None:
+        """Build on a sample whose last axis is the width (the JAX package's
+        ``build(x)``; a :class:`SequenceFeature`'s values), on its device;
+        or on the width as an ``int``, on ``device`` (default the card)."""
+        if isinstance(x, int):
+            width, dev = x, resolve_device(device)
+        else:
+            x = x.values if isinstance(x, SequenceFeature) else x
+            width, dev = int(x.shape[-1]), (x.device if device is None else device)
+        self._build(width, dev)
+        self.built = True
+
+    def _build(self, in_features: int, device) -> None:  # pragma: no cover - overridden
         raise NotImplementedError
 
 
@@ -162,10 +175,10 @@ class Dense(LazyMixin, Block):
         self.register_parameter("weight", None)
         self.register_parameter("bias", None)
         if in_features is not None:
-            self.build(int(in_features), device)
+            self._build(int(in_features), device)
             self.built = True
 
-    def build(self, in_features: int, device) -> None:
+    def _build(self, in_features: int, device) -> None:
         self.in_features = in_features
         self.weight = nn.Parameter(_kernel(self.kernel_init, in_features, self.units,
                                            self.seed + in_features, device, self.param_dtype))
@@ -201,10 +214,10 @@ class BatchNorm(LazyMixin, Block):
         self.register_buffer("mean", None)
         self.register_buffer("var", None)
         if in_features is not None:
-            self.build(int(in_features), device)
+            self._build(int(in_features), device)
             self.built = True
 
-    def build(self, in_features: int, device) -> None:
+    def _build(self, in_features: int, device) -> None:
         self.out_features = in_features
         self.scale = nn.Parameter(torch.ones(in_features, device=device))
         self.bias = nn.Parameter(torch.zeros(in_features, device=device))
@@ -255,10 +268,10 @@ class LayerNorm(LazyMixin, Block):
         self.out_features = in_features
         self.register_module("ln", None)
         if in_features is not None:
-            self.build(int(in_features), device)
+            self._build(int(in_features), device)
             self.built = True
 
-    def build(self, in_features: int, device) -> None:
+    def _build(self, in_features: int, device) -> None:
         self.out_features = in_features
         self.ln = NNXLayerNorm(in_features, self.epsilon, device)
 
@@ -298,10 +311,10 @@ class DenseMaybeLowRank(LazyMixin, Block):
         for name in ("v", "u", "bias"):
             self.register_parameter(name, None)
         if in_features is not None:
-            self.build(int(in_features), device)
+            self._build(int(in_features), device)
             self.built = True
 
-    def build(self, in_features: int, device) -> None:
+    def _build(self, in_features: int, device) -> None:
         d = self.out_features = in_features
         gen_seed = self.seed + d
         if self.low_rank_dim is not None:

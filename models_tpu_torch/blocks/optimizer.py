@@ -457,7 +457,7 @@ class MultiOptimizer:
     >>> MultiOptimizer(default="adam", rules=[("table", ("adagrad", 0.05))])
     """
 
-    def __init__(self, default="adam", rules: Sequence[tuple] = ()):
+    def __init__(self, default, rules: Sequence[tuple] = ()):
         self.default = default
         self.rules = list(rules)
 

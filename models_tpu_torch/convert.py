@@ -115,3 +115,21 @@ def load_jax_params(module: nn.Module, flat: Dict[str, np.ndarray],
         table.sparse_slots = SparseSlots(
             {n: t.to(table.table.device) for n, t in values.items()})
     return module
+
+
+def load_torch_backend_params(model, state: Dict[str, np.ndarray]):
+    """Load the JAX package's torch side-backend ``state_dict`` (as numpy
+    arrays: ``{name: tensor.numpy()}``) into the port's copy of the same
+    model (``models_tpu_torch.torch_backend``), whose parameter and buffer
+    names are the JAX copy's; each array goes to the device its tensor
+    lives on. A side-backend ``TorchModel`` keeps its modules in
+    ``_modules``; every name must match (strict)."""
+    target = model if isinstance(model, nn.Module) else model._modules
+    own = target.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"state names differ: missing {missing}, unexpected {extra}")
+    target.load_state_dict({k: torch.as_tensor(np.asarray(v)).to(own[k].device)
+                            for k, v in state.items()})
+    return model

@@ -87,9 +87,10 @@ class ParallelBlock(Block):
     merges it. Without a schema of its own the block takes the union of its
     branches' where every branch has one."""
 
-    def __init__(self, *branches, aggregation=None, pre=None, post=None,
+    def __init__(self, *branches, aggregation=None, pre=None, post=None, strict: bool = False,
                  block_name: Optional[str] = None, schema: Optional[Schema] = None):
         super().__init__(schema=schema, block_name=block_name)
+        self.strict = strict  # kept, as the JAX package keeps it
         named: Dict[str, nn.Module] = {}
         if len(branches) == 1 and isinstance(branches[0], dict):
             named = {str(name): as_block(b) for name, b in branches[0].items()}

@@ -114,9 +114,9 @@ def TopKEncoder(
     k: int = 10,
     topk_layer: Union[str, Block] = "brute-force-topk",
     item_id_name: Optional[str] = None,
+    mesh=None,
     candidate_dtype: Optional[torch.dtype] = None,
     device=None,
-    mesh=None,
 ):
     """Query encoder + brute-force top-k head, as a model whose ``predict``
     serves ``{"scores", "ids"}``. ``topk_layer``: ``"brute-force-topk"`` or

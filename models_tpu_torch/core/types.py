@@ -23,9 +23,43 @@ class SequenceFeature:
     def shape(self):
         return self.values.shape
 
+    @property
+    def dtype(self):
+        return self.values.dtype
+
     def lengths(self) -> torch.Tensor:
         """(B,) int32: the valid positions of each row."""
         return self.mask.to(torch.int32).sum(dim=1, dtype=torch.int32)
+
+    def with_values(self, values) -> "SequenceFeature":
+        return SequenceFeature(values, self.mask)
+
+    def with_mask(self, mask) -> "SequenceFeature":
+        return SequenceFeature(self.values, mask)
+
+    def masked(self, fill=0):
+        """The values with padded positions replaced by ``fill``."""
+        m = self.mask
+        while m.ndim < self.values.ndim:
+            m = m[..., None]
+        return torch.where(m, self.values, torch.as_tensor(fill, dtype=self.values.dtype,
+                                                             device=self.values.device))
+
+    @classmethod
+    def from_values_offsets(cls, values, offsets, max_len: int) -> "SequenceFeature":
+        """On the host: a padded (B, max_len) numpy feature of ragged values
+        and offsets."""
+        values = np.asarray(values)
+        offsets = np.asarray(offsets)
+        batch = len(offsets) - 1
+        out = np.zeros((batch, max_len) + values.shape[1:], dtype=values.dtype)
+        mask = np.zeros((batch, max_len), dtype=bool)
+        for i in range(batch):
+            s, e = offsets[i], offsets[i + 1]
+            n = min(e - s, max_len)
+            out[i, :n] = values[s : s + n]
+            mask[i, :n] = True
+        return cls(out, mask)
 
     def __repr__(self):
         return f"SequenceFeature(values={tuple(self.values.shape)}, mask={tuple(self.mask.shape)})"
@@ -44,9 +78,13 @@ class Prediction(NamedTuple):
     outputs: Any
     targets: Any = None
     sample_weight: Any = None
-    precomputed_loss: Any = None
     negative_candidate_ids: Any = None
     label_relevant_counts: Any = None
+    precomputed_loss: Any = None
+
+    @property
+    def predictions(self):
+        return self.outputs
 
 
 class TopKPrediction(NamedTuple):
@@ -54,6 +92,19 @@ class TopKPrediction(NamedTuple):
 
     scores: torch.Tensor  # (B, k) f32
     identifiers: torch.Tensor  # (B, k) int32
+
+    def with_k(self, k: int) -> "TopKPrediction":
+        return TopKPrediction(self.scores[:, :k], self.identifiers[:, :k])
+
+    def to_df(self):
+        """A Dataset of per-row top-k list columns ``top_ids`` (int64) and
+        ``top_scores`` (float32), copied to the host."""
+        from ..data.dataset import Dataset
+
+        return Dataset({
+            "top_ids": list(np.asarray(self.identifiers.cpu(), dtype=np.int64)),
+            "top_scores": list(np.asarray(self.scores.cpu(), dtype=np.float32)),
+        })
 
 
 # where a sequence transform leaves the positions to predict, (B, L) bool
@@ -93,6 +144,10 @@ class ModelContext(dict):
     def features(self) -> TensorDict:
         return self.get("features", {})
 
+    @features.setter
+    def features(self, value: TensorDict):
+        self["features"] = value
+
     @property
     def targets(self):
         return self.get("targets")
@@ -100,6 +155,14 @@ class ModelContext(dict):
     @targets.setter
     def targets(self, value):
         self["targets"] = value
+
+    @property
+    def mask(self):
+        return self.get("mask")
+
+    @mask.setter
+    def mask(self, value):
+        self["mask"] = value
 
 
 def _to_device(val, device):

@@ -103,13 +103,13 @@ class EmbeddingTable(Block):
         dim: int,
         col_schema: Union[ColumnSchema, Sequence[ColumnSchema]],
         sequence_combiner: Optional[str] = None,
-        dtype: torch.dtype = torch.float32,
-        seed: int = 0,
-        device=None,
-        l2_reg: float = 0.0,
         trainable: bool = True,
         initializer: Optional[Callable] = None,
         weights=None,
+        l2_reg: float = 0.0,
+        dtype: torch.dtype = torch.float32,
+        seed: int = 0,
+        device=None,
     ):
         cols = [col_schema] if isinstance(col_schema, ColumnSchema) else list(col_schema)
         super().__init__(schema=Schema(cols), block_name=cols[0].domain_name)
@@ -320,9 +320,9 @@ class FusedEmbeddingTables(EmbeddingTable):
     :func:`_fused_groups` makes) the rows are (F * stride, D); otherwise they
     pack tightly. ``block_name`` is ``"fused_embeddings"``."""
 
-    def __init__(self, col_schemas: Sequence[ColumnSchema], dim: int,
-                 dtype: torch.dtype = torch.float32, seed: int = 0, device=None,
-                 l2_reg: float = 0.0):
+    def __init__(self, col_schemas: Sequence[ColumnSchema], dim: int, trainable: bool = True,
+                 l2_reg: float = 0.0, dtype: torch.dtype = torch.float32, seed: int = 0,
+                 device=None):
         cols = list(col_schemas)
         padded = [-(-int(c.cardinality) // 8) * 8 for c in cols]
         stride = max(padded)
@@ -336,7 +336,8 @@ class FusedEmbeddingTables(EmbeddingTable):
                           "groups", stacklevel=2)
         total = int(sum(padded))
         super().__init__(dim, create_categorical_column("fused_embeddings", total - 1),
-                         dtype=dtype, seed=seed, device=device, l2_reg=l2_reg)
+                         trainable=trainable, l2_reg=l2_reg, dtype=dtype, seed=seed,
+                         device=device)
         self.features = [c.name for c in cols]
         self.schema = Schema(cols)
         self.block_name = "fused_embeddings"

@@ -158,9 +158,9 @@ _LOSSES = {
 }
 
 
-def get_loss(spec: Union[str, Callable]) -> Callable:
-    if callable(spec):
-        return spec
-    if spec not in _LOSSES:
-        raise KeyError(f"Unknown loss {spec!r}; known: {sorted(_LOSSES)}")
-    return _LOSSES[spec]
+def get_loss(loss: Union[str, Callable]) -> Callable:
+    if callable(loss):
+        return loss
+    if loss not in _LOSSES:
+        raise KeyError(f"Unknown loss {loss!r}; known: {sorted(_LOSSES)}")
+    return _LOSSES[loss]

@@ -120,6 +120,9 @@ class Precision(_Confusion):
     name = "precision"
     cells = ("tp", "fp")
 
+    def __init__(self, threshold: float = 0.5, name: str = "precision"):
+        super().__init__(threshold, name)
+
     def result(self, state):
         return state["tp"] / (state["tp"] + state["fp"]).clamp_min(1e-9)
 
@@ -128,6 +131,9 @@ class Precision(_Confusion):
 class Recall(_Confusion):
     name = "recall"
     cells = ("tp", "fn")
+
+    def __init__(self, threshold: float = 0.5, name: str = "recall"):
+        super().__init__(threshold, name)
 
     def result(self, state):
         return state["tp"] / (state["tp"] + state["fn"]).clamp_min(1e-9)

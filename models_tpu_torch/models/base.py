@@ -298,10 +298,9 @@ class BaseModel(Block):
                 learning_rate: Union[None, float, Callable] = None,
                 train_metrics_steps: int = 1,
                 embedding_optimizer: Union[None, str, SparseEmbeddingOptimizer] = None,
-                sparse_threshold: Optional[int] = None,
-                optimizer_state_dtype: Union[None, str, torch.dtype] = None,
-                steps_per_execution: int = 1, jit: bool = True,
-                class_weight: Optional[Dict] = None) -> "BaseModel":
+                sparse_threshold: Optional[int] = None, jit: bool = True,
+                steps_per_execution: int = 1, class_weight: Optional[Dict] = None,
+                optimizer_state_dtype: Union[None, str, torch.dtype] = None) -> "BaseModel":
         """Choose the optimizer (a name: adam, adamw, adagrad, adafactor,
         lamb, rmsprop, sgd; or a :class:`MultiOptimizer`), the loss (a name, a
         callable, or a dict by head name or target; None takes each head's
@@ -1003,11 +1002,11 @@ class BaseModel(Block):
 
     def fit(self, data: Union[Dataset, Loader], epochs: int = 1,
             batch_size: Optional[int] = None, shuffle: bool = True,
-            validation_data: Union[None, Dataset, Loader] = None, validation_freq: int = 1,
-            pre: Optional[nn.Module] = None, steps_per_epoch: Optional[int] = None,
-            callbacks: Optional[list] = None, verbose: int = 0, initial_epoch: int = 0,
-            validation_steps: Optional[int] = None, device=None, mesh=None,
-            shard_rules=None) -> History:
+            validation_data: Union[None, Dataset, Loader] = None,
+            steps_per_epoch: Optional[int] = None, callbacks: Optional[list] = None,
+            pre: Optional[nn.Module] = None, verbose: int = 1, mesh=None, shard_rules=None,
+            validation_freq: int = 1, initial_epoch: int = 0,
+            validation_steps: Optional[int] = None, device=None) -> History:
         """Train for ``epochs`` passes over ``data`` in full batches (the
         loader drops the last partial one). ``history[name]`` holds each
         epoch's mean step log, the metrics over its metric steps, plus
@@ -1037,8 +1036,9 @@ class BaseModel(Block):
         logs and the index of that step), ``on_epoch_end(epoch, logs)`` with
         the epoch's logs, and ``on_train_end(history)``. A callback that sets
         ``model.stop_training`` ends the fit after that epoch. ``verbose``
-        prints each epoch's logs (the JAX package's line; its default is 1,
-        the port's 0). The model is built first (:meth:`build`).
+        prints each epoch's logs (the JAX package's line). The model is built
+        first (:meth:`build`); a loader that yields no full batch raises the
+        JAX package's ``ValueError``.
 
         ``initial_epoch``: the epoch to start from (the epochs run are
         ``initial_epoch`` ... ``epochs - 1``, as Keras counts them), to
@@ -1065,6 +1065,8 @@ class BaseModel(Block):
         self._pre_transform = pre.to(dev) if isinstance(pre, nn.Module) else pre
         loader = data if isinstance(data, Loader) else Loader(
             data, batch_size or 1024, drop_last=True, shuffle=shuffle)
+        if len(loader) == 0:
+            loader.peek()  # raises: the loader yields no batch
         self.build(loader, device=dev)
         B = loader.batch_size
         if mesh is not None:
@@ -1231,8 +1233,8 @@ class BaseModel(Block):
 
     @torch.no_grad()
     def evaluate(self, data: Union[Dataset, Loader], batch_size: Optional[int] = None,
-                 steps: Optional[int] = None, pre: Optional[nn.Module] = None,
-                 return_dict: bool = True, verbose: int = 0, device=None) -> Dict[str, float]:
+                 return_dict: bool = True, pre: Optional[nn.Module] = None, verbose: int = 0,
+                 steps: Optional[int] = None, device=None) -> Dict[str, float]:
         """The loss and the metrics over ``data`` (every row, the last batch
         padded and its padding masked; at most ``steps`` batches): the heads
         take their evaluation branch (``testing``), the contrastive head

@@ -52,7 +52,7 @@ def MMOEModel(
     tasks = _tasks(schema, "MMOEModel")
     dev = resolve_device(device)
     inputs = InputBlockV2(schema, dim=embedding_dim, seed=seed, device=dev)
-    mmoe = MMOEBlock(tasks, expert_block, inputs.out_features, num_experts=num_experts,
+    mmoe = MMOEBlock(tasks, expert_block, in_features=inputs.out_features, num_experts=num_experts,
                      seed=seed, device=dev)
     return _model(schema, inputs, mmoe, task_blocks, "mmoe", dev)
 
@@ -71,7 +71,7 @@ def PLEModel(
     tasks = _tasks(schema, "PLEModel")
     dev = resolve_device(device)
     inputs = InputBlockV2(schema, dim=embedding_dim, seed=seed, device=dev)
-    ple = PLEBlock(tasks, expert_block, inputs.out_features, num_layers=num_layers,
+    ple = PLEBlock(tasks, expert_block, in_features=inputs.out_features, num_layers=num_layers,
                    num_task_experts=num_task_experts, num_shared_experts=num_shared_experts,
                    seed=seed, device=dev)
     return _model(schema, inputs, ple, task_blocks, "ple", dev)

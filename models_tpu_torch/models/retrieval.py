@@ -29,11 +29,21 @@ from .base import Model
 class RetrievalModelV2(Model):
     """A query tower and a candidate tower, run side by side into a
     :class:`ContrastiveOutput`; or, with ``candidate=None``, the query tower
-    alone into a head whose candidates are its tied table's rows.
+    alone into a head whose candidates are its tied table's rows; or, given
+    ``*blocks``, those blocks in a row (the query encoder the first).
     ``item_id_name`` names the column whose values become the index's ids."""
 
-    def __init__(self, query: Block, candidate: Optional[Block], output: ContrastiveOutput,
+    def __init__(self, *blocks, query: Optional[Block] = None,
+                 candidate: Optional[Block] = None, output: Optional[ContrastiveOutput] = None,
                  schema: Optional[Schema] = None, block_name: str = "two_tower"):
+        if blocks:
+            Model.__init__(self, *blocks, schema=schema)
+            self.block_name = block_name
+            self._query = None
+            self._candidate = None
+            return
+        if query is None or output is None:
+            raise ValueError("RetrievalModelV2 needs blocks, or query= and output=")
         # Model.__init__ would register ``blocks`` first; the towers come
         # first, so that ``named_parameters()`` (which names a shared module
         # by its first registration) gives the JAX package's paths
@@ -50,11 +60,14 @@ class RetrievalModelV2(Model):
 
     @property
     def contrastive_output(self) -> ContrastiveOutput:
-        return self.blocks[-1]
+        for head in self.heads():
+            if isinstance(head, ContrastiveOutput):
+                return head
+        raise ValueError("Model has no ContrastiveOutput head")
 
     @property
     def query_encoder(self) -> Block:
-        return self._query
+        return self._query if self._query is not None else self.blocks[0]
 
     @property
     def candidate_encoder(self) -> Block:
@@ -65,12 +78,12 @@ class RetrievalModelV2(Model):
         """Encode the queries with the query tower, as ``id`` + ``embedding``;
         with no dataset, an :class:`EmbeddingEncoder` query tower's table."""
         if dataset is None:
-            if not isinstance(self._query, EmbeddingEncoder):
+            if not isinstance(self.query_encoder, EmbeddingEncoder):
                 raise ValueError("query_embeddings needs a dataset unless the query tower is "
                                  "an EmbeddingEncoder")
-            return self._query.to_dataset()
-        return Encoder(self._query).encode(dataset, index=index, batch_size=batch_size,
-                                           device=device)
+            return self.query_encoder.to_dataset()
+        return Encoder(self.query_encoder).encode(dataset, index=index, batch_size=batch_size,
+                                                  device=device)
 
     def candidate_embeddings(self, dataset: Optional[Dataset] = None, batch_size: int = 1024,
                              index: Union[str, Tags, None] = Tags.ITEM_ID,
@@ -94,8 +107,8 @@ class RetrievalModelV2(Model):
         )
 
     def to_top_k_encoder(self, candidates: Optional[Dataset] = None, k: int = 10,
-                         batch_size: int = 1024, candidate_dtype: Optional[torch.dtype] = None,
-                         device=None, mesh=None):
+                         batch_size: int = 1024, mesh=None,
+                         candidate_dtype: Optional[torch.dtype] = None, device=None):
         """A servable and evaluable brute-force top-k model over the encoded
         ``candidates`` (a tied model: its table, no dataset needed);
         ``candidate_dtype=torch.bfloat16`` stores the index half-width,
@@ -103,14 +116,14 @@ class RetrievalModelV2(Model):
         by rows over the mesh's model axis (``outputs/topk.py``): every rank
         calls it, and every rank of a model line serves the same queries."""
         cand_ds = self.candidate_embeddings(candidates, batch_size=batch_size, device=device)
-        return TopKEncoder(self._query, candidates=cand_ds, k=k,
+        return TopKEncoder(self.query_encoder, candidates=cand_ds, k=k,
                            item_id_name=self.item_id_name,
                            candidate_dtype=candidate_dtype, device=device, mesh=mesh)
 
     to_top_k_recommender = to_top_k_encoder
 
     def evaluate(self, data, batch_size: Optional[int] = None, item_corpus=None, k: int = 10,
-                 steps: Optional[int] = None, pre=None, device=None, mesh=None):
+                 mesh=None, steps: Optional[int] = None, pre=None, device=None):
         """In-batch evaluation (:meth:`Model.evaluate`), or, with
         ``item_corpus`` (a Dataset of items, or True for a tied model's
         table), each query scored against the whole corpus: a brute-force
@@ -160,7 +173,7 @@ def MatrixFactorizationModel(
                                logits_temperature=logits_temperature,
                                logq_sampling_correction=logq_correction, post=post)
     output.to(dev)
-    return RetrievalModelV2(EmbeddingEncoder(user_table), None, output, schema=schema,
+    return RetrievalModelV2(query=EmbeddingEncoder(user_table), output=output, schema=schema,
                             block_name="matrix_factorization")
 
 
@@ -222,7 +235,7 @@ def TwoTowerModel(
     output = ContrastiveOutput(schema.item_id_column, negative_samplers=negative_samplers,
                                logits_temperature=logits_temperature, post=post)
     output.to(dev)
-    return RetrievalModelV2(query, candidate, output, schema=schema)
+    return RetrievalModelV2(query=query, candidate=candidate, output=output, schema=schema)
 
 
 TwoTowerModelV2 = TwoTowerModel
@@ -264,4 +277,4 @@ def YoutubeDNNRetrievalModel(
                                logits_temperature=logits_temperature)
     output.to(dev)
     query = SequentialBlock(([inputs] if inputs is not None else []) + [top_block.to(dev)])
-    return RetrievalModelV2(query, None, output, schema=schema, block_name="youtube_dnn")
+    return RetrievalModelV2(query=query, output=output, schema=schema, block_name="youtube_dnn")

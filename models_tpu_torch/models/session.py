@@ -126,6 +126,6 @@ def SessionBasedTransformerModel(
         blocks.append(ReplaceMaskedEmbeddings(width, device=dev))
     blocks += [transformer, _ProjectToTableDim(transformer.d_model, item_table.dim, seed=seed,
                                                device=dev)]
-    model = RetrievalModelV2(SequentialBlock(blocks), None, output, schema=schema)
+    model = RetrievalModelV2(query=SequentialBlock(blocks), output=output, schema=schema)
     model.block_name = "session_transformer"
     return model

@@ -49,8 +49,8 @@ class ModelOutput(Block):
 
     default_loss: str = "mse"
 
-    def __init__(self, target: Optional[str] = None, post=None, logits_temperature: float = 1.0,
-                 to_call: Optional[nn.Module] = None, pre: Optional[nn.Module] = None,
+    def __init__(self, to_call: Optional[nn.Module] = None, target: Optional[str] = None,
+                 pre: Optional[nn.Module] = None, post=None, logits_temperature: float = 1.0,
                  sample_weight_column: Optional[str] = None, task_name: Optional[str] = None):
         super().__init__(block_name=task_name or (
             f"{target}/{type(self).__name__}" if target else type(self).__name__))
@@ -168,6 +168,14 @@ class CategoricalTarget(Block):
     def forward(self, inputs, **kwargs):
         return self.dense(inputs)
 
+    def embedding_lookup(self, ids: torch.Tensor) -> torch.Tensor:
+        """Rows of the projection (its (classes, in) weight): class embeddings."""
+        return self.dense.weight[ids.long()]
+
+    @property
+    def embeddings(self) -> torch.Tensor:
+        return self.dense.weight
+
 
 class _ShardLogits(torch.autograd.Function):
     """``x @ shard.T`` on each rank of a model line (``g``), the columns
@@ -250,6 +258,10 @@ class EmbeddingTablePrediction(Block):
         return self.table._lookup(ids, context, site)
 
     @property
+    def embeddings(self) -> torch.Tensor:
+        return self.table.embeddings
+
+    @property
     def num_classes(self) -> int:
         return self.table.input_dim
 
@@ -262,13 +274,15 @@ class CategoricalOutput(ModelOutput):
 
     default_loss = "sparse_categorical_crossentropy"
 
-    def __init__(self, to_call, in_features: Optional[int] = None, target: Optional[str] = None,
-                 default_metrics_top_ks: Sequence[int] = (10,), seed: int = 0, device=None,
-                 **kwargs):
+    def __init__(self, to_call=None, target: Optional[str] = None,
+                 default_metrics_top_ks: Sequence[int] = (10,), in_features: Optional[int] = None,
+                 seed: int = 0, device=None, **kwargs):
         from ..inputs.embedding import EmbeddingTable
 
         head = None
-        if isinstance(to_call, ColumnSchema):
+        if to_call is None:  # the logits come from the block before
+            num_classes = None
+        elif isinstance(to_call, ColumnSchema):
             target = target or to_call.name
             num_classes = to_call.cardinality
         elif isinstance(to_call, int):
@@ -283,8 +297,10 @@ class CategoricalOutput(ModelOutput):
         super().__init__(target=target, **kwargs)
         self.num_classes = num_classes
         self.top_ks = tuple(default_metrics_top_ks)
-        self.to_call = head if head is not None else CategoricalTarget(
-            num_classes, seed=seed, in_features=in_features, device=device)
+        if head is None and num_classes is not None:
+            head = CategoricalTarget(num_classes, seed=seed, in_features=in_features,
+                                     device=device)
+        self.to_call = head
 
     def default_metrics(self):
         from ..metrics.topk import TopKMetricsAggregator
@@ -338,9 +354,9 @@ class ColumnBasedSampleWeight(Block):
         return inputs
 
 
-def OutputBlock(schema: Schema, in_features: Optional[int] = None,
-                task_blocks: Optional[Dict[str, nn.Module]] = None,
-                logits_temperature: float = 1.0, device=None) -> Block:
+def OutputBlock(schema: Schema, task_blocks: Optional[Dict[str, nn.Module]] = None,
+                logits_temperature: float = 1.0, in_features: Optional[int] = None,
+                device=None) -> Block:
     """Heads from the schema's TARGET columns: regression (a REGRESSION tag,
     or a float column not tagged binary) → :class:`RegressionOutput`; a
     MULTI_CLASS_CLASSIFICATION int column → :class:`CategoricalOutput`;

@@ -84,11 +84,11 @@ class ContrastiveOutput(ModelOutput):
         downscore_false_negatives: bool = True,
         logq_sampling_correction: bool = True,
         logits_temperature: float = 1.0,
-        fused_loss: Union[str, bool] = "auto",
-        post=None,
         default_metrics_top_ks: Sequence[int] = (10,),
         query_name: str = "query",
         candidate_name: str = "candidate",
+        fused_loss: Union[str, bool] = "auto",
+        post=None,
     ):
         table = None
         if isinstance(to_call, ColumnSchema):

@@ -113,8 +113,7 @@ class PopularityBasedSampler(CandidateSampler, RandomBlock):
         ids = torch.exp(u * _log32(max_id + 2.0)) - 1.0
         return ids.to(torch.int32).clamp(0, max_id)
 
-    @staticmethod
-    def sampling_probs(ids: torch.Tensor, max_id: int) -> torch.Tensor:
+    def sampling_probs(self, ids: torch.Tensor, max_id: int) -> torch.Tensor:
         ids_f = ids.to(torch.float32)
         return (torch.log(ids_f + 2.0) - torch.log(ids_f + 1.0)) / _log32(max_id + 2.0)
 

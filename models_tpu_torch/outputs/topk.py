@@ -29,8 +29,8 @@ class TopKLayer(Block):
         super().__init__()
         self.k = int(k)
 
-    def index(self, candidates, ids=None, dtype: torch.dtype = torch.float32,
-              device=None, mesh=None) -> "TopKLayer":
+    def index(self, candidates, ids=None, mesh=None, dtype: torch.dtype = torch.float32,
+              device=None) -> "TopKLayer":
         raise NotImplementedError
 
     def index_from_dataset(self, dataset, check_unique_ids: bool = True,
@@ -95,6 +95,12 @@ class BruteForce(TopKLayer):
             self.n_valid = int(self.candidates.shape[0] - int(self.padding))
             self.scales_per_bin = self.scales is not None
 
+    @property
+    def num_candidates(self) -> int:
+        if self.n_valid is not None:
+            return self.n_valid
+        return self.candidates.shape[0]
+
     @staticmethod
     def _mesh_fits(mesh, n_candidates: int) -> bool:
         from ..parallel.mesh import MODEL_AXIS
@@ -102,8 +108,8 @@ class BruteForce(TopKLayer):
         n = mesh.size(MODEL_AXIS)
         return n > 1 and n_candidates % n == 0
 
-    def index(self, candidates, ids=None, dtype: torch.dtype = torch.float32,
-              device=None, mesh=None) -> "BruteForce":
+    def index(self, candidates, ids=None, mesh=None, dtype: torch.dtype = torch.float32,
+              device=None) -> "BruteForce":
         """Store ``candidates`` (n, D) with their ``ids`` (default 0..n-1) as
         ``dtype``: float32, bfloat16, or int8, bin-quantized as the JAX
         package quantizes it. The int8 index sorts the rows by their largest
@@ -215,10 +221,10 @@ class TopKOutput(ModelOutput):
 
     default_loss = None  # retrieval evaluation has no trainable loss
 
-    def __init__(self, k: int = 10, candidates=None, item_id_name: Optional[str] = None,
-                 default_metrics_top_ks=(10,), candidate_dtype: Optional[torch.dtype] = None,
-                 to_call: Union[str, "BruteForce", None] = "brute-force-topk", device=None,
-                 mesh=None):
+    def __init__(self, to_call: Union[str, "BruteForce", None] = "brute-force-topk",
+                 k: int = 10, candidates=None, item_id_name: Optional[str] = None,
+                 default_metrics_top_ks=(10,), mesh=None,
+                 candidate_dtype: Optional[torch.dtype] = None, device=None):
         super().__init__(target=item_id_name)
         self.block_name = "topk_output"
         self.k = int(k)
@@ -246,7 +252,7 @@ class TopKOutput(ModelOutput):
 
         return [TopKMetricsAggregator.default(min(k, self.k)) for k in self.top_ks]
 
-    def forward(self, inputs, *, context=None, targets=None, **kwargs):
+    def forward(self, inputs, *, training=False, context=None, targets=None, **kwargs):
         queries = inputs["query"] if isinstance(inputs, dict) else inputs
         topk = self.topk_layer(queries, k=self.k)
         testing = bool(context.get("testing", False)) if context is not None else False

@@ -124,18 +124,24 @@ class Mesh:
 
 def make_mesh(shape: Union[Dict[str, int], Sequence[int], None] = None,
               axis_names: Sequence[str] = (DATA_AXIS, MODEL_AXIS),
+              devices: Optional[Sequence[DeviceLike]] = None,
               device: DeviceLike = None) -> Mesh:
     """A mesh over the world's ranks, e.g. ``{"data": 2, "model": 2}``; by
-    default every rank on the data axis. ``device``: this rank's, by
-    default the one :func:`~models_tpu_torch.parallel.distributed.initialize`
-    chose, else the card (raising without one); on the CPU pass
-    ``device="cpu"``, over a ``gloo`` group. Without a process group the
-    mesh holds one rank."""
+    default every rank on the data axis. ``devices``: one per rank, in rank
+    order (as the JAX package lists a mesh's devices); this rank runs on its
+    own. ``device``: this rank's, by default ``devices[rank]`` or the one
+    :func:`~models_tpu_torch.parallel.distributed.initialize` chose, else
+    the card (raising without one); on the CPU pass ``device="cpu"``, over
+    a ``gloo`` group. Without a process group the mesh holds one rank."""
     world = dist.get_world_size() if dist.is_initialized() else 1
+    if devices is not None and len(devices) != world:
+        raise ValueError(f"{len(devices)} devices for a world of {world} ranks")
     if shape is None:
         shape = {DATA_AXIS: world, MODEL_AXIS: 1}
     if not isinstance(shape, dict):
         shape = dict(zip(axis_names, (int(d) for d in shape)))
+    if device is None and devices is not None:
+        device = devices[dist.get_rank() if dist.is_initialized() else 0]
     dev = resolve_device(device if device is not None else distributed.rank_device())
     backend = distributed.backend()
     if backend == "nccl" and dev.type != "cuda":

@@ -13,6 +13,7 @@ writes beside a dataset's parquet files).
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 from dataclasses import dataclass, field, replace
@@ -186,8 +187,15 @@ class Schema:
         return list(self._by_name)
 
     @property
+    def column_schemas(self) -> List[ColumnSchema]:
+        return list(self._by_name.values())
+
+    @property
     def first(self) -> ColumnSchema:
         return next(iter(self._by_name.values()))
+
+    def copy(self) -> "Schema":
+        return Schema(copy.deepcopy(self.column_schemas))
 
     def select_by_tag(self, tags: Union[TagLike, Iterable[TagLike]]) -> "Schema":
         want = set(_norm_tags(tags))
@@ -218,9 +226,14 @@ class Schema:
         drop = set(_norm_tags(tags))
         return Schema([c for c in self if not (drop & set(c.tags))])
 
+    # merlin-core aliases
+    remove_by_tag = excluding_by_tag
+
     def excluding_by_name(self, names: Union[str, Iterable[str]]) -> "Schema":
         drop = {names} if isinstance(names, str) else set(names)
         return Schema([c for c in self if c.name not in drop])
+
+    remove_col = excluding_by_name
 
     @property
     def categorical(self) -> "Schema":

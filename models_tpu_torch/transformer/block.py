@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..blocks.mlp import Dense, Dropout, NNXLayerNorm, _glorot, get_activation
+from ..blocks.mlp import Dense, Dropout, LazyMixin, NNXLayerNorm, _glorot, get_activation
 from ..core.aggregation import sequence_last, sequence_mean
 from ..core.block import Block
 from ..core.config import record_call
@@ -293,16 +293,26 @@ class TransformerInferenceHiddenState(Block):
         return inputs
 
 
-class PoolerOutput(Block):
-    """BERT's pooler: ``tanh(Dense(first position's hidden state))``, D wide."""
+class PoolerOutput(LazyMixin, Block):
+    """BERT's pooler: ``tanh(Dense(first position's hidden state))``, D wide.
+    Without ``in_features`` it builds at its first call (the model's build
+    pass), as the JAX package's does."""
 
-    def __init__(self, in_features: int, seed: int = 0, device=None):
+    def __init__(self, seed: int = 0, in_features: Optional[int] = None, device=None):
         super().__init__()
-        self.dense = Dense(in_features, activation="tanh", seed=seed, in_features=in_features,
-                           device=device)
+        self.seed = seed
+        self.dense = None
+        if in_features is not None:
+            self._build(int(in_features), device)
+            self.built = True
+
+    def _build(self, in_features: int, device) -> None:
+        self.dense = Dense(in_features, activation="tanh", seed=self.seed,
+                           in_features=in_features, device=device)
 
     def forward(self, inputs, **kwargs):
         v = inputs.values if isinstance(inputs, SequenceFeature) else inputs
+        self._ensure_built(v)
         return self.dense(v[:, 0])
 
 

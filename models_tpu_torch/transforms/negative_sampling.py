@@ -14,6 +14,8 @@ the step into its key, so the two packages draw different rows).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..core.block import RandomBlock
@@ -22,10 +24,14 @@ from ..schema import Schema, Tags
 
 
 class InBatchNegatives(RandomBlock):
-    def __init__(self, schema: Schema, n_per_positive: int = 1, seed: int = 0, device=None):
+    def __init__(self, schema: Schema, n_per_positive: int = 1, seed: int = 0,
+                 targets_to_zero: Optional[list] = None, device=None):
         super().__init__(seed=seed, device=device, schema=schema)
         self.n = int(n_per_positive)
         self.item_cols = schema.select_by_tag(Tags.ITEM).column_names
+        # the JAX package keeps the names and zeroes every target of the
+        # negative rows, as this block does
+        self.target_cols = targets_to_zero or schema.targets.column_names
 
     def draw(self, batch_size: int, device) -> torch.Tensor:
         """(n, B) int64 row indices in [0, B): the rows whose items each

@@ -98,7 +98,8 @@ class ProfilerCallback(Callback):
     on the card, CUDA activity). ``trace_path`` names the file once it is
     written. Under ``steps_per_execution=k`` a call is a chunk."""
 
-    def __init__(self, log_dir: str, start_step: int = 5, num_steps: int = 5):
+    def __init__(self, log_dir: str = "/tmp/jax_trace", start_step: int = 5,
+                 num_steps: int = 5):
         self.log_dir = log_dir
         self.start_step = start_step
         self.stop_step = start_step + num_steps

@@ -51,6 +51,12 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "import models_tpu_torch.data.workflow, models_tpu_torch.data.datasets\n"
         "import models_tpu_torch.data.parquet, models_tpu_torch.data.native\n"
         "import models_tpu_torch.data.loader\n"
+        "import models_tpu_torch.api, models_tpu_torch.compat\n"
+        "import models_tpu_torch.xgb, models_tpu_torch.baselines\n"
+        "import models_tpu_torch.torch_backend, models_tpu_torch.torch_backend.dsl\n"
+        "import models_tpu_torch.torch_backend.models, models_tpu_torch.torch_backend.tracing\n"
+        "import models_tpu_torch.torch_backend.compat, models_tpu_torch.torch_backend.retrieval\n"
+        "import models_tpu_torch.torch_backend.sequences\n"
         "models_tpu_torch.string_id_hash(['a', b'b', None])\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
@@ -190,6 +196,23 @@ def _restore_training():
     return CheckpointManager(path).restore_training(m, data=ds)
 
 
+def _side():
+    import models_tpu_torch.torch_backend as tb
+
+    return tb
+
+
+def _side_data():
+    ds = mt.generate_data("e-commerce", num_rows=40, seed=0)
+    schema = ds.schema.select_by_name(["user_id", "item_id"])
+    return mt.Dataset({k: ds.to_numpy_dict()[k] for k in ("user_id", "item_id")},
+                      schema=schema), schema
+
+
+def _side_two_tower():
+    return _side().TwoTowerModel(_side_data()[1], dim=4, device="cpu")
+
+
 Q, C = np.ones((2, 4), np.float32), np.ones((100, 4), np.float32)
 ENTRY_POINTS = {
     "TwoTowerModel": lambda: mt.TwoTowerModel(_model()[0].schema, query_tower=(8, 4)),
@@ -249,6 +272,18 @@ ENTRY_POINTS = {
         init_method="file://" + tempfile.mktemp(), world_size=1, rank=0),
     "make_mesh": lambda: mt.make_mesh({"data": 1, "model": 1}),
     "sample_batch": lambda: mt.sample_batch(_model()[0], batch_size=8),
+    "torch_backend.TwoTowerModel": lambda: _side().TwoTowerModel(_side_data()[1], dim=4),
+    "torch_backend.DLRMModel": lambda: _side().DLRMModel(_model()[0].schema),
+    "torch_backend.DCNModel": lambda: _side().DCNModel(_model()[0].schema),
+    "torch_backend.TorchMLPModel": lambda: _side().TorchMLPModel(_model()[0].schema),
+    "torch_backend.TorchDLRMModel": lambda: _side().TorchDLRMModel(_model()[0].schema),
+    "torch_backend.SessionTransformerModel": lambda: _side().SessionTransformerModel(
+        mt.generate_data("sequence-testing", num_rows=8).schema),
+    "torch_backend.fit": lambda: _side_two_tower().fit(_side_data()[0], batch_size=16),
+    "torch_backend.evaluate_retrieval": lambda: _side_two_tower().evaluate_retrieval(
+        _side_data()[0]),
+    "torch_backend.to_top_k_recommender": lambda: _side_two_tower().to_top_k_recommender(
+        _side_data()[0]),
 }
 
 
@@ -266,6 +301,9 @@ def test_the_same_entry_points_run_when_asked_for_the_cpu():
     assert out["ids"].shape == (40, 3)
     s, i = ttopk.topk_scores(Q, C, 3, device="cpu")
     assert s.shape == (2, 3) and i.dtype == torch.int32
+    side_ds = _side_data()[0]
+    rec = _side_two_tower().to_top_k_recommender(side_ds, k=3, batch_size=16, device="cpu")
+    assert rec({"user_id": np.asarray([1, 2], np.int32)})[1].shape == (2, 3)
 
 
 def test_the_mesh_runs_on_the_cpu_only_over_gloo():

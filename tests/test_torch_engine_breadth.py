@@ -262,7 +262,7 @@ def test_multi_optimizer_matches_jax(selector, jax_bce):
     kinds = sorted(type(o).__name__ for o in tm._optimizer.optimizers.values())
     assert kinds == (["Adagrad", "Adam"] if selector == "regex" else ["Adam", "SGD"])
     with pytest.raises(ValueError, match="MultiOptimizer"):
-        tm.compile(optimizer=mt.MultiOptimizer(), optimizer_state_dtype="bfloat16")
+        tm.compile(optimizer=mt.MultiOptimizer("adam"), optimizer_state_dtype="bfloat16")
 
 
 def test_regex_sees_the_jax_state_paths():

@@ -128,19 +128,19 @@ def data(rows=STEPS * BATCH, seed=4, name="e-commerce"):
 F_IN = 12
 BLOCKS = {
     "gate": (lambda: jexperts.ExpertsGate(3, seed=2),
-             lambda: texperts.ExpertsGate(F_IN, 3, seed=2, device="cpu")),
+             lambda: texperts.ExpertsGate(3, seed=2, in_features=F_IN, device="cpu")),
     "mmoe": (lambda: jexperts.MMOEBlock(["a", "b"], (8, 6), num_experts=3),
-             lambda: texperts.MMOEBlock(["a", "b"], (8, 6), F_IN, num_experts=3, device="cpu")),
+             lambda: texperts.MMOEBlock(["a", "b"], (8, 6), in_features=F_IN, num_experts=3, device="cpu")),
     "cgc-final": (lambda: jexperts.CGCBlock(["a", "b"], (8,), num_task_experts=2,
                                             num_shared_experts=1, final_layer=True),
-                  lambda: texperts.CGCBlock(["a", "b"], (8,), F_IN, num_task_experts=2,
+                  lambda: texperts.CGCBlock(["a", "b"], (8,), in_features=F_IN, num_task_experts=2,
                                             num_shared_experts=1, final_layer=True,
                                             device="cpu")),
     "cgc-shared": (lambda: jexperts.CGCBlock(["a", "b", "c"], (8,), num_shared_experts=2),
-                   lambda: texperts.CGCBlock(["a", "b", "c"], (8,), F_IN,
+                   lambda: texperts.CGCBlock(["a", "b", "c"], (8,), in_features=F_IN,
                                              num_shared_experts=2, device="cpu")),
     "ple": (lambda: jexperts.PLEBlock(["a", "b"], (8, 6), num_layers=3, num_shared_experts=2),
-            lambda: texperts.PLEBlock(["a", "b"], (8, 6), F_IN, num_layers=3,
+            lambda: texperts.PLEBlock(["a", "b"], (8, 6), in_features=F_IN, num_layers=3,
                                       num_shared_experts=2, device="cpu")),
 }
 
@@ -202,7 +202,7 @@ def test_shared_output_is_read_by_no_head():
     body_out = tm.blocks[0](mt.core.types.to_device_batch(next(iter(mt.Loader(tds, 8)))[0],
                                                            "cpu"))
     assert sorted(body_out) == ["click", "conversion"]  # one layer: final
-    cgc = texperts.CGCBlock(["click", "conversion"], (8,), tm.blocks[0][0].out_features,
+    cgc = texperts.CGCBlock(["click", "conversion"], (8,), in_features=tm.blocks[0][0].out_features,
                             device="cpu")
     out = cgc(tm.blocks[0][0](mt.core.types.to_device_batch(
         next(iter(mt.Loader(tds, 8)))[0], "cpu")))

@@ -254,7 +254,7 @@ def test_xdeepfm_outer_product():
     x0, xp = rand(4, 5, 6), rand(4, 3, 6, seed=1)
     jc = JCIN(dim=7, seed=2)
     jout = jc((jnp.asarray(xp), jnp.asarray(x0)))
-    tc = XDeepFmOuterProduct(7, 3, 5, device="cpu")
+    tc = XDeepFmOuterProduct(7, num_prev=3, num_fields=5, device="cpu")
     mt.load_jax_params(tc, jax_flat(jc))
     close(tc((torch.from_numpy(xp), torch.from_numpy(x0))), jout)
 

@@ -190,5 +190,5 @@ def test_introspection_taps_and_adapters():
         np.asarray(jtb.TransformerInferenceHiddenState()(jsf)), atol=ATOL)
     assert ttb.TransformerInferenceHiddenState()(out, training=True) is out
     assert ttb.LastHiddenState()(out) is out
-    pooled = ttb.PoolerOutput(D, device="cpu")(out)
+    pooled = ttb.PoolerOutput(in_features=D, device="cpu")(out)
     assert pooled.shape == (B, D) and bool((pooled.abs() <= 1).all())
