@@ -5,11 +5,12 @@
 1. requires CUDA and prints the card's name and power limit;
 2. builds the port's CUDA kernels from ``models_tpu_torch/csrc`` (nvcc, sm_90a,
    one process per source, all at once) and prints their ptxas registers
-   (flash_ce's, streaming_topk's, row_scatter's and binned_rescore's per
-   kernel, with spills, shared memory and any wgmma serialization warning),
-   checks that ``flash_ce.DMAX`` is the
+   (flash_ce's, streaming_topk's, row_scatter's, binned_rescore's and
+   bin_max's per kernel, with spills, shared memory and any wgmma
+   serialization warning), checks that ``flash_ce.DMAX`` is the
    kernels' width limit, and prints how K6 launches at the path's shapes
-   (warps, ring stages, lists);
+   (warps, ring stages, lists) and how K4 does (query tile, row blocks,
+   splits of the bins, shared memory, reduction form);
 3. holds each kernel against its plain PyTorch version on the card: the top-k
    kernels at the shapes the serving path gives them, fp32 and bf16, with
    padding and planted ties, the streaming kernel also at k=256 and k=512,
@@ -53,12 +54,20 @@
    and 16M x 128 bf16 tables; the int8 forms: K5 (int8 x int8 -> int32) equal,
    also at D = 130 and on a misaligned catalog (the first design), K6 with
    int8 rows and per-row scales within the fp32 tolerance, with planted ties;
+   the binned phase A (K4, ``bin_max``) against its plain version
+   (``phase_bin_max``): 1M x 128 at B = 256, 1365 (the binned route's bound
+   at k = 10) and 8, fp32, bf16 and int8 with per-bin and per-row scales,
+   D = 130 with n_valid padding, D = 300, misaligned rows, bins of 40, 8
+   and 128 rows, one query row and a NaN query row: two calls bit-equal,
+   int8 bit-equal, fp32 and bf16 within ``tol_for``, the selected bins
+   equal outside near-ties;
 4. serves the two-tower model end to end at the bench's full width
    (movielens-25m schema, query_tower=(256, 128), embedding_dim=128, seeded
    random weights) over the whole 56,680-item catalog, fp32 and bf16
-   indexes: a 256-row request (the binned route, phase B in the rescore
-   kernel) and a 4096-row request (the streaming kernel), each held against
-   the plain route; then the int8 index: built on the card equal bit for bit
+   indexes: a 256-row request (the binned route, phase A in K4, phase B in
+   the rescore kernel) and a 4096-row request (the streaming kernel), each
+   held against the plain route, K4's launches equal to K5's on this and
+   every path that serves through the binned route; then the int8 index: built on the card equal bit for bit
    to a CPU build, 256 rows by the binned route with ids and scores equal to
    the CPU route's, 4096 rows through K6 int8 against the plain route; the
    launch counts of each run show which kernels it ran; then
@@ -66,7 +75,13 @@
    indexes) against the CPU route;
 5. times the requests (fp32, bf16, int8; host clock), their parts, the index
    builds and the top-k layer on the bench's 1M x 128 catalog at B = 256,
-   with K5 at that layer's own bins (L2 flushed, against its plain version);
+   phase A's split there (the plain route's widening copy, product,
+   ``amax`` and sort beside K4; the peak memory above the index, under
+   PHASE_A_PEAK_MAX), with K5 at that layer's own bins (L2 flushed, against
+   its plain version); ``topk_scores`` over 2**24 x 128 bf16 rows at B =
+   1024 (binned: peak above the index under TOPK_16M_PEAK_MAX, against
+   K6); K4 at the serving bins, timed beside its plain version and the
+   library's product + ``amax``;
 6. checks the training step at the same width: the fused loss (K1-K3) against
    the unfused head (materialised logits, cuBLAS fp32, autograd) at batch
    8192, loss and every parameter's gradient; three adagrad steps at batch
@@ -304,10 +319,13 @@
    PyTorch yardstick's (the bound at the peak of the fastest arithmetic
    that gives each product fp32's error: 3xTF32 for K1-K3 and K6 on fp32
    rows, 3xbf16 for K6 on bf16 and int8 rows, bf16 and 3xbf16 for K1-K3's
-   bf16 forms, or HBM3 bytes, named in ``bound_peak``; K1, K5 and K6 also with
-   the L2 flushed, ``ms_cold``; K5 also its profiler device time with the
-   catalog in L2, ``ms_warm``, since back to back its calls are timed at the
-   host's rate; K9 profiler device time warm and flushed, its launches those
+   bf16 forms, 3xTF32 and int8 for K4, or HBM3 bytes, named in
+   ``bound_peak``; K1, K4, K5 and K6 also with the L2 flushed, ``ms_cold``;
+   K4 and K5 also their profiler device time with the catalog in L2,
+   ``ms_warm``, since back to back their calls are timed at the host's
+   rate; K4 also its plan, its launches on the 1M x 128 layer
+   (``launches_topk_1M``) and the 2**24 x 128 bf16 case
+   (``topk_16M_bf16_B1024``); K9 profiler device time warm and flushed, its launches those
    its wrapper issued on the graph route's run, the pack's times under
    ``pack``; K1-K3 and K9 also ``launches_replayed_traced``, their kernels
    in the traces of the graph route's replays; K9 also the DLRM's graph
@@ -322,8 +340,9 @@
    ``launches_wd*``, ``launches_dynamic``, ``launches_pretrained``,
    ``launches_example17``, and their times there, ``wd_pack``, ``wd``,
    ``dynamic_slots``; K1-K3, K7, K8b and K9 the resumed fits',
-   ``launches_resume*``; K5 and K6 the served programs',
-   ``launches_exported_<index>_B<rows>``; K1-K3 and K9 the data plane's
+   ``launches_resume*``; K4, K5 and K6 the served programs',
+   ``launches_exported_<index>_B<rows>``, and the MF's, YouTube-DNN's, the
+   mesh's and the side backend's serves; K1-K3 and K9 the data plane's
    fits from files, ``launches_parquet_stream`` and
    ``launches_parquet_chunked``),
    then the card line
@@ -488,6 +507,12 @@ LOST_EVENTS_MAX = 2
 LEAD_IN_KERNELS = 4096
 FILLER_KERNEL = "CUDAFunctorOnSelf_add<double>"  # a float64 add: nothing traced runs one
 WINDOW_MARKER = "spin_kernel"  # torch.cuda._sleep's kernel: nothing traced launches it
+# the binned top-k's peak memory above the index at 1M x 128, B = 256: the
+# (B, L) maxima and their sort, never the (B, C) scores (1.02 GB there)
+PHASE_A_PEAK_MAX = 256e6
+# the same at 2**24 x 128 bf16, B = 1024: a quarter of the (B, C) fp32 scores
+# (68.7 GB) that phase A wrote before it had a kernel
+TOPK_16M_PEAK_MAX = 17.2e9
 # the bench's op-level embedding-optimizer tables (bench.py:40)
 OP_ROWS_FP32, OP_ROWS_BF16 = 4_000_000, 16_000_000
 
@@ -696,6 +721,26 @@ def check_topk(name, got, want, positions=None):
     return err
 
 
+def zero_topk_counts() -> None:
+    """The top-k kernels' launch counts (K4, K5, K6) set to 0."""
+    from models_tpu_torch.ops import topk as T
+
+    T.bin_max.launches = T.binned_rescore.launches = T.streaming_topk.launches = 0
+
+
+def topk_counts(what: str, suffix: str = "") -> dict:
+    """K4's, K5's and K6's launch counts since zero_topk_counts, by name (and
+    ``suffix``). Every call of the binned route runs phase A once and phase
+    B once: K4's count must equal K5's."""
+    from models_tpu_torch.ops import topk as T
+
+    counts = {"bin_max": T.bin_max.launches, "binned_rescore": T.binned_rescore.launches,
+              "streaming_topk": T.streaming_topk.launches}
+    require(counts["bin_max"] == counts["binned_rescore"],
+            f"{what}: K4 launched {counts['bin_max']} times, K5 {counts['binned_rescore']}")
+    return {name + suffix: n for name, n in counts.items()}
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -860,7 +905,8 @@ def build_model(dev):
 
 def phase_serving(dev, model, catalog, queries):
     """The main path: index, then serve requests of 256 rows (the binned
-    route, phase B in the rescore kernel) and 4096 rows (the streaming kernel)."""
+    route, phase A in K4, phase B in the rescore kernel) and 4096 rows (the
+    streaming kernel)."""
     from models_tpu_torch.ops import topk as T
 
     results, timing = {}, {}
@@ -876,12 +922,13 @@ def phase_serving(dev, model, catalog, queries):
         require(bf.candidates.shape == (56_704, 128) and bf.n_valid == CATALOG,
                 f"index shape {tuple(bf.candidates.shape)}, n_valid {bf.n_valid}")
         for B in (256, 4096):
-            before = T.streaming_topk.launches, T.binned_rescore.launches
+            before = T.streaming_topk.launches, T.binned_rescore.launches, T.bin_max.launches
             out = enc.predict(q_ds[B], batch_size=B, device=dev)
             ran_k6 = T.streaming_topk.launches > before[0]
             ran_k5 = T.binned_rescore.launches > before[1]
+            ran_k4 = T.bin_max.launches > before[2]
             require(ran_k6 == (B == 4096), f"B={B}: streaming kernel ran: {ran_k6}")
-            require(ran_k5 == (B == 256), f"B={B}: rescore kernel ran: {ran_k5}")
+            require(ran_k5 == ran_k4 == (B == 256), f"B={B}: K5, K4 ran: {ran_k5}, {ran_k4}")
             require(out["scores"].shape == (B, K) and out["ids"].shape == (B, K),
                     f"predict shapes {out['scores'].shape}")
             require(np.isfinite(out["scores"]).all(), "non-finite scores")
@@ -1045,6 +1092,7 @@ def phase_measure(dev, model, queries, results, launches, errs):
                   PEAK_3XTF32 if tag == "fp32" else PEAK_3XBF16, ms_cold=cold)
         full = bf.candidates  # 886 full bins, the padding in the last
         bs = 64
+        k4 = measure_bin_max(q256, full, n, launches["bin_max"], errs, tag)
         idx = T.select_bins(q256, full, K, n_valid=n)
         B, kb = idx.shape
         c3 = full.view(-1, bs, D)
@@ -1071,10 +1119,53 @@ def phase_measure(dev, model, queries, results, launches, errs):
         k5.update(rescore_design(q256, full, idx, bs))
         print(f"  {tag}: phase A selects kb={kb} bins per row, {n_bins} distinct", flush=True)
         if tag == "fp32":
-            rows = [k6, k5]
+            rows = [k6, k5, k4]
         else:
-            bf16 = {"streaming_topk": k6, "binned_rescore": k5}
+            bf16 = {"streaming_topk": k6, "binned_rescore": k5, "bin_max": k4}
     return rows, bf16
+
+
+def measure_bin_max(q, full, n_valid, launches, errs, tag, scale=None) -> dict:
+    """K4 on the inputs a 256-row request gives it (the query rows, the
+    index's full bins; the int8 index's per-bin scales): held against its
+    plain version, timed back to back (CUDA events) and with the L2 flushed
+    (profiler device time) beside the plain version and the library's
+    product + ``amax`` (cuBLAS fp32 on rows widened beforehand, or the
+    cuBLASLt int8 product). Bound: the product's operations at the peak of
+    the arithmetic that gives it its precision (3xTF32 fp32 rows, 3xbf16
+    bf16 rows, int8), or the bytes: the queries, the rows and the scales
+    read once, the (B, L) maxima written once. Returns its kernels row."""
+    from models_tpu_torch.ops import topk as T
+
+    per_bin = scale is not None
+    err = bin_max_case(f"serving {tag}", q, full, errs, scale=scale, per_bin=per_bin,
+                       n_valid=n_valid)
+    (B, D), bs = q.shape, 64
+    L = full.shape[0] // bs
+    k4 = lambda: T.bin_max(q, full, bs, scale, per_bin)  # noqa: E731
+    ms, cold = cuda_ms(k4), device_ms(k4, cold=True)
+    plain = cuda_ms(lambda: T.bin_max_plain(q, full, bs, scale, per_bin))
+    if full.dtype == torch.int8:
+        sc = T._bin_scales(scale, L, bs)[None]
+        lib = cuda_ms(lambda: T._int_scores(q, full).view(B, L, bs).amax(2).float() * sc)
+        peak, qbytes = (1979e12, "int8"), 1
+    else:
+        wide = full.float()
+        lib = cuda_ms(lambda: (q @ wide.T).view(B, L, bs).amax(2))
+        peak, qbytes = (PEAK_3XTF32 if full.dtype == torch.float32 else PEAK_3XBF16), 4
+    name = "bin_max_int8" if full.dtype == torch.int8 else "bin_max"
+    row = _row(name, "models_tpu_torch/csrc/bin_max.cu", "models_tpu/ops/topk.py:284",
+               launches, max(errs[name], err), ms, plain, lib, 2 * B * L * bs * D,
+               B * D * qbytes + L * bs * D * full.element_size() + B * L * 4
+               + (L * 4 if per_bin else 0), peak, ms_cold=cold)
+    # back to back, a call of some 0.05 ms is timed at the host's rate of
+    # calls: its device time (profiler) beside it
+    row["ms_warm"] = device_ms(k4)
+    row["plan"] = T.bin_max_plan(full.dtype, B, D, L, bs)
+    print(f"  bin_max {tag} at the serving shape B={B} L={L}: {ms:.4f} ms, warm "
+          f"{row['ms_warm']:.4f}, cold {cold:.4f}, plain {plain:.4f}, library {lib:.4f}, "
+          f"bound {row['bound_ms']:.4f}", flush=True)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2244,6 +2335,100 @@ def phase_int8_kernels(dev, gen, errs):
         print(f"  int8 binned route B={B} D=130 C={C}: card and CPU equal", flush=True)
 
 
+def bin_max_case(name, q, c, errs, bs=64, scale=None, per_bin=False, n_valid=None) -> float:
+    """K4 against its plain version on one case, printing its plan: the same
+    bits from two calls; int8 bit-equal, fp32 and bf16 within ``tol_for``
+    (NaN maxima where the plain version has them); the kb bins that
+    ``stable_topk`` then selects equal outside near-ties. Returns the
+    error."""
+    from models_tpu_torch.ops import topk as T
+
+    got = T.bin_max(q, c, bs, scale, per_bin)
+    again = T.bin_max(q, c, bs, scale, per_bin)
+    # the plain version on aligned copies: the cuBLASLt int8 product refuses
+    # operands off 16-byte alignment
+    want = T.bin_max_plain(q.clone(), c.clone(), bs, scale, per_bin)
+    torch.cuda.synchronize()
+    B, L = want.shape
+    require(got.shape == (B, L) and got.dtype == torch.float32, f"bin_max {name}: {got.shape}")
+    require(torch.equal(raw_bits(got), raw_bits(again)), f"bin_max {name}: two calls differ")
+    nan = torch.isnan(want)
+    require(torch.equal(torch.isnan(got), nan), f"bin_max {name}: NaN maxima differ")
+    kb = min(K + 2 + (1 if n_valid is not None and n_valid < L * bs else 0), L)
+    if c.dtype == torch.int8:
+        require(torch.equal(raw_bits(got), raw_bits(want)), f"bin_max int8 {name}: differs")
+        require(torch.equal(T.stable_topk(got, kb)[1], T.stable_topk(want, kb)[1]),
+                f"bin_max int8 {name}: selected bins differ")
+        err, tag, what = 0.0, "bin_max_int8", "equal"
+    else:
+        err = T.max_abs_err(got[~nan], want[~nan])
+        tol = tol_for(want[~nan])
+        require(err <= tol, f"bin_max {c.dtype} {name}: max|d| {err} (tol {tol})")
+        rows = ~nan.any(dim=1)
+        (gs, gi), (ws, wi) = T.stable_topk(got[rows], kb), T.stable_topk(want[rows], kb)
+        require(T.ids_agree(gs.cpu(), gi.cpu(), ws.cpu(), wi.cpu(), tol),
+                f"bin_max {c.dtype} {name}: selected bins differ outside near-ties")
+        tag, what = "bin_max", f"max|d| {err:.3g} (tol {tol:.3g}), bins agree"
+    errs[tag] = max(errs.get(tag, 0.0), err)
+    plan = T.bin_max_plan(c.dtype, B, q.shape[1], L, bs)
+    print(f"  bin_max {name} B={B} L={L} bs={bs} D={q.shape[1]} {c.dtype}"
+          f"{'' if scale is None else ' per-bin scale' if per_bin else ' per-row scale'}: "
+          f"{what}; plan {plan}", flush=True)
+    return err
+
+
+def phase_bin_max(dev, gen, errs):
+    """K4 against its plain version on the card: 1M x 128 at B = 256, 1365
+    (the binned route's bound at k = 10) and 8, fp32, bf16 and int8 with
+    per-bin and per-row scales; D = 130 (no 16-byte rows) with n_valid
+    padding; D = 300 (query rows streamed with the tiles); rows off 16-byte
+    alignment; bins of 40 and 8 rows (the reduction through shared memory)
+    and of 128 (two tiles a bin); one row and a NaN query row."""
+    from models_tpu_torch.ops import topk as T
+
+    C = 1_000_000
+    cand = torch.randn(C, 128, device=dev, generator=gen)
+    c8, sc_bin = quantized_catalog(dev, gen, C)
+    sc_row = torch.rand(C, device=dev, generator=gen) * 0.03 + 0.002
+    for B in (256, 1365, 8):
+        q = torch.randn(B, 128, device=dev, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            bin_max_case("1M", q, cand.to(dtype), errs)
+        q8, _ = T.quantize_queries(q)
+        bin_max_case("1M", q8, c8, errs, scale=sc_bin, per_bin=True)
+        bin_max_case("1M", q8, c8, errs, scale=sc_row)
+    del cand, c8, sc_bin, sc_row
+    # D = 130 with the padding an index carries; D = 300; misaligned rows
+    for D, shift, n_valid in ((130, False, 886 * 64 - 41), (300, False, None),
+                              (128, True, None)):
+        q = torch.randn(100, D, device=dev, generator=gen)
+        c = torch.randn(886 * 64, D, device=dev, generator=gen)
+        c8, scale = quantized_catalog(dev, gen, 886 * 64, D)
+        if n_valid is not None:
+            c[n_valid:] = 0
+            c8[n_valid:] = 0
+        q8, _ = T.quantize_queries(q)
+        place = misaligned if shift else (lambda x: x)
+        name = f"D={D}{' misaligned' if shift else ''} n_valid={n_valid}"
+        for dtype in (torch.float32, torch.bfloat16):
+            bin_max_case(name, place(q), place(c.to(dtype)), errs, n_valid=n_valid)
+        bin_max_case(name, place(q8), place(c8), errs, scale=scale, per_bin=True,
+                     n_valid=n_valid)
+        bin_max_case(name, place(q8), place(c8), errs, scale=scale, n_valid=n_valid)
+    # other bin sizes; one query row; a NaN query row
+    q = torch.randn(33, 128, device=dev, generator=gen)
+    c = torch.randn(64 * 300 + 5, 128, device=dev, generator=gen)
+    c8, scale = quantized_catalog(dev, gen, 64 * 300 + 5)
+    q8, _ = T.quantize_queries(q)
+    for bs in (40, 8, 128):
+        bin_max_case(f"bs={bs}", q, c, errs, bs=bs)
+        bin_max_case(f"bs={bs}", q8, c8, errs, bs=bs, scale=scale)
+    bin_max_case("B=1", q[:1].contiguous(), c.to(torch.bfloat16), errs)
+    q[3] = float("nan")
+    bin_max_case("a NaN query row", q, c, errs)
+    bin_max_case("a NaN query row, bs=40", q, c, errs, bs=40)
+
+
 # ---------------------------------------------------------------------------
 # the int8 index, evaluation
 # ---------------------------------------------------------------------------
@@ -2251,8 +2436,8 @@ def phase_int8_kernels(dev, gen, errs):
 
 def phase_serving_int8(dev, model, catalog, queries):
     """The int8 index of the catalog, built on the card and on the CPU from
-    the same embeddings, equal bit for bit; 256 rows by the binned route (K5
-    int8) on the card and the CPU from the same query embeddings, ids equal
+    the same embeddings, equal bit for bit; 256 rows by the binned route (K4
+    and K5 int8) on the card and the CPU from the same query embeddings, ids equal
     and scores bit-equal; 4096 rows through K6 int8, held against the plain
     route. Returns the encoder, the launch counts and the index build time."""
     from models_tpu_torch.core.types import to_device_batch
@@ -2260,7 +2445,7 @@ def phase_serving_int8(dev, model, catalog, queries):
     from models_tpu_torch.ops import topk as T
     from models_tpu_torch.outputs.topk import BruteForce
 
-    T.streaming_topk.launches = T.binned_rescore.launches = 0
+    zero_topk_counts()
     t = time.perf_counter()
     enc = model.to_top_k_encoder(catalog, k=K, batch_size=1024, candidate_dtype=torch.int8,
                                  device=dev)
@@ -2270,15 +2455,15 @@ def phase_serving_int8(dev, model, catalog, queries):
     require(bf.candidates.dtype == torch.int8 and bf.candidates.shape == (56_704, 128)
             and bf.n_valid == CATALOG and bf.scales_per_bin, "int8 index layout")
     for B in (256, 4096):
-        before = T.streaming_topk.launches, T.binned_rescore.launches
+        before = T.streaming_topk.launches, T.binned_rescore.launches, T.bin_max.launches
         out = enc.predict(queries.take(B), batch_size=B, device=dev)
-        ran = T.streaming_topk.launches > before[0], T.binned_rescore.launches > before[1]
-        require(ran == (B == 4096, B == 256), f"int8 B={B}: K6, K5 ran {ran}")
+        ran = (T.streaming_topk.launches > before[0], T.binned_rescore.launches > before[1],
+               T.bin_max.launches > before[2])
+        require(ran == (B == 4096, B == 256, B == 256), f"int8 B={B}: K6, K5, K4 ran {ran}")
         require(out["scores"].shape == (B, K) and np.isfinite(out["scores"]).all()
                 and ((out["ids"] >= 0) & (out["ids"] < CATALOG)).all(), f"int8 B={B} output")
     torch.cuda.synchronize()
-    launches = {"streaming_topk_int8": T.streaming_topk.launches,
-                "binned_rescore_int8": T.binned_rescore.launches}
+    launches = topk_counts("the int8 serving path", "_int8")
     print(f"  int8 index built in {build_ms:.1f} ms, launches {launches}", flush=True)
 
     emb = model.candidate_embeddings(catalog, batch_size=1024, device=dev)
@@ -2445,8 +2630,10 @@ def evaluate_times(dev, model, data, catalog):
 
 def topk_1m_times(dev, gen, errs):
     """The top-k layer on the bench's 1M x 128 catalog (``bench.py:730-815``),
-    B = 256, k = 10, fp32, bf16 and int8 indexes: CUDA events, back to back;
-    and K5 at the bins the layer's phase A selects (kb = 12 of 15,625 bins:
+    B = 256, k = 10, fp32, bf16 and int8 indexes: CUDA events, back to back,
+    K4 and K5 counted there (once each a call); phase A's split
+    (``phase_a_split``), its peak memory above the index under
+    PHASE_A_PEAK_MAX; and K5 at the bins the layer's phase A selects (kb = 12 of 15,625 bins:
     most distinct, some 100 MB of fp32 rows, past the 50 MB L2), with the L2
     flushed before each call (profiler device time), against its plain
     version, with its bound (the distinct bins once)."""
@@ -2458,7 +2645,16 @@ def topk_1m_times(dev, gen, errs):
     out = {}
     for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.int8)):
         bf = BruteForce(K).index(cand, dtype=dtype, device=dev)
+        zero_topk_counts()
         out[f"topk_1M_{tag}_B256_ms"] = cuda_ms(lambda: bf(q))
+        torch.cuda.synchronize()
+        out[f"launches_1M_{tag}"] = topk_counts(f"top-k on 1M x 128 {tag}")
+        require(out[f"launches_1M_{tag}"]["bin_max"] == 12,
+                f"1M x 128 {tag}: {out[f'launches_1M_{tag}']} in 12 calls")
+        split = out[f"phase_a_1M_{tag}"] = phase_a_split(q, bf)
+        require(split["layer_peak_bytes"] < PHASE_A_PEAK_MAX,
+                f"1M x 128 {tag}: the layer's peak above the index "
+                f"{split['layer_peak_bytes']} bytes")
         full, n = bf.candidates, bf.n_valid
         if dtype == torch.int8:
             qk, _ = T.quantize_queries(q)
@@ -2484,6 +2680,112 @@ def topk_1m_times(dev, gen, errs):
         del bf
     del cand
     torch.cuda.empty_cache()
+    return out
+
+
+def topk_16m_memory(dev, gen) -> dict:
+    """``topk_scores`` over 2**24 x 128 bf16 rows (a 4.3 GB index) at B =
+    1024, k = 10: the route is binned, and phase A writes only the (B, L)
+    maxima (1.07 GB) where the (B, C) fp32 scores would take 68.7 GB. Its
+    peak memory above the index (under TOPK_16M_PEAK_MAX), K4 and K5 once
+    each, the result against K6 (``streaming_topk``) on the same inputs
+    under ``ids_agree``; K4 alone and the call timed (CUDA events)."""
+    from models_tpu_torch.ops import topk as T
+
+    C, D, B = 2**24, 128, 1024
+    cand = torch.empty(C, D, device=dev, dtype=torch.bfloat16).normal_(generator=gen)
+    q = torch.randn(B, D, device=dev, generator=gen)
+    require(T.topk_route(B, C, D, K, on_cuda=True) == "binned", "2**24 x 128: not binned")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_topk_counts()
+    s, i = T.topk_scores(q, cand, K, device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = topk_counts("top-k over 2**24 x 128 bf16")
+    require(launches["bin_max"] == 1 and launches["streaming_topk"] == 0,
+            f"2**24 x 128 bf16: launches {launches}")
+    require(peak < TOPK_16M_PEAK_MAX, f"2**24 x 128 bf16 at B={B}: peak {peak} bytes "
+            "above the index")
+    s6, i6 = T.streaming_topk(q, cand, K)
+    torch.cuda.synchronize()
+    check_topk(f"topk_scores over 2**24 x 128 bf16 B={B}, binned (K4, K5) vs K6", (s, i),
+               (s6, i6))
+    out = {"peak_bytes_above_index": peak, "index_bytes": C * D * 2,
+           "bin_max_ms": cuda_ms(lambda: T.bin_max(q, cand), reps=3, warmup=1),
+           "topk_scores_ms": cuda_ms(lambda: T.topk_scores(q, cand, K, device=dev), reps=3,
+                                     warmup=1),
+           "streaming_topk_ms": cuda_ms(lambda: T.streaming_topk(q, cand, K), reps=3,
+                                        warmup=1),
+           "bin_max_plan": T.bin_max_plan(torch.bfloat16, B, D, C // 64)}
+    print("  top-k over 2**24 x 128 bf16 at B=1024: " + json.dumps(out), flush=True)
+    del cand
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_a_split(q, bf) -> dict:
+    """Phase A of the binned top-k over one index of the 1M x 128 catalog at
+    B = q.shape[0], k = K, split into its parts as the plain route runs them
+    (CUDA events, back to back): the bf16 rows widened to fp32
+    (``widen_ms``), the (B, C) product (``product_ms``: cuBLAS fp32, or the
+    cuBLASLt int8 product), each 64-row bin's max with the int8 index's
+    per-bin scale (``amax_ms``) and the stable sort of the (B, L) maxima
+    that picks the kb bins (``sort_ms``, with its peak memory and its share
+    of ``select_bins``' time and memory, ``sort_share``); K4 in their place
+    (``bin_max_ms``, and its plain version, ``bin_max_plain_ms``: the parts
+    before the sort); then ``select_bins`` as the port takes it (K4 and the
+    sort, ``select_bins_ms``) and the layer's call (``layer_ms``), each
+    with its peak memory above what was allocated before it (the index and
+    the queries): ``torch.cuda.max_memory_allocated`` after
+    ``reset_peak_memory_stats``."""
+    from models_tpu_torch.ops import topk as T
+
+    full, n = bf.candidates, bf.n_valid
+    B, bs = q.shape[0], 64
+    L = full.shape[0] // bs
+    is_int = full.dtype == torch.int8
+    qk = T.quantize_queries(q)[0] if is_int else q
+    args = dict(n_valid=n, col_scale=bf.scales, col_scale_per_bin=bf.scales_per_bin)
+    out = {"B": B, "L": L}
+    wide = full
+    if full.dtype == torch.bfloat16:
+        out["widen_ms"] = cuda_ms(lambda: full.to(torch.float32))
+        wide = full.to(torch.float32)
+    product = (lambda: T._int_scores(qk, full)) if is_int else (lambda: qk @ wide.T)
+    out["product_ms"] = cuda_ms(product)
+    raw = product().view(B, L, bs)
+
+    def amax():
+        if is_int:
+            return raw.amax(dim=2).to(torch.float32) * T._bin_scales(bf.scales, L, bs)[None]
+        return raw.amax(dim=2)
+
+    out["amax_ms"] = cuda_ms(amax)
+    bin_max = amax()
+    kb = min(K + 2 + (1 if n < L * bs else 0), L)
+    del wide, raw
+    out["bin_max_ms"] = cuda_ms(lambda: T.bin_max(qk, full, bs, bf.scales, bf.scales_per_bin))
+    out["bin_max_plain_ms"] = cuda_ms(
+        lambda: T.bin_max_plain(qk, full, bs, bf.scales, bf.scales_per_bin))
+    for name, fn in (("sort", lambda: T.stable_topk(bin_max, kb)),
+                     ("select_bins", lambda: T.select_bins(qk, full, K, **args)),
+                     ("layer", lambda: bf(q))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        out[f"{name}_ms"] = cuda_ms(fn)
+    # the (B, L) selection, outside any kernel, in select_bins
+    out["sort_share"] = {"time": out["sort_ms"] / out["select_bins_ms"],
+                         "memory": out["sort_peak_bytes"] / out["select_bins_peak_bytes"]}
+    print(f"  phase A {full.dtype} B={B}: the sort of (B, L) takes {out['sort_share']} of "
+          "select_bins' time and peak memory", flush=True)
     return out
 
 
@@ -2599,6 +2901,7 @@ def measure_int8(dev, enc, q4096, launches, errs):
               B * D * 4 + n * D + n * 8 + B * K * 8, PEAK_3XBF16, ms_cold=cold)
     q8, _ = T.quantize_queries(q4096[:256].contiguous())
     full, bs = bf.candidates, 64
+    k4 = measure_bin_max(q8, full, n, launches["bin_max_int8"], errs, "int8", scale=bf.scales)
     idx = T.select_bins(q8, full, K, n_valid=n, col_scale=bf.scales, col_scale_per_bin=True)
     B, kb = idx.shape
     c3 = full.view(-1, bs, D)
@@ -2617,7 +2920,7 @@ def measure_int8(dev, enc, q4096, launches, errs):
     k5["ms_warm"] = device_ms(lambda: T.binned_rescore(q8, full, idx, bs))
     k5.update(rescore_design(q8, full, idx, bs))
     print(f"  int8: phase A selects kb={kb} bins per row, {n_bins} distinct", flush=True)
-    return [k6, k5]
+    return [k6, k5, k4]
 
 
 # ---------------------------------------------------------------------------
@@ -4248,7 +4551,8 @@ def serve_tied(dev, model, queries, what, sizes) -> dict:
     dispatch gives its shape (``topk_route``: binned, phase B in K5, while
     the binned pool holds; else streaming, K6) and against the plain route
     on the same query rows and index; the request's host-clock time. Both
-    kernels must serve. Returns the numbers and K5's and K6's launches."""
+    routes must serve, K4 once with each K5. Returns the numbers and K4's,
+    K5's and K6's launches."""
     from models_tpu_torch.core.types import ModelContext, to_device_batch
     from models_tpu_torch.data import Loader
     from models_tpu_torch.ops import topk as T
@@ -4260,7 +4564,7 @@ def serve_tied(dev, model, queries, what, sizes) -> dict:
     catalog = model.contrastive_output.table.input_dim
     require(bf.n_valid == catalog, f"{what}: index of {bf.n_valid} rows, want {catalog}")
     out = {"index_ms": (time.perf_counter() - t) * 1e3, "catalog": list(bf.candidates.shape)}
-    T.streaming_topk.launches = T.binned_rescore.launches = 0
+    zero_topk_counts()
     for B in sizes:
         ds = queries.take(B)
         route = T.topk_route(B, bf.candidates.shape[0], bf.candidates.shape[1], K, on_cuda=True)
@@ -4277,8 +4581,7 @@ def serve_tied(dev, model, queries, what, sizes) -> dict:
         check_topk(f"{what} serve B={B} vs plain",
                    (torch.as_tensor(got["scores"]), torch.as_tensor(got["ids"])), want)
     torch.cuda.synchronize()
-    launches = {"binned_rescore": T.binned_rescore.launches,
-                "streaming_topk": T.streaming_topk.launches}
+    launches = topk_counts(f"{what} serving")
     require(all(launches.values()), f"{what}: the requests launched {launches}")
     for B in sizes:
         ds = queries.take(B)
@@ -5449,7 +5752,7 @@ SERVE_REPS = 20  # calls a latency is the median of
 PERSIST_DIR = os.path.join(ROOT, "build", "phase21")
 
 # the exported programs, served in a fresh process that builds no model:
-# each program's outputs, the K5 and K6 launches its run counted, the
+# each program's outputs, the K4, K5 and K6 launches its run counted, the
 # models_tpu_torch operators it holds and its latency (host clock and CUDA
 # events, median of SERVE_REPS calls from host arrays)
 SERVE_CODE = r"""
@@ -5465,10 +5768,10 @@ for job in json.loads(sys.argv[1]):
     model = mt.load_serving(job["path"])
     with np.load(job["request"]) as z:
         x = {k: z[k] for k in z.files}
-    T.binned_rescore.launches = T.streaming_topk.launches = 0
+    T.bin_max.launches = T.binned_rescore.launches = T.streaming_topk.launches = 0
     got = model(x)
     torch.cuda.synchronize()
-    launches = {"binned_rescore": T.binned_rescore.launches,
+    launches = {"bin_max": T.bin_max.launches, "binned_rescore": T.binned_rescore.launches,
                 "streaming_topk": T.streaming_topk.launches}
     got = got if isinstance(got, dict) else {"": got}
     np.savez(job["out"], **{k: v.cpu().numpy() for k, v in got.items()})
@@ -5637,8 +5940,14 @@ def export_trained(dev, model, data, rows: int = 1024) -> None:
           f"the CPU's within {err:.3g}", flush=True)
 
 
+def served_kernels(name: str) -> list:
+    """The kernels an exported top-k program of phase 21 holds: K4 and K5 at
+    256 rows (the binned route), K6 at 4096 (the streaming route)."""
+    return ["bin_max", "binned_rescore"] if name.endswith("B256") else ["streaming_topk"]
+
+
 def check_ops_entry(dev, index, queries) -> dict:
-    """K5 and K6 through their custom-op entries (``torch.ops.
+    """K4, K5 and K6 through their custom-op entries (``torch.ops.
     models_tpu_torch``), against the wrappers (bit for bit) and the plain
     versions (the top-k tolerance), on the fp32 index at the serving
     shapes."""
@@ -5646,6 +5955,13 @@ def check_ops_entry(dev, index, queries) -> dict:
 
     q = queries.contiguous()
     n = index.n_valid
+    op4 = torch.ops.models_tpu_torch.bin_max(q[:256], index.candidates, 64, None, False)
+    wrap4 = T.bin_max(q[:256], index.candidates)
+    plain4 = T.bin_max_plain(q[:256], index.candidates, 64)
+    torch.cuda.synchronize()
+    require(torch.equal(raw_bits(op4), raw_bits(wrap4)), "bin_max's op differs from its wrapper")
+    err4 = T.max_abs_err(op4, plain4)
+    require(err4 <= tol_for(plain4), f"bin_max through its op: max|d| {err4}")
     idx = T.select_bins(q[:256], index.candidates, K, n_valid=n)
     op5 = torch.ops.models_tpu_torch.binned_rescore(q[:256], index.candidates, idx, 64)
     wrap5 = T.binned_rescore(q[:256], index.candidates, idx, 64)
@@ -5659,9 +5975,9 @@ def check_ops_entry(dev, index, queries) -> dict:
     err5 = T.max_abs_err(op5, plain5)
     require(err5 <= tol_for(plain5), f"binned_rescore through its op: max|d| {err5}")
     check_topk("streaming_topk through its op", (s6, i6), (ps, pi))
-    print(f"  (c) K5, K6 through torch.ops.models_tpu_torch: equal to the wrappers, K5 max|d| "
-          f"{err5:.3g} against its plain version", flush=True)
-    return {"binned_rescore": err5, "streaming_topk": T.max_abs_err(s6, ps)}
+    print(f"  (c) K4, K5, K6 through torch.ops.models_tpu_torch: equal to the wrappers, K4 "
+          f"max|d| {err4:.3g}, K5 {err5:.3g} against their plain versions", flush=True)
+    return {"bin_max": err4, "binned_rescore": err5, "streaming_topk": T.max_abs_err(s6, ps)}
 
 
 def phase_persistence(dev, card, errs):
@@ -5811,11 +6127,13 @@ def phase_persistence(dev, card, errs):
             print(f"  (d) {name}: served within {err:.3g} of predict; {latency[name]}",
                   flush=True)
             continue
-        kernel = "binned_rescore" if name.endswith("B256") else "streaming_topk"
-        require(served["ops"] == [f"models_tpu_torch.{kernel}.default"],
+        held = served_kernels(name)
+        require(served["ops"] == [f"models_tpu_torch.{k}.default" for k in held],
                 f"{name}: the program holds {served['ops']}")
-        require(served["launches"][kernel] > 0, f"{name}: the loaded program never launched "
-                f"{kernel}: {served['launches']}")
+        require(all(served["launches"][k] > 0 for k in held),
+                f"{name}: the loaded program never launched {held}: {served['launches']}")
+        require(served["launches"]["bin_max"] == served["launches"]["binned_rescore"],
+                f"{name}: K4 and K5 launched {served['launches']}")
         require(np.array_equal(got["scores"], want[name]["scores"])
                 and np.array_equal(got["ids"], want[name]["ids"]),
                 f"{name}: served scores or ids differ from predict's")
@@ -5824,8 +6142,8 @@ def phase_persistence(dev, card, errs):
     out.update(export_s=export_s, latency=latency, served_launches=launches)
     for name, n in launches.items():  # on the kernel's fp32 row, by index and batch
         if name.startswith("topk"):
-            kernel = "binned_rescore" if name.endswith("B256") else "streaming_topk"
-            rows.setdefault(kernel, {})["launches_exported_" + name[len("topk_"):]] = n[kernel]
+            for kernel in served_kernels(name):
+                rows.setdefault(kernel, {})[f"launches_exported_{name[len('topk_'):]}"] = n[kernel]
     shutil.rmtree(PERSIST_DIR, ignore_errors=True)
     print(card, flush=True)
     return out, rows
@@ -5866,8 +6184,8 @@ def mesh_counters() -> dict:
 
     return {"lse_forward": F.lse_forward, "grad_query": F.grad_query, "grad_neg": F.grad_neg,
             "row_gather": E.row_gather, "row_scatter_add": S.row_scatter_add,
-            "row_scatter_write": S.row_scatter_write, "binned_rescore": T.binned_rescore,
-            "streaming_topk": T.streaming_topk}
+            "row_scatter_write": S.row_scatter_write, "bin_max": T.bin_max,
+            "binned_rescore": T.binned_rescore, "streaming_topk": T.streaming_topk}
 
 
 def zero_mesh_counts() -> None:
@@ -6053,8 +6371,8 @@ def mesh_topk(dev, mesh, check: bool) -> dict:
     """The 1M x 128 catalog split by rows over {1, 4}, fp32, bf16 and int8
     indexes (each a rank's 250,000 rows; the int8 index takes one scale a
     row, 1M rows not being whole bins a shard): 256 queries (K5) and 4096
-    (K6), launches counted; then, with ``check``, K5 and K6 at the shard's
-    shapes against their plain versions."""
+    (K6), launches counted; then, with ``check``, K4, K5 and K6 at the
+    shard's shapes against their plain versions."""
     from models_tpu_torch.ops import topk as T
     from models_tpu_torch.outputs.topk import BruteForce
 
@@ -6074,6 +6392,8 @@ def mesh_topk(dev, mesh, check: bool) -> dict:
             shard, scales = layer.candidates, layer.scales
             full = shard[: shard.shape[0] // 64 * 64]  # the shard's whole bins
             qk = T.quantize_queries(q[:256])[0] if dtype == torch.int8 else q[:256]
+            bin_max_case(f"mesh shard {tag}", qk, full, {},
+                         scale=None if scales is None else scales[: full.shape[0]])
             idx = T.select_bins(qk, full, K, col_scale=scales)
             rescore_case(dev, qk, full, idx, f"mesh shard {tag}", {})
             check_topk(f"streaming_topk, mesh shard {tag}",
@@ -6265,8 +6585,10 @@ def phase_mesh(dev, card) -> tuple:
     for name in ("lse_forward", "grad_query", "grad_neg"):
         require(one["launches_fit"][name] == MESH_STEPS, f"22a: {name} launched "
                 f"{one['launches_fit'][name]} times in {MESH_STEPS} steps")
-    for name in ("row_gather", "row_scatter_add", "binned_rescore", "streaming_topk"):
+    for name in ("row_gather", "row_scatter_add", "bin_max", "binned_rescore", "streaming_topk"):
         require(one["launches_ops"][name] > 0, f"22a: the sharded ops never launched {name}")
+    require(one["launches_ops"]["bin_max"] == one["launches_ops"]["binned_rescore"],
+            f"22a: K4 and K5 launched {one['launches_ops']}")
     print(f"  22a: sharded ops on a model axis of one, launches {one['launches_ops']}",
           flush=True)
     nccl = {"ok": all(p.get("ok") for p in probe),
@@ -6338,9 +6660,11 @@ def phase_mesh(dev, card) -> tuple:
                     check_topk(f"sharded top-k {key}, rank {rank}",
                                out["topk"]["results"][key], topk_refs[key])
         for rank, out in enumerate(ranks):
-            for name in ("binned_rescore", "streaming_topk"):
-                require(out["topk"]["launches"][tag][name] > 0,
-                        f"sharded top-k {tag}, rank {rank}: never launched {name}")
+            ln = out["topk"]["launches"][tag]
+            for name in ("bin_max", "binned_rescore", "streaming_topk"):
+                require(ln[name] > 0, f"sharded top-k {tag}, rank {rank}: never launched {name}")
+            require(ln["bin_max"] == ln["binned_rescore"],
+                    f"sharded top-k {tag}, rank {rank}: K4 and K5 launched {ln}")
     summary["topk_launches_per_rank"] = [o["topk"]["launches"] for o in ranks]
     summary["phase_s"] = time.perf_counter() - t0
     rows = {}
@@ -7155,8 +7479,10 @@ def phase_side(dev, card) -> tuple:
                                         batch_size=TRAIN_BATCH, device=dev)
     torch.cuda.synchronize()
     launches = mesh_counts()
-    for name in ("binned_rescore", "streaming_topk"):
+    for name in ("bin_max", "binned_rescore", "streaming_topk"):
         require(launches[name] >= 1, f"the side two-tower path never launched {name}")
+    require(launches["bin_max"] == launches["binned_rescore"],
+            f"the side two-tower path: K4 and K5 launched {launches}")
     print(f"  side two-tower path launches {launches}", flush=True)
 
     cpu_hist = cpu_m.fit(train, epochs=2, batch_size=TRAIN_BATCH, device=cpu)
@@ -7187,7 +7513,8 @@ def phase_side(dev, card) -> tuple:
                 f"tol {tol:.3g})")
         eval_agree.append(float((gi == wi).float().mean()))
     checked = mesh_counts()
-    require(checked["streaming_topk"] == len(eval_agree) and checked["binned_rescore"] == 0,
+    require(checked["streaming_topk"] == len(eval_agree)
+            and checked["binned_rescore"] == checked["bin_max"] == 0,
             f"the 8192-row batches took another route than K6: {checked}")
     out["eval_batches_ids_equal_share"] = eval_agree
     cpu_metrics = served_cpu.evaluate_retrieval(evalset, candidate_data=catalog, k=K,
@@ -7317,7 +7644,7 @@ def main() -> int:
         print(f"  {name}: {regs}", flush=True)
     # the tensor-core kernels in full: each kernel's registers, static shared
     # memory and spills
-    for name in ("flash_ce", "streaming_topk", "row_scatter", "binned_rescore"):
+    for name in ("flash_ce", "streaming_topk", "row_scatter", "binned_rescore", "bin_max"):
         for ln in kernels.build_logs.get(name, "").splitlines():
             if ("entry function" in ln or "Used" in ln or "spill" in ln
                     or "wgmma" in ln or "warning" in ln.lower()):
@@ -7338,6 +7665,11 @@ def main() -> int:
                         (torch.float32, 8, 5000)):
         print(f"    streaming_topk launch at B={B} C={CATALOG} D=128 k={k} {dtype}: "
               f"{T.streaming_plan(dtype, B, 128, CATALOG, k)}", flush=True)
+    for dtype, B, L in ((torch.float32, 256, 886), (torch.bfloat16, 256, 886),
+                        (torch.int8, 256, 886), (torch.float32, 256, 15_625),
+                        (torch.int8, 256, 15_625), (torch.bfloat16, 1024, 2**18)):
+        print(f"    bin_max (K4) launch at B={B} L={L} bins of 64 D=128 {dtype}: "
+              f"{T.bin_max_plan(dtype, B, 128, L)}", flush=True)
 
     stamp("phase 1: kernels against their plain versions")
     errs = phase_kernels(dev, gen)
@@ -7347,16 +7679,15 @@ def main() -> int:
     phase_row_scatter(dev, gen, errs)
     phase_gather(dev, gen, errs)
     phase_int8_kernels(dev, gen, errs)
+    phase_bin_max(dev, gen, errs)
 
     stamp("phase 2: serving")
     model, catalog, queries = build_model(dev)
-    T.streaming_topk.launches = 0
-    T.binned_rescore.launches = 0
+    zero_topk_counts()
     t = time.perf_counter()
     results, timing = phase_serving(dev, model, catalog, queries)
     torch.cuda.synchronize()
-    launches = {"streaming_topk": T.streaming_topk.launches,
-                "binned_rescore": T.binned_rescore.launches}
+    launches = topk_counts("the fp32 and bf16 serving path")
     print(f"  served in {time.perf_counter() - t:.1f} s, launches {launches}", flush=True)
     for name, n in launches.items():
         require(n > 0, f"the serving path never launched {name}")
@@ -7384,8 +7715,14 @@ def main() -> int:
             lambda: enc8.predict(ds, batch_size=B, device=dev))
     timing.update(serving_breakdown(dev, model, queries, results))
     timing.update(topk_1m_times(dev, gen, errs))
+    timing["topk_16M_bf16_B1024"] = topk_16m_memory(dev, gen)
     print("serving " + json.dumps(timing), flush=True)
     rows, bf16 = phase_measure(dev, model, queries, results, launches, errs)
+    for row in rows:  # K4 on the 1M x 128 and 2**24 x 128 layers
+        if row["name"] == "bin_max":
+            row["launches_topk_1M"] = {tag: timing[f"launches_1M_{tag}"]["bin_max"]
+                                       for tag in ("fp32", "bf16", "int8")}
+            row["topk_16M_bf16_B1024"] = timing["topk_16M_bf16_B1024"]
     print("bf16 index " + json.dumps(bf16), flush=True)
     int8_rows = measure_int8(dev, enc8, q4096, int8_launches, errs)
     del enc8
@@ -7540,7 +7877,7 @@ def main() -> int:
                        launches_youtube_dnn=rl["youtube_dnn"][name],
                        mf=shapes["mf"][name], youtube_dnn=shapes["youtube_dnn"][name])
             row["max_abs_err"] = errs[name]
-        elif name in ("streaming_topk", "binned_rescore"):
+        elif name in ("streaming_topk", "binned_rescore", "bin_max"):
             row.update(launches_mf_serving=rl["mf_serving"][name],
                        launches_youtube_dnn_serving=rl["youtube_dnn_serving"][name])
         elif name in ("row_scatter_add", "row_scatter_write"):

@@ -114,17 +114,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 // the bin-major form
 // ---------------------------------------------------------------------------
 
-// c += a * b on int8 operands into int32, exact: mma.sync.m16n8k32 (lane =
-// 4 g + t, four int8 a register): A (16 x 32) a0 (g, 4t..), a1 (g + 8, 4t..),
-// a2 (g, 4t + 16..), a3 (g + 8, 4t + 16..); B (32 x 8, k x n) b0 (4t.., g),
-// b1 (4t + 16.., g); C as m16n8k8's
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // An item's scores on the tensor cores, for one warp: the 16 x 8 product of
 // the item's query rows (A: pairs g < m in rows 0..7, rows 8..15 zero) with
 // the warp's 8 rows of the bin (B), over the row's depth. mma_tf32.cuh's

@@ -1,6 +1,7 @@
-// Helpers shared by the tensor-core kernels of flash_ce.cu (K1-K3) and
-// streaming_topk.cu (K6): asynchronous copies into shared memory, the 3xTF32
-// split of an fp32 operand, mma.sync.m16n8k8 in TF32 and m16n8k16 in bf16.
+// Helpers shared by the tensor-core kernels of flash_ce.cu (K1-K3),
+// streaming_topk.cu (K6), binned_rescore.cu (K5) and bin_max.cu (K4):
+// asynchronous copies into shared memory, the 3xTF32 split of an fp32
+// operand, mma.sync.m16n8k8 in TF32, m16n8k16 in bf16 and m16n8k32 in int8.
 //
 // Fragments of m16n8k8 (lane = 4 g + t): A (16 x 8) a0 (g, t), a1 (g + 8, t),
 // a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8, k x n) b0 (t, g), b1 (t + 4, g);
@@ -126,4 +127,15 @@ __device__ __forceinline__ void mma_2xtf32(float c[4], const uint32_t a_big[4],
                                            const uint32_t a_small[4], const uint32_t b[2]) {
   mma_tf32(c, a_small, b);
   mma_tf32(c, a_big, b);
+}
+
+// c += a * b on int8 operands into int32, exact: mma.sync.m16n8k32 (lane =
+// 4 g + t, four int8 a register): A (16 x 32) a0 (g, 4t..), a1 (g + 8, 4t..),
+// a2 (g, 4t + 16..), a3 (g + 8, 4t + 16..); B (32 x 8, k x n) b0 (4t.., g),
+// b1 (4t + 16.., g); C as m16n8k8's
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }

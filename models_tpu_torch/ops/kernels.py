@@ -25,7 +25,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "models_tpu_torch"
-SOURCES = ("streaming_topk", "binned_rescore", "flash_ce", "row_scatter", "row_gather")
+SOURCES = ("streaming_topk", "binned_rescore", "bin_max", "flash_ce", "row_scatter",
+           "row_gather")
 HOST = CSRC / "host"
 HOST_SOURCES = ("parquet_codec", "fastbatch")
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]

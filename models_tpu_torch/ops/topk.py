@@ -4,8 +4,9 @@ Routes, picked by :func:`topk_route` as the JAX ``topk_scores`` picks them:
 
 - ``direct``: one product and one selection, for a catalog of at most one tile;
 - ``binned``: the two-phase exact top-k. Phase A scores every candidate and
-  keeps each 64-row bin's max (a plain product, as the JAX package leaves it
-  to XLA); phase B rescores only the rows of the best ``k + margin`` bins
+  keeps each 64-row bin's max through :func:`bin_max` (K4, the fusion XLA
+  makes of the JAX package's phase A: the (B, C) scores are never written),
+  then picks the best ``k + margin`` bins; phase B rescores only their rows
   through :func:`binned_rescore` (the kernel replacing K5);
 - ``streaming``: the CUDA kernel :func:`streaming_topk` (replacing K6), for
   query batches whose binned pool would be too large, when the tensors lie on
@@ -22,15 +23,17 @@ float32 minimum, not ``-inf``.
 int8 catalogs (the bin-quantized index, ``outputs/topk.py``) come with
 ``col_scale``, one fp32 dequantization scale per row, and each route keeps
 the JAX package's own scoring: the binned route quantizes the queries per row
-to int8 and scores in exact int32 (phase A a cuBLASLt int8 product,
-``torch._int_mm``; phase B :func:`binned_rescore`'s int8 form), scaling each
+to int8 and scores in exact int32 (phase A :func:`bin_max`'s int8 form;
+phase B :func:`binned_rescore`'s; the tail and the direct route a cuBLASLt
+int8 product, ``torch._int_mm``), scaling each
 bin's max or each pooled score by its row's scale and the final (B, k) by the
 query's; the direct, streaming and blockwise routes score fp32 queries
 against the int8 rows widened to fp32, times the row's scale.
 
 A kernel wrapper takes its plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises. K5 and K6 are
-``torch.library`` custom ops, ``models_tpu_torch::binned_rescore`` and
+CUDA tensors it launches the kernel or raises. K4, K5 and K6 are
+``torch.library`` custom ops, ``models_tpu_torch::bin_max``,
+``models_tpu_torch::binned_rescore`` and
 ``models_tpu_torch::streaming_topk``: each has a fake implementation (its
 outputs' shapes and dtypes), a CPU one (the plain version) and a CUDA one
 (the launch, which counts it), so that a program traced by
@@ -477,6 +480,132 @@ def _binned_rescore_cuda(queries, candidates, bin_idx, bin_size):
 
 
 # ---------------------------------------------------------------------------
+# K4: binned phase-A bin maxima
+# ---------------------------------------------------------------------------
+
+
+def _bin_scales(col_scale: torch.Tensor, L: int, bin_size: int) -> torch.Tensor:
+    """(L,) the scale of each full bin, read from its first row."""
+    return col_scale[: L * bin_size].view(L, bin_size)[:, 0]
+
+
+def bin_max_plain(queries: torch.Tensor, candidates: torch.Tensor, bin_size: int,
+                  scale: Optional[torch.Tensor] = None, per_bin: bool = False) -> torch.Tensor:
+    """Plain version of :func:`bin_max`: the (B, C) product (fp32, the bf16
+    rows widened; int8 x int8 into exact int32), viewed as (B, L, bin_size),
+    and each bin's max, scaled as the JAX package's phase A scales it."""
+    B = queries.shape[0]
+    L = candidates.shape[0] // bin_size
+    full = candidates[: L * bin_size]
+    raw = _int_scores(queries, full) if full.dtype == torch.int8 else _scores(queries, full)
+    raw = raw.view(B, L, bin_size)
+    if scale is not None and per_bin:
+        return raw.amax(dim=2).to(torch.float32) * _bin_scales(scale, L, bin_size)[None]
+    s = raw.to(torch.float32)
+    if scale is not None:
+        s = s * scale[: L * bin_size].view(1, L, bin_size)
+    return s.amax(dim=2)
+
+
+def _bin_max_lib():
+    lib = kernels.load("bin_max")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.bin_max.argtypes = [p, p, i, p, i, p, i, i, i, i, p]
+        lib.bin_max.restype = i
+        pi = ctypes.POINTER(ctypes.c_int)
+        lib.bin_max_plan.argtypes = [i, i, i, i, i, pi, pi, pi, pi, pi]
+        lib.bin_max_plan.restype = i
+        lib._typed = True
+    return lib
+
+
+def bin_max_plan(cand_dtype: torch.dtype, B: int, D: int, L: int,
+                 bin_size: int = _BINNED_BIN_SIZE) -> dict:
+    """How :func:`bin_max` launches on the card for these shapes (a report;
+    it builds the kernel): the query rows of a block (``query_tile``, 16 a
+    warp) and the row blocks, the splits of the bins (``splits``, blocks
+    along the catalog) and the bins of a split, dynamic shared memory in
+    bytes, and the reduction: ``"fragments"`` (bins of a multiple of 64
+    rows, in registers) or ``"rows"`` (through shared memory)."""
+    lib = _bin_max_lib()
+    nw, rows, splits, bps, smem = (ctypes.c_int() for _ in range(5))
+    kernels.check(lib, lib.bin_max_plan(_DTYPE_CODE[cand_dtype], B, D, L, bin_size,
+                                        *(ctypes.byref(x) for x in (nw, rows, splits, bps, smem))),
+                  "bin_max_plan")
+    tile = 16 * nw.value
+    return {"query_tile": tile, "row_blocks": -(-B // tile), "splits": splits.value,
+            "bins_per_split": bps.value, "smem": smem.value,
+            "reduce": "rows" if rows.value else "fragments"}
+
+
+def bin_max(queries: torch.Tensor, candidates: torch.Tensor, bin_size: int = _BINNED_BIN_SIZE,
+            scale: Optional[torch.Tensor] = None, per_bin: bool = False) -> torch.Tensor:
+    """Each bin's max score, phase A of the binned top-k: queries (B, D) f32
+    and candidates (C, D) f32 or bf16, or both int8 (the quantized queries
+    against the int8 index, exact int32 sums) -> (B, C // bin_size) f32, bin
+    l the max over rows l*bin_size ... of the product; rows past the last
+    full bin are not read. ``scale`` (C,) f32: each row's dequantization
+    scale; ``per_bin``: it is constant within each bin and multiplies the
+    bin's max, else it multiplies every score before the max. A NaN score
+    gives a NaN maximum.
+
+    CUDA tensors go to the kernel of ``csrc/bin_max.cu``, which writes only
+    the (B, L) maxima; CPU tensors to :func:`bin_max_plain`."""
+    is_int = candidates.dtype == torch.int8
+    _check_operands(queries, candidates, scale=scale,
+                    query_dtype=torch.int8 if is_int else torch.float32)
+    if bin_size < 1:
+        raise ValueError(f"bin_size must be positive, got {bin_size}")
+    if queries.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"bin_max runs on CUDA or the CPU, not {queries.device}")
+    if torch.compiler.is_compiling():  # the trace holds the operator
+        return torch.ops.models_tpu_torch.bin_max(queries, candidates, bin_size, scale, per_bin)
+    if queries.device.type == "cpu":
+        return bin_max_plain(queries, candidates, bin_size, scale, per_bin)
+    return _bin_max_cuda(queries, candidates, bin_size, scale, per_bin)
+
+
+bin_max.launches = 0
+
+
+@torch.library.custom_op("models_tpu_torch::bin_max", mutates_args=(), device_types="cpu")
+def _bin_max_op(queries: torch.Tensor, candidates: torch.Tensor, bin_size: int,
+                scale: Optional[torch.Tensor], per_bin: bool) -> torch.Tensor:
+    """K4 as an operator (what a traced program holds); on the CPU its plain
+    version."""
+    return bin_max_plain(queries, candidates, bin_size, scale, per_bin)
+
+
+@_bin_max_op.register_fake
+def _(queries, candidates, bin_size, scale, per_bin):
+    return queries.new_empty((queries.shape[0], candidates.shape[0] // bin_size),
+                             dtype=torch.float32)
+
+
+@_bin_max_op.register_kernel("cuda")
+def _bin_max_cuda(queries, candidates, bin_size, scale, per_bin):
+    """The launch of ``csrc/bin_max.cu`` (its tile and grid planned from the
+    shapes there, at run time)."""
+    B, D = queries.shape
+    L = candidates.shape[0] // bin_size
+    if L * bin_size >= 2**31:
+        raise ValueError(f"bin_max indexes rows with 32-bit ints: {L * bin_size} rows")
+    out = torch.empty((B, L), dtype=torch.float32, device=queries.device)
+    if B == 0 or L == 0:
+        return out
+    lib = _bin_max_lib()
+    rc = lib.bin_max(
+        queries.data_ptr(), candidates.data_ptr(), _DTYPE_CODE[candidates.dtype],
+        scale.data_ptr() if scale is not None else None, int(per_bin), out.data_ptr(),
+        B, D, L, bin_size, torch.cuda.current_stream(queries.device).cuda_stream,
+    )
+    kernels.check(lib, rc, "bin_max")
+    bin_max.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the top-k functions
 # ---------------------------------------------------------------------------
 
@@ -509,38 +638,30 @@ def blockwise_topk(queries, candidates, k: int, ids=None, tile: int = 4096, col_
     return _blockwise(q, c, k, ids, tile, col_scale)
 
 
-def _bin_scales(col_scale: torch.Tensor, L: int, bin_size: int) -> torch.Tensor:
-    """(L,) the scale of each full bin, read from its first row."""
-    return col_scale[: L * bin_size].view(L, bin_size)[:, 0]
-
-
-def select_bins(q: torch.Tensor, full: torch.Tensor, k: int, bin_size: int = _BINNED_BIN_SIZE,
+def select_bins(q, full, k: int, bin_size: int = _BINNED_BIN_SIZE,
                 bin_margin: int = _BINNED_MARGIN, n_valid: Optional[int] = None,
-                col_scale: Optional[torch.Tensor] = None,
-                col_scale_per_bin: bool = False) -> torch.Tensor:
+                col_scale=None, col_scale_per_bin: bool = False, device=None) -> torch.Tensor:
     """Phase A of the binned top-k over the full bins ``full`` (L*bin_size, D):
-    score every row, keep each bin's max, and return the (B, kb) int32 indices
-    of the best ``kb = k + margin`` bins (one more when padding may inflate
-    the last bin's max). For an int8 catalog ``q`` is the int8 queries and
-    the product exact int32; a per-bin scale multiplies the (B, L) bin maxima,
-    a per-row scale every score before the max."""
-    B = q.shape[0]
-    L = full.shape[0] // bin_size
-    if full.dtype == torch.int8:
-        raw = _int_scores(q, full)
-    else:
-        raw = _scores(q, full)
-    raw = raw.view(B, L, bin_size)
-    if col_scale is not None and col_scale_per_bin:
-        bin_max = raw.amax(dim=2).to(torch.float32) * _bin_scales(col_scale, L, bin_size)[None]
-    else:
-        s = raw.to(torch.float32)
-        if col_scale is not None:
-            s = s * col_scale[: L * bin_size].view(1, L, bin_size)
-        bin_max = s.amax(dim=2)
+    each bin's max score by :func:`bin_max` (K4 on the card: the (B, C)
+    scores are never written), then the (B, kb) int32 indices of the best
+    ``kb = k + margin`` bins (one more when padding may inflate the last
+    bin's max) by :func:`stable_topk`, ties to the lowest bin as
+    ``lax.top_k`` breaks them. For an int8 catalog ``q`` is the int8 queries
+    (:func:`quantize_queries`) and the product exact int32; a per-bin scale
+    multiplies the (B, L) bin maxima, a per-row scale every score before the
+    max. Runs on ``device`` (default the card)."""
+    dev = resolve_device(device)
+    full = torch.as_tensor(full, device=dev).contiguous()
+    q = torch.as_tensor(q, device=dev)
+    q = (q if full.dtype == torch.int8 else q.to(torch.float32)).contiguous()
+    if col_scale is not None:  # the scales of the rows given
+        col_scale = torch.as_tensor(col_scale, device=dev).to(torch.float32)
+        col_scale = col_scale[: full.shape[0]].contiguous()
+    maxima = bin_max(q, full, bin_size, col_scale, col_scale_per_bin)
+    L = maxima.shape[1]
     mask_pad = n_valid is not None and n_valid < L * bin_size
     kb = min(k + bin_margin + (1 if mask_pad else 0), L)
-    _, bin_idx = stable_topk(bin_max, kb)
+    _, bin_idx = stable_topk(maxima, kb)
     return bin_idx.to(torch.int32).contiguous()
 
 
@@ -584,7 +705,7 @@ def _binned(q, c, k, ids, bin_size, bin_margin, n_valid, col_scale=None,
     full = c[: L * bin_size]
     mask_pad = n_valid is not None and n_valid < L * bin_size
     bin_idx = select_bins(q, full, k, bin_size, bin_margin, n_valid, col_scale,
-                          col_scale_per_bin)
+                          col_scale_per_bin, device=q.device)
     kb = bin_idx.shape[1]
 
     # phase B: rescore the rows of the selected bins only
@@ -627,7 +748,7 @@ def binned_topk(
 
     Every row above the true k-th score θ lies in a bin whose max exceeds θ,
     and at most k-1 bins have one, so the k best bins by max hold them all.
-    The proof needs both phases to score alike; phase A (a cuBLAS product) and
+    The proof needs both phases to score alike; phase A (:func:`bin_max`) and
     phase B may round differently in the last bit, which the ``bin_margin``
     extra bins absorb. ``n_valid`` masks rows padded at index build. Phase B
     is :func:`binned_rescore`; the JAX option ``pallas_rescore``, which picks

@@ -261,6 +261,7 @@ ENTRY_POINTS = {
     "BruteForce.index": lambda: mt.BruteForce(k=3).index(C),
     "topk_scores": lambda: ttopk.topk_scores(Q, C, 3),
     "binned_topk": lambda: ttopk.binned_topk(Q, C, 3),
+    "select_bins": lambda: ttopk.select_bins(Q, C, 3, bin_size=16),
     "blockwise_topk": lambda: ttopk.blockwise_topk(Q, C, 3),
     "load_model": lambda: mt.load_model(_saved()),
     "BaseModel.load": lambda: mt.BaseModel.load(_saved()),

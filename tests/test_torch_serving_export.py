@@ -168,9 +168,11 @@ def test_a_fresh_process_serves_every_artifact_without_building_a_model(served):
 
 
 @pytest.mark.parametrize("name,ops", [
-    ("dlrm", []), ("mf_bf16", ["models_tpu_torch.binned_rescore.default"]),
-    ("mf_int8", ["models_tpu_torch.binned_rescore.default"]),
-    ("two_tower_binned", ["models_tpu_torch.binned_rescore.default"]),
+    ("dlrm", []),
+    ("mf_bf16", ["models_tpu_torch.bin_max.default", "models_tpu_torch.binned_rescore.default"]),
+    ("mf_int8", ["models_tpu_torch.bin_max.default", "models_tpu_torch.binned_rescore.default"]),
+    ("two_tower_binned", ["models_tpu_torch.bin_max.default",
+                          "models_tpu_torch.binned_rescore.default"]),
     ("two_tower_streaming", ["models_tpu_torch.streaming_topk.default"])])
 def test_the_top_k_programs_hold_the_kernels_as_operators(served, name, ops):
     arts, _, report = served
