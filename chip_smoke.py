@@ -55,10 +55,12 @@
    also at D = 130 and on a misaligned catalog (the first design), K6 with
    int8 rows and per-row scales within the fp32 tolerance, with planted ties;
    the binned phase A (K4, ``bin_max``) against its plain version
-   (``phase_bin_max``): 1M x 128 at B = 256, 1365 (the binned route's bound
-   at k = 10) and 8, fp32, bf16 and int8 with per-bin and per-row scales,
-   D = 130 with n_valid padding, D = 300, misaligned rows, bins of 40, 8
-   and 128 rows, one query row and a NaN query row: two calls bit-equal,
+   (``phase_bin_max``), each case in the design the plan picks: the wgmma
+   design at 1M x 128 at B = 256, 1365 (the binned route's bound at k = 10)
+   and 8, fp32, bf16 and int8 with per-bin and per-row scales, at D = 128,
+   64, 32 and the widths between, bins of 64 and 128 rows, one query row
+   and a NaN query row; the first design at D = 130 with n_valid padding,
+   D = 300, misaligned rows, bins of 40 and 8 rows: two calls bit-equal,
    int8 bit-equal, fp32 and bf16 within ``tol_for``, the selected bins
    equal outside near-ties;
 4. serves the two-tower model end to end at the bench's full width
@@ -1162,10 +1164,25 @@ def measure_bin_max(q, full, n_valid, launches, errs, tag, scale=None) -> dict:
     # calls: its device time (profiler) beside it
     row["ms_warm"] = device_ms(k4)
     row["plan"] = T.bin_max_plan(full.dtype, B, D, L, bs)
+    row["design"] = row["plan"]["design"]
     print(f"  bin_max {tag} at the serving shape B={B} L={L}: {ms:.4f} ms, warm "
           f"{row['ms_warm']:.4f}, cold {cold:.4f}, plain {plain:.4f}, library {lib:.4f}, "
-          f"bound {row['bound_ms']:.4f}", flush=True)
+          f"bound {row['bound_ms']:.4f}; {row['design']}", flush=True)
     return row
+
+
+def bin_max_bound_ms(B, D, L, bs, dtype, per_bin) -> float:
+    """K4's bound: the products' operations at the peak of the arithmetic
+    that gives them their precision (3xTF32 fp32 rows, 3xbf16 bf16 rows,
+    int8), or its bytes (the queries, the rows and the per-bin scales read
+    once, the (B, L) maxima written once), the larger."""
+    if dtype == torch.int8:
+        peak, qbytes = 1979e12, 1
+    else:
+        peak, qbytes = (PEAK_3XTF32 if dtype == torch.float32 else PEAK_3XBF16)[0], 4
+    item = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
+    nbytes = B * D * qbytes + L * bs * D * item + B * L * 4 + (L * 4 if per_bin else 0)
+    return max(2 * B * L * bs * D / peak, nbytes / PEAK_BYTES_PER_S) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -2335,14 +2352,19 @@ def phase_int8_kernels(dev, gen, errs):
         print(f"  int8 binned route B={B} D=130 C={C}: card and CPU equal", flush=True)
 
 
-def bin_max_case(name, q, c, errs, bs=64, scale=None, per_bin=False, n_valid=None) -> float:
-    """K4 against its plain version on one case, printing its plan: the same
-    bits from two calls; int8 bit-equal, fp32 and bf16 within ``tol_for``
-    (NaN maxima where the plain version has them); the kb bins that
-    ``stable_topk`` then selects equal outside near-ties. Returns the
-    error."""
+def bin_max_case(name, q, c, errs, bs=64, scale=None, per_bin=False, n_valid=None,
+                 expect=None) -> float:
+    """K4 against its plain version on one case, in the design the plan
+    picks (``bin_max_design``; ``expect``: the design these shapes must
+    take), printing its plan: the same bits from two calls; int8 bit-equal,
+    fp32 and bf16 within ``tol_for`` (NaN maxima where the plain version has
+    them); the kb bins that ``stable_topk`` then selects equal outside
+    near-ties. Returns the error."""
     from models_tpu_torch.ops import topk as T
 
+    design = T.bin_max_design(c.dtype, q.shape[1], bs, c.data_ptr() % 16 == 0)
+    if expect is not None:
+        require(design == expect, f"bin_max {name}: the plan picks {design}, not {expect}")
     got = T.bin_max(q, c, bs, scale, per_bin)
     again = T.bin_max(q, c, bs, scale, per_bin)
     # the plain version on aligned copies: the cuBLASLt int8 product refuses
@@ -2350,6 +2372,7 @@ def bin_max_case(name, q, c, errs, bs=64, scale=None, per_bin=False, n_valid=Non
     want = T.bin_max_plain(q.clone(), c.clone(), bs, scale, per_bin)
     torch.cuda.synchronize()
     B, L = want.shape
+    name = f"{name} [{design}]"
     require(got.shape == (B, L) and got.dtype == torch.float32, f"bin_max {name}: {got.shape}")
     require(torch.equal(raw_bits(got), raw_bits(again)), f"bin_max {name}: two calls differ")
     nan = torch.isnan(want)
@@ -2370,7 +2393,10 @@ def bin_max_case(name, q, c, errs, bs=64, scale=None, per_bin=False, n_valid=Non
                 f"bin_max {c.dtype} {name}: selected bins differ outside near-ties")
         tag, what = "bin_max", f"max|d| {err:.3g} (tol {tol:.3g}), bins agree"
     errs[tag] = max(errs.get(tag, 0.0), err)
+    # bin_max_plan reports rows on a 16-byte address: not these, if the
+    # design differs
     plan = T.bin_max_plan(c.dtype, B, q.shape[1], L, bs)
+    plan = plan if plan["design"] == design else "(rows off a 16-byte address)"
     print(f"  bin_max {name} B={B} L={L} bs={bs} D={q.shape[1]} {c.dtype}"
           f"{'' if scale is None else ' per-bin scale' if per_bin else ' per-row scale'}: "
           f"{what}; plan {plan}", flush=True)
@@ -2378,12 +2404,18 @@ def bin_max_case(name, q, c, errs, bs=64, scale=None, per_bin=False, n_valid=Non
 
 
 def phase_bin_max(dev, gen, errs):
-    """K4 against its plain version on the card: 1M x 128 at B = 256, 1365
-    (the binned route's bound at k = 10) and 8, fp32, bf16 and int8 with
-    per-bin and per-row scales; D = 130 (no 16-byte rows) with n_valid
-    padding; D = 300 (query rows streamed with the tiles); rows off 16-byte
-    alignment; bins of 40 and 8 rows (the reduction through shared memory)
-    and of 128 (two tiles a bin); one row and a NaN query row."""
+    """K4 against its plain version on the card, each case in the design
+    the plan picks, which the case names: the wgmma design at 1M x 128 at B
+    = 256, 1365 (the binned route's bound at k = 10) and 8, fp32, bf16 and
+    int8 with per-bin and per-row scales; at the serving paths' widths (D =
+    128, 64, 32) at 300 query rows, bins of 64 and 128, both scale forms; at
+    the widths between them (fp32 D = 4, 48, 72, 96: depth past D from the
+    TMA's zero fill, and at 72 and 96 a tile's unused slab zeroed; bf16 D =
+    8, 120; int8 D = 16, 48); bins of 128 (two tiles a bin), one row and a
+    NaN query row. The first design at its shapes: D = 130 (no 16-byte rows)
+    with n_valid padding; D = 300 (query rows streamed with the tiles); rows
+    off 16-byte alignment; bins of 40 and 8 rows (the reduction through
+    shared memory)."""
     from models_tpu_torch.ops import topk as T
 
     C = 1_000_000
@@ -2393,11 +2425,43 @@ def phase_bin_max(dev, gen, errs):
     for B in (256, 1365, 8):
         q = torch.randn(B, 128, device=dev, generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
-            bin_max_case("1M", q, cand.to(dtype), errs)
+            bin_max_case("1M", q, cand.to(dtype), errs, expect="wgmma")
         q8, _ = T.quantize_queries(q)
-        bin_max_case("1M", q8, c8, errs, scale=sc_bin, per_bin=True)
-        bin_max_case("1M", q8, c8, errs, scale=sc_row)
+        bin_max_case("1M", q8, c8, errs, scale=sc_bin, per_bin=True, expect="wgmma")
+        bin_max_case("1M", q8, c8, errs, scale=sc_row, expect="wgmma")
     del cand, c8, sc_bin, sc_row
+    # the serving paths' widths: the two-tower and the 1M / 2**24 layers
+    # (128), the MF (64), YouTube-DNN (32); 300 rows, off the warpgroups' 64
+    n = 886 * 64
+    for D in (128, 64, 32):
+        q = torch.randn(300, D, device=dev, generator=gen)
+        c = torch.randn(n, D, device=dev, generator=gen)
+        c8, sc_bin = quantized_catalog(dev, gen, n, D)
+        sc_row = torch.rand(n, device=dev, generator=gen) * 0.03 + 0.002
+        q8, _ = T.quantize_queries(q)
+        for bs in (64, 128):
+            name = f"serving D={D}"
+            for dtype in (torch.float32, torch.bfloat16):
+                bin_max_case(name, q, c.to(dtype), errs, bs=bs, expect="wgmma")
+            bin_max_case(name, q8, c8, errs, bs=bs, scale=sc_bin, per_bin=True, expect="wgmma")
+            bin_max_case(name, q8, c8, errs, bs=bs, scale=sc_row, expect="wgmma")
+            bin_max_case(name, q8, c8, errs, bs=bs, expect="wgmma")
+    # the widths between them: a whole number of 16-byte pieces, at most 128
+    n = 300 * 64
+    for dtype, widths in ((torch.float32, (4, 48, 72, 96)), (torch.bfloat16, (8, 120)),
+                          (torch.int8, (16, 48))):
+        for D in widths:
+            q = torch.randn(100, D, device=dev, generator=gen)
+            name = f"D={D}"
+            if dtype != torch.int8:
+                c = torch.randn(n, D, device=dev, generator=gen).to(dtype)
+                bin_max_case(name, q, c, errs, expect="wgmma")
+                continue
+            c8, sc_bin = quantized_catalog(dev, gen, n, D)
+            sc_row = torch.rand(n, device=dev, generator=gen) * 0.03 + 0.002
+            q8, _ = T.quantize_queries(q)
+            bin_max_case(name, q8, c8, errs, scale=sc_bin, per_bin=True, expect="wgmma")
+            bin_max_case(name, q8, c8, errs, scale=sc_row, expect="wgmma")
     # D = 130 with the padding an index carries; D = 300; misaligned rows
     for D, shift, n_valid in ((130, False, 886 * 64 - 41), (300, False, None),
                               (128, True, None)):
@@ -2411,22 +2475,25 @@ def phase_bin_max(dev, gen, errs):
         place = misaligned if shift else (lambda x: x)
         name = f"D={D}{' misaligned' if shift else ''} n_valid={n_valid}"
         for dtype in (torch.float32, torch.bfloat16):
-            bin_max_case(name, place(q), place(c.to(dtype)), errs, n_valid=n_valid)
+            bin_max_case(name, place(q), place(c.to(dtype)), errs, n_valid=n_valid,
+                         expect="mma_sync")
         bin_max_case(name, place(q8), place(c8), errs, scale=scale, per_bin=True,
-                     n_valid=n_valid)
-        bin_max_case(name, place(q8), place(c8), errs, scale=scale, n_valid=n_valid)
+                     n_valid=n_valid, expect="mma_sync")
+        bin_max_case(name, place(q8), place(c8), errs, scale=scale, n_valid=n_valid,
+                     expect="mma_sync")
     # other bin sizes; one query row; a NaN query row
     q = torch.randn(33, 128, device=dev, generator=gen)
     c = torch.randn(64 * 300 + 5, 128, device=dev, generator=gen)
     c8, scale = quantized_catalog(dev, gen, 64 * 300 + 5)
     q8, _ = T.quantize_queries(q)
     for bs in (40, 8, 128):
-        bin_max_case(f"bs={bs}", q, c, errs, bs=bs)
-        bin_max_case(f"bs={bs}", q8, c8, errs, bs=bs, scale=scale)
-    bin_max_case("B=1", q[:1].contiguous(), c.to(torch.bfloat16), errs)
+        design = "wgmma" if bs == 128 else "mma_sync"
+        bin_max_case(f"bs={bs}", q, c, errs, bs=bs, expect=design)
+        bin_max_case(f"bs={bs}", q8, c8, errs, bs=bs, scale=scale, expect=design)
+    bin_max_case("B=1", q[:1].contiguous(), c.to(torch.bfloat16), errs, expect="wgmma")
     q[3] = float("nan")
-    bin_max_case("a NaN query row", q, c, errs)
-    bin_max_case("a NaN query row, bs=40", q, c, errs, bs=40)
+    bin_max_case("a NaN query row", q, c, errs, expect="wgmma")
+    bin_max_case("a NaN query row, bs=40", q, c, errs, bs=40, expect="mma_sync")
 
 
 # ---------------------------------------------------------------------------
@@ -2719,7 +2786,8 @@ def topk_16m_memory(dev, gen) -> dict:
                                      warmup=1),
            "streaming_topk_ms": cuda_ms(lambda: T.streaming_topk(q, cand, K), reps=3,
                                         warmup=1),
-           "bin_max_plan": T.bin_max_plan(torch.bfloat16, B, D, C // 64)}
+           "bin_max_plan": T.bin_max_plan(torch.bfloat16, B, D, C // 64),
+           "bin_max_bound_ms": bin_max_bound_ms(B, D, C // 64, 64, torch.bfloat16, False)}
     print("  top-k over 2**24 x 128 bf16 at B=1024: " + json.dumps(out), flush=True)
     del cand
     torch.cuda.empty_cache()
@@ -2767,7 +2835,13 @@ def phase_a_split(q, bf) -> dict:
     bin_max = amax()
     kb = min(K + 2 + (1 if n < L * bs else 0), L)
     del wide, raw
-    out["bin_max_ms"] = cuda_ms(lambda: T.bin_max(qk, full, bs, bf.scales, bf.scales_per_bin))
+    k4 = lambda: T.bin_max(qk, full, bs, bf.scales, bf.scales_per_bin)  # noqa: E731
+    out["bin_max_ms"] = cuda_ms(k4)
+    out["bin_max_ms_warm"] = device_ms(k4)
+    out["bin_max_ms_cold"] = device_ms(k4, cold=True)
+    out["bin_max_bound_ms"] = bin_max_bound_ms(B, full.shape[1], L, bs, full.dtype,
+                                               bf.scales_per_bin and bf.scales is not None)
+    out["bin_max_plan"] = T.bin_max_plan(full.dtype, B, full.shape[1], L, bs)
     out["bin_max_plain_ms"] = cuda_ms(
         lambda: T.bin_max_plain(qk, full, bs, bf.scales, bf.scales_per_bin))
     for name, fn in (("sort", lambda: T.stable_topk(bin_max, kb)),
@@ -2784,7 +2858,11 @@ def phase_a_split(q, bf) -> dict:
     # the (B, L) selection, outside any kernel, in select_bins
     out["sort_share"] = {"time": out["sort_ms"] / out["select_bins_ms"],
                          "memory": out["sort_peak_bytes"] / out["select_bins_peak_bytes"]}
-    print(f"  phase A {full.dtype} B={B}: the sort of (B, L) takes {out['sort_share']} of "
+    print(f"  phase A {full.dtype} B={B}: K4 ({out['bin_max_plan']['design']}) "
+          f"{out['bin_max_ms']:.4f} ms, warm {out['bin_max_ms_warm']:.4f}, cold "
+          f"{out['bin_max_ms_cold']:.4f}, bound {out['bin_max_bound_ms']:.4f}; the sort "
+          f"{out['sort_ms']:.4f}; select_bins {out['select_bins_ms']:.4f}; the layer "
+          f"{out['layer_ms']:.4f}; the sort of (B, L) takes {out['sort_share']} of "
           "select_bins' time and peak memory", flush=True)
     return out
 
@@ -7665,11 +7743,13 @@ def main() -> int:
                         (torch.float32, 8, 5000)):
         print(f"    streaming_topk launch at B={B} C={CATALOG} D=128 k={k} {dtype}: "
               f"{T.streaming_plan(dtype, B, 128, CATALOG, k)}", flush=True)
-    for dtype, B, L in ((torch.float32, 256, 886), (torch.bfloat16, 256, 886),
-                        (torch.int8, 256, 886), (torch.float32, 256, 15_625),
-                        (torch.int8, 256, 15_625), (torch.bfloat16, 1024, 2**18)):
-        print(f"    bin_max (K4) launch at B={B} L={L} bins of 64 D=128 {dtype}: "
-              f"{T.bin_max_plan(dtype, B, 128, L)}", flush=True)
+    for dtype, B, L, D in ((torch.float32, 256, 886, 128), (torch.bfloat16, 256, 886, 128),
+                           (torch.int8, 256, 886, 128), (torch.float32, 256, 15_625, 128),
+                           (torch.int8, 256, 15_625, 128), (torch.bfloat16, 1024, 2**18, 128),
+                           (torch.float32, 256, 886, 64), (torch.float32, 256, 886, 32),
+                           (torch.float32, 100, 886, 130)):
+        print(f"    bin_max (K4) launch at B={B} L={L} bins of 64 D={D} {dtype}: "
+              f"{T.bin_max_plan(dtype, B, D, L)}", flush=True)
 
     stamp("phase 1: kernels against their plain versions")
     errs = phase_kernels(dev, gen)

@@ -1284,32 +1284,6 @@ cudaError_t launch_grad(const TI* q, const TI* neg, const float* lse, const floa
   return merge_chunks(part, out, (size_t)n_own * D, used, stream);
 }
 
-// cuTensorMapEncodeTiled through the runtime's entry-point query: no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-cudaError_t encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled found = nullptr;
-  if (!found) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &status);
-#endif
-    if (err != cudaSuccess) return err;
-    if (status != cudaDriverEntryPointSuccess || !p) return cudaErrorNotSupported;
-    found = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = found;
-  return cudaSuccess;
-}
-
 // a (rows, D) bf16 matrix as boxes of 64 columns by `box_rows` rows, in the
 // 128-byte swizzle; reads outside the matrix give zeros
 cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int rows, int D, int box_rows) {

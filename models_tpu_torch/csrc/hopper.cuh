@@ -1,7 +1,8 @@
-// Hopper's asynchronous machinery, shared by flash_ce.cu (the bf16 K2 / K3)
-// and streaming_topk.cu (K6): mbarriers, bulk and tensor (TMA) copies into
-// shared memory, warpgroup products (wgmma) on bf16 operands, and the
-// three-part bf16 split of an fp32 value.
+// Hopper's asynchronous machinery, shared by flash_ce.cu (the bf16 K1-K3),
+// streaming_topk.cu (K6) and bin_max.cu (K4's wgmma design): mbarriers, bulk
+// and tensor (TMA) copies into shared memory, warpgroup products (wgmma) on
+// bf16 operands, the three-part bf16 split of an fp32 value, and on the host
+// cuTensorMapEncodeTiled, looked up at run time.
 //
 // wgmma (m64nNk16, one warpgroup of 4 warps): C / D, fp32, N / 2 registers a
 // thread: warp w of the group, lane 4 g + t, register 4 j + e holds row
@@ -25,6 +26,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -188,4 +190,34 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4
       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
       "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query: no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (!found) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &status);
+#endif
+    if (err != cudaSuccess) return err;
+    if (status != cudaDriverEntryPointSuccess || !p) return cudaErrorNotSupported;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return cudaSuccess;
 }

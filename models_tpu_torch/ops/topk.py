@@ -507,14 +507,29 @@ def bin_max_plain(queries: torch.Tensor, candidates: torch.Tensor, bin_size: int
     return s.amax(dim=2)
 
 
+BIN_MAX_DESIGNS = ("mma_sync", "wgmma")  # csrc/bin_max.cu's designs, by their codes
+_BIN_MAX_TILE = 64  # catalog rows a tile of the wgmma design
+
+
+def bin_max_design(cand_dtype: torch.dtype, D: int, bin_size: int, aligned: bool = True) -> str:
+    """The kernel of ``csrc/bin_max.cu`` that takes these shapes, chosen by
+    shape alone: ``"wgmma"`` (``bin_max_wg``: the catalog through a TMA ring,
+    the products on ``wgmma``) where the rows are at most 128 elements of a
+    whole number of 16-byte pieces on a 16-byte address (``aligned``) and
+    the bins a multiple of 64 rows, the serving paths' shapes; else
+    ``"mma_sync"`` (``bin_max_kernel``, the first design: ``cp.async`` and
+    ``mma.sync``, any width, alignment and bin size)."""
+    rows_ok = D <= 128 and D * cand_dtype.itemsize % 16 == 0 and aligned
+    return "wgmma" if rows_ok and bin_size % _BIN_MAX_TILE == 0 else "mma_sync"
+
+
 def _bin_max_lib():
     lib = kernels.load("bin_max")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bin_max.argtypes = [p, p, i, p, i, p, i, i, i, i, p]
+        lib.bin_max.argtypes = [p, p, i, p, i, p, i, i, i, i, i, p]
         lib.bin_max.restype = i
-        pi = ctypes.POINTER(ctypes.c_int)
-        lib.bin_max_plan.argtypes = [i, i, i, i, i, pi, pi, pi, pi, pi]
+        lib.bin_max_plan.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         lib.bin_max_plan.restype = i
         lib._typed = True
     return lib
@@ -522,21 +537,29 @@ def _bin_max_lib():
 
 def bin_max_plan(cand_dtype: torch.dtype, B: int, D: int, L: int,
                  bin_size: int = _BINNED_BIN_SIZE) -> dict:
-    """How :func:`bin_max` launches on the card for these shapes (a report;
-    it builds the kernel): the query rows of a block (``query_tile``, 16 a
-    warp) and the row blocks, the splits of the bins (``splits``, blocks
-    along the catalog) and the bins of a split, dynamic shared memory in
-    bytes, and the reduction: ``"fragments"`` (bins of a multiple of 64
-    rows, in registers) or ``"rows"`` (through shared memory)."""
+    """How :func:`bin_max` launches on the card for these shapes, rows on a
+    16-byte address (a report; it builds the kernel): the ``design``
+    (:func:`bin_max_design`), ``threads`` a block, the query rows of a block
+    (``query_tile``: 16 a warp for ``"mma_sync"``, 64 a warpgroup
+    for ``"wgmma"``) and the row blocks, the ring's ``stages``, the splits of
+    the bins (``splits``, blocks along the catalog) and the bins of a split,
+    dynamic shared memory in bytes; ``"wgmma"``: the catalog rows of a tile
+    (``tile_rows``); ``"mma_sync"``: the reduction, ``"fragments"`` (bins of a
+    multiple of 64 rows, in registers) or ``"rows"`` (through shared
+    memory)."""
+    design = bin_max_design(cand_dtype, D, bin_size)
     lib = _bin_max_lib()
-    nw, rows, splits, bps, smem = (ctypes.c_int() for _ in range(5))
-    kernels.check(lib, lib.bin_max_plan(_DTYPE_CODE[cand_dtype], B, D, L, bin_size,
-                                        *(ctypes.byref(x) for x in (nw, rows, splits, bps, smem))),
-                  "bin_max_plan")
-    tile = 16 * nw.value
-    return {"query_tile": tile, "row_blocks": -(-B // tile), "splits": splits.value,
-            "bins_per_split": bps.value, "smem": smem.value,
-            "reduce": "rows" if rows.value else "fragments"}
+    info = (ctypes.c_int * 8)()
+    kernels.check(lib, lib.bin_max_plan(_DTYPE_CODE[cand_dtype], BIN_MAX_DESIGNS.index(design),
+                                        B, D, L, bin_size, info), "bin_max_plan")
+    threads, tile, rows, stages, row_blocks, splits, bps, smem = info
+    plan = {"design": design, "threads": threads, "query_tile": tile, "row_blocks": row_blocks,
+            "stages": stages, "splits": splits, "bins_per_split": bps, "smem": smem}
+    if design == "wgmma":
+        plan["tile_rows"] = _BIN_MAX_TILE
+    else:
+        plan["reduce"] = "rows" if rows else "fragments"
+    return plan
 
 
 def bin_max(queries: torch.Tensor, candidates: torch.Tensor, bin_size: int = _BINNED_BIN_SIZE,
@@ -550,8 +573,9 @@ def bin_max(queries: torch.Tensor, candidates: torch.Tensor, bin_size: int = _BI
     bin's max, else it multiplies every score before the max. A NaN score
     gives a NaN maximum.
 
-    CUDA tensors go to the kernel of ``csrc/bin_max.cu``, which writes only
-    the (B, L) maxima; CPU tensors to :func:`bin_max_plain`."""
+    CUDA tensors go to a kernel of ``csrc/bin_max.cu`` (the design
+    :func:`bin_max_design` picks), which writes only the (B, L) maxima; CPU
+    tensors to :func:`bin_max_plain`."""
     is_int = candidates.dtype == torch.int8
     _check_operands(queries, candidates, scale=scale,
                     query_dtype=torch.int8 if is_int else torch.float32)
@@ -585,8 +609,12 @@ def _(queries, candidates, bin_size, scale, per_bin):
 
 @_bin_max_op.register_kernel("cuda")
 def _bin_max_cuda(queries, candidates, bin_size, scale, per_bin):
-    """The launch of ``csrc/bin_max.cu`` (its tile and grid planned from the
-    shapes there, at run time)."""
+    """The launch of ``csrc/bin_max.cu`` in the design
+    :func:`bin_max_design` picks for these shapes (its tile and grid
+    planned there, at run time; the C side refuses shapes the named design
+    does not take)."""
+    design = bin_max_design(candidates.dtype, candidates.shape[1], bin_size,
+                            candidates.data_ptr() % 16 == 0)
     B, D = queries.shape
     L = candidates.shape[0] // bin_size
     if L * bin_size >= 2**31:
@@ -598,9 +626,10 @@ def _bin_max_cuda(queries, candidates, bin_size, scale, per_bin):
     rc = lib.bin_max(
         queries.data_ptr(), candidates.data_ptr(), _DTYPE_CODE[candidates.dtype],
         scale.data_ptr() if scale is not None else None, int(per_bin), out.data_ptr(),
-        B, D, L, bin_size, torch.cuda.current_stream(queries.device).cuda_stream,
+        B, D, L, bin_size, BIN_MAX_DESIGNS.index(design),
+        torch.cuda.current_stream(queries.device).cuda_stream,
     )
-    kernels.check(lib, rc, "bin_max")
+    kernels.check(lib, rc, f"bin_max ({design})")
     bin_max.launches += 1
     return out
 

@@ -1,6 +1,9 @@
 """Phase A of the port's binned top-k (models_tpu_torch.ops.topk: bin_max,
 K4's plain version, and select_bins) against the JAX package's phase A on
-the CPU: the same seeded numpy inputs go to both.
+the CPU: the same seeded numpy inputs go to both. Also the choice between
+K4's two designs (``bin_max_design``) and a model of the wgmma design's bf16
+arithmetic (``bin_max_split3`` below), held to JAX's phase A at HIGHEST and, on
+tie-free data, to the exact top-k through the binned route.
 
 The JAX package computes phase A inside ``binned_topk``
 (models_tpu/ops/topk.py:416-443: the einsum over (L, bs, D) bins, each bin's
@@ -68,15 +71,15 @@ def jax_quantize(q):
     return jnp.clip(jnp.round(q / q_scale[:, None]), -127, 127).astype(jnp.int8)
 
 
-def jax_phase_a(q, c, k, bs, n_valid, col_scale, per_bin):
+def jax_phase_a(q, c, k, bs, n_valid, col_scale, per_bin, precision=None):
     """(bin maxima (B, L), selected bins (B, kb)) as models_tpu/ops/topk.py
-    computes them at :416-443."""
+    computes them at :416-443 (``precision``: its ``phase_a_precision``)."""
     B, D = q.shape
     C = c.shape[0]
     L = C // bs
     acc_dt = jnp.int32 if jnp.issubdtype(c.dtype, jnp.integer) else jnp.float32
     c3 = c[: L * bs].reshape(L, bs, D)
-    raw = jnp.einsum("bd,lsd->bls", q, c3, preferred_element_type=acc_dt)
+    raw = jnp.einsum("bd,lsd->bls", q, c3, preferred_element_type=acc_dt, precision=precision)
     if col_scale is not None and per_bin:
         sc_bin = col_scale[: L * bs].reshape(L, bs)[:, 0]
         bin_max = jnp.max(raw, axis=2).astype(jnp.float32) * sc_bin[None, :]
@@ -231,3 +234,139 @@ def test_bin_max_refuses_what_it_cannot_take():
         ttopk.bin_max(q, torch.zeros(128, 32), scale=torch.ones(64))
     with pytest.raises(ValueError, match="bin_size"):
         ttopk.bin_max(q, torch.zeros(128, 32), bin_size=0)
+
+
+# ---------------------------------------------------------------------------
+# K4's two designs: the choice by shape, the wgmma design's bf16 arithmetic
+# ---------------------------------------------------------------------------
+
+_TORCH_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def bin_max_split3(queries, candidates, bin_size, scale=None, per_bin=False):
+    """``bin_max`` over bf16 rows in the wgmma design's arithmetic (a model
+    of ``csrc/bin_max.cu``'s bf16 form): the fp32 queries in three bf16
+    parts (``split3_bf16``) times the bf16 rows, each product exact in
+    float32, each ``LOGIT_PART`` deep summed from zero (the small parts
+    first) and the parts added in depth order; then each bin's max, scaled
+    as ``bin_max_plain`` scales it."""
+    from models_tpu_torch.ops.flash_ce import LOGIT_PART, split3_bf16
+
+    B, D = queries.shape
+    L = candidates.shape[0] // bin_size
+    rows = candidates[: L * bin_size].float()
+    s = None
+    for k0 in range(0, D, LOGIT_PART):
+        r = rows[:, k0:k0 + LOGIT_PART].T
+        hi, mid, lo = split3_bf16(queries[:, k0:k0 + LOGIT_PART].contiguous())
+        part = lo.float() @ r + mid.float() @ r + hi.float() @ r
+        s = part if s is None else s + part
+    s = s.view(B, L, bin_size)
+    if scale is not None and per_bin:
+        return s.amax(dim=2) * scale[: L * bin_size].view(L, bin_size)[:, 0][None]
+    if scale is not None:
+        s = s * scale[: L * bin_size].view(1, L, bin_size)
+    return s.amax(dim=2)
+
+
+@pytest.mark.parametrize("bs", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_serving_shapes_take_the_wgmma_design(dtype, D, bs):
+    """The serving paths' widths (128: the two-tower and the 1M / 2**24
+    layers, 64: the MF, 32: YouTube-DNN) on 16-byte-aligned rows, at bins of
+    a multiple of 64 rows, take the wgmma design (TMA ring, wgmma)."""
+    assert ttopk.bin_max_design(_TORCH_DTYPES[dtype], D, bs) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("D,bs,aligned", [(130, 64, True), (300, 64, True), (128, 64, False),
+                                          (128, 8, True), (128, 40, True), (64, 96, True)])
+def test_other_shapes_keep_the_first_design(dtype, D, bs, aligned):
+    """Rows wider than 128 or not whole 16-byte pieces (D = 130, 300), rows
+    off a 16-byte address, and bins that are not multiples of 64 rows keep
+    the first design (cp.async and mma.sync)."""
+    assert ttopk.bin_max_design(_TORCH_DTYPES[dtype], D, bs, aligned) == "mma_sync"
+
+
+@pytest.mark.parametrize("dtype,D", [("fp32", 4), ("fp32", 96), ("bf16", 8), ("bf16", 120),
+                                     ("int8", 16), ("int8", 48)])
+def test_any_whole_16_byte_row_up_to_128_takes_the_wgmma_design(dtype, D):
+    """Widths between the serving ones (a whole number of 16-byte pieces, at
+    most 128 elements) take the wgmma design too; one element more (two for
+    int8), off a whole piece, does not."""
+    t = _TORCH_DTYPES[dtype]
+    assert ttopk.bin_max_design(t, D, 64) == "wgmma"
+    assert ttopk.bin_max_design(t, D + 2 if dtype == "int8" else D + 1, 64) == "mma_sync"
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("B", [1, 17, 200])
+def test_split3_bf16_arithmetic_matches_jax_highest(D, B):
+    """The wgmma design's bf16 arithmetic (the fp32 query in three bf16
+    parts, times the bf16 rows, exact products summed in fp32 32 deep at a
+    time) against JAX's phase A at ``phase_a_precision=HIGHEST``: within
+    REL_TOL of the largest |maximum|, the selected bins equal outside
+    near-ties; its parts sum to the query exactly, so it also agrees with the
+    plain version."""
+    q, c, _ = _inputs(B * 100 + D, B, 64 * 37, D, "bf16")
+    ref = jax_phase_a(jnp.asarray(q), _jax_cand(c, "bf16"), K, BS, None, None, False,
+                      precision=jax.lax.Precision.HIGHEST)
+    tq, tc = torch.from_numpy(q), _torch_cand(c, "bf16")
+    maxima = bin_max_split3(tq, tc, BS)
+    _, bins = ttopk.stable_topk(maxima, K + MARGIN)
+    _assert_agree(ref, (maxima.numpy(), bins.to(torch.int32).numpy()), "bf16")
+    plain = ttopk.bin_max_plain(tq, tc, BS)
+    tol = REL_TOL * max(1.0, float(plain.abs().max()))
+    np.testing.assert_allclose(maxima.numpy(), plain.numpy(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("bs", [64, 128])
+def test_split3_bf16_keeps_nan_and_scales(bs):
+    """A NaN query row gives NaN maxima in the model as in the plain
+    version; a per-row scale multiplies before the max, a per-bin one
+    after."""
+    q, c, _ = _inputs(29, 9, 64 * 12, 64, "bf16")
+    q[4] = np.nan
+    tq, tc = torch.from_numpy(q), _torch_cand(c, "bf16")
+    scale = torch.from_numpy(np.random.default_rng(3).uniform(0.5, 2.0, 64 * 12)
+                             .astype(np.float32))
+    for sc, per_bin in ((None, False), (scale, False), (scale, True)):
+        got = bin_max_split3(tq, tc, bs, sc, per_bin)
+        want = ttopk.bin_max_plain(tq, tc, bs, sc, per_bin)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.isnan(got[4]).all()
+        ok = ~torch.isnan(want)
+        tol = REL_TOL * max(1.0, float(want[ok].abs().max()))
+        assert float((got[ok] - want[ok]).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_binned_topk_on_the_split3_model_is_exact(seed):
+    """On tie-free data the binned top-k built on the bf16 model (bins by
+    its maxima, k + margin of them; the pool rescored in phase B's fp32
+    arithmetic, ``binned_rescore_plain``) returns the exact top-k: the ids of
+    the float64 scores of the same bf16 rows, and JAX's ``binned_topk`` at
+    ``phase_a_precision=HIGHEST``. Tie-free: the exact k-th and (k+1)-th
+    scores of every row lie further apart than fp32's error of a sum of D
+    products."""
+    from models_tpu.ops import topk as jtopk
+
+    B, C, D = 33, 64 * 200, 128
+    q, c, _ = _inputs(seed + 40, B, C, D, "bf16")
+    c16 = _torch_cand(c, "bf16")
+    exact = q.astype(np.float64) @ c16.float().numpy().astype(np.float64).T
+    order = np.argsort(-exact, axis=1, kind="stable")
+    kth = np.take_along_axis(exact, order[:, K - 1:K + 1], 1)
+    assert (kth[:, 0] - kth[:, 1] > 1e-3).all()  # the data is tie-free at the k-th score
+    tq = torch.from_numpy(q)
+    maxima = bin_max_split3(tq, c16, BS)
+    _, bins = ttopk.stable_topk(maxima, K + MARGIN)
+    pool = ttopk.binned_rescore_plain(tq, c16, bins.to(torch.int32), BS)  # (B, kb * BS)
+    _, pos = ttopk.stable_topk(pool, K)
+    ids = (bins.long()[:, :, None] * BS + torch.arange(BS)).reshape(B, -1)
+    got = torch.gather(ids, 1, pos.long()).numpy()
+    np.testing.assert_array_equal(got, order[:, :K])
+    _, jids = jtopk.binned_topk(jnp.asarray(q), _jax_cand(c, "bf16"), K,
+                                phase_a_precision=jax.lax.Precision.HIGHEST)
+    np.testing.assert_array_equal(got, np.asarray(jids))
