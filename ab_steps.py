@@ -3,7 +3,7 @@ two-tower model, the DLRM and the MMOE on one NVIDIA card, for this
 checkout and another one, in turns in one call; with ``--what predict``,
 of the top-k encoder's ``predict``.
 
-    python3 ab_steps.py --parent DIR [--reps N] [--what steps|predict]
+    python3 ab_steps.py --parent DIR [--reps N] [--what steps|predict|fit]
 
 ``DIR`` is another checkout's root (e.g. one unpacked by
 ``git archive <commit> | tar -x -C build/parent``). Each turn is a process
@@ -27,6 +27,15 @@ its turn also times one call of each through the op
 implementation directly, on the fp32 index at those shapes (one call a
 synchronise, ``reps`` calls each, alternating): the dispatch's own cost.
 
+``--what fit`` times the streaming ``fit`` one step at a time as a user
+calls it: the movielens-25m two-tower at the bench's width (batch 8192,
+adagrad, no metrics) fit one epoch of FIT_BATCHES batches, alternately
+from the Dataset in memory and from the same rows in parquet files through
+``Loader(shuffle=False, drop_last=True, prefetch=2, cache=False)``; one
+warm-up fit of each, then ``reps`` fits of each, each ending in a
+synchronise, in ms a step (the fit's wall over its steps). The batches'
+copy to the card is the tree's own (in line, or ``_device_prefetch``).
+
 Prints the card's name and power limit, and one JSON line per model or
 request: ``{"what": ..., "ms": {"parent": [turn 1, turn 2], "head":
 [...]}}``, each entry [median, min, max] ms; with ``--what predict`` also
@@ -45,6 +54,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 MODELS = ("two_tower", "dlrm", "mmoe")
+FIT_BATCHES = 32  # batches of 8192 a timed fit (``--what fit``)
 REQUESTS = tuple(f"{tag}_B{b}" for tag in ("fp32", "bf16", "int8") for b in (256, 4096))
 
 
@@ -112,6 +122,48 @@ def predict_worker(tree: str, reps: int) -> None:
     print("RESULT " + json.dumps(out), flush=True)
 
 
+def fit_worker(tree: str, reps: int) -> None:
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    C, mt, dev = _setup(tree)
+    data = mt.generate_data("movielens-25m", num_rows=FIT_BATCHES * C.TRAIN_BATCH,
+                            seed=C.SEED + 30)
+    root = tempfile.mkdtemp(prefix="ab_steps_fit_")
+    try:
+        path = data.to_parquet(os.path.join(root, "ml"), row_group_size=20_000,
+                               num_partitions=4)
+        model = mt.TwoTowerModel(data.schema, query_tower=(256, 128), embedding_dim=128,
+                                 seed=C.SEED, device=dev)
+        model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[])
+        sources = {
+            "memory": lambda: data,
+            "parquet": lambda: mt.Loader(path, C.TRAIN_BATCH, shuffle=False, drop_last=True,
+                                         prefetch=2, cache=False)}
+
+        def fit(source: str) -> float:
+            t = time.perf_counter()
+            model.fit(sources[source](), epochs=1, batch_size=C.TRAIN_BATCH, shuffle=False,
+                      verbose=0, device=dev)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) / FIT_BATCHES * 1e3
+
+        for source in sources:
+            fit(source)
+        times = {source: [] for source in sources}
+        for _ in range(reps):
+            for source in sources:
+                times[source].append(fit(source))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {f"two_tower streaming fit from {source}, ms a step":
+           [float(np.median(ts)), min(ts), max(ts)] for source, ts in times.items()}
+    print("RESULT " + json.dumps(out), flush=True)
+
+
 def worker(tree: str, reps: int) -> None:
     import numpy as np
     import torch
@@ -158,11 +210,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent")
     ap.add_argument("--reps", type=int, default=41)
-    ap.add_argument("--what", choices=("steps", "predict"), default="steps")
+    ap.add_argument("--what", choices=("steps", "predict", "fit"), default="steps")
     ap.add_argument("--worker")
     args = ap.parse_args()
     if args.worker:
-        (worker if args.what == "steps" else predict_worker)(args.worker, args.reps)
+        {"steps": worker, "predict": predict_worker, "fit": fit_worker}[args.what](
+            args.worker, args.reps)
         return 0
     import torch
 
@@ -188,7 +241,7 @@ def main() -> int:
             ms.setdefault(name, {}).setdefault(form, []).append(t)
     for name, by_tree in ms.items():
         what = (f"{name} train_step one at a time" if name in MODELS else
-                name if name.startswith("dispatch") else f"predict {name}")
+                name if name.startswith(("dispatch", "two_tower")) else f"predict {name}")
         print(json.dumps({"what": what, "ms": by_tree}), flush=True)
     return 0
 

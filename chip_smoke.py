@@ -157,7 +157,24 @@
    must launch on exactly the 6 steps without metrics), in-batch
    ``evaluate`` at batch 8192 and ``evaluate(item_corpus=...)`` with fp32,
    bf16 and int8 indexes (K6, 2048 queries) against a CPU copy, and times
-   both (examples/s);
+   both (examples/s); then (phase 11b) ``evaluate``'s device route (the
+   eval pack, chunks of batches, each one CUDA graph replay from the third
+   call on) against its streaming route, bit for bit over every call: in-batch
+   over 65,536 rows at 8192, the 56,680-item catalog at 16,384 queries in
+   batches of 4096 (K6) and of 256 (K4, K5), fp32, bf16 and int8 indexes,
+   and the DLRM's binary head with AUC; each case's first device-route run
+   under ``torch.cuda.set_sync_debug_mode("error")``, K4, K5, K6 and K9
+   counted in a traced replay (and no wrapper called), at most two graphs a
+   case, both routes' examples/s, each graph's capture seconds and pool;
+   the in-batch evaluate over 64 batches of 8192 (one whole chunk: eager,
+   captured and replayed bit-equal), its pool beside the 8-batch chunk's;
+   ``fit(validation_data=)`` with k = 8 steps a chunk, the validation inside
+   the epoch's device work against a separate ``evaluate`` an epoch
+   (histories bit for bit, one copy to the host an epoch against two, a
+   timed epoch each); the streaming fit one step at a time with each batch
+   prefetched (``_device_prefetch``) against copied in line, bit for bit,
+   host ms a step in turns of fits of 32 steps; phase 24 adds a parquet-streamed fit with its
+   batches copied in line beside the prefetched ones;
 14. the ranking models (phases 12-14): the DLRM at the bench's width
    (``bench.py::bench_dlrm_compute``: criteo-small, D = 64, bottom MLP 256,
    64, top MLP 256, 128, adagrad at 0.05, batch 8192, 16 batches of seeded
@@ -2678,7 +2695,9 @@ def compare_eval(name, got, want, rows):
 def evaluate_times(dev, model, data, catalog):
     """examples/s of in-batch ``evaluate`` (65,536 rows, batch 8192) and of
     corpus ``evaluate`` (16,384 queries in batches of 4096; fp32 index, index
-    build included, as the method builds it), host clock."""
+    build included, as the method builds it), host clock: each one call, the
+    device route's first on its data (the eval pack uploaded, the chunks
+    eager; phase 11b times the steady state of both routes)."""
     out = {}
     t = time.perf_counter()
     model.evaluate(data, batch_size=TRAIN_BATCH, device=dev)
@@ -2693,6 +2712,473 @@ def evaluate_times(dev, model, data, catalog):
         out[f"evaluate_corpus_{tag}_examples_per_sec"] = q_rows.num_rows / (
             time.perf_counter() - t)
     return out
+
+
+# phase 11b: the device-resident evaluate and in-fit validation
+EVAL_QUERIES = 4 * 4096  # the corpus cases' queries: 4 batches of 4096 (K6), 64 of 256 (K4, K5)
+EVAL_TIMED = 3  # calls a steady-state time is the median of (replays on the device route)
+EVAL_TRACED = ("bin_max", "binned_rescore", "streaming_topk", "row_gather")
+# a traced kernel by its demangled name (``void (anonymous namespace)::name...``):
+# the wrapper whose call launches it, once a call (K6's merge kernel left out)
+EVAL_KERNELS = {"bin_max_kernel": "bin_max", "bin_max_wg": "bin_max",
+                "rescore_bins": "binned_rescore", "rescore": "binned_rescore",
+                "rescore_i8": "binned_rescore", "topk_partial": "streaming_topk",
+                "gather": "row_gather"}
+EVAL_KERNEL_NAME = re.compile(r"^void \(anonymous namespace\)::(\w+)[<(]")
+VAL_EPOCHS = 3
+PREFETCH_FITS = 3  # timed fits of a turn (prefetched or in line)
+PREFETCH_TIMED_ROWS = 32 * TRAIN_BATCH  # a timed fit's rows: 32 steps
+PREFETCH_TURNS = ("prefetched", "in_line", "in_line", "prefetched") * 2
+
+
+def eval_counters() -> dict:
+    from models_tpu_torch.ops import embedding_lookup as E
+    from models_tpu_torch.ops import topk as T
+
+    return {"bin_max": T.bin_max.launches, "binned_rescore": T.binned_rescore.launches,
+            "streaming_topk": T.streaming_topk.launches, "row_gather": E.row_gather.launches}
+
+
+def zero_eval_counters() -> None:
+    from models_tpu_torch.ops import embedding_lookup as E
+
+    zero_topk_counts()
+    E.row_gather.launches = 0
+
+
+@contextlib.contextmanager
+def streaming_evaluate():
+    """``evaluate`` with its device route refused inside the block: it
+    streams (``tests/unit/test_parallel.py::test_fused_evaluate_matches_
+    streaming`` refuses it so)."""
+    from models_tpu_torch.models.base import BaseModel
+
+    saved = BaseModel._try_device_eval
+    BaseModel._try_device_eval = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        BaseModel._try_device_eval = saved
+
+
+def in_line_batches(batches, dev):
+    from models_tpu_torch.core.types import to_device_batch, to_device_targets
+
+    for x, y in batches:
+        yield to_device_batch(x, dev), to_device_targets(y, dev)
+
+
+@contextlib.contextmanager
+def batches_in_line():
+    """The streaming routes with each batch copied in line (pageable,
+    synchronous) instead of through ``_device_prefetch`` inside the block."""
+    from models_tpu_torch.models import base
+
+    saved = base._device_prefetch
+    base._device_prefetch = in_line_batches
+    try:
+        yield
+    finally:
+        base._device_prefetch = saved
+
+
+@contextlib.contextmanager
+def counted_fetches(out: list):
+    """Each copy of a fit's or an evaluation's logs to the host
+    (``models/base.py::_fetch``) appended to ``out`` inside the block."""
+    from models_tpu_torch.models import base
+
+    saved = base._fetch
+    base._fetch = lambda values: out.append(len(values)) or saved(values)
+    try:
+        yield
+    finally:
+        base._fetch = saved
+
+
+def traced_eval(run, what: str, want: dict, attempts: int = 3) -> dict:
+    """A torch.profiler trace of ``run()`` (replayed evaluations; it ends in
+    a copy to the host) in a traced_window: the eval route's kernels the
+    trace shows by wrapper (``traced``: a replay calls no wrapper), the
+    wrappers' own counts over the window (``issued``), and the device's busy
+    share of the window's host wall time. The profiler loses an event now
+    and then (device_ms), so a trace that lost a marker or shows other
+    launches than ``want`` is taken again; the last attempt's fails."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    lead_in_graph()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        events = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: events.extend(p.events())) as prof:
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+            with traced_window():
+                torch.cuda.synchronize()
+                before = eval_counters()
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t) * 1e6
+                issued = {n: v - before[n] for n, v in eval_counters().items()}
+            torch.cuda.synchronize()
+            prof.step()
+        traced, busy = dict.fromkeys(EVAL_TRACED, 0), 0.0
+        for e in window_events(events) or ():
+            busy += e.time_range.elapsed_us()
+            m = EVAL_KERNEL_NAME.match(e.name)
+            if m is not None and m.group(1) in EVAL_KERNELS:
+                traced[EVAL_KERNELS[m.group(1)]] += 1
+        if traced == want:
+            return {"traced": traced, "issued": issued, "device_busy_share": busy / wall_us}
+        print(f"  {what}: trace {attempt + 1} shows launches {traced}, want {want}; taken "
+              "again", flush=True)
+    raise AssertionError(f"{what}: {attempts} traces in a row show other launches than {want}")
+
+
+def sync_checked_first_run(model, data, batch: int, dev) -> dict:
+    """The device route's first run of ``model`` over ``data`` (its chunks
+    eager) under ``torch.cuda.set_sync_debug_mode("error")``: a host sync in
+    an evaluation step raises here, where a capture would fail later. The
+    eval pack is uploaded before, and the metrics' constants. Returns the
+    evaluation's results."""
+    from models_tpu_torch.data import Loader
+    from models_tpu_torch.models.base import _fetch
+
+    loader = Loader(data, batch)
+    loss_fns, task_metrics = model._resolve_task_losses(), model._resolve_task_metrics()
+    run = model._try_device_eval(loader, loss_fns, task_metrics, dev)
+    require(run is not None, "the eval route refused a dataset of every row")
+    # the metrics' constants (the AUC's thresholds) are uploaded once a process
+    # and device, when a state is first made, before any chunk: made here
+    model._init_metric_states(task_metrics, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states, acc = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    results = _fetch(model._eval_values(states, acc, task_metrics))
+    return {"loss": results.pop("loss"), **results}
+
+
+def eval_case(model, data, batch: int, dev, what: str, rows: int, traced: dict) -> dict:
+    """One evaluation both ways: streaming (one call to warm, EVAL_TIMED
+    timed), then the device route from its first run (the model's eval
+    graphs dropped first): eager under the sync check, captured, EVAL_TIMED
+    replays timed. Every result equal to the first bit for bit; one replayed
+    call traced, its kernels by wrapper as ``traced`` says (the others of
+    EVAL_TRACED never) and no wrapper called; at most two graphs for the
+    dataset and batch size. Each route's wrapper launches are counted from
+    zero around its calls."""
+    call = lambda: model.evaluate(data, batch_size=batch, device=dev)  # noqa: E731
+
+    def timed(results):
+        times = []
+        for _ in range(EVAL_TIMED):
+            t = time.perf_counter()
+            results.append(call())  # ends in the copy of its results to the host
+            times.append(time.perf_counter() - t)
+        return float(np.median(times))
+
+    streamed = []
+    with streaming_evaluate():
+        zero_eval_counters()
+        streamed.append(call())
+        stream_ln = eval_counters()
+        stream_s = timed(streamed)
+    model._eval_graphs.clear()
+    model._eval_graphs.stats.clear()
+    zero_eval_counters()
+    device = [sync_checked_first_run(model, data, batch, dev)]
+    t = time.perf_counter()
+    device.append(call())  # the capture
+    capture_call_s = time.perf_counter() - t
+    route_ln = eval_counters()
+    replay_s = timed(device)
+    want = streamed[0]
+    for i, res in enumerate(streamed[1:] + device):
+        require(list(res) == list(want), f"{what}: keys {list(res)} vs {list(want)}")
+        differ = {k: (res[k], want[k]) for k in want if res[k] != want[k]}
+        require(not differ, f"{what}: call {i + 2} differs from the first streaming call in "
+                f"{differ}")
+    trace = traced_eval(call, what, {n: traced.get(n, 0) for n in EVAL_TRACED})
+    require(not any(trace["issued"].values()),
+            f"{what}: a replayed evaluate called a wrapper: {trace['issued']}")
+    graphs = [{"batches": key[0], **v} for key, v in model._eval_graphs.stats.items()]
+    require(1 <= len(model._eval_graphs) <= 2, f"{what}: eval graphs {graphs}")
+    out = {"rows": rows, "batch": batch, "results": want,
+           "streaming_examples_per_sec": rows / stream_s,
+           "device_route_examples_per_sec": rows / replay_s,
+           "capture_call_s": capture_call_s, "graphs": graphs,
+           "launches_streaming": stream_ln, "launches_device_route": route_ln,
+           "launches_replay_traced": trace["traced"],
+           "replay_device_busy_share": trace["device_busy_share"]}
+    print(f"  {what}: {len(streamed)} streaming calls and {len(device)} on the device route "
+          f"(eager under the sync check, captured, {EVAL_TIMED} replays) bit-equal; "
+          f"examples/s streaming {out['streaming_examples_per_sec']:.0f}, device route "
+          f"{out['device_route_examples_per_sec']:.0f}; graphs {graphs}; launches streaming "
+          f"{stream_ln}, device route (eager + capture) {route_ln}, traced in one replayed "
+          f"call {trace['traced']}, busy {trace['device_busy_share']:.3f}", flush=True)
+    return out
+
+
+def validated_fit(dev, catalog, train, val, fused: bool) -> tuple:
+    """The bench's two-tower compiled with k = 8 steps a chunk (the training
+    pack's route) and the default metrics, fit VAL_EPOCHS epochs with
+    ``validation_data``, deterministic algorithms on: with no callback the
+    validation rides the epoch's device work (``fused``), with a no-op
+    callback it is a separate ``evaluate`` an epoch. Then one more epoch,
+    timed (every graph captured). Returns (history, the timed epoch's
+    seconds, its copies to the host, the model)."""
+
+    class Noop:
+        pass
+
+    model = evaluate_model(dev, catalog)
+    model.compile(optimizer="adagrad", learning_rate=0.05, steps_per_execution=8)
+    callbacks = None if fused else [Noop()]
+    kw = dict(batch_size=TRAIN_BATCH, shuffle=False, validation_data=val, device=dev,
+              callbacks=callbacks, verbose=0)
+    with deterministic(True):
+        hist = model.fit(train, epochs=VAL_EPOCHS, **kw).history
+        fetches = []
+        with counted_fetches(fetches):
+            t = time.perf_counter()
+            model.fit(train, epochs=1, **kw)
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t
+    return hist, epoch_s, len(fetches), model
+
+
+def prefetch_fit(dev, catalog, data, timed_data, in_line: bool):
+    """A fresh seeded two-tower at the bench's width (no metrics) fit one
+    epoch of ``data`` one step at a time with deterministic algorithms on,
+    each batch through ``_device_prefetch`` or, with ``in_line``, copied in
+    line. Returns (the model, the fit's losses, a function that runs
+    PREFETCH_FITS more fits of one epoch of ``timed_data``, deterministic
+    algorithms off, and returns their median ms a step, host clock)."""
+    model = evaluate_model(dev, catalog)
+    model.compile(optimizer="adagrad", learning_rate=0.05, metrics=[])
+    steps = timed_data.num_rows // TRAIN_BATCH
+
+    def copies():
+        return batches_in_line() if in_line else contextlib.nullcontext()
+
+    def fit(ds):
+        return model.fit(ds, epochs=1, batch_size=TRAIN_BATCH, shuffle=False, verbose=0,
+                         device=dev).history["loss"]
+
+    with copies(), deterministic(True):
+        losses = fit(data)
+
+    def timed():
+        ms = []
+        with copies():
+            for _ in range(PREFETCH_FITS):
+                t = time.perf_counter()
+                fit(timed_data)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) / steps * 1e3)
+        return float(np.median(ms))
+
+    return model, losses, timed
+
+
+def copy_ms(dev, data, in_line: bool) -> float:
+    """Host ms a batch of copying ``data``'s batches of 8192 (assembled
+    beforehand) to the card and waiting for them, through
+    ``_device_prefetch`` or in line: the copy's own cost, without a step to
+    overlap."""
+    from models_tpu_torch.data import Loader
+    from models_tpu_torch.models import base
+
+    host = list(Loader(data, TRAIN_BATCH))
+    send = in_line_batches if in_line else base._device_prefetch
+    ms = []
+    for _ in range(PREFETCH_FITS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in send(host, dev):
+            pass
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) / len(host) * 1e3)
+    return float(np.median(ms[1:]))
+
+
+def tiled(data, rows: int):
+    """``data``'s rows repeated to ``rows`` rows (made in a blink, where
+    synthesising them takes seconds)."""
+    from models_tpu_torch.data.dataset import take_rows
+
+    idx = np.resize(np.arange(data.num_rows), rows)
+    return data._from_cols(take_rows(data.to_numpy_dict(), idx))
+
+
+def eval_full_chunk(dev, model, data, graphs_8: list) -> dict:
+    """The in-batch evaluate over EVAL_CHUNK_BATCHES batches of 8192 (one
+    whole chunk: ``data``'s rows repeated) with phase 11's model, three
+    calls (eager, captured, replayed; each bit-equal to the first): its
+    graph's capture seconds and pool bytes beside the 8-batch chunk's
+    (``graphs_8``, eval_case's), so that the pool's growth with the chunk's
+    length is measured."""
+    from models_tpu_torch.models.base import EVAL_CHUNK_BATCHES
+
+    rows = EVAL_CHUNK_BATCHES * TRAIN_BATCH
+    big = tiled(data, rows)
+    model._eval_graphs.clear()
+    model._eval_graphs.stats.clear()
+    res = []
+    for _ in range(3):
+        t = time.perf_counter()
+        res.append(model.evaluate(big, batch_size=TRAIN_BATCH, device=dev))
+        res[-1]["_s"] = time.perf_counter() - t
+    for i, r in enumerate(res[1:]):
+        differ = {k: (r[k], res[0][k]) for k in res[0] if k != "_s" and r[k] != res[0][k]}
+        require(not differ, f"in-batch, one {EVAL_CHUNK_BATCHES}-batch chunk: call {i + 2} "
+                f"differs from the eager call in {differ}")
+    graphs = [{"batches": key[0], **v} for key, v in model._eval_graphs.stats.items()]
+    require(len(graphs) == 1 and graphs[0]["batches"] == EVAL_CHUNK_BATCHES,
+            f"in-batch, one {EVAL_CHUNK_BATCHES}-batch chunk: graphs {graphs}")
+    pool_8 = max(g["pool_bytes"] for g in graphs_8)
+    out = {"rows": rows, "batch": TRAIN_BATCH, "graphs": graphs, "pool_bytes_8": pool_8,
+           "pool_ratio_to_8": graphs[0]["pool_bytes"] / max(pool_8, 1),
+           "call_s": [r.pop("_s") for r in res]}
+    out["replay_examples_per_sec"] = rows / out["call_s"][2]
+    print(f"  in-batch, {rows} rows at {TRAIN_BATCH} (one {EVAL_CHUNK_BATCHES}-batch chunk): "
+          f"eager, captured and replayed calls bit-equal; the graph {graphs[0]}, pool "
+          f"{out['pool_ratio_to_8']:.3f} x the 8-batch chunk's {pool_8} bytes; calls "
+          f"{out['call_s']} s", flush=True)
+    big._device_eval_pack = None
+    model._eval_graphs.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_route_cases(dev, catalog, model, data) -> dict:
+    """Phase 11b's evaluations (eval_case): in-batch over ``data`` (65,536
+    rows) at 8192 with phase 11's model; the corpus over the 56,680-item
+    catalog, EVAL_QUERIES queries at 4096 (K6) and at 256 (K4, K5), fp32,
+    bf16 and int8 indexes (a top-k encoder held across calls), each replay
+    traced with the route's kernels as many times as it has batches;
+    the DLRM's binary head with AUC (criteo-small, 65,536 rows at 8192)."""
+    import models_tpu_torch as mt
+
+    gather = {"row_gather": 1}  # one chunk: K9 gathers its rows once
+    out = {"in_batch": eval_case(model, data, TRAIN_BATCH, dev,
+                                 "in-batch, 65,536 rows at 8192", data.num_rows, gather)}
+    encoders = {tag: model.to_top_k_encoder(catalog, k=K, candidate_dtype=dtype, device=dev)
+                for tag, dtype in (("fp32", None), ("bf16", torch.bfloat16),
+                                   ("int8", torch.int8))}
+    # each query labelled with an item the fp32 index ranks in its top 10,
+    # at rank r % 10 (as phase 11's): the metrics move with every rank
+    q_rows = data.take(EVAL_QUERIES)
+    top = encoders["fp32"].predict(q_rows, batch_size=4096, device=dev)
+    cols = q_rows.to_numpy_dict()
+    rows = np.arange(EVAL_QUERIES)
+    cols["movieId"] = top["ids"][rows, rows % K].astype(np.int32)
+    q_rows = mt.Dataset(cols, schema=q_rows.schema)
+    for batch, kernels in ((4096, ("streaming_topk",)), (256, ("bin_max", "binned_rescore"))):
+        # a call of B queries a batch: each batch's top-k on the route B takes
+        want = {**gather, **dict.fromkeys(kernels, EVAL_QUERIES // batch)}
+        for tag, enc in encoders.items():
+            case = f"corpus_{tag}_B{batch}"
+            res = eval_case(enc, q_rows, batch, dev, f"corpus, {tag} index, {EVAL_QUERIES} "
+                            f"queries at {batch}", EVAL_QUERIES, want)
+            require(0.0 < res["results"]["recall_at_10"],
+                    f"{case}: recall {res['results']['recall_at_10']} on labelled queries")
+            out[case] = res
+    del encoders
+    torch.cuda.empty_cache()
+
+    criteo = mt.generate_data("criteo-small", num_rows=8 * TRAIN_BATCH, seed=SEED + 11)
+    dlrm = dlrm_model(dev, criteo.schema)
+    dlrm.compile(optimizer="adagrad", learning_rate=0.05)
+    out["dlrm_auc"] = eval_case(dlrm, criteo, TRAIN_BATCH, dev,
+                                "DLRM, binary head with AUC, 65,536 rows at 8192",
+                                criteo.num_rows, gather)
+    require("label/auc" in out["dlrm_auc"]["results"], "the DLRM's evaluation has no AUC")
+    del dlrm, criteo
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_route_fits(dev, catalog, data, card) -> dict:
+    """Phase 11b's fits: ``fit(validation_data=)`` with the validation
+    inside the epoch's device work against a separate evaluate an epoch
+    (validated_fit: histories bit-equal, one copy to the host an epoch
+    against two, a timed epoch each), and the streaming fit one step at a
+    time with each batch prefetched against copied in line (prefetch_fit:
+    bit for bit, host ms a step in turns)."""
+    out = {}
+    val = data.take(EVAL_QUERIES)
+    fused_h, fused_s, fused_n, m1 = validated_fit(dev, catalog, data, val, fused=True)
+    separate_h, separate_s, separate_n, m2 = validated_fit(dev, catalog, data, val, fused=False)
+    require(list(fused_h) == list(separate_h), f"validated fit: keys {list(fused_h)} vs "
+            f"{list(separate_h)}")
+    differ = [k for k in fused_h if k != "examples_per_sec" and fused_h[k] != separate_h[k]]
+    require(not differ, f"validated fit: histories differ in {differ}")
+    require(fused_n == 1 and separate_n == 2,
+            f"validated fit: {fused_n} / {separate_n} copies to the host an epoch, want 1 / 2")
+    out["validated_fit"] = {
+        "epochs": VAL_EPOCHS, "train_rows": data.num_rows, "val_rows": val.num_rows,
+        "steps_per_execution": 8, "epoch_s": {"validation_inside": fused_s,
+                                              "separate_evaluate": separate_s},
+        "copies_an_epoch": {"validation_inside": fused_n, "separate_evaluate": separate_n},
+        "val_recall_at_10": fused_h["val_recall_at_10"],
+        "eval_graphs": list(m1._eval_graphs.stats.values())}
+    print(f"  validated fit: histories bit-equal over {VAL_EPOCHS} epochs; a timed epoch "
+          f"(8 steps a graph replay, {val.num_rows} rows validated) {fused_s:.4f} s with "
+          f"{fused_n} copy to the host, {separate_s:.4f} s with {separate_n}; {card}",
+          flush=True)
+    del m1, m2
+    torch.cuda.empty_cache()
+    stamp("the streaming step: each batch prefetched against copied in line")
+
+    timed_data = tiled(data, PREFETCH_TIMED_ROWS)
+    pm, p_losses, p_timed = prefetch_fit(dev, catalog, data, timed_data, in_line=False)
+    im, i_losses, i_timed = prefetch_fit(dev, catalog, data, timed_data, in_line=True)
+    require(p_losses == i_losses, f"prefetched fit: losses {p_losses} vs in line {i_losses}")
+    require(same_params(pm, im), f"prefetched fit: parameters differ from the in-line fit: "
+            f"{param_spread(pm, im)}")
+    ms = {"prefetched": [], "in_line": []}
+    for turn in PREFETCH_TURNS:
+        ms[turn].append(p_timed() if turn == "prefetched" else i_timed())
+    copies = {"prefetched": copy_ms(dev, data, False), "in_line": copy_ms(dev, data, True)}
+    out["prefetch_ms_per_step"] = ms
+    out["prefetch_timed_steps"] = PREFETCH_TIMED_ROWS // TRAIN_BATCH
+    out["copy_ms_per_batch"] = copies
+    steps, timed_steps = data.num_rows // TRAIN_BATCH, PREFETCH_TIMED_ROWS // TRAIN_BATCH
+    print(f"  streaming fit one step at a time: prefetched bit-equal to in line over {steps} "
+          f"steps (deterministic algorithms); ms a step (host clock, median of "
+          f"{PREFETCH_FITS} fits of {timed_steps} steps a turn), turns PIIPPIIP: "
+          f"{json.dumps(ms)}; "
+          f"the copies alone, ms a batch: {json.dumps(copies)}; {card}", flush=True)
+    del pm, im
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_eval_route(dev, catalog, model, data, card):
+    """The device-resident ``evaluate`` (the eval pack, chunks of batches,
+    each chunk one CUDA graph replay from the third call on) against the
+    streaming route, bit for bit, at the bench's width (eval_route_cases),
+    each case's first device-route run under the sync check and K4, K5, K6
+    and K9 counted in a traced replay; one whole in-batch chunk's pool
+    (eval_full_chunk); then validation inside ``fit`` and the streaming
+    step's device prefetch (eval_route_fits). Returns (the
+    numbers, the evaluations' numbers by case)."""
+    t_phase = time.perf_counter()
+    cases = eval_route_cases(dev, catalog, model, data)
+    full = eval_full_chunk(dev, model, data, cases["in_batch"]["graphs"])
+    stamp("fit(validation_data=): validation inside the epoch against a separate evaluate")
+    out = {"card": card, **cases, "in_batch_full_chunk": full,
+           **eval_route_fits(dev, catalog, data, card)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, cases
 
 
 def topk_1m_times(dev, gen, errs):
@@ -7403,9 +7889,15 @@ def phase_parquet(dev, card) -> tuple:
             require(len(loader._chunk_list()) == groups, "parquet: the loader's chunks")
             runs[f"stream_prefetch{prefetch}"] = parquet_fit(dev, ml.schema, loader,
                                                              f"streaming fit, prefetch={prefetch}")
+        with batches_in_line():  # the device prefetch's control: each batch copied in line
+            loader = mt.Loader(ml_path, TRAIN_BATCH, shuffle=False, drop_last=True, prefetch=2,
+                               cache=False)
+            runs["stream_prefetch2_in_line"] = parquet_fit(
+                dev, ml.schema, loader, "streaming fit, prefetch=2, batches copied in line")
         runs["memory"] = parquet_fit(dev, ml.schema, memory, "in-memory fit")
         h0, m0, _, _ = runs["memory_first"]
-        for name in ("stream_prefetch2", "stream_prefetch0", "memory"):
+        for name in ("stream_prefetch2", "stream_prefetch0", "stream_prefetch2_in_line",
+                     "memory"):
             h, m, ln, _ = runs[name]
             require(h["loss"] == h0["loss"], f"{name}: losses {h['loss']} / {h0['loss']}")
             require(same_params(m, m0), f"{name}: parameters differ from the in-memory fit: "
@@ -7891,7 +8383,23 @@ def main() -> int:
     stamp("evaluation times")
     etimes = evaluate_times(dev, emodel, edata, catalog)
     print("evaluation " + json.dumps(etimes), flush=True)
+    stamp("phase 11b: the device-resident evaluate (the eval pack, chunks of batches as CUDA "
+          "graph replays; K4-K6 and K9 traced in the replays) against the streaming route, "
+          "validation inside fit, the streaming step's device prefetch")
+    eval_route, eval_ln = phase_eval_route(dev, catalog, emodel, edata, card)
+    print("eval_route " + json.dumps(eval_route), flush=True)
+    del emodel
+    torch.cuda.empty_cache()
     rows += int8_rows
+    for row in rows:  # the eval route's launches: its wrappers' (eager and capture), a replay's
+        name = row["name"].removesuffix("_int8")
+        mine = eval_ln if name not in EVAL_TRACED[:3] else {
+            case: v for case, v in eval_ln.items()
+            if case.startswith("corpus_int8") == row["name"].endswith("_int8")}
+        row["launches_eval_route"] = sum(v["launches_device_route"].get(name, 0)
+                                         for v in mine.values())
+        row["launches_eval_route_traced"] = sum(v["launches_replay_traced"].get(name, 0)
+                                                for v in mine.values())
     for row in rows:  # the graph route's replays, counted in their traces
         if row["name"] in spe_traced:
             row["launches_replayed_traced"] = spe_traced[row["name"]]

@@ -12,7 +12,7 @@ at once. The binary metrics take logits and apply the sigmoid themselves.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -154,6 +154,12 @@ def auc_thresholds(num: int, eps: float = 1e-7) -> np.ndarray:
     return np.concatenate([out, [stop]]).astype(f32)
 
 
+# each (count, device)'s thresholds, uploaded once a process and kept: a
+# captured graph reads them by address, so they must outlive the metric
+# objects that a fit or an evaluate resolves anew each call
+_THRESHOLDS: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
 @metric_registry.register("auc")
 class AUC(Metric):
     """Streaming ROC-AUC from threshold-bucketed confusion counts (200
@@ -166,15 +172,15 @@ class AUC(Metric):
     def __init__(self, num_thresholds: int = 200, name: str = "auc"):
         super().__init__(name)
         self.num_thresholds = num_thresholds
-        self._thresholds: Dict[torch.device, torch.Tensor] = {}
 
     def thresholds(self, device) -> torch.Tensor:
-        """The thresholds on ``device``, uploaded once (by ``init_state``,
-        outside any captured graph)."""
-        dev = torch.device(device if device is not None else "cpu")
-        if dev not in self._thresholds:
-            self._thresholds[dev] = torch.from_numpy(auc_thresholds(self.num_thresholds)).to(dev)
-        return self._thresholds[dev]
+        """The thresholds on ``device``, uploaded once a process (by
+        ``init_state``, outside any captured graph) and shared by every AUC
+        of that count."""
+        key = (self.num_thresholds, torch.device(device if device is not None else "cpu"))
+        if key not in _THRESHOLDS:
+            _THRESHOLDS[key] = torch.from_numpy(auc_thresholds(self.num_thresholds)).to(key[1])
+        return _THRESHOLDS[key]
 
     def init_state(self, device=None):
         self.thresholds(device)

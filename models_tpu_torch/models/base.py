@@ -38,6 +38,21 @@ each length bucket's rows form a group with its own pack and graphs
 positions into rows: the loader's row validity repeats over them
 (``_merge_row_valid``), and (B, L, C) outputs flatten for the metrics.
 
+``evaluate`` goes device-resident where the JAX package's does (no ``pre``,
+no mesh, ``jit``, every batch, one process's loader of every row at
+``pad="max"``): the dataset's columns (at most 1 GiB) are packed once into
+an eval pack padded with zero rows to whole batches (cached on the dataset,
+for at most two datasets), and chunks of at most ``EVAL_CHUNK_BATCHES``
+batches run the streaming route's step on slices of it, the padding masked
+by the row validity; on CUDA under ``jit`` each chunk is a CUDA graph replay
+(``_eval_graphs``), on the CPU the same chunk runs eagerly. ``fit(
+validation_data=)`` validates through it, and where the JAX package fuses
+validation into its epochs (the training pack, no callbacks, every epoch,
+every batch) the validation chunks follow the epoch's last chunk, the two
+logs fetched in one copy. Elsewhere ``fit`` (one step at a time) and
+``evaluate`` stream, each batch copied to the device one batch ahead of its
+step (``_device_prefetch``: pinned memory, a copy stream).
+
 ``fit(mesh=)`` trains on a mesh of ranks (``parallel/mesh.py``), one step at
 a time as the JAX package does there, no step captured in a CUDA graph.
 Every rank runs the same loader; each keeps its data slice of every batch
@@ -64,8 +79,7 @@ tables out of the sparse update); a fit with frozen blocks or a
 :class:`~models_tpu_torch.blocks.optimizer.MultiOptimizer`, and the first
 plain fit after one, starts from fresh optimizer slots and step 0, as the
 JAX package's does (it rebuilds its transform), and so does a fit on
-another mesh than the optimizer's (its ``fingerprint``). Not ported yet
-(ROADMAP.md queue 1): the device-resident ``evaluate`` and validation.
+another mesh than the optimizer's (its ``fingerprint``).
 """
 
 from __future__ import annotations
@@ -74,6 +88,7 @@ import time
 import warnings
 import weakref
 from collections import deque
+from itertools import islice
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -100,12 +115,24 @@ from ..outputs.base import BinaryOutput, ModelOutput
 from ..outputs.queue import apply_state_updates
 from ..parallel import mesh as pmesh
 from ..parallel.collectives import all_gather, all_reduce, all_reduce_tree, data_scope
-from .step_graph import ChunkGraphs
+from .step_graph import ChunkGraphs, eval_tensors
 
 # the datasets that keep a device-resident training pack: at most two
 _TRAIN_PACK_LRU: deque = deque()
 # the largest pack fit uploads (the JAX package's limit)
 MAX_PACK_BYTES = 2 << 30
+# the datasets that keep a device-resident eval pack: at most two
+_EVAL_PACK_LRU: deque = deque()
+# the largest eval pack evaluate uploads (the JAX package's limit)
+MAX_EVAL_PACK_BYTES = 1 << 30
+# the device prefetch's copy stream, one a device for the process: the
+# caching allocator keeps a stream's freed blocks for that stream, so a
+# stream taken anew each call would allocate its batches from no blocks
+_COPY_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+# the batches an evaluation chunk runs (one CUDA graph replay on the card):
+# an eval set of more batches takes chunks of this many and one shorter
+# chunk for the rest, so at most two captures a (dataset, batch size)
+EVAL_CHUNK_BATCHES = 64
 
 
 class DevicePack(NamedTuple):
@@ -136,6 +163,152 @@ def _keep_pack(ds: Dataset) -> None:
         old = _TRAIN_PACK_LRU.popleft()()
         if old is not None and old is not ds:
             old._device_train_pack = old._device_bucket_groups = None
+
+
+def _keep_eval_pack(ds: Dataset) -> None:
+    """Note that ``ds`` keeps a device-resident eval pack: at most two
+    datasets do, the least recently packed dropping theirs first (a dataset
+    packed again, at another batch size, counts once)."""
+    for ref in [r for r in _EVAL_PACK_LRU if r() is ds or r() is None]:
+        _EVAL_PACK_LRU.remove(ref)
+    _EVAL_PACK_LRU.append(weakref.ref(ds))
+    while len(_EVAL_PACK_LRU) > 2:
+        old = _EVAL_PACK_LRU.popleft()()
+        if old is not None and old is not ds:
+            old._device_eval_pack = None
+
+
+def _batch_arrays(x, y) -> Tuple[tuple, List[np.ndarray]]:
+    """A host batch's structure and its arrays in that order: ``features``
+    (a dict of arrays and :class:`SequenceFeature`, each a list column's
+    values then its mask) and ``targets`` (None, one of those or a dict of
+    them). The structure names each feature and target and says which are
+    list columns."""
+    arrays: List[np.ndarray] = []
+
+    def take(v) -> bool:
+        if isinstance(v, SequenceFeature):
+            arrays.extend((np.asarray(v.values), np.asarray(v.mask)))
+            return True
+        arrays.append(np.asarray(v))
+        return False
+
+    xs = tuple((k, take(v)) for k, v in x.items())
+    ys = (tuple((k, take(v)) for k, v in y.items()) if isinstance(y, dict)
+          else None if y is None else take(y))
+    return (xs, ys), arrays
+
+
+class _BatchLayout:
+    """Where the arrays of host batches of one structure, dtypes and shapes
+    lie in ONE uint8 buffer, each at a 16-byte aligned offset; ``SLOTS``
+    such host buffers (pinned with ``pin``), allocated once and written in
+    turn (:meth:`fill`); and the batch rebuilt as views of a buffer, that
+    buffer or its copy on another device, one ``as_strided`` an array
+    (:meth:`rebuild`). One buffer makes one copy a batch."""
+
+    SLOTS = 2
+
+    def __init__(self, structure: tuple, arrays: List[np.ndarray], pin: bool):
+        self.structure = structure
+        self.plan = []  # (dtype, shape, strides, offset in elements) an array
+        offsets, total = [], 0
+        for a in arrays:
+            strides, n = [], 1
+            for d in reversed(a.shape):
+                strides.append(n)
+                n *= d
+            self.plan.append((torch.from_numpy(np.empty(0, a.dtype)).dtype, a.shape,
+                              tuple(reversed(strides)), total // a.itemsize))
+            offsets.append(total)
+            total += -(-a.nbytes // 16) * 16
+        self.nbytes = max(total, 16)
+        self.dtypes = sorted({p[0] for p in self.plan}, key=str)
+        self.hosts = [torch.empty(self.nbytes, dtype=torch.uint8, pin_memory=pin)
+                      for _ in range(self.SLOTS)]
+        self.views = [[host.numpy()[off:off + a.nbytes].view(a.dtype).reshape(a.shape)
+                       for a, off in zip(arrays, offsets)] for host in self.hosts]
+        # the event of the copy that read each host buffer last (None: none)
+        self.done: List[Optional[torch.cuda.Event]] = [None] * self.SLOTS
+        self._turn = 0
+
+    def fill(self, arrays: List[np.ndarray]) -> int:
+        """Write a batch's arrays into the next host buffer, once the copy
+        that read it last has ended (``done``), and return its index."""
+        i, self._turn = self._turn, (self._turn + 1) % self.SLOTS
+        if self.done[i] is not None:
+            self.done[i].synchronize()
+        for view, a in zip(self.views[i], arrays):
+            np.copyto(view, a)
+        return i
+
+    def rebuild(self, buf: torch.Tensor) -> tuple:
+        """``(features, targets)`` as views of ``buf``, each array's dtype
+        and shape kept."""
+        typed = {dt: buf.view(dt) for dt in self.dtypes}
+        it = iter([typed[dt].as_strided(shape, strides, off)
+                   for dt, shape, strides, off in self.plan])
+
+        def build(seq: bool):
+            return SequenceFeature(next(it), next(it)) if seq else next(it)
+
+        xs, ys = self.structure
+        fx = {k: build(seq) for k, seq in xs}
+        if isinstance(ys, tuple):
+            return fx, {k: build(seq) for k, seq in ys}
+        return fx, None if ys is None else build(ys)
+
+
+def _device_prefetch(batches, dev: torch.device):
+    """The host batches ``(features, targets)`` of ``batches`` on ``dev``,
+    one batch ahead of the step that takes it (the JAX package's
+    ``_device_prefetch`` at depth 1). On the card each batch's arrays are
+    written into one of two pinned host buffers of its layout
+    (:class:`_BatchLayout`, allocated once a layout) and sent in one
+    ``non_blocking`` copy on the device's copy stream (``_COPY_STREAMS``),
+    so that the next batch's copy overlaps this batch's step; the host
+    writes a buffer again only after its last copy has ended, the step's
+    stream waits on the copy's event before it reads the batch, and the
+    device buffer is recorded on that stream, so that the allocator reuses
+    it only after the step. On the CPU the batches are made one ahead and
+    nothing is copied."""
+    copy = None
+    if dev.type == "cuda":
+        copy = _COPY_STREAMS.get(dev)
+        if copy is None:
+            copy = _COPY_STREAMS[dev] = torch.cuda.Stream(dev)
+    layouts: Dict[tuple, _BatchLayout] = {}
+
+    def send(x, y):
+        if copy is None:
+            return (to_device_batch(x, dev), to_device_targets(y, dev)), None, None
+        structure, arrays = _batch_arrays(x, y)
+        key = (structure, tuple((a.dtype, a.shape) for a in arrays))
+        layout = layouts.get(key)
+        if layout is None:
+            layout = layouts[key] = _BatchLayout(structure, arrays, pin=True)
+        i = layout.fill(arrays)
+        with torch.cuda.stream(copy):
+            buf = torch.empty(layout.nbytes, dtype=torch.uint8, device=dev)
+            buf.copy_(layout.hosts[i], non_blocking=True)
+            done = layout.done[i] = torch.cuda.Event()
+            done.record(copy)
+        return layout.rebuild(buf), buf, done
+
+    def arrived(batch, buf, done):
+        if done is not None:
+            step = torch.cuda.current_stream(dev)
+            step.wait_event(done)
+            buf.record_stream(step)
+        return batch
+
+    ahead = deque()
+    for x, y in batches:
+        ahead.append(send(x, y))
+        if len(ahead) > 1:
+            yield arrived(*ahead.popleft())
+    while ahead:
+        yield arrived(*ahead.popleft())
 
 
 def _unwrap_targets(pred: Prediction):
@@ -370,6 +543,7 @@ class BaseModel(Block):
         # optimizer, losses and metrics resolved when it was captured
         self._chunk_graphs = ChunkGraphs()
         self._group_graphs: Dict[int, ChunkGraphs] = {}
+        self._eval_graphs = ChunkGraphs(eval_tensors)
         self._optimizer = None
         self._plain_optimizer = True
         self._frozen_ids: frozenset = frozenset()
@@ -756,19 +930,14 @@ class BaseModel(Block):
             self._check_replicas(mesh)
         pmesh.shard_state(self, mesh, shard_rules)
 
-    def _mesh_batches(self, loader, mesh, dev, steps: Optional[int]):
-        """This rank's slice of each of the loader's batches, on the device,
-        one batch ahead of the step that takes it."""
-        ahead = deque()
-        for step, (x, y) in enumerate(loader):
-            if steps is not None and step >= steps:
-                break
-            x, y = pmesh.shard_batch(x, mesh), pmesh.shard_batch(y, mesh)
-            ahead.append((step, to_device_batch(x, dev), to_device_targets(y, dev)))
-            if len(ahead) > 1:
-                yield ahead.popleft()
-        while ahead:
-            yield ahead.popleft()
+    @staticmethod
+    def _mesh_batches(loader, mesh, dev, steps: Optional[int]):
+        """This rank's slice of each of the loader's first ``steps`` batches
+        (all where None), on the device, one batch ahead of the step that
+        takes it (:func:`_device_prefetch`: the JAX package's
+        ``_mesh_prefetch``)."""
+        return _device_prefetch(((pmesh.shard_batch(x, mesh), pmesh.shard_batch(y, mesh))
+                                 for x, y in islice(loader, steps)), dev)
 
     # ------------------------------------------------------------------
     # k steps a chunk (steps_per_execution)
@@ -862,7 +1031,7 @@ class BaseModel(Block):
         cached = getattr(ds, "_device_train_pack", None)
         if cached is not None and cached.packed.device == dev:
             return cached
-        try:
+        try:  # refuses a dataset with no rows, among others
             feats, targets, n_rows = loader.dense_columns()
         except ValueError:
             return None
@@ -909,6 +1078,115 @@ class BaseModel(Block):
         if sum(g.n_rows // B * B for _, g in groups) < 0.8 * total:
             return None
         return groups
+
+    @staticmethod
+    def _pack_for_eval(loader: Loader, dev: torch.device) -> Optional[DevicePack]:
+        """The eval loader's dataset as one packed matrix on ``dev`` (the
+        training pack's layout), padded with zero rows to whole batches: the
+        rows the loader pads its last batch with, which the evaluation chunk
+        masks by ``__row_valid__``; ``n_rows`` is the real row count. Cached
+        on the dataset (``_device_eval_pack``, by batch size and device; at
+        most two datasets keep one, the least recently packed dropped
+        first). None where the JAX package's ``_pack_for_eval`` refuses: a
+        process's share of the rows (``global_size``), a per-batch
+        ``transform``, ``pad="bucket"``, a loader that drops its last partial
+        batch (streaming would drop its rows), no rows, or columns of more
+        than 1 GiB."""
+        if (loader.global_size != 1 or loader.transform is not None
+                or getattr(loader, "pad", "max") != "max" or loader.drop_last):
+            return None
+        B = loader.batch_size
+        ds = loader.dataset
+        cached = getattr(ds, "_device_eval_pack", None)
+        if cached is not None and cached[0] == B and cached[1].packed.device == dev:
+            return cached[1]
+        try:  # refuses a dataset with no rows, among others
+            feats, targets, n_rows = loader.dense_columns()
+        except ValueError:
+            return None
+        leaves, _ = Model._column_leaves(feats, targets)
+        if sum(np.asarray(leaf[-1]).nbytes for leaf in leaves) > MAX_EVAL_PACK_BYTES:
+            return None
+        packed, spec = Model._pack_device_columns(feats, targets, n_rows)
+        packed = np.pad(packed, ((0, -n_rows % B), (0, 0)))
+        pack = DevicePack(n_rows, spec, torch.as_tensor(packed, device=dev))
+        ds._device_eval_pack = (B, pack)
+        _keep_eval_pack(ds)
+        return pack
+
+    def _eval_step(self, x, y, loss_fns, task_metrics, states, acc: Dict[str, torch.Tensor],
+                   mesh=None) -> Dict[str, torch.Tensor]:
+        """One evaluation step on a batch on the device, the same on every
+        route: the heads' evaluation branch (``testing``, with logits), the
+        metric ``states`` updated in place. Returns ``acc`` with the batch's
+        loss added to ``"total"`` and 1 to ``"count"``."""
+        context = ModelContext(features=x, targets=y, testing=True, need_logits=True)
+        if mesh is not None:
+            context["mesh"] = mesh
+        with data_scope(mesh.group(pmesh.DATA_AXIS) if mesh is not None else None):
+            preds = self(x, targets=y, training=False, context=context)
+            pred_dict = self._as_pred_dict(preds)
+            total, _ = self._compute_losses(pred_dict, x, loss_fns)
+        self._update_metrics(states, pred_dict, x, task_metrics)
+        return {"total": acc["total"] + total, "count": acc["count"] + 1.0}
+
+    def _eval_chunk_fn(self, k: int, batch_size: int, n_rows: int, spec: tuple, loss_fns,
+                       task_metrics) -> Callable:
+        """``fn(source, idx, states) -> (logs, states)``: the eval pack's rows
+        at ``idx`` (k whole batches) gathered (K9, one launch), then k
+        evaluation steps (:meth:`_eval_step`) on contiguous (batch_size, F)
+        slices of them, each slice's ``__row_valid__`` its rows below
+        ``n_rows``. ``states`` is ``(metric states, {"total", "count"})``,
+        all on the device; no logs. The model's step count does not move
+        (the JAX package's ``_device_eval_scan``)."""
+        unpack = self._make_unpack(spec)
+
+        def fn(source: torch.Tensor, idx: torch.Tensor, states):
+            metric_states, acc = states
+            with torch.no_grad():
+                rows = row_gather(source, idx)
+                for i in range(k):
+                    x, y = unpack(rows[i * batch_size:(i + 1) * batch_size])
+                    x[ROW_VALID_KEY] = idx[i * batch_size:(i + 1) * batch_size] < n_rows
+                    acc = self._eval_step(x, y, loss_fns, task_metrics, metric_states, acc)
+            return {}, (metric_states, acc)
+
+        return fn
+
+    def _try_device_eval(self, loader: Loader, loss_fns, task_metrics,
+                         dev: torch.device) -> Optional[Callable]:
+        """The device-resident evaluation of the loader's dataset (the JAX
+        package's ``_try_device_eval``): ``run() -> (metric states, {"total",
+        "count"})`` over its eval pack (:meth:`_pack_for_eval`), or None
+        where it has none. ``run`` takes the pack in chunks of at most
+        EVAL_CHUNK_BATCHES batches (:meth:`_eval_chunk_fn`), each one CUDA
+        graph replay on the card (``_eval_graphs``, keyed by the chunk's
+        batches, the batch size, the row count, the pack's layout with its
+        column names, and the dtype policy; the first call of a key eager,
+        the second captured), eagerly on the CPU. The batches are the
+        streaming route's, padding included, and each step is its step: the
+        two routes agree bit for bit."""
+        pack = self._pack_for_eval(loader, dev)
+        if pack is None:
+            return None
+        B = loader.batch_size
+        n_batches = pack.packed.shape[0] // B
+
+        def run():
+            states = (self._init_metric_states(task_metrics, dev),
+                      {"total": torch.zeros((), device=dev), "count": torch.zeros((), device=dev)})
+            for start in range(0, n_batches, EVAL_CHUNK_BATCHES):
+                k = min(EVAL_CHUNK_BATCHES, n_batches - start)
+                idx = torch.arange(start * B, (start + k) * B, dtype=torch.int32, device=dev)
+                fn = self._eval_chunk_fn(k, B, pack.n_rows, pack.spec, loss_fns, task_metrics)
+                if dev.type == "cuda":
+                    key = (k, B, pack.n_rows, pack.spec, get_dtype_policy())
+                    _, states = self._eval_graphs.run(self, key, fn, pack.packed, idx, states, 0)
+                else:
+                    _, states = fn(pack.packed, idx, states)
+            return states
+
+        return run
 
     def _chunk_fn(self, k: int, batch_size: int, spec: tuple, loss_fns, task_metrics,
                   with_metrics: bool) -> Callable:
@@ -1012,9 +1290,15 @@ class BaseModel(Block):
         epoch's mean step log, the metrics over its metric steps, plus
         ``examples_per_sec`` (host clock); with ``validation_data``, every
         ``validation_freq``-th epoch adds :meth:`evaluate`'s results under
-        ``val_<name>``. With ``compile(steps_per_execution=k)``, k steps a
-        chunk (the module's note); the batches and their order are the
-        streaming route's.
+        ``val_<name>`` (on its device route where it takes one; on the
+        training pack's route with no callbacks, every epoch validated over
+        every batch and no step but a chunk's first differing, the
+        validation follows the epoch's last chunk and one copy to the host
+        brings both logs, ``examples_per_sec`` then timing both). With
+        ``compile(steps_per_execution=k)``, k steps a chunk (the module's
+        note); the batches and their order are the streaming route's.
+        Streamed one step at a time without ``pre``, each batch is copied to
+        the device one batch ahead of its step.
 
         ``pre``: a transform of each batch on the device before its step
         (``SequencePredictNext``, ``SequenceMaskRandom``, ...), run inside
@@ -1136,9 +1420,19 @@ class BaseModel(Block):
 
         # The JAX package also fuses every epoch into one program where no
         # step but the first of a chunk differs (train_metrics_steps == 1 or no
-        # metrics) and no validation intervenes. Here that program is the
+        # metrics), with no callbacks, the validation of every epoch over every
+        # batch (validation_freq == 1, no validation_steps) scanned on the
+        # device right after its training steps. Here that program is the
         # chunk itself: its graph is replayed once per chunk of each epoch and
-        # computes what the fused epochs compute, with one fetch an epoch.
+        # computes what the fused epochs compute, and under those conditions
+        # the device route's validation chunks follow the epoch's last chunk,
+        # with one fetch an epoch for the training and the val_ logs.
+        val_run = None
+        if (validation_data is not None and pack is not None and not callbacks
+                and validation_freq == 1 and validation_steps is None
+                and (self.train_metrics_steps == 1 or not has_metrics)):
+            val_run = self._eval_route(self._eval_loader(validation_data, batch_size or B),
+                                       loss_fns, task_metrics, dev)
         history = History()
         for epoch in range(initial_epoch, epochs):
             hook("on_epoch_begin", epoch)
@@ -1185,7 +1479,14 @@ class BaseModel(Block):
                         local += k
                         chunk_done(local - 1, logs)
             elif mesh is not None:
-                for step, xb, yb in self._mesh_batches(loader, mesh, dev, steps_per_epoch):
+                for step, (xb, yb) in enumerate(
+                        self._mesh_batches(loader, mesh, dev, steps_per_epoch)):
+                    single(step, xb, yb)
+            elif spe == 1 and self._pre_transform is None:
+                # each batch copied one batch ahead of its step, as the JAX
+                # package's streaming fit (in line with a transform)
+                for step, (xb, yb) in enumerate(
+                        _device_prefetch(islice(loader, steps_per_epoch), dev)):
                     single(step, xb, yb)
             else:
                 chunk, taken = [], 0
@@ -1214,9 +1515,23 @@ class BaseModel(Block):
                 values = self._data_mean(values, mesh)
                 all_reduce_tree(states, mesh.group(pmesh.DATA_AXIS))
             values.update(self._metric_results(states, task_metrics))
-            epoch_logs = _fetch(values)  # one copy to the host per epoch
-            epoch_logs["examples_per_sec"] = n_examples / max(time.perf_counter() - t0, 1e-9)
-            if validation_data is not None and (epoch + 1) % validation_freq == 0:
+            if val_run is not None:
+                # the validation follows the epoch's device work: the training
+                # and val_ logs in one copy, in the keys' order of the two;
+                # examples_per_sec then times both, as the JAX package's fused
+                # epochs (their one program's wall) do
+                val = self._eval_values(*val_run(), task_metrics)
+                both = _fetch({**values, **{f"val_{k}": v for k, v in val.items()}})
+                epoch_logs = {k: both[k] for k in sorted(values)}
+                epoch_logs["examples_per_sec"] = n_examples / max(time.perf_counter() - t0, 1e-9)
+                epoch_logs.update((k, both[k]) for k in ["val_loss"] + sorted(
+                    f"val_{k}" for k in val if k != "loss"))
+            else:
+                epoch_logs = _fetch(values)  # one copy to the host per epoch
+                epoch_logs["examples_per_sec"] = n_examples / max(time.perf_counter() - t0,
+                                                                  1e-9)
+            if val_run is None and validation_data is not None \
+                    and (epoch + 1) % validation_freq == 0:
                 val = self.evaluate(validation_data, batch_size=batch_size or B,
                                     steps=validation_steps, device=dev)
                 epoch_logs.update({f"val_{k}": v for k, v in val.items()})
@@ -1231,6 +1546,21 @@ class BaseModel(Block):
         self.history = history
         return history
 
+    def _eval_route(self, loader: Loader, loss_fns, task_metrics, dev: torch.device,
+                    pre=None, steps: Optional[int] = None) -> Optional[Callable]:
+        """The device route's ``run`` (:meth:`_try_device_eval`) where the
+        JAX package's ``evaluate`` takes it: no ``pre``, no mesh, ``jit``,
+        every batch (no ``steps``) and an eval pack (which the loader's own
+        conditions refuse: :meth:`_pack_for_eval`); else None, and the
+        evaluation streams."""
+        if pre is None and self._mesh is None and self._jit and steps is None:
+            return self._try_device_eval(loader, loss_fns, task_metrics, dev)
+        return None
+
+    @staticmethod
+    def _eval_loader(data: Union[Dataset, Loader], batch_size: Optional[int]) -> Loader:
+        return data if isinstance(data, Loader) else Loader(data, batch_size or 1024)
+
     @torch.no_grad()
     def evaluate(self, data: Union[Dataset, Loader], batch_size: Optional[int] = None,
                  return_dict: bool = True, pre: Optional[nn.Module] = None, verbose: int = 0,
@@ -1240,55 +1570,67 @@ class BaseModel(Block):
         take their evaluation branch (``testing``), the contrastive head
         scoring each batch's in-batch negatives, the top-k head the catalog.
         ``loss`` is the mean of the batches' losses. One copy to the host.
-        After ``fit(mesh=)`` it runs on that mesh, each rank on its data slice
-        of every batch, the results the global batches'.
-        ``pre``: a transform of each batch on the device, as ``fit``'s
-        (``SequencePredictLast``: the next-item protocol). ``return_dict``
-        is taken and, as in the JAX package, the result is a dict either
-        way; ``verbose`` prints it."""
+
+        Under ``compile(jit=True)`` (the default) the data goes
+        device-resident where the JAX package's does (:meth:`_eval_route`):
+        its columns are uploaded once as the eval pack (cached on the
+        dataset) and evaluated in chunks of batches, each one CUDA graph
+        replay on the card from the third call of a shape on (the first
+        eager, the second captured), eagerly on the CPU; the same batches
+        and steps as streaming, so the same results bit for bit. Elsewhere
+        it streams, each batch copied to the device one batch ahead of its
+        step (``_device_prefetch``). After ``fit(mesh=)`` it runs on that
+        mesh, each rank on its data slice of every batch, the results the
+        global batches'. ``pre``: a transform of each batch on the device,
+        as ``fit``'s (``SequencePredictLast``: the next-item protocol).
+        ``return_dict`` is taken and, as in the JAX package, the result is
+        a dict either way; ``verbose`` prints it."""
         if not self._compiled:
             self.compile()
         dev = check_module_device(self, device)
-        loader = data if isinstance(data, Loader) else Loader(data, batch_size or 1024)
+        loader = self._eval_loader(data, batch_size)
         self.build(loader, device=dev)
-        mesh = getattr(self, "_mesh", None)
-        dg = mesh.group(pmesh.DATA_AXIS) if mesh is not None else None
-        if dg is not None and loader.batch_size % dg.size:
+        mesh = self._mesh
+        if mesh is not None and loader.batch_size % mesh.size(pmesh.DATA_AXIS):
             raise ValueError(f"batch {loader.batch_size} does not divide the mesh's data axis "
-                             f"{dg.size}")
+                             f"{mesh.size(pmesh.DATA_AXIS)}")
         loss_fns = self._resolve_task_losses()
         task_metrics = self._resolve_task_metrics()
-        states = self._init_metric_states(task_metrics, dev)
-        loss_total = torch.zeros((), device=dev)
-        n_batches = 0
-        for step, (x, y) in enumerate(loader):
-            if steps is not None and step >= steps:
-                break
+        run = self._eval_route(loader, loss_fns, task_metrics, dev, pre, steps)
+        if run is not None:
+            states, acc = run()
+        else:
+            states = self._init_metric_states(task_metrics, dev)
+            acc = {"total": torch.zeros((), device=dev), "count": torch.zeros((), device=dev)}
             if mesh is not None:
-                x, y = pmesh.shard_batch(x, mesh), pmesh.shard_batch(y, mesh)
-            xb, yb = to_device_batch(x, dev), to_device_targets(y, dev)
-            if pre is not None:
-                xb, yb = self._apply_pre(pre.to(dev), xb, yb, training=False)
-            context = ModelContext(features=xb, targets=yb, testing=True, need_logits=True)
-            if mesh is not None:
-                context["mesh"] = mesh
-            with data_scope(dg):
-                preds = self(xb, targets=yb, training=False, context=context)
-                pred_dict = self._as_pred_dict(preds)
-                total, _ = self._compute_losses(pred_dict, xb, loss_fns)
-            self._update_metrics(states, pred_dict, xb, task_metrics)
-            loss_total = loss_total + total
-            n_batches += 1
-        values = {"loss": loss_total / max(n_batches, 1)}
-        if mesh is not None:  # the global batches' loss and metrics
-            values = self._data_mean(values, mesh)
-            all_reduce_tree(states, dg)
-        values.update(self._metric_results(states, task_metrics))
+                batches = self._mesh_batches(loader, mesh, dev, steps)
+            elif pre is None:
+                batches = _device_prefetch(islice(loader, steps), dev)
+            else:  # in line, as the JAX package's with a transform
+                batches = ((to_device_batch(x, dev), to_device_targets(y, dev))
+                           for x, y in islice(loader, steps))
+            for xb, yb in batches:
+                if pre is not None:
+                    xb, yb = self._apply_pre(pre.to(dev), xb, yb, training=False)
+                acc = self._eval_step(xb, yb, loss_fns, task_metrics, states, acc, mesh)
+        values = self._eval_values(states, acc, task_metrics, mesh)
         results = _fetch(values)
         results = {"loss": results.pop("loss"), **results}
         if verbose and pmesh.is_chief():
             print(" - ".join(f"{k}: {v:.4f}" for k, v in results.items()))
         return results
+
+    def _eval_values(self, states, acc: Dict[str, torch.Tensor], task_metrics,
+                     mesh=None) -> Dict[str, torch.Tensor]:
+        """An evaluation's loss (the mean of its batches') and metrics, on
+        the device; on a mesh the global batches' (reduced over the data
+        line)."""
+        values = {"loss": acc["total"] / acc["count"].clamp_min(1.0)}
+        if mesh is not None:
+            values = self._data_mean(values, mesh)
+            all_reduce_tree(states, mesh.group(pmesh.DATA_AXIS))
+        values.update(self._metric_results(states, task_metrics))
+        return values
 
     @torch.no_grad()
     def batch_predict(self, data: Union[Dataset, Loader], batch_size: int = 1024,

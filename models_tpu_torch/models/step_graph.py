@@ -31,6 +31,16 @@ captured and drops every graph when one was replaced (a buffer rebound by
 queue's ring is written in place at the end of each step
 (``state_updates``), so a replay advances it as the eager steps do.
 
+``evaluate``'s device route runs its chunks through a :class:`ChunkGraphs`
+of its own (``Model._eval_graphs``): ``fn`` runs k evaluation steps over
+the eval pack's rows at ``idx``, its states the metrics' and the loss sum
+and batch count, its fingerprint :func:`eval_tensors` (no optimizer: a
+top-k encoder that was never fit evaluates too), and a replay leaves the
+step count alone. The top-k kernels (K4, K5, K6) launch inside such graphs;
+what they decide at launch from shapes and addresses (K5's route and grid,
+K4's design and its catalog's TMA map, cached by address, rows and width)
+is fixed for the key's shapes and the fingerprint's addresses.
+
 Python state does not replay: the model's step count is put back after a
 capture, and each replay adds the chunk's k steps. The kernels' launch
 counters are left alone: a wrapper counts the launches it issues, the eager
@@ -56,10 +66,10 @@ import torch.utils._pytree as pytree
 
 
 def captured_tensors(model, source: torch.Tensor) -> tuple:
-    """(address, shape) of each tensor a chunk's graph reads or writes that
-    it did not allocate: the parameters, the model's buffers (BatchNorm's
-    statistics, a cross-batch queue's ring), the optimizer's state tensors
-    and the source."""
+    """(address, shape) of each tensor a training chunk's graph reads or
+    writes that it did not allocate: the parameters, the model's buffers
+    (BatchNorm's statistics, a cross-batch queue's ring), the optimizer's
+    state tensors and the source."""
     opt = model._optimizer
     inner = getattr(opt, "optimizer", opt)
     ts = list(model.parameters()) + list(model.buffers())
@@ -68,6 +78,15 @@ def captured_tensors(model, source: torch.Tensor) -> tuple:
     if rest is not None:
         ts.append(rest)
     ts.append(source)
+    return tuple((t.data_ptr(), tuple(t.shape)) for t in ts)
+
+
+def eval_tensors(model, source: torch.Tensor) -> tuple:
+    """(address, shape) of each tensor an evaluation chunk's graph reads that
+    it did not allocate: the parameters, the model's buffers (a top-k
+    head's index among them) and the eval pack. No optimizer: a model that
+    was never fit (a top-k encoder) evaluates too."""
+    ts = list(model.parameters()) + list(model.buffers()) + [source]
     return tuple((t.data_ptr(), tuple(t.shape)) for t in ts)
 
 
@@ -94,16 +113,24 @@ class _Entry:
 
 class ChunkGraphs:
     """The model's captured chunks, by key. ``stats`` keeps, per key, the
-    capture's seconds and the bytes its memory pool took."""
+    capture's seconds and the bytes its memory pool took. ``tensors(model,
+    source)`` lists what the graphs hold by address (:func:`captured_tensors`
+    for training chunks, :func:`eval_tensors` for evaluation chunks)."""
 
-    def __init__(self):
+    def __init__(self, tensors: Callable = captured_tensors):
         self._entries: Dict[tuple, _Entry] = {}
         self._fingerprint: Optional[tuple] = None
+        self._tensors = tensors
         self.stats: Dict[tuple, dict] = {}
 
     def clear(self) -> None:
         self._entries.clear()
         self._fingerprint = None
+
+    def __deepcopy__(self, memo) -> "ChunkGraphs":
+        # a graph holds the original's tensors by address: a copy starts
+        # with none (and a CUDA graph cannot be copied)
+        return ChunkGraphs(self._tensors)
 
     def __len__(self) -> int:
         return sum(e.graph is not None for e in self._entries.values())
@@ -112,8 +139,10 @@ class ChunkGraphs:
             states, k: int):
         """``fn(source, idx, states)`` for the chunk of ``k`` steps under
         ``key``: eager on a side stream the first time, captured the second,
-        replayed after. Returns (logs, states), the logs (k,) tensors."""
-        fingerprint = captured_tensors(model, source)
+        replayed after. Returns (logs, states), the logs (k,) tensors. A
+        replay adds ``k`` to the model's step count (an evaluation chunk
+        passes 0: it trains nothing)."""
+        fingerprint = self._tensors(model, source)
         if fingerprint != self._fingerprint:
             self.clear()
             self._fingerprint = fingerprint
@@ -126,7 +155,7 @@ class ChunkGraphs:
             torch.cuda.current_stream(source.device).wait_stream(side)
             self._entries[key] = _Entry()
             # the eager run may pack new optimizer slots: what the graph holds
-            self._fingerprint = captured_tensors(model, source)
+            self._fingerprint = self._tensors(model, source)
             return out
         if entry.graph is None:
             self._capture(model, key, entry, fn, source, idx, states, k)
@@ -157,7 +186,7 @@ class ChunkGraphs:
                 if not through:
                     torch._foreach_copy_(entry.state_leaves, out_leaves)
         except Exception as err:
-            raise RuntimeError(f"capturing the training chunk {key} as a CUDA graph failed: "
+            raise RuntimeError(f"capturing the chunk {key} as a CUDA graph failed: "
                                f"{err}") from err
         finally:
             model._step = step0

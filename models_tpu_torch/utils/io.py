@@ -54,10 +54,10 @@ SERVING_SPEC = "serving_spec.json"
 # engine attributes that hold the optimizer, captured graphs, staged batches
 # and the compiled specs: set aside by the pickle format and the CPU copy of
 # an export, remade by compile()
-ENGINE_ATTRS = ("_optimizer", "_chunk_graphs", "_group_graphs", "_pre_transform", "_host_stage",
-                "_emb_opt", "_sparse_tables", "_frozen_ids", "_loss_spec", "_metrics_spec",
-                "_optimizer_spec", "_learning_rate", "_head_weights", "history", "_compiled",
-                "_mesh", "_fit_mesh_fp")
+ENGINE_ATTRS = ("_optimizer", "_chunk_graphs", "_group_graphs", "_eval_graphs", "_pre_transform",
+                "_host_stage", "_emb_opt", "_sparse_tables", "_frozen_ids", "_loss_spec",
+                "_metrics_spec", "_optimizer_spec", "_learning_rate", "_head_weights", "history",
+                "_compiled", "_mesh", "_fit_mesh_fp")
 
 
 @contextlib.contextmanager
