@@ -1,0 +1,12 @@
+"""graph_replay_share.eval: the share of the program's evaluation chunks of
+the traced calls (its ``evaluate.chunk`` spans) that ran as a CUDA graph
+replay (hold a ``graph.replay`` span), not eagerly or as a capture."""
+
+from gpubench import idle_split
+
+
+def read(r):
+    spans = getattr(r.trace, "program_spans", None)
+    if r.trace is None or not spans:
+        return None
+    return idle_split.replay_share(spans, "evaluate.chunk")

@@ -115,6 +115,7 @@ from ..outputs.base import BinaryOutput, ModelOutput
 from ..outputs.queue import apply_state_updates
 from ..parallel import mesh as pmesh
 from ..parallel.collectives import all_gather, all_reduce, all_reduce_tree, data_scope
+from ..utils import trace
 from .step_graph import ChunkGraphs, eval_tensors
 
 # the datasets that keep a device-resident training pack: at most two
@@ -356,9 +357,20 @@ def _fetch(values: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """Scalars to the host in one copy."""
     if not values:
         return {}
-    names = sorted(values)
-    host = torch.stack([values[n].detach().reshape(()).to(torch.float32) for n in names]).cpu()
+    trace.count("fetches")
+    with trace.span("fetch"):
+        names = sorted(values)
+        host = torch.stack([values[n].detach().reshape(()).to(torch.float32)
+                            for n in names]).cpu()
     return {n: float(v) for n, v in zip(names, host)}
+
+
+def _upload(packed: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A packed matrix on ``dev``: the span ``pack.upload``, its bytes
+    counted in ``h2d.bytes``."""
+    trace.count("h2d.bytes", packed.nbytes)
+    with trace.span("pack.upload"):
+        return torch.as_tensor(packed, device=dev)
 
 
 class History:
@@ -1039,7 +1051,7 @@ class BaseModel(Block):
         if sum(np.asarray(leaf[-1]).nbytes for leaf in leaves) > MAX_PACK_BYTES:
             return None
         packed, spec = Model._pack_device_columns(feats, targets, n_rows)
-        pack = DevicePack(n_rows, spec, torch.as_tensor(packed, device=dev))
+        pack = DevicePack(n_rows, spec, _upload(packed, dev))
         ds._device_train_pack = pack
         _keep_pack(ds)
         return pack
@@ -1070,7 +1082,7 @@ class BaseModel(Block):
             groups = []
             for bucket, feats, targets, n in raw:
                 packed, spec = Model._pack_device_columns(feats, targets, n)
-                groups.append((bucket, DevicePack(n, spec, torch.as_tensor(packed, device=dev))))
+                groups.append((bucket, DevicePack(n, spec, _upload(packed, dev))))
             ds._device_bucket_groups = groups
             _keep_pack(ds)
         B = loader.batch_size
@@ -1109,7 +1121,7 @@ class BaseModel(Block):
             return None
         packed, spec = Model._pack_device_columns(feats, targets, n_rows)
         packed = np.pad(packed, ((0, -n_rows % B), (0, 0)))
-        pack = DevicePack(n_rows, spec, torch.as_tensor(packed, device=dev))
+        pack = DevicePack(n_rows, spec, _upload(packed, dev))
         ds._device_eval_pack = (B, pack)
         _keep_eval_pack(ds)
         return pack
@@ -1176,14 +1188,17 @@ class BaseModel(Block):
             states = (self._init_metric_states(task_metrics, dev),
                       {"total": torch.zeros((), device=dev), "count": torch.zeros((), device=dev)})
             for start in range(0, n_batches, EVAL_CHUNK_BATCHES):
-                k = min(EVAL_CHUNK_BATCHES, n_batches - start)
-                idx = torch.arange(start * B, (start + k) * B, dtype=torch.int32, device=dev)
-                fn = self._eval_chunk_fn(k, B, pack.n_rows, pack.spec, loss_fns, task_metrics)
-                if dev.type == "cuda":
-                    key = (k, B, pack.n_rows, pack.spec, get_dtype_policy())
-                    _, states = self._eval_graphs.run(self, key, fn, pack.packed, idx, states, 0)
-                else:
-                    _, states = fn(pack.packed, idx, states)
+                with trace.span("evaluate.chunk"):
+                    k = min(EVAL_CHUNK_BATCHES, n_batches - start)
+                    idx = torch.arange(start * B, (start + k) * B, dtype=torch.int32, device=dev)
+                    fn = self._eval_chunk_fn(k, B, pack.n_rows, pack.spec, loss_fns,
+                                             task_metrics)
+                    if dev.type == "cuda":
+                        key = (k, B, pack.n_rows, pack.spec, get_dtype_policy())
+                        _, states = self._eval_graphs.run(self, key, fn, pack.packed, idx,
+                                                          states, 0)
+                    else:
+                        _, states = fn(pack.packed, idx, states)
             return states
 
         return run
@@ -1278,6 +1293,7 @@ class BaseModel(Block):
             self._optimizer = low_precision_optimizer_state(self._optimizer,
                                                             self._optimizer_state_dtype)
 
+    @trace.traced("fit")
     def fit(self, data: Union[Dataset, Loader], epochs: int = 1,
             batch_size: Optional[int] = None, shuffle: bool = True,
             validation_data: Union[None, Dataset, Loader] = None,
@@ -1337,102 +1353,105 @@ class BaseModel(Block):
         placed for ``evaluate``, ``predict`` and the next fit; the batch size
         is the global batch's and divides the data axis. Only the chief
         prints (``verbose``)."""
-        if not self._compiled:
-            self.compile()
-        if not 0 <= initial_epoch < max(epochs, 1):
-            raise ValueError(f"initial_epoch={initial_epoch} must be in [0, epochs={epochs})")
-        dev = check_module_device(self, device)
-        if pre is not getattr(self, "_pre_transform", None):
-            # a captured chunk holds the transform it ran
-            self._chunk_graphs.clear()
-            self._group_graphs.clear()
-        self._pre_transform = pre.to(dev) if isinstance(pre, nn.Module) else pre
-        loader = data if isinstance(data, Loader) else Loader(
-            data, batch_size or 1024, drop_last=True, shuffle=shuffle)
-        if len(loader) == 0:
-            loader.peek()  # raises: the loader yields no batch
-        self.build(loader, device=dev)
-        B = loader.batch_size
-        if mesh is not None:
-            if mesh.device != dev:
-                raise ValueError(f"the mesh's rank lives on {mesh.device}, the model on {dev}")
-            if B % mesh.size(pmesh.DATA_AXIS):
-                raise ValueError(f"batch {B} does not divide the mesh's data axis "
-                                 f"{mesh.size(pmesh.DATA_AXIS)}")
-            self._place_on_mesh(mesh, shard_rules)
-        elif pmesh.state_mesh(self) is not None:
-            pmesh.unshard_state(self)  # a fit with no mesh trains the whole model
-        self._mesh = mesh
-        loss_fns = self._resolve_task_losses()
-        task_metrics = self._resolve_task_metrics()
-        has_metrics = any(task_metrics.values())
-        fingerprint = None if mesh is None else mesh.fingerprint
-        fresh = (self.frozen_blocks() or isinstance(self._optimizer_spec, MultiOptimizer)
-                 or not self._plain_optimizer
-                 or getattr(self, "_fit_mesh_fp", None) != fingerprint)
-        if self._optimizer is None or fresh:
-            # the JAX package rebuilds its transform for frozen blocks or a
-            # MultiOptimizer, and then starts from fresh slots at step 0
-            if self._optimizer is not None:
-                self._step = 0
-            self._chunk_graphs.clear()
-            self._group_graphs.clear()
-            self._build_optimizer()
-        self._fit_mesh_fp = fingerprint
-        self.stop_training = False
-        callbacks = list(callbacks or [])
-        for cb in callbacks:
-            getattr(cb, "set_model", lambda m: None)(self)
-
-        def hook(name, *args):
+        with trace.span("fit.prepare"):
+            if not self._compiled:
+                self.compile()
+            if not 0 <= initial_epoch < max(epochs, 1):
+                raise ValueError(f"initial_epoch={initial_epoch} must be in [0, epochs={epochs})")
+            dev = check_module_device(self, device)
+            if pre is not getattr(self, "_pre_transform", None):
+                # a captured chunk holds the transform it ran
+                self._chunk_graphs.clear()
+                self._group_graphs.clear()
+            self._pre_transform = pre.to(dev) if isinstance(pre, nn.Module) else pre
+            loader = data if isinstance(data, Loader) else Loader(
+                data, batch_size or 1024, drop_last=True, shuffle=shuffle)
+            if len(loader) == 0:
+                loader.peek()  # raises: the loader yields no batch
+            self.build(loader, device=dev)
+            B = loader.batch_size
+            if mesh is not None:
+                if mesh.device != dev:
+                    raise ValueError(f"the mesh's rank lives on {mesh.device}, the model on {dev}")
+                if B % mesh.size(pmesh.DATA_AXIS):
+                    raise ValueError(f"batch {B} does not divide the mesh's data axis "
+                                     f"{mesh.size(pmesh.DATA_AXIS)}")
+                self._place_on_mesh(mesh, shard_rules)
+            elif pmesh.state_mesh(self) is not None:
+                pmesh.unshard_state(self)  # a fit with no mesh trains the whole model
+            self._mesh = mesh
+            loss_fns = self._resolve_task_losses()
+            task_metrics = self._resolve_task_metrics()
+            has_metrics = any(task_metrics.values())
+            fingerprint = None if mesh is None else mesh.fingerprint
+            fresh = (self.frozen_blocks() or isinstance(self._optimizer_spec, MultiOptimizer)
+                     or not self._plain_optimizer
+                     or getattr(self, "_fit_mesh_fp", None) != fingerprint)
+            if self._optimizer is None or fresh:
+                # the JAX package rebuilds its transform for frozen blocks or a
+                # MultiOptimizer, and then starts from fresh slots at step 0
+                if self._optimizer is not None:
+                    self._step = 0
+                self._chunk_graphs.clear()
+                self._group_graphs.clear()
+                self._build_optimizer()
+            self._fit_mesh_fp = fingerprint
+            self.stop_training = False
+            callbacks = list(callbacks or [])
             for cb in callbacks:
-                getattr(cb, name, lambda *a: None)(*args)
+                getattr(cb, "set_model", lambda m: None)(self)
 
-        # k steps a chunk only without an embedding optimizer and off a mesh:
-        # the JAX package sets spe = 1 there
-        spe = 1 if self._sparse_tables or mesh is not None else self._steps_per_execution
-        bucketed = getattr(loader, "pad", "max") == "bucket"
-        groups = self._device_bucket_groups(loader, dev) if spe > 1 and bucketed else None
-        if bucketed and groups is None:
-            spe = 1  # bucketed batches differ in shape: no chunk of host batches
-        pack = self._device_train_pack(loader, dev) if spe > 1 and not bucketed else None
+            def hook(name, *args):
+                for cb in callbacks:
+                    getattr(cb, name, lambda *a: None)(*args)
 
-        def epoch_perms(n_rows: int, salt: int = 0) -> torch.Tensor:
-            # every epoch's permutation in one upload, drawn from the loader's
-            # epoch seeds (a bucket group's salted with its bucket, as the JAX
-            # package salts them): the device route trains on the streaming
-            # route's batches, in its order
-            return torch.as_tensor(np.stack([
-                np.random.default_rng(loader.seed + (loader._epoch + 1 + e) * 9973 + salt
-                                      ).permutation(n_rows) if loader.shuffle
-                else np.arange(n_rows) for e in range(epochs - initial_epoch)]).astype(np.int32),
-                device=dev)
+            # k steps a chunk only without an embedding optimizer and off a mesh:
+            # the JAX package sets spe = 1 there
+            spe = 1 if self._sparse_tables or mesh is not None else self._steps_per_execution
+            bucketed = getattr(loader, "pad", "max") == "bucket"
+            groups = self._device_bucket_groups(loader, dev) if spe > 1 and bucketed else None
+            if bucketed and groups is None:
+                spe = 1  # bucketed batches differ in shape: no chunk of host batches
+            pack = self._device_train_pack(loader, dev) if spe > 1 and not bucketed else None
 
-        if pack is not None:
-            perms = epoch_perms(pack.n_rows)
-        if groups is not None:
-            group_perms = {bucket: epoch_perms(g.n_rows, bucket & 0xFFFF)
-                           for bucket, g in groups}
+            def epoch_perms(n_rows: int, salt: int = 0) -> torch.Tensor:
+                # every epoch's permutation in one upload, drawn from the loader's
+                # epoch seeds (a bucket group's salted with its bucket, as the JAX
+                # package salts them): the device route trains on the streaming
+                # route's batches, in its order
+                drawn = np.stack([
+                    np.random.default_rng(loader.seed + (loader._epoch + 1 + e) * 9973 + salt
+                                          ).permutation(n_rows) if loader.shuffle
+                    else np.arange(n_rows)
+                    for e in range(epochs - initial_epoch)]).astype(np.int32)
+                trace.count("h2d.bytes", drawn.nbytes)
+                return torch.as_tensor(drawn, device=dev)
 
-        def metric_chunk(k):
-            return has_metrics and any(
-                (self._step + i) % self.train_metrics_steps == 0 for i in range(k))
+            if pack is not None:
+                perms = epoch_perms(pack.n_rows)
+            if groups is not None:
+                group_perms = {bucket: epoch_perms(g.n_rows, bucket & 0xFFFF)
+                               for bucket, g in groups}
 
-        # The JAX package also fuses every epoch into one program where no
-        # step but the first of a chunk differs (train_metrics_steps == 1 or no
-        # metrics), with no callbacks, the validation of every epoch over every
-        # batch (validation_freq == 1, no validation_steps) scanned on the
-        # device right after its training steps. Here that program is the
-        # chunk itself: its graph is replayed once per chunk of each epoch and
-        # computes what the fused epochs compute, and under those conditions
-        # the device route's validation chunks follow the epoch's last chunk,
-        # with one fetch an epoch for the training and the val_ logs.
-        val_run = None
-        if (validation_data is not None and pack is not None and not callbacks
-                and validation_freq == 1 and validation_steps is None
-                and (self.train_metrics_steps == 1 or not has_metrics)):
-            val_run = self._eval_route(self._eval_loader(validation_data, batch_size or B),
-                                       loss_fns, task_metrics, dev)
+            def metric_chunk(k):
+                return has_metrics and any(
+                    (self._step + i) % self.train_metrics_steps == 0 for i in range(k))
+
+            # The JAX package also fuses every epoch into one program where no
+            # step but the first of a chunk differs (train_metrics_steps == 1 or no
+            # metrics), with no callbacks, the validation of every epoch over every
+            # batch (validation_freq == 1, no validation_steps) scanned on the
+            # device right after its training steps. Here that program is the
+            # chunk itself: its graph is replayed once per chunk of each epoch and
+            # computes what the fused epochs compute, and under those conditions
+            # the device route's validation chunks follow the epoch's last chunk,
+            # with one fetch an epoch for the training and the val_ logs.
+            val_run = None
+            if (validation_data is not None and pack is not None and not callbacks
+                    and validation_freq == 1 and validation_steps is None
+                    and (self.train_metrics_steps == 1 or not has_metrics)):
+                val_run = self._eval_route(self._eval_loader(validation_data, batch_size or B),
+                                           loss_fns, task_metrics, dev)
         history = History()
         for epoch in range(initial_epoch, epochs):
             hook("on_epoch_begin", epoch)
@@ -1472,9 +1491,10 @@ class BaseModel(Block):
                         budget -= n_batches
                     while local < n_batches:
                         k = min(spe, n_batches - local)
-                        logs, states = self._run_chunk(
-                            gpack.packed, gpack.spec, gperm[local * B:(local + k) * B],
-                            k, B, metric_chunk(k), loss_fns, task_metrics, states, graphs)
+                        with trace.span("fit.chunk"):
+                            logs, states = self._run_chunk(
+                                gpack.packed, gpack.spec, gperm[local * B:(local + k) * B],
+                                k, B, metric_chunk(k), loss_fns, task_metrics, states, graphs)
                         n_examples += k * B
                         local += k
                         chunk_done(local - 1, logs)
@@ -1510,36 +1530,40 @@ class BaseModel(Block):
                 for i, (x, y) in enumerate(chunk):  # the batches that fill no chunk
                     single(taken - len(chunk) + i, to_device_batch(x, dev),
                            to_device_targets(y, dev))
-            values = {k: torch.cat(v).mean() for k, v in step_logs.items()}
-            if mesh is not None:  # the global batch's logs and metrics
-                values = self._data_mean(values, mesh)
-                all_reduce_tree(states, mesh.group(pmesh.DATA_AXIS))
-            values.update(self._metric_results(states, task_metrics))
-            if val_run is not None:
-                # the validation follows the epoch's device work: the training
-                # and val_ logs in one copy, in the keys' order of the two;
-                # examples_per_sec then times both, as the JAX package's fused
-                # epochs (their one program's wall) do
-                val = self._eval_values(*val_run(), task_metrics)
-                both = _fetch({**values, **{f"val_{k}": v for k, v in val.items()}})
-                epoch_logs = {k: both[k] for k in sorted(values)}
-                epoch_logs["examples_per_sec"] = n_examples / max(time.perf_counter() - t0, 1e-9)
-                epoch_logs.update((k, both[k]) for k in ["val_loss"] + sorted(
-                    f"val_{k}" for k in val if k != "loss"))
-            else:
-                epoch_logs = _fetch(values)  # one copy to the host per epoch
-                epoch_logs["examples_per_sec"] = n_examples / max(time.perf_counter() - t0,
-                                                                  1e-9)
-            if val_run is None and validation_data is not None \
-                    and (epoch + 1) % validation_freq == 0:
-                val = self.evaluate(validation_data, batch_size=batch_size or B,
-                                    steps=validation_steps, device=dev)
-                epoch_logs.update({f"val_{k}": v for k, v in val.items()})
-            history.append(epoch_logs)
-            if verbose and pmesh.is_chief():
-                msg = " - ".join(f"{k}: {v:.4f}" for k, v in epoch_logs.items())
-                print(f"Epoch {epoch + 1}/{epochs} - {msg}")
-            hook("on_epoch_end", epoch, epoch_logs)
+            with trace.span("fit.finish"):
+                values = {k: torch.cat(v).mean() for k, v in step_logs.items()}
+                if mesh is not None:  # the global batch's logs and metrics
+                    values = self._data_mean(values, mesh)
+                    all_reduce_tree(states, mesh.group(pmesh.DATA_AXIS))
+                values.update(self._metric_results(states, task_metrics))
+                if val_run is not None:
+                    # the validation follows the epoch's device work: the training
+                    # and val_ logs in one copy, in the keys' order of the two;
+                    # examples_per_sec then times both, as the JAX package's fused
+                    # epochs (their one program's wall) do
+                    with trace.span("fit.validate"):
+                        val = self._eval_values(*val_run(), task_metrics)
+                    both = _fetch({**values, **{f"val_{k}": v for k, v in val.items()}})
+                    epoch_logs = {k: both[k] for k in sorted(values)}
+                    epoch_logs["examples_per_sec"] = n_examples / max(
+                        time.perf_counter() - t0, 1e-9)
+                    epoch_logs.update((k, both[k]) for k in ["val_loss"] + sorted(
+                        f"val_{k}" for k in val if k != "loss"))
+                else:
+                    epoch_logs = _fetch(values)  # one copy to the host per epoch
+                    epoch_logs["examples_per_sec"] = n_examples / max(time.perf_counter() - t0,
+                                                                      1e-9)
+                if val_run is None and validation_data is not None \
+                        and (epoch + 1) % validation_freq == 0:
+                    with trace.span("fit.validate"):
+                        val = self.evaluate(validation_data, batch_size=batch_size or B,
+                                            steps=validation_steps, device=dev)
+                    epoch_logs.update({f"val_{k}": v for k, v in val.items()})
+                history.append(epoch_logs)
+                if verbose and pmesh.is_chief():
+                    msg = " - ".join(f"{k}: {v:.4f}" for k, v in epoch_logs.items())
+                    print(f"Epoch {epoch + 1}/{epochs} - {msg}")
+                hook("on_epoch_end", epoch, epoch_logs)
             if self.stop_training:
                 break
         hook("on_train_end", history.history)
@@ -1561,6 +1585,7 @@ class BaseModel(Block):
     def _eval_loader(data: Union[Dataset, Loader], batch_size: Optional[int]) -> Loader:
         return data if isinstance(data, Loader) else Loader(data, batch_size or 1024)
 
+    @trace.traced("evaluate")
     @torch.no_grad()
     def evaluate(self, data: Union[Dataset, Loader], batch_size: Optional[int] = None,
                  return_dict: bool = True, pre: Optional[nn.Module] = None, verbose: int = 0,
@@ -1585,18 +1610,19 @@ class BaseModel(Block):
         as ``fit``'s (``SequencePredictLast``: the next-item protocol).
         ``return_dict`` is taken and, as in the JAX package, the result is
         a dict either way; ``verbose`` prints it."""
-        if not self._compiled:
-            self.compile()
-        dev = check_module_device(self, device)
-        loader = self._eval_loader(data, batch_size)
-        self.build(loader, device=dev)
-        mesh = self._mesh
-        if mesh is not None and loader.batch_size % mesh.size(pmesh.DATA_AXIS):
-            raise ValueError(f"batch {loader.batch_size} does not divide the mesh's data axis "
-                             f"{mesh.size(pmesh.DATA_AXIS)}")
-        loss_fns = self._resolve_task_losses()
-        task_metrics = self._resolve_task_metrics()
-        run = self._eval_route(loader, loss_fns, task_metrics, dev, pre, steps)
+        with trace.span("evaluate.prepare"):
+            if not self._compiled:
+                self.compile()
+            dev = check_module_device(self, device)
+            loader = self._eval_loader(data, batch_size)
+            self.build(loader, device=dev)
+            mesh = self._mesh
+            if mesh is not None and loader.batch_size % mesh.size(pmesh.DATA_AXIS):
+                raise ValueError(f"batch {loader.batch_size} does not divide the mesh's data "
+                                 f"axis {mesh.size(pmesh.DATA_AXIS)}")
+            loss_fns = self._resolve_task_losses()
+            task_metrics = self._resolve_task_metrics()
+            run = self._eval_route(loader, loss_fns, task_metrics, dev, pre, steps)
         if run is not None:
             states, acc = run()
         else:
@@ -1613,11 +1639,12 @@ class BaseModel(Block):
                 if pre is not None:
                     xb, yb = self._apply_pre(pre.to(dev), xb, yb, training=False)
                 acc = self._eval_step(xb, yb, loss_fns, task_metrics, states, acc, mesh)
-        values = self._eval_values(states, acc, task_metrics, mesh)
-        results = _fetch(values)
-        results = {"loss": results.pop("loss"), **results}
-        if verbose and pmesh.is_chief():
-            print(" - ".join(f"{k}: {v:.4f}" for k, v in results.items()))
+        with trace.span("evaluate.finish"):
+            values = self._eval_values(states, acc, task_metrics, mesh)
+            results = _fetch(values)
+            results = {"loss": results.pop("loss"), **results}
+            if verbose and pmesh.is_chief():
+                print(" - ".join(f"{k}: {v:.4f}" for k, v in results.items()))
         return results
 
     def _eval_values(self, states, acc: Dict[str, torch.Tensor], task_metrics,

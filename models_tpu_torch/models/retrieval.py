@@ -23,6 +23,7 @@ from ..outputs.contrastive import ContrastiveOutput
 from ..outputs.sampling import PopularityBasedSampler
 from ..schema import Schema, Tags, infer_embedding_dim
 from ..transforms.regularization import L2Norm
+from ..utils import trace
 from .base import Model
 
 
@@ -115,7 +116,9 @@ class RetrievalModelV2(Model):
         ``torch.int8`` bin-quantized (a quarter). ``mesh`` splits the index
         by rows over the mesh's model axis (``outputs/topk.py``): every rank
         calls it, and every rank of a model line serves the same queries."""
-        cand_ds = self.candidate_embeddings(candidates, batch_size=batch_size, device=device)
+        with trace.span("encoder.index"):
+            cand_ds = self.candidate_embeddings(candidates, batch_size=batch_size,
+                                                device=device)
         return TopKEncoder(self.query_encoder, candidates=cand_ds, k=k,
                            item_id_name=self.item_id_name,
                            candidate_dtype=candidate_dtype, device=device, mesh=mesh)

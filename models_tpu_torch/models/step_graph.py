@@ -64,6 +64,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.utils._pytree as pytree
 
+from ..utils import trace
+
 
 def captured_tensors(model, source: torch.Tensor) -> tuple:
     """(address, shape) of each tensor a training chunk's graph reads or
@@ -115,7 +117,11 @@ class ChunkGraphs:
     """The model's captured chunks, by key. ``stats`` keeps, per key, the
     capture's seconds and the bytes its memory pool took. ``tensors(model,
     source)`` lists what the graphs hold by address (:func:`captured_tensors`
-    for training chunks, :func:`eval_tensors` for evaluation chunks)."""
+    for training chunks, :func:`eval_tensors` for evaluation chunks). Each
+    branch of :meth:`run` is a span and a counter of
+    :mod:`~models_tpu_torch.utils.trace` (``graph.eager``, ``graph.capture``
+    / ``graph.captures``, ``graph.replay`` / ``graph.replays``), and a
+    fingerprint that no longer matches counts ``graph.drops``."""
 
     def __init__(self, tensors: Callable = captured_tensors):
         self._entries: Dict[tuple, _Entry] = {}
@@ -144,22 +150,30 @@ class ChunkGraphs:
         passes 0: it trains nothing)."""
         fingerprint = self._tensors(model, source)
         if fingerprint != self._fingerprint:
+            if self._fingerprint is not None:
+                trace.count("graph.drops")
             self.clear()
             self._fingerprint = fingerprint
         entry = self._entries.get(key)
         if entry is None:
-            side = torch.cuda.Stream(source.device)
-            side.wait_stream(torch.cuda.current_stream(source.device))
-            with torch.cuda.stream(side):
-                out = fn(source, idx, states)
-            torch.cuda.current_stream(source.device).wait_stream(side)
+            trace.count("graph.eager")
+            with trace.span("graph.eager"):
+                side = torch.cuda.Stream(source.device)
+                side.wait_stream(torch.cuda.current_stream(source.device))
+                with torch.cuda.stream(side):
+                    out = fn(source, idx, states)
+                torch.cuda.current_stream(source.device).wait_stream(side)
             self._entries[key] = _Entry()
             # the eager run may pack new optimizer slots: what the graph holds
             self._fingerprint = self._tensors(model, source)
             return out
         if entry.graph is None:
-            self._capture(model, key, entry, fn, source, idx, states, k)
-        return self._replay(model, entry, idx, states, k)
+            trace.count("graph.captures")
+            with trace.span("graph.capture"):
+                self._capture(model, key, entry, fn, source, idx, states, k)
+        trace.count("graph.replays")
+        with trace.span("graph.replay"):
+            return self._replay(model, entry, idx, states, k)
 
     def _capture(self, model, key, entry: _Entry, fn, source, idx, states, k) -> None:
         dev = source.device

@@ -9,6 +9,8 @@ loops and the native batcher), are built the same way by ``g++ -O3 -shared
 -fPIC``, named by a hash of their source. Nothing is compiled or loaded when
 this module is imported. The build holds a file lock in that directory, so
 that the ranks of a run on one host compile each library once between them.
+A build that compiles is the span ``kernels.build``, and each library it
+builds counts ``kernels.built`` (:mod:`~models_tpu_torch.utils.trace`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+from ..utils import trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "models_tpu_torch"
@@ -95,13 +99,16 @@ def _build_locked(names: List[str]) -> List[Path]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp, out)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, out)
+    if procs:
+        with trace.span("kernels.build"):
+            for name, (proc, tmp, out) in procs.items():
+                log, _ = proc.communicate()
+                build_logs[name] = log
+                if proc.returncode != 0:
+                    failed.append(f"{name}:\n{log}")
+                    continue
+                os.replace(tmp, out)
+                trace.count("kernels.built")
     if failed:
         raise RuntimeError("the build failed for " + "\n".join(failed))
     return [_target(n) for n in names]
