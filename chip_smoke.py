@@ -119,7 +119,9 @@
    differing elements); then two fits on the default device
    (``device=None``) that must reuse the pack and the graph and call no
    wrapper, timed (ms a step) and traced (busy share, and the route's
-   kernels counted in the trace: K1-K3 once a step and K9 once a chunk);
+   kernels counted in the trace: K1-K3 once a step, K9 once a chunk on the
+   pack, and the row route's K9 and K8a: the dense adagrad steps userId and
+   movieId at their looked-up rows, 3 gathers and 2 writes a table a step);
    (b) the JAX package's pipeline headline (``mixed_bfloat16``, bf16 slots,
    no metrics, PIPE_BATCHES = 128 batches an epoch and a chunk, unshuffled;
    16 batches of rows generated, repeated): graph and eager bit for bit
@@ -130,7 +132,8 @@
    (c) the top-k metrics every 3rd step, 4 steps a chunk, deterministic
    algorithms on: graph and eager histories bit for bit; (d) the wrappers'
    counts: the graph route's eager chunk and captured chunk (replays call
-   no wrapper and are counted in the traces); (e) Adam, capturable on the
+   no wrapper and are counted in the traces), the row route's at each step
+   issued; (e) Adam, capturable on the
    card: against torch's default form on the same gradients (ADAM_REL,
    ADAM_ATOL_P), card against a CPU copy one step at a time (PARAM_ATOL but
    for rounding-noise gradients, ADAM_FLIP_ATOL), graph and eager bit for
@@ -151,7 +154,13 @@
    clean, and warm);
 12. runs the row gather through its entry point (8192 ids into the 4M x 128
    fp32 and 16M x 128 bf16 tables, four calls each) and times it there and
-   on the training route's pack, L2 warm and flushed;
+   on the training route's pack, L2 warm and flushed; then the row route
+   (phase 10b): 8192 skewed ids sorted with the first of each run marked,
+   K9 and K8a bit for bit against their plain versions and two routed
+   Adagrad steps bit for bit against two dense ones, into dlrm_train's C1
+   (10M x 64) and C3 and tt_train's userId and movieId (x 128); and the
+   step's device time on the route and densely, each a CUDA graph replayed
+   (a sweep of N / R at D = 32, 64 and 128, and the bench's tables);
 13. evaluates, the README's flow at full width: ``compile(metrics=None,
    train_metrics_steps=4)`` and ``fit`` for 8 steps of 8192 rows (K1-K3
    must launch on exactly the 6 steps without metrics), in-batch
@@ -1654,13 +1663,14 @@ def train_profile(dev, model, data, steps: int = 4, batch=TRAIN_BATCH):
 # the launch counters of the training route's wrappers, which a trace counts
 # by kernel name (traced_wrapper)
 TRACED_WRAPPERS = ("row_gather", "lse_forward", "grad_query", "grad_neg", "lse_forward_bf16",
-                   "grad_query_bf16", "grad_neg_bf16")
+                   "grad_query_bf16", "grad_neg_bf16", "row_scatter_write")
 KERNEL_NAME = re.compile(r"^void \(anonymous namespace\)::(\w+)<([^>]*)>\(")
 
 
 def traced_wrapper(name: str):
     """The wrapper (its counter's name in TRACED_WRAPPERS) whose call launched
-    the kernel of a trace's demangled ``name``, or None: K9's ``gather``; K1's
+    the kernel of a trace's demangled ``name``, or None: K9's ``gather``; K8's
+    ``scatter_write`` (fp32, the row route's; bf16, the row-sparse step's); K1's
     ``lse_partial`` (``_bf16`` on bf16 rows) and ``lse_wg`` (bf16); K2's and
     K3's ``grad_rows`` and ``grad_wg`` (``OWN_Q`` true: K2). One wrapper call
     launches one of these (and at most one merge kernel beside it)."""
@@ -1671,6 +1681,8 @@ def traced_wrapper(name: str):
     bf16 = "" if args[-1] == "float" and kernel in ("lse_partial", "grad_rows") else "_bf16"
     if kernel == "gather":
         return "row_gather"
+    if kernel == "scatter_write":
+        return "row_scatter_write"
     if kernel in ("lse_partial", "lse_wg"):
         return "lse_forward" + bf16
     if kernel in ("grad_rows", "grad_wg"):
@@ -3441,6 +3453,137 @@ def measure_scatter_write_fp32(dev, gen, errs, launches):
     return row
 
 
+# the row route's kernel cases: (column, rows, width) of the bench's routed
+# tables (dlrm_train's largest and smallest, tt_train's two), 8192 ids a step
+ROUTE_CASES = (("C1", 10_000_000, 64), ("C3", 17_289, 64), ("userId", 162_542, 128),
+               ("movieId", 56_681, 128))
+ROUTE_IDS = 8192
+# the timed steps: (what, [(rows R, width D, ids N a step) of each table]); a
+# sweep of R at N = 8192 (2048 at D = 32) at three widths, and the bench's
+# tables: those the route leaves dense (dlrm_train's three fused groups, C15
+# and C24; tt_train's genres), those it routes, and dlrm_train's three
+# smallest of N <= R / 2 together
+ROUTE_TIMED = tuple(
+    (f"d{D}_r{R}", [(R, D, N)])
+    for D, N, rows in ((64, 8192, (8192, 16_384, 24_576, 32_768, 49_152, 65_536, 98_304,
+                                   163_840)),
+                       (128, 8192, (8192, 16_384, 24_576, 32_768, 49_152, 65_536, 98_304)),
+                       (32, 2048, (4096, 16_384, 65_536, 131_072)))
+    for R in rows) + (
+    ("fused_8_cols", [(2048, 64, 8 * 8192)]), ("fused_3_cols", [(12_288, 64, 3 * 8192)]),
+    ("fused_2_cols", [(16_384, 64, 2 * 8192)]), ("C15", [(11_938, 64, 8192)]),
+    ("C24", [(12_972, 64, 8192)]), ("genres", [(24, 128, 10 * 8192)]),
+    ("C2", [(39_043, 64, 8192)]), ("C3", [(17_289, 64, 8192)]), ("C5", [(20_263, 64, 8192)]),
+    ("C2_C3_C5", [(39_043, 64, 8192), (17_289, 64, 8192), (20_263, 64, 8192)]),
+    ("C1", [(10_000_000, 64, 8192)]), ("userId", [(162_542, 128, 8192)]),
+    ("movieId", [(56_681, 128, 8192)]))
+
+
+def route_case(dev, gen, name, R, D, errs) -> dict:
+    """The row route at one table's shape: ROUTE_IDS skewed ids (repeats)
+    into an R x D fp32 table, sorted int32 with the first of each run marked
+    (``looked_up_rows``); K9 on those ids and K8a at the marked positions
+    against their plain versions, and two Adagrad steps of the route against
+    two dense steps from the same state and gradients, bit for bit."""
+    from models_tpu_torch.blocks import optimizer as O
+    from models_tpu_torch.ops import embedding_lookup as E
+    from models_tpu_torch.ops import scatter as S
+
+    ids = torch.as_tensor(skewed_ids(ROUTE_IDS, R, SEED + R), device=dev)
+    sids, first = O.looked_up_rows([ids])
+    table = torch.empty(R, D, device=dev).uniform_(-0.05, 0.05, generator=gen)
+    got = E.row_gather(table, sids)
+    require(torch.equal(raw_bits(got), raw_bits(E.row_gather_plain(table, sids))),
+            f"row route {name}: K9 differs from its plain version")
+    rows = torch.randn(ROUTE_IDS, D, device=dev, generator=gen)
+    got = S.row_scatter_write(table.clone(), sids, rows, first)
+    want = S.row_scatter_write_plain(table.clone(), sids, rows, first)
+    require(torch.equal(raw_bits(got), raw_bits(want)),
+            f"row route {name}: K8a differs from its plain version")
+    errs["row_scatter_write"] = max(errs["row_scatter_write"], max_err(got, want))
+    del got, want, rows
+    params = [torch.nn.Parameter(table.clone()) for _ in range(2)]
+    del table
+    opts = [O.Adagrad([p], 0.05) for p in params]
+    for _ in range(2):
+        # one gradient for both, as F.embedding's backward leaves it: +0 at
+        # every row no id took
+        grad = torch.zeros_like(params[0]).index_add_(
+            0, ids.long(), torch.randn(ROUTE_IDS, D, device=dev, generator=gen))
+        for i, (p, o) in enumerate(zip(params, opts)):
+            p.grad = grad.clone()
+            o.step(lookups={p: [ids]} if i == 0 else None)
+        del grad
+    (a, b), (sa, sb) = params, (o.state[p]["sum"] for o, p in zip(opts, params))
+    require(torch.equal(raw_bits(a.detach()), raw_bits(b.detach()))
+            and torch.equal(raw_bits(sa), raw_bits(sb)),
+            f"row route {name}: the routed Adagrad step differs from the dense step")
+    return {"rows": R, "dim": D, "ids": ROUTE_IDS, "distinct": int(first.sum())}
+
+
+def captured(fn):
+    """``fn`` captured as a CUDA graph, after two warm-up calls on a side
+    stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def route_step_us(dev, gen, shapes) -> dict:
+    """One Adagrad step of tables of ``shapes`` ((R, D, N): an R x D table
+    looked up at N skewed ids), beside a 512 x 512 parameter that shares
+    their ``_foreach`` launches, densely and on the row route: each captured
+    as a CUDA graph, device microseconds a replay (back-to-back replays,
+    CUDA events)."""
+    from models_tpu_torch.blocks import optimizer as O
+
+    mlp = torch.nn.Parameter(torch.randn(512, 512, device=dev, generator=gen))
+    mlp.grad = torch.randn_like(mlp)
+    lookups = {}
+    for R, D, N in shapes:
+        table = torch.nn.Parameter(torch.empty(R, D, device=dev).uniform_(-0.05, 0.05,
+                                                                          generator=gen))
+        ids = torch.as_tensor(skewed_ids(N, R, SEED + N + R), device=dev)
+        torch.nn.functional.embedding(ids.long(), table).backward(
+            torch.randn(N, D, device=dev, generator=gen))
+        lookups[table] = [ids]
+    out = {}
+    for tag, routed in (("dense", None), ("route", lookups)):
+        opt = O.Adagrad([mlp, *lookups], 0.05)
+        graph = captured(lambda: opt.step(lookups=routed))
+        out[f"{tag}_us"] = cuda_ms(graph.replay, reps=200, warmup=10) * 1e3
+        del graph, opt
+    return out
+
+
+def phase_row_route(dev, gen, errs) -> dict:
+    """The row route (the dense Adagrad or SGD at a lookup-only table's
+    looked-up rows): its kernels and its step at the bench's tables
+    (route_case), then the step's device time on the route and densely at
+    each of ROUTE_TIMED's shapes (route_step_us), the measurement the
+    route's cutoff (``models/base.py``) rests on."""
+    out = {"cases": {name: route_case(dev, gen, name, R, D, errs)
+                     for name, R, D in ROUTE_CASES}}
+    torch.cuda.empty_cache()
+    print(f"  K9, K8a and the routed Adagrad step bit-equal to their plain versions and the "
+          f"dense step: {json.dumps(out['cases'])}", flush=True)
+    timed = {}
+    for what, shapes in ROUTE_TIMED:
+        timed[what] = {"tables": shapes, **route_step_us(dev, gen, shapes)}
+        torch.cuda.empty_cache()
+    out["timed"] = timed
+    print("  the step's device time, dense / row route (us): " + "; ".join(
+        f"{w} {v['dense_us']:.2f} / {v['route_us']:.2f}" for w, v in timed.items()), flush=True)
+    return out
+
+
 def measure_int8(dev, enc, q4096, launches, errs):
     """K5 and K6 int8 timed on the inputs the int8 serving path gives them:
     the int8 index of the catalog, the 256-row request's quantized queries and
@@ -3799,8 +3942,33 @@ def spe_data(batches: int):
 
 def route_launches() -> dict:
     from models_tpu_torch.ops import embedding_lookup as E
+    from models_tpu_torch.ops import scatter as S
 
-    return {**flash_launches(), **flash_launches_bf16(), "row_gather": E.row_gather.launches}
+    return {**flash_launches(), **flash_launches_bf16(), "row_gather": E.row_gather.launches,
+            "row_scatter_write": S.row_scatter_write.launches}
+
+
+def row_route(model, steps: int = 1) -> dict:
+    """The row route's launches in ``steps`` steps of ``model`` (the dense
+    Adagrad or SGD at a lookup-only table's looked-up rows,
+    ``blocks/optimizer.py``), issued or replayed: each routed table's step
+    gathers (K9) its rows, its gradient's and each slot's, and writes (K8a)
+    its rows and each slot's back."""
+    from models_tpu_torch.blocks.optimizer import MultiStep
+
+    opt, routes = model._optimizer, model._row_routes or frozenset()
+    k9 = k8 = 0
+    for o in (opt.optimizers.values() if isinstance(opt, MultiStep) else [opt]):
+        n = sum(p in routes for g in o.param_groups for p in g["params"])
+        slots = len(getattr(o, "slots", ()))
+        k9, k8 = k9 + n * (2 + slots), k8 + n * (1 + slots)
+    return {"row_gather": k9 * steps, "row_scatter_write": k8 * steps}
+
+
+def routed_tables(model) -> list:
+    """The columns (block names) of the tables the row route steps."""
+    routes = model._row_routes or frozenset()
+    return sorted(n.split(".")[-2] for n, p in model.named_parameters() if p in routes)
 
 
 def zero_route_launches() -> None:
@@ -3940,7 +4108,10 @@ def replayed_fit(model, data, epochs, steps, what, batch=TRAIN_BATCH, pre=None):
 def traced_replays(model, data, steps, want, what, batch=TRAIN_BATCH, pre=None) -> dict:
     """The device's busy share of a traced fit of one epoch of replays and the
     launches its trace shows (profile_launches): each of ``want``'s kernels
-    that many times, the route's others never, and no wrapper called."""
+    that many times, and the row route's K9 and K8a besides (row_route), the
+    route's others never, and no wrapper called."""
+    route = row_route(model, steps)
+    want = {**want, **{n: want.get(n, 0) + v for n, v in route.items()}}
     out = profile_launches(
         lambda: model.fit(data, epochs=1, batch_size=batch, shuffle=False, pre=pre), steps,
         want, what)
@@ -4089,15 +4260,23 @@ def phase_steps_per_execution(dev, catalog, card):
     dp = param_spread(mg, m1)[0]
     require(dp <= PARAM_ATOL, f"(a): parameters {dp} from one step at a time")
     k, steps = 8, 2 * 16
+    # the row route steps userId (162,542 x 128) and movieId (56,681 x 128)
+    # at the 8192 ids a step looks up in each; genres (24 rows) densely
+    for tag, m in (("graph", mg), ("eager", me), ("spe1", m1), ("graph_det", md)):
+        require(routed_tables(m) == ["movieId", "userId"],
+                f"(a) {tag}: the row route steps {routed_tables(m)}")
     for tag, (_, _, ln, _) in runs.items():
-        # (K9, each of K1-K3) the wrappers issue: the graph route's eager
-        # chunk and captured chunk, eagerly every chunk and step
+        # (K9 on the pack, each of K1-K3) the wrappers issue: the graph
+        # route's eager chunk and captured chunk, eagerly every chunk and
+        # step; the row route's K9 and K8a at each step issued
         want = {"graph": (2, 2 * k), "graph_det": (2, 2 * k), "spe1": (0, steps)}.get(
             tag, (steps // k, steps))
+        route = row_route(mg, want[1])
         require(all(ln[n] == want[1] for n in ("lse_forward", "grad_query", "grad_neg"))
-                and ln["row_gather"] == want[0],
-                f"(a) {tag}: the wrappers issued {ln} in {steps} steps, want K9 {want[0]} and "
-                f"K1-K3 {want[1]} times")
+                and ln["row_gather"] == want[0] + route["row_gather"]
+                and ln["row_scatter_write"] == route["row_scatter_write"],
+                f"(a) {tag}: the wrappers issued {ln} in {steps} steps, want K9 {want[0]} on "
+                f"the pack, K1-K3 {want[1]} times and the row route's {route}")
     out["dense_params_max_abs_from_spe1"] = dp
     del md, runs
     hist, wall, ms = replayed_fit(mg, data, 2, steps, "(a)")
@@ -4160,7 +4339,11 @@ def phase_steps_per_execution(dev, catalog, card):
           f"{ {k: hm[k] for k in keys} }; graphs {graph_stats(mm)}", flush=True)
     require(sorted(hm) == sorted(hx) and "recall_at_10" in hm, f"(c): keys {sorted(hm)}")
     require(all(hm[k] == hx[k] for k in keys), "(c): graph and eager histories differ")
-    require(len(mm._chunk_graphs) == 1 and lm["row_gather"] == 2 and lx["row_gather"] == 3,
+    # K9: the pack's, once a chunk issued (the eager chunk and the capture;
+    # eagerly 3 chunks), and the row route's at each of their 8 / 12 steps
+    require(len(mm._chunk_graphs) == 1
+            and lm["row_gather"] == 2 + row_route(mm, 8)["row_gather"]
+            and lx["row_gather"] == 3 + row_route(mx, 12)["row_gather"],
             f"(c): {len(mm._chunk_graphs)} graphs, launches {lm} / {lx}")
     out["metrics_graphs"] = graph_stats(mm)
     del mm, mx
@@ -4177,6 +4360,8 @@ def phase_steps_per_execution(dev, catalog, card):
     out["phase_s"] = time.perf_counter() - t_phase
     traced = {**dense["launches_traced"],
               **{n: v for n, v in pipe_trace["launches_traced"].items() if n.endswith("_bf16")}}
+    # (a)'s K8 launches are the row route's fp32 writes (K8a)
+    traced["row_scatter_write_fp32"] = traced.pop("row_scatter_write")
     return launches, traced, out
 
 
@@ -4268,8 +4453,13 @@ def phase_dlrm(dev, card):
     # (b) the graph route; its K9 launches counted from zero by spe_fit
     _, mg, lg, le = graph_vs_eager(dev, None, data, 2, f"(b) DLRM, {DLRM_SPE} steps a chunk",
                                    make=make, metrics=[], steps_per_execution=DLRM_SPE)
-    require(lg["row_gather"] == 2 and le["row_gather"] == 2 * DLRM_BATCHES // DLRM_SPE,
-            f"(b): K9 issued {lg['row_gather']} (graph) / {le['row_gather']} (eager) times")
+    # criteo-small's 26 columns share one fused table of 26,208 rows, looked
+    # up 26 x 8192 times a step: more ids than half its rows, so no row route
+    require(lg["row_gather"] == 2 and le["row_gather"] == 2 * DLRM_BATCHES // DLRM_SPE
+            and lg["row_scatter_write"] == le["row_scatter_write"] == 0
+            and not routed_tables(mg),
+            f"(b): K9 issued {lg['row_gather']} (graph) / {le['row_gather']} (eager) times, "
+            f"the row route on {routed_tables(mg)}")
     pack = data._device_train_pack
     require(pack is not None and tuple(pack.packed.shape) == (DLRM_BATCHES * TRAIN_BATCH, 40),
             f"(b): the pack is {None if pack is None else tuple(pack.packed.shape)}")
@@ -5626,8 +5816,13 @@ def phase_multi_task(dev, gen, card, errs):
     routed = sorted(t.block_name for t in model._sparse_tables)
     k7 = S.row_scatter_add.launches
     require(routed == ["item_id", "user_id", "user_intentions"], f"(c): routed {routed}")
+    # the dense adagrad's tables (at most 10,000 x 32) are too small for the
+    # row route (ROW_ROUTE_MIN_ELEMENTS): no K8a
+    rows = routed_tables(model)
+    require(not rows, f"(c): the row route steps {rows}")
     require(k7 == 2 * len(routed) * MT_SPARSE_STEPS and S.row_scatter_write.launches == 0,
-            f"(c): K7 launched {k7} times in {MT_SPARSE_STEPS} steps")
+            f"(c): K7 launched {k7} times, K8 {S.row_scatter_write.launches} in "
+            f"{MT_SPARSE_STEPS} steps")
     require(all(np.isfinite(hist.history["loss"])), "(c): non-finite loss")
     require(all(not torch.equal(before[n], model._embedding_tables()[i].table)
                 for i, n in enumerate(before)), "(c): a table did not move")
@@ -5874,8 +6069,12 @@ def phase_wide_and_deep(dev, gen, card, errs):
 
     _, mg, lg, le = graph_vs_eager(dev, None, data, 2, f"(a) W&D, {WD_SPE} steps a chunk",
                                    make=make, metrics=[], steps_per_execution=WD_SPE)
-    require(lg["row_gather"] == 2 and le["row_gather"] == 2 * WD_BATCHES // WD_SPE,
-            f"(a): K9 issued {lg['row_gather']} (graph) / {le['row_gather']} (eager) times")
+    # each of the 26 deep tables has fewer than 2 x 8192 rows: no row route
+    require(lg["row_gather"] == 2 and le["row_gather"] == 2 * WD_BATCHES // WD_SPE
+            and lg["row_scatter_write"] == le["row_scatter_write"] == 0
+            and not routed_tables(mg),
+            f"(a): K9 issued {lg['row_gather']} (graph) / {le['row_gather']} (eager) times, "
+            f"the row route on {routed_tables(mg)}")
     pack = data._device_train_pack
     require(pack is not None and tuple(pack.packed.shape) == (WD_BATCHES * TRAIN_BATCH, 40),
             f"(a): the pack is {None if pack is None else tuple(pack.packed.shape)}")
@@ -8358,6 +8557,8 @@ def main() -> int:
     rows += measure_row_scatter(dev, gen, row_launches, errs)
     rows.append(measure_scatter_write_fp32(dev, gen, errs,
                                            sparse_runs["fp32"]["row_scatter_write"]))
+    # K8a's launches on the row route: phase 6d's (a), graph route, issued
+    rows[-1]["launches_row_route"] = spe_launches["row_scatter_write"]
 
     stamp("phase 10: the row gather through its entry point")
     from models_tpu_torch.ops import embedding_lookup as E
@@ -8376,6 +8577,11 @@ def main() -> int:
     del tables, out
     torch.cuda.empty_cache()
     rows.append(measure_gather(dev, gen, spe_launches["row_gather"], errs))
+
+    stamp("phase 10b: the row route: K9, K8a and the routed step at the bench's tables, "
+          "its step timed against the dense step")
+    row_route_out = phase_row_route(dev, gen, errs)
+    print("row_route " + json.dumps(row_route_out), flush=True)
 
     stamp("phase 11: evaluation (fit with metrics, in-batch and corpus evaluate)")
     emodel, edata, _, eval_launches = phase_evaluate(dev, catalog)

@@ -30,6 +30,15 @@ adam term for term). :func:`low_precision_optimizer_state`
 bf16 at rest. :class:`MultiOptimizer` sends parameters to different
 optimizers by rule.
 
+The dense adagrad and sgd step an embedding table whose gradient is +0 at
+every row its step did not look up at the looked-up rows alone (the row
+route, :class:`_Foreach`): the same ``_foreach`` arithmetic on the gathered
+rows, the same result bit for bit, without rewriting every row of the table
+and its slot. ``Model.train_step`` chooses the tables (``models/base.py``;
+:func:`row_route_params` says which parameters may take it). Adam
+and the chains are never routed: their moments, or their decay, move at a
+zero gradient. Nor is a :class:`LowPrecisionState`, or a mesh.
+
 The row-sparse embedding optimizer (:class:`SparseEmbeddingOptimizer`,
 ``compile(embedding_optimizer=...)``) updates only the rows a batch looked
 up, and their slots, through the row scatters of ``ops/scatter.py`` (K7, K8).
@@ -48,7 +57,9 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Un
 import torch
 
 from ..inputs.embedding import SparseSlots
-from ..ops.scatter import dedup_rows, row_scatter_add, row_scatter_write, stochastic_round
+from ..ops.embedding_lookup import row_gather
+from ..ops.scatter import (dedup_rows, row_scatter_add, row_scatter_write, run_starts,
+                           stochastic_round)
 
 DENSE_OPTIMIZERS = ("adagrad", "adam", "adamw", "adafactor", "lamb", "rmsprop", "sgd")
 SPARSE_KINDS = ("sgd", "adagrad", "adam")
@@ -62,7 +73,25 @@ class _Foreach(torch.optim.Optimizer):
     (optax's schedule), evaluated inside the step from an int32 ``step`` that
     each parameter then keeps on its device, so that a captured chunk
     replays the schedule. Only a schedule reads the count, so only a
-    schedule keeps it."""
+    schedule keeps it.
+
+    The row route: ``step(lookups=)`` names, for some of the parameters
+    (float32 (R, D) tables), the ids the step looked up in them. Such a
+    table is stepped at those rows alone: the ids sorted, the first of each
+    run marked, its rows, its slots' rows and its gradient's rows gathered
+    (K9), the same ``_foreach`` calls run on those (N, D) rows beside the
+    group's other parameters, and the table's and slots' rows written back
+    (K8a). Where the caller has made sure that the gradient is +0 at every
+    other row, as ``F.embedding``'s backward leaves it, this is the dense
+    step bit for bit: there the dense step stores what is already there
+    (``acc + 0 * 0 = acc``; ``rsqrt(acc + 1e-7) * 0 = 0``, ``acc`` at least
+    0.1; ``p + 0 * -lr = p`` for a rate at least 0, since ``x + -0 = x``
+    for every x, ±0 too), and at the looked-up rows the same elementwise
+    kernels see the same values. The rate, the schedule and its count are
+    the dense step's."""
+
+    # the per-row slots a step moves (gathered and written back on the row route)
+    slots: Tuple[str, ...] = ()
 
     def __init__(self, params: Iterable[torch.Tensor], lr):
         super().__init__(params, dict(lr=lr))
@@ -76,13 +105,18 @@ class _Foreach(torch.optim.Optimizer):
     def _init_slots(self, p: torch.Tensor, state: dict) -> None:
         pass
 
-    def _direction(self, params: list, grads: list) -> list:
-        """The update before the rate: new tensors (the slots moved in
-        place)."""
+    def _direction(self, states: list, grads: list) -> list:
+        """The update before the rate: new tensors (the slots of ``states``,
+        one dict a parameter, moved in place)."""
         raise NotImplementedError
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None,
+             lookups: Optional[Dict[torch.Tensor, List[torch.Tensor]]] = None):
+        """One update of every parameter with a gradient; ``lookups``: the
+        row route's tables, each with the ids its step looked up (the
+        class's note)."""
+        lookups = lookups or {}
         for group in self.param_groups:
             lr, rate = group["lr"], None
             if callable(lr):
@@ -92,22 +126,51 @@ class _Foreach(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
-            u = self._direction(params, [p.grad for p in params])
+            targets, states, grads, writes = [], [], [], []
+            for p in params:
+                ids = lookups.get(p)
+                if ids is None:
+                    targets.append(p)
+                    states.append(self.state[p])
+                    grads.append(p.grad)
+                    continue
+                sids, first = looked_up_rows(ids)
+                rows = {k: row_gather(self.state[p][k], sids) for k in self.slots}
+                targets.append(row_gather(p, sids))
+                states.append(rows)
+                grads.append(row_gather(p.grad, sids))
+                writes.append((p, rows, targets[-1], sids, first))
+            u = self._direction(states, grads)
             if rate is None:
-                torch._foreach_add_(params, u, alpha=-lr)
+                torch._foreach_add_(targets, u, alpha=-lr)
             else:
-                torch._foreach_add_(params, torch._foreach_mul(u, rate))
+                torch._foreach_add_(targets, torch._foreach_mul(u, rate))
+            for p, rows, new, sids, first in writes:
+                row_scatter_write(p, sids, new, first)
+                for k in self.slots:
+                    row_scatter_write(self.state[p][k], sids, rows[k], first)
+
+
+def looked_up_rows(ids: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the ids of a table's lookups sorted, int32 (N,); True at the first
+    position of each run of equal ids (N,)), N the lookups' ids in all: no
+    shape depends on the data."""
+    flat = torch.cat([i.reshape(-1) for i in ids]) if len(ids) > 1 else ids[0].reshape(-1)
+    sids = torch.sort(flat.to(torch.int32)).values
+    return sids, run_starts(sids)
 
 
 class Adagrad(_Foreach):
     """optax.adagrad: the accumulator from 0.1, ``acc += g * g``, the update
     ``rsqrt(acc + 1e-7) * g * -lr``."""
 
+    slots = ("sum",)
+
     def _init_slots(self, p, state):
         state["sum"] = torch.full_like(p, 0.1)
 
-    def _direction(self, params, grads):
-        acc = [self.state[p]["sum"] for p in params]
+    def _direction(self, states, grads):
+        acc = [st["sum"] for st in states]
         torch._foreach_addcmul_(acc, grads, grads)
         scale = torch._foreach_add(acc, 1e-7)
         torch._foreach_rsqrt_(scale)
@@ -118,8 +181,19 @@ class Adagrad(_Foreach):
 class SGD(_Foreach):
     """optax.sgd: the update ``g * -lr``."""
 
-    def _direction(self, params, grads):
+    def _direction(self, states, grads):
         return grads
+
+
+def row_route_params(optimizer) -> set:
+    """The parameters the row route may step: the float32 ones of an
+    :class:`Adagrad` or :class:`SGD`, alone or in a :class:`MultiStep`.
+    None of Adam's (its moments move at a zero gradient), nor under
+    :class:`LowPrecisionState` (whose up-cast of the slots stays
+    table-sized)."""
+    opts = optimizer.optimizers.values() if isinstance(optimizer, MultiStep) else [optimizer]
+    return {p for opt in opts if isinstance(opt, _Foreach)
+            for group in opt.param_groups for p in group["params"] if p.dtype == torch.float32}
 
 
 # optax 0.2.6's defaults of the chains below, the only values the JAX
@@ -499,9 +573,11 @@ class MultiStep:
     def param_groups(self) -> list:
         return [g for opt in self.optimizers.values() for g in opt.param_groups]
 
-    def step(self, closure=None) -> None:
+    def step(self, closure=None, lookups=None) -> None:
+        """Each optimizer's step; ``lookups`` go to the :class:`Adagrad` and
+        :class:`SGD` among them (the row route)."""
         for opt in self.optimizers.values():
-            opt.step()
+            opt.step(lookups=lookups) if isinstance(opt, _Foreach) else opt.step()
 
     def state_dict(self) -> dict:
         """Each optimizer's ``state_dict()`` under ``state``, by rule index."""

@@ -28,6 +28,13 @@ its (B, F) offset ids. ``key`` names the lookup's site as the JAX package
 keys its taps: the column's name, ``"pos"`` and ``"neg"`` for a tied
 head's positives and sampled negatives, ``""`` for a fused table.
 
+In a training step each plain lookup (``F.embedding``: neither row-sparse
+nor sharded) records ``(table, ids)`` in the context's ``row_lookups``, the
+ids as ``F.embedding`` took them (a fused table's (B, F) offset ids, a
+sequence column's padded (B, L) ids, once a site): off a mesh the dense
+Adagrad or SGD may then step the table at those rows alone (the row route,
+``blocks/optimizer.py``, chosen by ``Model.train_step``).
+
 ``l2_reg`` adds ``l2_reg * sum(table**2)`` (padding rows included) to the
 training loss (:meth:`EmbeddingTable.regularization_loss`); a row-sparse
 table's term is a constant, as the JAX package's sparse step takes no
@@ -220,7 +227,11 @@ class EmbeddingTable(Block):
         # F.embedding, not table[ids]: its backward sums repeated ids by
         # sorting them, where the indexing backward serialises each repeated
         # row (genres: 21 rows take every list entry of a batch)
-        return self._cast_up(F.embedding(ids.long(), self.table))
+        rows = F.embedding(ids.long(), self.table)
+        looked_up = context.get("row_lookups") if context is not None else None
+        if looked_up is not None:
+            looked_up.append((self.table, ids))
+        return self._cast_up(rows)
 
     def _sharded_lookup(self, ids, context, lookups, key: str):
         """The lookup of a table split over a mesh (the module's note)."""

@@ -23,6 +23,28 @@ others with False, so that it takes its fused loss. Metric states stay on
 the device; each epoch (and each ``evaluate``) copies its losses and metric
 results to the host once.
 
+The dense step of an Adagrad or SGD takes the row route
+(``blocks/optimizer.py``) for each embedding table whose gradient only its
+plain lookups give, and then moves only the rows the step looked up, with
+the dense step's result bit for bit: the dense gradient is +0 at every other
+row, where the dense step stores what is already there. Each plain lookup
+records (table, ids) in the context's ``row_lookups``. At the first step
+after the optimizer is built (or its state armed), which runs eagerly
+before any capture, the step walks the loss's autograd graph once and
+routes a table when its gradient is reached only from as many
+``F.embedding`` backward nodes as it has lookups (a tied head's product or
+an ``l2_reg`` term leave it dense), its parameter is float32 in an Adagrad or
+SGD (not under ``optimizer_state_dtype``), the fit is not on a mesh (there
+the all-reduced gradient holds rows other ranks looked up), and it pays:
+the step's ids N are at most half its rows R (the route costs ~23 accesses
+a looked-up element, the dense step 13 a table element), and the table
+holds at least ``ROW_ROUTE_MIN_ELEMENTS`` elements (the route's fixed cost
+a table, measured on an H100). The dense ``.grad`` stays as the backward
+makes it. Counters (``utils/trace.py``):
+``optimizer.row_tables`` and ``optimizer.dense_tables`` at the choice,
+``optimizer.row_lookups`` (N summed over the routed tables) at each step the
+host runs, eagerly or in a capture (a replay runs no Python).
+
 ``compile(steps_per_execution=k)`` runs k steps a chunk, as the JAX package
 does, and only without an embedding optimizer (the row-sparse step stays one
 step at a time). Where the dataset's columns fit (at most 2 GiB packed),
@@ -98,7 +120,7 @@ from torch import nn
 from ..blocks.mlp import LazyMixin
 from ..blocks.optimizer import (MultiOptimizer, SparseEmbeddingOptimizer, check_optimizer,
                                 low_precision_optimizer_state, make_optimizer,
-                                split_embeddings_on_size, state_dtype)
+                                row_route_params, split_embeddings_on_size, state_dtype)
 from ..core.block import Block, as_block, call_block
 from ..core.device import check_module_device
 from ..core.policy import get_dtype_policy
@@ -134,6 +156,12 @@ _COPY_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 # an eval set of more batches takes chunks of this many and one shorter
 # chunk for the rest, so at most two captures a (dataset, batch size)
 EVAL_CHUNK_BATCHES = 64
+# the smallest table (R x D elements) the row route steps: on an H100, with
+# the step replayed as a CUDA graph, a routed table costs ~65 us a step (the
+# ids' sort, their runs, 3 gathers, 2 writes) where the dense step costs
+# ~16 ps a table element (chip_smoke.py's phase 10b: the two break even at
+# ~4.3M elements at D = 64, ~4.9M at 128, ~2.9M at 32)
+ROW_ROUTE_MIN_ELEMENTS = 1 << 22
 
 
 class DevicePack(NamedTuple):
@@ -371,6 +399,33 @@ def _upload(packed: np.ndarray, dev: torch.device) -> torch.Tensor:
     trace.count("h2d.bytes", packed.nbytes)
     with trace.span("pack.upload"):
         return torch.as_tensor(packed, device=dev)
+
+
+def _lookup_only(loss: torch.Tensor, lookups: Dict[torch.Tensor, int]) -> frozenset:
+    """Of the tables ``lookups`` names (each with the lookups recorded in
+    it), those whose every gradient path in ``loss``'s autograd graph is one
+    of that many ``F.embedding`` backward nodes: a gradient that is +0 at
+    every row no lookup took. Any other use of the table (a tied head's
+    product, an ``l2_reg`` term, a slice) leaves it out."""
+    found = dict.fromkeys(lookups, 0)
+    other, seen, stack = set(), set(), [loss.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        embedding = fn.name() == "EmbeddingBackward0"
+        for nxt, _ in fn.next_functions:
+            if nxt is None:
+                continue
+            var = getattr(nxt, "variable", None)
+            if var is not None and var in found:
+                if embedding:
+                    found[var] += 1
+                else:
+                    other.add(var)
+            stack.append(nxt)
+    return frozenset(t for t, k in found.items() if t not in other and k == lookups[t])
 
 
 class History:
@@ -821,6 +876,46 @@ class BaseModel(Block):
                     grad = all_gather(grad.reshape(-1, grad.shape[-1]).float(), g) / g.size
                 self._emb_opt.apply(table, ids, grad, self._step)
 
+    def _row_lookups(self, loss: torch.Tensor, recorded: list
+                     ) -> Dict[torch.Tensor, List[torch.Tensor]]:
+        """The row route's lookups of this step: {table parameter: [ids of
+        each lookup]} for the tables the dense optimizer steps at their rows
+        (the module's note), chosen at the optimizer's first step."""
+        if self._row_routes is None:
+            self._row_routes = self._choose_row_tables(loss, recorded)
+        out: Dict[torch.Tensor, List[torch.Tensor]] = {}
+        for table, ids in recorded:
+            if table in self._row_routes:
+                out.setdefault(table, []).append(ids)
+        if out:
+            trace.count("optimizer.row_lookups",
+                        sum(ids.numel() for found in out.values() for ids in found))
+        return out
+
+    def _choose_row_tables(self, loss: torch.Tensor, recorded: list) -> frozenset:
+        """The tables, among those looked up (``recorded``) and stepped by
+        the dense optimizer, that take the row route: off a mesh, float32
+        parameters of an Adagrad or SGD, at most R / 2 ids looked up a step
+        (N, of R rows), at least ROW_ROUTE_MIN_ELEMENTS elements, and a
+        gradient that only their lookups give (:func:`_lookup_only`).
+        Counts ``optimizer.row_tables`` and ``optimizer.dense_tables``."""
+        stepped = {p for g in self._optimizer.param_groups for p in g["params"]}
+        looked: Dict[torch.Tensor, int] = {}
+        n: Dict[torch.Tensor, int] = {}
+        for t, ids in recorded:
+            if t in stepped:
+                looked[t] = looked.get(t, 0) + 1
+                n[t] = n.get(t, 0) + ids.numel()
+        allowed = row_route_params(self._optimizer) if self._mesh is None else set()
+        # the route's 23 accesses a looked-up element against the dense
+        # step's 13 a table element, and its fixed cost a table
+        candidates = {t: k for t, k in looked.items() if t in allowed
+                      and 2 * n[t] <= t.shape[0] and t.numel() >= ROW_ROUTE_MIN_ELEMENTS}
+        routed = _lookup_only(loss, candidates) if candidates else frozenset()
+        trace.count("optimizer.row_tables", len(routed))
+        trace.count("optimizer.dense_tables", len(looked) - len(routed))
+        return routed
+
     @staticmethod
     def _apply_pre(pre, x, y, training: bool):
         """The ``pre=`` transform on one batch on the device: ``(x, y)``, the
@@ -856,6 +951,7 @@ class BaseModel(Block):
             context["mesh"] = mesh
         if self._sparse_tables:
             context["sparse_lookups"] = []
+        context["row_lookups"] = []
         with data_scope(mesh.group(pmesh.DATA_AXIS) if mesh is not None else None):
             preds = self(x, targets=y, training=True, context=context)
             pred_dict = self._as_pred_dict(preds)
@@ -863,13 +959,17 @@ class BaseModel(Block):
             if with_metrics:
                 self._update_metrics(metric_states, pred_dict, x, task_metrics)
             mark("loss_forward")
+            rows = self._row_lookups(total, context["row_lookups"])
             # every gradient, a frozen parameter's too (it is in no optimizer)
             self.zero_grad(set_to_none=True)
             total.backward()
         if mesh is not None:
             self._reduce_grads(mesh)
         mark("backward")
-        self._optimizer.step()
+        if rows:
+            self._optimizer.step(lookups=rows)
+        else:
+            self._optimizer.step()
         mark("optimizer")
         if self._sparse_tables:
             self._apply_sparse(context["sparse_lookups"])
@@ -1292,6 +1392,8 @@ class BaseModel(Block):
         if self._optimizer_state_dtype is not None:
             self._optimizer = low_precision_optimizer_state(self._optimizer,
                                                             self._optimizer_state_dtype)
+        # the row route's tables, chosen at the new optimizer's first step
+        self._row_routes: Optional[frozenset] = None
 
     @trace.traced("fit")
     def fit(self, data: Union[Dataset, Loader], epochs: int = 1,
@@ -1830,6 +1932,7 @@ class BaseModel(Block):
         self._step = int(global_step)
         self._mesh = mesh
         self._fit_mesh_fp = None if mesh is None else mesh.fingerprint
+        self._row_routes = None  # chosen again for the mesh the next fit trains on
         self._chunk_graphs.clear()
         self._group_graphs.clear()
 

@@ -2,6 +2,8 @@
 
 - :func:`dedup_rows`: sort the ids and segment-sum the rows of equal ids, with
   static shapes (N in, N out), so that every valid scatter target is unique;
+- :func:`run_starts`: of sorted ids, the first position of each run of equal
+  ids (the positions a scatter of unique targets takes);
 - :func:`stochastic_round`: float32 to bfloat16, rounding up with the
   probability of the distance to the lower neighbour, from caller-given noise;
 - :func:`row_scatter_add` (K7): ``table[ids[j]] += updates[j]``, in place;
@@ -39,14 +41,20 @@ def dedup_rows(ids: torch.Tensor, rows: torch.Tensor
     as ``jnp.argsort``; the sum is float32 in another order than
     ``jax.ops.segment_sum`` (``index_add_`` with atomics on CUDA). No output
     shape depends on the data, so nothing waits for the device."""
-    n = ids.shape[0]
     sids, order = torch.sort(ids, stable=True)
     srows = rows.index_select(0, order)
-    start = torch.ones(n, dtype=torch.bool, device=ids.device)
-    start[1:] = sids[1:] != sids[:-1]
+    start = run_starts(sids)
     seg = torch.cumsum(start, 0) - 1
     summed = torch.zeros_like(srows).index_add_(0, seg, srows)
     return sids, summed.index_select(0, seg), start
+
+
+def run_starts(sids: torch.Tensor) -> torch.Tensor:
+    """Of sorted ids (N,): True at the first position of each run of equal
+    ids, (N,) bool."""
+    start = torch.ones(sids.shape[0], dtype=torch.bool, device=sids.device)
+    start[1:] = sids[1:] != sids[:-1]
+    return start
 
 
 def stochastic_round(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
